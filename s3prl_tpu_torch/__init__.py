@@ -8,8 +8,10 @@ kernel's plain PyTorch version. It never imports jax.
 
     from s3prl_tpu_torch import hub
     up = hub.load("hubert_large_ll60k", dtype=torch.bfloat16, flash=True,
-                  device="cuda")
+                  quantize=True, device="cuda")  # int8 W8A8, the serving default
     hs, h_lens = up.apply_standardized(wavs, wav_lens)  # [25, B, T', 1024]
+
+``quantize=False`` gives the bf16 reference-precision path.
 """
 
 __version__ = "0.1.0"

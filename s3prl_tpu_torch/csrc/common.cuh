@@ -25,6 +25,24 @@ __device__ __forceinline__ float gelu_erf(float y) {
   return 0.5f * y * (1.0f + erff(y * 0.70710678118654752f));
 }
 
+// tanh-approximate GELU of the int8 serving path, in f32, as the Pallas
+// kernels write it (s3prl_tpu/kernels/conv_frontend.py:55-57).
+__device__ __forceinline__ float gelu_tanh(float y) {
+  return 0.5f * y * (1.0f + tanhf(0.7978845608028654f * (y + 0.044715f * y * y * y)));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// float -> int8 code: round half to even (rintf, as jnp.round; never
+// roundf, which rounds half away from zero), clipped to [-127, 127].
+__device__ __forceinline__ int8_t quant_code(float v) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(v), -127.f), 127.f));
+}
+
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
 

@@ -6,9 +6,11 @@ kernel for CUDA tensors, and counts its CUDA launches in ``<wrapper>.launches``.
 
 
 def wrappers():
-    """The kernel wrappers of the serving path, in pipeline order."""
+    """The kernel wrappers of the serving paths, in pipeline order: conv0,
+    then the int8 blocks (K1, K2), then the bf16 blocks (K4, K5)."""
     from .conv_frontend import conv0_ln_gelu
-    from .ffn import fused_bf16_ffn
-    from .flash_attention import fused_attention_block_bf16
+    from .ffn import fused_bf16_ffn, fused_int8_ffn
+    from .flash_attention import fused_attention_block, fused_attention_block_bf16
 
-    return (conv0_ln_gelu, fused_attention_block_bf16, fused_bf16_ffn)
+    return (conv0_ln_gelu, fused_attention_block, fused_int8_ffn,
+            fused_attention_block_bf16, fused_bf16_ffn)

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels into one shared library and bind it.
 
-`library()` compiles every ``s3prl_tpu_torch/csrc/*.cu`` with one ``nvcc``
-call for ``sm_90a`` into ``build/s3prl_tpu_torch/<hash of the sources>/`` at
-the root of the checkout, loads the result with ``ctypes`` and declares each
+`library()` compiles every ``s3prl_tpu_torch/csrc/*.cu`` for ``sm_90a``,
+one ``nvcc -c`` per source, all started together, links the objects into
+one library in ``build/s3prl_tpu_torch/<hash of the sources>/`` at the root
+of the checkout, loads it with ``ctypes`` and declares each
 C entry's argument types. The entries take device pointers and the CUDA
 stream as ``void*`` and ints as ``int``, and return ``cudaGetLastError()``
 after their launch; ``launch`` raises when that is not 0.
@@ -28,20 +29,27 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "s3prl_tpu_torch"
 LIB_NAME = "libs3prl_tpu_torch.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argument types (pointers and the stream as void*, ints as int)
 SIGNATURES = {
-    # wav, weight, gamma, beta, out, batch, n_samples, n_frames, is_bf16, stream
-    "s3_conv0_ln_gelu": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # wav, weight, gamma, beta, out, batch, n_samples, n_frames, is_bf16, tanh_mode, stream
+    "s3_conv0_ln_gelu": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, x_is_f32, gamma, beta, out, rows, cols, eps, stream
     "s3_layernorm": (_P, _I, _P, _P, _P, _I, _I, _F, _P),
     # a, w, bias, res, out, out_f32, gelu, M, N, K, stream
     "s3_gemm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # qkv, kv_lens, out, batch, T, heads, scale, stream
     "s3_attention": (_P, _P, _P, _I, _I, _I, _F, _P),
+    # a, lda, w, ldw, M, N, K, row_scale, col_scale, bias, acc_in, res, out,
+    # mode, gelu, out_f32, stream
+    "s3_gemm_s8": (_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, x_is_f32, ld, lo, hi, gamma, beta, eps, q, scale, rows, stream
+    "s3_quant_rows": (_P, _I, _I, _I, _I, _P, _P, _F, _P, _P, _I, _P),
+    # x, cols, q, scale, rows, stream
+    "s3_quant_rows_bf16": (_P, _I, _P, _P, _I, _P),
 }
 
 
@@ -79,16 +87,31 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
+    nvcc = _nvcc()
+    cu = [p for p in sources() if p.suffix == ".cu"]
+    log = []
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / f"{p.stem}.o" for p in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(cu, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for c in cmds]
+        failed = []
+        for c, proc in zip(cmds, procs):
+            out, _ = proc.communicate()
+            log.append(" ".join(c) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(f"{Path(c[-3]).name} ({proc.returncode}):\n{out[-4000:]}")
         tmp_lib = Path(tmp) / LIB_NAME
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_lib), *cu]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        (out_dir / "nvcc.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        if not failed:
+            link = [nvcc, "-shared", "-o", str(tmp_lib), *map(str, objs)]
+            proc = subprocess.run(link, capture_output=True, text=True, check=False)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        (out_dir / "nvcc.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         os.replace(tmp_lib, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
 

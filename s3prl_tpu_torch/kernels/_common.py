@@ -4,16 +4,44 @@ Every kernel wrapper of the port follows one rule: tensors on the CPU go to
 the kernel's plain PyTorch version; CUDA tensors go to the CUDA kernel, or
 the wrapper raises. There is no fallback after a failed launch and no switch.
 
-`layer_norm` and `gemm` launch the row-LN and GEMM kernels that the
-attention-block and FFN-block wrappers are built from; they check what the
-kernels take and raise on anything else.
+`layer_norm`, `gemm`, `gemm_s8`, `quant_rows` and `quant_rows_bf16` launch
+the row-LN, GEMM and row-quantization kernels that the attention-block and
+FFN-block wrappers are built from; they check what the kernels take and
+raise on anything else. `layer_norm_f32` and `gelu_tanh` are the plain
+versions' forms of the Pallas kernels' in-kernel LayerNorm and tanh GELU.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ._build import launch
+
+GEMM_RAW, GEMM_QKV, GEMM_LINEAR = 0, 1, 2  # csrc/gemm_s8.cu epilogue modes
+LN_EPS = 1e-5  # the Pallas kernels' LayerNorm epsilon
+
+
+def _ptr(t: torch.Tensor | None):
+    return t.data_ptr() if t is not None else None
+
+
+def layer_norm_f32(x: torch.Tensor, ln) -> torch.Tensor:
+    """f32 LayerNorm over the last axis as the Pallas kernels write it
+    (s3prl_tpu/kernels/ffn.py:63-66): (x - mean) * rsqrt(var + eps) * g + b
+    with the biased variance; the reciprocal square root is 1 / sqrt, as
+    the CUDA quantizer computes it."""
+    x = x.float()
+    mean = x.mean(-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(-1, keepdim=True)
+    return (x - mean) * (1.0 / torch.sqrt(var + LN_EPS)) * ln[0].float() + ln[1].float()
+
+
+def gelu_tanh(y: torch.Tensor) -> torch.Tensor:
+    """tanh-approximate GELU in f32 (s3prl_tpu/kernels/conv_frontend.py:55-57)."""
+    c = math.sqrt(2.0 / math.pi)
+    return 0.5 * y * (1.0 + torch.tanh(c * (y + 0.044715 * y * y * y)))
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
@@ -82,3 +110,89 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                residual.data_ptr() if residual is not None else None,
                out.data_ptr(), int(out_f32), int(gelu), M, N, K, stream_of(a))
     return out
+
+
+def gemm_s8(a: torch.Tensor, w: torch.Tensor, *, mode: int = GEMM_RAW,
+            row_scale: torch.Tensor | None = None, col_scale: torch.Tensor | None = None,
+            bias: torch.Tensor | None = None, acc_in: torch.Tensor | None = None,
+            residual: torch.Tensor | None = None, gelu: bool = False,
+            out_f32: bool = False, out: torch.Tensor | None = None) -> torch.Tensor:
+    """a [M, K] int8 @ w[N, K]^T int8 (nn.Linear layout) with exact int32
+    sums and one of csrc/gemm_s8.cu's epilogues (CUDA only):
+    GEMM_RAW -> int32; GEMM_QKV -> bf16 bf16(bf16(bf16(acc) * bf16(rs * cs))
+    + bf16(bias)); GEMM_LINEAR -> f32(acc) * rs * cs [acc_in +] [+ bias]
+    [tanh GELU] [+ residual], f32 or bf16. a and w may be column ranges of
+    wider matrices (row strides a.stride(0), w.stride(0)); `out` (may be
+    `acc_in`) receives the result."""
+    M, K = a.shape
+    N, Kw = w.shape
+    if Kw != K:
+        raise ValueError(f"gemm_s8: a has K={K}, w has K={Kw}")
+    for t, name in ((a, "a"), (w, "w")):
+        if t.dtype != torch.int8:
+            raise TypeError(f"gemm_s8 {name}: dtype {t.dtype}, the kernel takes int8")
+        if t.stride(1) != 1 or t.stride(0) % 16 or t.data_ptr() % 16:
+            raise ValueError(f"gemm_s8 {name}: rows must be unit-stride, 16-byte aligned")
+    if K % 16 or N % 8:
+        raise ValueError(f"gemm_s8: K={K} must be a multiple of 16, N={N} of 8")
+    if mode != GEMM_RAW:
+        require(row_scale, "gemm_s8 row_scale", torch.float32, (M,))
+        require(col_scale, "gemm_s8 col_scale", torch.float32, (N,))
+    if mode == GEMM_QKV and bias is None:
+        raise ValueError("gemm_s8: the QKV epilogue needs a bias")
+    if bias is not None:
+        require(bias, "gemm_s8 bias", torch.float32, (N,))
+    if acc_in is not None:
+        require(acc_in, "gemm_s8 acc_in", torch.float32, (M, N))
+    if residual is not None:
+        require(residual, "gemm_s8 residual", torch.bfloat16, (M, N))
+    dtype = {GEMM_RAW: torch.int32, GEMM_QKV: torch.bfloat16}.get(
+        mode, torch.float32 if out_f32 else torch.bfloat16)
+    if out is None:
+        out = torch.empty(M, N, dtype=dtype, device=a.device)
+    require(out, "gemm_s8 out", dtype, (M, N))
+    if M:
+        launch("s3_gemm_s8", a.data_ptr(), a.stride(0), w.data_ptr(), w.stride(0), M, N, K,
+               _ptr(row_scale), _ptr(col_scale), _ptr(bias), _ptr(acc_in), _ptr(residual),
+               out.data_ptr(), mode, int(gelu), int(out_f32), stream_of(a))
+    return out
+
+
+def quant_rows(x: torch.Tensor, ln=None, lo: int = 0, hi: int | None = None,
+               q: torch.Tensor | None = None, scale: torch.Tensor | None = None):
+    """Dynamic per-row int8 of x [R, D] (bf16 or f32) over columns [lo, hi),
+    after an f32 LayerNorm when `ln` = (scale, bias) is given (CUDA only).
+    Codes go to q [R, D] int8 at the same places, scales to scale [R] f32;
+    returns (q, scale)."""
+    rows, cols = x.shape
+    hi = cols if hi is None else hi
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"quant_rows: dtype {x.dtype}, the kernel takes bf16 or f32")
+    require(x, "quant_rows x", x.dtype)
+    if not 0 <= lo < hi <= cols:
+        raise ValueError(f"quant_rows: column range [{lo}, {hi}) of {cols}")
+    if ln is not None:
+        require(ln[0], "quant_rows ln scale", torch.float32, (cols,))
+        require(ln[1], "quant_rows ln bias", torch.float32, (cols,))
+    q = torch.empty(rows, cols, dtype=torch.int8, device=x.device) if q is None else q
+    scale = torch.empty(rows, dtype=torch.float32, device=x.device) if scale is None else scale
+    require(q, "quant_rows q", torch.int8, (rows, cols))
+    require(scale, "quant_rows scale", torch.float32, (rows,))
+    if rows:
+        launch("s3_quant_rows", x.data_ptr(), int(x.dtype == torch.float32), cols, lo, hi,
+               _ptr(ln[0] if ln is not None else None), _ptr(ln[1] if ln is not None else None),
+               LN_EPS, q.data_ptr(), scale.data_ptr(), rows, stream_of(x))
+    return q, scale
+
+
+def quant_rows_bf16(x: torch.Tensor):
+    """K1's context quantization of x [R, C] bf16, in bf16 (CUDA only) ->
+    (int8 [R, C], f32 [R] holding the bf16 scales)."""
+    rows, cols = x.shape
+    require(x, "quant_rows_bf16 x", torch.bfloat16)
+    q = torch.empty(rows, cols, dtype=torch.int8, device=x.device)
+    scale = torch.empty(rows, dtype=torch.float32, device=x.device)
+    if rows:
+        launch("s3_quant_rows_bf16", x.data_ptr(), cols, q.data_ptr(), scale.data_ptr(),
+               rows, stream_of(x))
+    return q, scale

@@ -2,9 +2,11 @@
 s3prl_tpu/models/convfe.py:180, the wav2vec2/HuBERT *-Large front end).
 
 Each layer is an unpadded strided Conv1d -> LayerNorm over channels (f32) ->
-exact GELU, on [B, T, C] activations (the JAX package's layout). Layer 0
-(C_in=1, k=10, s=5, no bias) goes through the `conv0_ln_gelu` kernel; the
-mid convs are stock `F.conv1d`, as the JAX package leaves them to XLA.
+GELU, on [B, T, C] activations (the JAX package's layout). Layer 0 (C_in=1,
+k=10, s=5, no bias) goes through the `conv0_ln_gelu` kernel; the mid convs
+are stock `F.conv1d`, as the JAX package leaves them to XLA. GELU is exact,
+except in int8 serving (``quantize``), which runs the tanh approximation in
+the kernel and in the mid layers (convfe.py:275-289, :344).
 
 On the card, f32 convolutions would run in TF32 unless
 ``torch.backends.cudnn.allow_tf32`` is False; the f32 path assumes the
@@ -62,12 +64,14 @@ class ConvLayer(nn.Sequential):
     def norm(self) -> nn.LayerNorm:
         return self[2][1]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, C_in]
+    def forward(self, x: torch.Tensor, gelu_mode: str = "erf") -> torch.Tensor:
+        """x [B, T, C_in] -> [B, T', C_out]; the f32 LN is cast to x.dtype
+        before the GELU (``approximate`` "none" for erf, "tanh")."""
         conv = self.conv
         y = F.conv1d(x.transpose(1, 2), conv.weight, stride=conv.stride)
         y = F.layer_norm(y.transpose(1, 2).float(), (y.shape[1],),
                          self.norm.weight, self.norm.bias, eps=1e-5)
-        return F.gelu(y.to(x.dtype))
+        return F.gelu(y.to(x.dtype), approximate="tanh" if gelu_mode == "tanh" else "none")
 
 
 class ConvFeatureExtractor(nn.Module):
@@ -80,7 +84,8 @@ class ConvFeatureExtractor(nn.Module):
 
     def __init__(self, conv_layers: Sequence[Tuple[int, int, int]] = DEFAULT_CONV_LAYERS,
                  mode: str = "layer_norm", conv_bias: bool = False,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, quantize: bool = False,
+                 device=None):
         super().__init__()
         if mode != "layer_norm" or conv_bias:
             raise NotImplementedError(
@@ -88,6 +93,7 @@ class ConvFeatureExtractor(nn.Module):
                 "bias-free 'layer_norm' extractor is ported "
                 "(ROADMAP.md Queue 1 item 3)")
         self.dtype = dtype
+        self.quantize = quantize
         layers, c_in = [], 1
         for dim, k, stride in conv_layers:
             layers.append(ConvLayer(c_in, dim, k, stride, device=device))
@@ -98,10 +104,12 @@ class ConvFeatureExtractor(nn.Module):
 
     def forward(self, wavs: torch.Tensor) -> torch.Tensor:
         first, *rest = self.conv_layers
+        # int8 serving runs tanh GELU (serving_tanh, convfe.py:275)
+        gelu_mode = "tanh" if self.quantize and not self.training else "erf"
         # layer 0 through the fused kernel, as convfe.py:276-289 does in extraction
         x = conv0_ln_gelu(wavs.to(self.dtype), first.conv.weight, first.norm.weight,
                           first.norm.bias, stride=first.conv.stride[0],
-                          k=first.conv.kernel_size[0])
+                          k=first.conv.kernel_size[0], gelu_mode=gelu_mode)
         for layer in rest:
-            x = layer(x)
+            x = layer(x, gelu_mode)
         return x

@@ -4,16 +4,28 @@ s3prl_tpu/models/transformer.py, pre-LN blocks).
 Per-layer hidden states come back as the stack of every layer's input plus
 the final LayerNorm's output, [L+1, B, T, C] (transformer.py:743-789).
 
-Routing of a pre-LN `EncoderLayer` (transformer.py:496-557): a bf16 layer
-built with ``use_flash`` whose input the fused kernels can serve (CUDA, see
-`_fused_block_available`) runs the whole attention block through
-`fused_attention_block_bf16` and the whole FFN block through
-`fused_bf16_ffn`; every other case runs the plain module path below. On the
-card, T > MAX_BLOCK_T (the long-utterance kernels K7/K8) and flash attention
-outside the bf16 block path (K7) are not ported yet and raise.
+Routing of a pre-LN `EncoderLayer` (transformer.py:389-563). A layer runs
+"quant serving" when it is built with ``quantize``, is in eval mode and the
+fused kernels can serve its input (CUDA, see `_fused_block_available`):
+- attention: quant serving with ``use_flash`` -> K1 `fused_attention_block`
+  (T <= MAX_BLOCK_T; beyond it K6, not ported yet, raises); a bf16 layer
+  with ``use_flash`` and no ``quantize`` -> K4 `fused_attention_block_bf16`
+  (beyond MAX_BLOCK_T, K7/K8 raise); otherwise the module path: LN, then
+  `SelfAttention` (int8_matmul projections under ``quantize``);
+- FFN: quant serving -> K2 `fused_int8_ffn` with the LN and the residual
+  folded in (eps 1e-5; other eps: module LN, then K2 bare); the bf16 flash
+  layer -> K5 `fused_bf16_ffn`; otherwise fc1 -> erf GELU -> fc2, through
+  int8_matmul under ``quantize``. K2 runs tanh GELU, the module path erf,
+  as in the JAX package.
+On the card, flash attention outside those block paths (K7) is not ported
+yet and raises.
 
 Matrix weights live in the model dtype, biases and norms in f32, as the JAX
-package casts them at use. f32 matmuls on the card need
+package casts them at use. With ``quantize`` the encoder layers keep their
+matrix weights in f32 (the JAX package's param dtype) and hold the int8
+codes and scales quantized once from them (`EncoderLayer.build_qcache`, the
+port's ``qcache``) as non-persistent buffers, so `state_dict()` keeps the
+fairseq keys. f32 matmuls on the card need
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default) to
 match the JAX package's full-f32 products.
 """
@@ -24,8 +36,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..kernels.ffn import fused_bf16_ffn
-from ..kernels.flash_attention import MAX_BLOCK_T, fused_attention_block_bf16
+from ..kernels.ffn import fused_bf16_ffn, fused_int8_ffn
+from ..kernels.flash_attention import (MAX_BLOCK_T, fused_attention_block,
+                                       fused_attention_block_bf16)
+from ..ops.quant import as_quantized_cols, int8_matmul
 
 
 def _fused_block_available(x: torch.Tensor) -> bool:
@@ -43,6 +57,30 @@ def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
 
 def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return F.linear(x, layer.weight, layer.bias.to(x.dtype))
+
+
+class _QCache:
+    """Non-persistent int8 buffers ``<name>_q8`` / ``<name>_scale`` beside
+    the weights they quantize; `qpair(name)` returns the (codes, scales)
+    pair and raises while the cache is not built."""
+
+    def _register_qcache(self, *names: str) -> None:
+        for name in names:
+            self.register_buffer(f"{name}_q8", None, persistent=False)
+            self.register_buffer(f"{name}_scale", None, persistent=False)
+
+    def _store_qcache(self, name: str, w: torch.Tensor) -> None:
+        codes, scales = as_quantized_cols(w.float())
+        setattr(self, f"{name}_q8", codes)
+        setattr(self, f"{name}_scale", scales)
+
+    def qpair(self, name: str):
+        codes = getattr(self, f"{name}_q8")
+        if codes is None:
+            raise RuntimeError(
+                f"the int8 weights of {name} are not built: call build_qcache() "
+                "after the weights are in place")
+        return codes, getattr(self, f"{name}_scale")
 
 
 class ConvPositionalEmbedding(nn.Sequential):
@@ -67,19 +105,24 @@ class ConvPositionalEmbedding(nn.Sequential):
         return F.gelu(y).transpose(1, 2)
 
 
-class SelfAttention(nn.Module):
+class SelfAttention(_QCache, nn.Module):
     """Multi-head self-attention with one fused QKV projection.
 
     The fused weight `qkv_weight` [3C, C] (q, k, v rows stacked, nn.Linear
     layout) is what the kernels read; `state_dict()` and `load_state_dict()`
-    speak fairseq's ``{q,k,v}_proj.{weight,bias}`` keys."""
+    speak fairseq's ``{q,k,v}_proj.{weight,bias}`` keys. With ``quantize``
+    the projections run int8 W8A8 from the cached ``qkv`` and ``out_proj``
+    codes."""
 
-    def __init__(self, embed_dim: int, num_heads: int, device=None):
+    def __init__(self, embed_dim: int, num_heads: int, quantize: bool = False,
+                 device=None):
         super().__init__()
         self.num_heads = num_heads
+        self.quantize = quantize
         self.qkv_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim, device=device))
         self.qkv_bias = nn.Parameter(torch.empty(3 * embed_dim, device=device))
         self.out_proj = nn.Linear(embed_dim, embed_dim, device=device)
+        self._register_qcache("qkv", "out_proj")
 
     def _save_to_state_dict(self, destination, prefix, keep_vars):
         for name, w, b in zip("qkv", self.qkv_weight.chunk(3), self.qkv_bias.chunk(3)):
@@ -97,52 +140,83 @@ class SelfAttention(nn.Module):
                                       missing_keys, unexpected_keys, error_msgs)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
-        """Plain path (transformer.py:186-200 with attention_bthd): x [B, T, C]
+        """Plain path (transformer.py:156-200 with attention_bthd): x [B, T, C]
         in the model dtype, pad_mask [B, T] True on padded keys."""
         B, T, C = x.shape
         H = self.num_heads
         Dh = C // H
-        qkv = F.linear(x, self.qkv_weight, self.qkv_bias.to(x.dtype))
+        if self.quantize:
+            qkv = int8_matmul(x, self.qpair("qkv"), self.qkv_bias)
+        else:
+            qkv = F.linear(x, self.qkv_weight, self.qkv_bias.to(x.dtype))
         q, k, v = qkv.view(B, T, 3, H, Dh).unbind(2)
         q = q * Dh ** -0.5
         scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
         scores = scores.masked_fill(pad_mask[:, None, None, :], -1e9)
         probs = scores.softmax(-1).to(v.dtype)
         out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, C)
+        if self.quantize:
+            return int8_matmul(out, self.qpair("out_proj"), self.out_proj.bias)
         return _linear(out, self.out_proj)
 
 
-class EncoderLayer(nn.Module):
+class EncoderLayer(_QCache, nn.Module):
     """Pre-LN transformer block (wav2vec2_model.py:3214, layer_norm_first).
     The post-LN order (HuBERT-Base) is a later slice (ROADMAP.md Queue 1
     item 5)."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
-                 layer_norm_eps: float = 1e-5, device=None):
+                 quantize: bool = False, layer_norm_eps: float = 1e-5, device=None):
         super().__init__()
         self.dtype = dtype
         self.use_flash = use_flash
+        self.quantize = quantize
         self.num_heads = num_heads
-        self.self_attn = SelfAttention(embed_dim, num_heads, device=device)
+        self.self_attn = SelfAttention(embed_dim, num_heads, quantize, device=device)
         self.self_attn_layer_norm = nn.LayerNorm(embed_dim, eps=layer_norm_eps, device=device)
         self.fc1 = nn.Linear(embed_dim, ffn_dim, device=device)
         self.fc2 = nn.Linear(ffn_dim, embed_dim, device=device)
         self.final_layer_norm = nn.LayerNorm(embed_dim, eps=layer_norm_eps, device=device)
-        for p in (self.self_attn.qkv_weight, self.self_attn.out_proj.weight,
-                  self.fc1.weight, self.fc2.weight):
-            p.data = p.data.to(dtype)
+        self._register_qcache("fc1", "fc2")
+        if quantize:  # f32 weights, quantized once into the cache
+            self.register_load_state_dict_post_hook(lambda m, _: m.build_qcache())
+        else:
+            for p in (self.self_attn.qkv_weight, self.self_attn.out_proj.weight,
+                      self.fc1.weight, self.fc2.weight):
+                p.data = p.data.to(dtype)
+
+    @torch.no_grad()
+    def build_qcache(self) -> None:
+        """Quantizes the four projection weights once, from their f32
+        values, into the int8 cache (the JAX package's ``qcache``
+        collection, upstream/registry.py:117-148). Runs after every
+        `load_state_dict`; call it after setting the weights otherwise."""
+        attn = self.self_attn
+        attn._store_qcache("qkv", attn.qkv_weight)
+        attn._store_qcache("out_proj", attn.out_proj.weight)
+        self._store_qcache("fc1", self.fc1.weight)
+        self._store_qcache("fc2", self.fc2.weight)
 
     def forward(self, x: torch.Tensor, kv_lens: torch.Tensor,
                 pad_mask: torch.Tensor) -> torch.Tensor:
         """x [B, T, C] in the model dtype; kv_lens [B] int32 valid frames;
         pad_mask [B, T] True on padded frames."""
         attn, ln1, ln2 = self.self_attn, self.self_attn_layer_norm, self.final_layer_norm
+        quant_serving = self.quantize and not self.training and _fused_block_available(x)
         fused = (
-            self.dtype == torch.bfloat16 and self.use_flash
+            not self.quantize and self.dtype == torch.bfloat16 and self.use_flash
             and ln1.eps == 1e-5 and _fused_block_available(x)
         )
-        if fused:
+        if quant_serving and self.use_flash:
+            if x.shape[1] > MAX_BLOCK_T:
+                raise NotImplementedError(
+                    f"T={x.shape[1]} > {MAX_BLOCK_T} frames on the int8 path needs "
+                    "K6 fused_qkv_attention_outproj, not ported yet (ROADMAP.md Queue 2)")
+            x = fused_attention_block(
+                x, attn.qpair("qkv"), attn.qkv_bias, (ln1.weight, ln1.bias),
+                attn.qpair("out_proj"), attn.out_proj.bias, kv_lens, self.num_heads)
+        elif fused:
             if x.shape[1] > MAX_BLOCK_T:
                 raise NotImplementedError(
                     f"T={x.shape[1]} > {MAX_BLOCK_T} frames needs the long-utterance "
@@ -159,10 +233,20 @@ class EncoderLayer(nn.Module):
                     "(fused_qkv_attention), not ported yet "
                     "(ROADMAP.md Queue 2)")
             x = x + attn(_layer_norm(x, ln1), pad_mask)
+        if quant_serving and ln2.eps == 1e-5:
+            return fused_int8_ffn(x, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),
+                                  self.fc2.bias, ln=(ln2.weight, ln2.bias), residual=True)
         if fused and self.fc1.out_features % 128 == 0:
             return fused_bf16_ffn(x, self.fc1.weight, self.fc1.bias, self.fc2.weight,
                                   self.fc2.bias, ln=(ln2.weight, ln2.bias), residual=True)
-        h = F.gelu(_linear(_layer_norm(x, ln2), self.fc1))
+        h = _layer_norm(x, ln2)
+        if quant_serving:  # eps != 1e-5: K2 without its LN (transformer.py:422-428)
+            return x + fused_int8_ffn(h, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),
+                                      self.fc2.bias)
+        if self.quantize:
+            h = F.gelu(int8_matmul(h, self.qpair("fc1"), self.fc1.bias))
+            return x + int8_matmul(h, self.qpair("fc2"), self.fc2.bias)
+        h = F.gelu(_linear(h, self.fc1))
         return x + _linear(h, self.fc2)
 
 
@@ -173,7 +257,7 @@ class TransformerEncoder(nn.Module):
     def __init__(self, embed_dim: int = 1024, ffn_dim: int = 4096, num_layers: int = 24,
                  num_heads: int = 16, layer_norm_first: bool = True, conv_pos: int = 128,
                  conv_pos_groups: int = 16, dtype: torch.dtype = torch.float32,
-                 use_flash: bool = False, device=None):
+                 use_flash: bool = False, quantize: bool = False, device=None):
         super().__init__()
         if not layer_norm_first:
             raise NotImplementedError(
@@ -183,7 +267,8 @@ class TransformerEncoder(nn.Module):
                                                 device=device)
         self.pos_conv[0].weight.data = self.pos_conv[0].weight.data.to(dtype)
         self.layers = nn.ModuleList([
-            EncoderLayer(embed_dim, ffn_dim, num_heads, dtype, use_flash, device=device)
+            EncoderLayer(embed_dim, ffn_dim, num_heads, dtype, use_flash, quantize,
+                         device=device)
             for _ in range(num_layers)
         ])
         self.layer_norm = nn.LayerNorm(embed_dim, device=device)

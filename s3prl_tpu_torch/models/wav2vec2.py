@@ -3,8 +3,9 @@
 -> conv-pos-emb transformer, returning [L+1, B, T', C] hidden states and the
 valid frame count of each utterance.
 
-Ported for the HuBERT-Large serving slice: layer-norm extractor, pre-LN
-encoder, the block-folded feature-length rule, no span masking (extraction).
+Ported for the HuBERT-Large serving slices (bf16, and int8 W8A8 with
+``quantize``): layer-norm extractor, pre-LN encoder, the block-folded
+feature-length rule, no span masking (extraction).
 The module names follow fairseq's state_dict keys (see upstream/convert.py).
 """
 
@@ -96,12 +97,15 @@ def _unsupported(cfg: Wav2Vec2Config) -> str | None:
 class Wav2Vec2Trunk(nn.Module):
     """Conv features -> LayerNorm -> proj -> transformer (extraction only).
 
-    Matrix weights are created in `dtype`, biases and norms in f32. Build on
-    ``device="meta"`` and materialise with ``to_empty`` when the weights come
-    from an initialiser or a state_dict."""
+    Matrix weights are created in `dtype`, biases and norms in f32; with
+    ``quantize`` (int8 W8A8 serving: tanh GELU in the extractor, int8
+    encoder projections) the encoder's matrix weights stay f32 and are
+    quantized once by `build_qcache`. Build on ``device="meta"`` and
+    materialise with ``to_empty`` when the weights come from an initialiser
+    or a state_dict."""
 
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype = torch.float32,
-                 use_flash: bool = False, device=None):
+                 use_flash: bool = False, quantize: bool = False, device=None):
         super().__init__()
         reason = _unsupported(cfg)
         if reason is not None:
@@ -111,7 +115,7 @@ class Wav2Vec2Trunk(nn.Module):
         self.dtype = dtype
         self.feature_extractor = ConvFeatureExtractor(
             cfg.conv_feature_layers, cfg.extractor_mode, cfg.conv_bias, dtype,
-            device=device)
+            quantize, device=device)
         embed = cfg.conv_feature_layers[-1][0]
         self.layer_norm = nn.LayerNorm(embed, device=device)
         self.post_extract_proj = None
@@ -124,7 +128,14 @@ class Wav2Vec2Trunk(nn.Module):
         self.encoder = TransformerEncoder(
             cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim, cfg.encoder_layers,
             cfg.encoder_attention_heads, cfg.layer_norm_first, cfg.conv_pos,
-            cfg.conv_pos_groups, dtype, use_flash, device=device)
+            cfg.conv_pos_groups, dtype, use_flash, quantize, device=device)
+
+    def build_qcache(self) -> None:
+        """Quantizes every encoder layer's projections once from their f32
+        weights (a no-op without ``quantize``)."""
+        for layer in self.encoder.layers:
+            if layer.quantize:
+                layer.build_qcache()
 
     def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor):
         """wavs [B, T] padded 16 kHz, wav_lens [B] -> (hidden_states

@@ -1,9 +1,12 @@
 """Named upstream registry (port of s3prl_tpu/upstream/registry.py).
 
-Ported entries: ``hubert_large_ll60k``. Without a checkpoint (loading one is
-a later slice) the weights are random, drawn on the CPU from a
+Ported entries: ``hubert_large_ll60k``, in f32, bf16 and int8 W8A8
+(``quantize=True``, the serving default). Without a checkpoint (loading one
+is a later slice) the weights are random, drawn on the CPU from a
 `torch.Generator` seeded with `seed`, so one seed gives the same model on
-every device.
+every device. With ``quantize`` the encoder's projections are quantized
+once, on the CPU from their f32 values, before the model moves to `device`
+(the JAX package's `_materialize_qcache`, registry.py:117-148).
 """
 
 from __future__ import annotations
@@ -71,16 +74,14 @@ def _init_trunk(model: Wav2Vec2Trunk, gen: torch.Generator) -> Wav2Vec2Trunk:
 def _trunk_upstream(name: str, cfg: Wav2Vec2Config, dtype=torch.float32,
                     flash: bool = False, quantize: bool = False, seed: int = 0,
                     device="cpu", ckpt=None) -> Upstream:
-    if quantize:
-        raise NotImplementedError(
-            "quantize=True (int8 W8A8: ops/quant, kernels K1/K2) is the next "
-            "slice of the port (ROADMAP.md Queue 1 item 4)")
     if ckpt is not None:
         raise NotImplementedError(
             "ckpt= loading is not ported yet (ROADMAP.md Queue 1 item 6)")
-    model = Wav2Vec2Trunk(cfg, dtype=dtype, use_flash=flash, device="meta")
+    model = Wav2Vec2Trunk(cfg, dtype=dtype, use_flash=flash, quantize=quantize,
+                          device="meta")
     model.to_empty(device="cpu")
     _init_trunk(model, torch.Generator().manual_seed(seed))
+    model.build_qcache()
     model.to(device).eval()
     return Upstream(name=name, model=model, num_layers=cfg.encoder_layers + 1,
                     hidden_size=cfg.encoder_embed_dim,

@@ -9,7 +9,9 @@ Tolerances: f32 outputs at atol 1e-4 (sum order only); bf16 outputs at
 cosine > 0.9995 and every element within max(3e-2, one bf16 step at the
 plain value) of it (one step is 0.03125 where outputs reach |v| >= 4): the
 kernel and the plain version sum in other orders, so a value near a
-rounding boundary can land one step apart.
+rounding boundary can land one step apart. int8 sums are exact in any
+order: the int8 GEMM equals torch._int_mm bit for bit, and the quantizers
+equal their plain versions wherever their f32 inputs agree.
 """
 
 import numpy as np
@@ -19,10 +21,13 @@ import torch
 from s3prl_tpu_torch.kernels import _common
 from s3prl_tpu_torch.kernels.conv_frontend import (
     conv0_ln_gelu, conv0_ln_gelu_reference)
-from s3prl_tpu_torch.kernels.ffn import fused_bf16_ffn, fused_bf16_ffn_reference
+from s3prl_tpu_torch.kernels.ffn import (
+    fused_bf16_ffn, fused_bf16_ffn_reference, fused_int8_ffn, fused_int8_ffn_reference)
 from s3prl_tpu_torch.kernels.flash_attention import (
-    attention_reference, fused_attention_block_bf16,
-    fused_attention_block_bf16_reference)
+    attention_reference, fused_attention_block, fused_attention_block_bf16,
+    fused_attention_block_bf16_reference, fused_attention_block_reference,
+    quantize_context_reference)
+from s3prl_tpu_torch.ops.quant import as_quantized_cols, int_mm, quantize_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -176,7 +181,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                       torch.zeros(512))
 
 
-def _tiny_trunk_pair(dtype, flash, dev):
+def _tiny_trunk_pair(dtype, flash, dev, quantize=False):
     """One seed's tiny HuBERT-Large-style trunk on the CPU and on the card
     (conv0 keeps the kernel's 512 channels; head dim 64)."""
     from s3prl_tpu_torch.models.wav2vec2 import Wav2Vec2Config
@@ -187,7 +192,8 @@ def _tiny_trunk_pair(dtype, flash, dev):
         encoder_layers=2, encoder_embed_dim=128, encoder_ffn_embed_dim=256,
         encoder_attention_heads=2, conv_pos=16, conv_pos_groups=4,
         layer_norm_first=True, normalize=True)
-    return [_trunk_upstream("tiny", cfg, dtype=dtype, flash=flash, seed=3, device=d)
+    return [_trunk_upstream("tiny", cfg, dtype=dtype, flash=flash, quantize=quantize, seed=3,
+                            device=d)
             for d in ("cpu", dev)]
 
 
@@ -212,7 +218,7 @@ def test_tiny_trunk_bf16_kernels_match_cpu(dev):
         w.launches = 0
     hs_gpu, hl_gpu = gpu.apply_standardized(wavs.to(dev), lens.to(dev))
     torch.cuda.synchronize()
-    assert [w.launches for w in wrappers()] == [1, 2, 2]
+    assert [w.launches for w in wrappers()] == [1, 0, 0, 2, 2]  # conv0, K1, K2, K4, K5
     hs_cpu, hl_cpu = cpu.apply_standardized(wavs, lens)
     assert hl_gpu.tolist() == hl_cpu.tolist()
     valid = [(b, n) for b, n in enumerate(hl_cpu.tolist())]
@@ -238,3 +244,182 @@ def test_f32_flash_on_the_card_needs_k7(dev):
     wavs, lens = _tiny_batch()
     with pytest.raises(NotImplementedError, match="K7"):
         gpu.apply_standardized(wavs.to(dev), lens.to(dev))
+
+
+def _int8(rng, dev, *shape):
+    return torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8)).to(dev)
+
+
+@pytest.mark.parametrize("M,N,K", [(77, 40, 32), (300, 384, 208), (129, 136, 64),
+                                   (4 * 499, 3072, 1024)])
+def test_gemm_s8_equals_int_mm(dev, M, N, K):
+    """int32 sums are exact in any order: the kernel equals torch._int_mm
+    bit for bit, ragged tiles included."""
+    rng = np.random.RandomState(7)
+    a, w = _int8(rng, dev, M, K), _int8(rng, dev, N, K)
+    got = _common.gemm_s8(a, w)
+    assert got.dtype == torch.int32 and torch.equal(got, int_mm(a, w))
+
+
+def test_gemm_s8_column_ranges(dev):
+    """A K range of wider matrices (K2's fc2 chunks): row strides and
+    offsets, still exact."""
+    rng = np.random.RandomState(8)
+    a, w = _int8(rng, dev, 150, 4096), _int8(rng, dev, 264, 4096)
+    for lo, hi in ((0, 2048), (2048, 4096), (1024, 1040)):
+        got = _common.gemm_s8(a[:, lo:hi], w[:, lo:hi])
+        assert torch.equal(got, int_mm(a[:, lo:hi].contiguous(), w[:, lo:hi].contiguous()))
+
+
+def test_gemm_s8_epilogues(dev):
+    """Each epilogue against its plain formula on the same exact sums."""
+    rng = np.random.RandomState(9)
+    M, N, K = 203, 264, 128
+    a, w = _int8(rng, dev, M, K), _int8(rng, dev, N, K)
+    rs, cs = _t(rng.rand(M) * 0.01, dev), _t(rng.rand(N) * 0.01, dev)
+    bias, prev = _t(rng.randn(N) * 0.1, dev), _t(rng.randn(M, N), dev)
+    res = _t(rng.randn(M, N), dev, torch.bfloat16)
+    acc = int_mm(a, w)
+    bf = torch.bfloat16
+    got = _common.gemm_s8(a, w, mode=_common.GEMM_QKV, row_scale=rs, col_scale=cs, bias=bias)
+    want = acc.to(bf) * (rs[:, None] * cs).to(bf) + bias.to(bf)
+    _close_bf16(got, want)
+    lin = acc.float() * rs[:, None] * cs
+    got = _common.gemm_s8(a, w, mode=_common.GEMM_LINEAR, row_scale=rs, col_scale=cs,
+                          bias=bias, gelu=True, out_f32=True)
+    torch.testing.assert_close(got, _common.gelu_tanh(lin + bias), atol=1e-5, rtol=1e-5)
+    got = _common.gemm_s8(a, w, mode=_common.GEMM_LINEAR, row_scale=rs, col_scale=cs,
+                          bias=bias, acc_in=prev, residual=res)
+    _close_bf16(got, ((prev + lin) + bias + res.float()).to(bf))
+    out = prev.clone()
+    _common.gemm_s8(a, w, mode=_common.GEMM_LINEAR, row_scale=rs, col_scale=cs,
+                    acc_in=out, out_f32=True, out=out)  # in place, as K2's chunks
+    torch.testing.assert_close(out, prev + lin, atol=1e-5, rtol=1e-5)
+
+
+def test_quant_rows_kernel_rounds_ties_half_to_even(dev):
+    x = torch.tensor([[127, 2.5, -2.5, 3.5, -3.5, 0.5, -0.5, 1.5] * 4], device=dev)
+    q, s = _common.quant_rows(x)
+    assert float(s[0]) == 1.0
+    assert q[0].tolist() == torch.round(x[0]).to(torch.int8).tolist()
+    assert q[0, :8].tolist() == [127, 2, -2, 4, -4, 0, 0, 2]
+
+
+@pytest.mark.parametrize("ln", [False, True], ids=["plain", "ln"])
+def test_quant_rows_kernel(dev, ln):
+    """Codes and scales against quantize_rows of the same f32 values; with
+    the LN prologue the two sum the statistics in other orders, so a code
+    at a .5 tie may land one step apart (share printed, bounded)."""
+    rng = np.random.RandomState(10)
+    x = _t(rng.randn(333, 1024) * 2 + 0.5, dev, torch.bfloat16)
+    norm = _ln(rng, dev, 1024) if ln else None
+    q, s = _common.quant_rows(x, ln=norm)
+    xf = _common.layer_norm_f32(x, norm) if ln else x.float()
+    want_q, want_s = quantize_rows(xf)
+    torch.testing.assert_close(s, want_s[:, 0], atol=0, rtol=1e-6)
+    diff = (q.int() - want_q.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3
+    if not ln:
+        assert torch.equal(q, want_q) and torch.equal(s, want_s[:, 0])
+
+
+def test_quant_rows_kernel_column_range(dev):
+    rng = np.random.RandomState(11)
+    h = _t(rng.randn(77, 4096), dev)
+    q = torch.zeros(77, 4096, dtype=torch.int8, device=dev)
+    scale = torch.empty(2, 77, device=dev)
+    for i, (lo, hi) in enumerate(((0, 2048), (2048, 4096))):
+        _common.quant_rows(h, lo=lo, hi=hi, q=q, scale=scale[i])
+        want_q, want_s = quantize_rows(h[:, lo:hi])
+        assert torch.equal(q[:, lo:hi], want_q) and torch.equal(scale[i], want_s[:, 0])
+
+
+def test_quant_rows_bf16_kernel(dev):
+    """K1's bf16 context quantization equals its plain version exactly."""
+    rng = np.random.RandomState(12)
+    x = _t(rng.randn(500, 1024) * np.exp(rng.randn(500, 1)), dev, torch.bfloat16)
+    x[3] = 0  # the bf16(1e-6) floor
+    q, s = _common.quant_rows_bf16(x)
+    want_q, want_s = quantize_context_reference(x)
+    assert torch.equal(q, want_q) and torch.equal(s, want_s[:, 0])
+
+
+def test_conv0_ln_gelu_tanh_kernel(dev):
+    rng = np.random.RandomState(13)
+    wavs = _t(rng.randn(3, 16007), dev, torch.bfloat16)
+    weight = _t(rng.randn(512, 1, 10) / np.sqrt(10), dev, torch.bfloat16)
+    g, b = _ln(rng, dev, 512)
+    got = conv0_ln_gelu(wavs, weight, g, b, gelu_mode="tanh")
+    _close_bf16(got, conv0_ln_gelu_reference(wavs, weight, g, b, gelu_mode="tanh"))
+
+
+def _qpair(rng, dev, C, N):
+    w = _t(rng.randn(N, C) / np.sqrt(C), dev)
+    return as_quantized_cols(w), _t(rng.randn(N) * 0.02, dev)
+
+
+@pytest.mark.parametrize("postnorm", [False, True], ids=["preln", "postnorm"])
+@pytest.mark.parametrize("T", [499, 64])
+def test_int8_attention_block_kernel(dev, postnorm, T):
+    rng = np.random.RandomState(14)
+    B, C, H = 4, 256, 4
+    x = _t(rng.randn(B, T, C) * 0.5, dev, torch.bfloat16)
+    wq, bq = _qpair(rng, dev, C, 3 * C)
+    wo, bo = _qpair(rng, dev, C, C)
+    ln = _ln(rng, dev, C)
+    kv = torch.tensor([T, T, (T * 5) // 8, 1], dtype=torch.int32, device=dev)
+    before = fused_attention_block.launches
+    got = fused_attention_block(x, wq, bq, ln, wo, bo, kv, H, postnorm=postnorm)
+    torch.cuda.synchronize()
+    assert fused_attention_block.launches == before + 1
+    _close_bf16(got, fused_attention_block_reference(x, wq, bq, ln, wo, bo, kv, H,
+                                                     postnorm=postnorm))
+
+
+@pytest.mark.parametrize("ln,residual,postnorm,C,F", [
+    (True, True, False, 256, 1024), (False, False, False, 256, 1024),
+    (True, False, False, 256, 1024), (False, True, False, 256, 1024),
+    (True, True, True, 256, 1024), (True, True, False, 128, 4096)])
+def test_int8_ffn_kernel(dev, ln, residual, postnorm, C, F):
+    rng = np.random.RandomState(15)
+    x = _t(rng.randn(2, 123, C) * 0.5, dev, torch.bfloat16)
+    w1, b1 = _qpair(rng, dev, C, F)
+    w2, b2 = _qpair(rng, dev, F, C)
+    norm = _ln(rng, dev, C) if ln else None
+    before = fused_int8_ffn.launches
+    got = fused_int8_ffn(x, w1, b1, w2, b2, ln=norm, residual=residual, postnorm=postnorm)
+    torch.cuda.synchronize()
+    assert fused_int8_ffn.launches == before + 1
+    _close_bf16(got, fused_int8_ffn_reference(x, w1, b1, w2, b2, ln=norm, residual=residual,
+                                              postnorm=postnorm))
+
+
+def test_tiny_trunk_int8_kernels_match_cpu(dev, monkeypatch):
+    """The int8 routing on the card (K3-tanh + K1 + K2 launches) against the
+    same seed's int8 model on the CPU through the kernel wrappers' plain
+    versions: per-layer cosine > 0.999 over the valid frames."""
+    import s3prl_tpu_torch.models.transformer as port_transformer
+    from s3prl_tpu_torch.kernels import wrappers
+
+    cpu, gpu = _tiny_trunk_pair(torch.bfloat16, True, dev, quantize=True)
+    wavs, lens = _tiny_batch()
+    for w in wrappers():
+        w.launches = 0
+    hs_gpu, hl_gpu = gpu.apply_standardized(wavs.to(dev), lens.to(dev))
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers()] == [1, 2, 2, 0, 0]  # conv0, K1, K2, K4, K5
+    monkeypatch.setattr(port_transformer, "_fused_block_available", lambda x: True)
+    hs_cpu, hl_cpu = cpu.apply_standardized(wavs, lens)
+    assert hl_gpu.tolist() == hl_cpu.tolist()
+    valid = list(enumerate(hl_cpu.tolist()))
+    for layer in range(hs_cpu.shape[0]):
+        a = torch.cat([hs_gpu[layer, b, :n].cpu() for b, n in valid]).double().flatten()
+        c = torch.cat([hs_cpu[layer, b, :n] for b, n in valid]).double().flatten()
+        assert float(a @ c / (a.norm() * c.norm())) > 0.999, layer
+
+
+def test_int8_on_the_card_needs_k6_beyond_512_frames(dev):
+    _, gpu = _tiny_trunk_pair(torch.bfloat16, True, dev, quantize=True)
+    wavs = torch.randn(1, 11000, device=dev)  # 549 frames at stride 20
+    with pytest.raises(NotImplementedError, match="K6"):
+        gpu.apply_standardized(wavs, torch.tensor([11000], device=dev))

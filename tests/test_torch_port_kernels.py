@@ -5,7 +5,13 @@ and through the port's wrapper, which on CPU tensors runs the kernel's plain
 PyTorch version. Weights cross in torch layout (the transposes of the JAX
 kernels' arguments). Tolerances: f32 at atol 1e-4 (sum order); bf16 at
 cosine > 0.9995 over valid rows, the bar of tests/test_kernels.py for the
-Pallas kernels against f32 math.
+Pallas kernels against f32 math. The int8 kernels (K1, K2) take the same
+cosine bar plus every element within INT8_ATOL = 6.25e-2, two bf16 steps at
+|v| in [4, 8): XLA's CPU lowering of the interpreted kernel and the plain
+version round bf16 intermediates and LN sums in other places, which can
+move a value across a .5 tie and so one int8 code by one step. Every test
+runs with the JAX package's default knobs (the `S3PRL_*` variables that
+change its serving path are removed).
 """
 
 import numpy as np
@@ -17,13 +23,26 @@ import jax.numpy as jnp
 import s3prl_tpu.kernels.ffn as jax_ffn
 from s3prl_tpu.kernels.conv_frontend import conv0_ln_gelu as jax_conv0
 from s3prl_tpu.kernels.flash_attention import (
+    fused_attention_block as jax_int8_attn_block,
     fused_attention_block_bf16 as jax_attn_block)
 from s3prl_tpu.ops import masking as jax_masking
 from s3prl_tpu_torch.kernels import _build, wrappers
+from s3prl_tpu_torch.kernels import ffn as port_ffn
 from s3prl_tpu_torch.kernels.conv_frontend import conv0_ln_gelu
-from s3prl_tpu_torch.kernels.ffn import fused_bf16_ffn
-from s3prl_tpu_torch.kernels.flash_attention import fused_attention_block_bf16
+from s3prl_tpu_torch.kernels.ffn import fused_bf16_ffn, fused_int8_ffn
+from s3prl_tpu_torch.kernels.flash_attention import (
+    fused_attention_block, fused_attention_block_bf16)
 from s3prl_tpu_torch.ops import masking
+from s3prl_tpu_torch.ops.quant import as_quantized_cols
+
+INT8_ATOL = 6.25e-2
+JAX_KNOBS = ("S3PRL_GELU", "S3PRL_STATIC_ACT", "S3PRL_INT8_AV", "S3PRL_ATTN_BLOCK")
+
+
+@pytest.fixture(autouse=True)
+def _jax_defaults(monkeypatch):
+    for knob in JAX_KNOBS:
+        monkeypatch.delenv(knob, raising=False)
 
 
 def _cos(a, b):
@@ -146,7 +165,7 @@ def test_wrappers_refuse_mixed_and_unknown_devices():
 def test_build_hashes_every_source():
     names = {p.name for p in _build.sources()}
     assert {"common.cuh", "conv0_ln_gelu.cu", "layernorm.cu", "gemm_bf16.cu",
-            "attention.cu"} <= names
+            "attention.cu", "gemm_s8.cu", "quant_rows.cu"} <= names
     assert len(_build._digest()) == 16
 
 
@@ -167,3 +186,121 @@ def test_length_mask_and_expected_len_match_jax():
         np.asarray(jax_masking.length_mask(jnp.asarray(lens), 7)))
     for n in (1, 319, 320, 321, 160000):
         assert masking.expected_max_feat_len(n, 320) == jax_masking.expected_max_feat_len(n, 320)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_conv0_ln_gelu_tanh_matches_pallas(dtype):
+    """K3's tanh mode (the int8 serving path's GELU)."""
+    rng = np.random.RandomState(7)
+    B, T, C = 2, 3203, 64
+    wav = rng.randn(B, T).astype(np.float32)
+    kernel = (rng.randn(10, 1, C) / np.sqrt(10)).astype(np.float32)
+    g = (1.0 + 0.1 * rng.randn(C)).astype(np.float32)
+    b = (0.1 * rng.randn(C)).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    want = jax_conv0(jnp.asarray(wav, jdt), jnp.asarray(kernel), jnp.asarray(g),
+                     jnp.asarray(b), interpret=True, gelu_mode="tanh")
+    got = conv0_ln_gelu(torch.from_numpy(wav).to(tdt),
+                        torch.from_numpy(kernel.transpose(2, 1, 0).copy()).to(tdt),
+                        torch.from_numpy(g), torch.from_numpy(b), gelu_mode="tanh")
+    assert got.dtype == tdt and tuple(got.shape) == want.shape
+    if dtype == "f32":
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=0)
+    else:
+        assert _cos(_np(got), _np(want)) > 0.9995
+    erf = conv0_ln_gelu(torch.from_numpy(wav).to(tdt),
+                        torch.from_numpy(kernel.transpose(2, 1, 0).copy()).to(tdt),
+                        torch.from_numpy(g), torch.from_numpy(b))
+    assert not torch.equal(erf, got)  # the mode reaches the computation
+
+
+@pytest.mark.parametrize("postnorm", [False, True], ids=["preln", "postnorm"])
+def test_int8_attention_block_matches_pallas(postnorm):
+    """K1 (dynamic scales) against the Pallas kernel in interpret mode, the
+    weights crossing as the load-time (codes, scales) pairs."""
+    B, T, C, H = 3, 77, 128, 4
+    x, wq, bq, wo, bo, g, be = _attn_inputs(2, B, T, C)
+    kv_lens = np.array([77, 41, 1], np.int32)
+    jx, tx = _bf16_pair(x)
+    want = jax_int8_attn_block(jx, jnp.asarray(wq), jnp.asarray(bq),
+                               (jnp.asarray(g), jnp.asarray(be)), jnp.asarray(wo),
+                               jnp.asarray(bo), jnp.asarray(kv_lens), H,
+                               postnorm=postnorm, interpret=True)
+    t = torch.from_numpy
+    got = fused_attention_block(
+        tx, as_quantized_cols(t(wq.T.copy())), t(bq), (t(g), t(be)),
+        as_quantized_cols(t(wo.T.copy())), t(bo), t(kv_lens), H, postnorm=postnorm)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, T, C)
+    for i, n in enumerate(kv_lens):
+        assert _cos(_np(got)[i, :n], _np(want)[i, :n]) > 0.9995, i
+    np.testing.assert_allclose(_np(got), _np(want), atol=INT8_ATOL, rtol=0)
+
+
+def test_int8_attention_block_refuses_static_scales():
+    x, wq, bq, wo, bo, g, be = _attn_inputs(2, 1, 8, 128)
+    t = torch.from_numpy
+    with pytest.raises(NotImplementedError, match="static"):
+        fused_attention_block(t(x).bfloat16(), t(wq.T.copy()), t(bq), (t(g), t(be)),
+                              t(wo.T.copy()), t(bo), torch.tensor([8], dtype=torch.int32), 4,
+                              act_scales=torch.ones(2))
+
+
+def _ffn_inputs(seed, B, T, C, F):
+    rng = np.random.RandomState(seed)
+    arrs = (rng.randn(B, T, C) * 0.5, rng.randn(C, F) / np.sqrt(C), rng.randn(F) * 0.02,
+            rng.randn(F, C) / np.sqrt(F), rng.randn(C) * 0.02, 1.0 + 0.1 * rng.randn(C),
+            0.1 * rng.randn(C))
+    return [np.asarray(a, np.float32) for a in arrs]
+
+
+def _int8_ffn_pair(inputs, ln, residual, postnorm):
+    x, w1, b1, w2, b2, g, be = inputs
+    jx, tx = _bf16_pair(x)
+    want = jax_ffn.fused_int8_ffn(
+        jx, jnp.asarray(w1), jnp.asarray(b1), jnp.asarray(w2), jnp.asarray(b2),
+        ln=(jnp.asarray(g), jnp.asarray(be)) if ln else None, residual=residual,
+        postnorm=postnorm, interpret=True)
+    t = torch.from_numpy
+    got = fused_int8_ffn(
+        tx, as_quantized_cols(t(w1.T.copy())), t(b1), as_quantized_cols(t(w2.T.copy())),
+        t(b2), ln=(t(g), t(be)) if ln else None, residual=residual, postnorm=postnorm)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == tuple(x.shape)
+    return _np(got), _np(want)
+
+
+@pytest.mark.parametrize("ln,residual,postnorm", [
+    (True, True, False), (False, False, False), (True, False, False),
+    (False, True, False), (True, True, True)],
+    ids=["ln-res", "plain", "ln", "res", "postnorm"])
+def test_int8_ffn_matches_pallas(ln, residual, postnorm):
+    """K2 in every flag combination, F=256: one chunk."""
+    got, want = _int8_ffn_pair(_ffn_inputs(3, 2, 61, 128, 256), ln, residual, postnorm)
+    assert _cos(got, want) > 0.9995
+    np.testing.assert_allclose(got, want, atol=INT8_ATOL, rtol=0)
+
+
+def test_int8_ffn_matches_pallas_two_chunks():
+    """F=4096 (HuBERT-Large's width) at C=64: two 2048-wide chunks, each
+    with its own per-row requant scale, summed in f32."""
+    assert port_ffn._ffn_chunk_bounds(4096) == ((0, 2048), (2048, 4096))
+    got, want = _int8_ffn_pair(_ffn_inputs(4, 1, 7, 64, 4096), True, True, False)
+    assert _cos(got, want) > 0.9995
+    np.testing.assert_allclose(got, want, atol=INT8_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("ffn", [256, 3072, 3200, 4096, 5120])
+def test_ffn_chunk_rule_matches_jax(ffn):
+    assert port_ffn._chunk_for(ffn) == jax_ffn._chunk_for(ffn)
+    assert port_ffn._ffn_chunk_bounds(ffn) == jax_ffn._ffn_chunk_bounds(ffn)
+
+
+def test_int8_wrappers_on_cpu_run_the_plain_versions_without_a_build():
+    before = [w.launches for w in wrappers()]
+    x, wq, bq, wo, bo, g, be = _attn_inputs(5, 1, 9, 128)
+    t = torch.from_numpy
+    fused_attention_block(t(x).bfloat16(), t(wq.T.copy()), t(bq), (t(g), t(be)),
+                          t(wo.T.copy()), t(bo), torch.tensor([9], dtype=torch.int32), 2)
+    x, w1, b1, w2, b2, g, be = _ffn_inputs(6, 1, 5, 128, 256)
+    fused_int8_ffn(t(x).bfloat16(), t(w1.T.copy()), t(b1), t(w2.T.copy()), t(b2))
+    assert [w.launches for w in wrappers()] == before
+    assert _build.library.cache_info().currsize == 0

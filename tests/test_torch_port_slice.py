@@ -5,9 +5,11 @@ normalize=True) is initialised in JAX, its parameters perturbed so that no
 bias or norm is trivial, and carried to the port with
 `trunk_state_dict_from_jax`. The same numpy batch goes through
 `Upstream.apply_standardized` of both packages. Tolerances: f32 per-layer
-hidden states at atol 5e-4 over valid frames (the ROADMAP bar); bf16
-per-layer cosine > 0.999 over valid frames (the JAX package's quality gate
-for its reduced-precision paths); lengths exactly equal.
+hidden states at atol 5e-4 over valid frames (the ROADMAP bar); bf16 and
+int8 per-layer cosine > 0.999 over valid frames (the JAX package's quality
+gate for its reduced-precision paths); lengths exactly equal. Every test
+runs with the JAX package's default knobs (the `S3PRL_*` variables that
+change its serving path are removed).
 """
 
 import subprocess
@@ -23,6 +25,7 @@ import jax.numpy as jnp
 
 import s3prl_tpu.models.transformer as jax_transformer
 import s3prl_tpu_torch.models.transformer as port_transformer
+import s3prl_tpu_torch.upstream.registry as port_registry
 from s3prl_tpu.models.wav2vec2 import Wav2Vec2Config as JaxConfig
 from s3prl_tpu.models.wav2vec2 import Wav2Vec2Trunk as JaxTrunk
 from s3prl_tpu.upstream.base import Upstream as JaxUpstream
@@ -43,6 +46,13 @@ TINY = dict(
 )
 JCFG, PCFG = JaxConfig(**TINY), Wav2Vec2Config(**TINY)
 STRIDE = 20
+JAX_KNOBS = ("S3PRL_GELU", "S3PRL_STATIC_ACT", "S3PRL_INT8_AV", "S3PRL_ATTN_BLOCK")
+
+
+@pytest.fixture(autouse=True)
+def _jax_defaults(monkeypatch):
+    for knob in JAX_KNOBS:
+        monkeypatch.delenv(knob, raising=False)
 
 
 @pytest.fixture(scope="module")
@@ -66,8 +76,8 @@ def _batch(seed, lens, T=None):
     return wavs, np.asarray(lens, np.int32)
 
 
-def _run_jax(params, wavs, lens, dtype=jnp.float32, flash=False):
-    trunk = JaxTrunk(JCFG, dtype=dtype, use_flash=flash)
+def _run_jax(params, wavs, lens, dtype=jnp.float32, flash=False, quantize=False):
+    trunk = JaxTrunk(JCFG, dtype=dtype, use_flash=flash, quantize=quantize)
     up = JaxUpstream(
         name="tiny", params={"params": params},
         apply_fn=lambda v, w, l, train, rngs: trunk.apply(v, w, l, deterministic=True),
@@ -77,10 +87,11 @@ def _run_jax(params, wavs, lens, dtype=jnp.float32, flash=False):
     return np.asarray(jnp.asarray(hs, jnp.float32)), np.asarray(h_lens)
 
 
-def _port(params, dtype=torch.float32, flash=False):
-    model = Wav2Vec2Trunk(PCFG, dtype=dtype, use_flash=flash, device="meta")
+def _port(params, dtype=torch.float32, flash=False, quantize=False):
+    model = Wav2Vec2Trunk(PCFG, dtype=dtype, use_flash=flash, quantize=quantize,
+                          device="meta")
     model.to_empty(device="cpu")
-    model.load_state_dict(trunk_state_dict_from_jax(params, PCFG))
+    model.load_state_dict(trunk_state_dict_from_jax(params, PCFG))  # builds the int8 cache
     return Upstream(name="tiny", model=model.eval(),
                     num_layers=PCFG.encoder_layers + 1,
                     hidden_size=PCFG.encoder_embed_dim, downsample_rate=STRIDE)
@@ -99,6 +110,14 @@ def _cos(a, b):
 
 def _valid_frames(h_lens, T):
     return [min(int(n), T) for n in h_lens]
+
+
+def _layer_cosines(got, want, h_lens):
+    """Per-layer cosine over the valid frames of every utterance."""
+    valid = list(enumerate(_valid_frames(h_lens, got.shape[2])))
+    return [_cos(np.concatenate([got[layer, b, :n] for b, n in valid]),
+                 np.concatenate([want[layer, b, :n] for b, n in valid]))
+            for layer in range(got.shape[0])]
 
 
 def test_slice_f32_matches_jax(jax_params):
@@ -170,14 +189,20 @@ def test_cpu_run_counts_no_launch(jax_params):
     assert [w.launches for w in wrappers()] == before
 
 
-def test_registry_refuses_what_is_not_ported():
+def test_registry_refuses_what_is_not_ported(monkeypatch):
     with pytest.raises(KeyError):
         hub.load("no_such_upstream")
-    with pytest.raises(NotImplementedError, match="int8"):
-        hub.load("hubert_large_ll60k", quantize=True)
+    with pytest.raises(NotImplementedError, match="ckpt"):
+        hub.load("hubert_large_ll60k", ckpt="model.pt")
     with pytest.raises(NotImplementedError):
         Wav2Vec2Trunk(Wav2Vec2Config(), device="meta")  # HuBERT-Base: group norm, post-LN
     assert hub.options() == ["hubert_large_ll60k"]
+    # quantize=True loads (the entry at the tiny width: same code path)
+    monkeypatch.setattr(port_registry, "HUBERT_LARGE", PCFG)
+    up = hub.load("hubert_large_ll60k", dtype=torch.bfloat16, flash=True, quantize=True)
+    layer = up.model.encoder.layers[0]
+    assert layer.quantize and layer.fc1.weight.dtype == torch.float32
+    assert layer.qpair("fc1")[0].dtype == torch.int8
 
 
 def test_port_never_imports_jax():
@@ -185,10 +210,61 @@ def test_port_never_imports_jax():
         "import sys\n"
         "import s3prl_tpu_torch.hub, s3prl_tpu_torch.upstream.convert\n"
         "import s3prl_tpu_torch.kernels.conv_frontend, s3prl_tpu_torch.kernels.ffn\n"
-        "import s3prl_tpu_torch.kernels.flash_attention\n"
+        "import s3prl_tpu_torch.kernels.flash_attention, s3prl_tpu_torch.ops.quant\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 's3prl_tpu')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=Path(__file__).resolve().parents[1])
+
+
+@pytest.mark.parametrize("route", ["kernels", "plain"])
+def test_slice_int8_matches_jax(jax_params, monkeypatch, route):
+    """int8 W8A8 serving (bf16, flash, quantize). `kernels`: both packages
+    patched, JAX runs K1/K2/K3-tanh in interpret mode and the port its
+    kernel wrappers (plain versions on CPU); `plain`: JAX runs QuantDense
+    around interpreted K7, the port its int8_matmul module path."""
+    if route == "kernels":
+        monkeypatch.setattr(jax_transformer, "_fused_block_available", lambda: True)
+        monkeypatch.setattr(port_transformer, "_fused_block_available", lambda x: True)
+    wavs, lens = _batch(5, [6400, 3001, 1])
+    want, want_lens = _run_jax(jax_params, wavs, lens, jnp.bfloat16, flash=True, quantize=True)
+    got, got_lens = _run_port(_port(jax_params, torch.bfloat16, flash=True, quantize=True),
+                              wavs, lens)
+    np.testing.assert_array_equal(got_lens, want_lens)
+    assert got.shape == want.shape
+    coss = _layer_cosines(got, want, got_lens)
+    assert min(coss) > 0.999, coss
+
+
+def test_slice_int8_quality_against_f32(jax_params, monkeypatch):
+    """The port's int8 serving route against its own f32 model on the same
+    weights: per-layer cosine > 0.999 (the JAX package's int8 gate,
+    tests/test_quant.py:82-124)."""
+    monkeypatch.setattr(port_transformer, "_fused_block_available", lambda x: True)
+    wavs, lens = _batch(6, [6400, 4800])
+    want, want_lens = _run_port(_port(jax_params), wavs, lens)
+    got, got_lens = _run_port(_port(jax_params, torch.bfloat16, flash=True, quantize=True),
+                              wavs, lens)
+    np.testing.assert_array_equal(got_lens, want_lens)
+    coss = _layer_cosines(got, want, got_lens)
+    assert min(coss) > 0.999, coss
+
+
+def test_int8_route_refuses_long_utterances(jax_params, monkeypatch):
+    monkeypatch.setattr(port_transformer, "_fused_block_available", lambda x: True)
+    layer = _port(jax_params, torch.bfloat16, flash=True, quantize=True).model.encoder.layers[0]
+    x = torch.zeros(1, 513, 128, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="K6"):
+        layer(x, torch.tensor([513], dtype=torch.int32), torch.zeros(1, 513, dtype=torch.bool))
+
+
+def test_int8_state_dict_round_trip_is_exact(jax_params):
+    """The int8 model keeps the fairseq keys (its cache is not saved) and
+    its f32 weights, so the JAX tree comes back bit for bit."""
+    sd = _port(jax_params, quantize=True).model.state_dict()
+    assert sd.keys() == trunk_state_dict_from_jax(jax_params, PCFG).keys()
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(jax_params))
+    for path, leaf in jax.tree_util.tree_leaves_with_path(trunk_params_from_torch(sd, JCFG)):
+        np.testing.assert_array_equal(leaf, flat_b[path], err_msg=str(path))
