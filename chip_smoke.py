@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failed check raises, so the exit code is not 0 and no result
-line is printed):
+line is printed; each phase prints its seconds):
  1. require a CUDA device; print the card's name and power limit;
  2. build the CUDA kernels from csrc/ (into build/) and print the seconds;
  3. each kernel against its plain PyTorch version on the same CUDA tensors,
@@ -13,24 +13,32 @@ line is printed):
     it (one step is 0.03125 where LayerNorm outputs reach |v| >= 4). K3 in
     both GELU modes, K1 pre-LN and postnorm, K2 in five flag sets at
     C=1024, F=4096 (two chunks) and postnorm at C=768, F=3072 (one chunk),
-    K4, K5; the share of int8 codes where the kernels' quantizers and the
-    plain ones differ is printed. The int8 GEMM alone equals torch._int_mm
-    exactly, and the quantizer rounds constructed ties half to even;
+    K4, K5 (B=4 x 499 frames); K6 and K7 at B=4 x 1,499 frames, K8 on
+    [2, 16, 2999, 64]; the share of int8 codes where the kernels'
+    quantizers and the plain ones differ is printed (K6's context codes
+    among them). The int8 GEMM alone equals torch._int_mm exactly, and the
+    quantizer rounds constructed ties half to even;
  4. the main paths at full width (hub.load("hubert_large_ll60k", bf16,
     flash, quantize=True) - the int8 serving default - and quantize=False),
-    one apply_standardized each on B=8 x 10 s of mixed lengths; checks the
-    [25, 8, 500, 1024] shape, exact h_lens, finite values, and the launch
-    counts of each run: conv0 / K1 / K2 = 1 / 24 / 24 with K4, K5 at 0 for
-    int8, conv0 / K4 / K5 = 1 / 24 / 24 with K1, K2 at 0 for bf16;
+    one apply_standardized each on mixed lengths: B=8 x 10 s, B=8 x 30 s
+    (T' = 1,500: K6 / K7) and B=4 x 60 s (T' = 3,000: K8); checks the
+    [25, B, T', 1024] shape, exact h_lens, finite values, and the launch
+    counts of each run, read just after it with every count set to 0 just
+    before: conv0 / K1 / K2 = 1 / 24 / 24 (int8, 10 s), conv0 / K4 / K5
+    (bf16, 10 s), conv0 / K6 / K2 (int8, 30 s), conv0 / K7 / K5 (bf16,
+    30 s), conv0 / K8 / K2 and conv0 / K8 / K5 (60 s), every other kernel 0;
  5. the same seed's models on the CPU (the kernel wrappers' plain versions)
-    against the card on B=2 x 2 s: per-layer cosine > 0.999 over valid
-    frames, for each path; and the JAX package's int8 quality gate at full
-    depth (tests/test_quant.py:82-124) on the card: the int8 model against
-    the f32 model (flash=False) of the same weights, per-layer cosine >
-    0.999;
- 6. timing (printed): extraction audio-s/s of both paths at B=32 x 10 s
-    (two chain lengths, marginal rate, best of 3, CUDA events) and each
-    kernel against its plain version at B=32 shapes.
+    against the card, per-layer cosine > 0.999 over valid frames, for each
+    path: on B=2 x 2 s, then on B=2 x 4 s with MAX_BLOCK_T = 64 (K6 / K7)
+    and with MAX_KERNEL_T = 128 as well (K8); the JAX package's quality
+    gates at full depth on the card, against the f32 model (flash=False)
+    of the same weights: int8 per-layer cosine > 0.999
+    (tests/test_quant.py:82-124) on B=2 x 0.5 s, B=2 x 30 s and B=1 x
+    60 s, bf16 > 0.995 (tests/test_quant.py:590) on the two long ones;
+ 6. timing (printed): extraction audio-s/s of both paths at B=32 x 10 s,
+    B=8 x 30 s and B=4 x 60 s (two chain lengths, marginal rate, best of 3,
+    CUDA events) with the peak device memory, and each kernel against its
+    plain version at those shapes.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -167,7 +175,47 @@ def kernel_calls(inp, inp_base=None):
     return calls
 
 
-def code_mismatch(inp):
+def long_inputs(B, T, gen, dev, C=1024, H=16):
+    """K6/K7 inputs at [B, T] (unit-scale fused QKV, the residual, the
+    out-proj's int8 pair) and K8's [B, H, T, 64] q (pre-scaled), k, v split
+    from the same QKV as K7 splits it beyond MAX_KERNEL_T."""
+    from s3prl_tpu_torch.kernels import flash_attention as fa
+    from s3prl_tpu_torch.ops.quant import as_quantized_cols
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+    inp = dict(qkv=rnd(B, T, 3 * C), x=rnd(B, T, C, scale=0.5),
+               wo8=as_quantized_cols(rnd(C, C, scale=C ** -0.5, dtype=torch.float32)),
+               bo=rnd(C, scale=0.02, dtype=torch.float32),
+               kv=torch.tensor(([T, T, (T * 5) // 8, 1] * B)[:B], dtype=torch.int32, device=dev),
+               H=H)
+    inp["q"], inp["k"], inp["v"] = fa._split_heads(inp["qkv"], H)
+    return inp
+
+
+def long_kernel_calls(inp, inp8):
+    """K6, K7 on `inp` and K8 on `inp8`: name -> [(variant, kernel, plain)]."""
+    from s3prl_tpu_torch.kernels import flash_attention as fa
+
+    i, j = inp, inp8
+    k6 = (i["qkv"], i["x"], i["wo8"], i["bo"], i["kv"], i["H"])
+    k8 = (j["q"], j["k"], j["v"], j["kv"])
+    T = i["qkv"].shape[1]
+    return {
+        "fused_qkv_attention_outproj": [
+            (f"T={T}", lambda: fa.fused_qkv_attention_outproj(*k6),
+             lambda: fa.fused_qkv_attention_outproj_reference(*k6))],
+        "fused_qkv_attention": [
+            (f"T={T}", lambda: fa.fused_qkv_attention(i["qkv"], i["kv"], i["H"]),
+             lambda: fa.fused_qkv_attention_reference(i["qkv"], i["kv"], i["H"]))],
+        "online_flash_attention": [
+            (str(list(j["q"].shape)), lambda: fa.online_flash_attention(*k8),
+             lambda: fa.online_flash_attention_reference(*k8))],
+    }
+
+
+def code_mismatch(inp, inp_long):
     """Share of int8 codes where the kernels' quantizers and the plain
     versions' differ, on the main path's inputs: K1's LN prologue and its
     bf16 context quantization, K2's LN prologue and its per-chunk requant of
@@ -196,6 +244,12 @@ def code_mismatch(inp):
         q, _ = kc.quant_rows(h, lo=lo, hi=hi)
         diffs.append(share(q[:, lo:hi], quantize_rows(h_plain[:, lo:hi])[0]))
     out["K2 chunk requant"] = sum(diffs) / len(diffs)
+    qkv, kv, H = inp_long["qkv"], inp_long["kv"], inp_long["H"]
+    ctx = k4._attention(qkv, kv, H, out_f32=True)
+    ctx_plain = k4.attention_reference(qkv, kv, H, out_dtype=torch.float32).view(ctx.shape)
+    codes_plain = quantize_rows(ctx_plain)[0]
+    out["K6 context (f32 attention + f32 quantizer)"] = share(kc.quant_rows(ctx)[0], codes_plain)
+    out["K6 f32 quantizer alone"] = share(kc.quant_rows(ctx_plain)[0], codes_plain)
     return out
 
 
@@ -208,11 +262,33 @@ KERNELS = {  # wrapper -> (its main CUDA source, the TPU kernel it replaces)
     "fused_attention_block_bf16": ("s3prl_tpu_torch/csrc/attention.cu",
                                    "s3prl_tpu/kernels/flash_attention.py:772"),
     "fused_bf16_ffn": ("s3prl_tpu_torch/csrc/gemm_bf16.cu", "s3prl_tpu/kernels/ffn.py:320"),
+    "fused_qkv_attention_outproj": ("s3prl_tpu_torch/csrc/attention.cu",
+                                    "s3prl_tpu/kernels/flash_attention.py:312"),
+    "fused_qkv_attention": ("s3prl_tpu_torch/csrc/attention.cu",
+                            "s3prl_tpu/kernels/flash_attention.py:210"),
+    "online_flash_attention": ("s3prl_tpu_torch/csrc/online_attention.cu",
+                               "s3prl_tpu/kernels/flash_attention.py:867"),
 }
-# the main path each wrapper's launch count is read from
-MAIN_PATH = {"conv0_ln_gelu": "int8", "fused_attention_block": "int8",
-             "fused_int8_ffn": "int8", "fused_attention_block_bf16": "bf16",
-             "fused_bf16_ffn": "bf16"}
+LENS = {  # main-path batch -> utterance lengths in samples (mixed)
+    "10 s": [160000, 120000, 40000, 800, 159999, 80000, 16001, 1],
+    "30 s": [480000, 400000, 320000, 160000, 479999, 240000, 16001, 1],
+    "60 s": [960000, 720000, 480001, 1],
+}
+# main-path run -> the kernels it launches (24 layers; every other count is 0)
+RUNS = {
+    ("int8", "10 s"): {"conv0_ln_gelu": 1, "fused_attention_block": 24, "fused_int8_ffn": 24},
+    ("bf16", "10 s"): {"conv0_ln_gelu": 1, "fused_attention_block_bf16": 24,
+                       "fused_bf16_ffn": 24},
+    ("int8", "30 s"): {"conv0_ln_gelu": 1, "fused_qkv_attention_outproj": 24,
+                       "fused_int8_ffn": 24},
+    ("bf16", "30 s"): {"conv0_ln_gelu": 1, "fused_qkv_attention": 24, "fused_bf16_ffn": 24},
+    ("int8", "60 s"): {"conv0_ln_gelu": 1, "online_flash_attention": 24, "fused_int8_ffn": 24},
+    ("bf16", "60 s"): {"conv0_ln_gelu": 1, "online_flash_attention": 24, "fused_bf16_ffn": 24},
+}
+# the main-path run each wrapper's launch count is read from: the first that launches it
+MAIN_PATH = {name: next(run for run, expected in RUNS.items() if name in expected)
+             for name in KERNELS}
+COS_F32 = {"int8": 0.999, "bf16": 0.995}  # the JAX package's gates against f32
 
 
 def batch(lens, T, gen, dev):
@@ -232,38 +308,21 @@ def layer_cosines(a, b, h_lens):
     return out
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from s3prl_tpu_torch import hub
-    from s3prl_tpu_torch.kernels import _build, wrappers
+class Phase:
+    """Prints a phase's seconds when it ends."""
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # f32 references in full f32
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    wrapper = {w.__name__: w for w in wrappers()}
+    def __init__(self, name):
+        self.name = name
 
-    # 1. the card
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    log(smi.splitlines()[0])
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} {torch.cuda.get_device_name(0)}")
+    def __enter__(self):
+        self.t0 = time.perf_counter()
 
-    # 2. build
-    t0 = time.perf_counter()
-    lib = _build.library()
-    log(f"[build] {lib._name} in {time.perf_counter() - t0:.1f} s")
+    def __exit__(self, *exc):
+        log(f"[phase] {self.name}: {time.perf_counter() - self.t0:.1f} s")
 
-    # 3. kernel vs plain at main-path shapes
-    from s3prl_tpu_torch.kernels import _common as kc
-    from s3prl_tpu_torch.ops.quant import int_mm
 
-    gen = torch.Generator().manual_seed(0)
-    inp = kernel_inputs(4, 499, gen, dev)
-    inp_base = kernel_inputs(4, 499, gen, dev, C=768, F=3072, H=12)
-    max_err = {}
-    for name, variants in kernel_calls(inp, inp_base).items():
+def check_kernels(calls, max_err):
+    for name, variants in calls.items():
         for variant, kernel, plain in variants:
             got, want = kernel(), plain()
             torch.cuda.synchronize()
@@ -276,115 +335,200 @@ def main():
                 f"max_abs_err {err:.3e} (max err / bound {ratio:.3f})")
             check(cos > COS_KERNEL and ratio <= 1.0, f"{name} {variant} vs plain")
             max_err[name] = max(max_err.get(name, 0.0), err)
-    for what, share in code_mismatch(inp).items():
-        log(f"[int8 codes] {what}: {share:.3e} of codes differ from the plain version's")
-    x8 = kc.quant_rows(inp["x"].view(-1, 1024), ln=inp["ln"])[0]
-    for w8, lo, hi in ((inp["wq8"][0], 0, 1024), (inp["w28"][0], 0, 2048),
-                       (inp["w28"][0], 2048, 4096)):
-        a8 = kc.quant_rows(torch.randn(x8.shape[0], 4096, generator=gen).to(dev))[0] \
-            if hi > 1024 else x8
-        got = kc.gemm_s8(a8[:, lo:hi], w8[:, lo:hi])
-        check(torch.equal(got, int_mm(a8[:, lo:hi].contiguous(), w8[:, lo:hi].contiguous())),
-              f"gemm_s8 [{a8.shape[0]}, {hi - lo}] x [{w8.shape[0]}, {hi - lo}] vs torch._int_mm")
-    log("[kernel] gemm_s8 alone equals torch._int_mm exactly (QKV, fc2 chunks 1 and 2)")
-    ties = torch.tensor([[127.0, 2.5, -2.5, 3.5, -3.5, 0.5, -0.5, 1.5] * 128], device=dev)
-    q, s = kc.quant_rows(ties)
-    check(float(s[0]) == 1.0 and torch.equal(q[0], torch.round(ties[0]).to(torch.int8)),
-          f"quantizer ties: {q[0, :8].tolist()}")
-    log(f"[kernel] quant_rows rounds ties half to even: {q[0, :8].tolist()}")
+            del got, want
+
+
+def time_kernels(calls, label, entries, launches, max_err, first_only=True):
+    for name, variants in calls.items():
+        for variant, kernel, plain in variants[:1] if first_only else variants:
+            t = [cuda_ms(f, 10) for f in (plain, kernel, kernel, plain)]
+            ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            log(f"[timing] {name} {variant} {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            if variant != variants[0][0]:
+                continue
+            source, replaces = KERNELS[name]
+            entries[name] = {"name": name, "route": "cuda", "source": source,
+                             "replaces": replaces, "launches": launches[MAIN_PATH[name]][name],
+                             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms}
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from s3prl_tpu_torch import hub
+    from s3prl_tpu_torch.kernels import _build, wrappers
+    from s3prl_tpu_torch.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 references in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    wrapper = {w.__name__: w for w in wrappers()}
+    check(sorted(wrapper) == sorted(KERNELS), f"wrappers {sorted(wrapper)}")
+
+    # 1. the card
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    log(smi.splitlines()[0])
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} {torch.cuda.get_device_name(0)}")
+
+    # 2. build
+    with Phase("2 build"):
+        lib = _build.library()
+        log(f"[build] {lib._name}")
+
+    # 3. kernel vs plain at main-path shapes
+    from s3prl_tpu_torch.kernels import _common as kc
+    from s3prl_tpu_torch.ops.quant import int_mm
+
+    gen = torch.Generator().manual_seed(0)
+    max_err = {}
+    with Phase("3 kernels vs plain"):
+        inp = kernel_inputs(4, 499, gen, dev)
+        inp_base = kernel_inputs(4, 499, gen, dev, C=768, F=3072, H=12)
+        inp_long = long_inputs(4, 1499, gen, dev)
+        inp8 = long_inputs(2, 2999, gen, dev)
+        check_kernels(kernel_calls(inp, inp_base), max_err)
+        check_kernels(long_kernel_calls(inp_long, inp8), max_err)
+        for what, share in code_mismatch(inp, inp_long).items():
+            log(f"[int8 codes] {what}: {share:.3e} of codes differ from the plain version's")
+        x8 = kc.quant_rows(inp["x"].view(-1, 1024), ln=inp["ln"])[0]
+        for w8, lo, hi in ((inp["wq8"][0], 0, 1024), (inp["w28"][0], 0, 2048),
+                           (inp["w28"][0], 2048, 4096)):
+            a8 = kc.quant_rows(torch.randn(x8.shape[0], 4096, generator=gen).to(dev))[0] \
+                if hi > 1024 else x8
+            got = kc.gemm_s8(a8[:, lo:hi], w8[:, lo:hi])
+            check(torch.equal(got, int_mm(a8[:, lo:hi].contiguous(),
+                                          w8[:, lo:hi].contiguous())),
+                  f"gemm_s8 [{a8.shape[0]}, {hi - lo}] x [{w8.shape[0]}, {hi - lo}] "
+                  "vs torch._int_mm")
+        log("[kernel] gemm_s8 alone equals torch._int_mm exactly (QKV, fc2 chunks 1 and 2)")
+        ties = torch.tensor([[127.0, 2.5, -2.5, 3.5, -3.5, 0.5, -0.5, 1.5] * 128], device=dev)
+        q, s = kc.quant_rows(ties)
+        check(float(s[0]) == 1.0 and torch.equal(q[0], torch.round(ties[0]).to(torch.int8)),
+              f"quantizer ties: {q[0, :8].tolist()}")
+        log(f"[kernel] quant_rows rounds ties half to even: {q[0, :8].tolist()}")
+        del inp, inp_base, inp_long, inp8
 
     # 4. the main paths at full width, int8 (the serving default) then bf16
     ups = {path: hub.load("hubert_large_ll60k", dtype=torch.bfloat16, flash=True,
                           quantize=path == "int8", device=dev, seed=0)
            for path in ("int8", "bf16")}
-    lens = [160000, 120000, 40000, 800, 159999, 80000, 16001, 1]
-    wavs, lens_t = batch(lens, 10 * SR, gen, dev)
-    expected = {"int8": {"conv0_ln_gelu": 1, "fused_attention_block": 24, "fused_int8_ffn": 24,
-                         "fused_attention_block_bf16": 0, "fused_bf16_ffn": 0},
-                "bf16": {"conv0_ln_gelu": 1, "fused_attention_block": 0, "fused_int8_ffn": 0,
-                         "fused_attention_block_bf16": 24, "fused_bf16_ffn": 24}}
     launches = {}
-    for path, up in ups.items():
-        for w in wrapper.values():
-            w.launches = 0
-        hs, h_lens = up.apply_standardized(wavs, lens_t)
-        torch.cuda.synchronize()
-        launches[path] = {name: w.launches for name, w in wrapper.items()}
-        log(f"[slice {path}] hs {tuple(hs.shape)} {hs.dtype}, h_lens {h_lens.tolist()}, "
-            f"launches {launches[path]}")
-        check(tuple(hs.shape) == (25, 8, 500, 1024), f"hs shape {tuple(hs.shape)}")
-        check(h_lens.tolist() == [(n - 1) // 320 + 1 for n in lens], f"h_lens {h_lens.tolist()}")
-        check(bool(torch.isfinite(hs).all()), "non-finite hidden states")
-        check(launches[path] == expected[path], f"{path} launch counts {launches[path]}")
-        del hs
+    with Phase("4 main paths"):
+        for (path, length), expected in RUNS.items():
+            lens = LENS[length]
+            wavs, lens_t = batch(lens, max(lens), gen, dev)
+            for w in wrapper.values():
+                w.launches = 0
+            hs, h_lens = ups[path].apply_standardized(wavs, lens_t)
+            torch.cuda.synchronize()
+            launches[path, length] = {name: w.launches for name, w in wrapper.items()}
+            frames = (max(lens) - 1) // 320 + 1
+            log(f"[slice {path} {length}] hs {tuple(hs.shape)} {hs.dtype}, "
+                f"h_lens {h_lens.tolist()}, launches {launches[path, length]}")
+            check(tuple(hs.shape) == (25, len(lens), frames, 1024), f"hs shape {tuple(hs.shape)}")
+            check(h_lens.tolist() == [(n - 1) // 320 + 1 for n in lens],
+                  f"h_lens {h_lens.tolist()}")
+            check(bool(torch.isfinite(hs).all()), "non-finite hidden states")
+            check(launches[path, length] == {name: expected.get(name, 0) for name in wrapper},
+                  f"{path} {length} launch counts {launches[path, length]}")
+            del hs, wavs
 
     # 5. the same seed's models on the CPU (plain versions) vs the card; the
-    # CPU int8 model takes the kernel route, whose wrappers run their plain
-    # versions there
+    # CPU model takes the kernel route, whose wrappers run their plain
+    # versions there. Then the JAX package's quality gates against f32.
     import s3prl_tpu_torch.models.transformer as port_transformer
 
-    small, small_lens = batch([32000, 20000], 32000, gen, "cpu")
+    cases = (("B=2 x 2 s", [32000, 20000], {}, None),
+             ("B=2 x 4 s, MAX_BLOCK_T=64", [64000, 40000], {"MAX_BLOCK_T": 64},
+              {"int8": "fused_qkv_attention_outproj", "bf16": "fused_qkv_attention"}),
+             ("B=2 x 4 s, MAX_BLOCK_T=64, MAX_KERNEL_T=128", [64000, 40000],
+              {"MAX_BLOCK_T": 64, "MAX_KERNEL_T": 128},
+              {"int8": "online_flash_attention", "bf16": "online_flash_attention"}))
     available = port_transformer._fused_block_available
-    for path, up in ups.items():
-        up_cpu = hub.load("hubert_large_ll60k", dtype=torch.bfloat16, flash=True,
-                          quantize=path == "int8", device="cpu", seed=0)
-        port_transformer._fused_block_available = lambda x: True
-        try:
-            hs_cpu, hl_cpu = up_cpu.apply_standardized(small, small_lens)
-        finally:
-            port_transformer._fused_block_available = available
-        hs_gpu, hl_gpu = up.apply_standardized(small.to(dev), small_lens.to(dev))
-        check(hl_cpu.tolist() == hl_gpu.tolist(), "h_lens CPU vs card")
-        coss = layer_cosines(hs_gpu.cpu(), hs_cpu, hl_cpu.tolist())
-        log(f"[cpu-vs-card {path}] per-layer cosine min {min(coss):.6f}: "
-            + " ".join(f"{c:.5f}" for c in coss))
-        check(min(coss) > COS_LAYER, f"per-layer cosine CPU vs card ({path})")
-        del up_cpu, hs_cpu, hs_gpu
-    up_f32 = hub.load("hubert_large_ll60k", dtype=torch.float32, flash=False, device=dev, seed=0)
-    q_wavs, q_lens = batch([8000, 6400], 8000, gen, dev)
-    hs_f, hl = up_f32.apply_standardized(q_wavs, q_lens)
-    hs_q, _ = ups["int8"].apply_standardized(q_wavs, q_lens)
-    coss = layer_cosines(hs_q.float(), hs_f, hl.tolist())
-    log(f"[int8-vs-f32] 24L per-layer cosine min {min(coss):.6f}: "
-        + " ".join(f"{c:.5f}" for c in coss))
-    check(min(coss) > COS_LAYER, "per-layer cosine int8 vs f32 on the card")
-    del up_f32, hs_f, hs_q
+    with Phase("5 card vs CPU, quality vs f32"):
+        for path, up in ups.items():
+            up_cpu = hub.load("hubert_large_ll60k", dtype=torch.bfloat16, flash=True,
+                              quantize=path == "int8", device="cpu", seed=0)
+            for label, lens, patch, attn_kernel in cases:
+                small, small_lens = batch(lens, max(lens), gen, "cpu")
+                saved = {name: getattr(fa, name) for name in patch}
+                try:
+                    for name, value in patch.items():
+                        setattr(fa, name, value)
+                    port_transformer._fused_block_available = lambda x: True
+                    hs_cpu, hl_cpu = up_cpu.apply_standardized(small, small_lens)
+                    port_transformer._fused_block_available = available
+                    for w in wrapper.values():
+                        w.launches = 0
+                    hs_gpu, hl_gpu = up.apply_standardized(small.to(dev), small_lens.to(dev))
+                    torch.cuda.synchronize()
+                finally:
+                    port_transformer._fused_block_available = available
+                    for name, value in saved.items():
+                        setattr(fa, name, value)
+                if attn_kernel:
+                    launched = wrapper[attn_kernel[path]].launches
+                    check(launched == 24,
+                          f"{path} {label}: {attn_kernel[path]} launched {launched} times")
+                check(hl_cpu.tolist() == hl_gpu.tolist(), "h_lens CPU vs card")
+                coss = layer_cosines(hs_gpu.cpu(), hs_cpu, hl_cpu.tolist())
+                log(f"[cpu-vs-card {path} {label}] per-layer cosine min {min(coss):.6f}: "
+                    + " ".join(f"{c:.5f}" for c in coss))
+                check(min(coss) > COS_LAYER, f"per-layer cosine CPU vs card ({path}, {label})")
+                del hs_cpu, hs_gpu
+            del up_cpu
+        up_f32 = hub.load("hubert_large_ll60k", dtype=torch.float32, flash=False, device=dev,
+                          seed=0)
+        for label, lens, paths in (("B=2 x 0.5 s", [8000, 6400], ("int8",)),
+                                   ("B=2 x 30 s", [480000, 400000], ("int8", "bf16")),
+                                   ("B=1 x 60 s", [960000], ("int8", "bf16"))):
+            wavs, lens_t = batch(lens, max(lens), gen, dev)
+            hs_f, hl = up_f32.apply_standardized(wavs, lens_t)
+            for path in paths:
+                hs_q, _ = ups[path].apply_standardized(wavs, lens_t)
+                coss = layer_cosines(hs_q.float(), hs_f, hl.tolist())
+                log(f"[{path}-vs-f32 {label}] 24L per-layer cosine min {min(coss):.6f}: "
+                    + " ".join(f"{c:.5f}" for c in coss))
+                check(min(coss) > COS_F32[path], f"per-layer cosine {path} vs f32 ({label})")
+                del hs_q
+            del hs_f
+        del up_f32
 
-    # 6. timing: both paths at B=32 x 10 s, then each kernel vs its plain version
-    B, secs = 32, 10.0
-    wavs, lens_t = batch([int(secs * SR)] * B, int(secs * SR), gen, dev)
-    it_lo, it_hi = 5, 15
-    for path, up in ups.items():
-        torch.cuda.reset_peak_memory_stats()
-        best = {it: min(it * cuda_ms(lambda: up.apply_standardized(wavs, lens_t), it)
-                        for _ in range(3))
-                for it in (it_lo, it_hi)}
-        per_iter = (best[it_hi] - best[it_lo]) / (it_hi - it_lo)
-        rate = B * secs / (per_iter / 1e3)
-        log(f"[timing] slice {path} B={B} x {secs:.0f} s: {per_iter:.2f} ms/forward, "
-            f"{rate:.1f} audio-s/s (chains {it_lo}: {best[it_lo]:.1f} ms, "
-            f"{it_hi}: {best[it_hi]:.1f} ms), peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del ups, up, wavs
+    # 6. timing: both paths on each main-path batch, then each kernel vs its plain version
+    with Phase("6 timing"):
+        it_lo, it_hi = 5, 15
+        for label, B, secs in (("10 s", 32, 10.0), ("30 s", 8, 30.0), ("60 s", 4, 60.0)):
+            wavs, lens_t = batch([int(secs * SR)] * B, int(secs * SR), gen, dev)
+            for path, up in ups.items():
+                torch.cuda.reset_peak_memory_stats()
+                best = {it: min(it * cuda_ms(lambda: up.apply_standardized(wavs, lens_t), it)
+                                for _ in range(3))
+                        for it in (it_lo, it_hi)}
+                per_iter = (best[it_hi] - best[it_lo]) / (it_hi - it_lo)
+                rate = B * secs / (per_iter / 1e3)
+                log(f"[timing] slice {path} B={B} x {secs:.0f} s: {per_iter:.2f} ms/forward, "
+                    f"{rate:.1f} audio-s/s (chains {it_lo}: {best[it_lo]:.1f} ms, "
+                    f"{it_hi}: {best[it_hi]:.1f} ms), peak device memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            del wavs
+        del ups, up
 
-    inp = kernel_inputs(B, 499, gen, dev)
-    log("[timing] plain versions run stock PyTorch on the card: f32 cuBLAS GEMMs (TF32 "
-        "off) for the bf16 blocks, torch._int_mm (cuBLASLt int8) plus f32 elementwise "
-        "passes for the int8 blocks")
-    entries = []
-    for name, variants in kernel_calls(inp).items():
-        for variant, kernel, plain in variants[:2] if name == "conv0_ln_gelu" else variants[:1]:
-            t = [cuda_ms(f, 10) for f in (plain, kernel, kernel, plain)]
-            ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-            log(f"[timing] {name} {variant} B={B}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-            if variant != variants[0][0]:
-                continue
-            source, replaces = KERNELS[name]
-            entries.append({"name": name, "route": "cuda", "source": source,
-                            "replaces": replaces,
-                            "launches": launches[MAIN_PATH[name]][name],
-                            "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms})
-    log(json.dumps({"kernels": entries}))
+        log("[timing] plain versions run stock PyTorch on the card: f32 cuBLAS GEMMs (TF32 "
+            "off) for the bf16 blocks and attention, torch._int_mm (cuBLASLt int8) plus f32 "
+            "elementwise passes for the int8 blocks")
+        entries = {}
+        inp = kernel_inputs(32, 499, gen, dev)
+        calls = kernel_calls(inp)
+        time_kernels({"conv0_ln_gelu": calls.pop("conv0_ln_gelu")}, "B=32", entries, launches,
+                     max_err, first_only=False)
+        time_kernels(calls, "B=32", entries, launches, max_err)
+        del inp, calls
+        inp_long, inp8 = long_inputs(8, 1499, gen, dev), long_inputs(4, 2999, gen, dev)
+        time_kernels(long_kernel_calls(inp_long, inp8), "(30 s: B=8; 60 s: B=4)", entries,
+                     launches, max_err)
+    log(json.dumps({"kernels": [entries[name] for name in wrapper]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,12 +1,19 @@
 // Masked multi-head attention read straight from the fused [B, T, 3C] QKV
-// buffer (bf16), head dim 64, output [B, T, C] bf16:
+// buffer (bf16), head dim 64, output [B, T, C] in bf16 or f32:
 //   out[b, t, h] = softmax_k(q.k * Dh^-0.5 - 1e9 * (k >= kv_len[b])) . v
 // with f32 scores and softmax, bf16 P.V operands and f32 accumulation.
 //
-// The attention core of the Pallas kernel `fused_attention_block_bf16`
+// The attention core of the Pallas kernels `fused_attention_block_bf16`
 // (s3prl_tpu/kernels/flash_attention.py:797, pallas_call at :772; the
-// per-head loop at :733-751). The TPU kernel holds the whole utterance's
-// [T, 3C] QKV in VMEM (3 MB at T=512, C=1024); an H100 SM has 227 KB, so
+// per-head loop at :733-751) and `fused_attention_block` (K1, :633), and
+// the whole of `fused_qkv_attention` (K7, :232, pallas_call at :210) at any
+// T: nothing here bounds T. The f32 output is K6's
+// (`fused_qkv_attention_outproj`, :338, pallas_call at :312), whose heads
+// are concatenated unrounded before the context quantization (:287); the
+// math up to the store is the same for both outputs.
+//
+// The TPU kernels hold the whole utterance's [T, 3C] QKV in VMEM (3 MB at
+// T=512, C=1024; 12 MB at T=2048); an H100 SM has 227 KB, so
 // this kernel re-tiles: one block per (64 queries, head, utterance), 4 warps
 // of 16 query rows, K/V streamed through shared memory in 64-key tiles with
 // an online softmax (running max and sum per row). Key tiles wholly past
@@ -40,9 +47,10 @@ constexpr int kSBytes = kWarps * 16 * kLdf * 4;
 constexpr int kPBytes = kWarps * 16 * kLd * 2;
 constexpr int kSmemBytes = kQBytes + 2 * kKVBytes + kSBytes + kPBytes;
 
+template <typename OutT>
 __global__ void __launch_bounds__(kWarps * 32)
     attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ kv_lens,
-                     bf16* __restrict__ out, int T, int H, float scale) {
+                     OutT* __restrict__ out, int T, int H, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = reinterpret_cast<bf16*>(smem + kQBytes);
@@ -173,7 +181,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int t = q0 + warp * 16 + rr;
   if (t < T) {
     const float inv = 1.f / l_i;
-    bf16* orow = out + (static_cast<size_t>(b) * T + t) * C + h * kDh + half * 32;
+    OutT* orow = out + (static_cast<size_t>(b) * T + t) * C + h * kDh + half * 32;
     const float* srow = sw + rr * kLdf + half * 32;
 #pragma unroll
     for (int c = 0; c < 32; c += 8) {
@@ -185,16 +193,24 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+template <typename OutT>
+int launch_attention(const void* qkv, const void* kv_lens, void* out, int batch, int T, int H,
+                     float scale, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((T + kBQ - 1) / kBQ, H, batch);
+  attention_kernel<OutT><<<grid, kWarps * 32, kSmemBytes, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const int*>(kv_lens), static_cast<OutT*>(out), T,
+      H, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int s3_attention(const void* qkv, const void* kv_lens, void* out, int batch, int T,
-                            int H, float scale, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kBQ - 1) / kBQ, H, batch);
-  attention_kernel<<<grid, kWarps * 32, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const int*>(kv_lens), static_cast<bf16*>(out), T,
-      H, scale);
-  return static_cast<int>(cudaGetLastError());
+                            int H, float scale, int out_f32, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return out_f32 ? launch_attention<float>(qkv, kv_lens, out, batch, T, H, scale, st)
+                 : launch_attention<bf16>(qkv, kv_lens, out, batch, T, H, scale, st);
 }

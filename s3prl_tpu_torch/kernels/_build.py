@@ -41,8 +41,10 @@ SIGNATURES = {
     "s3_layernorm": (_P, _I, _P, _P, _P, _I, _I, _F, _P),
     # a, w, bias, res, out, out_f32, gelu, M, N, K, stream
     "s3_gemm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # qkv, kv_lens, out, batch, T, heads, scale, stream
-    "s3_attention": (_P, _P, _P, _I, _I, _I, _F, _P),
+    # qkv, kv_lens, out, batch, T, heads, scale, out_f32, stream
+    "s3_attention": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # q, k, v, kv_lens, out, batch, heads, T, stream
+    "s3_online_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # a, lda, w, ldw, M, N, K, row_scale, col_scale, bias, acc_in, res, out,
     # mode, gelu, out_f32, stream
     "s3_gemm_s8": (_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),

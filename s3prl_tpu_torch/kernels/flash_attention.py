@@ -1,6 +1,7 @@
-"""Whole pre-/post-LN attention blocks: ports of the Pallas kernels
-`fused_attention_block` (int8 W8A8, K1, s3prl_tpu/kernels/flash_attention.py:
-664) and `fused_attention_block_bf16` (K4, :797).
+"""Attention kernels of the port: the whole pre-/post-LN attention blocks,
+ports of the Pallas kernels `fused_attention_block` (int8 W8A8, K1,
+s3prl_tpu/kernels/flash_attention.py:664) and `fused_attention_block_bf16`
+(K4, :797), and the long-utterance attention (K6, K7, K8, below).
 
 K4, bf16:
 
@@ -29,8 +30,21 @@ the Pallas kernel's dynamic per-row scales and cast points:
    ``postnorm`` the sum stays f32 and `csrc/layernorm.cu` writes LN(sum).
 
 Parity is held at each function's boundary. Sequences beyond MAX_BLOCK_T
-frames are the long-utterance kernels' (K6 for int8, K7/K8 for bf16; not
-ported yet); the encoder layer refuses them before calling here.
+frames go to the long-utterance kernels below; the encoder layer routes
+them there.
+
+The long-utterance kernels (512 < T; the JAX package's routing, threshold
+for threshold, both read at call time):
+
+- K7 `fused_qkv_attention` (flash_attention.py:232): masked MHA from the
+  fused [B, T, 3C] QKV buffer, for T <= MAX_KERNEL_T one launch of
+  `csrc/attention.cu` (which has no T bound of its own);
+- K6 `fused_qkv_attention_outproj` (:338), int8: `csrc/attention.cu` with
+  an f32 context, `csrc/quant_rows.cu` (f32 per-row quantization, clamp
+  1e-8), `csrc/gemm_s8.cu` (int8 out-proj, f32(acc) * s * wos + bo + x);
+- K8 `online_flash_attention` (:892): K-blocked online softmax in f32 on
+  [B, H, T, 64] (`csrc/online_attention.cu`). Beyond MAX_KERNEL_T frames
+  K7 and K6 hand their attention to it (:241-249, :350-352).
 """
 
 from __future__ import annotations
@@ -38,25 +52,29 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.quant import as_quantized_cols, int_mm, quantize_rows
+from ..ops.quant import as_quantized_cols, int8_matmul, int_mm, quantize_rows
 from ._build import launch
 from ._common import (GEMM_LINEAR, GEMM_QKV, gemm, gemm_s8, layer_norm,
                       layer_norm_f32, on_cpu, quant_rows, quant_rows_bf16,
                       require, stream_of)
 
 MAX_BLOCK_T = 512  # whole-block cells serve T <= 512 (TPU VMEM bound, kept as the routing rule)
-HEAD_DIM = 64  # the attention kernel's head width
+MAX_KERNEL_T = 2048  # K6/K7 serve T <= 2048, K8 beyond (the JAX package's routing rule)
+HEAD_DIM = 64  # the attention kernels' head width
+_LOG2E = 1.4426950408889634
 
 
 def _layer_norm_f32(x: torch.Tensor, ln) -> torch.Tensor:
     return F.layer_norm(x, (x.shape[-1],), ln[0].float(), ln[1].float(), eps=1e-5)
 
 
-def attention_reference(qkv: torch.Tensor, kv_lens: torch.Tensor,
-                        num_heads: int) -> torch.Tensor:
-    """Plain masked MHA from the fused qkv [B, T, 3C] (bf16 values): f32
-    scores scaled by Dh^-0.5 plus the additive -1e9 key mask, f32 softmax,
-    bf16 P.V with f32 accumulation, bf16 out [B, T, C]."""
+def attention_reference(qkv: torch.Tensor, kv_lens: torch.Tensor, num_heads: int,
+                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain masked MHA from the fused qkv [B, T, 3C]: f32 scores scaled by
+    Dh^-0.5 plus the additive -1e9 key mask, f32 softmax, P normalised and
+    cast to qkv's dtype, P.V with f32 accumulation, heads concatenated, out
+    [B, T, C] in `out_dtype` (qkv's dtype by default; f32 keeps K6's
+    unrounded context)."""
     B, T, C3 = qkv.shape
     C = C3 // 3
     Dh = C // num_heads
@@ -65,8 +83,28 @@ def attention_reference(qkv: torch.Tensor, kv_lens: torch.Tensor,
     col = torch.arange(T, device=qkv.device)
     penalty = torch.where(col[None, :] < kv_lens[:, None].to(col.dtype), 0.0, -1e9)
     p = torch.softmax(scores + penalty[:, None, None, :], dim=-1)
-    ctx = p.to(torch.bfloat16).float() @ v  # [B, H, T, Dh]
-    return ctx.transpose(1, 2).reshape(B, T, C).to(torch.bfloat16)
+    ctx = p.to(qkv.dtype).float() @ v  # [B, H, T, Dh]
+    return ctx.transpose(1, 2).reshape(B, T, C).to(out_dtype or qkv.dtype)
+
+
+def _attention(qkv: torch.Tensor, kv_lens: torch.Tensor, num_heads: int,
+               out_f32: bool = False) -> torch.Tensor:
+    """One launch of `csrc/attention.cu` on qkv [B, T, 3C] bf16 (CUDA
+    only) -> [B * T, C], bf16 or f32."""
+    B, T, C3 = qkv.shape
+    C = C3 // 3
+    if C != num_heads * HEAD_DIM:
+        raise ValueError(f"attention kernel takes head dim {HEAD_DIM}, got C={C}, H={num_heads}")
+    require(qkv, "qkv", torch.bfloat16)
+    if qkv.data_ptr() % 16:
+        raise ValueError("attention qkv: 16-byte aligned rows only")
+    require(kv_lens, "kv_lens", torch.int32, (B,))
+    out = torch.empty(B * T, C, dtype=torch.float32 if out_f32 else torch.bfloat16,
+                      device=qkv.device)
+    if B * T:
+        launch("s3_attention", qkv.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), B, T,
+               num_heads, HEAD_DIM ** -0.5, int(out_f32), stream_of(qkv))
+    return out
 
 
 def fused_attention_block_bf16_reference(x, wq, bq, ln, wo, bo, kv_lens,
@@ -102,21 +140,14 @@ def fused_attention_block_bf16(x, wq, bq, ln, wo, bo, kv_lens, num_heads: int,
         return fused_attention_block_bf16_reference(
             x, wq, bq, ln, wo, bo, kv_lens, num_heads, postnorm)
     B, T, C = x.shape
-    if C != num_heads * HEAD_DIM:
-        raise ValueError(f"attention kernel takes head dim {HEAD_DIM}, got C={C}, H={num_heads}")
     if T > MAX_BLOCK_T:
         raise ValueError(f"attention block kernel takes T <= {MAX_BLOCK_T}, got {T}")
     require(x, "x", torch.bfloat16)
-    require(kv_lens, "kv_lens", torch.int32, (B,))
     with torch.cuda.device(x.device):
         x2 = x.view(B * T, C)
         h = x2 if postnorm else layer_norm(x2, ln[0], ln[1])
         qkv = gemm(h, wq, bq)
-        attn = torch.empty(B * T, C, dtype=torch.bfloat16, device=x.device)
-        if B * T:
-            launch("s3_attention", qkv.data_ptr(), kv_lens.data_ptr(),
-                   attn.data_ptr(), B, T, num_heads, HEAD_DIM ** -0.5,
-                   stream_of(x))
+        attn = _attention(qkv.view(B, T, 3 * C), kv_lens, num_heads)
         y = gemm(attn, wo, bo, residual=x2, out_f32=postnorm)
         if postnorm:
             y = layer_norm(y, ln[0], ln[1])
@@ -184,23 +215,16 @@ def fused_attention_block(x, wq, bq, ln, wo, bo, kv_lens, num_heads: int,
         return fused_attention_block_reference(
             x, (wq_q, wq_s), bq, ln, (wo_q, wo_s), bo, kv_lens, num_heads, postnorm)
     B, T, C = x.shape
-    if C != num_heads * HEAD_DIM:
-        raise ValueError(f"attention kernel takes head dim {HEAD_DIM}, got C={C}, H={num_heads}")
     if T > MAX_BLOCK_T:
         raise ValueError(f"attention block kernel takes T <= {MAX_BLOCK_T}, got {T}")
     require(x, "x", torch.bfloat16)
-    require(kv_lens, "kv_lens", torch.int32, (B,))
     require(wq_q, "wq codes", torch.int8, (3 * C, C))
     require(wo_q, "wo codes", torch.int8, (C, C))
     with torch.cuda.device(x.device):
         x2 = x.view(B * T, C)
         x8, s_x = quant_rows(x2, ln=None if postnorm else ln)
         qkv = gemm_s8(x8, wq_q, mode=GEMM_QKV, row_scale=s_x, col_scale=wq_s, bias=bq)
-        attn = torch.empty(B * T, C, dtype=torch.bfloat16, device=x.device)
-        if B * T:
-            launch("s3_attention", qkv.data_ptr(), kv_lens.data_ptr(),
-                   attn.data_ptr(), B, T, num_heads, HEAD_DIM ** -0.5,
-                   stream_of(x))
+        attn = _attention(qkv.view(B, T, 3 * C), kv_lens, num_heads)
         a8, s_a = quant_rows_bf16(attn)
         y = gemm_s8(a8, wo_q, mode=GEMM_LINEAR, row_scale=s_a, col_scale=wo_s, bias=bo,
                     residual=x2, out_f32=postnorm)
@@ -211,3 +235,144 @@ def fused_attention_block(x, wq, bq, ln, wo, bo, kv_lens, num_heads: int,
 
 
 fused_attention_block.launches = 0  # CUDA launches since the last reset
+
+
+def online_flash_attention_reference(q, k, v, kv_lens):
+    """Plain version of K8 with the Pallas cell's math (:830-854): q, k, v
+    [B, H, T, Dh] cast to f32 (q pre-scaled), scores of keys at or past
+    kv_len replaced by -1e30, p = exp2((s - max) * log2 e) kept in f32 for
+    P.V, out = acc / max(sum p, 1e-30) in q's dtype."""
+    T = q.shape[2]
+    s = q.float() @ k.float().transpose(-1, -2)
+    col = torch.arange(T, device=q.device)
+    valid = col[None, :] < kv_lens[:, None].to(col.dtype)  # [B, T keys]
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, -1e30))
+    p = torch.exp2((s - s.amax(-1, keepdim=True)) * _LOG2E)
+    out = (p @ v.float()) / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    return out.to(q.dtype)
+
+
+def online_flash_attention(q, k, v, kv_lens):
+    """K-blocked online-softmax attention for sequences beyond MAX_KERNEL_T
+    frames: K8. q, k, v [B, H, T, Dh] (q pre-scaled by Dh^-0.5), kv_lens
+    [B] int32 valid keys (padding contiguous, kv_len >= 1: a row with no
+    valid key is outside the contract). CPU tensors run the plain version;
+    CUDA tensors launch `csrc/online_attention.cu`, which takes bf16 and
+    head dim 64. Forward-only."""
+    if on_cpu(q, k, v, kv_lens):
+        return online_flash_attention_reference(q, k, v, kv_lens)
+    B, H, T, Dh = q.shape
+    if Dh != HEAD_DIM:
+        raise ValueError(f"online attention kernel takes head dim {HEAD_DIM}, got {Dh}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        require(t, name, torch.bfloat16, (B, H, T, Dh))
+        if t.data_ptr() % 16:
+            raise ValueError(f"online attention {name}: 16-byte aligned rows only")
+    require(kv_lens, "kv_lens", torch.int32, (B,))
+    out = torch.empty_like(q)
+    if B * H * T:
+        with torch.cuda.device(q.device):
+            launch("s3_online_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   kv_lens.data_ptr(), out.data_ptr(), B, H, T, stream_of(q))
+    online_flash_attention.launches += 1
+    return out
+
+
+online_flash_attention.launches = 0  # CUDA launches since the last reset
+
+
+def fused_qkv_attention_reference(qkv, kv_lens, num_heads: int):
+    """Plain version of K7 at T <= MAX_KERNEL_T (:159-197): K4's attention
+    core, in qkv's dtype."""
+    return attention_reference(qkv, kv_lens, num_heads)
+
+
+def _split_heads(qkv: torch.Tensor, num_heads: int):
+    """[B, T, 3C] -> q (times Dh^-0.5), k, v as contiguous [B, H, T, Dh]
+    (:241-249). The scale is a scalar of qkv's dtype, as jnp's weakly typed
+    float; 0.125 is exact in bf16 for Dh = 64."""
+    B, T, C3 = qkv.shape
+    Dh = C3 // 3 // num_heads
+    q, k, v = qkv.view(B, T, 3, num_heads, Dh).permute(2, 0, 3, 1, 4)
+    q = q * torch.tensor(Dh ** -0.5, dtype=qkv.dtype, device=qkv.device)
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def fused_qkv_attention(qkv, kv_lens, num_heads: int):
+    """Masked multi-head attention straight from the fused QKV buffer: K7.
+
+    qkv [B, T, 3C] (unscaled), kv_lens [B] int32 valid keys (padding
+    contiguous) -> [B, T, C] in qkv's dtype. Beyond MAX_KERNEL_T frames the
+    heads are split out and K8 takes over (the JAX package's routing; its
+    launch counts for K8, not here). CPU tensors run the plain versions;
+    CUDA tensors launch `csrc/attention.cu` (bf16 qkv, head dim 64).
+    Forward-only."""
+    cpu = on_cpu(qkv, kv_lens)
+    if not cpu and qkv.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"K7 fused_qkv_attention on the card takes bf16 qkv, got {qkv.dtype}: the "
+            "f32 flash path is not ported yet (ROADMAP.md Queue 2, K7 with f32 qkv)")
+    B, T, C3 = qkv.shape
+    if T > MAX_KERNEL_T:
+        out = online_flash_attention(*_split_heads(qkv, num_heads), kv_lens)
+        return out.transpose(1, 2).reshape(B, T, C3 // 3)
+    if cpu:
+        return fused_qkv_attention_reference(qkv, kv_lens, num_heads)
+    with torch.cuda.device(qkv.device):
+        out = _attention(qkv, kv_lens, num_heads)
+    fused_qkv_attention.launches += 1
+    return out.view(B, T, C3 // 3)
+
+
+fused_qkv_attention.launches = 0  # CUDA launches since the last reset
+
+
+def fused_qkv_attention_outproj_reference(qkv, residual, wo, bo, kv_lens, num_heads: int):
+    """Plain version of K6 at T <= MAX_KERNEL_T (:254-295): K7's attention
+    with the heads concatenated in f32 (unrounded), f32 per-row
+    quantization (max(absmax, 1e-8) / 127, round half to even), exact int32
+    out-proj, ((f32(acc) * s) * wos + bo) + residual in f32, one cast to
+    qkv's dtype. wo: an nn.Linear weight or its (codes, scales) pair."""
+    B, T, C3 = qkv.shape
+    C = C3 // 3
+    wo_q, wo_s = as_quantized_cols(wo)
+    ctx = attention_reference(qkv, kv_lens, num_heads, out_dtype=torch.float32)
+    a8, s = quantize_rows(ctx.view(B * T, C))
+    y = int_mm(a8, wo_q).float() * s * wo_s + bo.float() + residual.float().view(B * T, C)
+    return y.to(qkv.dtype).view(B, T, C)
+
+
+def fused_qkv_attention_outproj(qkv, residual, wo, bo, kv_lens, num_heads: int):
+    """residual + out_proj(MHA(qkv)) with the int8 W8A8 out-projection: K6.
+
+    The argument order is the JAX function's. qkv [B, T, 3C] bf16 (the
+    unscaled fused projection), residual [B, T, C] bf16 (the pre-attention
+    x), wo the cached (codes [C, C] int8, scales [C] f32) pair in nn.Linear
+    layout (a raw weight is quantized here), bo [C] f32, kv_lens [B] int32.
+    Beyond MAX_KERNEL_T frames: residual + int8_matmul(K7 -> K8, wo, bo)
+    (:350-352; its launches count for K8). CPU tensors run the plain
+    versions; CUDA tensors launch `csrc/attention.cu` (f32 context),
+    `csrc/quant_rows.cu` and `csrc/gemm_s8.cu` (head dim 64). Forward-only."""
+    wo_q, wo_s = as_quantized_cols(wo)
+    B, T, C3 = qkv.shape
+    C = C3 // 3
+    cpu = on_cpu(qkv, residual, wo_q, wo_s, bo, kv_lens)
+    if T > MAX_KERNEL_T:
+        out = fused_qkv_attention(qkv, kv_lens, num_heads)
+        return residual + int8_matmul(out, (wo_q, wo_s), bo, out_dtype=residual.dtype)
+    if cpu:
+        return fused_qkv_attention_outproj_reference(
+            qkv, residual, (wo_q, wo_s), bo, kv_lens, num_heads)
+    require(residual, "residual", torch.bfloat16, (B, T, C))
+    require(wo_q, "wo codes", torch.int8, (C, C))
+    with torch.cuda.device(qkv.device):
+        ctx = _attention(qkv, kv_lens, num_heads, out_f32=True)
+        a8, s_a = quant_rows(ctx)  # K6's f32 quantizer (:287-289), not K1's bf16 one
+        # K6's epilogue order, ((f32(acc) * s) * wos + bo) + residual in f32 (:294)
+        y = gemm_s8(a8, wo_q, mode=GEMM_LINEAR, row_scale=s_a, col_scale=wo_s, bias=bo,
+                    residual=residual.view(B * T, C))
+    fused_qkv_attention_outproj.launches += 1
+    return y.view(B, T, C)
+
+
+fused_qkv_attention_outproj.launches = 0  # CUDA launches since the last reset

@@ -6,19 +6,26 @@ the final LayerNorm's output, [L+1, B, T, C] (transformer.py:743-789).
 
 Routing of a pre-LN `EncoderLayer` (transformer.py:389-563). A layer runs
 "quant serving" when it is built with ``quantize``, is in eval mode and the
-fused kernels can serve its input (CUDA, see `_fused_block_available`):
-- attention: quant serving with ``use_flash`` -> K1 `fused_attention_block`
-  (T <= MAX_BLOCK_T; beyond it K6, not ported yet, raises); a bf16 layer
-  with ``use_flash`` and no ``quantize`` -> K4 `fused_attention_block_bf16`
-  (beyond MAX_BLOCK_T, K7/K8 raise); otherwise the module path: LN, then
-  `SelfAttention` (int8_matmul projections under ``quantize``);
+fused kernels can serve its input (CUDA, see `_fused_block_available`); it
+runs the bf16 kernels when it is a bf16 ``use_flash`` layer without
+``quantize``, in eval mode, with eps 1e-5, on such an input. T is compared
+with the kernels module's MAX_BLOCK_T and MAX_KERNEL_T at call time:
+- attention, quant serving with ``use_flash``: T <= MAX_BLOCK_T -> K1
+  `fused_attention_block`; beyond it the f32 LN rounded to bf16, the QKV
+  projection through int8_matmul, then K6 `fused_qkv_attention_outproj`
+  (transformer.py:481-492; K6 hands its attention to K8 beyond
+  MAX_KERNEL_T);
+- attention, bf16 kernels: T <= MAX_BLOCK_T -> K4 `fused_attention_block_bf16`;
+  beyond it the module path below (:525-526);
+- attention otherwise, the module path: LN, then `SelfAttention`, whose
+  ``use_flash`` branch runs K7 `fused_qkv_attention` (K8 beyond
+  MAX_KERNEL_T) between the projections (:182-185);
 - FFN: quant serving -> K2 `fused_int8_ffn` with the LN and the residual
-  folded in (eps 1e-5; other eps: module LN, then K2 bare); the bf16 flash
-  layer -> K5 `fused_bf16_ffn`; otherwise fc1 -> erf GELU -> fc2, through
-  int8_matmul under ``quantize``. K2 runs tanh GELU, the module path erf,
-  as in the JAX package.
-On the card, flash attention outside those block paths (K7) is not ported
-yet and raises.
+  folded in (eps 1e-5; other eps: module LN, then K2 bare); the bf16
+  kernels -> K5 `fused_bf16_ffn` at every T; otherwise fc1 -> erf GELU ->
+  fc2, through int8_matmul under ``quantize``. K2 runs tanh GELU, the
+  module path erf, as in the JAX package.
+On the card, K7 takes bf16 qkv: an f32 ``use_flash`` layer raises there.
 
 Matrix weights live in the model dtype, biases and norms in f32, as the JAX
 package casts them at use. With ``quantize`` the encoder layers keep their
@@ -36,9 +43,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..kernels import flash_attention as fa  # MAX_BLOCK_T / MAX_KERNEL_T read at call time
 from ..kernels.ffn import fused_bf16_ffn, fused_int8_ffn
-from ..kernels.flash_attention import (MAX_BLOCK_T, fused_attention_block,
-                                       fused_attention_block_bf16)
+from ..kernels.flash_attention import (fused_attention_block, fused_attention_block_bf16,
+                                       fused_qkv_attention, fused_qkv_attention_outproj)
 from ..ops.quant import as_quantized_cols, int8_matmul
 
 
@@ -112,13 +120,15 @@ class SelfAttention(_QCache, nn.Module):
     layout) is what the kernels read; `state_dict()` and `load_state_dict()`
     speak fairseq's ``{q,k,v}_proj.{weight,bias}`` keys. With ``quantize``
     the projections run int8 W8A8 from the cached ``qkv`` and ``out_proj``
-    codes."""
+    codes; with ``use_flash`` the attention between them is K7
+    `fused_qkv_attention` (forward-only on the card)."""
 
     def __init__(self, embed_dim: int, num_heads: int, quantize: bool = False,
-                 device=None):
+                 use_flash: bool = False, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.quantize = quantize
+        self.use_flash = use_flash
         self.qkv_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim, device=device))
         self.qkv_bias = nn.Parameter(torch.empty(3 * embed_dim, device=device))
         self.out_proj = nn.Linear(embed_dim, embed_dim, device=device)
@@ -140,8 +150,9 @@ class SelfAttention(_QCache, nn.Module):
                                       missing_keys, unexpected_keys, error_msgs)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
-        """Plain path (transformer.py:156-200 with attention_bthd): x [B, T, C]
-        in the model dtype, pad_mask [B, T] True on padded keys."""
+        """transformer.py:156-200: x [B, T, C] in the model dtype, pad_mask
+        [B, T] True on padded keys. Attention by K7 with ``use_flash``,
+        otherwise in plain ops (attention_bthd)."""
         B, T, C = x.shape
         H = self.num_heads
         Dh = C // H
@@ -149,12 +160,16 @@ class SelfAttention(_QCache, nn.Module):
             qkv = int8_matmul(x, self.qpair("qkv"), self.qkv_bias)
         else:
             qkv = F.linear(x, self.qkv_weight, self.qkv_bias.to(x.dtype))
-        q, k, v = qkv.view(B, T, 3, H, Dh).unbind(2)
-        q = q * Dh ** -0.5
-        scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
-        scores = scores.masked_fill(pad_mask[:, None, None, :], -1e9)
-        probs = scores.softmax(-1).to(v.dtype)
-        out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, C)
+        if self.use_flash:
+            kv_lens = (~pad_mask).sum(-1, dtype=torch.int32)
+            out = fused_qkv_attention(qkv, kv_lens, H)
+        else:
+            q, k, v = qkv.view(B, T, 3, H, Dh).unbind(2)
+            q = q * Dh ** -0.5
+            scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+            scores = scores.masked_fill(pad_mask[:, None, None, :], -1e9)
+            probs = scores.softmax(-1).to(v.dtype)
+            out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, C)
         if self.quantize:
             return int8_matmul(out, self.qpair("out_proj"), self.out_proj.bias)
         return _linear(out, self.out_proj)
@@ -173,7 +188,8 @@ class EncoderLayer(_QCache, nn.Module):
         self.use_flash = use_flash
         self.quantize = quantize
         self.num_heads = num_heads
-        self.self_attn = SelfAttention(embed_dim, num_heads, quantize, device=device)
+        self.self_attn = SelfAttention(embed_dim, num_heads, quantize, use_flash,
+                                       device=device)
         self.self_attn_layer_norm = nn.LayerNorm(embed_dim, eps=layer_norm_eps, device=device)
         self.fc1 = nn.Linear(embed_dim, ffn_dim, device=device)
         self.fc2 = nn.Linear(ffn_dim, embed_dim, device=device)
@@ -205,33 +221,24 @@ class EncoderLayer(_QCache, nn.Module):
         attn, ln1, ln2 = self.self_attn, self.self_attn_layer_norm, self.final_layer_norm
         quant_serving = self.quantize and not self.training and _fused_block_available(x)
         fused = (
-            not self.quantize and self.dtype == torch.bfloat16 and self.use_flash
-            and ln1.eps == 1e-5 and _fused_block_available(x)
+            not self.training and not self.quantize and self.dtype == torch.bfloat16
+            and self.use_flash and ln1.eps == 1e-5 and _fused_block_available(x)
         )
-        if quant_serving and self.use_flash:
-            if x.shape[1] > MAX_BLOCK_T:
-                raise NotImplementedError(
-                    f"T={x.shape[1]} > {MAX_BLOCK_T} frames on the int8 path needs "
-                    "K6 fused_qkv_attention_outproj, not ported yet (ROADMAP.md Queue 2)")
+        block_t = x.shape[1] <= fa.MAX_BLOCK_T
+        if quant_serving and self.use_flash and block_t:
             x = fused_attention_block(
                 x, attn.qpair("qkv"), attn.qkv_bias, (ln1.weight, ln1.bias),
                 attn.qpair("out_proj"), attn.out_proj.bias, kv_lens, self.num_heads)
-        elif fused:
-            if x.shape[1] > MAX_BLOCK_T:
-                raise NotImplementedError(
-                    f"T={x.shape[1]} > {MAX_BLOCK_T} frames needs the long-utterance "
-                    "attention kernels (K7 fused_qkv_attention, K8 "
-                    "online_flash_attention), not ported yet "
-                    "(ROADMAP.md Queue 2)")
+        elif quant_serving and self.use_flash:
+            qkv = int8_matmul(_layer_norm(x, ln1), attn.qpair("qkv"), attn.qkv_bias,
+                              out_dtype=self.dtype)
+            x = fused_qkv_attention_outproj(qkv, x, attn.qpair("out_proj"),
+                                            attn.out_proj.bias, kv_lens, self.num_heads)
+        elif fused and block_t:
             x = fused_attention_block_bf16(
                 x, attn.qkv_weight, attn.qkv_bias, (ln1.weight, ln1.bias),
                 attn.out_proj.weight, attn.out_proj.bias, kv_lens, self.num_heads)
         else:
-            if self.use_flash and x.is_cuda:
-                raise NotImplementedError(
-                    "flash attention outside the bf16 whole-block path runs K7 "
-                    "(fused_qkv_attention), not ported yet "
-                    "(ROADMAP.md Queue 2)")
             x = x + attn(_layer_norm(x, ln1), pad_mask)
         if quant_serving and ln2.eps == 1e-5:
             return fused_int8_ffn(x, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),

@@ -11,7 +11,10 @@ plain value) of it (one step is 0.03125 where outputs reach |v| >= 4): the
 kernel and the plain version sum in other orders, so a value near a
 rounding boundary can land one step apart. int8 sums are exact in any
 order: the int8 GEMM equals torch._int_mm bit for bit, and the quantizers
-equal their plain versions wherever their f32 inputs agree.
+equal their plain versions wherever their f32 inputs agree. The
+long-utterance wrappers (K6, K7) are held against the plain versions of
+the route they take, run by the same wrapper on CPU copies of the inputs:
+beyond MAX_KERNEL_T that route is K8's.
 """
 
 import numpy as np
@@ -23,10 +26,13 @@ from s3prl_tpu_torch.kernels.conv_frontend import (
     conv0_ln_gelu, conv0_ln_gelu_reference)
 from s3prl_tpu_torch.kernels.ffn import (
     fused_bf16_ffn, fused_bf16_ffn_reference, fused_int8_ffn, fused_int8_ffn_reference)
+from s3prl_tpu_torch.kernels import flash_attention as fa
+from s3prl_tpu_torch.kernels import wrappers
 from s3prl_tpu_torch.kernels.flash_attention import (
     attention_reference, fused_attention_block, fused_attention_block_bf16,
     fused_attention_block_bf16_reference, fused_attention_block_reference,
-    quantize_context_reference)
+    fused_qkv_attention, fused_qkv_attention_outproj, online_flash_attention,
+    online_flash_attention_reference, quantize_context_reference)
 from s3prl_tpu_torch.ops.quant import as_quantized_cols, int_mm, quantize_rows
 
 pytestmark = pytest.mark.cuda
@@ -112,18 +118,16 @@ def test_layernorm_kernel(dev, src):
     _close_bf16(got, want.to(torch.bfloat16))
 
 
-def test_attention_kernel_ragged(dev):
-    """The attention launch alone at a ragged T with kv_len 1 and a full row."""
+@pytest.mark.parametrize("out_f32", [False, True], ids=["bf16", "f32"])
+def test_attention_kernel_ragged(dev, out_f32):
+    """The attention launch alone at a ragged T with kv_len 1 and a full
+    row, with the bf16 output and K6's f32 one."""
     rng = np.random.RandomState(3)
     B, T, H = 3, 131, 4
     qkv = _t(rng.randn(B, T, 3 * H * 64), dev, torch.bfloat16)
     kv = torch.tensor([131, 70, 1], dtype=torch.int32, device=dev)
-    out = torch.empty(B * T, H * 64, dtype=torch.bfloat16, device=dev)
-    from s3prl_tpu_torch.kernels._build import launch
-
-    launch("s3_attention", qkv.data_ptr(), kv.data_ptr(), out.data_ptr(), B, T,
-           H, 64 ** -0.5, _common.stream_of(qkv))
-    want = attention_reference(qkv, kv, H)
+    out = fa._attention(qkv, kv, H, out_f32=out_f32)
+    want = attention_reference(qkv, kv, H, out_dtype=out.dtype)
     _close_bf16(out.view(B, T, -1), want)
 
 
@@ -204,28 +208,37 @@ def _tiny_batch():
     return torch.from_numpy(wavs), torch.from_numpy(lens)
 
 
-def test_tiny_trunk_bf16_kernels_match_cpu(dev):
-    """The module routing on the card (K3 + K4 + K5 launches) against the
-    same seed's model on the CPU (plain module path): per-layer cosine >
-    0.999 over the valid frames of all utterances, the JAX package's bar for
-    bf16 paths (a length-1 utterance's early layers are exactly 0 on both
-    sides under zero-initialised biases)."""
-    from s3prl_tpu_torch.kernels import wrappers
+def _trunk_on_card_vs_cpu(dev, monkeypatch, quantize, launches, wavs=None, lens=None):
+    """The tiny trunk's routing on the card against the same seed's model on
+    the CPU, whose kernel route runs the wrappers' plain versions: the
+    launch counts of one forward (in `wrappers()` order: conv0, K1, K2, K4,
+    K5, K6, K7, K8) and per-layer cosine > 0.999 over the valid frames of
+    all utterances, the JAX package's bar for bf16 paths (a length-1
+    utterance's early layers are exactly 0 on both sides under
+    zero-initialised biases)."""
+    import s3prl_tpu_torch.models.transformer as port_transformer
 
-    cpu, gpu = _tiny_trunk_pair(torch.bfloat16, True, dev)
-    wavs, lens = _tiny_batch()
+    cpu, gpu = _tiny_trunk_pair(torch.bfloat16, True, dev, quantize=quantize)
+    if wavs is None:
+        wavs, lens = _tiny_batch()
     for w in wrappers():
         w.launches = 0
     hs_gpu, hl_gpu = gpu.apply_standardized(wavs.to(dev), lens.to(dev))
     torch.cuda.synchronize()
-    assert [w.launches for w in wrappers()] == [1, 0, 0, 2, 2]  # conv0, K1, K2, K4, K5
+    assert [w.launches for w in wrappers()] == launches
+    monkeypatch.setattr(port_transformer, "_fused_block_available", lambda x: True)
     hs_cpu, hl_cpu = cpu.apply_standardized(wavs, lens)
     assert hl_gpu.tolist() == hl_cpu.tolist()
-    valid = [(b, n) for b, n in enumerate(hl_cpu.tolist())]
-    for layer in range(hs_cpu.shape[0]):  # cosine over every utterance's valid frames
+    valid = list(enumerate(hl_cpu.tolist()))
+    for layer in range(hs_cpu.shape[0]):
         a = torch.cat([hs_gpu[layer, b, :n].cpu() for b, n in valid]).double().flatten()
         c = torch.cat([hs_cpu[layer, b, :n] for b, n in valid]).double().flatten()
         assert float(a @ c / (a.norm() * c.norm())) > 0.999, layer
+
+
+def test_tiny_trunk_bf16_kernels_match_cpu(dev, monkeypatch):
+    """The bf16 routing on the card: K3 + K4 + K5 launches."""
+    _trunk_on_card_vs_cpu(dev, monkeypatch, False, [1, 0, 0, 2, 2, 0, 0, 0])
 
 
 def test_tiny_trunk_f32_matches_cpu(dev):
@@ -395,31 +408,113 @@ def test_int8_ffn_kernel(dev, ln, residual, postnorm, C, F):
 
 
 def test_tiny_trunk_int8_kernels_match_cpu(dev, monkeypatch):
-    """The int8 routing on the card (K3-tanh + K1 + K2 launches) against the
-    same seed's int8 model on the CPU through the kernel wrappers' plain
-    versions: per-layer cosine > 0.999 over the valid frames."""
-    import s3prl_tpu_torch.models.transformer as port_transformer
-    from s3prl_tpu_torch.kernels import wrappers
+    """The int8 routing on the card: K3-tanh + K1 + K2 launches."""
+    _trunk_on_card_vs_cpu(dev, monkeypatch, True, [1, 2, 2, 0, 0, 0, 0, 0])
 
-    cpu, gpu = _tiny_trunk_pair(torch.bfloat16, True, dev, quantize=True)
-    wavs, lens = _tiny_batch()
-    for w in wrappers():
-        w.launches = 0
-    hs_gpu, hl_gpu = gpu.apply_standardized(wavs.to(dev), lens.to(dev))
+
+def test_int8_on_the_card_serves_k6_beyond_512_frames(dev, monkeypatch):
+    """549 frames at the real thresholds: K6 in place of K1."""
+    wavs = torch.from_numpy(np.random.RandomState(16).randn(2, 11000).astype(np.float32))
+    lens = torch.tensor([11000, 7000])
+    _trunk_on_card_vs_cpu(dev, monkeypatch, True, [1, 0, 2, 0, 0, 2, 0, 0], wavs, lens)
+
+
+@pytest.mark.parametrize("quantize", [True, False], ids=["int8", "bf16"])
+@pytest.mark.parametrize("max_kernel_t", [2048, 128], ids=["k6k7", "k8"])
+def test_tiny_trunk_long_routes_match_cpu(dev, monkeypatch, quantize, max_kernel_t):
+    """T' = 320 frames with MAX_BLOCK_T = 64 (and MAX_KERNEL_T = 128 for
+    K8): int8 through K6 or K8 and K2, bf16 through K7 or K8 and K5."""
+    monkeypatch.setattr(fa, "MAX_BLOCK_T", 64)
+    monkeypatch.setattr(fa, "MAX_KERNEL_T", max_kernel_t)
+    k6_k7_k8 = {(True, 2048): [2, 0, 0], (True, 128): [0, 0, 2],
+                (False, 2048): [0, 2, 0], (False, 128): [0, 0, 2]}[quantize, max_kernel_t]
+    k2, k5 = (2, 0) if quantize else (0, 2)
+    _trunk_on_card_vs_cpu(dev, monkeypatch, quantize, [1, 0, k2, 0, k5] + k6_k7_k8)
+
+
+LONG_T = [513, 1499, 2048, 2049, 2999]
+
+
+def _long_kv(T, dev):
+    return torch.tensor([T, (T * 5) // 8, 1], dtype=torch.int32, device=dev)
+
+
+def _on_cpu(*args):
+    return [a.cpu() if isinstance(a, torch.Tensor) else tuple(t.cpu() for t in a)
+            for a in args]
+
+
+@pytest.mark.parametrize("T", LONG_T)
+def test_k7_kernel(dev, T):
+    """K7 against the plain versions of its route on the same inputs (the
+    wrapper on CPU copies): attention.cu up to MAX_KERNEL_T, K8 beyond."""
+    rng = np.random.RandomState(17)
+    qkv = _t(rng.randn(3, T, 3 * 128), dev, torch.bfloat16)
+    kv = _long_kv(T, dev)
+    before = fused_qkv_attention.launches, online_flash_attention.launches
+    got = fused_qkv_attention(qkv, kv, 2)
     torch.cuda.synchronize()
-    assert [w.launches for w in wrappers()] == [1, 2, 2, 0, 0]  # conv0, K1, K2, K4, K5
-    monkeypatch.setattr(port_transformer, "_fused_block_available", lambda x: True)
-    hs_cpu, hl_cpu = cpu.apply_standardized(wavs, lens)
-    assert hl_gpu.tolist() == hl_cpu.tolist()
-    valid = list(enumerate(hl_cpu.tolist()))
-    for layer in range(hs_cpu.shape[0]):
-        a = torch.cat([hs_gpu[layer, b, :n].cpu() for b, n in valid]).double().flatten()
-        c = torch.cat([hs_cpu[layer, b, :n] for b, n in valid]).double().flatten()
-        assert float(a @ c / (a.norm() * c.norm())) > 0.999, layer
+    online = T > fa.MAX_KERNEL_T
+    assert (fused_qkv_attention.launches - before[0],
+            online_flash_attention.launches - before[1]) == (0 + (not online), 0 + online)
+    _close_bf16(got, fused_qkv_attention(*_on_cpu(qkv, kv), 2))
 
 
-def test_int8_on_the_card_needs_k6_beyond_512_frames(dev):
-    _, gpu = _tiny_trunk_pair(torch.bfloat16, True, dev, quantize=True)
-    wavs = torch.randn(1, 11000, device=dev)  # 549 frames at stride 20
-    with pytest.raises(NotImplementedError, match="K6"):
-        gpu.apply_standardized(wavs, torch.tensor([11000], device=dev))
+@pytest.mark.parametrize("T", LONG_T)
+def test_k6_kernel(dev, T):
+    """K6 (f32 context, f32 row-quant, int8 out-proj + bias + residual)
+    against the plain versions of its route; beyond MAX_KERNEL_T it is
+    K7 -> K8 and residual + int8_matmul."""
+    rng = np.random.RandomState(18)
+    qkv = _t(rng.randn(3, T, 3 * 128), dev, torch.bfloat16)
+    x = _t(rng.randn(3, T, 128) * 0.5, dev, torch.bfloat16)
+    wo, bo = _qpair(rng, dev, 128, 128)
+    kv = _long_kv(T, dev)
+    before = fused_qkv_attention_outproj.launches, online_flash_attention.launches
+    got = fused_qkv_attention_outproj(qkv, x, wo, bo, kv, 2)
+    torch.cuda.synchronize()
+    online = T > fa.MAX_KERNEL_T
+    assert (fused_qkv_attention_outproj.launches - before[0],
+            online_flash_attention.launches - before[1]) == (0 + (not online), 0 + online)
+    _close_bf16(got, fused_qkv_attention_outproj(*_on_cpu(qkv, x, wo, bo, kv), 2))
+
+
+@pytest.mark.parametrize("T", LONG_T)
+def test_k8_kernel(dev, T):
+    """K8 alone against its plain version on the card; q pre-scaled."""
+    rng = np.random.RandomState(19)
+    q, k, v = (_t(rng.randn(3, 2, T, 64) * sc, dev, torch.bfloat16) for sc in (0.125, 1, 1))
+    kv = _long_kv(T, dev)
+    before = online_flash_attention.launches
+    got = online_flash_attention(q, k, v, kv)
+    torch.cuda.synchronize()
+    assert online_flash_attention.launches == before + 1
+    _close_bf16(got, online_flash_attention_reference(q, k, v, kv))
+
+
+def test_long_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    kv = torch.tensor([600], dtype=torch.int32, device=dev)
+    for T in (600, 2100):  # K7's own kernel, and its hand-over to K8
+        qkv = torch.zeros(1, T, 384, dtype=torch.bfloat16, device=dev)
+        with pytest.raises(NotImplementedError, match="K7"):  # f32 qkv: not ported
+            fused_qkv_attention(qkv.float(), kv, 2)
+        with pytest.raises(ValueError):  # head dim 32
+            fused_qkv_attention(qkv, kv, 4)
+        with pytest.raises(TypeError):  # int64 kv_lens
+            fused_qkv_attention(qkv, kv.long(), 2)
+        with pytest.raises(ValueError):  # kv_lens on the CPU
+            fused_qkv_attention(qkv, kv.cpu(), 2)
+        (wq, ws), bo = _qpair(np.random.RandomState(20), dev, 128, 128)
+        if T <= fa.MAX_KERNEL_T:  # beyond it K6 is K7 + stock ops, which take an f32 residual
+            with pytest.raises(TypeError):  # f32 residual
+                fused_qkv_attention_outproj(qkv, torch.zeros(1, T, 128, device=dev), (wq, ws),
+                                            bo, kv, 2)
+        with pytest.raises(ValueError):  # CPU weights
+            fused_qkv_attention_outproj(qkv, qkv[..., :128].contiguous(), (wq.cpu(), ws.cpu()),
+                                        bo.cpu(), kv, 2)
+    q = torch.zeros(1, 2, 2100, 32, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):  # head dim 32
+        online_flash_attention(q, q, q, kv)
+    q = torch.zeros(1, 2, 2100, 64, device=dev)
+    with pytest.raises(TypeError):  # f32
+        online_flash_attention(q, q, q, kv)

@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 
 import s3prl_tpu.models.transformer as jax_transformer
+import s3prl_tpu_torch.kernels.flash_attention as port_fa
 import s3prl_tpu_torch.models.transformer as port_transformer
 import s3prl_tpu_torch.upstream.registry as port_registry
 from s3prl_tpu.models.wav2vec2 import Wav2Vec2Config as JaxConfig
@@ -32,7 +33,9 @@ from s3prl_tpu.upstream.base import Upstream as JaxUpstream
 from s3prl_tpu.upstream.convert import trunk_params_from_torch
 from s3prl_tpu_torch import hub
 from s3prl_tpu_torch.kernels import wrappers
+from s3prl_tpu_torch.kernels.ffn import fused_bf16_ffn, fused_int8_ffn
 from s3prl_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Trunk
+from s3prl_tpu_torch.ops.quant import int8_matmul
 from s3prl_tpu_torch.upstream.base import Upstream
 from s3prl_tpu_torch.upstream.convert import trunk_state_dict_from_jax
 
@@ -174,12 +177,35 @@ def test_state_dict_round_trip_is_exact(jax_params):
             np.testing.assert_array_equal(leaf, flat_b[path], err_msg=str(path))
 
 
+def _refuse(*args, **kwargs):
+    raise AssertionError("a whole-block kernel beyond MAX_BLOCK_T")
+
+
+def _long_input(seed, T=513):
+    x = torch.from_numpy(np.random.RandomState(seed).randn(2, T, 128).astype(np.float32))
+    kv = torch.tensor([T, T // 3], dtype=torch.int32)
+    return x.bfloat16(), kv, torch.arange(T)[None, :] >= kv[:, None]
+
+
 def test_kernel_route_refuses_long_utterances(jax_params, monkeypatch):
+    """Beyond MAX_BLOCK_T the bf16 kernel route refuses K4 and serves the
+    utterance as the JAX package does (transformer.py:525-526): LN, then
+    SelfAttention through K7, then K5."""
     monkeypatch.setattr(port_transformer, "_fused_block_available", lambda x: True)
+    monkeypatch.setattr(port_transformer, "fused_attention_block_bf16", _refuse)
+    calls = []
+    k7 = port_fa.fused_qkv_attention_reference
+    monkeypatch.setattr(port_fa, "fused_qkv_attention_reference",
+                        lambda *a: calls.append(1) or k7(*a))
     layer = _port(jax_params, torch.bfloat16, flash=True).model.encoder.layers[0]
-    x = torch.zeros(1, 513, 128, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="K7"):
-        layer(x, torch.tensor([513], dtype=torch.int32), torch.zeros(1, 513, dtype=torch.bool))
+    x, kv, pad = _long_input(10)
+    got = layer(x, kv, pad)
+    assert calls == [1]
+    ln1, ln2 = layer.self_attn_layer_norm, layer.final_layer_norm
+    h = x + layer.self_attn(port_transformer._layer_norm(x, ln1), pad)
+    want = fused_bf16_ffn(h, layer.fc1.weight, layer.fc1.bias, layer.fc2.weight, layer.fc2.bias,
+                          ln=(ln2.weight, ln2.bias), residual=True)
+    assert torch.equal(got, want)
 
 
 def test_cpu_run_counts_no_launch(jax_params):
@@ -211,6 +237,8 @@ def test_port_never_imports_jax():
         "import s3prl_tpu_torch.hub, s3prl_tpu_torch.upstream.convert\n"
         "import s3prl_tpu_torch.kernels.conv_frontend, s3prl_tpu_torch.kernels.ffn\n"
         "import s3prl_tpu_torch.kernels.flash_attention, s3prl_tpu_torch.ops.quant\n"
+        "import s3prl_tpu_torch.kernels, s3prl_tpu_torch.models.transformer\n"
+        "assert len(s3prl_tpu_torch.kernels.wrappers()) == 8\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 's3prl_tpu')]\n"
         "assert not bad, bad\n"
@@ -253,11 +281,23 @@ def test_slice_int8_quality_against_f32(jax_params, monkeypatch):
 
 
 def test_int8_route_refuses_long_utterances(jax_params, monkeypatch):
+    """Beyond MAX_BLOCK_T int8 quant serving refuses K1 and serves the
+    utterance as the JAX package does (transformer.py:481-492): the f32 LN
+    rounded to bf16, int8_matmul QKV, K6, then K2."""
     monkeypatch.setattr(port_transformer, "_fused_block_available", lambda x: True)
+    monkeypatch.setattr(port_transformer, "fused_attention_block", _refuse)
     layer = _port(jax_params, torch.bfloat16, flash=True, quantize=True).model.encoder.layers[0]
-    x = torch.zeros(1, 513, 128, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="K6"):
-        layer(x, torch.tensor([513], dtype=torch.int32), torch.zeros(1, 513, dtype=torch.bool))
+    x, kv, pad = _long_input(11)
+    got = layer(x, kv, pad)
+    attn, ln1, ln2 = layer.self_attn, layer.self_attn_layer_norm, layer.final_layer_norm
+    h = port_transformer._layer_norm(x, ln1)
+    assert h.dtype == torch.bfloat16
+    qkv = int8_matmul(h, attn.qpair("qkv"), attn.qkv_bias, out_dtype=torch.bfloat16)
+    y = port_fa.fused_qkv_attention_outproj_reference(
+        qkv, x, attn.qpair("out_proj"), attn.out_proj.bias, kv, layer.num_heads)
+    want = fused_int8_ffn(y, layer.qpair("fc1"), layer.fc1.bias, layer.qpair("fc2"),
+                          layer.fc2.bias, ln=(ln2.weight, ln2.bias), residual=True)
+    assert torch.equal(got, want)
 
 
 def test_int8_state_dict_round_trip_is_exact(jax_params):
