@@ -14,31 +14,39 @@ line is printed; each phase prints its seconds):
     both GELU modes, K1 pre-LN and postnorm, K2 in five flag sets at
     C=1024, F=4096 (two chunks) and postnorm at C=768, F=3072 (one chunk),
     K4, K5 (B=4 x 499 frames); K6 and K7 at B=4 x 1,499 frames, K8 on
-    [2, 16, 2999, 64]; the share of int8 codes where the kernels'
-    quantizers and the plain ones differ is printed (K6's context codes
-    among them). The int8 GEMM alone equals torch._int_mm exactly, and the
-    quantizer rounds constructed ties half to even;
- 4. the main paths at full width (hub.load("hubert_large_ll60k", bf16,
-    flash, quantize=True) - the int8 serving default - and quantize=False),
-    one apply_standardized each on mixed lengths: B=8 x 10 s, B=8 x 30 s
-    (T' = 1,500: K6 / K7) and B=4 x 60 s (T' = 3,000: K8); checks the
-    [25, B, T', 1024] shape, exact h_lens, finite values, and the launch
-    counts of each run, read just after it with every count set to 0 just
-    before: conv0 / K1 / K2 = 1 / 24 / 24 (int8, 10 s), conv0 / K4 / K5
-    (bf16, 10 s), conv0 / K6 / K2 (int8, 30 s), conv0 / K7 / K5 (bf16,
-    30 s), conv0 / K8 / K2 and conv0 / K8 / K5 (60 s), every other kernel 0;
+    [2, 16, 2999, 64]; WavLM's K9 at B=4 x 499 and B=4 x 1,499 and K10 on
+    [2, 16, 2999, 64], with a pos_bias from the bucket table and gates in
+    (1, 3); the share of int8 codes where the kernels' quantizers and the
+    plain ones differ is printed (K6's context codes among them). The int8
+    GEMM alone equals torch._int_mm exactly, and the quantizer rounds
+    constructed ties half to even;
+ 4. the main paths at full width, HuBERT-Large (hub.load(
+    "hubert_large_ll60k", bf16, flash, quantize=True) - the int8 serving
+    default - and quantize=False) and WavLM-Large (hub.load("wavlm_large",
+    ...), the same two paths), one apply_standardized each on mixed
+    lengths: B=8 x 10 s, B=8 x 30 s (T' = 1,500) and B=4 x 60 s (T' =
+    3,000); checks the [25, B, T', 1024] shape, exact h_lens, finite
+    values, and the launch counts of each run, read just after it with
+    every count set to 0 just before (RUNS below; every other count 0);
  5. the same seed's models on the CPU (the kernel wrappers' plain versions)
     against the card, per-layer cosine > 0.999 over valid frames, for each
-    path: on B=2 x 2 s, then on B=2 x 4 s with MAX_BLOCK_T = 64 (K6 / K7)
-    and with MAX_KERNEL_T = 128 as well (K8); the JAX package's quality
-    gates at full depth on the card, against the f32 model (flash=False)
-    of the same weights: int8 per-layer cosine > 0.999
-    (tests/test_quant.py:82-124) on B=2 x 0.5 s, B=2 x 30 s and B=1 x
-    60 s, bf16 > 0.995 (tests/test_quant.py:590) on the two long ones;
- 6. timing (printed): extraction audio-s/s of both paths at B=32 x 10 s,
+    path: HuBERT on B=2 x 2 s, then on B=2 x 4 s with MAX_BLOCK_T = 64 (K6 /
+    K7) and with MAX_KERNEL_T = 128 as well (K8); WavLM on B=2 x 2 s (K9)
+    and B=2 x 4 s with MAX_KERNEL_T = 128 (K10). Then the JAX package's
+    quality gates at full depth on the card, against the f32 model
+    (flash=False) of the same weights: int8 per-layer cosine > 0.999
+    (tests/test_quant.py:82-124, :306-333) on B=2 x 0.5 s, B=2 x 30 s and
+    B=1 x 60 s, bf16 > 0.995 (tests/test_quant.py:590) on the two long ones
+    (HuBERT) or all three (WavLM);
+ 6. timing (printed): extraction audio-s/s of every path at B=32 x 10 s,
     B=8 x 30 s and B=4 x 60 s (two chain lengths, marginal rate, best of 3,
     CUDA events) with the peak device memory, and each kernel against its
-    plain version at those shapes.
+    plain version at those shapes, with its bound (the larger of the
+    bytes it must move over 3.35 TB/s and its operations over the peak
+    rate of their type) and, for the attention kernels K7-K10, the time of
+    one torch.nn.functional.scaled_dot_product_attention on the same bf16
+    q, k, v with its mask (built before the timed region; the port never
+    calls it).
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -215,6 +223,136 @@ def long_kernel_calls(inp, inp8):
     }
 
 
+def gated_inputs(B, T, gen, dev, H=16):
+    """K9/K10 inputs at WavLM-Large's widths: q (pre-scaled), k, v split
+    from a unit-scale fused QKV as the model splits it, a pos_bias gathered
+    from WavLM's bucket table (320 buckets up to distance 800) with a
+    random [320, H] table, gates in (1, 3) and ragged kv_lens."""
+    from s3prl_tpu_torch.kernels import flash_attention as fa
+    from s3prl_tpu_torch.models.wavlm import bucket_table
+
+    qkv = torch.randn(B, T, 3 * H * 64, generator=gen).to(dev, torch.bfloat16)
+    q, k, v = fa._split_heads(qkv, H)
+    table = (torch.randn(320, H, generator=gen) * 0.5).to(dev)
+    return dict(q=q, k=k, v=v, pos_bias=table.t()[:, bucket_table(T, 320, 800, dev)].contiguous(),
+                gate=(1 + 2 * torch.rand(B, H, T, generator=gen)).to(dev),
+                kv=torch.tensor(([T, T, (T * 5) // 8, 1] * B)[:B], dtype=torch.int32, device=dev))
+
+
+def gated_kernel_calls(inps9, inp10):
+    """K9 on each of `inps9`, K10 on `inp10`: name -> [(variant, kernel, plain)]."""
+    from s3prl_tpu_torch.kernels import flash_attention as fa
+
+    def args(i):
+        return i["q"], i["k"], i["v"], i["pos_bias"], i["gate"], i["kv"]
+
+    return {
+        "gated_bias_attention": [
+            (str(list(i["q"].shape)), lambda a=args(i): fa.gated_bias_attention(*a),
+             lambda a=args(i): fa.gated_bias_attention_reference(*a)) for i in inps9],
+        "gated_online_flash_attention": [
+            (str(list(inp10["q"].shape)), lambda: fa.gated_online_flash_attention(*args(inp10)),
+             lambda: fa.gated_online_flash_attention_reference(*args(inp10)))],
+    }
+
+
+HBM = 3.35e12  # bytes/s, H100 SXM (NVIDIA's data sheet)
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}  # dense, per second
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(ops, moved):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of `moved` bytes over its memory rate and the operations
+    (type -> count) over the peak rates of their types."""
+    t_ops = sum(n / PEAK[kind] for kind, n in ops.items())
+    t_bytes = moved / HBM
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
+def attention_work(B, T, H, kv, Dh=64):
+    """FLOP of Q.K^T and P.V over the keys these kv_lens leave valid."""
+    return 4 * Dh * H * T * sum(min(n, T) for n in kv)
+
+
+def kernel_bound(name, i):
+    """The bound of kernel `name` on the timing inputs `i` (each input byte
+    read once, each output byte written once; K/V rows past kv_len and
+    their work not counted)."""
+    kv = i["kv"].tolist()
+    if name == "conv0_ln_gelu":
+        B, N = i["wav"].shape
+        frames = (N - 10) // 5 + 1
+        return bound({"f32": 2 * 10 * 512 * B * frames},
+                     nbytes(i["wav"], i["conv_w"]) + B * frames * 512 * 2)
+    if name in ("gated_bias_attention", "gated_online_flash_attention"):
+        B, H, T, Dh = i["q"].shape
+        valid_kv = sum(kv) * H * Dh * 2
+        return bound({"bf16": attention_work(B, T, H, kv), "f32": 2 * H * T * sum(kv)},
+                     2 * nbytes(i["q"]) + 2 * valid_kv + H * T * max(kv) * 4 + nbytes(i["gate"]))
+    if name == "online_flash_attention":
+        B, H, T, Dh = i["q"].shape
+        return bound({"bf16": attention_work(B, T, H, kv)},
+                     2 * nbytes(i["q"]) + 2 * sum(kv) * H * Dh * 2)
+    if name in ("fused_qkv_attention", "fused_qkv_attention_outproj"):
+        B, T, C3 = i["qkv"].shape
+        C, H = C3 // 3, i["H"]
+        ops = {"bf16": attention_work(B, T, H, kv)}
+        moved = nbytes(i["qkv"]) + B * T * C * 2
+        if name == "fused_qkv_attention_outproj":
+            ops["int8"] = 2 * B * T * C * C
+            moved += nbytes(i["x"], *i["wo8"], i["bo"])
+        return bound(ops, moved)
+    B, T, C = i["x"].shape
+    M, H = B * T, i["H"]
+    if name in ("fused_int8_ffn", "fused_bf16_ffn"):
+        F = i["w1"].shape[0]
+        if name == "fused_int8_ffn":
+            ops, w = {"int8": 4 * M * C * F}, (*i["w18"], *i["w28"])
+        else:
+            ops, w = {"bf16": 4 * M * C * F}, (i["w1"], i["w2"])
+        return bound(ops, 2 * nbytes(i["x"]) + nbytes(*w, i["b1"], i["b2"], *i["ln"]))
+    attn = attention_work(B, T, H, kv)  # the QKV and out-proj GEMMs: 8 M C^2
+    if name == "fused_attention_block":
+        ops, w = {"int8": 8 * M * C * C, "bf16": attn}, (*i["wq8"], *i["wo8"])
+    else:
+        ops, w = {"bf16": 8 * M * C * C + attn}, (i["wq"], i["wo"])
+    return bound(ops, 2 * nbytes(i["x"]) + nbytes(*w, i["bq"], i["bo"], *i["ln"]))
+
+
+def library_call(name, i):
+    """One scaled_dot_product_attention on the same bf16 q, k, v as kernel
+    `name` (K7-K10), with its mask built here, outside the timed region:
+    a boolean key mask for K7 and K8; for K9 and K10 a float mask of q's
+    dtype (SDPA's rule) holding gate * pos_bias, -inf at masked keys.
+    None for the kernels that no single PyTorch call computes."""
+    import torch.nn.functional as F
+
+    kv = i["kv"]
+    if name == "fused_qkv_attention":
+        B, T, C3 = i["qkv"].shape
+        q, k, v = (t.contiguous() for t in i["qkv"].view(B, T, 3, i["H"], -1).permute(
+            2, 0, 3, 1, 4))
+        scale = None  # K7's qkv is unscaled: SDPA's default Dh^-0.5
+    elif name in ("online_flash_attention", "gated_bias_attention",
+                  "gated_online_flash_attention"):
+        q, k, v = i["q"], i["k"], i["v"]
+        scale = 1.0  # q pre-scaled
+    else:
+        return None
+    T = q.shape[2]
+    valid = torch.arange(T, device=q.device)[None, :] < kv[:, None]
+    if name.startswith("gated"):
+        mask = (i["gate"][..., None] * i["pos_bias"][None]).masked_fill(
+            ~valid[:, None, None, :], float("-inf")).to(q.dtype)
+    else:
+        mask = valid[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+
 def code_mismatch(inp, inp_long):
     """Share of int8 codes where the kernels' quantizers and the plain
     versions' differ, on the main path's inputs: K1's LN prologue and its
@@ -268,7 +406,12 @@ KERNELS = {  # wrapper -> (its main CUDA source, the TPU kernel it replaces)
                             "s3prl_tpu/kernels/flash_attention.py:210"),
     "online_flash_attention": ("s3prl_tpu_torch/csrc/online_attention.cu",
                                "s3prl_tpu/kernels/flash_attention.py:867"),
+    "gated_bias_attention": ("s3prl_tpu_torch/csrc/gated_attention.cu",
+                             "s3prl_tpu/kernels/flash_attention.py:105"),
+    "gated_online_flash_attention": ("s3prl_tpu_torch/csrc/gated_attention.cu",
+                                     "s3prl_tpu/kernels/flash_attention.py:963"),
 }
+MODELS = {"hubert": "hubert_large_ll60k", "wavlm": "wavlm_large"}
 LENS = {  # main-path batch -> utterance lengths in samples (mixed)
     "10 s": [160000, 120000, 40000, 800, 159999, 80000, 16001, 1],
     "30 s": [480000, 400000, 320000, 160000, 479999, 240000, 16001, 1],
@@ -276,14 +419,28 @@ LENS = {  # main-path batch -> utterance lengths in samples (mixed)
 }
 # main-path run -> the kernels it launches (24 layers; every other count is 0)
 RUNS = {
-    ("int8", "10 s"): {"conv0_ln_gelu": 1, "fused_attention_block": 24, "fused_int8_ffn": 24},
-    ("bf16", "10 s"): {"conv0_ln_gelu": 1, "fused_attention_block_bf16": 24,
-                       "fused_bf16_ffn": 24},
-    ("int8", "30 s"): {"conv0_ln_gelu": 1, "fused_qkv_attention_outproj": 24,
-                       "fused_int8_ffn": 24},
-    ("bf16", "30 s"): {"conv0_ln_gelu": 1, "fused_qkv_attention": 24, "fused_bf16_ffn": 24},
-    ("int8", "60 s"): {"conv0_ln_gelu": 1, "online_flash_attention": 24, "fused_int8_ffn": 24},
-    ("bf16", "60 s"): {"conv0_ln_gelu": 1, "online_flash_attention": 24, "fused_bf16_ffn": 24},
+    ("hubert", "int8", "10 s"): {"conv0_ln_gelu": 1, "fused_attention_block": 24,
+                                 "fused_int8_ffn": 24},
+    ("hubert", "bf16", "10 s"): {"conv0_ln_gelu": 1, "fused_attention_block_bf16": 24,
+                                 "fused_bf16_ffn": 24},
+    ("hubert", "int8", "30 s"): {"conv0_ln_gelu": 1, "fused_qkv_attention_outproj": 24,
+                                 "fused_int8_ffn": 24},
+    ("hubert", "bf16", "30 s"): {"conv0_ln_gelu": 1, "fused_qkv_attention": 24,
+                                 "fused_bf16_ffn": 24},
+    ("hubert", "int8", "60 s"): {"conv0_ln_gelu": 1, "online_flash_attention": 24,
+                                 "fused_int8_ffn": 24},
+    ("hubert", "bf16", "60 s"): {"conv0_ln_gelu": 1, "online_flash_attention": 24,
+                                 "fused_bf16_ffn": 24},
+    # WavLM: K3 in erf mode on both paths, K9 (K10 beyond 2,048 frames), K2 on int8 only
+    ("wavlm", "int8", "10 s"): {"conv0_ln_gelu": 1, "gated_bias_attention": 24,
+                                "fused_int8_ffn": 24},
+    ("wavlm", "bf16", "10 s"): {"conv0_ln_gelu": 1, "gated_bias_attention": 24},
+    ("wavlm", "int8", "30 s"): {"conv0_ln_gelu": 1, "gated_bias_attention": 24,
+                                "fused_int8_ffn": 24},
+    ("wavlm", "bf16", "30 s"): {"conv0_ln_gelu": 1, "gated_bias_attention": 24},
+    ("wavlm", "int8", "60 s"): {"conv0_ln_gelu": 1, "gated_online_flash_attention": 24,
+                                "fused_int8_ffn": 24},
+    ("wavlm", "bf16", "60 s"): {"conv0_ln_gelu": 1, "gated_online_flash_attention": 24},
 }
 # the main-path run each wrapper's launch count is read from: the first that launches it
 MAIN_PATH = {name: next(run for run, expected in RUNS.items() if name in expected)
@@ -338,18 +495,34 @@ def check_kernels(calls, max_err):
             del got, want
 
 
-def time_kernels(calls, label, entries, launches, max_err, first_only=True):
+def time_kernels(calls, inputs, label, entries, launches, max_err, first_only=True):
+    """Times each kernel (and its plain version, in turns) on its inputs
+    (`inputs`: name -> the input dict its calls were built on, the main
+    path's timing shapes); the first variant of each name fills its entry
+    of the kernels line, with its bound and the library call's time."""
     for name, variants in calls.items():
         for variant, kernel, plain in variants[:1] if first_only else variants:
             t = [cuda_ms(f, 10) for f in (plain, kernel, kernel, plain)]
             ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-            log(f"[timing] {name} {variant} {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
             if variant != variants[0][0]:
+                log(f"[timing] {name} {variant} {label}: kernel {ms:.3f} ms, "
+                    f"plain {plain_ms:.3f} ms")
                 continue
+            bound_ms, bound_by = kernel_bound(name, inputs[name])
+            library = library_call(name, inputs[name])
+            library_ms = None
+            if library is not None:
+                library_ms = (cuda_ms(library, 10) + cuda_ms(library, 10)) / 2
+                del library
+            log(f"[timing] {name} {variant} {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+                f", bound {bound_ms:.4f} ms ({bound_by}), library "
+                + ("-" if library_ms is None else f"{library_ms:.3f} ms"))
             source, replaces = KERNELS[name]
             entries[name] = {"name": name, "route": "cuda", "source": source,
                              "replaces": replaces, "launches": launches[MAIN_PATH[name]][name],
-                             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms}
+                             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "library_ms": library_ms}
 
 
 def main():
@@ -390,6 +563,9 @@ def main():
         inp8 = long_inputs(2, 2999, gen, dev)
         check_kernels(kernel_calls(inp, inp_base), max_err)
         check_kernels(long_kernel_calls(inp_long, inp8), max_err)
+        check_kernels(gated_kernel_calls([gated_inputs(4, 499, gen, dev),
+                                          gated_inputs(4, 1499, gen, dev)],
+                                         gated_inputs(2, 2999, gen, dev)), max_err)
         for what, share in code_mismatch(inp, inp_long).items():
             log(f"[int8 codes] {what}: {share:.3e} of codes differ from the plain version's")
         x8 = kc.quant_rows(inp["x"].view(-1, 1024), ln=inp["ln"])[0]
@@ -410,29 +586,31 @@ def main():
         log(f"[kernel] quant_rows rounds ties half to even: {q[0, :8].tolist()}")
         del inp, inp_base, inp_long, inp8
 
-    # 4. the main paths at full width, int8 (the serving default) then bf16
-    ups = {path: hub.load("hubert_large_ll60k", dtype=torch.bfloat16, flash=True,
-                          quantize=path == "int8", device=dev, seed=0)
-           for path in ("int8", "bf16")}
+    # 4. the main paths at full width, int8 (the serving default) then bf16,
+    # HuBERT-Large then WavLM-Large
+    ups = {(model, path): hub.load(entry, dtype=torch.bfloat16, flash=True,
+                                   quantize=path == "int8", device=dev, seed=0)
+           for model, entry in MODELS.items() for path in ("int8", "bf16")}
     launches = {}
     with Phase("4 main paths"):
-        for (path, length), expected in RUNS.items():
+        for run, expected in RUNS.items():
+            model, path, length = run
             lens = LENS[length]
             wavs, lens_t = batch(lens, max(lens), gen, dev)
             for w in wrapper.values():
                 w.launches = 0
-            hs, h_lens = ups[path].apply_standardized(wavs, lens_t)
+            hs, h_lens = ups[model, path].apply_standardized(wavs, lens_t)
             torch.cuda.synchronize()
-            launches[path, length] = {name: w.launches for name, w in wrapper.items()}
+            launches[run] = {name: w.launches for name, w in wrapper.items()}
             frames = (max(lens) - 1) // 320 + 1
-            log(f"[slice {path} {length}] hs {tuple(hs.shape)} {hs.dtype}, "
-                f"h_lens {h_lens.tolist()}, launches {launches[path, length]}")
+            log(f"[slice {model} {path} {length}] hs {tuple(hs.shape)} {hs.dtype}, "
+                f"h_lens {h_lens.tolist()}, launches {launches[run]}")
             check(tuple(hs.shape) == (25, len(lens), frames, 1024), f"hs shape {tuple(hs.shape)}")
             check(h_lens.tolist() == [(n - 1) // 320 + 1 for n in lens],
                   f"h_lens {h_lens.tolist()}")
             check(bool(torch.isfinite(hs).all()), "non-finite hidden states")
-            check(launches[path, length] == {name: expected.get(name, 0) for name in wrapper},
-                  f"{path} {length} launch counts {launches[path, length]}")
+            check(launches[run] == {name: expected.get(name, 0) for name in wrapper},
+                  f"{model} {path} {length} launch counts {launches[run]}")
             del hs, wavs
 
     # 5. the same seed's models on the CPU (plain versions) vs the card; the
@@ -440,18 +618,34 @@ def main():
     # versions there. Then the JAX package's quality gates against f32.
     import s3prl_tpu_torch.models.transformer as port_transformer
 
-    cases = (("B=2 x 2 s", [32000, 20000], {}, None),
-             ("B=2 x 4 s, MAX_BLOCK_T=64", [64000, 40000], {"MAX_BLOCK_T": 64},
-              {"int8": "fused_qkv_attention_outproj", "bf16": "fused_qkv_attention"}),
-             ("B=2 x 4 s, MAX_BLOCK_T=64, MAX_KERNEL_T=128", [64000, 40000],
-              {"MAX_BLOCK_T": 64, "MAX_KERNEL_T": 128},
-              {"int8": "online_flash_attention", "bf16": "online_flash_attention"}))
+    cases = {  # model -> (label, lengths, patched thresholds, path -> attention kernel)
+        "hubert": (
+            ("B=2 x 2 s", [32000, 20000], {}, None),
+            ("B=2 x 4 s, MAX_BLOCK_T=64", [64000, 40000], {"MAX_BLOCK_T": 64},
+             {"int8": "fused_qkv_attention_outproj", "bf16": "fused_qkv_attention"}),
+            ("B=2 x 4 s, MAX_BLOCK_T=64, MAX_KERNEL_T=128", [64000, 40000],
+             {"MAX_BLOCK_T": 64, "MAX_KERNEL_T": 128},
+             {"int8": "online_flash_attention", "bf16": "online_flash_attention"})),
+        "wavlm": (
+            ("B=2 x 2 s", [32000, 20000], {},
+             {"int8": "gated_bias_attention", "bf16": "gated_bias_attention"}),
+            ("B=2 x 4 s, MAX_KERNEL_T=128", [64000, 40000], {"MAX_KERNEL_T": 128},
+             {"int8": "gated_online_flash_attention", "bf16": "gated_online_flash_attention"})),
+    }
+    quality = {  # model -> (label, lengths, paths gated against f32)
+        "hubert": (("B=2 x 0.5 s", [8000, 6400], ("int8",)),
+                   ("B=2 x 30 s", [480000, 400000], ("int8", "bf16")),
+                   ("B=1 x 60 s", [960000], ("int8", "bf16"))),
+        "wavlm": (("B=2 x 0.5 s", [8000, 6400], ("int8", "bf16")),
+                  ("B=2 x 30 s", [480000, 400000], ("int8", "bf16")),
+                  ("B=1 x 60 s", [960000], ("int8", "bf16"))),
+    }
     available = port_transformer._fused_block_available
     with Phase("5 card vs CPU, quality vs f32"):
-        for path, up in ups.items():
-            up_cpu = hub.load("hubert_large_ll60k", dtype=torch.bfloat16, flash=True,
+        for (model, path), up in ups.items():
+            up_cpu = hub.load(MODELS[model], dtype=torch.bfloat16, flash=True,
                               quantize=path == "int8", device="cpu", seed=0)
-            for label, lens, patch, attn_kernel in cases:
+            for label, lens, patch, attn_kernel in cases[model]:
                 small, small_lens = batch(lens, max(lens), gen, "cpu")
                 saved = {name: getattr(fa, name) for name in patch}
                 try:
@@ -470,45 +664,46 @@ def main():
                         setattr(fa, name, value)
                 if attn_kernel:
                     launched = wrapper[attn_kernel[path]].launches
-                    check(launched == 24,
-                          f"{path} {label}: {attn_kernel[path]} launched {launched} times")
+                    check(launched == 24, f"{model} {path} {label}: {attn_kernel[path]} "
+                          f"launched {launched} times")
                 check(hl_cpu.tolist() == hl_gpu.tolist(), "h_lens CPU vs card")
                 coss = layer_cosines(hs_gpu.cpu(), hs_cpu, hl_cpu.tolist())
-                log(f"[cpu-vs-card {path} {label}] per-layer cosine min {min(coss):.6f}: "
-                    + " ".join(f"{c:.5f}" for c in coss))
-                check(min(coss) > COS_LAYER, f"per-layer cosine CPU vs card ({path}, {label})")
+                log(f"[cpu-vs-card {model} {path} {label}] per-layer cosine min "
+                    f"{min(coss):.6f}: " + " ".join(f"{c:.5f}" for c in coss))
+                check(min(coss) > COS_LAYER,
+                      f"per-layer cosine CPU vs card ({model} {path}, {label})")
                 del hs_cpu, hs_gpu
             del up_cpu
-        up_f32 = hub.load("hubert_large_ll60k", dtype=torch.float32, flash=False, device=dev,
-                          seed=0)
-        for label, lens, paths in (("B=2 x 0.5 s", [8000, 6400], ("int8",)),
-                                   ("B=2 x 30 s", [480000, 400000], ("int8", "bf16")),
-                                   ("B=1 x 60 s", [960000], ("int8", "bf16"))):
-            wavs, lens_t = batch(lens, max(lens), gen, dev)
-            hs_f, hl = up_f32.apply_standardized(wavs, lens_t)
-            for path in paths:
-                hs_q, _ = ups[path].apply_standardized(wavs, lens_t)
-                coss = layer_cosines(hs_q.float(), hs_f, hl.tolist())
-                log(f"[{path}-vs-f32 {label}] 24L per-layer cosine min {min(coss):.6f}: "
-                    + " ".join(f"{c:.5f}" for c in coss))
-                check(min(coss) > COS_F32[path], f"per-layer cosine {path} vs f32 ({label})")
-                del hs_q
-            del hs_f
-        del up_f32
+        for model, entry in MODELS.items():
+            up_f32 = hub.load(entry, dtype=torch.float32, flash=False, device=dev, seed=0)
+            for label, lens, paths in quality[model]:
+                wavs, lens_t = batch(lens, max(lens), gen, dev)
+                hs_f, hl = up_f32.apply_standardized(wavs, lens_t)
+                for path in paths:
+                    hs_q, _ = ups[model, path].apply_standardized(wavs, lens_t)
+                    coss = layer_cosines(hs_q.float(), hs_f, hl.tolist())
+                    log(f"[{model} {path}-vs-f32 {label}] 24L per-layer cosine min "
+                        f"{min(coss):.6f}: " + " ".join(f"{c:.5f}" for c in coss))
+                    check(min(coss) > COS_F32[path],
+                          f"per-layer cosine {model} {path} vs f32 ({label})")
+                    del hs_q
+                del hs_f
+            del up_f32
 
     # 6. timing: both paths on each main-path batch, then each kernel vs its plain version
     with Phase("6 timing"):
         it_lo, it_hi = 5, 15
         for label, B, secs in (("10 s", 32, 10.0), ("30 s", 8, 30.0), ("60 s", 4, 60.0)):
             wavs, lens_t = batch([int(secs * SR)] * B, int(secs * SR), gen, dev)
-            for path, up in ups.items():
+            for (model, path), up in ups.items():
                 torch.cuda.reset_peak_memory_stats()
                 best = {it: min(it * cuda_ms(lambda: up.apply_standardized(wavs, lens_t), it)
                                 for _ in range(3))
                         for it in (it_lo, it_hi)}
                 per_iter = (best[it_hi] - best[it_lo]) / (it_hi - it_lo)
                 rate = B * secs / (per_iter / 1e3)
-                log(f"[timing] slice {path} B={B} x {secs:.0f} s: {per_iter:.2f} ms/forward, "
+                log(f"[timing] slice {model} {path} B={B} x {secs:.0f} s: "
+                    f"{per_iter:.2f} ms/forward, "
                     f"{rate:.1f} audio-s/s (chains {it_lo}: {best[it_lo]:.1f} ms, "
                     f"{it_hi}: {best[it_hi]:.1f} ms), peak device memory "
                     f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -521,13 +716,21 @@ def main():
         entries = {}
         inp = kernel_inputs(32, 499, gen, dev)
         calls = kernel_calls(inp)
-        time_kernels({"conv0_ln_gelu": calls.pop("conv0_ln_gelu")}, "B=32", entries, launches,
-                     max_err, first_only=False)
-        time_kernels(calls, "B=32", entries, launches, max_err)
-        del inp, calls
+        inputs = {name: inp for name in calls}
+        time_kernels({"conv0_ln_gelu": calls.pop("conv0_ln_gelu")}, inputs, "B=32", entries,
+                     launches, max_err, first_only=False)
+        time_kernels(calls, inputs, "B=32", entries, launches, max_err)
+        del inp, calls, inputs
         inp_long, inp8 = long_inputs(8, 1499, gen, dev), long_inputs(4, 2999, gen, dev)
-        time_kernels(long_kernel_calls(inp_long, inp8), "(30 s: B=8; 60 s: B=4)", entries,
-                     launches, max_err)
+        inputs = {"fused_qkv_attention_outproj": inp_long, "fused_qkv_attention": inp_long,
+                  "online_flash_attention": inp8}
+        time_kernels(long_kernel_calls(inp_long, inp8), inputs, "(30 s: B=8; 60 s: B=4)",
+                     entries, launches, max_err)
+        del inp_long, inp8, inputs
+        inp9, inp10 = gated_inputs(32, 499, gen, dev), gated_inputs(4, 2999, gen, dev)
+        time_kernels(gated_kernel_calls([inp9], inp10),
+                     {"gated_bias_attention": inp9, "gated_online_flash_attention": inp10},
+                     "(10 s: B=32; 60 s: B=4)", entries, launches, max_err)
     log(json.dumps({"kernels": [entries[name] for name in wrapper]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,12 @@ kernel's plain PyTorch version. It never imports jax.
 
     from s3prl_tpu_torch import hub
     up = hub.load("hubert_large_ll60k", dtype=torch.bfloat16, flash=True,
-                  quantize=True, device="cuda")  # int8 W8A8, the serving default
+                  quantize=True)  # int8 W8A8, the serving default, on the card
     hs, h_lens = up.apply_standardized(wavs, wav_lens)  # [25, B, T', 1024]
 
-``quantize=False`` gives the bf16 reference-precision path.
+``quantize=False`` gives the bf16 reference-precision path; ``"wavlm_large"``
+is WavLM-Large. Models are built on the card unless ``device="cpu"`` is
+given.
 """
 
 __version__ = "0.1.0"

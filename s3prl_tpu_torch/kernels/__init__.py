@@ -8,13 +8,16 @@ kernel for CUDA tensors, and counts its CUDA launches in ``<wrapper>.launches``.
 def wrappers():
     """The kernel wrappers of the serving paths, in pipeline order: conv0,
     then the int8 blocks (K1, K2), then the bf16 blocks (K4, K5), then the
-    long-utterance attention (K6 int8, K7 bf16, K8 beyond MAX_KERNEL_T)."""
+    long-utterance attention (K6 int8, K7 bf16, K8 beyond MAX_KERNEL_T),
+    then WavLM's gated-bias attention (K9, K10 beyond MAX_KERNEL_T)."""
     from .conv_frontend import conv0_ln_gelu
     from .ffn import fused_bf16_ffn, fused_int8_ffn
     from .flash_attention import (fused_attention_block, fused_attention_block_bf16,
                                   fused_qkv_attention, fused_qkv_attention_outproj,
+                                  gated_bias_attention, gated_online_flash_attention,
                                   online_flash_attention)
 
     return (conv0_ln_gelu, fused_attention_block, fused_int8_ffn,
             fused_attention_block_bf16, fused_bf16_ffn, fused_qkv_attention_outproj,
-            fused_qkv_attention, online_flash_attention)
+            fused_qkv_attention, online_flash_attention, gated_bias_attention,
+            gated_online_flash_attention)

@@ -45,6 +45,8 @@ SIGNATURES = {
     "s3_attention": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
     # q, k, v, kv_lens, out, batch, heads, T, stream
     "s3_online_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # q, k, v, pos_bias, gate, kv_lens, out, batch, heads, T, masked, l_floor, stream
+    "s3_gated_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
     # a, lda, w, ldw, M, N, K, row_scale, col_scale, bias, acc_in, res, out,
     # mode, gelu, out_f32, stream
     "s3_gemm_s8": (_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),

@@ -45,6 +45,14 @@ for threshold, both read at call time):
 - K8 `online_flash_attention` (:892): K-blocked online softmax in f32 on
   [B, H, T, 64] (`csrc/online_attention.cu`). Beyond MAX_KERNEL_T frames
   K7 and K6 hand their attention to it (:241-249, :350-352).
+
+WavLM's gated relative-position-bias attention (scores q.k^T + gate[b, h, t]
+* pos_bias[h, t, s]), both on `csrc/gated_attention.cu`:
+
+- K9 `gated_bias_attention` (:139, whole-T cell :59-89): mask -1e9, no
+  floor on the denominator; beyond MAX_KERNEL_T it hands over to
+- K10 `gated_online_flash_attention`, the port of `_gated_online_flash_kernel`
+  (:949, K-blocked cell :901-945): mask -1e30, denominator max(l, 1e-30).
 """
 
 from __future__ import annotations
@@ -376,3 +384,101 @@ def fused_qkv_attention_outproj(qkv, residual, wo, bo, kv_lens, num_heads: int):
 
 
 fused_qkv_attention_outproj.launches = 0  # CUDA launches since the last reset
+
+
+def _gated_reference(q, k, v, pos_bias, gate, kv_lens, masked: float, floor: float | None):
+    """The gated cells' math in f32: s = q.k^T + gate * pos_bias (product,
+    then sum), keys at or past kv_len set to `masked`, p = exp2((s - max) *
+    log2 e) kept in f32 for P.V, out = (p.V) / sum p [floored] in q's dtype."""
+    T = q.shape[2]
+    s = q.float() @ k.float().transpose(-1, -2)
+    s = s + gate.float()[..., None] * pos_bias.float()[None]
+    col = torch.arange(T, device=q.device)
+    valid = col[None, :] < kv_lens[:, None].to(col.dtype)  # [B, T keys]
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, masked))
+    p = torch.exp2((s - s.amax(-1, keepdim=True)) * _LOG2E)
+    denom = p.sum(-1, keepdim=True)
+    if floor is not None:
+        denom = torch.clamp(denom, min=floor)
+    return ((p @ v.float()) / denom).to(q.dtype)
+
+
+def gated_bias_attention_reference(q, k, v, pos_bias, gate, kv_lens):
+    """Plain version of K9, the Pallas cell `_attn_kernel` (:71-89): q, k, v
+    cast to f32, s = q k^T + gate[..., None] * pos_bias, keys at or past
+    kv_len -> -1e9, p = exp2((s - max) * log2 e) in f32, out = (p @ v) /
+    sum p in q's dtype."""
+    return _gated_reference(q, k, v, pos_bias, gate, kv_lens, -1e9, None)
+
+
+def gated_online_flash_attention_reference(q, k, v, pos_bias, gate, kv_lens):
+    """Plain version of K10, the Pallas cell `_gated_online_kernel`
+    (:919-945), over the whole row: K9's math with the mask -1e30 and the
+    denominator max(sum p, 1e-30)."""
+    return _gated_reference(q, k, v, pos_bias, gate, kv_lens, -1e30, 1e-30)
+
+
+def _gated_launch(q, k, v, pos_bias, gate, kv_lens, masked: float, floor: float):
+    """One launch of `csrc/gated_attention.cu` (CUDA only): checks what the
+    kernel takes and raises on anything else."""
+    B, H, T, Dh = q.shape
+    if Dh != HEAD_DIM:
+        raise ValueError(f"gated attention kernel takes head dim {HEAD_DIM}, got {Dh}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        require(t, name, torch.bfloat16, (B, H, T, Dh))
+        if t.data_ptr() % 16:
+            raise ValueError(f"gated attention {name}: 16-byte aligned rows only")
+    require(pos_bias, "pos_bias", torch.float32, (H, T, T))
+    require(gate, "gate", torch.float32, (B, H, T))
+    require(kv_lens, "kv_lens", torch.int32, (B,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, pos_bias, gate)):
+        raise RuntimeError(
+            "the gated attention kernels (K9/K10) are forward-only: call them under "
+            "torch.no_grad() or torch.inference_mode(), or on CPU tensors")
+    out = torch.empty_like(q)
+    if B * H * T:
+        with torch.cuda.device(q.device):
+            launch("s3_gated_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   pos_bias.data_ptr(), gate.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+                   B, H, T, masked, floor, stream_of(q))
+    return out
+
+
+def gated_online_flash_attention(q, k, v, pos_bias, gate, kv_lens):
+    """K-blocked gated-bias attention for sequences beyond MAX_KERNEL_T
+    frames: K10, the port of `_gated_online_flash_kernel`. Arguments as
+    `gated_bias_attention`. CPU tensors run the plain version; CUDA tensors
+    launch `csrc/gated_attention.cu` with the mask -1e30 and the floor
+    1e-30. Forward-only."""
+    if on_cpu(q, k, v, pos_bias, gate, kv_lens):
+        return gated_online_flash_attention_reference(q, k, v, pos_bias, gate, kv_lens)
+    out = _gated_launch(q, k, v, pos_bias, gate, kv_lens, -1e30, 1e-30)
+    gated_online_flash_attention.launches += 1
+    return out
+
+
+gated_online_flash_attention.launches = 0  # CUDA launches since the last reset
+
+
+def gated_bias_attention(q, k, v, pos_bias, gate, kv_lens):
+    """Attention with WavLM's gated relative-position bias: K9.
+
+    softmax(q k^T + gate[b, h, t] * pos_bias[h, t, s], keys at or past
+    kv_len masked) v. q, k, v [B, H, T, Dh] (q pre-scaled by Dh^-0.5),
+    pos_bias [H, T, T] f32 (shared by the utterances), gate [B, H, T] f32,
+    kv_lens [B] int32 valid keys (padding contiguous, kv_len >= 1: a row
+    with no valid key is outside the contract) -> [B, H, T, Dh] in q's
+    dtype. Beyond MAX_KERNEL_T frames (read at call time) K10 takes over
+    (:153-156; its launch counts for K10, not here). CPU tensors run the
+    plain version; CUDA tensors launch `csrc/gated_attention.cu` (bf16 q,
+    k, v, head dim 64). Forward-only."""
+    if q.shape[2] > MAX_KERNEL_T:
+        return gated_online_flash_attention(q, k, v, pos_bias, gate, kv_lens)
+    if on_cpu(q, k, v, pos_bias, gate, kv_lens):
+        return gated_bias_attention_reference(q, k, v, pos_bias, gate, kv_lens)
+    out = _gated_launch(q, k, v, pos_bias, gate, kv_lens, -1e9, 0.0)
+    gated_bias_attention.launches += 1
+    return out
+
+
+gated_bias_attention.launches = 0  # CUDA launches since the last reset

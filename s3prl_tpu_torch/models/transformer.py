@@ -26,6 +26,10 @@ with the kernels module's MAX_BLOCK_T and MAX_KERNEL_T at call time:
   fc2, through int8_matmul under ``quantize``. K2 runs tanh GELU, the
   module path erf, as in the JAX package.
 On the card, K7 takes bf16 qkv: an f32 ``use_flash`` layer raises there.
+WavLM's layers (`models/wavlm.py`) subclass `EncoderLayer` and pass their
+gated relative-position bias to `SelfAttention` (``rel_bias``), whose
+``use_flash`` branch then runs K9 `gated_bias_attention` (K10 beyond
+MAX_KERNEL_T) in place of K7.
 
 Matrix weights live in the model dtype, biases and norms in f32, as the JAX
 package casts them at use. With ``quantize`` the encoder layers keep their
@@ -46,7 +50,8 @@ import torch.nn.functional as F
 from ..kernels import flash_attention as fa  # MAX_BLOCK_T / MAX_KERNEL_T read at call time
 from ..kernels.ffn import fused_bf16_ffn, fused_int8_ffn
 from ..kernels.flash_attention import (fused_attention_block, fused_attention_block_bf16,
-                                       fused_qkv_attention, fused_qkv_attention_outproj)
+                                       fused_qkv_attention, fused_qkv_attention_outproj,
+                                       gated_bias_attention)
 from ..ops.quant import as_quantized_cols, int8_matmul
 
 
@@ -135,9 +140,11 @@ class SelfAttention(_QCache, nn.Module):
         self._register_qcache("qkv", "out_proj")
 
     def _save_to_state_dict(self, destination, prefix, keep_vars):
-        for name, w, b in zip("qkv", self.qkv_weight.chunk(3), self.qkv_bias.chunk(3)):
-            destination[f"{prefix}{name}_proj.weight"] = w if keep_vars else w.detach()
-            destination[f"{prefix}{name}_proj.bias"] = b if keep_vars else b.detach()
+        super()._save_to_state_dict(destination, prefix, keep_vars)
+        for kind, fused in (("weight", self.qkv_weight), ("bias", self.qkv_bias)):
+            del destination[f"{prefix}qkv_{kind}"]
+            for name, part in zip("qkv", fused.chunk(3)):
+                destination[f"{prefix}{name}_proj.{kind}"] = part if keep_vars else part.detach()
 
     def _load_from_state_dict(self, state_dict, prefix, local_metadata, strict,
                               missing_keys, unexpected_keys, error_msgs):
@@ -149,10 +156,15 @@ class SelfAttention(_QCache, nn.Module):
         super()._load_from_state_dict(state_dict, prefix, local_metadata, strict,
                                       missing_keys, unexpected_keys, error_msgs)
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor, rel_bias=None) -> torch.Tensor:
         """transformer.py:156-200: x [B, T, C] in the model dtype, pad_mask
-        [B, T] True on padded keys. Attention by K7 with ``use_flash``,
-        otherwise in plain ops (attention_bthd)."""
+        [B, T] True on padded keys; `rel_bias` = (pos_bias [H, T, T], gate
+        [B, H, T]) is WavLM's gated relative-position bias. With
+        ``use_flash`` the attention is K9 `gated_bias_attention` (K10 beyond
+        MAX_KERNEL_T) on the split heads, given the bias and gate in f32, or
+        K7 without a bias; otherwise plain ops (attention_bthd), the bias
+        gate * pos_bias formed in the model dtype and added to the f32
+        scores before the mask."""
         B, T, C = x.shape
         H = self.num_heads
         Dh = C // H
@@ -162,11 +174,20 @@ class SelfAttention(_QCache, nn.Module):
             qkv = F.linear(x, self.qkv_weight, self.qkv_bias.to(x.dtype))
         if self.use_flash:
             kv_lens = (~pad_mask).sum(-1, dtype=torch.int32)
-            out = fused_qkv_attention(qkv, kv_lens, H)
+            if rel_bias is None:
+                out = fused_qkv_attention(qkv, kv_lens, H)
+            else:
+                pos_bias, gate = rel_bias
+                out = gated_bias_attention(*fa._split_heads(qkv, H), pos_bias.float(),
+                                           gate.float(), kv_lens)
+                out = out.transpose(1, 2).reshape(B, T, C)
         else:
             q, k, v = qkv.view(B, T, 3, H, Dh).unbind(2)
             q = q * Dh ** -0.5
             scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+            if rel_bias is not None:
+                pos_bias, gate = rel_bias
+                scores = scores + (gate[..., None] * pos_bias[None]).float()
             scores = scores.masked_fill(pad_mask[:, None, None, :], -1e9)
             probs = scores.softmax(-1).to(v.dtype)
             out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, C)
@@ -180,6 +201,8 @@ class EncoderLayer(_QCache, nn.Module):
     The post-LN order (HuBERT-Base) is a later slice (ROADMAP.md Queue 1
     item 5)."""
 
+    attention = SelfAttention  # the self-attention module (WavLM's adds the gate)
+
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
                  quantize: bool = False, layer_norm_eps: float = 1e-5, device=None):
@@ -188,8 +211,8 @@ class EncoderLayer(_QCache, nn.Module):
         self.use_flash = use_flash
         self.quantize = quantize
         self.num_heads = num_heads
-        self.self_attn = SelfAttention(embed_dim, num_heads, quantize, use_flash,
-                                       device=device)
+        self.self_attn = self.attention(embed_dim, num_heads, quantize, use_flash,
+                                        device=device)
         self.self_attn_layer_norm = nn.LayerNorm(embed_dim, eps=layer_norm_eps, device=device)
         self.fc1 = nn.Linear(embed_dim, ffn_dim, device=device)
         self.fc2 = nn.Linear(ffn_dim, embed_dim, device=device)
@@ -213,6 +236,14 @@ class EncoderLayer(_QCache, nn.Module):
         attn._store_qcache("out_proj", attn.out_proj.weight)
         self._store_qcache("fc1", self.fc1.weight)
         self._store_qcache("fc2", self.fc2.weight)
+
+    def _ffn(self, h: torch.Tensor) -> torch.Tensor:
+        """The FFN's module path on the normalised h: fc1 -> erf GELU -> fc2,
+        through int8_matmul under ``quantize``."""
+        if self.quantize:
+            h = F.gelu(int8_matmul(h, self.qpair("fc1"), self.fc1.bias))
+            return int8_matmul(h, self.qpair("fc2"), self.fc2.bias)
+        return _linear(F.gelu(_linear(h, self.fc1)), self.fc2)
 
     def forward(self, x: torch.Tensor, kv_lens: torch.Tensor,
                 pad_mask: torch.Tensor) -> torch.Tensor:
@@ -250,11 +281,7 @@ class EncoderLayer(_QCache, nn.Module):
         if quant_serving:  # eps != 1e-5: K2 without its LN (transformer.py:422-428)
             return x + fused_int8_ffn(h, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),
                                       self.fc2.bias)
-        if self.quantize:
-            h = F.gelu(int8_matmul(h, self.qpair("fc1"), self.fc1.bias))
-            return x + int8_matmul(h, self.qpair("fc2"), self.fc2.bias)
-        h = F.gelu(_linear(h, self.fc1))
-        return x + _linear(h, self.fc2)
+        return x + self._ffn(h)
 
 
 class TransformerEncoder(nn.Module):
@@ -280,6 +307,11 @@ class TransformerEncoder(nn.Module):
         ])
         self.layer_norm = nn.LayerNorm(embed_dim, device=device)
 
+    def _layer_args(self, T: int, device) -> tuple:
+        """Inputs every layer takes after (x, kv_lens, pad_mask), built once
+        per forward: none here (WavLM's encoder adds its shared bias)."""
+        return ()
+
     def forward(self, x: torch.Tensor, feat_lens: torch.Tensor) -> torch.Tensor:
         """x [B, T, C] in the model dtype, feat_lens [B] valid frames ->
         hidden states [L+1, B, T, C]."""
@@ -288,9 +320,10 @@ class TransformerEncoder(nn.Module):
         kv_lens = torch.clamp(feat_lens, max=T).to(torch.int32)
         x = x.masked_fill(pad_mask[..., None], 0.0)
         x = x + self.pos_conv(x)
+        shared = self._layer_args(T, x.device)
         hidden = x.new_empty(len(self.layers) + 1, B, T, C)
         for i, layer in enumerate(self.layers):
             hidden[i] = x
-            x = layer(x, kv_lens, pad_mask)
+            x = layer(x, kv_lens, pad_mask, *shared)
         hidden[-1] = _layer_norm(x, self.layer_norm)
         return hidden

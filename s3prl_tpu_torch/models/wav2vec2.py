@@ -5,7 +5,8 @@ valid frame count of each utterance.
 
 Ported for the HuBERT-Large serving slices (bf16, and int8 W8A8 with
 ``quantize``): layer-norm extractor, pre-LN encoder, the block-folded
-feature-length rule, no span masking (extraction).
+feature-length rule, no span masking (extraction). WavLM
+(`models/wavlm.py`) is this trunk with its own encoder and an erf extractor.
 The module names follow fairseq's state_dict keys (see upstream/convert.py).
 """
 
@@ -104,6 +105,10 @@ class Wav2Vec2Trunk(nn.Module):
     materialise with ``to_empty`` when the weights come from an initialiser
     or a state_dict."""
 
+    # int8 serving runs the extractor's GELU in tanh (s3prl_tpu/models/
+    # wav2vec2.py passes ``quantize`` to its extractor; WavLM's does not)
+    tanh_extractor = True
+
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype = torch.float32,
                  use_flash: bool = False, quantize: bool = False, device=None):
         super().__init__()
@@ -115,7 +120,7 @@ class Wav2Vec2Trunk(nn.Module):
         self.dtype = dtype
         self.feature_extractor = ConvFeatureExtractor(
             cfg.conv_feature_layers, cfg.extractor_mode, cfg.conv_bias, dtype,
-            quantize, device=device)
+            quantize and self.tanh_extractor, device=device)
         embed = cfg.conv_feature_layers[-1][0]
         self.layer_norm = nn.LayerNorm(embed, device=device)
         self.post_extract_proj = None
@@ -125,7 +130,10 @@ class Wav2Vec2Trunk(nn.Module):
         # pretraining's mask embedding: unused by extraction, kept so the
         # state_dict carries the whole checkpoint
         self.mask_emb = nn.Parameter(torch.empty(cfg.encoder_embed_dim, device=device))
-        self.encoder = TransformerEncoder(
+        self.encoder = self._encoder(cfg, dtype, use_flash, quantize, device)
+
+    def _encoder(self, cfg, dtype, use_flash, quantize, device) -> nn.Module:
+        return TransformerEncoder(
             cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim, cfg.encoder_layers,
             cfg.encoder_attention_heads, cfg.layer_norm_first, cfg.conv_pos,
             cfg.conv_pos_groups, dtype, use_flash, quantize, device=device)

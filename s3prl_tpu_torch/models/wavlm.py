@@ -1,0 +1,203 @@
+"""WavLM (port of s3prl_tpu/models/wavlm.py): the wav2vec2 trunk with a gated
+relative-position-bias transformer (Microsoft WavLM, s3prl/upstream/wavlm).
+
+On top of the trunk:
+- a T5-style bucketed relative position bias (num_buckets=320,
+  max_distance=800): a [num_buckets, H] table owned by the FIRST layer
+  (Microsoft's key ``encoder.layers.0.self_attn.relative_attention_bias.weight``;
+  the JAX package keeps it at encoder level) and shared by all layers as
+  pos_bias [H, T, T] = table[buckets], gathered once per forward and rounded
+  to the model dtype (wavlm.py:297-308);
+- per layer, a gate per (head, query) from the layer's LN output split by
+  heads (wavlm.py:118-128), which scales the shared bias.
+
+Ported: pre-LN WavLM (WavLM-Large). Routing of a `GatedRelPosLayer`
+(wavlm.py:182-229):
+- attention: x + self_attn(LN(x)) with the gated bias; with ``use_flash``
+  K9 `gated_bias_attention` (K10 beyond MAX_KERNEL_T), otherwise plain ops;
+  the projections through int8_matmul under ``quantize``. WavLM runs none
+  of K1, K4, K6 and K7;
+- FFN: quant serving (``quantize``, eval mode, CUDA input) -> K2
+  `fused_int8_ffn` with the LN and the residual folded in; otherwise the
+  module path fc1 -> erf GELU -> fc2 (int8_matmul under ``quantize``): the
+  bf16 WavLM does not run K5;
+- extractor: the JAX WavLM passes no ``quantize`` to it (wavlm.py:264-267),
+  so K3 runs exact (erf) GELU in both paths.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..kernels.ffn import fused_int8_ffn
+from . import transformer as tr
+from .transformer import EncoderLayer, SelfAttention, TransformerEncoder, _layer_norm
+from .wav2vec2 import Wav2Vec2Config, Wav2Vec2Trunk
+
+
+@dataclass(frozen=True)
+class WavLMConfig(Wav2Vec2Config):
+    """The JAX package's WavLMConfig (wavlm.py:38-43)."""
+
+    relative_position_embedding: bool = True
+    num_buckets: int = 320
+    max_distance: int = 800
+    gru_rel_pos: bool = True
+
+
+WAVLM_LARGE = WavLMConfig(
+    extractor_mode="layer_norm",
+    encoder_layers=24,
+    encoder_embed_dim=1024,
+    encoder_ffn_embed_dim=4096,
+    encoder_attention_heads=16,
+    layer_norm_first=True,
+    dropout=0.0,
+    attention_dropout=0.0,
+    dropout_input=0.0,
+    normalize=True,
+)
+
+
+def relative_position_buckets(seq_len: int, num_buckets: int = 320,
+                              max_distance: int = 800) -> np.ndarray:
+    """[T, T] int64 bucket indices (wavlm.py:62-83; bidirectional T5
+    bucketing: half the buckets by sign, half log-spaced in magnitude). The
+    log is taken in float64 and truncated, as the JAX package does: a
+    float32 log moves bucket boundaries."""
+    ctx = np.arange(seq_len)[:, None]
+    mem = np.arange(seq_len)[None, :]
+    rel = mem - ctx
+    nb = num_buckets // 2
+    buckets = (rel > 0).astype(np.int64) * nb
+    rel = np.abs(rel)
+    max_exact = nb // 2
+    is_small = rel < max_exact
+    large = max_exact + (
+        np.log(np.maximum(rel, 1) / max_exact)
+        / np.log(max_distance / max_exact)
+        * (nb - max_exact)
+    ).astype(np.int64)
+    large = np.minimum(large, nb - 1)
+    buckets += np.where(is_small, rel, large)
+    return buckets
+
+
+@lru_cache(maxsize=8)
+def bucket_table(seq_len: int, num_buckets: int, max_distance: int,
+                 device: torch.device) -> torch.Tensor:
+    """`relative_position_buckets` as an int64 tensor on `device`, cached per
+    (T, device)."""
+    return torch.from_numpy(relative_position_buckets(seq_len, num_buckets,
+                                                      max_distance)).to(device)
+
+
+class GatedSelfAttention(SelfAttention):
+    """SelfAttention with WavLM's gate parameters under Microsoft's keys:
+    ``grep_linear`` (Linear(Dh, 8)) and ``grep_a`` [1, H, 1, 1], kept in f32
+    and cast to the model dtype at use; in layer 0 also the shared bias
+    table ``relative_attention_bias`` (nn.Embedding(num_buckets, H), f32)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, quantize: bool = False,
+                 use_flash: bool = False, device=None):
+        super().__init__(embed_dim, num_heads, quantize, use_flash, device=device)
+        self.grep_linear = nn.Linear(embed_dim // num_heads, 8, device=device)
+        self.grep_a = nn.Parameter(torch.empty(1, num_heads, 1, 1, device=device))
+
+    def gate(self, h: torch.Tensor) -> torch.Tensor:
+        """Gate [B, H, T] in h's dtype from h [B, T, C] split by heads
+        (wavlm.py:118-128): g = sigmoid(sum over 4 of grep_linear(h)), then
+        a * (b * grep_a - 1) + 2, every step in h's dtype."""
+        B, T, C = h.shape
+        H = self.num_heads
+        heads = h.view(B, T, H, C // H).transpose(1, 2)
+        lin = self.grep_linear
+        g = F.linear(heads, lin.weight.to(h.dtype)) + lin.bias.to(h.dtype)  # Dense: dot, then bias
+        g = torch.sigmoid(g.view(B, H, T, 2, 4).sum(-1))
+        return g[..., 0] * (g[..., 1] * self.grep_a.to(h.dtype)[..., 0] - 1.0) + 2.0
+
+
+class GatedRelPosLayer(EncoderLayer):
+    """Pre-LN WavLM block (wavlm.py:86-237). ``num_buckets`` is given to
+    layer 0 only, which then owns the shared bias table."""
+
+    attention = GatedSelfAttention
+
+    def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32, use_flash: bool = False,
+                 quantize: bool = False, num_buckets: int | None = None, device=None):
+        super().__init__(embed_dim, ffn_dim, num_heads, dtype, use_flash, quantize,
+                         device=device)
+        if num_buckets is not None:
+            self.self_attn.relative_attention_bias = nn.Embedding(num_buckets, num_heads,
+                                                                  device=device)
+
+    def forward(self, x: torch.Tensor, kv_lens: torch.Tensor, pad_mask: torch.Tensor,
+                pos_bias: torch.Tensor) -> torch.Tensor:
+        """x [B, T, C] in the model dtype; kv_lens [B] int32; pad_mask [B, T]
+        True on padded frames; pos_bias [H, T, T], the encoder's shared bias."""
+        attn, ln2 = self.self_attn, self.final_layer_norm
+        h = _layer_norm(x, self.self_attn_layer_norm)
+        x = x + attn(h, pad_mask, rel_bias=(pos_bias, attn.gate(h)))
+        if self.quantize and not self.training and tr._fused_block_available(x):
+            return fused_int8_ffn(x, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),
+                                  self.fc2.bias, ln=(ln2.weight, ln2.bias), residual=True)
+        return x + self._ffn(_layer_norm(x, ln2))
+
+
+class WavLMEncoder(TransformerEncoder):
+    """Pos-conv, the gated layers, final LN; [L+1, B, T, C] as the trunk's."""
+
+    def __init__(self, cfg: WavLMConfig, dtype: torch.dtype = torch.float32,
+                 use_flash: bool = False, quantize: bool = False, device=None):
+        if not cfg.layer_norm_first:
+            raise NotImplementedError(
+                "post-LN WavLM (WavLM-Base, WavLM-Base+) is a later slice "
+                "(ROADMAP.md Queue 2)")
+        super().__init__(cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim, 0,
+                         cfg.encoder_attention_heads, True, cfg.conv_pos,
+                         cfg.conv_pos_groups, dtype, use_flash, quantize, device=device)
+        self.dtype = dtype
+        self.use_flash = use_flash
+        self.num_buckets, self.max_distance = cfg.num_buckets, cfg.max_distance
+        self.layers.extend(
+            GatedRelPosLayer(cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim,
+                             cfg.encoder_attention_heads, dtype, use_flash, quantize,
+                             num_buckets=cfg.num_buckets if i == 0 else None, device=device)
+            for i in range(cfg.encoder_layers))
+
+    def _layer_args(self, T: int, device) -> tuple:
+        """The shared bias pos_bias [H, T, T] = table[buckets] in the model
+        dtype (wavlm.py:304-308), gathered once per forward. The kernels
+        take it in f32: the rounded table is cast once here, so the layers
+        share one tensor (576 MB at T = 3,000) and never build their own."""
+        table = self.layers[0].self_attn.relative_attention_bias.weight.t().to(self.dtype)
+        if self.use_flash:
+            table = table.float()
+        return (table[:, bucket_table(T, self.num_buckets, self.max_distance, device)],)
+
+
+class WavLMModel(Wav2Vec2Trunk):
+    """WavLM extraction: conv features -> LN -> proj -> gated rel-pos
+    transformer -> ([L+1, B, T', C], feat_lens [B]), the trunk's length
+    rule (wavlm.py:268-270). Weights as the trunk's; the int8 model keeps
+    its projection weights in f32 and quantizes them once at load."""
+
+    tanh_extractor = False  # erf in both paths (wavlm.py:264-267)
+
+    def __init__(self, cfg: WavLMConfig = WAVLM_LARGE, dtype: torch.dtype = torch.float32,
+                 use_flash: bool = False, quantize: bool = False, device=None):
+        if not (cfg.relative_position_embedding and cfg.gru_rel_pos):
+            raise NotImplementedError(
+                "WavLM without the gated relative-position bias is not ported "
+                "(ROADMAP.md Queue 2)")
+        super().__init__(cfg, dtype, use_flash, quantize, device=device)
+
+    def _encoder(self, cfg, dtype, use_flash, quantize, device) -> nn.Module:
+        return WavLMEncoder(cfg, dtype, use_flash, quantize, device=device)

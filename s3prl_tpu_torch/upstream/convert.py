@@ -5,7 +5,8 @@ s3prl_tpu.models.wav2vec2.Wav2Vec2Trunk (numpy or jax arrays; a variables
 dict with a "params" entry also works) and returns the fairseq-keyed
 state_dict that s3prl_tpu_torch's `Wav2Vec2Trunk.load_state_dict` reads and
 that s3prl_tpu/upstream/convert.py `trunk_params_from_torch` maps back to
-the same tree, bit for bit:
+the same tree, bit for bit; `wavlm_state_dict_from_jax(params, cfg)` does
+the same for s3prl_tpu.models.wavlm.WavLMModel (Microsoft's keys):
 
 - conv kernels [k, in, out] -> Conv1d weights [out, in, k];
 - Dense kernels [in, out] -> Linear weights [out, in];
@@ -46,9 +47,8 @@ def _conv(kernel) -> torch.Tensor:
     return _tensor(np.asarray(kernel).transpose(2, 1, 0))
 
 
-def trunk_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
-    """JAX Wav2Vec2Trunk params -> the port's (fairseq-keyed) state_dict."""
-    p = params.get("params", params)
+def _front_end(p: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """The extractor, the feature LN, the projection and the mask embedding."""
     if cfg.extractor_mode != "layer_norm" or cfg.conv_bias:
         raise NotImplementedError(
             "only the bias-free layer-norm extractor is ported "
@@ -63,13 +63,15 @@ def trunk_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Te
     if "post_extract_proj" in p:
         _linear(sd, "post_extract_proj", p["post_extract_proj"])
     sd["mask_emb"] = _tensor(p["mask_emb"])
+    return sd
 
-    enc = p["encoder"]
-    pos = enc["pos_conv"]["conv"]
-    sd["encoder.pos_conv.0.weight"] = _conv(pos["kernel"])
-    sd["encoder.pos_conv.0.bias"] = _tensor(pos["bias"])
-    _norm(sd, "encoder.layer_norm", enc["layer_norm"])
-    layers = enc["layers"]
+
+def _encoder(sd, pos_conv: Dict[str, Any], layer_norm: Dict[str, Any],
+             layers: Dict[str, Any], cfg) -> None:
+    """The pos-conv, the final LN and the stacked layers' common parameters."""
+    sd["encoder.pos_conv.0.weight"] = _conv(pos_conv["conv"]["kernel"])
+    sd["encoder.pos_conv.0.bias"] = _tensor(pos_conv["conv"]["bias"])
+    _norm(sd, "encoder.layer_norm", layer_norm)
     C = cfg.encoder_embed_dim
     for i in range(cfg.encoder_layers):
         pre = f"encoder.layers.{i}"
@@ -83,4 +85,32 @@ def trunk_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Te
         _linear(sd, f"{pre}.fc1", layers["fc1"], i)
         _linear(sd, f"{pre}.fc2", layers["fc2"], i)
         _norm(sd, f"{pre}.final_layer_norm", layers["final_layer_norm"], i)
+
+
+def trunk_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX Wav2Vec2Trunk params -> the port's (fairseq-keyed) state_dict."""
+    p = params.get("params", params)
+    sd = _front_end(p, cfg)
+    enc = p["encoder"]
+    _encoder(sd, enc["pos_conv"], enc["layer_norm"], enc["layers"], cfg)
+    return sd
+
+
+def wavlm_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX WavLMModel params -> the port's (Microsoft-keyed) state_dict, the
+    inverse of s3prl_tpu/upstream/convert.py `wavlm_params_from_torch`
+    (:359-416) but for the pos-conv, which the port keeps folded as
+    ``encoder.pos_conv.0.weight``. The JAX tree keeps the pos-conv, the
+    final LN (``enc_layer_norm``) and the bias table at its top level; the
+    table goes to layer 0, as in Microsoft's WavLM."""
+    p = params.get("params", params)
+    sd = _front_end(p, cfg)
+    layers = p["layers"]
+    _encoder(sd, p["pos_conv"], p["enc_layer_norm"], layers, cfg)
+    sd["encoder.layers.0.self_attn.relative_attention_bias.weight"] = _tensor(
+        p["relative_attention_bias"])
+    for i in range(cfg.encoder_layers):
+        pre = f"encoder.layers.{i}.self_attn"
+        _linear(sd, f"{pre}.grep_linear", layers["grep_linear"], i)
+        sd[f"{pre}.grep_a"] = _tensor(layers["grep_a"][i])
     return sd

@@ -1,12 +1,15 @@
 """Named upstream registry (port of s3prl_tpu/upstream/registry.py).
 
-Ported entries: ``hubert_large_ll60k``, in f32, bf16 and int8 W8A8
-(``quantize=True``, the serving default). Without a checkpoint (loading one
-is a later slice) the weights are random, drawn on the CPU from a
-`torch.Generator` seeded with `seed`, so one seed gives the same model on
-every device. With ``quantize`` the encoder's projections are quantized
-once, on the CPU from their f32 values, before the model moves to `device`
-(the JAX package's `_materialize_qcache`, registry.py:117-148).
+Ported entries: ``hubert_large_ll60k`` and ``wavlm_large``, each in f32,
+bf16 and int8 W8A8 (``quantize=True``, the serving default). A model is
+built on the card (``torch.device("cuda")``) unless ``device=`` says
+otherwise; without CUDA and without ``device=`` loading raises rather than
+building on the CPU. Without a checkpoint (loading one is a later slice)
+the weights are random, drawn on the CPU from a `torch.Generator` seeded
+with `seed`, so one seed gives the same model on every device. With
+``quantize`` the encoder's projections are quantized once, on the CPU from
+their f32 values, before the model moves to its device (the JAX package's
+`_materialize_qcache`, registry.py:117-148).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch.nn as nn
 from ..models.hubert import HUBERT_LARGE
 from ..models.transformer import SelfAttention
 from ..models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Trunk
+from ..models.wavlm import WAVLM_LARGE, GatedSelfAttention, WavLMConfig, WavLMModel
 from .base import Upstream
 
 _REGISTRY: Dict[str, Callable[..., Upstream]] = {}
@@ -38,10 +42,22 @@ def options() -> List[str]:
 
 def load(name: str, **kwargs) -> Upstream:
     """Build a named upstream: ``load(name, dtype=torch.float32, flash=False,
-    quantize=False, seed=0, device="cpu")``."""
+    quantize=False, seed=0, device=None)``. ``device=None`` is the card
+    (``"cuda"``); pass ``device="cpu"`` to build on the CPU."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown upstream '{name}'; available: {options()}")
     return _REGISTRY[name](**kwargs)
+
+
+def _device(device) -> torch.device:
+    """The model's device: `device` when given, else the card."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port builds its models on the card; pass "
+            'device="cpu" to build on the CPU')
+    return torch.device("cuda")
 
 
 def _normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
@@ -52,8 +68,9 @@ def _normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
 
 @torch.no_grad()
 def _init_trunk(model: Wav2Vec2Trunk, gen: torch.Generator) -> Wav2Vec2Trunk:
-    """Random weights in module order: LeCun-normal matrices, zero biases,
-    unit/zero norms, U[0, 1) mask embedding (flax's initialisers)."""
+    """Random weights in module order with flax's initialisers: LeCun-normal
+    matrices, zero biases, unit/zero norms, U[0, 1) mask embedding; WavLM's
+    bias table normal(0.02) and gate scale ``grep_a`` ones."""
     for m in model.modules():
         if isinstance(m, nn.Conv1d):
             _normal_(m.weight, m.weight[0].numel(), gen)
@@ -62,9 +79,13 @@ def _init_trunk(model: Wav2Vec2Trunk, gen: torch.Generator) -> Wav2Vec2Trunk:
         elif isinstance(m, SelfAttention):
             _normal_(m.qkv_weight, m.qkv_weight.shape[1], gen)
             m.qkv_bias.zero_()
+            if isinstance(m, GatedSelfAttention):
+                m.grep_a.fill_(1.0)
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * 0.02)
         if isinstance(m, (nn.Conv1d, nn.Linear)) and m.bias is not None:
             m.bias.zero_()
     model.mask_emb.copy_(torch.rand(model.mask_emb.shape, generator=gen))
@@ -73,12 +94,15 @@ def _init_trunk(model: Wav2Vec2Trunk, gen: torch.Generator) -> Wav2Vec2Trunk:
 
 def _trunk_upstream(name: str, cfg: Wav2Vec2Config, dtype=torch.float32,
                     flash: bool = False, quantize: bool = False, seed: int = 0,
-                    device="cpu", ckpt=None) -> Upstream:
+                    device=None, ckpt=None) -> Upstream:
+    """A trunk model (WavLM for a `WavLMConfig`) with random weights from
+    `seed`, on `device` (the card when None)."""
     if ckpt is not None:
         raise NotImplementedError(
             "ckpt= loading is not ported yet (ROADMAP.md Queue 1 item 6)")
-    model = Wav2Vec2Trunk(cfg, dtype=dtype, use_flash=flash, quantize=quantize,
-                          device="meta")
+    device = _device(device)
+    model_cls = WavLMModel if isinstance(cfg, WavLMConfig) else Wav2Vec2Trunk
+    model = model_cls(cfg, dtype=dtype, use_flash=flash, quantize=quantize, device="meta")
     model.to_empty(device="cpu")
     _init_trunk(model, torch.Generator().manual_seed(seed))
     model.build_qcache()
@@ -91,3 +115,8 @@ def _trunk_upstream(name: str, cfg: Wav2Vec2Config, dtype=torch.float32,
 @register("hubert_large_ll60k")
 def hubert_large(**kwargs) -> Upstream:
     return _trunk_upstream("hubert_large", HUBERT_LARGE, **kwargs)
+
+
+@register("wavlm_large")
+def wavlm_large(**kwargs) -> Upstream:
+    return _trunk_upstream("wavlm_large", WAVLM_LARGE, **kwargs)

@@ -14,7 +14,9 @@ order: the int8 GEMM equals torch._int_mm bit for bit, and the quantizers
 equal their plain versions wherever their f32 inputs agree. The
 long-utterance wrappers (K6, K7) are held against the plain versions of
 the route they take, run by the same wrapper on CPU copies of the inputs:
-beyond MAX_KERNEL_T that route is K8's.
+beyond MAX_KERNEL_T that route is K8's; so are WavLM's gated-bias wrappers
+(K9, and K10 beyond MAX_KERNEL_T). Launch counts are listed in `wrappers()`
+order: conv0, K1, K2, K4, K5, K6, K7, K8, K9, K10.
 """
 
 import numpy as np
@@ -31,7 +33,9 @@ from s3prl_tpu_torch.kernels import wrappers
 from s3prl_tpu_torch.kernels.flash_attention import (
     attention_reference, fused_attention_block, fused_attention_block_bf16,
     fused_attention_block_bf16_reference, fused_attention_block_reference,
-    fused_qkv_attention, fused_qkv_attention_outproj, online_flash_attention,
+    fused_qkv_attention, fused_qkv_attention_outproj, gated_bias_attention,
+    gated_bias_attention_reference, gated_online_flash_attention,
+    gated_online_flash_attention_reference, online_flash_attention,
     online_flash_attention_reference, quantize_context_reference)
 from s3prl_tpu_torch.ops.quant import as_quantized_cols, int_mm, quantize_rows
 
@@ -208,17 +212,35 @@ def _tiny_batch():
     return torch.from_numpy(wavs), torch.from_numpy(lens)
 
 
-def _trunk_on_card_vs_cpu(dev, monkeypatch, quantize, launches, wavs=None, lens=None):
-    """The tiny trunk's routing on the card against the same seed's model on
-    the CPU, whose kernel route runs the wrappers' plain versions: the
-    launch counts of one forward (in `wrappers()` order: conv0, K1, K2, K4,
-    K5, K6, K7, K8) and per-layer cosine > 0.999 over the valid frames of
-    all utterances, the JAX package's bar for bf16 paths (a length-1
-    utterance's early layers are exactly 0 on both sides under
-    zero-initialised biases)."""
+def _tiny_wavlm_pair(dev, quantize):
+    """One seed's tiny WavLM-Large-style model on the CPU and on the card
+    (conv0 keeps the kernel's 512 channels; head dim 64)."""
+    from s3prl_tpu_torch.models.wavlm import WavLMConfig
+    from s3prl_tpu_torch.upstream.registry import _trunk_upstream
+
+    cfg = WavLMConfig(
+        extractor_mode="layer_norm", conv_feature_layers=((512, 10, 5), (64, 3, 2), (64, 2, 2)),
+        encoder_layers=2, encoder_embed_dim=128, encoder_ffn_embed_dim=256,
+        encoder_attention_heads=2, conv_pos=16, conv_pos_groups=4,
+        layer_norm_first=True, normalize=True, dropout_input=0.0, num_buckets=32,
+        max_distance=80)
+    return [_trunk_upstream("tiny", cfg, dtype=torch.bfloat16, flash=True, quantize=quantize,
+                            seed=3, device=d)
+            for d in ("cpu", dev)]
+
+
+def _trunk_on_card_vs_cpu(dev, monkeypatch, quantize, launches, wavs=None, lens=None,
+                          pair=None):
+    """The tiny trunk's routing (or `pair`'s, a (CPU, card) pair of one
+    seed's models) on the card against the same seed's model on the CPU,
+    whose kernel route runs the wrappers' plain versions: the launch counts
+    of one forward (in `wrappers()` order) and per-layer cosine > 0.999 over
+    the valid frames of all utterances, the JAX package's bar for bf16
+    paths (a length-1 utterance's early layers are exactly 0 on both sides
+    under zero-initialised biases)."""
     import s3prl_tpu_torch.models.transformer as port_transformer
 
-    cpu, gpu = _tiny_trunk_pair(torch.bfloat16, True, dev, quantize=quantize)
+    cpu, gpu = pair or _tiny_trunk_pair(torch.bfloat16, True, dev, quantize=quantize)
     if wavs is None:
         wavs, lens = _tiny_batch()
     for w in wrappers():
@@ -238,7 +260,7 @@ def _trunk_on_card_vs_cpu(dev, monkeypatch, quantize, launches, wavs=None, lens=
 
 def test_tiny_trunk_bf16_kernels_match_cpu(dev, monkeypatch):
     """The bf16 routing on the card: K3 + K4 + K5 launches."""
-    _trunk_on_card_vs_cpu(dev, monkeypatch, False, [1, 0, 0, 2, 2, 0, 0, 0])
+    _trunk_on_card_vs_cpu(dev, monkeypatch, False, [1, 0, 0, 2, 2, 0, 0, 0, 0, 0])
 
 
 def test_tiny_trunk_f32_matches_cpu(dev):
@@ -409,14 +431,14 @@ def test_int8_ffn_kernel(dev, ln, residual, postnorm, C, F):
 
 def test_tiny_trunk_int8_kernels_match_cpu(dev, monkeypatch):
     """The int8 routing on the card: K3-tanh + K1 + K2 launches."""
-    _trunk_on_card_vs_cpu(dev, monkeypatch, True, [1, 2, 2, 0, 0, 0, 0, 0])
+    _trunk_on_card_vs_cpu(dev, monkeypatch, True, [1, 2, 2, 0, 0, 0, 0, 0, 0, 0])
 
 
 def test_int8_on_the_card_serves_k6_beyond_512_frames(dev, monkeypatch):
     """549 frames at the real thresholds: K6 in place of K1."""
     wavs = torch.from_numpy(np.random.RandomState(16).randn(2, 11000).astype(np.float32))
     lens = torch.tensor([11000, 7000])
-    _trunk_on_card_vs_cpu(dev, monkeypatch, True, [1, 0, 2, 0, 0, 2, 0, 0], wavs, lens)
+    _trunk_on_card_vs_cpu(dev, monkeypatch, True, [1, 0, 2, 0, 0, 2, 0, 0, 0, 0], wavs, lens)
 
 
 @pytest.mark.parametrize("quantize", [True, False], ids=["int8", "bf16"])
@@ -429,7 +451,7 @@ def test_tiny_trunk_long_routes_match_cpu(dev, monkeypatch, quantize, max_kernel
     k6_k7_k8 = {(True, 2048): [2, 0, 0], (True, 128): [0, 0, 2],
                 (False, 2048): [0, 2, 0], (False, 128): [0, 0, 2]}[quantize, max_kernel_t]
     k2, k5 = (2, 0) if quantize else (0, 2)
-    _trunk_on_card_vs_cpu(dev, monkeypatch, quantize, [1, 0, k2, 0, k5] + k6_k7_k8)
+    _trunk_on_card_vs_cpu(dev, monkeypatch, quantize, [1, 0, k2, 0, k5] + k6_k7_k8 + [0, 0])
 
 
 LONG_T = [513, 1499, 2048, 2049, 2999]
@@ -518,3 +540,65 @@ def test_long_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.zeros(1, 2, 2100, 64, device=dev)
     with pytest.raises(TypeError):  # f32
         online_flash_attention(q, q, q, kv)
+
+
+def _gated_inputs(rng, dev, B, H, T):
+    """K9/K10 inputs: unit-scale q (pre-scaled by 1/8), k, v in bf16; a real
+    pos_bias from WavLM's bucket table and a random [320, H] table; gates
+    in (1, 3); kv_lens [T, 5T/8, 1]."""
+    from s3prl_tpu_torch.models.wavlm import bucket_table
+
+    q, k, v = (_t(rng.randn(B, H, T, 64) * sc, dev, torch.bfloat16) for sc in (0.125, 1, 1))
+    table = _t(rng.randn(320, H) * 0.5, dev)
+    pos_bias = table.t()[:, bucket_table(T, 320, 800, torch.device(dev))].contiguous()
+    gate = _t(1 + 2 * rng.rand(B, H, T), dev)
+    return q, k, v, pos_bias, gate, _long_kv(T, dev)[:B]
+
+
+@pytest.mark.parametrize("T", [499, 1499, 2048, 2049, 2999])
+def test_gated_kernels(dev, T):
+    """K9 up to MAX_KERNEL_T, K10 beyond it (through K9's hand-over), each
+    against the plain version of its route on the card."""
+    q, k, v, pos_bias, gate, kv = _gated_inputs(np.random.RandomState(21), dev, 3, 2, T)
+    before = gated_bias_attention.launches, gated_online_flash_attention.launches
+    got = gated_bias_attention(q, k, v, pos_bias, gate, kv)
+    torch.cuda.synchronize()
+    online = T > fa.MAX_KERNEL_T
+    assert (gated_bias_attention.launches - before[0],
+            gated_online_flash_attention.launches - before[1]) == (0 + (not online), 0 + online)
+    plain = gated_online_flash_attention_reference if online else gated_bias_attention_reference
+    _close_bf16(got, plain(q, k, v, pos_bias, gate, kv))
+    if online:  # K10 called directly
+        _close_bf16(gated_online_flash_attention(q, k, v, pos_bias, gate, kv), got)
+
+
+def test_gated_wrappers_refuse_what_the_kernel_does_not_take(dev):
+    q, k, v, pos_bias, gate, kv = _gated_inputs(np.random.RandomState(22), dev, 2, 2, 130)
+    with pytest.raises(TypeError):  # f32 q, k, v
+        gated_bias_attention(q.float(), k.float(), v.float(), pos_bias, gate, kv)
+    with pytest.raises(TypeError):  # bf16 pos_bias
+        gated_bias_attention(q, k, v, pos_bias.bfloat16(), gate, kv)
+    with pytest.raises(ValueError):  # head dim 32
+        gated_bias_attention(*(t[..., :32].contiguous() for t in (q, k, v)), pos_bias, gate, kv)
+    with pytest.raises(ValueError):  # a gate per utterance, not per query
+        gated_online_flash_attention(q, k, v, pos_bias, gate[..., 0].contiguous(), kv)
+    with pytest.raises(ValueError):  # CPU kv_lens beside CUDA tensors
+        gated_bias_attention(q, k, v, pos_bias, gate, kv.cpu())
+    gate.requires_grad_(True)
+    for fn in (gated_bias_attention, gated_online_flash_attention):
+        with pytest.raises(RuntimeError, match="forward-only"):  # the kernel has no backward
+            fn(q, k, v, pos_bias, gate, kv)
+        with torch.no_grad():
+            fn(q, k, v, pos_bias, gate, kv)
+
+
+@pytest.mark.parametrize("quantize", [True, False], ids=["int8", "bf16"])
+@pytest.mark.parametrize("max_kernel_t", [2048, 128], ids=["k9", "k10"])
+def test_tiny_wavlm_matches_cpu(dev, monkeypatch, quantize, max_kernel_t):
+    """The tiny WavLM on the card (T' = 320 frames): conv0 (erf), K9 (or
+    K10 with MAX_KERNEL_T = 128) and, int8 only, K2; nothing else."""
+    monkeypatch.setattr(fa, "MAX_KERNEL_T", max_kernel_t)
+    k9_k10 = [2, 0] if max_kernel_t == 2048 else [0, 2]
+    _trunk_on_card_vs_cpu(dev, monkeypatch, quantize,
+                          [1, 0, 2 if quantize else 0, 0, 0, 0, 0, 0] + k9_k10,
+                          pair=_tiny_wavlm_pair(dev, quantize))

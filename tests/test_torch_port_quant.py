@@ -104,7 +104,8 @@ def test_int_mm_is_exact_at_any_shape(M, K, N):
 def test_qcache_equals_jax_quantize_cols_of_the_f32_weights():
     """The load-time cache quantizes the f32 weights (the JAX params' dtype),
     not their bf16 roundings, which give other codes and scales."""
-    up = _trunk_upstream("tiny", TINY, dtype=torch.bfloat16, flash=True, quantize=True, seed=4)
+    up = _trunk_upstream("tiny", TINY, dtype=torch.bfloat16, flash=True, quantize=True, seed=4,
+                         device="cpu")
     differs = False
     for layer in up.model.encoder.layers:
         attn = layer.self_attn
@@ -124,7 +125,7 @@ def test_qcache_equals_jax_quantize_cols_of_the_f32_weights():
 
 
 def test_qcache_follows_load_state_dict():
-    up = _trunk_upstream("tiny", TINY, quantize=True, seed=5)
+    up = _trunk_upstream("tiny", TINY, quantize=True, seed=5, device="cpu")
     layer = up.model.encoder.layers[1]
     sd = up.model.state_dict()
     sd["encoder.layers.1.fc2.weight"] = sd["encoder.layers.1.fc2.weight"] * 2

@@ -219,16 +219,26 @@ def test_registry_refuses_what_is_not_ported(monkeypatch):
     with pytest.raises(KeyError):
         hub.load("no_such_upstream")
     with pytest.raises(NotImplementedError, match="ckpt"):
-        hub.load("hubert_large_ll60k", ckpt="model.pt")
+        hub.load("hubert_large_ll60k", ckpt="model.pt", device="cpu")
     with pytest.raises(NotImplementedError):
         Wav2Vec2Trunk(Wav2Vec2Config(), device="meta")  # HuBERT-Base: group norm, post-LN
-    assert hub.options() == ["hubert_large_ll60k"]
+    assert hub.options() == ["hubert_large_ll60k", "wavlm_large"]
     # quantize=True loads (the entry at the tiny width: same code path)
     monkeypatch.setattr(port_registry, "HUBERT_LARGE", PCFG)
-    up = hub.load("hubert_large_ll60k", dtype=torch.bfloat16, flash=True, quantize=True)
+    up = hub.load("hubert_large_ll60k", dtype=torch.bfloat16, flash=True, quantize=True,
+                  device="cpu")
     layer = up.model.encoder.layers[0]
     assert layer.quantize and layer.fc1.weight.dtype == torch.float32
     assert layer.qpair("fc1")[0].dtype == torch.int8
+
+
+@pytest.mark.parametrize("name", ["hubert_large_ll60k", "wavlm_large"])
+def test_hub_load_without_device_needs_cuda(monkeypatch, name):
+    """An entry builds on the card unless device= says otherwise: without
+    CUDA it raises and names device="cpu", it never builds on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        hub.load(name, dtype=torch.bfloat16, flash=True, quantize=True)
 
 
 def test_port_never_imports_jax():
@@ -238,7 +248,8 @@ def test_port_never_imports_jax():
         "import s3prl_tpu_torch.kernels.conv_frontend, s3prl_tpu_torch.kernels.ffn\n"
         "import s3prl_tpu_torch.kernels.flash_attention, s3prl_tpu_torch.ops.quant\n"
         "import s3prl_tpu_torch.kernels, s3prl_tpu_torch.models.transformer\n"
-        "assert len(s3prl_tpu_torch.kernels.wrappers()) == 8\n"
+        "import s3prl_tpu_torch.models.wavlm\n"
+        "assert len(s3prl_tpu_torch.kernels.wrappers()) == 10\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 's3prl_tpu')]\n"
         "assert not bad, bad\n"
