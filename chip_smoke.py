@@ -16,28 +16,38 @@ line is printed; each phase prints its seconds):
     K4, K5 (B=4 x 499 frames); K6 and K7 at B=4 x 1,499 frames, K8 on
     [2, 16, 2999, 64]; WavLM's K9 at B=4 x 499 and B=4 x 1,499 and K10 on
     [2, 16, 2999, 64], with a pos_bias from the bucket table and gates in
-    (1, 3); the share of int8 codes where the kernels' quantizers and the
-    plain ones differ is printed (K6's context codes among them). The int8
-    GEMM alone equals torch._int_mm exactly, and the quantizer rounds
+    (1, 3); the fused int8 projections: K11 at B=4 x 499 and B=4 x 1,499
+    (the same bias and gates, ragged kv_lens) and K12 in its four (ln,
+    residual) sets at [4 x 499, 1024] -> N = 3072 (with the LN) or 1024;
+    the share of int8 codes where the kernels' quantizers and the plain
+    ones differ is printed (K6's and K11's context codes among them). The
+    int8 GEMM alone equals torch._int_mm exactly, and the quantizer rounds
     constructed ties half to even;
  4. the main paths at full width, HuBERT-Large (hub.load(
     "hubert_large_ll60k", bf16, flash, quantize=True) - the int8 serving
     default - and quantize=False) and WavLM-Large (hub.load("wavlm_large",
     ...), the same two paths), one apply_standardized each on mixed
     lengths: B=8 x 10 s, B=8 x 30 s (T' = 1,500) and B=4 x 60 s (T' =
-    3,000); checks the [25, B, T', 1024] shape, exact h_lens, finite
-    values, and the launch counts of each run, read just after it with
-    every count set to 0 just before (RUNS below; every other count 0);
+    3,000); then the int8 options of the fused projections at 10 s and
+    30 s: HuBERT with ``full_fuse`` (K12, K7, K12, K2 at every T) and with
+    ``qkv_fuse`` (inert at 10 s; K12 then K6 at 30 s), WavLM with
+    ``wavlm_fuse`` (K11); checks the [25, B, T', 1024] shape, exact h_lens,
+    finite values, and the launch counts of each run, read just after it
+    with every count set to 0 just before (RUNS below; every other count 0);
  5. the same seed's models on the CPU (the kernel wrappers' plain versions)
     against the card, per-layer cosine > 0.999 over valid frames, for each
     path: HuBERT on B=2 x 2 s, then on B=2 x 4 s with MAX_BLOCK_T = 64 (K6 /
     K7) and with MAX_KERNEL_T = 128 as well (K8); WavLM on B=2 x 2 s (K9)
-    and B=2 x 4 s with MAX_KERNEL_T = 128 (K10). Then the JAX package's
-    quality gates at full depth on the card, against the f32 model
-    (flash=False) of the same weights: int8 per-layer cosine > 0.999
+    and B=2 x 4 s with MAX_KERNEL_T = 128 (K10); HuBERT ``full_fuse`` on
+    B=2 x 2 s and, with MAX_KERNEL_T = 128, B=2 x 4 s (K8), ``qkv_fuse`` on
+    B=2 x 4 s with MAX_BLOCK_T = 64, WavLM ``wavlm_fuse`` on B=2 x 2 s and,
+    with MAX_KERNEL_T = 128, B=2 x 4 s (K10, no K11). Then the JAX
+    package's quality gates at full depth on the card, against the f32
+    model (flash=False) of the same weights: int8 per-layer cosine > 0.999
     (tests/test_quant.py:82-124, :306-333) on B=2 x 0.5 s, B=2 x 30 s and
-    B=1 x 60 s, bf16 > 0.995 (tests/test_quant.py:590) on the two long ones
-    (HuBERT) or all three (WavLM);
+    B=1 x 60 s (the options on the first two), bf16 > 0.995
+    (tests/test_quant.py:590) on the two long ones (HuBERT) or all three
+    (WavLM);
  6. timing (printed): extraction audio-s/s of every path at B=32 x 10 s,
     B=8 x 30 s and B=4 x 60 s (two chain lengths, marginal rate, best of 3,
     CUDA events) with the peak device memory, and each kernel against its
@@ -46,7 +56,11 @@ line is printed; each phase prints its seconds):
     rate of their type) and, for the attention kernels K7-K10, the time of
     one torch.nn.functional.scaled_dot_product_attention on the same bf16
     q, k, v with its mask (built before the timed region; the port never
-    calls it).
+    calls it). The options' paths are timed at B=32 x 10 s and B=8 x 30 s
+    (``qkv_fuse`` at 30 s only), K11 at [32, 499] and K12 at 32 x 499 rows
+    beside the split pairs they replace (K9 with the heads split and merged,
+    int8_matmul out-proj and residual; LN and int8_matmul QKV; int8_matmul
+    out-proj and residual), which no single library call computes.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -124,6 +138,7 @@ def kernel_inputs(B, T, gen, dev, C=1024, F=4096, H=16):
         kv=torch.tensor(([T, T, (T * 5) // 8, 1] * B)[:B], dtype=torch.int32, device=dev),
         w1=rnd(F, C, scale=C ** -0.5, dtype=bf), b1=rnd(F, scale=0.02),
         w2=rnd(C, F, scale=F ** -0.5, dtype=bf), b2=rnd(C, scale=0.02), H=H)
+    inp["res"] = {n: rnd(B, T, n, scale=0.5, dtype=bf) for n in (3 * C, C)}  # K12's residuals
     for name in ("wq", "wo", "w1", "w2"):
         inp[name + "8"] = as_quantized_cols(inp[name])
     return inp
@@ -131,6 +146,8 @@ def kernel_inputs(B, T, gen, dev, C=1024, F=4096, H=16):
 
 FFN_FLAGS = ((True, True, False), (False, False, False), (True, False, False),
              (False, True, False), (True, True, True))
+# K12's (ln, residual) sets; the first two are the main path's QKV and out-proj
+K12_SETS = ((True, False), (False, True), (False, False), (True, True))
 
 
 def kernel_calls(inp, inp_base=None):
@@ -162,7 +179,15 @@ def kernel_calls(inp, inp_base=None):
              lambda p=p: k4.fused_attention_block_bf16_reference(*attn, postnorm=p))
             for name, p in (("pre-LN", False), ("postnorm", True))],
         "fused_bf16_ffn": [],
+        "fused_int8_linear": [],
     }
+    for ln, res in K12_SETS:
+        w, b = (i["wq8"], i["bq"]) if ln else (i["wo8"], i["bo"])
+        kw = dict(ln=i["ln"] if ln else None, residual=i["res"][w[0].shape[0]] if res else None)
+        calls["fused_int8_linear"].append((
+            f"ln={ln} residual={res} N={w[0].shape[0]}",
+            lambda w=w, b=b, kw=kw: k5.fused_int8_linear(i["x"], w, b, **kw),
+            lambda w=w, b=b, kw=kw: k5.fused_int8_linear_reference(i["x"], w, b, **kw)))
     for ln, res, post in FFN_FLAGS:
         kw = dict(ln=i["ln"] if ln else None, residual=res, postnorm=post)
         name = f"ln={ln} residual={res} postnorm={post}"
@@ -223,20 +248,76 @@ def long_kernel_calls(inp, inp8):
     }
 
 
+def gated_bias(B, T, gen, dev, H=16):
+    """A pos_bias [H, T, T] gathered from WavLM's bucket table (320 buckets
+    up to distance 800) with a random [320, H] table, and gates in (1, 3)."""
+    from s3prl_tpu_torch.models.wavlm import bucket_table
+
+    table = (torch.randn(320, H, generator=gen) * 0.5).to(dev)
+    return dict(pos_bias=table.t()[:, bucket_table(T, 320, 800, dev)].contiguous(),
+                gate=(1 + 2 * torch.rand(B, H, T, generator=gen)).to(dev))
+
+
 def gated_inputs(B, T, gen, dev, H=16):
     """K9/K10 inputs at WavLM-Large's widths: q (pre-scaled), k, v split
-    from a unit-scale fused QKV as the model splits it, a pos_bias gathered
-    from WavLM's bucket table (320 buckets up to distance 800) with a
-    random [320, H] table, gates in (1, 3) and ragged kv_lens."""
+    from a unit-scale fused QKV as the model splits it, `gated_bias` and
+    ragged kv_lens."""
     from s3prl_tpu_torch.kernels import flash_attention as fa
-    from s3prl_tpu_torch.models.wavlm import bucket_table
 
     qkv = torch.randn(B, T, 3 * H * 64, generator=gen).to(dev, torch.bfloat16)
     q, k, v = fa._split_heads(qkv, H)
-    table = (torch.randn(320, H, generator=gen) * 0.5).to(dev)
-    return dict(q=q, k=k, v=v, pos_bias=table.t()[:, bucket_table(T, 320, 800, dev)].contiguous(),
-                gate=(1 + 2 * torch.rand(B, H, T, generator=gen)).to(dev),
+    return dict(q=q, k=k, v=v, **gated_bias(B, T, gen, dev, H),
                 kv=torch.tensor(([T, T, (T * 5) // 8, 1] * B)[:B], dtype=torch.int32, device=dev))
+
+
+def k11_inputs(B, T, gen, dev, H=16):
+    """K11 inputs at WavLM-Large's widths: `long_inputs` (the unit-scale
+    fused QKV, the residual, the out-proj's int8 pair, ragged kv_lens and
+    the split heads) with `gated_bias`."""
+    return {**long_inputs(B, T, gen, dev, C=H * 64, H=H), **gated_bias(B, T, gen, dev, H)}
+
+
+def k11_calls(inps):
+    """K11 on each of `inps`: name -> [(variant, kernel, plain)]."""
+    from s3prl_tpu_torch.kernels import flash_attention as fa
+
+    def args(i):
+        return i["qkv"], i["x"], i["pos_bias"], i["gate"], i["wo8"], i["bo"], i["kv"], i["H"]
+
+    return {"gated_bias_attention_outproj": [
+        (f"T={i['qkv'].shape[1]}", lambda a=args(i): fa.gated_bias_attention_outproj(*a),
+         lambda a=args(i): fa.gated_bias_attention_outproj_reference(*a)) for i in inps]}
+
+
+def split_pairs(inp, inp11):
+    """The stock pairs that K12 and K11 replace on the default paths, on the
+    same inputs as their timing: the long route's f32 LN rounded to bf16
+    and int8_matmul QKV; int8_matmul out-proj and the residual; WavLM's
+    heads split, K9, heads merged, int8_matmul out-proj and the residual."""
+    import torch.nn.functional as F
+
+    from s3prl_tpu_torch.kernels import flash_attention as fa
+    from s3prl_tpu_torch.ops.quant import int8_matmul
+
+    x, (g, b), bf = inp["x"], inp["ln"], torch.bfloat16
+    j = inp11
+    B, T, C = j["x"].shape
+
+    def k11_split():
+        out = fa.gated_bias_attention(*fa._split_heads(j["qkv"], j["H"]), j["pos_bias"],
+                                      j["gate"], j["kv"])
+        return j["x"] + int8_matmul(out.transpose(1, 2).reshape(B, T, C), j["wo8"], j["bo"])
+
+    return {
+        "fused_int8_linear": [
+            ("ln=True residual=False N=3072: LN + int8_matmul QKV",
+             lambda: int8_matmul(F.layer_norm(x.float(), (x.shape[-1],), g, b, 1e-5).to(bf),
+                                 inp["wq8"], inp["bq"], out_dtype=bf)),
+            ("ln=False residual=True N=1024: int8_matmul out-proj + residual",
+             lambda: inp["res"][x.shape[-1]] + int8_matmul(x, inp["wo8"], inp["bo"]))],
+        "gated_bias_attention_outproj": [
+            ("heads split + K9 + merge + int8_matmul out-proj + residual", k11_split)],
+    }
 
 
 def gated_kernel_calls(inps9, inp10):
@@ -278,16 +359,23 @@ def attention_work(B, T, H, kv, Dh=64):
     return 4 * Dh * H * T * sum(min(n, T) for n in kv)
 
 
-def kernel_bound(name, i):
+def kernel_bound(name, i, variant=0):
     """The bound of kernel `name` on the timing inputs `i` (each input byte
     read once, each output byte written once; K/V rows past kv_len and
-    their work not counted)."""
+    their work not counted); `variant` indexes K12_SETS for K12."""
     kv = i["kv"].tolist()
     if name == "conv0_ln_gelu":
         B, N = i["wav"].shape
         frames = (N - 10) // 5 + 1
         return bound({"f32": 2 * 10 * 512 * B * frames},
                      nbytes(i["wav"], i["conv_w"]) + B * frames * 512 * 2)
+    if name == "gated_bias_attention_outproj":
+        B, T, C3 = i["qkv"].shape
+        C, H = C3 // 3, i["H"]
+        ops = {"bf16": attention_work(B, T, H, kv), "f32": 2 * H * T * sum(kv),
+               "int8": 2 * B * T * C * C}
+        return bound(ops, nbytes(i["qkv"], i["x"], i["gate"], *i["wo8"], i["bo"])
+                     + B * T * C * 2 + H * T * max(kv) * 4)
     if name in ("gated_bias_attention", "gated_online_flash_attention"):
         B, H, T, Dh = i["q"].shape
         valid_kv = sum(kv) * H * Dh * 2
@@ -308,6 +396,14 @@ def kernel_bound(name, i):
         return bound(ops, moved)
     B, T, C = i["x"].shape
     M, H = B * T, i["H"]
+    if name == "fused_int8_linear":
+        ln, res = K12_SETS[variant]
+        w, b = (i["wq8"], i["bq"]) if ln else (i["wo8"], i["bo"])
+        N = w[0].shape[0]
+        moved = nbytes(i["x"], *w, b) + M * N * 2
+        moved += nbytes(*i["ln"]) if ln else 0
+        moved += nbytes(i["res"][N]) if res else 0
+        return bound({"int8": 2 * M * C * N}, moved)
     if name in ("fused_int8_ffn", "fused_bf16_ffn"):
         F = i["w1"].shape[0]
         if name == "fused_int8_ffn":
@@ -353,11 +449,12 @@ def library_call(name, i):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
 
 
-def code_mismatch(inp, inp_long):
+def code_mismatch(inp, inp_long, inp11):
     """Share of int8 codes where the kernels' quantizers and the plain
     versions' differ, on the main path's inputs: K1's LN prologue and its
-    bf16 context quantization, K2's LN prologue and its per-chunk requant of
-    the fc1 output (each pair fed the same tensor)."""
+    bf16 context quantization, K2's LN prologue (K12's too) and its
+    per-chunk requant of the fc1 output (each pair fed the same tensor), and
+    K6's and K11's f32 contexts."""
     from s3prl_tpu_torch.kernels import _common as kc
     from s3prl_tpu_torch.kernels import ffn as k5
     from s3prl_tpu_torch.kernels import flash_attention as k4
@@ -368,7 +465,7 @@ def code_mismatch(inp, inp_long):
 
     x2 = inp["x"].view(-1, inp["x"].shape[-1])
     x8, xs = kc.quant_rows(x2, ln=inp["ln"])
-    out = {"K1/K2 LN prologue": share(x8, quantize_rows(kc.layer_norm_f32(x2, inp["ln"]))[0])}
+    out = {"K1/K2/K12 LN prologue": share(x8, quantize_rows(kc.layer_norm_f32(x2, inp["ln"]))[0])}
     qkv = (inp["x"].float() @ inp["wq"].float().t()).to(torch.bfloat16)
     ctx = k4.attention_reference(qkv, inp["kv"], inp["H"]).view(x2.shape)
     out["K1 context (bf16)"] = share(kc.quant_rows_bf16(ctx)[0],
@@ -388,6 +485,13 @@ def code_mismatch(inp, inp_long):
     codes_plain = quantize_rows(ctx_plain)[0]
     out["K6 context (f32 attention + f32 quantizer)"] = share(kc.quant_rows(ctx)[0], codes_plain)
     out["K6 f32 quantizer alone"] = share(kc.quant_rows(ctx_plain)[0], codes_plain)
+    bias = (inp11["pos_bias"], inp11["gate"])
+    qkv, kv, H = inp11["qkv"], inp11["kv"], inp11["H"]
+    ctx = k4._attention(qkv, kv, H, out_f32=True, bias=bias)
+    ctx_plain = k4.attention_reference(qkv, kv, H, out_dtype=torch.float32,
+                                       bias=bias).view(ctx.shape)
+    out["K11 context (gated f32 attention + f32 quantizer)"] = share(
+        kc.quant_rows(ctx)[0], quantize_rows(ctx_plain)[0])
     return out
 
 
@@ -410,8 +514,13 @@ KERNELS = {  # wrapper -> (its main CUDA source, the TPU kernel it replaces)
                              "s3prl_tpu/kernels/flash_attention.py:105"),
     "gated_online_flash_attention": ("s3prl_tpu_torch/csrc/gated_attention.cu",
                                      "s3prl_tpu/kernels/flash_attention.py:963"),
+    "gated_bias_attention_outproj": ("s3prl_tpu_torch/csrc/attention.cu",
+                                     "s3prl_tpu/kernels/flash_attention.py:423"),
+    "fused_int8_linear": ("s3prl_tpu_torch/csrc/gemm_s8.cu", "s3prl_tpu/kernels/ffn.py:216"),
 }
 MODELS = {"hubert": "hubert_large_ll60k", "wavlm": "wavlm_large"}
+OPTIONS = {"int8": {}, "bf16": {}, "int8 full_fuse": {"full_fuse": True},  # path -> keywords
+           "int8 qkv_fuse": {"qkv_fuse": True}, "int8 wavlm_fuse": {"wavlm_fuse": True}}
 LENS = {  # main-path batch -> utterance lengths in samples (mixed)
     "10 s": [160000, 120000, 40000, 800, 159999, 80000, 16001, 1],
     "30 s": [480000, 400000, 320000, 160000, 479999, 240000, 16001, 1],
@@ -441,11 +550,34 @@ RUNS = {
     ("wavlm", "int8", "60 s"): {"conv0_ln_gelu": 1, "gated_online_flash_attention": 24,
                                 "fused_int8_ffn": 24},
     ("wavlm", "bf16", "60 s"): {"conv0_ln_gelu": 1, "gated_online_flash_attention": 24},
+    # the fused int8 projections: full_fuse at every T, qkv_fuse beyond 512 frames, wavlm_fuse
+    ("hubert", "int8 full_fuse", "10 s"): {"conv0_ln_gelu": 1, "fused_int8_linear": 48,
+                                           "fused_qkv_attention": 24, "fused_int8_ffn": 24},
+    ("hubert", "int8 full_fuse", "30 s"): {"conv0_ln_gelu": 1, "fused_int8_linear": 48,
+                                           "fused_qkv_attention": 24, "fused_int8_ffn": 24},
+    ("hubert", "int8 qkv_fuse", "10 s"): {"conv0_ln_gelu": 1, "fused_attention_block": 24,
+                                          "fused_int8_ffn": 24},
+    ("hubert", "int8 qkv_fuse", "30 s"): {"conv0_ln_gelu": 1, "fused_int8_linear": 24,
+                                          "fused_qkv_attention_outproj": 24,
+                                          "fused_int8_ffn": 24},
+    ("wavlm", "int8 wavlm_fuse", "10 s"): {"conv0_ln_gelu": 1, "gated_bias_attention_outproj": 24,
+                                           "fused_int8_ffn": 24},
+    ("wavlm", "int8 wavlm_fuse", "30 s"): {"conv0_ln_gelu": 1, "gated_bias_attention_outproj": 24,
+                                           "fused_int8_ffn": 24},
 }
+PATHS = list(dict.fromkeys((model, path) for model, path, _ in RUNS))  # the loaded models
+TIMED = {"int8 full_fuse": ("10 s", "30 s"), "int8 qkv_fuse": ("30 s",),  # default: all three
+         "int8 wavlm_fuse": ("10 s", "30 s")}
 # the main-path run each wrapper's launch count is read from: the first that launches it
 MAIN_PATH = {name: next(run for run, expected in RUNS.items() if name in expected)
              for name in KERNELS}
 COS_F32 = {"int8": 0.999, "bf16": 0.995}  # the JAX package's gates against f32
+
+
+def load(hub, model, path, device):
+    """`path`'s model (int8 with its option keywords, or bf16) from seed 0."""
+    return hub.load(MODELS[model], dtype=torch.bfloat16, flash=True, quantize=path != "bf16",
+                    device=device, seed=0, **OPTIONS[path])
 
 
 def batch(lens, T, gen, dev):
@@ -501,14 +633,16 @@ def time_kernels(calls, inputs, label, entries, launches, max_err, first_only=Tr
     path's timing shapes); the first variant of each name fills its entry
     of the kernels line, with its bound and the library call's time."""
     for name, variants in calls.items():
-        for variant, kernel, plain in variants[:1] if first_only else variants:
+        for k, (variant, kernel, plain) in enumerate(variants[:1] if first_only else variants):
             t = [cuda_ms(f, 10) for f in (plain, kernel, kernel, plain)]
             ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-            if variant != variants[0][0]:
+            bound_ms, bound_by = kernel_bound(name, inputs[name], k)
+            if k:
                 log(f"[timing] {name} {variant} {label}: kernel {ms:.3f} ms, "
-                    f"plain {plain_ms:.3f} ms")
+                    f"plain {plain_ms:.3f} ms"
+                    + (f", bound {bound_ms:.4f} ms ({bound_by})"
+                       if name == "fused_int8_linear" else ""))
                 continue
-            bound_ms, bound_by = kernel_bound(name, inputs[name])
             library = library_call(name, inputs[name])
             library_ms = None
             if library is not None:
@@ -566,7 +700,9 @@ def main():
         check_kernels(gated_kernel_calls([gated_inputs(4, 499, gen, dev),
                                           gated_inputs(4, 1499, gen, dev)],
                                          gated_inputs(2, 2999, gen, dev)), max_err)
-        for what, share in code_mismatch(inp, inp_long).items():
+        inp11 = [k11_inputs(4, 499, gen, dev), k11_inputs(4, 1499, gen, dev)]
+        check_kernels(k11_calls(inp11), max_err)
+        for what, share in code_mismatch(inp, inp_long, inp11[0]).items():
             log(f"[int8 codes] {what}: {share:.3e} of codes differ from the plain version's")
         x8 = kc.quant_rows(inp["x"].view(-1, 1024), ln=inp["ln"])[0]
         for w8, lo, hi in ((inp["wq8"][0], 0, 1024), (inp["w28"][0], 0, 2048),
@@ -584,13 +720,11 @@ def main():
         check(float(s[0]) == 1.0 and torch.equal(q[0], torch.round(ties[0]).to(torch.int8)),
               f"quantizer ties: {q[0, :8].tolist()}")
         log(f"[kernel] quant_rows rounds ties half to even: {q[0, :8].tolist()}")
-        del inp, inp_base, inp_long, inp8
+        del inp, inp_base, inp_long, inp8, inp11
 
     # 4. the main paths at full width, int8 (the serving default) then bf16,
     # HuBERT-Large then WavLM-Large
-    ups = {(model, path): hub.load(entry, dtype=torch.bfloat16, flash=True,
-                                   quantize=path == "int8", device=dev, seed=0)
-           for model, entry in MODELS.items() for path in ("int8", "bf16")}
+    ups = {(model, path): load(hub, model, path, dev) for model, path in PATHS}
     launches = {}
     with Phase("4 main paths"):
         for run, expected in RUNS.items():
@@ -618,34 +752,48 @@ def main():
     # versions there. Then the JAX package's quality gates against f32.
     import s3prl_tpu_torch.models.transformer as port_transformer
 
-    cases = {  # model -> (label, lengths, patched thresholds, path -> attention kernel)
-        "hubert": (
-            ("B=2 x 2 s", [32000, 20000], {}, None),
-            ("B=2 x 4 s, MAX_BLOCK_T=64", [64000, 40000], {"MAX_BLOCK_T": 64},
-             {"int8": "fused_qkv_attention_outproj", "bf16": "fused_qkv_attention"}),
-            ("B=2 x 4 s, MAX_BLOCK_T=64, MAX_KERNEL_T=128", [64000, 40000],
-             {"MAX_BLOCK_T": 64, "MAX_KERNEL_T": 128},
-             {"int8": "online_flash_attention", "bf16": "online_flash_attention"})),
-        "wavlm": (
-            ("B=2 x 2 s", [32000, 20000], {},
-             {"int8": "gated_bias_attention", "bf16": "gated_bias_attention"}),
-            ("B=2 x 4 s, MAX_KERNEL_T=128", [64000, 40000], {"MAX_KERNEL_T": 128},
-             {"int8": "gated_online_flash_attention", "bf16": "gated_online_flash_attention"})),
+    short, long_ = ("B=2 x 2 s", [32000, 20000]), [64000, 40000]
+    mbt, mkt = {"MAX_BLOCK_T": 64}, {"MAX_KERNEL_T": 128}
+    # (model, path) -> (label, lengths, patched thresholds, {kernel: launches} checked)
+    cases = {
+        ("hubert", "int8"): (
+            (*short, {}, {}),
+            ("B=2 x 4 s, MAX_BLOCK_T=64", long_, mbt, {"fused_qkv_attention_outproj": 24}),
+            ("B=2 x 4 s, MAX_BLOCK_T=64, MAX_KERNEL_T=128", long_, {**mbt, **mkt},
+             {"online_flash_attention": 24})),
+        ("hubert", "bf16"): (
+            (*short, {}, {}),
+            ("B=2 x 4 s, MAX_BLOCK_T=64", long_, mbt, {"fused_qkv_attention": 24}),
+            ("B=2 x 4 s, MAX_BLOCK_T=64, MAX_KERNEL_T=128", long_, {**mbt, **mkt},
+             {"online_flash_attention": 24})),
+        **{("wavlm", path): (
+            (*short, {}, {"gated_bias_attention": 24}),
+            ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt, {"gated_online_flash_attention": 24}))
+           for path in ("int8", "bf16")},
+        ("hubert", "int8 full_fuse"): (
+            (*short, {}, {"fused_int8_linear": 48, "fused_qkv_attention": 24}),
+            ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt,
+             {"fused_int8_linear": 48, "online_flash_attention": 24})),
+        ("hubert", "int8 qkv_fuse"): (
+            ("B=2 x 4 s, MAX_BLOCK_T=64", long_, mbt,
+             {"fused_int8_linear": 24, "fused_qkv_attention_outproj": 24}),),
+        ("wavlm", "int8 wavlm_fuse"): (
+            (*short, {}, {"gated_bias_attention_outproj": 24}),
+            ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt,
+             {"gated_online_flash_attention": 24, "gated_bias_attention_outproj": 0})),
     }
+    options = {"hubert": ("int8 full_fuse", "int8 qkv_fuse"), "wavlm": ("int8 wavlm_fuse",)}
     quality = {  # model -> (label, lengths, paths gated against f32)
-        "hubert": (("B=2 x 0.5 s", [8000, 6400], ("int8",)),
-                   ("B=2 x 30 s", [480000, 400000], ("int8", "bf16")),
-                   ("B=1 x 60 s", [960000], ("int8", "bf16"))),
-        "wavlm": (("B=2 x 0.5 s", [8000, 6400], ("int8", "bf16")),
-                  ("B=2 x 30 s", [480000, 400000], ("int8", "bf16")),
-                  ("B=1 x 60 s", [960000], ("int8", "bf16"))),
-    }
+        model: (("B=2 x 0.5 s", [8000, 6400],
+                 ("int8", "bf16")[:1 if model == "hubert" else 2] + options[model]),
+                ("B=2 x 30 s", [480000, 400000], ("int8", "bf16") + options[model]),
+                ("B=1 x 60 s", [960000], ("int8", "bf16")))
+        for model in MODELS}
     available = port_transformer._fused_block_available
     with Phase("5 card vs CPU, quality vs f32"):
         for (model, path), up in ups.items():
-            up_cpu = hub.load(MODELS[model], dtype=torch.bfloat16, flash=True,
-                              quantize=path == "int8", device="cpu", seed=0)
-            for label, lens, patch, attn_kernel in cases[model]:
+            up_cpu = load(hub, model, path, "cpu")
+            for label, lens, patch, expected in cases[model, path]:
                 small, small_lens = batch(lens, max(lens), gen, "cpu")
                 saved = {name: getattr(fa, name) for name in patch}
                 try:
@@ -662,10 +810,10 @@ def main():
                     port_transformer._fused_block_available = available
                     for name, value in saved.items():
                         setattr(fa, name, value)
-                if attn_kernel:
-                    launched = wrapper[attn_kernel[path]].launches
-                    check(launched == 24, f"{model} {path} {label}: {attn_kernel[path]} "
-                          f"launched {launched} times")
+                for name, count in expected.items():
+                    launched = wrapper[name].launches
+                    check(launched == count, f"{model} {path} {label}: {name} launched "
+                          f"{launched} times, not {count}")
                 check(hl_cpu.tolist() == hl_gpu.tolist(), "h_lens CPU vs card")
                 coss = layer_cosines(hs_gpu.cpu(), hs_cpu, hl_cpu.tolist())
                 log(f"[cpu-vs-card {model} {path} {label}] per-layer cosine min "
@@ -684,7 +832,7 @@ def main():
                     coss = layer_cosines(hs_q.float(), hs_f, hl.tolist())
                     log(f"[{model} {path}-vs-f32 {label}] 24L per-layer cosine min "
                         f"{min(coss):.6f}: " + " ".join(f"{c:.5f}" for c in coss))
-                    check(min(coss) > COS_F32[path],
+                    check(min(coss) > COS_F32[path.split()[0]],
                           f"per-layer cosine {model} {path} vs f32 ({label})")
                     del hs_q
                 del hs_f
@@ -696,6 +844,8 @@ def main():
         for label, B, secs in (("10 s", 32, 10.0), ("30 s", 8, 30.0), ("60 s", 4, 60.0)):
             wavs, lens_t = batch([int(secs * SR)] * B, int(secs * SR), gen, dev)
             for (model, path), up in ups.items():
+                if label not in TIMED.get(path, (label,)):
+                    continue
                 torch.cuda.reset_peak_memory_stats()
                 best = {it: min(it * cuda_ms(lambda: up.apply_standardized(wavs, lens_t), it)
                                 for _ in range(3))
@@ -719,8 +869,17 @@ def main():
         inputs = {name: inp for name in calls}
         time_kernels({"conv0_ln_gelu": calls.pop("conv0_ln_gelu")}, inputs, "B=32", entries,
                      launches, max_err, first_only=False)
+        time_kernels({"fused_int8_linear": calls.pop("fused_int8_linear")}, inputs, "B=32",
+                     entries, launches, max_err, first_only=False)
         time_kernels(calls, inputs, "B=32", entries, launches, max_err)
-        del inp, calls, inputs
+        inp11 = k11_inputs(32, 499, gen, dev)
+        time_kernels(k11_calls([inp11]), {"gated_bias_attention_outproj": inp11}, "B=32",
+                     entries, launches, max_err)
+        for name, pairs in split_pairs(inp, inp11).items():
+            for what, fn in pairs:
+                t = (cuda_ms(fn, 10) + cuda_ms(fn, 10)) / 2
+                log(f"[timing] {name} split pair it replaces B=32, {what}: {t:.3f} ms")
+        del inp, calls, inputs, inp11
         inp_long, inp8 = long_inputs(8, 1499, gen, dev), long_inputs(4, 2999, gen, dev)
         inputs = {"fused_qkv_attention_outproj": inp_long, "fused_qkv_attention": inp_long,
                   "online_flash_attention": inp8}

@@ -27,6 +27,22 @@
 // on the CUDA cores between them. WMMA 16x16x16 fragments; the accumulator
 // layout is opaque, so the per-row rescale of the running output goes
 // through a per-warp f32 square in shared memory.
+//
+// The gated instantiation (f32 output) is the attention core of WavLM's
+// `gated_bias_attention_outproj` (K11, pallas_call :423, cell :360-403):
+//   s = (q.k * Dh^-0.5) + gate[b, h, t] * pos_bias[h, t, k]  (k < kv_len),
+//   s = q.k * Dh^-0.5 - 1e9                                   otherwise,
+// each step an explicit __fmul_rn / __fadd_rn (the cell's scale, then the
+// product, then the sum; no contraction). The bias handling is
+// gated_attention.cu's: after a warp stores its 16 x 64 score square, its
+// lanes read the square's pos_bias rows straight from device memory (lanes
+// along the keys: one coalesced read per row half; the rows of an odd T
+// are not 16-byte aligned, so no cp.async), keys past kv_len untouched; the
+// block's 64 gates sit in shared memory. Its blocks run the utterance
+// fastest (blockIdx.x = b), so the B blocks that read one [64, T] slab of
+// the f32 bias run together and share L2 (the TPU kernel's batch-innermost
+// grid, :426); with b on blockIdx.z the slab would come from device memory
+// B times.
 #include <mma.h>
 
 #include "common.cuh"
@@ -46,10 +62,12 @@ constexpr int kKVBytes = kBKV * kLd * 2;
 constexpr int kSBytes = kWarps * 16 * kLdf * 4;
 constexpr int kPBytes = kWarps * 16 * kLd * 2;
 constexpr int kSmemBytes = kQBytes + 2 * kKVBytes + kSBytes + kPBytes;
+constexpr int kGateBytes = kBQ * 4;  // the gated instantiation's 64 gates
 
-template <typename OutT>
+template <typename OutT, bool kGated>
 __global__ void __launch_bounds__(kWarps * 32)
     attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ kv_lens,
+                     const float* __restrict__ pos_bias, const float* __restrict__ gate,
                      OutT* __restrict__ out, int T, int H, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
@@ -57,8 +75,11 @@ __global__ void __launch_bounds__(kWarps * 32)
   bf16* vs = reinterpret_cast<bf16*>(smem + kQBytes + kKVBytes);
   float* ss = reinterpret_cast<float*>(smem + kQBytes + 2 * kKVBytes);
   bf16* ps = reinterpret_cast<bf16*>(smem + kQBytes + 2 * kKVBytes + kSBytes);
+  float* gs = reinterpret_cast<float*>(smem + kSmemBytes);  // kGated only
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int b = kGated ? blockIdx.x : blockIdx.z;
+  const int q0 = (kGated ? blockIdx.y : blockIdx.x) * kBQ;
+  const int h = kGated ? blockIdx.z : blockIdx.y;
   const int C = H * kDh, stride = 3 * C;
   const bf16* base = qkv + static_cast<size_t>(b) * T * stride;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -66,6 +87,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   // kv_len == 0 (never produced by the model) attends uniformly over T keys
   const int n_tiles = (kv_len > 0 ? kv_len + kBKV - 1 : T + kBKV - 1) / kBKV;
 
+  if (kGated && tid < kBQ)
+    gs[tid] = q0 + tid < T ? gate[(static_cast<size_t>(b) * H + h) * T + q0 + tid] : 0.f;
   for (int i = tid; i < kBQ * (kDh / 8); i += kWarps * 32) {
     const int r = i / (kDh / 8), c = (i % (kDh / 8)) * 8;
     const bool p = q0 + r < T;
@@ -118,13 +141,34 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     __syncwarp();
 
+    if constexpr (kGated) {
+      // S = S * scale [+ gate * pos_bias on the valid keys]; lanes along the keys of a row
+      const float* bias_h = pos_bias + static_cast<size_t>(h) * T * T;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const int t = q0 + warp * 16 + r;
+        if (t < T) {
+          const float g = gs[warp * 16 + r];
+          const float* brow = bias_h + static_cast<size_t>(t) * T + k0;
+#pragma unroll
+          for (int c = lane; c < kBKV; c += 32) {
+            float s = __fmul_rn(sw[r * kLdf + c], scale);
+            if (k0 + c < kv_len) s = __fadd_rn(s, __fmul_rn(g, __ldg(brow + c)));
+            sw[r * kLdf + c] = s;
+          }
+        }
+      }
+      __syncwarp();
+    }
+
     // online softmax on row rr, columns half*32 .. half*32+31
     float* srow = sw + rr * kLdf + half * 32;
     float mx = -INFINITY;
 #pragma unroll 8
     for (int c = 0; c < 32; ++c) {
       const int col = k0 + half * 32 + c;
-      float s = srow[c] * scale + (col < kv_len ? 0.f : -1e9f);
+      float s = kGated ? __fadd_rn(srow[c], col < kv_len ? 0.f : -1e9f)
+                       : srow[c] * scale + (col < kv_len ? 0.f : -1e9f);
       if (col >= T) s = -INFINITY;
       srow[c] = s;
       mx = fmaxf(mx, s);
@@ -193,16 +237,19 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename OutT>
-int launch_attention(const void* qkv, const void* kv_lens, void* out, int batch, int T, int H,
-                     float scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+template <typename OutT, bool kGated>
+int launch_attention(const void* qkv, const void* kv_lens, const void* pos_bias, const void* gate,
+                     void* out, int batch, int T, int H, float scale, cudaStream_t stream) {
+  const int smem = kSmemBytes + (kGated ? kGateBytes : 0);
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<OutT, kGated>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kBQ - 1) / kBQ, H, batch);
-  attention_kernel<OutT><<<grid, kWarps * 32, kSmemBytes, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const int*>(kv_lens), static_cast<OutT*>(out), T,
-      H, scale);
+  const int q_tiles = (T + kBQ - 1) / kBQ;
+  const dim3 grid = kGated ? dim3(batch, q_tiles, H) : dim3(q_tiles, H, batch);
+  attention_kernel<OutT, kGated><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const int*>(kv_lens),
+      static_cast<const float*>(pos_bias), static_cast<const float*>(gate),
+      static_cast<OutT*>(out), T, H, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -211,6 +258,17 @@ int launch_attention(const void* qkv, const void* kv_lens, void* out, int batch,
 extern "C" int s3_attention(const void* qkv, const void* kv_lens, void* out, int batch, int T,
                             int H, float scale, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return out_f32 ? launch_attention<float>(qkv, kv_lens, out, batch, T, H, scale, st)
-                 : launch_attention<bf16>(qkv, kv_lens, out, batch, T, H, scale, st);
+  return out_f32
+             ? launch_attention<float, false>(qkv, kv_lens, nullptr, nullptr, out, batch, T, H,
+                                              scale, st)
+             : launch_attention<bf16, false>(qkv, kv_lens, nullptr, nullptr, out, batch, T, H,
+                                             scale, st);
+}
+
+// K11's attention core: the gated bias, f32 context [B, T, C].
+extern "C" int s3_attention_gated(const void* qkv, const void* kv_lens, const void* pos_bias,
+                                  const void* gate, void* out, int batch, int T, int H,
+                                  float scale, void* stream) {
+  return launch_attention<float, true>(qkv, kv_lens, pos_bias, gate, out, batch, T, H, scale,
+                                       static_cast<cudaStream_t>(stream));
 }

@@ -9,15 +9,17 @@ def wrappers():
     """The kernel wrappers of the serving paths, in pipeline order: conv0,
     then the int8 blocks (K1, K2), then the bf16 blocks (K4, K5), then the
     long-utterance attention (K6 int8, K7 bf16, K8 beyond MAX_KERNEL_T),
-    then WavLM's gated-bias attention (K9, K10 beyond MAX_KERNEL_T)."""
+    then WavLM's gated-bias attention (K9, K10 beyond MAX_KERNEL_T), then
+    the fused int8 projections of the opt-in routes (K11 `wavlm_fuse`, K12
+    `qkv_fuse` / `full_fuse`)."""
     from .conv_frontend import conv0_ln_gelu
-    from .ffn import fused_bf16_ffn, fused_int8_ffn
+    from .ffn import fused_bf16_ffn, fused_int8_ffn, fused_int8_linear
     from .flash_attention import (fused_attention_block, fused_attention_block_bf16,
                                   fused_qkv_attention, fused_qkv_attention_outproj,
-                                  gated_bias_attention, gated_online_flash_attention,
-                                  online_flash_attention)
+                                  gated_bias_attention, gated_bias_attention_outproj,
+                                  gated_online_flash_attention, online_flash_attention)
 
     return (conv0_ln_gelu, fused_attention_block, fused_int8_ffn,
             fused_attention_block_bf16, fused_bf16_ffn, fused_qkv_attention_outproj,
             fused_qkv_attention, online_flash_attention, gated_bias_attention,
-            gated_online_flash_attention)
+            gated_online_flash_attention, gated_bias_attention_outproj, fused_int8_linear)

@@ -43,6 +43,8 @@ SIGNATURES = {
     "s3_gemm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # qkv, kv_lens, out, batch, T, heads, scale, out_f32, stream
     "s3_attention": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # qkv, kv_lens, pos_bias, gate, out, batch, T, heads, scale, stream (f32 out)
+    "s3_attention_gated": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     # q, k, v, kv_lens, out, batch, heads, T, stream
     "s3_online_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # q, k, v, pos_bias, gate, kv_lens, out, batch, heads, T, masked, l_floor, stream

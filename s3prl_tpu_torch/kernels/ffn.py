@@ -25,6 +25,13 @@ unrounded f32 value), `csrc/quant_rows.cu` once per chunk, then
 `csrc/gemm_s8.cu` once per chunk, each adding its dequantized sum to the
 f32 output in the Pallas order (the last adds b2 [+ x]), and with
 ``postnorm`` `csrc/layernorm.cu`.
+
+K12 `fused_int8_linear` (ffn.py:238, pallas_call :216), the int8
+projection of the ``qkv_fuse`` and ``full_fuse`` options: [LN ->] row-quant
+-> int8 GEMM -> ((f32(acc) * xs) * ws + b) [+ residual] in f32, one cast.
+Two launches: `csrc/quant_rows.cu` (the f32 LN prologue, unrounded, then
+the f32 quantizer, as K2's) and `csrc/gemm_s8.cu` (the linear epilogue,
+never K1's triple-rounding QKV one, whatever N is).
 """
 
 from __future__ import annotations
@@ -184,3 +191,51 @@ def fused_int8_ffn(x, w1, b1, w2, b2, ln=None, residual: bool = False,
 
 
 fused_int8_ffn.launches = 0  # CUDA launches since the last reset
+
+
+def fused_int8_linear_reference(x, w, b, ln=None, residual=None):
+    """Plain version of K12 with the Pallas kernel's cast points (ffn.py:
+    185-197): [f32 LN, eps 1e-5, not rounded ->] f32 per-row quantization
+    (max(absmax, 1e-8) / 127, round half to even), exact int32 sums,
+    ((f32(acc) * xs) * ws + b) [+ residual] in f32, one cast to x.dtype.
+    w: an nn.Linear weight [N, C] or its (codes, scales) pair."""
+    wq, ws = as_quantized_cols(w)
+    B, T, C = x.shape
+    N = wq.shape[0]
+    x_in = x.float().reshape(B * T, C)
+    x8, xs = quantize_rows(layer_norm_f32(x_in, ln) if ln is not None else x_in)
+    y = int_mm(x8, wq).float() * xs * ws + b.float()
+    if residual is not None:
+        y = y + residual.float().reshape(B * T, N)
+    return y.to(x.dtype).view(B, T, N)
+
+
+def fused_int8_linear(x, w, b, ln=None, residual=None):
+    """x [B, T, C] -> [LN](x) @ w^T + b [+ residual], int8 W8A8, in x's
+    dtype: K12. The argument order is the JAX function's.
+
+    w: the cached (codes [N, C] int8, scales [N] f32) pair in nn.Linear
+    layout (a raw weight is quantized here); b [N] and ln = (scale [C], bias
+    [C]) f32; residual [B, T, N]. CPU tensors run the plain version; CUDA
+    tensors launch `csrc/quant_rows.cu` and `csrc/gemm_s8.cu`, which take
+    bf16 x and residual, C a multiple of 16 and N of 8. Forward-only."""
+    wq, ws = as_quantized_cols(w)
+    tensors = ((x, wq, ws, b) + (tuple(ln) if ln is not None else ())
+               + ((residual,) if residual is not None else ()))
+    if on_cpu(*tensors):
+        return fused_int8_linear_reference(x, (wq, ws), b, ln, residual)
+    B, T, C = x.shape
+    N = wq.shape[0]
+    require(x, "x", torch.bfloat16)
+    require(wq, "w codes", torch.int8, (N, C))
+    if residual is not None:
+        require(residual, "residual", torch.bfloat16, (B, T, N))
+    with torch.cuda.device(x.device):
+        x8, xs = quant_rows(x.view(B * T, C), ln=ln)
+        y = gemm_s8(x8, wq, mode=GEMM_LINEAR, row_scale=xs, col_scale=ws, bias=b,
+                    residual=residual.view(B * T, N) if residual is not None else None)
+    fused_int8_linear.launches += 1
+    return y.view(B, T, N)
+
+
+fused_int8_linear.launches = 0  # CUDA launches since the last reset

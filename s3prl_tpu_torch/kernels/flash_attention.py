@@ -53,6 +53,13 @@ WavLM's gated relative-position-bias attention (scores q.k^T + gate[b, h, t]
   floor on the denominator; beyond MAX_KERNEL_T it hands over to
 - K10 `gated_online_flash_attention`, the port of `_gated_online_flash_kernel`
   (:949, K-blocked cell :901-945): mask -1e30, denominator max(l, 1e-30).
+
+K11 `gated_bias_attention_outproj` (:454, cell :360-403), WavLM's opt-in
+fused attention: K6's math (unscaled qkv, P normalised and cast before
+P.V, the f32 context quantized per row, int8 out-proj + bo + residual) with
+the gated bias added before the mask. `csrc/attention.cu`'s gated
+instantiation, then K6's `csrc/quant_rows.cu` and `csrc/gemm_s8.cu`;
+beyond MAX_KERNEL_T it hands over to K9 -> K10 and stock ops (:466-477).
 """
 
 from __future__ import annotations
@@ -77,17 +84,21 @@ def _layer_norm_f32(x: torch.Tensor, ln) -> torch.Tensor:
 
 
 def attention_reference(qkv: torch.Tensor, kv_lens: torch.Tensor, num_heads: int,
-                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                        out_dtype: torch.dtype | None = None, bias=None) -> torch.Tensor:
     """Plain masked MHA from the fused qkv [B, T, 3C]: f32 scores scaled by
-    Dh^-0.5 plus the additive -1e9 key mask, f32 softmax, P normalised and
-    cast to qkv's dtype, P.V with f32 accumulation, heads concatenated, out
-    [B, T, C] in `out_dtype` (qkv's dtype by default; f32 keeps K6's
-    unrounded context)."""
+    Dh^-0.5 [plus gate * pos_bias, `bias` = (pos_bias [H, T, T], gate [B, H,
+    T]): K11's cell] plus the additive -1e9 key mask, f32 softmax, P
+    normalised and cast to qkv's dtype, P.V with f32 accumulation, heads
+    concatenated, out [B, T, C] in `out_dtype` (qkv's dtype by default; f32
+    keeps K6's and K11's unrounded context)."""
     B, T, C3 = qkv.shape
     C = C3 // 3
     Dh = C // num_heads
     q, k, v = qkv.float().view(B, T, 3, num_heads, Dh).permute(2, 0, 3, 1, 4)
     scores = (q @ k.transpose(-1, -2)) * Dh ** -0.5
+    if bias is not None:
+        pos_bias, gate = bias
+        scores = scores + gate.float()[..., None] * pos_bias.float()[None]
     col = torch.arange(T, device=qkv.device)
     penalty = torch.where(col[None, :] < kv_lens[:, None].to(col.dtype), 0.0, -1e9)
     p = torch.softmax(scores + penalty[:, None, None, :], dim=-1)
@@ -96,9 +107,10 @@ def attention_reference(qkv: torch.Tensor, kv_lens: torch.Tensor, num_heads: int
 
 
 def _attention(qkv: torch.Tensor, kv_lens: torch.Tensor, num_heads: int,
-               out_f32: bool = False) -> torch.Tensor:
+               out_f32: bool = False, bias=None) -> torch.Tensor:
     """One launch of `csrc/attention.cu` on qkv [B, T, 3C] bf16 (CUDA
-    only) -> [B * T, C], bf16 or f32."""
+    only) -> [B * T, C], bf16 or f32; with `bias` = (pos_bias [H, T, T],
+    gate [B, H, T]), both f32, its gated instantiation (f32 out only)."""
     B, T, C3 = qkv.shape
     C = C3 // 3
     if C != num_heads * HEAD_DIM:
@@ -107,11 +119,22 @@ def _attention(qkv: torch.Tensor, kv_lens: torch.Tensor, num_heads: int,
     if qkv.data_ptr() % 16:
         raise ValueError("attention qkv: 16-byte aligned rows only")
     require(kv_lens, "kv_lens", torch.int32, (B,))
+    if bias is not None:
+        if not out_f32:
+            raise ValueError("the gated attention kernel writes an f32 context only")
+        require(bias[0], "pos_bias", torch.float32, (num_heads, T, T))
+        require(bias[1], "gate", torch.float32, (B, num_heads, T))
     out = torch.empty(B * T, C, dtype=torch.float32 if out_f32 else torch.bfloat16,
                       device=qkv.device)
-    if B * T:
+    if not B * T:
+        return out
+    if bias is None:
         launch("s3_attention", qkv.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), B, T,
                num_heads, HEAD_DIM ** -0.5, int(out_f32), stream_of(qkv))
+    else:
+        launch("s3_attention_gated", qkv.data_ptr(), kv_lens.data_ptr(), bias[0].data_ptr(),
+               bias[1].data_ptr(), out.data_ptr(), B, T, num_heads, HEAD_DIM ** -0.5,
+               stream_of(qkv))
     return out
 
 
@@ -341,13 +364,19 @@ def fused_qkv_attention_outproj_reference(qkv, residual, wo, bo, kv_lens, num_he
     quantization (max(absmax, 1e-8) / 127, round half to even), exact int32
     out-proj, ((f32(acc) * s) * wos + bo) + residual in f32, one cast to
     qkv's dtype. wo: an nn.Linear weight or its (codes, scales) pair."""
-    B, T, C3 = qkv.shape
-    C = C3 // 3
-    wo_q, wo_s = as_quantized_cols(wo)
     ctx = attention_reference(qkv, kv_lens, num_heads, out_dtype=torch.float32)
-    a8, s = quantize_rows(ctx.view(B * T, C))
+    return _outproj_reference(ctx, residual, wo, bo, qkv.dtype)
+
+
+def _outproj_reference(ctx, residual, wo, bo, dtype):
+    """K6's and K11's tail on the f32 context [B, T, C]: f32 per-row
+    quantization, exact int32 out-proj, ((f32(acc) * s) * wos + bo) +
+    residual in f32, one cast to `dtype`."""
+    B, T, C = ctx.shape
+    wo_q, wo_s = as_quantized_cols(wo)
+    a8, s = quantize_rows(ctx.reshape(B * T, C))
     y = int_mm(a8, wo_q).float() * s * wo_s + bo.float() + residual.float().view(B * T, C)
-    return y.to(qkv.dtype).view(B, T, C)
+    return y.to(dtype).view(B, T, C)
 
 
 def fused_qkv_attention_outproj(qkv, residual, wo, bo, kv_lens, num_heads: int):
@@ -482,3 +511,64 @@ def gated_bias_attention(q, k, v, pos_bias, gate, kv_lens):
 
 
 gated_bias_attention.launches = 0  # CUDA launches since the last reset
+
+
+def gated_bias_attention_outproj_reference(qkv, residual, pos_bias, gate, wo, bo, kv_lens,
+                                           num_heads: int):
+    """Plain version of K11 at T <= MAX_KERNEL_T (the cell :360-403): K6's
+    math with the gated bias, scores (q.k) * Dh^-0.5 + gate * pos_bias (the
+    product, then the sum) before the -1e9 key mask, P normalised and cast
+    to qkv's dtype, the heads concatenated in f32, then K6's f32 per-row
+    quantization, int8 out-proj and ((f32(acc) * s) * wos + bo) + residual,
+    one cast to qkv's dtype. wo: an nn.Linear weight or its (codes, scales)
+    pair."""
+    ctx = attention_reference(qkv, kv_lens, num_heads, out_dtype=torch.float32,
+                              bias=(pos_bias, gate))
+    return _outproj_reference(ctx, residual, wo, bo, qkv.dtype)
+
+
+def gated_bias_attention_outproj(qkv, residual, pos_bias, gate, wo, bo, kv_lens,
+                                 num_heads: int):
+    """residual + out_proj(gated-bias MHA(qkv)) with the int8 W8A8
+    out-projection: K11, WavLM's fused attention (the ``wavlm_fuse`` option).
+
+    The argument order is the JAX function's. qkv [B, T, 3C] bf16 (the
+    unscaled fused projection), residual [B, T, C] bf16, pos_bias [H, T, T]
+    f32 (shared by the utterances and the layers), gate [B, H, T] f32, wo
+    the cached (codes [C, C] int8, scales [C] f32) pair in nn.Linear layout
+    (a raw weight is quantized here), bo [C] f32, kv_lens [B] int32 (padding
+    contiguous, kv_len >= 1). Beyond MAX_KERNEL_T frames (read at call
+    time): the heads split with q pre-scaled in qkv's dtype, K9 (which hands
+    over to K10), then residual + int8_matmul (:466-477; those launches
+    count for K10). CPU tensors run the plain versions; CUDA tensors launch
+    the gated instantiation of `csrc/attention.cu` (f32 context),
+    `csrc/quant_rows.cu` (f32 quantizer) and `csrc/gemm_s8.cu` (out-proj,
+    bias, residual), head dim 64. Forward-only."""
+    wo_q, wo_s = as_quantized_cols(wo)
+    B, T, C3 = qkv.shape
+    C = C3 // 3
+    if T > MAX_KERNEL_T:
+        out = gated_bias_attention(*_split_heads(qkv, num_heads), pos_bias.float(),
+                                   gate.float(), kv_lens)
+        out = out.transpose(1, 2).reshape(B, T, C)
+        return residual + int8_matmul(out, (wo_q, wo_s), bo, out_dtype=residual.dtype)
+    if on_cpu(qkv, residual, pos_bias, gate, wo_q, wo_s, bo, kv_lens):
+        return gated_bias_attention_outproj_reference(qkv, residual, pos_bias, gate,
+                                                      (wo_q, wo_s), bo, kv_lens, num_heads)
+    require(residual, "residual", torch.bfloat16, (B, T, C))
+    require(wo_q, "wo codes", torch.int8, (C, C))
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (qkv, residual, pos_bias, gate, bo)):
+        raise RuntimeError(
+            "K11 gated_bias_attention_outproj is forward-only: call it under "
+            "torch.no_grad() or torch.inference_mode(), or on CPU tensors")
+    with torch.cuda.device(qkv.device):
+        ctx = _attention(qkv, kv_lens, num_heads, out_f32=True, bias=(pos_bias, gate))
+        a8, s_a = quant_rows(ctx)  # K6's f32 quantizer (:396-397)
+        y = gemm_s8(a8, wo_q, mode=GEMM_LINEAR, row_scale=s_a, col_scale=wo_s, bias=bo,
+                    residual=residual.view(B * T, C))
+    gated_bias_attention_outproj.launches += 1
+    return y.view(B, T, C)
+
+
+gated_bias_attention_outproj.launches = 0  # CUDA launches since the last reset

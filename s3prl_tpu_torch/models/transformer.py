@@ -10,11 +10,16 @@ fused kernels can serve its input (CUDA, see `_fused_block_available`); it
 runs the bf16 kernels when it is a bf16 ``use_flash`` layer without
 ``quantize``, in eval mode, with eps 1e-5, on such an input. T is compared
 with the kernels module's MAX_BLOCK_T and MAX_KERNEL_T at call time:
+- the whole block, quant serving with ``use_flash``, eps 1e-5 and the
+  layer's ``full_fuse`` option, at every T: K12 `fused_int8_linear` (LN +
+  QKV), K7 (K8 beyond MAX_KERNEL_T), K12 (out-proj + residual), K2
+  (transformer.py:393-405, :355-379);
 - attention, quant serving with ``use_flash``: T <= MAX_BLOCK_T -> K1
   `fused_attention_block`; beyond it the f32 LN rounded to bf16, the QKV
-  projection through int8_matmul, then K6 `fused_qkv_attention_outproj`
-  (transformer.py:481-492; K6 hands its attention to K8 beyond
-  MAX_KERNEL_T);
+  projection through int8_matmul (with the ``qkv_fuse`` option K12, whose
+  f32 LN is not rounded, in their place, :471-484), then K6
+  `fused_qkv_attention_outproj` (transformer.py:481-492; K6 hands its
+  attention to K8 beyond MAX_KERNEL_T);
 - attention, bf16 kernels: T <= MAX_BLOCK_T -> K4 `fused_attention_block_bf16`;
   beyond it the module path below (:525-526);
 - attention otherwise, the module path: LN, then `SelfAttention`, whose
@@ -48,7 +53,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels import flash_attention as fa  # MAX_BLOCK_T / MAX_KERNEL_T read at call time
-from ..kernels.ffn import fused_bf16_ffn, fused_int8_ffn
+from ..kernels.ffn import fused_bf16_ffn, fused_int8_ffn, fused_int8_linear
 from ..kernels.flash_attention import (fused_attention_block, fused_attention_block_bf16,
                                        fused_qkv_attention, fused_qkv_attention_outproj,
                                        gated_bias_attention)
@@ -205,12 +210,17 @@ class EncoderLayer(_QCache, nn.Module):
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
-                 quantize: bool = False, layer_norm_eps: float = 1e-5, device=None):
+                 quantize: bool = False, layer_norm_eps: float = 1e-5, device=None,
+                 qkv_fuse: bool = False, full_fuse: bool = False):
         super().__init__()
         self.dtype = dtype
         self.use_flash = use_flash
         self.quantize = quantize
         self.num_heads = num_heads
+        # the fused int8 projections (K12) of quant serving; plain attributes,
+        # not state: the JAX package's QKV-fuse and full-fuse switches
+        self.qkv_fuse = qkv_fuse
+        self.full_fuse = full_fuse
         self.self_attn = self.attention(embed_dim, num_heads, quantize, use_flash,
                                         device=device)
         self.self_attn_layer_norm = nn.LayerNorm(embed_dim, eps=layer_norm_eps, device=device)
@@ -245,6 +255,17 @@ class EncoderLayer(_QCache, nn.Module):
             return int8_matmul(h, self.qpair("fc2"), self.fc2.bias)
         return _linear(F.gelu(_linear(h, self.fc1)), self.fc2)
 
+    def _fully_fused(self, x: torch.Tensor, kv_lens: torch.Tensor) -> torch.Tensor:
+        """``full_fuse``: the whole pre-LN block as K12(LN, QKV) -> K7 (K8
+        beyond MAX_KERNEL_T) -> K12(out-proj, residual x) -> K2(LN, residual)
+        (transformer.py:355-379)."""
+        attn, ln1, ln2 = self.self_attn, self.self_attn_layer_norm, self.final_layer_norm
+        qkv = fused_int8_linear(x, attn.qpair("qkv"), attn.qkv_bias, ln=(ln1.weight, ln1.bias))
+        a = fused_qkv_attention(qkv, kv_lens, self.num_heads)
+        x = fused_int8_linear(a, attn.qpair("out_proj"), attn.out_proj.bias, residual=x)
+        return fused_int8_ffn(x, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),
+                              self.fc2.bias, ln=(ln2.weight, ln2.bias), residual=True)
+
     def forward(self, x: torch.Tensor, kv_lens: torch.Tensor,
                 pad_mask: torch.Tensor) -> torch.Tensor:
         """x [B, T, C] in the model dtype; kv_lens [B] int32 valid frames;
@@ -255,14 +276,20 @@ class EncoderLayer(_QCache, nn.Module):
             not self.training and not self.quantize and self.dtype == torch.bfloat16
             and self.use_flash and ln1.eps == 1e-5 and _fused_block_available(x)
         )
+        if quant_serving and self.full_fuse and self.use_flash and ln1.eps == 1e-5:
+            return self._fully_fused(x, kv_lens)
         block_t = x.shape[1] <= fa.MAX_BLOCK_T
         if quant_serving and self.use_flash and block_t:
             x = fused_attention_block(
                 x, attn.qpair("qkv"), attn.qkv_bias, (ln1.weight, ln1.bias),
                 attn.qpair("out_proj"), attn.out_proj.bias, kv_lens, self.num_heads)
         elif quant_serving and self.use_flash:
-            qkv = int8_matmul(_layer_norm(x, ln1), attn.qpair("qkv"), attn.qkv_bias,
-                              out_dtype=self.dtype)
+            if self.qkv_fuse:  # LN (f32, not rounded) + QKV in K12 (transformer.py:471-480)
+                qkv = fused_int8_linear(x, attn.qpair("qkv"), attn.qkv_bias,
+                                        ln=(ln1.weight, ln1.bias))
+            else:
+                qkv = int8_matmul(_layer_norm(x, ln1), attn.qpair("qkv"), attn.qkv_bias,
+                                  out_dtype=self.dtype)
             x = fused_qkv_attention_outproj(qkv, x, attn.qpair("out_proj"),
                                             attn.out_proj.bias, kv_lens, self.num_heads)
         elif fused and block_t:
@@ -291,7 +318,8 @@ class TransformerEncoder(nn.Module):
     def __init__(self, embed_dim: int = 1024, ffn_dim: int = 4096, num_layers: int = 24,
                  num_heads: int = 16, layer_norm_first: bool = True, conv_pos: int = 128,
                  conv_pos_groups: int = 16, dtype: torch.dtype = torch.float32,
-                 use_flash: bool = False, quantize: bool = False, device=None):
+                 use_flash: bool = False, quantize: bool = False, device=None, **fuse):
+        """``fuse``: the layers' ``qkv_fuse`` / ``full_fuse`` options."""
         super().__init__()
         if not layer_norm_first:
             raise NotImplementedError(
@@ -302,7 +330,7 @@ class TransformerEncoder(nn.Module):
         self.pos_conv[0].weight.data = self.pos_conv[0].weight.data.to(dtype)
         self.layers = nn.ModuleList([
             EncoderLayer(embed_dim, ffn_dim, num_heads, dtype, use_flash, quantize,
-                         device=device)
+                         device=device, **fuse)
             for _ in range(num_layers)
         ])
         self.layer_norm = nn.LayerNorm(embed_dim, device=device)

@@ -108,14 +108,28 @@ class Wav2Vec2Trunk(nn.Module):
     # int8 serving runs the extractor's GELU in tanh (s3prl_tpu/models/
     # wav2vec2.py passes ``quantize`` to its extractor; WavLM's does not)
     tanh_extractor = True
+    # the fused int8 projection options its encoder layers take (off by
+    # default, as the JAX package's QKV-fuse and full-fuse switches)
+    fuse_options = ("qkv_fuse", "full_fuse")
 
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype = torch.float32,
-                 use_flash: bool = False, quantize: bool = False, device=None):
+                 use_flash: bool = False, quantize: bool = False, device=None,
+                 qkv_fuse: bool = False, full_fuse: bool = False, wavlm_fuse: bool = False):
         super().__init__()
         reason = _unsupported(cfg)
         if reason is not None:
             raise NotImplementedError(
                 f"{reason} is not ported yet (ROADMAP.md Queue 1 items 5, 6, 11)")
+        options = {"qkv_fuse": qkv_fuse, "full_fuse": full_fuse, "wavlm_fuse": wavlm_fuse}
+        on = [name for name, value in options.items() if value]
+        foreign = [name for name in on if name not in self.fuse_options]
+        if foreign:
+            raise ValueError(f"{', '.join(foreign)} cannot take effect in "
+                             f"{type(self).__name__}, whose layers take "
+                             f"{' and '.join(self.fuse_options)}")
+        if on and not (quantize and use_flash):
+            raise ValueError(f"{', '.join(on)} fuses projections of int8 serving: "
+                             "it needs quantize=True and flash=True")
         self.cfg = cfg
         self.dtype = dtype
         self.feature_extractor = ConvFeatureExtractor(
@@ -130,13 +144,14 @@ class Wav2Vec2Trunk(nn.Module):
         # pretraining's mask embedding: unused by extraction, kept so the
         # state_dict carries the whole checkpoint
         self.mask_emb = nn.Parameter(torch.empty(cfg.encoder_embed_dim, device=device))
-        self.encoder = self._encoder(cfg, dtype, use_flash, quantize, device)
+        self.encoder = self._encoder(cfg, dtype, use_flash, quantize, device,
+                                     **{name: options[name] for name in self.fuse_options})
 
-    def _encoder(self, cfg, dtype, use_flash, quantize, device) -> nn.Module:
+    def _encoder(self, cfg, dtype, use_flash, quantize, device, **fuse) -> nn.Module:
         return TransformerEncoder(
             cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim, cfg.encoder_layers,
             cfg.encoder_attention_heads, cfg.layer_norm_first, cfg.conv_pos,
-            cfg.conv_pos_groups, dtype, use_flash, quantize, device=device)
+            cfg.conv_pos_groups, dtype, use_flash, quantize, device=device, **fuse)
 
     def build_qcache(self) -> None:
         """Quantizes every encoder layer's projections once from their f32

@@ -16,7 +16,10 @@ Ported: pre-LN WavLM (WavLM-Large). Routing of a `GatedRelPosLayer`
 - attention: x + self_attn(LN(x)) with the gated bias; with ``use_flash``
   K9 `gated_bias_attention` (K10 beyond MAX_KERNEL_T), otherwise plain ops;
   the projections through int8_matmul under ``quantize``. WavLM runs none
-  of K1, K4, K6 and K7;
+  of K1, K4, K6 and K7; with the ``wavlm_fuse`` option under quant serving
+  and ``use_flash``: int8_matmul QKV, then K11 `gated_bias_attention_outproj`
+  (the gated attention, the int8 out-proj and the residual; K9 -> K10 and
+  stock ops beyond MAX_KERNEL_T) in place of the attention and out-proj;
 - FFN: quant serving (``quantize``, eval mode, CUDA input) -> K2
   `fused_int8_ffn` with the LN and the residual folded in; otherwise the
   module path fc1 -> erf GELU -> fc2 (int8_matmul under ``quantize``): the
@@ -36,6 +39,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels.ffn import fused_int8_ffn
+from ..kernels.flash_attention import gated_bias_attention_outproj
+from ..ops.quant import int8_matmul
 from . import transformer as tr
 from .transformer import EncoderLayer, SelfAttention, TransformerEncoder, _layer_norm
 from .wav2vec2 import Wav2Vec2Config, Wav2Vec2Trunk
@@ -131,9 +136,11 @@ class GatedRelPosLayer(EncoderLayer):
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
-                 quantize: bool = False, num_buckets: int | None = None, device=None):
+                 quantize: bool = False, num_buckets: int | None = None, device=None,
+                 wavlm_fuse: bool = False):
         super().__init__(embed_dim, ffn_dim, num_heads, dtype, use_flash, quantize,
                          device=device)
+        self.wavlm_fuse = wavlm_fuse  # K11 under quant serving: a plain attribute, not state
         if num_buckets is not None:
             self.self_attn.relative_attention_bias = nn.Embedding(num_buckets, num_heads,
                                                                   device=device)
@@ -143,9 +150,16 @@ class GatedRelPosLayer(EncoderLayer):
         """x [B, T, C] in the model dtype; kv_lens [B] int32; pad_mask [B, T]
         True on padded frames; pos_bias [H, T, T], the encoder's shared bias."""
         attn, ln2 = self.self_attn, self.final_layer_norm
+        quant_serving = self.quantize and not self.training and tr._fused_block_available(x)
         h = _layer_norm(x, self.self_attn_layer_norm)
-        x = x + attn(h, pad_mask, rel_bias=(pos_bias, attn.gate(h)))
-        if self.quantize and not self.training and tr._fused_block_available(x):
+        if quant_serving and self.use_flash and self.wavlm_fuse:  # wavlm.py:175-212
+            qkv = int8_matmul(h, attn.qpair("qkv"), attn.qkv_bias, out_dtype=self.dtype)
+            x = gated_bias_attention_outproj(qkv, x, pos_bias, attn.gate(h).float(),
+                                             attn.qpair("out_proj"), attn.out_proj.bias,
+                                             kv_lens, self.num_heads)
+        else:
+            x = x + attn(h, pad_mask, rel_bias=(pos_bias, attn.gate(h)))
+        if quant_serving:
             return fused_int8_ffn(x, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),
                                   self.fc2.bias, ln=(ln2.weight, ln2.bias), residual=True)
         return x + self._ffn(_layer_norm(x, ln2))
@@ -155,7 +169,8 @@ class WavLMEncoder(TransformerEncoder):
     """Pos-conv, the gated layers, final LN; [L+1, B, T, C] as the trunk's."""
 
     def __init__(self, cfg: WavLMConfig, dtype: torch.dtype = torch.float32,
-                 use_flash: bool = False, quantize: bool = False, device=None):
+                 use_flash: bool = False, quantize: bool = False, device=None,
+                 wavlm_fuse: bool = False):
         if not cfg.layer_norm_first:
             raise NotImplementedError(
                 "post-LN WavLM (WavLM-Base, WavLM-Base+) is a later slice "
@@ -169,7 +184,8 @@ class WavLMEncoder(TransformerEncoder):
         self.layers.extend(
             GatedRelPosLayer(cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim,
                              cfg.encoder_attention_heads, dtype, use_flash, quantize,
-                             num_buckets=cfg.num_buckets if i == 0 else None, device=device)
+                             num_buckets=cfg.num_buckets if i == 0 else None, device=device,
+                             wavlm_fuse=wavlm_fuse)
             for i in range(cfg.encoder_layers))
 
     def _layer_args(self, T: int, device) -> tuple:
@@ -190,14 +206,15 @@ class WavLMModel(Wav2Vec2Trunk):
     its projection weights in f32 and quantizes them once at load."""
 
     tanh_extractor = False  # erf in both paths (wavlm.py:264-267)
+    fuse_options = ("wavlm_fuse",)
 
     def __init__(self, cfg: WavLMConfig = WAVLM_LARGE, dtype: torch.dtype = torch.float32,
-                 use_flash: bool = False, quantize: bool = False, device=None):
+                 use_flash: bool = False, quantize: bool = False, device=None, **fuse):
         if not (cfg.relative_position_embedding and cfg.gru_rel_pos):
             raise NotImplementedError(
                 "WavLM without the gated relative-position bias is not ported "
                 "(ROADMAP.md Queue 2)")
-        super().__init__(cfg, dtype, use_flash, quantize, device=device)
+        super().__init__(cfg, dtype, use_flash, quantize, device=device, **fuse)
 
-    def _encoder(self, cfg, dtype, use_flash, quantize, device) -> nn.Module:
-        return WavLMEncoder(cfg, dtype, use_flash, quantize, device=device)
+    def _encoder(self, cfg, dtype, use_flash, quantize, device, **fuse) -> nn.Module:
+        return WavLMEncoder(cfg, dtype, use_flash, quantize, device=device, **fuse)

@@ -1,10 +1,11 @@
 """Named upstream registry (port of s3prl_tpu/upstream/registry.py).
 
 Ported entries: ``hubert_large_ll60k`` and ``wavlm_large``, each in f32,
-bf16 and int8 W8A8 (``quantize=True``, the serving default). A model is
-built on the card (``torch.device("cuda")``) unless ``device=`` says
-otherwise; without CUDA and without ``device=`` loading raises rather than
-building on the CPU. Without a checkpoint (loading one is a later slice)
+bf16 and int8 W8A8 (``quantize=True``, the serving default), the int8 path
+with its opt-in fused projections (``qkv_fuse``, ``full_fuse``;
+``wavlm_fuse``). A model is built on the card (``torch.device("cuda")``)
+unless ``device=`` says otherwise; without CUDA and without ``device=``
+loading raises rather than building on the CPU. Without a checkpoint (loading one is a later slice)
 the weights are random, drawn on the CPU from a `torch.Generator` seeded
 with `seed`, so one seed gives the same model on every device. With
 ``quantize`` the encoder's projections are quantized once, on the CPU from
@@ -43,7 +44,11 @@ def options() -> List[str]:
 def load(name: str, **kwargs) -> Upstream:
     """Build a named upstream: ``load(name, dtype=torch.float32, flash=False,
     quantize=False, seed=0, device=None)``. ``device=None`` is the card
-    (``"cuda"``); pass ``device="cpu"`` to build on the CPU."""
+    (``"cuda"``); pass ``device="cpu"`` to build on the CPU. The fused int8
+    projections of int8 serving (``quantize=True, flash=True``) are opt-in
+    keywords, all False by default: ``qkv_fuse`` and ``full_fuse`` on
+    HuBERT (K12), ``wavlm_fuse`` on WavLM (K11); a keyword that cannot take
+    effect raises a ValueError."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown upstream '{name}'; available: {options()}")
     return _REGISTRY[name](**kwargs)
@@ -94,15 +99,18 @@ def _init_trunk(model: Wav2Vec2Trunk, gen: torch.Generator) -> Wav2Vec2Trunk:
 
 def _trunk_upstream(name: str, cfg: Wav2Vec2Config, dtype=torch.float32,
                     flash: bool = False, quantize: bool = False, seed: int = 0,
-                    device=None, ckpt=None) -> Upstream:
+                    device=None, ckpt=None, **fuse) -> Upstream:
     """A trunk model (WavLM for a `WavLMConfig`) with random weights from
-    `seed`, on `device` (the card when None)."""
+    `seed`, on `device` (the card when None). ``fuse``: the model's fused
+    int8 projection options (`Wav2Vec2Trunk.fuse_options`), checked before
+    any weight is made."""
+    model_cls = WavLMModel if isinstance(cfg, WavLMConfig) else Wav2Vec2Trunk
+    model = model_cls(cfg, dtype=dtype, use_flash=flash, quantize=quantize, device="meta",
+                      **fuse)
     if ckpt is not None:
         raise NotImplementedError(
             "ckpt= loading is not ported yet (ROADMAP.md Queue 1 item 6)")
     device = _device(device)
-    model_cls = WavLMModel if isinstance(cfg, WavLMConfig) else Wav2Vec2Trunk
-    model = model_cls(cfg, dtype=dtype, use_flash=flash, quantize=quantize, device="meta")
     model.to_empty(device="cpu")
     _init_trunk(model, torch.Generator().manual_seed(seed))
     model.build_qcache()

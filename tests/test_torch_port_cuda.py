@@ -15,8 +15,10 @@ equal their plain versions wherever their f32 inputs agree. The
 long-utterance wrappers (K6, K7) are held against the plain versions of
 the route they take, run by the same wrapper on CPU copies of the inputs:
 beyond MAX_KERNEL_T that route is K8's; so are WavLM's gated-bias wrappers
-(K9, and K10 beyond MAX_KERNEL_T). Launch counts are listed in `wrappers()`
-order: conv0, K1, K2, K4, K5, K6, K7, K8, K9, K10.
+(K9, and K10 beyond MAX_KERNEL_T), and K11 (K9 -> K10 and stock ops
+beyond MAX_KERNEL_T). Launch counts are listed in `wrappers()` order:
+conv0, K1, K2, K4, K5, K6, K7, K8, K9, K10, K11, K12 (trailing zeros may be
+left out).
 """
 
 import numpy as np
@@ -37,6 +39,7 @@ from s3prl_tpu_torch.kernels.flash_attention import (
     gated_bias_attention_reference, gated_online_flash_attention,
     gated_online_flash_attention_reference, online_flash_attention,
     online_flash_attention_reference, quantize_context_reference)
+from s3prl_tpu_torch.kernels.ffn import fused_int8_linear, fused_int8_linear_reference
 from s3prl_tpu_torch.ops.quant import as_quantized_cols, int_mm, quantize_rows
 
 pytestmark = pytest.mark.cuda
@@ -189,9 +192,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                       torch.zeros(512))
 
 
-def _tiny_trunk_pair(dtype, flash, dev, quantize=False):
+def _tiny_trunk_pair(dtype, flash, dev, quantize=False, **fuse):
     """One seed's tiny HuBERT-Large-style trunk on the CPU and on the card
-    (conv0 keeps the kernel's 512 channels; head dim 64)."""
+    (conv0 keeps the kernel's 512 channels; head dim 64); ``fuse``: its
+    fused int8 projection options."""
     from s3prl_tpu_torch.models.wav2vec2 import Wav2Vec2Config
     from s3prl_tpu_torch.upstream.registry import _trunk_upstream
 
@@ -201,7 +205,7 @@ def _tiny_trunk_pair(dtype, flash, dev, quantize=False):
         encoder_attention_heads=2, conv_pos=16, conv_pos_groups=4,
         layer_norm_first=True, normalize=True)
     return [_trunk_upstream("tiny", cfg, dtype=dtype, flash=flash, quantize=quantize, seed=3,
-                            device=d)
+                            device=d, **fuse)
             for d in ("cpu", dev)]
 
 
@@ -212,7 +216,7 @@ def _tiny_batch():
     return torch.from_numpy(wavs), torch.from_numpy(lens)
 
 
-def _tiny_wavlm_pair(dev, quantize):
+def _tiny_wavlm_pair(dev, quantize, **fuse):
     """One seed's tiny WavLM-Large-style model on the CPU and on the card
     (conv0 keeps the kernel's 512 channels; head dim 64)."""
     from s3prl_tpu_torch.models.wavlm import WavLMConfig
@@ -225,7 +229,7 @@ def _tiny_wavlm_pair(dev, quantize):
         layer_norm_first=True, normalize=True, dropout_input=0.0, num_buckets=32,
         max_distance=80)
     return [_trunk_upstream("tiny", cfg, dtype=torch.bfloat16, flash=True, quantize=quantize,
-                            seed=3, device=d)
+                            seed=3, device=d, **fuse)
             for d in ("cpu", dev)]
 
 
@@ -247,7 +251,7 @@ def _trunk_on_card_vs_cpu(dev, monkeypatch, quantize, launches, wavs=None, lens=
         w.launches = 0
     hs_gpu, hl_gpu = gpu.apply_standardized(wavs.to(dev), lens.to(dev))
     torch.cuda.synchronize()
-    assert [w.launches for w in wrappers()] == launches
+    assert [w.launches for w in wrappers()] == launches + [0] * (len(wrappers()) - len(launches))
     monkeypatch.setattr(port_transformer, "_fused_block_available", lambda x: True)
     hs_cpu, hl_cpu = cpu.apply_standardized(wavs, lens)
     assert hl_gpu.tolist() == hl_cpu.tolist()
@@ -602,3 +606,110 @@ def test_tiny_wavlm_matches_cpu(dev, monkeypatch, quantize, max_kernel_t):
     _trunk_on_card_vs_cpu(dev, monkeypatch, quantize,
                           [1, 0, 2 if quantize else 0, 0, 0, 0, 0, 0] + k9_k10,
                           pair=_tiny_wavlm_pair(dev, quantize))
+
+
+@pytest.mark.parametrize("T", [499, 1499, 2048, 2049])
+def test_k11_kernel(dev, T):
+    """K11 (gated attention with an f32 context, f32 row-quant, int8
+    out-proj + bias + residual) against the plain versions of its route on
+    CPU copies of the inputs; beyond MAX_KERNEL_T it is K9 -> K10 and
+    residual + int8_matmul, and its launch counts for K10."""
+    from s3prl_tpu_torch.models.wavlm import bucket_table
+
+    rng = np.random.RandomState(23)
+    B, H = 3, 2
+    qkv = _t(rng.randn(B, T, 3 * H * 64), dev, torch.bfloat16)
+    x = _t(rng.randn(B, T, H * 64) * 0.5, dev, torch.bfloat16)
+    pos_bias = _t(rng.randn(320, H) * 0.5, dev).t()[:, bucket_table(T, 320, 800, dev)].contiguous()
+    gate = _t(1 + 2 * rng.rand(B, H, T), dev)
+    wo, bo = _qpair(rng, dev, H * 64, H * 64)
+    kv = _long_kv(T, dev)
+    before = fa.gated_bias_attention_outproj.launches, gated_online_flash_attention.launches
+    got = fa.gated_bias_attention_outproj(qkv, x, pos_bias, gate, wo, bo, kv, H)
+    torch.cuda.synchronize()
+    online = T > fa.MAX_KERNEL_T
+    assert (fa.gated_bias_attention_outproj.launches - before[0],
+            gated_online_flash_attention.launches - before[1]) == (0 + (not online), 0 + online)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, T, H * 64)
+    _close_bf16(got, fa.gated_bias_attention_outproj(*_on_cpu(qkv, x, pos_bias, gate, wo, bo,
+                                                              kv), H))
+
+
+@pytest.mark.parametrize("ln,residual", [(True, False), (False, True), (False, False),
+                                         (True, True)], ids=["ln", "res", "plain", "ln-res"])
+def test_k12_kernel(dev, ln, residual):
+    """K12 against its plain version on the card: 246 rows, C = 256, N = 3C
+    with the LN (the QKV projection), N = C otherwise."""
+    rng = np.random.RandomState(24)
+    B, T, C = 2, 123, 256
+    N = 3 * C if ln else C
+    x = _t(rng.randn(B, T, C) * 0.5, dev, torch.bfloat16)
+    w, b = _qpair(rng, dev, C, N)
+    norm = _ln(rng, dev, C) if ln else None
+    res = _t(rng.randn(B, T, N) * 0.5, dev, torch.bfloat16) if residual else None
+    before = fused_int8_linear.launches
+    got = fused_int8_linear(x, w, b, ln=norm, residual=res)
+    torch.cuda.synchronize()
+    assert fused_int8_linear.launches == before + 1
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, T, N)
+    _close_bf16(got, fused_int8_linear_reference(x, w, b, ln=norm, residual=res))
+
+
+def test_fused_projection_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    rng = np.random.RandomState(25)
+    B, T, H = 2, 130, 2
+    qkv = _t(rng.randn(B, T, 3 * H * 64), dev, torch.bfloat16)
+    x = _t(rng.randn(B, T, H * 64), dev, torch.bfloat16)
+    pos_bias = _t(rng.randn(H, T, T), dev)
+    gate = _t(1 + 2 * rng.rand(B, H, T), dev)
+    wo, bo = _qpair(rng, dev, H * 64, H * 64)
+    kv = torch.tensor([T, 70], dtype=torch.int32, device=dev)
+    k11 = fa.gated_bias_attention_outproj
+    with pytest.raises(TypeError):  # f32 qkv
+        k11(qkv.float(), x, pos_bias, gate, wo, bo, kv, H)
+    with pytest.raises(TypeError):  # f32 residual
+        k11(qkv, x.float(), pos_bias, gate, wo, bo, kv, H)
+    with pytest.raises(TypeError):  # bf16 pos_bias
+        k11(qkv, x, pos_bias.bfloat16(), gate, wo, bo, kv, H)
+    with pytest.raises(ValueError):  # CPU kv_lens beside CUDA tensors
+        k11(qkv, x, pos_bias, gate, wo, bo, kv.cpu(), H)
+    gate.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):  # the kernel has no backward
+        k11(qkv, x, pos_bias, gate, wo, bo, kv, H)
+    with torch.no_grad():
+        k11(qkv, x, pos_bias, gate, wo, bo, kv, H)
+    w, b = _qpair(rng, dev, H * 64, 3 * H * 64)
+    with pytest.raises(TypeError):  # f32 x
+        fused_int8_linear(x.float(), w, b)
+    with pytest.raises(TypeError):  # f32 residual
+        fused_int8_linear(x, wo, bo, residual=x.float())
+    with pytest.raises(ValueError):  # CPU weights beside a CUDA input
+        fused_int8_linear(x, (w[0].cpu(), w[1].cpu()), b.cpu())
+
+
+@pytest.mark.parametrize("route", ["full_fuse-k7", "full_fuse-k8", "qkv_fuse"])
+def test_tiny_trunk_fused_projections_match_cpu(dev, monkeypatch, route):
+    """HuBERT's int8 options on the card (T' = 320 frames): ``full_fuse`` at
+    the real MAX_BLOCK_T (K12 twice a layer, K7 or, with MAX_KERNEL_T = 128,
+    K8, and K2; no K1); ``qkv_fuse`` beyond MAX_BLOCK_T = 64 (K12, K6, K2)."""
+    option = route.split("-")[0]
+    if route == "full_fuse-k8":
+        monkeypatch.setattr(fa, "MAX_KERNEL_T", 128)
+    if option == "qkv_fuse":
+        monkeypatch.setattr(fa, "MAX_BLOCK_T", 64)
+    launches = {"full_fuse-k7": [1, 0, 2, 0, 0, 0, 2, 0, 0, 0, 0, 4],
+                "full_fuse-k8": [1, 0, 2, 0, 0, 0, 0, 2, 0, 0, 0, 4],
+                "qkv_fuse": [1, 0, 2, 0, 0, 2, 0, 0, 0, 0, 0, 2]}[route]
+    _trunk_on_card_vs_cpu(dev, monkeypatch, True, launches,
+                          pair=_tiny_trunk_pair(torch.bfloat16, True, dev, quantize=True,
+                                                **{option: True}))
+
+
+@pytest.mark.parametrize("max_kernel_t", [2048, 128], ids=["k11", "k10"])
+def test_tiny_wavlm_fuse_matches_cpu(dev, monkeypatch, max_kernel_t):
+    """``wavlm_fuse`` on the card (T' = 320 frames): conv0 (erf), K11 (or its
+    hand-over to K10 with MAX_KERNEL_T = 128) and K2; no K9."""
+    monkeypatch.setattr(fa, "MAX_KERNEL_T", max_kernel_t)
+    k10_k11 = [0, 2] if max_kernel_t == 2048 else [2, 0]
+    _trunk_on_card_vs_cpu(dev, monkeypatch, True, [1, 0, 2, 0, 0, 0, 0, 0, 0] + k10_k11,
+                          pair=_tiny_wavlm_pair(dev, True, wavlm_fuse=True))
