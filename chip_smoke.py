@@ -22,7 +22,13 @@ line is printed; each phase prints its seconds):
     the share of int8 codes where the kernels' quantizers and the plain
     ones differ is printed (K6's and K11's context codes among them). The
     int8 GEMM alone equals torch._int_mm exactly, and the quantizer rounds
-    constructed ties half to even;
+    constructed ties half to even. The front-end kernels at the shapes of
+    B=2 x 10 s: K13a on the waves, K14 and K13b (codes out, and bf16 out as
+    in the last layer) on layer 1's input [2, 31999, 512] (k=3) and layer
+    5's [2, 1999, 512] (k=2), K15 (erf, tanh) on those layers' outputs;
+    K13a's and K13b's codes may differ from the plain version's in at most
+    0.1% of places, by one step, and their scales agree at rtol 1e-5 (the
+    share is printed);
  4. the main paths at full width, HuBERT-Large (hub.load(
     "hubert_large_ll60k", bf16, flash, quantize=True) - the int8 serving
     default - and quantize=False) and WavLM-Large (hub.load("wavlm_large",
@@ -31,7 +37,10 @@ line is printed; each phase prints its seconds):
     3,000); then the int8 options of the fused projections at 10 s and
     30 s: HuBERT with ``full_fuse`` (K12, K7, K12, K2 at every T) and with
     ``qkv_fuse`` (inert at 10 s; K12 then K6 at 30 s), WavLM with
-    ``wavlm_fuse`` (K11); checks the [25, B, T', 1024] shape, exact h_lens,
+    ``wavlm_fuse`` (K11); then the front-end options at 10 s: HuBERT int8
+    with ``int8_conv`` (K13a, 6 K13b, no K3), bf16 with ``fused_conv`` (K3,
+    6 K14), int8 with ``fused_midln`` (K3, 6 K15), WavLM bf16 with
+    ``fused_conv``; checks the [25, B, T', 1024] shape, exact h_lens,
     finite values, and the launch counts of each run, read just after it
     with every count set to 0 just before (RUNS below; every other count 0);
  5. the same seed's models on the CPU (the kernel wrappers' plain versions)
@@ -41,13 +50,13 @@ line is printed; each phase prints its seconds):
     and B=2 x 4 s with MAX_KERNEL_T = 128 (K10); HuBERT ``full_fuse`` on
     B=2 x 2 s and, with MAX_KERNEL_T = 128, B=2 x 4 s (K8), ``qkv_fuse`` on
     B=2 x 4 s with MAX_BLOCK_T = 64, WavLM ``wavlm_fuse`` on B=2 x 2 s and,
-    with MAX_KERNEL_T = 128, B=2 x 4 s (K10, no K11). Then the JAX
-    package's quality gates at full depth on the card, against the f32
-    model (flash=False) of the same weights: int8 per-layer cosine > 0.999
-    (tests/test_quant.py:82-124, :306-333) on B=2 x 0.5 s, B=2 x 30 s and
-    B=1 x 60 s (the options on the first two), bf16 > 0.995
-    (tests/test_quant.py:590) on the two long ones (HuBERT) or all three
-    (WavLM);
+    with MAX_KERNEL_T = 128, B=2 x 4 s (K10, no K11), and each front-end
+    option on B=2 x 2 s. Then the JAX package's quality gates at full
+    depth on the card, against the f32 model (flash=False) of the same
+    weights: int8 per-layer cosine > 0.999 (tests/test_quant.py:82-124,
+    :306-333) on B=2 x 0.5 s, B=2 x 30 s and B=1 x 60 s (the options on
+    the first two), bf16 > 0.995 (tests/test_quant.py:590) on the two long
+    ones (HuBERT) or all three (WavLM);
  6. timing (printed): extraction audio-s/s of every path at B=32 x 10 s,
     B=8 x 30 s and B=4 x 60 s (two chain lengths, marginal rate, best of 3,
     CUDA events) with the peak device memory, and each kernel against its
@@ -60,7 +69,12 @@ line is printed; each phase prints its seconds):
     (``qkv_fuse`` at 30 s only), K11 at [32, 499] and K12 at 32 x 499 rows
     beside the split pairs they replace (K9 with the heads split and merged,
     int8_matmul out-proj and residual; LN and int8_matmul QKV; int8_matmul
-    out-proj and residual), which no single library call computes.
+    out-proj and residual), which no single library call computes. The
+    front-end options' paths are timed at B=32 x 10 s, and every path's
+    feature extractor alone; K13a, K13b, K14 and K15 over the six mid
+    layers of B=32 x 10 s (one launch of K13a) beside their plain versions,
+    their bounds and the stock ops they replace (K3 tanh + quantize_rows;
+    F.conv1d + F.layer_norm + cast + F.gelu; F.layer_norm + cast + F.gelu).
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -495,6 +509,215 @@ def code_mismatch(inp, inp_long, inp11):
     return out
 
 
+# (k, T) of the six mid layers' inputs at 10 s (160,000 samples): 31,999 frames
+# after conv0, 499 after the last
+MID = ((3, 31999), (3, 15999), (3, 7999), (3, 3999), (2, 1999), (2, 999))
+
+
+def frontend_inputs(B, gen, dev, layers=range(len(MID))):
+    """The front-end kernels' inputs at B x 10 s: the waves, conv0's weight
+    and LN; per mid layer of MID (`layers` picks them) an f32 nn.Conv1d
+    weight with its load-time forms (K14's tap-major GEMM weight, K13b's
+    per-tap codes and scales), an LN pair, a unit-scale bf16 input [B, T,
+    512], its row-quantized codes and scales, and K15's input [B, T', 512]
+    (the layer's conv output, scale 2 and shifted)."""
+    from s3prl_tpu_torch.kernels.conv_frontend import conv_gemm_weight, quantize_conv_taps
+    from s3prl_tpu_torch.ops.quant import quantize_rows
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+    bf = torch.bfloat16
+    inp = dict(wav=rnd(B, 10 * SR, dtype=bf), w0=rnd(512, 1, 10, scale=10 ** -0.5, dtype=bf),
+               ln0=(1 + rnd(512, scale=0.1), rnd(512, scale=0.1)), mid=[])
+    for i in layers:
+        k, T = MID[i]
+        w = rnd(512, 512, k, scale=(512 * k) ** -0.5)
+        x = rnd(B, T, 512, dtype=bf)
+        xq, xs = quantize_rows(x)
+        inp["mid"].append(dict(
+            k=k, T=T, last=i == len(MID) - 1, w=w, wg=conv_gemm_weight(w.to(bf)),
+            taps=quantize_conv_taps(w), ln=(1 + rnd(512, scale=0.1), rnd(512, scale=0.1)),
+            x=x, xq=xq, xs=xs, y=rnd(B, (T - k) // 2 + 1, 512, scale=2, dtype=bf) + 0.3))
+    return inp
+
+
+def frontend_calls(inp, stack=False):
+    """K14, K15 (tanh, then erf) and K13b's last-layer form (bf16 out) on
+    each mid layer of `inp`: name -> [(variant, kernel, plain)]; with
+    `stack`, one variant per name that runs the six layers as the paths do
+    (K13b emits codes but in the last layer, K15 in tanh as on the int8
+    path). K13a and K13b's codes: `frontend_q8_calls`."""
+    from s3prl_tpu_torch.kernels import conv_frontend as cf
+    from s3prl_tpu_torch.kernels import ln_gelu as lg
+
+    def k14(m, fn):
+        return fn(m["x"], m["wg"], *m["ln"])
+
+    def k15(m, fn, mode):
+        return fn(m["y"], *m["ln"], mode)
+
+    def k13b(m, fn, emit_q8):
+        return fn(m["xq"], m["xs"], m["taps"], *m["ln"], emit_q8=emit_q8)
+
+    mid = inp["mid"]
+    if stack:
+        return {
+            "fused_conv_ln_gelu": [("six layers", lambda: [k14(m, cf.fused_conv_ln_gelu)
+                                                           for m in mid],
+                                    lambda: [k14(m, cf.fused_conv_ln_gelu_reference)
+                                             for m in mid])],
+            "fused_int8_conv_ln_gelu": [
+                ("six layers", lambda: [k13b(m, cf.fused_int8_conv_ln_gelu, not m["last"])
+                                        for m in mid],
+                 lambda: [k13b(m, cf.fused_int8_conv_ln_gelu_reference, not m["last"])
+                          for m in mid])],
+            "ln_gelu": [("six layers, tanh", lambda: [k15(m, lg.ln_gelu, "tanh") for m in mid],
+                         lambda: [k15(m, lg.ln_gelu_reference, "tanh") for m in mid])],
+        }
+    calls = {"fused_conv_ln_gelu": [], "fused_int8_conv_ln_gelu": [], "ln_gelu": []}
+    for m in mid:
+        shape = f"[{m['x'].shape[0]}, {m['T']}, 512] k={m['k']}"
+        calls["fused_conv_ln_gelu"].append((shape, lambda m=m: k14(m, cf.fused_conv_ln_gelu),
+                                            lambda m=m: k14(m, cf.fused_conv_ln_gelu_reference)))
+        calls["fused_int8_conv_ln_gelu"].append((
+            shape + " bf16 out", lambda m=m: k13b(m, cf.fused_int8_conv_ln_gelu, False)[0],
+            lambda m=m: k13b(m, cf.fused_int8_conv_ln_gelu_reference, False)[0]))
+        for mode in ("tanh", "erf"):
+            calls["ln_gelu"].append((
+                f"{mode} {list(m['y'].shape)}", lambda m=m, mode=mode: k15(m, lg.ln_gelu, mode),
+                lambda m=m, mode=mode: k15(m, lg.ln_gelu_reference, mode)))
+    return calls
+
+
+def frontend_q8_calls(inp):
+    """K13a on the waves and K13b with codes out on each mid layer of `inp`:
+    name -> [(variant, kernel, plain)], each returning (codes, scales)."""
+    from s3prl_tpu_torch.kernels import conv_frontend as cf
+
+    conv = (inp["wav"], inp["w0"], *inp["ln0"])
+    return {
+        "conv0_ln_gelu_q8": [(str(list(inp["wav"].shape)), lambda: cf.conv0_ln_gelu_q8(*conv),
+                              lambda: cf.conv0_ln_gelu_q8_reference(*conv))],
+        "fused_int8_conv_ln_gelu": [
+            (f"[{m['x'].shape[0]}, {m['T']}, 512] k={m['k']} codes out",
+             lambda m=m: cf.fused_int8_conv_ln_gelu(m["xq"], m["xs"], m["taps"], *m["ln"]),
+             lambda m=m: cf.fused_int8_conv_ln_gelu_reference(m["xq"], m["xs"], m["taps"],
+                                                              *m["ln"]))
+            for m in inp["mid"]],
+    }
+
+
+def check_q8_kernels(calls, max_err):
+    """Codes equal to the plain version's except at most 0.1% one step
+    apart, scales at rtol 1e-5; the error recorded is that of the
+    dequantized rows (codes x scales)."""
+    for name, variants in calls.items():
+        for variant, kernel, plain in variants:
+            (q, s), (q_ref, s_ref) = kernel(), plain()
+            torch.cuda.synchronize()
+            check(q.shape == q_ref.shape and q.dtype == q_ref.dtype == torch.int8
+                  and s.shape == s_ref.shape, f"{name} {variant}: {tuple(q.shape)} {q.dtype}")
+            d = (q.int() - q_ref.int()).abs()
+            share = float((d > 0).float().mean())
+            rel = float(((s - s_ref).abs() / s_ref).max())
+            err = float((q.float() * s - q_ref.float() * s_ref).abs().max())
+            log(f"[kernel] {name} {variant} {tuple(q.shape)}: {share:.3e} of int8 codes differ "
+                f"from the plain version's (max {int(d.max())} step), scales rel err "
+                f"{rel:.2e}, dequantized max_abs_err {err:.3e}")
+            check(int(d.max()) <= 1 and share <= 1e-3 and rel <= 1e-5, f"{name} {variant}")
+            max_err[name] = max(max_err.get(name, 0.0), err)
+            del q, s, q_ref, s_ref, d
+
+
+def frontend_bound(name, inp):
+    """The bound of front-end kernel `name` over all of `inp` (K13a on the
+    waves; the others over the mid layers as the paths run them): conv
+    products as operations of their type, K13a's as f32 FMAs (2 x 10 x 512
+    per frame, as K3's); the row epilogues' elementwise work is not
+    counted. Each input byte read once, each output byte written once."""
+    B = inp["wav"].shape[0]
+    if name == "conv0_ln_gelu_q8":
+        frames = (inp["wav"].shape[1] - 10) // 5 + 1
+        return bound({"f32": 2 * 10 * 512 * B * frames},
+                     nbytes(inp["wav"], inp["w0"], *inp["ln0"]) + B * frames * (512 + 4))
+    ops, moved = {}, 0
+    for m in inp["mid"]:
+        M = B * ((m["T"] - m["k"]) // 2 + 1)
+        gemm = 2 * M * m["k"] * 512 * 512
+        if name == "fused_conv_ln_gelu":
+            ops["bf16"] = ops.get("bf16", 0) + gemm
+            moved += nbytes(m["x"], m["wg"], *m["ln"]) + M * 512 * 2
+        elif name == "fused_int8_conv_ln_gelu":
+            ops["int8"] = ops.get("int8", 0) + gemm
+            moved += nbytes(m["xq"], m["xs"], *m["taps"], *m["ln"])
+            moved += M * 512 * 2 if m["last"] else M * (512 + 4)
+        else:  # ln_gelu
+            moved += 2 * nbytes(m["y"]) + nbytes(*m["ln"])
+    return bound(ops, moved)
+
+
+def frontend_stock(inp):
+    """The stock ops each front-end kernel replaces, over the same inputs:
+    K3 (tanh, the int8 path's) + quantize_rows for K13a; per mid layer
+    F.conv1d + F.layer_norm (f32) + cast + F.gelu for K14 (erf, the bf16
+    path's) and K13b (tanh, the int8 path's; on the bf16 rows its codes
+    came from); F.layer_norm + cast + F.gelu (tanh) for K15."""
+    import torch.nn.functional as F
+
+    from s3prl_tpu_torch.kernels import conv_frontend as cf
+    from s3prl_tpu_torch.ops.quant import quantize_rows
+
+    bf = torch.bfloat16
+
+    def norm_gelu(y, ln, mode):
+        y = F.layer_norm(y.float(), (512,), *ln, eps=1e-5).to(bf)
+        return F.gelu(y, approximate=mode)
+
+    def layer(m, mode):
+        y = F.conv1d(m["x"].transpose(1, 2), m["w"].to(bf), stride=2).transpose(1, 2)
+        return norm_gelu(y, m["ln"], mode)
+
+    mid = inp["mid"]
+    conv = (inp["wav"], inp["w0"], *inp["ln0"])
+    return {
+        "conv0_ln_gelu_q8": ("K3 tanh + quantize_rows",
+                             lambda: quantize_rows(cf.conv0_ln_gelu(*conv, gelu_mode="tanh"))),
+        "fused_conv_ln_gelu": ("F.conv1d + F.layer_norm + cast + F.gelu (erf), six layers",
+                               lambda: [layer(m, "none") for m in mid]),
+        "fused_int8_conv_ln_gelu": ("F.conv1d + F.layer_norm + cast + F.gelu (tanh), six layers",
+                                    lambda: [layer(m, "tanh") for m in mid]),
+        "ln_gelu": ("F.layer_norm + cast + F.gelu (tanh), six layers",
+                    lambda: [norm_gelu(m["y"], m["ln"], "tanh") for m in mid]),
+    }
+
+
+def time_frontend(inp, entries, launches, max_err):
+    """Each front-end kernel (K13a on the waves, the others over the six
+    mid layers as the paths run them) against its plain version, in turns,
+    with its bound and the stock ops it replaces; fills its entry of the
+    kernels line (library_ms null: no single PyTorch call computes it)."""
+    calls = {**frontend_calls(inp, stack=True),
+             "conv0_ln_gelu_q8": frontend_q8_calls(inp)["conv0_ln_gelu_q8"]}
+    stock = frontend_stock(inp)
+    B = inp["wav"].shape[0]
+    for name in ("conv0_ln_gelu_q8", "fused_int8_conv_ln_gelu", "fused_conv_ln_gelu", "ln_gelu"):
+        variant, kernel, plain = calls[name][0]
+        t = [cuda_ms(f, 5) for f in (plain, kernel, kernel, plain)]
+        ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        what, fn = stock[name]
+        stock_ms = (cuda_ms(fn, 5) + cuda_ms(fn, 5)) / 2
+        bound_ms, bound_by = frontend_bound(name, inp)
+        log(f"[timing] {name} {variant} B={B} x 10 s: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+            f", bound {bound_ms:.4f} ms ({bound_by}), stock ops it replaces ({what}) "
+            f"{stock_ms:.3f} ms")
+        source, replaces = KERNELS[name]
+        entries[name] = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                         "launches": launches[MAIN_PATH[name]][name],
+                         "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 KERNELS = {  # wrapper -> (its main CUDA source, the TPU kernel it replaces)
     "conv0_ln_gelu": ("s3prl_tpu_torch/csrc/conv0_ln_gelu.cu",
                       "s3prl_tpu/kernels/conv_frontend.py:148"),
@@ -517,10 +740,19 @@ KERNELS = {  # wrapper -> (its main CUDA source, the TPU kernel it replaces)
     "gated_bias_attention_outproj": ("s3prl_tpu_torch/csrc/attention.cu",
                                      "s3prl_tpu/kernels/flash_attention.py:423"),
     "fused_int8_linear": ("s3prl_tpu_torch/csrc/gemm_s8.cu", "s3prl_tpu/kernels/ffn.py:216"),
+    "conv0_ln_gelu_q8": ("s3prl_tpu_torch/csrc/conv0_ln_gelu.cu",
+                         "s3prl_tpu/kernels/conv_frontend.py:177"),
+    "fused_int8_conv_ln_gelu": ("s3prl_tpu_torch/csrc/gemm_s8.cu",
+                                "s3prl_tpu/kernels/conv_frontend.py:370"),
+    "fused_conv_ln_gelu": ("s3prl_tpu_torch/csrc/gemm_bf16.cu",
+                           "s3prl_tpu/kernels/conv_frontend.py:301"),
+    "ln_gelu": ("s3prl_tpu_torch/csrc/ln_gelu.cu", "s3prl_tpu/kernels/ln_gelu.py:60"),
 }
 MODELS = {"hubert": "hubert_large_ll60k", "wavlm": "wavlm_large"}
 OPTIONS = {"int8": {}, "bf16": {}, "int8 full_fuse": {"full_fuse": True},  # path -> keywords
-           "int8 qkv_fuse": {"qkv_fuse": True}, "int8 wavlm_fuse": {"wavlm_fuse": True}}
+           "int8 qkv_fuse": {"qkv_fuse": True}, "int8 wavlm_fuse": {"wavlm_fuse": True},
+           "int8 int8_conv": {"int8_conv": True}, "bf16 fused_conv": {"fused_conv": True},
+           "int8 fused_midln": {"fused_midln": True}}
 LENS = {  # main-path batch -> utterance lengths in samples (mixed)
     "10 s": [160000, 120000, 40000, 800, 159999, 80000, 16001, 1],
     "30 s": [480000, 400000, 320000, 160000, 479999, 240000, 16001, 1],
@@ -564,20 +796,33 @@ RUNS = {
                                            "fused_int8_ffn": 24},
     ("wavlm", "int8 wavlm_fuse", "30 s"): {"conv0_ln_gelu": 1, "gated_bias_attention_outproj": 24,
                                            "fused_int8_ffn": 24},
+    # the front-end options: K13a + 6 K13b in place of K3, K3 + 6 K14, K3 + 6 K15
+    ("hubert", "int8 int8_conv", "10 s"): {"conv0_ln_gelu_q8": 1, "fused_int8_conv_ln_gelu": 6,
+                                           "fused_attention_block": 24, "fused_int8_ffn": 24},
+    ("hubert", "bf16 fused_conv", "10 s"): {"conv0_ln_gelu": 1, "fused_conv_ln_gelu": 6,
+                                            "fused_attention_block_bf16": 24,
+                                            "fused_bf16_ffn": 24},
+    ("hubert", "int8 fused_midln", "10 s"): {"conv0_ln_gelu": 1, "ln_gelu": 6,
+                                             "fused_attention_block": 24, "fused_int8_ffn": 24},
+    ("wavlm", "bf16 fused_conv", "10 s"): {"conv0_ln_gelu": 1, "fused_conv_ln_gelu": 6,
+                                           "gated_bias_attention": 24},
 }
 PATHS = list(dict.fromkeys((model, path) for model, path, _ in RUNS))  # the loaded models
 TIMED = {"int8 full_fuse": ("10 s", "30 s"), "int8 qkv_fuse": ("30 s",),  # default: all three
-         "int8 wavlm_fuse": ("10 s", "30 s")}
+         "int8 wavlm_fuse": ("10 s", "30 s"), "int8 int8_conv": ("10 s",),
+         "bf16 fused_conv": ("10 s",), "int8 fused_midln": ("10 s",)}
 # the main-path run each wrapper's launch count is read from: the first that launches it
 MAIN_PATH = {name: next(run for run, expected in RUNS.items() if name in expected)
              for name in KERNELS}
 COS_F32 = {"int8": 0.999, "bf16": 0.995}  # the JAX package's gates against f32
+# the paths whose feature extractor is timed alone: the defaults and the front-end options
+FRONT_END_PATHS = ("int8", "bf16", "int8 int8_conv", "bf16 fused_conv", "int8 fused_midln")
 
 
 def load(hub, model, path, device):
     """`path`'s model (int8 with its option keywords, or bf16) from seed 0."""
-    return hub.load(MODELS[model], dtype=torch.bfloat16, flash=True, quantize=path != "bf16",
-                    device=device, seed=0, **OPTIONS[path])
+    return hub.load(MODELS[model], dtype=torch.bfloat16, flash=True,
+                    quantize=path.split()[0] == "int8", device=device, seed=0, **OPTIONS[path])
 
 
 def batch(lens, T, gen, dev):
@@ -721,6 +966,10 @@ def main():
               f"quantizer ties: {q[0, :8].tolist()}")
         log(f"[kernel] quant_rows rounds ties half to even: {q[0, :8].tolist()}")
         del inp, inp_base, inp_long, inp8, inp11
+        inp_fe = frontend_inputs(2, gen, dev, layers=(0, 4))  # layer 1 (k=3), layer 5 (k=2)
+        check_kernels(frontend_calls(inp_fe), max_err)
+        check_q8_kernels(frontend_q8_calls(inp_fe), max_err)
+        del inp_fe
 
     # 4. the main paths at full width, int8 (the serving default) then bf16,
     # HuBERT-Large then WavLM-Large
@@ -781,12 +1030,23 @@ def main():
             (*short, {}, {"gated_bias_attention_outproj": 24}),
             ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt,
              {"gated_online_flash_attention": 24, "gated_bias_attention_outproj": 0})),
+        ("hubert", "int8 int8_conv"): (
+            (*short, {}, {"conv0_ln_gelu_q8": 1, "fused_int8_conv_ln_gelu": 6,
+                          "conv0_ln_gelu": 0}),),
+        ("hubert", "bf16 fused_conv"): ((*short, {}, {"conv0_ln_gelu": 1,
+                                                      "fused_conv_ln_gelu": 6}),),
+        ("hubert", "int8 fused_midln"): ((*short, {}, {"conv0_ln_gelu": 1, "ln_gelu": 6}),),
+        ("wavlm", "bf16 fused_conv"): ((*short, {}, {"conv0_ln_gelu": 1,
+                                                     "fused_conv_ln_gelu": 6}),),
     }
-    options = {"hubert": ("int8 full_fuse", "int8 qkv_fuse"), "wavlm": ("int8 wavlm_fuse",)}
+    options = {"hubert": ("int8 full_fuse", "int8 qkv_fuse", "int8 int8_conv", "int8 fused_midln"),
+               "wavlm": ("int8 wavlm_fuse", "bf16 fused_conv")}
+    long_only = {"hubert": ("bf16 fused_conv",), "wavlm": ()}  # HuBERT's bf16 paths: 30 s
     quality = {  # model -> (label, lengths, paths gated against f32)
         model: (("B=2 x 0.5 s", [8000, 6400],
                  ("int8", "bf16")[:1 if model == "hubert" else 2] + options[model]),
-                ("B=2 x 30 s", [480000, 400000], ("int8", "bf16") + options[model]),
+                ("B=2 x 30 s", [480000, 400000], ("int8", "bf16") + options[model]
+                 + long_only[model]),
                 ("B=1 x 60 s", [960000], ("int8", "bf16")))
         for model in MODELS}
     available = port_transformer._fused_block_available
@@ -857,6 +1117,15 @@ def main():
                     f"{rate:.1f} audio-s/s (chains {it_lo}: {best[it_lo]:.1f} ms, "
                     f"{it_hi}: {best[it_hi]:.1f} ms), peak device memory "
                     f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if label == "10 s":  # each path's feature extractor alone, in turns
+                fe_paths = [(key, up) for key, up in ups.items() if key[1] in FRONT_END_PATHS]
+                fe_ms = {key: [] for key, _ in fe_paths}
+                with torch.inference_mode():
+                    for key, up in fe_paths + fe_paths[::-1]:
+                        fe_ms[key].append(cuda_ms(lambda: up.model.feature_extractor(wavs), 5))
+                for (model, path), t in fe_ms.items():
+                    log(f"[timing] front end {model} {path} B={B} x {secs:.0f} s: "
+                        f"{sum(t) / len(t):.3f} ms (runs {t[0]:.3f}, {t[1]:.3f})")
             del wavs
         del ups, up
 
@@ -890,6 +1159,8 @@ def main():
         time_kernels(gated_kernel_calls([inp9], inp10),
                      {"gated_bias_attention": inp9, "gated_online_flash_attention": inp10},
                      "(10 s: B=32; 60 s: B=4)", entries, launches, max_err)
+        del inp9, inp10
+        time_frontend(frontend_inputs(32, gen, dev), entries, launches, max_err)
     log(json.dumps({"kernels": [entries[name] for name in wrapper]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -69,6 +69,63 @@ __device__ __forceinline__ void load8(const bf16* p, float* v) {
     v[2 * i + 1] = f.y;
   }
 }
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// The row epilogue of the front-end kernels, on one 512-channel row held by
+// one warp: lane l holds channels h * 256 + l * 8 + e (h < 2, e < 8) in
+// v[h * 8 + e], so each half of the row is one 512-element coalesced run.
+//
+// ln_gelu_row512: LayerNorm in f32 (biased variance, eps 1e-5, 1 / sqrtf,
+// the affine as __fmul_rn / __fadd_rn in the written order, as
+// quant_rows.cu), then GELU (erf, or tanh with `tanh_mode`), in place.
+// gamma and beta are 16-byte aligned (global or shared memory).
+__device__ __forceinline__ void ln_gelu_row512(float* v, int lane, const float* gamma,
+                                               const float* beta, bool tanh_mode) {
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) s += v[e];
+  const float mean = warp_sum(s) / 512.f;
+  float q = 0.f;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const float d = v[e] - mean;
+    q += d * d;
+  }
+  const float rstd = 1.f / sqrtf(warp_sum(q) / 512.f + 1e-5f);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float g[8], b[8];
+    load8(gamma + h * 256 + lane * 8, g);
+    load8(beta + h * 256 + lane * 8, b);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float z = __fadd_rn(__fmul_rn(__fmul_rn(v[h * 8 + e] - mean, rstd), g[e]), b[e]);
+      v[h * 8 + e] = tanh_mode ? gelu_tanh(z) : gelu_erf(z);
+    }
+  }
+}
+
+// quant_row512: per-row int8 of such a row, s = max(absmax, 1e-8) / 127 and
+// codes clip(rint(v / s)) (true division), written at the lane's two runs
+// of 8 bytes of `qrow`; lane 0 writes s to *scale.
+__device__ __forceinline__ void quant_row512(const float* v, int lane, int8_t* qrow,
+                                             float* scale) {
+  float amax = 0.f;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) amax = fmaxf(amax, fabsf(v[e]));
+  const float s = fmaxf(warp_max(amax), 1e-8f) / 127.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    alignas(8) int8_t c[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) c[e] = quant_code(v[h * 8 + e] / s);
+    *reinterpret_cast<uint2*>(qrow + h * 256 + lane * 8) = *reinterpret_cast<const uint2*>(c);
+  }
+  if (lane == 0) *scale = s;
+}
 
 // 16-byte global -> shared copy that bypasses the registers; when `pred` is
 // false nothing is read and the 16 shared bytes are zero-filled (the ragged

@@ -1,8 +1,12 @@
 // bf16 GEMM with f32 accumulation and a fused epilogue:
-//   out[m, n] = act(sum_k a[m, k] * w[n, k] + bias[n]) (+ res[m, n])
-// a [M, K] bf16 row-major (activations), w [N, K] bf16 row-major (torch
-// nn.Linear layout), bias f32 [N], res bf16 [M, N] or null, act = erf GELU
-// or identity, out bf16 (rounded to nearest even) or f32.
+//   out[m, n] = act(sum_k a[m, k] * w[n, k] [+ bias[n]]) (+ res[m, n])
+// a [M, K] bf16 in row groups: row m = (g, r) = (m / a_rows, m % a_rows)
+// starts at a + g * a_gstride + r * lda (one group of M rows with lda = K is
+// a plain row-major matrix; K14's stride-2 conv reads its im2col rows
+// straight from x [B, T, C] as B groups of T' rows with lda = 2C, rows that
+// overlap). w [N, K] bf16 row-major (torch nn.Linear layout), bias f32 [N]
+// or null, res bf16 [M, N] or null, act = erf GELU or identity, out [M, N]
+// bf16 (rounded to nearest even) or f32.
 //
 // Serves every GEMM that the bf16 whole-block Pallas kernels compute in
 // their own bodies:
@@ -11,7 +15,10 @@
 //     projection with bias and residual (:752-757);
 //   - FFN block (s3prl_tpu/kernels/ffn.py:350): fc1 + b1 -> GELU -> bf16
 //     (:273-277) and fc2 + b2 (+x) (:278-296). The Pallas kernel's f32 sum
-//     over 1024-wide FFN panels is this kernel's K loop.
+//     over 1024-wide FFN panels is this kernel's K loop;
+//   - the mid-conv front end (s3prl_tpu/kernels/conv_frontend.py:301,
+//     `_mid_kernel_bf16`): the k taps as one K = k * C GEMM into f32, which
+//     ln_gelu.cu then normalises.
 //
 // Bound: tensor-core throughput (HuBERT-Large at B=32: M = 15,968 rows,
 // K = 1024 or 4096; ~400 GFLOP per layer). Design, kept simple for a first
@@ -39,9 +46,10 @@ constexpr int kFM = kWM / 16, kFN = kWN / 16;
 constexpr int kSmemBytes = 2 * (kBM + kBN) * kLds * 2;
 
 __global__ void __launch_bounds__(kThreads)
-    gemm_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
-                     const float* __restrict__ bias, const bf16* __restrict__ res,
-                     void* __restrict__ out, int out_f32, int gelu, int M, int N, int K) {
+    gemm_bf16_kernel(const bf16* __restrict__ a, int lda, int a_rows, long long a_gstride,
+                     const bf16* __restrict__ w, const float* __restrict__ bias,
+                     const bf16* __restrict__ res, void* __restrict__ out, int out_f32, int gelu,
+                     int M, int N, int K) {
   __shared__ __align__(128) unsigned char smem[kSmemBytes];
   bf16* as = reinterpret_cast<bf16*>(smem);  // [2][kBM][kLds]
   bf16* bs = as + 2 * kBM * kLds;            // [2][kBN][kLds]
@@ -56,20 +64,28 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kFN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
+  // Each thread loads 16 bytes of rows lr and lr + 64 of both tiles at
+  // every K step: their row addresses are fixed, so they are computed once.
+  constexpr int kRowStep = kThreads / (kBK / 8);
+  static_assert(kBM == 2 * kRowStep && kBN == 2 * kRowStep, "two load rows per thread");
+  const int lr = tid / (kBK / 8), lc = (tid % (kBK / 8)) * 8;
+  const bf16* arow[2];
+  const bf16* wrow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gm = bm + lr + h * kRowStep, gn = bn + lr + h * kRowStep;
+    arow[h] = gm < M ? a + (gm / a_rows) * a_gstride + static_cast<long long>(gm % a_rows) * lda
+                     : nullptr;
+    wrow[h] = gn < N ? w + static_cast<size_t>(gn) * K : nullptr;
+  }
   auto load_tile = [&](int stage, int k0) {
-    for (int i = tid; i < kBM * (kBK / 8); i += kThreads) {
-      const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-      const int gr = bm + r, gc = k0 + c;
-      const bool p = gr < M && gc < K;
-      s3::cp_async16(as + (stage * kBM + r) * kLds + c, p ? a + static_cast<size_t>(gr) * K + gc : a,
-                 p);
-    }
-    for (int i = tid; i < kBN * (kBK / 8); i += kThreads) {
-      const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-      const int gr = bn + r, gc = k0 + c;
-      const bool p = gr < N && gc < K;
-      s3::cp_async16(bs + (stage * kBN + r) * kLds + c, p ? w + static_cast<size_t>(gr) * K + gc : w,
-                 p);
+    const int gc = k0 + lc;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = lr + h * kRowStep;
+      const bool pa = arow[h] && gc < K, pw = wrow[h] && gc < K;
+      s3::cp_async16(as + (stage * kBM + r) * kLds + lc, pa ? arow[h] + gc : a, pa);
+      s3::cp_async16(bs + (stage * kBN + r) * kLds + lc, pw ? wrow[h] + gc : w, pw);
     }
   };
 
@@ -117,7 +133,7 @@ __global__ void __launch_bounds__(kThreads)
         float v[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          v[e] = stage[r * 16 + c0 + e] + bias[gn + e];
+          v[e] = bias ? stage[r * 16 + c0 + e] + bias[gn + e] : stage[r * 16 + c0 + e];
           if (gelu) v[e] = s3::gelu_erf(v[e]);
         }
         const size_t off = static_cast<size_t>(gm) * N + gn;
@@ -140,12 +156,13 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-extern "C" int s3_gemm_bf16(const void* a, const void* w, const void* bias, const void* res,
-                            void* out, int out_f32, int gelu, int M, int N, int K,
-                            void* stream) {
+extern "C" int s3_gemm_bf16(const void* a, int lda, int a_rows, long long a_gstride,
+                            const void* w, const void* bias, const void* res, void* out,
+                            int out_f32, int gelu, int M, int N, int K, void* stream) {
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   gemm_bf16_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(w), static_cast<const float*>(bias),
-      static_cast<const bf16*>(res), out, out_f32, gelu, M, N, K);
+      static_cast<const bf16*>(a), lda, a_rows, a_gstride, static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), static_cast<const bf16*>(res), out, out_f32, gelu, M, N,
+      K);
   return static_cast<int>(cudaGetLastError());
 }

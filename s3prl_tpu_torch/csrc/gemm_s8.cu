@@ -1,9 +1,12 @@
 // int8 x int8 -> exact int32 GEMM on the tensor cores, with the dequantizing
 // epilogues of the int8 whole-block kernels:
 //   acc[m, n] = sum_k a[m, k] * w[n, k]
-// a [M, K] int8 with row stride lda, w [N, K] int8 with row stride ldw
-// (nn.Linear layout; a K range of a wider matrix is a pointer offset plus
-// its row stride), then per output element one of
+// a [M, K] int8 with row stride lda, in row groups: row m = (g, r) = (m /
+// a_rows, m % a_rows) starts at a + g * a_gstride + r * lda (one group of M
+// rows is a plain matrix; a conv tap reads its stride-2 rows straight from
+// x [B, T, C] as B groups of T' rows with lda = 2C), w [N, K] int8 with row
+// stride ldw (nn.Linear layout; a K range of a wider matrix is a pointer
+// offset plus its row stride), then per output element one of
 //   kRaw     out int32 = acc;
 //   kQkv     out bf16 = bf16(bf16(bf16(acc) * bf16(rs[m] * cs[n])) + bf16(bias[n]));
 //   kLinear  v = f32(acc) * rs[m] * cs[n]; [v = acc_in[m, n] + v]; [v = v + bias[n]];
@@ -20,7 +23,11 @@
 //     fc1 with scale, bias and tanh GELU in f32 (kLinear + gelu, :94-99), and
 //     fc2 once per FFN chunk, each adding its dequantized sum to the f32
 //     running output (kLinear + acc_in, :101-105); the last chunk adds b2 and
-//     x (:106-109).
+//     x (:106-109);
+//   - `fused_int8_conv_ln_gelu` (conv_frontend.py:325, pallas_call at :370):
+//     one launch per conv tap, each adding (f32(acc) * rs) * ws to the f32
+//     sum of the taps before it in tap order (kLinear + acc_in, :219-235);
+//     ln_gelu.cu then normalises and requantizes.
 // int32 sums are exact in any order, so kRaw equals torch._int_mm bit for
 // bit. Every f32 operation of the epilogues is an explicit __fmul_rn /
 // __fadd_rn, so none is contracted into an FMA and each rounds in the order
@@ -71,8 +78,8 @@ __device__ __forceinline__ float bf16_round(float v) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-    gemm_s8_kernel(const int8_t* __restrict__ a, int lda, const int8_t* __restrict__ w, int ldw,
-                   int M, int N, int K, Epilogue ep) {
+    gemm_s8_kernel(const int8_t* __restrict__ a, int lda, int a_rows, long long a_gstride,
+                   const int8_t* __restrict__ w, int ldw, int M, int N, int K, Epilogue ep) {
   __shared__ __align__(128) signed char smem[kSmemBytes];
 
   const int bm = blockIdx.y * kBM, bn = blockIdx.x * kBN;
@@ -85,22 +92,30 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kFN; ++j) wmma::fill_fragment(acc[i][j], 0);
 
+  // Each thread loads one 16-byte slab of rows lr and lr + 64 of both tiles
+  // at every K step: their row addresses are fixed, so they are computed once.
+  constexpr int kRowStep = kThreads / kSlabs;
+  static_assert(kBM == 2 * kRowStep && kBN == 2 * kRowStep, "two load rows per thread");
+  const int lr = tid / kSlabs, sl = tid % kSlabs;
+  const int8_t* arow[2];
+  const int8_t* wrow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gm = bm + lr + h * kRowStep, gn = bn + lr + h * kRowStep;
+    arow[h] = gm < M ? a + (gm / a_rows) * a_gstride + static_cast<long long>(gm % a_rows) * lda
+                     : nullptr;
+    wrow[h] = gn < N ? w + static_cast<size_t>(gn) * ldw : nullptr;
+  }
   auto load_tile = [&](int stage, int k0) {
     signed char* as = smem + stage * kStageBytes;  // [slab][kBM][16]
     signed char* bs = as + kBM * kBK;              // [slab][kBN][16]
-    for (int i = tid; i < kBM * kSlabs; i += kThreads) {
-      const int r = i / kSlabs, sl = i % kSlabs;
-      const int gr = bm + r, gc = k0 + sl * kSlab;
-      const bool p = gr < M && gc < K;
-      s3::cp_async16(as + (sl * kBM + r) * kSlab, p ? a + static_cast<size_t>(gr) * lda + gc : a,
-                     p);
-    }
-    for (int i = tid; i < kBN * kSlabs; i += kThreads) {
-      const int r = i / kSlabs, sl = i % kSlabs;
-      const int gr = bn + r, gc = k0 + sl * kSlab;
-      const bool p = gr < N && gc < K;
-      s3::cp_async16(bs + (sl * kBN + r) * kSlab, p ? w + static_cast<size_t>(gr) * ldw + gc : w,
-                     p);
+    const int gc = k0 + sl * kSlab;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = lr + h * kRowStep;
+      const bool pa = arow[h] && gc < K, pw = wrow[h] && gc < K;
+      s3::cp_async16(as + (sl * kBM + r) * kSlab, pa ? arow[h] + gc : a, pa);
+      s3::cp_async16(bs + (sl * kBN + r) * kSlab, pw ? wrow[h] + gc : w, pw);
     }
   };
 
@@ -204,7 +219,8 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-extern "C" int s3_gemm_s8(const void* a, int lda, const void* w, int ldw, int M, int N, int K,
+extern "C" int s3_gemm_s8(const void* a, int lda, int a_rows, long long a_gstride,
+                          const void* w, int ldw, int M, int N, int K,
                           const void* rs, const void* cs, const void* bias, const void* acc_in,
                           const void* res, void* out, int mode, int gelu, int out_f32,
                           void* stream) {
@@ -215,6 +231,7 @@ extern "C" int s3_gemm_s8(const void* a, int lda, const void* w, int ldw, int M,
                     out_f32};
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   gemm_s8_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(a), lda, static_cast<const int8_t*>(w), ldw, M, N, K, ep);
+      static_cast<const int8_t*>(a), lda, a_rows, a_gstride, static_cast<const int8_t*>(w), ldw,
+      M, N, K, ep);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,15 +32,20 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry -> argument types (pointers and the stream as void*, ints as int)
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# C entry -> argument types (pointers and the stream as void*, ints as int,
+# element offsets as long long)
 SIGNATURES = {
     # wav, weight, gamma, beta, out, batch, n_samples, n_frames, is_bf16, tanh_mode, stream
     "s3_conv0_ln_gelu": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # wav, weight, gamma, beta, q, scale, batch, n_samples, n_frames, is_bf16, stream
+    "s3_conv0_ln_gelu_q8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, x_is_f32, gamma, beta, tanh_mode, out, out_kind, scale, rows, stream
+    "s3_ln_gelu": (_P, _I, _P, _P, _I, _P, _I, _P, _I, _P),
     # x, x_is_f32, gamma, beta, out, rows, cols, eps, stream
     "s3_layernorm": (_P, _I, _P, _P, _P, _I, _I, _F, _P),
-    # a, w, bias, res, out, out_f32, gelu, M, N, K, stream
-    "s3_gemm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # a, lda, a_rows, a_gstride, w, bias, res, out, out_f32, gelu, M, N, K, stream
+    "s3_gemm_bf16": (_P, _I, _I, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # qkv, kv_lens, out, batch, T, heads, scale, out_f32, stream
     "s3_attention": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
     # qkv, kv_lens, pos_bias, gate, out, batch, T, heads, scale, stream (f32 out)
@@ -49,9 +54,9 @@ SIGNATURES = {
     "s3_online_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # q, k, v, pos_bias, gate, kv_lens, out, batch, heads, T, masked, l_floor, stream
     "s3_gated_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
-    # a, lda, w, ldw, M, N, K, row_scale, col_scale, bias, acc_in, res, out,
-    # mode, gelu, out_f32, stream
-    "s3_gemm_s8": (_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # a, lda, a_rows, a_gstride, w, ldw, M, N, K, row_scale, col_scale, bias,
+    # acc_in, res, out, mode, gelu, out_f32, stream
+    "s3_gemm_s8": (_P, _I, _I, _L, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, x_is_f32, ld, lo, hi, gamma, beta, eps, q, scale, rows, stream
     "s3_quant_rows": (_P, _I, _I, _I, _I, _P, _P, _F, _P, _P, _I, _P),
     # x, cols, q, scale, rows, stream

@@ -4,11 +4,14 @@ Every kernel wrapper of the port follows one rule: tensors on the CPU go to
 the kernel's plain PyTorch version; CUDA tensors go to the CUDA kernel, or
 the wrapper raises. There is no fallback after a failed launch and no switch.
 
-`layer_norm`, `gemm`, `gemm_s8`, `quant_rows` and `quant_rows_bf16` launch
-the row-LN, GEMM and row-quantization kernels that the attention-block and
-FFN-block wrappers are built from; they check what the kernels take and
-raise on anything else. `layer_norm_f32` and `gelu_tanh` are the plain
-versions' forms of the Pallas kernels' in-kernel LayerNorm and tanh GELU.
+`layer_norm`, `gemm`, `gemm_s8`, `quant_rows`, `quant_rows_bf16` and
+`ln_gelu_rows` launch the row-LN, GEMM, row-quantization and LN + GELU
+kernels that the block and front-end wrappers are built from; they check
+what the kernels take and raise on anything else. `layer_norm_f32`,
+`gelu_tanh` and `ln_gelu_f32` are the plain versions' forms of the Pallas
+kernels' in-kernel LayerNorm, tanh GELU and LN + GELU epilogue.
+`refuse_grad` is the refusal every CUDA branch makes: the kernels have no
+backward.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ._build import launch
 
@@ -42,6 +46,25 @@ def gelu_tanh(y: torch.Tensor) -> torch.Tensor:
     """tanh-approximate GELU in f32 (s3prl_tpu/kernels/conv_frontend.py:55-57)."""
     c = math.sqrt(2.0 / math.pi)
     return 0.5 * y * (1.0 + torch.tanh(c * (y + 0.044715 * y * y * y)))
+
+
+def ln_gelu_f32(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                gelu_mode: str = "erf") -> torch.Tensor:
+    """The front-end kernels' row epilogue in f32 (s3prl_tpu/kernels/
+    conv_frontend.py:80-85): `layer_norm_f32`, then GELU, exact ("erf") or
+    tanh-approximate ("tanh"); no cast."""
+    y = layer_norm_f32(y, (scale, bias))
+    return gelu_tanh(y) if gelu_mode == "tanh" else F.gelu(y)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raises when autograd would record a kernel call: the CUDA kernels
+    write their outputs outside autograd and have no backward, so a
+    gradient through them would silently be missing."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only: call it under torch.no_grad() or "
+            "torch.inference_mode(), or on CPU tensors")
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
@@ -71,6 +94,22 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _row_layout(a: torch.Tensor, name: str, align: int):
+    """(M, K, lda, rows per group, group stride) of a GEMM's A operand: a
+    matrix [M, K] or a row-group view [G, R, K] (row m = (g, r) starts g *
+    stride(0) + r * stride(1) elements in; the rows may overlap, as a
+    stride-2 conv's im2col rows do), unit stride along K, every row at a
+    16-byte boundary (`align` elements)."""
+    if a.dim() == 2:
+        (M, K), lda, rows, gstride = a.shape, a.stride(0), a.shape[0], 0
+    else:
+        G, rows, K = a.shape
+        M, lda, gstride = G * rows, a.stride(1), a.stride(0)
+    if a.stride(-1) != 1 or lda % align or gstride % align or a.data_ptr() % 16:
+        raise ValueError(f"{name}: rows must be unit-stride, 16-byte aligned")
+    return M, K, lda, max(rows, 1), gstride
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """x [R, C] bf16 or f32 -> bf16 LN(x), f32 statistics (CUDA only)."""
@@ -88,17 +127,20 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return out
 
 
-def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
          residual: torch.Tensor | None = None, gelu: bool = False,
          out_f32: bool = False) -> torch.Tensor:
-    """a [M, K] bf16 @ w[N, K]^T (nn.Linear layout) + bias f32 [N]
+    """a [M, K] bf16 @ w[N, K]^T (nn.Linear layout) [+ bias f32 [N]]
     [-> erf GELU] [+ residual bf16 [M, N]] -> bf16 (or f32) [M, N], f32
-    accumulation (CUDA only)."""
-    M, K = a.shape
+    accumulation (CUDA only). a may be a row-group view [G, R, K] of M = G
+    * R rows (`_row_layout`)."""
+    if a.dtype != torch.bfloat16:
+        raise TypeError(f"gemm a: dtype {a.dtype}, the kernel takes {torch.bfloat16}")
+    M, K, lda, a_rows, a_gstride = _row_layout(a, "gemm a", 8)
     N = w.shape[0]
-    require(a, "gemm a", torch.bfloat16)
     require(w, "gemm w", torch.bfloat16, (N, K))
-    require(bias, "gemm bias", torch.float32, (N,))
+    if bias is not None:
+        require(bias, "gemm bias", torch.float32, (N,))
     if residual is not None:
         require(residual, "gemm residual", torch.bfloat16, (M, N))
     if K % 8 or N % 8:
@@ -106,9 +148,9 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     out = torch.empty(M, N, dtype=torch.float32 if out_f32 else torch.bfloat16,
                       device=a.device)
     if M:
-        launch("s3_gemm_bf16", a.data_ptr(), w.data_ptr(), bias.data_ptr(),
-               residual.data_ptr() if residual is not None else None,
-               out.data_ptr(), int(out_f32), int(gelu), M, N, K, stream_of(a))
+        launch("s3_gemm_bf16", a.data_ptr(), lda, a_rows, a_gstride, w.data_ptr(),
+               _ptr(bias), _ptr(residual), out.data_ptr(), int(out_f32), int(gelu), M, N, K,
+               stream_of(a))
     return out
 
 
@@ -122,17 +164,17 @@ def gemm_s8(a: torch.Tensor, w: torch.Tensor, *, mode: int = GEMM_RAW,
     GEMM_RAW -> int32; GEMM_QKV -> bf16 bf16(bf16(bf16(acc) * bf16(rs * cs))
     + bf16(bias)); GEMM_LINEAR -> f32(acc) * rs * cs [acc_in +] [+ bias]
     [tanh GELU] [+ residual], f32 or bf16. a and w may be column ranges of
-    wider matrices (row strides a.stride(0), w.stride(0)); `out` (may be
+    wider matrices (row strides a.stride(0), w.stride(0)), and a a row-group
+    view [G, R, K] of M = G * R rows (`_row_layout`); `out` (may be
     `acc_in`) receives the result."""
-    M, K = a.shape
-    N, Kw = w.shape
-    if Kw != K:
-        raise ValueError(f"gemm_s8: a has K={K}, w has K={Kw}")
     for t, name in ((a, "a"), (w, "w")):
         if t.dtype != torch.int8:
             raise TypeError(f"gemm_s8 {name}: dtype {t.dtype}, the kernel takes int8")
-        if t.stride(1) != 1 or t.stride(0) % 16 or t.data_ptr() % 16:
-            raise ValueError(f"gemm_s8 {name}: rows must be unit-stride, 16-byte aligned")
+    M, K, lda, a_rows, a_gstride = _row_layout(a, "gemm_s8 a", 16)
+    N, Kw = w.shape
+    if Kw != K:
+        raise ValueError(f"gemm_s8: a has K={K}, w has K={Kw}")
+    _row_layout(w, "gemm_s8 w", 16)
     if K % 16 or N % 8:
         raise ValueError(f"gemm_s8: K={K} must be a multiple of 16, N={N} of 8")
     if mode != GEMM_RAW:
@@ -152,7 +194,8 @@ def gemm_s8(a: torch.Tensor, w: torch.Tensor, *, mode: int = GEMM_RAW,
         out = torch.empty(M, N, dtype=dtype, device=a.device)
     require(out, "gemm_s8 out", dtype, (M, N))
     if M:
-        launch("s3_gemm_s8", a.data_ptr(), a.stride(0), w.data_ptr(), w.stride(0), M, N, K,
+        launch("s3_gemm_s8", a.data_ptr(), lda, a_rows, a_gstride, w.data_ptr(), w.stride(0),
+               M, N, K,
                _ptr(row_scale), _ptr(col_scale), _ptr(bias), _ptr(acc_in), _ptr(residual),
                out.data_ptr(), mode, int(gelu), int(out_f32), stream_of(a))
     return out
@@ -196,3 +239,30 @@ def quant_rows_bf16(x: torch.Tensor):
         launch("s3_quant_rows_bf16", x.data_ptr(), cols, q.data_ptr(), scale.data_ptr(),
                rows, stream_of(x))
     return q, scale
+
+
+LN_GELU_OUT = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}  # csrc/ln_gelu.cu out kinds
+
+
+def ln_gelu_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                 gelu_mode: str = "erf", out_dtype: torch.dtype | None = None):
+    """GELU(LN(x)) of x [R, 512] (bf16 or f32) in f32, one launch of
+    csrc/ln_gelu.cu (CUDA only): cast once to `out_dtype` (x.dtype by
+    default; bf16 or f32) -> [R, 512], or with out_dtype=torch.int8 the
+    per-row int8 codes [R, 512] and their f32 scales [R]."""
+    rows, cols = x.shape
+    out_dtype = out_dtype or x.dtype
+    if x.dtype not in (torch.bfloat16, torch.float32) or out_dtype not in LN_GELU_OUT:
+        raise TypeError(f"ln_gelu_rows: {x.dtype} -> {out_dtype}, the kernel takes bf16 or f32 "
+                        "to bf16, f32 or int8")
+    require(x, "ln_gelu_rows x", x.dtype, (rows, 512))
+    require(scale, "ln_gelu_rows scale", torch.float32, (512,))
+    require(bias, "ln_gelu_rows bias", torch.float32, (512,))
+    out = torch.empty(rows, 512, dtype=out_dtype, device=x.device)
+    q_scale = torch.empty(rows, dtype=torch.float32, device=x.device) \
+        if out_dtype == torch.int8 else None
+    if rows:
+        launch("s3_ln_gelu", x.data_ptr(), int(x.dtype == torch.float32), scale.data_ptr(),
+               bias.data_ptr(), int(gelu_mode == "tanh"), out.data_ptr(), LN_GELU_OUT[out_dtype],
+               _ptr(q_scale), rows, stream_of(x))
+    return out if q_scale is None else (out, q_scale)

@@ -41,7 +41,7 @@ import torch.nn.functional as F
 
 from ..ops.quant import as_quantized_cols, int_mm, quantize_rows
 from ._common import (GEMM_LINEAR, gelu_tanh, gemm, gemm_s8, layer_norm,
-                      layer_norm_f32, on_cpu, quant_rows, require)
+                      layer_norm_f32, on_cpu, quant_rows, refuse_grad, require)
 
 CHUNK = 2048  # FFN columns per chunk when the FFN is wider than 3072 (ffn.py:50)
 
@@ -99,6 +99,7 @@ def fused_bf16_ffn(x, w1, b1, w2, b2, ln=None, residual: bool = False,
         return fused_bf16_ffn_reference(x, w1, b1, w2, b2, ln, residual, postnorm)
     B, T, C = x.shape
     require(x, "x", torch.bfloat16)
+    refuse_grad("K5 fused_bf16_ffn", *tensors)
     with torch.cuda.device(x.device):
         x2 = x.view(B * T, C)
         h = layer_norm(x2, ln[0], ln[1]) if ln is not None and not postnorm else x2
@@ -163,6 +164,7 @@ def fused_int8_ffn(x, w1, b1, w2, b2, ln=None, residual: bool = False,
     require(x, "x", torch.bfloat16)
     require(w1q, "w1 codes", torch.int8, (Fd, C))
     require(w2q, "w2 codes", torch.int8, (C, Fd))
+    refuse_grad("K2 fused_int8_ffn", *tensors)
     R = B * T
     bounds = _ffn_chunk_bounds(Fd)
     with torch.cuda.device(x.device):
@@ -230,6 +232,7 @@ def fused_int8_linear(x, w, b, ln=None, residual=None):
     require(wq, "w codes", torch.int8, (N, C))
     if residual is not None:
         require(residual, "residual", torch.bfloat16, (B, T, N))
+    refuse_grad("K12 fused_int8_linear", *tensors)
     with torch.cuda.device(x.device):
         x8, xs = quant_rows(x.view(B * T, C), ln=ln)
         y = gemm_s8(x8, wq, mode=GEMM_LINEAR, row_scale=xs, col_scale=ws, bias=b,

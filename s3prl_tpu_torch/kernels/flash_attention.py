@@ -71,7 +71,7 @@ from ..ops.quant import as_quantized_cols, int8_matmul, int_mm, quantize_rows
 from ._build import launch
 from ._common import (GEMM_LINEAR, GEMM_QKV, gemm, gemm_s8, layer_norm,
                       layer_norm_f32, on_cpu, quant_rows, quant_rows_bf16,
-                      require, stream_of)
+                      refuse_grad, require, stream_of)
 
 MAX_BLOCK_T = 512  # whole-block cells serve T <= 512 (TPU VMEM bound, kept as the routing rule)
 MAX_KERNEL_T = 2048  # K6/K7 serve T <= 2048, K8 beyond (the JAX package's routing rule)
@@ -174,6 +174,7 @@ def fused_attention_block_bf16(x, wq, bq, ln, wo, bo, kv_lens, num_heads: int,
     if T > MAX_BLOCK_T:
         raise ValueError(f"attention block kernel takes T <= {MAX_BLOCK_T}, got {T}")
     require(x, "x", torch.bfloat16)
+    refuse_grad("K4 fused_attention_block_bf16", *tensors)
     with torch.cuda.device(x.device):
         x2 = x.view(B * T, C)
         h = x2 if postnorm else layer_norm(x2, ln[0], ln[1])
@@ -251,6 +252,7 @@ def fused_attention_block(x, wq, bq, ln, wo, bo, kv_lens, num_heads: int,
     require(x, "x", torch.bfloat16)
     require(wq_q, "wq codes", torch.int8, (3 * C, C))
     require(wo_q, "wo codes", torch.int8, (C, C))
+    refuse_grad("K1 fused_attention_block", *tensors)
     with torch.cuda.device(x.device):
         x2 = x.view(B * T, C)
         x8, s_x = quant_rows(x2, ln=None if postnorm else ln)
@@ -300,6 +302,7 @@ def online_flash_attention(q, k, v, kv_lens):
         if t.data_ptr() % 16:
             raise ValueError(f"online attention {name}: 16-byte aligned rows only")
     require(kv_lens, "kv_lens", torch.int32, (B,))
+    refuse_grad("K8 online_flash_attention", q, k, v)
     out = torch.empty_like(q)
     if B * H * T:
         with torch.cuda.device(q.device):
@@ -343,6 +346,8 @@ def fused_qkv_attention(qkv, kv_lens, num_heads: int):
         raise NotImplementedError(
             f"K7 fused_qkv_attention on the card takes bf16 qkv, got {qkv.dtype}: the "
             "f32 flash path is not ported yet (ROADMAP.md Queue 2, K7 with f32 qkv)")
+    if not cpu:
+        refuse_grad("K7 fused_qkv_attention", qkv)
     B, T, C3 = qkv.shape
     if T > MAX_KERNEL_T:
         out = online_flash_attention(*_split_heads(qkv, num_heads), kv_lens)
@@ -394,6 +399,8 @@ def fused_qkv_attention_outproj(qkv, residual, wo, bo, kv_lens, num_heads: int):
     B, T, C3 = qkv.shape
     C = C3 // 3
     cpu = on_cpu(qkv, residual, wo_q, wo_s, bo, kv_lens)
+    if not cpu:
+        refuse_grad("K6 fused_qkv_attention_outproj", qkv, residual, wo_s, bo)
     if T > MAX_KERNEL_T:
         out = fused_qkv_attention(qkv, kv_lens, num_heads)
         return residual + int8_matmul(out, (wo_q, wo_s), bo, out_dtype=residual.dtype)
@@ -460,10 +467,7 @@ def _gated_launch(q, k, v, pos_bias, gate, kv_lens, masked: float, floor: float)
     require(pos_bias, "pos_bias", torch.float32, (H, T, T))
     require(gate, "gate", torch.float32, (B, H, T))
     require(kv_lens, "kv_lens", torch.int32, (B,))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, pos_bias, gate)):
-        raise RuntimeError(
-            "the gated attention kernels (K9/K10) are forward-only: call them under "
-            "torch.no_grad() or torch.inference_mode(), or on CPU tensors")
+    refuse_grad("K9/K10 gated attention", q, k, v, pos_bias, gate)
     out = torch.empty_like(q)
     if B * H * T:
         with torch.cuda.device(q.device):
@@ -557,11 +561,7 @@ def gated_bias_attention_outproj(qkv, residual, pos_bias, gate, wo, bo, kv_lens,
                                                       (wo_q, wo_s), bo, kv_lens, num_heads)
     require(residual, "residual", torch.bfloat16, (B, T, C))
     require(wo_q, "wo codes", torch.int8, (C, C))
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (qkv, residual, pos_bias, gate, bo)):
-        raise RuntimeError(
-            "K11 gated_bias_attention_outproj is forward-only: call it under "
-            "torch.no_grad() or torch.inference_mode(), or on CPU tensors")
+    refuse_grad("K11 gated_bias_attention_outproj", qkv, residual, pos_bias, gate, bo)
     with torch.cuda.device(qkv.device):
         ctx = _attention(qkv, kv_lens, num_heads, out_f32=True, bias=(pos_bias, gate))
         a8, s_a = quant_rows(ctx)  # K6's f32 quantizer (:396-397)

@@ -2,11 +2,29 @@
 s3prl_tpu/models/convfe.py:180, the wav2vec2/HuBERT *-Large front end).
 
 Each layer is an unpadded strided Conv1d -> LayerNorm over channels (f32) ->
-GELU, on [B, T, C] activations (the JAX package's layout). Layer 0 (C_in=1,
-k=10, s=5, no bias) goes through the `conv0_ln_gelu` kernel; the mid convs
-are stock `F.conv1d`, as the JAX package leaves them to XLA. GELU is exact,
-except in int8 serving (``quantize``), which runs the tanh approximation in
-the kernel and in the mid layers (convfe.py:275-289, :344).
+GELU, on [B, T, C] activations (the JAX package's layout). GELU is exact,
+except in int8 serving (``quantize``), which runs the tanh approximation
+(convfe.py:270-289, :344). Routing (convfe.py:199-345), in eval mode with
+k0 == 2 * s0 (the JAX `fuse0`):
+- default: layer 0 through K3 `conv0_ln_gelu`, the mid layers stock
+  `F.conv1d` -> f32 LN cast to the model dtype -> GELU, as the JAX package
+  leaves them to XLA;
+- ``int8_conv`` (the JAX int8 conv chain; needs ``quantize``): K13a
+  `conv0_ln_gelu_q8`, then K13b `fused_int8_conv_ln_gelu` on every mid
+  layer, int8 rows between layers and the model dtype out of the last;
+- ``fused_conv`` (the JAX fused mid convs): K3, then K14 `fused_conv_ln_gelu` on
+  every mid layer, erf GELU throughout, also under ``quantize``;
+- ``fused_midln`` (the JAX Pallas mid LN): the default path with K15 `ln_gelu`
+  after each stock mid conv (tanh under int8 serving, erf otherwise).
+The first two need every mid layer to be a stride-2 conv with k 2 or 3.
+Every kernel is forward-only: in train() mode every layer, layer 0
+included, takes the stock path (the JAX `train=True`, :201-204), and
+gradients reach every weight.
+
+With ``int8_conv`` the mid convs keep f32 weights (the JAX param dtype) and
+hold K13b's per-tap int8 codes, quantized once from them; with
+``fused_conv`` they hold K14's tap-major GEMM weight. Both are built by
+`build_qcache`, after every `load_state_dict`, as non-persistent buffers.
 
 On the card, f32 convolutions would run in TF32 unless
 ``torch.backends.cudnn.allow_tf32`` is False; the f32 path assumes the
@@ -22,7 +40,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..kernels.conv_frontend import conv0_ln_gelu
+from ..kernels.conv_frontend import (MID_TAPS, conv0_ln_gelu, conv0_ln_gelu_q8,
+                                     conv_gemm_weight, fused_conv_ln_gelu,
+                                     fused_int8_conv_ln_gelu, quantize_conv_taps)
+from ..kernels.ln_gelu import ln_gelu
 
 # (dim, kernel, stride) stack shared by wav2vec2/HuBERT: total stride 320
 DEFAULT_CONV_LAYERS: Tuple[Tuple[int, int, int], ...] = (
@@ -64,52 +85,130 @@ class ConvLayer(nn.Sequential):
     def norm(self) -> nn.LayerNorm:
         return self[2][1]
 
+    def conv_out(self, x: torch.Tensor) -> torch.Tensor:
+        """The stock conv: x [B, T, C_in] -> [B, T', C_out] in x.dtype (the
+        weight cast to it, as nn.Conv(dtype=...) casts its f32 param)."""
+        conv = self.conv
+        y = F.conv1d(x.transpose(1, 2), conv.weight.to(x.dtype), stride=conv.stride)
+        return y.transpose(1, 2)
+
     def forward(self, x: torch.Tensor, gelu_mode: str = "erf") -> torch.Tensor:
         """x [B, T, C_in] -> [B, T', C_out]; the f32 LN is cast to x.dtype
         before the GELU (``approximate`` "none" for erf, "tanh")."""
-        conv = self.conv
-        y = F.conv1d(x.transpose(1, 2), conv.weight, stride=conv.stride)
-        y = F.layer_norm(y.transpose(1, 2).float(), (y.shape[1],),
-                         self.norm.weight, self.norm.bias, eps=1e-5)
+        y = self.conv_out(x)
+        y = F.layer_norm(y.float(), (y.shape[-1],), self.norm.weight, self.norm.bias, eps=1e-5)
         return F.gelu(y.to(x.dtype), approximate="tanh" if gelu_mode == "tanh" else "none")
+
+
+def _cached(layer: ConvLayer, name: str) -> torch.Tensor:
+    value = getattr(layer, name)
+    if value is None:
+        raise RuntimeError(
+            f"the front-end option's weights ({name}) are not built: call build_qcache() "
+            "after the weights are in place")
+    return value
 
 
 class ConvFeatureExtractor(nn.Module):
     """wavs [B, T] -> features [B, T', C] (valid convs, total stride 320).
 
-    Matrix weights live in `dtype`, norms in f32. Only ``mode="layer_norm"``
-    without conv bias is ported; the group-norm ("default", HuBERT-Base)
-    extractor and conv bias are later slices (ROADMAP.md Queue 1 item
-    3)."""
+    Matrix weights live in `dtype` (the mid convs in f32 with
+    ``int8_conv``), norms in f32. Only ``mode="layer_norm"`` without conv
+    bias is ported; the group-norm ("default", HuBERT-Base) extractor and
+    conv bias are later slices (ROADMAP.md Queue 1 item 4). The options
+    ``int8_conv``, ``fused_conv`` and ``fused_midln`` (module docstring)
+    are plain attributes, not state; one that cannot take effect raises a
+    ValueError before any weight is made."""
 
     def __init__(self, conv_layers: Sequence[Tuple[int, int, int]] = DEFAULT_CONV_LAYERS,
                  mode: str = "layer_norm", conv_bias: bool = False,
                  dtype: torch.dtype = torch.float32, quantize: bool = False,
-                 device=None):
+                 device=None, int8_conv: bool = False, fused_conv: bool = False,
+                 fused_midln: bool = False):
         super().__init__()
         if mode != "layer_norm" or conv_bias:
             raise NotImplementedError(
                 f"extractor mode {mode!r}, conv_bias={conv_bias}: only the "
                 "bias-free 'layer_norm' extractor is ported "
-                "(ROADMAP.md Queue 1 item 3)")
+                "(ROADMAP.md Queue 1 item 4)")
+        (_, k0, s0), *mid = conv_layers
+        self.fuse0 = k0 == 2 * s0  # layer 0 through K3 / K13a in eval mode
+        chain = [name for name, on in (("int8_conv", int8_conv), ("fused_conv", fused_conv)) if on]
+        if chain and not (self.fuse0 and all(k in MID_TAPS and s == 2 for _, k, s in mid)):
+            raise ValueError(f"{chain[0]} cannot take effect: its chain needs k0 == 2 * s0 and "
+                             f"every mid layer a stride-2 conv with k in {MID_TAPS}")
+        if int8_conv and not quantize:
+            raise ValueError("int8_conv is the int8 conv chain of int8 serving: it needs the "
+                             "extractor's quantize (quantize=True on HuBERT; WavLM's extractor "
+                             "takes no quantize)")
+        if int8_conv and fused_conv:
+            raise ValueError("int8_conv and fused_conv: the int8 chain takes precedence, so "
+                             "fused_conv could not take effect")
+        if fused_midln and chain:
+            raise ValueError(f"fused_midln and {chain[0]}: the chain replaces the mid layers, "
+                             "so fused_midln could not take effect")
         self.dtype = dtype
         self.quantize = quantize
+        self.int8_conv, self.fused_conv, self.fused_midln = int8_conv, fused_conv, fused_midln
         layers, c_in = [], 1
         for dim, k, stride in conv_layers:
             layers.append(ConvLayer(c_in, dim, k, stride, device=device))
             c_in = dim
         self.conv_layers = nn.ModuleList(layers)
-        for layer in self.conv_layers:
-            layer.conv.weight.data = layer.conv.weight.data.to(dtype)
+        for i, layer in enumerate(self.conv_layers):
+            if not (int8_conv and i):  # K13b quantizes the mid convs from f32
+                layer.conv.weight.data = layer.conv.weight.data.to(dtype)
+            for name in (("taps_q8", "taps_scale") if int8_conv and i else
+                         ("gemm_weight",) if fused_conv and i else ()):
+                layer.register_buffer(name, None, persistent=False)
+        if chain:
+            self.register_load_state_dict_post_hook(lambda m, _: m.build_qcache())
+
+    @torch.no_grad()
+    def build_qcache(self) -> None:
+        """Builds the chain option's weights from the mid convs' weights:
+        K13b's per-tap int8 codes and scales from the f32 weights
+        (``int8_conv``), K14's tap-major GEMM weights (``fused_conv``); a
+        no-op otherwise. Runs after every `load_state_dict`; call it after
+        setting the weights otherwise."""
+        for layer in self.conv_layers[1:]:
+            if self.int8_conv:
+                layer.taps_q8, layer.taps_scale = quantize_conv_taps(layer.conv.weight)
+            elif self.fused_conv:
+                layer.gemm_weight = conv_gemm_weight(layer.conv.weight)
 
     def forward(self, wavs: torch.Tensor) -> torch.Tensor:
         first, *rest = self.conv_layers
+        s0, k0 = first.conv.stride[0], first.conv.kernel_size[0]
+        ln0 = (first.norm.weight, first.norm.bias)
+        fuse0 = self.fuse0 and not self.training  # the kernels are forward-only
+        if fuse0 and self.int8_conv:  # convfe.py:239-269
+            xq, xs = conv0_ln_gelu_q8(wavs.to(self.dtype), first.conv.weight, *ln0,
+                                      stride=s0, k=k0)
+            for i, layer in enumerate(rest):
+                xq, xs = fused_int8_conv_ln_gelu(
+                    xq, xs, (_cached(layer, "taps_q8"), _cached(layer, "taps_scale")),
+                    layer.norm.weight, layer.norm.bias, emit_q8=i < len(rest) - 1,
+                    out_dtype=self.dtype)
+            return xq
+        if fuse0 and self.fused_conv:  # convfe.py:217-238: erf GELU, also under quantize
+            x = conv0_ln_gelu(wavs.to(self.dtype), first.conv.weight, *ln0, stride=s0, k=k0)
+            for layer in rest:
+                x = fused_conv_ln_gelu(x, _cached(layer, "gemm_weight"), layer.norm.weight,
+                                       layer.norm.bias)
+            return x
         # int8 serving runs tanh GELU (serving_tanh, convfe.py:275)
         gelu_mode = "tanh" if self.quantize and not self.training else "erf"
-        # layer 0 through the fused kernel, as convfe.py:276-289 does in extraction
-        x = conv0_ln_gelu(wavs.to(self.dtype), first.conv.weight, first.norm.weight,
-                          first.norm.bias, stride=first.conv.stride[0],
-                          k=first.conv.kernel_size[0], gelu_mode=gelu_mode)
+        if fuse0:  # layer 0 through the fused kernel, as convfe.py:276-289 does in extraction
+            x = conv0_ln_gelu(wavs.to(self.dtype), first.conv.weight, *ln0, stride=s0, k=k0,
+                              gelu_mode=gelu_mode)
+        else:  # the stock layer 0 (convfe.py:296-300), then LN and GELU as the mid layers'
+            x, rest = wavs[..., None].to(self.dtype), self.conv_layers
+        midln = self.fused_midln and not self.training  # convfe.py:322-337
         for layer in rest:
-            x = layer(x, gelu_mode)
+            if midln:
+                x = ln_gelu(layer.conv_out(x).contiguous(), layer.norm.weight, layer.norm.bias,
+                            gelu_mode)
+            else:
+                x = layer(x, gelu_mode)
         return x

@@ -103,7 +103,14 @@ class Wav2Vec2Trunk(nn.Module):
     encoder projections) the encoder's matrix weights stay f32 and are
     quantized once by `build_qcache`. Build on ``device="meta"`` and
     materialise with ``to_empty`` when the weights come from an initialiser
-    or a state_dict."""
+    or a state_dict.
+
+    Options, all off by default: the fused int8 projections of the encoder
+    layers (`fuse_options`) and the front-end options of the extractor
+    (`ConvFeatureExtractor`): ``int8_conv`` (K13a + K13b, needs
+    ``quantize``; HuBERT only, as WavLM's extractor takes no ``quantize``),
+    ``fused_conv`` (K3 erf + K14) and ``fused_midln`` (K15). One that cannot
+    take effect raises a ValueError before any weight is made."""
 
     # int8 serving runs the extractor's GELU in tanh (s3prl_tpu/models/
     # wav2vec2.py passes ``quantize`` to its extractor; WavLM's does not)
@@ -114,7 +121,8 @@ class Wav2Vec2Trunk(nn.Module):
 
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype = torch.float32,
                  use_flash: bool = False, quantize: bool = False, device=None,
-                 qkv_fuse: bool = False, full_fuse: bool = False, wavlm_fuse: bool = False):
+                 qkv_fuse: bool = False, full_fuse: bool = False, wavlm_fuse: bool = False,
+                 int8_conv: bool = False, fused_conv: bool = False, fused_midln: bool = False):
         super().__init__()
         reason = _unsupported(cfg)
         if reason is not None:
@@ -134,7 +142,8 @@ class Wav2Vec2Trunk(nn.Module):
         self.dtype = dtype
         self.feature_extractor = ConvFeatureExtractor(
             cfg.conv_feature_layers, cfg.extractor_mode, cfg.conv_bias, dtype,
-            quantize and self.tanh_extractor, device=device)
+            quantize and self.tanh_extractor, device=device, int8_conv=int8_conv,
+            fused_conv=fused_conv, fused_midln=fused_midln)
         embed = cfg.conv_feature_layers[-1][0]
         self.layer_norm = nn.LayerNorm(embed, device=device)
         self.post_extract_proj = None
@@ -155,7 +164,10 @@ class Wav2Vec2Trunk(nn.Module):
 
     def build_qcache(self) -> None:
         """Quantizes every encoder layer's projections once from their f32
-        weights (a no-op without ``quantize``)."""
+        weights (a no-op without ``quantize``) and builds the extractor's
+        front-end option weights (a no-op without ``int8_conv`` or
+        ``fused_conv``)."""
+        self.feature_extractor.build_qcache()
         for layer in self.encoder.layers:
             if layer.quantize:
                 layer.build_qcache()

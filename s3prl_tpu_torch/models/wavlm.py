@@ -203,7 +203,9 @@ class WavLMModel(Wav2Vec2Trunk):
     """WavLM extraction: conv features -> LN -> proj -> gated rel-pos
     transformer -> ([L+1, B, T', C], feat_lens [B]), the trunk's length
     rule (wavlm.py:268-270). Weights as the trunk's; the int8 model keeps
-    its projection weights in f32 and quantizes them once at load."""
+    its projection weights in f32 and quantizes them once at load. Options:
+    ``wavlm_fuse`` (K11) and the front-end ``fused_conv`` / ``fused_midln``;
+    ``int8_conv`` raises, as WavLM's extractor takes no ``quantize``."""
 
     tanh_extractor = False  # erf in both paths (wavlm.py:264-267)
     fuse_options = ("wavlm_fuse",)

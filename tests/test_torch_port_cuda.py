@@ -17,8 +17,10 @@ the route they take, run by the same wrapper on CPU copies of the inputs:
 beyond MAX_KERNEL_T that route is K8's; so are WavLM's gated-bias wrappers
 (K9, and K10 beyond MAX_KERNEL_T), and K11 (K9 -> K10 and stock ops
 beyond MAX_KERNEL_T). Launch counts are listed in `wrappers()` order:
-conv0, K1, K2, K4, K5, K6, K7, K8, K9, K10, K11, K12 (trailing zeros may be
-left out).
+conv0, K1, K2, K4, K5, K6, K7, K8, K9, K10, K11, K12, K13a, K13b, K14, K15
+(trailing zeros may be left out). The front-end kernels' int8 codes equal
+their plain versions' except at most 0.1% one step apart, and their scales
+agree at rtol 1e-5: the f32 conv and LN sums run in another order.
 """
 
 import numpy as np
@@ -27,7 +29,9 @@ import torch
 
 from s3prl_tpu_torch.kernels import _common
 from s3prl_tpu_torch.kernels.conv_frontend import (
-    conv0_ln_gelu, conv0_ln_gelu_reference)
+    conv0_ln_gelu, conv0_ln_gelu_q8, conv0_ln_gelu_q8_reference, conv0_ln_gelu_reference,
+    conv_gemm_weight, fused_conv_ln_gelu, fused_conv_ln_gelu_reference, fused_int8_conv_ln_gelu,
+    fused_int8_conv_ln_gelu_reference, quantize_conv_taps)
 from s3prl_tpu_torch.kernels.ffn import (
     fused_bf16_ffn, fused_bf16_ffn_reference, fused_int8_ffn, fused_int8_ffn_reference)
 from s3prl_tpu_torch.kernels import flash_attention as fa
@@ -40,6 +44,7 @@ from s3prl_tpu_torch.kernels.flash_attention import (
     gated_online_flash_attention_reference, online_flash_attention,
     online_flash_attention_reference, quantize_context_reference)
 from s3prl_tpu_torch.kernels.ffn import fused_int8_linear, fused_int8_linear_reference
+from s3prl_tpu_torch.kernels.ln_gelu import ln_gelu, ln_gelu_reference
 from s3prl_tpu_torch.ops.quant import as_quantized_cols, int_mm, quantize_rows
 
 pytestmark = pytest.mark.cuda
@@ -192,15 +197,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                       torch.zeros(512))
 
 
-def _tiny_trunk_pair(dtype, flash, dev, quantize=False, **fuse):
+TINY_LAYERS = ((512, 10, 5), (64, 3, 2), (64, 2, 2))
+FRONT_LAYERS = ((512, 10, 5), (512, 3, 2), (512, 2, 2))  # the front-end kernels take 512
+
+
+def _tiny_trunk_pair(dtype, flash, dev, quantize=False, layers=TINY_LAYERS, **fuse):
     """One seed's tiny HuBERT-Large-style trunk on the CPU and on the card
     (conv0 keeps the kernel's 512 channels; head dim 64); ``fuse``: its
-    fused int8 projection options."""
+    fused int8 projection and front-end options."""
     from s3prl_tpu_torch.models.wav2vec2 import Wav2Vec2Config
     from s3prl_tpu_torch.upstream.registry import _trunk_upstream
 
     cfg = Wav2Vec2Config(
-        extractor_mode="layer_norm", conv_feature_layers=((512, 10, 5), (64, 3, 2), (64, 2, 2)),
+        extractor_mode="layer_norm", conv_feature_layers=layers,
         encoder_layers=2, encoder_embed_dim=128, encoder_ffn_embed_dim=256,
         encoder_attention_heads=2, conv_pos=16, conv_pos_groups=4,
         layer_norm_first=True, normalize=True)
@@ -216,14 +225,14 @@ def _tiny_batch():
     return torch.from_numpy(wavs), torch.from_numpy(lens)
 
 
-def _tiny_wavlm_pair(dev, quantize, **fuse):
+def _tiny_wavlm_pair(dev, quantize, layers=TINY_LAYERS, **fuse):
     """One seed's tiny WavLM-Large-style model on the CPU and on the card
     (conv0 keeps the kernel's 512 channels; head dim 64)."""
     from s3prl_tpu_torch.models.wavlm import WavLMConfig
     from s3prl_tpu_torch.upstream.registry import _trunk_upstream
 
     cfg = WavLMConfig(
-        extractor_mode="layer_norm", conv_feature_layers=((512, 10, 5), (64, 3, 2), (64, 2, 2)),
+        extractor_mode="layer_norm", conv_feature_layers=layers,
         encoder_layers=2, encoder_embed_dim=128, encoder_ffn_embed_dim=256,
         encoder_attention_heads=2, conv_pos=16, conv_pos_groups=4,
         layer_norm_first=True, normalize=True, dropout_input=0.0, num_buckets=32,
@@ -713,3 +722,264 @@ def test_tiny_wavlm_fuse_matches_cpu(dev, monkeypatch, max_kernel_t):
     k10_k11 = [0, 2] if max_kernel_t == 2048 else [2, 0]
     _trunk_on_card_vs_cpu(dev, monkeypatch, True, [1, 0, 2, 0, 0, 0, 0, 0, 0] + k10_k11,
                           pair=_tiny_wavlm_pair(dev, True, wavlm_fuse=True))
+
+
+# -- the front end: K13a, K13b, K14, K15 and the options -------------------------------
+
+# (T, k) of the mid layers' inputs at 10 s: layer 1 (k=3) and layer 5 (k=2);
+# then T' = 1 (odd and even T) and no output row at all (T < k)
+MID_SHAPES = [(31999, 3), (1999, 2), (4, 3), (3, 2), (2, 3), (1, 2)]
+
+
+def _codes_close(got, want):
+    d = (got.int() - want.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3, (
+        int(d.max()), float((d > 0).float().mean()))
+
+
+def _mid_weights(rng, dev, k):
+    """An f32 nn.Conv1d weight [512, 512, k] and an LN pair."""
+    return _t(rng.randn(512, 512, k) / np.sqrt(512 * k), dev), *_ln(rng, dev, 512)
+
+
+@pytest.mark.parametrize("T,k", MID_SHAPES)
+def test_k14_kernel(dev, T, k):
+    """K14 on B=2 (rows never cross an utterance: T odd or even) against its
+    plain version; the nn.Conv1d weight and the load-time GEMM weight give
+    the same result; no output row, no launch."""
+    rng = np.random.RandomState(26)
+    x = _t(rng.randn(2, T, 512), dev, torch.bfloat16)
+    w, g, b = _mid_weights(rng, dev, k)
+    wg = conv_gemm_weight(w.bfloat16())
+    t_out = max((T - k) // 2 + 1, 0)
+    before = fused_conv_ln_gelu.launches
+    got = fused_conv_ln_gelu(x, wg, g, b)
+    torch.cuda.synchronize()
+    assert fused_conv_ln_gelu.launches == before + (t_out > 0)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (2, t_out, 512)
+    if t_out:
+        _close_bf16(got, fused_conv_ln_gelu_reference(x, wg, g, b))
+        assert torch.equal(fused_conv_ln_gelu(x, w.bfloat16(), g, b), got)
+
+
+@pytest.mark.parametrize("emit_q8", [True, False], ids=["q8", "bf16-out"])
+@pytest.mark.parametrize("T,k", MID_SHAPES)
+def test_k13b_kernel(dev, T, k, emit_q8):
+    """K13b on int8 rows with f32 row scales against its plain version:
+    codes and scales (`_codes_close`), or the last layer's bf16 rows."""
+    rng = np.random.RandomState(27)
+    xq = _int8(rng, dev, 2, T, 512)
+    xs = _t(0.01 + 0.05 * rng.rand(2, T, 1), dev)
+    w, g, b = _mid_weights(rng, dev, k)
+    taps = quantize_conv_taps(w)
+    t_out = max((T - k) // 2 + 1, 0)
+    before = fused_int8_conv_ln_gelu.launches
+    got_q, got_s = fused_int8_conv_ln_gelu(xq, xs, taps, g, b, emit_q8=emit_q8)
+    torch.cuda.synchronize()
+    assert fused_int8_conv_ln_gelu.launches == before + (t_out > 0)
+    assert tuple(got_q.shape) == (2, t_out, 512)
+    want_q, want_s = fused_int8_conv_ln_gelu_reference(xq, xs, taps, g, b, emit_q8=emit_q8)
+    if emit_q8:
+        assert got_q.dtype == torch.int8 and tuple(got_s.shape) == (2, t_out, 1)
+        if t_out:
+            _codes_close(got_q, want_q)
+            torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=0)
+    else:
+        assert got_s is None and got_q.dtype == torch.bfloat16
+        if t_out:
+            _close_bf16(got_q, want_q)
+
+
+@pytest.mark.parametrize("n,dtype", [(160000, torch.bfloat16), (16007, torch.bfloat16),
+                                     (16007, torch.float32), (10, torch.bfloat16)],
+                         ids=["10s", "ragged-block", "f32", "one-frame"])
+def test_k13a_kernel(dev, n, dtype):
+    """K13a (conv0 + LN + erf GELU + row-quant) against its plain version:
+    [2, 31999, 512] codes at 10 s, a ragged last frame block, one frame."""
+    rng = np.random.RandomState(28)
+    wavs = _t(rng.randn(2, n), dev, dtype)
+    weight = _t(rng.randn(512, 1, 10) / np.sqrt(10), dev, dtype)
+    g, b = _ln(rng, dev, 512)
+    before = conv0_ln_gelu_q8.launches
+    got_q, got_s = conv0_ln_gelu_q8(wavs, weight, g, b)
+    torch.cuda.synchronize()
+    assert conv0_ln_gelu_q8.launches == before + 1
+    frames = (n - 10) // 5 + 1
+    assert got_q.dtype == torch.int8 and tuple(got_q.shape) == (2, frames, 512)
+    want_q, want_s = conv0_ln_gelu_q8_reference(wavs, weight, g, b)
+    _codes_close(got_q, want_q)
+    torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("shape,dtype", [((2, 15999, 512), torch.bfloat16),
+                                         ((2, 999, 512), torch.bfloat16),
+                                         ((3, 1, 512), torch.bfloat16),
+                                         ((2, 999, 512), torch.float32)],
+                         ids=["layer1", "layer5", "one-row", "f32"])
+@pytest.mark.parametrize("gelu_mode", ["erf", "tanh"])
+def test_k15_kernel(dev, shape, dtype, gelu_mode):
+    """K15 on the mid convs' output shapes at 10 s against its plain version:
+    bf16 (`_close_bf16`) or f32 at atol 1e-5."""
+    rng = np.random.RandomState(29)
+    x = _t(rng.randn(*shape) * 2 + 0.3, dev, dtype)
+    g, b = _ln(rng, dev, 512)
+    before = ln_gelu.launches
+    got = ln_gelu(x, g, b, gelu_mode)
+    torch.cuda.synchronize()
+    assert ln_gelu.launches == before + 1 and got.dtype == dtype and got.shape == x.shape
+    want = ln_gelu_reference(x, g, b, gelu_mode)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    else:
+        _close_bf16(got, want)
+
+
+def test_frontend_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """Wrong dtypes and shapes, CPU weights beside CUDA inputs, inputs that
+    require grad; no row, no launch."""
+    x = torch.zeros(2, 9, 512, dtype=torch.bfloat16, device=dev)
+    w = torch.zeros(512, 1536, dtype=torch.bfloat16, device=dev)
+    g, b = torch.ones(512, device=dev), torch.zeros(512, device=dev)
+    with pytest.raises(NotImplementedError, match="K14"):  # f32 x: not ported
+        fused_conv_ln_gelu(x.float(), w.float(), g, b)
+    with pytest.raises(ValueError):  # 256 channels
+        fused_conv_ln_gelu(x[..., :256].contiguous(), w[:, :768].contiguous(), g, b)
+    with pytest.raises(ValueError):  # k = 4
+        fused_conv_ln_gelu(x, torch.zeros(512, 2048, dtype=torch.bfloat16, device=dev), g, b)
+    with pytest.raises(ValueError):  # CPU weight
+        fused_conv_ln_gelu(x, w.cpu(), g.cpu(), b.cpu())
+    with pytest.raises(TypeError):  # f16
+        ln_gelu(x.half(), g, b)
+    with pytest.raises(ValueError):  # 256 channels
+        ln_gelu(x[..., :256].contiguous(), g[:256], b[:256])
+    with pytest.raises(ValueError):  # not contiguous
+        ln_gelu(x.transpose(0, 1), g, b)
+    with pytest.raises(ValueError):
+        ln_gelu(x, g, b, gelu_mode="sigmoid")
+    before = ln_gelu.launches
+    assert ln_gelu(x[:, :0], g, b).shape == (2, 0, 512) and ln_gelu.launches == before
+    wav = torch.zeros(2, 1600, dtype=torch.bfloat16, device=dev)
+    w0 = torch.zeros(512, 1, 10, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(TypeError):  # f16 wav
+        conv0_ln_gelu_q8(wav.half(), w0.half(), g, b)
+    with pytest.raises(ValueError):  # fewer samples than the kernel width
+        conv0_ln_gelu_q8(wav[:, :9].contiguous(), w0, g, b)
+    with pytest.raises(ValueError):  # k = 8, stride 4
+        conv0_ln_gelu_q8(wav, w0[..., :8].contiguous(), g, b, stride=4, k=8)
+    xq = torch.zeros(2, 9, 512, dtype=torch.int8, device=dev)
+    xs = torch.ones(2, 9, 1, device=dev)
+    taps = (torch.zeros(3, 512, 512, dtype=torch.int8, device=dev),
+            torch.ones(3, 512, device=dev))
+    with pytest.raises(TypeError):  # bf16 rows
+        fused_int8_conv_ln_gelu(x, xs, taps, g, b)
+    with pytest.raises(ValueError):  # a scale per utterance, not per row
+        fused_int8_conv_ln_gelu(xq, xs[:, :1].contiguous(), taps, g, b)
+    with pytest.raises(TypeError):  # bf16 weight scales
+        fused_int8_conv_ln_gelu(xq, xs, (taps[0], taps[1].bfloat16()), g, b)
+    for tensor, call in ((x, lambda: fused_conv_ln_gelu(x, w, g, b)),
+                         (x, lambda: ln_gelu(x, g, b)),
+                         (wav, lambda: conv0_ln_gelu_q8(wav, w0, g, b)),
+                         (xs, lambda: fused_int8_conv_ln_gelu(xq, xs, taps, g, b))):
+        tensor.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="forward-only"):  # the kernels have no backward
+            call()
+        with torch.no_grad():
+            call()
+        tensor.requires_grad_(False)
+
+
+@pytest.mark.parametrize("model,path,option,launches", [
+    ("hubert", "int8", "int8_conv", [0, 2, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 2]),
+    ("hubert", "int8", "fused_conv", [1, 2, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2]),
+    ("hubert", "bf16", "fused_conv", [1, 0, 0, 2, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2]),
+    ("hubert", "int8", "fused_midln", [1, 2, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2]),
+    ("hubert", "bf16", "fused_midln", [1, 0, 0, 2, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2]),
+    ("wavlm", "bf16", "fused_conv", [1, 0, 0, 0, 0, 0, 0, 0, 2, 0, 0, 0, 0, 0, 2]),
+    ("wavlm", "int8", "fused_midln", [1, 0, 2, 0, 0, 0, 0, 0, 2, 0, 0, 0, 0, 0, 0, 2]),
+], ids=lambda v: v if isinstance(v, str) else "")
+def test_tiny_models_frontend_options_match_cpu(dev, monkeypatch, model, path, option, launches):
+    """Each front-end option on the card (mid layers 512 wide, lengths 6,400,
+    3,001 and 1 sample) against the same seed's model on the CPU, with its
+    launch counts: K13a + 2 K13b in place of K3, or K3 + 2 K14, or K3 + 2
+    K15 after the stock mid convs."""
+    quantize = path == "int8"
+    if model == "hubert":
+        pair = _tiny_trunk_pair(torch.bfloat16, True, dev, quantize=quantize,
+                                layers=FRONT_LAYERS, **{option: True})
+    else:
+        pair = _tiny_wavlm_pair(dev, quantize, layers=FRONT_LAYERS, **{option: True})
+    _trunk_on_card_vs_cpu(dev, monkeypatch, quantize, launches, pair=pair)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_train_mode_extractor_gets_gradients_on_the_card(dev, dtype):
+    """Layer 0 in train() takes the stock conv, LN and GELU, never the
+    forward-only K3: conv_0 and ln_0 get gradients, and the features agree
+    with the eval-mode kernel route: f32 at atol 1e-4; bf16 at cosine >
+    0.999, the bar between bf16 paths that round at other points (the
+    stock layer rounds the conv and the LN to bf16, K3 once at the end, and
+    three layers compound it)."""
+    from s3prl_tpu_torch.models.convfe import ConvFeatureExtractor
+
+    fe = ConvFeatureExtractor(FRONT_LAYERS, dtype=dtype, device=dev)
+    wavs = _t(np.random.RandomState(30).randn(2, 3207), dev)
+    before = conv0_ln_gelu.launches
+    got = fe.train()(wavs)
+    got.float().square().mean().backward()
+    assert conv0_ln_gelu.launches == before
+    first = fe.conv_layers[0]
+    assert first.conv.weight.grad is not None and first.norm.weight.grad is not None
+    assert first.norm.bias.grad is not None
+    with torch.no_grad():
+        want = fe.eval()(wavs)
+    assert conv0_ln_gelu.launches == before + 1
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.detach(), want, atol=1e-4, rtol=0)
+    else:
+        a, c = got.detach().double().flatten(), want.double().flatten()
+        assert float(a @ c / (a.norm() * c.norm())) > 0.999
+
+
+def test_every_block_kernel_refuses_inputs_that_require_grad(dev):
+    """K1-K8 and K12 are forward-only: on the card each raises for an input
+    that requires grad while grad is enabled (K7/K8 dropped the gradient
+    silently before) and runs under no_grad."""
+    rng = np.random.RandomState(31)
+    C, H = 128, 2
+    x = _t(rng.randn(2, 64, C) * 0.5, dev, torch.bfloat16)
+    wq, bq = _block_weights(rng, dev, C, 3 * C)
+    wo, bo = _block_weights(rng, dev, C, C)
+    w1, b1 = _block_weights(rng, dev, C, 256)
+    w2, b2 = _block_weights(rng, dev, 256, C)
+    ln = _ln(rng, dev, C)
+    kv = torch.tensor([64, 30], dtype=torch.int32, device=dev)
+    qkv = _t(rng.randn(2, 600, 3 * C), dev, torch.bfloat16)
+    kv_long = torch.tensor([600, 300], dtype=torch.int32, device=dev)
+    q = _t(rng.randn(2, H, 2100, 64), dev, torch.bfloat16)
+    kv_online = torch.tensor([2100, 900], dtype=torch.int32, device=dev)
+    wav = _t(rng.randn(1, 1600), dev)
+    w0 = _t(rng.randn(512, 1, 10) / np.sqrt(10), dev)
+    g0, b0 = _ln(rng, dev, 512)
+    calls = {
+        "K3": lambda: conv0_ln_gelu(wav, w0, g0, b0),
+        "K1": lambda: fused_attention_block(x, wq, bq, ln, wo, bo, kv, H),
+        "K2": lambda: fused_int8_ffn(x, w1, b1, w2, b2, ln=ln, residual=True),
+        "K4": lambda: fused_attention_block_bf16(x, wq, bq, ln, wo, bo, kv, H),
+        "K5": lambda: fused_bf16_ffn(x, w1, b1, w2, b2, ln=ln, residual=True),
+        "K6": lambda: fused_qkv_attention_outproj(qkv, qkv[..., :C].contiguous(), wo.float(),
+                                                  bo, kv_long, H),
+        "K7": lambda: fused_qkv_attention(qkv, kv_long, H),
+        "K8": lambda: online_flash_attention(q, q, q, kv_online),
+        "K12": lambda: fused_int8_linear(x, wq.float(), bq, ln=ln),
+    }
+    grads = {"K3": w0, "K1": bq, "K2": b1, "K4": x, "K5": x, "K6": bo, "K7": qkv, "K8": q,
+             "K12": x}
+    for name, call in calls.items():
+        t = grads[name]
+        t.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="forward-only"):
+            call()
+        with torch.no_grad():
+            call()
+        t.requires_grad_(False)
+    torch.cuda.synchronize()
