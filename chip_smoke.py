@@ -28,7 +28,10 @@ line is printed; each phase prints its seconds):
     5's [2, 1999, 512] (k=2), K15 (erf, tanh) on those layers' outputs;
     K13a's and K13b's codes may differ from the plain version's in at most
     0.1% of places, by one step, and their scales agree at rtol 1e-5 (the
-    share is printed);
+    share is printed); the pos-conv kernels K16a and K16b at B=4 x 499 and
+    B=4 x 1,499 frames of HuBERT-Large's pos-conv (C 1024, k 128, 16 groups),
+    K16b's activation codes and scales under the same rule; K17 on [4, 16,
+    499, 64];
  4. the main paths at full width, HuBERT-Large (hub.load(
     "hubert_large_ll60k", bf16, flash, quantize=True) - the int8 serving
     default - and quantize=False) and WavLM-Large (hub.load("wavlm_large",
@@ -40,7 +43,9 @@ line is printed; each phase prints its seconds):
     ``wavlm_fuse`` (K11); then the front-end options at 10 s: HuBERT int8
     with ``int8_conv`` (K13a, 6 K13b, no K3), bf16 with ``fused_conv`` (K3,
     6 K14), int8 with ``fused_midln`` (K3, 6 K15), WavLM bf16 with
-    ``fused_conv``; checks the [25, B, T', 1024] shape, exact h_lens,
+    ``fused_conv``; then the pos-conv options at 10 s and 30 s: HuBERT bf16
+    with ``fused_posconv`` (one K16a a forward) and int8 with
+    ``int8_posconv`` (one K16b); checks the [25, B, T', 1024] shape, exact h_lens,
     finite values, and the launch counts of each run, read just after it
     with every count set to 0 just before (RUNS below; every other count 0);
  5. the same seed's models on the CPU (the kernel wrappers' plain versions)
@@ -51,12 +56,15 @@ line is printed; each phase prints its seconds):
     B=2 x 2 s and, with MAX_KERNEL_T = 128, B=2 x 4 s (K8), ``qkv_fuse`` on
     B=2 x 4 s with MAX_BLOCK_T = 64, WavLM ``wavlm_fuse`` on B=2 x 2 s and,
     with MAX_KERNEL_T = 128, B=2 x 4 s (K10, no K11), and each front-end
-    option on B=2 x 2 s. Then the JAX package's quality gates at full
+    option on B=2 x 2 s; each pos-conv option on B=2 x 2 s, and again with
+    MAX_POSCONV_T = 64 (the stock conv: no K16 launch). Then the JAX
+    package's quality gates at full
     depth on the card, against the f32 model (flash=False) of the same
     weights: int8 per-layer cosine > 0.999 (tests/test_quant.py:82-124,
     :306-333) on B=2 x 0.5 s, B=2 x 30 s and B=1 x 60 s (the options on
-    the first two), bf16 > 0.995 (tests/test_quant.py:590) on the two long
-    ones (HuBERT) or all three (WavLM);
+    the first two; ``int8_posconv`` among them), bf16 > 0.995
+    (tests/test_quant.py:590) on the two long ones (HuBERT) or all three
+    (WavLM), HuBERT's bf16 options at 30 s (``fused_posconv`` among them);
  6. timing (printed): extraction audio-s/s of every path at B=32 x 10 s,
     B=8 x 30 s and B=4 x 60 s (two chain lengths, marginal rate, best of 3,
     CUDA events) with the peak device memory, and each kernel against its
@@ -75,6 +83,12 @@ line is printed; each phase prints its seconds):
     layers of B=32 x 10 s (one launch of K13a) beside their plain versions,
     their bounds and the stock ops they replace (K3 tanh + quantize_rows;
     F.conv1d + F.layer_norm + cast + F.gelu; F.layer_norm + cast + F.gelu).
+    The pos-conv options' paths at B=32 x 10 s and B=8 x 30 s; K16a and K16b
+    at B=32 x 499 beside their plain versions, their bounds, one grouped
+    bf16 F.conv1d with its bias (the library figure) and the stock
+    F.conv1d + bias + GELU chain they replace; K17 on [32, 16, 499, 64]
+    beside scaled_dot_product_attention. K17 runs on no main path (no model
+    calls it): its launch count in the kernels line is 0.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -351,6 +365,66 @@ def gated_kernel_calls(inps9, inp10):
     }
 
 
+def posconv_inputs(B, T, gen, dev, C=1024, G=16, k=128):
+    """K16a/K16b inputs at HuBERT-Large's pos-conv widths: x [B, T, C] in
+    bf16 (scale 0.5), an f32 nn.Conv1d weight [C, C/G, k] with its
+    load-time forms (K16a's bf16 tap-major GEMM weight, K16b's codes and
+    scales), a bias."""
+    from s3prl_tpu_torch.kernels import posconv as pc
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+    w = rnd(C, C // G, k, scale=(k * C // G) ** -0.5)
+    return dict(x=rnd(B, T, C, scale=0.5, dtype=torch.bfloat16), w=w, bias=rnd(C, scale=0.1),
+                wg=pc.posconv_gemm_weight(w.to(torch.bfloat16), G),
+                w8=pc.quantize_posconv_weight(w, G), G=G)
+
+
+def posconv_calls(inps):
+    """K16a and K16b on each of `inps`: name -> [(variant, kernel, plain)]."""
+    from s3prl_tpu_torch.kernels import posconv as pc
+
+    calls = {"pos_conv_gelu": [], "pos_conv_gelu_q8": []}
+    for i in inps:
+        x, G = i["x"], i["G"]
+        calls["pos_conv_gelu"].append((
+            str(list(x.shape)), lambda i=i: pc.pos_conv_gelu(i["x"], i["wg"], i["bias"], G),
+            lambda i=i: pc.pos_conv_gelu_reference(i["x"], i["wg"], i["bias"], G)))
+        calls["pos_conv_gelu_q8"].append((
+            str(list(x.shape)), lambda i=i: pc.pos_conv_gelu_q8(i["x"], i["w8"], i["bias"], G),
+            lambda i=i: pc.pos_conv_gelu_q8_reference(i["x"], *i["w8"], i["bias"], G)))
+    return calls
+
+
+def check_posconv_codes(inps):
+    """K16b's activation codes and scales (`posconv_quant`) against the
+    plain version's: codes equal except at most 0.1% one step apart,
+    scales at rtol 1e-5 (the share is printed)."""
+    from s3prl_tpu_torch.kernels import posconv as pc
+
+    for i in inps:
+        (q, xs), (q_ref, xs_ref) = pc.posconv_quant(i["x"], i["G"]), \
+            pc.quantize_posconv_input(i["x"], i["G"])
+        torch.cuda.synchronize()
+        d = (q.int() - q_ref.int()).abs()
+        share = float((d > 0).float().mean())
+        rel = float(((xs - xs_ref).abs() / xs_ref).max())
+        log(f"[int8 codes] pos_conv_gelu_q8 activations {list(q.shape)}: {share:.3e} of codes "
+            f"differ from the plain version's (max {int(d.max())} step), scales rel err "
+            f"{rel:.2e}")
+        check(int(d.max()) <= 1 and share <= 1e-3 and rel <= 1e-5, "K16b activation codes")
+
+
+def k17_calls(i):
+    """K17 on the split heads of `i` (`gated_inputs`, without the bias)."""
+    from s3prl_tpu_torch.kernels import flash_attention as fa
+
+    args = (i["q"], i["k"], i["v"], i["kv"])
+    return {"flash_attention": [(str(list(i["q"].shape)), lambda: fa.flash_attention(*args),
+                                 lambda: fa.flash_attention_reference(*args))]}
+
+
 HBM = 3.35e12  # bytes/s, H100 SXM (NVIDIA's data sheet)
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}  # dense, per second
 
@@ -377,6 +451,12 @@ def kernel_bound(name, i, variant=0):
     """The bound of kernel `name` on the timing inputs `i` (each input byte
     read once, each output byte written once; K/V rows past kv_len and
     their work not counted); `variant` indexes K12_SETS for K12."""
+    if name in ("pos_conv_gelu", "pos_conv_gelu_q8"):  # 2 B T k cg C, x read, out written
+        B, T, C = i["x"].shape
+        ops = 2 * B * T * i["w"].shape[-1] * (C // i["G"]) * C
+        if name == "pos_conv_gelu":
+            return bound({"bf16": ops}, 2 * nbytes(i["x"]) + nbytes(i["wg"], i["bias"]))
+        return bound({"int8": ops}, 2 * nbytes(i["x"]) + nbytes(*i["w8"], i["bias"]))
     kv = i["kv"].tolist()
     if name == "conv0_ln_gelu":
         B, N = i["wav"].shape
@@ -395,7 +475,7 @@ def kernel_bound(name, i, variant=0):
         valid_kv = sum(kv) * H * Dh * 2
         return bound({"bf16": attention_work(B, T, H, kv), "f32": 2 * H * T * sum(kv)},
                      2 * nbytes(i["q"]) + 2 * valid_kv + H * T * max(kv) * 4 + nbytes(i["gate"]))
-    if name == "online_flash_attention":
+    if name in ("online_flash_attention", "flash_attention"):
         B, H, T, Dh = i["q"].shape
         return bound({"bf16": attention_work(B, T, H, kv)},
                      2 * nbytes(i["q"]) + 2 * sum(kv) * H * Dh * 2)
@@ -438,9 +518,15 @@ def library_call(name, i):
     `name` (K7-K10), with its mask built here, outside the timed region:
     a boolean key mask for K7 and K8; for K9 and K10 a float mask of q's
     dtype (SDPA's rule) holding gate * pos_bias, -inf at masked keys.
-    None for the kernels that no single PyTorch call computes."""
+    For K16a and K16b one grouped bf16 F.conv1d with its bias on a [B, C,
+    T] copy of x (the conv without the GELU). None for the kernels that no
+    single PyTorch call computes."""
     import torch.nn.functional as F
 
+    if name in ("pos_conv_gelu", "pos_conv_gelu_q8"):
+        x = i["x"].transpose(1, 2).contiguous()
+        w, b = i["w"].to(x.dtype), i["bias"].to(x.dtype)
+        return lambda: F.conv1d(x, w, b, padding=w.shape[-1] // 2, groups=i["G"])
     kv = i["kv"]
     if name == "fused_qkv_attention":
         B, T, C3 = i["qkv"].shape
@@ -448,7 +534,7 @@ def library_call(name, i):
             2, 0, 3, 1, 4))
         scale = None  # K7's qkv is unscaled: SDPA's default Dh^-0.5
     elif name in ("online_flash_attention", "gated_bias_attention",
-                  "gated_online_flash_attention"):
+                  "gated_online_flash_attention", "flash_attention"):
         q, k, v = i["q"], i["k"], i["v"]
         scale = 1.0  # q pre-scaled
     else:
@@ -713,7 +799,7 @@ def time_frontend(inp, entries, launches, max_err):
             f"{stock_ms:.3f} ms")
         source, replaces = KERNELS[name]
         entries[name] = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                         "launches": launches[MAIN_PATH[name]][name],
+                         "launches": main_launches(launches, name),
                          "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
@@ -747,12 +833,18 @@ KERNELS = {  # wrapper -> (its main CUDA source, the TPU kernel it replaces)
     "fused_conv_ln_gelu": ("s3prl_tpu_torch/csrc/gemm_bf16.cu",
                            "s3prl_tpu/kernels/conv_frontend.py:301"),
     "ln_gelu": ("s3prl_tpu_torch/csrc/ln_gelu.cu", "s3prl_tpu/kernels/ln_gelu.py:60"),
+    "pos_conv_gelu": ("s3prl_tpu_torch/csrc/posconv.cu", "s3prl_tpu/kernels/posconv.py:182"),
+    "pos_conv_gelu_q8": ("s3prl_tpu_torch/csrc/posconv.cu", "s3prl_tpu/kernels/posconv.py:137"),
+    "flash_attention": ("s3prl_tpu_torch/csrc/gated_attention.cu",
+                        "s3prl_tpu/kernels/flash_attention.py:1020"),
 }
 MODELS = {"hubert": "hubert_large_ll60k", "wavlm": "wavlm_large"}
 OPTIONS = {"int8": {}, "bf16": {}, "int8 full_fuse": {"full_fuse": True},  # path -> keywords
            "int8 qkv_fuse": {"qkv_fuse": True}, "int8 wavlm_fuse": {"wavlm_fuse": True},
            "int8 int8_conv": {"int8_conv": True}, "bf16 fused_conv": {"fused_conv": True},
-           "int8 fused_midln": {"fused_midln": True}}
+           "int8 fused_midln": {"fused_midln": True},
+           "bf16 fused_posconv": {"fused_posconv": True},
+           "int8 int8_posconv": {"int8_posconv": True}}
 LENS = {  # main-path batch -> utterance lengths in samples (mixed)
     "10 s": [160000, 120000, 40000, 800, 159999, 80000, 16001, 1],
     "30 s": [480000, 400000, 320000, 160000, 479999, 240000, 16001, 1],
@@ -806,17 +898,35 @@ RUNS = {
                                              "fused_attention_block": 24, "fused_int8_ffn": 24},
     ("wavlm", "bf16 fused_conv", "10 s"): {"conv0_ln_gelu": 1, "fused_conv_ln_gelu": 6,
                                            "gated_bias_attention": 24},
+    # the pos-conv options: one K16a / K16b a forward in place of the stock grouped conv
+    ("hubert", "bf16 fused_posconv", "10 s"): {"conv0_ln_gelu": 1, "pos_conv_gelu": 1,
+                                               "fused_attention_block_bf16": 24,
+                                               "fused_bf16_ffn": 24},
+    ("hubert", "bf16 fused_posconv", "30 s"): {"conv0_ln_gelu": 1, "pos_conv_gelu": 1,
+                                               "fused_qkv_attention": 24, "fused_bf16_ffn": 24},
+    ("hubert", "int8 int8_posconv", "10 s"): {"conv0_ln_gelu": 1, "pos_conv_gelu_q8": 1,
+                                              "fused_attention_block": 24, "fused_int8_ffn": 24},
+    ("hubert", "int8 int8_posconv", "30 s"): {"conv0_ln_gelu": 1, "pos_conv_gelu_q8": 1,
+                                              "fused_qkv_attention_outproj": 24,
+                                              "fused_int8_ffn": 24},
 }
 PATHS = list(dict.fromkeys((model, path) for model, path, _ in RUNS))  # the loaded models
 TIMED = {"int8 full_fuse": ("10 s", "30 s"), "int8 qkv_fuse": ("30 s",),  # default: all three
          "int8 wavlm_fuse": ("10 s", "30 s"), "int8 int8_conv": ("10 s",),
-         "bf16 fused_conv": ("10 s",), "int8 fused_midln": ("10 s",)}
-# the main-path run each wrapper's launch count is read from: the first that launches it
-MAIN_PATH = {name: next(run for run, expected in RUNS.items() if name in expected)
+         "bf16 fused_conv": ("10 s",), "int8 fused_midln": ("10 s",),
+         "bf16 fused_posconv": ("10 s", "30 s"), "int8 int8_posconv": ("10 s", "30 s")}
+# the main-path run each wrapper's launch count is read from: the first that
+# launches it; None for K17, which no model calls
+MAIN_PATH = {name: next((run for run, expected in RUNS.items() if name in expected), None)
              for name in KERNELS}
 COS_F32 = {"int8": 0.999, "bf16": 0.995}  # the JAX package's gates against f32
 # the paths whose feature extractor is timed alone: the defaults and the front-end options
 FRONT_END_PATHS = ("int8", "bf16", "int8 int8_conv", "bf16 fused_conv", "int8 fused_midln")
+
+
+def main_launches(launches, name):
+    """Kernel `name`'s launches on its main-path run (0 where none runs it)."""
+    return launches[MAIN_PATH[name]][name] if MAIN_PATH[name] else 0
 
 
 def load(hub, model, path, device):
@@ -898,7 +1008,7 @@ def time_kernels(calls, inputs, label, entries, launches, max_err, first_only=Tr
                 + ("-" if library_ms is None else f"{library_ms:.3f} ms"))
             source, replaces = KERNELS[name]
             entries[name] = {"name": name, "route": "cuda", "source": source,
-                             "replaces": replaces, "launches": launches[MAIN_PATH[name]][name],
+                             "replaces": replaces, "launches": main_launches(launches, name),
                              "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": bound_ms, "bound_by": bound_by,
                              "library_ms": library_ms}
@@ -970,6 +1080,11 @@ def main():
         check_kernels(frontend_calls(inp_fe), max_err)
         check_q8_kernels(frontend_q8_calls(inp_fe), max_err)
         del inp_fe
+        inp16 = [posconv_inputs(4, 499, gen, dev), posconv_inputs(4, 1499, gen, dev)]
+        check_kernels(posconv_calls(inp16), max_err)
+        check_posconv_codes(inp16)
+        check_kernels(k17_calls(gated_inputs(4, 499, gen, dev)), max_err)
+        del inp16
 
     # 4. the main paths at full width, int8 (the serving default) then bf16,
     # HuBERT-Large then WavLM-Large
@@ -1001,8 +1116,11 @@ def main():
     # versions there. Then the JAX package's quality gates against f32.
     import s3prl_tpu_torch.models.transformer as port_transformer
 
+    from s3prl_tpu_torch.kernels import posconv as pc
+
     short, long_ = ("B=2 x 2 s", [32000, 20000]), [64000, 40000]
-    mbt, mkt = {"MAX_BLOCK_T": 64}, {"MAX_KERNEL_T": 128}
+    mbt, mkt, mpt = {"MAX_BLOCK_T": 64}, {"MAX_KERNEL_T": 128}, {"MAX_POSCONV_T": 64}
+    holder = {"MAX_BLOCK_T": fa, "MAX_KERNEL_T": fa, "MAX_POSCONV_T": pc}  # threshold -> module
     # (model, path) -> (label, lengths, patched thresholds, {kernel: launches} checked)
     cases = {
         ("hubert", "int8"): (
@@ -1038,10 +1156,16 @@ def main():
         ("hubert", "int8 fused_midln"): ((*short, {}, {"conv0_ln_gelu": 1, "ln_gelu": 6}),),
         ("wavlm", "bf16 fused_conv"): ((*short, {}, {"conv0_ln_gelu": 1,
                                                      "fused_conv_ln_gelu": 6}),),
+        **{("hubert", path): ((*short, {}, {name: 1}),
+                              ("B=2 x 2 s, MAX_POSCONV_T=64", short[1], mpt, {name: 0}))
+           for path, name in (("bf16 fused_posconv", "pos_conv_gelu"),
+                              ("int8 int8_posconv", "pos_conv_gelu_q8"))},
     }
-    options = {"hubert": ("int8 full_fuse", "int8 qkv_fuse", "int8 int8_conv", "int8 fused_midln"),
+    options = {"hubert": ("int8 full_fuse", "int8 qkv_fuse", "int8 int8_conv", "int8 fused_midln",
+                          "int8 int8_posconv"),
                "wavlm": ("int8 wavlm_fuse", "bf16 fused_conv")}
-    long_only = {"hubert": ("bf16 fused_conv",), "wavlm": ()}  # HuBERT's bf16 paths: 30 s
+    # HuBERT's bf16 paths: 30 s
+    long_only = {"hubert": ("bf16 fused_conv", "bf16 fused_posconv"), "wavlm": ()}
     quality = {  # model -> (label, lengths, paths gated against f32)
         model: (("B=2 x 0.5 s", [8000, 6400],
                  ("int8", "bf16")[:1 if model == "hubert" else 2] + options[model]),
@@ -1055,10 +1179,10 @@ def main():
             up_cpu = load(hub, model, path, "cpu")
             for label, lens, patch, expected in cases[model, path]:
                 small, small_lens = batch(lens, max(lens), gen, "cpu")
-                saved = {name: getattr(fa, name) for name in patch}
+                saved = {name: getattr(holder[name], name) for name in patch}
                 try:
                     for name, value in patch.items():
-                        setattr(fa, name, value)
+                        setattr(holder[name], name, value)
                     port_transformer._fused_block_available = lambda x: True
                     hs_cpu, hl_cpu = up_cpu.apply_standardized(small, small_lens)
                     port_transformer._fused_block_available = available
@@ -1069,7 +1193,7 @@ def main():
                 finally:
                     port_transformer._fused_block_available = available
                     for name, value in saved.items():
-                        setattr(fa, name, value)
+                        setattr(holder[name], name, value)
                 for name, count in expected.items():
                     launched = wrapper[name].launches
                     check(launched == count, f"{model} {path} {label}: {name} launched "
@@ -1161,6 +1285,24 @@ def main():
                      "(10 s: B=32; 60 s: B=4)", entries, launches, max_err)
         del inp9, inp10
         time_frontend(frontend_inputs(32, gen, dev), entries, launches, max_err)
+        inp16 = posconv_inputs(32, 499, gen, dev)
+        time_kernels(posconv_calls([inp16]), {"pos_conv_gelu": inp16, "pos_conv_gelu_q8": inp16},
+                     "B=32", entries, launches, max_err)
+        x, w, b = inp16["x"], inp16["w"].to(torch.bfloat16), inp16["bias"].to(torch.bfloat16)
+
+        def stock_posconv():  # ConvPositionalEmbedding's stock path
+            y = torch.nn.functional.conv1d(x.transpose(1, 2), w, b, padding=w.shape[-1] // 2,
+                                           groups=inp16["G"])
+            return torch.nn.functional.gelu(y[..., :-1]).transpose(1, 2)
+
+        t = (cuda_ms(stock_posconv, 10) + cuda_ms(stock_posconv, 10)) / 2
+        log(f"[timing] pos-conv stock path it replaces B=32 x 499, grouped F.conv1d + bias + "
+            f"GELU: {t:.3f} ms")
+        del inp16, x, w, b
+        inp17 = gated_inputs(32, 499, gen, dev)
+        time_kernels(k17_calls(inp17), {"flash_attention": inp17}, "B=32", entries, launches,
+                     max_err)
+        del inp17
     log(json.dumps({"kernels": [entries[name] for name in wrapper]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

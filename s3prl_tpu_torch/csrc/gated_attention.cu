@@ -1,20 +1,24 @@
-// WavLM's gated relative-position-bias attention in f32 on [B, H, T, 64]
-// bf16 q, k, v (q pre-scaled by Dh^-0.5), pos_bias [H, T, T] f32 (shared by
-// the utterances), gate [B, H, T] f32, output [B, H, T, 64] bf16:
-//   s_k = q_t.k_k + gate[b, h, t] * pos_bias[h, t, k]  for k < kv_len[b],
+// Masked attention in f32 on [B, H, T, 64] bf16 q, k, v (q pre-scaled by
+// Dh^-0.5), output [B, H, T, 64] bf16, with or without WavLM's gated
+// relative-position bias (pos_bias [H, T, T] f32, shared by the utterances;
+// gate [B, H, T] f32):
+//   s_k = q_t.k_k [+ gate[b, h, t] * pos_bias[h, t, k]]  for k < kv_len[b],
 //         `masked` otherwise
 //   out[b, h, t] = sum_k p_k v_k / max(sum_k p_k, l_floor),  p_k = exp(s_k - m)
 //
-// One source for two Pallas kernels (s3prl_tpu/kernels/flash_attention.py):
+// One source for three Pallas kernels (s3prl_tpu/kernels/flash_attention.py):
 // - K9 `gated_bias_attention` (pallas_call :105, cell `_attn_kernel` :59-89),
 //   the whole-T cell for T <= MAX_KERNEL_T: masked = -1e9, no floor
 //   (l_floor = 0);
 // - K10 `_gated_online_flash_kernel` (pallas_call :963, cell
 //   `_gated_online_kernel` :901-945), K-blocked beyond it: masked = -1e30,
-//   l_floor = 1e-30.
-// On the TPU the two differ only because a whole [T, T] score tile must fit
-// VMEM; here both are K-blocked, so they share one kernel and differ in the
-// two constants.
+//   l_floor = 1e-30;
+// - K17 `flash_attention` (pallas_call :1020, cell `_attn_kernel_nobias`
+//   :994-1011), the no-bias instantiation (kGated = false: no gate or bias
+//   is read): masked = -1e9, no floor.
+// On the TPU they differ because a whole [T, T] score tile must fit VMEM;
+// here all are K-blocked, so they share one kernel and differ in the two
+// constants and the template flag.
 //
 // The design is online_attention.cu's (K8): one block per (64 queries,
 // head, utterance), 4 warps of 16 query rows, K/V streamed through shared
@@ -74,6 +78,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0, in
   }
 }
 
+template <bool kGated>
 __global__ void __launch_bounds__(kWarps * 32)
     gated_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, const float* __restrict__ pos_bias,
@@ -94,7 +99,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int kv_len = min(max(kv_lens[b], 0), T);
   const int n_tiles = (kv_len + kBKV - 1) / kBKV;
 
-  if (tid < kBQ) gs[tid] = q0 + tid < T ? gate[head + q0 + tid] : 0.f;
+  if (kGated && tid < kBQ) gs[tid] = q0 + tid < T ? gate[head + q0 + tid] : 0.f;
   load_tile(qs, qh, q0, T, tid);
   if (n_tiles > 0) {
     load_tile(kvs, kh, 0, T, tid);
@@ -148,7 +153,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 
     // S += gate * pos_bias on the valid keys; lanes along the keys of a row
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
+    for (int r = 0; r < (kGated ? 16 : 0); ++r) {
       const int t = q0 + warp * 16 + r;
       if (t < T) {
         const float g = gs[warp * 16 + r];
@@ -247,19 +252,35 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+template <bool kGated>
+int launch(const void* q, const void* k, const void* v, const void* pos_bias, const void* gate,
+           const void* kv_lens, void* out, int batch, int H, int T, float masked, float l_floor,
+           void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gated_attention_kernel<kGated>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(batch, (T + kBQ - 1) / kBQ, H);  // the utterance varies fastest
+  gated_attention_kernel<kGated>
+      <<<grid, kWarps * 32, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const float*>(pos_bias), static_cast<const float*>(gate),
+          static_cast<const int*>(kv_lens), static_cast<bf16*>(out), H, T, masked, l_floor);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int s3_gated_attention(const void* q, const void* k, const void* v,
                                   const void* pos_bias, const void* gate, const void* kv_lens,
                                   void* out, int batch, int H, int T, float masked,
                                   float l_floor, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gated_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(batch, (T + kBQ - 1) / kBQ, H);  // the utterance varies fastest
-  gated_attention_kernel<<<grid, kWarps * 32, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(pos_bias), static_cast<const float*>(gate),
-      static_cast<const int*>(kv_lens), static_cast<bf16*>(out), H, T, masked, l_floor);
-  return static_cast<int>(cudaGetLastError());
+  return launch<true>(q, k, v, pos_bias, gate, kv_lens, out, batch, H, T, masked, l_floor,
+                      stream);
+}
+
+// K17: no bias, the -1e9 mask, no floor.
+extern "C" int s3_flash_attention(const void* q, const void* k, const void* v,
+                                  const void* kv_lens, void* out, int batch, int H, int T,
+                                  void* stream) {
+  return launch<false>(q, k, v, nullptr, nullptr, kv_lens, out, batch, H, T, -1e9f, 0.f, stream);
 }

@@ -1,8 +1,8 @@
 """Hub facade: ``s3prl_tpu_torch.hub.load("hubert_large_ll60k", ...)`` or
 ``load("wavlm_large", ...)``, on the card unless ``device="cpu"``, with the
 int8 path's opt-in fused projections ``qkv_fuse`` / ``full_fuse`` (HuBERT)
-and ``wavlm_fuse`` (WavLM), and the front-end options ``int8_conv``
-(HuBERT int8), ``fused_conv`` and ``fused_midln`` (port of
-s3prl_tpu/hub.py)."""
+and ``wavlm_fuse`` (WavLM), the front-end options ``int8_conv``
+(HuBERT int8), ``fused_conv`` and ``fused_midln``, and the pos-conv options
+``fused_posconv`` and ``int8_posconv`` (port of s3prl_tpu/hub.py)."""
 
 from .upstream.registry import load, options  # noqa: F401

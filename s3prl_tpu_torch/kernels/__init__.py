@@ -12,18 +12,23 @@ def wrappers():
     then WavLM's gated-bias attention (K9, K10 beyond MAX_KERNEL_T), then
     the fused int8 projections of the opt-in routes (K11 `wavlm_fuse`, K12
     `qkv_fuse` / `full_fuse`), then the front-end options (K13a and K13b
-    `int8_conv`, K14 `fused_conv`, K15 `fused_midln`): 16 wrappers."""
+    `int8_conv`, K14 `fused_conv`, K15 `fused_midln`), then the pos-conv
+    options (K16a `fused_posconv`, K16b `int8_posconv`), then K17, the
+    masked attention on split heads that no model calls: 19 wrappers."""
     from .conv_frontend import (conv0_ln_gelu, conv0_ln_gelu_q8, fused_conv_ln_gelu,
                                 fused_int8_conv_ln_gelu)
     from .ffn import fused_bf16_ffn, fused_int8_ffn, fused_int8_linear
-    from .flash_attention import (fused_attention_block, fused_attention_block_bf16,
-                                  fused_qkv_attention, fused_qkv_attention_outproj,
-                                  gated_bias_attention, gated_bias_attention_outproj,
-                                  gated_online_flash_attention, online_flash_attention)
+    from .flash_attention import (flash_attention, fused_attention_block,
+                                  fused_attention_block_bf16, fused_qkv_attention,
+                                  fused_qkv_attention_outproj, gated_bias_attention,
+                                  gated_bias_attention_outproj, gated_online_flash_attention,
+                                  online_flash_attention)
     from .ln_gelu import ln_gelu
+    from .posconv import pos_conv_gelu, pos_conv_gelu_q8
 
     return (conv0_ln_gelu, fused_attention_block, fused_int8_ffn,
             fused_attention_block_bf16, fused_bf16_ffn, fused_qkv_attention_outproj,
             fused_qkv_attention, online_flash_attention, gated_bias_attention,
             gated_online_flash_attention, gated_bias_attention_outproj, fused_int8_linear,
-            conv0_ln_gelu_q8, fused_int8_conv_ln_gelu, fused_conv_ln_gelu, ln_gelu)
+            conv0_ln_gelu_q8, fused_int8_conv_ln_gelu, fused_conv_ln_gelu, ln_gelu,
+            pos_conv_gelu, pos_conv_gelu_q8, flash_attention)

@@ -54,6 +54,12 @@ SIGNATURES = {
     "s3_online_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # q, k, v, pos_bias, gate, kv_lens, out, batch, heads, T, masked, l_floor, stream
     "s3_gated_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
+    # q, k, v, kv_lens, out, batch, heads, T, stream
+    "s3_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, x_is_f32, q, xs, batch, T, C, stream
+    "s3_posconv_quant": (_P, _I, _P, _P, _I, _I, _I, _P),
+    # x, w, bias, xs, ws, out, q8, out_f32, batch, T, C, k, stream
+    "s3_posconv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # a, lda, a_rows, a_gstride, w, ldw, M, N, K, row_scale, col_scale, bias,
     # acc_in, res, out, mode, gelu, out_f32, stream
     "s3_gemm_s8": (_P, _I, _I, _L, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),

@@ -54,6 +54,11 @@ WavLM's gated relative-position-bias attention (scores q.k^T + gate[b, h, t]
 - K10 `gated_online_flash_attention`, the port of `_gated_online_flash_kernel`
   (:949, K-blocked cell :901-945): mask -1e30, denominator max(l, 1e-30).
 
+K17 `flash_attention` (:1040, cell `_attn_kernel_nobias` :994-1011), masked
+attention without a bias on split heads, is the no-bias instantiation of
+the same source (mask -1e9, no floor); beyond MAX_KERNEL_T it hands over to
+K8. No model calls it; its only caller in the JAX package is a test.
+
 K11 `gated_bias_attention_outproj` (:454, cell :360-403), WavLM's opt-in
 fused attention: K6's math (unscaled qkv, P normalised and cast before
 P.V, the f32 context quantized per row, int8 out-proj + bo + residual) with
@@ -423,12 +428,14 @@ fused_qkv_attention_outproj.launches = 0  # CUDA launches since the last reset
 
 
 def _gated_reference(q, k, v, pos_bias, gate, kv_lens, masked: float, floor: float | None):
-    """The gated cells' math in f32: s = q.k^T + gate * pos_bias (product,
-    then sum), keys at or past kv_len set to `masked`, p = exp2((s - max) *
-    log2 e) kept in f32 for P.V, out = (p.V) / sum p [floored] in q's dtype."""
+    """The gated cells' math in f32: s = q.k^T [+ gate * pos_bias (product,
+    then sum); no bias when pos_bias is None], keys at or past kv_len set to
+    `masked`, p = exp2((s - max) * log2 e) kept in f32 for P.V, out = (p.V) /
+    sum p [floored] in q's dtype."""
     T = q.shape[2]
     s = q.float() @ k.float().transpose(-1, -2)
-    s = s + gate.float()[..., None] * pos_bias.float()[None]
+    if pos_bias is not None:
+        s = s + gate.float()[..., None] * pos_bias.float()[None]
     col = torch.arange(T, device=q.device)
     valid = col[None, :] < kv_lens[:, None].to(col.dtype)  # [B, T keys]
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, masked))
@@ -456,7 +463,8 @@ def gated_online_flash_attention_reference(q, k, v, pos_bias, gate, kv_lens):
 
 def _gated_launch(q, k, v, pos_bias, gate, kv_lens, masked: float, floor: float):
     """One launch of `csrc/gated_attention.cu` (CUDA only): checks what the
-    kernel takes and raises on anything else."""
+    kernel takes and raises on anything else. Without pos_bias (and gate)
+    its no-bias instantiation, K17's, with the -1e9 mask and no floor."""
     B, H, T, Dh = q.shape
     if Dh != HEAD_DIM:
         raise ValueError(f"gated attention kernel takes head dim {HEAD_DIM}, got {Dh}")
@@ -464,16 +472,21 @@ def _gated_launch(q, k, v, pos_bias, gate, kv_lens, masked: float, floor: float)
         require(t, name, torch.bfloat16, (B, H, T, Dh))
         if t.data_ptr() % 16:
             raise ValueError(f"gated attention {name}: 16-byte aligned rows only")
-    require(pos_bias, "pos_bias", torch.float32, (H, T, T))
-    require(gate, "gate", torch.float32, (B, H, T))
     require(kv_lens, "kv_lens", torch.int32, (B,))
-    refuse_grad("K9/K10 gated attention", q, k, v, pos_bias, gate)
+    if pos_bias is not None:
+        require(pos_bias, "pos_bias", torch.float32, (H, T, T))
+        require(gate, "gate", torch.float32, (B, H, T))
+    refuse_grad("K9/K10/K17 attention", q, k, v, pos_bias, gate)
     out = torch.empty_like(q)
     if B * H * T:
         with torch.cuda.device(q.device):
-            launch("s3_gated_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   pos_bias.data_ptr(), gate.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-                   B, H, T, masked, floor, stream_of(q))
+            if pos_bias is None:
+                launch("s3_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       kv_lens.data_ptr(), out.data_ptr(), B, H, T, stream_of(q))
+            else:
+                launch("s3_gated_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       pos_bias.data_ptr(), gate.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+                       B, H, T, masked, floor, stream_of(q))
     return out
 
 
@@ -515,6 +528,37 @@ def gated_bias_attention(q, k, v, pos_bias, gate, kv_lens):
 
 
 gated_bias_attention.launches = 0  # CUDA launches since the last reset
+
+
+def flash_attention_reference(q, k, v, kv_lens):
+    """Plain version of K17, the Pallas cell `_attn_kernel_nobias` (:994-1011):
+    q, k, v cast to f32, s = q k^T, keys at or past kv_len -> -1e9, p =
+    exp2((s - max) * log2 e) in f32, out = (p @ v) / sum p (no floor) in q's
+    dtype."""
+    return _gated_reference(q, k, v, None, None, kv_lens, -1e9, None)
+
+
+def flash_attention(q, k, v, kv_lens):
+    """Masked multi-head attention without a bias on split heads: K17.
+
+    q (pre-scaled by Dh^-0.5), k, v [B, H, T, Dh], kv_lens [B] int32 valid
+    keys (padding contiguous, kv_len >= 1: a row with no valid key is
+    outside the contract) -> [B, H, T, Dh] in q's dtype. Beyond MAX_KERNEL_T
+    frames (read at call time) K8 `online_flash_attention` takes over
+    (:1048-1049; its launch counts for K8, not here). CPU tensors run the
+    plain version (any Dh, f32 or bf16); CUDA tensors launch the no-bias
+    instantiation of `csrc/gated_attention.cu`, which takes bf16 q, k, v and
+    head dim 64. No model calls it. Forward-only."""
+    if q.shape[2] > MAX_KERNEL_T:
+        return online_flash_attention(q, k, v, kv_lens)
+    if on_cpu(q, k, v, kv_lens):
+        return flash_attention_reference(q, k, v, kv_lens)
+    out = _gated_launch(q, k, v, None, None, kv_lens, -1e9, 0.0)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0  # CUDA launches since the last reset
 
 
 def gated_bias_attention_outproj_reference(qkv, residual, pos_bias, gate, wo, bo, kv_lens,

@@ -53,6 +53,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels import flash_attention as fa  # MAX_BLOCK_T / MAX_KERNEL_T read at call time
+from ..kernels import posconv as pc  # MAX_POSCONV_T read at call time
 from ..kernels.ffn import fused_bf16_ffn, fused_int8_ffn, fused_int8_linear
 from ..kernels.flash_attention import (fused_attention_block, fused_attention_block_bf16,
                                        fused_qkv_attention, fused_qkv_attention_outproj,
@@ -106,17 +107,65 @@ class ConvPositionalEmbedding(nn.Sequential):
     (k=128, 16 groups, pad k//2) -> drop the last frame (even k) -> GELU.
     The conv sits at index 0 as in fairseq's Sequential(conv, SamePad,
     GELU), so the keys read ``pos_conv.0.{weight,bias}``; checkpoints with
-    weight norm are folded into the plain weight before loading."""
+    weight norm are folded into the plain weight before loading.
+
+    ``option`` (the JAX package's pos-conv switch, transformer.py:72-117):
+    None, the stock conv; "fused", K16a `pos_conv_gelu` from the tap-major
+    weight in `dtype`; "int8", K16b `pos_conv_gelu_q8` from int8 codes
+    quantized from the weight, which then stays f32. The option's weights are
+    non-persistent buffers built by `build_qcache` (after every
+    `load_state_dict`). The kernels run in eval mode for T <= MAX_POSCONV_T
+    (read at call time); train() and longer sequences take the stock conv.
+    An option whose kernel cannot take this configuration (the JAX gate: k
+    even and a multiple of the tap chunk) raises a ValueError."""
+
+    OPTIONS = {"fused": ("fused_posconv", pc.TC), "int8": ("int8_posconv", pc.TC_Q8)}
 
     def __init__(self, features: int, kernel_size: int = 128, groups: int = 16,
-                 device=None):
+                 dtype: torch.dtype = torch.float32, option: str | None = None, device=None):
+        if option is not None:
+            name, tc = self.OPTIONS[option]
+            if kernel_size % 2 or kernel_size % tc:
+                raise ValueError(f"{name} cannot take effect: its kernel needs an even conv_pos "
+                                 f"that is a multiple of {tc}, got {kernel_size}")
         super().__init__(nn.Conv1d(features, features, kernel_size,
                                    padding=kernel_size // 2, groups=groups,
                                    device=device))
+        self.option = option  # a plain attribute, not state
+        if option != "int8":  # K16b quantizes from the f32 weight
+            self[0].weight.data = self[0].weight.data.to(dtype)
+        for name in {"fused": ("gemm_weight",), "int8": ("w_q8", "w_scale")}.get(option, ()):
+            self.register_buffer(name, None, persistent=False)
+        if option is not None:
+            self.register_load_state_dict_post_hook(lambda m, _: m.build_qcache())
+
+    @torch.no_grad()
+    def build_qcache(self) -> None:
+        """Builds the option's weights from the conv weight: K16a's tap-major
+        GEMM weight (``"fused"``), K16b's int8 codes and scales from the f32
+        weight (``"int8"``); a no-op without an option."""
+        conv = self[0]
+        if self.option == "fused":
+            self.gemm_weight = pc.posconv_gemm_weight(conv.weight, conv.groups)
+        elif self.option == "int8":
+            self.w_q8, self.w_scale = pc.quantize_posconv_weight(conv.weight, conv.groups)
+
+    def _cached(self, name: str) -> torch.Tensor:
+        value = getattr(self, name)
+        if value is None:
+            raise RuntimeError(f"the pos-conv option's weights ({name}) are not built: call "
+                               "build_qcache() after the weights are in place")
+        return value
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, C]
         conv = self[0]
-        y = F.conv1d(x.transpose(1, 2), conv.weight, conv.bias.to(x.dtype),
+        if self.option is not None and not self.training and x.shape[1] <= pc.MAX_POSCONV_T:
+            if self.option == "fused":
+                return pc.pos_conv_gelu(x, self._cached("gemm_weight"), conv.bias, conv.groups)
+            return pc.pos_conv_gelu_q8(x, (self._cached("w_q8"), self._cached("w_scale")),
+                                       conv.bias, conv.groups)
+        # the weight cast to x's dtype at use, as nn.Conv(dtype=...) casts its param
+        y = F.conv1d(x.transpose(1, 2), conv.weight.to(x.dtype), conv.bias.to(x.dtype),
                      padding=conv.padding, groups=conv.groups)
         if conv.kernel_size[0] % 2 == 0:
             y = y[..., :-1]
@@ -318,16 +367,17 @@ class TransformerEncoder(nn.Module):
     def __init__(self, embed_dim: int = 1024, ffn_dim: int = 4096, num_layers: int = 24,
                  num_heads: int = 16, layer_norm_first: bool = True, conv_pos: int = 128,
                  conv_pos_groups: int = 16, dtype: torch.dtype = torch.float32,
-                 use_flash: bool = False, quantize: bool = False, device=None, **fuse):
-        """``fuse``: the layers' ``qkv_fuse`` / ``full_fuse`` options."""
+                 use_flash: bool = False, quantize: bool = False, device=None,
+                 posconv: str | None = None, **fuse):
+        """``posconv``: the pos-conv option (`ConvPositionalEmbedding`);
+        ``fuse``: the layers' ``qkv_fuse`` / ``full_fuse`` options."""
         super().__init__()
         if not layer_norm_first:
             raise NotImplementedError(
                 "post-LN encoder (HuBERT-Base) is a later slice "
                 "(ROADMAP.md Queue 1 item 5)")
-        self.pos_conv = ConvPositionalEmbedding(embed_dim, conv_pos, conv_pos_groups,
-                                                device=device)
-        self.pos_conv[0].weight.data = self.pos_conv[0].weight.data.to(dtype)
+        self.pos_conv = ConvPositionalEmbedding(embed_dim, conv_pos, conv_pos_groups, dtype,
+                                                posconv, device=device)
         self.layers = nn.ModuleList([
             EncoderLayer(embed_dim, ffn_dim, num_heads, dtype, use_flash, quantize,
                          device=device, **fuse)

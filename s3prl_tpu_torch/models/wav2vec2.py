@@ -109,8 +109,11 @@ class Wav2Vec2Trunk(nn.Module):
     layers (`fuse_options`) and the front-end options of the extractor
     (`ConvFeatureExtractor`): ``int8_conv`` (K13a + K13b, needs
     ``quantize``; HuBERT only, as WavLM's extractor takes no ``quantize``),
-    ``fused_conv`` (K3 erf + K14) and ``fused_midln`` (K15). One that cannot
-    take effect raises a ValueError before any weight is made."""
+    ``fused_conv`` (K3 erf + K14) and ``fused_midln`` (K15); and the pos-conv
+    options of the encoder (`ConvPositionalEmbedding`, in every dtype, as the
+    JAX switch is independent of ``quantize``): ``fused_posconv`` (K16a) and
+    ``int8_posconv`` (K16b, its weight kept f32). One that cannot take effect
+    raises a ValueError before any weight is made."""
 
     # int8 serving runs the extractor's GELU in tanh (s3prl_tpu/models/
     # wav2vec2.py passes ``quantize`` to its extractor; WavLM's does not)
@@ -122,12 +125,17 @@ class Wav2Vec2Trunk(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype = torch.float32,
                  use_flash: bool = False, quantize: bool = False, device=None,
                  qkv_fuse: bool = False, full_fuse: bool = False, wavlm_fuse: bool = False,
-                 int8_conv: bool = False, fused_conv: bool = False, fused_midln: bool = False):
+                 int8_conv: bool = False, fused_conv: bool = False, fused_midln: bool = False,
+                 fused_posconv: bool = False, int8_posconv: bool = False):
         super().__init__()
         reason = _unsupported(cfg)
         if reason is not None:
             raise NotImplementedError(
                 f"{reason} is not ported yet (ROADMAP.md Queue 1 items 5, 6, 11)")
+        if fused_posconv and int8_posconv:
+            raise ValueError("fused_posconv and int8_posconv: the pos-conv takes one kernel "
+                             "(the JAX package's pos-conv switch has one value)")
+        posconv = "fused" if fused_posconv else "int8" if int8_posconv else None
         options = {"qkv_fuse": qkv_fuse, "full_fuse": full_fuse, "wavlm_fuse": wavlm_fuse}
         on = [name for name, value in options.items() if value]
         foreign = [name for name in on if name not in self.fuse_options]
@@ -153,21 +161,24 @@ class Wav2Vec2Trunk(nn.Module):
         # pretraining's mask embedding: unused by extraction, kept so the
         # state_dict carries the whole checkpoint
         self.mask_emb = nn.Parameter(torch.empty(cfg.encoder_embed_dim, device=device))
-        self.encoder = self._encoder(cfg, dtype, use_flash, quantize, device,
+        self.encoder = self._encoder(cfg, dtype, use_flash, quantize, device, posconv,
                                      **{name: options[name] for name in self.fuse_options})
 
-    def _encoder(self, cfg, dtype, use_flash, quantize, device, **fuse) -> nn.Module:
+    def _encoder(self, cfg, dtype, use_flash, quantize, device, posconv, **fuse) -> nn.Module:
         return TransformerEncoder(
             cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim, cfg.encoder_layers,
             cfg.encoder_attention_heads, cfg.layer_norm_first, cfg.conv_pos,
-            cfg.conv_pos_groups, dtype, use_flash, quantize, device=device, **fuse)
+            cfg.conv_pos_groups, dtype, use_flash, quantize, device=device, posconv=posconv,
+            **fuse)
 
     def build_qcache(self) -> None:
         """Quantizes every encoder layer's projections once from their f32
         weights (a no-op without ``quantize``) and builds the extractor's
         front-end option weights (a no-op without ``int8_conv`` or
-        ``fused_conv``)."""
+        ``fused_conv``) and the pos-conv option's (a no-op without
+        ``fused_posconv`` or ``int8_posconv``)."""
         self.feature_extractor.build_qcache()
+        self.encoder.pos_conv.build_qcache()
         for layer in self.encoder.layers:
             if layer.quantize:
                 layer.build_qcache()

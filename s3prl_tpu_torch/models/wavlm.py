@@ -170,14 +170,15 @@ class WavLMEncoder(TransformerEncoder):
 
     def __init__(self, cfg: WavLMConfig, dtype: torch.dtype = torch.float32,
                  use_flash: bool = False, quantize: bool = False, device=None,
-                 wavlm_fuse: bool = False):
+                 posconv: str | None = None, wavlm_fuse: bool = False):
         if not cfg.layer_norm_first:
             raise NotImplementedError(
                 "post-LN WavLM (WavLM-Base, WavLM-Base+) is a later slice "
                 "(ROADMAP.md Queue 2)")
         super().__init__(cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim, 0,
                          cfg.encoder_attention_heads, True, cfg.conv_pos,
-                         cfg.conv_pos_groups, dtype, use_flash, quantize, device=device)
+                         cfg.conv_pos_groups, dtype, use_flash, quantize, device=device,
+                         posconv=posconv)
         self.dtype = dtype
         self.use_flash = use_flash
         self.num_buckets, self.max_distance = cfg.num_buckets, cfg.max_distance
@@ -204,8 +205,10 @@ class WavLMModel(Wav2Vec2Trunk):
     transformer -> ([L+1, B, T', C], feat_lens [B]), the trunk's length
     rule (wavlm.py:268-270). Weights as the trunk's; the int8 model keeps
     its projection weights in f32 and quantizes them once at load. Options:
-    ``wavlm_fuse`` (K11) and the front-end ``fused_conv`` / ``fused_midln``;
-    ``int8_conv`` raises, as WavLM's extractor takes no ``quantize``."""
+    ``wavlm_fuse`` (K11), the front-end ``fused_conv`` / ``fused_midln`` and
+    the pos-conv ``fused_posconv`` (K16a) / ``int8_posconv`` (K16b; WavLM
+    reaches the same pos-conv module, wavlm.py:287); ``int8_conv`` raises,
+    as WavLM's extractor takes no ``quantize``."""
 
     tanh_extractor = False  # erf in both paths (wavlm.py:264-267)
     fuse_options = ("wavlm_fuse",)
@@ -218,5 +221,6 @@ class WavLMModel(Wav2Vec2Trunk):
                 "(ROADMAP.md Queue 2)")
         super().__init__(cfg, dtype, use_flash, quantize, device=device, **fuse)
 
-    def _encoder(self, cfg, dtype, use_flash, quantize, device, **fuse) -> nn.Module:
-        return WavLMEncoder(cfg, dtype, use_flash, quantize, device=device, **fuse)
+    def _encoder(self, cfg, dtype, use_flash, quantize, device, posconv, **fuse) -> nn.Module:
+        return WavLMEncoder(cfg, dtype, use_flash, quantize, device=device, posconv=posconv,
+                            **fuse)

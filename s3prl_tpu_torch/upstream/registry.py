@@ -3,8 +3,9 @@
 Ported entries: ``hubert_large_ll60k`` and ``wavlm_large``, each in f32,
 bf16 and int8 W8A8 (``quantize=True``, the serving default), the int8 path
 with its opt-in fused projections (``qkv_fuse``, ``full_fuse``;
-``wavlm_fuse``), and the front-end options ``int8_conv`` (HuBERT int8),
-``fused_conv`` and ``fused_midln``. A model is built on the card (``torch.device("cuda")``)
+``wavlm_fuse``), the front-end options ``int8_conv`` (HuBERT int8),
+``fused_conv`` and ``fused_midln``, and the pos-conv options
+``fused_posconv`` and ``int8_posconv``. A model is built on the card (``torch.device("cuda")``)
 unless ``device=`` says otherwise; without CUDA and without ``device=``
 loading raises rather than building on the CPU. Without a checkpoint (loading one is a later slice)
 the weights are random, drawn on the CPU from a `torch.Generator` seeded
@@ -51,7 +52,9 @@ def load(name: str, **kwargs) -> Upstream:
     HuBERT (K12), ``wavlm_fuse`` on WavLM (K11). The front-end options,
     also False by default: ``int8_conv`` (K13a + K13b; HuBERT with
     ``quantize=True``), ``fused_conv`` (K3 erf + K14) and ``fused_midln``
-    (K15). A keyword that cannot take effect raises a ValueError."""
+    (K15). The pos-conv options, also False by default and in every dtype:
+    ``fused_posconv`` (K16a) and ``int8_posconv`` (K16b). A keyword that
+    cannot take effect raises a ValueError."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown upstream '{name}'; available: {options()}")
     return _REGISTRY[name](**kwargs)
@@ -105,8 +108,8 @@ def _trunk_upstream(name: str, cfg: Wav2Vec2Config, dtype=torch.float32,
                     device=None, ckpt=None, **fuse) -> Upstream:
     """A trunk model (WavLM for a `WavLMConfig`) with random weights from
     `seed`, on `device` (the card when None). ``fuse``: the model's fused
-    int8 projection options (`Wav2Vec2Trunk.fuse_options`) and front-end
-    options, checked before any weight is made."""
+    int8 projection options (`Wav2Vec2Trunk.fuse_options`), front-end and
+    pos-conv options, checked before any weight is made."""
     model_cls = WavLMModel if isinstance(cfg, WavLMConfig) else Wav2Vec2Trunk
     model = model_cls(cfg, dtype=dtype, use_flash=flash, quantize=quantize, device="meta",
                       **fuse)

@@ -18,9 +18,11 @@ beyond MAX_KERNEL_T that route is K8's; so are WavLM's gated-bias wrappers
 (K9, and K10 beyond MAX_KERNEL_T), and K11 (K9 -> K10 and stock ops
 beyond MAX_KERNEL_T). Launch counts are listed in `wrappers()` order:
 conv0, K1, K2, K4, K5, K6, K7, K8, K9, K10, K11, K12, K13a, K13b, K14, K15
-(trailing zeros may be left out). The front-end kernels' int8 codes equal
-their plain versions' except at most 0.1% one step apart, and their scales
-agree at rtol 1e-5: the f32 conv and LN sums run in another order.
+K16a, K16b, K17 (trailing zeros may be left out). The front-end kernels'
+int8 codes equal their plain versions' except at most 0.1% one step apart,
+and their scales agree at rtol 1e-5: the f32 conv and LN sums run in
+another order. K16b's activation codes and scales equal their plain
+version's exactly (the same f32 values, an IEEE division).
 """
 
 import numpy as np
@@ -45,6 +47,7 @@ from s3prl_tpu_torch.kernels.flash_attention import (
     online_flash_attention_reference, quantize_context_reference)
 from s3prl_tpu_torch.kernels.ffn import fused_int8_linear, fused_int8_linear_reference
 from s3prl_tpu_torch.kernels.ln_gelu import ln_gelu, ln_gelu_reference
+from s3prl_tpu_torch.kernels import posconv as pc
 from s3prl_tpu_torch.ops.quant import as_quantized_cols, int_mm, quantize_rows
 
 pytestmark = pytest.mark.cuda
@@ -201,17 +204,19 @@ TINY_LAYERS = ((512, 10, 5), (64, 3, 2), (64, 2, 2))
 FRONT_LAYERS = ((512, 10, 5), (512, 3, 2), (512, 2, 2))  # the front-end kernels take 512
 
 
-def _tiny_trunk_pair(dtype, flash, dev, quantize=False, layers=TINY_LAYERS, **fuse):
+def _tiny_trunk_pair(dtype, flash, dev, quantize=False, layers=TINY_LAYERS, conv_pos=(16, 4),
+                     **fuse):
     """One seed's tiny HuBERT-Large-style trunk on the CPU and on the card
-    (conv0 keeps the kernel's 512 channels; head dim 64); ``fuse``: its
-    fused int8 projection and front-end options."""
+    (conv0 keeps the kernel's 512 channels; head dim 64); ``conv_pos``: the
+    pos-conv's (k, groups); ``fuse``: its fused int8 projection, front-end
+    and pos-conv options."""
     from s3prl_tpu_torch.models.wav2vec2 import Wav2Vec2Config
     from s3prl_tpu_torch.upstream.registry import _trunk_upstream
 
     cfg = Wav2Vec2Config(
         extractor_mode="layer_norm", conv_feature_layers=layers,
         encoder_layers=2, encoder_embed_dim=128, encoder_ffn_embed_dim=256,
-        encoder_attention_heads=2, conv_pos=16, conv_pos_groups=4,
+        encoder_attention_heads=2, conv_pos=conv_pos[0], conv_pos_groups=conv_pos[1],
         layer_norm_first=True, normalize=True)
     return [_trunk_upstream("tiny", cfg, dtype=dtype, flash=flash, quantize=quantize, seed=3,
                             device=d, **fuse)
@@ -225,7 +230,7 @@ def _tiny_batch():
     return torch.from_numpy(wavs), torch.from_numpy(lens)
 
 
-def _tiny_wavlm_pair(dev, quantize, layers=TINY_LAYERS, **fuse):
+def _tiny_wavlm_pair(dev, quantize, layers=TINY_LAYERS, conv_pos=(16, 4), **fuse):
     """One seed's tiny WavLM-Large-style model on the CPU and on the card
     (conv0 keeps the kernel's 512 channels; head dim 64)."""
     from s3prl_tpu_torch.models.wavlm import WavLMConfig
@@ -234,7 +239,7 @@ def _tiny_wavlm_pair(dev, quantize, layers=TINY_LAYERS, **fuse):
     cfg = WavLMConfig(
         extractor_mode="layer_norm", conv_feature_layers=layers,
         encoder_layers=2, encoder_embed_dim=128, encoder_ffn_embed_dim=256,
-        encoder_attention_heads=2, conv_pos=16, conv_pos_groups=4,
+        encoder_attention_heads=2, conv_pos=conv_pos[0], conv_pos_groups=conv_pos[1],
         layer_norm_first=True, normalize=True, dropout_input=0.0, num_buckets=32,
         max_distance=80)
     return [_trunk_upstream("tiny", cfg, dtype=torch.bfloat16, flash=True, quantize=quantize,
@@ -983,3 +988,140 @@ def test_every_block_kernel_refuses_inputs_that_require_grad(dev):
             call()
         t.requires_grad_(False)
     torch.cuda.synchronize()
+
+
+# -- the pos-conv options: K16a, K16b; K17 --------------------------------------------
+
+# (B, T') of the pos-conv's input at HuBERT-Large's widths: 10 s, 30 s, one frame
+POSCONV_SHAPES = [(2, 499), (2, 1499), (3, 1)]
+
+
+def _posconv_inputs(rng, dev, B, T, dtype=torch.bfloat16, C=1024, G=16, k=128):
+    """x [B, T, C] (scale 0.5), an f32 nn.Conv1d weight [C, C/G, k] and a bias."""
+    x = _t(rng.randn(B, T, C) * 0.5, dev, dtype)
+    w = _t(rng.randn(C, C // G, k) / np.sqrt(k * C // G), dev)
+    return x, w, _t(rng.randn(C) * 0.1, dev)
+
+
+@pytest.mark.parametrize("B,T", POSCONV_SHAPES)
+def test_k16a_kernel(dev, B, T):
+    """K16a against its plain version on the card (k 128, 16 groups of 64);
+    the nn.Conv1d weight and the load-time GEMM weight give one result."""
+    x, w, bias = _posconv_inputs(np.random.RandomState(32), dev, B, T)
+    wg = pc.posconv_gemm_weight(w.bfloat16(), 16)
+    before = pc.pos_conv_gelu.launches
+    got = pc.pos_conv_gelu(x, wg, bias)
+    torch.cuda.synchronize()
+    assert pc.pos_conv_gelu.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    _close_bf16(got, pc.pos_conv_gelu_reference(x, wg, bias, 16))
+    assert torch.equal(pc.pos_conv_gelu(x, w.bfloat16(), bias), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,T", POSCONV_SHAPES)
+def test_k16b_kernel(dev, B, T, dtype):
+    """K16b: its activation codes and scales equal the plain version's, and
+    its output matches the plain version's (exact int32 sums on both
+    sides): bf16 by `_close_bf16`, f32 at atol 1e-4."""
+    x, w, bias = _posconv_inputs(np.random.RandomState(33), dev, B, T, dtype)
+    q, xs = pc.posconv_quant(x, 16)
+    want_q, want_xs = pc.quantize_posconv_input(x, 16)
+    assert torch.equal(xs, want_xs) and torch.equal(q, want_q)
+    wq, ws = pc.quantize_posconv_weight(w, 16)
+    before = pc.pos_conv_gelu_q8.launches
+    got = pc.pos_conv_gelu_q8(x, (wq, ws), bias)
+    torch.cuda.synchronize()
+    assert pc.pos_conv_gelu_q8.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = pc.pos_conv_gelu_q8_reference(x, wq, ws, bias, 16)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    else:
+        _close_bf16(got, want)
+    assert torch.equal(pc.pos_conv_gelu_q8(x, w, bias), got)
+
+
+@pytest.mark.parametrize("H,T", [(16, 499), (2, 2049)])
+def test_k17_kernel(dev, H, T):
+    """K17 on [2, H, T, 64] with ragged kv_lens [T, 5T/8] against its plain
+    version on the card; beyond MAX_KERNEL_T it hands over to K8, whose
+    launch counts instead."""
+    rng = np.random.RandomState(34)
+    q, k, v = (_t(rng.randn(2, H, T, 64) * sc, dev, torch.bfloat16) for sc in (0.125, 1, 1))
+    kv = _long_kv(T, dev)[:2]
+    before = fa.flash_attention.launches, online_flash_attention.launches
+    got = fa.flash_attention(q, k, v, kv)
+    torch.cuda.synchronize()
+    online = T > fa.MAX_KERNEL_T
+    assert (fa.flash_attention.launches - before[0],
+            online_flash_attention.launches - before[1]) == (0 + (not online), 0 + online)
+    plain = online_flash_attention_reference if online else fa.flash_attention_reference
+    _close_bf16(got, plain(q, k, v, kv))
+
+
+def test_posconv_and_k17_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """Wrong dtypes, group widths and tap counts, CPU weights beside CUDA
+    inputs, inputs that require grad; no frame, no launch."""
+    x, w, bias = _posconv_inputs(np.random.RandomState(35), dev, 2, 40)
+    wg, (wq, ws) = pc.posconv_gemm_weight(w.bfloat16(), 16), pc.quantize_posconv_weight(w, 16)
+    with pytest.raises(NotImplementedError, match="K16a"):  # f32 x: not ported
+        pc.pos_conv_gelu(x.float(), wg.float(), bias)
+    with pytest.raises(ValueError):  # 32 channels per group
+        pc.pos_conv_gelu(x[..., :512].contiguous(), wg[:, :32, :4096].contiguous(),
+                         bias[:512].contiguous())
+    with pytest.raises(ValueError):  # k = 24, not a multiple of 16
+        pc.pos_conv_gelu(x, wg[..., :24 * 64].contiguous(), bias)
+    with pytest.raises(ValueError):  # CPU weight beside a CUDA input
+        pc.pos_conv_gelu(x, wg.cpu(), bias.cpu())
+    with pytest.raises(TypeError):  # f16 x
+        pc.pos_conv_gelu_q8(x.half(), (wq, ws), bias)
+    with pytest.raises(TypeError):  # bf16 weight scales
+        pc.pos_conv_gelu_q8(x, (wq, ws.bfloat16()), bias)
+    with pytest.raises(ValueError):  # k = 48, not a multiple of 32
+        pc.pos_conv_gelu_q8(x, (wq[..., :48 * 64].contiguous(), ws), bias)
+    before = pc.pos_conv_gelu.launches, pc.pos_conv_gelu_q8.launches
+    assert pc.pos_conv_gelu(x[:, :0], wg, bias).shape == (2, 0, 1024)
+    assert pc.pos_conv_gelu_q8(x[:, :0], (wq, ws), bias).shape == (2, 0, 1024)
+    assert (pc.pos_conv_gelu.launches, pc.pos_conv_gelu_q8.launches) == before
+    q = torch.zeros(1, 2, 100, 64, dtype=torch.bfloat16, device=dev)
+    kv = torch.tensor([60], dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):  # f32 q, k, v
+        fa.flash_attention(q.float(), q.float(), q.float(), kv)
+    with pytest.raises(ValueError):  # head dim 32
+        fa.flash_attention(q[..., :32].contiguous(), q[..., :32].contiguous(),
+                           q[..., :32].contiguous(), kv)
+    for tensor, call in ((x, lambda: pc.pos_conv_gelu(x, wg, bias)),
+                         (bias, lambda: pc.pos_conv_gelu_q8(x, (wq, ws), bias)),
+                         (q, lambda: fa.flash_attention(q, q, q, kv))):
+        tensor.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="forward-only"):  # the kernels have no backward
+            call()
+        with torch.no_grad():
+            call()
+        tensor.requires_grad_(False)
+
+
+@pytest.mark.parametrize("model,path,option,max_posconv_t,launches", [
+    ("hubert", "bf16", "fused_posconv", 2048, [1, 0, 0, 2, 2] + [0] * 11 + [1]),
+    ("hubert", "int8", "int8_posconv", 2048, [1, 2, 2] + [0] * 14 + [1]),
+    ("hubert", "int8", "fused_posconv", 2048, [1, 2, 2] + [0] * 13 + [1]),
+    ("hubert", "f32", "int8_posconv", 2048, [1] + [0] * 16 + [1]),
+    ("hubert", "int8", "int8_posconv", 64, [1, 2, 2]),
+    ("wavlm", "bf16", "fused_posconv", 2048, [1] + [0] * 7 + [2] + [0] * 7 + [1]),
+    ("wavlm", "int8", "int8_posconv", 2048, [1, 0, 2] + [0] * 5 + [2] + [0] * 8 + [1]),
+], ids=lambda v: v if isinstance(v, str) else str(v) if isinstance(v, int) else "")
+def test_tiny_models_posconv_options_match_cpu(dev, monkeypatch, model, path, option,
+                                               max_posconv_t, launches):
+    """Each pos-conv option on the card (C = 128 in 2 groups of 64, k = 32;
+    T' = 320 frames) against the same seed's model on the CPU, with its
+    launch counts: one K16a or K16b a forward, none when MAX_POSCONV_T is
+    below T' (the stock conv)."""
+    monkeypatch.setattr(pc, "MAX_POSCONV_T", max_posconv_t)
+    quantize, dtype = path == "int8", torch.float32 if path == "f32" else torch.bfloat16
+    if model == "hubert":
+        pair = _tiny_trunk_pair(dtype, path != "f32", dev, quantize=quantize, conv_pos=(32, 2),
+                                **{option: True})
+    else:
+        pair = _tiny_wavlm_pair(dev, quantize, conv_pos=(32, 2), **{option: True})
+    _trunk_on_card_vs_cpu(dev, monkeypatch, quantize, launches, pair=pair)

@@ -249,7 +249,8 @@ def test_port_never_imports_jax():
         "import s3prl_tpu_torch.kernels.flash_attention, s3prl_tpu_torch.ops.quant\n"
         "import s3prl_tpu_torch.kernels, s3prl_tpu_torch.models.transformer\n"
         "import s3prl_tpu_torch.models.wavlm, s3prl_tpu_torch.kernels.ln_gelu\n"
-        "assert len(s3prl_tpu_torch.kernels.wrappers()) == 16\n"
+        "import s3prl_tpu_torch.kernels.posconv\n"
+        "assert len(s3prl_tpu_torch.kernels.wrappers()) == 19\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 's3prl_tpu')]\n"
         "assert not bad, bad\n"
