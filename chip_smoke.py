@@ -7,6 +7,12 @@ Phases (any failed check raises, so the exit code is not 0 and no result
 line is printed; each phase prints its seconds):
  1. require a CUDA device; print the card's name and power limit;
  2. build the CUDA kernels from csrc/ (into build/) and print the seconds;
+    for the gated attention kernel (K9, K10, K17) print each
+    instantiation's registers, stack and spills (ptxas -v, nvcc.log) with
+    any ptxas note that its wgmma were serialized, its dynamic shared
+    memory and blocks per SM, and its HGMMA (wgmma) count in the SASS
+    (cuobjdump); fail on a stack frame, a spill or an instantiation
+    without HGMMA;
  3. each kernel against its plain PyTorch version on the same CUDA tensors,
     at the main paths' shapes with unit-scale inputs: cosine > 0.9995 and
     every element within max(3e-2, one bf16 step at the plain value) of
@@ -15,9 +21,14 @@ line is printed; each phase prints its seconds):
     C=1024, F=4096 (two chunks) and postnorm at C=768, F=3072 (one chunk),
     K4, K5 (B=4 x 499 frames); K6 and K7 at B=4 x 1,499 frames, K8 on
     [2, 16, 2999, 64]; WavLM's K9 at B=4 x 499 and B=4 x 1,499 and K10 on
-    [2, 16, 2999, 64], with a pos_bias from the bucket table and gates in
-    (1, 3); the fused int8 projections: K11 at B=4 x 499 and B=4 x 1,499
-    (the same bias and gates, ragged kv_lens) and K12 in its four (ln,
+    [2, 16, 2999, 64], with a pos_bias from the bucket table in the main
+    path's form (bf16 in a buffer padded to rows of a multiple of 8) and
+    gates in (1, 3), K9 at B=4 x 499 and K10 on [2, 16, 2999, 64] again
+    with the contiguous f32 bias, K9 at T = 65, 127, 499 and K10 at T =
+    2,049 (bf16) and 65 (f32) on B=7 with kv_lens on the 64-key tile edges
+    (1, 63, 64, 65, 127, 128, T), both bias forms at K9's; the fused int8
+    projections: K11 at B=4 x 499 and B=4 x 1,499
+    (an f32 bias, the same gates, ragged kv_lens) and K12 in its four (ln,
     residual) sets at [4 x 499, 1024] -> N = 3072 (with the LN) or 1024;
     the share of int8 codes where the kernels' quantizers and the plain
     ones differ is printed (K6's and K11's context codes among them). The
@@ -31,7 +42,7 @@ line is printed; each phase prints its seconds):
     share is printed); the pos-conv kernels K16a and K16b at B=4 x 499 and
     B=4 x 1,499 frames of HuBERT-Large's pos-conv (C 1024, k 128, 16 groups),
     K16b's activation codes and scales under the same rule; K17 on [4, 16,
-    499, 64];
+    499, 64] and on B=7 x 65 and 127 frames with kv_lens on the tile edges;
  4. the main paths at full width, HuBERT-Large (hub.load(
     "hubert_large_ll60k", bf16, flash, quantize=True) - the int8 serving
     default - and quantize=False) and WavLM-Large (hub.load("wavlm_large",
@@ -70,10 +81,13 @@ line is printed; each phase prints its seconds):
     CUDA events) with the peak device memory, and each kernel against its
     plain version at those shapes, with its bound (the larger of the
     bytes it must move over 3.35 TB/s and its operations over the peak
-    rate of their type) and, for the attention kernels K7-K10, the time of
-    one torch.nn.functional.scaled_dot_product_attention on the same bf16
-    q, k, v with its mask (built before the timed region; the port never
-    calls it). The options' paths are timed at B=32 x 10 s and B=8 x 30 s
+    rate of their type; the bias counted at its element size) and, for the
+    attention kernels K7-K10, the time of one
+    torch.nn.functional.scaled_dot_product_attention on the same bf16 q, k,
+    v with its mask (built before the timed region; the port never calls
+    it). K9 and K10 are timed with the main path's padded bf16 bias (their
+    entries in the kernels line) and again with the contiguous f32 one.
+    The options' paths are timed at B=32 x 10 s and B=8 x 30 s
     (``qkv_fuse`` at 30 s only), K11 at [32, 499] and K12 at 32 x 499 rows
     beside the split pairs they replace (K9 with the heads split and merged,
     int8_matmul out-proj and residual; LN and int8_matmul QKV; int8_matmul
@@ -276,33 +290,48 @@ def long_kernel_calls(inp, inp8):
     }
 
 
-def gated_bias(B, T, gen, dev, H=16):
+def gated_bias(B, T, gen, dev, H=16, form="bf16"):
     """A pos_bias [H, T, T] gathered from WavLM's bucket table (320 buckets
-    up to distance 800) with a random [320, H] table, and gates in (1, 3)."""
+    up to distance 800) with a random [320, H] table, and gates in (1, 3).
+    `form` "bf16": the table rounded to bf16 and gathered into [H, T, Tp]
+    (Tp = T rounded up to 8), the view [:, :, :T], as the bf16 model's
+    `WavLMEncoder._layer_args` builds it for K9/K10; "f32": contiguous f32
+    (what K11 takes)."""
     from s3prl_tpu_torch.models.wavlm import bucket_table
 
     table = (torch.randn(320, H, generator=gen) * 0.5).to(dev)
-    return dict(pos_bias=table.t()[:, bucket_table(T, 320, 800, dev)].contiguous(),
-                gate=(1 + 2 * torch.rand(B, H, T, generator=gen)).to(dev))
+    if form == "bf16":
+        Tp = -(-T // 8) * 8
+        pos_bias = table.t().to(torch.bfloat16)[:, bucket_table(T, 320, 800, dev, cols=Tp)]
+        pos_bias = pos_bias[:, :, :T]
+    else:
+        pos_bias = table.t()[:, bucket_table(T, 320, 800, dev)].contiguous()
+    return dict(pos_bias=pos_bias, gate=(1 + 2 * torch.rand(B, H, T, generator=gen)).to(dev))
 
 
-def gated_inputs(B, T, gen, dev, H=16):
+KV_EDGES = (1, 63, 64, 65, 127, 128)  # kv_lens on and beside the 64-key tile edges
+
+
+def gated_inputs(B, T, gen, dev, H=16, form="bf16", edges=False):
     """K9/K10 inputs at WavLM-Large's widths: q (pre-scaled), k, v split
-    from a unit-scale fused QKV as the model splits it, `gated_bias` and
-    ragged kv_lens."""
+    from a unit-scale fused QKV as the model splits it, `gated_bias` in
+    `form` and kv_lens [T, T, 5T/8, 1, ...], or with `edges` [T, 1, 63, 64,
+    65, 127, 128, T, ...] (the edges below T)."""
     from s3prl_tpu_torch.kernels import flash_attention as fa
 
     qkv = torch.randn(B, T, 3 * H * 64, generator=gen).to(dev, torch.bfloat16)
     q, k, v = fa._split_heads(qkv, H)
-    return dict(q=q, k=k, v=v, **gated_bias(B, T, gen, dev, H),
-                kv=torch.tensor(([T, T, (T * 5) // 8, 1] * B)[:B], dtype=torch.int32, device=dev))
+    kv = [T] + [n for n in KV_EDGES if n < T] if edges else [T, T, (T * 5) // 8, 1]
+    return dict(q=q, k=k, v=v, **gated_bias(B, T, gen, dev, H, form),
+                kv=torch.tensor([kv[i % len(kv)] for i in range(B)], dtype=torch.int32,
+                                device=dev))
 
 
 def k11_inputs(B, T, gen, dev, H=16):
     """K11 inputs at WavLM-Large's widths: `long_inputs` (the unit-scale
     fused QKV, the residual, the out-proj's int8 pair, ragged kv_lens and
-    the split heads) with `gated_bias`."""
-    return {**long_inputs(B, T, gen, dev, C=H * 64, H=H), **gated_bias(B, T, gen, dev, H)}
+    the split heads) with `gated_bias` in f32, the form K11 takes."""
+    return {**long_inputs(B, T, gen, dev, C=H * 64, H=H), **gated_bias(B, T, gen, dev, H, "f32")}
 
 
 def k11_calls(inps):
@@ -348,8 +377,16 @@ def split_pairs(inp, inp11):
     }
 
 
-def gated_kernel_calls(inps9, inp10):
-    """K9 on each of `inps9`, K10 on `inp10`: name -> [(variant, kernel, plain)]."""
+def gated_variant(i):
+    """A K9/K10 variant's label: the shape, the bias's dtype and row stride,
+    the kv_lens."""
+    return (f"{list(i['q'].shape)} {str(i['pos_bias'].dtype)[6:]} bias rows "
+            f"{i['pos_bias'].stride(1)} apart, kv {i['kv'].tolist()[:7]}")
+
+
+def gated_kernel_calls(inps9, inps10):
+    """K9 on each of `inps9`, K10 on each of `inps10`: name -> [(variant,
+    kernel, plain)]."""
     from s3prl_tpu_torch.kernels import flash_attention as fa
 
     def args(i):
@@ -357,11 +394,11 @@ def gated_kernel_calls(inps9, inp10):
 
     return {
         "gated_bias_attention": [
-            (str(list(i["q"].shape)), lambda a=args(i): fa.gated_bias_attention(*a),
+            (gated_variant(i), lambda a=args(i): fa.gated_bias_attention(*a),
              lambda a=args(i): fa.gated_bias_attention_reference(*a)) for i in inps9],
         "gated_online_flash_attention": [
-            (str(list(inp10["q"].shape)), lambda: fa.gated_online_flash_attention(*args(inp10)),
-             lambda: fa.gated_online_flash_attention_reference(*args(inp10)))],
+            (gated_variant(i), lambda a=args(i): fa.gated_online_flash_attention(*a),
+             lambda a=args(i): fa.gated_online_flash_attention_reference(*a)) for i in inps10],
     }
 
 
@@ -416,13 +453,18 @@ def check_posconv_codes(inps):
         check(int(d.max()) <= 1 and share <= 1e-3 and rel <= 1e-5, "K16b activation codes")
 
 
-def k17_calls(i):
-    """K17 on the split heads of `i` (`gated_inputs`, without the bias)."""
+def k17_calls(inps):
+    """K17 on the split heads of each of `inps` (`gated_inputs`, without the
+    bias)."""
     from s3prl_tpu_torch.kernels import flash_attention as fa
 
-    args = (i["q"], i["k"], i["v"], i["kv"])
-    return {"flash_attention": [(str(list(i["q"].shape)), lambda: fa.flash_attention(*args),
-                                 lambda: fa.flash_attention_reference(*args))]}
+    def args(i):
+        return i["q"], i["k"], i["v"], i["kv"]
+
+    return {"flash_attention": [
+        (f"{list(i['q'].shape)} kv {i['kv'].tolist()[:7]}",
+         lambda a=args(i): fa.flash_attention(*a),
+         lambda a=args(i): fa.flash_attention_reference(*a)) for i in inps]}
 
 
 HBM = 3.35e12  # bytes/s, H100 SXM (NVIDIA's data sheet)
@@ -469,12 +511,13 @@ def kernel_bound(name, i, variant=0):
         ops = {"bf16": attention_work(B, T, H, kv), "f32": 2 * H * T * sum(kv),
                "int8": 2 * B * T * C * C}
         return bound(ops, nbytes(i["qkv"], i["x"], i["gate"], *i["wo8"], i["bo"])
-                     + B * T * C * 2 + H * T * max(kv) * 4)
+                     + B * T * C * 2 + H * T * max(kv) * i["pos_bias"].element_size())
     if name in ("gated_bias_attention", "gated_online_flash_attention"):
         B, H, T, Dh = i["q"].shape
         valid_kv = sum(kv) * H * Dh * 2
         return bound({"bf16": attention_work(B, T, H, kv), "f32": 2 * H * T * sum(kv)},
-                     2 * nbytes(i["q"]) + 2 * valid_kv + H * T * max(kv) * 4 + nbytes(i["gate"]))
+                     2 * nbytes(i["q"]) + 2 * valid_kv
+                     + H * T * max(kv) * i["pos_bias"].element_size() + nbytes(i["gate"]))
     if name in ("online_flash_attention", "flash_attention"):
         B, H, T, Dh = i["q"].shape
         return bound({"bf16": attention_work(B, T, H, kv)},
@@ -952,6 +995,52 @@ def layer_cosines(a, b, h_lens):
     return out
 
 
+def gated_build_report(lib):
+    """The gated attention kernel (K9, K10, K17) as built: for each
+    instantiation its registers and spills (ptxas -v, from the build's
+    nvcc.log), its dynamic shared memory and blocks per SM (the CUDA
+    occupancy query) and its count of HGMMA (wgmma) instructions (cuobjdump
+    -sass), and any ptxas note that its wgmma were serialized. Fails on a
+    stack frame or spill, or on an instantiation without HGMMA."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    from s3prl_tpu_torch.kernels import _build
+
+    lines = (Path(lib._name).parent / "nvcc.log").read_text().splitlines()
+    ptxas = {}
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "gated_attention_kernel" in line:
+            name = line.split("'")[1]
+            info = " ".join(lines[i + 1:i + 5])
+            spills = [int(n) for n in re.findall(r"(\d+) bytes (?:stack frame|spill stores"
+                                                 r"|spill loads)", info)]
+            regs = re.search(r"Used (\d+) registers", info)
+            ptxas[name] = (int(regs.group(1)) if regs else None, sum(spills))
+        elif "gated_attention_kernel" in line and "Performance Loss" in line:
+            log(f"[build] ptxas: {line.strip()}")
+    sass = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", lib._name],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    hgmma = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if "gated_attention_kernel" in name:
+            hgmma[name] = part.count("HGMMA")
+    check(ptxas and hgmma, "gated_attention_kernel missing from nvcc.log or the SASS")
+    for name, (regs, spills) in sorted(ptxas.items()):
+        log(f"[build] {name}: {regs} registers, {spills} bytes of stack and spills, "
+            f"{hgmma.get(name, 0)} HGMMA in its SASS")
+        check(spills == 0 and hgmma.get(name, 0) > 0, f"{name}: spills or no HGMMA")
+    for kind, what in enumerate(("no bias (K17)", "bf16 bias", "f32 bias")):
+        smem, blocks = ctypes.c_int(), ctypes.c_int()
+        err = _build.library().s3_gated_attention_occupancy(kind, ctypes.byref(smem),
+                                                           ctypes.byref(blocks))
+        check(err == 0, f"occupancy query ({what}): CUDA error {err}")
+        log(f"[build] gated_attention_kernel, {what}: {smem.value} bytes of dynamic shared "
+            f"memory a block, {blocks.value} blocks (x 4 warps) per SM")
+
+
 class Phase:
     """Prints a phase's seconds when it ends."""
 
@@ -1038,6 +1127,7 @@ def main():
     with Phase("2 build"):
         lib = _build.library()
         log(f"[build] {lib._name}")
+        gated_build_report(lib)
 
     # 3. kernel vs plain at main-path shapes
     from s3prl_tpu_torch.kernels import _common as kc
@@ -1052,9 +1142,14 @@ def main():
         inp8 = long_inputs(2, 2999, gen, dev)
         check_kernels(kernel_calls(inp, inp_base), max_err)
         check_kernels(long_kernel_calls(inp_long, inp8), max_err)
-        check_kernels(gated_kernel_calls([gated_inputs(4, 499, gen, dev),
-                                          gated_inputs(4, 1499, gen, dev)],
-                                         gated_inputs(2, 2999, gen, dev)), max_err)
+        check_kernels(gated_kernel_calls(
+            [gated_inputs(4, 499, gen, dev), gated_inputs(4, 1499, gen, dev),
+             gated_inputs(4, 499, gen, dev, form="f32"),
+             *(gated_inputs(7, T, gen, dev, form=form, edges=True)
+               for T in (65, 127, 499) for form in ("bf16", "f32"))],
+            [gated_inputs(2, 2999, gen, dev), gated_inputs(2, 2999, gen, dev, form="f32"),
+             gated_inputs(7, 2049, gen, dev, edges=True),
+             gated_inputs(7, 65, gen, dev, form="f32", edges=True)]), max_err)
         inp11 = [k11_inputs(4, 499, gen, dev), k11_inputs(4, 1499, gen, dev)]
         check_kernels(k11_calls(inp11), max_err)
         for what, share in code_mismatch(inp, inp_long, inp11[0]).items():
@@ -1083,7 +1178,9 @@ def main():
         inp16 = [posconv_inputs(4, 499, gen, dev), posconv_inputs(4, 1499, gen, dev)]
         check_kernels(posconv_calls(inp16), max_err)
         check_posconv_codes(inp16)
-        check_kernels(k17_calls(gated_inputs(4, 499, gen, dev)), max_err)
+        check_kernels(k17_calls([gated_inputs(4, 499, gen, dev),
+                                 *(gated_inputs(7, T, gen, dev, edges=True) for T in (65, 127))]),
+                      max_err)
         del inp16
 
     # 4. the main paths at full width, int8 (the serving default) then bf16,
@@ -1279,11 +1376,14 @@ def main():
         time_kernels(long_kernel_calls(inp_long, inp8), inputs, "(30 s: B=8; 60 s: B=4)",
                      entries, launches, max_err)
         del inp_long, inp8, inputs
-        inp9, inp10 = gated_inputs(32, 499, gen, dev), gated_inputs(4, 2999, gen, dev)
-        time_kernels(gated_kernel_calls([inp9], inp10),
-                     {"gated_bias_attention": inp9, "gated_online_flash_attention": inp10},
-                     "(10 s: B=32; 60 s: B=4)", entries, launches, max_err)
-        del inp9, inp10
+        for form in ("bf16", "f32"):  # the main path's padded bf16 bias first: the kernels line
+            inp9, inp10 = (gated_inputs(32, 499, gen, dev, form=form),
+                           gated_inputs(4, 2999, gen, dev, form=form))
+            time_kernels(gated_kernel_calls([inp9], [inp10]),
+                         {"gated_bias_attention": inp9, "gated_online_flash_attention": inp10},
+                         f"(10 s: B=32; 60 s: B=4; {form} bias)",
+                         entries if form == "bf16" else {}, launches, max_err)
+            del inp9, inp10
         time_frontend(frontend_inputs(32, gen, dev), entries, launches, max_err)
         inp16 = posconv_inputs(32, 499, gen, dev)
         time_kernels(posconv_calls([inp16]), {"pos_conv_gelu": inp16, "pos_conv_gelu_q8": inp16},
@@ -1300,7 +1400,7 @@ def main():
             f"GELU: {t:.3f} ms")
         del inp16, x, w, b
         inp17 = gated_inputs(32, 499, gen, dev)
-        time_kernels(k17_calls(inp17), {"flash_attention": inp17}, "B=32", entries, launches,
+        time_kernels(k17_calls([inp17]), {"flash_attention": inp17}, "B=32", entries, launches,
                      max_err)
         del inp17
     log(json.dumps({"kernels": [entries[name] for name in wrapper]}))

@@ -1,6 +1,7 @@
 // Masked attention in f32 on [B, H, T, 64] bf16 q, k, v (q pre-scaled by
 // Dh^-0.5), output [B, H, T, 64] bf16, with or without WavLM's gated
-// relative-position bias (pos_bias [H, T, T] f32, shared by the utterances;
+// relative-position bias (pos_bias [H, T, T] in f32 or bf16, the last axis
+// contiguous, rows `bias_ld` elements apart; shared by the utterances;
 // gate [B, H, T] f32):
 //   s_k = q_t.k_k [+ gate[b, h, t] * pos_bias[h, t, k]]  for k < kv_len[b],
 //         `masked` otherwise
@@ -20,267 +21,513 @@
 // here all are K-blocked, so they share one kernel and differ in the two
 // constants and the template flag.
 //
-// The design is online_attention.cu's (K8): one block per (64 queries,
-// head, utterance), 4 warps of 16 query rows, K/V streamed through shared
-// memory in 64-key tiles with cp.async, double-buffered; f32 online
-// softmax; S = Q K^T on bf16 WMMA (a product of two bf16 values is exact in
-// f32); P.V exact in f32 by splitting each probability into three bf16
-// parts, p = hi + mid + lo. On top of that, the bias: after a warp stores
-// its 16 x 64 f32 score square, its lanes read the square's pos_bias rows
-// straight from device memory (lanes along the keys, so each row is one
-// coalesced read) and add gate * bias to each valid score, the product
-// first and then the sum in f32 (__fmul_rn, __fadd_rn: no contraction), as
-// the cell writes it. The 64 gates of the block sit in shared memory.
+// Design (Hopper, sm_90a): one block is one warpgroup (128 threads) on 64
+// queries of one (utterance, head); key tiles of 64 stream through a ring of
+// three stages, each holding the K tile, the V tile and the bias tile
+// [64 queries, 64 keys]. K, V (and Q, once) come by TMA from [B*H, T, 64]
+// tensor maps in the 128-byte swizzle that wgmma reads (rows past T are
+// zero-filled); the bias tile comes by cp.async (16-byte granules, or
+// 4-byte ones for f32 rows that are not 16-byte aligned), completing on the
+// same stage mbarrier (cp.async.mbarrier.arrive.noinc). At the top of tile
+// kt the block issues the loads of tile kt + 2 into the stage tile kt - 1
+// freed, so two tiles of K, V and bias are in flight while one computes.
+//
+// S = Q K^T is four wgmma m64n64k16 (bf16 in, f32 accumulate; a product of
+// two bf16 values is exact in f32). The scores stay in the accumulator's
+// registers: a thread holds two adjacent keys of rows r and r + 8 in each
+// 8-key chunk, so it reads a float2 (or bf16x2) of the staged bias tile,
+// adds gate * bias (the product first, then the sum, __fmul_rn/__fadd_rn:
+// no contraction, as the cell writes it), masks, and takes the row max and
+// sum by shuffles among the 4 threads of a row. The running output is
+// rescaled in registers. P.V stays exact in f32: each probability is split
+// into three bf16 parts (p = hi + mid + lo, two at a time with
+// cvt.rn.bf16x2.f32), which are the register A operands of twelve wgmma
+// m64n64k16 against V in shared memory (transposed B: V is [keys, Dh]), the
+// small parts first. The accumulator's layout of S is the A operand's
+// layout of P, so nothing goes through shared memory between the products.
 //
 // Block order: blockIdx.x is the utterance, so the B blocks that read the
 // same [64, T] rows of pos_bias are launched together and hit L2 (the TPU
-// kernel's batch-innermost grid, :65-69); otherwise the f32 bias would come
-// from device memory B times (2.3 GB a layer at 60 s, B = 4).
+// kernel's batch-innermost grid, :65-69); otherwise the bias would come
+// from device memory B times.
 //
 // Masking: the softmax sees `masked` for keys at or past kv_len. A key tile
 // wholly past kv_len contributes exactly 0 (exp2 of masked - m underflows
-// once a valid score has set m), so those tiles are skipped; keys past T
+// once a valid score has set m), so those tiles are not loaded; keys past T
 // are past kv_len. kv_len = 0 is outside the contract (the model never
 // produces it): no tile runs, and the row is 0 / l_floor.
 //
-// Bound: at WavLM-Large's shapes the bytes (q, k, v, out, and the f32
-// pos_bias, 576 MB at T = 2999) take less time than the tensor-core issue
-// of the four 64-deep products per tile (S, and P.V three times), with the
-// softmax and the bias read between them on the CUDA cores.
-#include <mma.h>
+// Bound: at WavLM-Large's shapes the bytes (q, k, v, out and the bias: 288
+// MB in bf16 at T = 2999) take less time than the tensor-core issue of the
+// four 64-deep products per tile (S, and P.V three times) plus the
+// exponentials on the special-function units.
+#include <cuda.h>
 
 #include "common.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using s3::bf16;
 
 constexpr int kDh = 64;
 constexpr int kBQ = 64, kBKV = 64;
-constexpr int kWarps = 4;
-constexpr int kParts = 3;     // bf16 parts of one f32 probability
-constexpr int kLd = kDh + 8;  // bf16 shared row stride (144 bytes)
-constexpr int kLdf = 64 + 4;  // f32 shared row stride
-constexpr int kTileBytes = kBQ * kLd * 2;
-constexpr int kSBytes = kWarps * 16 * kLdf * 4;
-constexpr int kPBytes = kWarps * 16 * kLd * 2;
-constexpr int kGateBytes = kBQ * 4;
-// Q, two stages of (K, V), the per-warp f32 squares, the three P parts, the gates
-constexpr int kSmemBytes =
-    kTileBytes + 2 * 2 * kTileBytes + kSBytes + kParts * kPBytes + kGateBytes;
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kStages = 3;
+constexpr int kTileBytes = kBKV * kDh * 2;  // a 64 x 64 bf16 tile: 64 swizzled rows of 128 bytes
+constexpr int kLdb = kBKV + 8;              // bias row stride in shared memory (no bank conflicts)
 
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0, int T, int tid) {
-  for (int i = tid; i < kBKV * (kDh / 8); i += kWarps * 32) {
-    const int r = i / (kDh / 8), c = (i % (kDh / 8)) * 8;
-    const bool p = r0 + r < T;
-    s3::cp_async16(dst + r * kLd + c, p ? src + static_cast<size_t>(r0 + r) * kDh + c : src, p);
+template <bool kGated, typename BiasT>
+struct Smem {  // Q, then kStages x (K, V, bias), then the barriers: Q's and one per stage
+  static constexpr int kBiasBytes = kGated ? kBQ * kLdb * static_cast<int>(sizeof(BiasT)) : 0;
+  static constexpr int kStageBytes = 2 * kTileBytes + kBiasBytes;  // multiples of 1024
+  static constexpr int kBars = kTileBytes + kStages * kStageBytes;
+  static constexpr int kBytes = kBars + 8 * (1 + kStages) + 1024;  // + the alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
 }
 
-template <bool kGated>
-__global__ void __launch_bounds__(kWarps * 32)
-    gated_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, const float* __restrict__ pos_bias,
+// One 64-row box of a [B*H, T, 64] bf16 tensor map (rows past T read as 0).
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, int row, int bh,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(bh), "r"(bar)
+      : "memory");
+}
+
+// `bytes` (<= the copy size) are read, the rest of the copy is zero-filled.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+// The stage barrier counts one arrival of this thread when its cp.asyncs land.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile of 128-byte rows in the 128-byte
+// swizzle (1024-byte aligned tile base): 8-row groups 1024 bytes apart. The
+// same stride in both offset fields serves the K-major Q and K tiles (where
+// the leading offset is unused) and the MN-major V tile (64 columns: one
+// swizzle atom along N, 8-key groups 1024 bytes apart).
+__device__ __forceinline__ uint64_t desc128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (64ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accesses of an accumulator across the
+// asynchronous products that own it.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define S3_ACC32                                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define S3_OUT32(d)                                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (+)= A B, A [64, 16] and B [16, 64] K-major in shared memory (S = Q K^T)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " S3_ACC32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : S3_OUT32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A B, A [64, 16] bf16 in registers, B [16, 64] MN-major in shared
+// memory (P.V with V stored [keys, Dh])
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " S3_ACC32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : S3_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ float2 bias2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 bias2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo_col, float hi_col) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);  // cvt.rn.bf16x2.f32
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// The bias tile [64 queries, 64 keys] from rows q0.., keys k0.. into
+// shared memory (row stride kLdb); entries past T are zero-filled, never read
+// from device memory.
+template <typename BiasT>
+__device__ __forceinline__ void load_bias(uint32_t dst, const BiasT* bias_h, int ld, bool vec16,
+                                          int q0, int k0, int T, int tid) {
+  constexpr int kSize = sizeof(BiasT), kVec = 16 / kSize;
+  if (sizeof(BiasT) == 2 || vec16) {
+#pragma unroll
+    for (int i = tid; i < kBQ * (kBKV / kVec); i += kThreads) {
+      const int r = i / (kBKV / kVec), c = (i % (kBKV / kVec)) * kVec;
+      const int t = q0 + r, k = k0 + c;
+      const int n = t < T && k < T ? min(kVec, T - k) * kSize : 0;
+      const BiasT* src = n ? bias_h + static_cast<size_t>(t) * ld + k : bias_h;
+      cp_async16(dst + (r * kLdb + c) * kSize, src, n);
+    }
+  } else {  // f32 rows that are not 16-byte aligned (an unpadded [H, T, T] at odd T)
+#pragma unroll 8
+    for (int i = tid; i < kBQ * kBKV; i += kThreads) {
+      const int r = i / kBKV, c = i % kBKV;
+      const int t = q0 + r, k = k0 + c;
+      const bool ok = t < T && k < T;
+      const BiasT* src = ok ? bias_h + static_cast<size_t>(t) * ld + k : bias_h;
+      cp_async4(dst + (r * kLdb + c) * kSize, src, ok ? kSize : 0);
+    }
+  }
+}
+
+template <bool kGated, typename BiasT>
+__global__ void __launch_bounds__(kThreads)
+    gated_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const BiasT* __restrict__ pos_bias, int bias_ld, int vec16,
                            const float* __restrict__ gate, const int* __restrict__ kv_lens,
                            bf16* __restrict__ out, int H, int T, float masked, float l_floor) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* kvs = reinterpret_cast<bf16*>(smem + kTileBytes);  // [stage][K, V]
-  float* ss = reinterpret_cast<float*>(smem + 5 * kTileBytes);
-  bf16* ps = reinterpret_cast<bf16*>(smem + 5 * kTileBytes + kSBytes);
-  float* gs = reinterpret_cast<float*>(smem + 5 * kTileBytes + kSBytes + kParts * kPBytes);
+  using L = Smem<kGated, BiasT>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the swizzle pattern repeats every 1024 bytes
+  const unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t q_s = base, bars = base + L::kBars;  // bars: Q's, then one per stage
+  auto k_s = [&](int st) { return base + kTileBytes + st * L::kStageBytes; };
 
   const int b = blockIdx.x, q0 = blockIdx.y * kBQ, h = blockIdx.z;
-  const size_t head = (static_cast<size_t>(b) * H + h) * T;
-  const bf16 *qh = q + head * kDh, *kh = k + head * kDh, *vh = v + head * kDh;
-  const float* bias_h = pos_bias + static_cast<size_t>(h) * T * T;
+  const int bh = b * H + h;
+  const size_t head = static_cast<size_t>(bh) * T;
+  const BiasT* bias_h = kGated ? pos_bias + static_cast<size_t>(h) * T * bias_ld : nullptr;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int kv_len = min(max(kv_lens[b], 0), T);
   const int n_tiles = (kv_len + kBKV - 1) / kBKV;
 
-  if (kGated && tid < kBQ) gs[tid] = q0 + tid < T ? gate[head + q0 + tid] : 0.f;
-  load_tile(qs, qh, q0, T, tid);
-  if (n_tiles > 0) {
-    load_tile(kvs, kh, 0, T, tid);
-    load_tile(kvs + kBKV * kLd, vh, 0, T, tid);
-  }
-  s3::cp_async_commit();
-
-  float* sw = ss + warp * 16 * kLdf;  // this warp's 16 x 64 f32 square
-  const int rr = lane / 2, half = lane % 2;  // two lanes per query row
-  float m_i = masked, l_i = 0.f;
-
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[kDh / 16];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[kDh / 16];
+  if (tid == 0) {
+    mbar_init(bars, 1);
 #pragma unroll
-  for (int j = 0; j < kDh / 16; ++j) wmma::fill_fragment(of[j], 0.f);
+    for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * (1 + st), kGated ? kThreads + 1 : 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Tile kt's K and V by TMA (thread 0) and its bias by cp.async (every
+  // thread), all completing on the stage barrier.
+  auto issue = [&](int kt) {
+    const int st = kt % kStages;
+    const uint32_t full = bars + 8 * (1 + st);
+    if (tid == 0) {
+      mbar_expect_tx(full, 2 * kTileBytes);
+      tma_rows(k_s(st), &tm_k, kt * kBKV, bh, full);
+      tma_rows(k_s(st) + kTileBytes, &tm_v, kt * kBKV, bh, full);
+    }
+    if constexpr (kGated) {
+      load_bias(k_s(st) + 2 * kTileBytes, bias_h, bias_ld, vec16, q0, kt * kBKV, T, tid);
+      cp_async_arrive(full);
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bars, kTileBytes);
+    tma_rows(q_s, &tm_q, q0, bh, bars);
+  }
+  for (int kt = 0; kt < min(n_tiles, kStages - 1); ++kt) issue(kt);
+
+  // This thread's rows of the tile (the accumulator layout of m64nNk16):
+  // rw and rw + 8, keys 8c + cq and 8c + cq + 1 of each 8-key chunk c.
+  const int rw = warp * 16 + lane / 4, cq = 2 * (lane % 4);
+  float g0 = 0.f, g1 = 0.f;
+  if (kGated) {
+    if (q0 + rw < T) g0 = gate[head + q0 + rw];
+    if (q0 + rw + 8 < T) g1 = gate[head + q0 + rw + 8];
+  }
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m0 = masked, m1 = masked, l0 = 0.f, l1 = 0.f;
+  mbar_wait(bars, 0);  // Q
 
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBKV;
-    if (kt + 1 < n_tiles) {  // the next tile goes to the other stage
-      bf16* next = kvs + ((kt + 1) % 2) * 2 * kBKV * kLd;
-      load_tile(next, kh, k0 + kBKV, T, tid);
-      load_tile(next + kBKV * kLd, vh, k0 + kBKV, T, tid);
-      s3::cp_async_commit();
-      s3::cp_async_wait<1>();
-    } else {
-      s3::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* ks = kvs + (kt % 2) * 2 * kBKV * kLd;
-    const bf16* vs = ks + kBKV * kLd;
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kDh / 16; ++kk)
-        wmma::load_matrix_sync(qf[kk], qs + warp * 16 * kLd + kk * 16, kLd);
-    }
+    const int st = kt % kStages, k0 = kt * kBKV;
+    __syncthreads();  // every thread is done with tile kt - 1, whose stage tile kt + 2 takes
+    if (kt + kStages - 1 < n_tiles) issue(kt + kStages - 1);
+    mbar_wait(bars + 8 * (1 + st), (kt / kStages) & 1);
 
-    // S = Q K^T for this warp's 16 rows x 64 keys
+    // S = Q K^T
+    float s[32];
 #pragma unroll
-    for (int j = 0; j < kBKV / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-      wmma::fill_fragment(sf, 0.f);
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < kDh / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, ks + j * 16 * kLd + kk * 16, kLd);
-        wmma::mma_sync(sf, qf[kk], kf, sf);
-      }
-      wmma::store_matrix_sync(sw + j * 16, sf, kLdf, wmma::mem_row_major);
-    }
-    __syncwarp();
+    for (int kk = 0; kk < kDh / 16; ++kk)
+      wgmma_ss(s, desc128(q_s + 32 * kk), desc128(k_s(st) + 32 * kk), kk > 0);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
 
-    // S += gate * pos_bias on the valid keys; lanes along the keys of a row
+    // + gate * bias, then the key mask (only the last tile can hold keys past kv_len)
+    if constexpr (kGated) {
+      const BiasT* bt = reinterpret_cast<const BiasT*>(smem + (k_s(st) - base) + 2 * kTileBytes);
 #pragma unroll
-    for (int r = 0; r < (kGated ? 16 : 0); ++r) {
-      const int t = q0 + warp * 16 + r;
-      if (t < T) {
-        const float g = gs[warp * 16 + r];
-        const float* brow = bias_h + static_cast<size_t>(t) * T + k0;
-#pragma unroll
-        for (int c = lane; c < kBKV; c += 32)
-          if (k0 + c < kv_len)
-            sw[r * kLdf + c] = __fadd_rn(sw[r * kLdf + c], __fmul_rn(g, __ldg(brow + c)));
+      for (int c = 0; c < 8; ++c) {
+        const float2 b0 = bias2(bt + rw * kLdb + 8 * c + cq);
+        const float2 b1 = bias2(bt + (rw + 8) * kLdb + 8 * c + cq);
+        s[4 * c + 0] = __fadd_rn(s[4 * c + 0], __fmul_rn(g0, b0.x));
+        s[4 * c + 1] = __fadd_rn(s[4 * c + 1], __fmul_rn(g0, b0.y));
+        s[4 * c + 2] = __fadd_rn(s[4 * c + 2], __fmul_rn(g1, b1.x));
+        s[4 * c + 3] = __fadd_rn(s[4 * c + 3], __fmul_rn(g1, b1.y));
       }
     }
-    __syncwarp();
-
-    // online softmax on row rr, columns half*32 .. half*32+31
-    float* srow = sw + rr * kLdf + half * 32;
-    float mx = masked;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const float s = k0 + half * 32 + c < kv_len ? srow[c] : masked;
-      srow[c] = s;
-      mx = fmaxf(mx, s);
+    if (k0 + kBKV > kv_len) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (k0 + 8 * (i / 4) + cq + (i % 2) >= kv_len) s[i] = masked;
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_i, mx);
-    const float alpha = exp2f((m_i - m_new) * s3::kLog2e);
-    float psum = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const float p = exp2f((srow[c] - m_new) * s3::kLog2e);
-      psum += p;
-      const bf16 hi = __float2bfloat16_rn(p);
-      const float r = p - __bfloat162float(hi);  // exact
-      const bf16 mid = __float2bfloat16_rn(r);
-      const bf16 lo = __float2bfloat16_rn(r - __bfloat162float(mid));  // exact
-      const int at = warp * 16 * kLd + rr * kLd + half * 32 + c;
-      ps[at] = hi;
-      ps[kPBytes / 2 + at] = mid;
-      ps[kPBytes + at] = lo;
+
+    // online softmax on rows rw (even pairs) and rw + 8 (odd pairs), a row's
+    // 64 keys spread over the 4 threads lane / 4 shares
+    float mx0 = masked, mx1 = masked;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * c], s[4 * c + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * c + 2], s[4 * c + 3]));
     }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_i = l_i * alpha + psum;
-    m_i = m_new;
-    __syncwarp();
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float a0 = exp2f((m0 - mn0) * s3::kLog2e), a1 = exp2f((m1 - mn1) * s3::kLog2e);
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      s[4 * c + 0] = exp2f((s[4 * c + 0] - mn0) * s3::kLog2e);
+      s[4 * c + 1] = exp2f((s[4 * c + 1] - mn0) * s3::kLog2e);
+      s[4 * c + 2] = exp2f((s[4 * c + 2] - mn1) * s3::kLog2e);
+      s[4 * c + 3] = exp2f((s[4 * c + 3] - mn1) * s3::kLog2e);
+      ps0 += s[4 * c] + s[4 * c + 1];
+      ps1 += s[4 * c + 2] + s[4 * c + 3];
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      ps0 += __shfl_xor_sync(0xffffffffu, ps0, x);
+      ps1 += __shfl_xor_sync(0xffffffffu, ps1, x);
+    }
+    l0 = l0 * a0 + ps0;
+    l1 = l1 * a1 + ps1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      o[4 * c + 0] *= a0;
+      o[4 * c + 1] *= a0;
+      o[4 * c + 2] *= a1;
+      o[4 * c + 3] *= a1;
+    }
 
-    // rescale the running output rows by alpha (through the f32 square)
+    // p = hi + mid + lo in bf16 (each remainder exact in f32). Key step j
+    // (keys 16j..16j+15) is the A fragment {rw: 2j, rw+8: 2j, rw: 2j+1,
+    // rw+8: 2j+1} of chunks, i.e. accumulator registers 8j..8j+7 in order.
+    uint32_t hi[4][4], mid[4][4], lo[4][4];
 #pragma unroll
-    for (int j = 0; j < kDh / 16; ++j)
-      wmma::store_matrix_sync(sw + j * 16, of[j], kLdf, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) srow[c] *= alpha;
-    __syncwarp();
+    for (int j = 0; j < 4; ++j) {
 #pragma unroll
-    for (int j = 0; j < kDh / 16; ++j)
-      wmma::load_matrix_sync(of[j], sw + j * 16, kLdf, wmma::mem_row_major);
-
-    // O += (hi + mid + lo) V
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf[kParts][kBKV / 16];
-#pragma unroll
-    for (int part = 0; part < kParts; ++part)
-#pragma unroll
-      for (int kk = 0; kk < kBKV / 16; ++kk)
-        wmma::load_matrix_sync(pf[part][kk],
-                               ps + part * (kPBytes / 2) + warp * 16 * kLd + kk * 16, kLd);
-#pragma unroll
-    for (int j = 0; j < kDh / 16; ++j) {
-#pragma unroll
-      for (int kk = 0; kk < kBKV / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(vf, vs + kk * 16 * kLd + j * 16, kLd);
-#pragma unroll
-        for (int part = kParts - 1; part >= 0; --part)  // the small parts first
-          wmma::mma_sync(of[j], pf[part][kk], vf, of[j]);
+      for (int r = 0; r < 4; ++r) {
+        const float x = s[8 * j + 2 * r], y = s[8 * j + 2 * r + 1];
+        hi[j][r] = pack_bf16x2(x, y);
+        const float2 h2 = unpack_bf16x2(hi[j][r]);
+        const float rx = x - h2.x, ry = y - h2.y;
+        mid[j][r] = pack_bf16x2(rx, ry);
+        const float2 m2 = unpack_bf16x2(mid[j][r]);
+        lo[j][r] = pack_bf16x2(rx - m2.x, ry - m2.y);
       }
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
+
+    // O += (lo + mid + hi) V
+    fence_regs(o);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint64_t dv = desc128(k_s(st) + kTileBytes + j * 16 * 128);
+      wgmma_rs(o, lo[j], dv);
+      wgmma_rs(o, mid[j], dv);
+      wgmma_rs(o, hi[j], dv);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(o);
   }
-  s3::cp_async_wait<0>();  // the Q tile, when no key tile ran
 
-  // normalise and store this warp's rows
+  // normalise and store this thread's two rows
+  const float d0 = fmaxf(l0, l_floor), d1 = fmaxf(l1, l_floor);
 #pragma unroll
-  for (int j = 0; j < kDh / 16; ++j)
-    wmma::store_matrix_sync(sw + j * 16, of[j], kLdf, wmma::mem_row_major);
-  __syncwarp();
-  const int t = q0 + warp * 16 + rr;
-  if (t < T) {
-    const float l = fmaxf(l_i, l_floor);
-    bf16* orow = out + (head + t) * kDh + half * 32;
-    const float* srow = sw + rr * kLdf + half * 32;
+  for (int half = 0; half < 2; ++half) {
+    const int t = q0 + rw + 8 * half;
+    if (t >= T) continue;
+    const float d = half ? d1 : d0;
+    bf16* orow = out + (head + t) * kDh + cq;
 #pragma unroll
-    for (int c = 0; c < 32; c += 8) {
-      float o[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) o[e] = srow[c + e] / l;
-      s3::store8(orow + c, o);
-    }
+    for (int c = 0; c < 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
+          __floats2bfloat162_rn(o[4 * c + 2 * half] / d, o[4 * c + 2 * half + 1] / d);
   }
 }
 
-template <bool kGated>
-int launch(const void* q, const void* k, const void* v, const void* pos_bias, const void* gate,
-           const void* kv_lens, void* out, int batch, int H, int T, float masked, float l_floor,
-           void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gated_attention_kernel<kGated>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a libcuda entry), reached through the runtime's
+// entry-point query, so the library needs no link against libcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// [B*H, T, 64] bf16 (a contiguous [B, H, T, 64]) in boxes of 64 rows, the
+// 128-byte swizzle, rows past T zero-filled.
+bool head_rows_map(EncodeTiled encode, CUtensorMap* map, const void* x, int BH, int T) {
+  const cuuint64_t dims[3] = {kDh, static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {kDh * 2, static_cast<cuuint64_t>(T) * kDh * 2};
+  const cuuint32_t box[3] = {kDh, kBKV, 1}, unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool kGated, typename BiasT>
+int launch(const void* q, const void* k, const void* v, const void* pos_bias, int bias_ld,
+           const void* gate, const void* kv_lens, void* out, int batch, int H, int T,
+           float masked, float l_floor, void* stream) {
+  using L = Smem<kGated, BiasT>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!head_rows_map(encode, &tm_q, q, batch * H, T) ||
+      !head_rows_map(encode, &tm_k, k, batch * H, T) ||
+      !head_rows_map(encode, &tm_v, v, batch * H, T))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec16 = sizeof(BiasT) == 2 ||
+                    (bias_ld % 4 == 0 && reinterpret_cast<uintptr_t>(pos_bias) % 16 == 0);
+  auto kernel = gated_attention_kernel<kGated, BiasT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(batch, (T + kBQ - 1) / kBQ, H);  // the utterance varies fastest
-  gated_attention_kernel<kGated>
-      <<<grid, kWarps * 32, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-          static_cast<const float*>(pos_bias), static_cast<const float*>(gate),
-          static_cast<const int*>(kv_lens), static_cast<bf16*>(out), H, T, masked, l_floor);
+  kernel<<<grid, kThreads, L::kBytes, static_cast<cudaStream_t>(stream)>>>(
+      tm_q, tm_k, tm_v, static_cast<const BiasT*>(pos_bias), bias_ld, vec16,
+      static_cast<const float*>(gate), static_cast<const int*>(kv_lens), static_cast<bf16*>(out),
+      H, T, masked, l_floor);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kGated, typename BiasT>
+int occupancy(int* smem_bytes, int* blocks_per_sm) {
+  using L = Smem<kGated, BiasT>;
+  auto kernel = gated_attention_kernel<kGated, BiasT>;
+  *smem_bytes = L::kBytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, L::kBytes);
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
+// Dynamic shared memory of a block and blocks resident per SM of the
+// instantiation `kind` (0: no bias, 1: bf16 bias, 2: f32 bias).
+extern "C" int s3_gated_attention_occupancy(int kind, int* smem_bytes, int* blocks_per_sm) {
+  if (kind == 0) return occupancy<false, bf16>(smem_bytes, blocks_per_sm);
+  if (kind == 1) return occupancy<true, bf16>(smem_bytes, blocks_per_sm);
+  return occupancy<true, float>(smem_bytes, blocks_per_sm);
+}
+
+// pos_bias: f32 (bias_f32 = 1) or bf16 [H, T, T], rows bias_ld elements apart
+// (bf16: a multiple of 8, 16-byte aligned).
 extern "C" int s3_gated_attention(const void* q, const void* k, const void* v,
-                                  const void* pos_bias, const void* gate, const void* kv_lens,
-                                  void* out, int batch, int H, int T, float masked,
-                                  float l_floor, void* stream) {
-  return launch<true>(q, k, v, pos_bias, gate, kv_lens, out, batch, H, T, masked, l_floor,
-                      stream);
+                                  const void* pos_bias, int bias_f32, int bias_ld,
+                                  const void* gate, const void* kv_lens, void* out, int batch,
+                                  int H, int T, float masked, float l_floor, void* stream) {
+  if (bias_f32)
+    return launch<true, float>(q, k, v, pos_bias, bias_ld, gate, kv_lens, out, batch, H, T,
+                               masked, l_floor, stream);
+  return launch<true, bf16>(q, k, v, pos_bias, bias_ld, gate, kv_lens, out, batch, H, T, masked,
+                            l_floor, stream);
 }
 
 // K17: no bias, the -1e9 mask, no floor.
 extern "C" int s3_flash_attention(const void* q, const void* k, const void* v,
                                   const void* kv_lens, void* out, int batch, int H, int T,
                                   void* stream) {
-  return launch<false>(q, k, v, nullptr, nullptr, kv_lens, out, batch, H, T, -1e9f, 0.f, stream);
+  return launch<false, bf16>(q, k, v, nullptr, 0, nullptr, kv_lens, out, batch, H, T, -1e9f, 0.f,
+                             stream);
 }

@@ -52,8 +52,11 @@ SIGNATURES = {
     "s3_attention_gated": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     # q, k, v, kv_lens, out, batch, heads, T, stream
     "s3_online_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # q, k, v, pos_bias, gate, kv_lens, out, batch, heads, T, masked, l_floor, stream
-    "s3_gated_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
+    # q, k, v, pos_bias, bias_f32, bias_ld, gate, kv_lens, out, batch, heads, T, masked,
+    # l_floor, stream
+    "s3_gated_attention": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _F, _P),
+    # kind (0 no bias, 1 bf16, 2 f32), &smem_bytes, &blocks_per_sm
+    "s3_gated_attention_occupancy": (_I, _P, _P),
     # q, k, v, kv_lens, out, batch, heads, T, stream
     "s3_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, x_is_f32, q, xs, batch, T, C, stream

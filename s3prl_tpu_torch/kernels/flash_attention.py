@@ -47,7 +47,10 @@ for threshold, both read at call time):
   K7 and K6 hand their attention to it (:241-249, :350-352).
 
 WavLM's gated relative-position-bias attention (scores q.k^T + gate[b, h, t]
-* pos_bias[h, t, s]), both on `csrc/gated_attention.cu`:
+* pos_bias[h, t, s]), both on `csrc/gated_attention.cu` (wgmma, a ring of
+TMA K/V and cp.async bias tiles); the bias comes in f32 at any row stride
+or in bf16 with rows a multiple of 8 elements apart (the model's padded
+[H, T, Tp] buffer, `WavLMEncoder._layer_args`):
 
 - K9 `gated_bias_attention` (:139, whole-T cell :59-89): mask -1e9, no
   floor on the denominator; beyond MAX_KERNEL_T it hands over to
@@ -461,6 +464,26 @@ def gated_online_flash_attention_reference(q, k, v, pos_bias, gate, kv_lens):
     return _gated_reference(q, k, v, pos_bias, gate, kv_lens, -1e30, 1e-30)
 
 
+def _bias_row_stride(pos_bias, H: int, T: int) -> int:
+    """The row stride in elements of a pos_bias [H, T, T] that
+    `csrc/gated_attention.cu` takes, or raises: f32 at any row stride, bf16
+    with rows a multiple of 8 elements apart from a 16-byte boundary (so
+    that 16-byte copies reach every row); the last axis contiguous, the
+    heads T rows apart."""
+    if pos_bias.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"pos_bias: dtype {pos_bias.dtype}, the kernel takes f32 or bf16")
+    if tuple(pos_bias.shape) != (H, T, T):
+        raise ValueError(f"pos_bias: shape {tuple(pos_bias.shape)}, expected {(H, T, T)}")
+    ld = pos_bias.stride(1)
+    if pos_bias.stride(2) != 1 or ld < T or pos_bias.stride(0) != T * ld:
+        raise ValueError(f"pos_bias: strides {pos_bias.stride()}, the kernel takes rows of "
+                         "contiguous keys, the heads T rows apart")
+    if pos_bias.dtype == torch.bfloat16 and (ld % 8 or pos_bias.data_ptr() % 16):
+        raise ValueError(f"bf16 pos_bias: row stride {ld}, the kernel takes rows a multiple "
+                         "of 8 elements apart from a 16-byte boundary")
+    return ld
+
+
 def _gated_launch(q, k, v, pos_bias, gate, kv_lens, masked: float, floor: float):
     """One launch of `csrc/gated_attention.cu` (CUDA only): checks what the
     kernel takes and raises on anything else. Without pos_bias (and gate)
@@ -474,7 +497,7 @@ def _gated_launch(q, k, v, pos_bias, gate, kv_lens, masked: float, floor: float)
             raise ValueError(f"gated attention {name}: 16-byte aligned rows only")
     require(kv_lens, "kv_lens", torch.int32, (B,))
     if pos_bias is not None:
-        require(pos_bias, "pos_bias", torch.float32, (H, T, T))
+        ld = _bias_row_stride(pos_bias, H, T)
         require(gate, "gate", torch.float32, (B, H, T))
     refuse_grad("K9/K10/K17 attention", q, k, v, pos_bias, gate)
     out = torch.empty_like(q)
@@ -485,8 +508,9 @@ def _gated_launch(q, k, v, pos_bias, gate, kv_lens, masked: float, floor: float)
                        kv_lens.data_ptr(), out.data_ptr(), B, H, T, stream_of(q))
             else:
                 launch("s3_gated_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       pos_bias.data_ptr(), gate.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-                       B, H, T, masked, floor, stream_of(q))
+                       pos_bias.data_ptr(), int(pos_bias.dtype == torch.float32), ld,
+                       gate.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), B, H, T, masked,
+                       floor, stream_of(q))
     return out
 
 
@@ -511,7 +535,8 @@ def gated_bias_attention(q, k, v, pos_bias, gate, kv_lens):
 
     softmax(q k^T + gate[b, h, t] * pos_bias[h, t, s], keys at or past
     kv_len masked) v. q, k, v [B, H, T, Dh] (q pre-scaled by Dh^-0.5),
-    pos_bias [H, T, T] f32 (shared by the utterances), gate [B, H, T] f32,
+    pos_bias [H, T, T] (shared by the utterances; f32, or bf16 with rows a
+    multiple of 8 elements apart, `_bias_row_stride`), gate [B, H, T] f32,
     kv_lens [B] int32 valid keys (padding contiguous, kv_len >= 1: a row
     with no valid key is outside the contract) -> [B, H, T, Dh] in q's
     dtype. Beyond MAX_KERNEL_T frames (read at call time) K10 takes over

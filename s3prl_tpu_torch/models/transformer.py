@@ -215,8 +215,9 @@ class SelfAttention(_QCache, nn.Module):
         [B, T] True on padded keys; `rel_bias` = (pos_bias [H, T, T], gate
         [B, H, T]) is WavLM's gated relative-position bias. With
         ``use_flash`` the attention is K9 `gated_bias_attention` (K10 beyond
-        MAX_KERNEL_T) on the split heads, given the bias and gate in f32, or
-        K7 without a bias; otherwise plain ops (attention_bthd), the bias
+        MAX_KERNEL_T) on the split heads, given the bias as it comes (f32,
+        or the bf16 model's padded bf16 buffer) and the gate in f32, or K7
+        without a bias; otherwise plain ops (attention_bthd), the bias
         gate * pos_bias formed in the model dtype and added to the f32
         scores before the mask."""
         B, T, C = x.shape
@@ -232,8 +233,8 @@ class SelfAttention(_QCache, nn.Module):
                 out = fused_qkv_attention(qkv, kv_lens, H)
             else:
                 pos_bias, gate = rel_bias
-                out = gated_bias_attention(*fa._split_heads(qkv, H), pos_bias.float(),
-                                           gate.float(), kv_lens)
+                out = gated_bias_attention(*fa._split_heads(qkv, H), pos_bias, gate.float(),
+                                           kv_lens)
                 out = out.transpose(1, 2).reshape(B, T, C)
         else:
             q, k, v = qkv.view(B, T, 3, H, Dh).unbind(2)

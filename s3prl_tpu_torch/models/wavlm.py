@@ -96,11 +96,14 @@ def relative_position_buckets(seq_len: int, num_buckets: int = 320,
 
 @lru_cache(maxsize=8)
 def bucket_table(seq_len: int, num_buckets: int, max_distance: int,
-                 device: torch.device) -> torch.Tensor:
+                 device: torch.device, cols: int | None = None) -> torch.Tensor:
     """`relative_position_buckets` as an int64 tensor on `device`, cached per
-    (T, device)."""
-    return torch.from_numpy(relative_position_buckets(seq_len, num_buckets,
-                                                      max_distance)).to(device)
+    (T, device, cols); with `cols` > T the rows are padded to `cols` columns
+    of bucket 0 (a padded bias buffer's columns that no kernel reads)."""
+    buckets = relative_position_buckets(seq_len, num_buckets, max_distance)
+    if cols is not None:
+        buckets = np.pad(buckets, ((0, 0), (0, cols - seq_len)))
+    return torch.from_numpy(buckets).to(device)
 
 
 class GatedSelfAttention(SelfAttention):
@@ -181,6 +184,7 @@ class WavLMEncoder(TransformerEncoder):
                          posconv=posconv)
         self.dtype = dtype
         self.use_flash = use_flash
+        self.wavlm_fuse = wavlm_fuse
         self.num_buckets, self.max_distance = cfg.num_buckets, cfg.max_distance
         self.layers.extend(
             GatedRelPosLayer(cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim,
@@ -191,13 +195,23 @@ class WavLMEncoder(TransformerEncoder):
 
     def _layer_args(self, T: int, device) -> tuple:
         """The shared bias pos_bias [H, T, T] = table[buckets] in the model
-        dtype (wavlm.py:304-308), gathered once per forward. The kernels
-        take it in f32: the rounded table is cast once here, so the layers
-        share one tensor (576 MB at T = 3,000) and never build their own."""
+        dtype (wavlm.py:304-308), gathered once per forward; the layers
+        share the one tensor. Its form is what the layers' kernels read:
+        - flash, bf16 model: bf16 gathered into [H, T, Tp], Tp = T rounded
+          up to 8, handed over as the view [:, :, :T] (K9/K10 read its rows
+          in 16-byte copies; 288 MB at T = 3,000, half the f32 bias);
+        - flash under ``wavlm_fuse`` or in an f32 model: the rounded table
+          cast once to f32, contiguous (K11 takes that form);
+        - no flash: contiguous in the model dtype.
+        The values are the same in each: bf16 -> f32 is exact."""
         table = self.layers[0].self_attn.relative_attention_bias.weight.t().to(self.dtype)
+        nb, md = self.num_buckets, self.max_distance
+        if self.use_flash and self.dtype == torch.bfloat16 and not self.wavlm_fuse:
+            padded = table[:, bucket_table(T, nb, md, device, cols=-(-T // 8) * 8)]
+            return (padded[:, :, :T],)
         if self.use_flash:
             table = table.float()
-        return (table[:, bucket_table(T, self.num_buckets, self.max_distance, device)],)
+        return (table[:, bucket_table(T, nb, md, device)],)
 
 
 class WavLMModel(Wav2Vec2Trunk):

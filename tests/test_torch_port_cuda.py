@@ -560,24 +560,57 @@ def test_long_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
         online_flash_attention(q, q, q, kv)
 
 
-def _gated_inputs(rng, dev, B, H, T):
+GATED_T = [65, 127, 499, 1499, 2048, 2049, 2999]
+KV_EDGES = (1, 63, 64, 65, 127, 128)  # kv_lens on and beside the 64-key tile edges
+
+
+def _edge_kv(B, T, dev):
+    """kv_lens [T, 1, 63, 64, 65, 127, 128, T, 1, ...] for B utterances (the
+    edges past T left out)."""
+    vals = [T] + [n for n in KV_EDGES if n < T]
+    return torch.tensor([vals[i % len(vals)] for i in range(B)], dtype=torch.int32, device=dev)
+
+
+def _bias_form(pos_bias, form):
+    """pos_bias [H, T, T] as the kernel may get it: "f32" contiguous (rows T
+    elements apart: 4-byte copies at odd T), or a view [:, :, :T] of an
+    [H, T, ld] buffer whose padding holds NaN: "f32-padded" and
+    "bf16-padded" (ld = T rounded up to 8, the bf16 model's buffer),
+    "bf16-wide" (ld 24 more)."""
+    if form == "f32":
+        return pos_bias.contiguous()
+    H, T, _ = pos_bias.shape
+    ld = -(-T // 8) * 8 + (24 if form == "bf16-wide" else 0)
+    dtype = torch.float32 if form.startswith("f32") else torch.bfloat16
+    buf = torch.full((H, T, ld), float("nan"), dtype=dtype, device=pos_bias.device)
+    buf[:, :, :T] = pos_bias
+    return buf[:, :, :T]
+
+
+def _gated_inputs(rng, dev, B, H, T, form="f32", kv=None):
     """K9/K10 inputs: unit-scale q (pre-scaled by 1/8), k, v in bf16; a real
-    pos_bias from WavLM's bucket table and a random [320, H] table; gates
-    in (1, 3); kv_lens [T, 5T/8, 1]."""
+    pos_bias from WavLM's bucket table and a random [320, H] table in
+    `form` (`_bias_form`); gates in (1, 3); kv_lens [T, 5T/8, 1] unless
+    given."""
     from s3prl_tpu_torch.models.wavlm import bucket_table
 
     q, k, v = (_t(rng.randn(B, H, T, 64) * sc, dev, torch.bfloat16) for sc in (0.125, 1, 1))
     table = _t(rng.randn(320, H) * 0.5, dev)
-    pos_bias = table.t()[:, bucket_table(T, 320, 800, torch.device(dev))].contiguous()
+    pos_bias = _bias_form(table.t()[:, bucket_table(T, 320, 800, torch.device(dev))], form)
     gate = _t(1 + 2 * rng.rand(B, H, T), dev)
-    return q, k, v, pos_bias, gate, _long_kv(T, dev)[:B]
+    return q, k, v, pos_bias, gate, _long_kv(T, dev)[:B] if kv is None else kv
 
 
-@pytest.mark.parametrize("T", [499, 1499, 2048, 2049, 2999])
-def test_gated_kernels(dev, T):
+@pytest.mark.parametrize("form", ["f32", "f32-padded", "bf16-padded", "bf16-wide"])
+@pytest.mark.parametrize("T,B,H", [(T, B, 2) for T in GATED_T for B in (1, 3, 7)]
+                         + [(499, 32, 16)])
+def test_gated_kernels(dev, T, B, H, form):
     """K9 up to MAX_KERNEL_T, K10 beyond it (through K9's hand-over), each
-    against the plain version of its route on the card."""
-    q, k, v, pos_bias, gate, kv = _gated_inputs(np.random.RandomState(21), dev, 3, 2, T)
+    against the plain version of its route on the card, with kv_lens on
+    the tile edges (`_edge_kv`) and the bias in each form the kernel takes;
+    K10 called directly at every T against its own plain version."""
+    q, k, v, pos_bias, gate, kv = _gated_inputs(np.random.RandomState(21), dev, B, H, T, form,
+                                                _edge_kv(B, T, dev))
     before = gated_bias_attention.launches, gated_online_flash_attention.launches
     got = gated_bias_attention(q, k, v, pos_bias, gate, kv)
     torch.cuda.synchronize()
@@ -586,16 +619,18 @@ def test_gated_kernels(dev, T):
             gated_online_flash_attention.launches - before[1]) == (0 + (not online), 0 + online)
     plain = gated_online_flash_attention_reference if online else gated_bias_attention_reference
     _close_bf16(got, plain(q, k, v, pos_bias, gate, kv))
-    if online:  # K10 called directly
-        _close_bf16(gated_online_flash_attention(q, k, v, pos_bias, gate, kv), got)
+    got = gated_online_flash_attention(q, k, v, pos_bias, gate, kv)  # K10 called directly
+    _close_bf16(got, gated_online_flash_attention_reference(q, k, v, pos_bias, gate, kv))
 
 
 def test_gated_wrappers_refuse_what_the_kernel_does_not_take(dev):
     q, k, v, pos_bias, gate, kv = _gated_inputs(np.random.RandomState(22), dev, 2, 2, 130)
     with pytest.raises(TypeError):  # f32 q, k, v
         gated_bias_attention(q.float(), k.float(), v.float(), pos_bias, gate, kv)
-    with pytest.raises(TypeError):  # bf16 pos_bias
+    with pytest.raises(ValueError):  # a bf16 pos_bias whose rows are 130 elements apart
         gated_bias_attention(q, k, v, pos_bias.bfloat16(), gate, kv)
+    with pytest.raises(TypeError):  # an f16 pos_bias
+        gated_bias_attention(q, k, v, pos_bias.half(), gate, kv)
     with pytest.raises(ValueError):  # head dim 32
         gated_bias_attention(*(t[..., :32].contiguous() for t in (q, k, v)), pos_bias, gate, kv)
     with pytest.raises(ValueError):  # a gate per utterance, not per query
@@ -1042,14 +1077,15 @@ def test_k16b_kernel(dev, B, T, dtype):
     assert torch.equal(pc.pos_conv_gelu_q8(x, w, bias), got)
 
 
-@pytest.mark.parametrize("H,T", [(16, 499), (2, 2049)])
-def test_k17_kernel(dev, H, T):
-    """K17 on [2, H, T, 64] with ragged kv_lens [T, 5T/8] against its plain
-    version on the card; beyond MAX_KERNEL_T it hands over to K8, whose
-    launch counts instead."""
+@pytest.mark.parametrize("T,B,H", [(T, B, 2) for T in GATED_T for B in (1, 3, 7)]
+                         + [(499, 32, 16)])
+def test_k17_kernel(dev, T, B, H):
+    """K17 on [B, H, T, 64] with kv_lens on the tile edges (`_edge_kv`)
+    against its plain version on the card; beyond MAX_KERNEL_T it hands
+    over to K8, whose launch counts instead."""
     rng = np.random.RandomState(34)
-    q, k, v = (_t(rng.randn(2, H, T, 64) * sc, dev, torch.bfloat16) for sc in (0.125, 1, 1))
-    kv = _long_kv(T, dev)[:2]
+    q, k, v = (_t(rng.randn(B, H, T, 64) * sc, dev, torch.bfloat16) for sc in (0.125, 1, 1))
+    kv = _edge_kv(B, T, dev)
     before = fa.flash_attention.launches, online_flash_attention.launches
     got = fa.flash_attention(q, k, v, kv)
     torch.cuda.synchronize()

@@ -277,8 +277,10 @@ def test_pos_bias_is_built_once_and_rounded_to_the_model_dtype(jax_params, monke
                                                               precision):
     """One pos_bias per forward, the same tensor in every layer: the bias
     table gathered by the bucket table and rounded to the model dtype
-    (wavlm.py:304-308), handed to K9 in f32; the gate K9 gets is a value of
-    the model dtype (wavlm.py:122-128)."""
+    (wavlm.py:304-308), handed to K9 in f32 by the f32 model and as the
+    bf16 model's padded bf16 buffer (rows a multiple of 8 elements apart)
+    by the bf16 one; the gate K9 gets is a value of the model dtype
+    (wavlm.py:122-128), in f32."""
     calls = _spy(monkeypatch, port_fa, "gated_bias_attention_reference")
     up = _port(jax_params, precision, flash=True)
     wavs, lens = _batch(5, [3200, 1600])
@@ -290,8 +292,11 @@ def test_pos_bias_is_built_once_and_rounded_to_the_model_dtype(jax_params, monke
     table = up.model.encoder.layers[0].self_attn.relative_attention_bias.weight
     T = pos_bias.shape[-1]
     want = table.detach()[torch.from_numpy(jax_buckets(T, 32, 80))].permute(2, 0, 1)
-    assert pos_bias.dtype == gate.dtype == torch.float32
-    assert torch.equal(pos_bias, want.to(dtype).float())
+    assert pos_bias.dtype == dtype and gate.dtype == torch.float32
+    if precision == "bf16":
+        assert pos_bias.stride() == (T * pos_bias.stride(1), pos_bias.stride(1), 1)
+        assert pos_bias.stride(1) % 8 == 0 and pos_bias.stride(1) >= T
+    assert torch.equal(pos_bias.float(), want.to(dtype).float())
     assert torch.equal(gate, gate.to(dtype).float())
 
 
