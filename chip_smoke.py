@@ -7,20 +7,22 @@ Phases (any failed check raises, so the exit code is not 0 and no result
 line is printed; each phase prints its seconds):
  1. require a CUDA device; print the card's name and power limit;
  2. build the CUDA kernels from csrc/ (into build/) and print the seconds;
-    for the gated attention kernel (K9, K10, K17) print each
-    instantiation's registers, stack and spills (ptxas -v, nvcc.log) with
-    any ptxas note that its wgmma were serialized, its dynamic shared
-    memory and blocks per SM, and its HGMMA (wgmma) count in the SASS
-    (cuobjdump); fail on a stack frame, a spill or an instantiation
-    without HGMMA;
+    for the wgmma attention kernel (gated_attention.cu: K1, K4, K6-K10,
+    K17) print each of its five instantiations' registers, stack and
+    spills (ptxas -v, nvcc.log) with any ptxas note that its wgmma were
+    serialized, its dynamic shared memory and blocks per SM, and its HGMMA
+    (wgmma) count in the SASS (cuobjdump); fail unless there are five, on a
+    stack frame, a spill or an instantiation without HGMMA;
  3. each kernel against its plain PyTorch version on the same CUDA tensors,
     at the main paths' shapes with unit-scale inputs: cosine > 0.9995 and
     every element within max(3e-2, one bf16 step at the plain value) of
     it (one step is 0.03125 where LayerNorm outputs reach |v| >= 4). K3 in
     both GELU modes, K1 pre-LN and postnorm, K2 in five flag sets at
     C=1024, F=4096 (two chunks) and postnorm at C=768, F=3072 (one chunk),
-    K4, K5 (B=4 x 499 frames); K6 and K7 at B=4 x 1,499 frames, K8 on
-    [2, 16, 2999, 64]; WavLM's K9 at B=4 x 499 and B=4 x 1,499 and K10 on
+    K4, K5 (B=4 x 499 frames); K6 and K7 at B=4 x 1,499 frames and at
+    B=7 x 65 and 127 frames, K8 on [2, 16, 2999, 64] and [7, 16, 2049,
+    64], the B=7 cases with kv_lens on the 64-key tile edges (1, 63, 64,
+    65, 127, 128, T); WavLM's K9 at B=4 x 499 and B=4 x 1,499 and K10 on
     [2, 16, 2999, 64], with a pos_bias from the bucket table in the main
     path's form (bf16 in a buffer padded to rows of a multiple of 8) and
     gates in (1, 3), K9 at B=4 x 499 and K10 on [2, 16, 2999, 64] again
@@ -87,7 +89,9 @@ line is printed; each phase prints its seconds):
     v with its mask (built before the timed region; the port never calls
     it). K9 and K10 are timed with the main path's padded bf16 bias (their
     entries in the kernels line) and again with the contiguous f32 one.
-    The options' paths are timed at B=32 x 10 s and B=8 x 30 s
+    `_attention` alone (the packed wgmma core of K1, K4, K6 and K7), bf16
+    and f32 out, at [32, 499] and [8, 1499] beside SDPA, on a line of its
+    own. The options' paths are timed at B=32 x 10 s and B=8 x 30 s
     (``qkv_fuse`` at 30 s only), K11 at [32, 499] and K12 at 32 x 499 rows
     beside the split pairs they replace (K9 with the heads split and merged,
     int8_matmul out-proj and residual; LN and int8_matmul QKV; int8_matmul
@@ -250,43 +254,58 @@ def kernel_calls(inp, inp_base=None):
     return calls
 
 
-def long_inputs(B, T, gen, dev, C=1024, H=16):
+KV_EDGES = (1, 63, 64, 65, 127, 128)  # kv_lens on and beside the 64-key tile edges
+
+
+def long_inputs(B, T, gen, dev, C=1024, H=16, edges=False):
     """K6/K7 inputs at [B, T] (unit-scale fused QKV, the residual, the
-    out-proj's int8 pair) and K8's [B, H, T, 64] q (pre-scaled), k, v split
-    from the same QKV as K7 splits it beyond MAX_KERNEL_T."""
+    out-proj's int8 pair, kv_lens [T, T, 5T/8, 1, ...] or with `edges` [T,
+    1, 63, 64, 65, 127, 128, T, ...], the edges below T) and K8's [B, H, T,
+    64] q (pre-scaled), k, v split from the same QKV as K7 splits it beyond
+    MAX_KERNEL_T."""
     from s3prl_tpu_torch.kernels import flash_attention as fa
     from s3prl_tpu_torch.ops.quant import as_quantized_cols
 
     def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
 
+    kv = [T] + [n for n in KV_EDGES if n < T] if edges else [T, T, (T * 5) // 8, 1]
     inp = dict(qkv=rnd(B, T, 3 * C), x=rnd(B, T, C, scale=0.5),
                wo8=as_quantized_cols(rnd(C, C, scale=C ** -0.5, dtype=torch.float32)),
                bo=rnd(C, scale=0.02, dtype=torch.float32),
-               kv=torch.tensor(([T, T, (T * 5) // 8, 1] * B)[:B], dtype=torch.int32, device=dev),
-               H=H)
+               kv=torch.tensor([kv[i % len(kv)] for i in range(B)], dtype=torch.int32,
+                               device=dev), H=H)
     inp["q"], inp["k"], inp["v"] = fa._split_heads(inp["qkv"], H)
     return inp
 
 
-def long_kernel_calls(inp, inp8):
-    """K6, K7 on `inp` and K8 on `inp8`: name -> [(variant, kernel, plain)]."""
+def long_kernel_calls(inps, inps8):
+    """K6, K7 on each of `inps` and K8 on each of `inps8` (`long_inputs`):
+    name -> [(variant, kernel, plain)]."""
     from s3prl_tpu_torch.kernels import flash_attention as fa
 
-    i, j = inp, inp8
-    k6 = (i["qkv"], i["x"], i["wo8"], i["bo"], i["kv"], i["H"])
-    k8 = (j["q"], j["k"], j["v"], j["kv"])
-    T = i["qkv"].shape[1]
+    def k6(i):
+        return i["qkv"], i["x"], i["wo8"], i["bo"], i["kv"], i["H"]
+
+    def k8(j):
+        return j["q"], j["k"], j["v"], j["kv"]
+
+    def label(i, shape):
+        return f"{shape} kv {i['kv'].tolist()[:7]}"
+
     return {
         "fused_qkv_attention_outproj": [
-            (f"T={T}", lambda: fa.fused_qkv_attention_outproj(*k6),
-             lambda: fa.fused_qkv_attention_outproj_reference(*k6))],
+            (label(i, f"T={i['qkv'].shape[1]}"),
+             lambda a=k6(i): fa.fused_qkv_attention_outproj(*a),
+             lambda a=k6(i): fa.fused_qkv_attention_outproj_reference(*a)) for i in inps],
         "fused_qkv_attention": [
-            (f"T={T}", lambda: fa.fused_qkv_attention(i["qkv"], i["kv"], i["H"]),
-             lambda: fa.fused_qkv_attention_reference(i["qkv"], i["kv"], i["H"]))],
+            (label(i, f"T={i['qkv'].shape[1]}"),
+             lambda i=i: fa.fused_qkv_attention(i["qkv"], i["kv"], i["H"]),
+             lambda i=i: fa.fused_qkv_attention_reference(i["qkv"], i["kv"], i["H"]))
+            for i in inps],
         "online_flash_attention": [
-            (str(list(j["q"].shape)), lambda: fa.online_flash_attention(*k8),
-             lambda: fa.online_flash_attention_reference(*k8))],
+            (label(j, list(j["q"].shape)), lambda a=k8(j): fa.online_flash_attention(*a),
+             lambda a=k8(j): fa.online_flash_attention_reference(*a)) for j in inps8],
     }
 
 
@@ -307,9 +326,6 @@ def gated_bias(B, T, gen, dev, H=16, form="bf16"):
     else:
         pos_bias = table.t()[:, bucket_table(T, 320, 800, dev)].contiguous()
     return dict(pos_bias=pos_bias, gate=(1 + 2 * torch.rand(B, H, T, generator=gen)).to(dev))
-
-
-KV_EDGES = (1, 63, 64, 65, 127, 128)  # kv_lens on and beside the 64-key tile edges
 
 
 def gated_inputs(B, T, gen, dev, H=16, form="bf16", edges=False):
@@ -847,20 +863,41 @@ def time_frontend(inp, entries, launches, max_err):
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def time_attention_core(inps):
+    """`_attention` alone, the packed wgmma core of K1, K4, K6 and K7, on each
+    of `inps` (`long_inputs`), bf16 and f32 out, beside SDPA on the same q,
+    k, v (`library_call` of K7) and K7's bound; printed, not in the kernels
+    line."""
+    from s3prl_tpu_torch.kernels import flash_attention as fa
+
+    for i in inps:
+        qkv, kv, H = i["qkv"], i["kv"], i["H"]
+        ms = {out_f32: (cuda_ms(lambda: fa._attention(qkv, kv, H, out_f32=out_f32), 10)
+                        + cuda_ms(lambda: fa._attention(qkv, kv, H, out_f32=out_f32), 10)) / 2
+              for out_f32 in (False, True)}
+        sdpa = library_call("fused_qkv_attention", i)
+        sdpa_ms = (cuda_ms(sdpa, 10) + cuda_ms(sdpa, 10)) / 2
+        bound_ms, bound_by = kernel_bound("fused_qkv_attention", i)
+        log(f"[timing] _attention (packed wgmma core of K1/K4/K6/K7) "
+            f"{list(qkv.shape[:2])} kv {kv.tolist()[:4]}: bf16 out {ms[False]:.3f} ms, f32 out "
+            f"{ms[True]:.3f} ms, SDPA {sdpa_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        del sdpa
+
+
 KERNELS = {  # wrapper -> (its main CUDA source, the TPU kernel it replaces)
     "conv0_ln_gelu": ("s3prl_tpu_torch/csrc/conv0_ln_gelu.cu",
                       "s3prl_tpu/kernels/conv_frontend.py:148"),
     "fused_attention_block": ("s3prl_tpu_torch/csrc/gemm_s8.cu",
                               "s3prl_tpu/kernels/flash_attention.py:633"),
     "fused_int8_ffn": ("s3prl_tpu_torch/csrc/gemm_s8.cu", "s3prl_tpu/kernels/ffn.py:129"),
-    "fused_attention_block_bf16": ("s3prl_tpu_torch/csrc/attention.cu",
+    "fused_attention_block_bf16": ("s3prl_tpu_torch/csrc/gated_attention.cu",
                                    "s3prl_tpu/kernels/flash_attention.py:772"),
     "fused_bf16_ffn": ("s3prl_tpu_torch/csrc/gemm_bf16.cu", "s3prl_tpu/kernels/ffn.py:320"),
-    "fused_qkv_attention_outproj": ("s3prl_tpu_torch/csrc/attention.cu",
+    "fused_qkv_attention_outproj": ("s3prl_tpu_torch/csrc/gated_attention.cu",
                                     "s3prl_tpu/kernels/flash_attention.py:312"),
-    "fused_qkv_attention": ("s3prl_tpu_torch/csrc/attention.cu",
+    "fused_qkv_attention": ("s3prl_tpu_torch/csrc/gated_attention.cu",
                             "s3prl_tpu/kernels/flash_attention.py:210"),
-    "online_flash_attention": ("s3prl_tpu_torch/csrc/online_attention.cu",
+    "online_flash_attention": ("s3prl_tpu_torch/csrc/gated_attention.cu",
                                "s3prl_tpu/kernels/flash_attention.py:867"),
     "gated_bias_attention": ("s3prl_tpu_torch/csrc/gated_attention.cu",
                              "s3prl_tpu/kernels/flash_attention.py:105"),
@@ -995,13 +1032,19 @@ def layer_cosines(a, b, h_lens):
     return out
 
 
+# gated_attention.cu's instantiations, in the order of its occupancy kinds
+GATED_KINDS = ("no bias, split heads (K8, K17)", "bf16 bias (K9, K10)", "f32 bias (K9, K10)",
+               "packed, bf16 out (K1, K4, K7)", "packed, f32 out (K6)")
+
+
 def gated_build_report(lib):
-    """The gated attention kernel (K9, K10, K17) as built: for each
-    instantiation its registers and spills (ptxas -v, from the build's
-    nvcc.log), its dynamic shared memory and blocks per SM (the CUDA
-    occupancy query) and its count of HGMMA (wgmma) instructions (cuobjdump
-    -sass), and any ptxas note that its wgmma were serialized. Fails on a
-    stack frame or spill, or on an instantiation without HGMMA."""
+    """The wgmma attention kernel (K1, K4, K6-K10, K17) as built: for each
+    of its five instantiations its registers and spills (ptxas -v, from the
+    build's nvcc.log), its dynamic shared memory and blocks per SM (the
+    CUDA occupancy query) and its count of HGMMA (wgmma) instructions
+    (cuobjdump -sass), and any ptxas note that its wgmma were serialized.
+    Fails unless there are five, on a stack frame or spill, or on an
+    instantiation without HGMMA."""
     import ctypes
     import re
     from pathlib import Path
@@ -1027,12 +1070,14 @@ def gated_build_report(lib):
         name = part.split(None, 1)[0]
         if "gated_attention_kernel" in name:
             hgmma[name] = part.count("HGMMA")
-    check(ptxas and hgmma, "gated_attention_kernel missing from nvcc.log or the SASS")
+    check(len(ptxas) == len(hgmma) == len(GATED_KINDS),
+          f"gated_attention_kernel: {len(ptxas)} instantiations in nvcc.log, {len(hgmma)} in "
+          f"the SASS, not {len(GATED_KINDS)}")
     for name, (regs, spills) in sorted(ptxas.items()):
         log(f"[build] {name}: {regs} registers, {spills} bytes of stack and spills, "
             f"{hgmma.get(name, 0)} HGMMA in its SASS")
         check(spills == 0 and hgmma.get(name, 0) > 0, f"{name}: spills or no HGMMA")
-    for kind, what in enumerate(("no bias (K17)", "bf16 bias", "f32 bias")):
+    for kind, what in enumerate(GATED_KINDS):
         smem, blocks = ctypes.c_int(), ctypes.c_int()
         err = _build.library().s3_gated_attention_occupancy(kind, ctypes.byref(smem),
                                                            ctypes.byref(blocks))
@@ -1141,7 +1186,9 @@ def main():
         inp_long = long_inputs(4, 1499, gen, dev)
         inp8 = long_inputs(2, 2999, gen, dev)
         check_kernels(kernel_calls(inp, inp_base), max_err)
-        check_kernels(long_kernel_calls(inp_long, inp8), max_err)
+        check_kernels(long_kernel_calls(
+            [inp_long, *(long_inputs(7, T, gen, dev, edges=True) for T in (65, 127))],
+            [inp8, long_inputs(7, 2049, gen, dev, edges=True)]), max_err)
         check_kernels(gated_kernel_calls(
             [gated_inputs(4, 499, gen, dev), gated_inputs(4, 1499, gen, dev),
              gated_inputs(4, 499, gen, dev, form="f32"),
@@ -1373,8 +1420,9 @@ def main():
         inp_long, inp8 = long_inputs(8, 1499, gen, dev), long_inputs(4, 2999, gen, dev)
         inputs = {"fused_qkv_attention_outproj": inp_long, "fused_qkv_attention": inp_long,
                   "online_flash_attention": inp8}
-        time_kernels(long_kernel_calls(inp_long, inp8), inputs, "(30 s: B=8; 60 s: B=4)",
+        time_kernels(long_kernel_calls([inp_long], [inp8]), inputs, "(30 s: B=8; 60 s: B=4)",
                      entries, launches, max_err)
+        time_attention_core([long_inputs(32, 499, gen, dev), inp_long])
         del inp_long, inp8, inputs
         for form in ("bf16", "f32"):  # the main path's padded bf16 bias first: the kernels line
             inp9, inp10 = (gated_inputs(32, 499, gen, dev, form=form),

@@ -1,48 +1,41 @@
-// Masked multi-head attention read straight from the fused [B, T, 3C] QKV
-// buffer (bf16), head dim 64, output [B, T, C] in bf16 or f32:
-//   out[b, t, h] = softmax_k(q.k * Dh^-0.5 - 1e9 * (k >= kv_len[b])) . v
-// with f32 scores and softmax, bf16 P.V operands and f32 accumulation.
-//
-// The attention core of the Pallas kernels `fused_attention_block_bf16`
-// (s3prl_tpu/kernels/flash_attention.py:797, pallas_call at :772; the
-// per-head loop at :733-751) and `fused_attention_block` (K1, :633), and
-// the whole of `fused_qkv_attention` (K7, :232, pallas_call at :210) at any
-// T: nothing here bounds T. The f32 output is K6's
-// (`fused_qkv_attention_outproj`, :338, pallas_call at :312), whose heads
-// are concatenated unrounded before the context quantization (:287); the
-// math up to the store is the same for both outputs.
-//
-// The TPU kernels hold the whole utterance's [T, 3C] QKV in VMEM (3 MB at
-// T=512, C=1024; 12 MB at T=2048); an H100 SM has 227 KB, so
-// this kernel re-tiles: one block per (64 queries, head, utterance), 4 warps
-// of 16 query rows, K/V streamed through shared memory in 64-key tiles with
-// an online softmax (running max and sum per row). Key tiles wholly past
-// kv_len are skipped: the Pallas kernel's additive -1e9 makes their
-// probabilities exactly 0 in f32. Keys past T (the ragged last tile) are
-// excluded outright. The Pallas kernel normalises P before its bf16 cast;
-// here P is unnormalised (<= 1) and the row sum divides at the end.
-//
-// Bound: tensor-core throughput of the two 64-deep products per tile
-// (4*B*H*T^2*Dh FLOP, 33 GFLOP per layer at B=32, T=499), with the softmax
-// on the CUDA cores between them. WMMA 16x16x16 fragments; the accumulator
-// layout is opaque, so the per-row rescale of the running output goes
-// through a per-warp f32 square in shared memory.
-//
-// The gated instantiation (f32 output) is the attention core of WavLM's
-// `gated_bias_attention_outproj` (K11, pallas_call :423, cell :360-403):
+// WavLM's gated relative-position-bias attention read straight from the
+// fused [B, T, 3C] QKV buffer (bf16), head dim 64, f32 output [B, T, C]:
 //   s = (q.k * Dh^-0.5) + gate[b, h, t] * pos_bias[h, t, k]  (k < kv_len),
 //   s = q.k * Dh^-0.5 - 1e9                                   otherwise,
-// each step an explicit __fmul_rn / __fadd_rn (the cell's scale, then the
-// product, then the sum; no contraction). The bias handling is
-// gated_attention.cu's: after a warp stores its 16 x 64 score square, its
-// lanes read the square's pos_bias rows straight from device memory (lanes
-// along the keys: one coalesced read per row half; the rows of an odd T
-// are not 16-byte aligned, so no cp.async), keys past kv_len untouched; the
-// block's 64 gates sit in shared memory. Its blocks run the utterance
-// fastest (blockIdx.x = b), so the B blocks that read one [64, T] slab of
-// the f32 bias run together and share L2 (the TPU kernel's batch-innermost
-// grid, :426); with b on blockIdx.z the slab would come from device memory
-// B times.
+//   out[b, t, h] = softmax_k(s) . v
+// with f32 scores and softmax, bf16 P.V operands and f32 accumulation: the
+// attention core of WavLM's `gated_bias_attention_outproj` (K11,
+// s3prl_tpu/kernels/flash_attention.py:454, pallas_call :423, cell
+// :360-403), whose heads are concatenated unrounded before the context
+// quantization. Each step is an explicit __fmul_rn / __fadd_rn (the cell's
+// scale, then the product, then the sum; no contraction).
+//
+// The TPU kernel holds the whole utterance's [T, 3C] QKV in VMEM; an H100
+// SM has 227 KB, so this kernel re-tiles: one block per (64 queries, head,
+// utterance), 4 warps of 16 query rows, K/V streamed through shared memory
+// in 64-key tiles with an online softmax (running max and sum per row).
+// Key tiles wholly past kv_len are skipped: the Pallas kernel's additive
+// -1e9 makes their probabilities exactly 0 in f32. Keys past T (the ragged
+// last tile) are excluded outright. The Pallas kernel normalises P before
+// its bf16 cast; here P is unnormalised (<= 1) and the row sum divides at
+// the end. kv_len = 0 (never produced by the model) attends uniformly over
+// T keys.
+//
+// After a warp stores its 16 x 64 score square, its lanes read the square's
+// pos_bias rows straight from device memory (lanes along the keys: one
+// coalesced read per row half; the rows of an odd T are not 16-byte
+// aligned, so no cp.async), keys past kv_len untouched; the block's 64
+// gates sit in shared memory. Blocks run the utterance fastest (blockIdx.x
+// = b), so the B blocks that read one [64, T] slab of the f32 bias run
+// together and share L2 (the TPU kernel's batch-innermost grid, :426);
+// with b on blockIdx.z the slab would come from device memory B times.
+//
+// Bound: tensor-core throughput of the two 64-deep products per tile, with
+// the softmax on the CUDA cores between them. This is the pre-Hopper design
+// (WMMA 16x16x16 fragments, whose accumulator layout is opaque, so the
+// per-row rescale of the running output goes through a per-warp f32 square
+// in shared memory; one buffer of K/V), kept for K11 alone: the other
+// attention kernels run on gated_attention.cu's wgmma design.
 #include <mma.h>
 
 #include "common.cuh"
@@ -62,24 +55,21 @@ constexpr int kKVBytes = kBKV * kLd * 2;
 constexpr int kSBytes = kWarps * 16 * kLdf * 4;
 constexpr int kPBytes = kWarps * 16 * kLd * 2;
 constexpr int kSmemBytes = kQBytes + 2 * kKVBytes + kSBytes + kPBytes;
-constexpr int kGateBytes = kBQ * 4;  // the gated instantiation's 64 gates
+constexpr int kGateBytes = kBQ * 4;  // the block's 64 gates
 
-template <typename OutT, bool kGated>
 __global__ void __launch_bounds__(kWarps * 32)
     attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ kv_lens,
                      const float* __restrict__ pos_bias, const float* __restrict__ gate,
-                     OutT* __restrict__ out, int T, int H, float scale) {
+                     float* __restrict__ out, int T, int H, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = reinterpret_cast<bf16*>(smem + kQBytes);
   bf16* vs = reinterpret_cast<bf16*>(smem + kQBytes + kKVBytes);
   float* ss = reinterpret_cast<float*>(smem + kQBytes + 2 * kKVBytes);
   bf16* ps = reinterpret_cast<bf16*>(smem + kQBytes + 2 * kKVBytes + kSBytes);
-  float* gs = reinterpret_cast<float*>(smem + kSmemBytes);  // kGated only
+  float* gs = reinterpret_cast<float*>(smem + kSmemBytes);
 
-  const int b = kGated ? blockIdx.x : blockIdx.z;
-  const int q0 = (kGated ? blockIdx.y : blockIdx.x) * kBQ;
-  const int h = kGated ? blockIdx.z : blockIdx.y;
+  const int b = blockIdx.x, q0 = blockIdx.y * kBQ, h = blockIdx.z;
   const int C = H * kDh, stride = 3 * C;
   const bf16* base = qkv + static_cast<size_t>(b) * T * stride;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -87,7 +77,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   // kv_len == 0 (never produced by the model) attends uniformly over T keys
   const int n_tiles = (kv_len > 0 ? kv_len + kBKV - 1 : T + kBKV - 1) / kBKV;
 
-  if (kGated && tid < kBQ)
+  if (tid < kBQ)
     gs[tid] = q0 + tid < T ? gate[(static_cast<size_t>(b) * H + h) * T + q0 + tid] : 0.f;
   for (int i = tid; i < kBQ * (kDh / 8); i += kWarps * 32) {
     const int r = i / (kDh / 8), c = (i % (kDh / 8)) * 8;
@@ -141,25 +131,23 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     __syncwarp();
 
-    if constexpr (kGated) {
-      // S = S * scale [+ gate * pos_bias on the valid keys]; lanes along the keys of a row
-      const float* bias_h = pos_bias + static_cast<size_t>(h) * T * T;
+    // S = S * scale [+ gate * pos_bias on the valid keys]; lanes along the keys of a row
+    const float* bias_h = pos_bias + static_cast<size_t>(h) * T * T;
 #pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        const int t = q0 + warp * 16 + r;
-        if (t < T) {
-          const float g = gs[warp * 16 + r];
-          const float* brow = bias_h + static_cast<size_t>(t) * T + k0;
+    for (int r = 0; r < 16; ++r) {
+      const int t = q0 + warp * 16 + r;
+      if (t < T) {
+        const float g = gs[warp * 16 + r];
+        const float* brow = bias_h + static_cast<size_t>(t) * T + k0;
 #pragma unroll
-          for (int c = lane; c < kBKV; c += 32) {
-            float s = __fmul_rn(sw[r * kLdf + c], scale);
-            if (k0 + c < kv_len) s = __fadd_rn(s, __fmul_rn(g, __ldg(brow + c)));
-            sw[r * kLdf + c] = s;
-          }
+        for (int c = lane; c < kBKV; c += 32) {
+          float s = __fmul_rn(sw[r * kLdf + c], scale);
+          if (k0 + c < kv_len) s = __fadd_rn(s, __fmul_rn(g, __ldg(brow + c)));
+          sw[r * kLdf + c] = s;
         }
       }
-      __syncwarp();
     }
+    __syncwarp();
 
     // online softmax on row rr, columns half*32 .. half*32+31
     float* srow = sw + rr * kLdf + half * 32;
@@ -167,8 +155,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll 8
     for (int c = 0; c < 32; ++c) {
       const int col = k0 + half * 32 + c;
-      float s = kGated ? __fadd_rn(srow[c], col < kv_len ? 0.f : -1e9f)
-                       : srow[c] * scale + (col < kv_len ? 0.f : -1e9f);
+      float s = __fadd_rn(srow[c], col < kv_len ? 0.f : -1e9f);
       if (col >= T) s = -INFINITY;
       srow[c] = s;
       mx = fmaxf(mx, s);
@@ -225,7 +212,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int t = q0 + warp * 16 + rr;
   if (t < T) {
     const float inv = 1.f / l_i;
-    OutT* orow = out + (static_cast<size_t>(b) * T + t) * C + h * kDh + half * 32;
+    float* orow = out + (static_cast<size_t>(b) * T + t) * C + h * kDh + half * 32;
     const float* srow = sw + rr * kLdf + half * 32;
 #pragma unroll
     for (int c = 0; c < 32; c += 8) {
@@ -237,38 +224,20 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename OutT, bool kGated>
-int launch_attention(const void* qkv, const void* kv_lens, const void* pos_bias, const void* gate,
-                     void* out, int batch, int T, int H, float scale, cudaStream_t stream) {
-  const int smem = kSmemBytes + (kGated ? kGateBytes : 0);
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<OutT, kGated>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int q_tiles = (T + kBQ - 1) / kBQ;
-  const dim3 grid = kGated ? dim3(batch, q_tiles, H) : dim3(q_tiles, H, batch);
-  attention_kernel<OutT, kGated><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const int*>(kv_lens),
-      static_cast<const float*>(pos_bias), static_cast<const float*>(gate),
-      static_cast<OutT*>(out), T, H, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
-
-extern "C" int s3_attention(const void* qkv, const void* kv_lens, void* out, int batch, int T,
-                            int H, float scale, int out_f32, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return out_f32
-             ? launch_attention<float, false>(qkv, kv_lens, nullptr, nullptr, out, batch, T, H,
-                                              scale, st)
-             : launch_attention<bf16, false>(qkv, kv_lens, nullptr, nullptr, out, batch, T, H,
-                                             scale, st);
-}
 
 // K11's attention core: the gated bias, f32 context [B, T, C].
 extern "C" int s3_attention_gated(const void* qkv, const void* kv_lens, const void* pos_bias,
                                   const void* gate, void* out, int batch, int T, int H,
                                   float scale, void* stream) {
-  return launch_attention<float, true>(qkv, kv_lens, pos_bias, gate, out, batch, T, H, scale,
-                                       static_cast<cudaStream_t>(stream));
+  constexpr int smem = kSmemBytes + kGateBytes;
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(batch, (T + kBQ - 1) / kBQ, H);  // the utterance varies fastest
+  attention_kernel<<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), static_cast<const int*>(kv_lens),
+      static_cast<const float*>(pos_bias), static_cast<const float*>(gate),
+      static_cast<float*>(out), T, H, scale);
+  return static_cast<int>(cudaGetLastError());
 }

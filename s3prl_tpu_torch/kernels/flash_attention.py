@@ -13,8 +13,9 @@ device memory (fusing them is later work):
 
 1. `csrc/layernorm.cu`: LN(x) in f32 -> bf16 (pre-LN only);
 2. `csrc/gemm_bf16.cu`: QKV = xn @ Wqkv^T + bq -> bf16 [B*T, 3C];
-3. `csrc/attention.cu`: per-head masked softmax attention from the fused
-   QKV buffer -> bf16 [B*T, C];
+3. `csrc/gated_attention.cu`, its packed instantiation (`_attention`):
+   per-head masked softmax attention read by TMA from the fused QKV
+   buffer -> bf16 [B*T, C];
 4. `csrc/gemm_bf16.cu`: out-proj + bo + x; with ``postnorm`` the sum stays
    f32 and `csrc/layernorm.cu` writes LN(sum) in bf16.
 
@@ -24,7 +25,8 @@ the Pallas kernel's dynamic per-row scales and cast points:
 1. `csrc/quant_rows.cu`: [LN(x) in f32 ->] per-row int8 codes and scales;
 2. `csrc/gemm_s8.cu`: QKV = bf16(bf16(bf16(acc) * bf16(s_x * ws)) + bf16(bq))
    [B*T, 3C] (flash_attention.py:537-544);
-3. `csrc/attention.cu` (K1's default attention math is K4's, :564-588);
+3. `csrc/gated_attention.cu` packed (K1's default attention math is K4's,
+   :564-588);
 4. `csrc/quant_rows.cu`: the context's per-row codes in bf16 (:605-611),
    then `csrc/gemm_s8.cu`: f32(acc) * s_a * wos + bo + x (:612-617); with
    ``postnorm`` the sum stays f32 and `csrc/layernorm.cu` writes LN(sum).
@@ -37,14 +39,16 @@ The long-utterance kernels (512 < T; the JAX package's routing, threshold
 for threshold, both read at call time):
 
 - K7 `fused_qkv_attention` (flash_attention.py:232): masked MHA from the
-  fused [B, T, 3C] QKV buffer, for T <= MAX_KERNEL_T one launch of
-  `csrc/attention.cu` (which has no T bound of its own);
-- K6 `fused_qkv_attention_outproj` (:338), int8: `csrc/attention.cu` with
-  an f32 context, `csrc/quant_rows.cu` (f32 per-row quantization, clamp
-  1e-8), `csrc/gemm_s8.cu` (int8 out-proj, f32(acc) * s * wos + bo + x);
+  fused [B, T, 3C] QKV buffer, for T <= MAX_KERNEL_T one launch of the
+  packed instantiation of `csrc/gated_attention.cu` (`_attention`, which
+  has no T bound of its own);
+- K6 `fused_qkv_attention_outproj` (:338), int8: the same with an f32
+  context, `csrc/quant_rows.cu` (f32 per-row quantization, clamp 1e-8),
+  `csrc/gemm_s8.cu` (int8 out-proj, f32(acc) * s * wos + bo + x);
 - K8 `online_flash_attention` (:892): K-blocked online softmax in f32 on
-  [B, H, T, 64] (`csrc/online_attention.cu`). Beyond MAX_KERNEL_T frames
-  K7 and K6 hand their attention to it (:241-249, :350-352).
+  [B, H, T, 64], the no-bias instantiation of `csrc/gated_attention.cu`
+  (K17's) with the mask -1e30 and the floor 1e-30. Beyond MAX_KERNEL_T
+  frames K7 and K6 hand their attention to it (:241-249, :350-352).
 
 WavLM's gated relative-position-bias attention (scores q.k^T + gate[b, h, t]
 * pos_bias[h, t, s]), both on `csrc/gated_attention.cu` (wgmma, a ring of
@@ -66,7 +70,7 @@ K11 `gated_bias_attention_outproj` (:454, cell :360-403), WavLM's opt-in
 fused attention: K6's math (unscaled qkv, P normalised and cast before
 P.V, the f32 context quantized per row, int8 out-proj + bo + residual) with
 the gated bias added before the mask. `csrc/attention.cu`'s gated
-instantiation, then K6's `csrc/quant_rows.cu` and `csrc/gemm_s8.cu`;
+kernel, then K6's `csrc/quant_rows.cu` and `csrc/gemm_s8.cu`;
 beyond MAX_KERNEL_T it hands over to K9 -> K10 and stock ops (:466-477).
 """
 
@@ -116,9 +120,11 @@ def attention_reference(qkv: torch.Tensor, kv_lens: torch.Tensor, num_heads: int
 
 def _attention(qkv: torch.Tensor, kv_lens: torch.Tensor, num_heads: int,
                out_f32: bool = False, bias=None) -> torch.Tensor:
-    """One launch of `csrc/attention.cu` on qkv [B, T, 3C] bf16 (CUDA
-    only) -> [B * T, C], bf16 or f32; with `bias` = (pos_bias [H, T, T],
-    gate [B, H, T]), both f32, its gated instantiation (f32 out only)."""
+    """One launch on qkv [B, T, 3C] bf16 (CUDA only) -> [B * T, C], bf16
+    or f32: the packed instantiation of `csrc/gated_attention.cu` (K7's
+    math, `attention_reference`'s; a row with kv_len = 0 attends to all T
+    keys alike); with `bias` = (pos_bias [H, T, T], gate [B, H, T]), both
+    f32, K11's gated kernel in `csrc/attention.cu` (f32 out only)."""
     B, T, C3 = qkv.shape
     C = C3 // 3
     if C != num_heads * HEAD_DIM:
@@ -137,7 +143,7 @@ def _attention(qkv: torch.Tensor, kv_lens: torch.Tensor, num_heads: int,
     if not B * T:
         return out
     if bias is None:
-        launch("s3_attention", qkv.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), B, T,
+        launch("s3_qkv_attention", qkv.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), B, T,
                num_heads, HEAD_DIM ** -0.5, int(out_f32), stream_of(qkv))
     else:
         launch("s3_attention_gated", qkv.data_ptr(), kv_lens.data_ptr(), bias[0].data_ptr(),
@@ -282,15 +288,9 @@ def online_flash_attention_reference(q, k, v, kv_lens):
     """Plain version of K8 with the Pallas cell's math (:830-854): q, k, v
     [B, H, T, Dh] cast to f32 (q pre-scaled), scores of keys at or past
     kv_len replaced by -1e30, p = exp2((s - max) * log2 e) kept in f32 for
-    P.V, out = acc / max(sum p, 1e-30) in q's dtype."""
-    T = q.shape[2]
-    s = q.float() @ k.float().transpose(-1, -2)
-    col = torch.arange(T, device=q.device)
-    valid = col[None, :] < kv_lens[:, None].to(col.dtype)  # [B, T keys]
-    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, -1e30))
-    p = torch.exp2((s - s.amax(-1, keepdim=True)) * _LOG2E)
-    out = (p @ v.float()) / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
-    return out.to(q.dtype)
+    P.V, out = acc / max(sum p, 1e-30) in q's dtype: the no-bias gated
+    math with K10's constants."""
+    return _gated_reference(q, k, v, None, None, kv_lens, -1e30, 1e-30)
 
 
 def online_flash_attention(q, k, v, kv_lens):
@@ -298,24 +298,12 @@ def online_flash_attention(q, k, v, kv_lens):
     frames: K8. q, k, v [B, H, T, Dh] (q pre-scaled by Dh^-0.5), kv_lens
     [B] int32 valid keys (padding contiguous, kv_len >= 1: a row with no
     valid key is outside the contract). CPU tensors run the plain version;
-    CUDA tensors launch `csrc/online_attention.cu`, which takes bf16 and
-    head dim 64. Forward-only."""
+    CUDA tensors launch the no-bias instantiation of
+    `csrc/gated_attention.cu` with the mask -1e30 and the floor 1e-30,
+    which takes bf16 and head dim 64. Forward-only."""
     if on_cpu(q, k, v, kv_lens):
         return online_flash_attention_reference(q, k, v, kv_lens)
-    B, H, T, Dh = q.shape
-    if Dh != HEAD_DIM:
-        raise ValueError(f"online attention kernel takes head dim {HEAD_DIM}, got {Dh}")
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        require(t, name, torch.bfloat16, (B, H, T, Dh))
-        if t.data_ptr() % 16:
-            raise ValueError(f"online attention {name}: 16-byte aligned rows only")
-    require(kv_lens, "kv_lens", torch.int32, (B,))
-    refuse_grad("K8 online_flash_attention", q, k, v)
-    out = torch.empty_like(q)
-    if B * H * T:
-        with torch.cuda.device(q.device):
-            launch("s3_online_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   kv_lens.data_ptr(), out.data_ptr(), B, H, T, stream_of(q))
+    out = _gated_launch(q, k, v, None, None, kv_lens, -1e30, 1e-30)
     online_flash_attention.launches += 1
     return out
 
@@ -347,8 +335,8 @@ def fused_qkv_attention(qkv, kv_lens, num_heads: int):
     contiguous) -> [B, T, C] in qkv's dtype. Beyond MAX_KERNEL_T frames the
     heads are split out and K8 takes over (the JAX package's routing; its
     launch counts for K8, not here). CPU tensors run the plain versions;
-    CUDA tensors launch `csrc/attention.cu` (bf16 qkv, head dim 64).
-    Forward-only."""
+    CUDA tensors launch the packed instantiation of `csrc/gated_attention.cu`
+    (bf16 qkv, head dim 64). Forward-only."""
     cpu = on_cpu(qkv, kv_lens)
     if not cpu and qkv.dtype != torch.bfloat16:
         raise NotImplementedError(
@@ -401,8 +389,9 @@ def fused_qkv_attention_outproj(qkv, residual, wo, bo, kv_lens, num_heads: int):
     layout (a raw weight is quantized here), bo [C] f32, kv_lens [B] int32.
     Beyond MAX_KERNEL_T frames: residual + int8_matmul(K7 -> K8, wo, bo)
     (:350-352; its launches count for K8). CPU tensors run the plain
-    versions; CUDA tensors launch `csrc/attention.cu` (f32 context),
-    `csrc/quant_rows.cu` and `csrc/gemm_s8.cu` (head dim 64). Forward-only."""
+    versions; CUDA tensors launch the packed instantiation of
+    `csrc/gated_attention.cu` (f32 context), `csrc/quant_rows.cu` and
+    `csrc/gemm_s8.cu` (head dim 64). Forward-only."""
     wo_q, wo_s = as_quantized_cols(wo)
     B, T, C3 = qkv.shape
     C = C3 // 3
@@ -485,9 +474,11 @@ def _bias_row_stride(pos_bias, H: int, T: int) -> int:
 
 
 def _gated_launch(q, k, v, pos_bias, gate, kv_lens, masked: float, floor: float):
-    """One launch of `csrc/gated_attention.cu` (CUDA only): checks what the
-    kernel takes and raises on anything else. Without pos_bias (and gate)
-    its no-bias instantiation, K17's, with the -1e9 mask and no floor."""
+    """One launch of `csrc/gated_attention.cu` on split heads (CUDA only):
+    checks what the kernel takes and raises on anything else. Without
+    pos_bias (and gate) its no-bias instantiation: K17's entry (the -1e9
+    mask, no floor) or, with a floor, K8's (the -1e30 mask, the floor
+    1e-30)."""
     B, H, T, Dh = q.shape
     if Dh != HEAD_DIM:
         raise ValueError(f"gated attention kernel takes head dim {HEAD_DIM}, got {Dh}")
@@ -499,13 +490,14 @@ def _gated_launch(q, k, v, pos_bias, gate, kv_lens, masked: float, floor: float)
     if pos_bias is not None:
         ld = _bias_row_stride(pos_bias, H, T)
         require(gate, "gate", torch.float32, (B, H, T))
-    refuse_grad("K9/K10/K17 attention", q, k, v, pos_bias, gate)
+    refuse_grad("K8/K9/K10/K17 attention", q, k, v, pos_bias, gate)
     out = torch.empty_like(q)
     if B * H * T:
         with torch.cuda.device(q.device):
             if pos_bias is None:
-                launch("s3_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       kv_lens.data_ptr(), out.data_ptr(), B, H, T, stream_of(q))
+                launch("s3_online_attention" if floor else "s3_flash_attention", q.data_ptr(),
+                       k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), B, H, T,
+                       stream_of(q))
             else:
                 launch("s3_gated_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        pos_bias.data_ptr(), int(pos_bias.dtype == torch.float32), ld,
@@ -614,7 +606,7 @@ def gated_bias_attention_outproj(qkv, residual, pos_bias, gate, wo, bo, kv_lens,
     time): the heads split with q pre-scaled in qkv's dtype, K9 (which hands
     over to K10), then residual + int8_matmul (:466-477; those launches
     count for K10). CPU tensors run the plain versions; CUDA tensors launch
-    the gated instantiation of `csrc/attention.cu` (f32 context),
+    the gated kernel of `csrc/attention.cu` (f32 context),
     `csrc/quant_rows.cu` (f32 quantizer) and `csrc/gemm_s8.cu` (out-proj,
     bias, residual), head dim 64. Forward-only."""
     wo_q, wo_s = as_quantized_cols(wo)

@@ -473,6 +473,7 @@ def test_tiny_trunk_long_routes_match_cpu(dev, monkeypatch, quantize, max_kernel
 
 
 LONG_T = [513, 1499, 2048, 2049, 2999]
+EDGE_T = [65, 127]  # key tiles of 64 with a ragged last tile, beside the long ones
 
 
 def _long_kv(T, dev):
@@ -484,13 +485,46 @@ def _on_cpu(*args):
             for a in args]
 
 
-@pytest.mark.parametrize("T", LONG_T)
+ATTN_T = [1, 63, 64, 65, 127, 499, 513, 1499, 2048]
+
+
+@pytest.mark.parametrize("out_f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("T,B,H", [(T, B, 2) for T in ATTN_T for B in (1, 3, 7)]
+                         + [(499, 32, 16)])
+def test_packed_attention_kernel(dev, T, B, H, out_f32):
+    """`_attention`, the packed instantiation of gated_attention.cu (K1, K4,
+    K6 and K7's attention step), against `attention_reference` on the card,
+    with kv_lens on the tile edges (`_edge_kv`), bf16 and f32 out."""
+    qkv = _t(np.random.RandomState(23).randn(B, T, 3 * H * 64), dev, torch.bfloat16)
+    kv = _edge_kv(B, T, dev)
+    got = fa._attention(qkv, kv, H, out_f32=out_f32)
+    want = attention_reference(qkv, kv, H, out_dtype=torch.float32 if out_f32 else None)
+    assert got.dtype == want.dtype
+    _close_bf16(got, want.view(B * T, H * 64))
+
+
+@pytest.mark.parametrize("out_f32", [False, True], ids=["bf16", "f32"])
+def test_packed_attention_kernel_row_without_keys(dev, out_f32):
+    """A row with kv_len = 0 runs every key of T, each masked by the
+    additive -1e9, as the plain version does: a near-uniform row."""
+    B, T, H = 3, 130, 2
+    qkv = _t(np.random.RandomState(24).randn(B, T, 3 * H * 64), dev, torch.bfloat16)
+    kv = torch.tensor([T, 0, 65], dtype=torch.int32, device=dev)
+    got = fa._attention(qkv, kv, H, out_f32=out_f32)
+    want = attention_reference(qkv, kv, H, out_dtype=torch.float32 if out_f32 else None)
+    _close_bf16(got, want.view(B * T, H * 64))
+    mean_v = qkv[1, :, 2 * H * 64:].float().mean(0)  # the uniform row's output
+    _close_bf16(got.view(B, T, -1)[1], mean_v.expand(T, -1))
+
+
+@pytest.mark.parametrize("T", EDGE_T + LONG_T)
 def test_k7_kernel(dev, T):
     """K7 against the plain versions of its route on the same inputs (the
-    wrapper on CPU copies): attention.cu up to MAX_KERNEL_T, K8 beyond."""
+    wrapper on CPU copies): the packed instantiation of gated_attention.cu
+    up to MAX_KERNEL_T, K8 beyond; kv_lens on the tile edges."""
     rng = np.random.RandomState(17)
-    qkv = _t(rng.randn(3, T, 3 * 128), dev, torch.bfloat16)
-    kv = _long_kv(T, dev)
+    qkv = _t(rng.randn(7, T, 3 * 128), dev, torch.bfloat16)
+    kv = _edge_kv(7, T, dev)
     before = fused_qkv_attention.launches, online_flash_attention.launches
     got = fused_qkv_attention(qkv, kv, 2)
     torch.cuda.synchronize()
@@ -500,16 +534,16 @@ def test_k7_kernel(dev, T):
     _close_bf16(got, fused_qkv_attention(*_on_cpu(qkv, kv), 2))
 
 
-@pytest.mark.parametrize("T", LONG_T)
+@pytest.mark.parametrize("T", EDGE_T + LONG_T)
 def test_k6_kernel(dev, T):
     """K6 (f32 context, f32 row-quant, int8 out-proj + bias + residual)
     against the plain versions of its route; beyond MAX_KERNEL_T it is
-    K7 -> K8 and residual + int8_matmul."""
+    K7 -> K8 and residual + int8_matmul. kv_lens on the tile edges."""
     rng = np.random.RandomState(18)
-    qkv = _t(rng.randn(3, T, 3 * 128), dev, torch.bfloat16)
-    x = _t(rng.randn(3, T, 128) * 0.5, dev, torch.bfloat16)
+    qkv = _t(rng.randn(7, T, 3 * 128), dev, torch.bfloat16)
+    x = _t(rng.randn(7, T, 128) * 0.5, dev, torch.bfloat16)
     wo, bo = _qpair(rng, dev, 128, 128)
-    kv = _long_kv(T, dev)
+    kv = _edge_kv(7, T, dev)
     before = fused_qkv_attention_outproj.launches, online_flash_attention.launches
     got = fused_qkv_attention_outproj(qkv, x, wo, bo, kv, 2)
     torch.cuda.synchronize()
@@ -519,12 +553,13 @@ def test_k6_kernel(dev, T):
     _close_bf16(got, fused_qkv_attention_outproj(*_on_cpu(qkv, x, wo, bo, kv), 2))
 
 
-@pytest.mark.parametrize("T", LONG_T)
+@pytest.mark.parametrize("T", EDGE_T + LONG_T)
 def test_k8_kernel(dev, T):
-    """K8 alone against its plain version on the card; q pre-scaled."""
+    """K8 alone against its plain version on the card; q pre-scaled,
+    kv_lens on the tile edges."""
     rng = np.random.RandomState(19)
-    q, k, v = (_t(rng.randn(3, 2, T, 64) * sc, dev, torch.bfloat16) for sc in (0.125, 1, 1))
-    kv = _long_kv(T, dev)
+    q, k, v = (_t(rng.randn(7, 2, T, 64) * sc, dev, torch.bfloat16) for sc in (0.125, 1, 1))
+    kv = _edge_kv(7, T, dev)
     before = online_flash_attention.launches
     got = online_flash_attention(q, k, v, kv)
     torch.cuda.synchronize()
