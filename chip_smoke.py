@@ -7,12 +7,15 @@ Phases (any failed check raises, so the exit code is not 0 and no result
 line is printed; each phase prints its seconds):
  1. require a CUDA device; print the card's name and power limit;
  2. build the CUDA kernels from csrc/ (into build/) and print the seconds;
-    for the wgmma attention kernel (gated_attention.cu: K1, K4, K6-K10,
-    K17) print each of its five instantiations' registers, stack and
-    spills (ptxas -v, nvcc.log) with any ptxas note that its wgmma were
-    serialized, its dynamic shared memory and blocks per SM, and its HGMMA
-    (wgmma) count in the SASS (cuobjdump); fail unless there are five, on a
-    stack frame, a spill or an instantiation without HGMMA;
+    for the wgmma kernels - the attention (gated_attention.cu: K1, K4,
+    K6-K10, K17; five instantiations), the int8 GEMM core (gemm_s8.cu: the
+    products of K1, K2, K6, K11, K12, K13b; three) and K16a (posconv.cu;
+    one) - print each instantiation's registers, stack and spills (ptxas -v,
+    nvcc.log) with any ptxas note that its wgmma were serialized, and its
+    HGMMA / IGMMA (wgmma) count in the SASS (cuobjdump), then each kernel's
+    dynamic shared memory and blocks per SM; fail unless each kernel has its
+    count of instantiations, on a stack frame, a spill or an instantiation
+    without wgmma;
  3. each kernel against its plain PyTorch version on the same CUDA tensors,
     at the main paths' shapes with unit-scale inputs: cosine > 0.9995 and
     every element within max(3e-2, one bf16 step at the plain value) of
@@ -34,15 +37,18 @@ line is printed; each phase prints its seconds):
     residual) sets at [4 x 499, 1024] -> N = 3072 (with the LN) or 1024;
     the share of int8 codes where the kernels' quantizers and the plain
     ones differ is printed (K6's and K11's context codes among them). The
-    int8 GEMM alone equals torch._int_mm exactly, and the quantizer rounds
-    constructed ties half to even. The front-end kernels at the shapes of
+    int8 GEMM alone equals torch._int_mm exactly (QKV, fc2 column ranges,
+    M, N, K on the 128 x 256 x 128-byte tile edges, row-group views [3, T',
+    512] with lda 1024), and the quantizer rounds constructed ties half to
+    even. The front-end kernels at the shapes of
     B=2 x 10 s: K13a on the waves, K14 and K13b (codes out, and bf16 out as
     in the last layer) on layer 1's input [2, 31999, 512] (k=3) and layer
     5's [2, 1999, 512] (k=2), K15 (erf, tanh) on those layers' outputs;
     K13a's and K13b's codes may differ from the plain version's in at most
     0.1% of places, by one step, and their scales agree at rtol 1e-5 (the
-    share is printed); the pos-conv kernels K16a and K16b at B=4 x 499 and
-    B=4 x 1,499 frames of HuBERT-Large's pos-conv (C 1024, k 128, 16 groups),
+    share is printed); the pos-conv kernels K16a and K16b at B=4 x 499,
+    B=4 x 1,499 and B=3 x 257 frames of HuBERT-Large's pos-conv (C 1024, k
+    128, 16 groups),
     K16b's activation codes and scales under the same rule; K17 on [4, 16,
     499, 64] and on B=7 x 65 and 127 frames with kv_lens on the tile edges;
  4. the main paths at full width, HuBERT-Large (hub.load(
@@ -95,7 +101,11 @@ line is printed; each phase prints its seconds):
     (``qkv_fuse`` at 30 s only), K11 at [32, 499] and K12 at 32 x 499 rows
     beside the split pairs they replace (K9 with the heads split and merged,
     int8_matmul out-proj and residual; LN and int8_matmul QKV; int8_matmul
-    out-proj and residual), which no single library call computes. The
+    out-proj and residual), which no single library call computes. On lines
+    of their own: K2's launches one by one (x-quant, fc1, the two requants,
+    the two fc2 chunks) at B=32 x 499, and the int8 GEMM alone (int32 out)
+    beside torch._int_mm at K2's fc1 and fc2-chunk and K1's QKV shapes, with
+    TOP/s. The
     front-end options' paths are timed at B=32 x 10 s, and every path's
     feature extractor alone; K13a, K13b, K14 and K15 over the six mid
     layers of B=32 x 10 s (one launch of K13a) beside their plain versions,
@@ -884,6 +894,92 @@ def time_attention_core(inps):
         del sdpa
 
 
+# (M, N, K) on and beside the int8 wgmma core's tile edges (128 rows, 256
+# columns, 128-byte K stages)
+GEMM_EDGES = ((1, 8, 16), (17, 136, 48), (127, 264, 1152), (129, 8, 2048), (255, 136, 16),
+              (257, 264, 1152))
+
+
+def check_gemm_s8_edges(gen, dev):
+    """gemm_s8 (kRaw) equals torch._int_mm bit for bit on the tile edges
+    and on row-group views [B, T', 512] with lda = 2C (K13b's stride-2 tap
+    rows read in place; T' not a multiple of the 128-row tile)."""
+    from s3prl_tpu_torch.kernels import _common as kc
+    from s3prl_tpu_torch.ops.quant import int_mm
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev)
+
+    for M, N, K in GEMM_EDGES:
+        a, w = codes(M, K), codes(N, K)
+        check(torch.equal(kc.gemm_s8(a, w), int_mm(a, w)), f"gemm_s8 [{M}, {K}] x [{N}, {K}]")
+    for T_out in (1, 63, 129, 499):
+        x, w = codes(3, 2 * T_out + 1, 512), codes(264, 512)
+        rows = x.as_strided((3, T_out, 512), (x.shape[1] * 512, 1024, 1), 512)
+        check(torch.equal(kc.gemm_s8(rows, w), int_mm(rows.reshape(-1, 512).contiguous(), w)),
+              f"gemm_s8 row groups [3, {T_out}, 512], lda 1024")
+    log(f"[kernel] gemm_s8 equals torch._int_mm exactly on the tile edges {GEMM_EDGES} and on "
+        "row groups [3, T', 512] with lda 1024, T' in (1, 63, 129, 499)")
+
+
+def time_gemm_s8(gen, dev, M=32 * 499):
+    """gemm_s8 alone (kRaw, int32 out) beside torch._int_mm on the same
+    operands at K2's fc1 and fc2-chunk shapes and K1's QKV shape, M = B=32 x
+    499 rows; printed with TOP/s, not in the kernels line."""
+    from s3prl_tpu_torch.kernels import _common as kc
+
+    for what, N, K in (("K2 fc1", 4096, 1024), ("K2 fc2 chunk", 1024, 2048),
+                       ("K1 QKV", 3072, 1024)):
+        a = torch.randint(-127, 128, (M, K), generator=gen, dtype=torch.int8).to(dev)
+        w = torch.randint(-127, 128, (N, K), generator=gen, dtype=torch.int8).to(dev)
+        wt = w.t()
+        t = [cuda_ms(f, 10) for f in (lambda: torch._int_mm(a, wt), lambda: kc.gemm_s8(a, w),
+                                       lambda: kc.gemm_s8(a, w), lambda: torch._int_mm(a, wt))]
+        ms, lib_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        tops = 2 * M * N * K / 1e12
+        bound_ms, bound_by = bound({"int8": 2 * M * N * K}, M * K + N * K + 4 * M * N)
+        log(f"[timing] gemm_s8 alone {what} [{M}, {K}] x [{N}, {K}] -> int32: {ms:.4f} ms "
+            f"({tops / ms * 1e3:.0f} TOP/s), torch._int_mm {lib_ms:.4f} ms "
+            f"({tops / lib_ms * 1e3:.0f} TOP/s), bound {bound_ms:.4f} ms ({bound_by})")
+        del a, w, wt
+
+
+def k2_stages(inp):
+    """K2's launches on the main path's flags (pre-LN, residual) as
+    `fused_int8_ffn` makes them, on its timing inputs: (stage, call) each,
+    the later stages fed the earlier stages' outputs."""
+    from s3prl_tpu_torch.kernels import _common as kc
+    from s3prl_tpu_torch.kernels import ffn as k5
+
+    x2 = inp["x"].view(-1, inp["x"].shape[-1])
+    (w1q, w1s), (w2q, w2s) = inp["w18"], inp["w28"]
+    R, Fd = x2.shape[0], w1q.shape[0]
+    bounds = k5._ffn_chunk_bounds(Fd)
+    x8, xs = kc.quant_rows(x2, ln=inp["ln"])
+    h = kc.gemm_s8(x8, w1q, mode=kc.GEMM_LINEAR, row_scale=xs, col_scale=w1s, bias=inp["b1"],
+                   gelu=True, out_f32=True)
+    h8 = torch.empty(R, Fd, dtype=torch.int8, device=x2.device)
+    hs = torch.empty(len(bounds), R, device=x2.device)
+    acc = torch.empty(R, x2.shape[1], device=x2.device)
+    stages = [("x-quant (LN + quant_rows.cu)", lambda: kc.quant_rows(x2, ln=inp["ln"])),
+              ("fc1 (gemm_s8, scale + b1 + tanh GELU, f32 h)",
+               lambda: kc.gemm_s8(x8, w1q, mode=kc.GEMM_LINEAR, row_scale=xs, col_scale=w1s,
+                                  bias=inp["b1"], gelu=True, out_f32=True))]
+    for i, (lo, hi) in enumerate(bounds):
+        stages.append((f"requant chunk {i} [{lo}, {hi})",
+                       lambda i=i, lo=lo, hi=hi: kc.quant_rows(h, lo=lo, hi=hi, q=h8,
+                                                               scale=hs[i])))
+    for i, (lo, hi) in enumerate(bounds):
+        last = i == len(bounds) - 1
+        stages.append((f"fc2 chunk {i} [{lo}, {hi})",
+                       lambda i=i, lo=lo, hi=hi, last=last: kc.gemm_s8(
+                           h8[:, lo:hi], w2q[:, lo:hi], mode=kc.GEMM_LINEAR, row_scale=hs[i],
+                           col_scale=w2s, acc_in=acc if i else None,
+                           bias=inp["b2"] if last else None, residual=x2 if last else None,
+                           out_f32=not last, out=None if last else acc)))
+    return stages
+
+
 KERNELS = {  # wrapper -> (its main CUDA source, the TPU kernel it replaces)
     "conv0_ln_gelu": ("s3prl_tpu_torch/csrc/conv0_ln_gelu.cu",
                       "s3prl_tpu/kernels/conv_frontend.py:148"),
@@ -1035,15 +1131,20 @@ def layer_cosines(a, b, h_lens):
 # gated_attention.cu's instantiations, in the order of its occupancy kinds
 GATED_KINDS = ("no bias, split heads (K8, K17)", "bf16 bias (K9, K10)", "f32 bias (K9, K10)",
                "packed, bf16 out (K1, K4, K7)", "packed, f32 out (K6)")
+# the wgmma kernels (their SASS names contain these) -> their instantiations:
+# the attention (K1, K4, K6-K10, K17), the int8 GEMM core (kRaw, kQkv, kLinear:
+# K1, K2, K6, K11, K12, K13b) and K16a
+WGMMA_KERNELS = {"gated_attention_kernel": len(GATED_KINDS), "gemm_s8_kernel": 3,
+                 "posconv_bf16_kernel": 1}
 
 
-def gated_build_report(lib):
-    """The wgmma attention kernel (K1, K4, K6-K10, K17) as built: for each
-    of its five instantiations its registers and spills (ptxas -v, from the
-    build's nvcc.log), its dynamic shared memory and blocks per SM (the
-    CUDA occupancy query) and its count of HGMMA (wgmma) instructions
-    (cuobjdump -sass), and any ptxas note that its wgmma were serialized.
-    Fails unless there are five, on a stack frame or spill, or on an
+def wgmma_build_report(lib):
+    """The wgmma kernels as built: for each instantiation its registers and
+    spills (ptxas -v, from the build's nvcc.log), its count of HGMMA (wgmma)
+    instructions (cuobjdump -sass), and any ptxas note that its wgmma were
+    serialized; then each kernel's dynamic shared memory and blocks per SM
+    (the CUDA occupancy queries; K16a at k = 128). Fails unless each kernel
+    has its count of instantiations, on a stack frame or spill, or on an
     instantiation without HGMMA."""
     import ctypes
     import re
@@ -1051,39 +1152,50 @@ def gated_build_report(lib):
 
     from s3prl_tpu_torch.kernels import _build
 
+    def kernel_of(name):
+        return next((k for k in WGMMA_KERNELS if k in name), None)
+
     lines = (Path(lib._name).parent / "nvcc.log").read_text().splitlines()
     ptxas = {}
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "gated_attention_kernel" in line:
+        if "Compiling entry function" in line and kernel_of(line):
             name = line.split("'")[1]
             info = " ".join(lines[i + 1:i + 5])
             spills = [int(n) for n in re.findall(r"(\d+) bytes (?:stack frame|spill stores"
                                                  r"|spill loads)", info)]
             regs = re.search(r"Used (\d+) registers", info)
             ptxas[name] = (int(regs.group(1)) if regs else None, sum(spills))
-        elif "gated_attention_kernel" in line and "Performance Loss" in line:
+        elif kernel_of(line) and "Performance Loss" in line:
             log(f"[build] ptxas: {line.strip()}")
     sass = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", lib._name],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    hgmma = {}
+    hgmma = {}  # wgmma in the SASS: HGMMA (bf16) or IGMMA (int8)
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
-        if "gated_attention_kernel" in name:
-            hgmma[name] = part.count("HGMMA")
-    check(len(ptxas) == len(hgmma) == len(GATED_KINDS),
-          f"gated_attention_kernel: {len(ptxas)} instantiations in nvcc.log, {len(hgmma)} in "
-          f"the SASS, not {len(GATED_KINDS)}")
+        if kernel_of(name):
+            hgmma[name] = len(re.findall(r"\b[HI]GMMA\.", part))
+    for kernel, count in WGMMA_KERNELS.items():
+        n_ptxas = sum(kernel_of(name) == kernel for name in ptxas)
+        n_sass = sum(kernel_of(name) == kernel for name in hgmma)
+        check(n_ptxas == n_sass == count, f"{kernel}: {n_ptxas} instantiations in nvcc.log, "
+              f"{n_sass} in the SASS, not {count}")
     for name, (regs, spills) in sorted(ptxas.items()):
         log(f"[build] {name}: {regs} registers, {spills} bytes of stack and spills, "
-            f"{hgmma.get(name, 0)} HGMMA in its SASS")
-        check(spills == 0 and hgmma.get(name, 0) > 0, f"{name}: spills or no HGMMA")
-    for kind, what in enumerate(GATED_KINDS):
+            f"{hgmma.get(name, 0)} HGMMA/IGMMA (wgmma) in its SASS")
+        check(spills == 0 and hgmma.get(name, 0) > 0, f"{name}: spills or no wgmma")
+    library = _build.library()
+    queries = [(f"gated_attention_kernel, {what}",
+                lambda s, b, kind=kind: library.s3_gated_attention_occupancy(kind, s, b))
+               for kind, what in enumerate(GATED_KINDS)]
+    queries += [("gemm_s8_kernel", library.s3_gemm_s8_occupancy),
+                ("posconv_bf16_kernel, k = 128",
+                 lambda s, b: library.s3_posconv_occupancy(128, s, b))]
+    for what, query in queries:
         smem, blocks = ctypes.c_int(), ctypes.c_int()
-        err = _build.library().s3_gated_attention_occupancy(kind, ctypes.byref(smem),
-                                                           ctypes.byref(blocks))
+        err = query(ctypes.byref(smem), ctypes.byref(blocks))
         check(err == 0, f"occupancy query ({what}): CUDA error {err}")
-        log(f"[build] gated_attention_kernel, {what}: {smem.value} bytes of dynamic shared "
-            f"memory a block, {blocks.value} blocks (x 4 warps) per SM")
+        log(f"[build] {what}: {smem.value} bytes of dynamic shared memory a block, "
+            f"{blocks.value} blocks per SM")
 
 
 class Phase:
@@ -1172,7 +1284,7 @@ def main():
     with Phase("2 build"):
         lib = _build.library()
         log(f"[build] {lib._name}")
-        gated_build_report(lib)
+        wgmma_build_report(lib)
 
     # 3. kernel vs plain at main-path shapes
     from s3prl_tpu_torch.kernels import _common as kc
@@ -1212,6 +1324,7 @@ def main():
                   f"gemm_s8 [{a8.shape[0]}, {hi - lo}] x [{w8.shape[0]}, {hi - lo}] "
                   "vs torch._int_mm")
         log("[kernel] gemm_s8 alone equals torch._int_mm exactly (QKV, fc2 chunks 1 and 2)")
+        check_gemm_s8_edges(gen, dev)
         ties = torch.tensor([[127.0, 2.5, -2.5, 3.5, -3.5, 0.5, -0.5, 1.5] * 128], device=dev)
         q, s = kc.quant_rows(ties)
         check(float(s[0]) == 1.0 and torch.equal(q[0], torch.round(ties[0]).to(torch.int8)),
@@ -1222,7 +1335,8 @@ def main():
         check_kernels(frontend_calls(inp_fe), max_err)
         check_q8_kernels(frontend_q8_calls(inp_fe), max_err)
         del inp_fe
-        inp16 = [posconv_inputs(4, 499, gen, dev), posconv_inputs(4, 1499, gen, dev)]
+        inp16 = [posconv_inputs(4, 499, gen, dev), posconv_inputs(4, 1499, gen, dev),
+                 posconv_inputs(3, 257, gen, dev)]
         check_kernels(posconv_calls(inp16), max_err)
         check_posconv_codes(inp16)
         check_kernels(k17_calls([gated_inputs(4, 499, gen, dev),
@@ -1416,6 +1530,11 @@ def main():
             for what, fn in pairs:
                 t = (cuda_ms(fn, 10) + cuda_ms(fn, 10)) / 2
                 log(f"[timing] {name} split pair it replaces B=32, {what}: {t:.3f} ms")
+        stages = [(what, (cuda_ms(fn, 10) + cuda_ms(fn, 10)) / 2) for what, fn in k2_stages(inp)]
+        log("[timing] fused_int8_ffn (K2) stages B=32 x 499, F=4096: " + ", ".join(
+            f"{what} {ms:.4f} ms" for what, ms in stages)
+            + f"; sum {sum(ms for _, ms in stages):.4f} ms")
+        time_gemm_s8(gen, dev)
         del inp, calls, inputs, inp11
         inp_long, inp8 = long_inputs(8, 1499, gen, dev), long_inputs(4, 2999, gen, dev)
         inputs = {"fused_qkv_attention_outproj": inp_long, "fused_qkv_attention": inp_long,

@@ -90,13 +90,11 @@
 // four 64-deep products per tile (S, and P.V three times) plus the
 // exponentials on the special-function units; without the bias, and with
 // one P.V product (packed), the products and the exponentials bound it.
-#include <cuda.h>
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using s3::bf16;
+using namespace s3;
 
 constexpr int kDh = 64;
 constexpr int kBQ = 64, kBKV = 64;
@@ -112,111 +110,6 @@ struct Smem {  // Q, then kStages x (K, V, bias), then the barriers: Q's and one
   static constexpr int kBars = kTileBytes + kStages * kStageBytes;
   static constexpr int kBytes = kBars + 8 * (1 + kStages) + 1024;  // + the alignment slack
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One 64-row, 64-column box of a [Z, T, width] bf16 tensor map, columns col..,
-// rows row.. of slab z (rows past T read as 0).
-__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, int col, int row,
-                                         int z, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(z), "r"(bar)
-      : "memory");
-}
-
-// `bytes` (<= the copy size) are read, the rest of the copy is zero-filled.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
-               : "memory");
-}
-// The stage barrier counts one arrival of this thread when its cp.asyncs land.
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
-// wgmma shared-memory descriptor of a tile of 128-byte rows in the 128-byte
-// swizzle (1024-byte aligned tile base): 8-row groups 1024 bytes apart. The
-// same stride in both offset fields serves the K-major Q and K tiles (where
-// the leading offset is unused) and the MN-major V tile (64 columns: one
-// swizzle atom along N, 8-key groups 1024 bytes apart).
-__device__ __forceinline__ uint64_t desc128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (64ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving accesses of an accumulator across the
-// asynchronous products that own it.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define S3_ACC32                                                                             \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define S3_OUT32(d)                                                                            \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-
-// d (+)= A B, A [64, 16] and B [16, 64] K-major in shared memory (S = Q K^T)
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " S3_ACC32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : S3_OUT32(d)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d += A B, A [64, 16] bf16 in registers, B [16, 64] MN-major in shared
-// memory (P.V with V stored [keys, Dh])
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " S3_ACC32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : S3_OUT32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
 
 __device__ __forceinline__ float2 bias2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -254,7 +147,7 @@ __device__ __forceinline__ void load_bias(uint32_t dst, const BiasT* bias_h, int
       const int t = q0 + r, k = k0 + c;
       const int n = t < T && k < T ? min(kVec, T - k) * kSize : 0;
       const BiasT* src = n ? bias_h + static_cast<size_t>(t) * ld + k : bias_h;
-      cp_async16(dst + (r * kLdb + c) * kSize, src, n);
+      cp_async16_zfill(dst + (r * kLdb + c) * kSize, src, n);
     }
   } else {  // f32 rows that are not 16-byte aligned (an unpadded [H, T, T] at odd T)
 #pragma unroll 8
@@ -263,7 +156,7 @@ __device__ __forceinline__ void load_bias(uint32_t dst, const BiasT* bias_h, int
       const int t = q0 + r, k = k0 + c;
       const bool ok = t < T && k < T;
       const BiasT* src = ok ? bias_h + static_cast<size_t>(t) * ld + k : bias_h;
-      cp_async4(dst + (r * kLdb + c) * kSize, src, ok ? kSize : 0);
+      cp_async4_zfill(dst + (r * kLdb + c) * kSize, src, ok ? kSize : 0);
     }
   }
 }
@@ -322,8 +215,8 @@ __global__ void __launch_bounds__(kThreads)
     const uint32_t full = bars + 8 * (1 + st);
     if (tid == 0) {
       mbar_expect_tx(full, 2 * kTileBytes);
-      tma_rows(k_s(st), &tm_k, col_k, kt * kBKV, z, full);
-      tma_rows(k_s(st) + kTileBytes, &tm_v, col_v, kt * kBKV, z, full);
+      tma_load_3d(k_s(st), &tm_k, col_k, kt * kBKV, z, full);
+      tma_load_3d(k_s(st) + kTileBytes, &tm_v, col_v, kt * kBKV, z, full);
     }
     if constexpr (kGated) {
       load_bias(k_s(st) + 2 * kTileBytes, bias_h, bias_ld, vec16, q0, kt * kBKV, T, tid);
@@ -332,7 +225,7 @@ __global__ void __launch_bounds__(kThreads)
   };
   if (tid == 0) {
     mbar_expect_tx(bars, kTileBytes);
-    tma_rows(q_s, &tm_q, col_q, q0, z, bars);
+    tma_load_3d(q_s, &tm_q, col_q, q0, z, bars);
   }
   for (int kt = 0; kt < min(n_tiles, kStages - 1); ++kt) issue(kt);
 
@@ -467,10 +360,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 4; ++j) {
       const uint64_t dv = desc128(k_s(st) + kTileBytes + j * 16 * 128);
       if constexpr (kParts == 3) {
-        wgmma_rs(o, lo[j], dv);
-        wgmma_rs(o, mid[j], dv);
+        wgmma_rs<1>(o, lo[j], dv);
+        wgmma_rs<1>(o, mid[j], dv);
       }
-      wgmma_rs(o, hi[j], dv);
+      wgmma_rs<1>(o, hi[j], dv);
     }
     wg_commit();
     wg_wait_all();
@@ -492,44 +385,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (a libcuda entry), reached through the runtime's
-// entry-point query, so the library needs no link against libcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // [Z, T, width] bf16, rows of `width` elements: a contiguous [B, H, T, 64]
 // (width 64, Z = B*H) or the fused [B, T, 3C] (width 3C, Z = B); boxes of
 // 64 rows by 64 columns, the 128-byte swizzle, rows past T zero-filled.
-bool rows_map(EncodeTiled encode, CUtensorMap* map, const void* x, int width, int T, int Z) {
+cudaError_t rows_map(CUtensorMap* map, const void* x, int width, int T, int Z) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(T),
                               static_cast<cuuint64_t>(Z)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width) * 2,
                                  static_cast<cuuint64_t>(T) * width * 2};
-  const cuuint32_t box[3] = {kDh, kBKV, 1}, unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const cuuint32_t box[3] = {kDh, kBKV, 1};
+  return swizzled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x, dims, strides, box);
 }
 
 // Packed: q = k = v = the fused [B, T, 3C] buffer, out [B, T, C].
@@ -538,18 +403,16 @@ int launch(const void* q, const void* k, const void* v, const void* pos_bias, in
            const void* gate, const void* kv_lens, void* out, int batch, int H, int T,
            float masked, float l_floor, float scale, void* stream) {
   using L = Smem<kGated, BiasT>;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const int width = kPacked ? 3 * H * kDh : kDh, Z = kPacked ? batch : batch * H;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!rows_map(encode, &tm_q, q, width, T, Z) || !rows_map(encode, &tm_k, k, width, T, Z) ||
-      !rows_map(encode, &tm_v, v, width, T, Z))
-    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = rows_map(&tm_q, q, width, T, Z);
+  if (err == cudaSuccess) err = rows_map(&tm_k, k, width, T, Z);
+  if (err == cudaSuccess) err = rows_map(&tm_v, v, width, T, Z);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int vec16 = sizeof(BiasT) == 2 ||
                     (bias_ld % 4 == 0 && reinterpret_cast<uintptr_t>(pos_bias) % 16 == 0);
   auto kernel = gated_attention_kernel<kGated, BiasT, kPacked, kParts, OutT>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int q_tiles = (T + kBQ - 1) / kBQ;
   const dim3 grid = kPacked ? dim3(q_tiles, H, batch) : dim3(batch, q_tiles, H);

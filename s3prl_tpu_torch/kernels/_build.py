@@ -60,6 +60,10 @@ SIGNATURES = {
     "s3_gated_attention_occupancy": (_I, _P, _P),
     # q, k, v, kv_lens, out, batch, heads, T, stream
     "s3_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # &smem_bytes, &blocks_per_sm
+    "s3_gemm_s8_occupancy": (_P, _P),
+    # k, &smem_bytes, &blocks_per_sm
+    "s3_posconv_occupancy": (_I, _P, _P),
     # x, x_is_f32, q, xs, batch, T, C, stream
     "s3_posconv_quant": (_P, _I, _P, _P, _I, _I, _I, _P),
     # x, w, bias, xs, ws, out, q8, out_f32, batch, T, C, k, stream

@@ -13,9 +13,10 @@ groups, same padding, the trailing frame dropped) followed by erf GELU.
   f32(acc) * f32(xs * ws) + bias, GELU, one cast to x's dtype.
 
 Both run on `csrc/posconv.cu` (K16b after its activation-quantization
-kernel): one block per 128 output frames of one (utterance, group) keeps
-their input window in shared memory and reads every tap's im2col rows from
-it. The weights are tap-major per group, [G, C/G, k C/G] in nn.Linear
+kernel): a block owns a run of output frames of one (utterance, group) (256
+for K16a's wgmma kernel, 128 for K16b's WMMA one), keeps their input window
+in shared memory and reads every tap's im2col rows from it. The weights
+are tap-major per group, [G, C/G, k C/G] in nn.Linear
 layout (`posconv_gemm_weight`; `quantize_posconv_weight` for K16b's codes),
 built once at load. The model routes here only in eval mode and for T <=
 MAX_POSCONV_T, read at call time (the JAX package's gate,
@@ -36,7 +37,10 @@ TC = 16  # K16a's taps per chunk on the TPU: the model's gate needs k % TC == 0
 TC_Q8 = 32  # K16b's
 MAX_POSCONV_T = 2048  # the model routes longer sequences to the stock conv
 GROUP_WIDTH = 64  # the CUDA kernel's channels per group (C 1024, 16 groups)
-MAX_TAPS = 1024  # the kernel's shared-memory window holds 128 + k - 1 rows
+# the kernels' shared-memory windows hold 256 + k - 1 rows (K16a) or 128 + k
+# - 1 (K16b) beside their weight rings
+MAX_TAPS = 512
+MAX_TAPS_Q8 = 1024
 
 
 def posconv_gemm_weight(weight: torch.Tensor, groups: int) -> torch.Tensor:
@@ -125,7 +129,7 @@ def pos_conv_gelu_q8_reference(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tens
 
 
 def _check(name: str, x: torch.Tensor, w: torch.Tensor, w_dtype: torch.dtype,
-           bias: torch.Tensor, groups: int, tc: int) -> int:
+           bias: torch.Tensor, groups: int, tc: int, max_taps: int) -> int:
     """What `csrc/posconv.cu` takes (CUDA only); returns k."""
     B, T, C = x.shape
     cg = C // groups
@@ -133,8 +137,8 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, w_dtype: torch.dtype,
         raise ValueError(f"{name}: the kernel takes {GROUP_WIDTH} channels per group, got "
                          f"C={C}, groups={groups}")
     k = w.shape[-1] // cg if w.dim() == 3 else 0
-    if k <= 0 or k % tc or k > MAX_TAPS:
-        raise ValueError(f"{name}: the kernel takes k a multiple of {tc} up to {MAX_TAPS}, "
+    if k <= 0 or k % tc or k > max_taps:
+        raise ValueError(f"{name}: the kernel takes k a multiple of {tc} up to {max_taps}, "
                          f"got weight {tuple(w.shape)}")
     require(x, "x", x.dtype)
     if x.data_ptr() % 16:
@@ -153,7 +157,8 @@ def pos_conv_gelu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     GEMM form [G, C/G, k C/G] (`posconv_gemm_weight`, built once at load),
     in x's dtype; bias [C] f32 -> [B, T, C] in x's dtype. CPU tensors run
     the plain version; CUDA tensors launch `csrc/posconv.cu`, which takes
-    bf16 x, 64 channels per group and k a multiple of TC. Forward-only."""
+    bf16 x, 64 channels per group and k a multiple of TC up to MAX_TAPS.
+    Forward-only."""
     B, T, C = x.shape
     if on_cpu(x, weight, bias):
         return pos_conv_gelu_reference(x, weight, bias, groups)
@@ -162,7 +167,7 @@ def pos_conv_gelu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             f"K16a pos_conv_gelu on the card takes bf16 x, got {x.dtype}: the f32 pos-conv "
             "kernel is not ported yet (ROADMAP.md Queue 2, K16a with f32 x)")
     w = _gemm_weight(weight, C, groups)
-    k = _check("K16a pos_conv_gelu", x, w, torch.bfloat16, bias, groups, TC)
+    k = _check("K16a pos_conv_gelu", x, w, torch.bfloat16, bias, groups, TC, MAX_TAPS)
     refuse_grad("K16a pos_conv_gelu", x, w, bias)
     out = torch.empty_like(x)
     if not B * T:
@@ -214,7 +219,8 @@ def pos_conv_gelu_q8(x: torch.Tensor, weight, bias: torch.Tensor,
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"K16b pos_conv_gelu_q8: dtype {x.dtype}, the kernel takes bf16 or f32")
     B, T, C = x.shape
-    k = _check("K16b pos_conv_gelu_q8", x, wq, torch.int8, bias, groups, TC_Q8)
+    k = _check("K16b pos_conv_gelu_q8", x, wq, torch.int8, bias, groups, TC_Q8,
+               MAX_TAPS_Q8)
     require(ws, "weight scales", torch.float32, (groups, C // groups))
     refuse_grad("K16b pos_conv_gelu_q8", x, ws, bias)
     out = torch.empty_like(x)

@@ -303,8 +303,14 @@ def _int8(rng, dev, *shape):
     return torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8)).to(dev)
 
 
+# M, N, K on and beside the wgmma core's tile edges (128 rows, 256 columns,
+# 128-byte K stages; K down to one 16-byte step)
+GEMM_EDGES = [(M, N, K) for M in (1, 17, 127, 128, 129, 255, 257) for N in (8, 136, 264)
+              for K in (16, 48, 1152, 2048)]
+
+
 @pytest.mark.parametrize("M,N,K", [(77, 40, 32), (300, 384, 208), (129, 136, 64),
-                                   (4 * 499, 3072, 1024)])
+                                   (4 * 499, 3072, 1024)] + GEMM_EDGES)
 def test_gemm_s8_equals_int_mm(dev, M, N, K):
     """int32 sums are exact in any order: the kernel equals torch._int_mm
     bit for bit, ragged tiles included."""
@@ -322,6 +328,53 @@ def test_gemm_s8_column_ranges(dev):
     for lo, hi in ((0, 2048), (2048, 4096), (1024, 1040)):
         got = _common.gemm_s8(a[:, lo:hi], w[:, lo:hi])
         assert torch.equal(got, int_mm(a[:, lo:hi].contiguous(), w[:, lo:hi].contiguous()))
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("T_out", [1, 63, 129, 499])
+def test_gemm_s8_row_groups(dev, B, T_out):
+    """A row-group view [B, T', K] with lda = 2C (a stride-2 conv tap's rows
+    read in place from x [B, T, C], as K13b reads them; T' not a multiple of
+    the 128-row tile): every group is tiled on its own, so no tile mixes two
+    utterances; bit for bit against torch._int_mm on a contiguous copy, and
+    the linear epilogue's rows keep their scales."""
+    rng = np.random.RandomState(17)
+    C, N = 512, 264
+    for offset in (0, 1):
+        T = 2 * T_out + offset
+        x = _int8(rng, dev, B, T, C)
+        rows = x.as_strided((B, T_out, C), (T * C, 2 * C, 1), offset * C)
+        w = _int8(rng, dev, N, C)
+        want = int_mm(rows.reshape(B * T_out, C).contiguous(), w)
+        assert torch.equal(_common.gemm_s8(rows, w), want)
+        rs, cs = _t(rng.rand(B * T_out) * 0.01, dev), _t(rng.rand(N) * 0.01, dev)
+        got = _common.gemm_s8(rows, w, mode=_common.GEMM_LINEAR, row_scale=rs, col_scale=cs,
+                              out_f32=True)
+        assert torch.equal(got, want.float() * rs[:, None] * cs)
+
+
+def test_gemm_s8_linear_f32_equals_plain_chain(dev):
+    """GEMM_LINEAR with f32 out and no GELU rounds every step as the plain
+    f32 chain does (one __fmul_rn / __fadd_rn each, in the Pallas order), so
+    the two are equal bit for bit, in place (acc_in is out) too."""
+    rng = np.random.RandomState(18)
+    M, N, K = 300, 264, 1152
+    a, w = _int8(rng, dev, M, K), _int8(rng, dev, N, K)
+    rs, cs = _t(rng.rand(M) * 0.01, dev), _t(rng.rand(N) * 0.01, dev)
+    bias, prev = _t(rng.randn(N) * 0.1, dev), _t(rng.randn(M, N), dev)
+    res = _t(rng.randn(M, N), dev, torch.bfloat16)
+    lin = int_mm(a, w).float() * rs[:, None] * cs
+    kw = dict(mode=_common.GEMM_LINEAR, row_scale=rs, col_scale=cs, out_f32=True)
+    assert torch.equal(_common.gemm_s8(a, w, **kw), lin)
+    assert torch.equal(_common.gemm_s8(a, w, bias=bias, **kw), lin + bias)
+    got = _common.gemm_s8(a, w, bias=bias, acc_in=prev, residual=res, **kw)
+    assert torch.equal(got, ((prev + lin) + bias) + res.float())
+    out = prev.clone()
+    _common.gemm_s8(a, w, acc_in=out, out=out, **kw)  # in place, as K2's chunks
+    assert torch.equal(out, prev + lin)
+    out = prev.clone()
+    _common.gemm_s8(a, w, bias=bias, acc_in=out, residual=res, out=out, **kw)
+    assert torch.equal(out, ((prev + lin) + bias) + res.float())
 
 
 def test_gemm_s8_epilogues(dev):
@@ -429,13 +482,17 @@ def test_int8_attention_block_kernel(dev, postnorm, T):
                                                      postnorm=postnorm))
 
 
-@pytest.mark.parametrize("ln,residual,postnorm,C,F", [
-    (True, True, False, 256, 1024), (False, False, False, 256, 1024),
-    (True, False, False, 256, 1024), (False, True, False, 256, 1024),
-    (True, True, True, 256, 1024), (True, True, False, 128, 4096)])
-def test_int8_ffn_kernel(dev, ln, residual, postnorm, C, F):
+@pytest.mark.parametrize("ln,residual,postnorm,C,F,B,T", [
+    (True, True, False, 256, 1024, 2, 123), (False, False, False, 256, 1024, 2, 123),
+    (True, False, False, 256, 1024, 2, 123), (False, True, False, 256, 1024, 2, 123),
+    (True, True, True, 256, 1024, 2, 123), (True, True, False, 128, 4096, 2, 123),
+    (True, True, False, 128, 3200, 2, 123), (False, False, False, 128, 3200, 7, 61),
+    (True, True, False, 256, 4096, 7, 61)])
+def test_int8_ffn_kernel(dev, ln, residual, postnorm, C, F, B, T):
+    """K2 against its plain version; F = 3,200 runs a full 2,048-wide chunk
+    and a 1,152-wide one (the fc2 chunks are column ranges of h8 and w2)."""
     rng = np.random.RandomState(15)
-    x = _t(rng.randn(2, 123, C) * 0.5, dev, torch.bfloat16)
+    x = _t(rng.randn(B, T, C) * 0.5, dev, torch.bfloat16)
     w1, b1 = _qpair(rng, dev, C, F)
     w2, b2 = _qpair(rng, dev, F, C)
     norm = _ln(rng, dev, C) if ln else None
@@ -1073,7 +1130,13 @@ def _posconv_inputs(rng, dev, B, T, dtype=torch.bfloat16, C=1024, G=16, k=128):
     return x, w, _t(rng.randn(C) * 0.1, dev)
 
 
-@pytest.mark.parametrize("B,T", POSCONV_SHAPES)
+# K16a's shapes: T on and beside its 256-frame and 128-row window-box edges,
+# B = 1 and 3, and the main path's B=32 x 10 s
+K16A_SHAPES = [(B, T) for T in (1, 127, 128, 129, 255, 256, 257, 499, 1499, 2048)
+               for B in (1, 3)] + [(32, 499)]
+
+
+@pytest.mark.parametrize("B,T", K16A_SHAPES)
 def test_k16a_kernel(dev, B, T):
     """K16a against its plain version on the card (k 128, 16 groups of 64);
     the nn.Conv1d weight and the load-time GEMM weight give one result."""

@@ -288,6 +288,17 @@ def test_int8_ffn_matches_pallas_two_chunks():
     np.testing.assert_allclose(got, want, atol=INT8_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("ln,residual", [(True, True), (False, False)], ids=["ln-res", "plain"])
+def test_int8_ffn_matches_pallas_partial_chunk(ln, residual):
+    """F=3200 (the JAX package's tests/test_quant.py:237-256): one full
+    2048-wide chunk and a 1152-wide one, each with its own per-row requant
+    scale; the partial chunk's columns are not dropped."""
+    assert port_ffn._ffn_chunk_bounds(3200) == ((0, 2048), (2048, 3200))
+    got, want = _int8_ffn_pair(_ffn_inputs(5, 1, 5, 128, 3200), ln, residual, False)
+    assert _cos(got, want) > 0.9995
+    np.testing.assert_allclose(got, want, atol=INT8_ATOL, rtol=0)
+
+
 @pytest.mark.parametrize("ffn", [256, 3072, 3200, 4096, 5120])
 def test_ffn_chunk_rule_matches_jax(ffn):
     assert port_ffn._chunk_for(ffn) == jax_ffn._chunk_for(ffn)

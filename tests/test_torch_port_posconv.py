@@ -97,10 +97,11 @@ def _conv_inputs(seed, T, B=2, C=128, G=4, k=32):
 # -- the kernels --------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("T", [53, 1])
+@pytest.mark.parametrize("T", [53, 1, 127, 128, 129, 256, 257])
 def test_k16a_plain_matches_interpreted_pallas(T, dtype):
     """C=128, 4 groups, k=32, same padding, last frame dropped; the weight as
-    the nn.Conv1d weight and as the load-time tap-major GEMM weight."""
+    the nn.Conv1d weight and as the load-time tap-major GEMM weight; T on and
+    beside the CUDA kernel's 128-row window boxes and 256-frame blocks."""
     jdt, tdt = DTYPES[dtype]
     x, kern, weight, bias = _conv_inputs(0, T)
     want = jax_pc.pos_conv_gelu(jnp.asarray(x, jdt), jnp.asarray(kern), jnp.asarray(bias),
