@@ -8,8 +8,9 @@ line is printed; each phase prints its seconds):
  1. require a CUDA device; print the card's name and power limit;
  2. build the CUDA kernels from csrc/ (into build/) and print the seconds;
     for the wgmma kernels - the attention (gated_attention.cu: K1, K4,
-    K6-K10, K17; five instantiations), the int8 GEMM core (gemm_s8.cu: the
-    products of K1, K2, K6, K11, K12, K13b; three) and K16a (posconv.cu;
+    K6-K11, K17; six instantiations), the int8 GEMM core (gemm_s8.cu: the
+    products of K1, K2, K6, K11, K12, K13b; three), the bf16 GEMM core
+    (gemm_bf16.cu: K4's projections, K5, K14; one) and K16a (posconv.cu;
     one) - print each instantiation's registers, stack and spills (ptxas -v,
     nvcc.log) with any ptxas note that its wgmma were serialized, and its
     HGMMA / IGMMA (wgmma) count in the SASS (cuobjdump), then each kernel's
@@ -32,15 +33,21 @@ line is printed; each phase prints its seconds):
     with the contiguous f32 bias, K9 at T = 65, 127, 499 and K10 at T =
     2,049 (bf16) and 65 (f32) on B=7 with kv_lens on the 64-key tile edges
     (1, 63, 64, 65, 127, 128, T), both bias forms at K9's; the fused int8
-    projections: K11 at B=4 x 499 and B=4 x 1,499
-    (an f32 bias, the same gates, ragged kv_lens) and K12 in its four (ln,
+    projections: K11 at B=4 x 499 and B=4 x 1,499 with the ``wavlm_fuse``
+    model's f32 bias (rows padded to a multiple of 4 floats), at B=4 x 499
+    with the unpadded one (rows T apart: 4-byte copies at odd T), and at
+    B=7 x 65, 127 and 499 with kv_lens on the 64-key tile edges (the same
+    gates, ragged kv_lens) and K12 in its four (ln,
     residual) sets at [4 x 499, 1024] -> N = 3072 (with the LN) or 1024;
     the share of int8 codes where the kernels' quantizers and the plain
     ones differ is printed (K6's and K11's context codes among them). The
     int8 GEMM alone equals torch._int_mm exactly (QKV, fc2 column ranges,
     M, N, K on the 128 x 256 x 128-byte tile edges, row-group views [3, T',
     512] with lda 1024), and the quantizer rounds constructed ties half to
-    even. The front-end kernels at the shapes of
+    even. The bf16 GEMM alone (`gemm`) against F.linear in f32 math on its
+    tile edges (M, N, K around 128 x 256 x 64, every epilogue flag) and on
+    K14's row-group views (k = 1, 2, 3: rows apart, abutting, overlapping).
+    The front-end kernels at the shapes of
     B=2 x 10 s: K13a on the waves, K14 and K13b (codes out, and bf16 out as
     in the last layer) on layer 1's input [2, 31999, 512] (k=3) and layer
     5's [2, 1999, 512] (k=2), K15 (erf, tanh) on those layers' outputs;
@@ -105,7 +112,11 @@ line is printed; each phase prints its seconds):
     of their own: K2's launches one by one (x-quant, fc1, the two requants,
     the two fc2 chunks) at B=32 x 499, and the int8 GEMM alone (int32 out)
     beside torch._int_mm at K2's fc1 and fc2-chunk and K1's QKV shapes, with
-    TOP/s. The
+    TOP/s; the bf16 GEMM alone (`gemm`, the main path's epilogue flags)
+    beside F.linear (cuBLAS, with the bias) at K5's fc1 and fc2, K4's QKV
+    and out-proj (M = 32 x 499) and K14's layer 1 (32 x 15,999 rows, K =
+    1,536: the overlapping im2col view, F.linear on a contiguous copy), with
+    TFLOP/s. The
     front-end options' paths are timed at B=32 x 10 s, and every path's
     feature extractor alone; K13a, K13b, K14 and K15 over the six mid
     layers of B=32 x 10 s (one launch of K13a) beside their plain versions,
@@ -324,14 +335,16 @@ def gated_bias(B, T, gen, dev, H=16, form="bf16"):
     up to distance 800) with a random [320, H] table, and gates in (1, 3).
     `form` "bf16": the table rounded to bf16 and gathered into [H, T, Tp]
     (Tp = T rounded up to 8), the view [:, :, :T], as the bf16 model's
-    `WavLMEncoder._layer_args` builds it for K9/K10; "f32": contiguous f32
-    (what K11 takes)."""
+    `WavLMEncoder._layer_args` builds it for K9/K10; "f32-pad4": f32
+    gathered likewise with Tp = T rounded up to 4, as the ``wavlm_fuse``
+    model builds it for K11; "f32": contiguous f32."""
     from s3prl_tpu_torch.models.wavlm import bucket_table
 
     table = (torch.randn(320, H, generator=gen) * 0.5).to(dev)
-    if form == "bf16":
-        Tp = -(-T // 8) * 8
-        pos_bias = table.t().to(torch.bfloat16)[:, bucket_table(T, 320, 800, dev, cols=Tp)]
+    if form in ("bf16", "f32-pad4"):
+        step, dtype = (8, torch.bfloat16) if form == "bf16" else (4, torch.float32)
+        Tp = -(-T // step) * step
+        pos_bias = table.t().to(dtype)[:, bucket_table(T, 320, 800, dev, cols=Tp)]
         pos_bias = pos_bias[:, :, :T]
     else:
         pos_bias = table.t()[:, bucket_table(T, 320, 800, dev)].contiguous()
@@ -353,11 +366,14 @@ def gated_inputs(B, T, gen, dev, H=16, form="bf16", edges=False):
                                 device=dev))
 
 
-def k11_inputs(B, T, gen, dev, H=16):
+def k11_inputs(B, T, gen, dev, H=16, form="f32-pad4", edges=False):
     """K11 inputs at WavLM-Large's widths: `long_inputs` (the unit-scale
-    fused QKV, the residual, the out-proj's int8 pair, ragged kv_lens and
-    the split heads) with `gated_bias` in f32, the form K11 takes."""
-    return {**long_inputs(B, T, gen, dev, C=H * 64, H=H), **gated_bias(B, T, gen, dev, H, "f32")}
+    fused QKV, the residual, the out-proj's int8 pair, ragged kv_lens or
+    with `edges` the 64-key tile edges, and the split heads) with
+    `gated_bias` in f32, padded as the ``wavlm_fuse`` model pads it
+    ("f32-pad4") or contiguous ("f32")."""
+    return {**long_inputs(B, T, gen, dev, C=H * 64, H=H, edges=edges),
+            **gated_bias(B, T, gen, dev, H, form)}
 
 
 def k11_calls(inps):
@@ -368,7 +384,8 @@ def k11_calls(inps):
         return i["qkv"], i["x"], i["pos_bias"], i["gate"], i["wo8"], i["bo"], i["kv"], i["H"]
 
     return {"gated_bias_attention_outproj": [
-        (f"T={i['qkv'].shape[1]}", lambda a=args(i): fa.gated_bias_attention_outproj(*a),
+        (f"T={i['qkv'].shape[1]} f32 bias rows {i['pos_bias'].stride(1)} apart, kv "
+         f"{i['kv'].tolist()[:7]}", lambda a=args(i): fa.gated_bias_attention_outproj(*a),
          lambda a=args(i): fa.gated_bias_attention_outproj_reference(*a)) for i in inps]}
 
 
@@ -944,6 +961,109 @@ def time_gemm_s8(gen, dev, M=32 * 499):
         del a, w, wt
 
 
+# (M, N, K) on and beside the bf16 wgmma core's tile edges (128 rows, 256
+# columns, 64-element K stages)
+GEMM_BF16_EDGES = ((1, 8, 8), (127, 256, 64), (129, 264, 72), (257, 520, 1000), (300, 8, 4096))
+
+
+def check_gemm_bf16_edges(gen, dev):
+    """gemm (csrc/gemm_bf16.cu) against F.linear in f32 math on the tile
+    edges, bare (bf16 out) and with every epilogue flag (bias, erf GELU,
+    residual, f32 out), and on K14's row-group views [2, T', k * 512] read
+    in place from x [2, T, 512] with lda 1024 (k = 1, 2, 3: rows apart,
+    abutting, overlapping), f32 out: bf16 results under the kernels' rule,
+    f32 ones at atol 1e-4 and rtol 1e-4 (sum order only)."""
+    import torch.nn.functional as F
+
+    from s3prl_tpu_torch.kernels import _common as kc
+    from s3prl_tpu_torch.kernels.conv_frontend import _im2col
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+    def held(got, want, what):
+        if got.dtype == torch.float32:
+            check(torch.allclose(got, want, atol=1e-4, rtol=1e-4),
+                  f"{what}: max err {float((got - want).abs().max()):.3e}")
+        else:
+            cos, _ = compare(got, want)
+            check(cos > COS_KERNEL and within_tolerance(got, want) <= 1.0,
+                  f"{what}: cos {cos:.7f}")
+
+    for M, N, K in GEMM_BF16_EDGES:
+        a, w = rnd(M, K, scale=0.5), rnd(N, K, scale=K ** -0.5)
+        b, res = rnd(N, scale=0.02, dtype=torch.float32), rnd(M, N, scale=0.5)
+        held(kc.gemm(a, w), F.linear(a.float(), w.float()), f"gemm [{M}, {K}] x [{N}, {K}]")
+        held(kc.gemm(a, w, b, residual=res, gelu=True, out_f32=True),
+             F.gelu(F.linear(a.float(), w.float(), b)) + res.float(),
+             f"gemm [{M}, {K}] x [{N}, {K}], bias, GELU, residual, f32 out")
+    for k in (1, 2, 3):
+        for T in (3, 130, 999):
+            x, w = rnd(2, T, 512), rnd(512, k * 512, scale=(k * 512) ** -0.5)
+            rows = _im2col(x, k, (T - k) // 2 + 1)
+            held(kc.gemm(rows, w, out_f32=True),
+                 F.linear(rows.reshape(-1, k * 512).float(), w.float()),
+                 f"gemm row groups {list(rows.shape)}, lda 1024")
+    log(f"[kernel] gemm (bf16) holds against F.linear in f32 math on the tile edges "
+        f"{GEMM_BF16_EDGES} (bare and with every epilogue flag) and on row groups [2, T', k x "
+        "512] with lda 1024, k in (1, 2, 3), T in (3, 130, 999)")
+
+
+def time_gemm_bf16(gen, dev, M=32 * 499):
+    """gemm alone (csrc/gemm_bf16.cu) with the main path's epilogue flags
+    beside F.linear (cuBLAS, with the bias where the path has one) on the
+    same operands, in turns: K5's fc1 (bias, GELU) and fc2 (bias, residual),
+    K4's QKV (bias) and out-proj (bias, residual) at M = B=32 x 499 rows,
+    and K14's layer 1 (f32 out) on the overlapping k = 3 im2col view of x
+    [32, 31999, 512] (F.linear on a contiguous copy of its rows); and gemm
+    bare (no bias, bf16 out: the main loop and the stores alone); printed
+    with TFLOP/s and the bound, not in the kernels line."""
+    import torch.nn.functional as F
+
+    from s3prl_tpu_torch.kernels import _common as kc
+    from s3prl_tpu_torch.kernels.conv_frontend import _im2col
+
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+    shapes = (("K5 fc1", M, 4096, 1024, dict(gelu=True)), ("K5 fc2", M, 1024, 4096, "res"),
+              ("K4 QKV", M, 3072, 1024, {}), ("K4 out-proj", M, 1024, 1024, "res"),
+              ("K14 layer 1", None, 512, 1536, dict(out_f32=True)))
+    for what, rows_n, N, K, flags in shapes:
+        w = rnd(N, K, scale=K ** -0.5)
+        if rows_n is None:  # K14: no bias, f32 out
+            x = rnd(32, 31999, 512)
+            a = _im2col(x, 3, 15999)
+            a_lib, b, kw = a.reshape(-1, K).contiguous(), None, flags
+        else:
+            a = a_lib = rnd(rows_n, K)
+            b = rnd(N, scale=0.02, dtype=torch.float32)
+            kw = dict(residual=rnd(rows_n, N)) if flags == "res" else flags
+        b_lib = None if b is None else b.to(bf)
+        rows = a_lib.shape[0]
+        t = [cuda_ms(f, 10) for f in (lambda: F.linear(a_lib, w, b_lib),
+                                       lambda: kc.gemm(a, w, b, **kw),
+                                       lambda: kc.gemm(a, w, b, **kw),
+                                       lambda: F.linear(a_lib, w, b_lib))]
+        ms, lib_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        bare_ms = (cuda_ms(lambda: kc.gemm(a, w), 10) + cuda_ms(lambda: kc.gemm(a, w), 10)) / 2
+        flops = 2 * rows * N * K
+        out_bytes = rows * N * (4 if kw.get("out_f32") else 2)
+        moved = nbytes(a_lib if rows_n is not None else x, w) + out_bytes
+        moved += (nbytes(b) if b is not None else 0) + (
+            nbytes(kw["residual"]) if "residual" in kw else 0)
+        bound_ms, bound_by = bound({"bf16": flops}, moved)
+        epilogue = ["bias"] * (b is not None) + sorted(kw)
+        log(f"[timing] gemm (bf16) alone {what} [{rows}, {K}] x [{N}, {K}] {epilogue}: "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.0f} TFLOP/s), "
+            f"F.linear {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.0f} TFLOP/s), "
+            f"bare gemm {bare_ms:.4f} ms ({flops / bare_ms / 1e9:.0f} TFLOP/s), "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        del a, a_lib, w
+
+
 def k2_stages(inp):
     """K2's launches on the main path's flags (pre-LN, residual) as
     `fused_int8_ffn` makes them, on its timing inputs: (stage, call) each,
@@ -999,7 +1119,7 @@ KERNELS = {  # wrapper -> (its main CUDA source, the TPU kernel it replaces)
                              "s3prl_tpu/kernels/flash_attention.py:105"),
     "gated_online_flash_attention": ("s3prl_tpu_torch/csrc/gated_attention.cu",
                                      "s3prl_tpu/kernels/flash_attention.py:963"),
-    "gated_bias_attention_outproj": ("s3prl_tpu_torch/csrc/attention.cu",
+    "gated_bias_attention_outproj": ("s3prl_tpu_torch/csrc/gated_attention.cu",
                                      "s3prl_tpu/kernels/flash_attention.py:423"),
     "fused_int8_linear": ("s3prl_tpu_torch/csrc/gemm_s8.cu", "s3prl_tpu/kernels/ffn.py:216"),
     "conv0_ln_gelu_q8": ("s3prl_tpu_torch/csrc/conv0_ln_gelu.cu",
@@ -1130,12 +1250,13 @@ def layer_cosines(a, b, h_lens):
 
 # gated_attention.cu's instantiations, in the order of its occupancy kinds
 GATED_KINDS = ("no bias, split heads (K8, K17)", "bf16 bias (K9, K10)", "f32 bias (K9, K10)",
-               "packed, bf16 out (K1, K4, K7)", "packed, f32 out (K6)")
+               "packed, bf16 out (K1, K4, K7)", "packed, f32 out (K6)",
+               "gated, packed, f32 bias, f32 out (K11)")
 # the wgmma kernels (their SASS names contain these) -> their instantiations:
-# the attention (K1, K4, K6-K10, K17), the int8 GEMM core (kRaw, kQkv, kLinear:
-# K1, K2, K6, K11, K12, K13b) and K16a
+# the attention (K1, K4, K6-K11, K17), the int8 GEMM core (kRaw, kQkv, kLinear:
+# K1, K2, K6, K11, K12, K13b), the bf16 GEMM core (K4, K5, K14) and K16a
 WGMMA_KERNELS = {"gated_attention_kernel": len(GATED_KINDS), "gemm_s8_kernel": 3,
-                 "posconv_bf16_kernel": 1}
+                 "gemm_bf16_kernel": 1, "posconv_bf16_kernel": 1}
 
 
 def wgmma_build_report(lib):
@@ -1188,6 +1309,7 @@ def wgmma_build_report(lib):
                 lambda s, b, kind=kind: library.s3_gated_attention_occupancy(kind, s, b))
                for kind, what in enumerate(GATED_KINDS)]
     queries += [("gemm_s8_kernel", library.s3_gemm_s8_occupancy),
+                ("gemm_bf16_kernel", library.s3_gemm_bf16_occupancy),
                 ("posconv_bf16_kernel, k = 128",
                  lambda s, b: library.s3_posconv_occupancy(128, s, b))]
     for what, query in queries:
@@ -1309,7 +1431,9 @@ def main():
             [gated_inputs(2, 2999, gen, dev), gated_inputs(2, 2999, gen, dev, form="f32"),
              gated_inputs(7, 2049, gen, dev, edges=True),
              gated_inputs(7, 65, gen, dev, form="f32", edges=True)]), max_err)
-        inp11 = [k11_inputs(4, 499, gen, dev), k11_inputs(4, 1499, gen, dev)]
+        inp11 = [k11_inputs(4, 499, gen, dev), k11_inputs(4, 1499, gen, dev),
+                 k11_inputs(4, 499, gen, dev, form="f32"),
+                 *(k11_inputs(7, T, gen, dev, edges=True) for T in (65, 127, 499))]
         check_kernels(k11_calls(inp11), max_err)
         for what, share in code_mismatch(inp, inp_long, inp11[0]).items():
             log(f"[int8 codes] {what}: {share:.3e} of codes differ from the plain version's")
@@ -1325,6 +1449,7 @@ def main():
                   "vs torch._int_mm")
         log("[kernel] gemm_s8 alone equals torch._int_mm exactly (QKV, fc2 chunks 1 and 2)")
         check_gemm_s8_edges(gen, dev)
+        check_gemm_bf16_edges(gen, dev)
         ties = torch.tensor([[127.0, 2.5, -2.5, 3.5, -3.5, 0.5, -0.5, 1.5] * 128], device=dev)
         q, s = kc.quant_rows(ties)
         check(float(s[0]) == 1.0 and torch.equal(q[0], torch.round(ties[0]).to(torch.int8)),
@@ -1526,6 +1651,10 @@ def main():
         inp11 = k11_inputs(32, 499, gen, dev)
         time_kernels(k11_calls([inp11]), {"gated_bias_attention_outproj": inp11}, "B=32",
                      entries, launches, max_err)
+        inp11_f32 = k11_inputs(32, 499, gen, dev, form="f32")
+        time_kernels(k11_calls([inp11_f32]), {"gated_bias_attention_outproj": inp11_f32},
+                     "B=32 (unpadded f32 bias)", {}, launches, max_err)
+        del inp11_f32
         for name, pairs in split_pairs(inp, inp11).items():
             for what, fn in pairs:
                 t = (cuda_ms(fn, 10) + cuda_ms(fn, 10)) / 2
@@ -1535,6 +1664,7 @@ def main():
             f"{what} {ms:.4f} ms" for what, ms in stages)
             + f"; sum {sum(ms for _, ms in stages):.4f} ms")
         time_gemm_s8(gen, dev)
+        time_gemm_bf16(gen, dev)
         del inp, calls, inputs, inp11
         inp_long, inp8 = long_inputs(8, 1499, gen, dev), long_inputs(4, 2999, gen, dev)
         inputs = {"fused_qkv_attention_outproj": inp_long, "fused_qkv_attention": inp_long,

@@ -6,7 +6,7 @@
 //         `masked` otherwise
 //   out[b, h, t] = sum_k p_k v_k / max(sum_k p_k, l_floor),  p_k = exp(s_k - m)
 //
-// One kernel for seven Pallas kernels (s3prl_tpu/kernels/flash_attention.py),
+// One kernel for eight Pallas kernels (s3prl_tpu/kernels/flash_attention.py),
 // in two layouts.
 //
 // Split heads: q (pre-scaled by Dh^-0.5), k, v and out [B, H, T, 64]; P.V
@@ -42,6 +42,11 @@
 // divides at the store). A row with kv_len = 0 runs every key tile of T
 // with every key masked, which gives it a near-uniform row, as the plain
 // version (`attention_reference`) does; the model never produces kv_len = 0.
+// Packed and gated, with the f32 output: the attention of K11
+// `gated_bias_attention_outproj` (pallas_call :423, cell :360-403), whose
+// scores are (q.k * Dh^-0.5 + gate[b, h, t] * pos_bias[h, t, k]) - 1e9 *
+// (k >= kv_len[b]) in the cell's order (:379-385: the scale, then the
+// product, then the sums), with an f32 bias.
 //
 // Design: one block is one warpgroup (128 threads) on 64 queries of one
 // (utterance, head); key tiles of 64 stream through a ring of three
@@ -72,12 +77,13 @@
 // products. The accumulator's layout of S is the A operand's layout of P,
 // so nothing goes through shared memory between the products.
 //
-// Block order: split heads run the utterance fastest (blockIdx.x = b), so
-// the B blocks that read the same [64, T] rows of pos_bias are launched
-// together and hit L2 (the TPU kernel's batch-innermost grid, :65-69);
-// otherwise the bias would come from device memory B times. Packed runs
-// the query tiles fastest, so the blocks of one (utterance, head) share its
-// K and V in L2.
+// Block order: with a bias (split heads or packed) the utterance runs
+// fastest (blockIdx.x = b), so the B blocks that read the same [64, T] rows
+// of pos_bias are launched together and hit L2 (the TPU kernels'
+// batch-innermost grids, :65-69, :426); otherwise the bias would come from
+// device memory B times (an f32 bias at T = 1,499 is 144 MB, beyond L2).
+// Without one, packed runs the query tiles fastest, so the blocks of one
+// (utterance, head) share its K and V in L2.
 //
 // Masking: the softmax sees `masked` for keys at or past kv_len. A key tile
 // wholly past kv_len contributes exactly 0 (exp2 of masked - m underflows
@@ -173,7 +179,6 @@ __global__ void __launch_bounds__(kThreads)
                            const float* __restrict__ gate, const int* __restrict__ kv_lens,
                            OutT* __restrict__ out, int H, int T, float masked, float l_floor,
                            float scale) {
-  static_assert(!(kGated && kPacked), "the packed layout carries no bias");
   static_assert(kParts == 1 || kParts == 3, "P in one or three bf16 parts");
   using L = Smem<kGated, BiasT>;
   extern __shared__ unsigned char smem_raw[];
@@ -183,11 +188,12 @@ __global__ void __launch_bounds__(kThreads)
   const uint32_t q_s = base, bars = base + L::kBars;  // bars: Q's, then one per stage
   auto k_s = [&](int st) { return base + kTileBytes + st * L::kStageBytes; };
 
-  // split heads: blocks (utterance, query tile, head); packed: (query tile,
-  // head, utterance)
-  const int b = kPacked ? blockIdx.z : blockIdx.x;
-  const int q0 = (kPacked ? blockIdx.x : blockIdx.y) * kBQ;
-  const int h = kPacked ? blockIdx.y : blockIdx.z;
+  // with a bias or split heads: blocks (utterance, query tile, head);
+  // packed without a bias: (query tile, head, utterance)
+  constexpr bool kBatchFastest = kGated || !kPacked;
+  const int b = kBatchFastest ? blockIdx.x : blockIdx.z;
+  const int q0 = (kBatchFastest ? blockIdx.y : blockIdx.x) * kBQ;
+  const int h = kBatchFastest ? blockIdx.z : blockIdx.y;
   const int bh = b * H + h, C = H * kDh;
   const size_t head = static_cast<size_t>(bh) * T;
   // the boxes' coordinates: slab z, and the columns of q, k and v in it
@@ -265,8 +271,15 @@ __global__ void __launch_bounds__(kThreads)
     wg_wait_all();
     fence_regs(s);
 
-    // + gate * bias, then the key mask (only the last tile can hold keys past
-    // kv_len, but for a packed row with kv_len = 0)
+    // [* Dh^-0.5 (packed)] + gate * bias, then the key mask (only the last
+    // tile can hold keys past kv_len, but for a packed row with kv_len = 0)
+    if constexpr (kPacked && kGated) {  // the scale rounds before the bias is added
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = __fmul_rn(s[i], scale);
+    } else if constexpr (kPacked) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= scale;
+    }
     if constexpr (kGated) {
       const BiasT* bt = reinterpret_cast<const BiasT*>(smem + (k_s(st) - base) + 2 * kTileBytes);
 #pragma unroll
@@ -278,10 +291,6 @@ __global__ void __launch_bounds__(kThreads)
         s[4 * c + 2] = __fadd_rn(s[4 * c + 2], __fmul_rn(g1, b1.x));
         s[4 * c + 3] = __fadd_rn(s[4 * c + 3], __fmul_rn(g1, b1.y));
       }
-    }
-    if constexpr (kPacked) {  // (q.k) * Dh^-0.5, then the additive mask
-#pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] *= scale;
     }
     if (k0 + kBKV > kv_len) {
 #pragma unroll
@@ -415,7 +424,7 @@ int launch(const void* q, const void* k, const void* v, const void* pos_bias, in
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int q_tiles = (T + kBQ - 1) / kBQ;
-  const dim3 grid = kPacked ? dim3(q_tiles, H, batch) : dim3(batch, q_tiles, H);
+  const dim3 grid = kGated || !kPacked ? dim3(batch, q_tiles, H) : dim3(q_tiles, H, batch);
   kernel<<<grid, kThreads, L::kBytes, static_cast<cudaStream_t>(stream)>>>(
       tm_q, tm_k, tm_v, static_cast<const BiasT*>(pos_bias), bias_ld, vec16,
       static_cast<const float*>(gate), static_cast<const int*>(kv_lens), static_cast<OutT*>(out),
@@ -439,7 +448,8 @@ int occupancy(int* smem_bytes, int* blocks_per_sm) {
 
 // Dynamic shared memory of a block and blocks resident per SM of the
 // instantiation `kind` (0: no bias, 1: bf16 bias, 2: f32 bias, all split
-// heads in three parts; 3: packed, bf16 out; 4: packed, f32 out).
+// heads in three parts; 3: packed, bf16 out; 4: packed, f32 out; 5: packed,
+// f32 bias, f32 out).
 extern "C" int s3_gated_attention_occupancy(int kind, int* smem_bytes, int* blocks_per_sm) {
   switch (kind) {
     case 0: return occupancy<false, bf16, false, 3, bf16>(smem_bytes, blocks_per_sm);
@@ -447,6 +457,7 @@ extern "C" int s3_gated_attention_occupancy(int kind, int* smem_bytes, int* bloc
     case 2: return occupancy<true, float, false, 3, bf16>(smem_bytes, blocks_per_sm);
     case 3: return occupancy<false, bf16, true, 1, bf16>(smem_bytes, blocks_per_sm);
     case 4: return occupancy<false, bf16, true, 1, float>(smem_bytes, blocks_per_sm);
+    case 5: return occupancy<true, float, true, 1, float>(smem_bytes, blocks_per_sm);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -490,4 +501,15 @@ extern "C" int s3_qkv_attention(const void* qkv, const void* kv_lens, void* out,
                                                batch, H, T, -1e9f, 0.f, scale, stream);
   return launch<false, bf16, true, 1, bf16>(qkv, qkv, qkv, nullptr, 0, nullptr, kv_lens, out,
                                             batch, H, T, -1e9f, 0.f, scale, stream);
+}
+
+// K11's attention on the fused qkv [B, T, 3C] (C = 64 H, unscaled): scores
+// times `scale` plus gate * pos_bias (pos_bias f32 [H, T, T], rows bias_ld
+// elements apart; gate [B, H, T] f32), the additive -1e9 past kv_len, P in
+// one bf16 part; out [B, T, C] f32.
+extern "C" int s3_qkv_attention_gated(const void* qkv, const void* kv_lens, const void* pos_bias,
+                                      int bias_ld, const void* gate, void* out, int batch, int T,
+                                      int H, float scale, void* stream) {
+  return launch<true, float, true, 1, float>(qkv, qkv, qkv, pos_bias, bias_ld, gate, kv_lens, out,
+                                             batch, H, T, -1e9f, 0.f, scale, stream);
 }

@@ -1,12 +1,13 @@
-// bf16 GEMM with f32 accumulation and a fused epilogue:
-//   out[m, n] = act(sum_k a[m, k] * w[n, k] [+ bias[n]]) (+ res[m, n])
+// bf16 GEMM with f32 accumulation and a fused epilogue on Hopper's tensor
+// cores (wgmma, TMA):
+//   out[m, n] = act(sum_k a[m, k] * w[n, k] [+ bias[n]]) [+ res[m, n]]
 // a [M, K] bf16 in row groups: row m = (g, r) = (m / a_rows, m % a_rows)
 // starts at a + g * a_gstride + r * lda (one group of M rows with lda = K is
 // a plain row-major matrix; K14's stride-2 conv reads its im2col rows
 // straight from x [B, T, C] as B groups of T' rows with lda = 2C, rows that
-// overlap). w [N, K] bf16 row-major (torch nn.Linear layout), bias f32 [N]
-// or null, res bf16 [M, N] or null, act = erf GELU or identity, out [M, N]
-// bf16 (rounded to nearest even) or f32.
+// overlap when k = 3). w [N, K] bf16 row-major (torch nn.Linear layout),
+// bias f32 [N] or null, res bf16 [M, N] or null, act = erf GELU or
+// identity, out [M, N] bf16 (rounded to nearest even) or f32.
 //
 // Serves every GEMM that the bf16 whole-block Pallas kernels compute in
 // their own bodies:
@@ -19,150 +20,150 @@
 //   - the mid-conv front end (s3prl_tpu/kernels/conv_frontend.py:301,
 //     `_mid_kernel_bf16`): the k taps as one K = k * C GEMM into f32, which
 //     ln_gelu.cu then normalises.
+// The f32 sums run in another order than the TPU's (each product of two bf16
+// values is exact in f32); the epilogue adds the bias, applies the GELU,
+// adds the residual and casts once, in that order.
 //
-// Bound: tensor-core throughput (HuBERT-Large at B=32: M = 15,968 rows,
-// K = 1024 or 4096; ~400 GFLOP per layer). Design, kept simple for a first
-// port: 128x128x32 block tiles, 8 warps each owning a 64x32 accumulator tile
-// of WMMA 16x16x16 bf16 fragments, a two-stage cp.async pipeline so the next
-// K slab loads while the tensor cores work on this one, padded shared-memory
-// rows (80 bytes) against bank conflicts, zero-filled loads at the ragged M,
-// N and K edges. The epilogue stages one 16x16 fragment per warp in shared
-// memory and writes 16-byte vectors. wgmma, TMA and a persistent schedule
-// are later work.
-#include <mma.h>
-
-#include "common.cuh"
+// Bound: tensor-core throughput (HuBERT-Large at B=32: M = 15,968 rows, K =
+// 1024 or 4096; 268 GFLOP for the FFN's two products). Design: the
+// persistent TMA + wgmma GEMM of hopper.cuh (s3::gemm: 128 x 256 output
+// tiles walked columns fastest by one block per SM, a four-stage ring of
+// 64-element K stages filled by one producer thread, two consumer
+// warpgroups on wgmma m64n256k16 bf16 x bf16 -> f32 with 128 accumulators a
+// thread), shared with gemm_s8.cu. K14's overlapping k = 3 rows are read
+// through one map per tap run (hopper.cuh). The epilogue goes straight from
+// the accumulator registers, 8 chunks of 8 columns at a time, each batch's
+// loads (bias, residual) issued before its stores; the producer meanwhile
+// fills the ring with the next tile's first stages.
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using s3::bf16;
+using namespace s3;
 
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kLds = kBK + 8;  // shared row stride in elements
-constexpr int kThreads = 256;  // 8 warps: 2 along M x 4 along N
-constexpr int kWM = 64, kWN = 32;
-constexpr int kFM = kWM / 16, kFN = kWN / 16;
-constexpr int kSmemBytes = 2 * (kBM + kBN) * kLds * 2;
+constexpr int kBK = gemm::kStageK / 2;  // bf16 elements of K a stage
 
-__global__ void __launch_bounds__(kThreads)
-    gemm_bf16_kernel(const bf16* __restrict__ a, int lda, int a_rows, long long a_gstride,
-                     const bf16* __restrict__ w, const float* __restrict__ bias,
-                     const bf16* __restrict__ res, void* __restrict__ out, int out_f32, int gelu,
-                     int M, int N, int K) {
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  bf16* as = reinterpret_cast<bf16*>(smem);  // [2][kBM][kLds]
-  bf16* bs = as + 2 * kBM * kLds;            // [2][kBN][kLds]
+struct Epilogue {
+  const float* bias;  // [N] or null
+  const bf16* res;    // [M, N] or null
+  void* out;          // [M, N] bf16 or f32
+  int gelu, out_f32;
+};
 
-  const int bm = blockIdx.y * kBM, bn = blockIdx.x * kBN;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;
+constexpr int kBatch = 8;  // 8-column chunks whose loads are issued before their stores
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kFM][kFN];
+// One row's batch of kBatch chunks of this thread's fragment: columns n0 +
+// 8i and n0 + 8i + 1 (i < kBatch; chunk i is in while n0 + 8i < N, as N %
+// 8 == 0) of output row m, from their f32 sums s[2i], s[2i + 1].
+__device__ __forceinline__ void store_batch(const Epilogue& ep, size_t m, int n0, int N,
+                                            const float (&s)[2 * kBatch]) {
+  const size_t row = m * N;
+  float bias[2 * kBatch], res[2 * kBatch], v[2 * kBatch];
 #pragma unroll
-  for (int i = 0; i < kFM; ++i)
-#pragma unroll
-    for (int j = 0; j < kFN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // Each thread loads 16 bytes of rows lr and lr + 64 of both tiles at
-  // every K step: their row addresses are fixed, so they are computed once.
-  constexpr int kRowStep = kThreads / (kBK / 8);
-  static_assert(kBM == 2 * kRowStep && kBN == 2 * kRowStep, "two load rows per thread");
-  const int lr = tid / (kBK / 8), lc = (tid % (kBK / 8)) * 8;
-  const bf16* arow[2];
-  const bf16* wrow[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int gm = bm + lr + h * kRowStep, gn = bn + lr + h * kRowStep;
-    arow[h] = gm < M ? a + (gm / a_rows) * a_gstride + static_cast<long long>(gm % a_rows) * lda
-                     : nullptr;
-    wrow[h] = gn < N ? w + static_cast<size_t>(gn) * K : nullptr;
+  for (int i = 0; i < kBatch; ++i) {
+    const int n = n0 + 8 * i;
+    const bool in = n < N;
+    const float2 b = in && ep.bias ? __ldg(reinterpret_cast<const float2*>(ep.bias + n))
+                                   : make_float2(0.f, 0.f);
+    const float2 r = in && ep.res
+                         ? __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(
+                               ep.res + row + n)))
+                         : make_float2(0.f, 0.f);
+    bias[2 * i] = b.x, bias[2 * i + 1] = b.y, res[2 * i] = r.x, res[2 * i + 1] = r.y;
   }
-  auto load_tile = [&](int stage, int k0) {
-    const int gc = k0 + lc;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = lr + h * kRowStep;
-      const bool pa = arow[h] && gc < K, pw = wrow[h] && gc < K;
-      s3::cp_async16(as + (stage * kBM + r) * kLds + lc, pa ? arow[h] + gc : a, pa);
-      s3::cp_async16(bs + (stage * kBN + r) * kLds + lc, pw ? wrow[h] + gc : w, pw);
-    }
-  };
-
-  const int ktiles = (K + kBK - 1) / kBK;
-  load_tile(0, 0);
-  s3::cp_async_commit();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    if (kt + 1 < ktiles) load_tile((kt + 1) & 1, (kt + 1) * kBK);
-    s3::cp_async_commit();  // possibly empty: keeps the group count uniform
-    s3::cp_async_wait<1>();
-    __syncthreads();
-    const int st = kt & 1;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[kFM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr[kFN];
-#pragma unroll
-      for (int i = 0; i < kFM; ++i)
-        wmma::load_matrix_sync(af[i], as + (st * kBM + wm * kWM + i * 16) * kLds + kk, kLds);
-#pragma unroll
-      for (int j = 0; j < kFN; ++j)
-        wmma::load_matrix_sync(bfr[j], bs + (st * kBN + wn * kWN + j * 16) * kLds + kk, kLds);
-#pragma unroll
-      for (int i = 0; i < kFM; ++i)
-#pragma unroll
-        for (int j = 0; j < kFN; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    __syncthreads();  // this stage is overwritten by the load two steps on
+  for (int e = 0; e < 2 * kBatch; ++e) {
+    v[e] = ep.bias ? s[e] + bias[e] : s[e];
+    if (ep.gelu) v[e] = gelu_erf(v[e]);
+    if (ep.res) v[e] += res[e];
   }
-  s3::cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < kBatch; ++i) {
+    const size_t off = row + n0 + 8 * i;
+    if (n0 + 8 * i >= N) continue;
+    if (ep.out_f32) {
+      *reinterpret_cast<float2*>(static_cast<float*>(ep.out) + off) =
+          make_float2(v[2 * i], v[2 * i + 1]);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(ep.out) + off) =
+          __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    }
+  }
+}
 
-  // Epilogue: the tiles are consumed, so the shared memory is free for a
-  // 16x16 f32 staging square per warp.
-  float* stage = reinterpret_cast<float*>(smem) + warp * 256;
-  const int r = lane / 2, c0 = (lane % 2) * 8;
+__global__ void __launch_bounds__(gemm::kThreads, 1)
+    gemm_bf16_kernel(const __grid_constant__ gemm::AMaps tm_a,
+                     const __grid_constant__ CUtensorMap tm_w, gemm::Shape sh, Epilogue ep) {
+  extern __shared__ unsigned char smem_raw[];
+  const gemm::Ring ring = gemm::ring(smem_raw);
+  const int tid = threadIdx.x;
+
+  // The launch bound leaves 168 registers a thread; the producer gives most
+  // of its warpgroup's back, so the consumers' 128 accumulators fit in 232.
+  if (tid >= gemm::kConsumers * 128) {  // the producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == gemm::kConsumers * 128) gemm::produce<kBK>(tm_a, tm_w, sh, ring);
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  // this thread's fragment: rows rw and rw + 8 of the warpgroup's 64, columns
+  // 8c + cq and 8c + cq + 1 of each 8-column chunk c
+  const int rw = wg * 64 + warp * 16 + lane / 4, cq = 2 * (lane % 4);
+  const int k_tiles = (sh.K + kBK - 1) / kBK;
+  float acc[128];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < sh.tiles; tile += gridDim.x) {
+    const gemm::Tile t = gemm::tile_at(sh, tile);
+    gemm::consume(acc, ring, wg, k_tiles, it);
+
 #pragma unroll
-  for (int i = 0; i < kFM; ++i) {
+    for (int half = 0; half < 2; ++half) {
+      const int r = t.r0 + rw + 8 * half;
+      if (r >= sh.a_rows) continue;
+      const size_t m = static_cast<size_t>(t.g) * sh.a_rows + r;
 #pragma unroll
-    for (int j = 0; j < kFN; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gm = bm + wm * kWM + i * 16 + r;
-      const int gn = bn + wn * kWN + j * 16 + c0;
-      if (gm < M && gn < N) {  // N % 8 == 0: a run of 8 is all in or all out
-        float v[8];
+      for (int c0 = 0; c0 < gemm::kBN / 8; c0 += kBatch) {
+        const int n0 = t.nt * gemm::kBN + 8 * c0 + cq;
+        if (n0 >= sh.N) break;  // this chunk and every later one are past N
+        float sums[2 * kBatch];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          v[e] = bias ? stage[r * 16 + c0 + e] + bias[gn + e] : stage[r * 16 + c0 + e];
-          if (gelu) v[e] = s3::gelu_erf(v[e]);
+        for (int i = 0; i < kBatch; ++i) {
+          sums[2 * i] = acc[4 * (c0 + i) + 2 * half];
+          sums[2 * i + 1] = acc[4 * (c0 + i) + 2 * half + 1];
         }
-        const size_t off = static_cast<size_t>(gm) * N + gn;
-        if (res) {
-          float rv[8];
-          s3::load8(res + off, rv);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] += rv[e];
-        }
-        if (out_f32) {
-          s3::store8(static_cast<float*>(out) + off, v);
-        } else {
-          s3::store8(static_cast<bf16*>(out) + off, v);
-        }
+        store_batch(ep, m, n0, sh.N, sums);
       }
-      __syncwarp();
     }
   }
 }
 
 }  // namespace
 
+// Dynamic shared memory of a block and blocks resident per SM.
+extern "C" int s3_gemm_bf16_occupancy(int* smem_bytes, int* blocks_per_sm) {
+  return static_cast<int>(gemm::occupancy(gemm_bf16_kernel, smem_bytes, blocks_per_sm));
+}
+
+// w: [N, K] contiguous (ldw = K); every pointer 16-byte aligned, lda and
+// a_gstride multiples of 8 elements.
 extern "C" int s3_gemm_bf16(const void* a, int lda, int a_rows, long long a_gstride,
                             const void* w, const void* bias, const void* res, void* out,
                             int out_f32, int gelu, int M, int N, int K, void* stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  gemm_bf16_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a), lda, a_rows, a_gstride, static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<const bf16*>(res), out, out_f32, gelu, M, N,
-      K);
+  const Epilogue ep{static_cast<const float*>(bias), static_cast<const bf16*>(res), out, gelu,
+                    out_f32};
+  gemm::Shape sh = gemm::shape(a_rows, M, N, K);
+  gemm::AMaps tm_a;
+  CUtensorMap tm_w;
+  cudaError_t err = gemm::a_maps(&tm_a, &sh.tap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, lda,
+                                 a_rows, a_gstride, sh.groups, K);
+  if (err == cudaSuccess)
+    err = gemm::w_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, K, N, K);
+  int grid = 0;
+  if (err == cudaSuccess) err = gemm::prepare(gemm_bf16_kernel, sh, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gemm_bf16_kernel<<<grid, gemm::kThreads, gemm::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      tm_a, tm_w, sh, ep);
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,8 +46,6 @@ SIGNATURES = {
     "s3_layernorm": (_P, _I, _P, _P, _P, _I, _I, _F, _P),
     # a, lda, a_rows, a_gstride, w, bias, res, out, out_f32, gelu, M, N, K, stream
     "s3_gemm_bf16": (_P, _I, _I, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # qkv, kv_lens, pos_bias, gate, out, batch, T, heads, scale, stream (f32 out)
-    "s3_attention_gated": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     # q, k, v, kv_lens, out, batch, heads, T, stream
     "s3_online_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # q, k, v, pos_bias, bias_f32, bias_ld, gate, kv_lens, out, batch, heads, T, masked,
@@ -55,13 +53,17 @@ SIGNATURES = {
     "s3_gated_attention": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _F, _P),
     # qkv, kv_lens, out, batch, T, heads, scale, out_f32, stream
     "s3_qkv_attention": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # kind (0 no bias, 1 bf16 bias, 2 f32 bias, 3 packed bf16 out, 4 packed f32 out),
-    # &smem_bytes, &blocks_per_sm
+    # qkv, kv_lens, pos_bias, bias_ld, gate, out, batch, T, heads, scale, stream (f32 out)
+    "s3_qkv_attention_gated": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P),
+    # kind (0 no bias, 1 bf16 bias, 2 f32 bias, 3 packed bf16 out, 4 packed f32 out,
+    # 5 packed f32 bias f32 out), &smem_bytes, &blocks_per_sm
     "s3_gated_attention_occupancy": (_I, _P, _P),
     # q, k, v, kv_lens, out, batch, heads, T, stream
     "s3_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # &smem_bytes, &blocks_per_sm
     "s3_gemm_s8_occupancy": (_P, _P),
+    # &smem_bytes, &blocks_per_sm
+    "s3_gemm_bf16_occupancy": (_P, _P),
     # k, &smem_bytes, &blocks_per_sm
     "s3_posconv_occupancy": (_I, _P, _P),
     # x, x_is_f32, q, xs, batch, T, C, stream

@@ -132,8 +132,10 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
          out_f32: bool = False) -> torch.Tensor:
     """a [M, K] bf16 @ w[N, K]^T (nn.Linear layout) [+ bias f32 [N]]
     [-> erf GELU] [+ residual bf16 [M, N]] -> bf16 (or f32) [M, N], f32
-    accumulation (CUDA only). a may be a row-group view [G, R, K] of M = G
-    * R rows (`_row_layout`)."""
+    accumulation (CUDA only), on `csrc/gemm_bf16.cu`. a may be a row-group
+    view [G, R, K] of M = G * R rows (`_row_layout`; rows that overlap, as
+    a k = 3 conv's im2col rows, need gcd(lda, K) a multiple of 64, so that
+    each of at most three runs of K is read through its own tensor map)."""
     if a.dtype != torch.bfloat16:
         raise TypeError(f"gemm a: dtype {a.dtype}, the kernel takes {torch.bfloat16}")
     M, K, lda, a_rows, a_gstride = _row_layout(a, "gemm a", 8)
@@ -145,6 +147,11 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
         require(residual, "gemm residual", torch.bfloat16, (M, N))
     if K % 8 or N % 8:
         raise ValueError(f"gemm: K={K} and N={N} must be multiples of 8")
+    if lda < K and (K // math.gcd(lda, K) > 3 or math.gcd(lda, K) % 64):
+        raise ValueError(f"gemm: rows {lda} elements apart overlap their K={K} in a way the "
+                         "kernel's tensor maps cannot split")
+    if any(t is not None and t.data_ptr() % 16 for t in (w, bias, residual)):
+        raise ValueError("gemm: w, bias and residual must start at 16-byte boundaries")
     out = torch.empty(M, N, dtype=torch.float32 if out_f32 else torch.bfloat16,
                       device=a.device)
     if M:

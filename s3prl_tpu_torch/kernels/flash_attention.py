@@ -69,9 +69,10 @@ K8. No model calls it; its only caller in the JAX package is a test.
 K11 `gated_bias_attention_outproj` (:454, cell :360-403), WavLM's opt-in
 fused attention: K6's math (unscaled qkv, P normalised and cast before
 P.V, the f32 context quantized per row, int8 out-proj + bo + residual) with
-the gated bias added before the mask. `csrc/attention.cu`'s gated
-kernel, then K6's `csrc/quant_rows.cu` and `csrc/gemm_s8.cu`;
-beyond MAX_KERNEL_T it hands over to K9 -> K10 and stock ops (:466-477).
+the gated bias added before the mask: the gated packed instantiation of
+`csrc/gated_attention.cu` (f32 bias, f32 context), then K6's
+`csrc/quant_rows.cu` and `csrc/gemm_s8.cu`; beyond MAX_KERNEL_T it hands
+over to K9 -> K10 and stock ops (:466-477).
 """
 
 from __future__ import annotations
@@ -124,7 +125,9 @@ def _attention(qkv: torch.Tensor, kv_lens: torch.Tensor, num_heads: int,
     or f32: the packed instantiation of `csrc/gated_attention.cu` (K7's
     math, `attention_reference`'s; a row with kv_len = 0 attends to all T
     keys alike); with `bias` = (pos_bias [H, T, T], gate [B, H, T]), both
-    f32, K11's gated kernel in `csrc/attention.cu` (f32 out only)."""
+    f32, its gated packed instantiation (K11's; f32 out only). pos_bias
+    may be a view with padded rows (`_bias_row_stride`): the model's rows of
+    a multiple of 4 floats take 16-byte copies, other rows 4-byte ones."""
     B, T, C3 = qkv.shape
     C = C3 // 3
     if C != num_heads * HEAD_DIM:
@@ -136,7 +139,10 @@ def _attention(qkv: torch.Tensor, kv_lens: torch.Tensor, num_heads: int,
     if bias is not None:
         if not out_f32:
             raise ValueError("the gated attention kernel writes an f32 context only")
-        require(bias[0], "pos_bias", torch.float32, (num_heads, T, T))
+        if bias[0].dtype != torch.float32:
+            raise TypeError(f"pos_bias: dtype {bias[0].dtype}, the gated packed kernel "
+                            "takes f32")
+        ld = _bias_row_stride(bias[0], num_heads, T)
         require(bias[1], "gate", torch.float32, (B, num_heads, T))
     out = torch.empty(B * T, C, dtype=torch.float32 if out_f32 else torch.bfloat16,
                       device=qkv.device)
@@ -146,9 +152,9 @@ def _attention(qkv: torch.Tensor, kv_lens: torch.Tensor, num_heads: int,
         launch("s3_qkv_attention", qkv.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), B, T,
                num_heads, HEAD_DIM ** -0.5, int(out_f32), stream_of(qkv))
     else:
-        launch("s3_attention_gated", qkv.data_ptr(), kv_lens.data_ptr(), bias[0].data_ptr(),
-               bias[1].data_ptr(), out.data_ptr(), B, T, num_heads, HEAD_DIM ** -0.5,
-               stream_of(qkv))
+        launch("s3_qkv_attention_gated", qkv.data_ptr(), kv_lens.data_ptr(),
+               bias[0].data_ptr(), ld, bias[1].data_ptr(), out.data_ptr(), B, T, num_heads,
+               HEAD_DIM ** -0.5, stream_of(qkv))
     return out
 
 
@@ -599,16 +605,17 @@ def gated_bias_attention_outproj(qkv, residual, pos_bias, gate, wo, bo, kv_lens,
 
     The argument order is the JAX function's. qkv [B, T, 3C] bf16 (the
     unscaled fused projection), residual [B, T, C] bf16, pos_bias [H, T, T]
-    f32 (shared by the utterances and the layers), gate [B, H, T] f32, wo
+    f32 (shared by the utterances and the layers; its rows may be padded,
+    `_bias_row_stride`), gate [B, H, T] f32, wo
     the cached (codes [C, C] int8, scales [C] f32) pair in nn.Linear layout
     (a raw weight is quantized here), bo [C] f32, kv_lens [B] int32 (padding
     contiguous, kv_len >= 1). Beyond MAX_KERNEL_T frames (read at call
     time): the heads split with q pre-scaled in qkv's dtype, K9 (which hands
     over to K10), then residual + int8_matmul (:466-477; those launches
     count for K10). CPU tensors run the plain versions; CUDA tensors launch
-    the gated kernel of `csrc/attention.cu` (f32 context),
-    `csrc/quant_rows.cu` (f32 quantizer) and `csrc/gemm_s8.cu` (out-proj,
-    bias, residual), head dim 64. Forward-only."""
+    the gated packed instantiation of `csrc/gated_attention.cu` (f32
+    context), `csrc/quant_rows.cu` (f32 quantizer) and `csrc/gemm_s8.cu`
+    (out-proj, bias, residual), head dim 64. Forward-only."""
     wo_q, wo_s = as_quantized_cols(wo)
     B, T, C3 = qkv.shape
     C = C3 // 3

@@ -116,18 +116,26 @@ class ConvPositionalEmbedding(nn.Sequential):
     non-persistent buffers built by `build_qcache` (after every
     `load_state_dict`). The kernels run in eval mode for T <= MAX_POSCONV_T
     (read at call time); train() and longer sequences take the stock conv.
-    An option whose kernel cannot take this configuration (the JAX gate: k
-    even and a multiple of the tap chunk) raises a ValueError."""
+    An option whose kernel cannot take this configuration raises a
+    ValueError before anything is allocated: the JAX gate (k even and a
+    multiple of the tap chunk) everywhere, and on a CUDA device the card
+    kernel's tap limit too (the plain version takes any k)."""
 
-    OPTIONS = {"fused": ("fused_posconv", pc.TC), "int8": ("int8_posconv", pc.TC_Q8)}
+    # option -> (keyword, tap chunk, the card kernel's largest k)
+    OPTIONS = {"fused": ("fused_posconv", pc.TC, pc.MAX_TAPS),
+               "int8": ("int8_posconv", pc.TC_Q8, pc.MAX_TAPS_Q8)}
 
     def __init__(self, features: int, kernel_size: int = 128, groups: int = 16,
                  dtype: torch.dtype = torch.float32, option: str | None = None, device=None):
         if option is not None:
-            name, tc = self.OPTIONS[option]
+            name, tc, max_taps = self.OPTIONS[option]
             if kernel_size % 2 or kernel_size % tc:
                 raise ValueError(f"{name} cannot take effect: its kernel needs an even conv_pos "
                                  f"that is a multiple of {tc}, got {kernel_size}")
+            if device is not None and torch.device(device).type == "cuda" \
+                    and kernel_size > max_taps:
+                raise ValueError(f"{name} cannot take effect on the card: its kernel takes "
+                                 f"conv_pos up to {max_taps}, got {kernel_size}")
         super().__init__(nn.Conv1d(features, features, kernel_size,
                                    padding=kernel_size // 2, groups=groups,
                                    device=device))

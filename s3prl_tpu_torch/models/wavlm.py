@@ -200,14 +200,18 @@ class WavLMEncoder(TransformerEncoder):
         - flash, bf16 model: bf16 gathered into [H, T, Tp], Tp = T rounded
           up to 8, handed over as the view [:, :, :T] (K9/K10 read its rows
           in 16-byte copies; 288 MB at T = 3,000, half the f32 bias);
-        - flash under ``wavlm_fuse`` or in an f32 model: the rounded table
-          cast once to f32, contiguous (K11 takes that form);
+        - flash under ``wavlm_fuse``: the rounded table cast once to f32 and
+          gathered likewise into rows of Tp = T rounded up to 4 (K11 reads
+          them in 16-byte copies);
+        - flash in an f32 model: f32, contiguous;
         - no flash: contiguous in the model dtype.
         The values are the same in each: bf16 -> f32 is exact."""
         table = self.layers[0].self_attn.relative_attention_bias.weight.t().to(self.dtype)
         nb, md = self.num_buckets, self.max_distance
-        if self.use_flash and self.dtype == torch.bfloat16 and not self.wavlm_fuse:
-            padded = table[:, bucket_table(T, nb, md, device, cols=-(-T // 8) * 8)]
+        if self.use_flash and (self.dtype == torch.bfloat16 or self.wavlm_fuse):
+            step = 4 if self.wavlm_fuse else 8  # 16 bytes of f32 or of bf16
+            table = table.float() if self.wavlm_fuse else table
+            padded = table[:, bucket_table(T, nb, md, device, cols=-(-T // step) * step)]
             return (padded[:, :, :T],)
         if self.use_flash:
             table = table.float()

@@ -123,6 +123,90 @@ def test_gemm_kernel_ragged_edges(dev, M, N, K, mode):
         _close_bf16(got, want.to(torch.bfloat16))
 
 
+def _linear_f32(a2, w, bias=None, gelu=False, res=None):
+    """F.linear in f32 math on the bf16 operands, then erf GELU, then the
+    residual: what `gemm` computes before its one cast."""
+    y = torch.nn.functional.linear(a2.float(), w.float(), bias)
+    if gelu:
+        y = torch.nn.functional.gelu(y)
+    return y if res is None else y + res.float()
+
+
+def _check_gemm(a, w, bias=None, gelu=False, res=None, out_f32=False):
+    got = _common.gemm(a, w, bias, residual=res, gelu=gelu, out_f32=out_f32)
+    torch.cuda.synchronize()
+    want = _linear_f32(a.reshape(-1, a.shape[-1]), w, bias, gelu, res)
+    assert got.dtype == (torch.float32 if out_f32 else torch.bfloat16)
+    if out_f32:  # f32 sums in another order
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        _close_bf16(got, want.to(torch.bfloat16))
+
+
+# (M, N, K) on and beside the bf16 wgmma core's tile edges (128 rows, 256
+# columns, 64-element K stages), and the main path's widths
+GEMM_BF16_EDGES = [(M, N, K) for M in (1, 127, 128, 129, 300) for N in (8, 256, 264)
+                   for K in (8, 64, 72, 1000)] + [(257, 1024, 4096), (200, 4096, 1024),
+                                                  (130, 3072, 1024)]
+
+
+@pytest.mark.parametrize("M,N,K", GEMM_BF16_EDGES)
+def test_gemm_bf16_tile_edges(dev, M, N, K):
+    """`gemm` (csrc/gemm_bf16.cu) against F.linear in f32 math, bare (bf16
+    out) and with every epilogue flag (bias, GELU, residual, f32 out)."""
+    rng = np.random.RandomState(M * 7 + N * 3 + K)
+    a = _t(rng.randn(M, K) * 0.5, dev, torch.bfloat16)
+    w, bias = _block_weights(rng, dev, K, N)
+    res = _t(rng.randn(M, N) * 0.5, dev, torch.bfloat16)
+    _check_gemm(a, w)
+    _check_gemm(a, w, bias, gelu=True, res=res, out_f32=True)
+
+
+@pytest.mark.parametrize("out_f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("residual", [False, True], ids=["", "res"])
+@pytest.mark.parametrize("gelu", [False, True], ids=["", "gelu"])
+@pytest.mark.parametrize("bias", [False, True], ids=["", "bias"])
+def test_gemm_bf16_epilogue_flags(dev, bias, gelu, residual, out_f32):
+    """Every set of epilogue flags on a ragged M, N and K."""
+    rng = np.random.RandomState(4)
+    M, N, K = 300, 264, 200
+    a = _t(rng.randn(M, K) * 0.5, dev, torch.bfloat16)
+    w, b = _block_weights(rng, dev, K, N)
+    res = _t(rng.randn(M, N) * 0.5, dev, torch.bfloat16) if residual else None
+    _check_gemm(a, w, b if bias else None, gelu=gelu, res=res, out_f32=out_f32)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("B,T", [(1, 3), (2, 130), (3, 257), (2, 999)])
+def test_gemm_bf16_row_groups(dev, B, T, k):
+    """Row-group views [B, T', k * 512] with lda = 2C read in place from x
+    [B, T, 512], as K14's stride-2 im2col rows: k = 1 rows apart, k = 2 rows
+    that abut, k = 3 rows that overlap (three tensor maps, one per tap);
+    T' not a multiple of the 128-row tile; f32 out (K14) and bf16 with a
+    bias."""
+    from s3prl_tpu_torch.kernels.conv_frontend import _im2col
+
+    rng = np.random.RandomState(B * T + k)
+    x = _t(rng.randn(B, T, 512), dev, torch.bfloat16)
+    t_out = (T - k) // 2 + 1
+    rows = _im2col(x, k, t_out)
+    assert rows.stride(1) == 1024 and rows.shape[-1] == k * 512
+    w, bias = _block_weights(rng, dev, k * 512, 512)
+    _check_gemm(rows, w, out_f32=True)
+    _check_gemm(rows, w, bias, gelu=True)
+
+
+def test_gemm_refuses_rows_its_maps_cannot_split(dev):
+    """Overlapping rows whose shared run (gcd of the row stride and K) is
+    not a multiple of a 64-element stage: the kernel's tensor maps cannot
+    read them, so the wrapper raises before any launch."""
+    x = _t(np.random.RandomState(5).randn(1, 9, 72), dev, torch.bfloat16)
+    rows = x.as_strided((1, 4, 216), (9 * 72, 144, 1))
+    w, _ = _block_weights(np.random.RandomState(6), dev, 216, 64)
+    with pytest.raises(ValueError, match="overlap"):
+        _common.gemm(rows, w, out_f32=True)
+
+
 @pytest.mark.parametrize("src", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_layernorm_kernel(dev, src):
     rng = np.random.RandomState(2)
@@ -668,11 +752,13 @@ def _bias_form(pos_bias, form):
     elements apart: 4-byte copies at odd T), or a view [:, :, :T] of an
     [H, T, ld] buffer whose padding holds NaN: "f32-padded" and
     "bf16-padded" (ld = T rounded up to 8, the bf16 model's buffer),
+    "f32-pad4" (ld = T rounded up to 4, the ``wavlm_fuse`` model's),
     "bf16-wide" (ld 24 more)."""
     if form == "f32":
         return pos_bias.contiguous()
     H, T, _ = pos_bias.shape
-    ld = -(-T // 8) * 8 + (24 if form == "bf16-wide" else 0)
+    ld = -(-T // (4 if form == "f32-pad4" else 8)) * (4 if form == "f32-pad4" else 8)
+    ld += 24 if form == "bf16-wide" else 0
     dtype = torch.float32 if form.startswith("f32") else torch.bfloat16
     buf = torch.full((H, T, ld), float("nan"), dtype=dtype, device=pos_bias.device)
     buf[:, :, :T] = pos_bias
@@ -774,6 +860,30 @@ def test_k11_kernel(dev, T):
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, T, H * 64)
     _close_bf16(got, fa.gated_bias_attention_outproj(*_on_cpu(qkv, x, pos_bias, gate, wo, bo,
                                                               kv), H))
+
+
+@pytest.mark.parametrize("form", ["f32", "f32-pad4", "f32-padded"])
+@pytest.mark.parametrize("T,B,H", [(T, B, 2) for T in (65, 127, 499) for B in (1, 3, 7)]
+                         + [(499, 4, 16)])
+def test_gated_packed_attention_kernel(dev, T, B, H, form):
+    """K11's attention: `_attention` with a bias, the gated packed f32-out
+    instantiation of gated_attention.cu, against `attention_reference(...,
+    bias=)` on the card, with kv_lens on the 64-key tile edges (`_edge_kv`)
+    and the f32 bias unpadded (rows T apart: 4-byte copies at odd T) or
+    padded (rows a multiple of 4 or 8 floats apart: 16-byte copies)."""
+    from s3prl_tpu_torch.models.wavlm import bucket_table
+
+    rng = np.random.RandomState(27)
+    qkv = _t(rng.randn(B, T, 3 * H * 64), dev, torch.bfloat16)
+    table = _t(rng.randn(320, H) * 0.5, dev)
+    pos_bias = _bias_form(table.t()[:, bucket_table(T, 320, 800, torch.device(dev))], form)
+    gate = _t(1 + 2 * rng.rand(B, H, T), dev)
+    kv = _edge_kv(B, T, dev)
+    got = fa._attention(qkv, kv, H, out_f32=True, bias=(pos_bias, gate))
+    torch.cuda.synchronize()
+    want = attention_reference(qkv, kv, H, out_dtype=torch.float32, bias=(pos_bias, gate))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B * T, H * 64)
+    _close_bf16(got, want.view(B * T, H * 64))
 
 
 @pytest.mark.parametrize("ln,residual", [(True, False), (False, True), (False, False),

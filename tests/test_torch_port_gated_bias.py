@@ -2,9 +2,9 @@
 
 The bf16 WavLM hands K9 and K10 (`csrc/gated_attention.cu`) its pos_bias as
 a bf16 buffer [H, T, Tp], Tp = T rounded up to 8, viewed as [:, :, :T]
-(`WavLMEncoder._layer_args`); the f32 model and ``wavlm_fuse`` (K11) keep
-the contiguous f32 bias. Here, against the JAX package on the same numpy
-inputs:
+(`WavLMEncoder._layer_args`); ``wavlm_fuse`` (K11) an f32 buffer with Tp =
+T rounded up to 4, viewed likewise; the f32 model keeps the contiguous f32
+bias. Here, against the JAX package on the same numpy inputs:
 - the port's K9 and K10 wrappers on CPU tensors (their plain versions)
   given the padded bf16 bias, against JAX `gated_bias_attention` given the
   same bf16 bias through its CPU route (Pallas in interpret mode), at T =
@@ -106,7 +106,7 @@ def test_padded_bf16_bias_equals_f32_bias_bit_for_bit(monkeypatch, route):
 
 FORMS = {  # name -> (model dtype, use_flash, wavlm_fuse, the bias dtype, padded)
     "flash-bf16": (torch.bfloat16, True, False, torch.bfloat16, True),
-    "flash-bf16-wavlm_fuse": (torch.bfloat16, True, True, torch.float32, False),
+    "flash-bf16-wavlm_fuse": (torch.bfloat16, True, True, torch.float32, True),
     "flash-f32": (torch.float32, True, False, torch.float32, False),
     "no-flash-bf16": (torch.bfloat16, False, False, torch.bfloat16, False),
     "no-flash-f32": (torch.float32, False, False, torch.float32, False),
@@ -124,9 +124,9 @@ def test_layer_args_form(form):
     (pos_bias,) = enc._layer_args(T, torch.device("cpu"))
     H = PCFG.encoder_attention_heads
     assert pos_bias.shape == (H, T, T) and pos_bias.dtype == want_dtype
-    if padded:
+    if padded:  # T = 149 rounded up to 8 (bf16) or to 4 (f32): 152
         assert pos_bias.stride() == (T * 152, 152, 1)
-        assert pos_bias.untyped_storage().nbytes() == H * T * 152 * 2
+        assert pos_bias.untyped_storage().nbytes() == H * T * 152 * pos_bias.element_size()
     else:
         assert pos_bias.is_contiguous()
     table = enc.layers[0].self_attn.relative_attention_bias.weight.detach()

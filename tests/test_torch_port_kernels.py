@@ -164,8 +164,9 @@ def test_wrappers_refuse_mixed_and_unknown_devices():
 
 def test_build_hashes_every_source():
     names = {p.name for p in _build.sources()}
-    assert {"common.cuh", "conv0_ln_gelu.cu", "layernorm.cu", "gemm_bf16.cu",
-            "attention.cu", "gemm_s8.cu", "quant_rows.cu"} <= names
+    assert {"common.cuh", "hopper.cuh", "conv0_ln_gelu.cu", "layernorm.cu", "gemm_bf16.cu",
+            "gated_attention.cu", "gemm_s8.cu", "quant_rows.cu"} <= names
+    assert "attention.cu" not in names  # K11's attention runs on gated_attention.cu
     assert len(_build._digest()) == 16
 
 

@@ -373,6 +373,36 @@ def test_posconv_keywords_refuse_what_cannot_take_effect(name, cfg, kwargs, matc
                                                    if k.endswith("posconv")})
 
 
+@pytest.mark.parametrize("option,k,limit", [("fused", 528, port_pc.MAX_TAPS),
+                                              ("int8", 1056, port_pc.MAX_TAPS_Q8)])
+def test_posconv_option_over_the_card_tap_limit_refuses_at_load(monkeypatch, option, k, limit):
+    """A pos-conv built for the card (a CUDA device) with a conv_pos that
+    passes the JAX gate but exceeds the card kernel's tap limit raises at
+    load, naming the limit, before anything touches CUDA; built on the CPU
+    (the plain version takes any k) it is made."""
+    monkeypatch.setattr(torch.cuda, "_lazy_init", lambda: pytest.fail("CUDA was touched"))
+    for device in ("cuda", torch.device("cuda", 0)):
+        with pytest.raises(ValueError, match=f"conv_pos up to {limit}, got {k}"):
+            ConvPositionalEmbedding(1024, k, 16, option=option, device=device)
+    mod = ConvPositionalEmbedding(1024, k, 16, option=option, device="cpu")
+    assert mod[0].weight.shape == (1024, 64, k)
+
+
+def test_posconv_k528_on_the_cpu_matches_jax():
+    """The fused pos-conv with conv_pos = 528 (over K16a's card limit, inside
+    the JAX gate) built on the CPU: eval mode runs K16a's plain version,
+    which matches the JAX kernel (interpret mode) at HuBERT-Large's width."""
+    x, kern, weight, bias = _conv_inputs(45, 37, B=1, C=1024, G=16, k=528)
+    mod = ConvPositionalEmbedding(1024, 528, 16, option="fused", device="cpu").eval()
+    mod.load_state_dict({"0.weight": weight, "0.bias": torch.from_numpy(bias)})
+    with torch.no_grad():
+        got = mod(torch.from_numpy(x))
+    want = jax_pc.pos_conv_gelu(jnp.asarray(x), jnp.asarray(kern), jnp.asarray(bias), groups=16,
+                                interpret=True)
+    assert tuple(got.shape) == (1, 37, 1024)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=0)
+
+
 @pytest.mark.parametrize("model", MODELS)
 def test_options_keep_the_state_dict_and_build_their_weights(params, model):
     """The keywords are plain attributes, not state: the state_dict keeps
