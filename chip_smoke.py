@@ -9,9 +9,10 @@ line is printed; each phase prints its seconds):
  2. build the CUDA kernels from csrc/ (into build/) and print the seconds;
     for the wgmma kernels - the attention (gated_attention.cu: K1, K4,
     K6-K11, K17; six instantiations), the int8 GEMM core (gemm_s8.cu: the
-    products of K1, K2, K6, K11, K12, K13b; three), the bf16 GEMM core
-    (gemm_bf16.cu: K4's projections, K5, K14; one) and K16a (posconv.cu;
-    one) - print each instantiation's registers, stack and spills (ptxas -v,
+    products of K2, K6, K11, K13b and of K1's and K12's wide-row route;
+    three), the int8 panel projection (int8_panel.cu: K1's and K12's
+    projections; two), the bf16 GEMM core (gemm_bf16.cu: K4's projections,
+    K5, K14; one) and K16a (posconv.cu; one) - print each instantiation's registers, stack and spills (ptxas -v,
     nvcc.log) with any ptxas note that its wgmma were serialized, and its
     HGMMA / IGMMA (wgmma) count in the SASS (cuobjdump), then each kernel's
     dynamic shared memory and blocks per SM; fail unless each kernel has its
@@ -39,7 +40,16 @@ line is printed; each phase prints its seconds):
     B=7 x 65, 127 and 499 with kv_lens on the 64-key tile edges (the same
     gates, ragged kv_lens) and K12 in its four (ln,
     residual) sets at [4 x 499, 1024] -> N = 3072 (with the LN) or 1024;
-    the share of int8 codes where the kernels' quantizers and the plain
+    K1 and K12 launch what their design says (a spy on the C entries: K12
+    one int8_panel.cu launch, K1 panel QKV + attention + panel out-proj [+
+    LN]) at C = 1,024, and the wide-row route (quant_rows.cu + gemm_s8.cu
+    per projection) at C = 1,280 (H = 20), held there against the plain
+    versions; the panel kernel alone against the plain projection at C 768
+    and 1,024, rows 1, 127, 129 and 15,968, N 8, 264, 1,024 and 3,072, in
+    K1's four epilogue sets (QKV with and without the LN, out-proj bf16 and
+    f32 out) and K12's two, with its codes and scales (test mode) bit-equal
+    to quantize_rows (of the LN recomputed from the kernel's statistics) or
+    quantize_context_reference; the share of int8 codes where the kernels' quantizers and the plain
     ones differ is printed (K6's and K11's context codes among them). The
     int8 GEMM alone equals torch._int_mm exactly (QKV, fc2 column ranges,
     M, N, K on the 128 x 256 x 128-byte tile edges, row-group views [3, T',
@@ -110,7 +120,9 @@ line is printed; each phase prints its seconds):
     int8_matmul out-proj and residual; LN and int8_matmul QKV; int8_matmul
     out-proj and residual), which no single library call computes. On lines
     of their own: K2's launches one by one (x-quant, fc1, the two requants,
-    the two fc2 chunks) at B=32 x 499, and the int8 GEMM alone (int32 out)
+    the two fc2 chunks) at B=32 x 499, K1's three (panel QKV, attention,
+    panel out-proj) and K12's panel launch in its two main-path sets beside
+    the wide-row route's pair at the same shape, and the int8 GEMM alone (int32 out)
     beside torch._int_mm at K2's fc1 and fc2-chunk and K1's QKV shapes, with
     TOP/s; the bf16 GEMM alone (`gemm`, the main path's epilogue flags)
     beside F.linear (cuBLAS, with the bias) at K5's fc1 and fc2, K4's QKV
@@ -637,10 +649,11 @@ def library_call(name, i):
 
 def code_mismatch(inp, inp_long, inp11):
     """Share of int8 codes where the kernels' quantizers and the plain
-    versions' differ, on the main path's inputs: K1's LN prologue and its
-    bf16 context quantization, K2's LN prologue (K12's too) and its
-    per-chunk requant of the fc1 output (each pair fed the same tensor), and
-    K6's and K11's f32 contexts."""
+    versions' differ, on the main path's inputs: K1's and K12's LN prologue
+    and K1's bf16 context quantization on the panel kernel (its test mode),
+    the context's on quant_rows.cu (the wide-row route), K2's LN prologue
+    and its per-chunk requant of the fc1 output (each pair fed the same
+    tensor), and K6's and K11's f32 contexts."""
     from s3prl_tpu_torch.kernels import _common as kc
     from s3prl_tpu_torch.kernels import ffn as k5
     from s3prl_tpu_torch.kernels import flash_attention as k4
@@ -651,11 +664,18 @@ def code_mismatch(inp, inp_long, inp11):
 
     x2 = inp["x"].view(-1, inp["x"].shape[-1])
     x8, xs = kc.quant_rows(x2, ln=inp["ln"])
-    out = {"K1/K2/K12 LN prologue": share(x8, quantize_rows(kc.layer_norm_f32(x2, inp["ln"]))[0])}
+    codes_plain = quantize_rows(kc.layer_norm_f32(x2, inp["ln"]))[0]
+    wq8, bq = inp["wq8"], inp["bq"]
+    out = {"K2 LN prologue (quant_rows.cu)": share(x8, codes_plain),
+           "K1/K12 LN prologue (int8_panel.cu)": share(
+               kc.int8_panel(x2, *wq8, bq, ln=inp["ln"], codes=True)[1], codes_plain)}
     qkv = (inp["x"].float() @ inp["wq"].float().t()).to(torch.bfloat16)
     ctx = k4.attention_reference(qkv, inp["kv"], inp["H"]).view(x2.shape)
-    out["K1 context (bf16)"] = share(kc.quant_rows_bf16(ctx)[0],
-                                     k4.quantize_context_reference(ctx)[0])
+    ctx_plain = k4.quantize_context_reference(ctx)[0]
+    out["K1 context (bf16, int8_panel.cu)"] = share(
+        kc.int8_panel(ctx, *inp["wo8"], inp["bo"], rule=kc.RULE_CTX, codes=True)[1], ctx_plain)
+    out["K1 context (bf16, quant_rows.cu: the wide-row route)"] = share(
+        kc.quant_rows_bf16(ctx)[0], ctx_plain)
     w1q, w1s = inp["w18"]
     h = kc.gemm_s8(x8, w1q, mode=kc.GEMM_LINEAR, row_scale=xs, col_scale=w1s,
                    bias=inp["b1"], gelu=True, out_f32=True)
@@ -1100,10 +1120,203 @@ def k2_stages(inp):
     return stages
 
 
+def k12_stages(inp):
+    """K12's launch in its two main-path sets ((LN, N = 3C): the QKV under
+    ``full_fuse``/``qkv_fuse``; (residual, N = C): the out-proj under
+    ``full_fuse``) as `fused_int8_linear` makes it, one panel launch each,
+    and beside each the wide-row route's pair (quant_rows.cu + gemm_s8.cu)
+    at the same shape: (stage, call) each."""
+    from s3prl_tpu_torch.kernels import _common as kc
+
+    x2 = inp["x"].view(-1, inp["x"].shape[-1])
+    stages = []
+    for ln, w, b in ((True, inp["wq8"], inp["bq"]), (False, inp["wo8"], inp["bo"])):
+        N = w[0].shape[0]
+        kw = dict(ln=inp["ln"] if ln else None,
+                  residual=None if ln else inp["res"][N].view(-1, N))
+        what = f"{'LN, N=' if ln else 'residual, N='}{N}"
+        stages.append((f"{what} (int8_panel.cu)",
+                       lambda w=w, b=b, kw=kw: kc.int8_panel(x2, *w, b, **kw)))
+
+        def pair(w=w, b=b, kw=kw):
+            x8, xs = kc.quant_rows(x2, ln=kw["ln"])
+            return kc.gemm_s8(x8, w[0], mode=kc.GEMM_LINEAR, row_scale=xs, col_scale=w[1],
+                              bias=b, residual=kw["residual"])
+        stages.append((f"{what} wide-row route (quant_rows.cu + gemm_s8.cu)", pair))
+    return stages
+
+
+def k1_stages(inp):
+    """K1's three launches (pre-LN, the main path's) as `fused_attention_block`
+    makes them, on its timing inputs: (stage, call) each, the later stages
+    fed the earlier stages' outputs."""
+    from s3prl_tpu_torch.kernels import _common as kc
+    from s3prl_tpu_torch.kernels import flash_attention as fa
+
+    B, T, C = inp["x"].shape
+    x2 = inp["x"].view(B * T, C)
+    (wq, wqs), (wo, wos) = inp["wq8"], inp["wo8"]
+    qkv = kc.int8_panel(x2, wq, wqs, inp["bq"], ln=inp["ln"], mode=kc.GEMM_QKV)
+    attn = fa._attention(qkv.view(B, T, 3 * C), inp["kv"], inp["H"])
+    return [("QKV (int8_panel.cu: LN + quant + GEMM + kQkv)",
+             lambda: kc.int8_panel(x2, wq, wqs, inp["bq"], ln=inp["ln"], mode=kc.GEMM_QKV)),
+            ("attention (gated_attention.cu, packed)",
+             lambda: fa._attention(qkv.view(B, T, 3 * C), inp["kv"], inp["H"])),
+            ("out-proj (int8_panel.cu: bf16 context quant + GEMM + bo + x)",
+             lambda: kc.int8_panel(attn, wo, wos, inp["bo"], rule=kc.RULE_CTX, residual=x2))]
+
+
+# The int8 panel kernel's edges: rows on and beside the 128-row panel and the
+# main path's 32 x 499; N on and beside the 128-column tiles and the main
+# path's widths; C of HuBERT-Base and -Large
+PANEL_EDGES = dict(C=(768, 1024), M=(1, 127, 129, 32 * 499), N=(8, 264, 1024, 3072))
+# (name, row rule, LN, epilogue, residual, f32 out): K1's QKV (pre-LN and
+# postnorm) and out-proj (bf16 out, and the postnorm f32 sum), K12's two sets
+PANEL_SETS = (("K1 QKV, LN", "f32", True, "qkv", False, False),
+              ("K1 QKV, postnorm", "f32", False, "qkv", False, False),
+              ("K1 out-proj", "ctx", False, "linear", True, False),
+              ("K1 out-proj, postnorm (f32 out)", "ctx", False, "linear", True, True),
+              ("K12 LN", "f32", True, "linear", False, False),
+              ("K12 residual", "f32", False, "linear", True, False))
+
+
+def panel_plain(w8, ws, b, xq, xs, qkv, res, out_f32):
+    """The plain projection of codes xq and scales xs [M, 1]: exact int32
+    sums with K1's QKV cast points, or f32(acc) * xs * ws + b [+ res] cast
+    once."""
+    from s3prl_tpu_torch.ops.quant import int_mm
+
+    bf = torch.bfloat16
+    if qkv:
+        return int_mm(xq, w8).to(bf) * (xs * ws).to(bf) + b.to(bf)
+    y = int_mm(xq, w8).float() * xs * ws + b
+    if res is not None:
+        y = y + res.float()
+    return y if out_f32 else y.to(bf)
+
+
+def check_panel_edges(gen, dev):
+    """csrc/int8_panel.cu against the plain projection at every (C, M, N) of
+    PANEL_EDGES in each of PANEL_SETS: in the test mode its codes and scales
+    bit-equal to quantize_context_reference's or quantize_rows' (with the LN,
+    of the LN recomputed in f32 from the kernel's statistics, which agree
+    with torch's mean and 1 / sqrt(var + eps) at rtol 1e-5: the sums run in
+    another order, so at a .5 tie a code of torch's LN can land one step
+    apart, and K1's triple-rounded QKV can then land one bf16 step past the
+    rule's bound; the wrappers' checks above hold that against the plain
+    versions at the main path's shape), and the output under the kernels'
+    rule against the plain projection of those codes."""
+    from s3prl_tpu_torch.kernels import _common as kc
+    from s3prl_tpu_torch.kernels.flash_attention import quantize_context_reference
+    from s3prl_tpu_torch.ops.quant import as_quantized_cols, quantize_rows
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+    worst = {}
+    for C in PANEL_EDGES["C"]:
+        ln = (1 + rnd(C, scale=0.1), rnd(C, scale=0.1))
+        for M in PANEL_EDGES["M"]:
+            x = rnd(M, C, scale=0.5, dtype=torch.bfloat16)
+            mean = x.float().mean(-1)
+            rstd = 1.0 / torch.sqrt(((x.float() - mean[:, None]) ** 2).mean(-1) + kc.LN_EPS)
+            for N in PANEL_EDGES["N"]:
+                w8, ws = as_quantized_cols(rnd(N, C, scale=C ** -0.5))
+                b, res = rnd(N, scale=0.02), rnd(M, N, scale=0.5, dtype=torch.bfloat16)
+                for name, rule, with_ln, epi, with_res, out_f32 in PANEL_SETS:
+                    what = f"int8_panel {name} [{M}, {C}] x [{N}, {C}]"
+                    got, q, s, stats = kc.int8_panel(
+                        x, w8, ws, b, ln=ln if with_ln else None,
+                        rule=kc.RULE_CTX if rule == "ctx" else kc.RULE_F32,
+                        mode=kc.GEMM_QKV if epi == "qkv" else kc.GEMM_LINEAR,
+                        residual=res if with_res else None, out_f32=out_f32, codes=True)
+                    if rule == "ctx":
+                        want_q, want_s = quantize_context_reference(x)
+                    elif with_ln:
+                        check(torch.allclose(stats[:, 0], mean, rtol=1e-5, atol=1e-6)
+                              and torch.allclose(stats[:, 1], rstd, rtol=1e-5),
+                              f"{what}: LN statistics")
+                        want_q, want_s = quantize_rows(
+                            (x.float() - stats[:, :1]) * stats[:, 1:] * ln[0] + ln[1])
+                    else:
+                        want_q, want_s = quantize_rows(x)
+                    check(torch.equal(q, want_q) and torch.equal(s, want_s[:, 0]),
+                          f"{what}: codes and scales not bit-equal")
+                    want = panel_plain(w8, ws, b, want_q, want_s, epi == "qkv",
+                                       res if with_res else None, out_f32)
+                    check(got.shape == want.shape and got.dtype == want.dtype, what)
+                    cos, err = compare(got, want)
+                    ratio = within_tolerance(got, want)
+                    check(cos > COS_KERNEL and ratio <= 1.0,
+                          f"{what}: cos {cos:.7f} max err {err:.3e} (/ bound {ratio:.3f})")
+                    worst[name] = max(worst.get(name, (0.0, 1.0)), (err, cos))
+                del w8, ws, b, res
+            del x
+    log(f"[kernel] int8_panel holds against the plain projection at C {PANEL_EDGES['C']}, "
+        f"rows {PANEL_EDGES['M']}, N {PANEL_EDGES['N']}, codes and scales bit-equal; "
+        "max_abs_err (cos at it): " + ", ".join(f"{name} {err:.3e} ({cos:.7f})"
+                                                for name, (err, cos) in worst.items()))
+
+
+def launched_entries(fn):
+    """The C entries that fn() launches, in order (a spy on `launch` in the
+    two modules that launch K1's and K12's kernels)."""
+    from s3prl_tpu_torch.kernels import _build
+    from s3prl_tpu_torch.kernels import _common as kc
+    from s3prl_tpu_torch.kernels import flash_attention as fa
+
+    names = []
+
+    def spy(name, *args):
+        names.append(name)
+        return _build.launch(name, *args)
+
+    saved = kc.launch, fa.launch
+    kc.launch = fa.launch = spy
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        kc.launch, fa.launch = saved
+    return names
+
+
+def check_projection_routes(inp, inp_wide):
+    """K1 and K12 launch what their design says: at C = 1,024 K12 is one
+    panel launch and K1 three (panel QKV, the attention, panel out-proj; and
+    the LN with ``postnorm``); at C = 1,280 (wider than the panel) both take
+    the wide-row route (quant_rows.cu + gemm_s8.cu for each projection),
+    whose outputs are then held against the plain versions."""
+    from s3prl_tpu_torch.kernels import _common as kc
+
+    panel, attn = "s3_int8_panel", "s3_qkv_attention"
+    pair = ["s3_quant_rows", "s3_gemm_s8"]
+    expected = {
+        1024: {"fused_int8_linear": [[panel]] * len(K12_SETS),
+               "fused_attention_block": [[panel, attn, panel],
+                                         [panel, attn, panel, "s3_layernorm"]]},
+        1280: {"fused_int8_linear": [pair] * len(K12_SETS),
+               "fused_attention_block": [pair + [attn, "s3_quant_rows_bf16", "s3_gemm_s8"],
+                                         pair + [attn, "s3_quant_rows_bf16", "s3_gemm_s8",
+                                                 "s3_layernorm"]]}}
+    check(kc.PANEL_MAX_C == 1024, f"PANEL_MAX_C {kc.PANEL_MAX_C}")
+    for i, C in ((inp, 1024), (inp_wide, 1280)):
+        calls = kernel_calls(i)
+        for name, want in expected[C].items():
+            for (variant, kernel, _), entries in zip(calls[name], want):
+                got = launched_entries(kernel)
+                check(got == entries, f"{name} {variant} C={C} launched {got}, not {entries}")
+        log(f"[kernel] C={C}: K12 launches {expected[C]['fused_int8_linear'][0]}, K1 "
+            f"{expected[C]['fused_attention_block'][0]} (postnorm + s3_layernorm)")
+    wide = kernel_calls(inp_wide)  # not the panel kernel: kept out of the kernels line's errors
+    check_kernels({name: wide[name] for name in ("fused_int8_linear", "fused_attention_block")},
+                  {})
+
+
 KERNELS = {  # wrapper -> (its main CUDA source, the TPU kernel it replaces)
     "conv0_ln_gelu": ("s3prl_tpu_torch/csrc/conv0_ln_gelu.cu",
                       "s3prl_tpu/kernels/conv_frontend.py:148"),
-    "fused_attention_block": ("s3prl_tpu_torch/csrc/gemm_s8.cu",
+    "fused_attention_block": ("s3prl_tpu_torch/csrc/int8_panel.cu",
                               "s3prl_tpu/kernels/flash_attention.py:633"),
     "fused_int8_ffn": ("s3prl_tpu_torch/csrc/gemm_s8.cu", "s3prl_tpu/kernels/ffn.py:129"),
     "fused_attention_block_bf16": ("s3prl_tpu_torch/csrc/gated_attention.cu",
@@ -1121,7 +1334,7 @@ KERNELS = {  # wrapper -> (its main CUDA source, the TPU kernel it replaces)
                                      "s3prl_tpu/kernels/flash_attention.py:963"),
     "gated_bias_attention_outproj": ("s3prl_tpu_torch/csrc/gated_attention.cu",
                                      "s3prl_tpu/kernels/flash_attention.py:423"),
-    "fused_int8_linear": ("s3prl_tpu_torch/csrc/gemm_s8.cu", "s3prl_tpu/kernels/ffn.py:216"),
+    "fused_int8_linear": ("s3prl_tpu_torch/csrc/int8_panel.cu", "s3prl_tpu/kernels/ffn.py:216"),
     "conv0_ln_gelu_q8": ("s3prl_tpu_torch/csrc/conv0_ln_gelu.cu",
                          "s3prl_tpu/kernels/conv_frontend.py:177"),
     "fused_int8_conv_ln_gelu": ("s3prl_tpu_torch/csrc/gemm_s8.cu",
@@ -1254,9 +1467,10 @@ GATED_KINDS = ("no bias, split heads (K8, K17)", "bf16 bias (K9, K10)", "f32 bia
                "gated, packed, f32 bias, f32 out (K11)")
 # the wgmma kernels (their SASS names contain these) -> their instantiations:
 # the attention (K1, K4, K6-K11, K17), the int8 GEMM core (kRaw, kQkv, kLinear:
-# K1, K2, K6, K11, K12, K13b), the bf16 GEMM core (K4, K5, K14) and K16a
+# K2, K6, K11, K13b, and K1's and K12's wide-row route), the int8 panel
+# projection (kQkv, kLinear: K1, K12), the bf16 GEMM core (K4, K5, K14) and K16a
 WGMMA_KERNELS = {"gated_attention_kernel": len(GATED_KINDS), "gemm_s8_kernel": 3,
-                 "gemm_bf16_kernel": 1, "posconv_bf16_kernel": 1}
+                 "int8_panel_kernel": 2, "gemm_bf16_kernel": 1, "posconv_bf16_kernel": 1}
 
 
 def wgmma_build_report(lib):
@@ -1309,6 +1523,7 @@ def wgmma_build_report(lib):
                 lambda s, b, kind=kind: library.s3_gated_attention_occupancy(kind, s, b))
                for kind, what in enumerate(GATED_KINDS)]
     queries += [("gemm_s8_kernel", library.s3_gemm_s8_occupancy),
+                ("int8_panel_kernel", library.s3_int8_panel_occupancy),
                 ("gemm_bf16_kernel", library.s3_gemm_bf16_occupancy),
                 ("posconv_bf16_kernel, k = 128",
                  lambda s, b: library.s3_posconv_occupancy(128, s, b))]
@@ -1420,6 +1635,8 @@ def main():
         inp_long = long_inputs(4, 1499, gen, dev)
         inp8 = long_inputs(2, 2999, gen, dev)
         check_kernels(kernel_calls(inp, inp_base), max_err)
+        check_projection_routes(inp, kernel_inputs(2, 499, gen, dev, C=1280, F=1280, H=20))
+        check_panel_edges(gen, dev)
         check_kernels(long_kernel_calls(
             [inp_long, *(long_inputs(7, T, gen, dev, edges=True) for T in (65, 127))],
             [inp8, long_inputs(7, 2049, gen, dev, edges=True)]), max_err)
@@ -1659,10 +1876,15 @@ def main():
             for what, fn in pairs:
                 t = (cuda_ms(fn, 10) + cuda_ms(fn, 10)) / 2
                 log(f"[timing] {name} split pair it replaces B=32, {what}: {t:.3f} ms")
-        stages = [(what, (cuda_ms(fn, 10) + cuda_ms(fn, 10)) / 2) for what, fn in k2_stages(inp)]
-        log("[timing] fused_int8_ffn (K2) stages B=32 x 499, F=4096: " + ", ".join(
-            f"{what} {ms:.4f} ms" for what, ms in stages)
-            + f"; sum {sum(ms for _, ms in stages):.4f} ms")
+        for what_k, stage_fn in (("fused_int8_ffn (K2) stages B=32 x 499, F=4096", k2_stages),
+                                 ("fused_attention_block (K1) stages B=32 x 499", k1_stages),
+                                 ("fused_int8_linear (K12) launches B=32 x 499", k12_stages)):
+            stages = [(what, (cuda_ms(fn, 10) + cuda_ms(fn, 10)) / 2)
+                      for what, fn in stage_fn(inp)]
+            total = "" if stage_fn is k12_stages else \
+                f"; sum {sum(ms for _, ms in stages):.4f} ms"
+            log(f"[timing] {what_k}: " + ", ".join(f"{what} {ms:.4f} ms" for what, ms in stages)
+                + total)
         time_gemm_s8(gen, dev)
         time_gemm_bf16(gen, dev)
         del inp, calls, inputs, inp11

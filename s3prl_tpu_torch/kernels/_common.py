@@ -4,11 +4,13 @@ Every kernel wrapper of the port follows one rule: tensors on the CPU go to
 the kernel's plain PyTorch version; CUDA tensors go to the CUDA kernel, or
 the wrapper raises. There is no fallback after a failed launch and no switch.
 
-`layer_norm`, `gemm`, `gemm_s8`, `quant_rows`, `quant_rows_bf16` and
-`ln_gelu_rows` launch the row-LN, GEMM, row-quantization and LN + GELU
-kernels that the block and front-end wrappers are built from; they check
-what the kernels take and raise on anything else. `layer_norm_f32`,
-`gelu_tanh` and `ln_gelu_f32` are the plain versions' forms of the Pallas
+`layer_norm`, `gemm`, `gemm_s8`, `quant_rows`, `quant_rows_bf16`,
+`int8_panel` and `ln_gelu_rows` launch the row-LN, GEMM, row-quantization,
+int8 panel projection and LN + GELU kernels that the block and front-end
+wrappers are built from; they check what the kernels take and raise on
+anything else. `int8_projection` routes an int8 projection by row width:
+the panel kernel up to PANEL_MAX_C, the quantizer + `gemm_s8` pair beyond.
+`layer_norm_f32`, `gelu_tanh` and `ln_gelu_f32` are the plain versions' forms of the Pallas
 kernels' in-kernel LayerNorm, tanh GELU and LN + GELU epilogue.
 `refuse_grad` is the refusal every CUDA branch makes: the kernels have no
 backward.
@@ -246,6 +248,81 @@ def quant_rows_bf16(x: torch.Tensor):
         launch("s3_quant_rows_bf16", x.data_ptr(), cols, q.data_ptr(), scale.data_ptr(),
                rows, stream_of(x))
     return q, scale
+
+
+RULE_F32, RULE_CTX = 0, 1  # csrc/int8_panel.cu's row rules: quant_rows.cu's f32 and bf16 ones
+# Rows up to this wide stay on chip as one int8 panel (csrc/int8_panel.cu:
+# 128 rows x 1,024 codes = 128 KB of shared memory); wider rows take the
+# quant_rows.cu + gemm_s8.cu pair (`int8_projection`).
+PANEL_MAX_C = 1024
+
+
+def int8_panel(x: torch.Tensor, w: torch.Tensor, col_scale: torch.Tensor,
+               bias: torch.Tensor, *, ln=None, rule: int = RULE_F32,
+               mode: int = GEMM_LINEAR, residual: torch.Tensor | None = None,
+               out_f32: bool = False, codes: bool = False):
+    """x [M, C] bf16 (C <= PANEL_MAX_C, a multiple of 16) -> its per-row
+    int8 projection by w [N, C] int8 (scales col_scale [N] f32, bias [N]
+    f32), one launch of csrc/int8_panel.cu (CUDA only): the rows quantized
+    on chip by `rule` (RULE_F32 after an f32 LayerNorm when `ln` = (scale,
+    bias) is given, or K1's bf16 context rule RULE_CTX), then GEMM_QKV ->
+    bf16, or GEMM_LINEAR [+ residual bf16 [M, N]] -> bf16 or f32. With
+    `codes` (a test mode) also returns the codes [M, C] int8, the scales
+    [M] f32 and, with the LN, its statistics [M, 2] (mean, 1 / sqrt(var +
+    eps)) f32 as the kernel computed them: (out, q, scale, stats or None)."""
+    M, C = x.shape
+    N = w.shape[0]
+    require(x, "int8_panel x", torch.bfloat16)
+    require(w, "int8_panel w", torch.int8, (N, C))
+    require(col_scale, "int8_panel col_scale", torch.float32, (N,))
+    require(bias, "int8_panel bias", torch.float32, (N,))
+    if C > PANEL_MAX_C or C % 16 or N % 8:
+        raise ValueError(f"int8_panel: C={C} must be a multiple of 16 up to {PANEL_MAX_C}, "
+                         f"N={N} a multiple of 8")
+    if ln is not None:
+        if rule != RULE_F32:
+            raise ValueError("int8_panel: the LN prologue takes the f32 rule")
+        require(ln[0], "int8_panel ln scale", torch.float32, (C,))
+        require(ln[1], "int8_panel ln bias", torch.float32, (C,))
+    if mode not in (GEMM_QKV, GEMM_LINEAR) or (mode == GEMM_QKV and (residual is not None
+                                                                     or out_f32)):
+        raise ValueError("int8_panel: GEMM_QKV (bf16 out, no residual) or GEMM_LINEAR")
+    if residual is not None:
+        require(residual, "int8_panel residual", torch.bfloat16, (M, N))
+    tensors = (x, w, col_scale, bias, residual) + (tuple(ln) if ln is not None else ())
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
+        raise ValueError("int8_panel: every tensor must start at a 16-byte boundary")
+    out = torch.empty(M, N, dtype=torch.float32 if out_f32 else torch.bfloat16,
+                      device=x.device)
+    q = torch.empty(M, C, dtype=torch.int8, device=x.device) if codes else None
+    scale = torch.empty(M, dtype=torch.float32, device=x.device) if codes else None
+    stats = torch.empty(M, 2, dtype=torch.float32, device=x.device) \
+        if codes and ln is not None else None
+    if M:
+        launch("s3_int8_panel", x.data_ptr(), M, C, rule,
+               _ptr(ln[0] if ln is not None else None), _ptr(ln[1] if ln is not None else None),
+               LN_EPS, w.data_ptr(), N, col_scale.data_ptr(), bias.data_ptr(), _ptr(residual),
+               out.data_ptr(), mode, int(out_f32), _ptr(q), _ptr(scale), _ptr(stats),
+               stream_of(x))
+    return (out, q, scale, stats) if codes else out
+
+
+def int8_projection(x: torch.Tensor, w: torch.Tensor, col_scale: torch.Tensor,
+                    bias: torch.Tensor, *, ln=None, rule: int = RULE_F32,
+                    mode: int = GEMM_LINEAR, residual: torch.Tensor | None = None,
+                    out_f32: bool = False) -> torch.Tensor:
+    """`int8_panel`'s function at any row width, routed by shape (CUDA
+    only): rows up to PANEL_MAX_C wide take the panel kernel (one launch);
+    wider rows take `quant_rows` (RULE_F32, with the LN) or
+    `quant_rows_bf16` (RULE_CTX), then `gemm_s8` with the same epilogue."""
+    if rule == RULE_CTX and ln is not None:
+        raise ValueError("int8_projection: the LN prologue takes the f32 rule")
+    if x.shape[1] <= PANEL_MAX_C:
+        return int8_panel(x, w, col_scale, bias, ln=ln, rule=rule, mode=mode,
+                          residual=residual, out_f32=out_f32)
+    x8, xs = quant_rows_bf16(x) if rule == RULE_CTX else quant_rows(x, ln=ln)
+    return gemm_s8(x8, w, mode=mode, row_scale=xs, col_scale=col_scale, bias=bias,
+                   residual=residual, out_f32=out_f32)
 
 
 LN_GELU_OUT = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}  # csrc/ln_gelu.cu out kinds

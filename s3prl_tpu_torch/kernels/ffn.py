@@ -29,9 +29,11 @@ f32 output in the Pallas order (the last adds b2 [+ x]), and with
 K12 `fused_int8_linear` (ffn.py:238, pallas_call :216), the int8
 projection of the ``qkv_fuse`` and ``full_fuse`` options: [LN ->] row-quant
 -> int8 GEMM -> ((f32(acc) * xs) * ws + b) [+ residual] in f32, one cast.
-Two launches: `csrc/quant_rows.cu` (the f32 LN prologue, unrounded, then
-the f32 quantizer, as K2's) and `csrc/gemm_s8.cu` (the linear epilogue,
-never K1's triple-rounding QKV one, whatever N is).
+One launch of `csrc/int8_panel.cu` (`int8_projection`): a block keeps 128
+whole rows on chip, runs the f32 LN prologue (unrounded) and the f32
+quantizer there, as the Pallas cell does, and the linear epilogue (never
+K1's triple-rounding QKV one, whatever N is). Rows wider than PANEL_MAX_C
+take `csrc/quant_rows.cu` + `csrc/gemm_s8.cu`.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.quant import as_quantized_cols, int_mm, quantize_rows
-from ._common import (GEMM_LINEAR, gelu_tanh, gemm, gemm_s8, layer_norm,
+from ._common import (GEMM_LINEAR, gelu_tanh, gemm, gemm_s8, int8_projection, layer_norm,
                       layer_norm_f32, on_cpu, quant_rows, refuse_grad, require)
 
 CHUNK = 2048  # FFN columns per chunk when the FFN is wider than 3072 (ffn.py:50)
@@ -219,8 +221,9 @@ def fused_int8_linear(x, w, b, ln=None, residual=None):
     w: the cached (codes [N, C] int8, scales [N] f32) pair in nn.Linear
     layout (a raw weight is quantized here); b [N] and ln = (scale [C], bias
     [C]) f32; residual [B, T, N]. CPU tensors run the plain version; CUDA
-    tensors launch `csrc/quant_rows.cu` and `csrc/gemm_s8.cu`, which take
-    bf16 x and residual, C a multiple of 16 and N of 8. Forward-only."""
+    tensors launch `csrc/int8_panel.cu` (C <= PANEL_MAX_C; wider rows
+    `csrc/quant_rows.cu` and `csrc/gemm_s8.cu`), which take bf16 x and
+    residual, C a multiple of 16 and N of 8. Forward-only."""
     wq, ws = as_quantized_cols(w)
     tensors = ((x, wq, ws, b) + (tuple(ln) if ln is not None else ())
                + ((residual,) if residual is not None else ()))
@@ -234,9 +237,8 @@ def fused_int8_linear(x, w, b, ln=None, residual=None):
         require(residual, "residual", torch.bfloat16, (B, T, N))
     refuse_grad("K12 fused_int8_linear", *tensors)
     with torch.cuda.device(x.device):
-        x8, xs = quant_rows(x.view(B * T, C), ln=ln)
-        y = gemm_s8(x8, wq, mode=GEMM_LINEAR, row_scale=xs, col_scale=ws, bias=b,
-                    residual=residual.view(B * T, N) if residual is not None else None)
+        y = int8_projection(x.view(B * T, C), wq, ws, b, ln=ln,
+                            residual=residual.view(B * T, N) if residual is not None else None)
     fused_int8_linear.launches += 1
     return y.view(B, T, N)
 

@@ -19,17 +19,22 @@ device memory (fusing them is later work):
 4. `csrc/gemm_bf16.cu`: out-proj + bo + x; with ``postnorm`` the sum stays
    f32 and `csrc/layernorm.cu` writes LN(sum) in bf16.
 
-K1, int8 (the serving default), the same four steps on int8 GEMMs with
-the Pallas kernel's dynamic per-row scales and cast points:
+K1, int8 (the serving default), three launches with the Pallas kernel's
+dynamic per-row scales and cast points, its two projections on the int8
+panel kernel (`csrc/int8_panel.cu`, `int8_projection`), which keeps 128
+whole rows on chip and quantizes them there, as the Pallas cell does:
 
-1. `csrc/quant_rows.cu`: [LN(x) in f32 ->] per-row int8 codes and scales;
-2. `csrc/gemm_s8.cu`: QKV = bf16(bf16(bf16(acc) * bf16(s_x * ws)) + bf16(bq))
-   [B*T, 3C] (flash_attention.py:537-544);
-3. `csrc/gated_attention.cu` packed (K1's default attention math is K4's,
+1. `csrc/int8_panel.cu`: [LN(x) in f32 ->] per-row int8 codes and scales,
+   QKV = bf16(bf16(bf16(acc) * bf16(s_x * ws)) + bf16(bq)) [B*T, 3C]
+   (flash_attention.py:512-544);
+2. `csrc/gated_attention.cu` packed (K1's default attention math is K4's,
    :564-588);
-4. `csrc/quant_rows.cu`: the context's per-row codes in bf16 (:605-611),
-   then `csrc/gemm_s8.cu`: f32(acc) * s_a * wos + bo + x (:612-617); with
-   ``postnorm`` the sum stays f32 and `csrc/layernorm.cu` writes LN(sum).
+3. `csrc/int8_panel.cu`: the context's per-row codes in bf16 (:605-611),
+   f32(acc) * s_a * wos + bo + x (:612-617); with ``postnorm`` the sum
+   stays f32 and `csrc/layernorm.cu` writes LN(sum).
+
+Rows wider than PANEL_MAX_C take `csrc/quant_rows.cu` + `csrc/gemm_s8.cu`
+for each projection.
 
 Parity is held at each function's boundary. Sequences beyond MAX_BLOCK_T
 frames go to the long-utterance kernels below; the encoder layer routes
@@ -82,9 +87,9 @@ import torch.nn.functional as F
 
 from ..ops.quant import as_quantized_cols, int8_matmul, int_mm, quantize_rows
 from ._build import launch
-from ._common import (GEMM_LINEAR, GEMM_QKV, gemm, gemm_s8, layer_norm,
-                      layer_norm_f32, on_cpu, quant_rows, quant_rows_bf16,
-                      refuse_grad, require, stream_of)
+from ._common import (GEMM_LINEAR, GEMM_QKV, RULE_CTX, gemm, gemm_s8, int8_projection,
+                      layer_norm, layer_norm_f32, on_cpu, quant_rows, refuse_grad, require,
+                      stream_of)
 
 MAX_BLOCK_T = 512  # whole-block cells serve T <= 512 (TPU VMEM bound, kept as the routing rule)
 MAX_KERNEL_T = 2048  # K6/K7 serve T <= 2048, K8 beyond (the JAX package's routing rule)
@@ -275,12 +280,11 @@ def fused_attention_block(x, wq, bq, ln, wo, bo, kv_lens, num_heads: int,
     refuse_grad("K1 fused_attention_block", *tensors)
     with torch.cuda.device(x.device):
         x2 = x.view(B * T, C)
-        x8, s_x = quant_rows(x2, ln=None if postnorm else ln)
-        qkv = gemm_s8(x8, wq_q, mode=GEMM_QKV, row_scale=s_x, col_scale=wq_s, bias=bq)
+        qkv = int8_projection(x2, wq_q, wq_s, bq, ln=None if postnorm else ln,
+                              mode=GEMM_QKV)
         attn = _attention(qkv.view(B, T, 3 * C), kv_lens, num_heads)
-        a8, s_a = quant_rows_bf16(attn)
-        y = gemm_s8(a8, wo_q, mode=GEMM_LINEAR, row_scale=s_a, col_scale=wo_s, bias=bo,
-                    residual=x2, out_f32=postnorm)
+        y = int8_projection(attn, wo_q, wo_s, bo, rule=RULE_CTX, residual=x2,
+                            out_f32=postnorm)
         if postnorm:
             y = layer_norm(y, ln[0], ln[1])
     fused_attention_block.launches += 1

@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from s3prl_tpu_torch.kernels import _common
+from s3prl_tpu_torch.kernels import _build, _common
 from s3prl_tpu_torch.kernels.conv_frontend import (
     conv0_ln_gelu, conv0_ln_gelu_q8, conv0_ln_gelu_q8_reference, conv0_ln_gelu_reference,
     conv_gemm_weight, fused_conv_ln_gelu, fused_conv_ln_gelu_reference, fused_int8_conv_ln_gelu,
@@ -904,6 +904,132 @@ def test_k12_kernel(dev, ln, residual):
     assert fused_int8_linear.launches == before + 1
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, T, N)
     _close_bf16(got, fused_int8_linear_reference(x, w, b, ln=norm, residual=res))
+
+
+# csrc/int8_panel.cu's sets: (row rule, LN, epilogue, residual, f32 out) of
+# K1's QKV (pre-LN, postnorm) and out-proj (bf16 out, postnorm's f32 sum)
+# and K12's two main-path sets
+PANEL_SETS = {"k1-qkv-ln": ("f32", True, "qkv", False, False),
+              "k1-qkv-postnorm": ("f32", False, "qkv", False, False),
+              "k1-outproj": ("ctx", False, "linear", True, False),
+              "k1-outproj-f32": ("ctx", False, "linear", True, True),
+              "k12-ln": ("f32", True, "linear", False, False),
+              "k12-res": ("f32", False, "linear", True, False)}
+
+
+@pytest.mark.parametrize("N", [8, 264, 1024, 3072])
+@pytest.mark.parametrize("M", [1, 127, 129, 32 * 499])
+@pytest.mark.parametrize("C", [768, 1024])
+def test_int8_panel_kernel(dev, C, M, N):
+    """The panel kernel alone, in every set of PANEL_SETS, on and beside its
+    128-row panel and 128-column tiles: in the test mode its codes and
+    scales equal quantize_context_reference's or quantize_rows' bit for bit
+    (with the LN, of the LN recomputed in f32 from the kernel's statistics,
+    which agree with torch's at rtol 1e-5: at a .5 tie torch's LN can put a
+    code one step apart, and K1's triple-rounded QKV one bf16 step past the
+    rule; `test_k1_k12_launches_by_row_width` and the wrapper tests hold
+    that against the plain versions); the output against the plain
+    projection of those codes (bf16 under the kernels' rule; f32 at atol
+    1e-4)."""
+    rng = np.random.RandomState(C + M + N)
+    x = _t(rng.randn(M, C) * 0.5, dev, torch.bfloat16)
+    (w8, ws), b = _qpair(rng, dev, C, N)
+    norm = _ln(rng, dev, C)
+    res = _t(rng.randn(M, N) * 0.5, dev, torch.bfloat16)
+    mean = x.float().mean(-1)
+    rstd = 1.0 / torch.sqrt(((x.float() - mean[:, None]) ** 2).mean(-1) + _common.LN_EPS)
+    bf = torch.bfloat16
+    for rule, ln, epi, with_res, out_f32 in PANEL_SETS.values():
+        got, q, s, stats = _common.int8_panel(
+            x, w8, ws, b, ln=norm if ln else None,
+            rule=_common.RULE_CTX if rule == "ctx" else _common.RULE_F32,
+            mode=_common.GEMM_QKV if epi == "qkv" else _common.GEMM_LINEAR,
+            residual=res if with_res else None, out_f32=out_f32, codes=True)
+        torch.cuda.synchronize()
+        if rule == "ctx":
+            xq, xs = quantize_context_reference(x)
+        elif ln:
+            torch.testing.assert_close(stats[:, 0], mean, rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(stats[:, 1], rstd, rtol=1e-5, atol=0)
+            xq, xs = quantize_rows((x.float() - stats[:, :1]) * stats[:, 1:]
+                                   * norm[0] + norm[1])
+        else:
+            xq, xs = quantize_rows(x)
+        assert torch.equal(q, xq) and torch.equal(s, xs[:, 0])
+        if epi == "qkv":
+            want = int_mm(xq, w8).to(bf) * (xs * ws).to(bf) + b.to(bf)
+        else:
+            want = int_mm(xq, w8).float() * xs * ws + b + (res.float() if with_res else 0)
+        assert got.shape == (M, N) and got.dtype == (torch.float32 if out_f32 else bf)
+        if out_f32:
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        else:
+            _close_bf16(got, want.to(bf))
+
+
+def _launched(monkeypatch, fn):
+    """The C entries fn() launches, in order (a spy on `launch` in the
+    modules that launch K1's and K12's kernels)."""
+    names = []
+
+    def spy(name, *args):
+        names.append(name)
+        return _build.launch(name, *args)
+
+    monkeypatch.setattr(_common, "launch", spy)
+    monkeypatch.setattr(fa, "launch", spy)
+    fn()
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    return names
+
+
+@pytest.mark.parametrize("C", [1024, 1280])
+def test_k1_k12_launches_by_row_width(dev, monkeypatch, C):
+    """At C <= PANEL_MAX_C K12 is one panel launch and K1 three (panel QKV,
+    the attention, panel out-proj; + the LN with postnorm); wider rows take
+    quant_rows.cu + gemm_s8.cu for each projection. Both routes against the
+    plain versions (C = 1,280: 20 heads of 64, 2 x 77 rows)."""
+    rng = np.random.RandomState(26)
+    B, T, H = 2, 77, C // 64
+    x = _t(rng.randn(B, T, C) * 0.5, dev, torch.bfloat16)
+    wq, bq = _qpair(rng, dev, C, 3 * C)
+    wo, bo = _qpair(rng, dev, C, C)
+    norm = _ln(rng, dev, C)
+    res = _t(rng.randn(B, T, C) * 0.5, dev, torch.bfloat16)
+    kv = torch.tensor([T, 40], dtype=torch.int32, device=dev)
+    panel, attn = "s3_int8_panel", "s3_qkv_attention"
+    wide = C > _common.PANEL_MAX_C
+    qkv_entries = ["s3_quant_rows", "s3_gemm_s8"] if wide else [panel]
+    out_entries = ["s3_quant_rows_bf16", "s3_gemm_s8"] if wide else [panel]
+    got = {}
+    assert _launched(monkeypatch, lambda: got.setdefault(
+        "ln", fused_int8_linear(x, wq, bq, ln=norm))) == qkv_entries
+    assert _launched(monkeypatch, lambda: got.setdefault(
+        "res", fused_int8_linear(x, wo, bo, residual=res))) == qkv_entries
+    _close_bf16(got["ln"], fused_int8_linear_reference(x, wq, bq, ln=norm))
+    _close_bf16(got["res"], fused_int8_linear_reference(x, wo, bo, residual=res))
+    for postnorm in (False, True):
+        y = {}
+        assert _launched(monkeypatch, lambda: y.setdefault("y", fused_attention_block(
+            x, wq, bq, norm, wo, bo, kv, H, postnorm=postnorm))) == (
+            qkv_entries + [attn] + out_entries + ["s3_layernorm"] * postnorm)
+        _close_bf16(y["y"], fused_attention_block_reference(x, wq, bq, norm, wo, bo, kv, H,
+                                                             postnorm=postnorm))
+
+
+def test_int8_panel_refuses_what_it_does_not_take(dev):
+    rng = np.random.RandomState(27)
+    x = _t(rng.randn(10, 1280) * 0.5, dev, torch.bfloat16)
+    (w8, ws), b = _qpair(rng, dev, 1280, 64)
+    with pytest.raises(ValueError):  # wider than the panel
+        _common.int8_panel(x, w8, ws, b)
+    (w8, ws), b = _qpair(rng, dev, 1024, 64)
+    with pytest.raises(TypeError):  # f32 x
+        _common.int8_panel(x[:, :1024].float().contiguous(), w8, ws, b)
+    with pytest.raises(ValueError):  # the LN takes the f32 rule
+        _common.int8_panel(x[:, :1024].contiguous(), w8, ws, b, ln=_ln(rng, dev, 1024),
+                           rule=_common.RULE_CTX)
 
 
 def test_fused_projection_wrappers_refuse_what_the_kernels_do_not_take(dev):

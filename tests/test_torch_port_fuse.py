@@ -112,6 +112,32 @@ def test_k12_plain_matches_interpreted_pallas(ln, residual, dtype):
     assert (codes_jax != codes_port).mean() <= 1e-3
 
 
+@pytest.mark.parametrize("ln,residual", [(True, False), (False, True)], ids=["ln", "res"])
+def test_k12_plain_matches_interpreted_pallas_at_the_panel_edges(ln, residual):
+    """HuBERT-Base's width C = 768, B * T = 202 rows (not a multiple of the
+    card kernel's 128-row panel) and N = 264 (not a multiple of its
+    128-column tiles), bf16: the card kernel's edges, held here through the
+    plain version that it is checked against on the card."""
+    rng = np.random.RandomState(5)
+    B, T, C, N = 2, 101, 768, 264
+    x = rng.randn(B, T, C).astype(np.float32) * 0.5
+    w = (rng.randn(C, N) / np.sqrt(C)).astype(np.float32)  # JAX layout [C, N]
+    b = (rng.randn(N) * 0.02).astype(np.float32)
+    g, be = (1 + 0.1 * rng.randn(C)).astype(np.float32), (0.1 * rng.randn(C)).astype(np.float32)
+    res = rng.randn(B, T, N).astype(np.float32) * 0.5
+    t = torch.from_numpy
+    want = jax_ffn.fused_int8_linear(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), jnp.asarray(b),
+        ln=(jnp.asarray(g), jnp.asarray(be)) if ln else None,
+        residual=jnp.asarray(res, jnp.bfloat16) if residual else None, interpret=True)
+    got = port_ffn.fused_int8_linear(
+        t(x).bfloat16(), t(w.T.copy()), t(b), ln=(t(g), t(be)) if ln else None,
+        residual=t(res).bfloat16() if residual else None)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, T, N)
+    assert _cos(_np(got), _np(want)) > 0.9999
+    np.testing.assert_allclose(_np(got), _np(want), atol=6.25e-2, rtol=0)
+
+
 # -- K11 ------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", DTYPES)

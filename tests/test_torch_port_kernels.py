@@ -237,6 +237,29 @@ def test_int8_attention_block_matches_pallas(postnorm):
     np.testing.assert_allclose(_np(got), _np(want), atol=INT8_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("postnorm", [False, True], ids=["preln", "postnorm"])
+def test_int8_attention_block_matches_pallas_at_c768(postnorm):
+    """K1 at HuBERT-Base's width (C = 768, 12 heads; postnorm is its block
+    order), B * T = 2 x 45 rows: the row width the card's panel kernel
+    holds besides 1,024, through the plain version it is checked against."""
+    B, T, C, H = 2, 45, 768, 12
+    x, wq, bq, wo, bo, g, be = _attn_inputs(4, B, T, C)
+    kv_lens = np.array([45, 17], np.int32)
+    jx, tx = _bf16_pair(x)
+    want = jax_int8_attn_block(jx, jnp.asarray(wq), jnp.asarray(bq),
+                               (jnp.asarray(g), jnp.asarray(be)), jnp.asarray(wo),
+                               jnp.asarray(bo), jnp.asarray(kv_lens), H,
+                               postnorm=postnorm, interpret=True)
+    t = torch.from_numpy
+    got = fused_attention_block(
+        tx, as_quantized_cols(t(wq.T.copy())), t(bq), (t(g), t(be)),
+        as_quantized_cols(t(wo.T.copy())), t(bo), t(kv_lens), H, postnorm=postnorm)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, T, C)
+    for i, n in enumerate(kv_lens):
+        assert _cos(_np(got)[i, :n], _np(want)[i, :n]) > 0.9995, i
+    np.testing.assert_allclose(_np(got), _np(want), atol=INT8_ATOL, rtol=0)
+
+
 def test_int8_attention_block_refuses_static_scales():
     x, wq, bq, wo, bo, g, be = _attn_inputs(2, 1, 8, 128)
     t = torch.from_numpy

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the GEMM blocks and K11 of one checkout of the PyTorch + CUDA port
+"""Times the GEMM blocks, K11 and K12 of one checkout of the PyTorch + CUDA port
 on one GPU, so that two commits can be compared on one card in one run.
 
     python3 tools/torch_kernel_ab.py [--root DIR] [--label NAME] [--out FILE]
@@ -9,13 +9,26 @@ are built into its own `build/`); by default the one holding this script.
 At the main paths' shapes, with inputs from seed 0, it times with CUDA
 events (mean of 10 after a warm-up, twice, averaged):
 - K4 `fused_attention_block_bf16` and K5 `fused_bf16_ffn`, pre-LN, at
-  B=32 x 499 frames, HuBERT-Large's widths, and the int8 twins that share
-  the GEMM skeleton, K1 `fused_attention_block` and K2 `fused_int8_ffn`;
+  B=32 x 499 frames, HuBERT-Large's widths, and the int8 twins, K1
+  `fused_attention_block` and K2 `fused_int8_ffn`;
+- K12 `fused_int8_linear` there in its two main-path sets: with the LN
+  into N = 3,072 (the QKV projection of ``full_fuse``/``qkv_fuse``) and
+  with the residual into N = 1,024 (the out-proj of ``full_fuse``);
+- K6 `fused_qkv_attention_outproj` at B=8 x 1,499 (its main path, 30 s);
 - K11 `gated_bias_attention_outproj` at B=32 x 499, WavLM-Large's widths,
   with a contiguous f32 pos_bias and with the ``wavlm_fuse`` model's rows
   padded to a multiple of 4 floats (null where the checkout refuses it);
 - K14 `fused_conv_ln_gelu` and K13b `fused_int8_conv_ln_gelu` (codes out but
-  in the last layer) over the six mid layers of B=32 x 10 s.
+  in the last layer) over the six mid layers of B=32 x 10 s;
+- K1's and K12's launches one by one, as the checkout makes them: on the
+  int8 panel kernel (panel QKV, the attention, panel out-proj; K12 one
+  panel launch), or, in a checkout without `_common.int8_panel`, on
+  quant_rows.cu + gemm_s8.cu (x-quant, QKV, the attention, context quant,
+  out-proj; K12 x-quant + GEMM), each stage fed the earlier stages' outputs;
+- with `--forwards`, ms per forward of HuBERT-Large int8 (`hub.load`, seed
+  0) by chip_smoke.py's protocol (chains of 5 and 15, best of 3, marginal)
+  at B=32 x 10 s and B=8 x 30 s: the default path, ``full_fuse`` at both,
+  ``qkv_fuse`` at 30 s (inert at 10 s).
 Prints one JSON line {"label", "root", "device", "power_limit", "ms": {...}}
 and appends it to `--out` when given. Run it for the parent and the change
 in turns (parent, change, change, parent) to compare them on one card.
@@ -50,16 +63,41 @@ def twice(fn):
     return (cuda_ms(fn) + cuda_ms(fn)) / 2
 
 
+def forwards(hub, dev, gen):
+    """ms per forward of HuBERT-Large int8 on its default path and the fused
+    projection options, chip_smoke.py's chain protocol."""
+    out = {}
+    for label, B, secs, paths in (("10 s", 32, 10, ("int8", "int8 full_fuse")),
+                                  ("30 s", 8, 30, ("int8", "int8 full_fuse",
+                                                   "int8 qkv_fuse"))):
+        n = secs * SR
+        wavs = torch.randn(B, n, generator=gen).to(dev)
+        lens = torch.full((B,), n, dtype=torch.long, device=dev)
+        for path in paths:
+            option = {p: True for p in path.split()[1:]}
+            up = hub.load("hubert_large_ll60k", dtype=torch.bfloat16, flash=True,
+                          quantize=True, device=dev, seed=0, **option)
+            best = {it: min(it * cuda_ms(lambda: up.apply_standardized(wavs, lens), it)
+                            for _ in range(3)) for it in (5, 15)}
+            out[f"forward HuBERT {path} B={B} x {label}"] = (best[15] - best[5]) / 10
+            del up
+        del wavs
+    return out
+
+
 def main():
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=here)
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--forwards", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: no CUDA device")
     sys.path.insert(0, os.path.abspath(args.root))
+    from s3prl_tpu_torch import hub
+    from s3prl_tpu_torch.kernels import _common as kc
     from s3prl_tpu_torch.kernels import conv_frontend as cf
     from s3prl_tpu_torch.kernels import ffn as k5
     from s3prl_tpu_torch.kernels import flash_attention as fa
@@ -92,6 +130,51 @@ def main():
             lambda: fa.fused_attention_block(x, wq8, bq, ln, wo8, bo, kv, H))
         ms["K2 fused_int8_ffn"] = twice(
             lambda: k5.fused_int8_ffn(x, w18, b1, w28, b2, ln=ln, residual=True))
+        res = rnd(B, T, C)
+        ms["K12 fused_int8_linear, LN, N=3072"] = twice(
+            lambda: k5.fused_int8_linear(x, wq8, bq, ln=ln))
+        ms["K12 fused_int8_linear, residual, N=1024"] = twice(
+            lambda: k5.fused_int8_linear(x, wo8, bo, residual=res))
+        x2, res2 = x.view(B * T, C), res.view(B * T, C)
+        if hasattr(kc, "int8_panel"):
+            qkv = kc.int8_panel(x2, *wq8, bq, ln=ln, mode=kc.GEMM_QKV)
+            attn = fa._attention(qkv.view(B, T, 3 * C), kv, H)
+            stages = {
+                "K1 stage QKV (int8_panel)":
+                    lambda: kc.int8_panel(x2, *wq8, bq, ln=ln, mode=kc.GEMM_QKV),
+                "K1 stage attention": lambda: fa._attention(qkv.view(B, T, 3 * C), kv, H),
+                "K1 stage out-proj (int8_panel)":
+                    lambda: kc.int8_panel(attn, *wo8, bo, rule=kc.RULE_CTX, residual=x2),
+                "K12 stage LN, N=3072 (int8_panel)": lambda: kc.int8_panel(x2, *wq8, bq, ln=ln),
+                "K12 stage residual, N=1024 (int8_panel)":
+                    lambda: kc.int8_panel(x2, *wo8, bo, residual=res2)}
+        else:
+            x8, xs = kc.quant_rows(x2, ln=ln)
+            qkv = kc.gemm_s8(x8, wq8[0], mode=kc.GEMM_QKV, row_scale=xs, col_scale=wq8[1],
+                             bias=bq)
+            attn = fa._attention(qkv.view(B, T, 3 * C), kv, H)
+            a8, a_s = kc.quant_rows_bf16(attn)
+            x8p, xsp = kc.quant_rows(x2)
+            stages = {
+                "K1 stage x-quant (LN + quant_rows)": lambda: kc.quant_rows(x2, ln=ln),
+                "K1 stage QKV (gemm_s8)": lambda: kc.gemm_s8(
+                    x8, wq8[0], mode=kc.GEMM_QKV, row_scale=xs, col_scale=wq8[1], bias=bq),
+                "K1 stage attention": lambda: fa._attention(qkv.view(B, T, 3 * C), kv, H),
+                "K1 stage context quant (quant_rows_bf16)": lambda: kc.quant_rows_bf16(attn),
+                "K1 stage out-proj (gemm_s8)": lambda: kc.gemm_s8(
+                    a8, wo8[0], mode=kc.GEMM_LINEAR, row_scale=a_s, col_scale=wo8[1], bias=bo,
+                    residual=x2),
+                "K12 stage LN, N=3072: x-quant (LN + quant_rows)":
+                    lambda: kc.quant_rows(x2, ln=ln),
+                "K12 stage LN, N=3072: GEMM (gemm_s8)": lambda: kc.gemm_s8(
+                    x8, wq8[0], mode=kc.GEMM_LINEAR, row_scale=xs, col_scale=wq8[1], bias=bq),
+                "K12 stage residual, N=1024: x-quant (quant_rows)": lambda: kc.quant_rows(x2),
+                "K12 stage residual, N=1024: GEMM (gemm_s8)": lambda: kc.gemm_s8(
+                    x8p, wo8[0], mode=kc.GEMM_LINEAR, row_scale=xsp, col_scale=wo8[1],
+                    bias=bo, residual=res2)}
+        for name, fn in stages.items():
+            ms[name] = twice(fn)
+        del stages, qkv, attn
         del wq, w1, w2, wq8, w18, w28
 
         qkv = rnd(B, T, 3 * C)
@@ -109,6 +192,12 @@ def main():
                 ms[name] = None
                 print(f"{name}: refused ({err})", flush=True)
         del qkv, forms
+        Tl = 1499  # K6 at B=8 x 30 s, its main path
+        qkv, xl = rnd(8, Tl, 3 * C), rnd(8, Tl, C, scale=0.5)
+        kvl = torch.tensor([Tl, Tl, (Tl * 5) // 8, 1] * 2, dtype=torch.int32, device=dev)
+        ms["K6 fused_qkv_attention_outproj, B=8 x 1499"] = twice(
+            lambda: fa.fused_qkv_attention_outproj(qkv, xl, wo8, bo, kvl, H))
+        del qkv, xl
 
         mid, mid8 = [], []
         for i, (k, Tm) in enumerate(MID):
@@ -122,6 +211,8 @@ def main():
             lambda: [cf.fused_conv_ln_gelu(*m) for m in mid])
         ms["K13b fused_int8_conv_ln_gelu, six layers"] = twice(
             lambda: [cf.fused_int8_conv_ln_gelu(*m[:5], emit_q8=m[5]) for m in mid8])
+    if args.forwards:
+        ms.update(forwards(hub, dev, gen))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     line = json.dumps({"label": args.label, "root": args.root,
