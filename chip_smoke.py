@@ -9,10 +9,11 @@ line is printed; each phase prints its seconds):
  2. build the CUDA kernels from csrc/ (into build/) and print the seconds;
     for the wgmma kernels - the attention (gated_attention.cu: K1, K4,
     K6-K11, K17; six instantiations), the int8 GEMM core (gemm_s8.cu: the
-    products of K2, K6, K11, K13b and of K1's and K12's wide-row route;
-    three), the int8 panel projection (int8_panel.cu: K1's and K12's
-    projections; two), the bf16 GEMM core (gemm_bf16.cu: K4's projections,
-    K5, K14; one) and K16a (posconv.cu; one) - print each instantiation's registers, stack and spills (ptxas -v,
+    products of K2, K11 and of K1's, K6's and K12's wide-row route; three),
+    the int8 panel projection (int8_panel.cu: K1's and K12's projections on
+    bf16 rows, K6's out-proj on f32 rows; three), K13b's conv (int8_conv.cu;
+    one), the bf16 GEMM core (gemm_bf16.cu: K4's projections, K5, K14; one)
+    and K16a (posconv.cu; one) - print each instantiation's registers, stack and spills (ptxas -v,
     nvcc.log) with any ptxas note that its wgmma were serialized, and its
     HGMMA / IGMMA (wgmma) count in the SASS (cuobjdump), then each kernel's
     dynamic shared memory and blocks per SM; fail unless each kernel has its
@@ -25,7 +26,10 @@ line is printed; each phase prints its seconds):
     both GELU modes, K1 pre-LN and postnorm, K2 in five flag sets at
     C=1024, F=4096 (two chunks) and postnorm at C=768, F=3072 (one chunk),
     K4, K5 (B=4 x 499 frames); K6 and K7 at B=4 x 1,499 frames and at
-    B=7 x 65 and 127 frames, K8 on [2, 16, 2999, 64] and [7, 16, 2049,
+    B=7 x 65 and 127 frames (and K6 at B=8 x 1,499 launching the packed
+    attention and one int8_panel.cu launch, the panel's codes and scales
+    on its f32 context bit-equal to quant_rows.cu's and quantize_rows'),
+    K8 on [2, 16, 2999, 64] and [7, 16, 2049,
     64], the B=7 cases with kv_lens on the 64-key tile edges (1, 63, 64,
     65, 127, 128, T); WavLM's K9 at B=4 x 499 and B=4 x 1,499 and K10 on
     [2, 16, 2999, 64], with a pos_bias from the bucket table in the main
@@ -130,7 +134,12 @@ line is printed; each phase prints its seconds):
     1,536: the overlapping im2col view, F.linear on a contiguous copy), with
     TFLOP/s. The
     front-end options' paths are timed at B=32 x 10 s, and every path's
-    feature extractor alone; K13a, K13b, K14 and K15 over the six mid
+    feature extractor alone; K13b in its test mode on the six mid layers of
+    B=32 x 10 s (the f32 tap sums bit-equal to the plain version's, codes,
+    scales and the last layer's bf16 rows bit-equal given the kernel's LN
+    statistics) and its peak device memory for one call at layer 1 beside
+    the per-tap route's f32 tap sum, which it must stay below; K13a, K13b,
+    K14 and K15 over the six mid
     layers of B=32 x 10 s (one launch of K13a) beside their plain versions,
     their bounds and the stock ops they replace (K3 tanh + quantize_rows;
     F.conv1d + F.layer_norm + cast + F.gelu; F.layer_norm + cast + F.gelu).
@@ -822,6 +831,96 @@ def check_q8_kernels(calls, max_err):
             del q, s, q_ref, s_ref, d
 
 
+def check_int8_conv_bits(inp):
+    """csrc/int8_conv.cu (K13b) in its test mode on each mid layer of `inp`
+    as the path runs it (codes out, bf16 rows in the last layer): the f32 tap
+    sum bit-equal to `fused_int8_conv_taps_reference`, the LN statistics at
+    rtol 1e-5 of torch's (summed in another order), and given them the codes
+    and scales (or bf16 rows) bit-equal to the plain LN -> erf GELU ->
+    quantize_rows (or cast). Then layer 1's peak device memory for one call
+    of the wrapper beside the f32 tap sum the per-tap route kept in device
+    memory (it must stay below)."""
+    from s3prl_tpu_torch.kernels import _common as kc
+    from s3prl_tpu_torch.kernels import conv_frontend as cf
+    from s3prl_tpu_torch.ops.quant import quantize_rows
+
+    B = inp["wav"].shape[0]
+    for i, m in enumerate(inp["mid"]):
+        what = f"int8_conv layer {i + 1} [{B}, {m['T']}, 512] k={m['k']}"
+        out, scale, acc, stats = cf.int8_conv(m["xq"], m["xs"], *m["taps"], *m["ln"],
+                                              emit_q8=not m["last"], sums=True)
+        want = cf.fused_int8_conv_taps_reference(m["xq"], m["xs"], m["taps"]).view(-1, 512)
+        torch.cuda.synchronize()
+        check(torch.equal(acc, want), f"{what}: the f32 tap sum is not bit-equal")
+        mean = want.mean(-1)
+        rstd = 1.0 / torch.sqrt(((want - mean[:, None]) ** 2).mean(-1) + kc.LN_EPS)
+        check(torch.allclose(stats[:, 0], mean, rtol=1e-5, atol=1e-6)
+              and torch.allclose(stats[:, 1], rstd, rtol=1e-5), f"{what}: LN statistics")
+        del want, mean, rstd
+        y = kc.ln_gelu_from_stats(acc, stats, *m["ln"])
+        if m["last"]:
+            check(torch.equal(out.view(-1, 512), y.to(torch.bfloat16)),
+                  f"{what}: bf16 rows not bit-equal given the kernel's statistics")
+        else:
+            q_ref, s_ref = quantize_rows(y)
+            check(torch.equal(out.view(-1, 512), q_ref) and torch.equal(scale.view(-1, 1), s_ref),
+                  f"{what}: codes and scales not bit-equal given the kernel's statistics")
+            del q_ref, s_ref
+        del out, scale, acc, stats, y
+    log(f"[kernel] int8_conv (K13b) on the six mid layers of B={B} x 10 s: the f32 tap sums "
+        "bit-equal to the plain version's, codes, scales and the last layer's bf16 rows "
+        "bit-equal given the kernel's LN statistics")
+    m = inp["mid"][0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = cf.fused_int8_conv_ln_gelu(m["xq"], m["xs"], m["taps"], *m["ln"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    t_out = (m["T"] - m["k"]) // 2 + 1
+    acc_bytes = B * t_out * 512 * 4
+    log(f"[memory] fused_int8_conv_ln_gelu (K13b) layer 1 [{B}, {m['T']}, 512]: peak device "
+        f"memory of one call {peak / 1e9:.4f} GB (its codes and scales "
+        f"{B * t_out * (512 + 4) / 1e9:.4f} GB), against {acc_bytes / 1e9:.4f} GB of f32 tap "
+        "sum that the per-tap route kept in device memory")
+    check(peak < acc_bytes, f"K13b layer 1 peak memory {peak} B, not below {acc_bytes} B")
+    del out
+
+
+def check_k6_panel(inp):
+    """K6 at C = 1,024 launches the packed attention and one panel launch on
+    its f32 context (no quant_rows.cu), and the panel's codes and scales
+    (test mode) on that context are bit-equal to quant_rows.cu's and
+    quantize_rows'; its out-proj against the plain f32 rule."""
+    from s3prl_tpu_torch.kernels import _common as kc
+    from s3prl_tpu_torch.kernels import flash_attention as fa
+    from s3prl_tpu_torch.ops.quant import quantize_rows
+
+    qkv, x, kv, H = inp["qkv"], inp["x"], inp["kv"], inp["H"]
+    B, T, C = x.shape
+    want = ["s3_qkv_attention", "s3_int8_panel"]
+    got = launched_entries(lambda: fa.fused_qkv_attention_outproj(qkv, x, inp["wo8"], inp["bo"],
+                                                                  kv, H))
+    check(got == want, f"K6 [{B}, {T}] launched {got}, not {want}")
+    ctx = fa._attention(qkv, kv, H, out_f32=True)
+    y, q, s, _ = kc.int8_panel(ctx, *inp["wo8"], inp["bo"], residual=x.view(B * T, C),
+                               codes=True)
+    q8, s8 = kc.quant_rows(ctx)
+    q_ref, s_ref = quantize_rows(ctx)
+    torch.cuda.synchronize()
+    check(torch.equal(q, q8) and torch.equal(s, s8) and torch.equal(q, q_ref)
+          and torch.equal(s, s_ref[:, 0]),
+          f"K6 [{B}, {T}]: the panel's codes and scales on the f32 context are not bit-equal")
+    want_y = kc.int8_panel_reference(ctx, *inp["wo8"], inp["bo"], residual=x.view(B * T, C))[0]
+    cos, err = compare(y, want_y)
+    check(cos > COS_KERNEL and within_tolerance(y, want_y) <= 1.0,
+          f"K6 [{B}, {T}] panel out-proj: cos {cos:.7f} max err {err:.3e}")
+    log(f"[kernel] K6 [{B}, {T}] launches {got}; the panel's codes and scales on its f32 "
+        f"context bit-equal to quant_rows.cu's and quantize_rows'; out-proj vs the plain f32 "
+        f"rule cos {cos:.7f} max_abs_err {err:.3e}")
+    del ctx, y, q, s, q8, s8, q_ref, s_ref, want_y
+
+
 def frontend_bound(name, inp):
     """The bound of front-end kernel `name` over all of `inp` (K13a on the
     waves; the others over the mid layers as the paths run them): conv
@@ -1260,9 +1359,10 @@ def check_panel_edges(gen, dev):
 
 def launched_entries(fn):
     """The C entries that fn() launches, in order (a spy on `launch` in the
-    two modules that launch K1's and K12's kernels)."""
+    modules that launch K1's, K6's, K12's and K13b's kernels)."""
     from s3prl_tpu_torch.kernels import _build
     from s3prl_tpu_torch.kernels import _common as kc
+    from s3prl_tpu_torch.kernels import conv_frontend as cf
     from s3prl_tpu_torch.kernels import flash_attention as fa
 
     names = []
@@ -1271,13 +1371,13 @@ def launched_entries(fn):
         names.append(name)
         return _build.launch(name, *args)
 
-    saved = kc.launch, fa.launch
-    kc.launch = fa.launch = spy
+    saved = kc.launch, fa.launch, cf.launch
+    kc.launch = fa.launch = cf.launch = spy
     try:
         fn()
         torch.cuda.synchronize()
     finally:
-        kc.launch, fa.launch = saved
+        kc.launch, fa.launch, cf.launch = saved
     return names
 
 
@@ -1337,7 +1437,7 @@ KERNELS = {  # wrapper -> (its main CUDA source, the TPU kernel it replaces)
     "fused_int8_linear": ("s3prl_tpu_torch/csrc/int8_panel.cu", "s3prl_tpu/kernels/ffn.py:216"),
     "conv0_ln_gelu_q8": ("s3prl_tpu_torch/csrc/conv0_ln_gelu.cu",
                          "s3prl_tpu/kernels/conv_frontend.py:177"),
-    "fused_int8_conv_ln_gelu": ("s3prl_tpu_torch/csrc/gemm_s8.cu",
+    "fused_int8_conv_ln_gelu": ("s3prl_tpu_torch/csrc/int8_conv.cu",
                                 "s3prl_tpu/kernels/conv_frontend.py:370"),
     "fused_conv_ln_gelu": ("s3prl_tpu_torch/csrc/gemm_bf16.cu",
                            "s3prl_tpu/kernels/conv_frontend.py:301"),
@@ -1467,10 +1567,12 @@ GATED_KINDS = ("no bias, split heads (K8, K17)", "bf16 bias (K9, K10)", "f32 bia
                "gated, packed, f32 bias, f32 out (K11)")
 # the wgmma kernels (their SASS names contain these) -> their instantiations:
 # the attention (K1, K4, K6-K11, K17), the int8 GEMM core (kRaw, kQkv, kLinear:
-# K2, K6, K11, K13b, and K1's and K12's wide-row route), the int8 panel
-# projection (kQkv, kLinear: K1, K12), the bf16 GEMM core (K4, K5, K14) and K16a
+# K2, K11, and K1's, K6's and K12's wide-row route), the int8 panel projection
+# (kQkv and kLinear on bf16 rows: K1, K12; kLinear on f32 rows: K6), K13b's
+# conv (int8_conv.cu), the bf16 GEMM core (K4, K5, K14) and K16a
 WGMMA_KERNELS = {"gated_attention_kernel": len(GATED_KINDS), "gemm_s8_kernel": 3,
-                 "int8_panel_kernel": 2, "gemm_bf16_kernel": 1, "posconv_bf16_kernel": 1}
+                 "int8_panel_kernel": 3, "int8_conv_kernel": 1, "gemm_bf16_kernel": 1,
+                 "posconv_bf16_kernel": 1}
 
 
 def wgmma_build_report(lib):
@@ -1524,6 +1626,7 @@ def wgmma_build_report(lib):
                for kind, what in enumerate(GATED_KINDS)]
     queries += [("gemm_s8_kernel", library.s3_gemm_s8_occupancy),
                 ("int8_panel_kernel", library.s3_int8_panel_occupancy),
+                ("int8_conv_kernel", library.s3_int8_conv_occupancy),
                 ("gemm_bf16_kernel", library.s3_gemm_bf16_occupancy),
                 ("posconv_bf16_kernel, k = 128",
                  lambda s, b: library.s3_posconv_occupancy(128, s, b))]
@@ -1640,6 +1743,7 @@ def main():
         check_kernels(long_kernel_calls(
             [inp_long, *(long_inputs(7, T, gen, dev, edges=True) for T in (65, 127))],
             [inp8, long_inputs(7, 2049, gen, dev, edges=True)]), max_err)
+        check_k6_panel(long_inputs(8, 1499, gen, dev))
         check_kernels(gated_kernel_calls(
             [gated_inputs(4, 499, gen, dev), gated_inputs(4, 1499, gen, dev),
              gated_inputs(4, 499, gen, dev, form="f32"),
@@ -1903,7 +2007,10 @@ def main():
                          f"(10 s: B=32; 60 s: B=4; {form} bias)",
                          entries if form == "bf16" else {}, launches, max_err)
             del inp9, inp10
-        time_frontend(frontend_inputs(32, gen, dev), entries, launches, max_err)
+        inp_fe = frontend_inputs(32, gen, dev)
+        check_int8_conv_bits(inp_fe)
+        time_frontend(inp_fe, entries, launches, max_err)
+        del inp_fe
         inp16 = posconv_inputs(32, 499, gen, dev)
         time_kernels(posconv_calls([inp16]), {"pos_conv_gelu": inp16, "pos_conv_gelu_q8": inp16},
                      "B=32", entries, launches, max_err)

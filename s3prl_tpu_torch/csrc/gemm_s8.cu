@@ -3,8 +3,8 @@
 //   acc[m, n] = sum_k a[m, k] * w[n, k]
 // a [M, K] int8 with row stride lda, in row groups: row m = (g, r) = (m /
 // a_rows, m % a_rows) starts at a + g * a_gstride + r * lda (one group of M
-// rows is a plain matrix; a conv tap reads its stride-2 rows straight from
-// x [B, T, C] as B groups of T' rows with lda = 2C), w [N, K] int8 with row
+// rows is a plain matrix; a stride-2 conv tap's rows of x [B, T, C] are B
+// groups of T' rows with lda = 2C), w [N, K] int8 with row
 // stride ldw (nn.Linear layout; a K range of a wider matrix is a pointer
 // offset plus its row stride), then per output element one of
 //   kRaw     out int32 = acc;
@@ -13,22 +13,20 @@
 //            [v = gelu_tanh(v)]; [v = v + f32(res[m, n])]; out f32 or bf16.
 // rs are per-row activation scales, cs per-output-channel weight scales.
 //
-// Serves every int8 product that the Pallas kernels compute in their own
-// bodies:
+// Serves the int8 products that the Pallas kernels compute in their own
+// bodies and that neither int8_panel.cu nor int8_conv.cu (K13b) takes:
 //   - `fused_attention_block` (s3prl_tpu/kernels/flash_attention.py:664,
 //     pallas_call at :633): the QKV GEMM with its three bf16 roundings
 //     (kQkv, :537-544) and the out-proj with scale, bias and residual in f32
-//     (kLinear, :615-621; f32 out when the postnorm LN follows); K6's
-//     out-proj (:413) and K11's (:629);
+//     (kLinear, :615-621; f32 out when the postnorm LN follows) for rows
+//     wider than int8_panel.cu takes; K11's out-proj (:629), and K6's (:413)
+//     for rows wider than the panel;
 //   - `fused_int8_ffn` (s3prl_tpu/kernels/ffn.py:160, pallas_call at :129):
 //     fc1 with scale, bias and tanh GELU in f32 (kLinear + gelu, :94-99), and
 //     fc2 once per FFN chunk, each adding its dequantized sum to the f32
 //     running output (kLinear + acc_in, :101-105); the last chunk adds b2 and
-//     x (:106-109); K12 `fused_int8_linear` (:238);
-//   - `fused_int8_conv_ln_gelu` (conv_frontend.py:325, pallas_call at :370):
-//     one launch per conv tap, each adding (f32(acc) * rs) * ws to the f32
-//     sum of the taps before it in tap order (kLinear + acc_in, :219-235);
-//     ln_gelu.cu then normalises and requantizes.
+//     x (:106-109); K12 `fused_int8_linear` (:238) for rows wider than the
+//     panel.
 // int32 sums are exact in any order, so kRaw equals torch._int_mm bit for
 // bit. Every f32 operation of the epilogues is an explicit __fmul_rn /
 // __fadd_rn, so none is contracted into an FMA and each rounds in the order

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
-// (gated_attention.cu, gemm_s8.cu, gemm_bf16.cu, posconv.cu): mbarriers, TMA
-// tensor-map loads, the 128-byte-swizzle wgmma descriptor, the wgmma fences
-// and products, the host-side cuTensorMapEncodeTiled lookup, and the
-// persistent GEMM skeleton that the int8 and bf16 GEMMs share (namespace
-// s3::gemm, at the end).
+// (gated_attention.cu, gemm_s8.cu, gemm_bf16.cu, int8_panel.cu,
+// int8_conv.cu, posconv.cu): mbarriers, TMA tensor-map loads, the
+// 128-byte-swizzle wgmma descriptor, the wgmma fences and products, the
+// host-side cuTensorMapEncodeTiled lookup, the persistent GEMM skeleton that
+// the int8 and bf16 GEMMs share (namespace s3::gemm), and the int8 product
+// on 128-column tiles (at the end).
 #pragma once
 
 #include <cuda.h>
@@ -444,5 +445,26 @@ inline cudaError_t occupancy(Kernel kernel, int* smem_bytes, int* blocks_per_sm)
 }
 
 }  // namespace gemm
+
+// ---- int8 products on 128-column tiles (int8_panel.cu, int8_conv.cu) ----
+
+#define S3_ACC64                                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "       \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "       \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define S3_OUT64(c, d)                                                                    \
+  S3_D8(c, d, 0), S3_D8(c, d, 8), S3_D8(c, d, 16), S3_D8(c, d, 24), S3_D8(c, d, 32),     \
+      S3_D8(c, d, 40), S3_D8(c, d, 48), S3_D8(c, d, 56)
+
+// d (+)= A B over 32 bytes of K: A [64 rows, 32 bytes] and B [128 columns,
+// 32 bytes], both K-major in shared memory, int8 in, exact int32 sums.
+__device__ __forceinline__ void wgmma_n128(int (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " S3_ACC64 ", %64, %65, p;\n}\n"
+      : S3_OUT64("+r", d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 }  // namespace s3

@@ -1,10 +1,11 @@
-// The int8 projections of K1 `fused_attention_block` and K12
-// `fused_int8_linear` as one kernel: a block keeps a panel of up to 128
-// whole rows of its bf16 input on chip, quantizes it there, and runs the
-// panel against the int8 weight with the dequantizing epilogue overlapped:
+// The int8 projections of K1 `fused_attention_block`, K12
+// `fused_int8_linear` and K6's out-proj as one kernel: a block keeps a panel
+// of up to 128 whole rows of its input on chip, quantizes it there, and runs
+// the panel against the int8 weight with the dequantizing epilogue overlapped:
 //   out[m, n] = epilogue(sum_k q[m, k] * w[n, k], rs[m], cs[n], bias[n][, res[m, n]])
-// x [M, C] bf16 (C <= 1,024, a multiple of 16), w [N, C] int8 codes with
-// per-output-channel scales cs [N] (nn.Linear layout), bias [N] f32.
+// x [M, C] bf16, or f32 for K6's context (C <= 1,024, a multiple of 16), w
+// [N, C] int8 codes with per-output-channel scales cs [N] (nn.Linear
+// layout), bias [N] f32.
 //
 // Replaces, on the card, what the Pallas kernels compute in their cells:
 //   - `fused_attention_block` (s3prl_tpu/kernels/flash_attention.py:664,
@@ -15,12 +16,17 @@
 //     when the postnorm LN follows, then layernorm.cu);
 //   - `fused_int8_linear` (s3prl_tpu/kernels/ffn.py:238, pallas_call at
 //     :216): [LN ->] row quantization -> int8 GEMM -> + b [+ residual]
-//     (kLinear, :185-197).
+//     (kLinear, :185-197);
+//   - `fused_qkv_attention_outproj` (s3prl_tpu/kernels/flash_attention.py:
+//     338, pallas_call at :312): the f32 context's row quantization
+//     (:287-289) and the out-proj ((f32(acc) * s) * wos + bo) + residual
+//     (kLinear, :290-294), on f32 rows (the third instantiation).
 // Wider rows (C > 1,024) do not fit the panel; the wrappers send them to
 // quant_rows.cu + gemm_s8.cu by shape (`PANEL_MAX_C`, kernels/_common.py).
 //
 // The two row rules of quant_rows.cu, operation for operation:
-//   f32 (quant_rows_kernel; `quantize_rows` on the CPU): [v = LN(x) in f32,
+//   f32 (quant_rows_kernel; `quantize_rows` on the CPU; bf16 or f32 rows,
+//     the LN on bf16 rows only): [v = LN(x) in f32,
 //     1 / sqrtf IEEE-rounded, the affine as (x - mean) * rstd * g + b in
 //     __fmul_rn / __fadd_rn ->] s = max(absmax, 1e-8) / 127, q =
 //     clip(rint(v / s)), true division;
@@ -47,9 +53,10 @@
 //     eight 128-byte K boxes of 128 rows in the 128-byte swizzle, the layout
 //     the TMA A boxes of gemm_s8.cu have, so the wgmma descriptors of A point
 //     straight into it (desc128). x is read once, 16 bytes a lane (a
-//     1,024-wide row is 64 bytes a lane, held in registers), by all twelve
-//     warps before the producer warpgroup gives its registers away, two rows
-//     a warp in flight and the next two loaded before these are quantized;
+//     1,024-wide bf16 row is 64 bytes a lane, held in registers), by all
+//     twelve warps before the producer warpgroup gives its registers away,
+//     two bf16 rows a warp in flight and the next two loaded before these
+//     are quantized (f32 rows, 128 bytes a lane: one and the next one);
 //     the LN scale and bias are staged in shared memory. Meanwhile the
 //     producer thread has filled the ring's first stages.
 //   - N tiles of 128 columns: a 128 x 128 x 128-byte W box is 16 KB, so a
@@ -111,7 +118,6 @@ constexpr int kCC = 32;               // columns a warp stages at a time
 constexpr int kStgStride = kCC + 4;   // words a staging row
 constexpr int kStgWarp = 16 * kStgStride * 4;
 constexpr int kGroups = kMaxC / 256;  // 8-column groups a lane holds (columns 256 i + 8 lane)
-constexpr int kRowsInFlight = 2;      // rows a warp loads at once in the prologue
 
 constexpr int kRingOff = kBM * kMaxC;
 constexpr int kStgOff = kRingOff + kStages * kWBox;
@@ -126,7 +132,7 @@ constexpr int kBarOrder = 1;     // + w: warpgroup w may start its next main loo
 constexpr int kBarGroup = 3;     // + w: warpgroup w alone
 
 struct Params {
-  const bf16* x;
+  const void* x;       // [M, C] bf16, or f32 (the f32 rule without the LN)
   int M, C, rule;
   const float* gamma;  // LN scale [C] or null (the f32 rule only)
   const float* beta;
@@ -156,25 +162,6 @@ __device__ __forceinline__ void fence_async_shared() {
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-#define S3_ACC64                                                                           \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "       \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "       \
-  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-#define S3_OUT64(c, d)                                                                    \
-  S3_D8(c, d, 0), S3_D8(c, d, 8), S3_D8(c, d, 16), S3_D8(c, d, 24), S3_D8(c, d, 32),     \
-      S3_D8(c, d, 40), S3_D8(c, d, 48), S3_D8(c, d, 56)
-
-// d (+)= A B over 32 bytes of K: A [64 rows, 32 bytes] and B [128 columns,
-// 32 bytes], both K-major in shared memory, int8 in, exact int32 sums.
-__device__ __forceinline__ void wgmma_n128(int (&d)[64], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " S3_ACC64 ", %64, %65, p;\n}\n"
-      : S3_OUT64("+r", d)
-      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // Byte offset in the panel of code (row r, column c), c a multiple of 8:
@@ -261,48 +248,72 @@ __device__ __forceinline__ float quantize_row(float (&v)[8 * kGroups], const Par
 
 // The prologue, on all twelve warps of the block: warp `warp` quantizes
 // panel rows warp, warp + 12, ... into the panel and their scales into rs
-// (rows past M get zero codes), kRowsInFlight rows at a time, the next rows'
-// loads issued before these rows' arithmetic. `ln`: the LN scale and bias in
-// shared memory.
-__device__ __forceinline__ void load_rows(uint4 (&raw)[kRowsInFlight][kGroups], const Params& p,
-                                          int row0, int r0, int lane) {
+// (rows past M get zero codes), Rows<TX>::kInFlight rows at a time, the next
+// rows' loads issued before these rows' arithmetic: a lane holds 8 columns
+// of each of the row's kGroups 256-column groups, one 16-byte load a group
+// for bf16 rows and two for f32 rows (K6's f32 context), so both keep 32
+// registers of raw rows in flight beside the 32 of the next ones (more
+// spilled). `ln`: the LN scale and bias in shared memory.
+template <typename TX>
+struct Rows {
+  static constexpr int kVecs = sizeof(TX) / 2;         // 16-byte loads per 8 columns
+  static constexpr int kInFlight = 2 / kVecs;          // rows a warp loads at once
+  static constexpr int kLoads = kGroups * kVecs;       // 16-byte loads a lane a row
+};
+
+template <typename TX>
+__device__ __forceinline__ void load_rows(uint4 (&raw)[Rows<TX>::kInFlight][Rows<TX>::kLoads],
+                                          const Params& p, int row0, int r0, int lane) {
+  using R = Rows<TX>;
   constexpr int kWarps = kThreads / 32;
+  const TX* x = static_cast<const TX*>(p.x);
 #pragma unroll
-  for (int t = 0; t < kRowsInFlight; ++t) {
+  for (int t = 0; t < R::kInFlight; ++t) {
     const long long m = row0 + r0 + t * kWarps;
 #pragma unroll
-    for (int i = 0; i < kGroups; ++i) {
-      const int c = 256 * i + 8 * lane;
+    for (int i = 0; i < R::kLoads; ++i) {
+      const int c = 256 * (i / R::kVecs) + 8 * lane + 4 * (i % R::kVecs);
       raw[t][i] = r0 + t * kWarps < kBM && m < p.M && c < p.C
-                      ? __ldg(reinterpret_cast<const uint4*>(p.x + m * p.C + c))
+                      ? __ldg(reinterpret_cast<const uint4*>(x + m * p.C + c))
                       : make_uint4(0, 0, 0, 0);
     }
   }
 }
 
+// The 8 columns of group i of a row's raw loads as floats.
+__device__ __forceinline__ void unpack8(const uint4* raw, float* v, const bf16*) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    v[2 * e] = f.x, v[2 * e + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void unpack8(const uint4* raw, float* v, const float*) {
+  const float* f = reinterpret_cast<const float*>(raw);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = f[e];
+}
+
+template <typename TX>
 __device__ __forceinline__ void prologue(const Params& p, int row0, int warp, int lane,
                                          unsigned char* panel, float* rs, const float* ln,
                                          bool test) {
-  constexpr int kWarps = kThreads / 32, kStep = kRowsInFlight * kWarps;
-  uint4 raw[kRowsInFlight][kGroups], next[kRowsInFlight][kGroups];
-  load_rows(raw, p, row0, warp, lane);
+  using R = Rows<TX>;
+  constexpr int kWarps = kThreads / 32, kStep = R::kInFlight * kWarps;
+  uint4 raw[R::kInFlight][R::kLoads], next[R::kInFlight][R::kLoads];
+  load_rows<TX>(raw, p, row0, warp, lane);
   for (int r0 = warp; r0 < kBM; r0 += kStep) {
-    if (r0 + kStep < kBM) load_rows(next, p, row0, r0 + kStep, lane);
+    if (r0 + kStep < kBM) load_rows<TX>(next, p, row0, r0 + kStep, lane);
 #pragma unroll
-    for (int t = 0; t < kRowsInFlight; ++t) {
+    for (int t = 0; t < R::kInFlight; ++t) {
       const int r = r0 + t * kWarps;
       if (r >= kBM) continue;
       const long long m = row0 + r;
       float v[8 * kGroups];
 #pragma unroll
-      for (int i = 0; i < kGroups; ++i) {
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw[t][i]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(h[e]);
-          v[8 * i + 2 * e] = f.x, v[8 * i + 2 * e + 1] = f.y;
-        }
-      }
+      for (int i = 0; i < kGroups; ++i)
+        unpack8(&raw[t][i * R::kVecs], v + 8 * i, static_cast<const TX*>(nullptr));
       if (m < p.M) {
         const float s = quantize_row(v, p, ln, lane, r, m, panel, test);
         if (lane == 0) rs[r] = s;
@@ -314,9 +325,9 @@ __device__ __forceinline__ void prologue(const Params& p, int row0, int warp, in
       }
     }
 #pragma unroll
-    for (int t = 0; t < kRowsInFlight; ++t)
+    for (int t = 0; t < R::kInFlight; ++t)
 #pragma unroll
-      for (int i = 0; i < kGroups; ++i) raw[t][i] = next[t][i];
+      for (int i = 0; i < R::kLoads; ++i) raw[t][i] = next[t][i];
   }
 }
 
@@ -421,7 +432,7 @@ __device__ __forceinline__ void epilogue_part(const int (&acc)[64], const uint4 
   }
 }
 
-template <int kMode>
+template <int kMode, typename TX>
 __global__ void __launch_bounds__(kThreads, 1)
     int8_panel_kernel(const __grid_constant__ CUtensorMap tm_w, const Params p) {
   extern __shared__ unsigned char smem_raw[];
@@ -463,7 +474,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int first = stages < kStages ? stages : kStages;
   if (tid == 256) produce(0, first);  // the ring fills while the panel is quantized
 
-  prologue(p, row0, tid / 32, lane, panel, rs, ln, p.q_out != nullptr && split == 0);
+  prologue<TX>(p, row0, tid / 32, lane, panel, rs, ln, p.q_out != nullptr && split == 0);
   fence_async_shared();
   __syncthreads();
 
@@ -526,9 +537,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int kMode>
+template <int kMode, typename TX>
 int launch(const CUtensorMap& tm_w, const Params& p, int grid, cudaStream_t stream) {
-  auto kernel = int8_panel_kernel<kMode>;
+  auto kernel = int8_panel_kernel<kMode, TX>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -539,10 +550,10 @@ int launch(const CUtensorMap& tm_w, const Params& p, int grid, cudaStream_t stre
 }  // namespace
 
 // Dynamic shared memory of a block and blocks resident per SM (the kLinear
-// instantiation; the two share their layout).
+// instantiation on bf16 rows; the three share their layout).
 extern "C" int s3_int8_panel_occupancy(int* smem_bytes, int* blocks_per_sm) {
   *smem_bytes = kSmemBytes;
-  auto kernel = int8_panel_kernel<kLinear>;
+  auto kernel = int8_panel_kernel<kLinear, bf16>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err == cudaSuccess)
@@ -551,15 +562,18 @@ extern "C" int s3_int8_panel_occupancy(int* smem_bytes, int* blocks_per_sm) {
   return static_cast<int>(err);
 }
 
-// x [M, C] bf16 -> out [M, N] (see the top of the file). rule: 0 f32 (the LN
-// prologue when gamma is given), 1 ctx. mode: 1 kQkv, 2 kLinear. q_out /
-// s_out / stats_out: the test mode's codes, scales and LN statistics, or null.
-extern "C" int s3_int8_panel(const void* x, int M, int C, int rule, const void* gamma,
+// x [M, C] bf16 (or f32 with x_is_f32: the f32 rule without the LN, kLinear)
+// -> out [M, N] (see the top of the file). rule: 0 f32 (the LN prologue when
+// gamma is given), 1 ctx. mode: 1 kQkv, 2 kLinear. q_out / s_out /
+// stats_out: the test mode's codes, scales and LN statistics, or null.
+extern "C" int s3_int8_panel(const void* x, int x_is_f32, int M, int C, int rule,
+                             const void* gamma,
                              const void* beta, float eps, const void* w, int N, const void* cs,
                              const void* bias, const void* res, void* out, int mode, int out_f32,
                              void* q_out, void* s_out, void* stats_out, void* stream) {
   if (M <= 0 || C <= 0 || C > kMaxC || C % 16 || N <= 0 || N % 8 ||
-      (rule != kRuleF32 && rule != kRuleCtx) || (rule == kRuleCtx && gamma != nullptr))
+      (rule != kRuleF32 && rule != kRuleCtx) || (rule == kRuleCtx && gamma != nullptr) ||
+      (x_is_f32 && (rule != kRuleF32 || gamma != nullptr || mode != kLinear)))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tm_w;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(N)};
@@ -572,7 +586,7 @@ extern "C" int s3_int8_panel(const void* x, int M, int C, int rule, const void* 
   const int panels = (M + kBM - 1) / kBM, n_tiles = (N + kBN - 1) / kBN;
   const int fit = sms / panels, pairs = (n_tiles + 1) / 2;
   const int splits = fit < 1 ? 1 : (fit < pairs ? fit : pairs);
-  const Params p{static_cast<const bf16*>(x), M, C, rule,
+  const Params p{x, M, C, rule,
                  static_cast<const float*>(gamma), static_cast<const float*>(beta), eps,
                  N, (C + kBK - 1) / kBK, n_tiles, splits,
                  static_cast<const float*>(cs), static_cast<const float*>(bias),
@@ -581,8 +595,10 @@ extern "C" int s3_int8_panel(const void* x, int M, int C, int rule, const void* 
                  static_cast<float*>(stats_out)};
   auto s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kQkv: return launch<kQkv>(tm_w, p, panels * splits, s);
-    case kLinear: return launch<kLinear>(tm_w, p, panels * splits, s);
+    case kQkv: return launch<kQkv, bf16>(tm_w, p, panels * splits, s);
+    case kLinear:
+      return x_is_f32 ? launch<kLinear, float>(tm_w, p, panels * splits, s)
+                      : launch<kLinear, bf16>(tm_w, p, panels * splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -8,9 +8,10 @@
 //
 // Replaces the Pallas kernel `ln_gelu` (s3prl_tpu/kernels/ln_gelu.py:47,
 // pallas_call at :60; bf16 or f32 in, the same dtype out), and is the
-// epilogue of `fused_conv_ln_gelu` (conv_frontend.py:267, :301) and
-// `fused_int8_conv_ln_gelu` (:325, :370), which run their conv as GEMMs
-// (gemm_bf16.cu, gemm_s8.cu) into an f32 [rows, 512] buffer first.
+// epilogue of `fused_conv_ln_gelu` (conv_frontend.py:267, :301), which runs
+// its conv as a GEMM (gemm_bf16.cu) into an f32 [rows, 512] buffer first.
+// (`fused_int8_conv_ln_gelu` runs the same row epilogue inside
+// int8_conv.cu.)
 //
 // Bound: device-memory bandwidth (about 5 operations per byte). One warp
 // per row: lane l reads channels h * 256 + l * 8 .. + 7 (two coalesced

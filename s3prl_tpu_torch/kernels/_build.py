@@ -77,12 +77,17 @@ SIGNATURES = {
     "s3_quant_rows": (_P, _I, _I, _I, _I, _P, _P, _F, _P, _P, _I, _P),
     # x, cols, q, scale, rows, stream
     "s3_quant_rows_bf16": (_P, _I, _P, _P, _I, _P),
-    # x, M, C, rule, gamma, beta, eps, w, N, col_scale, bias, res, out, mode, out_f32,
-    # q_out, s_out, stats_out, stream
-    "s3_int8_panel": (_P, _I, _I, _I, _P, _P, _F, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P,
-                      _P),
+    # x, x_is_f32, M, C, rule, gamma, beta, eps, w, N, col_scale, bias, res, out, mode,
+    # out_f32, q_out, s_out, stats_out, stream
+    "s3_int8_panel": (_P, _I, _I, _I, _I, _P, _P, _F, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
+                      _P, _P),
     # &smem_bytes, &blocks_per_sm
     "s3_int8_panel_occupancy": (_P, _P),
+    # xq, xs, wq, ws, gamma, beta, batch, T, T', k, out, scale, out_f32, sum_out, stats_out,
+    # stream
+    "s3_int8_conv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P),
+    # &smem_bytes, &blocks_per_sm
+    "s3_int8_conv_occupancy": (_P, _P),
 }
 
 

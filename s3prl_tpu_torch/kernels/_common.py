@@ -11,7 +11,10 @@ wrappers are built from; they check what the kernels take and raise on
 anything else. `int8_projection` routes an int8 projection by row width:
 the panel kernel up to PANEL_MAX_C, the quantizer + `gemm_s8` pair beyond.
 `layer_norm_f32`, `gelu_tanh` and `ln_gelu_f32` are the plain versions' forms of the Pallas
-kernels' in-kernel LayerNorm, tanh GELU and LN + GELU epilogue.
+kernels' in-kernel LayerNorm, tanh GELU and LN + GELU epilogue;
+`ln_gelu_from_stats` is that epilogue given a kernel's own LN statistics
+(the test modes'), and `int8_panel_reference` the panel's f32 rule in
+plain PyTorch.
 `refuse_grad` is the refusal every CUDA branch makes: the kernels have no
 backward.
 """
@@ -23,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..ops.quant import int_mm, quantize_rows
 from ._build import launch
 
 GEMM_RAW, GEMM_QKV, GEMM_LINEAR = 0, 1, 2  # csrc/gemm_s8.cu epilogue modes
@@ -57,6 +61,15 @@ def ln_gelu_f32(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     tanh-approximate ("tanh"); no cast."""
     y = layer_norm_f32(y, (scale, bias))
     return gelu_tanh(y) if gelu_mode == "tanh" else F.gelu(y)
+
+
+def ln_gelu_from_stats(y: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
+                       bias: torch.Tensor) -> torch.Tensor:
+    """`ln_gelu_f32`'s LN and erf GELU of y [R, C] given its statistics
+    [R, 2] (mean, 1 / sqrt(var + eps)), as a kernel's test mode returns
+    them: (y - mean) * rstd * scale + bias, then GELU, in f32."""
+    z = (y.float() - stats[:, :1]) * stats[:, 1:] * scale.float() + bias.float()
+    return F.gelu(z)
 
 
 def refuse_grad(name: str, *tensors) -> None:
@@ -266,13 +279,19 @@ def int8_panel(x: torch.Tensor, w: torch.Tensor, col_scale: torch.Tensor,
     f32), one launch of csrc/int8_panel.cu (CUDA only): the rows quantized
     on chip by `rule` (RULE_F32 after an f32 LayerNorm when `ln` = (scale,
     bias) is given, or K1's bf16 context rule RULE_CTX), then GEMM_QKV ->
-    bf16, or GEMM_LINEAR [+ residual bf16 [M, N]] -> bf16 or f32. With
+    bf16, or GEMM_LINEAR [+ residual bf16 [M, N]] -> bf16 or f32. f32 x
+    (K6's context) takes RULE_F32 without the LN and GEMM_LINEAR. With
     `codes` (a test mode) also returns the codes [M, C] int8, the scales
     [M] f32 and, with the LN, its statistics [M, 2] (mean, 1 / sqrt(var +
     eps)) f32 as the kernel computed them: (out, q, scale, stats or None)."""
     M, C = x.shape
     N = w.shape[0]
-    require(x, "int8_panel x", torch.bfloat16)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"int8_panel x: dtype {x.dtype}, the kernel takes bf16 or f32")
+    require(x, "int8_panel x", x.dtype)
+    x_f32 = x.dtype == torch.float32
+    if x_f32 and (rule != RULE_F32 or ln is not None or mode != GEMM_LINEAR):
+        raise ValueError("int8_panel: f32 rows take the f32 rule without an LN, GEMM_LINEAR")
     require(w, "int8_panel w", torch.int8, (N, C))
     require(col_scale, "int8_panel col_scale", torch.float32, (N,))
     require(bias, "int8_panel bias", torch.float32, (N,))
@@ -299,12 +318,27 @@ def int8_panel(x: torch.Tensor, w: torch.Tensor, col_scale: torch.Tensor,
     stats = torch.empty(M, 2, dtype=torch.float32, device=x.device) \
         if codes and ln is not None else None
     if M:
-        launch("s3_int8_panel", x.data_ptr(), M, C, rule,
+        launch("s3_int8_panel", x.data_ptr(), int(x_f32), M, C, rule,
                _ptr(ln[0] if ln is not None else None), _ptr(ln[1] if ln is not None else None),
                LN_EPS, w.data_ptr(), N, col_scale.data_ptr(), bias.data_ptr(), _ptr(residual),
                out.data_ptr(), mode, int(out_f32), _ptr(q), _ptr(scale), _ptr(stats),
                stream_of(x))
     return (out, q, scale, stats) if codes else out
+
+
+def int8_panel_reference(x: torch.Tensor, w: torch.Tensor, col_scale: torch.Tensor,
+                         bias: torch.Tensor, residual: torch.Tensor | None = None,
+                         out_f32: bool = False):
+    """Plain version of `int8_panel`'s f32 rule without the LN in
+    GEMM_LINEAR (K6's out-proj): x [M, C] (f32 or bf16) -> (out [M, N] bf16
+    or f32, codes [M, C] int8, scales [M] f32), with `quantize_rows`'
+    codes, exact int32 sums and ((f32(acc) * s) * col_scale + bias) [+
+    residual] in f32, cast once."""
+    q, s = quantize_rows(x.float())
+    y = int_mm(q, w).float() * s * col_scale + bias
+    if residual is not None:
+        y = y + residual.float()
+    return (y if out_f32 else y.to(torch.bfloat16)), q, s[:, 0]
 
 
 def int8_projection(x: torch.Tensor, w: torch.Tensor, col_scale: torch.Tensor,
@@ -313,7 +347,7 @@ def int8_projection(x: torch.Tensor, w: torch.Tensor, col_scale: torch.Tensor,
                     out_f32: bool = False) -> torch.Tensor:
     """`int8_panel`'s function at any row width, routed by shape (CUDA
     only): rows up to PANEL_MAX_C wide take the panel kernel (one launch);
-    wider rows take `quant_rows` (RULE_F32, with the LN) or
+    wider rows take `quant_rows` (RULE_F32, with the LN; bf16 or f32 x) or
     `quant_rows_bf16` (RULE_CTX), then `gemm_s8` with the same epilogue."""
     if rule == RULE_CTX and ln is not None:
         raise ValueError("int8_projection: the LN prologue takes the f32 rule")

@@ -11,10 +11,11 @@ s3prl_tpu/kernels/conv_frontend.py.
   and f32 scales (the same source, its q8 instantiation), the head of the
   int8 conv chain.
 - K13b `fused_int8_conv_ln_gelu` (:325): a stride-2 conv (k 2 or 3) over
-  int8 rows as one exact int32 GEMM per tap on `csrc/gemm_s8.cu`, each
-  dequantized as (f32(acc) * row scale) * tap weight scale and summed in
-  tap order into f32, then `csrc/ln_gelu.cu`: LN, erf GELU, per-row int8
-  (or, in the chain's last layer, one cast to the model dtype).
+  int8 rows, one exact int32 product per tap, each dequantized as
+  (f32(acc) * row scale) * tap weight scale and summed in tap order into
+  f32, then LN, erf GELU, per-row int8 (or, in the chain's last layer, one
+  cast to bf16): one launch of `csrc/int8_conv.cu`, which keeps the f32
+  tap sum of a 64-row tile on chip and writes only the codes.
 - K14 `fused_conv_ln_gelu` (:267): the same conv in bf16 as ONE K = k * C
   GEMM on `csrc/gemm_bf16.cu` into f32, then `csrc/ln_gelu.cu`: LN, erf
   GELU, one cast.
@@ -22,8 +23,9 @@ s3prl_tpu/kernels/conv_frontend.py.
 The stride-2 taps need no copy: output row j of an utterance reads rows 2j
 .. 2j + k - 1 of its input, one contiguous run of k * C elements of x [B, T,
 C] at (b T + 2 j) C, so the im2col matrix is a view of x with row stride 2C
-in B groups of T' rows (`_im2col`), which both GEMMs read as it lies. An
-output row never reads past its own utterance's rows.
+in B groups of T' rows (`_im2col`), which K14's GEMM reads as it lies (and
+K13b's kernel tap by tap). An output row never reads past its own
+utterance's rows.
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ import torch.nn.functional as F
 
 from ..ops.quant import as_quantized_cols, int_mm, quantize_rows
 from ._build import launch
-from ._common import (GEMM_LINEAR, gelu_tanh, gemm, gemm_s8, ln_gelu_f32, ln_gelu_rows,
-                      on_cpu, refuse_grad, require, stream_of)
+from ._common import (_ptr, gelu_tanh, gemm, ln_gelu_f32, ln_gelu_rows, on_cpu, refuse_grad,
+                      require, stream_of)
 
 GELU_MODES = ("erf", "tanh")
 MID_TAPS = (2, 3)  # the mid-conv kernels' k (stride 2)
@@ -165,12 +167,12 @@ def _mid_shape(x: torch.Tensor, k: int, name: str) -> int:
     return max((x.shape[1] - k) // 2 + 1, 0)
 
 
-def _im2col(x: torch.Tensor, k: int, t_out: int, offset: int = 0) -> torch.Tensor:
+def _im2col(x: torch.Tensor, k: int, t_out: int) -> torch.Tensor:
     """The stride-2 im2col rows of x [B, T, C] (contiguous) as a view [B,
-    T', k * C]: row (b, j) is x[b, 2j + offset : 2j + offset + k] flattened,
-    tap-major. Rows overlap; none reads past its utterance's T rows."""
+    T', k * C]: row (b, j) is x[b, 2j : 2j + k] flattened, tap-major. Rows
+    overlap; none reads past its utterance's T rows."""
     B, T, C = x.shape
-    return x.as_strided((B, t_out, k * C), (T * C, 2 * C, 1), x.storage_offset() + offset * C)
+    return x.as_strided((B, t_out, k * C), (T * C, 2 * C, 1), x.storage_offset())
 
 
 def _gemm_weight(weight: torch.Tensor, C: int) -> torch.Tensor:
@@ -235,15 +237,11 @@ def _conv_taps(weight):
     return quantize_conv_taps(weight)
 
 
-def fused_int8_conv_ln_gelu_reference(xq: torch.Tensor, xs: torch.Tensor, weight,
-                                      gamma: torch.Tensor, beta: torch.Tensor,
-                                      emit_q8: bool = True,
-                                      out_dtype: torch.dtype = torch.bfloat16):
-    """Plain version of K13b (`_mid_kernel`, conv_frontend.py:207-243): per
-    tap t, the exact int32 product of rows x[2j + t] with the tap's codes,
-    dequantized as (f32(acc) * xs[2j + t]) * ws[t], summed in tap order;
-    LN and erf GELU in f32; then per-row int8 (`emit_q8`) -> (codes, scales
-    [B, T', 1]), else one cast -> ([B, T', Cout] out_dtype, None)."""
+def fused_int8_conv_taps_reference(xq: torch.Tensor, xs: torch.Tensor, weight) -> torch.Tensor:
+    """K13b's f32 tap sum [B, T', Cout], the conv output before the LN (the
+    counterpart of `int8_conv`'s test mode): per tap t, the exact int32
+    product of rows x[2j + t] with the tap's codes, dequantized as (f32(acc)
+    * xs[2j + t]) * ws[t], summed in tap order (tap 0 assigned)."""
     wq, ws = _conv_taps(weight)
     k = wq.shape[0]
     B, T, C = xq.shape
@@ -254,10 +252,57 @@ def fused_int8_conv_ln_gelu_reference(xq: torch.Tensor, xs: torch.Tensor, weight
         rows = xq[:, t::2][:, :t_out].reshape(B * t_out, C)
         tap = int_mm(rows, wq[t]).float().view(B, t_out, N) * xs[:, t::2][:, :t_out] * ws[t]
         acc = tap if acc is None else acc + tap
-    y = ln_gelu_f32(acc, gamma, beta)
+    return acc
+
+
+def fused_int8_conv_ln_gelu_reference(xq: torch.Tensor, xs: torch.Tensor, weight,
+                                      gamma: torch.Tensor, beta: torch.Tensor,
+                                      emit_q8: bool = True,
+                                      out_dtype: torch.dtype = torch.bfloat16):
+    """Plain version of K13b (`_mid_kernel`, conv_frontend.py:207-243): the
+    f32 tap sum (`fused_int8_conv_taps_reference`); LN and erf GELU in f32;
+    then per-row int8 (`emit_q8`) -> (codes, scales [B, T', 1]), else one
+    cast -> ([B, T', Cout] out_dtype, None)."""
+    y = ln_gelu_f32(fused_int8_conv_taps_reference(xq, xs, weight), gamma, beta)
     if emit_q8:
         return quantize_rows(y)
     return y.to(out_dtype), None
+
+
+def int8_conv(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+              gamma: torch.Tensor, beta: torch.Tensor, emit_q8: bool = True,
+              out_dtype: torch.dtype = torch.bfloat16, sums: bool = False):
+    """One launch of csrc/int8_conv.cu (CUDA only): K13b on xq [B, T, 512]
+    int8 with row scales xs [B, T, 1] f32, the tap pair (codes [k, 512,
+    512] int8, scales [k, 512] f32), gamma/beta [512] f32 -> (codes [B, T',
+    512] int8, scales [B, T', 1] f32) with `emit_q8`, else ([B, T', 512]
+    out_dtype (bf16 or f32), None). With `sums` (a test mode) also returns
+    the f32 tap sum [B T', 512] and the LN statistics [B T', 2] (mean, 1 /
+    sqrt(var + eps)) as the kernel computed them. Takes T' >= 1."""
+    k = wq.shape[0]
+    B, T, C = xq.shape
+    t_out = _mid_shape(xq, k, "fused_int8_conv_ln_gelu")
+    require(xq, "xq", torch.int8, (B, T, 512))
+    require(xs, "xs", torch.float32, (B, T, 1))
+    require(wq, "weight codes", torch.int8, (k, 512, 512))
+    require(ws, "weight scales", torch.float32, (k, 512))
+    require(gamma, "gamma", torch.float32, (512,))
+    require(beta, "beta", torch.float32, (512,))
+    if not emit_q8 and out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"int8_conv: rows out in {out_dtype}, the kernel writes bf16 or f32")
+    if not B * t_out:
+        raise ValueError("int8_conv: no output row")
+    if any(t.data_ptr() % 16 for t in (xq, wq)):
+        raise ValueError("int8_conv: xq and the weight codes must start at 16-byte boundaries")
+    dev = xq.device
+    out = torch.empty(B, t_out, 512, dtype=torch.int8 if emit_q8 else out_dtype, device=dev)
+    scale = torch.empty(B, t_out, 1, dtype=torch.float32, device=dev) if emit_q8 else None
+    acc = torch.empty(B * t_out, 512, dtype=torch.float32, device=dev) if sums else None
+    stats = torch.empty(B * t_out, 2, dtype=torch.float32, device=dev) if sums else None
+    launch("s3_int8_conv", xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+           gamma.data_ptr(), beta.data_ptr(), B, T, t_out, k, out.data_ptr(),
+           _ptr(scale), int(out.dtype == torch.float32), _ptr(acc), _ptr(stats), stream_of(xq))
+    return (out, scale, acc, stats) if sums else (out, scale)
 
 
 def fused_int8_conv_ln_gelu(xq: torch.Tensor, xs: torch.Tensor, weight, gamma: torch.Tensor,
@@ -272,37 +317,23 @@ def fused_int8_conv_ln_gelu(xq: torch.Tensor, xs: torch.Tensor, weight, gamma: t
     [k, Cout]) pair (`quantize_conv_taps`); gamma/beta [Cout] f32. Returns
     (int8 [B, T', Cout], scales [B, T', 1]) with `emit_q8`, else ([B, T',
     Cout] out_dtype, None). CPU tensors run the plain version; CUDA tensors
-    launch `csrc/gemm_s8.cu` once per tap (its stride-2 rows read in place,
-    the f32 sum carried from tap to tap) and `csrc/ln_gelu.cu`, which take
-    C = Cout = 512. Forward-only."""
+    launch `csrc/int8_conv.cu` once (`int8_conv`: the stride-2 rows and
+    their scales read in place, the f32 tap sum kept on chip), which takes
+    C = Cout = 512 and writes rows in bf16 or f32. Forward-only."""
     wq, ws = _conv_taps(weight)
     if on_cpu(xq, xs, wq, ws, gamma, beta):
         return fused_int8_conv_ln_gelu_reference(xq, xs, (wq, ws), gamma, beta, emit_q8,
                                                  out_dtype)
-    k = wq.shape[0]
-    B, T, C = xq.shape
-    t_out = _mid_shape(xq, k, "fused_int8_conv_ln_gelu")
-    require(xq, "xq", torch.int8, (B, T, 512))
-    require(xs, "xs", torch.float32, (B, T, 1))
-    require(wq, "weight codes", torch.int8, (k, 512, 512))
-    require(ws, "weight scales", torch.float32, (k, 512))
+    B = xq.shape[0]
+    t_out = _mid_shape(xq, wq.shape[0], "fused_int8_conv_ln_gelu")
     refuse_grad("K13b fused_int8_conv_ln_gelu", xs, ws, gamma, beta)
-    out_dtype = torch.int8 if emit_q8 else out_dtype
     if not B * t_out:
-        return (xq.new_empty(B, t_out, 512, dtype=out_dtype),
+        return (xq.new_empty(B, t_out, 512, dtype=torch.int8 if emit_q8 else out_dtype),
                 xs.new_empty(B, t_out, 1) if emit_q8 else None)
     with torch.cuda.device(xq.device):
-        acc = torch.empty(B * t_out, 512, dtype=torch.float32, device=xq.device)
-        for t in range(k):  # the tap's row scales, copied to [B T'] (B T' x 4 bytes)
-            rs = xs[:, t::2, 0][:, :t_out].contiguous().view(-1)
-            gemm_s8(_im2col(xq, 1, t_out, t), wq[t], mode=GEMM_LINEAR, row_scale=rs,
-                    col_scale=ws[t], acc_in=acc if t else None, out_f32=True, out=acc)
-        out = ln_gelu_rows(acc, gamma, beta, out_dtype=out_dtype)
+        out = int8_conv(xq, xs, wq, ws, gamma, beta, emit_q8, out_dtype)
     fused_int8_conv_ln_gelu.launches += 1
-    if emit_q8:
-        q, s = out
-        return q.view(B, t_out, 512), s.view(B, t_out, 1)
-    return out.view(B, t_out, 512), None
+    return out
 
 
 fused_int8_conv_ln_gelu.launches = 0  # CUDA launches since the last reset

@@ -48,8 +48,10 @@ for threshold, both read at call time):
   packed instantiation of `csrc/gated_attention.cu` (`_attention`, which
   has no T bound of its own);
 - K6 `fused_qkv_attention_outproj` (:338), int8: the same with an f32
-  context, `csrc/quant_rows.cu` (f32 per-row quantization, clamp 1e-8),
-  `csrc/gemm_s8.cu` (int8 out-proj, f32(acc) * s * wos + bo + x);
+  context, then one `csrc/int8_panel.cu` launch on those f32 rows (f32
+  per-row quantization on chip, clamp 1e-8; int8 out-proj, f32(acc) * s *
+  wos + bo + x); rows wider than PANEL_MAX_C take `csrc/quant_rows.cu` +
+  `csrc/gemm_s8.cu`;
 - K8 `online_flash_attention` (:892): K-blocked online softmax in f32 on
   [B, H, T, 64], the no-bias instantiation of `csrc/gated_attention.cu`
   (K17's) with the mask -1e30 and the floor 1e-30. Beyond MAX_KERNEL_T
@@ -87,9 +89,9 @@ import torch.nn.functional as F
 
 from ..ops.quant import as_quantized_cols, int8_matmul, int_mm, quantize_rows
 from ._build import launch
-from ._common import (GEMM_LINEAR, GEMM_QKV, RULE_CTX, gemm, gemm_s8, int8_projection,
-                      layer_norm, layer_norm_f32, on_cpu, quant_rows, refuse_grad, require,
-                      stream_of)
+from ._common import (GEMM_LINEAR, GEMM_QKV, RULE_CTX, gemm, gemm_s8, int8_panel_reference,
+                      int8_projection, layer_norm, layer_norm_f32, on_cpu, quant_rows,
+                      refuse_grad, require, stream_of)
 
 MAX_BLOCK_T = 512  # whole-block cells serve T <= 512 (TPU VMEM bound, kept as the routing rule)
 MAX_KERNEL_T = 2048  # K6/K7 serve T <= 2048, K8 beyond (the JAX package's routing rule)
@@ -380,13 +382,14 @@ def fused_qkv_attention_outproj_reference(qkv, residual, wo, bo, kv_lens, num_he
 
 
 def _outproj_reference(ctx, residual, wo, bo, dtype):
-    """K6's and K11's tail on the f32 context [B, T, C]: f32 per-row
-    quantization, exact int32 out-proj, ((f32(acc) * s) * wos + bo) +
-    residual in f32, one cast to `dtype`."""
+    """K6's and K11's tail on the f32 context [B, T, C], the panel's f32
+    rule (`int8_panel_reference`): f32 per-row quantization, exact int32
+    out-proj, ((f32(acc) * s) * wos + bo) + residual in f32, one cast to
+    `dtype`."""
     B, T, C = ctx.shape
     wo_q, wo_s = as_quantized_cols(wo)
-    a8, s = quantize_rows(ctx.reshape(B * T, C))
-    y = int_mm(a8, wo_q).float() * s * wo_s + bo.float() + residual.float().view(B * T, C)
+    y = int8_panel_reference(ctx.reshape(B * T, C), wo_q, wo_s, bo.float(),
+                             residual=residual.reshape(B * T, C), out_f32=True)[0]
     return y.to(dtype).view(B, T, C)
 
 
@@ -400,8 +403,10 @@ def fused_qkv_attention_outproj(qkv, residual, wo, bo, kv_lens, num_heads: int):
     Beyond MAX_KERNEL_T frames: residual + int8_matmul(K7 -> K8, wo, bo)
     (:350-352; its launches count for K8). CPU tensors run the plain
     versions; CUDA tensors launch the packed instantiation of
-    `csrc/gated_attention.cu` (f32 context), `csrc/quant_rows.cu` and
-    `csrc/gemm_s8.cu` (head dim 64). Forward-only."""
+    `csrc/gated_attention.cu` (f32 context) and `int8_projection` on it:
+    one `csrc/int8_panel.cu` launch (its f32 rule on f32 rows) up to
+    PANEL_MAX_C, `csrc/quant_rows.cu` + `csrc/gemm_s8.cu` beyond (head dim
+    64). Forward-only."""
     wo_q, wo_s = as_quantized_cols(wo)
     B, T, C3 = qkv.shape
     C = C3 // 3
@@ -418,10 +423,9 @@ def fused_qkv_attention_outproj(qkv, residual, wo, bo, kv_lens, num_heads: int):
     require(wo_q, "wo codes", torch.int8, (C, C))
     with torch.cuda.device(qkv.device):
         ctx = _attention(qkv, kv_lens, num_heads, out_f32=True)
-        a8, s_a = quant_rows(ctx)  # K6's f32 quantizer (:287-289), not K1's bf16 one
-        # K6's epilogue order, ((f32(acc) * s) * wos + bo) + residual in f32 (:294)
-        y = gemm_s8(a8, wo_q, mode=GEMM_LINEAR, row_scale=s_a, col_scale=wo_s, bias=bo,
-                    residual=residual.view(B * T, C))
+        # K6's f32 quantizer (:287-289), not K1's bf16 one, and its epilogue
+        # order ((f32(acc) * s) * wos + bo) + residual in f32 (:294)
+        y = int8_projection(ctx, wo_q, wo_s, bo, residual=residual.view(B * T, C))
     fused_qkv_attention_outproj.launches += 1
     return y.view(B, T, C)
 

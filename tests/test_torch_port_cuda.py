@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from s3prl_tpu_torch.kernels import _build, _common
+from s3prl_tpu_torch.kernels import conv_frontend as cf
 from s3prl_tpu_torch.kernels.conv_frontend import (
     conv0_ln_gelu, conv0_ln_gelu_q8, conv0_ln_gelu_q8_reference, conv0_ln_gelu_reference,
     conv_gemm_weight, fused_conv_ln_gelu, fused_conv_ln_gelu_reference, fused_int8_conv_ln_gelu,
@@ -969,7 +970,7 @@ def test_int8_panel_kernel(dev, C, M, N):
 
 def _launched(monkeypatch, fn):
     """The C entries fn() launches, in order (a spy on `launch` in the
-    modules that launch K1's and K12's kernels)."""
+    modules that launch K1's, K6's, K12's and K13b's kernels)."""
     names = []
 
     def spy(name, *args):
@@ -978,6 +979,7 @@ def _launched(monkeypatch, fn):
 
     monkeypatch.setattr(_common, "launch", spy)
     monkeypatch.setattr(fa, "launch", spy)
+    monkeypatch.setattr(cf, "launch", spy)
     fn()
     torch.cuda.synchronize()
     monkeypatch.undo()
@@ -1025,11 +1027,16 @@ def test_int8_panel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):  # wider than the panel
         _common.int8_panel(x, w8, ws, b)
     (w8, ws), b = _qpair(rng, dev, 1024, 64)
-    with pytest.raises(TypeError):  # f32 x
-        _common.int8_panel(x[:, :1024].float().contiguous(), w8, ws, b)
+    with pytest.raises(TypeError):  # f16 x
+        _common.int8_panel(x[:, :1024].half().contiguous(), w8, ws, b)
     with pytest.raises(ValueError):  # the LN takes the f32 rule
         _common.int8_panel(x[:, :1024].contiguous(), w8, ws, b, ln=_ln(rng, dev, 1024),
                            rule=_common.RULE_CTX)
+    x32 = x[:, :1024].float().contiguous()
+    for kwargs in (dict(ln=_ln(rng, dev, 1024)), dict(rule=_common.RULE_CTX),
+                   dict(mode=_common.GEMM_QKV)):
+        with pytest.raises(ValueError):  # f32 rows: the f32 rule, no LN, GEMM_LINEAR
+            _common.int8_panel(x32, w8, ws, b, **kwargs)
 
 
 def test_fused_projection_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -1156,6 +1163,103 @@ def test_k13b_kernel(dev, T, k, emit_q8):
         assert got_s is None and got_q.dtype == torch.bfloat16
         if t_out:
             _close_bf16(got_q, want_q)
+
+
+# T' on and beside csrc/int8_conv.cu's 64-row tiles
+INT8_CONV_T = [1, 63, 64, 65, 129]
+
+
+@pytest.mark.parametrize("out", ["q8", "bf16", "f32"])
+@pytest.mark.parametrize("t_out", INT8_CONV_T)
+@pytest.mark.parametrize("k", [2, 3])
+def test_int8_conv_kernel_bit_equal(dev, monkeypatch, k, t_out, out):
+    """csrc/int8_conv.cu on B = 3 with random row scales (tap t's scale is
+    row 2j + t's): in the test mode its f32 tap sum equals the plain
+    version's bit for bit, its LN statistics agree with torch's at rtol
+    1e-5, and given them its codes and scales (or bf16 or f32 rows) equal
+    the plain LN -> erf GELU -> `quantize_rows` (or cast) bit for bit. The
+    wrapper is one launch of the kernel and returns the same rows."""
+    emit_q8 = out == "q8"
+    out_dtype = torch.float32 if out == "f32" else torch.bfloat16
+    rng = np.random.RandomState(40 + 2 * t_out + k)
+    T = 2 * (t_out - 1) + k + t_out % 2  # odd and even T
+    xq = _int8(rng, dev, 3, T, 512)
+    xs = _t(0.01 + 0.05 * rng.rand(3, T, 1), dev)
+    w, g, b = _mid_weights(rng, dev, k)
+    wq, ws = quantize_conv_taps(w)
+    got, scale, acc, stats = cf.int8_conv(xq, xs, wq, ws, g, b, emit_q8, out_dtype, sums=True)
+    torch.cuda.synchronize()
+    want = cf.fused_int8_conv_taps_reference(xq, xs, (wq, ws)).reshape(-1, 512)
+    assert acc.shape == want.shape and torch.equal(acc, want)
+    mean = want.mean(-1)
+    rstd = 1.0 / torch.sqrt(((want - mean[:, None]) ** 2).mean(-1) + _common.LN_EPS)
+    torch.testing.assert_close(stats[:, 0], mean, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(stats[:, 1], rstd, rtol=1e-5, atol=0)
+    y = _common.ln_gelu_from_stats(acc, stats, g, b)
+    if emit_q8:
+        q_ref, s_ref = quantize_rows(y)
+        assert got.dtype == torch.int8 and tuple(scale.shape) == (3, t_out, 1)
+        assert torch.equal(got.view(-1, 512), q_ref) and torch.equal(scale.view(-1, 1), s_ref)
+    else:
+        assert scale is None and got.dtype == out_dtype
+        assert torch.equal(got.view(-1, 512), y.to(out_dtype))
+    before = fused_int8_conv_ln_gelu.launches
+    wrapped = {}
+    assert _launched(monkeypatch, lambda: wrapped.setdefault("out", fused_int8_conv_ln_gelu(
+        xq, xs, (wq, ws), g, b, emit_q8=emit_q8, out_dtype=out_dtype))) == ["s3_int8_conv"]
+    assert fused_int8_conv_ln_gelu.launches == before + 1
+    assert torch.equal(wrapped["out"][0], got)
+    assert (wrapped["out"][1] is None) if scale is None else torch.equal(wrapped["out"][1],
+                                                                         scale)
+
+
+@pytest.mark.parametrize("N", [264, 1024])
+@pytest.mark.parametrize("M", [1, 127, 129, 15968])
+@pytest.mark.parametrize("C", [768, 1024])
+def test_int8_panel_f32_rows(dev, C, M, N):
+    """The panel kernel's f32-row instantiation (K6's context): in the test
+    mode its codes and scales equal quant_rows.cu's and quantize_rows' on
+    the same f32 rows bit for bit; the output, with and without the
+    residual, against the plain f32 rule (`int8_panel_reference`: bf16
+    under the kernels' rule, f32 at atol 1e-4)."""
+    rng = np.random.RandomState(C + M + N + 1)
+    x = _t(rng.randn(M, C) * 0.3, dev)
+    (w8, ws), b = _qpair(rng, dev, C, N)
+    res = _t(rng.randn(M, N) * 0.5, dev, torch.bfloat16)
+    q8, s8 = _common.quant_rows(x)
+    for residual, out_f32 in ((None, False), (res, False), (res, True)):
+        got, q, s, stats = _common.int8_panel(x, w8, ws, b, residual=residual,
+                                              out_f32=out_f32, codes=True)
+        torch.cuda.synchronize()
+        want, q_ref, s_ref = _common.int8_panel_reference(x, w8, ws, b, residual=residual,
+                                                          out_f32=out_f32)
+        assert stats is None
+        assert torch.equal(q, q8) and torch.equal(s, s8)
+        assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+        assert got.dtype == want.dtype and got.shape == (M, N)
+        if out_f32:
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        else:
+            _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("C", [1024, 1280])
+def test_k6_launches_by_row_width(dev, monkeypatch, C):
+    """At C <= PANEL_MAX_C K6 is two launches, the packed attention (f32
+    context) and one panel launch on those f32 rows (no quant_rows.cu);
+    wider rows take quant_rows.cu + gemm_s8.cu. Both against the plain
+    version (C = 1,280: 20 heads of 64)."""
+    rng = np.random.RandomState(41)
+    B, T, H = 2, 577, C // 64
+    qkv = _t(rng.randn(B, T, 3 * C), dev, torch.bfloat16)
+    x = _t(rng.randn(B, T, C) * 0.5, dev, torch.bfloat16)
+    wo, bo = _qpair(rng, dev, C, C)
+    kv = torch.tensor([T, 300], dtype=torch.int32, device=dev)
+    tail = ["s3_quant_rows", "s3_gemm_s8"] if C > _common.PANEL_MAX_C else ["s3_int8_panel"]
+    got = {}
+    assert _launched(monkeypatch, lambda: got.setdefault("y", fused_qkv_attention_outproj(
+        qkv, x, wo, bo, kv, H))) == ["s3_qkv_attention"] + tail
+    _close_bf16(got["y"], fused_qkv_attention_outproj(*_on_cpu(qkv, x, wo, bo, kv), H))
 
 
 @pytest.mark.parametrize("n,dtype", [(160000, torch.bfloat16), (16007, torch.bfloat16),

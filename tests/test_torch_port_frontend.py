@@ -174,8 +174,13 @@ def test_k13a_plain_matches_interpreted_pallas(dtype):
     _codes_match(got_q, want_q)
 
 
+# (k, T): T' = 18 and 19, then T' = 1, 64 and 65, on and beside the 64-row
+# tiles of csrc/int8_conv.cu
+K13B_SHAPES = [(3, 37), (2, 38), (3, 3), (2, 2), (3, 129), (2, 128), (3, 131), (2, 130)]
+
+
 @pytest.mark.parametrize("emit_q8", [True, False], ids=["q8", "bf16-out"])
-@pytest.mark.parametrize("k,T", [(3, 37), (2, 38)])
+@pytest.mark.parametrize("k,T", K13B_SHAPES)
 def test_k13b_plain_matches_interpreted_pallas(k, T, emit_q8):
     """Per-tap int8 conv over int8 rows with f32 row scales; the weight as
     the f32 nn.Conv1d weight (quantized per tap inside) and as the
@@ -207,6 +212,48 @@ def test_k13b_plain_matches_interpreted_pallas(k, T, emit_q8):
         else:
             assert got_s is None and want_s is None and got_q.dtype == torch.bfloat16
             _within_one_bf16_step(got_q, want_q)
+
+
+@pytest.mark.parametrize("k,T", [(3, 131), (2, 130)])
+def test_k13b_tap_sum_and_epilogue_helpers(k, T):
+    """The plain helpers the card's test mode is held with: the f32 tap sum
+    (`fused_int8_conv_taps_reference`) through `ln_gelu_f32` and
+    `quantize_rows` (or one cast) is `fused_int8_conv_ln_gelu_reference` bit
+    for bit; the tap sum is each tap's exact int32 product with row 2j + t's
+    scale, summed in tap order; and the epilogue given the statistics
+    (`ln_gelu_from_stats`), fed torch's own mean and 1 / sqrt(var + eps),
+    is `ln_gelu_f32` bit for bit."""
+    from s3prl_tpu_torch.kernels import _common
+    from s3prl_tpu_torch.ops.quant import int_mm, quantize_rows
+
+    rng = np.random.RandomState(4)
+    B, C = 3, 128
+    xq = torch.from_numpy(rng.randint(-127, 128, (B, T, C)).astype(np.int8))
+    xs = torch.from_numpy((0.01 + 0.05 * rng.rand(B, T, 1)).astype(np.float32))
+    _, weight = _conv_kernel(rng, k, C, C)
+    g, b = (torch.from_numpy(a) for a in _ln_params(rng, C))
+    taps = port_cf.quantize_conv_taps(weight)
+    acc = port_cf.fused_int8_conv_taps_reference(xq, xs, taps)
+    t_out = (T - k) // 2 + 1
+    assert acc.dtype == torch.float32 and tuple(acc.shape) == (B, t_out, C)
+    want = None
+    for t in range(k):  # row (b, j) of tap t is x row 2j + t, its scale xs[b, 2j + t]
+        rows = xq[:, t:t + 2 * t_out - 1:2].reshape(-1, C)
+        tap = (int_mm(rows, taps[0][t]).float().view(B, t_out, C)
+               * xs[:, t:t + 2 * t_out - 1:2] * taps[1][t])
+        want = tap if want is None else want + tap
+    assert torch.equal(acc, want)
+    y = _common.ln_gelu_f32(acc, g, b)
+    q, s = port_cf.fused_int8_conv_ln_gelu_reference(xq, xs, taps, g, b)
+    q_ref, s_ref = quantize_rows(y)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    out, none = port_cf.fused_int8_conv_ln_gelu_reference(xq, xs, taps, g, b, emit_q8=False)
+    assert none is None and torch.equal(out, y.to(torch.bfloat16))
+    flat = acc.reshape(-1, C)
+    mean = flat.mean(-1, keepdim=True)
+    rstd = 1.0 / torch.sqrt(((flat - mean) ** 2).mean(-1, keepdim=True) + _common.LN_EPS)
+    stats = torch.cat([mean, rstd], dim=1)
+    assert torch.equal(_common.ln_gelu_from_stats(flat, stats, g, b), y.reshape(-1, C))
 
 
 # -- the options through the models -------------------------------------------------

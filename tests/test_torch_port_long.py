@@ -130,6 +130,40 @@ def test_k6_plain_matches_interpreted_pallas(monkeypatch, route, max_kernel_t):
     _close(got, want, "bf16")
 
 
+@pytest.mark.parametrize("C", [768, 1024])
+def test_k6_panel_f32_rule_plain_matches(C):
+    """The plain counterpart of csrc/int8_panel.cu's f32-row rule, which K6
+    takes on the card (`int8_panel_reference`), on K6's f32 context: its
+    codes and scales equal `quantize_rows`' and its out-proj equals K6's
+    plain tail (`_outproj_reference`) bit for bit; the whole of it against
+    the JAX kernel at the bar of `test_k6_plain_matches_interpreted_pallas`."""
+    from s3prl_tpu_torch.kernels import _common
+    from s3prl_tpu_torch.ops.quant import as_quantized_cols, quantize_rows
+
+    rng = np.random.RandomState(5)
+    B, T, H = 2, 65, C // 64
+    qkv = _qkv(6, B, T, C)
+    x = rng.randn(B, T, C).astype(np.float32) * 0.5
+    wo = rng.randn(C, C).astype(np.float32) / np.sqrt(C)  # JAX layout [C_in, C_out]
+    bo = rng.randn(C).astype(np.float32) * 0.02
+    kv = np.array([65, 33], np.int32)
+    qkv_t, x_t = torch.from_numpy(qkv).bfloat16(), torch.from_numpy(x).bfloat16()
+    wo_q, wo_s = as_quantized_cols(torch.from_numpy(wo.T.copy()))
+    ctx = port_fa.attention_reference(qkv_t, torch.from_numpy(kv), H,
+                                      out_dtype=torch.float32).reshape(B * T, C)
+    got, q, s = _common.int8_panel_reference(ctx, wo_q, wo_s, torch.from_numpy(bo),
+                                             residual=x_t.view(B * T, C))
+    q_ref, s_ref = quantize_rows(ctx)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref[:, 0])
+    want = port_fa._outproj_reference(ctx.view(B, T, C), x_t, (wo_q, wo_s),
+                                      torch.from_numpy(bo), torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and torch.equal(got.view(B, T, C), want)
+    jax_want = jax_fa.fused_qkv_attention_outproj(
+        jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(x, jnp.bfloat16), jnp.asarray(wo),
+        jnp.asarray(bo), jnp.asarray(kv), H, interpret=True)
+    _close(got.view(B, T, C), jax_want, "bf16")
+
+
 ROUTES = {  # path-route -> (quantize, MAX_KERNEL_T, the port's plain version that must run)
     "int8-k6": (True, 2048, "fused_qkv_attention_outproj_reference"),
     "int8-k8": (True, 128, "online_flash_attention_reference"),

@@ -14,12 +14,16 @@ events (mean of 10 after a warm-up, twice, averaged):
 - K12 `fused_int8_linear` there in its two main-path sets: with the LN
   into N = 3,072 (the QKV projection of ``full_fuse``/``qkv_fuse``) and
   with the residual into N = 1,024 (the out-proj of ``full_fuse``);
-- K6 `fused_qkv_attention_outproj` at B=8 x 1,499 (its main path, 30 s);
+- K6 `fused_qkv_attention_outproj` at B=8 x 1,499 (its main path, 30 s),
+  and its out-proj alone on the f32 context: one panel launch on f32 rows,
+  or, in a checkout whose panel refuses f32 rows, quant_rows.cu +
+  gemm_s8.cu;
 - K11 `gated_bias_attention_outproj` at B=32 x 499, WavLM-Large's widths,
   with a contiguous f32 pos_bias and with the ``wavlm_fuse`` model's rows
   padded to a multiple of 4 floats (null where the checkout refuses it);
 - K14 `fused_conv_ln_gelu` and K13b `fused_int8_conv_ln_gelu` (codes out but
-  in the last layer) over the six mid layers of B=32 x 10 s;
+  in the last layer) over the six mid layers of B=32 x 10 s, and K13b on
+  each layer alone;
 - K1's and K12's launches one by one, as the checkout makes them: on the
   int8 panel kernel (panel QKV, the attention, panel out-proj; K12 one
   panel launch), or, in a checkout without `_common.int8_panel`, on
@@ -28,7 +32,8 @@ events (mean of 10 after a warm-up, twice, averaged):
 - with `--forwards`, ms per forward of HuBERT-Large int8 (`hub.load`, seed
   0) by chip_smoke.py's protocol (chains of 5 and 15, best of 3, marginal)
   at B=32 x 10 s and B=8 x 30 s: the default path, ``full_fuse`` at both,
-  ``qkv_fuse`` at 30 s (inert at 10 s).
+  ``qkv_fuse`` at 30 s (inert at 10 s), ``int8_conv`` at 10 s (K13a + six
+  K13b in the front end).
 Prints one JSON line {"label", "root", "device", "power_limit", "ms": {...}}
 and appends it to `--out` when given. Run it for the parent and the change
 in turns (parent, change, change, parent) to compare them on one card.
@@ -67,7 +72,8 @@ def forwards(hub, dev, gen):
     """ms per forward of HuBERT-Large int8 on its default path and the fused
     projection options, chip_smoke.py's chain protocol."""
     out = {}
-    for label, B, secs, paths in (("10 s", 32, 10, ("int8", "int8 full_fuse")),
+    for label, B, secs, paths in (("10 s", 32, 10, ("int8", "int8 full_fuse",
+                                                    "int8 int8_conv")),
                                   ("30 s", 8, 30, ("int8", "int8 full_fuse",
                                                    "int8 qkv_fuse"))):
         n = secs * SR
@@ -197,7 +203,19 @@ def main():
         kvl = torch.tensor([Tl, Tl, (Tl * 5) // 8, 1] * 2, dtype=torch.int32, device=dev)
         ms["K6 fused_qkv_attention_outproj, B=8 x 1499"] = twice(
             lambda: fa.fused_qkv_attention_outproj(qkv, xl, wo8, bo, kvl, H))
-        del qkv, xl
+        ctx, xl2 = fa._attention(qkv, kvl, H, out_f32=True), xl.view(-1, C)
+        try:
+            kc.int8_panel(ctx, *wo8, bo, residual=xl2)
+            ms["K6 stage out-proj (int8_panel, f32 rows)"] = twice(
+                lambda: kc.int8_panel(ctx, *wo8, bo, residual=xl2))
+        except TypeError:  # a checkout whose panel takes bf16 rows only
+            def pair():
+                a8, s_a = kc.quant_rows(ctx)
+                return kc.gemm_s8(a8, wo8[0], mode=kc.GEMM_LINEAR, row_scale=s_a,
+                                  col_scale=wo8[1], bias=bo, residual=xl2)
+
+            ms["K6 stage out-proj (quant_rows + gemm_s8)"] = twice(pair)
+        del qkv, xl, ctx, xl2
 
         mid, mid8 = [], []
         for i, (k, Tm) in enumerate(MID):
@@ -211,6 +229,9 @@ def main():
             lambda: [cf.fused_conv_ln_gelu(*m) for m in mid])
         ms["K13b fused_int8_conv_ln_gelu, six layers"] = twice(
             lambda: [cf.fused_int8_conv_ln_gelu(*m[:5], emit_q8=m[5]) for m in mid8])
+        for i, m in enumerate(mid8):
+            ms[f"K13b layer {i + 1} [{B}, {MID[i][1]}, 512] k={MID[i][0]}"] = twice(
+                lambda m=m: cf.fused_int8_conv_ln_gelu(*m[:5], emit_q8=m[5]))
     if args.forwards:
         ms.update(forwards(hub, dev, gen))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
