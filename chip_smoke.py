@@ -7,18 +7,25 @@ Phases (any failed check raises, so the exit code is not 0 and no result
 line is printed; each phase prints its seconds):
  1. require a CUDA device; print the card's name and power limit;
  2. build the CUDA kernels from csrc/ (into build/) and print the seconds;
-    for the wgmma kernels - the attention (gated_attention.cu: K1, K4,
-    K6-K11, K17; six instantiations), the int8 GEMM core (gemm_s8.cu: the
-    products of K2, K11 and of K1's, K6's and K12's wide-row route; three),
-    the int8 panel projection (int8_panel.cu: K1's and K12's projections on
-    bf16 rows, K6's out-proj on f32 rows; three), K13b's conv (int8_conv.cu;
-    one), the bf16 GEMM core (gemm_bf16.cu: K4's projections, K5, K14; one)
-    and K16a (posconv.cu; one) - print each instantiation's registers, stack and spills (ptxas -v,
-    nvcc.log) with any ptxas note that its wgmma were serialized, and its
-    HGMMA / IGMMA (wgmma) count in the SASS (cuobjdump), then each kernel's
-    dynamic shared memory and blocks per SM; fail unless each kernel has its
-    count of instantiations, on a stack frame, a spill or an instantiation
-    without wgmma;
+    for the tensor-core kernels - on wgmma the attention (gated_attention.cu:
+    K1, K4, K6-K11, K17; six instantiations), the int8 GEMM core (gemm_s8.cu:
+    the products of K2, K11 and of K1's, K6's and K12's wide-row route;
+    three), the int8 panel projection (int8_panel.cu: K1's and K12's
+    projections on bf16 rows, K6's out-proj on f32 rows; three), K13b's conv
+    (int8_conv.cu; one), the bf16 GEMM core (gemm_bf16.cu: K4's projections,
+    K5, K14; one) and K16a (posconv.cu; one); on mma.sync K3 / K13a on bf16
+    waves (conv0_ln_gelu.cu: erf, tanh, q8; three) - print each
+    instantiation's registers, stack and spills (ptxas -v, nvcc.log) with any
+    ptxas note that its wgmma were serialized, and its HGMMA / IGMMA (wgmma)
+    or HMMA (mma.sync) count in the SASS (cuobjdump); K3 / K13a's SASS
+    instructions a tile and the issue floor they set at B=32 x 10 s (every
+    instruction of the tile loop issued once per warp tile, one a clock on
+    each of an SM's 4 schedulers at the card's maximum SM clock); then each
+    kernel's shared memory and blocks per SM; fail unless each kernel has
+    its count of instantiations, on a stack frame, a spill or an
+    instantiation without its tensor-core products, and on any tensor-core
+    instruction in K3 / K13a's f32-wave instantiations (conv0_fma_kernel:
+    f32 FMAs; three, spills printed);
  3. each kernel against its plain PyTorch version on the same CUDA tensors,
     at the main paths' shapes with unit-scale inputs: cosine > 0.9995 and
     every element within max(3e-2, one bf16 step at the plain value) of
@@ -553,6 +560,12 @@ def attention_work(B, T, H, kv, Dh=64):
     return 4 * Dh * H * T * sum(min(n, T) for n in kv)
 
 
+def conv0_ops(wav):
+    """The type K3 / K13a's conv products run in: bf16 on the tensor cores
+    for bf16 waves, f32 FMAs for f32 waves."""
+    return "bf16" if wav.dtype == torch.bfloat16 else "f32"
+
+
 def kernel_bound(name, i, variant=0):
     """The bound of kernel `name` on the timing inputs `i` (each input byte
     read once, each output byte written once; K/V rows past kv_len and
@@ -567,7 +580,7 @@ def kernel_bound(name, i, variant=0):
     if name == "conv0_ln_gelu":
         B, N = i["wav"].shape
         frames = (N - 10) // 5 + 1
-        return bound({"f32": 2 * 10 * 512 * B * frames},
+        return bound({conv0_ops(i["wav"]): 2 * 10 * 512 * B * frames},
                      nbytes(i["wav"], i["conv_w"]) + B * frames * 512 * 2)
     if name == "gated_bias_attention_outproj":
         B, T, C3 = i["qkv"].shape
@@ -924,13 +937,14 @@ def check_k6_panel(inp):
 def frontend_bound(name, inp):
     """The bound of front-end kernel `name` over all of `inp` (K13a on the
     waves; the others over the mid layers as the paths run them): conv
-    products as operations of their type, K13a's as f32 FMAs (2 x 10 x 512
-    per frame, as K3's); the row epilogues' elementwise work is not
-    counted. Each input byte read once, each output byte written once."""
+    products as operations of their type, K13a's in the wave's type (2 x 10
+    x 512 per frame, as K3's: bf16 on the tensor cores); the row epilogues'
+    elementwise work is not counted. Each input byte read once, each output
+    byte written once."""
     B = inp["wav"].shape[0]
     if name == "conv0_ln_gelu_q8":
         frames = (inp["wav"].shape[1] - 10) // 5 + 1
-        return bound({"f32": 2 * 10 * 512 * B * frames},
+        return bound({conv0_ops(inp["wav"]): 2 * 10 * 512 * B * frames},
                      nbytes(inp["wav"], inp["w0"], *inp["ln0"]) + B * frames * (512 + 4))
     ops, moved = {}, 0
     for m in inp["mid"]:
@@ -1565,32 +1579,74 @@ def layer_cosines(a, b, h_lens):
 GATED_KINDS = ("no bias, split heads (K8, K17)", "bf16 bias (K9, K10)", "f32 bias (K9, K10)",
                "packed, bf16 out (K1, K4, K7)", "packed, f32 out (K6)",
                "gated, packed, f32 bias, f32 out (K11)")
-# the wgmma kernels (their SASS names contain these) -> their instantiations:
-# the attention (K1, K4, K6-K11, K17), the int8 GEMM core (kRaw, kQkv, kLinear:
-# K2, K11, and K1's, K6's and K12's wide-row route), the int8 panel projection
-# (kQkv and kLinear on bf16 rows: K1, K12; kLinear on f32 rows: K6), K13b's
-# conv (int8_conv.cu), the bf16 GEMM core (K4, K5, K14) and K16a
-WGMMA_KERNELS = {"gated_attention_kernel": len(GATED_KINDS), "gemm_s8_kernel": 3,
-                 "int8_panel_kernel": 3, "int8_conv_kernel": 1, "gemm_bf16_kernel": 1,
-                 "posconv_bf16_kernel": 1}
+# the tensor-core kernels (their SASS names contain these) -> (instantiations,
+# the SASS mnemonic of their products): the wgmma kernels (HGMMA / IGMMA) - the
+# attention (K1, K4, K6-K11, K17), the int8 GEMM core (kRaw, kQkv, kLinear: K2,
+# K11, and K1's, K6's and K12's wide-row route), the int8 panel projection (kQkv
+# and kLinear on bf16 rows: K1, K12; kLinear on f32 rows: K6), K13b's conv
+# (int8_conv.cu), the bf16 GEMM core (K4, K5, K14) and K16a - and K3 / K13a on
+# bf16 waves (conv0_ln_gelu.cu on mma.sync, HMMA: erf, tanh, q8)
+TENSOR_KERNELS = {"gated_attention_kernel": (len(GATED_KINDS), "GMMA"),
+                  "gemm_s8_kernel": (3, "GMMA"), "int8_panel_kernel": (3, "GMMA"),
+                  "int8_conv_kernel": (1, "GMMA"), "gemm_bf16_kernel": (1, "GMMA"),
+                  "posconv_bf16_kernel": (1, "GMMA"), "conv0_mma_kernel": (3, "HMMA")}
+# kernels that must not reach the tensor cores: K3 / K13a on f32 waves
+# (conv0_ln_gelu.cu: f32 FMAs; erf, tanh, q8)
+CUDA_CORE_KERNELS = {"conv0_fma_kernel": 3}
+SASS_PRODUCTS = {"GMMA": r"\b[HI]GMMA\.", "HMMA": r"\bHMMA\."}
+# conv0_ln_gelu.cu's instantiations, in the order of s3_conv0_occupancy's kinds
+CONV0_KINDS = ("bf16 waves, erf (K3)", "bf16 waves, tanh (K3)", "bf16 waves, q8 (K13a)",
+               "f32 waves, erf (K3)", "f32 waves, tanh (K3)", "f32 waves, q8 (K13a)")
 
 
-def wgmma_build_report(lib):
-    """The wgmma kernels as built: for each instantiation its registers and
-    spills (ptxas -v, from the build's nvcc.log), its count of HGMMA (wgmma)
-    instructions (cuobjdump -sass), and any ptxas note that its wgmma were
-    serialized; then each kernel's dynamic shared memory and blocks per SM
-    (the CUDA occupancy queries; K16a at k = 128). Fails unless each kernel
-    has its count of instantiations, on a stack frame or spill, or on an
-    instantiation without HGMMA."""
+def tile_loop_instructions(part):
+    """The SASS instructions of a kernel's tile loop (the span of its widest
+    backward branch), or None where no backward branch is found."""
+    import re
+
+    ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)
+    addr = [int(a, 16) for a, _ in ins]
+    spans = [sum(int(m.group(1), 16) <= x <= int(a, 16) for x in addr)
+             for a, t in ins for m in [re.search(r"BRA\s+0x([0-9a-f]+)", t)]
+             if m and int(m.group(1), 16) < int(a, 16)]
+    return max(spans, default=None)
+
+
+def conv0_issue_floor(per_tile, B=32, n=10 * SR):
+    """(ms, MHz): the least time K3 / K13a's bf16 kernel can take at B x n
+    samples when every SASS instruction of its tile loop (`per_tile`, run
+    once per warp tile of 8 frames) must issue: tiles x per_tile warp
+    instructions over the SMs' 4 schedulers each, one a clock at the card's
+    maximum SM clock (nvidia-smi)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    tiles = B * -(-((n - 10) // 5 + 1) // 8)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return tiles * per_tile / (sms * 4 * mhz * 1e6) * 1e3, mhz
+
+
+def build_report(lib):
+    """The tensor-core kernels as built: for each instantiation its
+    registers and spills (ptxas -v, from the build's nvcc.log), its count of
+    HGMMA / IGMMA (wgmma) or HMMA (mma.sync) instructions (cuobjdump -sass),
+    and any ptxas note that its wgmma were serialized; K3 / K13a's tile loop
+    in instructions and the issue floor it sets at B=32 x 10 s; then each
+    kernel's dynamic (conv0_ln_gelu.cu: static) shared memory and blocks per
+    SM (the CUDA occupancy queries; K16a at k = 128). Fails unless each
+    kernel has its count of instantiations, on a stack frame or spill, or on
+    an instantiation without its tensor-core products; and on any
+    tensor-core instruction in the f32 waves' conv0 kernel."""
     import ctypes
     import re
     from pathlib import Path
 
     from s3prl_tpu_torch.kernels import _build
 
+    kernels = {**TENSOR_KERNELS, **{k: (n, None) for k, n in CUDA_CORE_KERNELS.items()}}
+
     def kernel_of(name):
-        return next((k for k in WGMMA_KERNELS if k in name), None)
+        return next((k for k in kernels if k in name), None)
 
     lines = (Path(lib._name).parent / "nvcc.log").read_text().splitlines()
     ptxas = {}
@@ -1606,20 +1662,44 @@ def wgmma_build_report(lib):
             log(f"[build] ptxas: {line.strip()}")
     sass = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", lib._name],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    hgmma = {}  # wgmma in the SASS: HGMMA (bf16) or IGMMA (int8)
+    products, loop = {}, {}  # tensor-core instructions; conv0's tile loop
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
-        if kernel_of(name):
-            hgmma[name] = len(re.findall(r"\b[HI]GMMA\.", part))
-    for kernel, count in WGMMA_KERNELS.items():
+        kernel = kernel_of(name)
+        if kernel:  # the CUDA-core kernels: tensor-core instructions of any kind
+            mnemonic = kernels[kernel][1]
+            pattern = SASS_PRODUCTS[mnemonic] if mnemonic else "|".join(SASS_PRODUCTS.values())
+            products[name] = len(re.findall(pattern, part))
+        if kernel == "conv0_mma_kernel":
+            loop[name] = tile_loop_instructions(part)
+    for kernel, (count, _) in kernels.items():
         n_ptxas = sum(kernel_of(name) == kernel for name in ptxas)
-        n_sass = sum(kernel_of(name) == kernel for name in hgmma)
+        n_sass = sum(kernel_of(name) == kernel for name in products)
         check(n_ptxas == n_sass == count, f"{kernel}: {n_ptxas} instantiations in nvcc.log, "
               f"{n_sass} in the SASS, not {count}")
     for name, (regs, spills) in sorted(ptxas.items()):
+        mnemonic = kernels[kernel_of(name)][1]
+        what = {"GMMA": "HGMMA/IGMMA (wgmma)", "HMMA": "HMMA (mma.sync)",
+                None: "tensor-core instructions (f32 FMAs only)"}[mnemonic]
         log(f"[build] {name}: {regs} registers, {spills} bytes of stack and spills, "
-            f"{hgmma.get(name, 0)} HGMMA/IGMMA (wgmma) in its SASS")
-        check(spills == 0 and hgmma.get(name, 0) > 0, f"{name}: spills or no wgmma")
+            f"{products.get(name, 0)} {what} in its SASS")
+        if mnemonic is None:
+            check(products.get(name, 0) == 0, f"{name}: tensor-core instructions on f32 waves")
+        else:
+            check(spills == 0 and products.get(name, 0) > 0,
+                  f"{name}: spills or no tensor-core products")
+    for name, per_tile in sorted(loop.items()):
+        # the template arguments in the mangled name: int8 out (a), tanh mode (Lb1)
+        label = "K13a" if "conv0_mma_kernelIa" in name else \
+            f"K3 {'tanh' if 'Lb1' in name else 'erf'}"
+        if per_tile is None:
+            log(f"[build] {label}: tile loop not found in the SASS (issue floor not measured)")
+            continue
+        floor, mhz = conv0_issue_floor(per_tile)
+        log(f"[build] {label} (bf16 waves): {per_tile} SASS instructions in its tile loop "
+            f"({per_tile / 128:.1f} an element); issue floor at B=32 x 10 s "
+            f"{floor:.4f} ms (one warp instruction a clock on each of 4 schedulers an SM, "
+            f"{mhz:.0f} MHz)")
     library = _build.library()
     queries = [(f"gated_attention_kernel, {what}",
                 lambda s, b, kind=kind: library.s3_gated_attention_occupancy(kind, s, b))
@@ -1630,11 +1710,15 @@ def wgmma_build_report(lib):
                 ("gemm_bf16_kernel", library.s3_gemm_bf16_occupancy),
                 ("posconv_bf16_kernel, k = 128",
                  lambda s, b: library.s3_posconv_occupancy(128, s, b))]
+    queries += [(f"conv0_ln_gelu.cu, {what}",
+                 lambda s, b, kind=kind: library.s3_conv0_occupancy(kind, s, b))
+                for kind, what in enumerate(CONV0_KINDS)]
     for what, query in queries:
         smem, blocks = ctypes.c_int(), ctypes.c_int()
         err = query(ctypes.byref(smem), ctypes.byref(blocks))
         check(err == 0, f"occupancy query ({what}): CUDA error {err}")
-        log(f"[build] {what}: {smem.value} bytes of dynamic shared memory a block, "
+        kind = "static" if what.startswith("conv0") else "dynamic"
+        log(f"[build] {what}: {smem.value} bytes of {kind} shared memory a block, "
             f"{blocks.value} blocks per SM")
 
 
@@ -1724,7 +1808,7 @@ def main():
     with Phase("2 build"):
         lib = _build.library()
         log(f"[build] {lib._name}")
-        wgmma_build_report(lib)
+        build_report(lib)
 
     # 3. kernel vs plain at main-path shapes
     from s3prl_tpu_torch.kernels import _common as kc

@@ -155,26 +155,6 @@ __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, int parity) {
   }
 }
 
-// Division by a row's scale without IEEE division's slow-path call (whose
-// saves and restores spill beside the live sums): x / s rounded to f32
-// equals RN_f(x * r) for r a double within 2^-51 of 1 / s. (For f32 x and s
-// the exact quotient is either a float or more than 2^-49, relative, from
-// every midpoint between two floats: with x = X 2^a, s = S 2^b and a midpoint
-// m = M 2^c (X, S < 2^24, M < 2^25 odd), x - s m is a nonzero multiple of
-// 2^min(a, b + c); so x * r, within 2^-50.6 of x / s, rounds to the same
-// float.) r comes from the fast reciprocal (2^-22) and two Newton steps in
-// double.
-__device__ __forceinline__ double recip(float s) {
-  const double sd = s;
-  double r = __fdividef(1.f, s);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) r = fma(r, fma(-sd, r, 1.0), r);
-  return r;
-}
-__device__ __forceinline__ float div_by(float x, double r) {
-  return static_cast<float>(static_cast<double>(x) * r);
-}
-
 // The producer thread: per tile, every W stage of the block's channels in
 // (tap, K box) order, each into its ring slot once both warpgroups have
 // handed the slot back; the tile's A rows once the ring's first stages are

@@ -40,6 +40,8 @@ SIGNATURES = {
     "s3_conv0_ln_gelu": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # wav, weight, gamma, beta, q, scale, batch, n_samples, n_frames, is_bf16, stream
     "s3_conv0_ln_gelu_q8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # kind (0-2 bf16 waves: erf, tanh, q8; 3-5 f32 waves), &smem_bytes, &blocks_per_sm
+    "s3_conv0_occupancy": (_I, _P, _P),
     # x, x_is_f32, gamma, beta, tanh_mode, out, out_kind, scale, rows, stream
     "s3_ln_gelu": (_P, _I, _P, _P, _I, _P, _I, _P, _I, _P),
     # x, x_is_f32, gamma, beta, out, rows, cols, eps, stream

@@ -1283,6 +1283,77 @@ def test_k13a_kernel(dev, n, dtype):
     torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=0)
 
 
+# K3 and K13a (csrc/conv0_ln_gelu.cu) walk warp tiles of 8 frames: 10, 44, 45, 50 and
+# 219 samples give 1, 7, 8, 9 and 43 frames (the last tile ragged); at 54 samples the
+# last window runs past the wave (a ninth-frame tile whose frame 9 would need sample 54);
+# 16,007 samples give 3,200 frames
+CONV0_SAMPLES = [10, 44, 45, 50, 54, 219, 16007]
+# "<wave dtype>-<GELU mode>" (K3) or "<wave dtype>-q8" (K13a)
+CONV0_FORMS = ["bf16-erf", "bf16-tanh", "f32-erf", "f32-tanh", "bf16-q8", "f32-q8"]
+
+
+def _conv0_inputs(seed, B, n, dtype, dev):
+    rng = np.random.RandomState(seed)
+    wavs = _t(rng.randn(B, n), dev, dtype)
+    weight = _t(rng.randn(512, 1, 10) / np.sqrt(10), dev, dtype)
+    return (wavs, weight, *_ln(rng, dev, 512))
+
+
+def _conv0_run(args, form):
+    """One launch of K3 or K13a in `form` (CONV0_FORMS)."""
+    mode = form.split("-")[1]
+    return conv0_ln_gelu_q8(*args) if mode == "q8" else conv0_ln_gelu(*args, gelu_mode=mode)
+
+
+def _conv0_held(got, args, form):
+    """K3 at atol 1e-4 (f32) or by `_close_bf16`; K13a's codes within one step in at
+    most 0.1% of places and its scales at rtol 1e-5."""
+    mode = form.split("-")[1]
+    if mode == "q8":
+        want_q, want_s = conv0_ln_gelu_q8_reference(*args)
+        assert got[0].shape == want_q.shape and got[1].shape == want_s.shape
+        _codes_close(got[0], want_q)
+        torch.testing.assert_close(got[1], want_s, rtol=1e-5, atol=0)
+        return
+    want = conv0_ln_gelu_reference(*args, gelu_mode=mode)
+    assert got.shape == want.shape
+    if args[0].dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    else:
+        _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("n", CONV0_SAMPLES)
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("form", CONV0_FORMS)
+def test_conv0_kernel_tile_edges(dev, form, B, n):
+    """K3 (both GELU modes, bf16 and f32 waves) and K13a on the warp tile's edges
+    against their plain versions."""
+    dtype = torch.bfloat16 if form.startswith("bf16") else torch.float32
+    args = _conv0_inputs(31, B, n, dtype, dev)
+    got = _conv0_run(args, form)
+    torch.cuda.synchronize()
+    frames = (n - 10) // 5 + 1
+    assert (got[0] if form.endswith("q8") else got).shape == (B, frames, 512)
+    _conv0_held(got, args, form)
+
+
+@pytest.mark.parametrize("form", CONV0_FORMS)
+def test_conv0_kernel_walks_utterances_and_repeats(dev, form):
+    """B = 33 x 16,007 samples (400 tiles an utterance: every warp of the persistent
+    grid walks tiles of several utterances): two launches give the same bits, and
+    both hold against the plain version."""
+    dtype = torch.bfloat16 if form.startswith("bf16") else torch.float32
+    args = _conv0_inputs(33, 33, 16007, dtype, dev)
+    launches = (conv0_ln_gelu_q8 if form.endswith("q8") else conv0_ln_gelu).launches
+    first, second = _conv0_run(args, form), _conv0_run(args, form)
+    torch.cuda.synchronize()
+    assert (conv0_ln_gelu_q8 if form.endswith("q8") else conv0_ln_gelu).launches == launches + 2
+    for a, b in zip(*((first, second) if form.endswith("q8") else ((first,), (second,)))):
+        assert torch.equal(a, b)
+    _conv0_held(first, args, form)
+
+
 @pytest.mark.parametrize("shape,dtype", [((2, 15999, 512), torch.bfloat16),
                                          ((2, 999, 512), torch.bfloat16),
                                          ((3, 1, 512), torch.bfloat16),

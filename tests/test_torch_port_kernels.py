@@ -170,6 +170,19 @@ def test_build_hashes_every_source():
     assert len(_build._digest()) == 16
 
 
+def test_build_declares_every_c_entry():
+    """Every `extern "C"` entry of the sources has its ctypes argument types in
+    `_build.SIGNATURES` (an undeclared pointer would pass as a 32-bit int), and
+    every declared name is an entry; `s3_error_string` is typed apart."""
+    import re
+
+    entries = set()
+    for path in _build.sources():
+        entries |= set(re.findall(r'extern "C"[^(]*?\b(s3_\w+)\(', path.read_text()))
+    assert "s3_conv0_occupancy" in entries
+    assert entries == set(_build.SIGNATURES) | {"s3_error_string"}
+
+
 @pytest.mark.parametrize("fn,args", [
     ("lengths_after_conv1d", (10, 5)), ("lengths_after_conv1d", (3, 2)),
     ("upstream_feat_lengths", (320,)), ("upstream_feat_lengths", (160,))])

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times the GEMM blocks, K11 and K12 of one checkout of the PyTorch + CUDA port
-on one GPU, so that two commits can be compared on one card in one run.
+"""Times the kernels of one checkout of the PyTorch + CUDA port on one GPU, so
+that two commits can be compared on one card in one run.
 
     python3 tools/torch_kernel_ab.py [--root DIR] [--label NAME] [--out FILE]
 
@@ -21,19 +21,22 @@ events (mean of 10 after a warm-up, twice, averaged):
 - K11 `gated_bias_attention_outproj` at B=32 x 499, WavLM-Large's widths,
   with a contiguous f32 pos_bias and with the ``wavlm_fuse`` model's rows
   padded to a multiple of 4 floats (null where the checkout refuses it);
+- K3 `conv0_ln_gelu` (erf and tanh) and K13a `conv0_ln_gelu_q8` on B=32 x 10
+  s of bf16 waves;
 - K14 `fused_conv_ln_gelu` and K13b `fused_int8_conv_ln_gelu` (codes out but
   in the last layer) over the six mid layers of B=32 x 10 s, and K13b on
-  each layer alone;
+  each layer alone; K15 `ln_gelu` (tanh, as ``fused_midln`` under int8)
+  over the six mid layers' outputs;
 - K1's and K12's launches one by one, as the checkout makes them: on the
   int8 panel kernel (panel QKV, the attention, panel out-proj; K12 one
   panel launch), or, in a checkout without `_common.int8_panel`, on
   quant_rows.cu + gemm_s8.cu (x-quant, QKV, the attention, context quant,
   out-proj; K12 x-quant + GEMM), each stage fed the earlier stages' outputs;
-- with `--forwards`, ms per forward of HuBERT-Large int8 (`hub.load`, seed
-  0) by chip_smoke.py's protocol (chains of 5 and 15, best of 3, marginal)
-  at B=32 x 10 s and B=8 x 30 s: the default path, ``full_fuse`` at both,
-  ``qkv_fuse`` at 30 s (inert at 10 s), ``int8_conv`` at 10 s (K13a + six
-  K13b in the front end).
+- with `--forwards`, ms per forward of HuBERT-Large (`hub.load`, seed 0) by
+  chip_smoke.py's protocol (chains of 5 and 15, best of 3, marginal) at B=32
+  x 10 s and B=8 x 30 s: int8's default path (K3 tanh), ``full_fuse`` at
+  both, ``qkv_fuse`` at 30 s (inert at 10 s), ``int8_conv`` at 10 s (K13a +
+  six K13b in the front end), and bf16 at 10 s (K3 erf).
 Prints one JSON line {"label", "root", "device", "power_limit", "ms": {...}}
 and appends it to `--out` when given. Run it for the parent and the change
 in turns (parent, change, change, parent) to compare them on one card.
@@ -69,11 +72,11 @@ def twice(fn):
 
 
 def forwards(hub, dev, gen):
-    """ms per forward of HuBERT-Large int8 on its default path and the fused
-    projection options, chip_smoke.py's chain protocol."""
+    """ms per forward of HuBERT-Large int8 on its default path and the
+    options, and of bf16 at 10 s, chip_smoke.py's chain protocol."""
     out = {}
     for label, B, secs, paths in (("10 s", 32, 10, ("int8", "int8 full_fuse",
-                                                    "int8 int8_conv")),
+                                                    "int8 int8_conv", "bf16")),
                                   ("30 s", 8, 30, ("int8", "int8 full_fuse",
                                                    "int8 qkv_fuse"))):
         n = secs * SR
@@ -82,7 +85,7 @@ def forwards(hub, dev, gen):
         for path in paths:
             option = {p: True for p in path.split()[1:]}
             up = hub.load("hubert_large_ll60k", dtype=torch.bfloat16, flash=True,
-                          quantize=True, device=dev, seed=0, **option)
+                          quantize=path.split()[0] == "int8", device=dev, seed=0, **option)
             best = {it: min(it * cuda_ms(lambda: up.apply_standardized(wavs, lens), it)
                             for _ in range(3)) for it in (5, 15)}
             out[f"forward HuBERT {path} B={B} x {label}"] = (best[15] - best[5]) / 10
@@ -107,6 +110,7 @@ def main():
     from s3prl_tpu_torch.kernels import conv_frontend as cf
     from s3prl_tpu_torch.kernels import ffn as k5
     from s3prl_tpu_torch.kernels import flash_attention as fa
+    from s3prl_tpu_torch.kernels import ln_gelu as k15
     from s3prl_tpu_torch.models.wavlm import bucket_table
     from s3prl_tpu_torch.ops.quant import as_quantized_cols, quantize_rows
 
@@ -217,7 +221,15 @@ def main():
             ms["K6 stage out-proj (quant_rows + gemm_s8)"] = twice(pair)
         del qkv, xl, ctx, xl2
 
-        mid, mid8 = [], []
+        conv0 = (rnd(B, 10 * SR), rnd(512, 1, 10, scale=10 ** -0.5),
+                 1 + rnd(512, scale=0.1, dtype=torch.float32),
+                 rnd(512, scale=0.1, dtype=torch.float32))
+        for mode in ("erf", "tanh"):
+            ms[f"K3 conv0_ln_gelu {mode}, B={B} x 10 s"] = twice(
+                lambda m=mode: cf.conv0_ln_gelu(*conv0, gelu_mode=m))
+        ms[f"K13a conv0_ln_gelu_q8, B={B} x 10 s"] = twice(lambda: cf.conv0_ln_gelu_q8(*conv0))
+        del conv0
+        mid, mid8, mid15 = [], [], []
         for i, (k, Tm) in enumerate(MID):
             w = rnd(512, 512, k, scale=(512 * k) ** -0.5, dtype=torch.float32)
             g, b = 1 + rnd(512, scale=0.1, dtype=torch.float32), rnd(512, scale=0.1,
@@ -225,10 +237,13 @@ def main():
             xm = rnd(B, Tm, 512)
             mid.append((xm, cf.conv_gemm_weight(w.to(bf)), g, b))
             mid8.append((*quantize_rows(xm), cf.quantize_conv_taps(w), g, b, i < len(MID) - 1))
+            mid15.append((rnd(B, (Tm - k) // 2 + 1, 512, scale=2.0), g, b))
         ms["K14 fused_conv_ln_gelu, six layers"] = twice(
             lambda: [cf.fused_conv_ln_gelu(*m) for m in mid])
         ms["K13b fused_int8_conv_ln_gelu, six layers"] = twice(
             lambda: [cf.fused_int8_conv_ln_gelu(*m[:5], emit_q8=m[5]) for m in mid8])
+        ms["K15 ln_gelu tanh, six layers"] = twice(
+            lambda: [k15.ln_gelu(*m, "tanh") for m in mid15])
         for i, m in enumerate(mid8):
             ms[f"K13b layer {i + 1} [{B}, {MID[i][1]}, 512] k={MID[i][0]}"] = twice(
                 lambda m=m: cf.fused_int8_conv_ln_gelu(*m[:5], emit_q8=m[5]))
