@@ -13,7 +13,8 @@ line is printed; each phase prints its seconds):
     three), the int8 panel projection (int8_panel.cu: K1's and K12's
     projections on bf16 rows, K6's out-proj on f32 rows; three), K13b's conv
     (int8_conv.cu; one), the bf16 GEMM core (gemm_bf16.cu: K4's projections,
-    K5, K14; one) and K16a (posconv.cu; one); on mma.sync K3 / K13a on bf16
+    K5, K14; one), K16a (posconv.cu; one) and K16b (posconv.cu: bf16 and f32
+    x; two); on mma.sync K3 / K13a on bf16
     waves (conv0_ln_gelu.cu: erf, tanh, q8; three) - print each
     instantiation's registers, stack and spills (ptxas -v, nvcc.log) with any
     ptxas note that its wgmma were serialized, and its HGMMA / IGMMA (wgmma)
@@ -77,7 +78,9 @@ line is printed; each phase prints its seconds):
     share is printed); the pos-conv kernels K16a and K16b at B=4 x 499,
     B=4 x 1,499 and B=3 x 257 frames of HuBERT-Large's pos-conv (C 1024, k
     128, 16 groups),
-    K16b's activation codes and scales under the same rule; K17 on [4, 16,
+    K16b's activation codes and scales (`posconv_quant`, and the codes its
+    conv kernel writes into its windows: test mode) under the same rule;
+    K17 on [4, 16,
     499, 64] and on B=7 x 65 and 127 frames with kv_lens on the tile edges;
  4. the main paths at full width, HuBERT-Large (hub.load(
     "hubert_large_ll60k", bf16, flash, quantize=True) - the int8 serving
@@ -153,7 +156,9 @@ line is printed; each phase prints its seconds):
     The pos-conv options' paths at B=32 x 10 s and B=8 x 30 s; K16a and K16b
     at B=32 x 499 beside their plain versions, their bounds, one grouped
     bf16 F.conv1d with its bias (the library figure) and the stock
-    F.conv1d + bias + GELU chain they replace; K17 on [32, 16, 499, 64]
+    F.conv1d + bias + GELU chain they replace; K16b's quantizer alone
+    (`posconv_quant`: scales and codes) and its scale pass alone (the part
+    of K16b's launch before the conv); K17 on [32, 16, 499, 64]
     beside scaled_dot_product_attention. K17 runs on no main path (no model
     calls it): its launch count in the kernels line is 0.
 The line before the last is a JSON object of the kernels; the last line is
@@ -506,22 +511,27 @@ def posconv_calls(inps):
 
 
 def check_posconv_codes(inps):
-    """K16b's activation codes and scales (`posconv_quant`) against the
-    plain version's: codes equal except at most 0.1% one step apart,
-    scales at rtol 1e-5 (the share is printed)."""
+    """K16b's activation codes and scales against the plain version's: the
+    quantizer's (`posconv_quant`) and the codes the conv kernel writes into
+    its windows (test mode, with the scales of its scale pass): codes equal
+    except at most 0.1% one step apart, scales at rtol 1e-5 (the share is
+    printed)."""
     from s3prl_tpu_torch.kernels import posconv as pc
 
     for i in inps:
-        (q, xs), (q_ref, xs_ref) = pc.posconv_quant(i["x"], i["G"]), \
-            pc.quantize_posconv_input(i["x"], i["G"])
-        torch.cuda.synchronize()
-        d = (q.int() - q_ref.int()).abs()
-        share = float((d > 0).float().mean())
-        rel = float(((xs - xs_ref).abs() / xs_ref).max())
-        log(f"[int8 codes] pos_conv_gelu_q8 activations {list(q.shape)}: {share:.3e} of codes "
-            f"differ from the plain version's (max {int(d.max())} step), scales rel err "
-            f"{rel:.2e}")
-        check(int(d.max()) <= 1 and share <= 1e-3 and rel <= 1e-5, "K16b activation codes")
+        q_ref, xs_ref = pc.quantize_posconv_input(i["x"], i["G"])
+        in_conv = pc.pos_conv_gelu_q8(i["x"], i["w8"], i["bias"], i["G"], codes=True)[1:]
+        for what, (q, xs) in (("posconv_quant", pc.posconv_quant(i["x"], i["G"])),
+                              ("the conv's windows", in_conv)):
+            torch.cuda.synchronize()
+            d = (q.int() - q_ref.int()).abs()
+            share = float((d > 0).float().mean())
+            rel = float(((xs - xs_ref).abs() / xs_ref).max())
+            log(f"[int8 codes] pos_conv_gelu_q8 activations {list(q.shape)}, {what}: "
+                f"{share:.3e} of codes differ from the plain version's (max {int(d.max())} "
+                f"step), scales rel err {rel:.2e}")
+            check(int(d.max()) <= 1 and share <= 1e-3 and rel <= 1e-5,
+                  f"K16b activation codes ({what})")
 
 
 def k17_calls(inps):
@@ -1584,12 +1594,14 @@ GATED_KINDS = ("no bias, split heads (K8, K17)", "bf16 bias (K9, K10)", "f32 bia
 # attention (K1, K4, K6-K11, K17), the int8 GEMM core (kRaw, kQkv, kLinear: K2,
 # K11, and K1's, K6's and K12's wide-row route), the int8 panel projection (kQkv
 # and kLinear on bf16 rows: K1, K12; kLinear on f32 rows: K6), K13b's conv
-# (int8_conv.cu), the bf16 GEMM core (K4, K5, K14) and K16a - and K3 / K13a on
+# (int8_conv.cu), the bf16 GEMM core (K4, K5, K14), K16a and K16b (bf16, f32
+# x) - and K3 / K13a on
 # bf16 waves (conv0_ln_gelu.cu on mma.sync, HMMA: erf, tanh, q8)
 TENSOR_KERNELS = {"gated_attention_kernel": (len(GATED_KINDS), "GMMA"),
                   "gemm_s8_kernel": (3, "GMMA"), "int8_panel_kernel": (3, "GMMA"),
                   "int8_conv_kernel": (1, "GMMA"), "gemm_bf16_kernel": (1, "GMMA"),
-                  "posconv_bf16_kernel": (1, "GMMA"), "conv0_mma_kernel": (3, "HMMA")}
+                  "posconv_bf16_kernel": (1, "GMMA"), "posconv_q8_kernel": (2, "GMMA"),
+                  "conv0_mma_kernel": (3, "HMMA")}
 # kernels that must not reach the tensor cores: K3 / K13a on f32 waves
 # (conv0_ln_gelu.cu: f32 FMAs; erf, tanh, q8)
 CUDA_CORE_KERNELS = {"conv0_fma_kernel": 3}
@@ -1633,7 +1645,7 @@ def build_report(lib):
     and any ptxas note that its wgmma were serialized; K3 / K13a's tile loop
     in instructions and the issue floor it sets at B=32 x 10 s; then each
     kernel's dynamic (conv0_ln_gelu.cu: static) shared memory and blocks per
-    SM (the CUDA occupancy queries; K16a at k = 128). Fails unless each
+    SM (the CUDA occupancy queries; K16a and K16b at k = 128). Fails unless each
     kernel has its count of instantiations, on a stack frame or spill, or on
     an instantiation without its tensor-core products; and on any
     tensor-core instruction in the f32 waves' conv0 kernel."""
@@ -1709,7 +1721,9 @@ def build_report(lib):
                 ("int8_conv_kernel", library.s3_int8_conv_occupancy),
                 ("gemm_bf16_kernel", library.s3_gemm_bf16_occupancy),
                 ("posconv_bf16_kernel, k = 128",
-                 lambda s, b: library.s3_posconv_occupancy(128, s, b))]
+                 lambda s, b: library.s3_posconv_occupancy(128, s, b)),
+                ("posconv_q8_kernel, bf16 x, k = 128",
+                 lambda s, b: library.s3_posconv_q8_occupancy(128, s, b))]
     queries += [(f"conv0_ln_gelu.cu, {what}",
                  lambda s, b, kind=kind: library.s3_conv0_occupancy(kind, s, b))
                 for kind, what in enumerate(CONV0_KINDS)]
@@ -2108,6 +2122,12 @@ def main():
         t = (cuda_ms(stock_posconv, 10) + cuda_ms(stock_posconv, 10)) / 2
         log(f"[timing] pos-conv stock path it replaces B=32 x 499, grouped F.conv1d + bias + "
             f"GELU: {t:.3f} ms")
+        for what, fn in (("posconv_quant alone (scales and codes)",
+                          lambda: pc.posconv_quant(x, inp16["G"])),
+                         ("its scale pass alone (in K16b's launch)",
+                          lambda: pc._quant_launch(x, inp16["G"], codes=False))):
+            t = (cuda_ms(fn, 10) + cuda_ms(fn, 10)) / 2
+            log(f"[timing] K16b quantizer B=32 x 499 bf16, {what}: {t:.4f} ms")
         del inp16, x, w, b
         inp17 = gated_inputs(32, 499, gen, dev)
         time_kernels(k17_calls([inp17]), {"flash_attention": inp17}, "B=32", entries, launches,

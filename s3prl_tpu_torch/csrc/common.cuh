@@ -147,6 +147,33 @@ __device__ __forceinline__ float div_by(float x, double r) {
   return static_cast<float>(static_cast<double>(x) * r);
 }
 
+// x / s rounded to nearest, given rf = RN(1 / s): IEEE division's fast path
+// (the quotient by the reciprocal, then two residual corrections, each
+// residual exact as an FMA), which is correctly rounded while x, s and x / s
+// are normal; with the scales here (s >= 1e-8 / 127) a quotient outside
+// that range is below 2^-90 and codes to 0 either way. Five f32 operations,
+// where div_by's conversions to double would take the card's 16-a-clock
+// conversion rate per element (conv0_ln_gelu.cu's K13a, posconv.cu's K16b).
+__device__ __forceinline__ float div_rn(float x, float s, float rf) {
+  float q = __fmul_rn(x, rf);
+  q = __fmaf_rn(__fmaf_rn(-s, q, x), rf, q);
+  return __fmaf_rn(__fmaf_rn(-s, q, x), rf, q);
+}
+
+// The int8 codes of four values already divided by the row scale, packed
+// little-endian: rint by the float adder (v + 1.5 * 2^23 rounds half to
+// even and leaves rint(v) in the low bits; its low byte is the code). |v|
+// <= 127 + 2^-16 here (s = RN(max(absmax, 1e-8) / 127)), so the clip to [-127, 127]
+// of clip(rint(v)) never binds.
+__device__ __forceinline__ uint32_t pack_codes(float a, float b, float c, float d) {
+  constexpr float kMagic = 12582912.f;  // 1.5 * 2^23
+  const uint32_t lo = __byte_perm(__float_as_uint(__fadd_rn(a, kMagic)),
+                                  __float_as_uint(__fadd_rn(b, kMagic)), 0x0040);
+  const uint32_t hi = __byte_perm(__float_as_uint(__fadd_rn(c, kMagic)),
+                                  __float_as_uint(__fadd_rn(d, kMagic)), 0x0040);
+  return __byte_perm(lo, hi, 0x5410);
+}
+
 // 16-byte global -> shared copy that bypasses the registers; when `pred` is
 // false nothing is read and the 16 shared bytes are zero-filled (the ragged
 // edge of a tile).

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
 // (gated_attention.cu, gemm_s8.cu, gemm_bf16.cu, int8_panel.cu,
 // int8_conv.cu, posconv.cu): mbarriers, TMA tensor-map loads, the
-// 128-byte-swizzle wgmma descriptor, the wgmma fences and products, the
+// 128-byte-swizzle and unswizzled wgmma descriptors, named barriers and the
+// async-proxy fence, the wgmma fences and products, the
 // host-side cuTensorMapEncodeTiled lookup, the persistent GEMM skeleton that
 // the int8 and bf16 GEMMs share (namespace s3::gemm), and the int8 product
 // on 128-column tiles (at the end).
@@ -86,6 +87,27 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 __device__ __forceinline__ uint64_t desc128(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (64ull << 16) | (64ull << 32) |
          (1ull << 62);
+}
+
+// wgmma shared-memory descriptor of a K-major tile without swizzle: core
+// matrices of 8 rows x 16 bytes, each 128 contiguous bytes, `lbo` bytes
+// between the two core matrices along K (the 16-byte halves of a 32-byte K
+// step) and `sbo` between 8-row groups along M or N. The start address needs
+// only 16-byte alignment, so a tile can begin at any row of a layout whose
+// 16-byte chunks of K are stored as columns of rows (posconv.cu's window).
+__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// Named barrier `id` (0 is __syncthreads) of n threads.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+// Orders this thread's shared-memory stores before later reads of the async
+// proxy (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -445,6 +467,19 @@ inline cudaError_t occupancy(Kernel kernel, int* smem_bytes, int* blocks_per_sm)
 }
 
 }  // namespace gemm
+
+// d += A B over 32 bytes of K: A [64 rows, 32 bytes] int8 in registers (the
+// m64nNk32 A fragment: ldmatrix's four 8x8 b16 matrices of rows 0-7 / 8-15 x
+// bytes 0-15 / 16-31), B [256 columns, 32 bytes] K-major in shared memory;
+// exact int32 sums (posconv.cu's K16b).
+__device__ __forceinline__ void wgmma_n256_rs(int (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " S3_ACC128
+      ", {%128, %129, %130, %131}, %132, p;\n}\n"
+      : S3_OUT128("+r", d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
 
 // ---- int8 products on 128-column tiles (int8_panel.cu, int8_conv.cu) ----
 

@@ -9,7 +9,8 @@
 //     int8 codes of x with one scale xs per (utterance, group), int8 weight
 //     codes with one scale ws per (group, out channel), exact int32 sums, then
 //     y = f32(acc) * f32(xs * ws) + bias, erf GELU, one cast to x's dtype
-//     (bf16 or f32). posconv_quant_kernel writes the codes and xs first.
+//     (bf16 or f32). posconv_quant_kernel finds xs first; the conv kernel
+//     writes the codes into its own window.
 //
 // out[b, t, g*64 + n] = GELU(sum_{j < k, c < 64} x[b, t + j - k/2, g*64 + c]
 //                             * w[g, n, j*64 + c] + bias[g*64 + n])
@@ -20,7 +21,8 @@
 // `quantize_posconv_weight`).
 //
 // Bound: tensor-core throughput (HuBERT-Large at B = 32 x 10 s: 2 * 15,968
-// rows * 8,192 * 1,024 = 0.27 TFLOP, against 41 MB of x, out and weights).
+// rows * 8,192 * 1,024 = 0.27 TFLOP, against 41 MB of x, out and weights;
+// 0.135 ms at 1,979 TOP/s int8, 0.271 at 989 TFLOP/s bf16).
 // The TPU kernel feeds its matrix unit long-K GEMMs from a TC-wide shift
 // stack built in HBM. Here a block owns a run of output frames of one
 // (utterance, group) and keeps their whole input window, frames + k - 1 rows
@@ -46,21 +48,37 @@
 // (wait_group 1). The epilogue applies bias and GELU straight from the
 // accumulator registers.
 //
-// K16b, posconv_q8_kernel (WMMA, int8): one block owns 128 output frames; 8
-// warps (4 along the frames x 2 along the 64 output channels) each hold a
-// 32 x 32 accumulator of WMMA 16x16x16 fragments; 4 taps of weights a stage
-// through a two-stage cp.async pipeline. A WMMA fragment must start 32-byte
-// aligned at any row, so the int8 window is 4 slabs of 16 channels, each row
-// in a 32-byte cell. The epilogue stages one 16x16 fragment per warp in
-// shared memory and writes 8 channels a lane. Its move to the register-A
-// wgmma design above is later work.
-#include <mma.h>
-
+// K16b, posconv_q8_kernel (wgmma, int8, the transposed form): products D[64
+// n, frames] = W_j[64 n, 64 c] X[frames + j, 64 c]^T, so the tap's weight is
+// the register A operand (ldmatrix from the TMA ring, once a tap for 256
+// frames) and the window is the shared B operand of wgmma m64n256k32, which
+// int8 needs K-major: a frame's 64 channel bytes. A descriptor cannot start
+// a swizzled tile at an arbitrary row, so the window is unswizzled and
+// stored chunk-major (each 16-byte chunk of channels a column of rows): the
+// 8 rows of a core matrix are 128 contiguous bytes from any start row, the
+// descriptor's stride between 8-row groups 128 bytes and between the two
+// chunks of a k32 step one column (`desc_plain`). A block owns 512 frames
+// (a whole 10 s utterance, T' = 499, so each group's weights are read from
+// L2 once an utterance): two consumer warpgroups of 256 frames, 128 int32
+// accumulators a thread. Per tap a warpgroup reads 16 KB of window and 4
+// KB of weight fragments from shared memory against 256 clocks of products
+// (K16a's form, frames as A, reads 32 KB per 256 frames: as busy as the
+// tensor cores). The consumers build the window first: x (bf16 or f32) is
+// read once, divided by xs (`div_rn`: IEEE division's fast path, f32 only;
+// `div_by`'s conversions to double ran at the card's conversion rate) and
+// rounded half to even by the float adder (`pack_codes`), zeros outside [0,
+// T); the code tensor never reaches device memory. One producer thread streams the
+// taps by TMA (two taps a 128-byte swizzled box, four taps a stage, a ring
+// of four), its warpgroup giving its registers to the consumers (setmaxnreg
+// 40 / 232; at the launch bound's 168 ptxas spilled and serialized the
+// wgmma); the next tap's fragments load while this tap's products run
+// (wait_group 1). The accumulator is [channels, frames], so the epilogue
+// (scale, bias, GELU and the cast, from the registers) stages 64 frames at
+// a time in the freed ring and writes whole 16-byte runs of output rows.
 #include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using namespace s3;
 
 constexpr int kCg = 64;  // channels per group
@@ -83,9 +101,10 @@ __host__ __device__ constexpr int smem_bf16(int k) {  // window, ring, barriers,
   return window_boxes(k) * kBoxBytes + kStagesBf * kStageBytesBf + 8 * (1 + 2 * kStagesBf) + 1024;
 }
 
-// The m64nNk16 A fragment of 16 window rows (this warp's) at 16 channels:
-// lane l addresses row `row` (its row of the four 8x8 matrices) and 16-byte
-// chunk `chunk` of the swizzled window.
+// A register A fragment (m64nNk16 bf16 or m64nNk32 int8: 16 rows x 32
+// bytes) from a tile of 128-byte rows in the 128-byte swizzle (K16a's
+// window, K16b's tap boxes): lane l addresses row `row` (its row of the four
+// 8x8 matrices) and 16-byte chunk `chunk`.
 __device__ __forceinline__ void ldmatrix_a(uint32_t (&a)[4], uint32_t win, int row, int chunk) {
   const uint32_t addr = win + row * 128 + ((chunk ^ (row & 7)) << 4);
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -222,141 +241,220 @@ __global__ void __launch_bounds__(kThreadsBf, 1)
   }
 }
 
-// ---- K16b: int8, WMMA ----
-constexpr int kBM = 128;       // output frames per block
-constexpr int kThreads = 256;  // 8 warps: 4 along the frames x 2 along the channels
-constexpr int kWM = 32, kWN = 32;
-constexpr int kFM = kWM / 16, kFN = kWN / 16;
-// window [4 slabs][rows][32-byte cell]; a stage holds 4 taps of weights as
-// [16 slabs][64 channels][16 bytes]
-constexpr int kSlabs = kCg / 16;
-constexpr int kCell = 32;
-constexpr int kTapsQ8 = 4;
-constexpr int kStageQ8 = kTapsQ8 * kSlabs * kCg * 16;
+// ---- K16b: int8, wgmma, the transposed form ----
+constexpr int kFramesQ8 = 512;    // output frames per block
+constexpr int kWgFrames = 256;    // a consumer warpgroup's: the N of m64n256k32
+constexpr int kThreadsQ8 = (kConsumers + 1) * 128;  // + the producer warpgroup
+constexpr int kTapBytesQ8 = kCg * kCg;  // one tap's [64 n, 64 c] int8 tile
+constexpr int kTapsStageQ8 = 4;         // two TMA boxes [64 n, 128 bytes] of two taps each
+constexpr int kStagesQ8 = 4;
+constexpr int kStageBytesQ8 = kTapsStageQ8 * kTapBytesQ8;  // 16 KB
+constexpr int kRingBytesQ8 = kStagesQ8 * kStageBytesQ8;
+constexpr int kEpiFrames = 64;  // frames a warpgroup stages per epilogue step
+constexpr int kBarConsumers = 1, kBarGroup = 2;  // named barriers (0 is __syncthreads)
 
-__host__ __device__ constexpr int window_bytes_q8(int rows) { return kSlabs * rows * kCell; }
+// Window rows (frames + k - 1), padded to 4 past a multiple of 8 so that a
+// column of 16-byte chunks is 64 bytes past a multiple of 128: the window's
+// build then writes two columns' rows in one bank wavefront.
+__host__ __device__ constexpr int window_rows_q8(int k) {
+  return kFramesQ8 + k - 1 + (12 - (kFramesQ8 + k - 1) % 8) % 8;
+}
+// ring, window, barriers, alignment slack; the epilogue's staging (4
+// buffers of 64 rows of 64 channels, padded) reuses the ring and the window
+__host__ __device__ constexpr int smem_q8(int k) {
+  return 1024 + kRingBytesQ8 + 4 * window_rows_q8(k) * 16 + 8 * 2 * kStagesQ8;
+}
 
-__global__ void __launch_bounds__(kThreads)
-    posconv_q8_kernel(const int8_t* __restrict__ x_, const int8_t* __restrict__ w_,
+// Tap tt's A fragments (the two k32 steps of its 64 channels) from a stage:
+// rows `row` of the tap's [64 n, 64 c] tile in the 128-byte swizzle, two
+// taps a 128-byte row.
+__device__ __forceinline__ void load_tap_w(uint32_t (&a)[2][4], uint32_t stage, int row, int hi,
+                                           int tt) {
+  const uint32_t box = stage + (tt / 2) * 2 * kTapBytesQ8;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) ldmatrix_a(a[kk], box, row, 4 * (tt % 2) + 2 * kk + hi);
+}
+
+// One tap's products: the weight fragments against 256 window rows from
+// row address `rows` (column of chunk 0; the k32 step kk starts at column
+// 2 kk).
+__device__ __forceinline__ void mma_tap_q8(int (&acc)[128], const uint32_t (&a)[2][4],
+                                           uint32_t rows, int cs) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) wgmma_n256_rs(acc, a[kk], desc_plain(rows + 2 * kk * cs, cs, 128));
+}
+
+__device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_one(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <typename In>
+__global__ void __launch_bounds__(kThreadsQ8, 1)
+    posconv_q8_kernel(const In* __restrict__ x, const __grid_constant__ CUtensorMap tm_w,
                       const float* __restrict__ bias, const float* __restrict__ xs,
-                      const float* __restrict__ ws, void* __restrict__ out, int out_f32, int T,
-                      int k) {
-  extern __shared__ __align__(128) unsigned char smem[];
+                      const float* __restrict__ ws, In* __restrict__ out,
+                      int8_t* __restrict__ codes, int T, int k) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;  // the swizzle pattern repeats every 1024 bytes
+  unsigned char* ring_p = smem_raw + (ring - raw);
+  const int rows = window_rows_q8(k), cs = rows * 16;  // cs: bytes between chunk columns
+  const uint32_t win = ring + kRingBytesQ8;
+  unsigned char* win_p = ring_p + kRingBytesQ8;
+  const uint32_t full = win + 4 * cs, empty = full + 8 * kStagesQ8;
+  const int t0 = blockIdx.x * kFramesQ8, b = blockIdx.y, g = blockIdx.z, G = gridDim.z;
+  const int C = G * kCg, n_stages = k / kTapsStageQ8, pad = k / 2;
+  const int tid = threadIdx.x;
 
-  const int t0 = blockIdx.x * kBM, b = blockIdx.y, g = blockIdx.z, G = gridDim.z;
-  const int C = G * kCg, K = k * kCg, rows = kBM + k - 1, pad = k / 2;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int8_t* x = x_ + static_cast<size_t>(b) * T * C + g * kCg;
-  const int8_t* w = w_ + static_cast<size_t>(g) * kCg * K;
-  unsigned char* win = smem;
-  unsigned char* stages = smem + window_bytes_q8(rows);
-
-  // the window: row p holds input frame t0 + p - pad (zeros outside [0, T))
-  constexpr int kChunks = kCg / 16;  // 16-byte chunks a row
-  for (int i = tid; i < rows * kChunks; i += kThreads) {
-    const int p = i / kChunks, c = i % kChunks, tin = t0 + p - pad;
-    const bool ok = tin >= 0 && tin < T;
-    const int8_t* src = ok ? x + static_cast<size_t>(tin) * C + c * 16 : x;
-    cp_async16(win + (c * rows + p) * kCell, src, ok);
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStagesQ8; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // one stage: taps j0 .. j0 + kTapsQ8 - 1 of the 64 output channels' weights
-  auto load_stage = [&](int s, int j0) {
-    unsigned char* dst0 = stages + s * kStageQ8;
-    constexpr int kPerRow = kTapsQ8 * kCg / 16;
-    for (int i = tid; i < kCg * kPerRow; i += kThreads) {
-      const int n = i / kPerRow, c = i % kPerRow;
-      cp_async16(dst0 + (c * kCg + n) * 16, w + static_cast<size_t>(n) * K + j0 * kCg + c * 16,
-                 true);
-    }
-  };
-  load_stage(0, 0);
-  cp_async_commit();  // the window and the first stage
+  __syncthreads();
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[kFM][kFN];
+  // The launch bound leaves 168 registers a thread; the producer gives most
+  // of its warpgroup's back, so the consumers' 128 accumulators, the two
+  // taps' fragments and the window build fit in 232 without spills or
+  // serialized wgmma.
+  if (tid >= kConsumers * 128) {  // the producer warpgroup: one thread streams the taps
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == kConsumers * 128) {
+      for (int st = 0; st < n_stages; ++st) {
+        const int s = st % kStagesQ8;
+        mbar_wait(empty + 8 * s, ((st / kStagesQ8) & 1) ^ 1);  // a fresh ring passes
+        mbar_expect_tx(full + 8 * s, kStageBytesQ8);
 #pragma unroll
-  for (int i = 0; i < kFM; ++i)
-#pragma unroll
-    for (int j = 0; j < kFN; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-  const int n_stages = k / kTapsQ8;
-  for (int st = 0; st < n_stages; ++st) {
-    if (st + 1 < n_stages) {
-      load_stage((st + 1) & 1, (st + 1) * kTapsQ8);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const unsigned char* bs = stages + (st & 1) * kStageQ8;
-#pragma unroll
-    for (int tt = 0; tt < kTapsQ8; ++tt) {
-      const int j = st * kTapsQ8 + tt;  // tap: frame t reads window row t - t0 + j
-#pragma unroll
-      for (int kk = 0; kk < kCg / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> af[kFM];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> bfr[kFN];
-#pragma unroll
-        for (int i = 0; i < kFM; ++i) {
-          const int p = wm * kWM + i * 16 + j;
-          wmma::load_matrix_sync(
-              af[i], reinterpret_cast<const signed char*>(win + (kk * rows + p) * kCell), kCell);
-        }
-#pragma unroll
-        for (int jn = 0; jn < kFN; ++jn) {
-          const int n0 = wn * kWN + jn * 16;
-          wmma::load_matrix_sync(
-              bfr[jn],
-              reinterpret_cast<const signed char*>(bs + ((tt * kSlabs + kk) * kCg + n0) * 16), 16);
-        }
-#pragma unroll
-        for (int i = 0; i < kFM; ++i)
-#pragma unroll
-          for (int jn = 0; jn < kFN; ++jn) wmma::mma_sync(acc[i][jn], af[i], bfr[jn], acc[i][jn]);
+        for (int h = 0; h < 2; ++h)
+          tma_load_2d(ring + s * kStageBytesQ8 + h * 2 * kTapBytesQ8, &tm_w,
+                      (st * kTapsStageQ8 + 2 * h) * kCg, g * kCg, full + 8 * s);
       }
     }
-    __syncthreads();  // this stage is refilled two steps on; the window is reused below
+    return;
   }
 
-  // Epilogue: a 16x16 staging square per warp in the (consumed) window.
-  int* stage = reinterpret_cast<int*>(smem) + warp * 256;
-  const int r = lane / 2, c0 = (lane % 2) * 8;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  // The window: row p holds the codes of input frame t0 + p - k/2 (zeros
+  // outside [0, T)), chunk c of its 64 channels at c * cs + p * 16. Eight
+  // threads a row, eight channels each; test mode also writes the codes of
+  // the block's own frames.
   const float x_scale = xs[b * G + g];
+  const float rf = div_by(1.f, recip(x_scale));  // RN(1 / xs)
+  const In* xb = x + static_cast<size_t>(b) * T * C + g * kCg;
+  for (int i = tid; i < (kFramesQ8 + k - 1) * 8; i += kConsumers * 128) {
+    const int p = i / 8, q = i % 8, t = t0 + p - pad;
+    uint2 packed = make_uint2(0, 0);
+    if (t >= 0 && t < T) {
+      float y[8];
+      load8(xb + static_cast<size_t>(t) * C + 8 * q, y);
+      packed = make_uint2(
+          pack_codes(div_rn(y[0], x_scale, rf), div_rn(y[1], x_scale, rf),
+                     div_rn(y[2], x_scale, rf), div_rn(y[3], x_scale, rf)),
+          pack_codes(div_rn(y[4], x_scale, rf), div_rn(y[5], x_scale, rf),
+                     div_rn(y[6], x_scale, rf), div_rn(y[7], x_scale, rf)));
+      if (codes != nullptr && p - pad < kFramesQ8 && p >= pad)
+        *reinterpret_cast<uint2*>(codes + (static_cast<size_t>(b) * T + t) * C + g * kCg +
+                                  8 * q) = packed;
+    }
+    *reinterpret_cast<uint2*>(win_p + (q / 2) * cs + p * 16 + (q % 2) * 8) = packed;
+  }
+  fence_async_shared();
+  bar_sync(kBarConsumers, kConsumers * 128);
+
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const bool signals = tid % 128 == 0;  // hands the warpgroup's stages back
+  // ldmatrix: lane l addresses row l % 8 of matrix l / 8 (rows + 8 for odd
+  // matrices, bytes + 16 for the last two)
+  const int arow = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, hi = lane >> 4;
+  const uint32_t frames = win + wg * kWgFrames * 16;  // this warpgroup's window rows at tap 0
+  int acc[128];
 #pragma unroll
-  for (int i = 0; i < kFM; ++i) {
+  for (int i = 0; i < 128; ++i) acc[i] = 0;
+  uint32_t a_even[2][4], a_odd[2][4];  // the weight fragments of even and odd taps
+  mbar_wait(full, 0);
+  load_tap_w(a_even, ring, arow, hi, 0);
+  for (int st = 0; st < n_stages; ++st) {
 #pragma unroll
-    for (int jn = 0; jn < kFN; ++jn) {
-      wmma::store_matrix_sync(stage, acc[i][jn], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int t = t0 + wm * kWM + i * 16 + r;
-      const int n = wn * kWN + jn * 16 + c0;
-      if (t < T) {
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int ch = g * kCg + n + e;
-          float y = static_cast<float>(stage[r * 16 + c0 + e]);
-          y = __fmul_rn(y, __fmul_rn(x_scale, ws[ch]));  // f32(acc) * f32(xs * ws)
-          v[e] = gelu_erf(__fadd_rn(y, bias[ch]));
-        }
-        const size_t off = (static_cast<size_t>(b) * T + t) * C + g * kCg + n;
-        if (out_f32) {
-          store8(static_cast<float*>(out) + off, v);
-        } else {
-          store8(static_cast<bf16*>(out) + off, v);
-        }
+    for (int tt = 0; tt < kTapsStageQ8; ++tt) {
+      const int j = st * kTapsStageQ8 + tt;  // frame t reads window row t - t0 + j
+      wg_fence();
+      if (tt % 2 == 0) {
+        mma_tap_q8(acc, a_even, frames + j * 16, cs);
+      } else {
+        mma_tap_q8(acc, a_odd, frames + j * 16, cs);
       }
-      __syncwarp();
+      wg_commit();
+      wg_wait_one();  // tap j - 1's products are done: its fragments are free
+      // every warp loaded stage st - 1's fragments before its last products
+      if (tt == 0 && st > 0 && signals) mbar_arrive(empty + 8 * ((st - 1) % kStagesQ8));
+      if (tt + 1 < kTapsStageQ8) {
+        const uint32_t w_s = ring + (st % kStagesQ8) * kStageBytesQ8;
+        if (tt % 2 == 0) {
+          load_tap_w(a_odd, w_s, arow, hi, tt + 1);
+        } else {
+          load_tap_w(a_even, w_s, arow, hi, tt + 1);
+        }
+      } else if (st + 1 < n_stages) {
+        const int s = (st + 1) % kStagesQ8;
+        mbar_wait(full + 8 * s, ((st + 1) / kStagesQ8) & 1);
+        load_tap_w(a_even, ring + s * kStageBytesQ8, arow, hi, 0);
+      }
+    }
+  }
+  wg_wait_all();
+  fence_regs(acc);
+  bar_sync(kBarConsumers, kConsumers * 128);  // the ring and the window are free
+
+  // Epilogue: this thread holds channels n0 and n0 + 8 of frames 8 i + 2
+  // tig + {0, 1} (i < 32). y = f32(acc) * f32(xs * ws) + bias, erf GELU,
+  // one cast; staged through shared memory 64 frames at a time (two
+  // buffers a warpgroup, rows padded by 16 bytes: conflict-free writes),
+  // then written as whole 16-byte runs of each output row.
+  const int gid = lane / 4, tig = lane % 4, n0 = warp * 16 + gid;
+  float sc[2], bs[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sc[h] = __fmul_rn(x_scale, ws[g * kCg + n0 + 8 * h]);
+    bs[h] = bias[g * kCg + n0 + 8 * h];
+  }
+  constexpr int kRowBytes = kCg * sizeof(In) + 16, kBufBytes = kEpiFrames * kRowBytes;
+  constexpr int kRuns = kCg * sizeof(In) / 16;  // 16-byte runs an output row
+  unsigned char* bufs = ring_p + wg * 2 * kBufBytes;
+  unsigned char* orow0 = reinterpret_cast<unsigned char*>(
+      out + static_cast<size_t>(b) * T * C + g * kCg);
+#pragma unroll
+  for (int c = 0; c < kWgFrames / kEpiFrames; ++c) {
+    unsigned char* buf = bufs + (c % 2) * kBufBytes;
+#pragma unroll
+    for (int i = 0; i < kEpiFrames / 8; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int h = r / 2, f = 8 * i + 2 * tig + r % 2;
+        const float y = __fmul_rn(static_cast<float>(acc[4 * (8 * c + i) + r]), sc[h]);
+        store_one(reinterpret_cast<In*>(buf + f * kRowBytes) + n0 + 8 * h,
+                  gelu_erf(__fadd_rn(y, bs[h])));
+      }
+    bar_sync(kBarGroup + wg, 128);  // the buffer is written (and the one before it read)
+    const int tf = t0 + wg * kWgFrames + c * kEpiFrames;
+    for (int e = tid % 128; e < kEpiFrames * kRuns; e += 128) {
+      const int f = e / kRuns, q = e % kRuns;
+      if (tf + f < T)
+        *reinterpret_cast<uint4*>(orow0 + static_cast<size_t>(tf + f) * C * sizeof(In) + q * 16) =
+            *reinterpret_cast<const uint4*>(buf + f * kRowBytes + q * 16);
     }
   }
 }
 
-// K16b's activation codes: one block per (group, utterance) finds the absmax
-// of x[b, :, g*64 : g*64 + 64] over all T frames (the padding of the TPU's
-// shift stack adds only zeros), xs = max(absmax, 1e-8) / 127 (a true
-// division), then writes q = clip(rint(x / xs), -127, 127) (half to even) in
-// x's layout [B, T, C]. The slice is read twice; the second read hits L2.
+// K16b's activation scales and (for posconv_quant) codes: one block per
+// (group, utterance) finds the absmax of x[b, :, g*64 : g*64 + 64] over all
+// T frames (the padding of the TPU's shift stack adds only zeros), xs =
+// max(absmax, 1e-8) / 127 (a true division); with q given it then writes q
+// = clip(rint(x / xs), -127, 127) (half to even) in x's layout [B, T, C]
+// (the slice read a second time, from L2). The conv kernel takes xs alone
+// and quantizes its window itself.
+constexpr int kThreads = 256;
 template <typename In>
 __global__ void __launch_bounds__(kThreads)
     posconv_quant_kernel(const In* __restrict__ x, int8_t* __restrict__ q,
@@ -380,6 +478,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kThreads / 32; ++i) amax = fmaxf(amax, red[i]);
   const float s = fmaxf(amax, 1e-8f) / 127.f;
   if (threadIdx.x == 0) xs[b * G + g] = s;
+  if (q == nullptr) return;
   for (int i = threadIdx.x; i < n; i += kThreads) {
     const size_t off = base + static_cast<size_t>(i / 8) * C + (i % 8) * 8;
     float v[8];
@@ -418,19 +517,59 @@ int launch_bf16(const void* x, const void* w, const float* bias, bf16* out, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// K16a's dynamic shared memory and blocks resident per SM at k taps.
-extern "C" int s3_posconv_occupancy(int k, int* smem_bytes, int* blocks_per_sm) {
-  *smem_bytes = smem_bf16(k);
-  cudaError_t err = cudaFuncSetAttribute(
-      posconv_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bf16(k));
+// K16b: w int8 [G, 64, k * 64] by TMA, boxes of 64 rows x 128 bytes (two
+// taps) in the 128-byte swizzle; x and out of type In.
+template <typename In>
+int launch_q8_as(const void* x, const void* w, const float* bias, const float* xs,
+                 const float* ws, void* out, int8_t* codes, int batch, int T, int C, int k,
+                 cudaStream_t stream) {
+  const cuuint64_t w_dims[2] = {static_cast<cuuint64_t>(k) * kCg, static_cast<cuuint64_t>(C)};
+  const cuuint64_t w_strides[1] = {static_cast<cuuint64_t>(k) * kCg};
+  const cuuint32_t w_box[2] = {2 * kCg, kCg};
+  CUtensorMap tm_w;
+  cudaError_t err =
+      swizzled_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, w_dims, w_strides, w_box);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, posconv_bf16_kernel,
-                                                        kThreadsBf, smem_bf16(k));
+    err = cudaFuncSetAttribute(posconv_q8_kernel<In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_q8(k));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((T + kFramesQ8 - 1) / kFramesQ8, batch, C / kCg);
+  posconv_q8_kernel<In><<<grid, kThreadsQ8, smem_q8(k), stream>>>(
+      static_cast<const In*>(x), tm_w, bias, xs, ws, static_cast<In*>(out), codes, T, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_q8(const void* x, const void* w, const void* bias, const void* xs, const void* ws,
+              void* out, int x_is_f32, void* codes, int batch, int T, int C, int k,
+              cudaStream_t stream) {
+  auto launch = x_is_f32 ? launch_q8_as<float> : launch_q8_as<bf16>;
+  return launch(x, w, static_cast<const float*>(bias), static_cast<const float*>(xs),
+                static_cast<const float*>(ws), out, static_cast<int8_t*>(codes), batch, T, C, k,
+                stream);
+}
+
+template <typename Kernel>
+int occupancy(Kernel kernel, int threads, int smem, int* smem_bytes, int* blocks_per_sm) {
+  *smem_bytes = smem;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads, smem);
   return static_cast<int>(err);
 }
 
+}  // namespace
+
+// K16a's and K16b's (bf16 x) dynamic shared memory and blocks resident per
+// SM at k taps.
+extern "C" int s3_posconv_occupancy(int k, int* smem_bytes, int* blocks_per_sm) {
+  return occupancy(posconv_bf16_kernel, kThreadsBf, smem_bf16(k), smem_bytes, blocks_per_sm);
+}
+extern "C" int s3_posconv_q8_occupancy(int k, int* smem_bytes, int* blocks_per_sm) {
+  return occupancy(posconv_q8_kernel<bf16>, kThreadsQ8, smem_q8(k), smem_bytes, blocks_per_sm);
+}
+
+// K16b's activation scales xs [B, G] of x [B, T, C] (bf16 or f32) and, where
+// q is given, its codes q [B, T, C] int8 (posconv_quant).
 extern "C" int s3_posconv_quant(const void* x, int x_is_f32, void* q, void* xs, int batch, int T,
                                 int C, void* stream) {
   const dim3 grid(C / kCg, batch);
@@ -445,9 +584,11 @@ extern "C" int s3_posconv_quant(const void* x, int x_is_f32, void* q, void* xs, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: bf16 [B, T, C] (K16a; k a multiple of 4 up to 512) or int8 codes (K16b,
-// with xs [B, G] and ws [G, 64]); w: [G, 64, k * 64] of the same type; bias
-// f32 [C]; out [B, T, C], bf16 or f32 (K16b only).
+// x: [B, T, C], bf16 (K16a; k a multiple of 4 up to 512) or bf16 / f32
+// (K16b, out_f32 for f32; k a multiple of 4 up to 1,024, with xs [B, G] from
+// s3_posconv_quant and the int8 codes w and their scales ws [G, 64]); w: [G,
+// 64, k * 64], bf16 (K16a) or int8 (K16b); bias f32 [C]; out [B, T, C] of
+// x's type.
 extern "C" int s3_posconv(const void* x, const void* w, const void* bias, const void* xs,
                           const void* ws, void* out, int q8, int out_f32, int batch, int T, int C,
                           int k, void* stream) {
@@ -455,14 +596,14 @@ extern "C" int s3_posconv(const void* x, const void* w, const void* bias, const 
   if (!q8)
     return launch_bf16(x, w, static_cast<const float*>(bias), static_cast<bf16*>(out), batch, T,
                        C, k, s);
-  const int smem = window_bytes_q8(kBM + k - 1) + 2 * kStageQ8;
-  cudaError_t err =
-      cudaFuncSetAttribute(posconv_q8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kBM - 1) / kBM, batch, C / kCg);
-  posconv_q8_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(bias), static_cast<const float*>(xs),
-      static_cast<const float*>(ws), out, out_f32, T, k);
-  return static_cast<int>(cudaGetLastError());
+  return launch_q8(x, w, bias, xs, ws, out, out_f32, nullptr, batch, T, C, k, s);
+}
+
+// K16b's test mode: s3_posconv's K16b that also writes the int8 codes of x
+// that its windows hold, codes [B, T, C].
+extern "C" int s3_posconv_q8_codes(const void* x, const void* w, const void* bias, const void* xs,
+                                   const void* ws, void* out, int out_f32, void* codes, int batch,
+                                   int T, int C, int k, void* stream) {
+  return launch_q8(x, w, bias, xs, ws, out, out_f32, codes, batch, T, C, k,
+                   static_cast<cudaStream_t>(stream));
 }

@@ -66,12 +66,15 @@ SIGNATURES = {
     "s3_gemm_s8_occupancy": (_P, _P),
     # &smem_bytes, &blocks_per_sm
     "s3_gemm_bf16_occupancy": (_P, _P),
-    # k, &smem_bytes, &blocks_per_sm
+    # k, &smem_bytes, &blocks_per_sm (K16a; K16b on bf16 x)
     "s3_posconv_occupancy": (_I, _P, _P),
-    # x, x_is_f32, q, xs, batch, T, C, stream
+    "s3_posconv_q8_occupancy": (_I, _P, _P),
+    # x, x_is_f32, q (or null: the scales alone), xs, batch, T, C, stream
     "s3_posconv_quant": (_P, _I, _P, _P, _I, _I, _I, _P),
     # x, w, bias, xs, ws, out, q8, out_f32, batch, T, C, k, stream
     "s3_posconv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, bias, xs, ws, out, out_f32, codes, batch, T, C, k, stream
+    "s3_posconv_q8_codes": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P),
     # a, lda, a_rows, a_gstride, w, ldw, M, N, K, row_scale, col_scale, bias,
     # acc_in, res, out, mode, gelu, out_f32, stream
     "s3_gemm_s8": (_P, _I, _I, _L, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),

@@ -12,11 +12,12 @@ groups, same padding, the trailing frame dropped) followed by erf GELU.
   (group, out channel) from their f32 values, exact int32 sums, then
   f32(acc) * f32(xs * ws) + bias, GELU, one cast to x's dtype.
 
-Both run on `csrc/posconv.cu` (K16b after its activation-quantization
-kernel): a block owns a run of output frames of one (utterance, group) (256
-for K16a's wgmma kernel, 128 for K16b's WMMA one), keeps their input window
-in shared memory and reads every tap's im2col rows from it. The weights
-are tap-major per group, [G, C/G, k C/G] in nn.Linear
+Both run on `csrc/posconv.cu`: a block owns a run of output frames of one
+(utterance, group) (256 for K16a, 512 for K16b), keeps their input window
+in shared memory and reads every tap's im2col rows from it. K16b first
+finds its activation scales (one absmax pass over x); its conv kernel then
+quantizes the window as it loads it, so the codes never reach device
+memory. The weights are tap-major per group, [G, C/G, k C/G] in nn.Linear
 layout (`posconv_gemm_weight`; `quantize_posconv_weight` for K16b's codes),
 built once at load. The model routes here only in eval mode and for T <=
 MAX_POSCONV_T, read at call time (the JAX package's gate,
@@ -37,8 +38,8 @@ TC = 16  # K16a's taps per chunk on the TPU: the model's gate needs k % TC == 0
 TC_Q8 = 32  # K16b's
 MAX_POSCONV_T = 2048  # the model routes longer sequences to the stock conv
 GROUP_WIDTH = 64  # the CUDA kernel's channels per group (C 1024, 16 groups)
-# the kernels' shared-memory windows hold 256 + k - 1 rows (K16a) or 128 + k
-# - 1 (K16b) beside their weight rings
+# the kernels' shared-memory windows hold 256 + k - 1 rows of bf16 (K16a) or
+# 512 + k - 1 rows of int8 codes (K16b) beside their weight rings
 MAX_TAPS = 512
 MAX_TAPS_Q8 = 1024
 
@@ -182,57 +183,78 @@ def pos_conv_gelu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 pos_conv_gelu.launches = 0  # CUDA launches since the last reset
 
 
+def _check_x(name: str, x: torch.Tensor, groups: int) -> None:
+    """What the K16b quantizer and conv take of x (CUDA only)."""
+    C = x.shape[-1]
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: dtype {x.dtype}, the kernel takes bf16 or f32")
+    if C % groups or C // groups != GROUP_WIDTH:
+        raise ValueError(f"{name}: the kernel takes {GROUP_WIDTH} channels per group, "
+                         f"got C={C}, groups={groups}")
+    require(x, "x", x.dtype)
+
+
+def _quant_launch(x: torch.Tensor, groups: int, codes: bool):
+    """One launch of `csrc/posconv.cu`'s quantizer: (codes [B, T, C] int8 or
+    None, scales [B, G] f32)."""
+    B, T, C = x.shape
+    q = torch.empty(B, T, C, dtype=torch.int8, device=x.device) if codes else None
+    xs = torch.empty(B, groups, dtype=torch.float32, device=x.device)
+    if B * T:
+        launch("s3_posconv_quant", x.data_ptr(), int(x.dtype == torch.float32),
+               q.data_ptr() if codes else None, xs.data_ptr(), B, T, C, stream_of(x))
+    return q, xs
+
+
 def posconv_quant(x: torch.Tensor, groups: int):
     """K16b's activation codes on the card (CUDA only): one launch of
     `csrc/posconv.cu`'s quantizer on x [B, T, C] (bf16 or f32, 64 channels
     per group) -> (codes [B, T, C] int8, scales [B, G] f32), as
-    `quantize_posconv_input`."""
-    B, T, C = x.shape
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"posconv_quant: dtype {x.dtype}, the kernel takes bf16 or f32")
-    if C % groups or C // groups != GROUP_WIDTH:
-        raise ValueError(f"posconv_quant: the kernel takes {GROUP_WIDTH} channels per group, "
-                         f"got C={C}, groups={groups}")
-    require(x, "x", x.dtype)
-    q = torch.empty(B, T, C, dtype=torch.int8, device=x.device)
-    xs = torch.empty(B, groups, dtype=torch.float32, device=x.device)
-    if B * T:
-        launch("s3_posconv_quant", x.data_ptr(), int(x.dtype == torch.float32), q.data_ptr(),
-               xs.data_ptr(), B, T, C, stream_of(x))
-    return q, xs
+    `quantize_posconv_input`. K16b itself takes only the scales from this
+    kernel and quantizes in its own window load."""
+    _check_x("posconv_quant", x, groups)
+    return _quant_launch(x, groups, codes=True)
 
 
-def pos_conv_gelu_q8(x: torch.Tensor, weight, bias: torch.Tensor,
-                     groups: int = 16) -> torch.Tensor:
+def pos_conv_gelu_q8(x: torch.Tensor, weight, bias: torch.Tensor, groups: int = 16,
+                     codes: bool = False):
     """The int8 W8A8 twin of `pos_conv_gelu`: K16b.
 
     x [B, T, C]; weight the nn.Conv1d weight [C, C/G, k] in f32 (quantized
     here) or its load-time (codes [G, C/G, k C/G] int8, scales [G, C/G] f32)
     pair (`quantize_posconv_weight`); bias [C] f32 -> [B, T, C] in x's
     dtype. CPU tensors run the plain version; CUDA tensors launch
-    `csrc/posconv.cu`'s quantizer, then its int8 instantiation, which take
-    bf16 or f32 x, 64 channels per group and k a multiple of TC_Q8.
-    Forward-only."""
+    `csrc/posconv.cu`'s scale pass, then its int8 conv (one launch, which
+    counts), which take bf16 or f32 x, 64 channels per group and k a
+    multiple of TC_Q8 up to MAX_TAPS_Q8. `codes=True` (test mode) returns
+    (out, the activation codes [B, T, C] int8 that the conv's windows held,
+    the scales [B, G] f32); on the CPU, the plain version's. Forward-only."""
     wq, ws = _q8_weight(weight, groups)
     if on_cpu(x, wq, ws, bias):
-        return pos_conv_gelu_q8_reference(x, wq, ws, bias, groups)
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"K16b pos_conv_gelu_q8: dtype {x.dtype}, the kernel takes bf16 or f32")
+        out = pos_conv_gelu_q8_reference(x, wq, ws, bias, groups)
+        return (out, *quantize_posconv_input(x, groups)) if codes else out
+    _check_x("K16b pos_conv_gelu_q8", x, groups)
     B, T, C = x.shape
     k = _check("K16b pos_conv_gelu_q8", x, wq, torch.int8, bias, groups, TC_Q8,
                MAX_TAPS_Q8)
     require(ws, "weight scales", torch.float32, (groups, C // groups))
     refuse_grad("K16b pos_conv_gelu_q8", x, ws, bias)
     out = torch.empty_like(x)
-    if not B * T:
-        return out
-    with torch.cuda.device(x.device):
-        xq, xs = posconv_quant(x, groups)
-        launch("s3_posconv", xq.data_ptr(), wq.data_ptr(), bias.data_ptr(), xs.data_ptr(),
-               ws.data_ptr(), out.data_ptr(), 1, int(x.dtype == torch.float32), B, T, C, k,
-               stream_of(x))
-    pos_conv_gelu_q8.launches += 1
-    return out
+    q = torch.zeros(B, T, C, dtype=torch.int8, device=x.device) if codes else None
+    xs = torch.empty(B, groups, dtype=torch.float32, device=x.device)
+    if B * T:
+        with torch.cuda.device(x.device):
+            xs = _quant_launch(x, groups, codes=False)[1]
+            args = (x.data_ptr(), wq.data_ptr(), bias.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+                    out.data_ptr())
+            f32 = int(x.dtype == torch.float32)
+            if codes:
+                launch("s3_posconv_q8_codes", *args, f32, q.data_ptr(), B, T, C, k,
+                       stream_of(x))
+            else:
+                launch("s3_posconv", *args, 1, f32, B, T, C, k, stream_of(x))
+        pos_conv_gelu_q8.launches += 1
+    return (out, q, xs) if codes else out
 
 
 pos_conv_gelu_q8.launches = 0  # CUDA launches since the last reset

@@ -22,7 +22,8 @@ K16a, K16b, K17 (trailing zeros may be left out). The front-end kernels'
 int8 codes equal their plain versions' except at most 0.1% one step apart,
 and their scales agree at rtol 1e-5: the f32 conv and LN sums run in
 another order. K16b's activation codes and scales equal their plain
-version's exactly (the same f32 values, an IEEE division).
+version's exactly (the same f32 values, an IEEE division), both the
+quantizer's and the ones K16b's conv kernel quantizes into its windows.
 """
 
 import numpy as np
@@ -1530,10 +1531,6 @@ def test_every_block_kernel_refuses_inputs_that_require_grad(dev):
 
 # -- the pos-conv options: K16a, K16b; K17 --------------------------------------------
 
-# (B, T') of the pos-conv's input at HuBERT-Large's widths: 10 s, 30 s, one frame
-POSCONV_SHAPES = [(2, 499), (2, 1499), (3, 1)]
-
-
 def _posconv_inputs(rng, dev, B, T, dtype=torch.bfloat16, C=1024, G=16, k=128):
     """x [B, T, C] (scale 0.5), an f32 nn.Conv1d weight [C, C/G, k] and a bias."""
     x = _t(rng.randn(B, T, C) * 0.5, dev, dtype)
@@ -1562,15 +1559,35 @@ def test_k16a_kernel(dev, B, T):
     assert torch.equal(pc.pos_conv_gelu(x, w.bfloat16(), bias), got)
 
 
+# K16b's shapes: T on and beside its warpgroups' 256-frame halves and its
+# 512-frame block edge, B = 1 and 3, and the main path's B=32 x 10 s
+K16B_SHAPES = [(B, T) for T in (1, 63, 64, 65, 255, 256, 257, 499, 511, 512, 513, 1499, 2048)
+               for B in (1, 3)] + [(32, 499)]
+
+
+def _zero_past_lengths(x):
+    """x [B, T, C] with the frames past each utterance's length zeroed, as
+    in a padded batch: lengths T, 5T/8, 1, then T - 13 b (at least 1)."""
+    B, T, _ = x.shape
+    lens = [T, max(1, 5 * T // 8), 1] if B <= 3 else [max(1, T - 13 * b) for b in range(B)]
+    for b, n in enumerate(lens[:B]):
+        x[b, n:] = 0
+    return x
+
+
+@pytest.mark.parametrize("k", [32, 64, 128, 1024])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("B,T", POSCONV_SHAPES)
-def test_k16b_kernel(dev, B, T, dtype):
-    """K16b: its activation codes and scales equal the plain version's, and
-    its output matches the plain version's (exact int32 sums on both
-    sides): bf16 by `_close_bf16`, f32 at atol 1e-4."""
-    x, w, bias = _posconv_inputs(np.random.RandomState(33), dev, B, T, dtype)
-    q, xs = pc.posconv_quant(x, 16)
+@pytest.mark.parametrize("B,T", K16B_SHAPES)
+def test_k16b_kernel(dev, B, T, dtype, k):
+    """K16b at k 32 to 1,024 on padded batches: its activation codes and
+    scales, the quantizer's (`posconv_quant`) and the ones its conv kernel
+    writes into its windows (test mode), equal the plain version's; its
+    output matches the plain version's (exact int32 sums on both sides):
+    bf16 by `_close_bf16`, f32 at atol 1e-4; one launch a call."""
+    x, w, bias = _posconv_inputs(np.random.RandomState(33), dev, B, T, dtype, k=k)
+    x = _zero_past_lengths(x)
     want_q, want_xs = pc.quantize_posconv_input(x, 16)
+    q, xs = pc.posconv_quant(x, 16)
     assert torch.equal(xs, want_xs) and torch.equal(q, want_q)
     wq, ws = pc.quantize_posconv_weight(w, 16)
     before = pc.pos_conv_gelu_q8.launches
@@ -1584,6 +1601,8 @@ def test_k16b_kernel(dev, B, T, dtype):
     else:
         _close_bf16(got, want)
     assert torch.equal(pc.pos_conv_gelu_q8(x, w, bias), got)
+    out, q, xs = pc.pos_conv_gelu_q8(x, (wq, ws), bias, codes=True)
+    assert torch.equal(out, got) and torch.equal(xs, want_xs) and torch.equal(q, want_q)
 
 
 @pytest.mark.parametrize("T,B,H", [(T, B, 2) for T in GATED_T for B in (1, 3, 7)]

@@ -150,6 +150,30 @@ def test_k16b_codes_and_scales_equal_jax():
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("T", [53, 1])
+def test_k16b_test_mode_returns_the_codes_and_scales_of_jax(T, dtype):
+    """`pos_conv_gelu_q8(..., codes=True)` on the CPU: the output of the
+    plain call, and the activation codes and scales that JAX's kernel
+    wrapper builds in its padded shift stack (posconv.py:121-126), bit for
+    bit (on the card the conv kernel writes the codes its windows hold)."""
+    jdt, tdt = DTYPES[dtype]
+    x, _, weight, bias = _conv_inputs(3, T)
+    B, _, C = x.shape
+    G, k, tc = 4, 32, jax_pc.TC_Q8
+    xj = jnp.asarray(x, jdt)
+    x_pad = jnp.pad(xj, ((0, 0), (k // 2, k // 2 - 1), (0, 0)))
+    xsh, _ = jax_pc._shift_stack(x_pad, B, T, G, C // G, k, tc)
+    xs = jnp.maximum(jnp.max(jnp.abs(xsh.astype(jnp.float32)), axis=(2, 3)), 1e-8) / 127.0
+    want_q = jnp.clip(jnp.round(xj.astype(jnp.float32).reshape(B, T, G, C // G)
+                                / xs[:, None, :, None]), -127, 127).astype(jnp.int8)
+    xt, bt = torch.from_numpy(x).to(tdt), torch.from_numpy(bias)
+    out, q, got_xs = port_pc.pos_conv_gelu_q8(xt, weight, bt, G, codes=True)
+    assert torch.equal(out, port_pc.pos_conv_gelu_q8(xt, weight, bt, G))
+    np.testing.assert_array_equal(got_xs.numpy(), np.asarray(xs))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(want_q).reshape(B, T, C))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T", [53, 1])
 def test_k16b_plain_matches_interpreted_pallas(T, dtype):
     """The int8 twin on the same shapes; the weight as the f32 nn.Conv1d
     weight (quantized inside) and as the load-time (codes, scales) pair."""

@@ -27,6 +27,9 @@ events (mean of 10 after a warm-up, twice, averaged):
   in the last layer) over the six mid layers of B=32 x 10 s, and K13b on
   each layer alone; K15 `ln_gelu` (tanh, as ``fused_midln`` under int8)
   over the six mid layers' outputs;
+- K16a `pos_conv_gelu` and K16b `pos_conv_gelu_q8` at B=32 x 499 frames,
+  HuBERT-Large's pos-conv (k 128, 16 groups of 64), bf16 x, and K16b's
+  quantizer `posconv_quant` alone;
 - K1's and K12's launches one by one, as the checkout makes them: on the
   int8 panel kernel (panel QKV, the attention, panel out-proj; K12 one
   panel launch), or, in a checkout without `_common.int8_panel`, on
@@ -35,8 +38,9 @@ events (mean of 10 after a warm-up, twice, averaged):
 - with `--forwards`, ms per forward of HuBERT-Large (`hub.load`, seed 0) by
   chip_smoke.py's protocol (chains of 5 and 15, best of 3, marginal) at B=32
   x 10 s and B=8 x 30 s: int8's default path (K3 tanh), ``full_fuse`` at
-  both, ``qkv_fuse`` at 30 s (inert at 10 s), ``int8_conv`` at 10 s (K13a +
-  six K13b in the front end), and bf16 at 10 s (K3 erf).
+  both, ``qkv_fuse`` at 30 s (inert at 10 s), ``int8_posconv`` at both (one
+  K16b), ``int8_conv`` at 10 s (K13a + six K13b in the front end), and bf16
+  at 10 s (K3 erf).
 Prints one JSON line {"label", "root", "device", "power_limit", "ms": {...}}
 and appends it to `--out` when given. Run it for the parent and the change
 in turns (parent, change, change, parent) to compare them on one card.
@@ -76,9 +80,10 @@ def forwards(hub, dev, gen):
     options, and of bf16 at 10 s, chip_smoke.py's chain protocol."""
     out = {}
     for label, B, secs, paths in (("10 s", 32, 10, ("int8", "int8 full_fuse",
-                                                    "int8 int8_conv", "bf16")),
-                                  ("30 s", 8, 30, ("int8", "int8 full_fuse",
-                                                   "int8 qkv_fuse"))):
+                                                    "int8 int8_posconv", "int8 int8_conv",
+                                                    "bf16")),
+                                  ("30 s", 8, 30, ("int8", "int8 full_fuse", "int8 qkv_fuse",
+                                                   "int8 int8_posconv"))):
         n = secs * SR
         wavs = torch.randn(B, n, generator=gen).to(dev)
         lens = torch.full((B,), n, dtype=torch.long, device=dev)
@@ -111,6 +116,7 @@ def main():
     from s3prl_tpu_torch.kernels import ffn as k5
     from s3prl_tpu_torch.kernels import flash_attention as fa
     from s3prl_tpu_torch.kernels import ln_gelu as k15
+    from s3prl_tpu_torch.kernels import posconv as pc
     from s3prl_tpu_torch.models.wavlm import bucket_table
     from s3prl_tpu_torch.ops.quant import as_quantized_cols, quantize_rows
 
@@ -229,6 +235,15 @@ def main():
                 lambda m=mode: cf.conv0_ln_gelu(*conv0, gelu_mode=m))
         ms[f"K13a conv0_ln_gelu_q8, B={B} x 10 s"] = twice(lambda: cf.conv0_ln_gelu_q8(*conv0))
         del conv0
+        w16 = rnd(C, C // 16, 128, scale=(128 * C // 16) ** -0.5, dtype=torch.float32)
+        b16 = rnd(C, scale=0.1, dtype=torch.float32)
+        wg16, w816 = pc.posconv_gemm_weight(w16.to(bf), 16), pc.quantize_posconv_weight(w16, 16)
+        ms[f"K16a pos_conv_gelu, B={B} x {T}"] = twice(lambda: pc.pos_conv_gelu(x, wg16, b16))
+        ms[f"K16b pos_conv_gelu_q8, B={B} x {T}"] = twice(
+            lambda: pc.pos_conv_gelu_q8(x, w816, b16))
+        ms[f"K16b quantizer posconv_quant alone, B={B} x {T}"] = twice(
+            lambda: pc.posconv_quant(x, 16))
+        del w16, wg16, w816
         mid, mid8, mid15 = [], [], []
         for i, (k, Tm) in enumerate(MID):
             w = rnd(512, 512, k, scale=(512 * k) ** -0.5, dtype=torch.float32)
