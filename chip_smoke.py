@@ -82,6 +82,11 @@ line is printed; each phase prints its seconds):
     conv kernel writes into its windows: test mode) under the same rule;
     K17 on [4, 16,
     499, 64] and on B=7 x 65 and 127 frames with kv_lens on the tile edges;
+    then the post-LN kernel forms at the Base models' widths (C 768, H 12,
+    F 3,072) on a unit-scale residual stream: K1 and K4 postnorm at B=32 x
+    499, K2 and K5 postnorm and K2 bare at 32 x 499 rows, K6 at [8, 1,499] on
+    a QKV made from raw x (int8_matmul), K9 at [32, 12, 499, 64] (padded
+    bf16 bias) and K11 at [32, 499, 768];
  4. the main paths at full width, HuBERT-Large (hub.load(
     "hubert_large_ll60k", bf16, flash, quantize=True) - the int8 serving
     default - and quantize=False) and WavLM-Large (hub.load("wavlm_large",
@@ -95,7 +100,14 @@ line is printed; each phase prints its seconds):
     6 K14), int8 with ``fused_midln`` (K3, 6 K15), WavLM bf16 with
     ``fused_conv``; then the pos-conv options at 10 s and 30 s: HuBERT bf16
     with ``fused_posconv`` (one K16a a forward) and int8 with
-    ``int8_posconv`` (one K16b); checks the [25, B, T', 1024] shape, exact h_lens,
+    ``int8_posconv`` (one K16b); then the post-LN Base models, HuBERT-Base
+    (hub.load("hubert_base", ...): group-norm extractor, no K3; 12 K1 + 12
+    K2 postnorm at 10 s, K6 on raw x (bf16: K7) at 30 s, K8 at 60 s; bf16 12
+    K4 + 12 K5 postnorm) and WavLM-Base (hub.load("wavlm_base", ...): 12 K9,
+    K10 at 60 s, int8 12 K2 bare), int8 and bf16 on the same three batches,
+    and WavLM-Base int8 with ``wavlm_fuse`` (12 K11) at 10 s and 30 s;
+    checks the [L+1, B, T', C] shape ([25, ..., 1024] Large, [13, ..., 768]
+    Base), exact h_lens,
     finite values, and the launch counts of each run, read just after it
     with every count set to 0 just before (RUNS below; every other count 0);
  5. the same seed's models on the CPU (the kernel wrappers' plain versions)
@@ -107,7 +119,11 @@ line is printed; each phase prints its seconds):
     B=2 x 4 s with MAX_BLOCK_T = 64, WavLM ``wavlm_fuse`` on B=2 x 2 s and,
     with MAX_KERNEL_T = 128, B=2 x 4 s (K10, no K11), and each front-end
     option on B=2 x 2 s; each pos-conv option on B=2 x 2 s, and again with
-    MAX_POSCONV_T = 64 (the stock conv: no K16 launch). Then the JAX
+    MAX_POSCONV_T = 64 (the stock conv: no K16 launch); HuBERT-Base int8 and
+    bf16 on B=2 x 2 s (K1 / K4 postnorm), on B=2 x 4 s with MAX_BLOCK_T = 64
+    (K6 on raw x / K7) and with MAX_KERNEL_T = 128 as well (K8); WavLM-Base
+    int8, bf16 and ``wavlm_fuse`` on B=2 x 2 s (K9; K11) and with
+    MAX_KERNEL_T = 128 on B=2 x 4 s (K10). Then the JAX
     package's quality gates at full
     depth on the card, against the f32 model (flash=False) of the same
     weights: int8 per-layer cosine > 0.999 (tests/test_quant.py:82-124,
@@ -115,6 +131,9 @@ line is printed; each phase prints its seconds):
     the first two; ``int8_posconv`` among them), bf16 > 0.995
     (tests/test_quant.py:590) on the two long ones (HuBERT) or all three
     (WavLM), HuBERT's bf16 options at 30 s (``fused_posconv`` among them);
+    the Base models (12 layers) int8 > 0.999 and bf16 > 0.995
+    (tests/test_quant.py:553-591) on B=2 x 0.5 s and B=2 x 30 s, WavLM-Base's
+    ``wavlm_fuse`` among them;
  6. timing (printed): extraction audio-s/s of every path at B=32 x 10 s,
     B=8 x 30 s and B=4 x 60 s (two chain lengths, marginal rate, best of 3,
     CUDA events) with the peak device memory, and each kernel against its
@@ -153,7 +172,11 @@ line is printed; each phase prints its seconds):
     layers of B=32 x 10 s (one launch of K13a) beside their plain versions,
     their bounds and the stock ops they replace (K3 tanh + quantize_rows;
     F.conv1d + F.layer_norm + cast + F.gelu; F.layer_norm + cast + F.gelu).
-    The pos-conv options' paths at B=32 x 10 s and B=8 x 30 s; K16a and K16b
+    Every path's feature extractor alone at B=32 x 10 s is printed beside
+    its share of that path's forward (the Base models' group-norm extractor
+    runs no kernel). The Base-width kernels of phase 3 beside their plain
+    versions and bounds, each on a line of its own (not in the kernels
+    line). The pos-conv options' paths at B=32 x 10 s and B=8 x 30 s; K16a and K16b
     at B=32 x 499 beside their plain versions, their bounds, one grouped
     bf16 F.conv1d with its bias (the library figure) and the stock
     F.conv1d + bias + GELU chain they replace; K16b's quantizer alone
@@ -476,6 +499,83 @@ def gated_kernel_calls(inps9, inps10):
             (gated_variant(i), lambda a=args(i): fa.gated_online_flash_attention(*a),
              lambda a=args(i): fa.gated_online_flash_attention_reference(*a)) for i in inps10],
     }
+
+
+def base_kernel_calls(gen, dev):
+    """The post-LN kernel forms at the Base models' widths (C 768, H 12, F
+    3,072): K1 and K4 postnorm at B=32 x 499; K2 and K5 postnorm, and K2
+    bare (WavLM-Base's FFN), at 32 x 499 rows; K6 at [8, 1,499] on a QKV made
+    from raw x (int8_matmul of the unit-scale residual, HuBERT-Base's long
+    route); K9 at [32, 12, 499, 64] with the bf16 model's padded bf16 bias
+    and K11 at [32, 499, 768] with the ``wavlm_fuse`` model's f32 one. The
+    residual stream x is unit-scale, as a post-LN layer's input is (an LN
+    output). Returns (name -> [(variant, kernel, plain)], name -> the
+    input dict of its bound)."""
+    from s3prl_tpu_torch.kernels import ffn as k5
+    from s3prl_tpu_torch.kernels import flash_attention as k4
+    from s3prl_tpu_torch.ops.quant import int8_matmul
+
+    i = kernel_inputs(32, 499, gen, dev, C=768, F=3072, H=12)
+    i["x"] = torch.randn(i["x"].shape, generator=gen).to(dev, torch.bfloat16)
+    attn = (i["x"], i["wq"], i["bq"], i["ln"], i["wo"], i["bo"], i["kv"], i["H"])
+    attn8 = (i["x"], i["wq8"], i["bq"], i["ln"], i["wo8"], i["bo"], i["kv"], i["H"])
+    ffn = (i["x"], i["w1"], i["b1"], i["w2"], i["b2"])
+    ffn8 = (i["x"], i["w18"], i["b1"], i["w28"], i["b2"])
+    post = dict(ln=i["ln"], residual=True, postnorm=True)
+    j = long_inputs(8, 1499, gen, dev, C=768, H=12)
+    j["x"] = torch.randn(j["x"].shape, generator=gen).to(dev, torch.bfloat16)
+    wq8, bq = i["wq8"], i["bq"]
+    j["qkv"] = int8_matmul(j["x"], wq8, bq, out_dtype=torch.bfloat16)
+    k6 = (j["qkv"], j["x"], j["wo8"], j["bo"], j["kv"], j["H"])
+    g = gated_inputs(32, 499, gen, dev, H=12)
+    k9 = (g["q"], g["k"], g["v"], g["pos_bias"], g["gate"], g["kv"])
+    h = k11_inputs(32, 499, gen, dev, H=12)
+    k11 = (h["qkv"], h["x"], h["pos_bias"], h["gate"], h["wo8"], h["bo"], h["kv"], h["H"])
+    calls = {
+        "fused_attention_block": [(
+            "postnorm C=768 H=12", lambda: k4.fused_attention_block(*attn8, postnorm=True),
+            lambda: k4.fused_attention_block_reference(*attn8, postnorm=True))],
+        "fused_attention_block_bf16": [(
+            "postnorm C=768 H=12", lambda: k4.fused_attention_block_bf16(*attn, postnorm=True),
+            lambda: k4.fused_attention_block_bf16_reference(*attn, postnorm=True))],
+        "fused_int8_ffn": [
+            ("postnorm C=768 F=3072", lambda: k5.fused_int8_ffn(*ffn8, **post),
+             lambda: k5.fused_int8_ffn_reference(*ffn8, **post)),
+            ("bare C=768 F=3072", lambda: k5.fused_int8_ffn(*ffn8),
+             lambda: k5.fused_int8_ffn_reference(*ffn8))],
+        "fused_bf16_ffn": [(
+            "postnorm C=768 F=3072", lambda: k5.fused_bf16_ffn(*ffn, **post),
+            lambda: k5.fused_bf16_ffn_reference(*ffn, **post))],
+        "fused_qkv_attention_outproj": [(
+            "QKV from raw x C=768 H=12", lambda: k4.fused_qkv_attention_outproj(*k6),
+            lambda: k4.fused_qkv_attention_outproj_reference(*k6))],
+        "gated_bias_attention": [(
+            gated_variant(g), lambda: k4.gated_bias_attention(*k9),
+            lambda: k4.gated_bias_attention_reference(*k9))],
+        "gated_bias_attention_outproj": [(
+            "C=768 H=12 f32 bias", lambda: k4.gated_bias_attention_outproj(*k11),
+            lambda: k4.gated_bias_attention_outproj_reference(*k11))],
+    }
+    inputs = {name: i for name in ("fused_attention_block", "fused_attention_block_bf16",
+                                   "fused_int8_ffn", "fused_bf16_ffn")}
+    inputs.update(fused_qkv_attention_outproj=j, gated_bias_attention=g,
+                  gated_bias_attention_outproj=h)
+    return calls, inputs
+
+
+def time_base_kernels(calls, inputs):
+    """Each Base-width kernel of `base_kernel_calls` beside its plain
+    version (in turns) and its bound, on a line of its own (not in the
+    kernels line: its main-path entry is the Large models' shape)."""
+    for name, variants in calls.items():
+        for variant, kernel, plain in variants:
+            t = [cuda_ms(f, 10) for f in (plain, kernel, kernel, plain)]
+            bound_ms, bound_by = kernel_bound(name, inputs[name])
+            shape = inputs[name]["x"].shape[:2] if "x" in inputs[name] else \
+                inputs[name]["q"].shape[:3]
+            log(f"[timing] base width {name} {variant} {list(shape)}: kernel "
+                f"{(t[1] + t[2]) / 2:.3f} ms, plain {(t[0] + t[3]) / 2:.3f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by})")
 
 
 def posconv_inputs(B, T, gen, dev, C=1024, G=16, k=128):
@@ -1471,7 +1571,8 @@ KERNELS = {  # wrapper -> (its main CUDA source, the TPU kernel it replaces)
     "flash_attention": ("s3prl_tpu_torch/csrc/gated_attention.cu",
                         "s3prl_tpu/kernels/flash_attention.py:1020"),
 }
-MODELS = {"hubert": "hubert_large_ll60k", "wavlm": "wavlm_large"}
+MODELS = {"hubert": "hubert_large_ll60k", "wavlm": "wavlm_large",  # model -> hub entry
+          "hubert_base": "hubert_base", "wavlm_base": "wavlm_base"}
 OPTIONS = {"int8": {}, "bf16": {}, "int8 full_fuse": {"full_fuse": True},  # path -> keywords
            "int8 qkv_fuse": {"qkv_fuse": True}, "int8 wavlm_fuse": {"wavlm_fuse": True},
            "int8 int8_conv": {"int8_conv": True}, "bf16 fused_conv": {"fused_conv": True},
@@ -1542,6 +1643,23 @@ RUNS = {
     ("hubert", "int8 int8_posconv", "30 s"): {"conv0_ln_gelu": 1, "pos_conv_gelu_q8": 1,
                                               "fused_qkv_attention_outproj": 24,
                                               "fused_int8_ffn": 24},
+    # the post-LN Base models (12 layers, group-norm extractor: no K3): HuBERT-Base
+    # K1 / K4 postnorm, K6 on raw x (K7 in bf16) beyond 512 frames, K8 beyond
+    # 2,048, K2 / K5 postnorm; WavLM-Base K9 (K10), K2 bare on int8, K11
+    **{("hubert_base", "int8", length): {attn: 12, "fused_int8_ffn": 12} for length, attn in (
+        ("10 s", "fused_attention_block"), ("30 s", "fused_qkv_attention_outproj"),
+        ("60 s", "online_flash_attention"))},
+    **{("hubert_base", "bf16", length): {attn: 12, "fused_bf16_ffn": 12} for length, attn in (
+        ("10 s", "fused_attention_block_bf16"), ("30 s", "fused_qkv_attention"),
+        ("60 s", "online_flash_attention"))},
+    **{("wavlm_base", path, length): {attn: 12, **({"fused_int8_ffn": 12} if path == "int8"
+                                                   else {})}
+       for path in ("int8", "bf16") for length, attn in (
+           ("10 s", "gated_bias_attention"), ("30 s", "gated_bias_attention"),
+           ("60 s", "gated_online_flash_attention"))},
+    **{("wavlm_base", "int8 wavlm_fuse", length): {"gated_bias_attention_outproj": 12,
+                                                   "fused_int8_ffn": 12}
+       for length in ("10 s", "30 s")},
 }
 PATHS = list(dict.fromkeys((model, path) for model, path, _ in RUNS))  # the loaded models
 TIMED = {"int8 full_fuse": ("10 s", "30 s"), "int8 qkv_fuse": ("30 s",),  # default: all three
@@ -1887,9 +2005,10 @@ def main():
                                  *(gated_inputs(7, T, gen, dev, edges=True) for T in (65, 127))]),
                       max_err)
         del inp16
+        check_kernels(base_kernel_calls(gen, dev)[0], max_err)
 
     # 4. the main paths at full width, int8 (the serving default) then bf16,
-    # HuBERT-Large then WavLM-Large
+    # HuBERT-Large then WavLM-Large, then the options, then the Base models
     ups = {(model, path): load(hub, model, path, dev) for model, path in PATHS}
     launches = {}
     with Phase("4 main paths"):
@@ -1903,9 +2022,11 @@ def main():
             torch.cuda.synchronize()
             launches[run] = {name: w.launches for name, w in wrapper.items()}
             frames = (max(lens) - 1) // 320 + 1
+            up = ups[model, path]
             log(f"[slice {model} {path} {length}] hs {tuple(hs.shape)} {hs.dtype}, "
                 f"h_lens {h_lens.tolist()}, launches {launches[run]}")
-            check(tuple(hs.shape) == (25, len(lens), frames, 1024), f"hs shape {tuple(hs.shape)}")
+            check(tuple(hs.shape) == (up.num_layers, len(lens), frames, up.hidden_size),
+                  f"hs shape {tuple(hs.shape)}")
             check(h_lens.tolist() == [(n - 1) // 320 + 1 for n in lens],
                   f"h_lens {h_lens.tolist()}")
             check(bool(torch.isfinite(hs).all()), "non-finite hidden states")
@@ -1962,6 +2083,23 @@ def main():
                               ("B=2 x 2 s, MAX_POSCONV_T=64", short[1], mpt, {name: 0}))
            for path, name in (("bf16 fused_posconv", "pos_conv_gelu"),
                               ("int8 int8_posconv", "pos_conv_gelu_q8"))},
+        **{("hubert_base", path): (
+            (*short, {}, {block: 12, ffn: 12, "conv0_ln_gelu": 0}),
+            ("B=2 x 4 s, MAX_BLOCK_T=64", long_, mbt, {split: 12, ffn: 12}),
+            ("B=2 x 4 s, MAX_BLOCK_T=64, MAX_KERNEL_T=128", long_, {**mbt, **mkt},
+             {"online_flash_attention": 12}))
+           for path, block, split, ffn in (
+               ("int8", "fused_attention_block", "fused_qkv_attention_outproj",
+                "fused_int8_ffn"),
+               ("bf16", "fused_attention_block_bf16", "fused_qkv_attention", "fused_bf16_ffn"))},
+        **{("wavlm_base", path): (
+            (*short, {}, {"gated_bias_attention": 12}),
+            ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt, {"gated_online_flash_attention": 12}))
+           for path in ("int8", "bf16")},
+        ("wavlm_base", "int8 wavlm_fuse"): (
+            (*short, {}, {"gated_bias_attention_outproj": 12}),
+            ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt,
+             {"gated_online_flash_attention": 12, "gated_bias_attention_outproj": 0})),
     }
     options = {"hubert": ("int8 full_fuse", "int8 qkv_fuse", "int8 int8_conv", "int8 fused_midln",
                           "int8 int8_posconv"),
@@ -1974,7 +2112,11 @@ def main():
                 ("B=2 x 30 s", [480000, 400000], ("int8", "bf16") + options[model]
                  + long_only[model]),
                 ("B=1 x 60 s", [960000], ("int8", "bf16")))
-        for model in MODELS}
+        for model in ("hubert", "wavlm")}
+    # the Base models: the JAX gates (tests/test_quant.py:553-591) on its batch and at 30 s
+    quality.update({model: tuple((label, lens, ("int8", "bf16") + extra) for label, lens in (
+        ("B=2 x 0.5 s", [8000, 6400]), ("B=2 x 30 s", [480000, 400000])))
+        for model, extra in (("hubert_base", ()), ("wavlm_base", ("int8 wavlm_fuse",)))})
     available = port_transformer._fused_block_available
     with Phase("5 card vs CPU, quality vs f32"):
         for (model, path), up in ups.items():
@@ -2016,7 +2158,7 @@ def main():
                 for path in paths:
                     hs_q, _ = ups[model, path].apply_standardized(wavs, lens_t)
                     coss = layer_cosines(hs_q.float(), hs_f, hl.tolist())
-                    log(f"[{model} {path}-vs-f32 {label}] 24L per-layer cosine min "
+                    log(f"[{model} {path}-vs-f32 {label}] {len(coss) - 1}L per-layer cosine min "
                         f"{min(coss):.6f}: " + " ".join(f"{c:.5f}" for c in coss))
                     check(min(coss) > COS_F32[path.split()[0]],
                           f"per-layer cosine {model} {path} vs f32 ({label})")
@@ -2027,6 +2169,7 @@ def main():
     # 6. timing: both paths on each main-path batch, then each kernel vs its plain version
     with Phase("6 timing"):
         it_lo, it_hi = 5, 15
+        forward_ms = {}  # (model, path) -> ms a forward at B=32 x 10 s
         for label, B, secs in (("10 s", 32, 10.0), ("30 s", 8, 30.0), ("60 s", 4, 60.0)):
             wavs, lens_t = batch([int(secs * SR)] * B, int(secs * SR), gen, dev)
             for (model, path), up in ups.items():
@@ -2037,6 +2180,8 @@ def main():
                                 for _ in range(3))
                         for it in (it_lo, it_hi)}
                 per_iter = (best[it_hi] - best[it_lo]) / (it_hi - it_lo)
+                if label == "10 s":
+                    forward_ms[model, path] = per_iter
                 rate = B * secs / (per_iter / 1e3)
                 log(f"[timing] slice {model} {path} B={B} x {secs:.0f} s: "
                     f"{per_iter:.2f} ms/forward, "
@@ -2050,8 +2195,11 @@ def main():
                     for key, up in fe_paths + fe_paths[::-1]:
                         fe_ms[key].append(cuda_ms(lambda: up.model.feature_extractor(wavs), 5))
                 for (model, path), t in fe_ms.items():
+                    ms = sum(t) / len(t)
                     log(f"[timing] front end {model} {path} B={B} x {secs:.0f} s: "
-                        f"{sum(t) / len(t):.3f} ms (runs {t[0]:.3f}, {t[1]:.3f})")
+                        f"{ms:.3f} ms (runs {t[0]:.3f}, {t[1]:.3f}), "
+                        f"{100 * ms / forward_ms[model, path]:.1f}% of the forward's "
+                        f"{forward_ms[model, path]:.2f} ms")
             del wavs
         del ups, up
 
@@ -2133,6 +2281,7 @@ def main():
         time_kernels(k17_calls([inp17]), {"flash_attention": inp17}, "B=32", entries, launches,
                      max_err)
         del inp17
+        time_base_kernels(*base_kernel_calls(gen, dev))
     log(json.dumps({"kernels": [entries[name] for name in wrapper]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

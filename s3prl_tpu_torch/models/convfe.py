@@ -1,11 +1,20 @@
-"""Strided conv waveform feature extractor, layer-norm mode (port of
-s3prl_tpu/models/convfe.py:180, the wav2vec2/HuBERT *-Large front end).
-
-Each layer is an unpadded strided Conv1d -> LayerNorm over channels (f32) ->
-GELU, on [B, T, C] activations (the JAX package's layout). GELU is exact,
-except in int8 serving (``quantize``), which runs the tanh approximation
-(convfe.py:270-289, :344). Routing (convfe.py:199-345), in eval mode with
-k0 == 2 * s0 (the JAX `fuse0`):
+"""Strided conv waveform feature extractor (port of
+s3prl_tpu/models/convfe.py:180), on [B, T, C] activations (the JAX
+package's layout), in its two modes:
+- ``"layer_norm"`` (the *-Large front end): every layer an unpadded strided
+  Conv1d -> LayerNorm over channels (f32) -> GELU;
+- ``"default"`` (HuBERT-Base, WavLM-Base): layer 0 Conv1d -> per-channel
+  GroupNorm over all T' frames of each utterance, padded ones included
+  (f32, cast to the model dtype) -> GELU, the other layers Conv1d -> GELU
+  (convfe.py:296-345). The group norm's variance is E[x^2] - E[x]^2
+  clamped at 0, as flax's GroupNorm computes it. No kernel runs here:
+  every layer is stock `F.conv1d` (+ the conv bias in the model dtype, when
+  ``conv_bias``) and stock elementwise ops, as the JAX package leaves them
+  to XLA.
+GELU is exact, except in int8 serving (``quantize``), which runs the tanh
+approximation (convfe.py:270-289, :344). Routing of the layer-norm mode
+(convfe.py:199-345), in eval mode with k0 == 2 * s0 and no conv bias (the
+JAX `fuse0`):
 - default: layer 0 through K3 `conv0_ln_gelu`, the mid layers stock
   `F.conv1d` -> f32 LN cast to the model dtype -> GELU, as the JAX package
   leaves them to XLA;
@@ -64,40 +73,67 @@ def total_stride(conv_layers=DEFAULT_CONV_LAYERS) -> int:
     return out
 
 
-class ConvLayer(nn.Sequential):
-    """Conv1d -> LayerNorm -> GELU. The module indices follow fairseq's
-    Sequential(Conv1d, Dropout, Sequential(TransposeLast, Fp32LayerNorm,
-    TransposeLast), GELU), so the keys read ``0.weight`` and
-    ``2.1.{weight,bias}``."""
+def group_norm_f32(y: torch.Tensor, norm: nn.GroupNorm) -> torch.Tensor:
+    """Per-channel norm of y [B, T, C] over its T frames, in f32: flax's
+    GroupNorm with one channel a group (convfe.py:339-343), whose variance
+    is max(0, E[x^2] - E[x]^2) (``use_fast_variance``) and whose scale
+    multiplies rsqrt(var + eps) before the centred input does."""
+    x = y.float()
+    mean = x.mean(1, keepdim=True)
+    var = (x.square().mean(1, keepdim=True) - mean.square()).clamp_min(0.0)
+    return (x - mean) * (torch.rsqrt(var + norm.eps) * norm.weight) + norm.bias
 
-    def __init__(self, c_in: int, c_out: int, k: int, stride: int, device=None):
-        super().__init__(
-            nn.Conv1d(c_in, c_out, k, stride, bias=False, device=device),
-            nn.Identity(),
-            nn.Sequential(nn.Identity(), nn.LayerNorm(c_out, device=device)),
-        )
+
+class ConvLayer(nn.Sequential):
+    """Conv1d -> norm -> GELU. The module indices follow fairseq's
+    Sequential(Conv1d, Dropout, norm, GELU), so the keys read ``0.weight``
+    (and ``0.bias`` with ``bias``) and, by `norm`:
+    - ``"layer"``: Sequential(TransposeLast, Fp32LayerNorm, TransposeLast),
+      ``2.1.{weight,bias}``;
+    - ``"group"`` (layer 0 of the default extractor): Fp32GroupNorm with a
+      group a channel, ``2.{weight,bias}``;
+    - None (the default extractor's other layers): no norm."""
+
+    def __init__(self, c_in: int, c_out: int, k: int, stride: int, norm: str | None = "layer",
+                 bias: bool = False, device=None):
+        mods = [nn.Conv1d(c_in, c_out, k, stride, bias=bias, device=device), nn.Identity()]
+        if norm == "layer":
+            mods.append(nn.Sequential(nn.Identity(), nn.LayerNorm(c_out, device=device)))
+        elif norm == "group":
+            mods.append(nn.GroupNorm(c_out, c_out, device=device))
+        super().__init__(*mods)
+        self.norm_kind = norm
 
     @property
     def conv(self) -> nn.Conv1d:
         return self[0]
 
     @property
-    def norm(self) -> nn.LayerNorm:
-        return self[2][1]
+    def norm(self) -> nn.Module | None:
+        """The LayerNorm or the GroupNorm; None without a norm."""
+        if self.norm_kind is None:
+            return None
+        return self[2][1] if self.norm_kind == "layer" else self[2]
 
     def conv_out(self, x: torch.Tensor) -> torch.Tensor:
         """The stock conv: x [B, T, C_in] -> [B, T', C_out] in x.dtype (the
-        weight cast to it, as nn.Conv(dtype=...) casts its f32 param)."""
+        weight cast to it, as nn.Conv(dtype=...) casts its f32 param; the
+        bias, if any, cast and added after the product, as nn.Conv adds it)."""
         conv = self.conv
         y = F.conv1d(x.transpose(1, 2), conv.weight.to(x.dtype), stride=conv.stride)
-        return y.transpose(1, 2)
+        y = y.transpose(1, 2)
+        return y if conv.bias is None else y + conv.bias.to(x.dtype)
 
     def forward(self, x: torch.Tensor, gelu_mode: str = "erf") -> torch.Tensor:
-        """x [B, T, C_in] -> [B, T', C_out]; the f32 LN is cast to x.dtype
+        """x [B, T, C_in] -> [B, T', C_out]; the f32 norm is cast to x.dtype
         before the GELU (``approximate`` "none" for erf, "tanh")."""
         y = self.conv_out(x)
-        y = F.layer_norm(y.float(), (y.shape[-1],), self.norm.weight, self.norm.bias, eps=1e-5)
-        return F.gelu(y.to(x.dtype), approximate="tanh" if gelu_mode == "tanh" else "none")
+        if self.norm_kind == "layer":
+            y = F.layer_norm(y.float(), (y.shape[-1],), self.norm.weight, self.norm.bias,
+                             eps=1e-5).to(x.dtype)
+        elif self.norm_kind == "group":
+            y = group_norm_f32(y, self.norm).to(x.dtype)
+        return F.gelu(y, approximate="tanh" if gelu_mode == "tanh" else "none")
 
 
 def _cached(layer: ConvLayer, name: str) -> torch.Tensor:
@@ -113,12 +149,13 @@ class ConvFeatureExtractor(nn.Module):
     """wavs [B, T] -> features [B, T', C] (valid convs, total stride 320).
 
     Matrix weights live in `dtype` (the mid convs in f32 with
-    ``int8_conv``), norms in f32. Only ``mode="layer_norm"`` without conv
-    bias is ported; the group-norm ("default", HuBERT-Base) extractor and
-    conv bias are later slices (ROADMAP.md Queue 1 item 4). The options
-    ``int8_conv``, ``fused_conv`` and ``fused_midln`` (module docstring)
-    are plain attributes, not state; one that cannot take effect raises a
-    ValueError before any weight is made."""
+    ``int8_conv``), conv biases and norms in f32. ``mode`` "layer_norm" or
+    "default" (the module docstring). The options ``int8_conv``,
+    ``fused_conv`` and ``fused_midln`` (module docstring) are plain
+    attributes, not state; one that cannot take effect raises a ValueError
+    before any weight is made: the chains need the bias-free layer-norm
+    extractor, ``fused_midln`` the layer-norm mode (convfe.py:201-216,
+    :322-337)."""
 
     def __init__(self, conv_layers: Sequence[Tuple[int, int, int]] = DEFAULT_CONV_LAYERS,
                  mode: str = "layer_norm", conv_bias: bool = False,
@@ -126,17 +163,20 @@ class ConvFeatureExtractor(nn.Module):
                  device=None, int8_conv: bool = False, fused_conv: bool = False,
                  fused_midln: bool = False):
         super().__init__()
-        if mode != "layer_norm" or conv_bias:
-            raise NotImplementedError(
-                f"extractor mode {mode!r}, conv_bias={conv_bias}: only the "
-                "bias-free 'layer_norm' extractor is ported "
-                "(ROADMAP.md Queue 1 item 4)")
+        if mode not in ("layer_norm", "default"):
+            raise ValueError(f"extractor mode {mode!r}: 'layer_norm' or 'default'")
         (_, k0, s0), *mid = conv_layers
-        self.fuse0 = k0 == 2 * s0  # layer 0 through K3 / K13a in eval mode
+        # layer 0 through K3 / K13a in eval mode (convfe.py:201-204)
+        self.fuse0 = mode == "layer_norm" and not conv_bias and k0 == 2 * s0
         chain = [name for name, on in (("int8_conv", int8_conv), ("fused_conv", fused_conv)) if on]
         if chain and not (self.fuse0 and all(k in MID_TAPS and s == 2 for _, k, s in mid)):
-            raise ValueError(f"{chain[0]} cannot take effect: its chain needs k0 == 2 * s0 and "
-                             f"every mid layer a stride-2 conv with k in {MID_TAPS}")
+            raise ValueError(f"{chain[0]} cannot take effect: its chain needs the layer-norm "
+                             "extractor without conv bias, k0 == 2 * s0 and every mid layer a "
+                             f"stride-2 conv with k in {MID_TAPS} (got mode {mode!r}, "
+                             f"conv_bias={conv_bias})")
+        if fused_midln and mode != "layer_norm":
+            raise ValueError(f"fused_midln cannot take effect: its kernel is the mid layers' "
+                             f"LN + GELU of the layer-norm extractor (got mode {mode!r})")
         if int8_conv and not quantize:
             raise ValueError("int8_conv is the int8 conv chain of int8 serving: it needs the "
                              "extractor's quantize (quantize=True on HuBERT; WavLM's extractor "
@@ -151,8 +191,9 @@ class ConvFeatureExtractor(nn.Module):
         self.quantize = quantize
         self.int8_conv, self.fused_conv, self.fused_midln = int8_conv, fused_conv, fused_midln
         layers, c_in = [], 1
-        for dim, k, stride in conv_layers:
-            layers.append(ConvLayer(c_in, dim, k, stride, device=device))
+        for i, (dim, k, stride) in enumerate(conv_layers):
+            norm = "layer" if mode == "layer_norm" else "group" if i == 0 else None
+            layers.append(ConvLayer(c_in, dim, k, stride, norm, conv_bias, device=device))
             c_in = dim
         self.conv_layers = nn.ModuleList(layers)
         for i, layer in enumerate(self.conv_layers):
@@ -180,8 +221,8 @@ class ConvFeatureExtractor(nn.Module):
     def forward(self, wavs: torch.Tensor) -> torch.Tensor:
         first, *rest = self.conv_layers
         s0, k0 = first.conv.stride[0], first.conv.kernel_size[0]
-        ln0 = (first.norm.weight, first.norm.bias)
         fuse0 = self.fuse0 and not self.training  # the kernels are forward-only
+        ln0 = (first.norm.weight, first.norm.bias) if fuse0 else None
         if fuse0 and self.int8_conv:  # convfe.py:239-269
             xq, xs = conv0_ln_gelu_q8(wavs.to(self.dtype), first.conv.weight, *ln0,
                                       stride=s0, k=k0)
@@ -202,7 +243,7 @@ class ConvFeatureExtractor(nn.Module):
         if fuse0:  # layer 0 through the fused kernel, as convfe.py:276-289 does in extraction
             x = conv0_ln_gelu(wavs.to(self.dtype), first.conv.weight, *ln0, stride=s0, k=k0,
                               gelu_mode=gelu_mode)
-        else:  # the stock layer 0 (convfe.py:296-300), then LN and GELU as the mid layers'
+        else:  # the stock layer 0 (convfe.py:296-300), then its norm and GELU
             x, rest = wavs[..., None].to(self.dtype), self.conv_layers
         midln = self.fused_midln and not self.training  # convfe.py:322-337
         for layer in rest:

@@ -1,8 +1,12 @@
 """Transformer encoder with convolutional positional embedding (port of
-s3prl_tpu/models/transformer.py, pre-LN blocks).
+s3prl_tpu/models/transformer.py): pre-LN blocks (the *-Large models) and
+post-LN blocks (HuBERT-Base, fairseq's layer_norm_first=False).
 
 Per-layer hidden states come back as the stack of every layer's input plus
-the final LayerNorm's output, [L+1, B, T, C] (transformer.py:743-789).
+the last one's output, [L+1, B, T, C] (transformer.py:743-789): pre-LN
+runs the encoder LayerNorm after the layers, on that output; post-LN runs
+it before them, on the pos-conv's sum, so the first hidden state is
+normalised and the last is the last layer's output (:735-736, :782-783).
 
 Routing of a pre-LN `EncoderLayer` (transformer.py:389-563). A layer runs
 "quant serving" when it is built with ``quantize``, is in eval mode and the
@@ -30,6 +34,21 @@ with the kernels module's MAX_BLOCK_T and MAX_KERNEL_T at call time:
   kernels -> K5 `fused_bf16_ffn` at every T; otherwise fc1 -> erf GELU ->
   fc2, through int8_matmul under ``quantize``. K2 runs tanh GELU, the
   module path erf, as in the JAX package.
+Routing of a post-LN `EncoderLayer` (transformer.py:564-668), the same
+gates, with each LN after its residual sum:
+- attention, quant serving or the bf16 kernels with ``use_flash``, eps
+  1e-5 and T <= MAX_BLOCK_T: K1 `fused_attention_block` or K4
+  `fused_attention_block_bf16` with ``postnorm`` (K1 quantizes the raw
+  residual rows, with no LN before the QKV);
+- attention, quant serving with ``use_flash`` beyond MAX_BLOCK_T: the QKV
+  through int8_matmul on raw x in the model dtype, K6 (K8 beyond
+  MAX_KERNEL_T), then the stock f32 LN cast back (:612-638);
+- attention otherwise: LN(x + SelfAttention(x)), the module path above;
+- FFN, quant serving or the bf16 kernels with ``ffn_dim % 128 == 0``, eps
+  1e-5: K2 or K5 with ``postnorm`` at every T; otherwise LN(x + ffn(x)),
+  ffn being K2 bare under quant serving and the module path otherwise.
+``qkv_fuse`` and ``full_fuse`` exist only in the pre-LN branch: a post-LN
+layer refuses them.
 On the card, K7 takes bf16 qkv: an f32 ``use_flash`` layer raises there.
 WavLM's layers (`models/wavlm.py`) subclass `EncoderLayer` and pass their
 gated relative-position bias to `SelfAttention` (``rel_bias``), whose
@@ -72,6 +91,12 @@ def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     """f32 LayerNorm cast back to x.dtype (nn.LayerNorm(dtype=f32) then astype)."""
     y = F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps)
     return y.to(x.dtype)
+
+
+def on_card(device) -> bool:
+    """Whether `device` names a CUDA device (a model built there is checked
+    against the card kernels' limits at load)."""
+    return device is not None and torch.device(device).type == "cuda"
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -119,7 +144,8 @@ class ConvPositionalEmbedding(nn.Sequential):
     An option whose kernel cannot take this configuration raises a
     ValueError before anything is allocated: the JAX gate (k even and a
     multiple of the tap chunk) everywhere, and on a CUDA device the card
-    kernel's tap limit too (the plain version takes any k)."""
+    kernel's limits too, its tap limit and its GROUP_WIDTH channels a group
+    (`card_refusal`; the plain version takes any k and any width)."""
 
     # option -> (keyword, tap chunk, the card kernel's largest k)
     OPTIONS = {"fused": ("fused_posconv", pc.TC, pc.MAX_TAPS),
@@ -128,14 +154,12 @@ class ConvPositionalEmbedding(nn.Sequential):
     def __init__(self, features: int, kernel_size: int = 128, groups: int = 16,
                  dtype: torch.dtype = torch.float32, option: str | None = None, device=None):
         if option is not None:
-            name, tc, max_taps = self.OPTIONS[option]
+            name, tc, _ = self.OPTIONS[option]
             if kernel_size % 2 or kernel_size % tc:
                 raise ValueError(f"{name} cannot take effect: its kernel needs an even conv_pos "
                                  f"that is a multiple of {tc}, got {kernel_size}")
-            if device is not None and torch.device(device).type == "cuda" \
-                    and kernel_size > max_taps:
-                raise ValueError(f"{name} cannot take effect on the card: its kernel takes "
-                                 f"conv_pos up to {max_taps}, got {kernel_size}")
+            if on_card(device):
+                self.card_refusal(features, kernel_size, groups, option)
         super().__init__(nn.Conv1d(features, features, kernel_size,
                                    padding=kernel_size // 2, groups=groups,
                                    device=device))
@@ -146,6 +170,20 @@ class ConvPositionalEmbedding(nn.Sequential):
             self.register_buffer(name, None, persistent=False)
         if option is not None:
             self.register_load_state_dict_post_hook(lambda m, _: m.build_qcache())
+
+    @classmethod
+    def card_refusal(cls, features: int, kernel_size: int, groups: int, option: str) -> None:
+        """Raises the ValueError of an option whose card kernel cannot take
+        this pos-conv: k over its tap limit, or other than GROUP_WIDTH
+        channels a group (`kernels/posconv.py`)."""
+        name, _, max_taps = cls.OPTIONS[option]
+        if kernel_size > max_taps:
+            raise ValueError(f"{name} cannot take effect on the card: its kernel takes "
+                             f"conv_pos up to {max_taps}, got {kernel_size}")
+        if features % groups or features // groups != pc.GROUP_WIDTH:
+            raise ValueError(f"{name} cannot take effect on the card: its kernel takes "
+                             f"{pc.GROUP_WIDTH} channels a group, got {features} channels in "
+                             f"{groups} groups")
 
     @torch.no_grad()
     def build_qcache(self) -> None:
@@ -260,18 +298,22 @@ class SelfAttention(_QCache, nn.Module):
 
 
 class EncoderLayer(_QCache, nn.Module):
-    """Pre-LN transformer block (wav2vec2_model.py:3214, layer_norm_first).
-    The post-LN order (HuBERT-Base) is a later slice (ROADMAP.md Queue 1
-    item 5)."""
+    """Transformer block (wav2vec2_model.py:3214): pre-LN with
+    ``layer_norm_first`` (x + attn(LN(x)), then x + ffn(LN(x))), post-LN
+    without it (LN(x + attn(x)), then LN(x + ffn(x))). The routing of both
+    is in the module docstring."""
 
     attention = SelfAttention  # the self-attention module (WavLM's adds the gate)
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
                  quantize: bool = False, layer_norm_eps: float = 1e-5, device=None,
-                 qkv_fuse: bool = False, full_fuse: bool = False):
+                 qkv_fuse: bool = False, full_fuse: bool = False,
+                 layer_norm_first: bool = True):
+        self.refuse_options(layer_norm_first, qkv_fuse, full_fuse)
         super().__init__()
         self.dtype = dtype
+        self.layer_norm_first = layer_norm_first
         self.use_flash = use_flash
         self.quantize = quantize
         self.num_heads = num_heads
@@ -292,6 +334,16 @@ class EncoderLayer(_QCache, nn.Module):
             for p in (self.self_attn.qkv_weight, self.self_attn.out_proj.weight,
                       self.fc1.weight, self.fc2.weight):
                 p.data = p.data.to(dtype)
+
+    @staticmethod
+    def refuse_options(layer_norm_first: bool, qkv_fuse: bool, full_fuse: bool) -> None:
+        """``qkv_fuse`` and ``full_fuse`` fuse the pre-LN block's LN + QKV
+        (transformer.py:393-405, :471-480): a post-LN block raises a
+        ValueError for them."""
+        on = [name for name, value in (("qkv_fuse", qkv_fuse), ("full_fuse", full_fuse)) if value]
+        if on and not layer_norm_first:
+            raise ValueError(f"{on[0]} cannot take effect: it fuses the pre-LN block's LN + QKV, "
+                             "and this model's blocks are post-LN")
 
     @torch.no_grad()
     def build_qcache(self) -> None:
@@ -330,10 +382,14 @@ class EncoderLayer(_QCache, nn.Module):
         pad_mask [B, T] True on padded frames."""
         attn, ln1, ln2 = self.self_attn, self.self_attn_layer_norm, self.final_layer_norm
         quant_serving = self.quantize and not self.training and _fused_block_available(x)
+        # the JAX bf16 gate also asks for the gelu activation: every ported
+        # config has it (wav2vec2._unsupported)
         fused = (
             not self.training and not self.quantize and self.dtype == torch.bfloat16
             and self.use_flash and ln1.eps == 1e-5 and _fused_block_available(x)
         )
+        if not self.layer_norm_first:
+            return self._post_ln(x, kv_lens, pad_mask, quant_serving, fused)
         if quant_serving and self.full_fuse and self.use_flash and ln1.eps == 1e-5:
             return self._fully_fused(x, kv_lens)
         block_t = x.shape[1] <= fa.MAX_BLOCK_T
@@ -368,10 +424,51 @@ class EncoderLayer(_QCache, nn.Module):
                                       self.fc2.bias)
         return x + self._ffn(h)
 
+    def _post_ln(self, x: torch.Tensor, kv_lens: torch.Tensor, pad_mask: torch.Tensor,
+                 quant_serving: bool, fused: bool) -> torch.Tensor:
+        """The post-LN block (transformer.py:564-668): x = LN1(x + attn(x)),
+        then x = LN2(x + ffn(x)), each LN in f32 cast back to x.dtype."""
+        attn, ln1, ln2 = self.self_attn, self.self_attn_layer_norm, self.final_layer_norm
+        if ((quant_serving or fused) and self.use_flash and ln1.eps == 1e-5
+                and x.shape[1] <= fa.MAX_BLOCK_T):
+            if quant_serving:
+                x = fused_attention_block(
+                    x, attn.qpair("qkv"), attn.qkv_bias, (ln1.weight, ln1.bias),
+                    attn.qpair("out_proj"), attn.out_proj.bias, kv_lens, self.num_heads,
+                    postnorm=True)
+            else:
+                x = fused_attention_block_bf16(
+                    x, attn.qkv_weight, attn.qkv_bias, (ln1.weight, ln1.bias),
+                    attn.out_proj.weight, attn.out_proj.bias, kv_lens, self.num_heads,
+                    postnorm=True)
+        elif quant_serving and self.use_flash:  # the QKV on raw x (transformer.py:612-638)
+            qkv = int8_matmul(x, attn.qpair("qkv"), attn.qkv_bias, out_dtype=self.dtype)
+            x = _layer_norm(fused_qkv_attention_outproj(qkv, x, attn.qpair("out_proj"),
+                                                        attn.out_proj.bias, kv_lens,
+                                                        self.num_heads), ln1)
+        else:
+            x = _layer_norm(x + attn(x, pad_mask), ln1)
+        if ((quant_serving or (fused and self.fc1.out_features % 128 == 0))
+                and ln2.eps == 1e-5):
+            if quant_serving:
+                return fused_int8_ffn(x, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),
+                                      self.fc2.bias, ln=(ln2.weight, ln2.bias), residual=True,
+                                      postnorm=True)
+            return fused_bf16_ffn(x, self.fc1.weight, self.fc1.bias, self.fc2.weight,
+                                  self.fc2.bias, ln=(ln2.weight, ln2.bias), residual=True,
+                                  postnorm=True)
+        if quant_serving:  # K2 bare (transformer.py:422-428)
+            h = fused_int8_ffn(x, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),
+                               self.fc2.bias)
+        else:
+            h = self._ffn(x)
+        return _layer_norm(x + h, ln2)
+
 
 class TransformerEncoder(nn.Module):
-    """Pre-LN encoder stack returning [L+1, B, T, C]: the input of every
-    layer, then the final LayerNorm's output (transformer.py:671)."""
+    """Encoder stack returning [L+1, B, T, C]: the input of every layer,
+    then the last one's output, after the encoder LayerNorm when pre-LN
+    (transformer.py:671; post-LN runs that LN before the layers)."""
 
     def __init__(self, embed_dim: int = 1024, ffn_dim: int = 4096, num_layers: int = 24,
                  num_heads: int = 16, layer_norm_first: bool = True, conv_pos: int = 128,
@@ -381,15 +478,12 @@ class TransformerEncoder(nn.Module):
         """``posconv``: the pos-conv option (`ConvPositionalEmbedding`);
         ``fuse``: the layers' ``qkv_fuse`` / ``full_fuse`` options."""
         super().__init__()
-        if not layer_norm_first:
-            raise NotImplementedError(
-                "post-LN encoder (HuBERT-Base) is a later slice "
-                "(ROADMAP.md Queue 1 item 5)")
+        self.layer_norm_first = layer_norm_first
         self.pos_conv = ConvPositionalEmbedding(embed_dim, conv_pos, conv_pos_groups, dtype,
                                                 posconv, device=device)
         self.layers = nn.ModuleList([
             EncoderLayer(embed_dim, ffn_dim, num_heads, dtype, use_flash, quantize,
-                         device=device, **fuse)
+                         device=device, layer_norm_first=layer_norm_first, **fuse)
             for _ in range(num_layers)
         ])
         self.layer_norm = nn.LayerNorm(embed_dim, device=device)
@@ -407,10 +501,12 @@ class TransformerEncoder(nn.Module):
         kv_lens = torch.clamp(feat_lens, max=T).to(torch.int32)
         x = x.masked_fill(pad_mask[..., None], 0.0)
         x = x + self.pos_conv(x)
+        if not self.layer_norm_first:  # transformer.py:735-736
+            x = _layer_norm(x, self.layer_norm)
         shared = self._layer_args(T, x.device)
         hidden = x.new_empty(len(self.layers) + 1, B, T, C)
         for i, layer in enumerate(self.layers):
             hidden[i] = x
             x = layer(x, kv_lens, pad_mask, *shared)
-        hidden[-1] = _layer_norm(x, self.layer_norm)
+        hidden[-1] = _layer_norm(x, self.layer_norm) if self.layer_norm_first else x
         return hidden

@@ -3,8 +3,9 @@
 -> conv-pos-emb transformer, returning [L+1, B, T', C] hidden states and the
 valid frame count of each utterance.
 
-Ported for the HuBERT-Large serving slices (bf16, and int8 W8A8 with
-``quantize``): layer-norm extractor, pre-LN encoder, the block-folded
+Ported for the HuBERT serving slices (bf16, and int8 W8A8 with
+``quantize``): HuBERT-Large (layer-norm extractor, pre-LN encoder) and
+HuBERT-Base (group-norm extractor, post-LN encoder), the block-folded
 feature-length rule, no span masking (extraction). WavLM
 (`models/wavlm.py`) is this trunk with its own encoder and an erf extractor.
 The module names follow fairseq's state_dict keys (see upstream/convert.py).
@@ -19,9 +20,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..kernels import flash_attention as fa
 from ..ops.masking import length_mask
 from .convfe import DEFAULT_CONV_LAYERS, ConvFeatureExtractor, total_stride
-from .transformer import TransformerEncoder
+from .transformer import ConvPositionalEmbedding, EncoderLayer, TransformerEncoder, on_card
 
 
 @dataclass(frozen=True)
@@ -95,6 +97,22 @@ def _unsupported(cfg: Wav2Vec2Config) -> str | None:
     return None
 
 
+def card_refusal(cfg: Wav2Vec2Config, use_flash: bool, posconv: str | None) -> None:
+    """Raises the ValueError of a model the card's kernels cannot serve,
+    before anything is allocated: ``use_flash`` at a head dim other than
+    the attention kernels' HEAD_DIM, and a pos-conv option whose kernel
+    cannot take the pos-conv (`ConvPositionalEmbedding.card_refusal`). A
+    model built on the CPU runs both (the kernels' plain versions)."""
+    if use_flash:
+        C, H = cfg.encoder_embed_dim, cfg.encoder_attention_heads
+        if C % H or C // H != fa.HEAD_DIM:
+            raise ValueError(f"flash=True cannot take effect on the card: its attention kernels "
+                             f"take head dim {fa.HEAD_DIM}, got {C} channels in {H} heads")
+    if posconv is not None:
+        ConvPositionalEmbedding.card_refusal(cfg.encoder_embed_dim, cfg.conv_pos,
+                                             cfg.conv_pos_groups, posconv)
+
+
 class Wav2Vec2Trunk(nn.Module):
     """Conv features -> LayerNorm -> proj -> transformer (extraction only).
 
@@ -113,7 +131,11 @@ class Wav2Vec2Trunk(nn.Module):
     options of the encoder (`ConvPositionalEmbedding`, in every dtype, as the
     JAX switch is independent of ``quantize``): ``fused_posconv`` (K16a) and
     ``int8_posconv`` (K16b, its weight kept f32). One that cannot take effect
-    raises a ValueError before any weight is made."""
+    raises a ValueError before any weight is made: the front-end options on
+    the group-norm extractor, ``qkv_fuse`` / ``full_fuse`` on post-LN blocks.
+    Built on a CUDA device, the trunk also refuses what the card's kernels
+    cannot take (`card_refusal`): ``use_flash`` at a head dim other than 64,
+    a pos-conv option at other than 64 channels a group."""
 
     # int8 serving runs the extractor's GELU in tanh (s3prl_tpu/models/
     # wav2vec2.py passes ``quantize`` to its extractor; WavLM's does not)
@@ -131,7 +153,7 @@ class Wav2Vec2Trunk(nn.Module):
         reason = _unsupported(cfg)
         if reason is not None:
             raise NotImplementedError(
-                f"{reason} is not ported yet (ROADMAP.md Queue 1 items 5, 6, 11)")
+                f"{reason} is not ported yet (ROADMAP.md Queue 1 items 4 and 8)")
         if fused_posconv and int8_posconv:
             raise ValueError("fused_posconv and int8_posconv: the pos-conv takes one kernel "
                              "(the JAX package's pos-conv switch has one value)")
@@ -146,6 +168,9 @@ class Wav2Vec2Trunk(nn.Module):
         if on and not (quantize and use_flash):
             raise ValueError(f"{', '.join(on)} fuses projections of int8 serving: "
                              "it needs quantize=True and flash=True")
+        EncoderLayer.refuse_options(cfg.layer_norm_first, qkv_fuse, full_fuse)
+        if on_card(device):
+            card_refusal(cfg, use_flash, posconv)
         self.cfg = cfg
         self.dtype = dtype
         self.feature_extractor = ConvFeatureExtractor(

@@ -8,11 +8,12 @@ On top of the trunk:
   the JAX package keeps it at encoder level) and shared by all layers as
   pos_bias [H, T, T] = table[buckets], gathered once per forward and rounded
   to the model dtype (wavlm.py:297-308);
-- per layer, a gate per (head, query) from the layer's LN output split by
+- per layer, a gate per (head, query) from the attention's input split by
   heads (wavlm.py:118-128), which scales the shared bias.
 
-Ported: pre-LN WavLM (WavLM-Large). Routing of a `GatedRelPosLayer`
-(wavlm.py:182-229):
+Ported: pre-LN WavLM (WavLM-Large) and post-LN WavLM (WavLM-Base,
+WavLM-Base+: the group-norm extractor, the encoder LN before the layers).
+Routing of a pre-LN `GatedRelPosLayer` (wavlm.py:182-229):
 - attention: x + self_attn(LN(x)) with the gated bias; with ``use_flash``
   K9 `gated_bias_attention` (K10 beyond MAX_KERNEL_T), otherwise plain ops;
   the projections through int8_matmul under ``quantize``. WavLM runs none
@@ -25,7 +26,13 @@ Ported: pre-LN WavLM (WavLM-Large). Routing of a `GatedRelPosLayer`
   module path fc1 -> erf GELU -> fc2 (int8_matmul under ``quantize``): the
   bf16 WavLM does not run K5;
 - extractor: the JAX WavLM passes no ``quantize`` to it (wavlm.py:264-267),
-  so K3 runs exact (erf) GELU in both paths.
+  so K3 runs exact (erf) GELU in both paths (the group-norm extractor runs
+  no kernel, and erf too).
+A post-LN layer (wavlm.py:230-236) takes the same attention routes on raw
+x, the gate computed from raw x too, then the stock f32 LN:
+x = LN1(x + attn(x)) (with ``wavlm_fuse`` LN1(K11(x))); then
+x = LN2(x + ffn(x)), the FFN being K2 bare under quant serving (not K2's
+postnorm form) and the module path otherwise.
 """
 
 from __future__ import annotations
@@ -56,6 +63,8 @@ class WavLMConfig(Wav2Vec2Config):
     gru_rel_pos: bool = True
 
 
+WAVLM_BASE = WavLMConfig(dropout_input=0.0)  # 12L/768, group-norm extractor, post-LN
+WAVLM_BASE_PLUS = WAVLM_BASE
 WAVLM_LARGE = WavLMConfig(
     extractor_mode="layer_norm",
     encoder_layers=24,
@@ -132,17 +141,18 @@ class GatedSelfAttention(SelfAttention):
 
 
 class GatedRelPosLayer(EncoderLayer):
-    """Pre-LN WavLM block (wavlm.py:86-237). ``num_buckets`` is given to
-    layer 0 only, which then owns the shared bias table."""
+    """WavLM block (wavlm.py:86-237), pre-LN with ``layer_norm_first``,
+    post-LN without it. ``num_buckets`` is given to layer 0 only, which
+    then owns the shared bias table."""
 
     attention = GatedSelfAttention
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
                  quantize: bool = False, num_buckets: int | None = None, device=None,
-                 wavlm_fuse: bool = False):
+                 wavlm_fuse: bool = False, layer_norm_first: bool = True):
         super().__init__(embed_dim, ffn_dim, num_heads, dtype, use_flash, quantize,
-                         device=device)
+                         device=device, layer_norm_first=layer_norm_first)
         self.wavlm_fuse = wavlm_fuse  # K11 under quant serving: a plain attribute, not state
         if num_buckets is not None:
             self.self_attn.relative_attention_bias = nn.Embedding(num_buckets, num_heads,
@@ -152,9 +162,10 @@ class GatedRelPosLayer(EncoderLayer):
                 pos_bias: torch.Tensor) -> torch.Tensor:
         """x [B, T, C] in the model dtype; kv_lens [B] int32; pad_mask [B, T]
         True on padded frames; pos_bias [H, T, T], the encoder's shared bias."""
-        attn, ln2 = self.self_attn, self.final_layer_norm
+        attn, ln1, ln2 = self.self_attn, self.self_attn_layer_norm, self.final_layer_norm
         quant_serving = self.quantize and not self.training and tr._fused_block_available(x)
-        h = _layer_norm(x, self.self_attn_layer_norm)
+        # pre-LN: attention on LN1(x), plus x; post-LN: on raw x, then LN1
+        h = _layer_norm(x, ln1) if self.layer_norm_first else x
         if quant_serving and self.use_flash and self.wavlm_fuse:  # wavlm.py:175-212
             qkv = int8_matmul(h, attn.qpair("qkv"), attn.qkv_bias, out_dtype=self.dtype)
             x = gated_bias_attention_outproj(qkv, x, pos_bias, attn.gate(h).float(),
@@ -162,6 +173,14 @@ class GatedRelPosLayer(EncoderLayer):
                                              kv_lens, self.num_heads)
         else:
             x = x + attn(h, pad_mask, rel_bias=(pos_bias, attn.gate(h)))
+        if not self.layer_norm_first:  # wavlm.py:230-236
+            x = _layer_norm(x, ln1)
+            if quant_serving:  # K2 bare
+                h = fused_int8_ffn(x, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),
+                                   self.fc2.bias)
+            else:
+                h = self._ffn(x)
+            return _layer_norm(x + h, ln2)
         if quant_serving:
             return fused_int8_ffn(x, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),
                                   self.fc2.bias, ln=(ln2.weight, ln2.bias), residual=True)
@@ -169,17 +188,15 @@ class GatedRelPosLayer(EncoderLayer):
 
 
 class WavLMEncoder(TransformerEncoder):
-    """Pos-conv, the gated layers, final LN; [L+1, B, T, C] as the trunk's."""
+    """Pos-conv, the gated layers and the encoder LN (``enc_layer_norm`` of
+    the JAX tree, after the layers when pre-LN, before them when post-LN,
+    wavlm.py:290-292, :330-331); [L+1, B, T, C] as the trunk's."""
 
     def __init__(self, cfg: WavLMConfig, dtype: torch.dtype = torch.float32,
                  use_flash: bool = False, quantize: bool = False, device=None,
                  posconv: str | None = None, wavlm_fuse: bool = False):
-        if not cfg.layer_norm_first:
-            raise NotImplementedError(
-                "post-LN WavLM (WavLM-Base, WavLM-Base+) is a later slice "
-                "(ROADMAP.md Queue 2)")
         super().__init__(cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim, 0,
-                         cfg.encoder_attention_heads, True, cfg.conv_pos,
+                         cfg.encoder_attention_heads, cfg.layer_norm_first, cfg.conv_pos,
                          cfg.conv_pos_groups, dtype, use_flash, quantize, device=device,
                          posconv=posconv)
         self.dtype = dtype
@@ -190,7 +207,7 @@ class WavLMEncoder(TransformerEncoder):
             GatedRelPosLayer(cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim,
                              cfg.encoder_attention_heads, dtype, use_flash, quantize,
                              num_buckets=cfg.num_buckets if i == 0 else None, device=device,
-                             wavlm_fuse=wavlm_fuse)
+                             wavlm_fuse=wavlm_fuse, layer_norm_first=cfg.layer_norm_first)
             for i in range(cfg.encoder_layers))
 
     def _layer_args(self, T: int, device) -> tuple:
@@ -226,7 +243,8 @@ class WavLMModel(Wav2Vec2Trunk):
     ``wavlm_fuse`` (K11), the front-end ``fused_conv`` / ``fused_midln`` and
     the pos-conv ``fused_posconv`` (K16a) / ``int8_posconv`` (K16b; WavLM
     reaches the same pos-conv module, wavlm.py:287); ``int8_conv`` raises,
-    as WavLM's extractor takes no ``quantize``."""
+    as WavLM's extractor takes no ``quantize``, and on the group-norm
+    extractor of WavLM-Base the front-end options all raise."""
 
     tanh_extractor = False  # erf in both paths (wavlm.py:264-267)
     fuse_options = ("wavlm_fuse",)
@@ -236,7 +254,7 @@ class WavLMModel(Wav2Vec2Trunk):
         if not (cfg.relative_position_embedding and cfg.gru_rel_pos):
             raise NotImplementedError(
                 "WavLM without the gated relative-position bias is not ported "
-                "(ROADMAP.md Queue 2)")
+                "(ROADMAP.md Queue 1 item 3)")
         super().__init__(cfg, dtype, use_flash, quantize, device=device, **fuse)
 
     def _encoder(self, cfg, dtype, use_flash, quantize, device, posconv, **fuse) -> nn.Module:

@@ -12,7 +12,10 @@ the same for s3prl_tpu.models.wavlm.WavLMModel (Microsoft's keys):
 - Dense kernels [in, out] -> Linear weights [out, in];
 - the fused qkv kernel [C, 3C] -> q/k/v_proj weights [C, C] each;
 - the stacked encoder layers (leading L axis) -> encoder.layers.{i}.*;
-- LayerNorm scale/bias -> weight/bias.
+- LayerNorm and GroupNorm scale/bias -> weight/bias: the layer-norm
+  extractor's ``ln_{i}`` at ``conv_layers.{i}.2.1``, the default
+  extractor's ``gn_0`` at ``conv_layers.0.2``;
+- with ``conv_bias`` each ``conv_{i}`` bias -> ``conv_layers.{i}.0.bias``.
 """
 
 from __future__ import annotations
@@ -48,17 +51,19 @@ def _conv(kernel) -> torch.Tensor:
 
 
 def _front_end(p: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
-    """The extractor, the feature LN, the projection and the mask embedding."""
-    if cfg.extractor_mode != "layer_norm" or cfg.conv_bias:
-        raise NotImplementedError(
-            "only the bias-free layer-norm extractor is ported "
-            "(ROADMAP.md Queue 1 item 3)")
+    """The extractor, the feature LN, the projection and the mask embedding
+    (the inverse of s3prl_tpu/upstream/convert.py:99-119)."""
     sd: Dict[str, torch.Tensor] = {}
     fe = p["feature_extractor"]
     for i in range(len(cfg.conv_feature_layers)):
         pre = f"feature_extractor.conv_layers.{i}"
         sd[f"{pre}.0.weight"] = _conv(fe[f"conv_{i}"]["kernel"])
-        _norm(sd, f"{pre}.2.1", fe[f"ln_{i}"])
+        if cfg.conv_bias:
+            sd[f"{pre}.0.bias"] = _tensor(fe[f"conv_{i}"]["bias"])
+        if cfg.extractor_mode == "layer_norm":
+            _norm(sd, f"{pre}.2.1", fe[f"ln_{i}"])
+        elif i == 0:
+            _norm(sd, f"{pre}.2", fe["gn_0"])
     _norm(sd, "layer_norm", p["layer_norm"])
     if "post_extract_proj" in p:
         _linear(sd, "post_extract_proj", p["post_extract_proj"])

@@ -1,13 +1,18 @@
 """Named upstream registry (port of s3prl_tpu/upstream/registry.py).
 
-Ported entries: ``hubert_large_ll60k`` and ``wavlm_large``, each in f32,
-bf16 and int8 W8A8 (``quantize=True``, the serving default), the int8 path
-with its opt-in fused projections (``qkv_fuse``, ``full_fuse``;
-``wavlm_fuse``), the front-end options ``int8_conv`` (HuBERT int8),
-``fused_conv`` and ``fused_midln``, and the pos-conv options
-``fused_posconv`` and ``int8_posconv``. A model is built on the card (``torch.device("cuda")``)
-unless ``device=`` says otherwise; without CUDA and without ``device=``
-loading raises rather than building on the CPU. Without a checkpoint (loading one is a later slice)
+Ported entries, with the JAX package's names and configurations
+(s3prl_tpu/upstream/registry.py:232-240, :290-308): ``hubert_large_ll60k``
+and ``wavlm_large`` (pre-LN, layer-norm extractor), ``hubert`` /
+``hubert_base`` and ``wavlm`` / ``wavlm_base`` / ``wavlm_base_plus`` (the
+Base models: post-LN, group-norm extractor), each in f32, bf16 and int8
+W8A8 (``quantize=True``, the serving default), the int8 path with its
+opt-in fused projections (``qkv_fuse``, ``full_fuse``; ``wavlm_fuse``), the
+front-end options ``int8_conv`` (HuBERT int8), ``fused_conv`` and
+``fused_midln``, and the pos-conv options ``fused_posconv`` and
+``int8_posconv``, each where it can take effect (`load`). A model is built
+on the card (``torch.device("cuda")``) unless ``device=`` says otherwise;
+without CUDA and without ``device=`` loading raises rather than building
+on the CPU. Without a checkpoint (loading one is a later slice)
 the weights are random, drawn on the CPU from a `torch.Generator` seeded
 with `seed`, so one seed gives the same model on every device. With
 ``quantize`` the encoder's projections are quantized once, on the CPU from
@@ -23,10 +28,11 @@ from typing import Callable, Dict, List
 import torch
 import torch.nn as nn
 
-from ..models.hubert import HUBERT_LARGE
+from ..models.hubert import HUBERT_BASE, HUBERT_LARGE
 from ..models.transformer import SelfAttention
-from ..models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Trunk
-from ..models.wavlm import WAVLM_LARGE, GatedSelfAttention, WavLMConfig, WavLMModel
+from ..models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Trunk, card_refusal
+from ..models.wavlm import (WAVLM_BASE, WAVLM_BASE_PLUS, WAVLM_LARGE, GatedSelfAttention,
+                            WavLMConfig, WavLMModel)
 from .base import Upstream
 
 _REGISTRY: Dict[str, Callable[..., Upstream]] = {}
@@ -54,7 +60,14 @@ def load(name: str, **kwargs) -> Upstream:
     ``quantize=True``), ``fused_conv`` (K3 erf + K14) and ``fused_midln``
     (K15). The pos-conv options, also False by default and in every dtype:
     ``fused_posconv`` (K16a) and ``int8_posconv`` (K16b). A keyword that
-    cannot take effect raises a ValueError."""
+    cannot take effect raises a ValueError before any weight is made. On
+    the Base models (``hubert``, ``hubert_base``, ``wavlm``, ``wavlm_base``,
+    ``wavlm_base_plus``): the front-end options raise (the group-norm
+    extractor runs no kernel), ``qkv_fuse`` / ``full_fuse`` raise (post-LN
+    blocks), ``wavlm_fuse`` works, and the pos-conv options work on the CPU
+    but raise for the card, whose kernels take 64 channels a group (768 in
+    16 groups is 48). A model bound for the card also raises for
+    ``flash=True`` at a head dim other than 64 (every entry has 64)."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown upstream '{name}'; available: {options()}")
     return _REGISTRY[name](**kwargs)
@@ -92,7 +105,7 @@ def _init_trunk(model: Wav2Vec2Trunk, gen: torch.Generator) -> Wav2Vec2Trunk:
             m.qkv_bias.zero_()
             if isinstance(m, GatedSelfAttention):
                 m.grep_a.fill_(1.0)
-        elif isinstance(m, nn.LayerNorm):
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
@@ -109,14 +122,17 @@ def _trunk_upstream(name: str, cfg: Wav2Vec2Config, dtype=torch.float32,
     """A trunk model (WavLM for a `WavLMConfig`) with random weights from
     `seed`, on `device` (the card when None). ``fuse``: the model's fused
     int8 projection options (`Wav2Vec2Trunk.fuse_options`), front-end and
-    pos-conv options, checked before any weight is made."""
+    pos-conv options, checked before any weight is made, and for the card
+    also against its kernels' limits (`card_refusal`)."""
     model_cls = WavLMModel if isinstance(cfg, WavLMConfig) else Wav2Vec2Trunk
     model = model_cls(cfg, dtype=dtype, use_flash=flash, quantize=quantize, device="meta",
                       **fuse)
     if ckpt is not None:
         raise NotImplementedError(
-            "ckpt= loading is not ported yet (ROADMAP.md Queue 1 item 6)")
+            "ckpt= loading is not ported yet (ROADMAP.md Queue 1 item 4)")
     device = _device(device)
+    if device.type == "cuda":  # the meta model allocated nothing
+        card_refusal(cfg, flash, model.encoder.pos_conv.option)
     model.to_empty(device="cpu")
     _init_trunk(model, torch.Generator().manual_seed(seed))
     model.build_qcache()
@@ -126,9 +142,26 @@ def _trunk_upstream(name: str, cfg: Wav2Vec2Config, dtype=torch.float32,
                     downsample_rate=cfg.downsample_rate)
 
 
+@register("hubert")
+@register("hubert_base")
+def hubert_base(**kwargs) -> Upstream:
+    return _trunk_upstream("hubert", HUBERT_BASE, **kwargs)
+
+
 @register("hubert_large_ll60k")
 def hubert_large(**kwargs) -> Upstream:
     return _trunk_upstream("hubert_large", HUBERT_LARGE, **kwargs)
+
+
+@register("wavlm")
+@register("wavlm_base")
+def wavlm_base(**kwargs) -> Upstream:
+    return _trunk_upstream("wavlm", WAVLM_BASE, **kwargs)
+
+
+@register("wavlm_base_plus")
+def wavlm_base_plus(**kwargs) -> Upstream:
+    return _trunk_upstream("wavlm_base_plus", WAVLM_BASE_PLUS, **kwargs)
 
 
 @register("wavlm_large")

@@ -232,11 +232,18 @@ def test_attention_kernel_ragged(dev, out_f32):
     _close_bf16(out.view(B, T, -1), want)
 
 
-@pytest.mark.parametrize("postnorm", [False, True], ids=["preln", "postnorm"])
+# (postnorm, C, H): pre-LN and postnorm at C 256, postnorm at the Base models'
+# width (C 768, H 12: HuBERT-Base's route)
+BLOCK_FORMS = pytest.mark.parametrize("postnorm,C,H", [(False, 256, 4), (True, 256, 4),
+                                                       (True, 768, 12)],
+                                      ids=["preln", "postnorm", "postnorm-C768"])
+
+
+@BLOCK_FORMS
 @pytest.mark.parametrize("T", [499, 64])
-def test_attention_block_kernel(dev, postnorm, T):
+def test_attention_block_kernel(dev, postnorm, C, H, T):
     rng = np.random.RandomState(4)
-    B, C, H = 4, 256, 4
+    B = 4
     x = _t(rng.randn(B, T, C) * 0.5, dev, torch.bfloat16)
     wq, bq = _block_weights(rng, dev, C, 3 * C)
     wo, bo = _block_weights(rng, dev, C, C)
@@ -251,12 +258,13 @@ def test_attention_block_kernel(dev, postnorm, T):
     _close_bf16(got, want)
 
 
-@pytest.mark.parametrize("ln,residual,postnorm", [
-    (True, True, False), (False, False, False), (True, False, False),
-    (False, True, False), (True, True, True)])
-def test_ffn_kernel(dev, ln, residual, postnorm):
+@pytest.mark.parametrize("ln,residual,postnorm,C,F", [
+    (True, True, False, 256, 1024), (False, False, False, 256, 1024),
+    (True, False, False, 256, 1024), (False, True, False, 256, 1024),
+    (True, True, True, 256, 1024), (True, True, True, 768, 3072)])
+def test_ffn_kernel(dev, ln, residual, postnorm, C, F):
     rng = np.random.RandomState(5)
-    B, T, C, F = 2, 123, 256, 1024
+    B, T = 2, 123
     x = _t(rng.randn(B, T, C) * 0.5, dev, torch.bfloat16)
     w1, b1 = _block_weights(rng, dev, C, F)
     w2, b2 = _block_weights(rng, dev, F, C)
@@ -550,11 +558,11 @@ def _qpair(rng, dev, C, N):
     return as_quantized_cols(w), _t(rng.randn(N) * 0.02, dev)
 
 
-@pytest.mark.parametrize("postnorm", [False, True], ids=["preln", "postnorm"])
+@BLOCK_FORMS
 @pytest.mark.parametrize("T", [499, 64])
-def test_int8_attention_block_kernel(dev, postnorm, T):
+def test_int8_attention_block_kernel(dev, postnorm, C, H, T):
     rng = np.random.RandomState(14)
-    B, C, H = 4, 256, 4
+    B = 4
     x = _t(rng.randn(B, T, C) * 0.5, dev, torch.bfloat16)
     wq, bq = _qpair(rng, dev, C, 3 * C)
     wo, bo = _qpair(rng, dev, C, C)
@@ -573,10 +581,13 @@ def test_int8_attention_block_kernel(dev, postnorm, T):
     (True, False, False, 256, 1024, 2, 123), (False, True, False, 256, 1024, 2, 123),
     (True, True, True, 256, 1024, 2, 123), (True, True, False, 128, 4096, 2, 123),
     (True, True, False, 128, 3200, 2, 123), (False, False, False, 128, 3200, 7, 61),
-    (True, True, False, 256, 4096, 7, 61)])
+    (True, True, False, 256, 4096, 7, 61), (True, True, True, 768, 3072, 2, 123),
+    (False, False, False, 768, 3072, 2, 123)])
 def test_int8_ffn_kernel(dev, ln, residual, postnorm, C, F, B, T):
     """K2 against its plain version; F = 3,200 runs a full 2,048-wide chunk
-    and a 1,152-wide one (the fc2 chunks are column ranges of h8 and w2)."""
+    and a 1,152-wide one (the fc2 chunks are column ranges of h8 and w2);
+    at the Base models' C 768, F 3,072 postnorm (HuBERT-Base) and bare
+    (WavLM-Base)."""
     rng = np.random.RandomState(15)
     x = _t(rng.randn(B, T, C) * 0.5, dev, torch.bfloat16)
     w1, b1 = _qpair(rng, dev, C, F)
@@ -696,6 +707,30 @@ def test_k6_kernel(dev, T):
     _close_bf16(got, fused_qkv_attention_outproj(*_on_cpu(qkv, x, wo, bo, kv), 2))
 
 
+@pytest.mark.parametrize("T", [65, 499, 1499, 2049])
+def test_k6_kernel_on_raw_x_qkv(dev, T):
+    """K6 at the Base models' width (C 768, H 12) on the QKV of HuBERT-Base's
+    post-LN split route: int8_matmul of the raw unit-scale residual x, the
+    residual x itself; against the plain versions of its route (K8 beyond
+    MAX_KERNEL_T)."""
+    from s3prl_tpu_torch.ops.quant import int8_matmul
+
+    rng = np.random.RandomState(26)
+    B, C, H = 3, 768, 12
+    x = _t(rng.randn(B, T, C), dev, torch.bfloat16)
+    wq, bq = _qpair(rng, dev, C, 3 * C)
+    qkv = int8_matmul(x, wq, bq, out_dtype=torch.bfloat16)
+    wo, bo = _qpair(rng, dev, C, C)
+    kv = _long_kv(T, dev)[:B]
+    before = fused_qkv_attention_outproj.launches, online_flash_attention.launches
+    got = fused_qkv_attention_outproj(qkv, x, wo, bo, kv, H)
+    torch.cuda.synchronize()
+    online = T > fa.MAX_KERNEL_T
+    assert (fused_qkv_attention_outproj.launches - before[0],
+            online_flash_attention.launches - before[1]) == (0 + (not online), 0 + online)
+    _close_bf16(got, fused_qkv_attention_outproj(*_on_cpu(qkv, x, wo, bo, kv), H))
+
+
 @pytest.mark.parametrize("T", EDGE_T + LONG_T)
 def test_k8_kernel(dev, T):
     """K8 alone against its plain version on the card; q pre-scaled,
@@ -783,7 +818,7 @@ def _gated_inputs(rng, dev, B, H, T, form="f32", kv=None):
 
 @pytest.mark.parametrize("form", ["f32", "f32-padded", "bf16-padded", "bf16-wide"])
 @pytest.mark.parametrize("T,B,H", [(T, B, 2) for T in GATED_T for B in (1, 3, 7)]
-                         + [(499, 32, 16)])
+                         + [(499, 32, 16), (499, 32, 12)])
 def test_gated_kernels(dev, T, B, H, form):
     """K9 up to MAX_KERNEL_T, K10 beyond it (through K9's hand-over), each
     against the plain version of its route on the card, with kv_lens on
@@ -837,16 +872,18 @@ def test_tiny_wavlm_matches_cpu(dev, monkeypatch, quantize, max_kernel_t):
                           pair=_tiny_wavlm_pair(dev, quantize))
 
 
+@pytest.mark.parametrize("H", [2, 12])
 @pytest.mark.parametrize("T", [499, 1499, 2048, 2049])
-def test_k11_kernel(dev, T):
+def test_k11_kernel(dev, T, H):
     """K11 (gated attention with an f32 context, f32 row-quant, int8
     out-proj + bias + residual) against the plain versions of its route on
     CPU copies of the inputs; beyond MAX_KERNEL_T it is K9 -> K10 and
-    residual + int8_matmul, and its launch counts for K10."""
+    residual + int8_matmul, and its launch counts for K10. H 12 is
+    WavLM-Base's width."""
     from s3prl_tpu_torch.models.wavlm import bucket_table
 
     rng = np.random.RandomState(23)
-    B, H = 3, 2
+    B = 3
     qkv = _t(rng.randn(B, T, 3 * H * 64), dev, torch.bfloat16)
     x = _t(rng.randn(B, T, H * 64) * 0.5, dev, torch.bfloat16)
     pos_bias = _t(rng.randn(320, H) * 0.5, dev).t()[:, bucket_table(T, 320, 800, dev)].contiguous()

@@ -220,9 +220,10 @@ def test_registry_refuses_what_is_not_ported(monkeypatch):
         hub.load("no_such_upstream")
     with pytest.raises(NotImplementedError, match="ckpt"):
         hub.load("hubert_large_ll60k", ckpt="model.pt", device="cpu")
-    with pytest.raises(NotImplementedError):
-        Wav2Vec2Trunk(Wav2Vec2Config(), device="meta")  # HuBERT-Base: group norm, post-LN
-    assert hub.options() == ["hubert_large_ll60k", "wavlm_large"]
+    with pytest.raises(NotImplementedError, match="feat_pad_rule"):
+        Wav2Vec2Trunk(Wav2Vec2Config(feat_pad_rule="conv"), device="meta")  # the wav2vec2 entries
+    assert hub.options() == ["hubert", "hubert_base", "hubert_large_ll60k", "wavlm",
+                             "wavlm_base", "wavlm_base_plus", "wavlm_large"]
     # quantize=True loads (the entry at the tiny width: same code path)
     monkeypatch.setattr(port_registry, "HUBERT_LARGE", PCFG)
     up = hub.load("hubert_large_ll60k", dtype=torch.bfloat16, flash=True, quantize=True,
@@ -232,7 +233,8 @@ def test_registry_refuses_what_is_not_ported(monkeypatch):
     assert layer.qpair("fc1")[0].dtype == torch.int8
 
 
-@pytest.mark.parametrize("name", ["hubert_large_ll60k", "wavlm_large"])
+@pytest.mark.parametrize("name", ["hubert_large_ll60k", "wavlm_large", "hubert", "hubert_base",
+                                  "wavlm", "wavlm_base", "wavlm_base_plus"])
 def test_hub_load_without_device_needs_cuda(monkeypatch, name):
     """An entry builds on the card unless device= says otherwise: without
     CUDA it raises and names device="cpu", it never builds on the CPU."""
