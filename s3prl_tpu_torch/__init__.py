@@ -11,9 +11,16 @@ kernel's plain PyTorch version. It never imports jax.
                   quantize=True)  # int8 W8A8, the serving default, on the card
     hs, h_lens = up.apply_standardized(wavs, wav_lens)  # [25, B, T', 1024]
 
-``quantize=False`` gives the bf16 reference-precision path; ``"wavlm_large"``
-is WavLM-Large. Models are built on the card unless ``device="cpu"`` is
-given.
+``quantize=False`` gives the bf16 reference-precision path. The other
+entries (`hub.options()`) are the HuBERT, wav2vec 2.0, data2vec, WavLM and
+UniSpeech-SAT models of the JAX package's registry, e.g.
+``"wav2vec2_large_ll60k"``, ``"data2vec_large_ll60k"``, ``"wavlm_large"``,
+``"unispeech_sat_base"``; ``ckpt=`` loads a local checkpoint; the trunk
+entries also serve SUPERB's weighted sum without the per-layer stack:
+
+    weighted, feat_lens = up.apply_weighted(layer_weights, wavs, wav_lens)  # [1, B, T', C]
+
+Models are built on the card unless ``device="cpu"`` is given.
 """
 
 __version__ = "0.1.0"

@@ -39,9 +39,10 @@
 //   out = sum_k bf16(p_k) v_k / sum_k p_k,
 // the additive -1e9 of the cells, and P cast once to bf16 for one P.V
 // product (the cells cast the normalised P; here P <= 1 is cast and l
-// divides at the store). A row with kv_len = 0 runs every key tile of T
-// with every key masked, which gives it a near-uniform row, as the plain
-// version (`attention_reference`) does; the model never produces kv_len = 0.
+// divides at the store). A row with kv_len = 0 (an utterance of no frame
+// under the conv length rule) runs every key tile of T with every key
+// masked, which gives it a near-uniform row, as the plain version
+// (`attention_reference`) does.
 // Packed and gated, with the f32 output: the attention of K11
 // `gated_bias_attention_outproj` (pallas_call :423, cell :360-403), whose
 // scores are (q.k * Dh^-0.5 + gate[b, h, t] * pos_bias[h, t, k]) - 1e9 *
@@ -85,11 +86,14 @@
 // Without one, packed runs the query tiles fastest, so the blocks of one
 // (utterance, head) share its K and V in L2.
 //
-// Masking: the softmax sees `masked` for keys at or past kv_len. A key tile
-// wholly past kv_len contributes exactly 0 (exp2 of masked - m underflows
-// once a valid score has set m), so those tiles are not loaded; keys past T
-// are past kv_len. Split heads: kv_len = 0 is outside the contract (the
-// model never produces it): no tile runs, and the row is 0 / l_floor.
+// Masking: the softmax sees `masked` for keys at or past kv_len and -inf
+// for keys past T. A key tile wholly past kv_len contributes exactly 0
+// (exp2 of masked - m underflows once a valid score has set m), so those
+// tiles are not loaded. A row with kv_len = 0 has no valid score: it runs
+// every key tile of T, each of its T keys scores `masked` (split heads) or
+// s + masked (packed), so the row is the (near-)uniform mean of the T
+// values, as the cells' whole-row softmax and the plain versions give it;
+// skipping the tiles would leave l = 0 (0 / 0 without a floor).
 //
 // Bound: at WavLM-Large's shapes the bytes (q, k, v, out and the bias: 288
 // MB in bf16 at T = 2999) take less time than the tensor-core issue of the
@@ -203,8 +207,8 @@ __global__ void __launch_bounds__(kThreads)
   const BiasT* bias_h = kGated ? pos_bias + static_cast<size_t>(h) * T * bias_ld : nullptr;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int kv_len = min(max(kv_lens[b], 0), T);
-  // packed: a row with kv_len = 0 runs every key tile of T, every key masked
-  const int n_tiles = ((kPacked && kv_len == 0 ? T : kv_len) + kBKV - 1) / kBKV;
+  // a row with kv_len = 0 runs every key tile of T, every key masked
+  const int n_tiles = ((kv_len == 0 ? T : kv_len) + kBKV - 1) / kBKV;
 
   if (tid == 0) {
     mbar_init(bars, 1);
@@ -272,7 +276,7 @@ __global__ void __launch_bounds__(kThreads)
     fence_regs(s);
 
     // [* Dh^-0.5 (packed)] + gate * bias, then the key mask (only the last
-    // tile can hold keys past kv_len, but for a packed row with kv_len = 0)
+    // tile can hold keys past kv_len, but for a row with kv_len = 0)
     if constexpr (kPacked && kGated) {  // the scale rounds before the bias is added
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] = __fmul_rn(s[i], scale);
@@ -296,7 +300,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int key = k0 + 8 * (i / 4) + cq + (i % 2);
-        if (key >= kv_len) s[i] = !kPacked ? masked : key < T ? s[i] + masked : -INFINITY;
+        if (key >= kv_len) s[i] = key >= T ? -INFINITY : kPacked ? s[i] + masked : masked;
       }
     }
 

@@ -1,10 +1,18 @@
-"""Hub facade: ``s3prl_tpu_torch.hub.load("hubert_large_ll60k", ...)``,
-``load("wavlm_large", ...)`` or the Base models ``load("hubert_base" |
-"hubert" | "wavlm_base" | "wavlm" | "wavlm_base_plus", ...)``, on the card
-unless ``device="cpu"``, with the
-int8 path's opt-in fused projections ``qkv_fuse`` / ``full_fuse`` (HuBERT)
-and ``wavlm_fuse`` (WavLM), the front-end options ``int8_conv``
-(HuBERT int8), ``fused_conv`` and ``fused_midln``, and the pos-conv options
-``fused_posconv`` and ``int8_posconv`` (port of s3prl_tpu/hub.py)."""
+"""Hub facade: ``s3prl_tpu_torch.hub.load(name, ...)`` on the card unless
+``device="cpu"`` (port of s3prl_tpu/hub.py). The entries: HuBERT
+(``hubert_large_ll60k``, ``hubert`` / ``hubert_base`` and its catalog
+aliases), wav2vec 2.0 (``wav2vec2`` / ``wav2vec2_base_960``,
+``wav2vec2_large_ll60k`` / ``wav2vec2_large_lv60_cv_swbd_fsh`` and the
+Large aliases ``xlsr_53``, ``xls_r_300m``, ``xls_r_1b``, ``xls_r_2b``, ...),
+data2vec (``data2vec`` / ``data2vec_base_960``, ``data2vec_large_ll60k``),
+WavLM (``wavlm`` / ``wavlm_base``, ``wavlm_base_plus``, ``wavlm_large``) and
+UniSpeech-SAT (``unispeech_sat`` / ``unispeech_sat_base``,
+``unispeech_sat_base_plus``, ``unispeech_sat_large``); ``ckpt=`` loads a
+local checkpoint, ``options()`` lists the names. Keywords: the int8 path's
+opt-in fused projections ``qkv_fuse`` / ``full_fuse`` (HuBERT, wav2vec2)
+and ``wavlm_fuse`` (WavLM), the front-end options ``int8_conv`` (int8),
+``fused_conv`` and ``fused_midln``, and the pos-conv options
+``fused_posconv`` and ``int8_posconv``. The trunk entries' upstreams also
+serve SUPERB's fused weighted sum, ``apply_weighted``."""
 
 from .upstream.registry import load, options  # noqa: F401

@@ -308,8 +308,8 @@ def online_flash_attention_reference(q, k, v, kv_lens):
 def online_flash_attention(q, k, v, kv_lens):
     """K-blocked online-softmax attention for sequences beyond MAX_KERNEL_T
     frames: K8. q, k, v [B, H, T, Dh] (q pre-scaled by Dh^-0.5), kv_lens
-    [B] int32 valid keys (padding contiguous, kv_len >= 1: a row with no
-    valid key is outside the contract). CPU tensors run the plain version;
+    [B] int32 valid keys (padding contiguous; a row with kv_len = 0 is the
+    mean of the T values). CPU tensors run the plain version;
     CUDA tensors launch the no-bias instantiation of
     `csrc/gated_attention.cu` with the mask -1e30 and the floor 1e-30,
     which takes bf16 and head dim 64. Forward-only."""
@@ -543,8 +543,8 @@ def gated_bias_attention(q, k, v, pos_bias, gate, kv_lens):
     kv_len masked) v. q, k, v [B, H, T, Dh] (q pre-scaled by Dh^-0.5),
     pos_bias [H, T, T] (shared by the utterances; f32, or bf16 with rows a
     multiple of 8 elements apart, `_bias_row_stride`), gate [B, H, T] f32,
-    kv_lens [B] int32 valid keys (padding contiguous, kv_len >= 1: a row
-    with no valid key is outside the contract) -> [B, H, T, Dh] in q's
+    kv_lens [B] int32 valid keys (padding contiguous; a row with kv_len =
+    0 is the mean of the T values) -> [B, H, T, Dh] in q's
     dtype. Beyond MAX_KERNEL_T frames (read at call time) K10 takes over
     (:153-156; its launch counts for K10, not here). CPU tensors run the
     plain version; CUDA tensors launch `csrc/gated_attention.cu` (bf16 q,
@@ -573,8 +573,8 @@ def flash_attention(q, k, v, kv_lens):
     """Masked multi-head attention without a bias on split heads: K17.
 
     q (pre-scaled by Dh^-0.5), k, v [B, H, T, Dh], kv_lens [B] int32 valid
-    keys (padding contiguous, kv_len >= 1: a row with no valid key is
-    outside the contract) -> [B, H, T, Dh] in q's dtype. Beyond MAX_KERNEL_T
+    keys (padding contiguous; a row with kv_len = 0 is the mean of the T
+    values) -> [B, H, T, Dh] in q's dtype. Beyond MAX_KERNEL_T
     frames (read at call time) K8 `online_flash_attention` takes over
     (:1048-1049; its launch counts for K8, not here). CPU tensors run the
     plain version (any Dh, f32 or bf16); CUDA tensors launch the no-bias
@@ -617,10 +617,10 @@ def gated_bias_attention_outproj(qkv, residual, pos_bias, gate, wo, bo, kv_lens,
     `_bias_row_stride`), gate [B, H, T] f32, wo
     the cached (codes [C, C] int8, scales [C] f32) pair in nn.Linear layout
     (a raw weight is quantized here), bo [C] f32, kv_lens [B] int32 (padding
-    contiguous, kv_len >= 1). Beyond MAX_KERNEL_T frames (read at call
-    time): the heads split with q pre-scaled in qkv's dtype, K9 (which hands
-    over to K10), then residual + int8_matmul (:466-477; those launches
-    count for K10). CPU tensors run the plain versions; CUDA tensors launch
+    contiguous; a row with kv_len = 0 attends to its T keys alike). Beyond
+    MAX_KERNEL_T frames (read at call time): the heads split with q
+    pre-scaled in qkv's dtype, K9 (which hands over to K10), then residual +
+    int8_matmul (:466-477; those launches count for K10). CPU tensors run the plain versions; CUDA tensors launch
     the gated packed instantiation of `csrc/gated_attention.cu` (f32
     context), `csrc/quant_rows.cu` (f32 quantizer) and `csrc/gemm_s8.cu`
     (out-proj, bias, residual), head dim 64. Forward-only."""

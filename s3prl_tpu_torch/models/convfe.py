@@ -53,6 +53,7 @@ from ..kernels.conv_frontend import (MID_TAPS, conv0_ln_gelu, conv0_ln_gelu_q8,
                                      conv_gemm_weight, fused_conv_ln_gelu,
                                      fused_int8_conv_ln_gelu, quantize_conv_taps)
 from ..kernels.ln_gelu import ln_gelu
+from ..ops.masking import lengths_after_conv1d
 
 # (dim, kernel, stride) stack shared by wav2vec2/HuBERT: total stride 320
 DEFAULT_CONV_LAYERS: Tuple[Tuple[int, int, int], ...] = (
@@ -64,6 +65,15 @@ DEFAULT_CONV_LAYERS: Tuple[Tuple[int, int, int], ...] = (
     (512, 2, 2),
     (512, 2, 2),
 )
+
+
+def conv_output_lengths(wav_lens: torch.Tensor, conv_layers=DEFAULT_CONV_LAYERS) -> torch.Tensor:
+    """Valid frames after the unpadded strided conv stack (convfe.py:38-42):
+    0 for an utterance shorter than the first layer's receptive field."""
+    lens = wav_lens
+    for _, k, s in conv_layers:
+        lens = lengths_after_conv1d(lens, k, s)
+    return lens
 
 
 def total_stride(conv_layers=DEFAULT_CONV_LAYERS) -> int:

@@ -7,6 +7,14 @@ the last one's output, [L+1, B, T, C] (transformer.py:743-789): pre-LN
 runs the encoder LayerNorm after the layers, on that output; post-LN runs
 it before them, on the pos-conv's sum, so the first hidden state is
 normalised and the last is the last layer's output (:735-736, :782-783).
+With ``layer_weights`` [L+1] (SUPERB's weighted sum, :686-787) the stack is
+never made: one accumulator in the model dtype takes w[i] * (input of
+layer i), then w[L] * output (after the final LN when pre-LN), and the
+encoder returns [1, B, T, C].
+
+The pos-conv is one grouped conv (`ConvPositionalEmbedding`) or, with
+``pos_conv_depth`` > 1, data2vec's stack of conv + affine-free LN + GELU
+blocks (`ConvPositionalStack`, transformer.py:49-68), which runs no kernel.
 
 Routing of a pre-LN `EncoderLayer` (transformer.py:389-563). A layer runs
 "quant serving" when it is built with ``quantize``, is in eval mode and the
@@ -218,6 +226,48 @@ class ConvPositionalEmbedding(nn.Sequential):
         return F.gelu(y).transpose(1, 2)
 
 
+class ConvPositionalStack(nn.Sequential):
+    """data2vec's pos-conv stack (transformer.py:49-68, fairseq's
+    make_conv_block): ``depth`` blocks of a grouped conv with k = max(3,
+    conv_pos // depth) and pad k // 2 in the model dtype (its f32 weight and
+    bias cast at use), the trailing frame dropped when k is even, an
+    affine-free f32 LayerNorm (eps 1e-5) cast to the model dtype, then erf
+    GELU. Each block is Sequential(conv, ...) as in fairseq, so the keys read
+    ``pos_conv.{i}.0.{weight,bias}``. Stock ops only: the pos-conv options'
+    kernels take the one-conv form, so ``option`` is None here and the
+    encoder refuses them (`refuse_option`)."""
+
+    option = None  # no kernel option: the trunk refuses fused_posconv / int8_posconv
+
+    def __init__(self, features: int, kernel_size: int, groups: int, depth: int, device=None):
+        k = max(3, kernel_size // depth)
+        super().__init__(*(nn.Sequential(nn.Conv1d(features, features, k, padding=k // 2,
+                                                   groups=groups, device=device))
+                           for _ in range(depth)))
+
+    @staticmethod
+    def refuse_option(depth: int, option: str | None) -> None:
+        """Raises the ValueError of a pos-conv option on a depth > 1 stack."""
+        if option is not None and depth > 1:
+            name = ConvPositionalEmbedding.OPTIONS[option][0]
+            raise ValueError(f"{name} cannot take effect: the depth-{depth} pos-conv stack runs "
+                             "no kernel (its kernels take the one-conv pos-conv)")
+
+    def build_qcache(self) -> None:
+        """No option weights to build."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, C]
+        for block in self:
+            conv = block[0]
+            y = F.conv1d(x.transpose(1, 2), conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                         padding=conv.padding, groups=conv.groups).transpose(1, 2)
+            if conv.kernel_size[0] % 2 == 0:
+                y = y[:, :-1]
+            y = F.layer_norm(y.float(), (y.shape[-1],), eps=1e-5).to(x.dtype)
+            x = F.gelu(y)
+        return x
+
+
 class SelfAttention(_QCache, nn.Module):
     """Multi-head self-attention with one fused QKV projection.
 
@@ -256,16 +306,18 @@ class SelfAttention(_QCache, nn.Module):
         super()._load_from_state_dict(state_dict, prefix, local_metadata, strict,
                                       missing_keys, unexpected_keys, error_msgs)
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor, rel_bias=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor, rel_bias=None,
+                attn_bias=None) -> torch.Tensor:
         """transformer.py:156-200: x [B, T, C] in the model dtype, pad_mask
         [B, T] True on padded keys; `rel_bias` = (pos_bias [H, T, T], gate
-        [B, H, T]) is WavLM's gated relative-position bias. With
-        ``use_flash`` the attention is K9 `gated_bias_attention` (K10 beyond
-        MAX_KERNEL_T) on the split heads, given the bias as it comes (f32,
-        or the bf16 model's padded bf16 buffer) and the gate in f32, or K7
-        without a bias; otherwise plain ops (attention_bthd), the bias
-        gate * pos_bias formed in the model dtype and added to the f32
-        scores before the mask."""
+        [B, H, T]) is WavLM's gated relative-position bias, `attn_bias`
+        ([1, H, T, T]) WavLM's bias without the gate. With ``use_flash`` and
+        no `attn_bias` the attention is K9 `gated_bias_attention` (K10
+        beyond MAX_KERNEL_T) on the split heads, given the bias as it comes
+        (f32, or the bf16 model's padded bf16 buffer) and the gate in f32,
+        or K7 without a bias; otherwise plain ops (attention_bthd), the bias
+        (gate * pos_bias formed in the model dtype, or `attn_bias`) added to
+        the f32 scores before the mask."""
         B, T, C = x.shape
         H = self.num_heads
         Dh = C // H
@@ -273,7 +325,7 @@ class SelfAttention(_QCache, nn.Module):
             qkv = int8_matmul(x, self.qpair("qkv"), self.qkv_bias)
         else:
             qkv = F.linear(x, self.qkv_weight, self.qkv_bias.to(x.dtype))
-        if self.use_flash:
+        if self.use_flash and attn_bias is None:
             kv_lens = (~pad_mask).sum(-1, dtype=torch.int32)
             if rel_bias is None:
                 out = fused_qkv_attention(qkv, kv_lens, H)
@@ -288,7 +340,9 @@ class SelfAttention(_QCache, nn.Module):
             scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
             if rel_bias is not None:
                 pos_bias, gate = rel_bias
-                scores = scores + (gate[..., None] * pos_bias[None]).float()
+                attn_bias = gate[..., None] * pos_bias[None]
+            if attn_bias is not None:
+                scores = scores + attn_bias.float()
             scores = scores.masked_fill(pad_mask[:, None, None, :], -1e9)
             probs = scores.softmax(-1).to(v.dtype)
             out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, C)
@@ -309,7 +363,8 @@ class EncoderLayer(_QCache, nn.Module):
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
                  quantize: bool = False, layer_norm_eps: float = 1e-5, device=None,
                  qkv_fuse: bool = False, full_fuse: bool = False,
-                 layer_norm_first: bool = True):
+                 layer_norm_first: bool = True, attention_kwargs: dict | None = None):
+        """``attention_kwargs``: further keywords of the `attention` class."""
         self.refuse_options(layer_norm_first, qkv_fuse, full_fuse)
         super().__init__()
         self.dtype = dtype
@@ -322,7 +377,7 @@ class EncoderLayer(_QCache, nn.Module):
         self.qkv_fuse = qkv_fuse
         self.full_fuse = full_fuse
         self.self_attn = self.attention(embed_dim, num_heads, quantize, use_flash,
-                                        device=device)
+                                        device=device, **(attention_kwargs or {}))
         self.self_attn_layer_norm = nn.LayerNorm(embed_dim, eps=layer_norm_eps, device=device)
         self.fc1 = nn.Linear(embed_dim, ffn_dim, device=device)
         self.fc2 = nn.Linear(ffn_dim, embed_dim, device=device)
@@ -468,19 +523,26 @@ class EncoderLayer(_QCache, nn.Module):
 class TransformerEncoder(nn.Module):
     """Encoder stack returning [L+1, B, T, C]: the input of every layer,
     then the last one's output, after the encoder LayerNorm when pre-LN
-    (transformer.py:671; post-LN runs that LN before the layers)."""
+    (transformer.py:671; post-LN runs that LN before the layers); with
+    ``layer_weights`` their weighted sum [1, B, T, C] (`forward`)."""
 
     def __init__(self, embed_dim: int = 1024, ffn_dim: int = 4096, num_layers: int = 24,
                  num_heads: int = 16, layer_norm_first: bool = True, conv_pos: int = 128,
                  conv_pos_groups: int = 16, dtype: torch.dtype = torch.float32,
                  use_flash: bool = False, quantize: bool = False, device=None,
-                 posconv: str | None = None, **fuse):
-        """``posconv``: the pos-conv option (`ConvPositionalEmbedding`);
-        ``fuse``: the layers' ``qkv_fuse`` / ``full_fuse`` options."""
+                 posconv: str | None = None, pos_conv_depth: int = 1, **fuse):
+        """``posconv``: the pos-conv option (`ConvPositionalEmbedding`;
+        refused on a ``pos_conv_depth`` > 1 stack); ``fuse``: the layers'
+        ``qkv_fuse`` / ``full_fuse`` options."""
+        ConvPositionalStack.refuse_option(pos_conv_depth, posconv)
         super().__init__()
         self.layer_norm_first = layer_norm_first
-        self.pos_conv = ConvPositionalEmbedding(embed_dim, conv_pos, conv_pos_groups, dtype,
-                                                posconv, device=device)
+        if pos_conv_depth > 1:
+            self.pos_conv = ConvPositionalStack(embed_dim, conv_pos, conv_pos_groups,
+                                                pos_conv_depth, device=device)
+        else:
+            self.pos_conv = ConvPositionalEmbedding(embed_dim, conv_pos, conv_pos_groups, dtype,
+                                                    posconv, device=device)
         self.layers = nn.ModuleList([
             EncoderLayer(embed_dim, ffn_dim, num_heads, dtype, use_flash, quantize,
                          device=device, layer_norm_first=layer_norm_first, **fuse)
@@ -493,9 +555,15 @@ class TransformerEncoder(nn.Module):
         per forward: none here (WavLM's encoder adds its shared bias)."""
         return ()
 
-    def forward(self, x: torch.Tensor, feat_lens: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, feat_lens: torch.Tensor,
+                layer_weights: torch.Tensor | None = None) -> torch.Tensor:
         """x [B, T, C] in the model dtype, feat_lens [B] valid frames ->
-        hidden states [L+1, B, T, C]."""
+        hidden states [L+1, B, T, C]; with ``layer_weights`` [L+1] (a tensor
+        on x's device) their weighted sum [1, B, T, C] (transformer.py:
+        743-787): acc += w[i] * h in the model dtype, the weight cast to it,
+        the product rounded before the sum as XLA rounds JAX's
+        ``acc + w.astype(h.dtype) * h``, layer by layer, with no
+        [L+1, B, T, C] stack and no host round trip."""
         B, T, C = x.shape
         pad_mask = torch.arange(T, device=x.device)[None, :] >= feat_lens[:, None]
         kv_lens = torch.clamp(feat_lens, max=T).to(torch.int32)
@@ -504,9 +572,25 @@ class TransformerEncoder(nn.Module):
         if not self.layer_norm_first:  # transformer.py:735-736
             x = _layer_norm(x, self.layer_norm)
         shared = self._layer_args(T, x.device)
-        hidden = x.new_empty(len(self.layers) + 1, B, T, C)
+        L = len(self.layers)
+        if layer_weights is None:
+            hidden = x.new_empty(L + 1, B, T, C)
+        else:
+            if tuple(layer_weights.shape) != (L + 1,):
+                raise ValueError(f"layer_weights: shape {tuple(layer_weights.shape)}, "
+                                 f"expected ({L + 1},)")
+            w = layer_weights.to(x.dtype)
+            acc = torch.zeros_like(x)
         for i, layer in enumerate(self.layers):
-            hidden[i] = x
+            if layer_weights is None:
+                hidden[i] = x
+            else:
+                acc += w[i] * x
             x = layer(x, kv_lens, pad_mask, *shared)
-        hidden[-1] = _layer_norm(x, self.layer_norm) if self.layer_norm_first else x
+        if self.layer_norm_first:
+            x = _layer_norm(x, self.layer_norm)
+        if layer_weights is not None:
+            acc += w[L] * x
+            return acc[None]
+        hidden[-1] = x
         return hidden

@@ -3,10 +3,14 @@
 -> conv-pos-emb transformer, returning [L+1, B, T', C] hidden states and the
 valid frame count of each utterance.
 
-Ported for the HuBERT serving slices (bf16, and int8 W8A8 with
-``quantize``): HuBERT-Large (layer-norm extractor, pre-LN encoder) and
-HuBERT-Base (group-norm extractor, post-LN encoder), the block-folded
-feature-length rule, no span masking (extraction). WavLM
+Ported for serving (f32, bf16, and int8 W8A8 with ``quantize``): the
+layer-norm extractor with a pre-LN encoder (HuBERT-Large, wav2vec2-Large)
+or a post-LN one (data2vec), the group-norm extractor with a post-LN
+encoder (HuBERT-Base, wav2vec2-Base); HuBERT's block-folded feature-length
+rule and wav2vec2's / data2vec's conv rule (``feat_pad_rule="conv"``: the
+strict conv arithmetic, which gives 0 frames below 400 samples); the one
+pos-conv and data2vec's depth > 1 stack; the fused weighted sum of the
+layers (``layer_weights``). No span masking (extraction). WavLM
 (`models/wavlm.py`) is this trunk with its own encoder and an erf extractor.
 The module names follow fairseq's state_dict keys (see upstream/convert.py).
 """
@@ -22,8 +26,10 @@ import torch.nn.functional as F
 
 from ..kernels import flash_attention as fa
 from ..ops.masking import length_mask
-from .convfe import DEFAULT_CONV_LAYERS, ConvFeatureExtractor, total_stride
-from .transformer import ConvPositionalEmbedding, EncoderLayer, TransformerEncoder, on_card
+from .convfe import (DEFAULT_CONV_LAYERS, ConvFeatureExtractor, conv_output_lengths,
+                     total_stride)
+from .transformer import (ConvPositionalEmbedding, ConvPositionalStack, EncoderLayer,
+                          TransformerEncoder, on_card)
 
 
 @dataclass(frozen=True)
@@ -88,10 +94,6 @@ def normalize_wavs(wavs: torch.Tensor, wav_lens: torch.Tensor) -> torch.Tensor:
 def _unsupported(cfg: Wav2Vec2Config) -> str | None:
     if cfg.layer_type != "transformer":
         return f"layer_type {cfg.layer_type!r}"
-    if cfg.pos_conv_depth != 1:
-        return f"pos_conv_depth {cfg.pos_conv_depth}"
-    if cfg.feat_pad_rule != "block":
-        return f"feat_pad_rule {cfg.feat_pad_rule!r}"
     if cfg.activation_fn != "gelu":
         return f"activation_fn {cfg.activation_fn!r}"
     return None
@@ -108,7 +110,7 @@ def card_refusal(cfg: Wav2Vec2Config, use_flash: bool, posconv: str | None) -> N
         if C % H or C // H != fa.HEAD_DIM:
             raise ValueError(f"flash=True cannot take effect on the card: its attention kernels "
                              f"take head dim {fa.HEAD_DIM}, got {C} channels in {H} heads")
-    if posconv is not None:
+    if posconv is not None and cfg.pos_conv_depth == 1:
         ConvPositionalEmbedding.card_refusal(cfg.encoder_embed_dim, cfg.conv_pos,
                                              cfg.conv_pos_groups, posconv)
 
@@ -132,7 +134,8 @@ class Wav2Vec2Trunk(nn.Module):
     JAX switch is independent of ``quantize``): ``fused_posconv`` (K16a) and
     ``int8_posconv`` (K16b, its weight kept f32). One that cannot take effect
     raises a ValueError before any weight is made: the front-end options on
-    the group-norm extractor, ``qkv_fuse`` / ``full_fuse`` on post-LN blocks.
+    the group-norm extractor, ``qkv_fuse`` / ``full_fuse`` on post-LN blocks,
+    the pos-conv options on data2vec's depth > 1 stack.
     Built on a CUDA device, the trunk also refuses what the card's kernels
     cannot take (`card_refusal`): ``use_flash`` at a head dim other than 64,
     a pos-conv option at other than 64 channels a group."""
@@ -153,11 +156,12 @@ class Wav2Vec2Trunk(nn.Module):
         reason = _unsupported(cfg)
         if reason is not None:
             raise NotImplementedError(
-                f"{reason} is not ported yet (ROADMAP.md Queue 1 items 4 and 8)")
+                f"{reason} is not ported yet (ROADMAP.md Queue 1 item 8)")
         if fused_posconv and int8_posconv:
             raise ValueError("fused_posconv and int8_posconv: the pos-conv takes one kernel "
                              "(the JAX package's pos-conv switch has one value)")
         posconv = "fused" if fused_posconv else "int8" if int8_posconv else None
+        ConvPositionalStack.refuse_option(cfg.pos_conv_depth, posconv)
         options = {"qkv_fuse": qkv_fuse, "full_fuse": full_fuse, "wavlm_fuse": wavlm_fuse}
         on = [name for name, value in options.items() if value]
         foreign = [name for name in on if name not in self.fuse_options]
@@ -194,7 +198,7 @@ class Wav2Vec2Trunk(nn.Module):
             cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim, cfg.encoder_layers,
             cfg.encoder_attention_heads, cfg.layer_norm_first, cfg.conv_pos,
             cfg.conv_pos_groups, dtype, use_flash, quantize, device=device, posconv=posconv,
-            **fuse)
+            pos_conv_depth=cfg.pos_conv_depth, **fuse)
 
     def build_qcache(self) -> None:
         """Quantizes every encoder layer's projections once from their f32
@@ -208,23 +212,31 @@ class Wav2Vec2Trunk(nn.Module):
             if layer.quantize:
                 layer.build_qcache()
 
-    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor):
+    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor,
+                layer_weights: torch.Tensor | None = None):
         """wavs [B, T] padded 16 kHz, wav_lens [B] -> (hidden_states
-        [L+1, B, T', C], feat_lens [B])."""
-        if self.cfg.normalize:
+        [L+1, B, T', C], feat_lens [B]); with ``layer_weights`` [L+1] on the
+        model's device, hidden_states is their weighted sum [1, B, T', C]
+        (wav2vec2.py:115, :197; `TransformerEncoder.forward`)."""
+        cfg = self.cfg
+        if cfg.normalize:
             wavs = normalize_wavs(wavs, wav_lens)
         features = self.feature_extractor(wavs)
-        # hubert's padding rule (hubert_model.py:459-469): a frame is padded
-        # only when all of its r = T_wav // T_feat samples are, so
-        # ceil(wav_len / r) frames are valid (wav2vec2.py:133-140)
         t_feat = features.shape[1]
-        r = max(wavs.shape[1] // max(t_feat, 1), 1)
-        feat_lens = torch.clamp(torch.div(wav_lens + r - 1, r, rounding_mode="floor"),
-                                max=t_feat)
+        if cfg.feat_pad_rule == "conv":  # strict conv arithmetic (wav2vec2.py:133-137)
+            feat_lens = torch.clamp(conv_output_lengths(wav_lens, cfg.conv_feature_layers),
+                                    max=t_feat)
+        else:
+            # hubert's padding rule (hubert_model.py:459-469): a frame is padded
+            # only when all of its r = T_wav // T_feat samples are, so
+            # ceil(wav_len / r) frames are valid (wav2vec2.py:138-140)
+            r = max(wavs.shape[1] // max(t_feat, 1), 1)
+            feat_lens = torch.clamp(torch.div(wav_lens + r - 1, r, rounding_mode="floor"),
+                                    max=t_feat)
         features = F.layer_norm(features.float(), self.layer_norm.normalized_shape,
                                 self.layer_norm.weight, self.layer_norm.bias, eps=1e-5)
         features = features.to(self.dtype)
         if self.post_extract_proj is not None:
             proj = self.post_extract_proj
             features = F.linear(features, proj.weight, proj.bias.to(self.dtype))
-        return self.encoder(features, feat_lens), feat_lens
+        return self.encoder(features, feat_lens, layer_weights), feat_lens

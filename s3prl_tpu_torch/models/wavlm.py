@@ -12,7 +12,13 @@ On top of the trunk:
   heads (wavlm.py:118-128), which scales the shared bias.
 
 Ported: pre-LN WavLM (WavLM-Large) and post-LN WavLM (WavLM-Base,
-WavLM-Base+: the group-norm extractor, the encoder LN before the layers).
+WavLM-Base+: the group-norm extractor, the encoder LN before the layers),
+which UniSpeech-SAT shares; and WavLM without the gate (``gru_rel_pos=False``:
+the bias added to the scores by the plain attention, no kernel, as the JAX
+package's attention_bthd path) or without the bias
+(``relative_position_embedding=False``: the trunk's plain `SelfAttention`,
+K7 / K8 under ``use_flash``), wavlm.py:136-141, :297. Neither takes
+``wavlm_fuse`` (the JAX gate asks for both, :175-179).
 Routing of a pre-LN `GatedRelPosLayer` (wavlm.py:182-229):
 - attention: x + self_attn(LN(x)) with the gated bias; with ``use_flash``
   K9 `gated_bias_attention` (K10 beyond MAX_KERNEL_T), otherwise plain ops;
@@ -62,6 +68,13 @@ class WavLMConfig(Wav2Vec2Config):
     max_distance: int = 800
     gru_rel_pos: bool = True
 
+    @property
+    def gated(self) -> bool:
+        """Whether the gate runs, and so has parameters: it scales the bias,
+        so it needs both (the JAX WavLM makes ``grep_*`` only where it calls
+        them, wavlm.py:118-141)."""
+        return self.relative_position_embedding and self.gru_rel_pos
+
 
 WAVLM_BASE = WavLMConfig(dropout_input=0.0)  # 12L/768, group-norm extractor, post-LN
 WAVLM_BASE_PLUS = WAVLM_BASE
@@ -108,24 +121,30 @@ def bucket_table(seq_len: int, num_buckets: int, max_distance: int,
                  device: torch.device, cols: int | None = None) -> torch.Tensor:
     """`relative_position_buckets` as an int64 tensor on `device`, cached per
     (T, device, cols); with `cols` > T the rows are padded to `cols` columns
-    of bucket 0 (a padded bias buffer's columns that no kernel reads)."""
+    of bucket 0 (a padded bias buffer's columns that no kernel reads). Made
+    outside inference mode, so a forward that autograd tracks can index
+    with a table first cached under `Upstream.apply_standardized`."""
     buckets = relative_position_buckets(seq_len, num_buckets, max_distance)
     if cols is not None:
         buckets = np.pad(buckets, ((0, 0), (0, cols - seq_len)))
-    return torch.from_numpy(buckets).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(buckets).to(device)
 
 
 class GatedSelfAttention(SelfAttention):
     """SelfAttention with WavLM's gate parameters under Microsoft's keys:
     ``grep_linear`` (Linear(Dh, 8)) and ``grep_a`` [1, H, 1, 1], kept in f32
-    and cast to the model dtype at use; in layer 0 also the shared bias
-    table ``relative_attention_bias`` (nn.Embedding(num_buckets, H), f32)."""
+    and cast to the model dtype at use (none with ``gated=False``); in layer
+    0 also the shared bias table ``relative_attention_bias``
+    (nn.Embedding(num_buckets, H), f32)."""
 
     def __init__(self, embed_dim: int, num_heads: int, quantize: bool = False,
-                 use_flash: bool = False, device=None):
+                 use_flash: bool = False, device=None, gated: bool = True):
         super().__init__(embed_dim, num_heads, quantize, use_flash, device=device)
-        self.grep_linear = nn.Linear(embed_dim // num_heads, 8, device=device)
-        self.grep_a = nn.Parameter(torch.empty(1, num_heads, 1, 1, device=device))
+        self.gated = gated  # a plain attribute, not state
+        if gated:
+            self.grep_linear = nn.Linear(embed_dim // num_heads, 8, device=device)
+            self.grep_a = nn.Parameter(torch.empty(1, num_heads, 1, 1, device=device))
 
     def gate(self, h: torch.Tensor) -> torch.Tensor:
         """Gate [B, H, T] in h's dtype from h [B, T, C] split by heads
@@ -143,25 +162,28 @@ class GatedSelfAttention(SelfAttention):
 class GatedRelPosLayer(EncoderLayer):
     """WavLM block (wavlm.py:86-237), pre-LN with ``layer_norm_first``,
     post-LN without it. ``num_buckets`` is given to layer 0 only, which
-    then owns the shared bias table."""
+    then owns the shared bias table (none without the bias); ``gated``
+    (``gru_rel_pos``) adds the gate parameters."""
 
     attention = GatedSelfAttention
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
                  quantize: bool = False, num_buckets: int | None = None, device=None,
-                 wavlm_fuse: bool = False, layer_norm_first: bool = True):
+                 wavlm_fuse: bool = False, layer_norm_first: bool = True, gated: bool = True):
         super().__init__(embed_dim, ffn_dim, num_heads, dtype, use_flash, quantize,
-                         device=device, layer_norm_first=layer_norm_first)
+                         device=device, layer_norm_first=layer_norm_first,
+                         attention_kwargs={"gated": gated})
         self.wavlm_fuse = wavlm_fuse  # K11 under quant serving: a plain attribute, not state
         if num_buckets is not None:
             self.self_attn.relative_attention_bias = nn.Embedding(num_buckets, num_heads,
                                                                   device=device)
 
     def forward(self, x: torch.Tensor, kv_lens: torch.Tensor, pad_mask: torch.Tensor,
-                pos_bias: torch.Tensor) -> torch.Tensor:
+                pos_bias: torch.Tensor | None) -> torch.Tensor:
         """x [B, T, C] in the model dtype; kv_lens [B] int32; pad_mask [B, T]
-        True on padded frames; pos_bias [H, T, T], the encoder's shared bias."""
+        True on padded frames; pos_bias [H, T, T], the encoder's shared bias
+        (None without the bias)."""
         attn, ln1, ln2 = self.self_attn, self.self_attn_layer_norm, self.final_layer_norm
         quant_serving = self.quantize and not self.training and tr._fused_block_available(x)
         # pre-LN: attention on LN1(x), plus x; post-LN: on raw x, then LN1
@@ -171,8 +193,12 @@ class GatedRelPosLayer(EncoderLayer):
             x = gated_bias_attention_outproj(qkv, x, pos_bias, attn.gate(h).float(),
                                              attn.qpair("out_proj"), attn.out_proj.bias,
                                              kv_lens, self.num_heads)
-        else:
+        elif pos_bias is None:  # no bias: the trunk's attention (wavlm.py:136-137)
+            x = x + attn(h, pad_mask)
+        elif attn.gated:
             x = x + attn(h, pad_mask, rel_bias=(pos_bias, attn.gate(h)))
+        else:  # the bias without the gate, plain ops (wavlm.py:140-141)
+            x = x + attn(h, pad_mask, attn_bias=pos_bias[None])
         if not self.layer_norm_first:  # wavlm.py:230-236
             x = _layer_norm(x, ln1)
             if quant_serving:  # K2 bare
@@ -202,12 +228,14 @@ class WavLMEncoder(TransformerEncoder):
         self.dtype = dtype
         self.use_flash = use_flash
         self.wavlm_fuse = wavlm_fuse
+        self.rel_pos, self.gated = cfg.relative_position_embedding, cfg.gated
         self.num_buckets, self.max_distance = cfg.num_buckets, cfg.max_distance
         self.layers.extend(
             GatedRelPosLayer(cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim,
                              cfg.encoder_attention_heads, dtype, use_flash, quantize,
-                             num_buckets=cfg.num_buckets if i == 0 else None, device=device,
-                             wavlm_fuse=wavlm_fuse, layer_norm_first=cfg.layer_norm_first)
+                             num_buckets=cfg.num_buckets if i == 0 and self.rel_pos else None,
+                             device=device, wavlm_fuse=wavlm_fuse,
+                             layer_norm_first=cfg.layer_norm_first, gated=cfg.gated)
             for i in range(cfg.encoder_layers))
 
     def _layer_args(self, T: int, device) -> tuple:
@@ -221,18 +249,22 @@ class WavLMEncoder(TransformerEncoder):
           gathered likewise into rows of Tp = T rounded up to 4 (K11 reads
           them in 16-byte copies);
         - flash in an f32 model: f32, contiguous;
-        - no flash: contiguous in the model dtype.
-        The values are the same in each: bf16 -> f32 is exact."""
+        - no flash, or no gate (the plain attention takes the bias):
+          contiguous in the model dtype.
+        The values are the same in each: bf16 -> f32 is exact. Without the
+        bias (``relative_position_embedding=False``) it is None."""
+        if not self.rel_pos:
+            return (None,)
         table = self.layers[0].self_attn.relative_attention_bias.weight.t().to(self.dtype)
         nb, md = self.num_buckets, self.max_distance
-        if self.use_flash and (self.dtype == torch.bfloat16 or self.wavlm_fuse):
+        if not (self.use_flash and self.gated):
+            return (table[:, bucket_table(T, nb, md, device)],)
+        if self.dtype == torch.bfloat16 or self.wavlm_fuse:
             step = 4 if self.wavlm_fuse else 8  # 16 bytes of f32 or of bf16
             table = table.float() if self.wavlm_fuse else table
             padded = table[:, bucket_table(T, nb, md, device, cols=-(-T // step) * step)]
             return (padded[:, :, :T],)
-        if self.use_flash:
-            table = table.float()
-        return (table[:, bucket_table(T, nb, md, device)],)
+        return (table.float()[:, bucket_table(T, nb, md, device)],)
 
 
 class WavLMModel(Wav2Vec2Trunk):
@@ -244,19 +276,27 @@ class WavLMModel(Wav2Vec2Trunk):
     the pos-conv ``fused_posconv`` (K16a) / ``int8_posconv`` (K16b; WavLM
     reaches the same pos-conv module, wavlm.py:287); ``int8_conv`` raises,
     as WavLM's extractor takes no ``quantize``, and on the group-norm
-    extractor of WavLM-Base the front-end options all raise."""
+    extractor of WavLM-Base the front-end options all raise; ``wavlm_fuse``
+    raises without the gate or without the bias. No weighted sum: the JAX
+    WavLM has no ``layer_weights``."""
 
     tanh_extractor = False  # erf in both paths (wavlm.py:264-267)
     fuse_options = ("wavlm_fuse",)
 
     def __init__(self, cfg: WavLMConfig = WAVLM_LARGE, dtype: torch.dtype = torch.float32,
                  use_flash: bool = False, quantize: bool = False, device=None, **fuse):
-        if not (cfg.relative_position_embedding and cfg.gru_rel_pos):
-            raise NotImplementedError(
-                "WavLM without the gated relative-position bias is not ported "
-                "(ROADMAP.md Queue 1 item 3)")
+        if fuse.get("wavlm_fuse") and not cfg.gated:
+            raise ValueError("wavlm_fuse cannot take effect: it fuses the gated "
+                             "relative-position bias attention, and this model has "
+                             f"relative_position_embedding={cfg.relative_position_embedding}, "
+                             f"gru_rel_pos={cfg.gru_rel_pos}")
         super().__init__(cfg, dtype, use_flash, quantize, device=device, **fuse)
 
     def _encoder(self, cfg, dtype, use_flash, quantize, device, posconv, **fuse) -> nn.Module:
         return WavLMEncoder(cfg, dtype, use_flash, quantize, device=device, posconv=posconv,
                             **fuse)
+
+    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor):
+        """wavs [B, T] padded 16 kHz, wav_lens [B] -> (hidden_states
+        [L+1, B, T', C], feat_lens [B])."""
+        return super().forward(wavs, wav_lens)

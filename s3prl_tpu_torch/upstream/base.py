@@ -54,17 +54,22 @@ class Upstream:
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
-    @torch.inference_mode()
-    def apply_standardized(self, wavs, wav_lens):
-        """wavs [B, T] (or [B, T, 1]) padded 16 kHz, wav_lens [B] -> (hs
-        [L, B, T_expected, H], h_lens [B]) on the model's device."""
+    def _inputs(self, wavs, wav_lens):
+        """wavs [B, T] (or [B, T, 1]) and wav_lens [B] as tensors on the
+        model's device (floating wavs, int64 lengths)."""
         dev = self.device
         wavs = torch.as_tensor(wavs, device=dev)
         if not wavs.is_floating_point():
             wavs = wavs.float()
-        wav_lens = torch.as_tensor(wav_lens, device=dev).long()
         if wavs.ndim == 3:
             wavs = wavs[..., 0]
+        return wavs, torch.as_tensor(wav_lens, device=dev).long()
+
+    @torch.inference_mode()
+    def apply_standardized(self, wavs, wav_lens):
+        """wavs [B, T] (or [B, T, 1]) padded 16 kHz, wav_lens [B] -> (hs
+        [L, B, T_expected, H], h_lens [B]) on the model's device."""
+        wavs, wav_lens = self._inputs(wavs, wav_lens)
         original_max = wavs.shape[1]
         min_samples = int(MIN_SECOND * SAMPLE_RATE)
         if original_max < min_samples:
@@ -75,3 +80,22 @@ class Upstream:
             run_lens = wav_lens
         hs, _ = self.model(wavs, run_lens)
         return standardize_hidden_states(hs, wav_lens, wavs.shape[1], self.downsample_rate)
+
+
+@dataclass
+class TrunkUpstream(Upstream):
+    """A wav2vec2-family trunk's upstream, which also serves SUPERB's
+    weighted sum of its layers (`apply_weighted`; the JAX package gives it
+    to the trunk entries only, registry.py:199-207)."""
+
+    @torch.inference_mode()
+    def apply_weighted(self, layer_weights, wavs, wav_lens):
+        """layer_weights [L+1] (as given: softmax them first for SUPERB's
+        featurizer), wavs [B, T] padded 16 kHz, wav_lens [B] -> the model's
+        raw (sum_i w_i h_i [1, B, T', H], feat_lens [B]): T' the model's
+        frames, no length rule applied, as the JAX `apply_weighted`. The
+        per-layer states are never stacked (`TransformerEncoder.forward`);
+        the weights go to the model's device once and stay there."""
+        wavs, wav_lens = self._inputs(wavs, wav_lens)
+        weights = torch.as_tensor(layer_weights, device=wavs.device)
+        return self.model(wavs, wav_lens, layer_weights=weights)

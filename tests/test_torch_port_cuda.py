@@ -1726,3 +1726,186 @@ def test_tiny_models_posconv_options_match_cpu(dev, monkeypatch, model, path, op
     else:
         pair = _tiny_wavlm_pair(dev, quantize, conv_pos=(32, 2), **{option: True})
     _trunk_on_card_vs_cpu(dev, monkeypatch, quantize, launches, pair=pair)
+
+
+# -- rows with no valid key (kv_len = 0: an utterance with no frame under the
+# conv length rule) and the post-LN forms at the Large width ------------------------
+
+def _zero_kv(B, T, dev):
+    """kv_lens [T, 0, 5T/8, T, 0, ...]: utterance 1 has no valid key."""
+    return torch.tensor([(T, 0, (T * 5) // 8)[i % 3] for i in range(B)], dtype=torch.int32,
+                        device=dev)
+
+
+def _mean_rows(out, v, b):
+    """Utterance b's rows of out [B, H, T, Dh] against the mean over T of
+    its values v [B, H, T, Dh] (a uniform row)."""
+    _close_bf16(out[b], v[b].float().mean(1, keepdim=True).expand_as(v[b]))
+
+
+@pytest.mark.parametrize("T", [65, 499])
+@pytest.mark.parametrize("kernel", ["K1", "K1-postnorm", "K4", "K4-postnorm"])
+def test_block_kernels_with_rows_without_keys(dev, kernel, T):
+    """K1 and K4 (pre-LN and postnorm, C 1,024, H 16) on B = 3 with an
+    utterance of kv_len 0 against their plain versions on the card."""
+    rng = np.random.RandomState(40)
+    B, C, H = 3, 1024, 16
+    x = _t(rng.randn(B, T, C) * 0.5, dev, torch.bfloat16)
+    kv = _zero_kv(B, T, dev)
+    postnorm = kernel.endswith("postnorm")
+    ln = _ln(rng, dev, C)
+    if kernel.startswith("K1"):
+        (wq, bq), (wo, bo) = _qpair(rng, dev, C, 3 * C), _qpair(rng, dev, C, C)
+        fn, plain = fused_attention_block, fused_attention_block_reference
+    else:
+        (wq, bq), (wo, bo) = _block_weights(rng, dev, C, 3 * C), _block_weights(rng, dev, C, C)
+        fn, plain = fused_attention_block_bf16, fused_attention_block_bf16_reference
+    before = fn.launches
+    got = fn(x, wq, bq, ln, wo, bo, kv, H, postnorm=postnorm)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and bool(torch.isfinite(got).all())
+    _close_bf16(got, plain(x, wq, bq, ln, wo, bo, kv, H, postnorm=postnorm))
+
+
+@pytest.mark.parametrize("form", ["ln-residual", "postnorm", "bare"])
+def test_k2_on_padded_rows(dev, form):
+    """K2 (C 1,024, F 4,096) on the rows of an utterance with no frame: one
+    utterance all zero rows (bare: the row quantizer's clamp, codes 0),
+    one of a single repeated row (its LN has zero variance), one unit-scale,
+    against the plain version on the card."""
+    rng = np.random.RandomState(41)
+    B, T, C, F = 3, 123, 1024, 4096
+    x = _t(rng.randn(B, T, C) * 0.5, dev, torch.bfloat16)
+    x[1] = 0
+    x[2] = x[2, :1].expand(T, C)
+    (w1, b1), (w2, b2) = _qpair(rng, dev, C, F), _qpair(rng, dev, F, C)
+    kw = {"ln-residual": dict(ln=_ln(rng, dev, C), residual=True),
+          "postnorm": dict(ln=_ln(rng, dev, C), residual=True, postnorm=True),
+          "bare": {}}[form]
+    before = fused_int8_ffn.launches
+    got = fused_int8_ffn(x, w1, b1, w2, b2, **kw)
+    torch.cuda.synchronize()
+    assert fused_int8_ffn.launches == before + 1 and bool(torch.isfinite(got).all())
+    _close_bf16(got, fused_int8_ffn_reference(x, w1, b1, w2, b2, **kw))
+
+
+@pytest.mark.parametrize("T", [65, 1499, 2049])
+@pytest.mark.parametrize("kernel", ["K6", "K7"])
+def test_k6_k7_with_rows_without_keys(dev, kernel, T):
+    """K6 and K7 (C 1,024, H 16) with an utterance of kv_len 0 against the
+    plain versions of their route (K8 beyond MAX_KERNEL_T); K7's row
+    without keys is the mean of the values."""
+    rng = np.random.RandomState(42)
+    B, C, H = 3, 1024, 16
+    qkv = _t(rng.randn(B, T, 3 * C), dev, torch.bfloat16)
+    kv = _zero_kv(B, T, dev)
+    if kernel == "K6":
+        x = _t(rng.randn(B, T, C) * 0.5, dev, torch.bfloat16)
+        wo, bo = _qpair(rng, dev, C, C)
+        got = fused_qkv_attention_outproj(qkv, x, wo, bo, kv, H)
+        want = fused_qkv_attention_outproj(*_on_cpu(qkv, x, wo, bo, kv), H)
+    else:
+        got = fused_qkv_attention(qkv, kv, H)
+        want = fused_qkv_attention(*_on_cpu(qkv, kv), H)
+        v = qkv[..., 2 * C:].view(B, T, H, 64).transpose(1, 2)
+        _mean_rows(got.view(B, T, H, 64).transpose(1, 2), v, 1)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("kernel,T", [("K8", 65), ("K8", 2049), ("K9", 65), ("K9", 499),
+                                      ("K10", 65), ("K10", 2049), ("K17", 65), ("K17", 499),
+                                      ("K17", 2049)])
+def test_split_head_kernels_with_rows_without_keys(dev, kernel, T):
+    """K8, K9 (the main path's padded bf16 bias), K10 and K17 called directly
+    on [3, 16, T, 64] with an utterance of kv_len 0: finite, equal to the
+    plain version on the card, and that row the mean of the values (a row
+    without keys runs every key tile of T; skipping them gave 0 / l_floor:
+    0 in K8 / K10, NaN in K9 / K17)."""
+    rng = np.random.RandomState(43)
+    B, H = 3, 16
+    q, k, v, pos_bias, gate, _ = _gated_inputs(rng, dev, B, H, T, "bf16-padded")
+    kv = _zero_kv(B, T, dev)
+    fn, plain = {
+        "K8": (online_flash_attention, online_flash_attention_reference),
+        "K17": (fa._gated_launch, fa.flash_attention_reference),
+        "K9": (gated_bias_attention, gated_bias_attention_reference),
+        "K10": (gated_online_flash_attention, gated_online_flash_attention_reference)}[kernel]
+    if kernel == "K17":  # its own launch at every T (the wrapper hands T > 2,048 to K8)
+        got = fn(q, k, v, None, None, kv, -1e9, 0.0)
+        want = plain(q, k, v, kv)
+    elif kernel == "K8":
+        got, want = fn(q, k, v, kv), plain(q, k, v, kv)
+    else:
+        got = fn(q, k, v, pos_bias, gate, kv)
+        want = plain(q, k, v, pos_bias, gate, kv)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _close_bf16(got, want)
+    _mean_rows(got, v, 1)
+
+
+@pytest.mark.parametrize("T", [65, 499])
+def test_k11_with_rows_without_keys(dev, T):
+    """K11 (H 16) with an utterance of kv_len 0 against its plain version."""
+    from s3prl_tpu_torch.models.wavlm import bucket_table
+
+    rng = np.random.RandomState(44)
+    B, H = 3, 16
+    C = H * 64
+    qkv = _t(rng.randn(B, T, 3 * C), dev, torch.bfloat16)
+    x = _t(rng.randn(B, T, C) * 0.5, dev, torch.bfloat16)
+    pos_bias = _t(rng.randn(320, H) * 0.5, dev).t()[:, bucket_table(T, 320, 800, dev)].contiguous()
+    gate = _t(1 + 2 * rng.rand(B, H, T), dev)
+    wo, bo = _qpair(rng, dev, C, C)
+    kv = _zero_kv(B, T, dev)
+    before = fa.gated_bias_attention_outproj.launches
+    got = fa.gated_bias_attention_outproj(qkv, x, pos_bias, gate, wo, bo, kv, H)
+    torch.cuda.synchronize()
+    assert fa.gated_bias_attention_outproj.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    _close_bf16(got, fa.gated_bias_attention_outproj(*_on_cpu(qkv, x, pos_bias, gate, wo, bo,
+                                                              kv), H))
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K4", "K2", "K5", "K6-raw-x"])
+def test_post_ln_forms_at_c1024(dev, kernel):
+    """The post-LN kernel forms of data2vec-Large (C 1,024, H 16, F 4,096)
+    on a unit-scale residual stream: K1 / K4 postnorm and K2 / K5 postnorm
+    at B = 4 x 499, K6 on a QKV made from raw x (int8_matmul) at 4 x 1,499,
+    each against its plain version on the card."""
+    from s3prl_tpu_torch.ops.quant import int8_matmul
+
+    rng = np.random.RandomState(45)
+    C, H, F = 1024, 16, 4096
+    T = 1499 if kernel == "K6-raw-x" else 499
+    x = _t(rng.randn(4, T, C), dev, torch.bfloat16)
+    kv = _long_kv(T, dev)
+    kv = torch.cat([kv, kv[:1]])
+    ln = _ln(rng, dev, C)
+    if kernel == "K1":
+        (wq, bq), (wo, bo) = _qpair(rng, dev, C, 3 * C), _qpair(rng, dev, C, C)
+        got = fused_attention_block(x, wq, bq, ln, wo, bo, kv, H, postnorm=True)
+        want = fused_attention_block_reference(x, wq, bq, ln, wo, bo, kv, H, postnorm=True)
+    elif kernel == "K4":
+        (wq, bq), (wo, bo) = _block_weights(rng, dev, C, 3 * C), _block_weights(rng, dev, C, C)
+        got = fused_attention_block_bf16(x, wq, bq, ln, wo, bo, kv, H, postnorm=True)
+        want = fused_attention_block_bf16_reference(x, wq, bq, ln, wo, bo, kv, H,
+                                                    postnorm=True)
+    elif kernel == "K2":
+        (w1, b1), (w2, b2) = _qpair(rng, dev, C, F), _qpair(rng, dev, F, C)
+        got = fused_int8_ffn(x, w1, b1, w2, b2, ln=ln, residual=True, postnorm=True)
+        want = fused_int8_ffn_reference(x, w1, b1, w2, b2, ln=ln, residual=True, postnorm=True)
+    elif kernel == "K5":
+        (w1, b1), (w2, b2) = _block_weights(rng, dev, C, F), _block_weights(rng, dev, F, C)
+        got = fused_bf16_ffn(x, w1, b1, w2, b2, ln=ln, residual=True, postnorm=True)
+        want = fused_bf16_ffn_reference(x, w1, b1, w2, b2, ln=ln, residual=True, postnorm=True)
+    else:
+        wq, bq = _qpair(rng, dev, C, 3 * C)
+        qkv = int8_matmul(x, wq, bq, out_dtype=torch.bfloat16)
+        wo, bo = _qpair(rng, dev, C, C)
+        got = fused_qkv_attention_outproj(qkv, x, wo, bo, kv, H)
+        want = fused_qkv_attention_outproj(*_on_cpu(qkv, x, wo, bo, kv), H)
+    torch.cuda.synchronize()
+    _close_bf16(got, want)

@@ -215,15 +215,26 @@ def test_cpu_run_counts_no_launch(jax_params):
     assert [w.launches for w in wrappers()] == before
 
 
-def test_registry_refuses_what_is_not_ported(monkeypatch):
+def test_registry_refuses_what_is_not_ported(monkeypatch, tmp_path):
     with pytest.raises(KeyError):
         hub.load("no_such_upstream")
-    with pytest.raises(NotImplementedError, match="ckpt"):
-        hub.load("hubert_large_ll60k", ckpt="model.pt", device="cpu")
-    with pytest.raises(NotImplementedError, match="feat_pad_rule"):
-        Wav2Vec2Trunk(Wav2Vec2Config(feat_pad_rule="conv"), device="meta")  # the wav2vec2 entries
-    assert hub.options() == ["hubert", "hubert_base", "hubert_large_ll60k", "wavlm",
-                             "wavlm_base", "wavlm_base_plus", "wavlm_large"]
+    native = tmp_path / "params.msgpack"  # the JAX package's own pretraining checkpoint
+    native.write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="msgpack.*Queue 1 item 9"):
+        hub.load("hubert_large_ll60k", ckpt=str(native), device="cpu")
+    with pytest.raises(NotImplementedError, match="download= is not ported"):
+        hub.load("hubert_large_ll60k", download=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="layer_type 'conformer'"):
+        Wav2Vec2Trunk(Wav2Vec2Config(layer_type="conformer"), device="meta")
+    assert hub.options() == [
+        "contentvec", "contentvec_km100", "contentvec_km500", "data2vec", "data2vec_base_960",
+        "data2vec_large_ll60k", "hubert", "hubert_base", "hubert_base_robust_mgr",
+        "hubert_large_ll60k", "mhubert_base_vp_en_es_fr_it3", "ms_hubert", "unispeech_sat",
+        "unispeech_sat_base", "unispeech_sat_base_plus", "unispeech_sat_large", "wav2vec2",
+        "wav2vec2_base_960", "wav2vec2_large_960", "wav2vec2_large_ll60k",
+        "wav2vec2_large_lv60_cv_swbd_fsh", "wav2vec2_large_voxpopuli_100k", "wavlm",
+        "wavlm_base", "wavlm_base_plus", "wavlm_large", "xls_r_1b", "xls_r_2b", "xls_r_300m",
+        "xlsr_53"]
     # quantize=True loads (the entry at the tiny width: same code path)
     monkeypatch.setattr(port_registry, "HUBERT_LARGE", PCFG)
     up = hub.load("hubert_large_ll60k", dtype=torch.bfloat16, flash=True, quantize=True,
@@ -234,7 +245,12 @@ def test_registry_refuses_what_is_not_ported(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["hubert_large_ll60k", "wavlm_large", "hubert", "hubert_base",
-                                  "wavlm", "wavlm_base", "wavlm_base_plus"])
+                                  "wavlm", "wavlm_base", "wavlm_base_plus", "wav2vec2",
+                                  "wav2vec2_base_960", "wav2vec2_large_ll60k",
+                                  "wav2vec2_large_lv60_cv_swbd_fsh", "data2vec",
+                                  "data2vec_base_960", "data2vec_large_ll60k", "unispeech_sat",
+                                  "unispeech_sat_base", "unispeech_sat_base_plus",
+                                  "unispeech_sat_large", "xls_r_1b", "contentvec"])
 def test_hub_load_without_device_needs_cuda(monkeypatch, name):
     """An entry builds on the card unless device= says otherwise: without
     CUDA it raises and names device="cpu", it never builds on the CPU."""

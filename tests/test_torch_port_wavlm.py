@@ -370,7 +370,8 @@ def test_wavlm_state_dict_round_trip_is_exact(jax_params):
 def test_wavlm_large_entry_loads_at_tiny_width(monkeypatch):
     """hub.load("wavlm_large", device="cpu") at the tiny width (the same
     code path): int8 cache built from f32 weights, the table on layer 0,
-    grep_a ones; WavLM without the gated bias is not ported."""
+    grep_a ones; a conformer WavLM and a native msgpack checkpoint are not
+    ported."""
     monkeypatch.setattr(port_registry, "WAVLM_LARGE", PCFG)
     up = hub.load("wavlm_large", dtype=torch.bfloat16, flash=True, quantize=True,
                   device="cpu", seed=1)
@@ -383,7 +384,7 @@ def test_wavlm_large_entry_loads_at_tiny_width(monkeypatch):
     hs, h_lens = up.apply_standardized(torch.from_numpy(wavs), torch.from_numpy(lens))
     assert hs.shape == (3, 2, 160, 128) and h_lens.tolist() == [160, 1]
     assert bool(torch.isfinite(hs).all())
-    with pytest.raises(NotImplementedError, match="gated relative-position bias"):
-        WavLMModel(WavLMConfig(**{**TINY, "gru_rel_pos": False}), device="meta")
-    with pytest.raises(NotImplementedError, match="ckpt"):
-        hub.load("wavlm_large", ckpt="model.pt", device="cpu")
+    with pytest.raises(NotImplementedError, match="layer_type 'conformer'"):
+        WavLMModel(WavLMConfig(**{**TINY, "layer_type": "conformer"}), device="meta")
+    with pytest.raises(NotImplementedError, match="msgpack.*Queue 1 item 9"):
+        hub.load("wavlm_large", ckpt="model.msgpack", device="cpu")
