@@ -218,7 +218,27 @@ line is printed; each phase prints its seconds):
     (`posconv_quant`: scales and codes) and its scale pass alone (the part
     of K16b's launch before the conv); K17 on [32, 16, 499, 64]
     beside scaled_dot_product_attention. K17 runs on no main path (no model
-    calls it): its launch count in the kernels line is 0.
+    calls it): its launch count in the kernels line is 0;
+ 7. SUPERB's frozen-upstream probe training at full width, through the
+    port's entry points: SUpstream("hubert_large_ll60k", extra_conf={bf16,
+    flash, quantize}) on B=32 x 10 s, UpstreamDownstreamModel(
+    UtteranceLevel(10, (256,), "MeanPooling")), UtteranceClassificationTask
+    and the Trainer with Adam 1e-4 (tools/bench_train.py:50-73's setup):
+    8 train steps on one batch, each launching K3 once and K1 and K2 24
+    times (every other count 0; the counts set to 0 just before the step and
+    read just after it), the upstream in eval() throughout, the loss finite
+    and falling; one probe step from the card's states on the card and on
+    the CPU (the states moved there, the same probe weights and Adam state):
+    loss and gradient norm at rtol 1e-3, each parameter's update at cosine
+    > 0.999; the train step and the frozen forward alone timed by
+    bench_train's protocol (chains of 3 and 9, marginal, best of 3, CUDA
+    events) with the audio-s/s, the peak device memory and the card's name
+    and power limit, and under torch.profiler (the device's idle share, the
+    kernels the step runs beyond the forward's); then the CommonExample recipe on pseudo audio with
+    build_upstream hubert_large_ll60k int8 at full depth through
+    Problem.run, all four stages in a temporary directory (result.yaml,
+    step_2, step_4 and valid_best, the launches of its 7 forwards) and an
+    auto-resume of stage 2 that finds step 4 and trains no step.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -229,6 +249,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -2228,6 +2249,226 @@ def time_weighted(up, wavs, lens_t, gen, it_lo, it_hi):
             f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+# the probe training phase: tools/bench_train.py:50-73's setup (B, SECS,
+# NUM_CLASSES, ITERS, Adam 1e-4) through the port's Trainer
+PROBE_B, PROBE_SECS, PROBE_CLASSES, PROBE_ITERS, PROBE_LR = 32, 10.0, 10, 9, 1e-4
+PROBE_STEPS = 8  # training steps on one fixed batch: the loss must fall
+PROBE_RUN = {"conv0_ln_gelu": 1, "fused_attention_block": 24, "fused_int8_ffn": 24}
+PROBE_COS = 0.999  # card vs CPU: each probe parameter's update, cosine
+
+
+def probe_task(up):
+    """bench_train's probe: featurizer -> UtteranceLevel(10, (256,),
+    MeanPooling) -> CE."""
+    from s3prl_tpu_torch.nn import UpstreamDownstreamModel, UtteranceLevel
+    from s3prl_tpu_torch.task import UtteranceClassificationTask
+
+    head = UtteranceLevel(up.hidden_size, PROBE_CLASSES, (256,), "MeanPooling")
+    return UtteranceClassificationTask(UpstreamDownstreamModel(head, up.num_layers),
+                                       PROBE_CLASSES)
+
+
+def probe_optimizer(params):
+    from s3prl_tpu_torch.train import Optimizer
+
+    return Optimizer(params, name="Adam", lr=PROBE_LR, total_steps=1000, gradient_clipping=1.0)
+
+
+def check_probe_training(up, wrapper, batch, exp_dir):
+    """PROBE_STEPS train steps of the port's Trainer on one batch: each
+    step's launches (PROBE_RUN, every other count 0, read just after the
+    step with every count set to 0 just before it), the upstream in eval()
+    and the probe in train() after each, the loss finite and falling."""
+    from s3prl_tpu_torch.train import Trainer, TrainerConfig
+
+    trainer = Trainer(up, probe_task(up), exp_dir, TrainerConfig(
+        total_steps=1000, tensorboard=False, optimizer={"name": "Adam", "lr": PROBE_LR}))
+    trainer.init(resume=False)
+    losses = []
+    for _ in range(PROBE_STEPS):
+        for w in wrapper.values():
+            w.launches = 0
+        loss, _, grad_norm = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        launches = {name: w.launches for name, w in wrapper.items()}
+        check(launches == {name: PROBE_RUN.get(name, 0) for name in wrapper},
+              f"probe train step launches {launches}")
+        check(not up.model.training and trainer.task.module.training,
+              "the upstream left eval() or the probe left train()")
+        losses.append(float(loss))
+        check(np.isfinite(losses[-1]) and np.isfinite(float(grad_norm)), f"loss {losses}")
+    log(f"[probe] hubert int8 B={PROBE_B} x {PROBE_SECS:.0f} s, Trainer + Adam {PROBE_LR}: "
+        f"launches a step {PROBE_RUN} (every other count 0), upstream in eval(); losses over "
+        f"{PROBE_STEPS} steps on one batch " + " ".join(f"{v:.5f}" for v in losses))
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    return trainer
+
+
+def check_probe_step_on_cpu(up, trainer, batch):
+    """One probe step from the card's (frozen) states, on the card and on
+    the CPU from the same probe weights and Adam state (the states moved
+    to the CPU): loss and gradient norm at rtol 1e-3, each parameter's
+    update at cosine > PROBE_COS."""
+    import copy
+
+    hs, h_lens = up(batch["x"], batch["x_len"])
+    task_cpu = probe_task(up)
+    task_cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                     trainer.task.module.state_dict().items()})
+    opt_cpu = probe_optimizer(task_cpu.module.parameters())
+    opt_cpu.load_state_dict(copy.deepcopy(trainer.optimizer.state_dict()))
+    before = {k: v.detach().cpu().clone() for k, v in trainer.task.module.state_dict().items()}
+    loss_card, _, norm_card = trainer.probe_step(hs, h_lens, batch)
+    t0 = time.perf_counter()
+    loss_cpu, _ = task_cpu.loss_and_cache(hs.cpu(), h_lens.cpu(), batch, None, True)
+    loss_cpu.backward()
+    loss_cpu = loss_cpu.detach()
+    from s3prl_tpu_torch.train.optimizers import global_norm
+
+    norm_cpu = global_norm([p.grad for p in opt_cpu.params])
+    opt_cpu.step()
+    seconds = time.perf_counter() - t0
+    after_card, after_cpu = trainer.task.module.state_dict(), task_cpu.module.state_dict()
+    coss = {}
+    for k, p0 in before.items():
+        a = (after_card[k].cpu() - p0).double().flatten()
+        b = (after_cpu[k] - p0).double().flatten()
+        coss[k] = float(a @ b / (a.norm() * b.norm()))
+    rel = (abs(float(loss_card) / float(loss_cpu) - 1), abs(float(norm_card) / float(norm_cpu) - 1))
+    log(f"[probe] one step from the card's states [{', '.join(map(str, hs.shape))}] "
+        f"{hs.dtype}, card vs CPU ({seconds:.1f} s): loss {float(loss_card):.6f} / "
+        f"{float(loss_cpu):.6f}, grad norm {float(norm_card):.6f} / {float(norm_cpu):.6f} "
+        f"(rel {rel[0]:.2e}, {rel[1]:.2e}), update cosines "
+        + " ".join(f"{k} {c:.6f}" for k, c in coss.items()))
+    check(max(rel) < 1e-3 and min(coss.values()) > PROBE_COS, "probe step card vs CPU")
+
+
+def profile_calls(fn, iters=3):
+    """(device idle share, {kernel name: device ms a call}) over `iters`
+    calls: 1 - the profiler's summed kernel time over the event time
+    (tools/torch_wavlm_breakdown.py's `idle_share`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+    kernels = {evt.key: evt.self_device_time_total / 1e3 / iters for evt in prof.key_averages()
+               if evt.device_type == DeviceType.CUDA}
+    return 1.0 - sum(kernels.values()) / (start.elapsed_time(end) / iters), kernels
+
+
+def time_probe_step(up, trainer, batch, smi):
+    """The train step by tools/bench_train.py's protocol (chains of ITERS
+    // 3 and ITERS steps, marginal, best of 3; CUDA events), beside the
+    frozen forward alone, each with its peak device memory; then both
+    under the profiler: the device's idle share and the kernels the step
+    runs beyond the forward's."""
+    lo, hi = max(PROBE_ITERS // 3, 1), PROBE_ITERS
+    fns = {"train step": lambda: trainer.train_step(batch),
+           "frozen forward alone": lambda: up(batch["x"], batch["x_len"])}
+    best = {(what, n): float("inf") for what in fns for n in (lo, hi)}
+    for _ in range(3):
+        for what, fn in fns.items():
+            for n in (lo, hi):
+                best[what, n] = min(best[what, n], n * cuda_ms(fn, n))
+    out = {}
+    for what, fn in fns.items():
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        per = (best[what, hi] - best[what, lo]) / (hi - lo)
+        out[what] = per
+        log(f"[timing] probe {what} hubert int8 B={PROBE_B} x {PROBE_SECS:.0f} s: {per:.2f} "
+            f"ms/step, {PROBE_B * PROBE_SECS / (per / 1e3):.1f} audio-s/s (chains {lo}: "
+            f"{best[what, lo]:.1f} ms, {hi}: {best[what, hi]:.1f} ms), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    log(f"[timing] probe step beyond the frozen forward: "
+        f"{out['train step'] - out['frozen forward alone']:.2f} ms "
+        f"({100 * (1 - out['frozen forward alone'] / out['train step']):.1f}% of the step)")
+    prof = {what: profile_calls(fn) for what, fn in fns.items()}
+    step_k, fwd_k = prof["train step"][1], prof["frozen forward alone"][1]
+    extra = {name: ms - fwd_k.get(name, 0.0) for name, ms in step_k.items()}
+    top = sorted(extra.items(), key=lambda kv: -kv[1])[:10]
+    log(f"[profile] probe hubert int8 B={PROBE_B}: device idle share train step "
+        f"{prof['train step'][0]:.3f}, frozen forward alone {prof['frozen forward alone'][0]:.3f};"
+        f" kernel time a step {sum(step_k.values()):.2f} ms, forward {sum(fwd_k.values()):.2f} "
+        f"ms; the step's kernels beyond the forward's (ms a step): "
+        + "; ".join(f"{name[:70]} {ms:.3f}" for name, ms in top))
+
+
+def check_recipe(wrapper, exp_dir):
+    """CommonExample (pseudo audio, 4 steps of batch 4, valid every 2,
+    test) through Problem.run, all four stages, on HuBERT-Large int8 at
+    full depth: result.yaml, the step checkpoints and valid_best, the
+    launches (K3 once and K1, K2 24 times a forward: 4 train steps, 2
+    valid and 1 test batch), and an auto-resume of stage 2 that trains no
+    step."""
+    import yaml
+
+    from s3prl_tpu_torch.problem import CommonExample
+    from s3prl_tpu_torch.train import checkpoint as ckpt
+
+    problem = CommonExample()
+    config = problem.default_config()
+    config.pop("target_dir")
+    config["build_upstream"] = {"name": "hubert_large_ll60k", "extra_conf": {
+        "dtype": "bf16", "flash": True, "quantize": True, "seed": 0}}
+    config["train"]["tensorboard"] = False
+    t0 = time.perf_counter()
+    for w in wrapper.values():
+        w.launches = 0
+    problem.run(str(exp_dir), **config)
+    launches = {name: w.launches for name, w in wrapper.items()}
+    forwards = 4 + 2 + 1
+    check(launches == {name: forwards * PROBE_RUN.get(name, 0) for name in wrapper},
+          f"recipe launches {launches}")
+    result = yaml.safe_load((exp_dir / "result.yaml").read_text())
+    check(set(result) == {"test"} and 0.0 <= result["test"]["accuracy"] <= 1.0
+          and np.isfinite(result["test"]["loss"]), f"result.yaml {result}")
+    train_dir = exp_dir / "train"
+    steps = sorted(d.name for d in train_dir.glob("step_*"))
+    check(steps == ["step_2", "step_4"] and (train_dir / "valid_best").exists(),
+          f"checkpoints {steps}")
+    lines = (train_dir / "metrics.jsonl").read_text().splitlines()
+    resumed = problem.run(str(exp_dir), start=2, stop=2, **config)["train_stage"]
+    check(resumed.step == 4 and (train_dir / "metrics.jsonl").read_text().splitlines() == lines
+          and ckpt.latest_checkpoint(train_dir).name == "step_4", "auto-resume")
+    log(f"[recipe] CommonExample on hubert_large_ll60k int8 (24 layers), all four stages and "
+        f"a resumed stage 2 in {time.perf_counter() - t0:.1f} s: result.yaml {result}, "
+        f"checkpoints {steps} + valid_best, launches {forwards} forwards x {PROBE_RUN}; the "
+        f"resume found step 4 and trained no step")
+
+
+def probe_phase(wrapper, gen, dev, smi):
+    """Phase 7: SUpstream's HuBERT-Large int8 on the card, the Trainer's
+    steps on one B=32 x 10 s batch, one step against the CPU, the step's
+    rate, then the CommonExample recipe, in a temporary directory."""
+    import tempfile
+    from pathlib import Path
+
+    from s3prl_tpu_torch.nn import SUpstream
+
+    up = SUpstream(MODELS["hubert"], extra_conf={"dtype": torch.bfloat16, "flash": True,
+                                                 "quantize": True, "seed": 0}).upstream
+    n = int(PROBE_SECS * SR)
+    labels = np.random.RandomState(0).randint(0, PROBE_CLASSES, PROBE_B).astype(np.int32)
+    batch = {"x": torch.randn(PROBE_B, n, generator=gen).to(dev),
+             "x_len": torch.full((PROBE_B,), n).to(dev), "class_id": labels}
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = check_probe_training(up, wrapper, batch, Path(tmp) / "probe")
+        check_probe_step_on_cpu(up, trainer, batch)
+        time_probe_step(up, trainer, batch, smi)
+        del trainer, up, batch
+        check_recipe(wrapper, Path(tmp) / "recipe")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2641,6 +2882,10 @@ def main():
         del inp17
         time_base_kernels(*base_kernel_calls(gen, dev))
         time_base_kernels(*base_kernel_calls(gen, dev, C=1024, F=4096, H=16, gated=False))
+    # 7. SUPERB's frozen-upstream probe training at full width: the Trainer's
+    # steps, one step against the CPU, the step's rate, a whole recipe
+    with Phase("7 probe training"):
+        probe_phase(wrapper, gen, dev, smi.splitlines()[0])
     log(json.dumps({"kernels": [entries[name] for name in wrapper]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,20 @@ entries also serve SUPERB's weighted sum without the per-layer stack:
 
     weighted, feat_lens = up.apply_weighted(layer_weights, wavs, wav_lens)  # [1, B, T', C]
 
-Models are built on the card unless ``device="cpu"`` is given.
+Models are built on the card unless ``device="cpu"`` is given. SUPERB's
+frozen-upstream probes train on the card through the packaged API and the
+JAX package's recipes (`nn`, `task`, `train`, `problem`,
+``python -m s3prl_tpu_torch.main``), the frozen forward on the kernels:
+
+    from s3prl_tpu_torch.nn import SUpstream, UpstreamDownstreamModel, UtteranceLevel
+    from s3prl_tpu_torch.task import UtteranceClassificationTask
+    from s3prl_tpu_torch.train import Trainer, TrainerConfig
+
+    up = SUpstream("hubert_large_ll60k", extra_conf={"dtype": "bf16", "flash": True,
+                                                     "quantize": True})
+    head = UtteranceLevel(up.hidden_sizes[-1], 10, (256,), "MeanPooling")
+    task = UtteranceClassificationTask(UpstreamDownstreamModel(head, up.num_layers), 10)
+    Trainer(up.upstream, task, "exp", TrainerConfig(total_steps=1000)).train(loader)
 """
 
 __version__ = "0.1.0"

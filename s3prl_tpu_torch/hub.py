@@ -13,6 +13,20 @@ opt-in fused projections ``qkv_fuse`` / ``full_fuse`` (HuBERT, wav2vec2)
 and ``wavlm_fuse`` (WavLM), the front-end options ``int8_conv`` (int8),
 ``fused_conv`` and ``fused_midln``, and the pos-conv options
 ``fused_posconv`` and ``int8_posconv``. The trunk entries' upstreams also
-serve SUPERB's fused weighted sum, ``apply_weighted``."""
+serve SUPERB's fused weighted sum, ``apply_weighted``. Every entry is also
+an attribute, as in the JAX package's hub (s3prl_tpu/hub.py:14-22):
+``hub.hubert(...) == hub.load("hubert", ...)``."""
+
+import functools
 
 from .upstream.registry import load, options  # noqa: F401
+
+
+def __getattr__(name):
+    if name.startswith("_") or name not in options():
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return functools.partial(load, name)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(options()))

@@ -1,0 +1,34 @@
+"""CLI entry: `python -m s3prl_tpu_torch.main <ProblemName> [--config ...] [--a.b v]`
+(port of s3prl_tpu/main.py; the reference's s3prl-main console script,
+s3prl/main.py:6-26): resolve the problem class from the registry and hand
+the remaining argv to its omni-config `main`. The recipes train on the
+card; a trunk entry goes in ``--build_upstream.name``, e.g.
+
+    python -m s3prl_tpu_torch.main CommonExample --target_dir exp/example \\
+        --build_upstream.name hubert_large_ll60k \\
+        --build_upstream.extra_conf "{'dtype': 'bf16', 'flash': True, 'quantize': True}"
+"""
+
+from __future__ import annotations
+
+import logging
+import sys
+
+from .problem import Problem
+
+
+def main(argv=None):
+    logging.basicConfig(
+        level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s"
+    )
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print(__doc__)
+        print("available problems:", ", ".join(sorted(Problem._registry)))
+        return
+    cls = Problem.get_class_from_name(argv[0])
+    return cls().main(argv[1:])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,14 @@
+from .heads import (  # noqa: F401
+    POOLINGS,
+    AttentiveStatisticsPooling,
+    ConvBankHead,
+    FrameConcatLinear,
+    FrameLevel,
+    FrameLevelLinear,
+    MeanPooling,
+    MeanPoolingLinear,
+    SelfAttentivePooling,
+    TemporalStatisticsPooling,
+    UtteranceLevel,
+)
+from .upstream import Featurizer, SUpstream, UpstreamDownstreamModel, init_params  # noqa: F401

@@ -1,0 +1,276 @@
+"""Downstream probe heads (port of s3prl_tpu/nn/heads.py).
+
+The SUPERB protocol's NN blocks on padded ``[B, T, H]`` features with
+``[B]`` valid lengths, masking padded frames out of every reduction:
+poolings (reference: s3prl/nn/pooling.py), FrameLevel / UtteranceLevel
+(nn/common.py), FrameLevelLinear / MeanPoolingLinear (nn/linear.py),
+FrameConcatLinear and ConvBankHead (the legacy phone probes).
+
+Flax infers a layer's input width at ``init``; here each head takes its
+input width (``input_size``, the upstream's hidden size) up front. The
+layers keep flax's names (``hidden_0``, ``pool``, ``final``, ...), so
+`upstream/convert.py` `probe_state_dict_from_jax` maps a flax params tree
+onto them key for key, and flax's numerics:
+
+- `Dense` casts its input to its weight's dtype, as flax's ``Dense(dtype=
+  None)`` promotes a bf16 input against f32 params: the heads compute in
+  f32 on the featurizer's bf16 output, while a pooling applied directly
+  to that output reduces in its dtype, as in JAX;
+- weights start from flax's ``lecun_normal`` (a normal truncated at two
+  standard deviations, variance 1 / fan_in), biases from zeros;
+- dropout keeps an element where a uniform draw from the caller's
+  ``generator`` is below 1 - p and scales it by 1 / (1 - p) (flax's
+  ``Dropout``), only in ``train()`` mode.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.masking import length_mask
+
+# flax's truncated_normal variance_scaling divides by the standard deviation
+# of a unit normal truncated to [-2, 2] (jax.nn.initializers.variance_scaling)
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator] = None):
+    """flax's ``lecun_normal()``: truncated normal, variance 1 / fan_in,
+    drawn on the CPU (from a CPU `generator`) and copied into w, so a seed
+    gives the same weights on every device."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
+    draw = nn.init.trunc_normal_(torch.empty(w.shape), 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
+    with torch.no_grad():
+        return w.copy_(draw)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense``: lecun-normal weight, zero bias, the input cast to
+    the weight's dtype."""
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        lecun_normal_(self.weight, self.in_features, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+class Conv(nn.Conv1d):
+    """flax ``nn.Conv(features, (k,), padding="SAME")`` on [B, T, C]:
+    (k - 1) // 2 frames of zeros before, the rest after; lecun-normal weight
+    (fan_in = k * in), zero bias."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int):
+        super().__init__(in_channels, out_channels, kernel_size)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        lecun_normal_(self.weight, self.weight[0].numel(), generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.kernel_size[0]
+        y = F.pad(x.to(self.weight.dtype).transpose(1, 2), ((k - 1) // 2, k // 2))
+        return F.conv1d(y, self.weight, self.bias).transpose(1, 2)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout(p)`` drawing from `generator` (on x's device)."""
+    if not training or p == 0.0:
+        return x
+    keep_prob = 1.0 - p
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)
+
+
+def _valid(xs: torch.Tensor, xs_len: torch.Tensor, dtype=torch.bool) -> torch.Tensor:
+    return length_mask(xs_len.to(xs.device), xs.shape[1], dtype)
+
+
+# ---------------------------------------------------------------------------
+# poolings (reference: s3prl/nn/pooling.py)
+# ---------------------------------------------------------------------------
+
+
+class MeanPooling(nn.Module):
+    """Masked mean over time: [B, T, H] -> [B, H], in xs's dtype."""
+
+    def __init__(self, input_size: int):
+        super().__init__()
+        self.output_size = input_size
+
+    def forward(self, xs: torch.Tensor, xs_len: torch.Tensor) -> torch.Tensor:
+        mask = _valid(xs, xs_len, xs.dtype)[..., None]
+        denom = torch.clamp(xs_len.to(xs.device, xs.dtype), min=1.0)[:, None]
+        return torch.sum(xs * mask, dim=1) / denom
+
+
+TemporalAveragePooling = MeanPooling
+
+
+class TemporalStatisticsPooling(nn.Module):
+    """Masked mean ++ std over time (x-vector stats pooling): [B,T,H]->[B,2H]."""
+
+    def __init__(self, input_size: int):
+        super().__init__()
+        self.output_size = 2 * input_size
+
+    def forward(self, xs: torch.Tensor, xs_len: torch.Tensor) -> torch.Tensor:
+        mask = _valid(xs, xs_len, xs.dtype)[..., None]
+        denom = torch.clamp(xs_len.to(xs.device, xs.dtype), min=1.0)[:, None]
+        mean = torch.sum(xs * mask, dim=1) / denom
+        sq = torch.where(mask > 0, (xs - mean[:, None]) ** 2, 0.0)
+        var = torch.sum(sq, dim=1) / denom
+        return torch.cat([mean, torch.sqrt(var + 1e-10)], dim=-1)
+
+
+class SelfAttentivePooling(nn.Module):
+    """Learned softmax attention over time: [B, T, H] -> [B, H]."""
+
+    def __init__(self, input_size: int):
+        super().__init__()
+        self.output_size = input_size
+        self.proj = Dense(input_size, input_size)
+        self.attn = Dense(input_size, 1)
+
+    def _weights(self, xs: torch.Tensor, xs_len: torch.Tensor) -> torch.Tensor:
+        scores = self.attn(torch.tanh(self.proj(xs)))[..., 0]  # [B, T]
+        scores = torch.where(_valid(xs, xs_len), scores, -1e9)
+        return torch.softmax(scores, dim=-1)
+
+    def forward(self, xs: torch.Tensor, xs_len: torch.Tensor) -> torch.Tensor:
+        w = self._weights(xs, xs_len)
+        return torch.einsum("bt,bth->bh", w, xs.to(w.dtype))
+
+
+class AttentiveStatisticsPooling(SelfAttentivePooling):
+    """Attention-weighted mean ++ std: [B, T, H] -> [B, 2H]."""
+
+    def __init__(self, input_size: int):
+        super().__init__(input_size)
+        self.output_size = 2 * input_size
+
+    def forward(self, xs: torch.Tensor, xs_len: torch.Tensor) -> torch.Tensor:
+        w = self._weights(xs, xs_len)
+        xs = xs.to(w.dtype)
+        mean = torch.einsum("bt,bth->bh", w, xs)
+        var = torch.einsum("bt,bth->bh", w, (xs - mean[:, None]) ** 2)
+        return torch.cat([mean, torch.sqrt(var + 1e-10)], dim=-1)
+
+
+POOLINGS = {
+    "MeanPooling": MeanPooling,
+    "TemporalAveragePooling": TemporalAveragePooling,
+    "TemporalStatisticsPooling": TemporalStatisticsPooling,
+    "SelfAttentivePooling": SelfAttentivePooling,
+    "AttentiveStatisticsPooling": AttentiveStatisticsPooling,
+}
+
+
+# ---------------------------------------------------------------------------
+# frame / utterance heads (reference: s3prl/nn/common.py, linear.py)
+# ---------------------------------------------------------------------------
+
+
+class _HiddenStack(nn.Module):
+    """``hidden_{i}``: Dense + ReLU layers, flax's names."""
+
+    def _add_hidden(self, input_size: int, hidden_sizes: Sequence[int]) -> int:
+        self.n_hidden = len(hidden_sizes)
+        for i, h in enumerate(hidden_sizes):
+            self.add_module(f"hidden_{i}", Dense(input_size, h))
+            input_size = h
+        return input_size
+
+    def _hidden(self, xs: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_hidden):
+            xs = F.relu(getattr(self, f"hidden_{i}")(xs))
+        return xs
+
+
+class FrameLevel(_HiddenStack):
+    """Per-frame MLP probe: hidden ReLU stack + final linear."""
+
+    def __init__(self, input_size: int, output_size: int, hidden_sizes: Sequence[int] = ()):
+        super().__init__()
+        self.final = Dense(self._add_hidden(input_size, hidden_sizes), output_size)
+
+    def forward(self, xs, xs_len, generator=None):
+        return self.final(self._hidden(xs)), xs_len
+
+
+class UtteranceLevel(_HiddenStack):
+    """MLP -> masked pooling -> linear (reference: nn/common.py UtteranceLevel)."""
+
+    def __init__(self, input_size: int, output_size: int, hidden_sizes: Sequence[int] = (256,),
+                 pooling: str = "MeanPooling"):
+        super().__init__()
+        self.pool = POOLINGS[pooling](self._add_hidden(input_size, hidden_sizes))
+        self.final = Dense(self.pool.output_size, output_size)
+
+    def forward(self, xs, xs_len, generator=None):
+        return self.final(self.pool(self._hidden(xs), xs_len))
+
+
+class FrameLevelLinear(nn.Module):
+    def __init__(self, input_size: int, output_size: int):
+        super().__init__()
+        self.linear = Dense(input_size, output_size)
+
+    def forward(self, xs, xs_len, generator=None):
+        return self.linear(xs), xs_len
+
+
+class MeanPoolingLinear(nn.Module):
+    def __init__(self, input_size: int, output_size: int):
+        super().__init__()
+        self.pool = MeanPooling(input_size)
+        self.linear = Dense(input_size, output_size)
+
+    def forward(self, xs, xs_len, generator=None):
+        return self.linear(self.pool(xs, xs_len))
+
+
+class FrameConcatLinear(nn.Module):
+    """Concat +-(n//2) neighbouring frames then linear (reference:
+    downstream/phone_linear_concat - modelrc concat_n_frames 9). The shifts
+    wrap around the utterance axis, as ``jnp.roll`` does."""
+
+    def __init__(self, input_size: int, output_size: int, concat_n_frames: int = 9):
+        super().__init__()
+        self.concat_n_frames = concat_n_frames
+        self.linear = Dense(input_size * concat_n_frames, output_size)
+
+    def forward(self, xs, xs_len, generator=None):
+        half = self.concat_n_frames // 2
+        shifted = [torch.roll(xs, shift, dims=1) for shift in range(half, -half - 1, -1)]
+        return self.linear(torch.cat(shifted, dim=-1)), xs_len
+
+
+class ConvBankHead(nn.Module):
+    """Parallel same-padding conv bank probe (reference: downstream/
+    timit_phone/model.py:14-42): linear -> relu -> dropout -> convs of each
+    kernel size -> concat -> relu -> dropout -> linear."""
+
+    def __init__(self, input_size: int, output_size: int, kernels: Sequence[int] = (3, 5, 7),
+                 cnn_size: int = 32, hidden_size: int = 64, dropout: float = 0.5):
+        super().__init__()
+        self.p = dropout
+        self.in_linear = Dense(input_size, hidden_size)
+        self.n_cnn = len(kernels)
+        for i, k in enumerate(kernels):
+            self.add_module(f"cnn_{i}", Conv(hidden_size, cnn_size, k))
+        self.out_linear = Dense(cnn_size * len(kernels), output_size)
+
+    def forward(self, xs, xs_len, generator=None):
+        h = dropout(F.relu(self.in_linear(xs)), self.p, self.training, generator)
+        feats = [getattr(self, f"cnn_{i}")(h) for i in range(self.n_cnn)]
+        h = dropout(F.relu(torch.cat(feats, dim=-1)), self.p, self.training, generator)
+        return self.out_linear(h), xs_len

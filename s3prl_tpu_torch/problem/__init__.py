@@ -1,0 +1,10 @@
+from .base import Problem  # noqa: F401
+from .common import (  # noqa: F401
+    CommonExample,
+    CommonProblem,
+    IcExample,
+    SuperbER,
+    SuperbIC,
+    SuperbKS,
+    SuperbSID,
+)

@@ -1,0 +1,6 @@
+from .base import Task  # noqa: F401
+from .utterance_classification import (  # noqa: F401
+    FrameClassificationTask,
+    UtteranceClassificationTask,
+    UtteranceMultiClassClassificationTask,
+)

@@ -39,10 +39,24 @@ def standardize_hidden_states(hidden_states: torch.Tensor, wav_lens: torch.Tenso
     return match_length_stacked(hidden_states, target), upstream_feat_lengths(wav_lens, stride)
 
 
+def train_refusal(cfg) -> None:
+    """Raises for a model whose JAX train mode drops something: the port's
+    models have no dropout or layerdrop (ROADMAP.md Queue 1 item 7)."""
+    on = {name: value for name, value in vars(cfg).items()
+          if ("dropout" in name or "layerdrop" in name) and value}
+    if on:
+        raise NotImplementedError(
+            f"train mode with {on}: the port's models have no dropout or layerdrop "
+            "(ROADMAP.md Queue 1 item 7); train with the upstream frozen")
+
+
 @dataclass
 class Upstream:
-    """A ready-to-run upstream: model + metadata. Serving only: the forward
-    runs under ``torch.inference_mode``."""
+    """A ready-to-run upstream: model + metadata. `apply_standardized`
+    serves under ``torch.inference_mode``; `standardized` runs in the
+    caller's autograd mode (``torch.no_grad`` for a frozen upstream whose
+    states a probe's backward reads: an inference tensor cannot be saved
+    for backward)."""
 
     name: str
     model: nn.Module  # (wavs [B, T], wav_lens [B]) -> (hs [L, B, T', H], feat_lens [B])
@@ -65,10 +79,36 @@ class Upstream:
             wavs = wavs[..., 0]
         return wavs, torch.as_tensor(wav_lens, device=dev).long()
 
+    @property
+    def hidden_sizes(self):
+        return [self.hidden_size] * self.num_layers
+
+    @property
+    def downsample_rates(self):
+        return [self.downsample_rate] * self.num_layers
+
     @torch.inference_mode()
     def apply_standardized(self, wavs, wav_lens):
         """wavs [B, T] (or [B, T, 1]) padded 16 kHz, wav_lens [B] -> (hs
         [L, B, T_expected, H], h_lens [B]) on the model's device."""
+        return self.standardized(wavs, wav_lens)
+
+    def __call__(self, wavs, wav_lens, train: bool = False):
+        """The standardized forward under a probe (the JAX Upstream's
+        ``__call__(wavs, wav_lens, train)``). Frozen (``train=False``): the
+        model in ``eval()`` under ``torch.no_grad()``, so the kernels serve it
+        and a probe's backward can save its states. ``train=True``: the model
+        in ``train()`` with autograd, on the stock paths; it raises where the
+        JAX train mode would apply what the port's model lacks (`train_refusal`)."""
+        if train:
+            train_refusal(self.model.cfg)
+        if self.model.training != train:
+            self.model.train(train)
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            return self.standardized(wavs, wav_lens)
+
+    def standardized(self, wavs, wav_lens):
+        """`apply_standardized` in the caller's autograd mode."""
         wavs, wav_lens = self._inputs(wavs, wav_lens)
         original_max = wavs.shape[1]
         min_samples = int(MIN_SECOND * SAMPLE_RATE)

@@ -8,6 +8,9 @@ the keys the JAX loader reads and returns (config, state_dict) in the keys
 the port's models load (`trunk_state_dict_from_torch`,
 `wavlm_state_dict_from_torch`). Nothing is downloaded.
 
+`probe_state_dict_from_jax(params)` maps a probe's flax params (featurizer
+and head) onto the port's `UpstreamDownstreamModel`.
+
 `trunk_state_dict_from_jax(params, cfg)` takes the param tree of
 s3prl_tpu.models.wav2vec2.Wav2Vec2Trunk (numpy or jax arrays; a variables
 dict with a "params" entry also works) and returns the fairseq-keyed
@@ -365,3 +368,28 @@ def load_wavlm_checkpoint(path) -> Tuple[WavLMConfig, Dict[str, torch.Tensor]]:
     ckpt = _torch_load(path)
     cfg = wavlm_config_from_cfg(ckpt.get("cfg", {}))
     return cfg, wavlm_state_dict_from_torch(ckpt["model"], cfg)
+
+
+def probe_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The flax params tree of s3prl_tpu.nn.upstream.UpstreamDownstreamModel
+    (numpy or jax arrays; a variables dict with a "params" entry also works)
+    -> the state_dict of s3prl_tpu_torch.nn.upstream.UpstreamDownstreamModel,
+    whose layers keep flax's names: Dense ``kernel [in, out]`` -> ``weight
+    [out, in]``, Conv ``kernel [k, in, out]`` -> ``weight [out, in, k]``,
+    ``bias`` and the featurizer's ``weights`` as they are."""
+    params = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix):
+        for name, value in tree.items():
+            key = f"{prefix}{name}"
+            if isinstance(value, dict):
+                walk(value, f"{key}.")
+            elif name == "kernel":
+                kernel = np.asarray(value)
+                sd[f"{prefix}weight"] = _tensor(kernel.T) if kernel.ndim == 2 else _conv(kernel)
+            else:
+                sd[key] = _tensor(value)
+
+    walk(params, "")
+    return sd

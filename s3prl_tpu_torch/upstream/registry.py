@@ -56,6 +56,9 @@ from .base import TrunkUpstream, Upstream
 from .convert import load_trunk_checkpoint, load_wavlm_checkpoint
 
 _REGISTRY: Dict[str, Callable[..., Upstream]] = {}
+# the JAX registry's parameter-free front ends (registry.py:83-90), e.g. the
+# recipes' default "fbank": not ported
+BASELINES = ("fbank", "fbank_no_cmvn", "mfcc", "spectrogram", "mel", "linear")
 
 
 def register(name: str):
@@ -98,6 +101,10 @@ def load(name: str, **kwargs) -> Upstream:
     bare state_dict keeps the entry's). Every check above runs on that
     configuration before the model is allocated. ``download=True`` raises
     NotImplementedError: the port downloads nothing."""
+    if name in BASELINES:
+        raise NotImplementedError(
+            f"'{name}': the baseline front ends (models/baseline.py with ops/audio.py) are "
+            "not ported (ROADMAP.md Queue 1 item 8): load a trunk entry")
     if name not in _REGISTRY:
         raise KeyError(f"unknown upstream '{name}'; available: {options()}")
     if kwargs.pop("download", False) and kwargs.get("ckpt") is None:

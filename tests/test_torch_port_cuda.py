@@ -26,6 +26,8 @@ version's exactly (the same f32 values, an IEEE division), both the
 quantizer's and the ones K16b's conv kernel quantizes into its windows.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -1909,3 +1911,64 @@ def test_post_ln_forms_at_c1024(dev, kernel):
         want = fused_qkv_attention_outproj(*_on_cpu(qkv, x, wo, bo, kv), H)
     torch.cuda.synchronize()
     _close_bf16(got, want)
+
+
+# -- frozen-upstream probe training on the card ----------------------------------------
+
+
+def _probe_trainer(up, exp_dir):
+    """An UtteranceLevel probe over `up` with the trainer's Adam (lr 1e-3)."""
+    from s3prl_tpu_torch.nn import UpstreamDownstreamModel, UtteranceLevel
+    from s3prl_tpu_torch.task import UtteranceClassificationTask
+    from s3prl_tpu_torch.train import Trainer, TrainerConfig
+
+    task = UtteranceClassificationTask(
+        UpstreamDownstreamModel(UtteranceLevel(128, 4, (16,)), up.num_layers), 4)
+    trainer = Trainer(up, task, exp_dir, TrainerConfig(
+        total_steps=4, tensorboard=False, optimizer={"name": "Adam", "lr": 1e-3}))
+    trainer.init()
+    return trainer
+
+
+def _update_cosines(before, after_a, after_b):
+    """Per parameter, the cosine between two runs' updates from `before`."""
+    out = {}
+    for k, p0 in before.items():
+        a = (after_a[k].cpu() - p0.cpu()).double().flatten()
+        b = (after_b[k].cpu() - p0.cpu()).double().flatten()
+        out[k] = float(a @ b / (a.norm() * b.norm()))
+    return out
+
+
+def test_probe_training_on_the_card(dev, tmp_path):
+    """The int8 tiny trunk under the trainer: every step launches K3 once
+    and K1 and K2 once a layer with the upstream in eval(), the loss
+    finite. Then one probe step from the card's states on the card and,
+    from the same probe and optimizer state, on the CPU: loss and gradient
+    norm at rtol 1e-3, each parameter's update at cosine > 0.999 (the f32
+    head sums in other orders; Adam's update m / sqrt(v) can flip sign only
+    where a gradient is near zero)."""
+    cpu, gpu = _tiny_trunk_pair(torch.bfloat16, True, dev, quantize=True)
+    wavs, lens = _tiny_batch()
+    batch = {"x": wavs.to(dev), "x_len": lens.to(dev),
+             "class_id": np.array([0, 3, 1], np.int32)}
+    card = _probe_trainer(gpu, tmp_path / "card")
+    for _ in range(3):
+        for w in wrappers():
+            w.launches = 0
+        loss, _, _ = card.train_step(batch)
+        torch.cuda.synchronize()
+        assert [w.launches for w in wrappers()] == [1, 2, 2] + [0] * (len(wrappers()) - 3)
+        assert not gpu.model.training and card.task.module.training and torch.isfinite(loss)
+    hs, h_lens = gpu(batch["x"], batch["x_len"])
+    assert hs.dtype == torch.bfloat16 and not hs.requires_grad
+    host = _probe_trainer(cpu, tmp_path / "cpu")
+    host.task.module.load_state_dict(card.task.module.state_dict())
+    host.optimizer.load_state_dict(copy.deepcopy(card.optimizer.state_dict()))
+    before = {k: v.clone() for k, v in card.task.module.state_dict().items()}
+    loss_card, _, norm_card = card.probe_step(hs, h_lens, batch)
+    loss_cpu, _, norm_cpu = host.probe_step(hs.cpu(), h_lens.cpu(), batch)
+    np.testing.assert_allclose(float(loss_card), float(loss_cpu), rtol=1e-3)
+    np.testing.assert_allclose(float(norm_card), float(norm_cpu), rtol=1e-3)
+    coss = _update_cosines(before, card.task.module.state_dict(), host.task.module.state_dict())
+    assert min(coss.values()) > 0.999, coss

@@ -268,6 +268,12 @@ def test_port_never_imports_jax():
         "import s3prl_tpu_torch.kernels, s3prl_tpu_torch.models.transformer\n"
         "import s3prl_tpu_torch.models.wavlm, s3prl_tpu_torch.kernels.ln_gelu\n"
         "import s3prl_tpu_torch.kernels.posconv\n"
+        "import s3prl_tpu_torch.main, s3prl_tpu_torch.problem, s3prl_tpu_torch.train\n"
+        "import s3prl_tpu_torch.nn, s3prl_tpu_torch.task, s3prl_tpu_torch.data.loader\n"
+        "import s3prl_tpu_torch.data.dataset, s3prl_tpu_torch.util.pseudo_data\n"
+        "import s3prl_tpu_torch.data.corpus.voxceleb1, s3prl_tpu_torch.data.corpus.iemocap\n"
+        "import s3prl_tpu_torch.data.corpus.speech_commands\n"
+        "import s3prl_tpu_torch.data.corpus.fluent_commands\n"
         "assert len(s3prl_tpu_torch.kernels.wrappers()) == 19\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 's3prl_tpu')]\n"
