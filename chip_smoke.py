@@ -238,7 +238,37 @@ line is printed; each phase prints its seconds):
     build_upstream hubert_large_ll60k int8 at full depth through
     Problem.run, all four stages in a temporary directory (result.yaml,
     step_2, step_4 and valid_best, the launches of its 7 forwards) and an
-    auto-resume of stage 2 that finds step 4 and trains no step.
+    auto-resume of stage 2 that finds step 4 and trains no step;
+ 8. SUPERB ASR on the card, through the port's entry points: the same
+    SUpstream under UpstreamDownstreamModel(RNNEncoder(31, hidden 1024, 2
+    layers, proj 1024, dropout 0.2)), Speech2TextCTCTask and the Trainer
+    (Adam 1e-4, clip 1.0) on one B=32 batch of lengths drawn from 5-10 s
+    with random letter-and-space transcripts at 12 characters a second: 6
+    train steps, each launching K3 once and K1 and K2 24 times (every
+    other count 0), the upstream in eval(), the loss finite and falling;
+    one probe step from the card's states of 4 utterances on the card and
+    on the CPU (the same probe weights and Adam state, dropout off on both:
+    their generators differ): loss and gradient norm at rtol 1e-3, each
+    parameter's update at cosine > 0.999, bias_ih still zero; the CTC loss
+    and its logit gradient on [4, 499, 31] on the card against the CPU with
+    a row whose 5 frames cannot emit its 20 tokens and a row with no frame
+    (optax's ~1e5): values at rtol 1e-5, each row's gradient within 8 f32
+    steps at its loss's magnitude and at cosine > 0.9999; the
+    train step and the frozen forward alone timed as in phase 7 with the
+    audio-s/s, the peak device memory and the card's name and power limit,
+    each LSTM layer's forward and backward alone, then under torch.profiler
+    (the idle share, the kernels beyond the forward's grouped as cuDNN's
+    RNN cells, CTC, GEMMs and other); Trainer.evaluate
+    on the batch (WER, CER) and BeamDecoder(beam 20) on 4 utterances'
+    log-probs moved to the host (ids of the vocabulary; a peaked posterior
+    decodes to its text); then SuperbASR through Problem.run, all four
+    stages, on a LibriSpeech-shaped tree of FLAC files written by the
+    port's write_flac (train-clean-100 8, dev-clean 2, test-clean 2
+    utterances of 2-4 s) with hubert_large_ll60k int8 and the recipe's
+    full-width downstream, 4 steps (result.yaml with the WER, step_2,
+    step_4 and valid_best, the launches of its 7 forwards), and inference
+    on one FLAC file, which prints its transcription (one forward's
+    launches).
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2469,6 +2499,371 @@ def probe_phase(wrapper, gen, dev, smi):
         check_recipe(wrapper, Path(tmp) / "recipe")
 
 
+
+# the CTC phase: SUPERB ASR's probe (superb_asr.py:184-252's downstream and
+# optimizer) on one fixed batch with lengths drawn from 5-10 s
+ASR_B, ASR_SECS, ASR_STEPS, ASR_LR, ASR_ITERS = 32, (5.0, 10.0), 6, 1e-4, 9
+ASR_CHARS_PER_SEC = 12  # random letters and spaces, about read speech's rate
+ASR_ALPHABET = "abcdefghijklmnopqrstuvwxyz '"  # LibriSpeech's characters: 31 tokens
+ASR_CPU_B = 4  # the card-vs-CPU step's utterances (the BLSTM's f32 step on the CPU)
+ASR_COS = 0.999
+
+
+def asr_task(up, tok, dropout=0.2):
+    """SuperbASR's probe: featurizer -> RNNEncoder(hidden 1024, 2 layers,
+    proj 1024) -> CTC over the characters."""
+    from s3prl_tpu_torch.nn import RNNEncoder, UpstreamDownstreamModel
+    from s3prl_tpu_torch.task import Speech2TextCTCTask
+
+    head = RNNEncoder(up.hidden_size, tok.vocab_size, 1024, 2, proj_size=1024, dropout=dropout)
+    return Speech2TextCTCTask(UpstreamDownstreamModel(head, up.num_layers), tok)
+
+
+def asr_batch(gen, dev, tok, B=ASR_B, seed=0):
+    """B utterances of lengths drawn from 5-10 s, transcripts of random
+    words at ASR_CHARS_PER_SEC, collated as the recipe collates them."""
+    from s3prl_tpu_torch.data.collate import pad_collate
+
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(int(ASR_SECS[0] * SR), int(ASR_SECS[1] * SR) + 1, B)
+    items = []
+    for b, n in enumerate(lens):
+        words, chars = [], int(ASR_CHARS_PER_SEC * n / SR)
+        while sum(len(w) + 1 for w in words) < chars:
+            words.append("".join(rng.choice(list(ASR_ALPHABET[:26]), rng.randint(2, 8))))
+        text = " ".join(words)[:chars].strip()
+        items.append({"class_ids": np.asarray(tok.encode(text), np.int32), "labels": text,
+                      "unique_name": f"asr_{b}"})
+    x = torch.randn(B, int(lens.max()), generator=gen) * (torch.arange(int(lens.max()))[None]
+                                                          < torch.from_numpy(lens)[:, None])
+    return {"x": x.to(dev), "x_len": torch.from_numpy(lens).to(dev), **pad_collate(items)}
+
+
+def sub_batch(batch, n):
+    return {k: v[:n] for k, v in batch.items()}
+
+
+def check_asr_training(up, wrapper, batch, exp_dir, tok):
+    """ASR_STEPS train steps of the Trainer (Adam 1e-4, clip 1.0) on one
+    batch: each step's launches (PROBE_RUN, every other count 0, the counts
+    set to 0 just before the step and read just after it), the upstream in
+    eval() and the probe in train(), the loss finite and falling."""
+    from s3prl_tpu_torch.train import Trainer, TrainerConfig
+
+    trainer = Trainer(up, asr_task(up, tok), exp_dir, TrainerConfig(
+        total_steps=1000, tensorboard=False, gradient_clipping=1.0,
+        optimizer={"name": "Adam", "lr": ASR_LR}))
+    trainer.init(resume=False)
+    losses = []
+    for _ in range(ASR_STEPS):
+        for w in wrapper.values():
+            w.launches = 0
+        loss, _, grad_norm = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        launches = {name: w.launches for name, w in wrapper.items()}
+        check(launches == {name: PROBE_RUN.get(name, 0) for name in wrapper},
+              f"asr train step launches {launches}")
+        check(not up.model.training and trainer.task.module.training,
+              "the upstream left eval() or the probe left train()")
+        losses.append(float(loss))
+        check(np.isfinite(losses[-1]) and np.isfinite(float(grad_norm)), f"loss {losses}")
+    frames = int(((batch["x_len"] - 1) // 320 + 1).sum())
+    log(f"[asr] hubert int8 B={ASR_B} x {ASR_SECS[0]:.0f}-{ASR_SECS[1]:.0f} s ({frames} valid "
+        f"frames), RNNEncoder(1024, 2 layers, proj 1024, dropout 0.2) -> CTC over "
+        f"{tok.vocab_size} tokens, Trainer + Adam {ASR_LR}: launches a step {PROBE_RUN} (every "
+        f"other count 0), upstream in eval(); losses over {ASR_STEPS} steps on one batch "
+        + " ".join(f"{v:.4f}" for v in losses))
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    return trainer
+
+
+def check_asr_step_on_cpu(up, trainer, batch, tok):
+    """One probe step from the card's states of ASR_CPU_B utterances, on
+    the card and on the CPU from the same probe weights and Adam state,
+    dropout off on both (their generators differ): loss and gradient norm
+    at rtol 1e-3, each parameter's update at cosine > ASR_COS."""
+    import copy
+
+    from s3prl_tpu_torch.train.optimizers import global_norm
+
+    sub = sub_batch(batch, ASR_CPU_B)
+    hs, h_lens = up(sub["x"], sub["x_len"])
+    task_cpu = asr_task(up, tok, dropout=0.0)
+    task_cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                     trainer.task.module.state_dict().items()})
+    opt_cpu = probe_optimizer(task_cpu.module.parameters())
+    opt_cpu.load_state_dict(copy.deepcopy(trainer.optimizer.state_dict()))
+    before = {k: v.detach().cpu().clone() for k, v in trainer.task.module.state_dict().items()}
+    head = trainer.task.module.downstream
+    dropout, head.p = head.p, 0.0
+    try:
+        loss_card, _, norm_card = trainer.probe_step(hs, h_lens, sub)
+    finally:
+        head.p = dropout
+    t0 = time.perf_counter()
+    loss_cpu, _ = task_cpu.loss_and_cache(hs.cpu(), h_lens.cpu(), sub, None, True)
+    loss_cpu.backward()
+    loss_cpu = loss_cpu.detach()
+    norm_cpu = global_norm([p.grad for p in opt_cpu.params])
+    opt_cpu.step()
+    seconds = time.perf_counter() - t0
+    after_card, after_cpu = trainer.task.module.state_dict(), task_cpu.module.state_dict()
+    coss = {}
+    for k, p0 in before.items():
+        a = (after_card[k].cpu() - p0).double().flatten()
+        b = (after_cpu[k] - p0).double().flatten()
+        if a.norm() == 0 and b.norm() == 0:  # bias_ih: held at zero
+            continue
+        coss[k] = float(a @ b / (a.norm() * b.norm()))
+    rel = (abs(float(loss_card) / float(loss_cpu) - 1),
+           abs(float(norm_card) / float(norm_cpu) - 1))
+    log(f"[asr] one step from the card's states [{', '.join(map(str, hs.shape))}] {hs.dtype}, "
+        f"card vs CPU ({seconds:.1f} s on the CPU): loss {float(loss_card):.6f} / "
+        f"{float(loss_cpu):.6f}, grad norm {float(norm_card):.6f} / {float(norm_cpu):.6f} "
+        f"(rel {rel[0]:.2e}, {rel[1]:.2e}), update cosines min {min(coss.values()):.6f}: "
+        + " ".join(f"{k.replace('downstream.', '')} {c:.6f}" for k, c in coss.items()))
+    check(max(rel) < 1e-3 and min(coss.values()) > ASR_COS, "asr step card vs CPU")
+    check(all(not v.any() for k, v in after_card.items() if ".bias_ih_" in k),
+          "bias_ih left zero")
+
+
+def check_ctc_edges(gen, dev, tok):
+    """The CTC loss and its logit gradient on the card against the CPU on
+    [4, 499, V] logits: a feasible row, one with repeats, one whose 5 frames
+    cannot emit its 20 tokens and one with no frame (optax's ~1e5 for the
+    last two): values at rtol 1e-5; each row's gradient within 8 f32 steps
+    at its loss's magnitude (the gradient is exp(log-probability sums of
+    that magnitude minus the loss), so one rounding step there is a
+    relative error of one step: 1.2e-4 at a loss of 1,800, 7.8e-3 at 1e5)
+    and at cosine > 0.9999."""
+    from s3prl_tpu_torch.ops.ctc import ctc_loss
+
+    V = tok.vocab_size
+    logits = torch.randn(4, 499, V, generator=gen) * 2
+    rng = np.random.RandomState(1)
+    labels = rng.randint(3, V, (4, 60))
+    labels[1, :6] = [5, 5, 5, 7, 7, 5]
+    label_lens = np.asarray([60, 40, 20, 10])
+    frame_lens = torch.tensor([499, 300, 5, 0])
+    out = {}
+    for where in ("cpu", dev):
+        z = logits.to(where, copy=True).requires_grad_()
+        per_seq = ctc_loss(z, frame_lens, labels, label_lens)
+        per_seq.sum().backward()
+        out[str(where)] = per_seq.detach().cpu().double(), z.grad.cpu().double()
+    (v_card, g_card), (v_cpu, g_cpu) = out["cuda"], out["cpu"]
+    rel = float(((v_card - v_cpu).abs() / v_cpu.abs()).max())
+    err = (g_card - g_cpu).abs().flatten(1).max(1).values
+    step = torch.exp2(torch.floor(torch.log2(v_cpu.abs())) - 23)
+    cos = [float(a @ b / (a.norm() * b.norm())) if b.norm() > 0 else float(a.norm() == 0)
+           for a, b in zip(g_card.flatten(1), g_cpu.flatten(1))]
+    log(f"[asr] CTC on the card vs the CPU, rows (frames, tokens) (499, 60) (300, 40 with "
+        f"repeats) (5, 20) (0, 10): card {v_card.tolist()}, CPU {v_cpu.tolist()} (rel "
+        f"{rel:.2e}); logit gradient max abs error by row {[f'{e:.2e}' for e in err.tolist()]} "
+        f"(bounds {[f'{8 * s:.2e}' for s in step.tolist()]}), cosines "
+        f"{[f'{c:.7f}' for c in cos]}")
+    check(rel < 1e-5 and bool((err <= 8 * step).all()) and min(cos) > 0.9999
+          and float(v_card[2]) > 9e4 and float(v_card[3]) > 9e4
+          and bool(torch.isfinite(g_card).all()), "CTC loss card vs CPU")
+
+
+def time_asr_step(up, trainer, batch, smi):
+    """The ASR train step and the frozen forward alone by phase 7's
+    protocol (chains of ASR_ITERS // 3 and ASR_ITERS, marginal, best of 3,
+    CUDA events), each with its peak device memory; then both under the
+    profiler: the device's idle share and the kernels the step runs beyond
+    the forward's."""
+    lo, hi = max(ASR_ITERS // 3, 1), ASR_ITERS
+    fns = {"train step": lambda: trainer.train_step(batch),
+           "frozen forward alone": lambda: up(batch["x"], batch["x_len"])}
+    best = {(what, n): float("inf") for what in fns for n in (lo, hi)}
+    for _ in range(3):
+        for what, fn in fns.items():
+            for n in (lo, hi):
+                best[what, n] = min(best[what, n], n * cuda_ms(fn, n))
+    audio = float(batch["x_len"].sum()) / SR
+    out = {}
+    for what, fn in fns.items():
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        per = (best[what, hi] - best[what, lo]) / (hi - lo)
+        out[what] = per
+        log(f"[timing] asr {what} hubert int8 B={ASR_B} x {ASR_SECS[0]:.0f}-{ASR_SECS[1]:.0f} s "
+            f"({audio:.1f} s of audio, padded to {batch['x'].shape[1] / SR:.2f} s): {per:.2f} "
+            f"ms/step, {audio / (per / 1e3):.1f} audio-s/s (chains {lo}: {best[what, lo]:.1f} "
+            f"ms, {hi}: {best[what, hi]:.1f} ms), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    log(f"[timing] asr step beyond the frozen forward: "
+        f"{out['train step'] - out['frozen forward alone']:.2f} ms "
+        f"({100 * (1 - out['frozen forward alone'] / out['train step']):.1f}% of the step)")
+    head = trainer.task.module.downstream
+    lens = ((batch["x_len"] - 1) // 320 + 1).cpu()
+    x = torch.randn(ASR_B, int(lens.max()), 1024, device=batch["x"].device, requires_grad=True)
+    for i in range(2):  # each LSTM layer's forward and backward alone on its input's shape
+        lstm = getattr(head, f"lstm_{i}")
+        ms = min(cuda_ms(lambda: lstm(x, lens).sum().backward(), 3) for _ in range(3))
+        log(f"[timing] asr lstm_{i} (both directions) forward + backward alone on [{ASR_B}, "
+            f"{x.shape[1]}, 1024]: {ms:.2f} ms ({100 * ms / out['train step']:.1f}% of the step)")
+    trainer.task.module.zero_grad(set_to_none=True)
+    prof = {what: profile_calls(fn) for what, fn in fns.items()}
+    step_k, fwd_k = prof["train step"][1], prof["frozen forward alone"][1]
+    extra = {name: ms - fwd_k.get(name, 0.0) for name, ms in step_k.items()}
+    groups = {"cuDNN RNN cells": ("rnn", "lstm", "RNN", "LSTM", "elemWise", "ersist"),
+              "CTC": ("ctc",), "GEMM (cuDNN's recurrence and cuBLAS)": ("gemm", "Kernel2")}
+    shares = dict.fromkeys([*groups, "other"], 0.0)
+    for name, ms in extra.items():
+        shares[next((g for g, keys in groups.items() if any(k in name for k in keys)),
+                    "other")] += ms
+    top = sorted(extra.items(), key=lambda kv: -kv[1])[:12]
+    # cuDNN runs the two directions on streams of their own: kernel time
+    # summed over streams can exceed the step's time, so this idle share is
+    # a lower bound
+    log(f"[profile] asr hubert int8 B={ASR_B}: device idle share train step "
+        f"{prof['train step'][0]:.3f}, frozen forward alone {prof['frozen forward alone'][0]:.3f};"
+        f" kernel time a step {sum(step_k.values()):.2f} ms, forward {sum(fwd_k.values()):.2f} "
+        f"ms, beyond it {sum(extra.values()):.2f} ms (by name: "
+        + ", ".join(f"{g} {ms:.2f} ms" for g, ms in shares.items())
+        + "); the step's kernels beyond the forward's (ms a step): "
+        + "; ".join(f"{name[:80]} {ms:.3f}" for name, ms in top))
+
+
+def check_asr_decoding(up, trainer, batch, tok):
+    """Trainer.evaluate on the batch (greedy CTC: WER, CER); then
+    BeamDecoder(beam 20) on 4 utterances' log-probs moved to the host: ids
+    of the vocabulary; and a peaked posterior decodes to its text."""
+    from s3prl_tpu_torch.nn import BeamDecoder
+
+    t0 = time.perf_counter()
+    logs = trainer.evaluate([batch], mode="asr-check")
+    check(set(logs) == {"loss", "wer", "cer"} and all(np.isfinite(v) for v in logs.values())
+          and logs["wer"] >= 0 and logs["cer"] >= 0, f"evaluate {logs}")
+    seconds = time.perf_counter() - t0
+    module = trainer.task.module.eval()
+    sub = sub_batch(batch, 4)
+    with torch.no_grad():
+        hs, h_lens = up(sub["x"], sub["x_len"])
+        logits, lens = module(hs, h_lens.cpu())
+    log_probs = torch.log_softmax(logits.float(), -1).cpu().numpy()
+    decoder = BeamDecoder(tok, beam_size=20)
+    t1 = time.perf_counter()
+    hyps = [decoder.decode_ids(log_probs[b], int(lens[b])) for b in range(4)]
+    beam_s = time.perf_counter() - t1
+    check(all(all(0 < i < tok.vocab_size for i in h) for h in hyps), f"beam ids {hyps}")
+    text = "HELLO WORLD"
+    ids = [i for c in tok.encode(text) for i in (c, c, 0)]
+    peaked = np.full((len(ids), tok.vocab_size), -20.0, np.float32)
+    peaked[np.arange(len(ids)), ids] = -0.01
+    check(decoder.decode(peaked) == text, f"peaked posterior -> {decoder.decode(peaked)!r}")
+    log(f"[asr] Trainer.evaluate on the batch ({seconds:.1f} s): {logs}; BeamDecoder(beam 20) "
+        f"on 4 utterances' log-probs ({beam_s * 1e3:.0f} ms on the host, frames "
+        f"{[int(n) for n in lens]}): {[len(h) for h in hyps]} tokens, first "
+        f"{tok.decode(hyps[0])[:40]!r}; a peaked posterior decodes to {text!r}")
+    module.train()
+
+
+def librispeech_flac_tree(root, gen):
+    """LibriSpeech-shaped: train-clean-100 8, dev-clean 2 and test-clean 2
+    utterances of 2-4 s as 16-bit FLAC (the port's write_flac), with their
+    .trans.txt."""
+    from s3prl_tpu_torch.data.flac import write_flac
+
+    rng = np.random.RandomState(2)
+    for split, n in (("train-clean-100", 8), ("dev-clean", 2), ("test-clean", 2)):
+        d = root / split / "1089" / "134686"
+        d.mkdir(parents=True)
+        lines = []
+        for i in range(n):
+            uid = f"1089-134686-{i:04d}"
+            secs = float(rng.uniform(2.0, 4.0))
+            pcm = (torch.randn(int(secs * SR), generator=gen) * 3000).round().to(torch.int32)
+            write_flac(d / f"{uid}.flac", pcm.numpy(), SR)
+            words = ["".join(rng.choice(list(ASR_ALPHABET[:26]), rng.randint(2, 8)))
+                     for _ in range(int(secs * 2.5))]
+            lines.append(f"{uid} {' '.join(words).upper()}")
+        (d / "1089-134686.trans.txt").write_text("\n".join(lines) + "\n")
+    return root
+
+
+def check_asr_recipe(wrapper, exp_dir, gen):
+    """SuperbASR through Problem.run, all four stages, on a LibriSpeech
+    tree of FLAC files with build_upstream hubert_large_ll60k int8 at full
+    depth and the recipe's full-width downstream (4 steps of batch 32,
+    valid every 2): result.yaml with the WER, step_2, step_4 and
+    valid_best, the launches of its 7 forwards; then inference on one FLAC
+    file, which prints its transcription."""
+    import yaml
+
+    from s3prl_tpu_torch.problem import SuperbASR
+
+    corpus = librispeech_flac_tree(exp_dir / "LibriSpeech", gen)
+    problem = SuperbASR()
+    config = problem.default_config()
+    config.pop("target_dir")
+    config["prepare_data"] = {"librispeech": str(corpus)}
+    config["build_upstream"] = {"name": "hubert_large_ll60k", "extra_conf": {
+        "dtype": "bf16", "flash": True, "quantize": True, "seed": 0}}
+    config["train"].update(total_steps=4, log_step=2, eval_step=2, save_step=2, tensorboard=False)
+    work = exp_dir / "superb_asr"
+    t0 = time.perf_counter()
+    for w in wrapper.values():
+        w.launches = 0
+    problem.run(str(work), **config)
+    launches = {name: w.launches for name, w in wrapper.items()}
+    forwards = 4 + 2 + 1  # train steps, two valid passes of one batch, one test batch
+    check(launches == {name: forwards * PROBE_RUN.get(name, 0) for name in wrapper},
+          f"recipe launches {launches}")
+    result = yaml.safe_load((work / "result.yaml").read_text())
+    check(set(result) == {"test"} and set(result["test"]) == {"loss", "wer", "cer"}
+          and np.isfinite(result["test"]["loss"]) and result["test"]["wer"] >= 0,
+          f"result.yaml {result}")
+    train_dir = work / "train"
+    steps = sorted(d.name for d in train_dir.glob("step_*"))
+    check(steps == ["step_2", "step_4"] and (train_dir / "valid_best").exists(),
+          f"checkpoints {steps}")
+    seconds = time.perf_counter() - t0
+    wav = next((corpus / "test-clean").rglob("*.flac"))
+    for w in wrapper.values():
+        w.launches = 0
+    t1 = time.perf_counter()
+    text = problem.inference(work, config, str(wav))
+    launches = {name: w.launches for name, w in wrapper.items()}
+    check(isinstance(text, str) and launches == {name: PROBE_RUN.get(name, 0) for name in wrapper}
+          and (work / "inference.txt").read_text() == f"{wav.stem} {text}\n",
+          f"inference {text!r} launches {launches}")
+    log(f"[recipe] SuperbASR on a FLAC LibriSpeech tree (8 / 2 / 2 utterances of 2-4 s) with "
+        f"hubert_large_ll60k int8 (24 layers) and RNNEncoder(1024, 2, 1024): all four stages "
+        f"in {seconds:.1f} s: result.yaml {result}, checkpoints {steps} + valid_best, launches "
+        f"{forwards} forwards x {PROBE_RUN}; inference on {wav.name} in "
+        f"{time.perf_counter() - t1:.1f} s (one forward): {text!r}")
+
+
+def asr_phase(wrapper, gen, dev, smi):
+    """Phase 8: SUPERB ASR on the card: the BLSTM-CTC probe over
+    SUpstream's HuBERT-Large int8 on one B=32 x 5-10 s batch (training,
+    a step against the CPU, the CTC edge rows, timing, decoding), then the
+    SuperbASR recipe on FLAC files with inference, in a temporary
+    directory."""
+    import tempfile
+    from pathlib import Path
+
+    from s3prl_tpu_torch.data.encoder import CharacterTokenizer
+    from s3prl_tpu_torch.nn import SUpstream
+
+    tok = CharacterTokenizer.from_text([ASR_ALPHABET])
+    check(tok.vocab_size == 31, f"vocab {tok.vocab_size}")
+    up = SUpstream(MODELS["hubert"], extra_conf={"dtype": torch.bfloat16, "flash": True,
+                                                 "quantize": True, "seed": 0}).upstream
+    batch = asr_batch(gen, dev, tok)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = check_asr_training(up, wrapper, batch, Path(tmp) / "asr", tok)
+        check_asr_step_on_cpu(up, trainer, batch, tok)
+        check_ctc_edges(gen, dev, tok)
+        time_asr_step(up, trainer, batch, smi)
+        check_asr_decoding(up, trainer, batch, tok)
+        del trainer, up, batch
+        check_asr_recipe(wrapper, Path(tmp), gen)
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2886,6 +3281,10 @@ def main():
     # steps, one step against the CPU, the step's rate, a whole recipe
     with Phase("7 probe training"):
         probe_phase(wrapper, gen, dev, smi.splitlines()[0])
+    # 8. SUPERB ASR: the BLSTM-CTC probe's steps, one against the CPU, the
+    # CTC edge rows, the step's rate, decoding, the SuperbASR recipe on FLAC
+    with Phase("8 asr"):
+        asr_phase(wrapper, gen, dev, smi.splitlines()[0])
     log(json.dumps({"kernels": [entries[name] for name in wrapper]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

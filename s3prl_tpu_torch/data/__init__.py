@@ -1,8 +1,19 @@
 """Host-side data pipeline (copies of s3prl_tpu/data/: CSV datasets, label
-encoders, batch samplers, bucketed collation) and the prefetching loader
-that yields numpy batches."""
+encoders and tokenizers, batch samplers, bucketed collation, WAV and FLAC
+loading) and the prefetching loader that yields numpy batches."""
 
 from .audio import load_wav  # noqa: F401
+from .bpe import SubwordTokenizer, train_bpe  # noqa: F401
 from .collate import Buckets, pad_collate  # noqa: F401
-from .encoder import CategoryEncoder, CategoryEncoders  # noqa: F401
+from .encoder import (  # noqa: F401
+    CategoryEncoder,
+    CategoryEncoders,
+    CharacterSlotTokenizer,
+    CharacterTokenizer,
+    PhonemeTokenizer,
+    Tokenizer,
+    WordTokenizer,
+    load_tokenizer,
+)
+from .flac import flac_info, load_flac, write_flac  # noqa: F401
 from .sampler import BalancedWeightedSampler, FixedBatchSizeBatchSampler  # noqa: F401

@@ -1,16 +1,23 @@
-"""Audio file loading (a copy of s3prl_tpu/data/audio.py for PCM WAV).
+"""Audio file loading (a copy of s3prl_tpu/data/audio.py).
 
-PCM WAV via the stdlib `wave` module + numpy, optional resampling via
-scipy.signal.resample_poly. FLAC (the JAX package's native decoder,
-data/flac.py over native/flac_decode.cc) is not ported: a FLAC file raises.
+The reference loads audio through torchaudio's sox/soundfile C++ backends
+(s3prl/dataio/dataset/load_audio.py:13). Here: PCM WAV via the stdlib `wave`
+module + numpy (zero-copy frombuffer); FLAC via the first-party C++ decoder
+(native/flac_decode.cc, bound in data/flac.py), so LibriSpeech/VoxCeleb load
+without preconversion; optional resampling via scipy.signal.resample_poly
+(polyphase, matches torchaudio's `resample` kaiser-window quality closely).
 """
 
 from __future__ import annotations
 
 import wave
+from math import gcd
 from typing import Optional, Tuple
 
 import numpy as np
+from scipy.signal import resample_poly
+
+from .flac import flac_info, load_flac
 
 
 def _is_flac(path) -> bool:
@@ -26,11 +33,25 @@ def _is_flac(path) -> bool:
         return False
 
 
-def _refuse_flac(path) -> None:
-    if _is_flac(path):
-        raise NotImplementedError(
-            f"{path}: FLAC decoding (data/flac.py, native/flac_decode.cc) is not ported "
-            "(ROADMAP.md Queue 1 item 11): convert the corpus to PCM WAV")
+def _load_flac_mono(path, start_sec, end_sec) -> Tuple[np.ndarray, int]:
+    samples, sr, bps = load_flac(path)
+    wav = samples.astype(np.float32) / float(1 << (bps - 1))
+    if wav.shape[1] > 1:
+        wav = wav.mean(axis=1)
+    else:
+        wav = wav[:, 0]
+    start = int((start_sec or 0.0) * sr)
+    end = len(wav) if end_sec is None else int(end_sec * sr)
+    return wav[start:end], sr
+
+
+def _resample(wav: np.ndarray, sr: int, target_sample_rate: Optional[int]
+              ) -> Tuple[np.ndarray, int]:
+    if not target_sample_rate or target_sample_rate == sr:
+        return wav, sr
+    g = gcd(target_sample_rate, sr)
+    return resample_poly(wav, target_sample_rate // g, sr // g).astype(np.float32), \
+        target_sample_rate
 
 
 def load_wav(
@@ -39,8 +60,9 @@ def load_wav(
     start_sec: Optional[float] = None,
     end_sec: Optional[float] = None,
 ) -> Tuple[np.ndarray, int]:
-    """Load a PCM wav -> (mono float32 in [-1, 1], sample_rate)."""
-    _refuse_flac(path)
+    """Load a PCM wav or FLAC -> (mono float32 in [-1, 1], sample_rate)."""
+    if _is_flac(path):
+        return _resample(*_load_flac_mono(path, start_sec, end_sec), target_sample_rate)
     with wave.open(str(path), "rb") as f:
         sr = f.getframerate()
         n_channels = f.getnchannels()
@@ -59,18 +81,12 @@ def load_wav(
         raise ValueError(f"unsupported sample width {width} in {path}")
     if n_channels > 1:
         wav = wav.reshape(-1, n_channels).mean(axis=1)
-    if target_sample_rate and target_sample_rate != sr:
-        from scipy.signal import resample_poly
-        from math import gcd
-
-        g = gcd(target_sample_rate, sr)
-        wav = resample_poly(wav, target_sample_rate // g, sr // g).astype(np.float32)
-        sr = target_sample_rate
-    return wav, sr
+    return _resample(wav, sr, target_sample_rate)
 
 
 def audio_info(path) -> dict:
-    _refuse_flac(path)
+    if _is_flac(path):
+        return flac_info(path)
     with wave.open(str(path), "rb") as f:
         return dict(
             sample_rate=f.getframerate(),

@@ -1,6 +1,6 @@
-"""CSV-driven datasets (a copy of s3prl_tpu/data/dataset.py:27-82: the
-classification datasets; the text and frame-label datasets go with their
-slices).
+"""CSV-driven datasets (a copy of s3prl_tpu/data/dataset.py: the
+classification datasets, :27-82, and the CTC recipes' text datasets,
+:87-103 and :121-139; the diarization dataset goes with its slice).
 
 Behavioral spec from the reference's s3prl/dataio/dataset/: map-style
 datasets over prepare_data CSVs — LoadAudio (load_audio.py:13: decode +
@@ -21,7 +21,7 @@ import numpy as np
 import pandas as pd
 
 from .audio import load_wav
-from .encoder import CategoryEncoder, CategoryEncoders
+from .encoder import CategoryEncoder, CategoryEncoders, Tokenizer
 
 SAMPLE_RATE = 16000
 
@@ -82,5 +82,44 @@ class UtteranceMultiClassDataset(_CsvDataset):
             "x": self._load_wav(row),
             "class_ids": np.asarray(self.encoders.encode(labels), np.int32),
             "labels": labels,
+            "unique_name": str(row["id"]),
+        }
+
+
+class Speech2TextDataset(_CsvDataset):
+    def __init__(self, csv_path, tokenizer: Tokenizer, text_column: str = "transcription", sample_rate: int = SAMPLE_RATE):
+        super().__init__(csv_path, sample_rate)
+        self.tokenizer = tokenizer
+        self.text_column = text_column
+
+    def __getitem__(self, i: int) -> dict:
+        row = self.df.iloc[i]
+        text = str(row[self.text_column])
+        ids = np.asarray(self.tokenizer.encode(text), np.int32)
+        return {
+            "x": self._load_wav(row),
+            "class_ids": ids,
+            "labels": text,
+            "unique_name": str(row["id"]),
+        }
+
+
+class SlotFillingDataset(_CsvDataset):
+    """IOB-tagged transcripts for SF (reference: superb_sf data pipeline)."""
+
+    def __init__(self, csv_path, tokenizer, sample_rate: int = SAMPLE_RATE):
+        super().__init__(csv_path, sample_rate)
+        self.tokenizer = tokenizer
+
+    def __getitem__(self, i: int) -> dict:
+        row = self.df.iloc[i]
+        sent, iob = str(row["transcription"]), str(row["iob"])
+        ids = np.asarray(self.tokenizer.encode_iob(sent, iob), np.int32)
+        # host-side reference text in slot markup for metric computation
+        ref = self.tokenizer.decode(ids.tolist())
+        return {
+            "x": self._load_wav(row),
+            "class_ids": ids,
+            "labels": ref,
             "unique_name": str(row["id"]),
         }

@@ -7,6 +7,11 @@ card; a trunk entry goes in ``--build_upstream.name``, e.g.
     python -m s3prl_tpu_torch.main CommonExample --target_dir exp/example \\
         --build_upstream.name hubert_large_ll60k \\
         --build_upstream.extra_conf "{'dtype': 'bf16', 'flash': True, 'quantize': True}"
+
+The CTC recipes (SuperbASR, SuperbPR, SuperbSF, AsrExample) run the same
+way, e.g. ``SuperbASR --prepare_data.librispeech /data/LibriSpeech``
+(FLAC is read natively); a trained workspace transcribes one file with
+``SuperbASR().inference(target_dir, config, "utt.flac")``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,11 @@
-"""Classification metrics (port of s3prl_tpu/metric/common.py:20-24, copied:
-the port imports nothing of the JAX package). The reference's metric
-module: s3prl/metric/common.py:48-158."""
+"""Common evaluation metrics (a copy of s3prl_tpu/metric/common.py:20-66:
+accuracy and the edit-distance error rates; EER and minDCF go with the
+speaker-verification slice).
+
+Behavioral spec from the reference's metric module (s3prl/metric/common.py:
+48-158). Edit distance is implemented here directly (numpy DP) instead of
+binding the `editdistance` C package.
+"""
 
 from __future__ import annotations
 
@@ -14,3 +19,48 @@ def accuracy(xs: Sequence, ys: Sequence, item_same_fn=None) -> float:
         (item_same_fn(x, y) if item_same_fn else x == y) for x, y in zip(xs, ys)
     ]
     return float(np.mean([bool(s) for s in same])) if same else 0.0
+
+
+def edit_distance(hyp: Sequence, ref: Sequence) -> int:
+    """Levenshtein distance over arbitrary token sequences (numpy DP)."""
+    m, n = len(hyp), len(ref)
+    if m == 0:
+        return n
+    if n == 0:
+        return m
+    prev = np.arange(n + 1)
+    cur = np.empty(n + 1, dtype=np.int64)
+    for i in range(1, m + 1):
+        cur[0] = i
+        h = hyp[i - 1]
+        for j in range(1, n + 1):
+            cur[j] = min(
+                prev[j] + 1,  # deletion
+                cur[j - 1] + 1,  # insertion
+                prev[j - 1] + (h != ref[j - 1]),  # substitution
+            )
+        prev, cur = cur, prev
+    return int(prev[n])
+
+
+def _er(hyps: Sequence[Sequence], refs: Sequence[Sequence]) -> float:
+    """Corpus-level error rate: sum(dist) / sum(ref_len) (reference semantics)."""
+    dist = sum(edit_distance(h, r) for h, r in zip(hyps, refs))
+    total = sum(len(r) for r in refs)
+    return dist / max(total, 1)
+
+
+def ter(hyps: Sequence[Sequence], refs: Sequence[Sequence]) -> float:
+    return _er(hyps, refs)
+
+
+def wer(hyps: Sequence[str], refs: Sequence[str]) -> float:
+    return _er([h.split() for h in hyps], [r.split() for r in refs])
+
+
+def per(hyps: Sequence[str], refs: Sequence[str]) -> float:
+    return wer(hyps, refs)
+
+
+def cer(hyps: Sequence[str], refs: Sequence[str]) -> float:
+    return _er([list(h) for h in hyps], [list(r) for r in refs])

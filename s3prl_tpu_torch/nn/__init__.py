@@ -7,8 +7,10 @@ from .heads import (  # noqa: F401
     FrameLevelLinear,
     MeanPooling,
     MeanPoolingLinear,
+    RNNEncoder,
     SelfAttentivePooling,
     TemporalStatisticsPooling,
     UtteranceLevel,
 )
 from .upstream import Featurizer, SUpstream, UpstreamDownstreamModel, init_params  # noqa: F401
+from .beam_decoder import BeamDecoder  # noqa: F401

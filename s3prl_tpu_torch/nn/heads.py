@@ -4,7 +4,9 @@ The SUPERB protocol's NN blocks on padded ``[B, T, H]`` features with
 ``[B]`` valid lengths, masking padded frames out of every reduction:
 poolings (reference: s3prl/nn/pooling.py), FrameLevel / UtteranceLevel
 (nn/common.py), FrameLevelLinear / MeanPoolingLinear (nn/linear.py),
-FrameConcatLinear and ConvBankHead (the legacy phone probes).
+FrameConcatLinear and ConvBankHead (the legacy phone probes), and the CTC
+recipes' RNNEncoder (nn/rnn.py): cuDNN's bidirectional LSTM on packed
+sequences.
 
 Flax infers a layer's input width at ``init``; here each head takes its
 input width (``input_size``, the upstream's hidden size) up front. The
@@ -25,12 +27,14 @@ onto them key for key, and flax's numerics:
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 from ..ops.masking import length_mask
 
@@ -274,3 +278,135 @@ class ConvBankHead(nn.Module):
         feats = [getattr(self, f"cnn_{i}")(h) for i in range(self.n_cnn)]
         h = dropout(F.relu(torch.cat(feats, dim=-1)), self.p, self.training, generator)
         return self.out_linear(h), xs_len
+
+
+# ---------------------------------------------------------------------------
+# RNN encoder for CTC ASR (reference: s3prl/nn/rnn.py RNNEncoder; SUPERB ASR
+# uses a bidirectional LSTM stack + linear over the CTC vocab)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def ieee_cudnn():
+    """cuDNN in full f32 (TF32 off) inside the block, whatever the global
+    ``torch.backends.cudnn.allow_tf32`` says (True by default)."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+class _IeeeCudnn(torch.autograd.Function):
+    """``run(x)`` with cuDNN's TF32 off in its forward and its backward.
+    cuDNN reads the TF32 switch when each pass builds its RNN descriptor,
+    so the forward builds its own graph (on the module's parameters, handed
+    in as `params`) and the backward differentiates it under the switch."""
+
+    @staticmethod
+    def forward(ctx, run, x, *params):
+        with torch.enable_grad(), ieee_cudnn():
+            leaf = x.detach().requires_grad_(x.requires_grad)
+            out = run(leaf)
+        ctx.graph = (leaf, params, out)
+        return out.detach()
+
+    @staticmethod
+    def backward(ctx, grad):
+        leaf, params, out = ctx.graph
+        del ctx.graph
+        wanted = ([leaf] if leaf.requires_grad else []) + list(params)
+        with ieee_cudnn():
+            grads = list(torch.autograd.grad(out, wanted, grad, allow_unused=True))
+        return (None, grads.pop(0) if leaf.requires_grad else None, *grads)
+
+
+class LSTM(nn.LSTM):
+    """One layer of flax's ``nn.RNN(nn.OptimizedLSTMCell(H), seq_lengths=...)``
+    (both directions when `bidirectional`, the backward one over each
+    utterance's valid frames) as cuDNN's LSTM over a packed sequence, in f32
+    with TF32 off.
+
+    flax's cell has one bias a gate (on its hidden kernels); torch's has
+    two, so ``bias_ih`` is held at zero: it requires no grad and so takes
+    no gradient and no optimizer update (`train.Optimizer` takes the
+    parameters that require grad). Valid frames depend on valid inputs only,
+    as in flax; padded frames are zeros (flax's carry on over them). A row
+    of 0 frames, which ``pack_padded_sequence`` refuses and flax runs, is
+    packed with one frame whose output is zeroed."""
+
+    def __init__(self, input_size: int, hidden_size: int, bidirectional: bool = True):
+        super().__init__(input_size, hidden_size, batch_first=True, bidirectional=bidirectional)
+        for name in self._flat_weights_names:
+            if name.startswith("bias_ih"):
+                getattr(self, name).requires_grad_(False)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """flax's cell init: lecun-normal input kernels, an orthogonal
+        recurrent kernel for each gate's [H, H] (drawn on the CPU from a CPU
+        `generator`), zero biases."""
+        H = self.hidden_size
+        with torch.no_grad():
+            for name in self._flat_weights_names:
+                w = getattr(self, name)
+                if name.startswith("weight_ih"):
+                    lecun_normal_(w, self.input_size, generator)
+                elif name.startswith("weight_hh"):
+                    for g in range(4):
+                        w[g * H:(g + 1) * H].copy_(
+                            nn.init.orthogonal_(torch.empty(H, H), generator=generator))
+                else:
+                    w.zero_()
+
+    def forward(self, xs: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+        """xs [B, T, C], lens [B] on the host -> [B, T, H x directions] f32."""
+        xs = xs.to(self.weight_ih_l0.dtype)
+        T = xs.shape[1]
+        packed_lens = lens.clamp(min=1).to(torch.int64)
+
+        def run(x):
+            packed = pack_padded_sequence(x, packed_lens, batch_first=True, enforce_sorted=False)
+            out, _ = super(LSTM, self).forward(packed)
+            return pad_packed_sequence(out, batch_first=True, total_length=T)[0]
+
+        params = [w for w in self._flat_weights if w.requires_grad]
+        if torch.is_grad_enabled() and (xs.requires_grad or params):
+            out = _IeeeCudnn.apply(run, xs, *params)
+        else:
+            with ieee_cudnn():
+                out = run(xs)
+        if bool((lens == 0).any()):
+            out = out * (lens > 0).to(out.device, out.dtype)[:, None, None]
+        return out
+
+
+class RNNEncoder(nn.Module):
+    """flax's RNNEncoder (s3prl_tpu/nn/heads.py:142-168): per layer an LSTM
+    (`LSTM`, both directions concatenated), ``proj_{i}`` and dropout, then
+    ``final`` over the vocab; returns (logits f32 [B, T, V], xs_len). The
+    layers keep flax's order, which `probe_state_dict_from_jax` maps
+    (``OptimizedLSTMCell_{k}``: layer k // 2, direction k % 2).
+
+    `xs_len` should be a host tensor: ``pack_padded_sequence`` takes its
+    lengths on the host, so a device tensor costs a sync here (the CTC
+    task hands the module host lengths)."""
+
+    def __init__(self, input_size: int, output_size: int, hidden_size: int = 1024,
+                 num_layers: int = 2, bidirectional: bool = True, dropout: float = 0.2,
+                 proj_size: int = 1024):
+        super().__init__()
+        self.num_layers, self.p = num_layers, dropout
+        for i in range(num_layers):
+            self.add_module(f"lstm_{i}", LSTM(input_size if i == 0 else proj_size, hidden_size,
+                                              bidirectional))
+            self.add_module(f"proj_{i}", Dense(hidden_size * (2 if bidirectional else 1),
+                                               proj_size))
+        self.final = Dense(proj_size, output_size)
+
+    def forward(self, xs, xs_len, generator=None):
+        lens = xs_len.cpu()
+        for i in range(self.num_layers):
+            xs = getattr(self, f"proj_{i}")(getattr(self, f"lstm_{i}")(xs, lens))
+            xs = dropout(xs, self.p, self.training, generator)
+        return self.final(xs), xs_len

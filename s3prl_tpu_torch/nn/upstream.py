@@ -26,7 +26,7 @@ import torch.nn as nn
 
 from ..upstream.base import Upstream
 from ..upstream.registry import load as hub_load
-from .heads import Conv, Dense
+from .heads import LSTM, Conv, Dense
 
 _DTYPES = {"float32": torch.float32, "f32": torch.float32,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
@@ -136,9 +136,11 @@ class UpstreamDownstreamModel(nn.Module):
 def init_params(module: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
     """flax's initialisation of a probe, drawn from `generator` in module
     order: every `Dense` and `Conv` lecun-normal with a zero bias, every
-    featurizer's weights zero."""
+    `LSTM` as flax's cell (lecun-normal input kernels, an orthogonal
+    recurrent kernel a gate, zero biases), every featurizer's weights
+    zero."""
     for m in module.modules():
-        if isinstance(m, (Dense, Conv)):
+        if isinstance(m, (Dense, Conv, LSTM)):
             m.reset_parameters(generator)
         elif isinstance(m, Featurizer) and m.weights is not None:
             nn.init.zeros_(m.weights)

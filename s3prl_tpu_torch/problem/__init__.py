@@ -8,3 +8,4 @@ from .common import (  # noqa: F401
     SuperbKS,
     SuperbSID,
 )
+from .asr import AsrExample, SuperbASR, SuperbPR, SuperbSF  # noqa: F401

@@ -70,6 +70,16 @@ class Problem:
         return results
 
     # ------------------------------------------------------------------
+    def inference(self, workspace: Path, config: dict, wav_path: str):
+        """Single-file prediction against the trained checkpoint (the legacy
+        `-m inference` mode, s3prl/downstream/runner.py:506-524). Problems
+        that support it implement it (`CommonProblem.inference`).
+        """
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement single-file inference"
+        )
+
+    # ------------------------------------------------------------------
     def main(self, argv: Optional[List[str]] = None):
         argv = list(sys.argv[1:] if argv is None else argv)
         config = self.default_config()

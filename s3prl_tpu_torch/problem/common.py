@@ -12,8 +12,9 @@ The recipes' default upstream is the JAX package's ``fbank``, which is not
 ported (ROADMAP.md Queue 1 item 8): it raises at load, so a run names a
 trunk entry in ``build_upstream``, e.g. ``{"name": "hubert_large_ll60k",
 "extra_conf": {"dtype": "bf16", "flash": True, "quantize": True}}``
-(``extra_conf`` also takes ``device="cpu"``). Single-file inference (the
-legacy ``-m inference``) is not ported.
+(``extra_conf`` also takes ``device="cpu"``). `CommonProblem.inference`
+predicts one WAV or FLAC file with the trained probe (the legacy ``-m
+inference``).
 """
 
 from __future__ import annotations
@@ -23,10 +24,13 @@ import logging
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import pandas as pd
+import torch
 import yaml
 
 from .base import Problem
+from ..data.audio import load_wav
 from ..data.collate import Buckets, pad_collate
 from ..data.dataset import UtteranceClassificationDataset, UtteranceMultiClassDataset
 from ..data.encoder import CategoryEncoder, CategoryEncoders
@@ -122,6 +126,39 @@ class CommonProblem(Problem):
         valid_loader = self._loader(workspace, "valid.csv", encoder, "valid", config)
         trainer.train(train_loader, valid_loader)
         return trainer
+
+    # ---- single-file inference (legacy -m inference, runner.py:506-524) ------
+    def inference(self, workspace: Path, config: dict, wav_path: str):
+        """Predicts one WAV or FLAC file with the trained probe (valid_best,
+        else the newest step) on the frozen upstream; prints ``<name>
+        <prediction>`` and appends it to the workspace's inference.txt."""
+        workspace = Path(workspace)
+        encoder = self.load_encoder(workspace)
+        upstream = self.build_upstream(**config.get("build_upstream", {}))
+        task = self.build_task(upstream, encoder, config)
+        best = workspace / "train" / "valid_best"
+        load_dir = best if best.exists() else ckpt.latest_checkpoint(workspace / "train")
+        if load_dir is None:
+            raise FileNotFoundError(f"no checkpoint under {workspace / 'train'}")
+        up = upstream.upstream
+        module = task.module.to(up.device).eval()
+        module.load_state_dict(ckpt.load_checkpoint(load_dir, up.device)[0])
+        wav, _sr = load_wav(wav_path, target_sample_rate=16000)
+        x = torch.from_numpy(np.asarray(wav, np.float32).reshape(1, -1)).to(up.device)
+        with torch.no_grad():
+            hs, h_lens = up(x, torch.tensor([x.shape[1]], device=up.device))
+            logits = module(hs, h_lens)
+        if isinstance(logits, tuple):  # frame-level heads return (logits, lens)
+            logits = logits[0]
+        pred = self._decode_prediction(encoder, logits.float().cpu().numpy())
+        name = Path(wav_path).stem
+        print(f"{name} {pred}")
+        with open(workspace / "inference.txt", "a") as f:
+            f.write(f"{name} {pred}\n")
+        return pred
+
+    def _decode_prediction(self, encoder, logits) -> str:
+        return encoder.decode(int(np.argmax(logits[0])))
 
     # ---- stage 3 -------------------------------------------------------------
     def evaluate_stage(self, workspace: Path, config: dict):

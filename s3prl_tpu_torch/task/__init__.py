@@ -4,3 +4,4 @@ from .utterance_classification import (  # noqa: F401
     UtteranceClassificationTask,
     UtteranceMultiClassClassificationTask,
 )
+from .speech2text_ctc import SlotFillingCTCTask, Speech2TextCTCTask  # noqa: F401

@@ -370,20 +370,46 @@ def load_wavlm_checkpoint(path) -> Tuple[WavLMConfig, Dict[str, torch.Tensor]]:
     return cfg, wavlm_state_dict_from_torch(ckpt["model"], cfg)
 
 
+_LSTM_CELL = "OptimizedLSTMCell_"
+_GATES = ("i", "f", "g", "o")  # flax's and torch's gate order
+
+
+def _lstm_cell(sd, base: str, suffix: str, cell: Dict[str, Any]) -> None:
+    """flax OptimizedLSTMCell params -> the weights ``{base}*_l0{suffix}``
+    of a torch LSTM: input kernels ``i{gate}`` [in, H] (no bias)
+    -> ``weight_ih`` [4H, in]; hidden kernels ``h{gate}`` [H, H] with their
+    biases -> ``weight_hh`` [4H, H] and ``bias_hh``; ``bias_ih`` zero."""
+    cat = lambda key: np.concatenate([np.asarray(cell[f"{key}{g}"]["kernel"]) for g in _GATES], 1)
+    sd[f"{base}weight_ih_l0{suffix}"] = _tensor(cat("i").T)
+    sd[f"{base}weight_hh_l0{suffix}"] = _tensor(cat("h").T)
+    bias = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in _GATES])
+    sd[f"{base}bias_ih_l0{suffix}"] = _tensor(np.zeros_like(bias))
+    sd[f"{base}bias_hh_l0{suffix}"] = _tensor(bias)
+
+
 def probe_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The flax params tree of s3prl_tpu.nn.upstream.UpstreamDownstreamModel
     (numpy or jax arrays; a variables dict with a "params" entry also works)
     -> the state_dict of s3prl_tpu_torch.nn.upstream.UpstreamDownstreamModel,
     whose layers keep flax's names: Dense ``kernel [in, out]`` -> ``weight
     [out, in]``, Conv ``kernel [k, in, out]`` -> ``weight [out, in, k]``,
-    ``bias`` and the featurizer's ``weights`` as they are."""
+    ``bias`` and the featurizer's ``weights`` as they are. RNNEncoder's
+    cells ``OptimizedLSTMCell_{k}`` (flax names them in creation order:
+    layer 0 forward, layer 0 backward, layer 1 forward, ...; one a layer
+    when unidirectional) -> ``lstm_{layer}`` (`_lstm_cell`)."""
     params = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(tree, prefix):
+        cells = sum(n.startswith(_LSTM_CELL) for n in tree)
+        directions = cells // max(sum(n.startswith("proj_") for n in tree), 1)
         for name, value in tree.items():
             key = f"{prefix}{name}"
-            if isinstance(value, dict):
+            if name.startswith(_LSTM_CELL):
+                k = int(name[len(_LSTM_CELL):])
+                suffix = "_reverse" if directions == 2 and k % 2 else ""
+                _lstm_cell(sd, f"{prefix}lstm_{k // directions}.", suffix, value)
+            elif isinstance(value, dict):
                 walk(value, f"{key}.")
             elif name == "kernel":
                 kernel = np.asarray(value)

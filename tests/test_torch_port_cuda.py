@@ -1972,3 +1972,97 @@ def test_probe_training_on_the_card(dev, tmp_path):
     np.testing.assert_allclose(float(norm_card), float(norm_cpu), rtol=1e-3)
     coss = _update_cosines(before, card.task.module.state_dict(), host.task.module.state_dict())
     assert min(coss.values()) > 0.999, coss
+
+
+# -- the CTC probe on the card -----------------------------------------------------
+
+
+def _ctc_trainer(up, exp_dir, tokenizer):
+    """A BLSTM-CTC probe over `up` (RNNEncoder(hidden 32, 2 layers, proj
+    32)) with the trainer's Adam (lr 1e-3)."""
+    from s3prl_tpu_torch.nn import RNNEncoder, UpstreamDownstreamModel
+    from s3prl_tpu_torch.task import Speech2TextCTCTask
+    from s3prl_tpu_torch.train import Trainer, TrainerConfig
+
+    task = Speech2TextCTCTask(UpstreamDownstreamModel(
+        RNNEncoder(128, tokenizer.vocab_size, 32, 2, proj_size=32, dropout=0.0),
+        up.num_layers), tokenizer)
+    trainer = Trainer(up, task, exp_dir, TrainerConfig(
+        total_steps=4, tensorboard=False, optimizer={"name": "Adam", "lr": 1e-3}))
+    trainer.init()
+    return trainer
+
+
+def test_asr_training_on_the_card(dev, tmp_path):
+    """The int8 tiny trunk under a BLSTM-CTC probe: every step launches K3
+    once and K1 and K2 once a layer with the upstream in eval(), the loss
+    finite (the 1-sample row has no frame: optax's 1e5). One probe step
+    from the card's states on the card and on the CPU: loss and gradient
+    norm at rtol 1e-3, each parameter's update at cosine > 0.999. Then the
+    LSTM with cuDNN's TF32 switched on globally against the CPU at atol 1e-4
+    (it runs with TF32 off: TF32 would be 1e-3 off), forward and backward,
+    and the CTC loss with an infeasible row on the card against the CPU:
+    values at rtol 1e-5, the logit gradient at atol 1e-5."""
+    from s3prl_tpu_torch.data.collate import pad_collate
+    from s3prl_tpu_torch.data.encoder import CharacterTokenizer
+    from s3prl_tpu_torch.nn import RNNEncoder
+    from s3prl_tpu_torch.ops.ctc import ctc_loss
+
+    tok = CharacterTokenizer.from_text(["ab ba", "cab"])
+    cpu, gpu = _tiny_trunk_pair(torch.bfloat16, True, dev, quantize=True)
+    wavs, lens = _tiny_batch()
+    items = [{"class_ids": np.asarray(tok.encode(t), np.int32), "labels": t}
+             for t in ("ab ba", "cab", "a")]
+    batch = {"x": wavs.to(dev), "x_len": lens.to(dev), **pad_collate(items)}
+    card = _ctc_trainer(gpu, tmp_path / "card", tok)
+    for _ in range(3):
+        for w in wrappers():
+            w.launches = 0
+        loss, _, _ = card.train_step(batch)
+        torch.cuda.synchronize()
+        assert [w.launches for w in wrappers()] == [1, 2, 2] + [0] * (len(wrappers()) - 3)
+        assert not gpu.model.training and card.task.module.training and torch.isfinite(loss)
+    hs, h_lens = gpu(batch["x"], batch["x_len"])
+    host = _ctc_trainer(cpu, tmp_path / "cpu", tok)
+    host.task.module.load_state_dict(card.task.module.state_dict())
+    host.optimizer.load_state_dict(copy.deepcopy(card.optimizer.state_dict()))
+    before = {k: v.clone() for k, v in card.task.module.state_dict().items()}
+    loss_card, _, norm_card = card.probe_step(hs, h_lens, batch)
+    loss_cpu, _, norm_cpu = host.probe_step(hs.cpu(), h_lens.cpu(), batch)
+    np.testing.assert_allclose(float(loss_card), float(loss_cpu), rtol=1e-3)
+    np.testing.assert_allclose(float(norm_card), float(norm_cpu), rtol=1e-3)
+    coss = _update_cosines(before, card.task.module.state_dict(), host.task.module.state_dict())
+    assert min(coss.values()) > 0.999, coss
+
+    rng = np.random.RandomState(8)
+    x = rng.randn(4, 50, 128).astype(np.float32)
+    x_lens = torch.tensor([50, 31, 1, 0])
+    enc = RNNEncoder(128, 9, 256, 2, proj_size=256, dropout=0.0)
+    grads = {}
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for where in ("cpu", dev):
+            model = copy.deepcopy(enc).to(where).train()
+            xs = torch.from_numpy(x).to(where).requires_grad_()
+            out, _ = model(xs, x_lens)
+            (out * torch.linspace(-1, 1, 9, device=where)).sum().backward()
+            grads[str(where)] = [out.detach().cpu(), xs.grad.cpu()] + [
+                p.grad.cpu() for p in model.parameters() if p.requires_grad]
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0)
+
+    logits = rng.randn(3, 12, tok.vocab_size).astype(np.float32) * 2
+    labels, label_lens = np.asarray([[3, 4, 5], [4, 4, 0], [3, 5, 6]]), np.asarray([3, 2, 3])
+    frame_lens = torch.tensor([12, 3, 2])  # feasible, feasible (a repeat), infeasible
+    out = {}
+    for where in ("cpu", dev):
+        z = torch.from_numpy(logits).to(where).requires_grad_()
+        per_seq = ctc_loss(z, frame_lens, labels, label_lens)
+        per_seq.sum().backward()
+        out[str(where)] = per_seq.detach().cpu().numpy(), z.grad.cpu().numpy()
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], atol=1e-5, rtol=0)
+    assert out["cuda"][0][2] > 9e4 and np.isfinite(out["cuda"][1]).all()

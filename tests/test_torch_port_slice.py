@@ -274,6 +274,10 @@ def test_port_never_imports_jax():
         "import s3prl_tpu_torch.data.corpus.voxceleb1, s3prl_tpu_torch.data.corpus.iemocap\n"
         "import s3prl_tpu_torch.data.corpus.speech_commands\n"
         "import s3prl_tpu_torch.data.corpus.fluent_commands\n"
+        "import s3prl_tpu_torch.data.corpus.librispeech, s3prl_tpu_torch.data.corpus.snips\n"
+        "import s3prl_tpu_torch.data.flac, s3prl_tpu_torch.data.bpe, s3prl_tpu_torch.native\n"
+        "import s3prl_tpu_torch.nn.beam_decoder, s3prl_tpu_torch.ops.ctc, s3prl_tpu_torch.metric\n"
+        "import s3prl_tpu_torch.problem.asr, s3prl_tpu_torch.task.speech2text_ctc\n"
         "assert len(s3prl_tpu_torch.kernels.wrappers()) == 19\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 's3prl_tpu')]\n"
