@@ -269,6 +269,34 @@ line is printed; each phase prints its seconds):
     step_4 and valid_best, the launches of its 7 forwards), and inference
     on one FLAC file, which prints its transcription (one forward's
     launches).
+ 9. SUPERB's speaker tasks on the card over the same SUpstream: ASV
+    (SuperbXvector(512, 512, 1500) -> AM-softmax over 1,211 speakers,
+    AdamW 1e-4, clip 1e3, accumulation 5; B=10 of 4-10 s from a seed, 10
+    micro-steps), GE2E (SapSpeakerHead(256) -> the GE2E loss, AdamW 4e-4;
+    B=100 = 10 speakers x 10 crops of 5 s, 4 steps) and SD
+    (SuperbDiarizationModel(2, 512, 1 layer) -> PIT BCE, Adam 1e-4, clip
+    1, accumulation 4; B=8 chunks of 20 s with two overlapping speakers
+    rasterised by rasterize_labels, rows 1 and 5 with the speakers
+    swapped; 8 micro-steps): the ASV and GE2E steps launch K3 once and K1
+    and K2 24 times, the SD step (999 frames) K3 once and K6 and K2 24
+    times and K1 never (every other count 0), the upstream in eval(), the
+    loss finite and lower after the updates, SD's permutations not all
+    alike; one update of each probe from the card's states on the card
+    and on the CPU (the same weights and optimizer state): loss and
+    gradient norm at rtol 1e-3, each parameter's update at cosine > 0.999
+    (am_weight and ge2e_w included; SAP's attention bias and ge2e_b, whose
+    gradient is zero but for rounding, within 2 lr), SD's permutation a
+    row the same; each step and the frozen forward alone timed as in
+    phase 7 with audio-s/s, the peak device memory and the card's name and
+    power limit, then under torch.profiler (the idle share and the
+    kernels beyond the forward's: the TDNN convs, cuDNN's LSTM, GEMMs);
+    then SuperbASV through Problem.run on a VoxCeleb1 tree whose test
+    split holds a 45-s utterance (its test batch launches K8;
+    bucket_max 45 s), Voxceleb2AMSoftmaxSegment's four stages with its
+    evaluation on 8-s windows at a 4-s stride of a 20-s utterance, and
+    SuperbSD on a Kaldi tree of 40-s recordings (two 20-s chunks each):
+    result.yaml (EER and minDCF in [0, 1]; the DER), rttm/hyp.rttm and
+    each run's launches.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2864,6 +2892,401 @@ def asr_phase(wrapper, gen, dev, smi):
         del trainer, up, batch
         check_asr_recipe(wrapper, Path(tmp), gen)
 
+
+# the speaker phase: SUPERB ASV (superb_asv.py:134-151: SuperbXvector(512,
+# 512, 1500), AM-softmax over VoxCeleb1's 1,211 dev speakers, AdamW 1e-4,
+# clip 1e3, accumulation 5), the GE2E recipe's batch (10 speakers x 10
+# utterances of 5 s, SAP(256), AdamW 4e-4) and SUPERB SD (superb_sd.py:
+# 67-90: 20-s chunks, one LSTM layer of 512, PIT, Adam 1e-4, clip 1,
+# accumulation 4)
+SPK_ITERS, SPK_COS, SPK_CPU_B = 9, 0.999, 4
+SD_RUN = {"conv0_ln_gelu": 1, "fused_qkv_attention_outproj": 24, "fused_int8_ffn": 24}
+K8_RUN = {"conv0_ln_gelu": 1, "online_flash_attention": 24, "fused_int8_ffn": 24}
+# task -> (batch B, seconds (a range or one), micro-steps run, optimizer, clip,
+# accumulation, launches a step)
+SPEAKER = {
+    "asv": (10, (4.0, 10.0), 10, {"name": "AdamW", "lr": 1e-4}, 1000.0, 5, PROBE_RUN),
+    "ge2e": (100, (5.0, 5.0), 4, {"name": "AdamW", "lr": 4e-4}, 1000.0, 1, PROBE_RUN),
+    "sd": (8, (20.0, 20.0), 8, {"name": "Adam", "lr": 1e-4}, 1.0, 4, SD_RUN),
+}
+ASV_SPEAKERS, GE2E_M, SD_FRAMES = 1211, 10, 2000  # 2,000 label frames of 160 samples
+
+
+def speaker_task(name, up):
+    """The recipes' probes at full width over `up`'s states."""
+    from s3prl_tpu_torch.nn import (SapSpeakerHead, SuperbDiarizationModel, SuperbXvector,
+                                    UpstreamDownstreamModel)
+    from s3prl_tpu_torch.task import (DiarizationPITTask, Ge2eVerificationTask,
+                                      SpeakerVerificationTask)
+
+    if name == "asv":
+        return SpeakerVerificationTask(UpstreamDownstreamModel(
+            SuperbXvector(up.hidden_size, 512, 512, 1500), up.num_layers), ASV_SPEAKERS)
+    if name == "ge2e":
+        return Ge2eVerificationTask(UpstreamDownstreamModel(
+            SapSpeakerHead(up.hidden_size, 256), up.num_layers), GE2E_M)
+    return DiarizationPITTask(UpstreamDownstreamModel(
+        SuperbDiarizationModel(up.hidden_size, 2, 512, 1), up.num_layers))
+
+
+def sd_labels(B, rng):
+    """Two speakers' overlapping segments over a 20-s chunk rasterised by
+    rasterize_labels (2,000 frames): A from 0 to 7-10 s and again from 14
+    s, B from 6-9 s to 16 s; rows 1 and 5 list the speakers the other way
+    round, so their PIT permutation is the other one."""
+    from s3prl_tpu_torch.data.corpus.kaldi_diar import rasterize_labels
+
+    out = []
+    for b in range(B):
+        a_end, b_start = rng.uniform(7.0, 10.0), rng.uniform(6.0, 9.0)
+        segments = [("A", 0.0, a_end), ("A", 14.0, 20.0), ("B", b_start, 16.0)]
+        out.append(rasterize_labels(segments, SD_FRAMES, ["B", "A"] if b in (1, 5) else
+                                    ["A", "B"]))
+    return np.stack(out)
+
+
+def speaker_batch(name, gen, dev, seed=0):
+    """The task's fixed batch: waves of lengths drawn from its range (4-10
+    s for ASV; 100 crops of 5 s in speaker-major order for GE2E; 8 chunks
+    of 20 s for SD), its labels as the recipe's collation gives them."""
+    B, secs = SPEAKER[name][:2]
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(int(secs[0] * SR), int(secs[1] * SR) + 1, B)
+    n = int(lens.max())
+    x = torch.randn(B, n, generator=gen) * (torch.arange(n)[None] < torch.from_numpy(lens)[:, None])
+    batch = {"x": x.to(dev), "x_len": torch.from_numpy(lens).to(dev)}
+    if name == "asv":
+        batch["class_id"] = rng.randint(0, ASV_SPEAKERS, B).astype(np.int32)
+    elif name == "sd":
+        batch["label"] = sd_labels(B, rng)
+        batch["label_len"] = np.full(B, SD_FRAMES, np.int32)
+    return batch
+
+
+def speaker_trainer(name, up, exp_dir):
+    from s3prl_tpu_torch.train import Trainer, TrainerConfig
+
+    _, _, _, optimizer, clip, accumulate, _ = SPEAKER[name]
+    trainer = Trainer(up, speaker_task(name, up), exp_dir, TrainerConfig(
+        total_steps=1000, tensorboard=False, gradient_clipping=clip,
+        gradient_accumulate=accumulate, optimizer=optimizer))
+    trainer.init(resume=False)
+    return trainer
+
+
+def check_speaker_training(name, up, wrapper, batch, exp_dir):
+    """The task's micro-steps on its fixed batch through the Trainer: each
+    step's launches (its run, every other count 0, the counts set to 0
+    just before the step and read just after it), the upstream in eval()
+    and the probe in train(), the loss finite and lower after the updates
+    than at the first step."""
+    B, secs, steps, optimizer, clip, accumulate, run = SPEAKER[name]
+    trainer = speaker_trainer(name, up, exp_dir)
+    losses, perms = [], None
+    for _ in range(steps):
+        for w in wrapper.values():
+            w.launches = 0
+        loss, cache, grad_norm = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrapper.items()}
+        check(launches == {k: run.get(k, 0) for k in wrapper}, f"{name} step launches {launches}")
+        check(not up.model.training and trainer.task.module.training,
+              "the upstream left eval() or the probe left train()")
+        losses.append(float(loss))
+        check(np.isfinite(losses[-1]) and np.isfinite(float(grad_norm)), f"{name} loss {losses}")
+        if name == "sd":
+            perms = cache["best_perm"].tolist()
+    frames = int(((batch["x_len"] - 1) // 320 + 1).sum())
+    log(f"[speaker] {name} hubert int8 B={B} x {secs[0]:.0f}-{secs[1]:.0f} s ({frames} valid "
+        f"frames, padded to {(batch['x'].shape[1] - 1) // 320 + 1}), "
+        f"{type(trainer.task.module.downstream).__name__} -> {type(trainer.task).__name__}, "
+        f"{optimizer['name']} {optimizer['lr']}, clip {clip}, accumulation {accumulate}: "
+        f"launches a step {run} (every other count 0), upstream in eval(); losses over {steps} "
+        f"micro-steps ({steps // accumulate} updates) " + " ".join(f"{v:.5f}" for v in losses)
+        + (f"; the last step's permutation a row {perms}" if perms else ""))
+    check(losses[-1] < losses[0], f"{name}: the loss did not fall: {losses}")
+    if perms is not None:
+        check(len(set(perms)) == 2, f"sd permutations {perms}")
+    return trainer
+
+
+def one_update(name, task, state, hs, h_lens, batch):
+    """One micro-step and one update of task `name`'s probe on the states,
+    from the optimizer state `state` in an optimizer of accumulation 1:
+    (loss, cache, gradient norm)."""
+    from s3prl_tpu_torch.train import Optimizer
+    from s3prl_tpu_torch.train.optimizers import global_norm
+
+    _, _, _, optimizer, clip, _, _ = SPEAKER[name]
+    opt = Optimizer(task.module.parameters(), total_steps=1000, gradient_clipping=clip,
+                    **optimizer)
+    opt.load_state_dict(state)
+    loss, cache = task.loss_and_cache(hs, h_lens, batch, None, True)
+    loss.backward()
+    norm = global_norm([p.grad for p in opt.params])
+    check(opt.step(), f"{name}: the update was skipped")
+    return loss.detach(), cache, norm
+
+
+# parameters whose gradient is zero but for rounding: each adds one value to
+# every logit of a softmax (SAP's scores over time; GE2E's logits over the
+# speakers), so Adam scales each device's rounding to a move of up to lr
+SHIFT_PARAMS = (".attn.bias", "ge2e_b")
+
+
+def check_speaker_step_on_cpu(name, up, trainer, batch):
+    """One update of the probe from the card's states (the first
+    SPK_CPU_B utterances; GE2E's 2 speakers x 10), on the card and on the
+    CPU from the same probe weights and optimizer state: loss and gradient
+    norm at rtol 1e-3, each parameter's update at cosine > SPK_COS (the
+    task's parameters included; bias_ih held at zero; SHIFT_PARAMS' updates
+    within 2 lr of each other), SD's permutation a row the same on both."""
+    import copy
+
+    sub = sub_batch(batch, 2 * GE2E_M if name == "ge2e" else SPK_CPU_B)
+    hs, h_lens = up(sub["x"], sub["x_len"])
+    task_cpu = speaker_task(name, up)
+    task_cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                     trainer.task.module.state_dict().items()})
+    state = trainer.optimizer.state_dict()
+    check(state["mini_step"] == 0, f"{name}: mid-accumulation")
+    before = {k: v.detach().cpu().clone() for k, v in trainer.task.module.state_dict().items()}
+    card = one_update(name, trainer.task, copy.deepcopy(state), hs, h_lens, sub)
+    t0 = time.perf_counter()
+    cpu = one_update(name, task_cpu, copy.deepcopy(state), hs.cpu(), h_lens.cpu(), sub)
+    seconds = time.perf_counter() - t0
+    after_card, after_cpu = trainer.task.module.state_dict(), task_cpu.module.state_dict()
+    coss, shifts = {}, {}
+    lr = SPEAKER[name][3]["lr"]
+    for k, p0 in before.items():
+        a = (after_card[k].cpu() - p0).double().flatten()
+        b = (after_cpu[k] - p0).double().flatten()
+        if k.endswith(SHIFT_PARAMS):
+            shifts[k] = float((a - b).abs().max())
+        elif a.norm() > 0 or b.norm() > 0:  # bias_ih: held at zero
+            coss[k] = float(a @ b / (a.norm() * b.norm()))
+    rel = (abs(float(card[0]) / float(cpu[0]) - 1), abs(float(card[2]) / float(cpu[2]) - 1))
+    perm = "" if not shifts else f", {SHIFT_PARAMS} updates apart by {shifts} (lr {lr})"
+    if name == "sd":
+        p_card, p_cpu = card[1]["best_perm"].tolist(), cpu[1]["best_perm"].tolist()
+        check(p_card == p_cpu, f"sd permutations card {p_card} CPU {p_cpu}")
+        perm = f", permutation a row {p_card} on both"
+    log(f"[speaker] {name}: one update from the card's states [{', '.join(map(str, hs.shape))}] "
+        f"{hs.dtype}, card vs CPU ({seconds:.1f} s on the CPU): loss {float(card[0]):.6f} / "
+        f"{float(cpu[0]):.6f}, grad norm {float(card[2]):.6f} / {float(cpu[2]):.6f} (rel "
+        f"{rel[0]:.2e}, {rel[1]:.2e}){perm}, update cosines min {min(coss.values()):.6f}: "
+        + " ".join(f"{k.replace('downstream.', '')} {c:.6f}" for k, c in coss.items()))
+    check(max(rel) < 1e-3 and min(coss.values()) > SPK_COS
+          and all(d <= 2 * lr for d in shifts.values()), f"{name} step card vs CPU")
+    check(all(not v.any() for k, v in after_card.items() if ".bias_ih_" in k),
+          "bias_ih left zero")
+
+
+SPEAKER_GROUPS = {"TDNN convs (cuDNN)": ("conv", "Conv", "implicit", "xmma_fprop", "dgrad",
+                                         "wgrad"),
+                  "cuDNN LSTM": ("rnn", "lstm", "RNN", "LSTM", "elemWise", "ersist"),
+                  "GEMMs": ("gemm", "Gemm", "Kernel2", "cutlass")}
+
+
+def time_speaker_step(name, up, trainer, batch, smi):
+    """The task's train step (accumulation included: chains average its
+    updates) and the frozen forward alone by phase 7's protocol (chains of
+    SPK_ITERS // 3 and SPK_ITERS, marginal, best of 3, CUDA events), each
+    with its audio-s/s and peak device memory; then both under the
+    profiler: the device's idle share and the kernels the step runs beyond
+    the forward's, grouped."""
+    lo, hi = max(SPK_ITERS // 3, 1), SPK_ITERS
+    fns = {"train step": lambda: trainer.train_step(batch),
+           "frozen forward alone": lambda: up(batch["x"], batch["x_len"])}
+    best = {(what, n): float("inf") for what in fns for n in (lo, hi)}
+    for _ in range(3):
+        for what, fn in fns.items():
+            for n in (lo, hi):
+                best[what, n] = min(best[what, n], n * cuda_ms(fn, n))
+    audio = float(batch["x_len"].sum()) / SR
+    B = batch["x"].shape[0]
+    out = {}
+    for what, fn in fns.items():
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        per = (best[what, hi] - best[what, lo]) / (hi - lo)
+        out[what] = per
+        log(f"[timing] {name} {what} hubert int8 B={B} ({audio:.1f} s of audio, padded to "
+            f"{batch['x'].shape[1] / SR:.2f} s): {per:.2f} ms/step, {audio / (per / 1e3):.1f} "
+            f"audio-s/s (chains {lo}: {best[what, lo]:.1f} ms, {hi}: {best[what, hi]:.1f} ms), "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    log(f"[timing] {name} step beyond the frozen forward: "
+        f"{out['train step'] - out['frozen forward alone']:.2f} ms "
+        f"({100 * (1 - out['frozen forward alone'] / out['train step']):.1f}% of the step)")
+    prof = {what: profile_calls(fn) for what, fn in fns.items()}
+    step_k, fwd_k = prof["train step"][1], prof["frozen forward alone"][1]
+    extra = {k: ms - fwd_k.get(k, 0.0) for k, ms in step_k.items()}
+    shares = dict.fromkeys([*SPEAKER_GROUPS, "other"], 0.0)
+    for k, ms in extra.items():
+        shares[next((g for g, keys in SPEAKER_GROUPS.items() if any(s in k for s in keys)),
+                    "other")] += ms
+    top = sorted(extra.items(), key=lambda kv: -kv[1])[:10]
+    log(f"[profile] {name} hubert int8 B={B}: device idle share train step "
+        f"{prof['train step'][0]:.3f}, frozen forward alone {prof['frozen forward alone'][0]:.3f};"
+        f" kernel time a step {sum(step_k.values()):.2f} ms, forward {sum(fwd_k.values()):.2f} "
+        f"ms, beyond it {sum(extra.values()):.2f} ms (by name: "
+        + ", ".join(f"{g} {ms:.2f} ms" for g, ms in shares.items())
+        + "); the step's kernels beyond the forward's (ms a step): "
+        + "; ".join(f"{k[:80]} {ms:.3f}" for k, ms in top))
+
+
+def voxceleb1_tree(root, gen, test_secs):
+    """VoxCeleb1-shaped: wav/id1000{1,2,3}/s/0000{0..3}.wav (2-4 s, the
+    dev speakers) and wav/id10270/s/ and id10271/s/ holding the test
+    utterances of `test_secs` seconds, with veri_test_v2.txt over every
+    test pair."""
+    from s3prl_tpu_torch.util.pseudo_data import _write_wav
+
+    rng = np.random.RandomState(3)
+    test = []
+    for spk, secs in [*((f"id1000{s}", [rng.uniform(2.0, 4.0) for _ in range(4)])
+                        for s in (1, 2, 3)),
+                      ("id10270", test_secs[::2]), ("id10271", test_secs[1::2])]:
+        for u, sec in enumerate(secs):
+            path = root / "wav" / spk / "s" / f"{u:05d}.wav"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            _write_wav(path, (torch.randn(int(sec * SR), generator=gen) * 0.1).numpy())
+            if spk in ("id10270", "id10271"):
+                test.append(f"{spk}/s/{u:05d}.wav")
+    lines = [f"{int(a.split('/')[0] == b.split('/')[0])} {a} {b}"
+             for i, a in enumerate(test) for b in test[i + 1:]]
+    (root / "veri_test_v2.txt").write_text("\n".join(lines) + "\n")
+    return root
+
+
+def speaker_recipe(problem, work, config, wrapper):
+    """Problem.run with every count set to 0 before it: the launches."""
+    for w in wrapper.values():
+        w.launches = 0
+    problem.run(str(work), **config)
+    return {k: w.launches for k, w in wrapper.items()}
+
+
+def expect(*runs):
+    """The launches of (forwards, run) pairs, every other count 0."""
+    out = {}
+    for forwards, run in runs:
+        for k, n in run.items():
+            out[k] = out.get(k, 0) + forwards * n
+    return out
+
+
+def check_speaker_recipes(wrapper, exp_dir, gen):
+    """SuperbASV through Problem.run (all four stages, total_steps 4) on a
+    VoxCeleb1 tree whose test split holds a 45-s utterance, so the test
+    batch (padded to 45 s: bucket_max raised from the default 30 s, which
+    pad_collate cannot fit) takes K8; Voxceleb2AMSoftmaxSegment's four
+    stages, its evaluation on 8-s windows at a 4-s stride of a 20-s
+    utterance (4 segments, one forward); SuperbSD's three stages on a Kaldi
+    tree of 40-s recordings (two 20-s chunks each): result.yaml (EER and
+    minDCF in [0, 1]; the DER), rttm/hyp.rttm and each run's launches."""
+    import yaml
+
+    from s3prl_tpu_torch.problem import SuperbASV, SuperbSD, Voxceleb2AMSoftmaxSegment
+    from s3prl_tpu_torch.util.pseudo_data import _write_wav
+
+    upstream = {"name": "hubert_large_ll60k", "extra_conf": {
+        "dtype": "bf16", "flash": True, "quantize": True, "seed": 0}}
+    steps = {"total_steps": 4, "log_step": 2, "save_step": 2, "tensorboard": False}
+    for cls, test_secs, forwards in ((SuperbASV, [45.0, 3.0, 5.0], None),
+                                     (Voxceleb2AMSoftmaxSegment, [20.0, 3.0, 5.0], 3)):
+        t0 = time.perf_counter()
+        name = cls.__name__
+        corpus = voxceleb1_tree(exp_dir / f"{name}_corpus", gen, test_secs)
+        problem = cls()
+        config = problem.default_config()
+        config.pop("target_dir")
+        config.update(prepare_data={"voxceleb1": str(corpus)}, build_upstream=upstream,
+                      bucket_max=16000 * 45)
+        config["train"].update(steps)
+        launches = speaker_recipe(problem, exp_dir / name, config, wrapper)
+        # 12 training utterances in batches of 10 and 2: 4 steps; SuperbASV's test
+        # batch holds the 45-s utterance (K8), the segment recipe one forward an
+        # utterance, its 20-s one 4 segments of 8 s (K1 route)
+        want = expect((4, PROBE_RUN), (1, K8_RUN) if forwards is None else (forwards, PROBE_RUN))
+        check(launches == {k: want.get(k, 0) for k in wrapper}, f"{name} launches {launches}")
+        result = yaml.safe_load((exp_dir / name / "result.yaml").read_text())["test"]
+        check(set(result) == {"eer", "minDCF"} and all(0.0 <= v <= 1.0 for v in result.values()),
+              f"{name} result.yaml {result}")
+        log(f"[recipe] {name} on a VoxCeleb1 tree (3 dev speakers x 4 utterances of 2-4 s; test "
+            f"utterances of {test_secs} s, {len(test_secs) * (len(test_secs) - 1) // 2} trials) "
+            f"with hubert_large_ll60k int8 and its full-width downstream, 4 steps, in "
+            f"{time.perf_counter() - t0:.1f} s: result.yaml {result}, launches {launches}")
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(4)
+    for split, n in (("train", 2), ("valid", 1), ("test", 1)):
+        d = exp_dir / "kaldi" / split
+        d.mkdir(parents=True)
+        scp, segs, utt2spk = [], [], []
+        for r in range(n):
+            reco = f"{split}_reco{r}"
+            path = exp_dir / "kaldi" / f"{reco}.wav"
+            _write_wav(path, (torch.randn(40 * SR, generator=gen) * 0.05).numpy())
+            scp.append(f"{reco} {path}")
+            for u, (spk, s, e) in enumerate([("A", 0.0, rng.uniform(18, 24)),
+                                             ("B", rng.uniform(14, 20), 33.0),
+                                             ("A", 30.0, 40.0)]):
+                segs.append(f"{reco}_u{u} {reco} {s:.2f} {e:.2f}")
+                utt2spk.append(f"{reco}_u{u} {spk}")
+        (d / "wav.scp").write_text("\n".join(scp) + "\n")
+        (d / "segments").write_text("\n".join(segs) + "\n")
+        (d / "utt2spk").write_text("\n".join(utt2spk) + "\n")
+    problem = SuperbSD()
+    config = problem.default_config()
+    config.pop("target_dir")
+    config.update(build_upstream=upstream, prepare_data={
+        f"{s}_dir": str(exp_dir / "kaldi" / s) for s in ("train", "valid", "test")})
+    config["train"].update(steps, eval_step=2)
+    work = exp_dir / "SuperbSD"
+    launches = speaker_recipe(problem, work, config, wrapper)
+    want = expect((4 + 2 + 1, SD_RUN))  # 4 train steps, 2 valid passes, 1 test batch
+    check(launches == {k: want.get(k, 0) for k in wrapper}, f"SuperbSD launches {launches}")
+    result = yaml.safe_load((work / "result.yaml").read_text())["test"]
+    check(set(result) == {"der", "loss"} and result["der"] >= 0 and np.isfinite(result["loss"]),
+          f"SuperbSD result.yaml {result}")
+    rttm = (work / "rttm" / "hyp.rttm").read_text().splitlines()
+    check(all(line.split()[0] == "SPEAKER" and len(line.split()) == 10 for line in rttm),
+          f"hyp.rttm {rttm[:3]}")
+    chunks = len((work / "test.csv").read_text().splitlines()) - 1
+    log(f"[recipe] SuperbSD on a Kaldi tree (train 2, valid 1, test 1 recordings of 40 s: "
+        f"{chunks} test chunks of 20 s) with hubert_large_ll60k int8 and LSTM(512, 1 layer), 4 "
+        f"steps of accumulation 4, valid every 2, in {time.perf_counter() - t0:.1f} s: "
+        f"result.yaml {result}, hyp.rttm {len(rttm)} lines (first {rttm[:1]}), launches "
+        f"{launches}")
+
+
+def speaker_phase(wrapper, gen, dev, smi):
+    """Phase 9: SUPERB's speaker tasks on the card over SUpstream's
+    HuBERT-Large int8: ASV, GE2E and SD training on their fixed batches,
+    one update of each against the CPU, their timing and profile, then the
+    SuperbASV, segment-eval and SuperbSD recipes, in a temporary
+    directory."""
+    import tempfile
+    from pathlib import Path
+
+    from s3prl_tpu_torch.nn import SUpstream
+
+    up = SUpstream(MODELS["hubert"], extra_conf={"dtype": torch.bfloat16, "flash": True,
+                                                 "quantize": True, "seed": 0}).upstream
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in SPEAKER:
+            batch = speaker_batch(name, gen, dev)
+            trainer = check_speaker_training(name, up, wrapper, batch, Path(tmp) / name)
+            check_speaker_step_on_cpu(name, up, trainer, batch)
+            time_speaker_step(name, up, trainer, batch, smi)
+            del trainer, batch
+        del up
+        check_speaker_recipes(wrapper, Path(tmp), gen)
+
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -3285,6 +3708,11 @@ def main():
     # CTC edge rows, the step's rate, decoding, the SuperbASR recipe on FLAC
     with Phase("8 asr"):
         asr_phase(wrapper, gen, dev, smi.splitlines()[0])
+    # 9. SUPERB's speaker tasks: ASV, GE2E and SD steps, one update of each
+    # against the CPU, their rates, the SuperbASV, segment-eval and SuperbSD
+    # recipes
+    with Phase("9 speaker"):
+        speaker_phase(wrapper, gen, dev, smi.splitlines()[0])
     log(json.dumps({"kernels": [entries[name] for name in wrapper]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

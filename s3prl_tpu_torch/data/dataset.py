@@ -1,6 +1,4 @@
-"""CSV-driven datasets (a copy of s3prl_tpu/data/dataset.py: the
-classification datasets, :27-82, and the CTC recipes' text datasets,
-:87-103 and :121-139; the diarization dataset goes with its slice).
+"""CSV-driven datasets (a copy of s3prl_tpu/data/dataset.py).
 
 Behavioral spec from the reference's s3prl/dataio/dataset/: map-style
 datasets over prepare_data CSVs — LoadAudio (load_audio.py:13: decode +
@@ -101,6 +99,22 @@ class Speech2TextDataset(_CsvDataset):
             "class_ids": ids,
             "labels": text,
             "unique_name": str(row["id"]),
+        }
+
+
+class DiarizationChunkDataset(_CsvDataset):
+    """Chunked frame-label dataset for SD (reference: dataio/dataset/
+    frame_label.py FrameLabelDataset): each row is a fixed window of a
+    recording with an .npy [T, num_spk] activity label."""
+
+    def __getitem__(self, i: int) -> dict:
+        row = self.df.iloc[i]
+        label = np.load(row["label_path"]).astype(np.int32)
+        return {
+            "x": self._load_wav(row),
+            "label": label,
+            "unique_name": str(row["id"]),
+            "group": str(row["reco"]),
         }
 
 

@@ -1,6 +1,6 @@
-"""Common evaluation metrics (a copy of s3prl_tpu/metric/common.py:20-66:
-accuracy and the edit-distance error rates; EER and minDCF go with the
-speaker-verification slice).
+"""Common evaluation metrics (a copy of s3prl_tpu/metric/common.py:
+accuracy, the edit-distance error rates, and speaker verification's EER
+and minDCF on f64 scores).
 
 Behavioral spec from the reference's metric module (s3prl/metric/common.py:
 48-158). Edit distance is implemented here directly (numpy DP) instead of
@@ -9,7 +9,7 @@ binding the `editdistance` C package.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -64,3 +64,48 @@ def per(hyps: Sequence[str], refs: Sequence[str]) -> float:
 
 def cer(hyps: Sequence[str], refs: Sequence[str]) -> float:
     return _er([list(h) for h in hyps], [list(r) for r in refs])
+
+
+def compute_eer(labels: Sequence[int], scores: Sequence[float]) -> Tuple[float, float]:
+    """Equal error rate via ROC interpolation (reference: metric/common.py:107).
+
+    Returns (eer, threshold).
+    """
+    labels = np.asarray(labels)
+    scores = np.asarray(scores, dtype=np.float64)
+    order = np.argsort(-scores)  # descending score
+    labels = labels[order]
+    scores = scores[order]
+    P = max(int((labels == 1).sum()), 1)
+    N = max(int((labels == 0).sum()), 1)
+    tpr = np.cumsum(labels == 1) / P
+    fpr = np.cumsum(labels == 0) / N
+    fnr = 1.0 - tpr
+    idx = int(np.nanargmin(np.abs(fnr - fpr)))
+    eer = float((fnr[idx] + fpr[idx]) / 2.0)
+    return eer, float(scores[idx])
+
+
+def compute_minDCF(
+    labels: Sequence[int],
+    scores: Sequence[float],
+    p_target: float = 0.01,
+    c_miss: float = 1.0,
+    c_fa: float = 1.0,
+) -> Tuple[float, float]:
+    """Minimum detection cost (reference: metric/common.py:124, NIST SRE)."""
+    labels = np.asarray(labels)
+    scores = np.asarray(scores, dtype=np.float64)
+    order = np.argsort(scores)
+    labels = labels[order]
+    scores = scores[order]
+    P = max(int((labels == 1).sum()), 1)
+    N = max(int((labels == 0).sum()), 1)
+    # threshold just below each score: miss = targets below, fa = nontargets >= thr
+    miss = np.concatenate([[0], np.cumsum(labels == 1)]) / P
+    fa = (N - np.concatenate([[0], np.cumsum(labels == 0)])) / N
+    dcf = c_miss * miss * p_target + c_fa * fa * (1 - p_target)
+    idx = int(np.argmin(dcf))
+    c_def = min(c_miss * p_target, c_fa * (1 - p_target))
+    thr = float(scores[min(idx, len(scores) - 1)]) if len(scores) else 0.0
+    return float(dcf[idx] / c_def), thr

@@ -12,5 +12,12 @@ from .heads import (  # noqa: F401
     TemporalStatisticsPooling,
     UtteranceLevel,
 )
+from .speaker import (  # noqa: F401
+    TDNN,
+    SapSpeakerHead,
+    SuperbDiarizationModel,
+    SuperbXvector,
+    XVectorBackbone,
+)
 from .upstream import Featurizer, SUpstream, UpstreamDownstreamModel, init_params  # noqa: F401
 from .beam_decoder import BeamDecoder  # noqa: F401

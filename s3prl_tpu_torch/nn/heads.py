@@ -66,22 +66,84 @@ class Dense(nn.Linear):
         return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
 
 
-class Conv(nn.Conv1d):
-    """flax ``nn.Conv(features, (k,), padding="SAME")`` on [B, T, C]:
-    (k - 1) // 2 frames of zeros before, the rest after; lecun-normal weight
-    (fan_in = k * in), zero bias."""
+@contextlib.contextmanager
+def ieee_cudnn():
+    """cuDNN in full f32 (TF32 off) inside the block, whatever the global
+    ``torch.backends.cudnn.allow_tf32`` says (True by default)."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int):
-        super().__init__(in_channels, out_channels, kernel_size)
+
+class _IeeeCudnn(torch.autograd.Function):
+    """``run(x)`` with cuDNN's TF32 off in its forward and its backward.
+    cuDNN reads the TF32 switch when each pass is called (an RNN's
+    descriptor, a convolution's algorithm), so the forward builds its own graph (on the module's parameters, handed
+    in as `params`) and the backward differentiates it under the switch."""
+
+    @staticmethod
+    def forward(ctx, run, x, *params):
+        with torch.enable_grad(), ieee_cudnn():
+            leaf = x.detach().requires_grad_(x.requires_grad)
+            out = run(leaf)
+        ctx.graph = (leaf, params, out)
+        return out.detach()
+
+    @staticmethod
+    def backward(ctx, grad):
+        leaf, params, out = ctx.graph
+        del ctx.graph
+        wanted = ([leaf] if leaf.requires_grad else []) + list(params)
+        with ieee_cudnn():
+            grads = list(torch.autograd.grad(out, wanted, grad, allow_unused=True))
+        return (None, grads.pop(0) if leaf.requires_grad else None, *grads)
+
+
+def ieee_call(run, x: torch.Tensor, params) -> torch.Tensor:
+    """``run(x)`` with cuDNN's TF32 off, through `_IeeeCudnn` when a
+    backward may follow (`params`: the parameters `run` reads)."""
+    params = [p for p in params if p.requires_grad]
+    if torch.is_grad_enabled() and (x.requires_grad or params):
+        return _IeeeCudnn.apply(run, x, *params)
+    with ieee_cudnn():
+        return run(x)
+
+
+class Conv(nn.Conv1d):
+    """flax ``nn.Conv(features, (k,), kernel_dilation=(d,), padding=...)`` on
+    [B, T, C]: "SAME" pads (span - 1) // 2 frames of zeros before and the
+    rest after (span = (k - 1) d + 1), "VALID" none, and an input shorter
+    than the span gives an empty time axis, as in flax; lecun-normal weight
+    (fan_in = k * in), zero bias. cuDNN runs it in full f32 (TF32 off) in
+    the forward and the backward, as `LSTM`."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 dilation: int = 1, padding: str = "SAME"):
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding {padding!r}: SAME or VALID")
+        super().__init__(in_channels, out_channels, kernel_size, dilation=dilation)
+        self.same = padding == "SAME"
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         lecun_normal_(self.weight, self.weight[0].numel(), generator)
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k = self.kernel_size[0]
-        y = F.pad(x.to(self.weight.dtype).transpose(1, 2), ((k - 1) // 2, k // 2))
-        return F.conv1d(y, self.weight, self.bias).transpose(1, 2)
+        x = x.to(self.weight.dtype)
+        span = self.dilation[0] * (self.kernel_size[0] - 1) + 1
+        if self.same:
+            x = F.pad(x, (0, 0, (span - 1) // 2, span // 2))
+        if x.shape[1] < span:  # flax's empty time axis (F.conv1d raises)
+            return F.linear(x[:, :0], self.weight[..., 0], self.bias)
+
+        def run(y):
+            return F.conv1d(y.transpose(1, 2), self.weight, self.bias,
+                            dilation=self.dilation).transpose(1, 2)
+
+        return ieee_call(run, x, [self.weight, self.bias])
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
@@ -286,42 +348,6 @@ class ConvBankHead(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-@contextlib.contextmanager
-def ieee_cudnn():
-    """cuDNN in full f32 (TF32 off) inside the block, whatever the global
-    ``torch.backends.cudnn.allow_tf32`` says (True by default)."""
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved
-
-
-class _IeeeCudnn(torch.autograd.Function):
-    """``run(x)`` with cuDNN's TF32 off in its forward and its backward.
-    cuDNN reads the TF32 switch when each pass builds its RNN descriptor,
-    so the forward builds its own graph (on the module's parameters, handed
-    in as `params`) and the backward differentiates it under the switch."""
-
-    @staticmethod
-    def forward(ctx, run, x, *params):
-        with torch.enable_grad(), ieee_cudnn():
-            leaf = x.detach().requires_grad_(x.requires_grad)
-            out = run(leaf)
-        ctx.graph = (leaf, params, out)
-        return out.detach()
-
-    @staticmethod
-    def backward(ctx, grad):
-        leaf, params, out = ctx.graph
-        del ctx.graph
-        wanted = ([leaf] if leaf.requires_grad else []) + list(params)
-        with ieee_cudnn():
-            grads = list(torch.autograd.grad(out, wanted, grad, allow_unused=True))
-        return (None, grads.pop(0) if leaf.requires_grad else None, *grads)
-
-
 class LSTM(nn.LSTM):
     """One layer of flax's ``nn.RNN(nn.OptimizedLSTMCell(H), seq_lengths=...)``
     (both directions when `bidirectional`, the backward one over each
@@ -370,12 +396,7 @@ class LSTM(nn.LSTM):
             out, _ = super(LSTM, self).forward(packed)
             return pad_packed_sequence(out, batch_first=True, total_length=T)[0]
 
-        params = [w for w in self._flat_weights if w.requires_grad]
-        if torch.is_grad_enabled() and (xs.requires_grad or params):
-            out = _IeeeCudnn.apply(run, xs, *params)
-        else:
-            with ieee_cudnn():
-                out = run(xs)
+        out = ieee_call(run, xs, self._flat_weights)
         if bool((lens == 0).any()):
             out = out * (lens > 0).to(out.device, out.dtype)[:, None, None]
         return out

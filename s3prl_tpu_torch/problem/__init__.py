@@ -9,3 +9,12 @@ from .common import (  # noqa: F401
     SuperbSID,
 )
 from .asr import AsrExample, SuperbASR, SuperbPR, SuperbSF  # noqa: F401
+from .asv import (  # noqa: F401
+    AmsoftmaxSegmentExample,
+    AsvExample,
+    Ge2eExample,
+    SuperbASV,
+    Voxceleb2AMSoftmaxSegment,
+    Voxceleb2GE2E,
+)
+from .diarization import SdExample, SuperbSD  # noqa: F401

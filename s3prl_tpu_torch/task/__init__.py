@@ -5,3 +5,10 @@ from .utterance_classification import (  # noqa: F401
     UtteranceMultiClassClassificationTask,
 )
 from .speech2text_ctc import SlotFillingCTCTask, Speech2TextCTCTask  # noqa: F401
+from .speaker_verification import (  # noqa: F401
+    Ge2eVerificationTask,
+    SpeakerVerificationTask,
+    amsoftmax_logits,
+    ge2e_loss,
+)
+from .diarization import DiarizationPITTask  # noqa: F401

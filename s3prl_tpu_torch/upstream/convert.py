@@ -393,16 +393,21 @@ def probe_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]
     -> the state_dict of s3prl_tpu_torch.nn.upstream.UpstreamDownstreamModel,
     whose layers keep flax's names: Dense ``kernel [in, out]`` -> ``weight
     [out, in]``, Conv ``kernel [k, in, out]`` -> ``weight [out, in, k]``,
-    ``bias`` and the featurizer's ``weights`` as they are. RNNEncoder's
-    cells ``OptimizedLSTMCell_{k}`` (flax names them in creation order:
-    layer 0 forward, layer 0 backward, layer 1 forward, ...; one a layer
-    when unidirectional) -> ``lstm_{layer}`` (`_lstm_cell`)."""
+    ``bias``, the featurizer's ``weights`` and the task parameters at the
+    top of the tree (``am_weight`` [D, C], ``ge2e_w``, ``ge2e_b``) as they
+    are. LSTM cells ``OptimizedLSTMCell_{k}`` (flax names them in creation
+    order) -> ``lstm_{layer}`` (`_lstm_cell`): RNNEncoder has one
+    ``proj_{i}`` a layer, so its cells a layer are the directions (layer 0
+    forward, layer 0 backward, layer 1 forward, ...; one a layer when
+    unidirectional); a tree without ``proj_`` layers (SuperbDiarizationModel)
+    has one unidirectional cell a layer."""
     params = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(tree, prefix):
         cells = sum(n.startswith(_LSTM_CELL) for n in tree)
-        directions = cells // max(sum(n.startswith("proj_") for n in tree), 1)
+        layers = sum(n.startswith("proj_") for n in tree)
+        directions = cells // layers if layers else 1
         for name, value in tree.items():
             key = f"{prefix}{name}"
             if name.startswith(_LSTM_CELL):

@@ -2066,3 +2066,116 @@ def test_asr_training_on_the_card(dev, tmp_path):
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], atol=1e-5, rtol=0)
     assert out["cuda"][0][2] > 9e4 and np.isfinite(out["cuda"][1]).all()
+
+
+# -- the speaker probes on the card ---------------------------------------------------
+
+
+def _speaker_trainer(up, task, exp_dir, optimizer, clip):
+    from s3prl_tpu_torch.train import Trainer, TrainerConfig
+
+    trainer = Trainer(up, task, exp_dir, TrainerConfig(
+        total_steps=4, tensorboard=False, gradient_clipping=clip, optimizer=optimizer))
+    trainer.init()
+    return trainer
+
+
+def _one_update(task, optimizer, hs, h_lens, batch):
+    """One micro-step and one update (an optimizer of accumulation 1
+    carrying `optimizer`'s state) of `task` on the states: (loss, cache,
+    gradient norm)."""
+    from s3prl_tpu_torch.train import Optimizer
+    from s3prl_tpu_torch.train.optimizers import global_norm
+
+    opt = Optimizer(task.module.parameters(), **optimizer)
+    loss, cache = task.loss_and_cache(hs, h_lens, batch, None, True)
+    loss.backward()
+    norm = global_norm([p.grad for p in opt.params])
+    assert opt.step()
+    return loss.detach(), cache, norm
+
+
+def test_speaker_training_on_the_card(dev, tmp_path):
+    """The int8 tiny trunk (20 samples a frame) under the speaker probes:
+    an x-vector with AM-softmax (AdamW, clip 1e3) on 320 frames launches K3
+    once and K1 and K2 once a layer; the diarization LSTM with PIT (Adam,
+    clip 1) on 1,600 frames takes the long route, K3 once and K6
+    (`fused_qkv_attention_outproj`) and K2 once a layer, K1 never; the
+    upstream in eval(), the losses finite. Then one update of each probe
+    from the card's states on the card and on the CPU: loss and gradient
+    norm at rtol 1e-3, each parameter's update at cosine > 0.999
+    (am_weight included; bias_ih held at zero), the same permutation a row.
+    Last, the TDNN stack with cuDNN's TF32 switched on globally against the
+    CPU at atol 1e-4, forward and backward (it runs with TF32 off)."""
+    from s3prl_tpu_torch.data.corpus.kaldi_diar import rasterize_labels
+    from s3prl_tpu_torch.nn import (SuperbDiarizationModel, SuperbXvector,
+                                    UpstreamDownstreamModel, XVectorBackbone)
+    from s3prl_tpu_torch.task import DiarizationPITTask, SpeakerVerificationTask
+
+    cpu, gpu = _tiny_trunk_pair(torch.bfloat16, True, dev, quantize=True)
+    wavs, lens = _tiny_batch()
+    rng = np.random.RandomState(9)
+    n = 32000  # 1,600 frames
+    sd_lens = torch.tensor([n, 25000, 12000])
+    sd_wavs = torch.from_numpy(rng.randn(3, n).astype(np.float32)) * (
+        torch.arange(n)[None] < sd_lens[:, None])
+    segments = [("A", 0.0, 1.3), ("B", 0.9, 2.0)]
+    label = np.stack([rasterize_labels(segments, 3200, spk, frame_shift=10) for spk in
+                      (["A", "B"], ["B", "A"], ["A", "B"])])  # twice the states' frames
+    cases = {
+        "asv": (lambda up: SpeakerVerificationTask(UpstreamDownstreamModel(
+                    SuperbXvector(128, 32, 32, 64), up.num_layers), 5),
+                {"x": wavs, "x_len": lens, "class_id": np.array([0, 4, 2], np.int32)},
+                {"name": "AdamW", "lr": 1e-3}, 1000.0, [1, 2, 2]),
+        "sd": (lambda up: DiarizationPITTask(UpstreamDownstreamModel(
+                   SuperbDiarizationModel(128, 2, 32, 1), up.num_layers)),
+               {"x": sd_wavs, "x_len": sd_lens, "label": label,
+                "label_len": np.array([3200, 2500, 1200], np.int32)},
+               {"name": "Adam", "lr": 1e-3}, 1.0, [1, 0, 2, 0, 0, 2]),
+    }
+    for name, (make, batch, optimizer, clip, launches) in cases.items():
+        batch = {**batch, "x": batch["x"].to(dev), "x_len": batch["x_len"].to(dev)}
+        card = _speaker_trainer(gpu, make(gpu), tmp_path / name, optimizer, clip)
+        for _ in range(2):
+            for w in wrappers():
+                w.launches = 0
+            loss, _, _ = card.train_step(batch)
+            torch.cuda.synchronize()
+            assert [w.launches for w in wrappers()] == \
+                launches + [0] * (len(wrappers()) - len(launches)), name
+            assert not gpu.model.training and card.task.module.training and torch.isfinite(loss)
+        hs, h_lens = gpu(batch["x"], batch["x_len"])
+        host = make(cpu)
+        host.module.load_state_dict({k: v.cpu() for k, v in
+                                     card.task.module.state_dict().items()})
+        before = {k: v.detach().cpu().clone() for k, v in card.task.module.state_dict().items()}
+        kw = dict(optimizer, gradient_clipping=clip)
+        out_card = _one_update(card.task, kw, hs, h_lens, batch)
+        out_cpu = _one_update(host, kw, hs.cpu(), h_lens.cpu(), batch)
+        for a, b in ((out_card[0], out_cpu[0]), (out_card[2], out_cpu[2])):
+            np.testing.assert_allclose(float(a), float(b), rtol=1e-3, err_msg=name)
+        after = card.task.module.state_dict()
+        coss = _update_cosines({k: v for k, v in before.items() if ".bias_ih_" not in k},
+                               after, host.module.state_dict())
+        assert min(coss.values()) > 0.999, (name, coss)
+        if name == "sd":
+            perm = out_card[1]["best_perm"].cpu()
+            assert torch.equal(perm, out_cpu[1]["best_perm"]) and len(set(perm.tolist())) == 2
+
+    x = torch.from_numpy(rng.randn(2, 40, 64).astype(np.float32))
+    backbone = XVectorBackbone(64, 96)
+    grads = {}
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for where in ("cpu", dev):
+            model = copy.deepcopy(backbone).to(where).train()
+            xs = x.to(where, copy=True).requires_grad_()
+            out = model(xs)
+            (out * torch.linspace(-1, 1, 96, device=where)).sum().backward()
+            grads[str(where)] = [out.detach().cpu(), xs.grad.cpu()] + [
+                p.grad.cpu() for p in model.parameters()]
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0)

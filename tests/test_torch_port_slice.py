@@ -278,6 +278,10 @@ def test_port_never_imports_jax():
         "import s3prl_tpu_torch.data.flac, s3prl_tpu_torch.data.bpe, s3prl_tpu_torch.native\n"
         "import s3prl_tpu_torch.nn.beam_decoder, s3prl_tpu_torch.ops.ctc, s3prl_tpu_torch.metric\n"
         "import s3prl_tpu_torch.problem.asr, s3prl_tpu_torch.task.speech2text_ctc\n"
+        "import s3prl_tpu_torch.nn.speaker, s3prl_tpu_torch.task.speaker_verification\n"
+        "import s3prl_tpu_torch.task.diarization, s3prl_tpu_torch.metric.diarization\n"
+        "import s3prl_tpu_torch.problem.asv, s3prl_tpu_torch.problem.diarization\n"
+        "import s3prl_tpu_torch.data.corpus.kaldi_diar\n"
         "assert len(s3prl_tpu_torch.kernels.wrappers()) == 19\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 's3prl_tpu')]\n"
