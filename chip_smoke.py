@@ -3287,6 +3287,422 @@ def speaker_phase(wrapper, gen, dev, smi):
 
 
 
+# the recipes phase: SUPERB's frame probes, QbE, HEAR and MOS over
+# SUpstream's HuBERT-Large int8. Each head comes from its recipe's default
+# config (build_task): TimitPhoneConvBank (ConvBank(3, 5, 7) over 41
+# phones, AdamW 2e-4), QbeEmbeddingQuesst14 (bottleneck 256, two LSTMs of
+# 1,024, AdamW 1e-5), HearFSD (FSD50k's 200 labels, multilabel,
+# UtteranceLevel(1024), Adam 1e-3), HearDcase2016Task2 (11 classes,
+# FrameLevel(256), Adam 1e-3) and MosPrediction (projector 256, 5,000
+# judges, Adam 1e-4, accumulation 2)
+REC_ITERS, REC_COS, REC_STEPS = 6, 0.9999, 6
+# family -> (recipe, batch rows (QbE: pairs), seconds (a range), optimizer,
+# accumulation, launches a step, rows (pairs) of the CPU update)
+RECIPE = {
+    "timit": ("TimitPhoneConvBank", 32, (10.0, 10.0), {"name": "AdamW", "lr": 2e-4}, 1,
+              PROBE_RUN, 4),
+    "qbe": ("QbeEmbeddingQuesst14", 16, (2.0, 10.0), {"name": "AdamW", "lr": 1e-5}, 1,
+            PROBE_RUN, 2),
+    "hear scene": ("HearFSD", 32, (5.0, 5.0), {"name": "Adam", "lr": 1e-3}, 1, PROBE_RUN, 4),
+    "hear event": ("HearDcase2016Task2", 8, (30.0, 30.0), {"name": "Adam", "lr": 1e-3}, 1,
+                   SD_RUN, 2),
+    "mos": ("MosPrediction", 8, (2.0, 6.0), {"name": "Adam", "lr": 1e-4}, 2, PROBE_RUN, 4),
+}
+TIMIT_PHONES, FSD_LABELS, DCASE_CLASSES, MOS_JUDGES = 41, 200, 11, 5000
+# parameters whose gradient is zero but for rounding: the attention
+# poolings' score biases (each adds one value to every logit of a softmax)
+REC_SHIFTS = ("attention_linear.bias", "_net_pooling.bias")
+
+
+def recipe_task(name, up):
+    """Family `name`'s task over `up`, built by its recipe from the
+    recipe's default config."""
+    import types
+
+    import s3prl_tpu_torch.problem as problems
+    from s3prl_tpu_torch.data import CategoryEncoder
+
+    recipe = getattr(problems, RECIPE[name][0])()
+    config = recipe.default_config()
+    sup = types.SimpleNamespace(num_layers=up.num_layers, hidden_sizes=up.hidden_sizes)
+    if name == "timit":
+        return recipe.build_task(sup, None, config)
+    if name == "hear scene":
+        labels = [f"label{i:03d}" for i in range(FSD_LABELS)]
+        return recipe.build_task(sup, CategoryEncoder(labels), config)
+    if name == "hear event":
+        return recipe.build_task(sup, {**config, "num_classes": DCASE_CLASSES})
+    return recipe.build_task(sup, config)
+
+
+def recipe_batch(name, gen, dev, seed=0):
+    """The family's fixed batch: waves of lengths drawn from its range
+    (QbE: the pairs' queries then their documents), its labels as the
+    recipe's collation gives them (phone labels at 100 fps, event labels
+    on 10-ms frames)."""
+    _, B, secs = RECIPE[name][:3]
+    rng = np.random.RandomState(seed)
+    rows = 2 * B if name == "qbe" else B
+    lens = rng.randint(int(secs[0] * SR), int(secs[1] * SR) + 1, rows)
+    n = int(lens.max())
+    x = torch.randn(rows, n, generator=gen) * (torch.arange(n)[None] <
+                                               torch.from_numpy(lens)[:, None])
+    batch = {"x": x.to(dev), "x_len": torch.from_numpy(lens).to(dev)}
+    if name == "timit":
+        batch["frame_labels"] = rng.randint(0, TIMIT_PHONES, (B, n // 160)).astype(np.int32)
+    elif name == "qbe":
+        batch["pair_label"] = np.tile(np.where(np.arange(B) % 2 == 0, 1, -1), 2).astype(np.int32)
+    elif name == "hear scene":
+        hot = np.zeros((B, FSD_LABELS), np.float32)
+        for b in range(B):
+            hot[b, rng.choice(FSD_LABELS, rng.randint(1, 4), replace=False)] = 1.0
+        batch["multilabel"] = hot
+    elif name == "hear event":
+        labels = np.zeros((B, n // 160, DCASE_CLASSES), np.int32)
+        for b in range(B):
+            for _ in range(6):
+                s = rng.randint(0, n // 160 - 300)
+                labels[b, s:s + rng.randint(20, 300), rng.randint(DCASE_CLASSES)] = 1
+        batch["frame_labels"] = labels
+    else:
+        batch.update(mean=rng.uniform(1, 5, B).astype(np.float32),
+                     mos=rng.uniform(1, 5, B).astype(np.float32),
+                     judge_id=rng.randint(0, MOS_JUDGES, B).astype(np.int32))
+    return batch
+
+
+def check_recipe_training(name, up, wrapper, batch, exp_dir):
+    """REC_STEPS micro-steps of the family's task on its fixed batch through
+    the Trainer: each step's launches (its run, every other count 0, the
+    counts set to 0 just before the step and read just after it), the
+    upstream in eval() and the probe in train(), the loss finite and lower
+    after the updates than at the first step."""
+    from s3prl_tpu_torch.train import Trainer, TrainerConfig
+
+    recipe, _, secs, optimizer, accumulate, run, _ = RECIPE[name]
+    trainer = Trainer(up, recipe_task(name, up), exp_dir, TrainerConfig(
+        total_steps=1000, tensorboard=False, gradient_accumulate=accumulate,
+        optimizer=optimizer))
+    trainer.init(resume=False)
+    losses = []
+    for _ in range(REC_STEPS):
+        for w in wrapper.values():
+            w.launches = 0
+        loss, _, grad_norm = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrapper.items()}
+        check(launches == {k: run.get(k, 0) for k in wrapper}, f"{name} step launches {launches}")
+        check(not up.model.training and trainer.task.module.training,
+              "the upstream left eval() or the probe left train()")
+        losses.append(float(loss))
+        check(np.isfinite(losses[-1]) and np.isfinite(float(grad_norm)), f"{name} loss {losses}")
+    head = getattr(trainer.task.module, "downstream", trainer.task.module)
+    log(f"[recipes] {name} ({recipe}'s head) hubert int8 {batch['x'].shape[0]} rows x "
+        f"{secs[0]:.0f}-{secs[1]:.0f} s (padded to {(batch['x'].shape[1] - 1) // 320 + 1} "
+        f"frames), {type(head).__name__} -> {type(trainer.task).__name__}, {optimizer['name']} "
+        f"{optimizer['lr']}, accumulation {accumulate}: launches a step {run} (every other "
+        f"count 0), upstream in eval(); losses over {REC_STEPS} micro-steps "
+        + " ".join(f"{v:.5f}" for v in losses))
+    check(losses[-1] < losses[0], f"{name}: the loss did not fall: {losses}")
+    return trainer
+
+
+def recipe_rows(name, batch):
+    """The first rows of the batch for the CPU update (QbE: the first
+    pairs' queries and documents)."""
+    n, B = RECIPE[name][6], RECIPE[name][1]
+    if name != "qbe":
+        return sub_batch(batch, n)
+    idx = list(range(n)) + list(range(B, B + n))
+    return {k: v[idx] for k, v in batch.items()}
+
+
+def check_recipe_step_on_cpu(name, up, trainer, batch):
+    """One update of the probe from the card's states of a few rows, on
+    the card and on the CPU from the same weights and optimizer state
+    (dropout off on both): loss and gradient norm at rtol 1e-3, each
+    parameter's update at cosine > REC_COS (bias_ih held at zero;
+    REC_SHIFTS within 2 lr of each other)."""
+    import copy
+
+    from s3prl_tpu_torch.train import Optimizer
+    from s3prl_tpu_torch.train.optimizers import global_norm
+
+    sub = recipe_rows(name, batch)
+    hs, h_lens = up(sub["x"], sub["x_len"])
+    task_cpu = recipe_task(name, up)
+    task_cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                     trainer.task.module.state_dict().items()})
+    heads = [t.module.downstream for t in (trainer.task, task_cpu)] if name == "timit" else []
+    for h in heads:
+        h.p = 0.0
+    state = trainer.optimizer.state_dict()
+    check(state["mini_step"] == 0, f"{name}: mid-accumulation")
+    optimizer = RECIPE[name][3]
+
+    def update(task, hs, h_lens):
+        opt = Optimizer(task.module.parameters(), total_steps=1000, gradient_clipping=1.0,
+                        **optimizer)
+        opt.load_state_dict(copy.deepcopy(state))
+        loss, _ = task.loss_and_cache(hs, h_lens, sub, None, True)
+        loss.backward()
+        norm = global_norm([p.grad for p in opt.params])
+        check(opt.step(), f"{name}: the update was skipped")
+        return float(loss.detach()), float(norm)
+
+    before = {k: v.detach().cpu().clone() for k, v in trainer.task.module.state_dict().items()}
+    card = update(trainer.task, hs, h_lens)
+    t0 = time.perf_counter()
+    cpu = update(task_cpu, hs.cpu(), h_lens.cpu())
+    seconds = time.perf_counter() - t0
+    for h in heads:
+        h.p = 0.5  # the recipe's dropout
+    after_card, after_cpu = trainer.task.module.state_dict(), task_cpu.module.state_dict()
+    coss, shifts = {}, {}
+    for k, p0 in before.items():
+        a = (after_card[k].cpu() - p0).double().flatten()
+        b = (after_cpu[k] - p0).double().flatten()
+        if k.endswith(REC_SHIFTS):
+            shifts[k] = float((a - b).abs().max())
+        elif a.norm() > 0 or b.norm() > 0:  # bias_ih: held at zero
+            coss[k] = float(a @ b / (a.norm() * b.norm()))
+    rel = (abs(card[0] / cpu[0] - 1), abs(card[1] / cpu[1] - 1))
+    lr = optimizer["lr"]
+    log(f"[recipes] {name}: one update from the card's states [{', '.join(map(str, hs.shape))}] "
+        f"{hs.dtype}, card vs CPU ({seconds:.1f} s on the CPU): loss {card[0]:.6f} / "
+        f"{cpu[0]:.6f}, grad norm {card[1]:.6f} / {cpu[1]:.6f} (rel {rel[0]:.2e}, {rel[1]:.2e})"
+        + (f", score biases' updates apart by {shifts} (lr {lr})" if shifts else "")
+        + f", update cosines min {min(coss.values()):.6f}: "
+        + " ".join(f"{k.replace('downstream.', '')} {c:.6f}" for k, c in coss.items()))
+    check(max(rel) < 1e-3 and min(coss.values()) > REC_COS
+          and all(d <= 2 * lr for d in shifts.values()), f"{name} step card vs CPU")
+
+
+def time_recipe_step(name, up, trainer, batch, smi):
+    """The family's train (micro-)step and the frozen forward alone (chains
+    of REC_ITERS // 3 and REC_ITERS, marginal, best of 2, CUDA events), each
+    with its audio-s/s, its peak device memory and the profiler's device
+    idle share."""
+    lo, hi = REC_ITERS // 3, REC_ITERS
+    fns = {"train step": lambda: trainer.train_step(batch),
+           "frozen forward alone": lambda: up(batch["x"], batch["x_len"])}
+    best = {(what, n): float("inf") for what in fns for n in (lo, hi)}
+    for _ in range(2):
+        for what, fn in fns.items():
+            for n in (lo, hi):
+                best[what, n] = min(best[what, n], n * cuda_ms(fn, n))
+    audio = float(batch["x_len"].sum()) / SR
+    out = {}
+    for what, fn in fns.items():
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        out[what] = ((best[what, hi] - best[what, lo]) / (hi - lo),
+                     torch.cuda.max_memory_allocated() / 2**30, profile_calls(fn, iters=2)[0])
+    (step, peak, idle), (fwd, peak_fwd, idle_fwd) = out["train step"], out["frozen forward alone"]
+    log(f"[timing] {name} hubert int8 {batch['x'].shape[0]} rows ({audio:.1f} s of audio, padded "
+        f"to {batch['x'].shape[1] / SR:.2f} s): train step {step:.2f} ms ("
+        f"{audio / (step / 1e3):.1f} audio-s/s, peak {peak:.2f} GiB, idle {idle:.3f}), frozen "
+        f"forward alone {fwd:.2f} ms (peak {peak_fwd:.2f} GiB, idle {idle_fwd:.3f}), beyond it "
+        f"{step - fwd:.2f} ms; {smi}")
+
+
+def qbe_corpus(root, gen):
+    """8 queries of 0.25-2 s (the first 0.25 s) and 32 documents of 2-30 s
+    (the first 30 s) from seed 0: WAV files and the recipe's CSVs."""
+    from s3prl_tpu_torch.util.pseudo_data import _write_wav
+
+    rng = np.random.RandomState(0)
+    secs = {"queries": np.concatenate([[0.25], rng.uniform(0.25, 2.0, 7)]),
+            "docs": np.concatenate([[30.0], rng.uniform(2.0, 30.0, 31)])}
+    (root / "wavs").mkdir(parents=True)
+    for split, values in secs.items():
+        rows = ["id,wav_path"]
+        for i, s in enumerate(values):
+            path = root / "wavs" / f"{split}_{i}.wav"
+            _write_wav(path, (torch.randn(int(s * SR), generator=gen) * 0.1).numpy())
+            rows.append(f"{split}_{i},{path}")
+        (root / f"{split}.csv").write_text("\n".join(rows) + "\n")
+    return secs
+
+
+def check_qbe_dtw(sup, wrapper, hub, gen, exp_dir, smi):
+    """QbeDTW's extraction (`_extract`: one utterance at a time, B = 1, the
+    last layer's states kept on the card) of 8 queries and 32 documents,
+    twice (cold, then warm), with its launches (K1 up to 512 frames, K6
+    beyond); the card's DTW scores against the CPU's DTW on the same
+    features at rtol 1e-5 with the same ranking for each query; the
+    extraction and DTW times apart; then the 12-frame query's and the 30-s
+    document's states against the CPU's plain versions (per-layer cosine >
+    COS_LAYER)."""
+    import s3prl_tpu_torch.models.transformer as port_transformer
+    from s3prl_tpu_torch.data.dataset import _CsvDataset
+    from s3prl_tpu_torch.kernels import flash_attention as fa
+    from s3prl_tpu_torch.ops.dtw import qbe_scores
+    from s3prl_tpu_torch.problem import QbeDTW
+    from s3prl_tpu_torch.problem.qbe import pad_features
+
+    secs = qbe_corpus(exp_dir, gen)
+    want = expect(*((1, PROBE_RUN if (int(s * SR) - 400) // 320 + 1 <= fa.MAX_BLOCK_T
+                     else SD_RUN) for values in secs.values() for s in values))
+    extract_s = []
+    for _ in range(2):  # the first pass cold (the forward's first lengths), the second warm
+        for w in wrapper.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = {split: QbeDTW()._extract(sup, exp_dir / f"{split}.csv", -1, 30.0)[0]
+                 for split in secs}
+        torch.cuda.synchronize()
+        extract_s.append(time.perf_counter() - t0)
+        launches = {k: w.launches for k, w in wrapper.items()}
+        check(launches == {k: want.get(k, 0) for k in wrapper},
+              f"QbE extraction launches {launches}")
+    check(all(f.is_cuda and f.dtype == torch.float32 for fs in feats.values() for f in fs),
+          "QbE features left the card")
+    q, ql = pad_features(feats["queries"])
+    d, dl = pad_features(feats["docs"])
+    qbe_scores(q, ql, d, dl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = qbe_scores(q, ql, d, dl)
+    torch.cuda.synchronize()
+    dtw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scores_cpu = qbe_scores(q.cpu(), ql.cpu(), d.cpu(), dl.cpu())
+    dtw_cpu_s = time.perf_counter() - t0
+    check(scores.is_cuda and bool(torch.isfinite(scores).all()), "QbE scores")
+    err = float(((scores.cpu() - scores_cpu).abs() / scores_cpu.abs()).max())
+    same_rank = torch.equal(scores.cpu().argsort(dim=1), scores_cpu.argsort(dim=1))
+    audio = float(secs["queries"].sum() + secs["docs"].sum())
+    log(f"[qbe] {len(ql)} queries ({ql.tolist()} frames) and {len(dl)} documents (up to "
+        f"{int(dl.max())} frames), {audio:.1f} s of audio, extracted at B = 1 (files read, "
+        f"each forward, the layer kept) in {extract_s[0]:.2f} s cold, {extract_s[1]:.2f} s warm "
+        f"({audio / extract_s[1]:.1f} audio-s/s), launches a pass {launches}; DTW of "
+        f"{scores.shape[0]} x {scores.shape[1]} pairs on the card {dtw_s * 1e3:.1f} ms, on the "
+        f"CPU {dtw_cpu_s:.2f} s, scores apart by rel {err:.2e}, the same ranking a query: "
+        f"{same_rank}; {smi}")
+    check(err <= 1e-5 and same_rank, "QbE DTW card vs CPU")
+    t0 = time.perf_counter()
+    up_cpu = load(hub, "hubert", "int8", "cpu")
+    available = port_transformer._fused_block_available
+    port_transformer._fused_block_available = lambda x: True
+    try:
+        for split in secs:
+            ds = _CsvDataset(exp_dir / f"{split}.csv")
+            x = torch.from_numpy(ds._load_wav(ds.df.iloc[0])[None])
+            n = torch.tensor([x.shape[1]])
+            hs_cpu, hl = up_cpu.apply_standardized(x, n)
+            hs_gpu, _ = sup.upstream.apply_standardized(x.cuda(), n.cuda())
+            coss = layer_cosines(hs_gpu.cpu(), hs_cpu, hl.tolist())
+            log(f"[qbe] {split}[0] ({x.shape[1] / SR:.2f} s, {int(hl[0])} frames) card vs CPU "
+                f"per-layer cosine min {min(coss):.6f}")
+            check(min(coss) > COS_LAYER, f"QbE {split}[0] states card vs CPU")
+    finally:
+        port_transformer._fused_block_available = available
+    del up_cpu
+    log(f"[qbe] the CPU model and its two forwards: {time.perf_counter() - t0:.1f} s")
+
+
+def hear_kfold_tree(root, gen):
+    """A HEAR k-fold task directory: 16000/foldNN/ holding two clips of 1-3
+    s a fold, foldNN.json mapping each clip to one of three labels."""
+    from s3prl_tpu_torch.util.pseudo_data import _write_wav
+
+    rng = np.random.RandomState(5)
+    for fold in range(5):
+        clips = {}
+        for i in range(2):
+            path = root / "16000" / f"fold{fold:02d}" / f"f{fold}_{i}.wav"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            _write_wav(path, (torch.randn(int(rng.uniform(1.0, 3.0) * SR), generator=gen)
+                              * 0.1).numpy())
+            clips[path.name] = ["dog", "rain", "bird"][(fold + i) % 3]
+        (root / f"fold{fold:02d}.json").write_text(json.dumps(clips))
+    return root
+
+
+# recipe -> (forwards of its run: train steps, valid and test batches; the
+# keys of its result.yaml, None for QbeExample's scores.csv)
+RECIPE_RUNS = {
+    "FrameProbeExample": (4 + 2 + 1, {"accuracy", "loss"}),
+    "QbeExample": (3, None),
+    "QbeEmbeddingExample": (4 + 2, {"loss", "pair_auc"}),
+    "HearEventExample": (4 + 2 + 1, {"loss", "event_f1"}),
+    "MosExample": (4 + 4 + 2, {"loss", "utt_MSE", "utt_LCC", "utt_SRCC", "sys_MSE", "sys_LCC",
+                               "sys_SRCC"}),
+    "HearESC50": (4 + 2 + 1, {"loss", "top1_acc", "mAP", "d_prime", "aucroc", "accuracy"}),
+}
+
+
+def check_new_recipes(wrapper, exp_dir, gen):
+    """The five Example recipes and HearESC50 (k-fold, on a tiny task
+    directory, test fold 0, batch 2) through Problem.run with
+    hubert_large_ll60k int8 (total_steps 4): each run's launches (K3 once,
+    K1 and K2 24 times a forward; every other count 0), result.yaml's keys
+    and finite values (QbeExample: scores.csv)."""
+    import yaml
+
+    import s3prl_tpu_torch.problem as problems
+
+    upstream = {"name": "hubert_large_ll60k", "extra_conf": {
+        "dtype": "bf16", "flash": True, "quantize": True, "seed": 0}}
+    task_dir = hear_kfold_tree(exp_dir / "hear_task", gen)
+    for name, (forwards, keys) in RECIPE_RUNS.items():
+        t0 = time.perf_counter()
+        problem = getattr(problems, name)()
+        config = problem.default_config()
+        config.pop("target_dir")
+        config["build_upstream"] = upstream
+        if "train" in config:
+            config["train"] = {**config["train"], "tensorboard": False}
+        if name == "HearESC50":
+            config.update(prepare_data={"task_dir": str(task_dir), "test_fold": 0},
+                          build_batch_sampler={"batch_size": 2})
+            config["train"].update(total_steps=4, log_step=2, eval_step=2, save_step=2)
+        launches = speaker_recipe(problem, exp_dir / name, config, wrapper)
+        want = expect((forwards, PROBE_RUN))
+        check(launches == {k: want.get(k, 0) for k in wrapper}, f"{name} launches {launches}")
+        if keys is None:
+            rows = (exp_dir / name / "scores.csv").read_text().splitlines()
+            result = {r.split(",")[1]: float(r.split(",")[2]) for r in rows[1:]}
+            check(len(result) == 2 and all(np.isfinite(v) for v in result.values()),
+                  f"{name} scores {rows}")
+        else:
+            result = yaml.safe_load((exp_dir / name / "result.yaml").read_text())["test"]
+            check(set(result) == keys and all(np.isfinite(v) for v in result.values()),
+                  f"{name} result.yaml {result}")
+        log(f"[recipe] {name} with hubert_large_ll60k int8 in {time.perf_counter() - t0:.1f} s: "
+            f"{result}, launches {forwards} forwards x {PROBE_RUN}")
+
+
+def recipes_phase(wrapper, gen, dev, smi):
+    """Phase 10: SUPERB's frame probes, QbE, HEAR and MOS on the card over
+    SUpstream's HuBERT-Large int8: QbE's extraction and DTW against the
+    CPU, one fixed-batch train step of each head (launches, one update
+    against the CPU, timing, peak memory, idle share), then the Example
+    recipes and a HEAR k-fold recipe through Problem.run, in a temporary
+    directory."""
+    import tempfile
+    from pathlib import Path
+
+    from s3prl_tpu_torch import hub
+    from s3prl_tpu_torch.nn import SUpstream
+
+    sup = SUpstream(MODELS["hubert"], extra_conf={"dtype": torch.bfloat16, "flash": True,
+                                                  "quantize": True, "seed": 0})
+    with tempfile.TemporaryDirectory() as tmp:
+        check_qbe_dtw(sup, wrapper, hub, gen, Path(tmp) / "qbe", smi)
+        for name in RECIPE:
+            batch = recipe_batch(name, gen, dev)
+            trainer = check_recipe_training(name, sup.upstream, wrapper, batch, Path(tmp) / name)
+            check_recipe_step_on_cpu(name, sup.upstream, trainer, batch)
+            time_recipe_step(name, sup.upstream, trainer, batch, smi)
+            del trainer, batch
+        del sup
+        check_new_recipes(wrapper, Path(tmp), gen)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -3713,6 +4129,11 @@ def main():
     # recipes
     with Phase("9 speaker"):
         speaker_phase(wrapper, gen, dev, smi.splitlines()[0])
+    # 10. SUPERB's frame probes, QbE, HEAR and MOS: QbE's extraction and DTW
+    # against the CPU, a step of each head, one update of each against the
+    # CPU, their rates, the Example recipes and a HEAR k-fold recipe
+    with Phase("10 recipes"):
+        recipes_phase(wrapper, gen, dev, smi.splitlines()[0])
     log(json.dumps({"kernels": [entries[name] for name in wrapper]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

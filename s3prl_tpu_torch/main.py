@@ -12,6 +12,16 @@ The CTC recipes (SuperbASR, SuperbPR, SuperbSF, AsrExample) run the same
 way, e.g. ``SuperbASR --prepare_data.librispeech /data/LibriSpeech``
 (FLAC is read natively); a trained workspace transcribes one file with
 ``SuperbASR().inference(target_dir, config, "utt.flac")``.
+
+Query-by-example (no training: features at B = 1, DTW on the card) and
+the HEAR recipes run the same way, e.g.
+
+    python -m s3prl_tpu_torch.main QbeDTW --target_dir exp/qbe \
+        --prepare_data.quesst14 /data/quesst14Database \
+        --build_upstream.name hubert_large_ll60k
+    python -m s3prl_tpu_torch.main HearESC50 --target_dir exp/esc50 \
+        --prepare_data.task_dir /data/hear/esc50-v2.0.0-full \
+        --prepare_data.test_fold 0 --build_upstream.name hubert_large_ll60k
 """
 
 from __future__ import annotations

@@ -19,6 +19,7 @@
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence
 
 import torch
@@ -137,11 +138,16 @@ def init_params(module: nn.Module, generator: Optional[torch.Generator] = None) 
     """flax's initialisation of a probe, drawn from `generator` in module
     order: every `Dense` and `Conv` lecun-normal with a zero bias, every
     `LSTM` as flax's cell (lecun-normal input kernels, an orthogonal
-    recurrent kernel a gate, zero biases), every featurizer's weights
-    zero."""
+    recurrent kernel a gate, zero biases), every ``nn.Embedding`` as
+    flax's ``nn.Embed`` (a normal of standard deviation 1 / sqrt(features),
+    drawn on the CPU), every featurizer's weights zero."""
     for m in module.modules():
         if isinstance(m, (Dense, Conv, LSTM)):
             m.reset_parameters(generator)
+        elif isinstance(m, nn.Embedding):
+            draw = torch.randn(m.weight.shape, generator=generator) / math.sqrt(m.embedding_dim)
+            with torch.no_grad():
+                m.weight.copy_(draw)
         elif isinstance(m, Featurizer) and m.weights is not None:
             nn.init.zeros_(m.weights)
     return module

@@ -12,3 +12,12 @@ from .speaker_verification import (  # noqa: F401
     ge2e_loss,
 )
 from .diarization import DiarizationPITTask  # noqa: F401
+from .qbe_embedding import QbeEmbedder, QbeEmbeddingTask  # noqa: F401
+from .hear import (  # noqa: F401
+    EventPredictionTask,
+    ScenePredictionTask,
+    d_prime,
+    mean_average_precision,
+    roc_auc,
+)
+from .mos_prediction import MosDownstreamModule, MosPredictionTask  # noqa: F401

@@ -395,12 +395,13 @@ def probe_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]
     [out, in]``, Conv ``kernel [k, in, out]`` -> ``weight [out, in, k]``,
     ``bias``, the featurizer's ``weights`` and the task parameters at the
     top of the tree (``am_weight`` [D, C], ``ge2e_w``, ``ge2e_b``) as they
-    are. LSTM cells ``OptimizedLSTMCell_{k}`` (flax names them in creation
+    are, flax ``nn.Embed``'s ``embedding`` [num, features] -> ``nn.Embedding``'s
+    ``weight`` (the same orientation). LSTM cells ``OptimizedLSTMCell_{k}`` (flax names them in creation
     order) -> ``lstm_{layer}`` (`_lstm_cell`): RNNEncoder has one
     ``proj_{i}`` a layer, so its cells a layer are the directions (layer 0
     forward, layer 0 backward, layer 1 forward, ...; one a layer when
-    unidirectional); a tree without ``proj_`` layers (SuperbDiarizationModel)
-    has one unidirectional cell a layer."""
+    unidirectional); a tree without ``proj_`` layers (SuperbDiarizationModel,
+    QbeEmbedder) has one unidirectional cell a layer."""
     params = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
 
@@ -419,6 +420,8 @@ def probe_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]
             elif name == "kernel":
                 kernel = np.asarray(value)
                 sd[f"{prefix}weight"] = _tensor(kernel.T) if kernel.ndim == 2 else _conv(kernel)
+            elif name == "embedding":  # nn.Embed [num, features] -> nn.Embedding.weight
+                sd[f"{prefix}weight"] = _tensor(value)
             else:
                 sd[key] = _tensor(value)
 

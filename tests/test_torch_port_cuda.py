@@ -2179,3 +2179,77 @@ def test_speaker_training_on_the_card(dev, tmp_path):
         torch.backends.cudnn.allow_tf32 = saved
     for a, b in zip(grads["cuda"], grads["cpu"]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0)
+
+
+# -- query-by-example, HEAR and MOS on the card ---------------------------------------
+
+
+def test_dtw_on_the_card(dev):
+    """qbe_scores on CUDA tensors against the CPU's on the same features:
+    queries of 12, 3 and 1 frames over documents of 7 to 1,499 frames, in
+    one chunk and a document a chunk, at rtol 1e-5 with the same ranking
+    for each query; the result stays on the card."""
+    from s3prl_tpu_torch.ops.dtw import qbe_scores
+
+    rng = np.random.RandomState(11)
+    q = torch.from_numpy(rng.randn(3, 12, 1024).astype(np.float32))
+    d = torch.from_numpy(rng.randn(5, 1499, 1024).astype(np.float32))
+    ql, dl = torch.tensor([12, 3, 1]), torch.tensor([300, 40, 1499, 7, 800])
+    want = qbe_scores(q, ql, d, dl)
+    for max_gib in (2.0, 1e-6):
+        got = qbe_scores(q.to(dev), ql.to(dev), d.to(dev), dl.to(dev), max_gib=max_gib)
+        assert got.device.type == "cuda"
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5)
+        assert torch.equal(got.cpu().argsort(dim=1), want.argsort(dim=1))
+
+
+def test_recipe_steps_on_the_card(dev, tmp_path):
+    """The int8 tiny trunk (20 samples a frame, 320 frames) under the QbE
+    embedder (two LSTMs, AdamW) and the MOS predictor with judge ids
+    (Adam): each train step launches K3 once and K1 and K2 once a layer
+    with the upstream in eval(); then one update of each probe from the
+    card's states on the card and on the CPU: loss and gradient norm at
+    rtol 1e-3, each parameter's update at cosine > 0.999 (bias_ih held at
+    zero; the attention poolings' score biases, whose gradient is zero but
+    for rounding, left out)."""
+    from s3prl_tpu_torch.task import (MosDownstreamModule, MosPredictionTask, QbeEmbedder,
+                                      QbeEmbeddingTask)
+
+    cpu, gpu = _tiny_trunk_pair(torch.bfloat16, True, dev, quantize=True)
+    wavs, lens = _tiny_batch()
+    wavs, lens = torch.cat([wavs, wavs.flip(0)]), torch.cat([lens, lens.flip(0)])
+    cases = {
+        "qbe": (lambda: QbeEmbeddingTask(QbeEmbedder(gpu.num_layers, 128, 32, 48, 2)),
+                {"pair_label": np.array([1, -1, 1] * 2, np.int32)},
+                {"name": "AdamW", "lr": 1e-3}),
+        "mos": (lambda: MosPredictionTask(MosDownstreamModule(gpu.num_layers, 128, 32, 8)),
+                {"mean": np.linspace(1, 5, 6).astype(np.float32),
+                 "mos": np.linspace(5, 1, 6).astype(np.float32),
+                 "judge_id": np.array([0, 3, 7, 1, 1, 2], np.int32)},
+                {"name": "Adam", "lr": 1e-3}),
+    }
+    for name, (make, labels, optimizer) in cases.items():
+        batch = {"x": wavs.to(dev), "x_len": lens.to(dev), **labels}
+        card = _speaker_trainer(gpu, make(), tmp_path / name, optimizer, 1.0)
+        for _ in range(2):
+            for w in wrappers():
+                w.launches = 0
+            loss, _, _ = card.train_step(batch)
+            torch.cuda.synchronize()
+            assert [w.launches for w in wrappers()][:3] == [1, 2, 2], name
+            assert sum(w.launches for w in wrappers()) == 5, name
+            assert not gpu.model.training and card.task.module.training and torch.isfinite(loss)
+        hs, h_lens = gpu(batch["x"], batch["x_len"])
+        host = make()
+        host.module.load_state_dict({k: v.cpu() for k, v in
+                                     card.task.module.state_dict().items()})
+        before = {k: v.detach().cpu().clone() for k, v in card.task.module.state_dict().items()}
+        kw = dict(optimizer, gradient_clipping=1.0)
+        out_card = _one_update(card.task, kw, hs, h_lens, batch)
+        out_cpu = _one_update(host, kw, hs.cpu(), h_lens.cpu(), batch)
+        for a, b in ((out_card[0], out_cpu[0]), (out_card[2], out_cpu[2])):
+            np.testing.assert_allclose(float(a), float(b), rtol=1e-3, err_msg=name)
+        coss = _update_cosines({k: v for k, v in before.items() if ".bias_ih_" not in k
+                                and not k.endswith(("attention_linear.bias", "pooling.bias"))},
+                               card.task.module.state_dict(), host.module.state_dict())
+        assert min(coss.values()) > 0.999, (name, coss)

@@ -282,6 +282,11 @@ def test_port_never_imports_jax():
         "import s3prl_tpu_torch.task.diarization, s3prl_tpu_torch.metric.diarization\n"
         "import s3prl_tpu_torch.problem.asv, s3prl_tpu_torch.problem.diarization\n"
         "import s3prl_tpu_torch.data.corpus.kaldi_diar\n"
+        "import s3prl_tpu_torch.ops.dtw, s3prl_tpu_torch.problem.frame_probe\n"
+        "import s3prl_tpu_torch.problem.qbe, s3prl_tpu_torch.problem.qbe_embedding\n"
+        "import s3prl_tpu_torch.task.qbe_embedding, s3prl_tpu_torch.task.hear\n"
+        "import s3prl_tpu_torch.problem.hear, s3prl_tpu_torch.task.mos_prediction\n"
+        "import s3prl_tpu_torch.problem.mos\n"
         "assert len(s3prl_tpu_torch.kernels.wrappers()) == 19\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 's3prl_tpu')]\n"
