@@ -167,7 +167,7 @@ line is printed; each phase prints its seconds):
     (tests/test_quant.py:553-591) on B=2 x 0.5 s and B=2 x 30 s, WavLM-Base's
     ``wavlm_fuse`` among them;
  6. timing (printed): extraction audio-s/s of every path at B=32 x 10 s,
-    B=8 x 30 s and B=4 x 60 s (two chain lengths, marginal rate, best of 3,
+    B=8 x 30 s and B=4 x 60 s (two chain lengths, marginal rate, best of 2,
     CUDA events) with the peak device memory, and each kernel against its
     plain version at those shapes, with its bound (the larger of the
     bytes it must move over 3.35 TB/s and its operations over the peak
@@ -297,6 +297,23 @@ line is printed; each phase prints its seconds):
     SuperbSD on a Kaldi tree of 40-s recordings (two 20-s chunks each):
     result.yaml (EER and minDCF in [0, 1]; the DER), rttm/hyp.rttm and
     each run's launches.
+10. SUPERB's frame probes, QbE, HEAR and MOS over the same SUpstream
+    (`recipes_phase`).
+11. The baseline front ends and SUPERB-SG's SE, SS and ST (`sg_phase`):
+    the six baseline entries on the card against the CPU at B=8 x 2-10 s
+    (the quantile rule of tests/test_audio_ops.py), the STFT -> iSTFT
+    round trip at B=8 x 15 s (atol 1e-4), the fbank entry at B=32 x 10 s,
+    the STFT and the iSTFT timed; the SS (SepRNN, B=8 x 3-15 s in the 15-s
+    bucket: K3 once, K6 and K2 24 times), SE (B=8 x 2-6 s: K1) and ST
+    (the decoder over 8,000 tokens, B=16 x 2-10 s, accumulation 8: K1)
+    heads from their recipes' default configs, three updates each on a
+    fixed batch (launches a step, the loss lower after two updates), one
+    update against the CPU (loss and gradient norm at rtol 1e-3, update
+    cosines > 0.999, SS's best permutations equal), each step and the
+    frozen forward timed with the peak device memory and the idle share;
+    ST's greedy decoding to 128 tokens timed, with the share of rows whose
+    tokens match the CPU's; SeExample on fbank (no kernel) and StExample on
+    HuBERT-Large int8 through Problem.run, their result.yaml.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2286,14 +2303,14 @@ def check_checkpoint(hub, up, gen, dev):
 
 def time_weighted(up, wavs, lens_t, gen, it_lo, it_hi):
     """`apply_weighted` beside `apply_standardized` on the same model and
-    batch (two chain lengths, marginal, best of 3, in turns), each with its
+    batch (two chain lengths, marginal, best of 2, in turns), each with its
     peak device memory."""
     w = torch.softmax(torch.randn(up.num_layers, generator=gen), 0).to(wavs.device)
     B, secs = wavs.shape[0], wavs.shape[1] / SR
     fns = {"apply_standardized": lambda: up.apply_standardized(wavs, lens_t),
            "apply_weighted": lambda: up.apply_weighted(w, wavs, lens_t)}
     best = {(what, it): float("inf") for what in fns for it in (it_lo, it_hi)}
-    for _ in range(3):
+    for _ in range(2):
         for what, fn in fns.items():
             for it in (it_lo, it_hi):
                 best[what, it] = min(best[what, it], it * cuda_ms(fn, it))
@@ -3403,7 +3420,8 @@ def check_recipe_training(name, up, wrapper, batch, exp_dir):
         f"{optimizer['lr']}, accumulation {accumulate}: launches a step {run} (every other "
         f"count 0), upstream in eval(); losses over {REC_STEPS} micro-steps "
         + " ".join(f"{v:.5f}" for v in losses))
-    check(losses[-1] < losses[0], f"{name}: the loss did not fall: {losses}")
+    check(np.mean(losses[-accumulate:]) < np.mean(losses[:accumulate]),
+          f"{name}: the loss did not fall: {losses}")
     return trainer
 
 
@@ -3701,6 +3719,345 @@ def recipes_phase(wrapper, gen, dev, smi):
             del trainer, batch
         del sup
         check_new_recipes(wrapper, Path(tmp), gen)
+
+
+# the SUPERB-SG phase: the baseline front ends, SE, SS and ST over
+# SUpstream's HuBERT-Large int8. Each head comes from its recipe's default
+# config (build_task): SuperbSS's SepRNN (3 x BLSTM 256, two sigmoid masks
+# of 257 bins, PIT, AdamW 1e-3), SuperbSE's (one mask) and SuperbST's
+# FrameLevelLinear(256) encoder with the decoder 256 / 3 layers / 4 heads /
+# FFN 1,024 over 8,000 tokens (label-smoothed CE, Adam 1e-3, linear
+# schedule, accumulation 8)
+SG_COS = 0.999
+# family -> (recipe, batch rows, seconds (a range), padded seconds (the
+# recipe's 1-s bucket), launches a step, rows of the CPU update)
+SG = {
+    "ss": ("SuperbSS", 8, (3.0, 15.0), 15, SD_RUN, 2),
+    "se": ("SuperbSE", 8, (2.0, 6.0), 6, PROBE_RUN, 2),
+    "st": ("SuperbST", 16, (2.0, 10.0), 10, PROBE_RUN, 4),
+}
+ST_VOCAB, ST_TOKENS_PER_SEC, ST_DECODE_ROWS = 8000, 4, 2
+
+
+class _Vocab:
+    """SuperbST's tokenizer's face for build_task and the task: 8,000 ids
+    (pad 0, unk 1, eos 2), as the recipe's BPE at its default vocab_size."""
+
+    vocab_size, pad_idx, eos_idx = ST_VOCAB, 0, 2
+
+    def decode(self, ids):
+        return " ".join(f"w{i}" for i in ids if i > 2)
+
+
+def sg_task(name, up):
+    """Family `name`'s task over `up`, built by its recipe from the
+    recipe's default config."""
+    import types
+
+    import s3prl_tpu_torch.problem as problems
+
+    recipe = getattr(problems, SG[name][0])()
+    config = recipe.default_config()
+    sup = types.SimpleNamespace(num_layers=up.num_layers, hidden_sizes=up.hidden_sizes)
+    if name == "st":
+        return recipe.build_task(sup, _Vocab(), config), config
+    return recipe.build_task(sup, config), config
+
+
+def sg_batch(name, gen, dev, seed=0):
+    """The family's fixed batch, padded to its 1-s bucket: mixtures of two
+    (SS) or one (SE) seeded sources plus noise, with the sources [B, S, T];
+    ST's waves with targets of ST_TOKENS_PER_SEC random tokens a second."""
+    _, B, secs, padded = SG[name][:4]
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(int(secs[0] * SR), int(secs[1] * SR) + 1, B)
+    lens[0] = int(secs[1] * SR)
+    n = padded * SR
+    valid = (torch.arange(n)[None] < torch.from_numpy(lens)[:, None]).float()
+    batch = {"x_len": torch.from_numpy(lens).to(dev)}
+    if name == "st":
+        batch["x"] = (torch.randn(B, n, generator=gen) * 0.1 * valid).to(dev)
+        counts = np.maximum(lens * ST_TOKENS_PER_SEC // SR, 1)
+        ids = np.zeros((B, int(counts.max())), np.int32)
+        for b, c in enumerate(counts):
+            ids[b, :c] = rng.randint(3, ST_VOCAB, c)
+        batch.update(class_ids=ids, class_ids_len=counts.astype(np.int32))
+        return batch
+    S = 2 if name == "ss" else 1
+    sources = torch.randn(B, S, n, generator=gen) * 0.1 * valid[:, None]
+    batch["sources"] = sources.to(dev)
+    batch["x"] = (sources.sum(1) + 0.03 * torch.randn(B, n, generator=gen) * valid).to(dev)
+    return batch
+
+
+def sg_dropout(task, p):
+    """Sets the head's dropout (SepRNN's; the decoder's) to p."""
+    import dataclasses
+
+    if isinstance(task.module, torch.nn.ModuleDict):
+        dec = task.module["decoder"]
+        dec.cfg = dataclasses.replace(dec.cfg, dropout=p)
+    else:
+        task.module.downstream.p = p
+
+
+def check_sg_training(name, up, wrapper, batch, exp_dir):
+    """Three updates of the family's task on its fixed batch through the
+    Trainer (3 x its accumulation micro-steps), each step's launches (its
+    run, every other count 0, counted from 0 just before the step), the
+    upstream in eval() and the head in train(), the loss finite and lower
+    after two updates (the mean of the last accumulation window) than
+    before any (the first window's). total_steps 20: ST's linear schedule
+    then warms up over one update (lr 0), so its second update takes the
+    full lr."""
+    from s3prl_tpu_torch.train import Trainer, TrainerConfig
+
+    recipe, _, secs, padded, run, _ = SG[name]
+    task, config = sg_task(name, up)
+    accumulate = config["train"].get("gradient_accumulate", 1)
+    trainer = Trainer(up, task, exp_dir, TrainerConfig(
+        total_steps=20, tensorboard=False, gradient_accumulate=accumulate,
+        optimizer=config["build_optimizer"]))
+    trainer.init(resume=False)
+    losses = []
+    for _ in range(3 * accumulate):
+        for w in wrapper.values():
+            w.launches = 0
+        loss, cache, grad_norm = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrapper.items()}
+        check(launches == {k: run.get(k, 0) for k in wrapper}, f"{name} step launches {launches}")
+        check(not up.model.training and trainer.task.module.training,
+              "the upstream left eval() or the head left train()")
+        losses.append(float(loss))
+        check(np.isfinite(losses[-1]) and np.isfinite(float(grad_norm)), f"{name} loss {losses}")
+    extra = ""
+    if name == "ss":
+        perms = cache["best_perm"].tolist()
+        extra = f", the last step's best permutations {perms}"
+    log(f"[sg] {name} ({recipe}'s head) hubert int8 {batch['x'].shape[0]} rows x "
+        f"{secs[0]:.0f}-{secs[1]:.0f} s (padded to {padded} s, "
+        f"{(batch['x'].shape[1] - 1) // 320 + 1} frames), {type(trainer.task).__name__}, "
+        f"{config['build_optimizer']}, accumulation {accumulate}: launches a step {run} (every "
+        f"other count 0), upstream in eval(); losses over {len(losses)} micro-steps "
+        + " ".join(f"{v:.5f}" for v in losses) + extra)
+    check(np.mean(losses[-accumulate:]) < np.mean(losses[:accumulate]),
+          f"{name}: the loss did not fall: {losses}")
+    return trainer
+
+
+def check_sg_step_on_cpu(name, up, trainer, batch):
+    """One update of the head from the card's states of a few rows, on the
+    card and on the CPU from the same weights and optimizer state (dropout
+    off on both): loss and gradient norm at rtol 1e-3, each parameter's
+    update at cosine > SG_COS (bias_ih held at zero; the attention keys'
+    biases, whose gradient is zero but for rounding, within 2 lr), SS's
+    best permutation a row the same."""
+    import copy
+
+    from s3prl_tpu_torch.train import Optimizer
+    from s3prl_tpu_torch.train.optimizers import global_norm
+
+    sub = sub_batch(batch, SG[name][5])
+    hs, h_lens = up(sub["x"], sub["x_len"])
+    task_cpu, config = sg_task(name, up)
+    task_cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                     trainer.task.module.state_dict().items()})
+    for t in (trainer.task, task_cpu):
+        sg_dropout(t, 0.0)
+    state = trainer.optimizer.state_dict()
+    check(state["mini_step"] == 0, f"{name}: mid-accumulation")
+    optimizer = config["build_optimizer"]
+
+    def update(task, hs, h_lens, rows):
+        opt = Optimizer(task.module.parameters(), total_steps=1000, gradient_clipping=1.0,
+                        **optimizer)
+        opt.load_state_dict(copy.deepcopy(state))
+        loss, cache = task.loss_and_cache(hs, h_lens, rows, None, True)
+        loss.backward()
+        norm = global_norm([p.grad for p in opt.params])
+        check(opt.step(), f"{name}: the update was skipped")
+        return float(loss.detach()), float(norm), cache
+
+    before = {k: v.detach().cpu().clone() for k, v in trainer.task.module.state_dict().items()}
+    card = update(trainer.task, hs, h_lens, sub)
+    t0 = time.perf_counter()
+    cpu = update(task_cpu, hs.cpu(), h_lens.cpu(),
+                 {k: v.cpu() if torch.is_tensor(v) else v for k, v in sub.items()})
+    seconds = time.perf_counter() - t0
+    default = 0.1  # the recipes' dropout (SepRNN's and the decoder's)
+    for t in (trainer.task, task_cpu):
+        sg_dropout(t, default)
+    after_card, after_cpu = trainer.task.module.state_dict(), task_cpu.module.state_dict()
+    coss, shifts = {}, {}
+    for k, p0 in before.items():
+        a = (after_card[k].cpu() - p0).double().flatten()
+        b = (after_cpu[k] - p0).double().flatten()
+        if k.endswith(".k.bias"):
+            shifts[k] = float((a - b).abs().max())
+        elif a.norm() > 0 or b.norm() > 0:  # bias_ih: held at zero
+            coss[k] = float(a @ b / (a.norm() * b.norm()))
+    rel = (abs(card[0] / cpu[0] - 1), abs(card[1] / cpu[1] - 1))
+    lr = optimizer["lr"]
+    same_perm = True
+    if name == "ss":
+        same_perm = card[2]["best_perm"].tolist() == cpu[2]["best_perm"].tolist()
+    worst = sorted(coss.items(), key=lambda kv: kv[1])[:4]
+    log(f"[sg] {name}: one update from the card's states [{', '.join(map(str, hs.shape))}] "
+        f"{hs.dtype}, card vs CPU ({seconds:.1f} s on the CPU): loss {card[0]:.6f} / "
+        f"{cpu[0]:.6f}, grad norm {card[1]:.6f} / {cpu[1]:.6f} (rel {rel[0]:.2e}, {rel[1]:.2e})"
+        + (f", key biases' updates apart by at most {max(shifts.values()):.2e} (lr {lr})"
+           if shifts else "")
+        + (f", best permutations card {card[2]['best_perm'].tolist()} CPU "
+           f"{cpu[2]['best_perm'].tolist()}" if name == "ss" else "")
+        + f", update cosines over {len(coss)} tensors min {min(coss.values()):.6f}: "
+        + " ".join(f"{k} {c:.6f}" for k, c in worst))
+    check(max(rel) < 1e-3 and min(coss.values()) > SG_COS and same_perm
+          and all(d <= 2 * lr for d in shifts.values()), f"{name} step card vs CPU")
+
+
+def check_sg_decode(up, batch, smi):
+    """ST's greedy decoding to 128 tokens on the card (CUDA events, best of
+    2; the profiler's device idle share of one more) and on the CPU for
+    ST_DECODE_ROWS rows from the same states: the share of rows whose
+    tokens match. The recipe's head at its seed-0 initialisation: the head
+    trained above emits <eos> first, which would make the comparison
+    trivial (the timed work is the same: 128 steps either way)."""
+    hs, h_lens = up(batch["x"], batch["x_len"])
+    task = sg_task("st", up)[0]
+    task.init_params(torch.Generator().manual_seed(0))
+    task.module.to(hs.device)
+    best = float("inf")
+    for _ in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        tokens = task.greedy_decode(hs, h_lens)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    idle = profile_calls(lambda: task.greedy_decode(hs, h_lens), iters=1)[0]
+    n = ST_DECODE_ROWS
+    task.module.cpu()
+    t0 = time.perf_counter()
+    cpu = task.greedy_decode(hs[:, :n].cpu(), h_lens[:n].cpu())
+    seconds = time.perf_counter() - t0
+    match = float(np.mean([np.array_equal(a, b) for a, b in zip(tokens[:n], cpu)]))
+    lengths = [int(np.argmax(r == 2)) if (r == 2).any() else len(r) for r in tokens]
+    check(tokens.shape == (batch["x"].shape[0], task.max_decode_len), f"decode {tokens.shape}")
+    log(f"[timing] st greedy_decode hubert int8 {tokens.shape[0]} rows x {task.max_decode_len} "
+        f"steps (the decoder over the whole [B, {task.max_decode_len + 1}] buffer each step): "
+        f"{best:.1f} ms ({best / task.max_decode_len:.3f} ms a step, idle {idle:.3f}); {smi}; "
+        f"tokens before <eos> a row {lengths}; rows matching the CPU's tokens {match:.2f} of "
+        f"{n} ({seconds:.1f} s on the CPU)")
+
+
+def check_sg_features(gen, dev, smi):
+    """The six baseline entries on the card against the CPU at B=8 x 10 s
+    (2-10 s utterances) under tests/test_audio_ops.py's quantile rule; the
+    STFT -> iSTFT round trip of SS's mixtures on the card (atol 1e-4
+    against the waves); the fbank entry at B=32 x 10 s, the STFT and the
+    iSTFT timed (CUDA events)."""
+    from s3prl_tpu_torch.models.baseline import BASELINE_CONFIGS
+    from s3prl_tpu_torch.nn import SUpstream
+    from s3prl_tpu_torch.ops import audio
+
+    rng = np.random.RandomState(1)
+    lens = torch.from_numpy(np.concatenate([[10 * SR], rng.randint(2 * SR, 10 * SR, 7)]))
+    x = torch.randn(8, 10 * SR, generator=gen) * 0.1 * (torch.arange(10 * SR)[None] < lens[:, None])
+    for name in BASELINE_CONFIGS:
+        card, card_lens = SUpstream(name)(x.to(dev), lens.to(dev))
+        cpu, cpu_lens = SUpstream(name, extra_conf={"device": "cpu"})(x, lens)
+        err = (card.cpu() - cpu).abs().numpy()
+        want = cpu.numpy()
+        strong = want > np.median(want)
+        stats = (float(np.median(err)), float(np.percentile(err, 99)), float(err[strong].max()))
+        log(f"[sg] {name} on the card vs the CPU, B=8 x 2-10 s {tuple(card.shape)}: |err| "
+            f"median {stats[0]:.2e}, p99 {stats[1]:.2e}, max above the median {stats[2]:.2e}")
+        check(torch.equal(card_lens.cpu(), cpu_lens) and card.dtype == torch.float32
+              and stats[0] < 1e-3 and stats[1] < 1e-2 and stats[2] < 5e-3, f"{name} card vs CPU")
+    mix = (torch.randn(8, 15 * SR, generator=gen) * 0.1).to(dev)
+    spec = audio.stft_complex(mix)
+    back = audio.istft(spec, length=mix.shape[1])
+    err = float((back - mix).abs().max())
+    log(f"[sg] STFT -> iSTFT on the card, B=8 x 15 s ({tuple(spec.shape)} complex): max |x' - x| "
+        f"{err:.2e}")
+    check(back.shape == mix.shape and err < 1e-4, "STFT round trip")
+    x32 = (torch.randn(32, 10 * SR, generator=gen) * 0.1).to(dev)
+    lens32 = torch.full((32,), 10 * SR, device=dev)
+    fbank = SUpstream("fbank")
+    spec16 = audio.stft_complex(torch.cat([mix, mix]))
+    times = {"fbank entry B=32 x 10 s": cuda_ms(lambda: fbank(x32, lens32), 5),
+             "stft_complex B=8 x 15 s": cuda_ms(lambda: audio.stft_complex(mix), 10),
+             "istft B=16 x 15 s (SS's two sources)": cuda_ms(
+                 lambda: audio.istft(spec16, length=15 * SR), 10)}
+    log("[timing] " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()) + f"; {smi}")
+
+
+# recipe -> (upstream, forwards of its run: train steps, valid and test
+# batches, and the keys of its result.yaml)
+SG_RUNS = {
+    "SeExample": ({"name": "fbank"}, 0, {"loss", "si_sdr", "si_sdri", "stoi", "pesq"}),
+    "StExample": ({"name": "hubert_large_ll60k", "extra_conf": {
+        "dtype": "bf16", "flash": True, "quantize": True, "seed": 0}}, 4 + 2 + 1, {"bleu"}),
+}
+
+
+def check_sg_recipes(wrapper, exp_dir):
+    """SeExample on its default upstream (fbank on the card: no kernel)
+    and StExample over hubert_large_ll60k int8 through Problem.run (total
+    steps 4): each run's launches, result.yaml's keys and finite values."""
+    import yaml
+
+    import s3prl_tpu_torch.problem as problems
+
+    for name, (upstream, forwards, keys) in SG_RUNS.items():
+        t0 = time.perf_counter()
+        problem = getattr(problems, name)()
+        config = problem.default_config()
+        config.pop("target_dir")
+        config["build_upstream"] = upstream
+        config["train"] = {**config["train"], "tensorboard": False}
+        launches = speaker_recipe(problem, exp_dir / name, config, wrapper)
+        want = expect((forwards, PROBE_RUN))
+        check(launches == {k: want.get(k, 0) for k in wrapper}, f"{name} launches {launches}")
+        result = yaml.safe_load((exp_dir / name / "result.yaml").read_text())["test"]
+        check(set(result) == keys and all(np.isfinite(v) for v in result.values()),
+              f"{name} result.yaml {result}")
+        log(f"[recipe] {name} with {upstream['name']} in {time.perf_counter() - t0:.1f} s: "
+            f"{result}, launches {forwards} forwards x {PROBE_RUN if forwards else {}}")
+
+
+def sg_phase(wrapper, gen, dev, smi):
+    """Phase 11: the baseline front ends and SUPERB-SG's SE, SS and ST on the
+    card: the six entries against the CPU, the STFT round trip and their
+    times; one fixed-batch train step of each head over SUpstream's
+    HuBERT-Large int8 (launches, the loss falling, one update against the
+    CPU, timing, peak memory, idle share) and ST's greedy decoding; then
+    SeExample and StExample through Problem.run, in a temporary
+    directory."""
+    import tempfile
+    from pathlib import Path
+
+    from s3prl_tpu_torch.nn import SUpstream
+
+    t0 = time.perf_counter()
+    check_sg_features(gen, dev, smi)
+    sup = SUpstream(MODELS["hubert"], extra_conf={"dtype": torch.bfloat16, "flash": True,
+                                                  "quantize": True, "seed": 0})
+    log(f"[sg] the features and the upstream's load: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in SG:
+            t0 = time.perf_counter()
+            batch = sg_batch(name, gen, dev)
+            trainer = check_sg_training(name, sup.upstream, wrapper, batch, Path(tmp) / name)
+            check_sg_step_on_cpu(name, sup.upstream, trainer, batch)
+            time_recipe_step(name, sup.upstream, trainer, batch, smi)
+            if name == "st":
+                check_sg_decode(sup.upstream, batch, smi)
+            del trainer, batch
+            log(f"[sg] {name}: {time.perf_counter() - t0:.1f} s")
+        del sup
+        check_sg_recipes(wrapper, Path(tmp))
 
 
 def main():
@@ -4008,7 +4365,7 @@ def main():
                     continue
                 torch.cuda.reset_peak_memory_stats()
                 best = {it: min(it * cuda_ms(lambda: up.apply_standardized(wavs, lens_t), it)
-                                for _ in range(3))
+                                for _ in range(2))
                         for it in (it_lo, it_hi)}
                 per_iter = (best[it_hi] - best[it_lo]) / (it_hi - it_lo)
                 if label == "10 s":
@@ -4134,6 +4491,12 @@ def main():
     # CPU, their rates, the Example recipes and a HEAR k-fold recipe
     with Phase("10 recipes"):
         recipes_phase(wrapper, gen, dev, smi.splitlines()[0])
+    # 11. the baseline front ends and SUPERB-SG's SE, SS and ST: the six
+    # entries against the CPU, the STFT round trip, a step of each head, one
+    # update of each against the CPU, their rates, ST's greedy decoding,
+    # SeExample and StExample
+    with Phase("11 sg recipes"):
+        sg_phase(wrapper, gen, dev, smi.splitlines()[0])
     log(json.dumps({"kernels": [entries[name] for name in wrapper]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

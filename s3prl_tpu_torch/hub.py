@@ -7,7 +7,9 @@ Large aliases ``xlsr_53``, ``xls_r_300m``, ``xls_r_1b``, ``xls_r_2b``, ...),
 data2vec (``data2vec`` / ``data2vec_base_960``, ``data2vec_large_ll60k``),
 WavLM (``wavlm`` / ``wavlm_base``, ``wavlm_base_plus``, ``wavlm_large``) and
 UniSpeech-SAT (``unispeech_sat`` / ``unispeech_sat_base``,
-``unispeech_sat_base_plus``, ``unispeech_sat_large``); ``ckpt=`` loads a
+``unispeech_sat_base_plus``, ``unispeech_sat_large``), and the
+parameter-free baseline front ends ``fbank``, ``fbank_no_cmvn``, ``mfcc``,
+``spectrogram``, ``mel`` and ``linear`` (``device=`` only); ``ckpt=`` loads a
 local checkpoint, ``options()`` lists the names. Keywords: the int8 path's
 opt-in fused projections ``qkv_fuse`` / ``full_fuse`` (HuBERT, wav2vec2)
 and ``wavlm_fuse`` (WavLM), the front-end options ``int8_conv`` (int8),

@@ -8,7 +8,9 @@ from .common import (  # noqa: F401
     ter,
     wer,
 )
+from .bleu import corpus_bleu  # noqa: F401
 from .diarization import calc_diarization_error, der_from_accumulators  # noqa: F401
+from .quality import pesq, pesq_analytic, stoi  # noqa: F401
 from .slot_filling import (  # noqa: F401
     slot_edit_f1_full,
     slot_edit_f1_part,

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import warnings
 from typing import Optional, Sequence
 
 import torch
@@ -360,10 +361,17 @@ class LSTM(nn.LSTM):
     parameters that require grad). Valid frames depend on valid inputs only,
     as in flax; padded frames are zeros (flax's carry on over them). A row
     of 0 frames, which ``pack_padded_sequence`` refuses and flax runs, is
-    packed with one frame whose output is zeroed."""
+    packed with one frame whose output is zeroed.
 
-    def __init__(self, input_size: int, hidden_size: int, bidirectional: bool = True):
+    With `carry_padding`, padded frames are flax's too, for a consumer that
+    reads them (the SE / SS mask heads, whose reconstruction takes every
+    frame): two one-way cuDNN passes over the whole padded length
+    (`_carried`)."""
+
+    def __init__(self, input_size: int, hidden_size: int, bidirectional: bool = True,
+                 carry_padding: bool = False):
         super().__init__(input_size, hidden_size, batch_first=True, bidirectional=bidirectional)
+        self.carry_padding = carry_padding
         for name in self._flat_weights_names:
             if name.startswith("bias_ih"):
                 getattr(self, name).requires_grad_(False)
@@ -385,9 +393,38 @@ class LSTM(nn.LSTM):
                 else:
                     w.zero_()
 
+    def _carried(self, x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+        """flax's outputs on every frame, padded ones included: each
+        direction one unidirectional pass over the whole padded length, the
+        backward one over flax's flip of each row (valid frames reversed,
+        then the padding reversed: index (T - 1 - t + len) mod T, its own
+        inverse)."""
+        B, T, _ = x.shape
+        zeros = x.new_zeros(1, B, self.hidden_size)
+
+        def one_way(inputs, weights):
+            # cuDNN copies one direction's weights out of the module's flat
+            # buffer at each call (5 MB at hidden 256 and input 1,024) and
+            # warns that it does
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", "RNN module weights are not part")
+                return torch._VF.lstm(inputs, (zeros, zeros), weights, True, 1, 0.0,
+                                      self.training, False, True)[0]
+
+        w = self._flat_weights
+        out = one_way(x, w[:4])
+        if not self.bidirectional:
+            return out
+        t = torch.arange(T)[None, :]
+        flip = ((T - 1 - t + lens[:, None].cpu()) % T).to(x.device)[..., None]
+        back = one_way(x.gather(1, flip.expand(-1, -1, x.shape[-1])), w[4:])
+        return torch.cat([out, back.gather(1, flip.expand(-1, -1, back.shape[-1]))], dim=-1)
+
     def forward(self, xs: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
         """xs [B, T, C], lens [B] on the host -> [B, T, H x directions] f32."""
         xs = xs.to(self.weight_ih_l0.dtype)
+        if self.carry_padding:
+            return ieee_call(lambda x: self._carried(x, lens), xs, self._flat_weights)
         T = xs.shape[1]
         packed_lens = lens.clamp(min=1).to(torch.int64)
 
@@ -411,16 +448,17 @@ class RNNEncoder(nn.Module):
 
     `xs_len` should be a host tensor: ``pack_padded_sequence`` takes its
     lengths on the host, so a device tensor costs a sync here (the CTC
-    task hands the module host lengths)."""
+    task hands the module host lengths). `carry_padding`: flax's outputs
+    on the padded frames too (`LSTM`)."""
 
     def __init__(self, input_size: int, output_size: int, hidden_size: int = 1024,
                  num_layers: int = 2, bidirectional: bool = True, dropout: float = 0.2,
-                 proj_size: int = 1024):
+                 proj_size: int = 1024, carry_padding: bool = False):
         super().__init__()
         self.num_layers, self.p = num_layers, dropout
         for i in range(num_layers):
             self.add_module(f"lstm_{i}", LSTM(input_size if i == 0 else proj_size, hidden_size,
-                                              bidirectional))
+                                              bidirectional, carry_padding))
             self.add_module(f"proj_{i}", Dense(hidden_size * (2 if bidirectional else 1),
                                                proj_size))
         self.final = Dense(proj_size, output_size)

@@ -60,3 +60,5 @@ from .hear import (  # noqa: F401
     HearVoxLingual,
 )
 from .mos import MosExample, MosPrediction  # noqa: F401
+from .enhancement import SeExample, SuperbSE, SuperbSS  # noqa: F401
+from .translation import StExample, SuperbST  # noqa: F401

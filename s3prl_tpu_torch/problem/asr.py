@@ -13,7 +13,7 @@ single-file transcription (`CommonProblem.inference`, greedy CTC).
 As in the JAX package, `SuperbPR`'s `PhonemeTokenizer` splits the
 transcripts on spaces: there is no G2P step, so on LibriSpeech's word
 transcripts its "phonemes" are words. The recipes' default upstream
-(``fbank``) is not ported: a run names a trunk entry in ``build_upstream``.
+is ``fbank``; a run may name a trunk entry in ``build_upstream``.
 """
 
 from __future__ import annotations

@@ -15,8 +15,8 @@ recipes do. It embeds VoxCeleb1's test speakers, which training never sees
 and the encoder does not hold: the port gives them class id -1
 (`SpeakerDataset`; the JAX recipes' dataset raises a KeyError there, so
 their stage 3 runs only where the test speakers are training speakers, as
-in the Example recipes). The recipes' default upstream (``fbank``) is not
-ported: a run names a trunk entry in ``build_upstream``. As in the JAX
+in the Example recipes). The recipes' default upstream is ``fbank``; a run
+may name a trunk entry in ``build_upstream``. As in the JAX
 package, the loaders pad to 1-s buckets of at most ``bucket_max`` samples
 (30 s by default), and a longer utterance fails the collation: VoxCeleb1's
 test split needs a larger ``bucket_max``.

@@ -8,11 +8,11 @@ superb_er.py:188-207): stage 0 prepare_data -> CSVs, stage 1 category
 encoder, stage 2 frozen-upstream weighted-sum training, stage 3 evaluate
 every test CSV into result.yaml.
 
-The recipes' default upstream is the JAX package's ``fbank``, which is not
-ported (ROADMAP.md Queue 1 item 8): it raises at load, so a run names a
-trunk entry in ``build_upstream``, e.g. ``{"name": "hubert_large_ll60k",
-"extra_conf": {"dtype": "bf16", "flash": True, "quantize": True}}``
-(``extra_conf`` also takes ``device="cpu"``). `CommonProblem.inference`
+The recipes' default upstream is ``fbank`` (the Kaldi baseline front end,
+`models/baseline.py`, on the card); a run may name a trunk entry in
+``build_upstream``, e.g. ``{"name": "hubert_large_ll60k", "extra_conf":
+{"dtype": "bf16", "flash": True, "quantize": True}}`` (``extra_conf`` also
+takes ``device="cpu"``). `CommonProblem.inference`
 predicts one WAV or FLAC file with the trained probe (the legacy ``-m
 inference``).
 """
@@ -287,8 +287,8 @@ class CommonExample(CommonProblem):
     """Smoke-test recipe on pseudo audio (reference: problem/common/example.py).
 
     Generates deterministic noise wavs with random labels; runs all stages
-    in seconds on a tiny upstream. Its default upstream (``fbank``) is not
-    ported: pass ``build_upstream``.
+    in seconds on a tiny upstream (its default, ``fbank``, or any entry
+    in ``build_upstream``).
     """
 
     def default_config(self) -> dict:

@@ -7,8 +7,8 @@ windows (20 s: 2,000 frames of 160 samples), stage 1 (no encoder needed),
 stage 2 train the frame-level LSTM head with permutation-invariant BCE
 (Adam 1e-4, 30k steps, accum 4), stage 3 accumulate DER over test chunks
 (valid_best, else the newest step) and write the hypothesis RTTM. The
-recipes' default upstream (``fbank``) is not ported: a run names a trunk
-entry in ``build_upstream``.
+recipes' default upstream is ``fbank``; a run may name a trunk entry in
+``build_upstream``.
 """
 
 from __future__ import annotations

@@ -16,8 +16,8 @@ Behavioral spec per expert config.yaml + expert.py:
   (modelrc select FrameLevel, projector 256), 200k steps, accum 4.
 
 Frame labels are padded with -100 into 1-s buckets of at most 30 s, as in
-the JAX package. The recipes' default upstream (``fbank``) is not ported: a
-run names a trunk entry in ``build_upstream``.
+the JAX package. The recipes' default upstream is ``fbank``; a run
+may name a trunk entry in ``build_upstream``.
 """
 
 from __future__ import annotations

@@ -12,8 +12,8 @@ As in the JAX package, the event loader pads to 1-s buckets of at most 30
 s, so a longer clip (DCASE 2016 Task 2's 120-s recordings) fails the
 collation (the scene recipes take CommonProblem's ``bucket_max``); the
 event labels are 10-ms frames, cut by the task to the states' 20-ms frames.
-The recipes' default upstream (``fbank``) is not ported: a run names a
-trunk entry in ``build_upstream``.
+The recipes' default upstream is ``fbank``; a run may name a trunk entry
+in ``build_upstream``.
 """
 
 from __future__ import annotations

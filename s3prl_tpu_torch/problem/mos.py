@@ -11,8 +11,8 @@ Train CSVs carry one row per (wav, judge) rating: columns
 id, wav_path, mean (per-wav average score), mos (this judge's score),
 judge_id (int), system_name. Test CSVs need one row per wav (mean only).
 The loaders pad to 1-s buckets of at most 30 s, as in the JAX package. The
-recipes' default upstream (``fbank``) is not ported: a run names a trunk
-entry in ``build_upstream``.
+recipes' default upstream is ``fbank``; a run may name a trunk entry in
+``build_upstream``.
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ Each utterance is extracted alone (B = 1), cut at ``max_secs``, so the
 frozen forward sees every length from a short query to a 30-s document;
 the chosen layer's features stay on the upstream's device, where
 `ops.dtw.qbe_scores` scores every pair. The recipes' default upstream
-(``fbank``) is not ported: a run names a trunk entry in ``build_upstream``.
+is ``fbank``; a run may name a trunk entry in ``build_upstream``.
 """
 
 from __future__ import annotations

@@ -9,8 +9,8 @@ sampled from the complement); evaluation embeds every test pair and reports
 the loss and the pairs' retrieval AUC (the official ATWV/MTWV scoring runs
 in the benchmark's external toolkit). A batch holds its queries then its
 documents, padded together into one 1-s bucket of at most 30 s. The
-recipes' default upstream (``fbank``) is not ported: a run names a trunk
-entry in ``build_upstream``.
+recipes' default upstream is ``fbank``; a run may name a trunk entry in
+``build_upstream``.
 """
 
 from __future__ import annotations

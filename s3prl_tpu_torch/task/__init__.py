@@ -21,3 +21,5 @@ from .hear import (  # noqa: F401
     roc_auc,
 )
 from .mos_prediction import MosDownstreamModule, MosPredictionTask  # noqa: F401
+from .enhancement import EnhancementTask, SeparationTask, si_sdr  # noqa: F401
+from .speech_translation import SpeechTranslationTask  # noqa: F401

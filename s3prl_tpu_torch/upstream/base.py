@@ -9,6 +9,7 @@ h_len = floor((wav_len - 1) / stride) + 1.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 
 import torch
@@ -66,7 +67,9 @@ class Upstream:
 
     @property
     def device(self) -> torch.device:
-        return next(self.model.parameters()).device
+        """The model's device: its first parameter's, or for a
+        parameter-free model (the baseline front ends) its first buffer's."""
+        return next(itertools.chain(self.model.parameters(), self.model.buffers())).device
 
     def _inputs(self, wavs, wav_lens):
         """wavs [B, T] (or [B, T, 1]) and wav_lens [B] as tensors on the

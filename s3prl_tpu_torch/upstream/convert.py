@@ -396,7 +396,12 @@ def probe_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]
     ``bias``, the featurizer's ``weights`` and the task parameters at the
     top of the tree (``am_weight`` [D, C], ``ge2e_w``, ``ge2e_b``) as they
     are, flax ``nn.Embed``'s ``embedding`` [num, features] -> ``nn.Embedding``'s
-    ``weight`` (the same orientation). LSTM cells ``OptimizedLSTMCell_{k}`` (flax names them in creation
+    ``weight`` (the same orientation), ``nn.LayerNorm``'s ``scale`` ->
+    ``weight``. A speech-translation tree ``{"encoder": ..., "decoder":
+    ...}`` maps onto `SpeechTranslationTask`'s module of the same two
+    names (the decoder's ``embed``, ``self_{i}`` / ``cross_{i}`` q, k, v,
+    out, ``ln_*``, ``fc1_{i}`` / ``fc2_{i}``, ``output``, ``memory_proj``
+    keep their names). LSTM cells ``OptimizedLSTMCell_{k}`` (flax names them in creation
     order) -> ``lstm_{layer}`` (`_lstm_cell`): RNNEncoder has one
     ``proj_{i}`` a layer, so its cells a layer are the directions (layer 0
     forward, layer 0 backward, layer 1 forward, ...; one a layer when
@@ -420,7 +425,8 @@ def probe_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]
             elif name == "kernel":
                 kernel = np.asarray(value)
                 sd[f"{prefix}weight"] = _tensor(kernel.T) if kernel.ndim == 2 else _conv(kernel)
-            elif name == "embedding":  # nn.Embed [num, features] -> nn.Embedding.weight
+            elif name in ("embedding", "scale"):  # nn.Embed [num, features] ->
+                # nn.Embedding.weight; nn.LayerNorm's scale -> weight
                 sd[f"{prefix}weight"] = _tensor(value)
             else:
                 sd[key] = _tensor(value)

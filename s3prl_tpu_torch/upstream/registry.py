@@ -19,7 +19,12 @@ Ported entries, with the JAX package's names and configurations
   and UniSpeech-SAT, which shares them: ``unispeech_sat`` /
   ``unispeech_sat_base``, ``unispeech_sat_base_plus``,
   ``unispeech_sat_large``;
-each in f32, bf16 and int8 W8A8 (``quantize=True``, the serving default),
+- the parameter-free baseline front ends (models/baseline.py: one layer,
+  stride 160, f32 features computed on the model's device): ``fbank``,
+  ``fbank_no_cmvn``, ``mfcc``, ``spectrogram``, ``mel``, ``linear``, which
+  take ``device=`` and `baseline_features`' keywords and none of the
+  trunks';
+the trunks each in f32, bf16 and int8 W8A8 (``quantize=True``, the serving default),
 the int8 path with its opt-in fused projections (``qkv_fuse``,
 ``full_fuse``; ``wavlm_fuse``), the front-end options ``int8_conv`` (HuBERT
 int8), ``fused_conv`` and ``fused_midln``, and the pos-conv options
@@ -47,6 +52,7 @@ from typing import Callable, Dict, List
 import torch
 import torch.nn as nn
 
+from ..models.baseline import BASELINE_CONFIGS, BaselineFeatures
 from ..models.hubert import HUBERT_BASE, HUBERT_LARGE
 from ..models.transformer import SelfAttention
 from ..models.wav2vec2 import BASE, LARGE, Wav2Vec2Config, Wav2Vec2Trunk, card_refusal
@@ -56,9 +62,6 @@ from .base import TrunkUpstream, Upstream
 from .convert import load_trunk_checkpoint, load_wavlm_checkpoint
 
 _REGISTRY: Dict[str, Callable[..., Upstream]] = {}
-# the JAX registry's parameter-free front ends (registry.py:83-90), e.g. the
-# recipes' default "fbank": not ported
-BASELINES = ("fbank", "fbank_no_cmvn", "mfcc", "spectrogram", "mel", "linear")
 
 
 def register(name: str):
@@ -101,10 +104,6 @@ def load(name: str, **kwargs) -> Upstream:
     bare state_dict keeps the entry's). Every check above runs on that
     configuration before the model is allocated. ``download=True`` raises
     NotImplementedError: the port downloads nothing."""
-    if name in BASELINES:
-        raise NotImplementedError(
-            f"'{name}': the baseline front ends (models/baseline.py with ops/audio.py) are "
-            "not ported (ROADMAP.md Queue 1 item 8): load a trunk entry")
     if name not in _REGISTRY:
         raise KeyError(f"unknown upstream '{name}'; available: {options()}")
     if kwargs.pop("download", False) and kwargs.get("ckpt") is None:
@@ -189,6 +188,25 @@ def _trunk_upstream(name: str, cfg: Wav2Vec2Config, dtype=torch.float32,
     up_cls = Upstream if wavlm else TrunkUpstream
     return up_cls(name=name, model=model, num_layers=cfg.encoder_layers + 1,
                   hidden_size=cfg.encoder_embed_dim, downsample_rate=cfg.downsample_rate)
+
+
+# the parameter-free baseline front ends (registry.py:77-101): one "layer",
+# the frame shift's stride, the reference yaml configs' feature dims
+BASELINE_DIMS = {"fbank": 80 * 3, "fbank_no_cmvn": 80, "mfcc": 13 * 3, "spectrogram": 257,
+                 "mel": 80, "linear": 201}
+
+
+def _baseline_entry(config_name: str):
+    def factory(device=None, **overrides) -> Upstream:
+        model = BaselineFeatures(config_name, device=_device(device), **overrides)
+        return Upstream(name=config_name, model=model, num_layers=1,
+                        hidden_size=BASELINE_DIMS[config_name],
+                        downsample_rate=model.stride)
+    return factory
+
+
+for _name in BASELINE_CONFIGS:
+    _REGISTRY[_name] = _baseline_entry(_name)
 
 
 # wav2vec2 derives its feature lengths with strict conv arithmetic

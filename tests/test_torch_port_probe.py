@@ -36,6 +36,7 @@ from s3prl_tpu.train.optimizers import build_optimizer as jax_build_optimizer
 from s3prl_tpu.train.optimizers import build_scheduler as jax_build_scheduler
 from s3prl_tpu.util.pseudo_data import _write_wav
 from s3prl_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Trunk
+from test_torch_port_audio import quantile_rule
 from s3prl_tpu_torch.nn.upstream import Featurizer, SUpstream, UpstreamDownstreamModel
 from s3prl_tpu_torch.train import checkpoint as ckpt
 from s3prl_tpu_torch.train.optimizers import Optimizer, build_scheduler
@@ -257,14 +258,29 @@ def test_supstream_matches_jax(tiny_pair, normalize):
 
 def test_supstream_loads_hub_entries(monkeypatch):
     """extra_conf holds hub.load's keywords (a dtype by name, as YAML gives
-    it); the recipes' default "fbank" is not ported and says so."""
+    it); the recipes' default "fbank" loads (on the CPU when asked: without
+    CUDA its default device, the card, raises) and equals JAX's: one layer
+    of 240 (80 mel bins, two orders of deltas, CMVN), stride 160, the
+    features by `test_torch_port_audio`'s quantile rule."""
     monkeypatch.setattr(port_registry, "HUBERT_LARGE", Wav2Vec2Config(**TINY))
     sup = SUpstream("hubert_large_ll60k", extra_conf={"dtype": "bf16", "flash": True,
                                                       "quantize": True, "device": "cpu"})
     layer = sup.upstream.model.encoder.layers[0]
     assert layer.quantize and layer.dtype == torch.bfloat16 and sup.num_layers == 3
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        SUpstream("fbank")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SUpstream("fbank")
+    fbank = SUpstream("fbank", extra_conf={"device": "cpu"})
+    assert fbank.num_layers == 1 and fbank.hidden_sizes == [240]
+    assert fbank.downsample_rates == [160]
+    rng = np.random.RandomState(9)
+    lens = np.asarray([9600, 5000, 3200], np.int32)
+    wavs = (rng.randn(3, 9600) * 0.1 * (np.arange(9600) < lens[:, None])).astype(np.float32)
+    want, want_lens = JaxSUpstream("fbank")(jnp.asarray(wavs), jnp.asarray(lens))
+    got, got_lens = fbank(torch.from_numpy(wavs), torch.from_numpy(lens))
+    np.testing.assert_array_equal(got_lens.numpy(), np.asarray(want_lens))
+    assert got.shape == want.shape == (1, 3, 60, 240) and got.dtype == torch.float32
+    quantile_rule(got.numpy(), np.asarray(want), "fbank")
 
 
 def test_upstream_train_mode(tiny_pair):

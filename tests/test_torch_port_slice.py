@@ -228,8 +228,9 @@ def test_registry_refuses_what_is_not_ported(monkeypatch, tmp_path):
         Wav2Vec2Trunk(Wav2Vec2Config(layer_type="conformer"), device="meta")
     assert hub.options() == [
         "contentvec", "contentvec_km100", "contentvec_km500", "data2vec", "data2vec_base_960",
-        "data2vec_large_ll60k", "hubert", "hubert_base", "hubert_base_robust_mgr",
-        "hubert_large_ll60k", "mhubert_base_vp_en_es_fr_it3", "ms_hubert", "unispeech_sat",
+        "data2vec_large_ll60k", "fbank", "fbank_no_cmvn", "hubert", "hubert_base",
+        "hubert_base_robust_mgr", "hubert_large_ll60k", "linear", "mel", "mfcc",
+        "mhubert_base_vp_en_es_fr_it3", "ms_hubert", "spectrogram", "unispeech_sat",
         "unispeech_sat_base", "unispeech_sat_base_plus", "unispeech_sat_large", "wav2vec2",
         "wav2vec2_base_960", "wav2vec2_large_960", "wav2vec2_large_ll60k",
         "wav2vec2_large_lv60_cv_swbd_fsh", "wav2vec2_large_voxpopuli_100k", "wavlm",
@@ -287,6 +288,11 @@ def test_port_never_imports_jax():
         "import s3prl_tpu_torch.task.qbe_embedding, s3prl_tpu_torch.task.hear\n"
         "import s3prl_tpu_torch.problem.hear, s3prl_tpu_torch.task.mos_prediction\n"
         "import s3prl_tpu_torch.problem.mos\n"
+        "import s3prl_tpu_torch.ops.audio, s3prl_tpu_torch.models.baseline\n"
+        "import s3prl_tpu_torch.metric.quality, s3prl_tpu_torch.metric.bleu\n"
+        "import s3prl_tpu_torch.task.enhancement, s3prl_tpu_torch.problem.enhancement\n"
+        "import s3prl_tpu_torch.ops.attention, s3prl_tpu_torch.models.decoder\n"
+        "import s3prl_tpu_torch.task.speech_translation, s3prl_tpu_torch.problem.translation\n"
         "assert len(s3prl_tpu_torch.kernels.wrappers()) == 19\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 's3prl_tpu')]\n"

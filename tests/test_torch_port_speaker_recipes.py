@@ -162,9 +162,11 @@ def test_sd_recipe_matches_jax(tmp_path, same_states, monkeypatch):
 @pytest.mark.parametrize("name", RECIPES)
 def test_default_config_matches_jax(name):
     """The eight recipes' defaults, key for key; the default upstream
-    (fbank) is not ported and raises, naming Queue 1 item 8."""
+    (fbank) builds: one layer of 240 at stride 160."""
     assert getattr(port_problem, name)().default_config() == \
         getattr(jax_problem, name)().default_config()
     if name in ("SuperbASV", "SuperbSD"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            getattr(port_problem, name)().build_upstream(name="fbank")
+        up = getattr(port_problem, name)().build_upstream(name="fbank",
+                                                          extra_conf={"device": "cpu"})
+        assert up.num_layers == 1 and up.downsample_rates == [160]
+        assert up.hidden_sizes == [240]
