@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch + CUDA port (s3prl_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 12]
 
 Phases (any failed check raises, so the exit code is not 0 and no result
-line is printed; each phase prints its seconds):
+line is printed; each phase prints its seconds; ``--phases`` runs 1, 2 and
+the phases it lists, 3-6 together, and prints no result line):
  1. require a CUDA device; print the card's name and power limit;
  2. build the CUDA kernels from csrc/ (into build/) and print the seconds;
     for the tensor-core kernels - on wgmma the attention (gated_attention.cu:
@@ -314,6 +315,21 @@ line is printed; each phase prints its seconds):
     ST's greedy decoding to 128 tokens timed, with the share of rows whose
     tokens match the CPU's; SeExample on fbank (no kernel) and StExample on
     HuBERT-Large int8 through Problem.run, their result.yaml.
+12. SUPERB's SLU recipes and the mel-domain upstreams (`slu_phase`): the
+    nine models behind the ten new hub names (mockingjay, tera,
+    audio_albert, apc, vq_apc, npc, mos_prediction = mos_wav2vec2, mos_apc,
+    mos_tera) at their published widths from seed 0 on the card and on the
+    CPU at B=8 x 2-10 s (the hidden states' |err| median < 1e-3 and p99 <
+    1e-2 over the valid frames and each layer's cosine > 0.999; the MOS
+    scores within 1e-3), each forward timed with its audio-s/s; the
+    SluATIS (B=1 x 2-4 s) and MoseiSentiment (B=3 x 3-10 s) heads from
+    their recipes' default configs over HuBERT-Large int8: six micro-steps
+    at accumulation 2 (K3 once, K1 and K2 24 times a micro-step, every
+    other count 0; the C entries of one forward; the losses logged), one
+    update against the CPU (losses and gradient norms at rtol
+    1e-3, update cosines > 0.999, the shifts within 2 lr), each micro-step
+    and the frozen forward timed with the peak memory and the idle share;
+    SluExample through Problem.run over HuBERT-Large int8.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -4060,7 +4076,306 @@ def sg_phase(wrapper, gen, dev, smi):
         check_sg_recipes(wrapper, Path(tmp))
 
 
+# the SLU and mel-upstream phase: the nine models behind the ten new hub names
+# (mos_wav2vec2 is mos_prediction's alias) at their published widths from
+# seed 0, and SluATIS's / MoseiSentiment's heads from their recipes' default
+# configs (the transformer head 512 / 2 layers / 8 heads / FFN 2,048 over 26
+# ATIS intents; UtteranceLevel(256, MeanPooling) over 2 sentiment classes;
+# AdamW 2e-4) over SUpstream's HuBERT-Large int8
+MEL_MODELS = ("mockingjay", "tera", "audio_albert", "apc", "vq_apc", "npc", "mos_prediction",
+              "mos_apc", "mos_tera")
+MEL_ITERS = 3
+# family -> (recipe, batch rows, seconds (a range), padded seconds, classes)
+SLU = {"slu": ("SluATIS", 1, (2.0, 4.0), 4, 26), "mosei": ("MoseiSentiment", 3, (3.0, 10.0), 10, 2)}
+SLU_ACCUMULATE, SLU_STEPS, SLU_COS = 2, 6, 0.999
+# shifts: each adds one value to every score of a softmax row, so its
+# gradient is zero but for rounding
+SLU_SHIFTS = ("sap.attn.bias", "attention.self.key.bias")
+
+
+def check_mel_models(gen, dev, smi):
+    """The nine models on the card and on the CPU (the same seed's weights,
+    drawn on the CPU) on B=8 x 2-10 s: |err| of the hidden states over the
+    valid frames (median, p99, max) and each layer's cosine there, the MOS
+    scores' |err|; each model's forward on the card timed (CUDA events) with
+    its audio-s/s."""
+    from s3prl_tpu_torch import hub
+
+    rng = np.random.RandomState(12)
+    lens = torch.from_numpy(np.concatenate([[10 * SR], rng.randint(2 * SR, 10 * SR, 7)]))
+    x = torch.randn(8, 10 * SR, generator=gen) * 0.1 * (torch.arange(10 * SR)[None] <
+                                                        lens[:, None])
+    xd, ld = x.to(dev), lens.to(dev)
+    audio = float(lens.sum()) / SR
+    for name in MEL_MODELS:
+        t0 = time.perf_counter()
+        card, cpu = hub.load(name, seed=0), hub.load(name, seed=0, device="cpu")
+        loaded = time.perf_counter() - t0
+        hs, h_lens = card.apply_standardized(xd, ld)
+        t0 = time.perf_counter()
+        ref, ref_lens = cpu.apply_standardized(x, lens)
+        cpu_s = time.perf_counter() - t0
+        hs = hs.float().cpu()
+        check(tuple(hs.shape) == tuple(ref.shape) and torch.equal(h_lens.cpu(), ref_lens)
+              and bool(torch.isfinite(hs).all()), f"{name} card vs CPU shapes")
+        valid = torch.arange(hs.shape[2])[None] < ref_lens[:, None]
+        err = (hs - ref).abs()[:, valid]
+        if name.startswith("mos_"):
+            scores, want = hs[0, :, 0, 0], ref[0, :, 0, 0]
+            detail = (f"scores {' '.join(f'{v:.4f}' for v in scores.tolist())}, max |err| "
+                      f"{float(err.max()):.2e}")
+            ok = float(err.max()) < 1e-3
+        else:
+            a, b = hs[:, valid].double(), ref[:, valid].double()
+            coss = [float((u * v).sum() / (u.norm() * v.norm())) for u, v in zip(a, b)]
+            stats = (float(err.median()), float(np.percentile(err.numpy(), 99)),
+                     float(err.max()))
+            detail = (f"|err| median {stats[0]:.2e}, p99 {stats[1]:.2e}, max {stats[2]:.2e}, "
+                      f"layer cosines min {min(coss):.6f}")
+            ok = stats[0] < 1e-3 and stats[1] < 1e-2 and min(coss) > 0.999
+        ms = cuda_ms(lambda: card.apply_standardized(xd, ld), MEL_ITERS)
+        params = sum(p.numel() for p in card.model.parameters()) / 1e6
+        log(f"[mel] {name} ({params:.1f}M parameters, {card.num_layers} x "
+            f"{card.hidden_size}) B=8 x 2-10 s {tuple(hs.shape)} on the card vs the CPU: "
+            f"{detail}; {ms:.2f} ms a forward ({audio / (ms / 1e3):.1f} audio-s/s); loads "
+            f"{loaded:.1f} s, CPU forward {cpu_s:.1f} s; {smi}")
+        check(ok, f"{name} card vs CPU")
+        del card, cpu, hs, ref
+
+
+def slu_task(name, up):
+    """Family `name`'s task over `up`, built by its recipe from the recipe's
+    default config (its encoder over the family's class count)."""
+    import types
+
+    import s3prl_tpu_torch.problem as problems
+    from s3prl_tpu_torch.data import CategoryEncoder
+
+    recipe = getattr(problems, SLU[name][0])()
+    config = recipe.default_config()
+    sup = types.SimpleNamespace(num_layers=up.num_layers, hidden_sizes=up.hidden_sizes)
+    encoder = CategoryEncoder([f"class{i:02d}" for i in range(SLU[name][4])])
+    return recipe.build_task(sup, encoder, config), config
+
+
+def slu_batches(name, gen, dev):
+    """The family's two fixed batches (seeds 0 and 1; the second for the
+    update against the CPU): waves of lengths drawn from its range (the
+    first row of the first batch the longest), padded to its bucket, with
+    class ids."""
+    _, B, secs, padded, classes = SLU[name]
+    out = []
+    for seed in (0, 1):
+        rng = np.random.RandomState(seed)
+        lens = rng.randint(int(secs[0] * SR), int(secs[1] * SR) + 1, B)
+        if seed == 0:
+            lens[0] = int(secs[1] * SR)
+        n = padded * SR
+        valid = torch.arange(n)[None] < torch.from_numpy(lens)[:, None]
+        out.append({"x": (torch.randn(B, n, generator=gen) * 0.1 * valid).to(dev),
+                    "x_len": torch.from_numpy(lens).to(dev),
+                    "class_id": rng.randint(0, classes, B).astype(np.int32)})
+    return out
+
+
+def slu_dropout(task, p):
+    """Sets the SLU head's encoder dropout to p (MoseiSentiment's head has none)."""
+    import dataclasses
+
+    from s3prl_tpu_torch.models.mockingjay import MockingjayConfig
+
+    for m in task.module.modules():
+        if isinstance(getattr(m, "cfg", None), MockingjayConfig):
+            m.cfg = dataclasses.replace(m.cfg, hidden_dropout_prob=p)
+
+
+def check_slu_training(name, up, wrapper, batches, exp_dir):
+    """SLU_STEPS micro-steps of the family's task on its first batch
+    through the Trainer (accumulation SLU_ACCUMULATE): each step's launches
+    (K3 once, K1 and K2 24 times; every other count 0; the counts set to 0
+    just before the step and read just after), the upstream in eval() and
+    the head in train(), the loss and gradient norm finite. The losses are
+    logged, not gated: on the random trunk's states AdamW's first moves of
+    2e-4 overshoot MoseiSentiment's mean-pooled head (0.665 -> 1.363 ->
+    1.169 on one fixed batch, the same update on the CPU)."""
+    from s3prl_tpu_torch.train import Trainer, TrainerConfig
+
+    recipe, B, secs, padded, classes = SLU[name]
+    task, config = slu_task(name, up)
+    trainer = Trainer(up, task, exp_dir, TrainerConfig(
+        total_steps=1000, tensorboard=False, gradient_accumulate=SLU_ACCUMULATE,
+        optimizer=config["build_optimizer"]))
+    trainer.init(resume=False)
+    losses = []
+    for _ in range(SLU_STEPS):
+        for w in wrapper.values():
+            w.launches = 0
+        loss, _, grad_norm = trainer.train_step(batches[0])
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrapper.items()}
+        check(launches == {k: PROBE_RUN.get(k, 0) for k in wrapper},
+              f"{name} step launches {launches}")
+        check(not up.model.training and trainer.task.module.training,
+              "the upstream left eval() or the head left train()")
+        losses.append(float(loss))
+        check(np.isfinite(losses[-1]) and np.isfinite(float(grad_norm)), f"{name} loss {losses}")
+    entries = launched_entries(lambda: up(batches[0]["x"], batches[0]["x_len"]))
+    counted = {e: entries.count(e) for e in sorted(set(entries))}
+    head = trainer.task.module.downstream
+    log(f"[slu] {name} ({recipe}'s head {type(head).__name__}, {classes} classes) hubert int8 "
+        f"B={B} x {secs[0]:.0f}-{secs[1]:.0f} s padded to {padded} s "
+        f"({(padded * SR - 1) // 320 + 1} frames), {config['build_optimizer']}, accumulation "
+        f"{SLU_ACCUMULATE} (the recipe's {config['train']['gradient_accumulate']}): launches a "
+        f"micro-step {PROBE_RUN} (every other count 0), the C entries of one frozen forward "
+        f"{counted}; losses over {SLU_STEPS} micro-steps " + " ".join(f"{v:.5f}" for v in losses))
+    return trainer
+
+
+def check_slu_update_on_cpu(name, up, trainer, batches):
+    """One update (two micro-steps, accumulation 2) of the head from the
+    card's states, on the card and on the CPU from the same weights and
+    optimizer state (dropout off on both): each micro-step's loss and
+    gradient norm at rtol 1e-3, each parameter's update at cosine >
+    SLU_COS (SLU_SHIFTS within 2 lr)."""
+    import copy
+
+    from s3prl_tpu_torch.train import Optimizer
+    from s3prl_tpu_torch.train.optimizers import global_norm
+
+    states = [up(b["x"], b["x_len"]) for b in batches]
+    task_cpu, config = slu_task(name, up)
+    task_cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                     trainer.task.module.state_dict().items()})
+    for t in (trainer.task, task_cpu):
+        slu_dropout(t, 0.0)
+    state = trainer.optimizer.state_dict()
+    check(state["mini_step"] == 0, f"{name}: mid-accumulation")
+    optimizer = config["build_optimizer"]
+
+    def update(task, device):
+        opt = Optimizer(task.module.parameters(), total_steps=1000, gradient_clipping=1.0,
+                        gradient_accumulate=SLU_ACCUMULATE, **optimizer)
+        opt.load_state_dict(copy.deepcopy(state))
+        out = []
+        for (hs, h_lens), batch in zip(states, batches):
+            rows = {k: v.to(device) if torch.is_tensor(v) else v for k, v in batch.items()}
+            loss, _ = task.loss_and_cache(hs.to(device), h_lens.to(device), rows, None, True)
+            loss.backward()
+            out += [float(loss.detach()), float(global_norm([p.grad for p in opt.params
+                                                             if p.grad is not None]))]
+            stepped = opt.step()
+        check(stepped, f"{name}: the update was not applied")
+        return out
+
+    before = {k: v.detach().cpu().clone() for k, v in trainer.task.module.state_dict().items()}
+    card = update(trainer.task, up.device)
+    t0 = time.perf_counter()
+    cpu = update(task_cpu, "cpu")
+    seconds = time.perf_counter() - t0
+    slu_dropout(trainer.task, 0.1)  # the recipe's
+    after_card, after_cpu = trainer.task.module.state_dict(), task_cpu.module.state_dict()
+    coss, shifts = {}, {}
+    for k, p0 in before.items():
+        a = (after_card[k].cpu() - p0).double().flatten()
+        b = (after_cpu[k] - p0).double().flatten()
+        if k.endswith(SLU_SHIFTS):
+            shifts[k] = float((a - b).abs().max())
+        elif a.norm() > 0 or b.norm() > 0:
+            coss[k] = float(a @ b / (a.norm() * b.norm()))
+    rel = max(abs(g / c - 1) for g, c in zip(card, cpu))
+    lr = optimizer["lr"]
+    worst = sorted(coss.items(), key=lambda kv: kv[1])[:4]
+    log(f"[slu] {name}: one update (accumulation {SLU_ACCUMULATE}) from the card's states "
+        f"{[tuple(h.shape) for h, _ in states]} {states[0][0].dtype}, card vs CPU "
+        f"({seconds:.1f} s on the CPU): losses / grad norms card "
+        + " ".join(f"{v:.6f}" for v in card) + " CPU " + " ".join(f"{v:.6f}" for v in cpu)
+        + f" (rel {rel:.2e})"
+        + (f", shifts apart by at most {max(shifts.values()):.2e} (lr {lr})" if shifts else "")
+        + f", update cosines over {len(coss)} tensors min {min(coss.values()):.6f}: "
+        + " ".join(f"{k.replace('downstream.', '')} {c:.6f}" for k, c in worst))
+    check(rel < 1e-3 and min(coss.values()) > SLU_COS
+          and all(d <= 2 * lr for d in shifts.values()), f"{name} update card vs CPU")
+
+
+def check_slu_example(wrapper, exp_dir):
+    """SluExample through Problem.run over hubert_large_ll60k int8 (4
+    micro-steps, accumulation 2, valid every 2: 4 + 4 + 2 forwards): its
+    launches and result.yaml's accuracy."""
+    import yaml
+
+    import s3prl_tpu_torch.problem as problems
+
+    t0 = time.perf_counter()
+    problem = problems.SluExample()
+    config = problem.default_config()
+    config.pop("target_dir")
+    config["build_upstream"] = {"name": "hubert_large_ll60k", "extra_conf": {
+        "dtype": "bf16", "flash": True, "quantize": True, "seed": 0}}
+    config["train"] = {**config["train"], "tensorboard": False}
+    forwards = 4 + 4 + 2
+    launches = speaker_recipe(problem, exp_dir / "SluExample", config, wrapper)
+    want = expect((forwards, PROBE_RUN))
+    check(launches == {k: want.get(k, 0) for k in wrapper}, f"SluExample launches {launches}")
+    result = yaml.safe_load((exp_dir / "SluExample" / "result.yaml").read_text())["test"]
+    check(set(result) == {"accuracy", "loss"} and 0.0 <= result["accuracy"] <= 1.0
+          and np.isfinite(result["loss"]), f"SluExample result.yaml {result}")
+    log(f"[recipe] SluExample with hubert_large_ll60k int8 in {time.perf_counter() - t0:.1f} s: "
+        f"{result}, launches {forwards} forwards x {PROBE_RUN}")
+
+
+def slu_phase(wrapper, gen, dev, smi):
+    """Phase 12: the mel-domain upstreams and the MOS predictors against the
+    CPU with their rates; the SluATIS (B=1) and MoseiSentiment (B=3)
+    micro-steps over SUpstream's HuBERT-Large int8 (launches, one update
+    against the CPU, timing, peak memory, idle share); then SluExample
+    through Problem.run, in a temporary directory."""
+    import tempfile
+    from pathlib import Path
+
+    from s3prl_tpu_torch.nn import SUpstream
+
+    t0 = time.perf_counter()
+    check_mel_models(gen, dev, smi)
+    log(f"[slu] the mel models: {time.perf_counter() - t0:.1f} s")
+    sup = SUpstream(MODELS["hubert"], extra_conf={"dtype": torch.bfloat16, "flash": True,
+                                                  "quantize": True, "seed": 0})
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in SLU:
+            t0 = time.perf_counter()
+            batches = slu_batches(name, gen, dev)
+            trainer = check_slu_training(name, sup.upstream, wrapper, batches, Path(tmp) / name)
+            check_slu_update_on_cpu(name, sup.upstream, trainer, batches)
+            time_recipe_step(name, sup.upstream, trainer, batches[0], smi)
+            del trainer, batches
+            log(f"[slu] {name}: {time.perf_counter() - t0:.1f} s")
+        del sup
+        check_slu_example(wrapper, Path(tmp))
+
+
+ALL_PHASES = frozenset(range(3, 13))
+KERNEL_PHASES = frozenset(range(3, 7))
+
+
+def parse_phases(argv):
+    """``--phases 7,12`` -> the phases to run beside 1 and 2 (any of 3-6
+    runs the four: they share their models); every phase by default."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="On-card check of s3prl_tpu_torch.")
+    parser.add_argument("--phases", default=None,
+                        help="comma-separated phases among 3-12 (default: all); phases 1 "
+                             "and 2 always run, and a partial run prints no result line")
+    args = parser.parse_args(argv)
+    if args.phases is None:
+        return ALL_PHASES
+    phases = {int(p) for p in args.phases.split(",")}
+    if not phases <= ALL_PHASES:
+        parser.error(f"--phases {args.phases}: phases 3-12")
+    return frozenset(phases | (KERNEL_PHASES if phases & KERNEL_PHASES else set()))
+
+
 def main():
+    phases = parse_phases(sys.argv[1:])
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4086,417 +4401,434 @@ def main():
         log(f"[build] {lib._name}")
         build_report(lib)
 
-    # 3. kernel vs plain at main-path shapes
-    from s3prl_tpu_torch.kernels import _common as kc
-    from s3prl_tpu_torch.ops.quant import int_mm
-
     gen = torch.Generator().manual_seed(0)
-    max_err = {}
-    with Phase("3 kernels vs plain"):
-        inp = kernel_inputs(4, 499, gen, dev)
-        inp_base = kernel_inputs(4, 499, gen, dev, C=768, F=3072, H=12)
-        inp_long = long_inputs(4, 1499, gen, dev)
-        inp8 = long_inputs(2, 2999, gen, dev)
-        check_kernels(kernel_calls(inp, inp_base), max_err)
-        check_projection_routes(inp, kernel_inputs(2, 499, gen, dev, C=1280, F=1280, H=20))
-        check_panel_edges(gen, dev)
-        check_kernels(long_kernel_calls(
-            [inp_long, *(long_inputs(7, T, gen, dev, edges=True) for T in (65, 127))],
-            [inp8, long_inputs(7, 2049, gen, dev, edges=True)]), max_err)
-        check_k6_panel(long_inputs(8, 1499, gen, dev))
-        check_kernels(gated_kernel_calls(
-            [gated_inputs(4, 499, gen, dev), gated_inputs(4, 1499, gen, dev),
-             gated_inputs(4, 499, gen, dev, form="f32"),
-             *(gated_inputs(7, T, gen, dev, form=form, edges=True)
-               for T in (65, 127, 499) for form in ("bf16", "f32"))],
-            [gated_inputs(2, 2999, gen, dev), gated_inputs(2, 2999, gen, dev, form="f32"),
-             gated_inputs(7, 2049, gen, dev, edges=True),
-             gated_inputs(7, 65, gen, dev, form="f32", edges=True)]), max_err)
-        inp11 = [k11_inputs(4, 499, gen, dev), k11_inputs(4, 1499, gen, dev),
-                 k11_inputs(4, 499, gen, dev, form="f32"),
-                 *(k11_inputs(7, T, gen, dev, edges=True) for T in (65, 127, 499))]
-        check_kernels(k11_calls(inp11), max_err)
-        for what, share in code_mismatch(inp, inp_long, inp11[0]).items():
-            log(f"[int8 codes] {what}: {share:.3e} of codes differ from the plain version's")
-        x8 = kc.quant_rows(inp["x"].view(-1, 1024), ln=inp["ln"])[0]
-        for w8, lo, hi in ((inp["wq8"][0], 0, 1024), (inp["w28"][0], 0, 2048),
-                           (inp["w28"][0], 2048, 4096)):
-            a8 = kc.quant_rows(torch.randn(x8.shape[0], 4096, generator=gen).to(dev))[0] \
-                if hi > 1024 else x8
-            got = kc.gemm_s8(a8[:, lo:hi], w8[:, lo:hi])
-            check(torch.equal(got, int_mm(a8[:, lo:hi].contiguous(),
-                                          w8[:, lo:hi].contiguous())),
-                  f"gemm_s8 [{a8.shape[0]}, {hi - lo}] x [{w8.shape[0]}, {hi - lo}] "
-                  "vs torch._int_mm")
-        log("[kernel] gemm_s8 alone equals torch._int_mm exactly (QKV, fc2 chunks 1 and 2)")
-        check_gemm_s8_edges(gen, dev)
-        check_gemm_bf16_edges(gen, dev)
-        ties = torch.tensor([[127.0, 2.5, -2.5, 3.5, -3.5, 0.5, -0.5, 1.5] * 128], device=dev)
-        q, s = kc.quant_rows(ties)
-        check(float(s[0]) == 1.0 and torch.equal(q[0], torch.round(ties[0]).to(torch.int8)),
-              f"quantizer ties: {q[0, :8].tolist()}")
-        log(f"[kernel] quant_rows rounds ties half to even: {q[0, :8].tolist()}")
-        del inp, inp_base, inp_long, inp8, inp11
-        inp_fe = frontend_inputs(2, gen, dev, layers=(0, 4))  # layer 1 (k=3), layer 5 (k=2)
-        check_kernels(frontend_calls(inp_fe), max_err)
-        check_q8_kernels(frontend_q8_calls(inp_fe), max_err)
-        del inp_fe
-        inp16 = [posconv_inputs(4, 499, gen, dev), posconv_inputs(4, 1499, gen, dev),
-                 posconv_inputs(3, 257, gen, dev)]
-        check_kernels(posconv_calls(inp16), max_err)
-        check_posconv_codes(inp16)
-        check_kernels(k17_calls([gated_inputs(4, 499, gen, dev),
-                                 *(gated_inputs(7, T, gen, dev, edges=True) for T in (65, 127))]),
-                      max_err)
-        del inp16
-        check_kernels(base_kernel_calls(gen, dev)[0], max_err)
-        check_kernels(base_kernel_calls(gen, dev, C=1024, F=4096, H=16, gated=False)[0],
-                      max_err)
-        check_kernels(zero_kv_calls(gen, dev), max_err)
+    if KERNEL_PHASES & phases:  # 3-6 share their models and fill the kernels line
+        # 3. kernel vs plain at main-path shapes
+        from s3prl_tpu_torch.kernels import _common as kc
+        from s3prl_tpu_torch.ops.quant import int_mm
 
-    # 4. the main paths at full width, int8 (the serving default) then bf16,
-    # HuBERT-Large then WavLM-Large, then the options, then the Base models,
-    # then wav2vec2-Large, data2vec-Large and UniSpeech-SAT Base; then the
-    # fused weighted sum and a checkpoint loaded back
-    ups = {(model, path): load(hub, model, path, dev) for model, path in PATHS}
-    launches = {}
-    with Phase("4 main paths"):
-        for run, expected in RUNS.items():
-            model, path, length = run
-            lens = LENS[length]
-            wavs, lens_t = batch(lens, max(lens), gen, dev)
-            for w in wrapper.values():
-                w.launches = 0
-            hs, h_lens = ups[model, path].apply_standardized(wavs, lens_t)
-            torch.cuda.synchronize()
-            launches[run] = {name: w.launches for name, w in wrapper.items()}
-            frames = (max(lens) - 1) // 320 + 1
-            up = ups[model, path]
-            log(f"[slice {model} {path} {length}] hs {tuple(hs.shape)} {hs.dtype}, "
-                f"h_lens {h_lens.tolist()}, launches {launches[run]}")
-            check(tuple(hs.shape) == (up.num_layers, len(lens), frames, up.hidden_size),
-                  f"hs shape {tuple(hs.shape)}")
-            check(h_lens.tolist() == [(n - 1) // 320 + 1 for n in lens],
-                  f"h_lens {h_lens.tolist()}")
-            check(bool(torch.isfinite(hs).all()), "non-finite hidden states")
-            check(launches[run] == {name: expected.get(name, 0) for name in wrapper},
-                  f"{model} {path} {length} launch counts {launches[run]}")
-            del hs, wavs
-        check_weighted(ups["hubert", "int8"], wrapper, gen, dev)
-        check_checkpoint(hub, ups["wav2vec2", "int8"], gen, dev)
+        max_err = {}
+        with Phase("3 kernels vs plain"):
+            inp = kernel_inputs(4, 499, gen, dev)
+            inp_base = kernel_inputs(4, 499, gen, dev, C=768, F=3072, H=12)
+            inp_long = long_inputs(4, 1499, gen, dev)
+            inp8 = long_inputs(2, 2999, gen, dev)
+            check_kernels(kernel_calls(inp, inp_base), max_err)
+            check_projection_routes(inp, kernel_inputs(2, 499, gen, dev, C=1280, F=1280, H=20))
+            check_panel_edges(gen, dev)
+            check_kernels(long_kernel_calls(
+                [inp_long, *(long_inputs(7, T, gen, dev, edges=True) for T in (65, 127))],
+                [inp8, long_inputs(7, 2049, gen, dev, edges=True)]), max_err)
+            check_k6_panel(long_inputs(8, 1499, gen, dev))
+            check_kernels(gated_kernel_calls(
+                [gated_inputs(4, 499, gen, dev), gated_inputs(4, 1499, gen, dev),
+                 gated_inputs(4, 499, gen, dev, form="f32"),
+                 *(gated_inputs(7, T, gen, dev, form=form, edges=True)
+                   for T in (65, 127, 499) for form in ("bf16", "f32"))],
+                [gated_inputs(2, 2999, gen, dev), gated_inputs(2, 2999, gen, dev, form="f32"),
+                 gated_inputs(7, 2049, gen, dev, edges=True),
+                 gated_inputs(7, 65, gen, dev, form="f32", edges=True)]), max_err)
+            inp11 = [k11_inputs(4, 499, gen, dev), k11_inputs(4, 1499, gen, dev),
+                     k11_inputs(4, 499, gen, dev, form="f32"),
+                     *(k11_inputs(7, T, gen, dev, edges=True) for T in (65, 127, 499))]
+            check_kernels(k11_calls(inp11), max_err)
+            for what, share in code_mismatch(inp, inp_long, inp11[0]).items():
+                log(f"[int8 codes] {what}: {share:.3e} of codes differ from the plain version's")
+            x8 = kc.quant_rows(inp["x"].view(-1, 1024), ln=inp["ln"])[0]
+            for w8, lo, hi in ((inp["wq8"][0], 0, 1024), (inp["w28"][0], 0, 2048),
+                               (inp["w28"][0], 2048, 4096)):
+                a8 = kc.quant_rows(torch.randn(x8.shape[0], 4096, generator=gen).to(dev))[0] \
+                    if hi > 1024 else x8
+                got = kc.gemm_s8(a8[:, lo:hi], w8[:, lo:hi])
+                check(torch.equal(got, int_mm(a8[:, lo:hi].contiguous(),
+                                              w8[:, lo:hi].contiguous())),
+                      f"gemm_s8 [{a8.shape[0]}, {hi - lo}] x [{w8.shape[0]}, {hi - lo}] "
+                      "vs torch._int_mm")
+            log("[kernel] gemm_s8 alone equals torch._int_mm exactly (QKV, fc2 chunks 1 and 2)")
+            check_gemm_s8_edges(gen, dev)
+            check_gemm_bf16_edges(gen, dev)
+            ties = torch.tensor([[127.0, 2.5, -2.5, 3.5, -3.5, 0.5, -0.5, 1.5] * 128], device=dev)
+            q, s = kc.quant_rows(ties)
+            check(float(s[0]) == 1.0 and torch.equal(q[0], torch.round(ties[0]).to(torch.int8)),
+                  f"quantizer ties: {q[0, :8].tolist()}")
+            log(f"[kernel] quant_rows rounds ties half to even: {q[0, :8].tolist()}")
+            del inp, inp_base, inp_long, inp8, inp11
+            inp_fe = frontend_inputs(2, gen, dev, layers=(0, 4))  # layer 1 (k=3), layer 5 (k=2)
+            check_kernels(frontend_calls(inp_fe), max_err)
+            check_q8_kernels(frontend_q8_calls(inp_fe), max_err)
+            del inp_fe
+            inp16 = [posconv_inputs(4, 499, gen, dev), posconv_inputs(4, 1499, gen, dev),
+                     posconv_inputs(3, 257, gen, dev)]
+            check_kernels(posconv_calls(inp16), max_err)
+            check_posconv_codes(inp16)
+            check_kernels(k17_calls([gated_inputs(4, 499, gen, dev),
+                                     *(gated_inputs(7, T, gen, dev, edges=True) for T in (65, 127))]),
+                          max_err)
+            del inp16
+            check_kernels(base_kernel_calls(gen, dev)[0], max_err)
+            check_kernels(base_kernel_calls(gen, dev, C=1024, F=4096, H=16, gated=False)[0],
+                          max_err)
+            check_kernels(zero_kv_calls(gen, dev), max_err)
 
-    # 5. the same seed's models on the CPU (plain versions) vs the card; the
-    # CPU model takes the kernel route, whose wrappers run their plain
-    # versions there. Then the JAX package's quality gates against f32.
-    import s3prl_tpu_torch.models.transformer as port_transformer
-
-    from s3prl_tpu_torch.kernels import posconv as pc
-
-    short, long_ = ("B=2 x 2 s", [32000, 20000]), [64000, 40000]
-    # the conv-rule models' batches hold a 1-sample utterance (no frame: kv_len 0)
-    zshort, zlong = ("B=3 x 2 s with 1 sample", [32000, 20000, 1]), [64000, 40000, 1]
-    mbt, mkt, mpt = {"MAX_BLOCK_T": 64}, {"MAX_KERNEL_T": 128}, {"MAX_POSCONV_T": 64}
-    holder = {"MAX_BLOCK_T": fa, "MAX_KERNEL_T": fa, "MAX_POSCONV_T": pc}  # threshold -> module
-    # (model, path) -> (label, lengths, patched thresholds, {kernel: launches} checked)
-    cases = {
-        ("hubert", "int8"): (
-            (*short, {}, {}),
-            ("B=2 x 4 s, MAX_BLOCK_T=64", long_, mbt, {"fused_qkv_attention_outproj": 24}),
-            ("B=2 x 4 s, MAX_BLOCK_T=64, MAX_KERNEL_T=128", long_, {**mbt, **mkt},
-             {"online_flash_attention": 24})),
-        ("hubert", "bf16"): (
-            (*short, {}, {}),
-            ("B=2 x 4 s, MAX_BLOCK_T=64", long_, mbt, {"fused_qkv_attention": 24}),
-            ("B=2 x 4 s, MAX_BLOCK_T=64, MAX_KERNEL_T=128", long_, {**mbt, **mkt},
-             {"online_flash_attention": 24})),
-        **{("wavlm", path): (
-            (*short, {}, {"gated_bias_attention": 24}),
-            ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt, {"gated_online_flash_attention": 24}))
-           for path in ("int8", "bf16")},
-        ("hubert", "int8 full_fuse"): (
-            (*short, {}, {"fused_int8_linear": 48, "fused_qkv_attention": 24}),
-            ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt,
-             {"fused_int8_linear": 48, "online_flash_attention": 24})),
-        ("hubert", "int8 qkv_fuse"): (
-            ("B=2 x 4 s, MAX_BLOCK_T=64", long_, mbt,
-             {"fused_int8_linear": 24, "fused_qkv_attention_outproj": 24}),),
-        ("wavlm", "int8 wavlm_fuse"): (
-            (*short, {}, {"gated_bias_attention_outproj": 24}),
-            ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt,
-             {"gated_online_flash_attention": 24, "gated_bias_attention_outproj": 0})),
-        ("hubert", "int8 int8_conv"): (
-            (*short, {}, {"conv0_ln_gelu_q8": 1, "fused_int8_conv_ln_gelu": 6,
-                          "conv0_ln_gelu": 0}),),
-        ("hubert", "bf16 fused_conv"): ((*short, {}, {"conv0_ln_gelu": 1,
-                                                      "fused_conv_ln_gelu": 6}),),
-        ("hubert", "int8 fused_midln"): ((*short, {}, {"conv0_ln_gelu": 1, "ln_gelu": 6}),),
-        ("wavlm", "bf16 fused_conv"): ((*short, {}, {"conv0_ln_gelu": 1,
-                                                     "fused_conv_ln_gelu": 6}),),
-        **{("hubert", path): ((*short, {}, {name: 1}),
-                              ("B=2 x 2 s, MAX_POSCONV_T=64", short[1], mpt, {name: 0}))
-           for path, name in (("bf16 fused_posconv", "pos_conv_gelu"),
-                              ("int8 int8_posconv", "pos_conv_gelu_q8"))},
-        **{("hubert_base", path): (
-            (*short, {}, {block: 12, ffn: 12, "conv0_ln_gelu": 0}),
-            ("B=2 x 4 s, MAX_BLOCK_T=64", long_, mbt, {split: 12, ffn: 12}),
-            ("B=2 x 4 s, MAX_BLOCK_T=64, MAX_KERNEL_T=128", long_, {**mbt, **mkt},
-             {"online_flash_attention": 12}))
-           for path, block, split, ffn in (
-               ("int8", "fused_attention_block", "fused_qkv_attention_outproj",
-                "fused_int8_ffn"),
-               ("bf16", "fused_attention_block_bf16", "fused_qkv_attention", "fused_bf16_ffn"))},
-        **{("wavlm_base", path): (
-            (*short, {}, {"gated_bias_attention": 12}),
-            ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt, {"gated_online_flash_attention": 12}))
-           for path in ("int8", "bf16")},
-        ("wavlm_base", "int8 wavlm_fuse"): (
-            (*short, {}, {"gated_bias_attention_outproj": 12}),
-            ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt,
-             {"gated_online_flash_attention": 12, "gated_bias_attention_outproj": 0})),
-        **{(model, path): (
-            (*zshort, {}, {"conv0_ln_gelu": 1, block: 24, ffn: 24}),
-            ("B=3 x 4 s with 1 sample, MAX_BLOCK_T=64", zlong, mbt, {split: 24, ffn: 24}),
-            ("B=3 x 4 s with 1 sample, MAX_BLOCK_T=64, MAX_KERNEL_T=128", zlong,
-             {**mbt, **mkt}, {"online_flash_attention": 24}))
-           for model in ("wav2vec2", "data2vec") for path, block, split, ffn in (
-               ("int8", "fused_attention_block", "fused_qkv_attention_outproj",
-                "fused_int8_ffn"),
-               ("bf16", "fused_attention_block_bf16", "fused_qkv_attention", "fused_bf16_ffn"))},
-        **{("unispeech_sat", path): ((*short, {}, {"gated_bias_attention": 12}),)
-           for path in ("int8", "bf16")},
-    }
-    options = {"hubert": ("int8 full_fuse", "int8 qkv_fuse", "int8 int8_conv", "int8 fused_midln",
-                          "int8 int8_posconv"),
-               "wavlm": ("int8 wavlm_fuse", "bf16 fused_conv"), "wav2vec2": (), "data2vec": ()}
-    # HuBERT's bf16 paths (and the other pre-/post-LN Large trunks'): 30 s
-    long_only = {"hubert": ("bf16 fused_conv", "bf16 fused_posconv"), "wavlm": (),
-                 "wav2vec2": (), "data2vec": ()}
-    quality = {  # model -> (label, lengths, paths gated against f32)
-        model: (("B=2 x 0.5 s", [8000, 6400],
-                 ("int8", "bf16")[:1 if model != "wavlm" else 2] + options[model]),
-                ("B=2 x 30 s", [480000, 400000], ("int8", "bf16") + options[model]
-                 + long_only[model]),
-                ("B=1 x 60 s", [960000], ("int8", "bf16")))
-        for model in ("hubert", "wavlm", "wav2vec2", "data2vec")}
-    # the Base models: the JAX gates (tests/test_quant.py:553-591) on its batch and at 30 s
-    quality.update({model: tuple((label, lens, ("int8", "bf16") + extra) for label, lens in (
-        ("B=2 x 0.5 s", [8000, 6400]), ("B=2 x 30 s", [480000, 400000])))
-        for model, extra in (("hubert_base", ()), ("wavlm_base", ("int8 wavlm_fuse",)),
-                             ("unispeech_sat", ()))})
-    available = port_transformer._fused_block_available
-    with Phase("5 card vs CPU, quality vs f32"):
-        for (model, path), up in ups.items():
-            up_cpu, up_ref = load(hub, model, path, "cpu"), None
-            for label, lens, patch, expected in cases[model, path]:
-                small, small_lens = batch(lens, max(lens), gen, "cpu")
-                saved = {name: getattr(holder[name], name) for name in patch}
-                try:
-                    for name, value in patch.items():
-                        setattr(holder[name], name, value)
-                    port_transformer._fused_block_available = lambda x: True
-                    hs_cpu, hl_cpu = up_cpu.apply_standardized(small, small_lens)
-                    port_transformer._fused_block_available = available
-                    for w in wrapper.values():
-                        w.launches = 0
-                    hs_gpu, hl_gpu = up.apply_standardized(small.to(dev), small_lens.to(dev))
-                    torch.cuda.synchronize()
-                finally:
-                    port_transformer._fused_block_available = available
-                    for name, value in saved.items():
-                        setattr(holder[name], name, value)
-                for name, count in expected.items():
-                    launched = wrapper[name].launches
-                    check(launched == count, f"{model} {path} {label}: {name} launched "
-                          f"{launched} times, not {count}")
-                check(hl_cpu.tolist() == hl_gpu.tolist(), "h_lens CPU vs card")
-                coss = layer_cosines(hs_gpu.cpu(), hs_cpu, hl_cpu.tolist())
-                log(f"[cpu-vs-card {model} {path} {label}] per-layer cosine min "
-                    f"{min(coss):.6f}: " + " ".join(f"{c:.5f}" for c in coss))
-                if (model, path) in DRIFT_PATHS:
-                    if up_ref is None:
-                        up_ref = hub.load(MODELS[model], device="cpu", seed=0)
-                    hs_ref, _ = up_ref.apply_standardized(small, small_lens)
-                    check_drift(hs_gpu.cpu(), hs_cpu, hs_ref, hl_cpu.tolist(),
-                                f"{model} {path} {label}, card and CPU vs the CPU's f32")
-                else:
-                    check(min(coss) > COS_LAYER,
-                          f"per-layer cosine CPU vs card ({model} {path}, {label})")
-                del hs_cpu, hs_gpu
-            del up_cpu, up_ref
-        cpu_models = {}
-        for model, entry in MODELS.items():
-            up_f32 = hub.load(entry, dtype=torch.float32, flash=False, device=dev, seed=0)
-            for label, lens, paths in quality[model]:
+        # 4. the main paths at full width, int8 (the serving default) then bf16,
+        # HuBERT-Large then WavLM-Large, then the options, then the Base models,
+        # then wav2vec2-Large, data2vec-Large and UniSpeech-SAT Base; then the
+        # fused weighted sum and a checkpoint loaded back
+        ups = {(model, path): load(hub, model, path, dev) for model, path in PATHS}
+        launches = {}
+        with Phase("4 main paths"):
+            for run, expected in RUNS.items():
+                model, path, length = run
+                lens = LENS[length]
                 wavs, lens_t = batch(lens, max(lens), gen, dev)
-                hs_f, hl = up_f32.apply_standardized(wavs, lens_t)
-                for path in paths:
-                    hs_q, _ = ups[model, path].apply_standardized(wavs, lens_t)
-                    coss = layer_cosines(hs_q.float(), hs_f, hl.tolist())
-                    log(f"[{model} {path}-vs-f32 {label}] {len(coss) - 1}L per-layer cosine min "
-                        f"{min(coss):.6f}: " + " ".join(f"{c:.5f}" for c in coss))
-                    if (model, path) in DRIFT_PATHS:  # the CPU's plain versions on this batch
-                        if (model, path) not in cpu_models:
-                            cpu_models[model, path] = load(hub, model, path, "cpu")
-                        port_transformer._fused_block_available = lambda x: True
-                        try:
-                            hs_cpu, _ = cpu_models[model, path].apply_standardized(
-                                wavs.cpu(), lens_t.cpu())
-                        finally:
-                            port_transformer._fused_block_available = available
-                        check_drift(hs_q.cpu(), hs_cpu, hs_f.cpu(), hl.tolist(),
-                                    f"{model} {path} {label}, card and CPU vs the card's f32")
-                        del hs_cpu
-                    else:
-                        check(min(coss) > COS_F32[path.split()[0]],
-                              f"per-layer cosine {model} {path} vs f32 ({label})")
-                    del hs_q
-                del hs_f
-            del up_f32
-        del cpu_models
+                for w in wrapper.values():
+                    w.launches = 0
+                hs, h_lens = ups[model, path].apply_standardized(wavs, lens_t)
+                torch.cuda.synchronize()
+                launches[run] = {name: w.launches for name, w in wrapper.items()}
+                frames = (max(lens) - 1) // 320 + 1
+                up = ups[model, path]
+                log(f"[slice {model} {path} {length}] hs {tuple(hs.shape)} {hs.dtype}, "
+                    f"h_lens {h_lens.tolist()}, launches {launches[run]}")
+                check(tuple(hs.shape) == (up.num_layers, len(lens), frames, up.hidden_size),
+                      f"hs shape {tuple(hs.shape)}")
+                check(h_lens.tolist() == [(n - 1) // 320 + 1 for n in lens],
+                      f"h_lens {h_lens.tolist()}")
+                check(bool(torch.isfinite(hs).all()), "non-finite hidden states")
+                check(launches[run] == {name: expected.get(name, 0) for name in wrapper},
+                      f"{model} {path} {length} launch counts {launches[run]}")
+                del hs, wavs
+            check_weighted(ups["hubert", "int8"], wrapper, gen, dev)
+            check_checkpoint(hub, ups["wav2vec2", "int8"], gen, dev)
 
-    # 6. timing: both paths on each main-path batch, then each kernel vs its plain version
-    with Phase("6 timing"):
-        it_lo, it_hi = 5, 15
-        forward_ms = {}  # (model, path) -> ms a forward at B=32 x 10 s
-        for label, B, secs in (("10 s", 32, 10.0), ("30 s", 8, 30.0), ("60 s", 4, 60.0)):
-            wavs, lens_t = batch([int(secs * SR)] * B, int(secs * SR), gen, dev)
+        # 5. the same seed's models on the CPU (plain versions) vs the card; the
+        # CPU model takes the kernel route, whose wrappers run their plain
+        # versions there. Then the JAX package's quality gates against f32.
+        import s3prl_tpu_torch.models.transformer as port_transformer
+
+        from s3prl_tpu_torch.kernels import posconv as pc
+
+        short, long_ = ("B=2 x 2 s", [32000, 20000]), [64000, 40000]
+        # the conv-rule models' batches hold a 1-sample utterance (no frame: kv_len 0)
+        zshort, zlong = ("B=3 x 2 s with 1 sample", [32000, 20000, 1]), [64000, 40000, 1]
+        mbt, mkt, mpt = {"MAX_BLOCK_T": 64}, {"MAX_KERNEL_T": 128}, {"MAX_POSCONV_T": 64}
+        holder = {"MAX_BLOCK_T": fa, "MAX_KERNEL_T": fa, "MAX_POSCONV_T": pc}  # threshold -> module
+        # (model, path) -> (label, lengths, patched thresholds, {kernel: launches} checked)
+        cases = {
+            ("hubert", "int8"): (
+                (*short, {}, {}),
+                ("B=2 x 4 s, MAX_BLOCK_T=64", long_, mbt, {"fused_qkv_attention_outproj": 24}),
+                ("B=2 x 4 s, MAX_BLOCK_T=64, MAX_KERNEL_T=128", long_, {**mbt, **mkt},
+                 {"online_flash_attention": 24})),
+            ("hubert", "bf16"): (
+                (*short, {}, {}),
+                ("B=2 x 4 s, MAX_BLOCK_T=64", long_, mbt, {"fused_qkv_attention": 24}),
+                ("B=2 x 4 s, MAX_BLOCK_T=64, MAX_KERNEL_T=128", long_, {**mbt, **mkt},
+                 {"online_flash_attention": 24})),
+            **{("wavlm", path): (
+                (*short, {}, {"gated_bias_attention": 24}),
+                ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt, {"gated_online_flash_attention": 24}))
+               for path in ("int8", "bf16")},
+            ("hubert", "int8 full_fuse"): (
+                (*short, {}, {"fused_int8_linear": 48, "fused_qkv_attention": 24}),
+                ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt,
+                 {"fused_int8_linear": 48, "online_flash_attention": 24})),
+            ("hubert", "int8 qkv_fuse"): (
+                ("B=2 x 4 s, MAX_BLOCK_T=64", long_, mbt,
+                 {"fused_int8_linear": 24, "fused_qkv_attention_outproj": 24}),),
+            ("wavlm", "int8 wavlm_fuse"): (
+                (*short, {}, {"gated_bias_attention_outproj": 24}),
+                ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt,
+                 {"gated_online_flash_attention": 24, "gated_bias_attention_outproj": 0})),
+            ("hubert", "int8 int8_conv"): (
+                (*short, {}, {"conv0_ln_gelu_q8": 1, "fused_int8_conv_ln_gelu": 6,
+                              "conv0_ln_gelu": 0}),),
+            ("hubert", "bf16 fused_conv"): ((*short, {}, {"conv0_ln_gelu": 1,
+                                                          "fused_conv_ln_gelu": 6}),),
+            ("hubert", "int8 fused_midln"): ((*short, {}, {"conv0_ln_gelu": 1, "ln_gelu": 6}),),
+            ("wavlm", "bf16 fused_conv"): ((*short, {}, {"conv0_ln_gelu": 1,
+                                                         "fused_conv_ln_gelu": 6}),),
+            **{("hubert", path): ((*short, {}, {name: 1}),
+                                  ("B=2 x 2 s, MAX_POSCONV_T=64", short[1], mpt, {name: 0}))
+               for path, name in (("bf16 fused_posconv", "pos_conv_gelu"),
+                                  ("int8 int8_posconv", "pos_conv_gelu_q8"))},
+            **{("hubert_base", path): (
+                (*short, {}, {block: 12, ffn: 12, "conv0_ln_gelu": 0}),
+                ("B=2 x 4 s, MAX_BLOCK_T=64", long_, mbt, {split: 12, ffn: 12}),
+                ("B=2 x 4 s, MAX_BLOCK_T=64, MAX_KERNEL_T=128", long_, {**mbt, **mkt},
+                 {"online_flash_attention": 12}))
+               for path, block, split, ffn in (
+                   ("int8", "fused_attention_block", "fused_qkv_attention_outproj",
+                    "fused_int8_ffn"),
+                   ("bf16", "fused_attention_block_bf16", "fused_qkv_attention", "fused_bf16_ffn"))},
+            **{("wavlm_base", path): (
+                (*short, {}, {"gated_bias_attention": 12}),
+                ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt, {"gated_online_flash_attention": 12}))
+               for path in ("int8", "bf16")},
+            ("wavlm_base", "int8 wavlm_fuse"): (
+                (*short, {}, {"gated_bias_attention_outproj": 12}),
+                ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt,
+                 {"gated_online_flash_attention": 12, "gated_bias_attention_outproj": 0})),
+            **{(model, path): (
+                (*zshort, {}, {"conv0_ln_gelu": 1, block: 24, ffn: 24}),
+                ("B=3 x 4 s with 1 sample, MAX_BLOCK_T=64", zlong, mbt, {split: 24, ffn: 24}),
+                ("B=3 x 4 s with 1 sample, MAX_BLOCK_T=64, MAX_KERNEL_T=128", zlong,
+                 {**mbt, **mkt}, {"online_flash_attention": 24}))
+               for model in ("wav2vec2", "data2vec") for path, block, split, ffn in (
+                   ("int8", "fused_attention_block", "fused_qkv_attention_outproj",
+                    "fused_int8_ffn"),
+                   ("bf16", "fused_attention_block_bf16", "fused_qkv_attention", "fused_bf16_ffn"))},
+            **{("unispeech_sat", path): ((*short, {}, {"gated_bias_attention": 12}),)
+               for path in ("int8", "bf16")},
+        }
+        options = {"hubert": ("int8 full_fuse", "int8 qkv_fuse", "int8 int8_conv", "int8 fused_midln",
+                              "int8 int8_posconv"),
+                   "wavlm": ("int8 wavlm_fuse", "bf16 fused_conv"), "wav2vec2": (), "data2vec": ()}
+        # HuBERT's bf16 paths (and the other pre-/post-LN Large trunks'): 30 s
+        long_only = {"hubert": ("bf16 fused_conv", "bf16 fused_posconv"), "wavlm": (),
+                     "wav2vec2": (), "data2vec": ()}
+        quality = {  # model -> (label, lengths, paths gated against f32)
+            model: (("B=2 x 0.5 s", [8000, 6400],
+                     ("int8", "bf16")[:1 if model != "wavlm" else 2] + options[model]),
+                    ("B=2 x 30 s", [480000, 400000], ("int8", "bf16") + options[model]
+                     + long_only[model]),
+                    ("B=1 x 60 s", [960000], ("int8", "bf16")))
+            for model in ("hubert", "wavlm", "wav2vec2", "data2vec")}
+        # the Base models: the JAX gates (tests/test_quant.py:553-591) on its batch and at 30 s
+        quality.update({model: tuple((label, lens, ("int8", "bf16") + extra) for label, lens in (
+            ("B=2 x 0.5 s", [8000, 6400]), ("B=2 x 30 s", [480000, 400000])))
+            for model, extra in (("hubert_base", ()), ("wavlm_base", ("int8 wavlm_fuse",)),
+                                 ("unispeech_sat", ()))})
+        available = port_transformer._fused_block_available
+        with Phase("5 card vs CPU, quality vs f32"):
             for (model, path), up in ups.items():
-                if label not in TIMED.get(path, (label,)):
-                    continue
-                torch.cuda.reset_peak_memory_stats()
-                best = {it: min(it * cuda_ms(lambda: up.apply_standardized(wavs, lens_t), it)
-                                for _ in range(2))
-                        for it in (it_lo, it_hi)}
-                per_iter = (best[it_hi] - best[it_lo]) / (it_hi - it_lo)
-                if label == "10 s":
-                    forward_ms[model, path] = per_iter
-                rate = B * secs / (per_iter / 1e3)
-                log(f"[timing] slice {model} {path} B={B} x {secs:.0f} s: "
-                    f"{per_iter:.2f} ms/forward, "
-                    f"{rate:.1f} audio-s/s (chains {it_lo}: {best[it_lo]:.1f} ms, "
-                    f"{it_hi}: {best[it_hi]:.1f} ms), peak device memory "
-                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-            if label == "10 s":  # each path's feature extractor alone, in turns
-                fe_paths = [(key, up) for key, up in ups.items() if key[1] in FRONT_END_PATHS]
-                fe_ms = {key: [] for key, _ in fe_paths}
-                with torch.inference_mode():
-                    for key, up in fe_paths + fe_paths[::-1]:
-                        fe_ms[key].append(cuda_ms(lambda: up.model.feature_extractor(wavs), 5))
-                for (model, path), t in fe_ms.items():
-                    ms = sum(t) / len(t)
-                    log(f"[timing] front end {model} {path} B={B} x {secs:.0f} s: "
-                        f"{ms:.3f} ms (runs {t[0]:.3f}, {t[1]:.3f}), "
-                        f"{100 * ms / forward_ms[model, path]:.1f}% of the forward's "
-                        f"{forward_ms[model, path]:.2f} ms")
-            if label == "10 s":  # the fused weighted sum beside apply_standardized
-                time_weighted(ups["hubert", "int8"], wavs, lens_t, gen, it_lo, it_hi)
-            del wavs
-        del ups, up
+                up_cpu, up_ref = load(hub, model, path, "cpu"), None
+                for label, lens, patch, expected in cases[model, path]:
+                    small, small_lens = batch(lens, max(lens), gen, "cpu")
+                    saved = {name: getattr(holder[name], name) for name in patch}
+                    try:
+                        for name, value in patch.items():
+                            setattr(holder[name], name, value)
+                        port_transformer._fused_block_available = lambda x: True
+                        hs_cpu, hl_cpu = up_cpu.apply_standardized(small, small_lens)
+                        port_transformer._fused_block_available = available
+                        for w in wrapper.values():
+                            w.launches = 0
+                        hs_gpu, hl_gpu = up.apply_standardized(small.to(dev), small_lens.to(dev))
+                        torch.cuda.synchronize()
+                    finally:
+                        port_transformer._fused_block_available = available
+                        for name, value in saved.items():
+                            setattr(holder[name], name, value)
+                    for name, count in expected.items():
+                        launched = wrapper[name].launches
+                        check(launched == count, f"{model} {path} {label}: {name} launched "
+                              f"{launched} times, not {count}")
+                    check(hl_cpu.tolist() == hl_gpu.tolist(), "h_lens CPU vs card")
+                    coss = layer_cosines(hs_gpu.cpu(), hs_cpu, hl_cpu.tolist())
+                    log(f"[cpu-vs-card {model} {path} {label}] per-layer cosine min "
+                        f"{min(coss):.6f}: " + " ".join(f"{c:.5f}" for c in coss))
+                    if (model, path) in DRIFT_PATHS:
+                        if up_ref is None:
+                            up_ref = hub.load(MODELS[model], device="cpu", seed=0)
+                        hs_ref, _ = up_ref.apply_standardized(small, small_lens)
+                        check_drift(hs_gpu.cpu(), hs_cpu, hs_ref, hl_cpu.tolist(),
+                                    f"{model} {path} {label}, card and CPU vs the CPU's f32")
+                    else:
+                        check(min(coss) > COS_LAYER,
+                              f"per-layer cosine CPU vs card ({model} {path}, {label})")
+                    del hs_cpu, hs_gpu
+                del up_cpu, up_ref
+            cpu_models = {}
+            for model, entry in MODELS.items():
+                up_f32 = hub.load(entry, dtype=torch.float32, flash=False, device=dev, seed=0)
+                for label, lens, paths in quality[model]:
+                    wavs, lens_t = batch(lens, max(lens), gen, dev)
+                    hs_f, hl = up_f32.apply_standardized(wavs, lens_t)
+                    for path in paths:
+                        hs_q, _ = ups[model, path].apply_standardized(wavs, lens_t)
+                        coss = layer_cosines(hs_q.float(), hs_f, hl.tolist())
+                        log(f"[{model} {path}-vs-f32 {label}] {len(coss) - 1}L per-layer cosine min "
+                            f"{min(coss):.6f}: " + " ".join(f"{c:.5f}" for c in coss))
+                        if (model, path) in DRIFT_PATHS:  # the CPU's plain versions on this batch
+                            if (model, path) not in cpu_models:
+                                cpu_models[model, path] = load(hub, model, path, "cpu")
+                            port_transformer._fused_block_available = lambda x: True
+                            try:
+                                hs_cpu, _ = cpu_models[model, path].apply_standardized(
+                                    wavs.cpu(), lens_t.cpu())
+                            finally:
+                                port_transformer._fused_block_available = available
+                            check_drift(hs_q.cpu(), hs_cpu, hs_f.cpu(), hl.tolist(),
+                                        f"{model} {path} {label}, card and CPU vs the card's f32")
+                            del hs_cpu
+                        else:
+                            check(min(coss) > COS_F32[path.split()[0]],
+                                  f"per-layer cosine {model} {path} vs f32 ({label})")
+                        del hs_q
+                    del hs_f
+                del up_f32
+            del cpu_models
 
-        log("[timing] plain versions run stock PyTorch on the card: f32 cuBLAS GEMMs (TF32 "
-            "off) for the bf16 blocks and attention, torch._int_mm (cuBLASLt int8) plus f32 "
-            "elementwise passes for the int8 blocks")
-        entries = {}
-        inp = kernel_inputs(32, 499, gen, dev)
-        calls = kernel_calls(inp)
-        inputs = {name: inp for name in calls}
-        time_kernels({"conv0_ln_gelu": calls.pop("conv0_ln_gelu")}, inputs, "B=32", entries,
-                     launches, max_err, first_only=False)
-        time_kernels({"fused_int8_linear": calls.pop("fused_int8_linear")}, inputs, "B=32",
-                     entries, launches, max_err, first_only=False)
-        time_kernels(calls, inputs, "B=32", entries, launches, max_err)
-        inp11 = k11_inputs(32, 499, gen, dev)
-        time_kernels(k11_calls([inp11]), {"gated_bias_attention_outproj": inp11}, "B=32",
-                     entries, launches, max_err)
-        inp11_f32 = k11_inputs(32, 499, gen, dev, form="f32")
-        time_kernels(k11_calls([inp11_f32]), {"gated_bias_attention_outproj": inp11_f32},
-                     "B=32 (unpadded f32 bias)", {}, launches, max_err)
-        del inp11_f32
-        for name, pairs in split_pairs(inp, inp11).items():
-            for what, fn in pairs:
+        # 6. timing: both paths on each main-path batch, then each kernel vs its plain version
+        with Phase("6 timing"):
+            it_lo, it_hi = 5, 15
+            forward_ms = {}  # (model, path) -> ms a forward at B=32 x 10 s
+            for label, B, secs in (("10 s", 32, 10.0), ("30 s", 8, 30.0), ("60 s", 4, 60.0)):
+                wavs, lens_t = batch([int(secs * SR)] * B, int(secs * SR), gen, dev)
+                for (model, path), up in ups.items():
+                    if label not in TIMED.get(path, (label,)):
+                        continue
+                    torch.cuda.reset_peak_memory_stats()
+                    best = {it: min(it * cuda_ms(lambda: up.apply_standardized(wavs, lens_t), it)
+                                    for _ in range(2))
+                            for it in (it_lo, it_hi)}
+                    per_iter = (best[it_hi] - best[it_lo]) / (it_hi - it_lo)
+                    if label == "10 s":
+                        forward_ms[model, path] = per_iter
+                    rate = B * secs / (per_iter / 1e3)
+                    log(f"[timing] slice {model} {path} B={B} x {secs:.0f} s: "
+                        f"{per_iter:.2f} ms/forward, "
+                        f"{rate:.1f} audio-s/s (chains {it_lo}: {best[it_lo]:.1f} ms, "
+                        f"{it_hi}: {best[it_hi]:.1f} ms), peak device memory "
+                        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+                if label == "10 s":  # each path's feature extractor alone, in turns
+                    fe_paths = [(key, up) for key, up in ups.items() if key[1] in FRONT_END_PATHS]
+                    fe_ms = {key: [] for key, _ in fe_paths}
+                    with torch.inference_mode():
+                        for key, up in fe_paths + fe_paths[::-1]:
+                            fe_ms[key].append(cuda_ms(lambda: up.model.feature_extractor(wavs), 5))
+                    for (model, path), t in fe_ms.items():
+                        ms = sum(t) / len(t)
+                        log(f"[timing] front end {model} {path} B={B} x {secs:.0f} s: "
+                            f"{ms:.3f} ms (runs {t[0]:.3f}, {t[1]:.3f}), "
+                            f"{100 * ms / forward_ms[model, path]:.1f}% of the forward's "
+                            f"{forward_ms[model, path]:.2f} ms")
+                if label == "10 s":  # the fused weighted sum beside apply_standardized
+                    time_weighted(ups["hubert", "int8"], wavs, lens_t, gen, it_lo, it_hi)
+                del wavs
+            del ups, up
+
+            log("[timing] plain versions run stock PyTorch on the card: f32 cuBLAS GEMMs (TF32 "
+                "off) for the bf16 blocks and attention, torch._int_mm (cuBLASLt int8) plus f32 "
+                "elementwise passes for the int8 blocks")
+            entries = {}
+            inp = kernel_inputs(32, 499, gen, dev)
+            calls = kernel_calls(inp)
+            inputs = {name: inp for name in calls}
+            time_kernels({"conv0_ln_gelu": calls.pop("conv0_ln_gelu")}, inputs, "B=32", entries,
+                         launches, max_err, first_only=False)
+            time_kernels({"fused_int8_linear": calls.pop("fused_int8_linear")}, inputs, "B=32",
+                         entries, launches, max_err, first_only=False)
+            time_kernels(calls, inputs, "B=32", entries, launches, max_err)
+            inp11 = k11_inputs(32, 499, gen, dev)
+            time_kernels(k11_calls([inp11]), {"gated_bias_attention_outproj": inp11}, "B=32",
+                         entries, launches, max_err)
+            inp11_f32 = k11_inputs(32, 499, gen, dev, form="f32")
+            time_kernels(k11_calls([inp11_f32]), {"gated_bias_attention_outproj": inp11_f32},
+                         "B=32 (unpadded f32 bias)", {}, launches, max_err)
+            del inp11_f32
+            for name, pairs in split_pairs(inp, inp11).items():
+                for what, fn in pairs:
+                    t = (cuda_ms(fn, 10) + cuda_ms(fn, 10)) / 2
+                    log(f"[timing] {name} split pair it replaces B=32, {what}: {t:.3f} ms")
+            for what_k, stage_fn in (("fused_int8_ffn (K2) stages B=32 x 499, F=4096", k2_stages),
+                                     ("fused_attention_block (K1) stages B=32 x 499", k1_stages),
+                                     ("fused_int8_linear (K12) launches B=32 x 499", k12_stages)):
+                stages = [(what, (cuda_ms(fn, 10) + cuda_ms(fn, 10)) / 2)
+                          for what, fn in stage_fn(inp)]
+                total = "" if stage_fn is k12_stages else \
+                    f"; sum {sum(ms for _, ms in stages):.4f} ms"
+                log(f"[timing] {what_k}: " + ", ".join(f"{what} {ms:.4f} ms" for what, ms in stages)
+                    + total)
+            time_gemm_s8(gen, dev)
+            time_gemm_bf16(gen, dev)
+            del inp, calls, inputs, inp11
+            inp_long, inp8 = long_inputs(8, 1499, gen, dev), long_inputs(4, 2999, gen, dev)
+            inputs = {"fused_qkv_attention_outproj": inp_long, "fused_qkv_attention": inp_long,
+                      "online_flash_attention": inp8}
+            time_kernels(long_kernel_calls([inp_long], [inp8]), inputs, "(30 s: B=8; 60 s: B=4)",
+                         entries, launches, max_err)
+            time_attention_core([long_inputs(32, 499, gen, dev), inp_long])
+            del inp_long, inp8, inputs
+            for form in ("bf16", "f32"):  # the main path's padded bf16 bias first: the kernels line
+                inp9, inp10 = (gated_inputs(32, 499, gen, dev, form=form),
+                               gated_inputs(4, 2999, gen, dev, form=form))
+                time_kernels(gated_kernel_calls([inp9], [inp10]),
+                             {"gated_bias_attention": inp9, "gated_online_flash_attention": inp10},
+                             f"(10 s: B=32; 60 s: B=4; {form} bias)",
+                             entries if form == "bf16" else {}, launches, max_err)
+                del inp9, inp10
+            inp_fe = frontend_inputs(32, gen, dev)
+            check_int8_conv_bits(inp_fe)
+            time_frontend(inp_fe, entries, launches, max_err)
+            del inp_fe
+            inp16 = posconv_inputs(32, 499, gen, dev)
+            time_kernels(posconv_calls([inp16]), {"pos_conv_gelu": inp16, "pos_conv_gelu_q8": inp16},
+                         "B=32", entries, launches, max_err)
+            x, w, b = inp16["x"], inp16["w"].to(torch.bfloat16), inp16["bias"].to(torch.bfloat16)
+
+            def stock_posconv():  # ConvPositionalEmbedding's stock path
+                y = torch.nn.functional.conv1d(x.transpose(1, 2), w, b, padding=w.shape[-1] // 2,
+                                               groups=inp16["G"])
+                return torch.nn.functional.gelu(y[..., :-1]).transpose(1, 2)
+
+            t = (cuda_ms(stock_posconv, 10) + cuda_ms(stock_posconv, 10)) / 2
+            log(f"[timing] pos-conv stock path it replaces B=32 x 499, grouped F.conv1d + bias + "
+                f"GELU: {t:.3f} ms")
+            for what, fn in (("posconv_quant alone (scales and codes)",
+                              lambda: pc.posconv_quant(x, inp16["G"])),
+                             ("its scale pass alone (in K16b's launch)",
+                              lambda: pc._quant_launch(x, inp16["G"], codes=False))):
                 t = (cuda_ms(fn, 10) + cuda_ms(fn, 10)) / 2
-                log(f"[timing] {name} split pair it replaces B=32, {what}: {t:.3f} ms")
-        for what_k, stage_fn in (("fused_int8_ffn (K2) stages B=32 x 499, F=4096", k2_stages),
-                                 ("fused_attention_block (K1) stages B=32 x 499", k1_stages),
-                                 ("fused_int8_linear (K12) launches B=32 x 499", k12_stages)):
-            stages = [(what, (cuda_ms(fn, 10) + cuda_ms(fn, 10)) / 2)
-                      for what, fn in stage_fn(inp)]
-            total = "" if stage_fn is k12_stages else \
-                f"; sum {sum(ms for _, ms in stages):.4f} ms"
-            log(f"[timing] {what_k}: " + ", ".join(f"{what} {ms:.4f} ms" for what, ms in stages)
-                + total)
-        time_gemm_s8(gen, dev)
-        time_gemm_bf16(gen, dev)
-        del inp, calls, inputs, inp11
-        inp_long, inp8 = long_inputs(8, 1499, gen, dev), long_inputs(4, 2999, gen, dev)
-        inputs = {"fused_qkv_attention_outproj": inp_long, "fused_qkv_attention": inp_long,
-                  "online_flash_attention": inp8}
-        time_kernels(long_kernel_calls([inp_long], [inp8]), inputs, "(30 s: B=8; 60 s: B=4)",
-                     entries, launches, max_err)
-        time_attention_core([long_inputs(32, 499, gen, dev), inp_long])
-        del inp_long, inp8, inputs
-        for form in ("bf16", "f32"):  # the main path's padded bf16 bias first: the kernels line
-            inp9, inp10 = (gated_inputs(32, 499, gen, dev, form=form),
-                           gated_inputs(4, 2999, gen, dev, form=form))
-            time_kernels(gated_kernel_calls([inp9], [inp10]),
-                         {"gated_bias_attention": inp9, "gated_online_flash_attention": inp10},
-                         f"(10 s: B=32; 60 s: B=4; {form} bias)",
-                         entries if form == "bf16" else {}, launches, max_err)
-            del inp9, inp10
-        inp_fe = frontend_inputs(32, gen, dev)
-        check_int8_conv_bits(inp_fe)
-        time_frontend(inp_fe, entries, launches, max_err)
-        del inp_fe
-        inp16 = posconv_inputs(32, 499, gen, dev)
-        time_kernels(posconv_calls([inp16]), {"pos_conv_gelu": inp16, "pos_conv_gelu_q8": inp16},
-                     "B=32", entries, launches, max_err)
-        x, w, b = inp16["x"], inp16["w"].to(torch.bfloat16), inp16["bias"].to(torch.bfloat16)
-
-        def stock_posconv():  # ConvPositionalEmbedding's stock path
-            y = torch.nn.functional.conv1d(x.transpose(1, 2), w, b, padding=w.shape[-1] // 2,
-                                           groups=inp16["G"])
-            return torch.nn.functional.gelu(y[..., :-1]).transpose(1, 2)
-
-        t = (cuda_ms(stock_posconv, 10) + cuda_ms(stock_posconv, 10)) / 2
-        log(f"[timing] pos-conv stock path it replaces B=32 x 499, grouped F.conv1d + bias + "
-            f"GELU: {t:.3f} ms")
-        for what, fn in (("posconv_quant alone (scales and codes)",
-                          lambda: pc.posconv_quant(x, inp16["G"])),
-                         ("its scale pass alone (in K16b's launch)",
-                          lambda: pc._quant_launch(x, inp16["G"], codes=False))):
-            t = (cuda_ms(fn, 10) + cuda_ms(fn, 10)) / 2
-            log(f"[timing] K16b quantizer B=32 x 499 bf16, {what}: {t:.4f} ms")
-        del inp16, x, w, b
-        inp17 = gated_inputs(32, 499, gen, dev)
-        time_kernels(k17_calls([inp17]), {"flash_attention": inp17}, "B=32", entries, launches,
-                     max_err)
-        del inp17
-        time_base_kernels(*base_kernel_calls(gen, dev))
-        time_base_kernels(*base_kernel_calls(gen, dev, C=1024, F=4096, H=16, gated=False))
+                log(f"[timing] K16b quantizer B=32 x 499 bf16, {what}: {t:.4f} ms")
+            del inp16, x, w, b
+            inp17 = gated_inputs(32, 499, gen, dev)
+            time_kernels(k17_calls([inp17]), {"flash_attention": inp17}, "B=32", entries, launches,
+                         max_err)
+            del inp17
+            time_base_kernels(*base_kernel_calls(gen, dev))
+            time_base_kernels(*base_kernel_calls(gen, dev, C=1024, F=4096, H=16, gated=False))
     # 7. SUPERB's frozen-upstream probe training at full width: the Trainer's
     # steps, one step against the CPU, the step's rate, a whole recipe
-    with Phase("7 probe training"):
-        probe_phase(wrapper, gen, dev, smi.splitlines()[0])
+    if 7 in phases:
+        with Phase("7 probe training"):
+            probe_phase(wrapper, gen, dev, smi.splitlines()[0])
     # 8. SUPERB ASR: the BLSTM-CTC probe's steps, one against the CPU, the
     # CTC edge rows, the step's rate, decoding, the SuperbASR recipe on FLAC
-    with Phase("8 asr"):
-        asr_phase(wrapper, gen, dev, smi.splitlines()[0])
+    if 8 in phases:
+        with Phase("8 asr"):
+            asr_phase(wrapper, gen, dev, smi.splitlines()[0])
     # 9. SUPERB's speaker tasks: ASV, GE2E and SD steps, one update of each
     # against the CPU, their rates, the SuperbASV, segment-eval and SuperbSD
     # recipes
-    with Phase("9 speaker"):
-        speaker_phase(wrapper, gen, dev, smi.splitlines()[0])
+    if 9 in phases:
+        with Phase("9 speaker"):
+            speaker_phase(wrapper, gen, dev, smi.splitlines()[0])
     # 10. SUPERB's frame probes, QbE, HEAR and MOS: QbE's extraction and DTW
     # against the CPU, a step of each head, one update of each against the
     # CPU, their rates, the Example recipes and a HEAR k-fold recipe
-    with Phase("10 recipes"):
-        recipes_phase(wrapper, gen, dev, smi.splitlines()[0])
+    if 10 in phases:
+        with Phase("10 recipes"):
+            recipes_phase(wrapper, gen, dev, smi.splitlines()[0])
     # 11. the baseline front ends and SUPERB-SG's SE, SS and ST: the six
     # entries against the CPU, the STFT round trip, a step of each head, one
     # update of each against the CPU, their rates, ST's greedy decoding,
     # SeExample and StExample
-    with Phase("11 sg recipes"):
-        sg_phase(wrapper, gen, dev, smi.splitlines()[0])
+    if 11 in phases:
+        with Phase("11 sg recipes"):
+            sg_phase(wrapper, gen, dev, smi.splitlines()[0])
+    # 12. SUPERB's SLU recipes and the mel-domain upstreams: the nine models
+    # behind the ten new names against the CPU with their rates, the SLU and
+    # MOSEI steps (launches, one update against the CPU, their rates) and
+    # SluExample
+    if 12 in phases:
+        with Phase("12 slu and mel upstreams"):
+            slu_phase(wrapper, gen, dev, smi.splitlines()[0])
+    if phases != ALL_PHASES:
+        log(f"partial run: phases 1, 2 and {sorted(phases)} (the kernels line and the result "
+            "line come from a run of every phase)")
+        return
     log(json.dumps({"kernels": [entries[name] for name in wrapper]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,12 @@ WavLM (``wavlm`` / ``wavlm_base``, ``wavlm_base_plus``, ``wavlm_large``) and
 UniSpeech-SAT (``unispeech_sat`` / ``unispeech_sat_base``,
 ``unispeech_sat_base_plus``, ``unispeech_sat_large``), and the
 parameter-free baseline front ends ``fbank``, ``fbank_no_cmvn``, ``mfcc``,
-``spectrogram``, ``mel`` and ``linear`` (``device=`` only); ``ckpt=`` loads a
-local checkpoint, ``options()`` lists the names. Keywords: the int8 path's
+``spectrogram``, ``mel`` and ``linear`` (``device=`` only), the mel-domain
+SSL models ``mockingjay``, ``tera``, ``audio_albert``, ``apc``, ``vq_apc``
+and ``npc`` and the MOS predictors ``mos_prediction`` / ``mos_wav2vec2``,
+``mos_apc`` and ``mos_tera`` (``dtype``, ``seed``, ``ckpt`` and
+``device``); ``ckpt=`` loads a local checkpoint, ``options()`` lists the
+names. Keywords: the int8 path's
 opt-in fused projections ``qkv_fuse`` / ``full_fuse`` (HuBERT, wav2vec2)
 and ``wavlm_fuse`` (WavLM), the front-end options ``int8_conv`` (int8),
 ``fused_conv`` and ``fused_midln``, and the pos-conv options

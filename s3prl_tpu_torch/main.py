@@ -22,6 +22,10 @@ the HEAR recipes run the same way, e.g.
     python -m s3prl_tpu_torch.main HearESC50 --target_dir exp/esc50 \
         --prepare_data.task_dir /data/hear/esc50-v2.0.0-full \
         --prepare_data.test_fold 0 --build_upstream.name hubert_large_ll60k
+
+The SLU recipes (SluATIS, SluAudioSnips, MoseiSentiment, SluExample) too,
+e.g. ``SluATIS --prepare_data.atis /data/atis``; a mel-domain upstream is
+one more name, e.g. ``--build_upstream.name tera``.
 """
 
 from __future__ import annotations

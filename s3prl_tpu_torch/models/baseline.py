@@ -74,6 +74,20 @@ def baseline_features(
     return feats, feat_lens
 
 
+def mel_ssl_features(wavs: torch.Tensor, wav_lens: torch.Tensor, kind: str):
+    """The mel-domain SSL models' front end (s3prl_tpu/upstream/registry.py:
+    321-333, models/mos.py:115-129): ``"fbank_delta"`` Kaldi fbank 80 + Δ + ΔΔ
+    + CMVN (240 dims, Mockingjay), ``"mel"`` log-mel 80 + CMVN (TERA,
+    AudioALBERT, APC, NPC). Returns (feats [B, F, D] f32, feat_lens [B])."""
+    if kind == "fbank_delta":
+        return baseline_features(wavs, wav_lens, feat_type="fbank", num_mel_bins=80,
+                                 delta_order=2, cmvn=True)
+    if kind != "mel":
+        raise ValueError(f"unknown mel front end {kind!r}: 'fbank_delta' or 'mel'")
+    feats, feat_lens = audio.log_mel(wavs, wav_lens, n_mels=80)
+    return audio.cmvn(feats, feat_lens), feat_lens
+
+
 class BaselineFeatures(nn.Module):
     """(wavs [B, T], wav_lens [B]) -> (feats [1, B, F, D], feat_lens [B]) on
     the device given: the parameter-free module keeps it in an empty buffer

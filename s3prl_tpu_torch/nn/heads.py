@@ -61,7 +61,8 @@ class Dense(nn.Linear):
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         lecun_normal_(self.weight, self.in_features, generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
@@ -122,10 +123,11 @@ class Conv(nn.Conv1d):
     the forward and the backward, as `LSTM`."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 dilation: int = 1, padding: str = "SAME"):
+                 dilation: int = 1, padding: str = "SAME", device=None):
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"padding {padding!r}: SAME or VALID")
-        super().__init__(in_channels, out_channels, kernel_size, dilation=dilation)
+        super().__init__(in_channels, out_channels, kernel_size, dilation=dilation,
+                         device=device)
         self.same = padding == "SAME"
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -437,6 +439,41 @@ class LSTM(nn.LSTM):
         if bool((lens == 0).any()):
             out = out * (lens > 0).to(out.device, out.dtype)[:, None, None]
         return out
+
+
+class GRU(nn.GRU):
+    """One layer of flax's ``nn.RNN(nn.GRUCell(H), seq_lengths=...)`` as
+    cuDNN's one-way GRU over the whole padded length, in f32 with TF32 off.
+
+    flax's cell has no bias on its hidden kernels ``hr`` / ``hz``; torch's
+    ``b_hr`` / ``b_hz`` add to the same sums as ``b_ir`` / ``b_iz``, so a
+    flax cell is this layer with those two held in ``bias_ih`` and zeros in
+    ``bias_hh`` (`upstream/convert.py` `apc_state_dict_from_jax`). flax's
+    ``seq_lengths`` only picks the last carry: the outputs run on over the
+    padded frames, as here (no packing)."""
+
+    def __init__(self, input_size: int, hidden_size: int, device=None):
+        super().__init__(input_size, hidden_size, batch_first=True, device=device)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """flax's cell init: lecun-normal input kernels, an orthogonal
+        recurrent kernel for each gate's [H, H] (drawn on the CPU from a CPU
+        `generator`), zero biases."""
+        H = self.hidden_size
+        with torch.no_grad():
+            lecun_normal_(self.weight_ih_l0, self.input_size, generator)
+            for g in range(3):
+                self.weight_hh_l0[g * H:(g + 1) * H].copy_(
+                    nn.init.orthogonal_(torch.empty(H, H), generator=generator))
+            self.bias_ih_l0.zero_()
+            self.bias_hh_l0.zero_()
+
+    def forward(self, xs: torch.Tensor) -> torch.Tensor:
+        """xs [B, T, C] -> [B, T, H] f32, every frame."""
+        def run(x):
+            return super(GRU, self).forward(x)[0]
+
+        return ieee_call(run, xs.to(self.weight_ih_l0.dtype), self._flat_weights)
 
 
 class RNNEncoder(nn.Module):

@@ -26,8 +26,7 @@ import torch
 import torch.nn as nn
 
 from ..upstream.base import Upstream
-from ..upstream.registry import load as hub_load
-from .heads import LSTM, Conv, Dense
+from .heads import GRU, LSTM, Conv, Dense
 
 _DTYPES = {"float32": torch.float32, "f32": torch.float32,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
@@ -62,7 +61,9 @@ class SUpstream:
             conf["ckpt"] = path_or_url
         if randomize:
             conf.pop("ckpt", None)  # random init = no checkpoint
-        self.upstream: Upstream = hub_load(name, **conf)
+        from ..upstream.registry import load  # the registry's models import nn.heads
+
+        self.upstream: Upstream = load(name, **conf)
         self.normalize = normalize
 
     @property
@@ -137,13 +138,17 @@ class UpstreamDownstreamModel(nn.Module):
 def init_params(module: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
     """flax's initialisation of a probe, drawn from `generator` in module
     order: every `Dense` and `Conv` lecun-normal with a zero bias, every
-    `LSTM` as flax's cell (lecun-normal input kernels, an orthogonal
-    recurrent kernel a gate, zero biases), every ``nn.Embedding`` as
-    flax's ``nn.Embed`` (a normal of standard deviation 1 / sqrt(features),
-    drawn on the CPU), every featurizer's weights zero."""
+    `LSTM` and `GRU` as flax's cell (lecun-normal input kernels, an
+    orthogonal recurrent kernel a gate, zero biases), every ``nn.LayerNorm``
+    and ``nn.BatchNorm1d`` ones and zeros (running statistics 0 and 1),
+    every ``nn.Embedding`` as flax's ``nn.Embed`` (a normal of standard
+    deviation 1 / sqrt(features), drawn on the CPU), every featurizer's
+    weights zero."""
     for m in module.modules():
-        if isinstance(m, (Dense, Conv, LSTM)):
+        if isinstance(m, (Dense, Conv, LSTM, GRU)):
             m.reset_parameters(generator)
+        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm1d)):
+            m.reset_parameters()
         elif isinstance(m, nn.Embedding):
             draw = torch.randn(m.weight.shape, generator=generator) / math.sqrt(m.embedding_dim)
             with torch.no_grad():

@@ -62,3 +62,4 @@ from .hear import (  # noqa: F401
 from .mos import MosExample, MosPrediction  # noqa: F401
 from .enhancement import SeExample, SuperbSE, SuperbSS  # noqa: F401
 from .translation import StExample, SuperbST  # noqa: F401
+from .slu import MoseiSentiment, SluATIS, SluAudioSnips, SluExample  # noqa: F401

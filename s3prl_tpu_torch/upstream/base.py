@@ -9,6 +9,7 @@ h_len = floor((wav_len - 1) / stride) + 1.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from dataclasses import dataclass
 
@@ -40,15 +41,27 @@ def standardize_hidden_states(hidden_states: torch.Tensor, wav_lens: torch.Tenso
     return match_length_stacked(hidden_states, target), upstream_feat_lengths(wav_lens, stride)
 
 
+def _drops(cfg, prefix: str = "") -> dict:
+    """The config's nonzero dropout and layerdrop fields, those of its
+    nested configs (the MOS predictor's upstream) under their field's name."""
+    on = {}
+    for name, value in vars(cfg).items():
+        if dataclasses.is_dataclass(value):
+            on.update(_drops(value, f"{prefix}{name}."))
+        elif ("dropout" in name or "layerdrop" in name) and value:
+            on[prefix + name] = value
+    return on
+
+
 def train_refusal(cfg) -> None:
     """Raises for a model whose JAX train mode drops something: the port's
-    models have no dropout or layerdrop (ROADMAP.md Queue 1 item 7)."""
-    on = {name: value for name, value in vars(cfg).items()
-          if ("dropout" in name or "layerdrop" in name) and value}
+    upstreams serve frozen, with no dropout or layerdrop (ROADMAP.md Queue 1
+    item 7)."""
+    on = _drops(cfg)
     if on:
         raise NotImplementedError(
-            f"train mode with {on}: the port's models have no dropout or layerdrop "
-            "(ROADMAP.md Queue 1 item 7); train with the upstream frozen")
+            f"train mode with {on}: the port's upstreams train with no dropout or "
+            "layerdrop (ROADMAP.md Queue 1 item 7); train with the upstream frozen")
 
 
 @dataclass

@@ -11,6 +11,13 @@ the port's models load (`trunk_state_dict_from_torch`,
 `probe_state_dict_from_jax(params)` maps a probe's flax params (featurizer
 and head) onto the port's `UpstreamDownstreamModel`.
 
+The mel-domain SSL models and the MOS predictor keep the reference's keys:
+`load_mel_ssl_checkpoint` and `load_mos_checkpoint` read the reference's
+checkpoints (the torch branches of convert.py:846-914, :1214-1300), and
+`mockingjay_state_dict_from_jax`, `apc_state_dict_from_jax`,
+`npc_state_dict_from_jax` and `mos_state_dict_from_jax` map the JAX
+package's trees onto them (the inverses of its `*_from_torch`).
+
 `trunk_state_dict_from_jax(params, cfg)` takes the param tree of
 s3prl_tpu.models.wav2vec2.Wav2Vec2Trunk (numpy or jax arrays; a variables
 dict with a "params" entry also works) and returns the fairseq-keyed
@@ -370,6 +377,297 @@ def load_wavlm_checkpoint(path) -> Tuple[WavLMConfig, Dict[str, torch.Tensor]]:
     return cfg, wavlm_state_dict_from_torch(ckpt["model"], cfg)
 
 
+# -- the mel-domain SSL models (Mockingjay / TERA / AudioALBERT, APC, NPC) -----------
+
+# the reference TransformerModel's names of a block's layers (convert.py:449-458)
+_BERT_DENSE = (("query", "attention.self.query"), ("key", "attention.self.key"),
+               ("value", "attention.self.value"), ("attn_output", "attention.output.dense"),
+               ("intermediate", "intermediate.dense"), ("output", "output.dense"))
+_BERT_NORMS = (("attn_layer_norm", "attention.output.LayerNorm"),
+               ("out_layer_norm", "output.LayerNorm"))
+
+
+def mockingjay_state_dict_from_jax(params: Dict[str, Any], prefix: str = ""
+                                   ) -> Dict[str, torch.Tensor]:
+    """JAX MockingjayEncoder params -> the port's `MockingjayEncoder`
+    state_dict (the reference's keys, after `prefix`), the inverse of
+    s3prl_tpu/upstream/convert.py `mockingjay_params_from_torch`: the
+    scanned ``layers`` subtree (a leading L axis) un-stacked into
+    ``encoder.layer.{i}``; AudioALBERT's single set (no L axis) as
+    ``encoder.layer.0``."""
+    p = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, f"{prefix}input_representations.spec_transform", p["spec_transform"])
+    _norm(sd, f"{prefix}input_representations.LayerNorm", p["input_layer_norm"])
+    layers = p["layers"]
+    stacked = np.ndim(layers["query"]["kernel"]) == 3
+    for i in range(np.shape(layers["query"]["kernel"])[0] if stacked else 1):
+        index = i if stacked else None
+        pre = f"{prefix}encoder.layer.{i}"
+        for name, key in _BERT_DENSE:
+            _linear(sd, f"{pre}.{key}", layers[name], index)
+        for name, key in _BERT_NORMS:
+            _norm(sd, f"{pre}.{key}", layers[name], index)
+    return sd
+
+
+def apc_state_dict_from_jax(params: Dict[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX APCModel params -> the port's `APCModel` state_dict (the
+    reference's keys), the inverse of convert.py `_gru_params_from_torch`
+    (:576-597): each flax ``GRUCell`` ``cell_{i}`` -> ``rnn_layers.{i}``
+    with the gates [r; z; n] stacked, its folded r / z input biases in
+    ``bias_ih`` and zeros for them in ``bias_hh`` (flax's ``hr`` / ``hz``
+    have none), ``hn``'s bias in ``bias_hh``; ``vq_{g}`` -> ``vq_layers.{g}``
+    (``codebook`` [C, E] -> ``codebook_CxE.weight`` [E, C]); ``postnet``."""
+    p = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+    i = 0
+    while f"cell_{i}" in p:
+        cell = p[f"cell_{i}"]
+        pre = f"{prefix}rnn_layers.{i}"
+        kernels = lambda kind: np.concatenate(  # noqa: E731
+            [np.asarray(cell[f"{kind}{g}"]["kernel"]) for g in "rzn"], axis=1).T
+        sd[f"{pre}.weight_ih_l0"] = _tensor(kernels("i"))
+        sd[f"{pre}.weight_hh_l0"] = _tensor(kernels("h"))
+        sd[f"{pre}.bias_ih_l0"] = _tensor(np.concatenate(
+            [np.asarray(cell[f"i{g}"]["bias"]) for g in "rzn"]))
+        hn = np.asarray(cell["hn"]["bias"])
+        sd[f"{pre}.bias_hh_l0"] = _tensor(np.concatenate([np.zeros(2 * hn.size), hn]))
+        i += 1
+    g = 0
+    while f"vq_{g}" in p:
+        _linear(sd, f"{prefix}vq_layers.{g}.vq_logits", p[f"vq_{g}"]["vq_logits"])
+        sd[f"{prefix}vq_layers.{g}.codebook_CxE.weight"] = _tensor(
+            np.asarray(p[f"vq_{g}"]["codebook"]).T)
+        g += 1
+    _linear(sd, f"{prefix}postnet", p["postnet"])
+    return sd
+
+
+def npc_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX NPCModel variables ({"params", "batch_stats"}) -> the port's
+    `NPCModel` state_dict (the reference's keys), the inverse of convert.py
+    `npc_variables_from_torch` (:921-955): conv kernels -> weights, each
+    BatchNorm's ``scale`` / ``bias`` and ``batch_stats`` ``mean`` / ``var``
+    -> ``weight`` / ``bias`` / ``running_mean`` / ``running_var`` (with
+    ``num_batches_tracked`` 0)."""
+    p, stats = variables["params"], variables.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv(prefix, tree):
+        sd[f"{prefix}.weight"] = _conv(tree["kernel"])
+        sd[f"{prefix}.bias"] = _tensor(tree["bias"])
+
+    i = 0
+    while f"block_{i}" in p:
+        block, pre = p[f"block_{i}"], f"blocks.{i}"
+        conv(f"{pre}.conv", block["conv"])
+        conv(f"{pre}.linear", block["linear"])
+        for bn in ("bn1", "bn2"):
+            if bn in block:
+                _norm(sd, f"{pre}.{bn}", block[bn])
+                sd[f"{pre}.{bn}.running_mean"] = _tensor(stats[f"block_{i}"][bn]["mean"])
+                sd[f"{pre}.{bn}.running_var"] = _tensor(stats[f"block_{i}"][bn]["var"])
+                sd[f"{pre}.{bn}.num_batches_tracked"] = torch.tensor(0)
+        if f"masked_conv_{i}" in p:
+            conv(f"masked_convs.{i}.conv", p[f"masked_conv_{i}"])
+        i += 1
+    _linear(sd, "postnet", p["postnet"])
+    return sd
+
+
+def _mockingjay_keys(sd: Dict[str, Any], num_layers: int) -> Dict[str, torch.Tensor]:
+    """The keys the JAX `mockingjay_params_from_torch` reads (convert.py:
+    434-468), of `num_layers` blocks, f32."""
+    names = [f"input_representations.{n}" for n in ("spec_transform", "LayerNorm")] + [
+        f"encoder.layer.{i}.{key}" for i in range(num_layers)
+        for _, key in _BERT_DENSE + _BERT_NORMS]
+    return {f"{n}.{kind}": _t(sd[f"{n}.{kind}"]) for n in names for kind in ("weight", "bias")}
+
+
+def _layer_count(sd: Dict[str, Any], prefix: str) -> int:
+    n = 0
+    while any(k.startswith(f"{prefix}{n}.") for k in sd):
+        n += 1
+    return n
+
+
+def _apc_keys(sd: Dict[str, Any], vq: bool = True) -> Dict[str, torch.Tensor]:
+    """The keys the JAX `apc_params_from_torch` reads (convert.py:600-614):
+    every GRU layer (``rnn_layers.{i}`` while ``weight_ih_l0`` exists, at
+    least one), ``postnet``, and with `vq` each ``vq_layers.{g}``."""
+    n = 0
+    while f"rnn_layers.{n}.weight_ih_l0" in sd:
+        n += 1
+    keys = [f"rnn_layers.{i}.{kind}_{part}_l0" for i in range(max(n, 1))
+            for kind in ("weight", "bias") for part in ("ih", "hh")]
+    keys += ["postnet.weight", "postnet.bias"]
+    g = 0
+    while vq and f"vq_layers.{g}.vq_logits.weight" in sd:
+        keys += [f"vq_layers.{g}.vq_logits.weight", f"vq_layers.{g}.vq_logits.bias",
+                 f"vq_layers.{g}.codebook_CxE.weight"]
+        g += 1
+    return {k: _t(sd[k]) for k in keys}
+
+
+def load_mel_ssl_checkpoint(name: str, path) -> Dict[str, torch.Tensor]:
+    """A mel-domain SSL checkpoint of the reference -> the port's state_dict
+    of entry `name`'s model (the torch branch of the JAX
+    `load_mel_ssl_checkpoint`, convert.py:876-914, key for key):
+
+    - ``apc`` / ``vq_apc``, ``npc``: ``{"config", "model"}`` or a bare
+      state_dict; NPC's BatchNorms only with ``config.model.paras``'
+      ``batch_norm`` (default True), ``num_batches_tracked`` kept or 0;
+    - ``mockingjay`` / ``tera`` / ``audio_albert``: the state_dict under
+      ``SelfSupervisedLearning``, ``Transformer``, ``model`` or
+      ``state_dict``, or a bare one, with or without the ``transformer.``
+      prefix; its blocks counted from ``encoder.layer.{i}``; ``audio_albert``
+      shares one block when the checkpoint holds one.
+
+    A checkpoint of the JAX package's own pretraining (msgpack) raises
+    NotImplementedError (`_refuse_native`). An ``audio_albert`` checkpoint
+    listing more than one block raises ValueError: the reference's shared
+    encoder lists its one block at every depth (``encoder.layer.0-2``),
+    which the JAX loader reads as that many distinct stacked blocks and
+    its shared model then cannot apply."""
+    ckpt = _torch_load(path)
+    if name.startswith(("apc", "vq_apc")):
+        return _apc_keys(ckpt.get("model", ckpt))
+    if name.startswith("npc"):
+        sd = ckpt.get("model", ckpt)
+        paras = ckpt.get("config", {}).get("model", {}).get("paras", {})
+        batch_norm = bool(paras.get("batch_norm", True))
+        out: Dict[str, torch.Tensor] = {}
+        for i in range(int(paras.get("n_blocks", 4))):
+            layers = ["conv", "linear"] + (["bn1", "bn2"] if batch_norm else [])
+            for layer in layers:
+                pre = f"blocks.{i}.{layer}"
+                kinds = ["weight", "bias"] + (
+                    ["running_mean", "running_var"] if layer.startswith("bn") else [])
+                for kind in kinds:
+                    if f"{pre}.{kind}" in sd:
+                        out[f"{pre}.{kind}"] = _t(sd[f"{pre}.{kind}"])
+                if layer.startswith("bn"):
+                    out[f"{pre}.num_batches_tracked"] = torch.as_tensor(
+                        sd.get(f"{pre}.num_batches_tracked", 0)).long()
+            if f"masked_convs.{i}.conv.weight" in sd:
+                for kind in ("weight", "bias"):
+                    out[f"masked_convs.{i}.conv.{kind}"] = _t(sd[f"masked_convs.{i}.conv.{kind}"])
+        for kind in ("weight", "bias"):
+            out[f"postnet.{kind}"] = _t(sd[f"postnet.{kind}"])
+        return out
+    sd = next((ckpt[key] for key in ("SelfSupervisedLearning", "Transformer", "model",
+                                     "state_dict") if isinstance(ckpt.get(key), dict)), ckpt)
+    if any(k.startswith("transformer.") for k in sd):
+        sd = {k[len("transformer."):]: v for k, v in sd.items() if k.startswith("transformer.")}
+    num_layers = _layer_count(sd, "encoder.layer.")
+    if name == "audio_albert" and num_layers > 1:
+        raise ValueError(
+            f"{path}: an audio_albert checkpoint listing {num_layers} blocks "
+            f"(encoder.layer.0-{num_layers - 1}) reads two ways: the reference's shared "
+            f"block repeated at every depth, or {num_layers} distinct blocks; the JAX "
+            "package loads it as distinct stacked blocks, which its shared model cannot "
+            "apply. Pass a checkpoint holding the one shared block (encoder.layer.0)")
+    return _mockingjay_keys(sd, max(num_layers, 1))
+
+
+# -- the MOS predictor (s3prl_tpu/upstream/convert.py:1202-1300) --------------------
+
+
+def _find_config_value(tree, key):
+    """Depth-first search of a nested config dict for an int `key` -> int or
+    None (a copy of convert.py:1202-1211)."""
+    if isinstance(tree, dict):
+        if key in tree and isinstance(tree[key], int):
+            return tree[key]
+        for v in tree.values():
+            found = _find_config_value(v, key)
+            if found is not None:
+                return found
+    return None
+
+
+def mos_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX MosModel params -> the port's `MosModel` state_dict: the
+    featurizer's weights, ``connector``, ``mean_net_linear`` and
+    ``mean_net_pooling`` as Dense layers, the upstream under ``apc.``
+    (`apc_state_dict_from_jax`), ``tera.`` (`mockingjay_state_dict_from_jax`)
+    or ``trunk.`` (`trunk_state_dict_from_jax`)."""
+    p = params.get("params", params)
+    sd = {"featurizer_weights": _tensor(p["featurizer_weights"])}
+    for name in ("connector", "mean_net_linear", "mean_net_pooling"):
+        if name in p:
+            _linear(sd, name, p[name])
+    if cfg.upstream == "apc":
+        sd.update(apc_state_dict_from_jax(p["apc"], "apc."))
+    elif cfg.upstream == "tera":
+        sd.update(mockingjay_state_dict_from_jax(p["tera"], "tera."))
+    else:
+        sd.update({f"trunk.{k}": v for k, v in trunk_state_dict_from_jax(p["trunk"],
+                                                                        cfg.trunk).items()})
+    return sd
+
+
+def load_mos_checkpoint(path):
+    """A mos_{wav2vec2,apc,tera} checkpoint ``{"Upstream", "Featurizer",
+    "Downstream", "Config"}`` -> (MosConfig, the port's `MosModel`
+    state_dict), reading what the JAX `load_mos_checkpoint` reads
+    (convert.py:1214-1300): the upstream's variant from its keys (``model.``
+    stripped: ``rnn_layers`` APC, ``spec_transform`` a ``transformer.``
+    TransformerModel, else wav2vec2-Base), its widths from the weights' shapes,
+    TERA's heads from the Config (12 when the width divides by 12, else 4),
+    the head's options from ``Config.downstream_expert.modelrc``."""
+    from ..models.apc import APCConfig
+    from ..models.mockingjay import MockingjayConfig
+    from ..models.mos import MosConfig
+
+    ckpt = _torch_load(path)
+    up_sd = {(k[len("model."):] if k.startswith("model.") else k): v
+             for k, v in ckpt["Upstream"].items()}
+    modelrc = ckpt.get("Config", {}).get("downstream_expert", {}).get("modelrc", {})
+    down_sd = ckpt["Downstream"]
+    common = dict(
+        projector_dim=int(modelrc.get("projector_dim", down_sd["connector.weight"].shape[0])),
+        clipping=bool(modelrc.get("clipping", False)),
+        attention_pooling=bool(modelrc.get("attention_pooling", False)))
+    sd = {"featurizer_weights": _t(ckpt["Featurizer"]["weights"])}
+    for name, key in (("connector", "connector"), ("mean_net_linear", "model.mean_net_linear")):
+        for kind in ("weight", "bias"):
+            sd[f"{name}.{kind}"] = _t(down_sd[f"{key}.{kind}"])
+    if any("rnn_layers" in k for k in up_sd):  # mos_apc
+        apc = _apc_keys(up_sd, vq=False)
+        n = _layer_count(apc, "rnn_layers.")
+        cfg = MosConfig(upstream="apc", apc=APCConfig(
+            input_size=int(up_sd["postnet.weight"].shape[0]),
+            hidden_size=int(up_sd["rnn_layers.0.weight_hh_l0"].shape[1]), num_layers=n),
+            feat_kind="mel", **common)
+        sd.update({f"apc.{k}": v for k, v in apc.items()})
+    elif any("spec_transform" in k for k in up_sd):  # mos_tera
+        tera = up_sd
+        if any(k.startswith("transformer.") for k in tera):
+            tera = {k[len("transformer."):]: v for k, v in tera.items()
+                    if k.startswith("transformer.")}
+        n = max(_layer_count(tera, "encoder.layer."), 1)
+        hidden, in_dim = tera["input_representations.spec_transform.weight"].shape
+        heads = _find_config_value(ckpt.get("Config", {}), "num_attention_heads")
+        if heads is None:
+            heads = 12 if hidden % 12 == 0 else 4
+        cfg = MosConfig(upstream="tera", tera=MockingjayConfig(
+            input_dim=int(in_dim), hidden_size=int(hidden), num_hidden_layers=n,
+            num_attention_heads=heads,
+            intermediate_size=int(tera["encoder.layer.0.intermediate.dense.weight"].shape[0])),
+            feat_kind="fbank_delta" if in_dim == 240 else "mel", **common)
+        sd.update({f"tera.{k}": v for k, v in _mockingjay_keys(tera, n).items()})
+    else:  # mos_wav2vec2: the released MOS rides wav2vec2-Base
+        cfg = MosConfig(trunk=config_from_model_cfg({}), **common)
+        sd.update({f"trunk.{k}": v for k, v in
+                   trunk_state_dict_from_torch(up_sd, cfg.trunk).items()})
+    if cfg.attention_pooling:
+        for kind in ("weight", "bias"):
+            sd[f"mean_net_pooling.{kind}"] = _t(down_sd[f"model.mean_net_pooling.W.{kind}"])
+    return cfg, sd
+
+
 _LSTM_CELL = "OptimizedLSTMCell_"
 _GATES = ("i", "f", "g", "o")  # flax's and torch's gate order
 
@@ -406,7 +704,9 @@ def probe_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]
     ``proj_{i}`` a layer, so its cells a layer are the directions (layer 0
     forward, layer 0 backward, layer 1 forward, ...; one a layer when
     unidirectional); a tree without ``proj_`` layers (SuperbDiarizationModel,
-    QbeEmbedder) has one unidirectional cell a layer."""
+    QbeEmbedder) has one unidirectional cell a layer. A subtree holding
+    ``spec_transform`` and ``layers`` (the SLU head's MockingjayEncoder)
+    maps through `mockingjay_state_dict_from_jax`."""
     params = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
 
@@ -420,6 +720,10 @@ def probe_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]
                 k = int(name[len(_LSTM_CELL):])
                 suffix = "_reverse" if directions == 2 and k % 2 else ""
                 _lstm_cell(sd, f"{prefix}lstm_{k // directions}.", suffix, value)
+            elif isinstance(value, dict) and {"spec_transform", "layers"} <= set(value):
+                # a MockingjayEncoder (the SLU head's): its scanned blocks'
+                # kernels [L, in, out] are no conv kernels
+                sd.update(mockingjay_state_dict_from_jax(value, f"{key}."))
             elif isinstance(value, dict):
                 walk(value, f"{key}.")
             elif name == "kernel":

@@ -24,6 +24,14 @@ Ported entries, with the JAX package's names and configurations
   ``fbank_no_cmvn``, ``mfcc``, ``spectrogram``, ``mel``, ``linear``, which
   take ``device=`` and `baseline_features`' keywords and none of the
   trunks';
+- the mel-domain SSL models over their front ends (`FeatureEncoder`,
+  stride 160; registry.py:313-444): ``mockingjay``, ``tera``,
+  ``audio_albert`` (models/mockingjay.py), ``apc``, ``vq_apc``
+  (models/apc.py) and ``npc`` (models/npc.py), and the MOS predictors
+  ``mos_prediction`` / ``mos_wav2vec2``, ``mos_apc`` and ``mos_tera``
+  (models/mos.py; registry.py:1044-1106), all on stock ops, which take
+  ``dtype``, ``seed``, ``ckpt`` and ``device`` and none of the trunks'
+  options;
 the trunks each in f32, bf16 and int8 W8A8 (``quantize=True``, the serving default),
 the int8 path with its opt-in fused projections (``qkv_fuse``,
 ``full_fuse``; ``wavlm_fuse``), the front-end options ``int8_conv`` (HuBERT
@@ -52,14 +60,20 @@ from typing import Callable, Dict, List
 import torch
 import torch.nn as nn
 
-from ..models.baseline import BASELINE_CONFIGS, BaselineFeatures
+from ..models.apc import APCConfig, APCModel
+from ..models.baseline import BASELINE_CONFIGS, BaselineFeatures, mel_ssl_features
 from ..models.hubert import HUBERT_BASE, HUBERT_LARGE
+from ..models.mockingjay import MockingjayConfig, MockingjayEncoder
+from ..models.mos import MosConfig, MosModel
+from ..models.npc import NPCConfig, NPCModel
 from ..models.transformer import SelfAttention
 from ..models.wav2vec2 import BASE, LARGE, Wav2Vec2Config, Wav2Vec2Trunk, card_refusal
 from ..models.wavlm import (WAVLM_BASE, WAVLM_BASE_PLUS, WAVLM_LARGE, GatedSelfAttention,
                             WavLMConfig, WavLMModel)
+from ..nn.upstream import init_params
 from .base import TrunkUpstream, Upstream
-from .convert import load_trunk_checkpoint, load_wavlm_checkpoint
+from .convert import (load_mel_ssl_checkpoint, load_mos_checkpoint, load_trunk_checkpoint,
+                      load_wavlm_checkpoint)
 
 _REGISTRY: Dict[str, Callable[..., Upstream]] = {}
 
@@ -299,3 +313,158 @@ for _alias in ("wav2vec2_large_960", "wav2vec2_large_voxpopuli_100k", "xlsr_53",
 for _alias in ("hubert_base_robust_mgr", "mhubert_base_vp_en_es_fr_it3",
                "contentvec", "contentvec_km100", "contentvec_km500", "ms_hubert"):
     _REGISTRY[_alias] = hubert_base
+
+
+# -- the mel-domain SSL family (registry.py:313-444): mockingjay / tera /
+# audio_albert (BERT-style), apc / vq_apc (GRUs), npc (masked convs). Their
+# front ends follow pretrain/*/config_model.yaml: mockingjay fbank 80 + Δ +
+# ΔΔ + CMVN (240 dims), the others log-mel 80 + CMVN; stride 160.
+
+
+class FeatureEncoder(nn.Module):
+    """(wavs [B, T], wav_lens [B]) -> (the model's hidden states, feat_lens):
+    the mel front end (`mel_ssl_features`), then the model, on the model's
+    device. ``cfg`` is the model's (for `train_refusal`)."""
+
+    def __init__(self, model: nn.Module, feat_kind: str):
+        super().__init__()
+        self.model, self.feat_kind, self.cfg = model, feat_kind, model.cfg
+
+    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor):
+        feats, feat_lens = mel_ssl_features(wavs, wav_lens, self.feat_kind)
+        return self.model(feats, feat_lens)[0], feat_lens
+
+
+@torch.no_grad()
+def _init_weights(model: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Random weights for the mel-domain models and the MOS predictor: the
+    probes' flax initialisers (`init_params`), the MOS featurizer's weights
+    0 and its wav2vec2 trunk as `_init_trunk`."""
+    init_params(model, gen)
+    if isinstance(model, MosModel):
+        model.featurizer_weights.zero_()
+        if model.cfg.upstream == "wav2vec2":
+            _init_trunk(model.trunk, gen)
+    return model
+
+
+def _build(model: nn.Module, state_dict, seed: int, device: torch.device) -> nn.Module:
+    """A model built on "meta" materialised on the CPU with `state_dict`
+    (strict) or random weights from `seed`, then moved to `device` in eval()."""
+    model.to_empty(device="cpu")
+    if state_dict is None:
+        _init_weights(model, torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict(state_dict, strict=True)
+    return model.to(device).eval()
+
+
+def _f32_only(name: str, dtype) -> None:
+    if dtype != torch.float32:
+        raise ValueError(f"dtype={dtype} cannot take effect on {name}: its model runs in f32 "
+                         "(the JAX package's takes no dtype)")
+
+
+def _mel_upstream(name: str, feat_kind: str, cfg, num_layers: int, hidden: int,
+                  dtype=torch.float32, seed: int = 0, ckpt=None, device=None) -> Upstream:
+    """Entry `name`'s model over its mel front end (the JAX package's
+    `_feat_encoder_upstream`, registry.py:336-370) on `device` (the card
+    when None), from `ckpt` (`load_mel_ssl_checkpoint`) or random weights
+    from `seed`. A Mockingjay checkpoint picks its own front end by its
+    ``spec_transform`` width (240: fbank + deltas, else log-mel). APC and NPC
+    run in f32: another `dtype` raises."""
+    device = _device(device)
+    state_dict = None
+    if ckpt is not None:
+        state_dict = load_mel_ssl_checkpoint(name, ckpt)
+    if isinstance(cfg, MockingjayConfig):
+        if state_dict is not None:
+            in_dim = state_dict["input_representations.spec_transform.weight"].shape[1]
+            feat_kind = "fbank_delta" if in_dim == 240 else "mel"
+            cfg = replace(cfg, input_dim=in_dim)
+        model = MockingjayEncoder(cfg, dtype, device="meta")
+    else:
+        _f32_only(name, dtype)
+        model = (APCModel if isinstance(cfg, APCConfig) else NPCModel)(cfg, device="meta")
+    model = FeatureEncoder(_build(model, state_dict, seed, device), feat_kind)
+    return Upstream(name=name, model=model, num_layers=num_layers, hidden_size=hidden,
+                    downsample_rate=160)
+
+
+@register("mockingjay")
+def mockingjay(**kwargs) -> Upstream:
+    cfg = MockingjayConfig(input_dim=240)
+    return _mel_upstream("mockingjay", "fbank_delta", cfg, cfg.num_hidden_layers + 1,
+                         cfg.hidden_size, **kwargs)
+
+
+@register("tera")
+def tera(**kwargs) -> Upstream:
+    cfg = MockingjayConfig(input_dim=80)
+    return _mel_upstream("tera", "mel", cfg, cfg.num_hidden_layers + 1, cfg.hidden_size,
+                         **kwargs)
+
+
+@register("audio_albert")
+def audio_albert(**kwargs) -> Upstream:
+    cfg = MockingjayConfig(input_dim=80, share_layer=True)
+    return _mel_upstream("audio_albert", "mel", cfg, cfg.num_hidden_layers + 1,
+                         cfg.hidden_size, **kwargs)
+
+
+@register("apc")
+def apc(**kwargs) -> Upstream:
+    cfg = APCConfig()
+    return _mel_upstream("apc", "mel", cfg, cfg.num_layers, cfg.hidden_size, **kwargs)
+
+
+@register("vq_apc")
+def vq_apc(**kwargs) -> Upstream:
+    cfg = APCConfig(vq_codebook_size=(512,), vq_code_dim=(512,))
+    return _mel_upstream("vq_apc", "mel", cfg, cfg.num_layers, cfg.hidden_size, **kwargs)
+
+
+@register("npc")
+def npc(**kwargs) -> Upstream:
+    cfg = NPCConfig()
+    return _mel_upstream("npc", "mel", cfg, 2 * cfg.n_blocks + 1, cfg.hidden_size, **kwargs)
+
+
+# -- the MOS predictors (registry.py:1044-1106): one score an utterance,
+# broadcast over [1, B, T', 1]
+
+
+def _mos_upstream(name: str, default_cfg: MosConfig, ckpt=None, seed: int = 0,
+                  dtype=torch.float32, device=None, **options) -> Upstream:
+    """`MosModel` on `device` (the card when None) from `ckpt`
+    (`load_mos_checkpoint`, whose configuration replaces `default_cfg`) or
+    random weights from `seed`. Its upstream runs the stock paths, so
+    ``flash``, ``quantize`` and the trunk options raise (the JAX entry takes
+    and ignores them), and an APC upstream's any dtype but f32."""
+    if options:
+        raise ValueError(f"{', '.join(sorted(options))} cannot take effect on {name}: the MOS "
+                         "predictor's upstream runs no kernel")
+    device = _device(device)
+    cfg, state_dict = (default_cfg, None) if ckpt is None else load_mos_checkpoint(ckpt)
+    if cfg.upstream == "apc":
+        _f32_only(name, dtype)
+    model = _build(MosModel(cfg, dtype, device="meta"), state_dict, seed, device)
+    return Upstream(name=name, model=model, num_layers=1, hidden_size=1,
+                    downsample_rate=cfg.downsample_rate)
+
+
+@register("mos_wav2vec2")
+@register("mos_prediction")
+def mos_prediction(**kwargs) -> Upstream:
+    return _mos_upstream("mos_prediction", MosConfig(), **kwargs)
+
+
+@register("mos_apc")
+def mos_apc(**kwargs) -> Upstream:
+    return _mos_upstream("mos_apc", MosConfig(upstream="apc", apc=APCConfig()), **kwargs)
+
+
+@register("mos_tera")
+def mos_tera(**kwargs) -> Upstream:
+    return _mos_upstream(
+        "mos_tera", MosConfig(upstream="tera", tera=MockingjayConfig(input_dim=80)), **kwargs)

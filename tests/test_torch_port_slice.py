@@ -227,12 +227,13 @@ def test_registry_refuses_what_is_not_ported(monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match="layer_type 'conformer'"):
         Wav2Vec2Trunk(Wav2Vec2Config(layer_type="conformer"), device="meta")
     assert hub.options() == [
-        "contentvec", "contentvec_km100", "contentvec_km500", "data2vec", "data2vec_base_960",
-        "data2vec_large_ll60k", "fbank", "fbank_no_cmvn", "hubert", "hubert_base",
-        "hubert_base_robust_mgr", "hubert_large_ll60k", "linear", "mel", "mfcc",
-        "mhubert_base_vp_en_es_fr_it3", "ms_hubert", "spectrogram", "unispeech_sat",
-        "unispeech_sat_base", "unispeech_sat_base_plus", "unispeech_sat_large", "wav2vec2",
-        "wav2vec2_base_960", "wav2vec2_large_960", "wav2vec2_large_ll60k",
+        "apc", "audio_albert", "contentvec", "contentvec_km100", "contentvec_km500", "data2vec",
+        "data2vec_base_960", "data2vec_large_ll60k", "fbank", "fbank_no_cmvn", "hubert",
+        "hubert_base", "hubert_base_robust_mgr", "hubert_large_ll60k", "linear", "mel", "mfcc",
+        "mhubert_base_vp_en_es_fr_it3", "mockingjay", "mos_apc", "mos_prediction", "mos_tera",
+        "mos_wav2vec2", "ms_hubert", "npc", "spectrogram", "tera", "unispeech_sat",
+        "unispeech_sat_base", "unispeech_sat_base_plus", "unispeech_sat_large", "vq_apc",
+        "wav2vec2", "wav2vec2_base_960", "wav2vec2_large_960", "wav2vec2_large_ll60k",
         "wav2vec2_large_lv60_cv_swbd_fsh", "wav2vec2_large_voxpopuli_100k", "wavlm",
         "wavlm_base", "wavlm_base_plus", "wavlm_large", "xls_r_1b", "xls_r_2b", "xls_r_300m",
         "xlsr_53"]
@@ -293,6 +294,9 @@ def test_port_never_imports_jax():
         "import s3prl_tpu_torch.task.enhancement, s3prl_tpu_torch.problem.enhancement\n"
         "import s3prl_tpu_torch.ops.attention, s3prl_tpu_torch.models.decoder\n"
         "import s3prl_tpu_torch.task.speech_translation, s3prl_tpu_torch.problem.translation\n"
+        "import s3prl_tpu_torch.models.mockingjay, s3prl_tpu_torch.models.apc\n"
+        "import s3prl_tpu_torch.models.npc, s3prl_tpu_torch.models.mos\n"
+        "import s3prl_tpu_torch.problem.slu\n"
         "assert len(s3prl_tpu_torch.kernels.wrappers()) == 19\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 's3prl_tpu')]\n"
