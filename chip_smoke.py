@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch + CUDA port (s3prl_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--phases 12]
+    python3 chip_smoke.py [--phases 13]
 
 Phases (any failed check raises, so the exit code is not 0 and no result
 line is printed; each phase prints its seconds; ``--phases`` runs 1, 2 and
@@ -144,13 +144,13 @@ the phases it lists, 3-6 together, and prints no result line):
     with MAX_KERNEL_T = 128, B=2 x 4 s (K10, no K11), and each front-end
     option on B=2 x 2 s; each pos-conv option on B=2 x 2 s, and again with
     MAX_POSCONV_T = 64 (the stock conv: no K16 launch); HuBERT-Base int8 and
-    bf16 on B=2 x 2 s (K1 / K4 postnorm), on B=2 x 4 s with MAX_BLOCK_T = 64
-    (K6 on raw x / K7) and with MAX_KERNEL_T = 128 as well (K8); WavLM-Base
-    int8, bf16 and ``wavlm_fuse`` on B=2 x 2 s (K9; K11) and with
-    MAX_KERNEL_T = 128 on B=2 x 4 s (K10); wav2vec2-Large and
+    bf16 on B=2 x 2 s (K1 / K4 postnorm) and on B=2 x 4 s with MAX_BLOCK_T =
+    64 (K6 on raw x / K7); WavLM-Base int8, bf16 and ``wavlm_fuse`` on B=2 x
+    2 s (K9; K11) (their K8 / K10 cases, the Large models' routes, cut since
+    PR 24); wav2vec2-Large and
     data2vec-Large int8 and bf16 on B=3 x 2 s with a 1-sample utterance (K1
-    / K4), on B=3 x 4 s with MAX_BLOCK_T = 64 (K6 / K7) and with
-    MAX_KERNEL_T = 128 as well (K8), kv_len 0 in each; UniSpeech-SAT int8
+    / K4) and on B=3 x 4 s with MAX_BLOCK_T = 64 (K6 / K7), kv_len 0 in
+    each (their K8 case, HuBERT's, cut since PR 24); UniSpeech-SAT int8
     and bf16 on B=2 x 2 s (K9). Then the JAX
     package's quality gates at full
     depth on the card, against the f32 model (flash=False) of the same
@@ -160,16 +160,18 @@ the phases it lists, 3-6 together, and prints no result line):
     package itself, is held in both comparisons to its plain versions: its
     card states as close to f32 as the CPU's, within 5e-4 a layer,
     DRIFT_PATHS): int8 per-layer cosine > 0.999 (tests/test_quant.py:82-124,
-    :306-333) on B=2 x 0.5 s, B=2 x 30 s and B=1 x 60 s (the options on
-    the first two; ``int8_posconv`` among them), bf16 > 0.995
+    :306-333) on B=2 x 0.5 s, B=2 x 30 s and (HuBERT and WavLM) B=1 x 60 s
+    (the options on the first two; ``int8_posconv`` among them), bf16 > 0.995
     (tests/test_quant.py:590) on the two long ones (HuBERT) or all three
     (WavLM), HuBERT's bf16 options at 30 s (``fused_posconv`` among them);
     the Base models (12 layers) int8 > 0.999 and bf16 > 0.995
     (tests/test_quant.py:553-591) on B=2 x 0.5 s and B=2 x 30 s, WavLM-Base's
     ``wavlm_fuse`` among them;
- 6. timing (printed): extraction audio-s/s of every path at B=32 x 10 s,
-    B=8 x 30 s and B=4 x 60 s (two chain lengths, marginal rate, best of 2,
-    CUDA events) with the peak device memory, and each kernel against its
+ 6. timing (printed): extraction audio-s/s of HuBERT-Large's and
+    WavLM-Large's int8 and bf16 paths at B=32 x 10 s, B=8 x 30 s and B=4 x
+    60 s, best of 2, of every other path at B=32 x 10 s (``qkv_fuse`` at
+    30 s), best of 1 (`timed_lengths`, `timing_reps`; two chain lengths,
+    marginal rate, CUDA events) with the peak device memory, and each kernel against its
     plain version at those shapes, with its bound (the larger of the
     bytes it must move over 3.35 TB/s and its operations over the peak
     rate of their type; the bias counted at its element size) and, for the
@@ -180,8 +182,7 @@ the phases it lists, 3-6 together, and prints no result line):
     entries in the kernels line) and again with the contiguous f32 one.
     `_attention` alone (the packed wgmma core of K1, K4, K6 and K7), bf16
     and f32 out, at [32, 499] and [8, 1499] beside SDPA, on a line of its
-    own. The options' paths are timed at B=32 x 10 s and B=8 x 30 s
-    (``qkv_fuse`` at 30 s only), K11 at [32, 499] and K12 at 32 x 499 rows
+    own. K11 at [32, 499] and K12 at 32 x 499 rows
     beside the split pairs they replace (K9 with the heads split and merged,
     int8_matmul out-proj and residual; LN and int8_matmul QKV; int8_matmul
     out-proj and residual), which no single library call computes. On lines
@@ -330,6 +331,21 @@ the phases it lists, 3-6 together, and prints no result line):
     1e-3, update cosines > 0.999, the shifts within 2 lr), each micro-step
     and the frozen forward timed with the peak memory and the idle share;
     SluExample through Problem.run over HuBERT-Large int8.
+13. The upstream in train mode and VC (`train_mode_phase`): SUpstream's
+    HuBERT-Large int8 and WavLM-Large bf16 with flash=True under the Trainer
+    with ``upstream_trainable`` at their config's dropouts on B=32 x 10 s:
+    four steps, each launching K7 (WavLM: K9) 24 times and nothing else (no
+    block kernel, no K3; a refuse_grad error would raise), the upstream in
+    train(), no upstream parameter with a gradient; at rates 0 the card's
+    train-mode states against the CPU's (B=2 x 2 s, per-layer cosine >
+    0.999) and one probe update from them against the CPU; the train-mode
+    step timed beside the frozen step (ms, audio-s/s, peak memory, idle
+    share). Then VcVcc2020 at full width over fbank through Problem.run on
+    a VCC2020-shaped tree of 1-5 s utterances (four steps of 6, valid,
+    evaluate: MCD and Griffin-Lim waves), its train step timed beside the
+    fbank forward, one step against the CPU (the prenet's dropout off on
+    both), and Griffin-Lim of the predicted mels on the card against the
+    CPU (one round's waves; 32 rounds' spectral convergence).
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1915,10 +1931,29 @@ RUNS = {
     ("unispeech_sat", "bf16", "10 s"): {"gated_bias_attention": 12},
 }
 PATHS = list(dict.fromkeys((model, path) for model, path, _ in RUNS))  # the loaded models
-TIMED = {"int8 full_fuse": ("10 s", "30 s"), "int8 qkv_fuse": ("30 s",),  # default: all three
-         "int8 wavlm_fuse": ("10 s", "30 s"), "int8 int8_conv": ("10 s",),
-         "bf16 fused_conv": ("10 s",), "int8 fused_midln": ("10 s",),
-         "bf16 fused_posconv": ("10 s", "30 s"), "int8 int8_posconv": ("10 s", "30 s")}
+# phase 6 times the bench models' default paths on the three batches, best of
+# two, every other path at 10 s only, but qkv_fuse (inert at 10 s) at 30 s,
+# best of one; phase 5 gates the bench models alone at 60 s (PR 24 cut the
+# other models' 30- and 60-s timings and 60-s gates, their second chain
+# pair, the options' 30-s timings and the Base models' K8 / K10 card-vs-CPU
+# cases, which the Large models' hold, to keep the script's time with phase
+# 13; the earlier rates are in PERF.md)
+BENCH_MODELS = ("hubert", "wavlm")
+
+
+def timed_lengths(model, path):
+    """The phase 6 batches (labels of LENS) that time `path` of `model`."""
+    if path == "int8 qkv_fuse":
+        return ("30 s",)
+    if model in BENCH_MODELS and path in ("int8", "bf16"):
+        return ("10 s", "30 s", "60 s")
+    return ("10 s",)
+
+
+def timing_reps(model, path):
+    """Best of how many chain pairs phase 6 takes for `path` of `model`: 2
+    for the bench models' default paths, 1 for the others (since PR 24)."""
+    return 2 if model in BENCH_MODELS and path in ("int8", "bf16") else 1
 # the main-path run each wrapper's launch count is read from: the first that
 # launches it; None for K17, which no model calls
 MAIN_PATH = {name: next((run for run, expected in RUNS.items() if name in expected), None)
@@ -2395,14 +2430,14 @@ def check_probe_training(up, wrapper, batch, exp_dir):
     return trainer
 
 
-def check_probe_step_on_cpu(up, trainer, batch):
-    """One probe step from the card's (frozen) states, on the card and on
-    the CPU from the same probe weights and Adam state (the states moved
-    to the CPU): loss and gradient norm at rtol 1e-3, each parameter's
-    update at cosine > PROBE_COS."""
+def check_probe_step_on_cpu(up, trainer, batch, train=False):
+    """One probe step from the card's states (frozen, or in train mode with
+    `train`), on the card and on the CPU from the same probe weights and
+    Adam state (the states moved to the CPU): loss and gradient norm at
+    rtol 1e-3, each parameter's update at cosine > PROBE_COS."""
     import copy
 
-    hs, h_lens = up(batch["x"], batch["x_len"])
+    hs, h_lens = up(batch["x"], batch["x_len"], train=train)
     task_cpu = probe_task(up)
     task_cpu.module.load_state_dict({k: v.cpu() for k, v in
                                      trainer.task.module.state_dict().items()})
@@ -4352,7 +4387,320 @@ def slu_phase(wrapper, gen, dev, smi):
         check_slu_example(wrapper, Path(tmp))
 
 
-ALL_PHASES = frozenset(range(3, 13))
+# phase 13: the upstream in train mode (K7 / K9 inside a train step) and VC.
+# model -> (quantize, the attention kernel its train-mode forward launches a layer)
+TRAIN_MODE = {"hubert": (True, "fused_qkv_attention"), "wavlm": (False, "gated_bias_attention")}
+TM_STEPS = 4  # train steps on one fixed batch
+TM_CPU = ("B=2 x 2 s", [32000, 20000])  # the card-vs-CPU batch at rates 0
+# VC: VcVcc2020's recipe at full width over fbank, batches of 6 utterances of 1-5 s
+VC_SPEAKERS, VC_UTTS, VC_SECS, VC_STEPS = ("SEF1", "SEF2"), 10, (1.0, 5.0), 4
+# Griffin-Lim card vs CPU: the zero-phase synthesis (no round: no phase taken
+# from a spectrum) within GL_ATOL of the peak 0.95, and 32 rounds' spectral
+# convergence within GL_SC_RTOL of the CPU's (their waves part: the phase of
+# an inconsistent bin is rounding in either FFT library, and each round feeds
+# it back; `ops.vocoder.spectral_convergence`)
+GL_ATOL, GL_SC_RTOL = 1e-5, 1e-2
+
+
+def dropout_rates(model):
+    """{module path.field: rate} of every nonzero train-mode rate of `model`
+    (the trunk's config fields and the layers' attributes)."""
+    rates = {f"cfg.{k}": v for k, v in vars(model.cfg).items()
+             if "dropout" in k and isinstance(v, float) and v}
+    for name, m in model.named_modules():
+        for field in ("dropout", "activation_dropout"):
+            value = getattr(m, field, None)
+            if isinstance(value, float) and value:
+                rates[f"{name}.{field}"] = value
+    return rates
+
+
+def zero_dropouts(model):
+    """Sets every train-mode rate of `model` to 0; returns the restorer."""
+    import dataclasses
+
+    cfg = model.cfg
+    saved = []
+    model.cfg = dataclasses.replace(cfg, **{k: 0.0 for k, v in vars(cfg).items()
+                                            if "dropout" in k and isinstance(v, float)})
+    for m in model.modules():
+        for field in ("dropout", "activation_dropout"):
+            if isinstance(getattr(m, field, None), float):
+                saved.append((m, field, getattr(m, field)))
+                setattr(m, field, 0.0)
+
+    def restore():
+        model.cfg = cfg
+        for m, field, value in saved:
+            setattr(m, field, value)
+
+    return restore
+
+
+def time_steps(label, fns, audio, smi, iters=6):
+    """Each of `fns` by phase 7's protocol (chains of iters // 3 and iters,
+    marginal, best of 3; CUDA events) with its audio-s/s and peak device
+    memory, then under the profiler (the device's idle share): {what: ms}."""
+    lo, hi = max(iters // 3, 1), iters
+    best = {(what, n): float("inf") for what in fns for n in (lo, hi)}
+    for _ in range(3):
+        for what, fn in fns.items():
+            for n in (lo, hi):
+                best[what, n] = min(best[what, n], n * cuda_ms(fn, n))
+    out = {}
+    for what, fn in fns.items():
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[what] = (best[what, hi] - best[what, lo]) / (hi - lo)
+        idle, kernels = profile_calls(fn)
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+        log(f"[timing] {label} {what}: {out[what]:.2f} ms/step, {audio / (out[what] / 1e3):.1f} "
+            f"audio-s/s (chains {lo}: {best[what, lo]:.1f} ms, {hi}: {best[what, hi]:.1f} ms), "
+            f"peak device memory {peak:.2f} GiB, device idle share {idle:.3f}; {smi}")
+        log(f"[profile] {label} {what}: kernel time {sum(kernels.values()):.2f} ms a call; the "
+            "largest (ms a call): " + "; ".join(f"{k[:70]} {ms:.3f}" for k, ms in top))
+    return out
+
+
+def check_train_mode_steps(model, up, wrapper, batch, exp_dir):
+    """TM_STEPS steps of the Trainer with upstream_trainable on one batch
+    at the config's rates: each step's launches (TRAIN_MODE's kernel once a
+    layer, every other count 0: no block kernel, no K3; read just after
+    the step with every count set to 0 just before it, so a refuse_grad
+    error would have raised), the upstream in train(), no upstream
+    parameter with a gradient, the loss finite."""
+    from s3prl_tpu_torch.train import Trainer, TrainerConfig
+
+    kernel = TRAIN_MODE[model][1]
+    trainer = Trainer(up, probe_task(up), exp_dir, TrainerConfig(
+        total_steps=1000, tensorboard=False, upstream_trainable=True,
+        optimizer={"name": "Adam", "lr": PROBE_LR}))
+    trainer.init(resume=False)
+    losses = []
+    for _ in range(TM_STEPS):
+        for w in wrapper.values():
+            w.launches = 0
+        loss, _, grad_norm = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        launches = {name: w.launches for name, w in wrapper.items()}
+        check(launches == {name: 24 if name == kernel else 0 for name in wrapper},
+              f"{model} train-mode step launches {launches}")
+        check(up.model.training and trainer.task.module.training,
+              "the upstream or the probe left train()")
+        check(all(p.grad is None for p in up.model.parameters()),
+              f"{model}: an upstream parameter has a gradient")
+        losses.append(float(loss))
+        check(np.isfinite(losses[-1]) and np.isfinite(float(grad_norm)), f"loss {losses}")
+    log(f"[train mode] {model} B={PROBE_B} x {PROBE_SECS:.0f} s, upstream_trainable, rates "
+        f"{dropout_rates(up.model)}: launches a step {{{kernel!r}: 24}} (every other count 0), "
+        f"the upstream in train(), no upstream gradient; losses over {TM_STEPS} steps "
+        + " ".join(f"{v:.5f}" for v in losses))
+    return trainer
+
+
+def check_train_mode_on_cpu(model, up, trainer, wrapper, probe_batch, gen, dev):
+    """At rates 0: the card's train-mode states against the same seed's
+    model on the CPU in train mode (TM_CPU's batch; its launches), per-layer
+    cosine > 0.999 over the valid frames; then one probe step from the
+    card's train-mode states of `batch` on the card and on the CPU."""
+    from s3prl_tpu_torch import hub
+
+    quantize, kernel = TRAIN_MODE[model]
+    cpu = hub.load(MODELS[model], dtype=torch.bfloat16, flash=True, quantize=quantize,
+                   device="cpu", seed=0)
+    restore = [zero_dropouts(up.model), zero_dropouts(cpu.model)]
+    try:
+        label, lens = TM_CPU
+        x, lens_t = batch(lens, max(lens), gen, "cpu")
+        hs_cpu, hl_cpu = cpu(x, lens_t, train=True)
+        for w in wrapper.values():
+            w.launches = 0
+        hs_gpu, hl_gpu = up(x.to(dev), lens_t.to(dev), train=True)
+        torch.cuda.synchronize()
+        check(wrapper[kernel].launches == 24, f"{model} card train-mode forward launches")
+        check(hl_cpu.tolist() == hl_gpu.tolist(), "h_lens CPU vs card")
+        coss = layer_cosines(hs_gpu.float().cpu(), hs_cpu.float(), hl_cpu.tolist())
+        log(f"[train mode] {model} rates 0, {label}, card vs CPU in train(): per-layer cosine "
+            f"min {min(coss):.6f}: " + " ".join(f"{c:.5f}" for c in coss))
+        check(min(coss) > COS_LAYER, f"{model} train-mode states card vs CPU")
+        check_probe_step_on_cpu(up, trainer, probe_batch, train=True)
+    finally:
+        for fn in restore:
+            fn()
+    del cpu
+
+
+def vc_tree(root, gen):
+    """A VCC2020-shaped tree: <root>/<speaker>/E1000{i}.wav for the source
+    speakers and TEF1, each 1-5 s of a tone under noise (the target a fifth
+    above the source)."""
+    from s3prl_tpu_torch.util.pseudo_data import _write_wav
+
+    rng = np.random.RandomState(13)
+    for i in range(VC_UTTS):
+        n = int(SR * rng.uniform(*VC_SECS))
+        t = np.arange(n) / SR
+        f0 = rng.uniform(100, 250)
+        for spk, f in [(s, f0) for s in VC_SPEAKERS] + [("TEF1", 1.5 * f0)]:
+            (root / spk).mkdir(parents=True, exist_ok=True)
+            wav = 0.3 * np.sin(2 * np.pi * f * t) + 0.02 * rng.randn(n)
+            _write_wav(root / spk / f"E1000{i}.wav", wav.astype(np.float32))
+
+
+def vc_config(tree):
+    import s3prl_tpu_torch.problem as problems
+
+    problem = problems.VcVcc2020()
+    config = problem.default_config()
+    config.pop("target_dir")
+    config["prepare_data"] = {"vcc2020": str(tree), "target_speaker": "TEF1",
+                              "source_speakers": list(VC_SPEAKERS)}
+    config["train"] = {"total_steps": VC_STEPS, "log_step": 1, "eval_step": VC_STEPS,
+                       "save_step": VC_STEPS, "tensorboard": False}
+    return problem, config
+
+
+def check_vc(wrapper, gen, dev, smi, root):
+    """VcVcc2020 at full width over fbank on the card: Problem.run (train
+    VC_STEPS steps on batches of 6, valid, the evaluate stage's MCD and
+    Griffin-Lim waves, no kernel launched); then one train step timed; with
+    the prenet's dropout off on both sides, one step from the same weights
+    and AdamW state on the card and on the CPU (loss and gradient norm at
+    rtol 1e-3, update cosines > 0.999); Griffin-Lim of the predicted mels
+    on the card against the CPU (GL_ATOL)."""
+    import copy
+
+    import yaml
+
+    import s3prl_tpu_torch.models.taco2ar as taco2ar
+    from s3prl_tpu_torch.ops.vocoder import (griffin_lim, log_mel_to_wav, mel_magnitudes,
+                                             spectral_convergence)
+    from s3prl_tpu_torch.train import Optimizer
+    from s3prl_tpu_torch.train.optimizers import global_norm
+    from s3prl_tpu_torch.train.trainer import _split_batch
+
+    vc_tree(root / "vcc2020", gen)
+    problem, config = vc_config(root / "vcc2020")
+    work = root / "vc"
+    t0 = time.perf_counter()
+    for w in wrapper.values():
+        w.launches = 0
+    problem.run(str(work), **config)
+    check(all(w.launches == 0 for w in wrapper.values()), "VC over fbank launched a kernel")
+    result = yaml.safe_load((work / "result.yaml").read_text())["test"]
+    waves = sorted((work / "wav_hyp").glob("*.wav"))
+    test_rows = len((work / "test.csv").read_text().splitlines()) - 1
+    check(np.isfinite(result["l1"]) and np.isfinite(result["mcd"]) and len(waves) == test_rows,
+          f"VcVcc2020 result.yaml {result}, waves {[p.name for p in waves]}")
+    log(f"[vc] VcVcc2020 (Taco2-AR: prenet 256, 2 LSTM x 512, postnet 256 x 5 x 3) over fbank "
+        f"through Problem.run, {VC_STEPS} steps of 6 + valid + evaluate, in "
+        f"{time.perf_counter() - t0:.1f} s: result.yaml {result}, waves "
+        f"{[p.name for p in waves]}")
+    # a trainer whose schedule outlasts the timed steps
+    trainer = problem._trainer(work, {**config, "train": {**config["train"], "total_steps": 1000}})
+    trainer.init(resume=False)
+    batch_ = next(iter(problem._loader(work, "train.csv", "train", config)))
+    device = {k: torch.as_tensor(v).to(dev) if k in ("x", "x_len") else v
+              for k, v in _split_batch(batch_)[0].items()}
+    audio = float(np.sum(batch_["x_len"])) / SR
+    fns = {"VC train step": lambda: trainer.train_step(device),
+           "fbank forward alone": lambda: trainer.forward_upstream(device)}
+    time_steps(f"VcVcc2020 B=6 ({audio:.1f} s of audio, padded to "
+               f"{batch_['x'].shape[1] / SR:.2f} s)", fns, audio, smi)
+    saved = taco2ar.PRENET_DROPOUT
+    taco2ar.PRENET_DROPOUT = 0.0  # the two devices' generators differ
+    try:
+        hs, h_lens = trainer.forward_upstream(device)
+        task_cpu = problem.build_task(problem.build_upstream(
+            "fbank", extra_conf={"device": "cpu"}), config)
+        task_cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                         trainer.task.module.state_dict().items()})
+        cfg = trainer.cfg
+        opt_cpu = Optimizer(task_cpu.module.parameters(), gradient_clipping=cfg.gradient_clipping,
+                            gradient_accumulate=cfg.gradient_accumulate,
+                            total_steps=cfg.total_steps, **cfg.optimizer)
+        opt_cpu.load_state_dict(copy.deepcopy(trainer.optimizer.state_dict()))
+        before = {k: v.detach().cpu().clone() for k, v in
+                  trainer.task.module.state_dict().items()}
+        loss_card, cache, norm_card = trainer.probe_step(hs, h_lens, device)
+        loss_cpu, _ = task_cpu.loss_and_cache(hs.cpu(), h_lens.cpu(), device, None, True)
+        loss_cpu.backward()
+        loss_cpu = loss_cpu.detach()
+        norm_cpu = global_norm([p.grad for p in opt_cpu.params])
+        opt_cpu.step()
+    finally:
+        taco2ar.PRENET_DROPOUT = saved
+    after_card, after_cpu = trainer.task.module.state_dict(), task_cpu.module.state_dict()
+    coss = {}
+    for k, p0 in before.items():
+        a = (after_card[k].cpu() - p0).double().flatten()
+        b = (after_cpu[k] - p0).double().flatten()
+        if a.norm() > 0 or b.norm() > 0:  # bias_ih: held at zero
+            coss[k] = float(a @ b / (a.norm() * b.norm()))
+    rel = (abs(float(loss_card) / float(loss_cpu) - 1), abs(float(norm_card) / float(norm_cpu) - 1))
+    log(f"[vc] one step from the card's fbank states, prenet dropout off, card vs CPU: loss "
+        f"{float(loss_card):.6f} / {float(loss_cpu):.6f}, grad norm {float(norm_card):.6f} / "
+        f"{float(norm_cpu):.6f} (rel {rel[0]:.2e}, {rel[1]:.2e}), update cosines min "
+        f"{min(coss.values()):.6f}")
+    check(max(rel) < 1e-3 and min(coss.values()) > PROBE_COS, "VC step card vs CPU")
+    mels = cache["pred_mel"].detach()
+    torch.cuda.synchronize()
+    gl_ms = cuda_ms(lambda: log_mel_to_wav(mels, n_iter=32), 3)
+    wav_card = log_mel_to_wav(mels, n_iter=0).cpu()
+    err = float((wav_card - log_mel_to_wav(mels.cpu(), n_iter=0)).abs().max())
+    mag = mel_magnitudes(mels)
+    sc_card = float(spectral_convergence(griffin_lim(mag, n_iter=32), mag))
+    sc_cpu = float(spectral_convergence(griffin_lim(mag.cpu(), n_iter=32), mag.cpu()))
+    log(f"[vc] Griffin-Lim of the predicted mels [{', '.join(map(str, mels.shape))}]: 32 "
+        f"iterations {gl_ms:.2f} ms on the card (cuFFT); card vs CPU: the zero-phase waves max "
+        f"|err| {err:.2e} (peak 0.95), 32 rounds' spectral convergence {sc_card:.6f} / "
+        f"{sc_cpu:.6f}")
+    check(err < GL_ATOL and abs(sc_card / sc_cpu - 1) < GL_SC_RTOL
+          and bool(torch.isfinite(wav_card).all()), "Griffin-Lim card vs CPU")
+
+
+def train_mode_phase(wrapper, gen, dev, smi):
+    """Phase 13: SUpstream's HuBERT-Large int8 and WavLM-Large bf16 with
+    flash=True under the Trainer with upstream_trainable at their config's
+    rates on B=32 x 10 s (launches, no upstream gradient), the card vs the
+    CPU at rates 0 (states and one update), the train-mode step timed beside
+    the frozen step; then VcVcc2020 at full width (`check_vc`)."""
+    import tempfile
+    from pathlib import Path
+
+    from s3prl_tpu_torch.nn import SUpstream
+    from s3prl_tpu_torch.train import Trainer, TrainerConfig
+
+    n = int(PROBE_SECS * SR)
+    labels = np.random.RandomState(0).randint(0, PROBE_CLASSES, PROBE_B).astype(np.int32)
+    batch_ = {"x": torch.randn(PROBE_B, n, generator=gen).to(dev),
+              "x_len": torch.full((PROBE_B,), n).to(dev), "class_id": labels}
+    with tempfile.TemporaryDirectory() as tmp:
+        for model, (quantize, _) in TRAIN_MODE.items():
+            t0 = time.perf_counter()
+            up = SUpstream(MODELS[model], extra_conf={"dtype": torch.bfloat16, "flash": True,
+                                                      "quantize": quantize, "seed": 0}).upstream
+            trainer = check_train_mode_steps(model, up, wrapper, batch_, Path(tmp) / model)
+            check_train_mode_on_cpu(model, up, trainer, wrapper, batch_, gen, dev)
+            frozen = Trainer(up, probe_task(up), Path(tmp) / f"{model}-frozen", TrainerConfig(
+                total_steps=1000, tensorboard=False, optimizer={"name": "Adam", "lr": PROBE_LR}))
+            frozen.init(resume=False)
+            path = "int8" if quantize else "bf16"
+            time_steps(f"{model} {path} flash B={PROBE_B} x {PROBE_SECS:.0f} s",
+                       {"train-mode step": lambda: trainer.train_step(batch_),
+                        "frozen step": lambda: frozen.train_step(batch_)},
+                       PROBE_B * PROBE_SECS, smi)
+            up.model.eval()
+            del up, trainer, frozen
+            log(f"[train mode] {model}: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        check_vc(wrapper, gen, dev, smi, Path(tmp))
+        log(f"[vc] {time.perf_counter() - t0:.1f} s")
+
+
+ALL_PHASES = frozenset(range(3, 14))
 KERNEL_PHASES = frozenset(range(3, 7))
 
 
@@ -4363,14 +4711,14 @@ def parse_phases(argv):
 
     parser = argparse.ArgumentParser(description="On-card check of s3prl_tpu_torch.")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases among 3-12 (default: all); phases 1 "
+                        help="comma-separated phases among 3-13 (default: all); phases 1 "
                              "and 2 always run, and a partial run prints no result line")
     args = parser.parse_args(argv)
     if args.phases is None:
         return ALL_PHASES
     phases = {int(p) for p in args.phases.split(",")}
     if not phases <= ALL_PHASES:
-        parser.error(f"--phases {args.phases}: phases 3-12")
+        parser.error(f"--phases {args.phases}: phases 3-13")
     return frozenset(phases | (KERNEL_PHASES if phases & KERNEL_PHASES else set()))
 
 
@@ -4554,26 +4902,18 @@ def main():
                                   ("int8 int8_posconv", "pos_conv_gelu_q8"))},
             **{("hubert_base", path): (
                 (*short, {}, {block: 12, ffn: 12, "conv0_ln_gelu": 0}),
-                ("B=2 x 4 s, MAX_BLOCK_T=64", long_, mbt, {split: 12, ffn: 12}),
-                ("B=2 x 4 s, MAX_BLOCK_T=64, MAX_KERNEL_T=128", long_, {**mbt, **mkt},
-                 {"online_flash_attention": 12}))
+                ("B=2 x 4 s, MAX_BLOCK_T=64", long_, mbt, {split: 12, ffn: 12}))
                for path, block, split, ffn in (
                    ("int8", "fused_attention_block", "fused_qkv_attention_outproj",
                     "fused_int8_ffn"),
                    ("bf16", "fused_attention_block_bf16", "fused_qkv_attention", "fused_bf16_ffn"))},
-            **{("wavlm_base", path): (
-                (*short, {}, {"gated_bias_attention": 12}),
-                ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt, {"gated_online_flash_attention": 12}))
+            **{("wavlm_base", path): ((*short, {}, {"gated_bias_attention": 12}),)
                for path in ("int8", "bf16")},
-            ("wavlm_base", "int8 wavlm_fuse"): (
-                (*short, {}, {"gated_bias_attention_outproj": 12}),
-                ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt,
-                 {"gated_online_flash_attention": 12, "gated_bias_attention_outproj": 0})),
+            ("wavlm_base", "int8 wavlm_fuse"): ((*short, {}, {"gated_bias_attention_outproj": 12}),),
+            # (their K8 case, HuBERT's route, was cut in PR 24 for phase 13's time)
             **{(model, path): (
                 (*zshort, {}, {"conv0_ln_gelu": 1, block: 24, ffn: 24}),
-                ("B=3 x 4 s with 1 sample, MAX_BLOCK_T=64", zlong, mbt, {split: 24, ffn: 24}),
-                ("B=3 x 4 s with 1 sample, MAX_BLOCK_T=64, MAX_KERNEL_T=128", zlong,
-                 {**mbt, **mkt}, {"online_flash_attention": 24}))
+                ("B=3 x 4 s with 1 sample, MAX_BLOCK_T=64", zlong, mbt, {split: 24, ffn: 24}))
                for model in ("wav2vec2", "data2vec") for path, block, split, ffn in (
                    ("int8", "fused_attention_block", "fused_qkv_attention_outproj",
                     "fused_int8_ffn"),
@@ -4592,7 +4932,7 @@ def main():
                      ("int8", "bf16")[:1 if model != "wavlm" else 2] + options[model]),
                     ("B=2 x 30 s", [480000, 400000], ("int8", "bf16") + options[model]
                      + long_only[model]),
-                    ("B=1 x 60 s", [960000], ("int8", "bf16")))
+                    ("B=1 x 60 s", [960000], ("int8", "bf16")))[:3 if model in BENCH_MODELS else 2]
             for model in ("hubert", "wavlm", "wav2vec2", "data2vec")}
         # the Base models: the JAX gates (tests/test_quant.py:553-591) on its batch and at 30 s
         quality.update({model: tuple((label, lens, ("int8", "bf16") + extra) for label, lens in (
@@ -4677,11 +5017,11 @@ def main():
             for label, B, secs in (("10 s", 32, 10.0), ("30 s", 8, 30.0), ("60 s", 4, 60.0)):
                 wavs, lens_t = batch([int(secs * SR)] * B, int(secs * SR), gen, dev)
                 for (model, path), up in ups.items():
-                    if label not in TIMED.get(path, (label,)):
+                    if label not in timed_lengths(model, path):
                         continue
                     torch.cuda.reset_peak_memory_stats()
                     best = {it: min(it * cuda_ms(lambda: up.apply_standardized(wavs, lens_t), it)
-                                    for _ in range(2))
+                                    for _ in range(timing_reps(model, path)))
                             for it in (it_lo, it_hi)}
                     per_iter = (best[it_hi] - best[it_lo]) / (it_hi - it_lo)
                     if label == "10 s":
@@ -4825,6 +5165,12 @@ def main():
     if 12 in phases:
         with Phase("12 slu and mel upstreams"):
             slu_phase(wrapper, gen, dev, smi.splitlines()[0])
+    # 13. the upstream in train mode with its dropouts (K7 / K9 inside a train
+    # step) against the CPU and timed beside the frozen step; VcVcc2020 at
+    # full width with its Griffin-Lim waves
+    if 13 in phases:
+        with Phase("13 train mode and vc"):
+            train_mode_phase(wrapper, gen, dev, smi.splitlines()[0])
     if phases != ALL_PHASES:
         log(f"partial run: phases 1, 2 and {sorted(phases)} (the kernels line and the result "
             "line come from a run of every phase)")

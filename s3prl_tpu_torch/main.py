@@ -26,6 +26,11 @@ the HEAR recipes run the same way, e.g.
 The SLU recipes (SluATIS, SluAudioSnips, MoseiSentiment, SluExample) too,
 e.g. ``SluATIS --prepare_data.atis /data/atis``; a mel-domain upstream is
 one more name, e.g. ``--build_upstream.name tera``.
+
+Voice conversion (VcVcc2020, VcExample) trains the Taco2-AR decoder and
+writes Griffin-Lim waves under ``<target_dir>/wav_hyp``, e.g.
+``VcVcc2020 --prepare_data.vcc2020 /data/vcc2020``; its decoder needs an
+upstream at the mels' 160-sample hop (the default ``fbank``).
 """
 
 from __future__ import annotations

@@ -92,8 +92,8 @@ class BaselineFeatures(nn.Module):
     """(wavs [B, T], wav_lens [B]) -> (feats [1, B, F, D], feat_lens [B]) on
     the device given: the parameter-free module keeps it in an empty buffer
     (`Upstream.device`), and the ops keep their tables there. ``cfg`` holds
-    `baseline_features`' keywords; none is a dropout, so the upstream's
-    train mode refuses nothing (`train_refusal`)."""
+    `baseline_features`' keywords; none is a dropout, so train mode
+    computes the same features (a `generator` is taken and not read)."""
 
     def __init__(self, config_name: str = "fbank", device=None, **overrides):
         super().__init__()
@@ -101,6 +101,6 @@ class BaselineFeatures(nn.Module):
         self.stride = int(getattr(self.cfg, "frame_shift", 10.0) * SAMPLE_RATE / 1000)
         self.register_buffer("anchor", torch.empty(0, device=device), persistent=False)
 
-    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor):
+    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor, generator=None):
         feats, feat_lens = baseline_features(wavs, wav_lens, **vars(self.cfg))
         return feats[None], feat_lens

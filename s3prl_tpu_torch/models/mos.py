@@ -78,22 +78,24 @@ class MosModel(nn.Module):
             self.mean_net_pooling = Dense(cfg.projector_dim, 1, device=device)
         self.mean_net_linear = Dense(cfg.projector_dim, 1, device=device)
 
-    def _states(self, segs: torch.Tensor) -> torch.Tensor:
+    def _states(self, segs: torch.Tensor, generator=None) -> torch.Tensor:
         """Every window's hidden states [L, B * S, T', C]."""
         lens = torch.full((segs.shape[0],), SEG, dtype=torch.long, device=segs.device)
         if self.cfg.upstream == "wav2vec2":
-            return self.trunk(segs, lens)[0]
+            return self.trunk(segs, lens, generator=generator)[0]
         feats, feat_lens = mel_ssl_features(segs, lens, self.cfg.feat_kind)
         model = self.apc if self.cfg.upstream == "apc" else self.tera
-        return model(feats, feat_lens)[0]
+        return model(feats, feat_lens, generator)[0]
 
-    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor):
+    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor, generator=None):
+        """In train mode the nested upstream's dropouts draw from
+        `generator` (mos.py:79-89); the head has none."""
         cfg = self.cfg
         B, T = wavs.shape
         n_seg = max(T // STEP, 1) if T > SEG else 1
         pad_to = (n_seg - 1) * STEP + SEG
         segs = F.pad(wavs, (0, max(pad_to - T, 0))).unfold(1, SEG, STEP).reshape(B * n_seg, SEG)
-        hs = self._states(segs)
+        hs = self._states(segs, generator)
         w = torch.softmax(self.featurizer_weights, dim=0)
         feat = self.connector(torch.einsum("l,lbtc->btc", w, hs.float()))
         if cfg.attention_pooling:

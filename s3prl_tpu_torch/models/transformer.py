@@ -63,6 +63,14 @@ gated relative-position bias to `SelfAttention` (``rel_bias``), whose
 ``use_flash`` branch then runs K9 `gated_bias_attention` (K10 beyond
 MAX_KERNEL_T) in place of K7.
 
+Train mode (``train()``) takes the module paths, with flax's dropouts
+drawn from the forward's ``generator`` (transformer.py:416-417, :737): the
+encoder's input after the pos-conv (and the post-LN encoder LN), each
+residual branch's output (``dropout``) and the FFN's activation
+(``activation_dropout``); none on the attention probabilities, which the
+JAX package never drops (``SelfAttention.dropout`` is unused, :142). The
+attention between the projections stays K7 / K9 under ``use_flash``.
+
 Matrix weights live in the model dtype, biases and norms in f32, as the JAX
 package casts them at use. With ``quantize`` the encoder layers keep their
 matrix weights in f32 (the JAX package's param dtype) and hold the int8
@@ -85,6 +93,7 @@ from ..kernels.ffn import fused_bf16_ffn, fused_int8_ffn, fused_int8_linear
 from ..kernels.flash_attention import (fused_attention_block, fused_attention_block_bf16,
                                        fused_qkv_attention, fused_qkv_attention_outproj,
                                        gated_bias_attention)
+from ..nn.heads import dropout
 from ..ops.quant import as_quantized_cols, int8_matmul
 
 
@@ -363,11 +372,16 @@ class EncoderLayer(_QCache, nn.Module):
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
                  quantize: bool = False, layer_norm_eps: float = 1e-5, device=None,
                  qkv_fuse: bool = False, full_fuse: bool = False,
-                 layer_norm_first: bool = True, attention_kwargs: dict | None = None):
-        """``attention_kwargs``: further keywords of the `attention` class."""
+                 layer_norm_first: bool = True, attention_kwargs: dict | None = None,
+                 dropout: float = 0.0, activation_dropout: float = 0.0):
+        """``attention_kwargs``: further keywords of the `attention` class;
+        ``dropout`` / ``activation_dropout``: the train-mode rates of the
+        residual branches and of the FFN's activation."""
         self.refuse_options(layer_norm_first, qkv_fuse, full_fuse)
         super().__init__()
         self.dtype = dtype
+        # the train-mode rates: plain attributes, not state
+        self.dropout, self.activation_dropout = dropout, activation_dropout
         self.layer_norm_first = layer_norm_first
         self.use_flash = use_flash
         self.quantize = quantize
@@ -412,13 +426,21 @@ class EncoderLayer(_QCache, nn.Module):
         self._store_qcache("fc1", self.fc1.weight)
         self._store_qcache("fc2", self.fc2.weight)
 
-    def _ffn(self, h: torch.Tensor) -> torch.Tensor:
-        """The FFN's module path on the normalised h: fc1 -> erf GELU -> fc2,
-        through int8_matmul under ``quantize``."""
+    def _drop(self, x: torch.Tensor, generator) -> torch.Tensor:
+        """The residual branch's dropout (train mode only)."""
+        return dropout(x, self.dropout, self.training, generator)
+
+    def _ffn(self, h: torch.Tensor, generator=None) -> torch.Tensor:
+        """The FFN's module path on the normalised h: fc1 -> erf GELU ->
+        (train mode) activation dropout -> fc2, through int8_matmul under
+        ``quantize``."""
         if self.quantize:
             h = F.gelu(int8_matmul(h, self.qpair("fc1"), self.fc1.bias))
+            h = dropout(h, self.activation_dropout, self.training, generator)
             return int8_matmul(h, self.qpair("fc2"), self.fc2.bias)
-        return _linear(F.gelu(_linear(h, self.fc1)), self.fc2)
+        h = dropout(F.gelu(_linear(h, self.fc1)), self.activation_dropout, self.training,
+                    generator)
+        return _linear(h, self.fc2)
 
     def _fully_fused(self, x: torch.Tensor, kv_lens: torch.Tensor) -> torch.Tensor:
         """``full_fuse``: the whole pre-LN block as K12(LN, QKV) -> K7 (K8
@@ -432,9 +454,10 @@ class EncoderLayer(_QCache, nn.Module):
                               self.fc2.bias, ln=(ln2.weight, ln2.bias), residual=True)
 
     def forward(self, x: torch.Tensor, kv_lens: torch.Tensor,
-                pad_mask: torch.Tensor) -> torch.Tensor:
+                pad_mask: torch.Tensor, generator=None) -> torch.Tensor:
         """x [B, T, C] in the model dtype; kv_lens [B] int32 valid frames;
-        pad_mask [B, T] True on padded frames."""
+        pad_mask [B, T] True on padded frames; `generator`: train mode's
+        dropouts."""
         attn, ln1, ln2 = self.self_attn, self.self_attn_layer_norm, self.final_layer_norm
         quant_serving = self.quantize and not self.training and _fused_block_available(x)
         # the JAX bf16 gate also asks for the gelu activation: every ported
@@ -444,7 +467,7 @@ class EncoderLayer(_QCache, nn.Module):
             and self.use_flash and ln1.eps == 1e-5 and _fused_block_available(x)
         )
         if not self.layer_norm_first:
-            return self._post_ln(x, kv_lens, pad_mask, quant_serving, fused)
+            return self._post_ln(x, kv_lens, pad_mask, quant_serving, fused, generator)
         if quant_serving and self.full_fuse and self.use_flash and ln1.eps == 1e-5:
             return self._fully_fused(x, kv_lens)
         block_t = x.shape[1] <= fa.MAX_BLOCK_T
@@ -466,7 +489,7 @@ class EncoderLayer(_QCache, nn.Module):
                 x, attn.qkv_weight, attn.qkv_bias, (ln1.weight, ln1.bias),
                 attn.out_proj.weight, attn.out_proj.bias, kv_lens, self.num_heads)
         else:
-            x = x + attn(_layer_norm(x, ln1), pad_mask)
+            x = x + self._drop(attn(_layer_norm(x, ln1), pad_mask), generator)
         if quant_serving and ln2.eps == 1e-5:
             return fused_int8_ffn(x, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),
                                   self.fc2.bias, ln=(ln2.weight, ln2.bias), residual=True)
@@ -477,10 +500,10 @@ class EncoderLayer(_QCache, nn.Module):
         if quant_serving:  # eps != 1e-5: K2 without its LN (transformer.py:422-428)
             return x + fused_int8_ffn(h, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),
                                       self.fc2.bias)
-        return x + self._ffn(h)
+        return x + self._drop(self._ffn(h, generator), generator)
 
     def _post_ln(self, x: torch.Tensor, kv_lens: torch.Tensor, pad_mask: torch.Tensor,
-                 quant_serving: bool, fused: bool) -> torch.Tensor:
+                 quant_serving: bool, fused: bool, generator=None) -> torch.Tensor:
         """The post-LN block (transformer.py:564-668): x = LN1(x + attn(x)),
         then x = LN2(x + ffn(x)), each LN in f32 cast back to x.dtype."""
         attn, ln1, ln2 = self.self_attn, self.self_attn_layer_norm, self.final_layer_norm
@@ -502,7 +525,7 @@ class EncoderLayer(_QCache, nn.Module):
                                                         attn.out_proj.bias, kv_lens,
                                                         self.num_heads), ln1)
         else:
-            x = _layer_norm(x + attn(x, pad_mask), ln1)
+            x = _layer_norm(x + self._drop(attn(x, pad_mask), generator), ln1)
         if ((quant_serving or (fused and self.fc1.out_features % 128 == 0))
                 and ln2.eps == 1e-5):
             if quant_serving:
@@ -516,7 +539,7 @@ class EncoderLayer(_QCache, nn.Module):
             h = fused_int8_ffn(x, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),
                                self.fc2.bias)
         else:
-            h = self._ffn(x)
+            h = self._drop(self._ffn(x, generator), generator)
         return _layer_norm(x + h, ln2)
 
 
@@ -530,13 +553,17 @@ class TransformerEncoder(nn.Module):
                  num_heads: int = 16, layer_norm_first: bool = True, conv_pos: int = 128,
                  conv_pos_groups: int = 16, dtype: torch.dtype = torch.float32,
                  use_flash: bool = False, quantize: bool = False, device=None,
-                 posconv: str | None = None, pos_conv_depth: int = 1, **fuse):
+                 posconv: str | None = None, pos_conv_depth: int = 1,
+                 dropout: float = 0.0, activation_dropout: float = 0.0, **fuse):
         """``posconv``: the pos-conv option (`ConvPositionalEmbedding`;
-        refused on a ``pos_conv_depth`` > 1 stack); ``fuse``: the layers'
-        ``qkv_fuse`` / ``full_fuse`` options."""
+        refused on a ``pos_conv_depth`` > 1 stack); ``dropout`` /
+        ``activation_dropout``: the train-mode rates (the encoder input's and
+        the layers'); ``fuse``: the layers' ``qkv_fuse`` / ``full_fuse``
+        options."""
         ConvPositionalStack.refuse_option(pos_conv_depth, posconv)
         super().__init__()
         self.layer_norm_first = layer_norm_first
+        self.dropout = dropout
         if pos_conv_depth > 1:
             self.pos_conv = ConvPositionalStack(embed_dim, conv_pos, conv_pos_groups,
                                                 pos_conv_depth, device=device)
@@ -545,7 +572,8 @@ class TransformerEncoder(nn.Module):
                                                     posconv, device=device)
         self.layers = nn.ModuleList([
             EncoderLayer(embed_dim, ffn_dim, num_heads, dtype, use_flash, quantize,
-                         device=device, layer_norm_first=layer_norm_first, **fuse)
+                         device=device, layer_norm_first=layer_norm_first, dropout=dropout,
+                         activation_dropout=activation_dropout, **fuse)
             for _ in range(num_layers)
         ])
         self.layer_norm = nn.LayerNorm(embed_dim, device=device)
@@ -556,14 +584,15 @@ class TransformerEncoder(nn.Module):
         return ()
 
     def forward(self, x: torch.Tensor, feat_lens: torch.Tensor,
-                layer_weights: torch.Tensor | None = None) -> torch.Tensor:
+                layer_weights: torch.Tensor | None = None, generator=None) -> torch.Tensor:
         """x [B, T, C] in the model dtype, feat_lens [B] valid frames ->
         hidden states [L+1, B, T, C]; with ``layer_weights`` [L+1] (a tensor
         on x's device) their weighted sum [1, B, T, C] (transformer.py:
         743-787): acc += w[i] * h in the model dtype, the weight cast to it,
         the product rounded before the sum as XLA rounds JAX's
         ``acc + w.astype(h.dtype) * h``, layer by layer, with no
-        [L+1, B, T, C] stack and no host round trip."""
+        [L+1, B, T, C] stack and no host round trip. `generator`: train
+        mode's dropouts."""
         B, T, C = x.shape
         pad_mask = torch.arange(T, device=x.device)[None, :] >= feat_lens[:, None]
         kv_lens = torch.clamp(feat_lens, max=T).to(torch.int32)
@@ -571,6 +600,7 @@ class TransformerEncoder(nn.Module):
         x = x + self.pos_conv(x)
         if not self.layer_norm_first:  # transformer.py:735-736
             x = _layer_norm(x, self.layer_norm)
+        x = dropout(x, self.dropout, self.training, generator)  # transformer.py:737
         shared = self._layer_args(T, x.device)
         L = len(self.layers)
         if layer_weights is None:
@@ -586,7 +616,7 @@ class TransformerEncoder(nn.Module):
                 hidden[i] = x
             else:
                 acc += w[i] * x
-            x = layer(x, kv_lens, pad_mask, *shared)
+            x = layer(x, kv_lens, pad_mask, *shared, generator=generator)
         if self.layer_norm_first:
             x = _layer_norm(x, self.layer_norm)
         if layer_weights is not None:

@@ -10,7 +10,9 @@ encoder (HuBERT-Base, wav2vec2-Base); HuBERT's block-folded feature-length
 rule and wav2vec2's / data2vec's conv rule (``feat_pad_rule="conv"``: the
 strict conv arithmetic, which gives 0 frames below 400 samples); the one
 pos-conv and data2vec's depth > 1 stack; the fused weighted sum of the
-layers (``layer_weights``). No span masking (extraction). WavLM
+layers (``layer_weights``); train mode's dropouts from an explicit
+generator. No span masking (extraction), no layerdrop (`Upstream`
+refuses it in train mode, as the JAX trainer's missing stream does). WavLM
 (`models/wavlm.py`) is this trunk with its own encoder and an erf extractor.
 The module names follow fairseq's state_dict keys (see upstream/convert.py).
 """
@@ -25,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels import flash_attention as fa
+from ..nn.heads import dropout
 from ..ops.masking import length_mask
 from .convfe import (DEFAULT_CONV_LAYERS, ConvFeatureExtractor, conv_output_lengths,
                      total_stride)
@@ -198,7 +201,8 @@ class Wav2Vec2Trunk(nn.Module):
             cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim, cfg.encoder_layers,
             cfg.encoder_attention_heads, cfg.layer_norm_first, cfg.conv_pos,
             cfg.conv_pos_groups, dtype, use_flash, quantize, device=device, posconv=posconv,
-            pos_conv_depth=cfg.pos_conv_depth, **fuse)
+            pos_conv_depth=cfg.pos_conv_depth, dropout=cfg.dropout,
+            activation_dropout=cfg.activation_dropout, **fuse)
 
     def build_qcache(self) -> None:
         """Quantizes every encoder layer's projections once from their f32
@@ -213,11 +217,13 @@ class Wav2Vec2Trunk(nn.Module):
                 layer.build_qcache()
 
     def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor,
-                layer_weights: torch.Tensor | None = None):
+                layer_weights: torch.Tensor | None = None, generator=None):
         """wavs [B, T] padded 16 kHz, wav_lens [B] -> (hidden_states
         [L+1, B, T', C], feat_lens [B]); with ``layer_weights`` [L+1] on the
         model's device, hidden_states is their weighted sum [1, B, T', C]
-        (wav2vec2.py:115, :197; `TransformerEncoder.forward`)."""
+        (wav2vec2.py:115, :197; `TransformerEncoder.forward`). In train mode
+        the dropouts (``dropout_input`` after the projection, wav2vec2.py:149,
+        then the encoder's) draw from `generator`."""
         cfg = self.cfg
         if cfg.normalize:
             wavs = normalize_wavs(wavs, wav_lens)
@@ -239,4 +245,5 @@ class Wav2Vec2Trunk(nn.Module):
         if self.post_extract_proj is not None:
             proj = self.post_extract_proj
             features = F.linear(features, proj.weight, proj.bias.to(self.dtype))
-        return self.encoder(features, feat_lens, layer_weights), feat_lens
+        features = dropout(features, cfg.dropout_input, self.training, generator)
+        return self.encoder(features, feat_lens, layer_weights, generator), feat_lens

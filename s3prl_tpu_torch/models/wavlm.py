@@ -170,20 +170,24 @@ class GatedRelPosLayer(EncoderLayer):
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
                  quantize: bool = False, num_buckets: int | None = None, device=None,
-                 wavlm_fuse: bool = False, layer_norm_first: bool = True, gated: bool = True):
+                 wavlm_fuse: bool = False, layer_norm_first: bool = True, gated: bool = True,
+                 dropout: float = 0.0, activation_dropout: float = 0.0):
         super().__init__(embed_dim, ffn_dim, num_heads, dtype, use_flash, quantize,
                          device=device, layer_norm_first=layer_norm_first,
-                         attention_kwargs={"gated": gated})
+                         attention_kwargs={"gated": gated}, dropout=dropout,
+                         activation_dropout=activation_dropout)
         self.wavlm_fuse = wavlm_fuse  # K11 under quant serving: a plain attribute, not state
         if num_buckets is not None:
             self.self_attn.relative_attention_bias = nn.Embedding(num_buckets, num_heads,
                                                                   device=device)
 
     def forward(self, x: torch.Tensor, kv_lens: torch.Tensor, pad_mask: torch.Tensor,
-                pos_bias: torch.Tensor | None) -> torch.Tensor:
+                pos_bias: torch.Tensor | None, generator=None) -> torch.Tensor:
         """x [B, T, C] in the model dtype; kv_lens [B] int32; pad_mask [B, T]
         True on padded frames; pos_bias [H, T, T], the encoder's shared bias
-        (None without the bias)."""
+        (None without the bias); `generator`: train mode's dropouts
+        (wavlm.py:183-184), after each residual branch and the FFN's
+        activation."""
         attn, ln1, ln2 = self.self_attn, self.self_attn_layer_norm, self.final_layer_norm
         quant_serving = self.quantize and not self.training and tr._fused_block_available(x)
         # pre-LN: attention on LN1(x), plus x; post-LN: on raw x, then LN1
@@ -194,23 +198,23 @@ class GatedRelPosLayer(EncoderLayer):
                                              attn.qpair("out_proj"), attn.out_proj.bias,
                                              kv_lens, self.num_heads)
         elif pos_bias is None:  # no bias: the trunk's attention (wavlm.py:136-137)
-            x = x + attn(h, pad_mask)
+            x = x + self._drop(attn(h, pad_mask), generator)
         elif attn.gated:
-            x = x + attn(h, pad_mask, rel_bias=(pos_bias, attn.gate(h)))
+            x = x + self._drop(attn(h, pad_mask, rel_bias=(pos_bias, attn.gate(h))), generator)
         else:  # the bias without the gate, plain ops (wavlm.py:140-141)
-            x = x + attn(h, pad_mask, attn_bias=pos_bias[None])
+            x = x + self._drop(attn(h, pad_mask, attn_bias=pos_bias[None]), generator)
         if not self.layer_norm_first:  # wavlm.py:230-236
             x = _layer_norm(x, ln1)
             if quant_serving:  # K2 bare
                 h = fused_int8_ffn(x, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),
                                    self.fc2.bias)
             else:
-                h = self._ffn(x)
+                h = self._drop(self._ffn(x, generator), generator)
             return _layer_norm(x + h, ln2)
         if quant_serving:
             return fused_int8_ffn(x, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),
                                   self.fc2.bias, ln=(ln2.weight, ln2.bias), residual=True)
-        return x + self._ffn(_layer_norm(x, ln2))
+        return x + self._drop(self._ffn(_layer_norm(x, ln2), generator), generator)
 
 
 class WavLMEncoder(TransformerEncoder):
@@ -224,7 +228,7 @@ class WavLMEncoder(TransformerEncoder):
         super().__init__(cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim, 0,
                          cfg.encoder_attention_heads, cfg.layer_norm_first, cfg.conv_pos,
                          cfg.conv_pos_groups, dtype, use_flash, quantize, device=device,
-                         posconv=posconv)
+                         posconv=posconv, dropout=cfg.dropout)
         self.dtype = dtype
         self.use_flash = use_flash
         self.wavlm_fuse = wavlm_fuse
@@ -235,7 +239,8 @@ class WavLMEncoder(TransformerEncoder):
                              cfg.encoder_attention_heads, dtype, use_flash, quantize,
                              num_buckets=cfg.num_buckets if i == 0 and self.rel_pos else None,
                              device=device, wavlm_fuse=wavlm_fuse,
-                             layer_norm_first=cfg.layer_norm_first, gated=cfg.gated)
+                             layer_norm_first=cfg.layer_norm_first, gated=cfg.gated,
+                             dropout=cfg.dropout, activation_dropout=cfg.activation_dropout)
             for i in range(cfg.encoder_layers))
 
     def _layer_args(self, T: int, device) -> tuple:
@@ -296,7 +301,9 @@ class WavLMModel(Wav2Vec2Trunk):
         return WavLMEncoder(cfg, dtype, use_flash, quantize, device=device, posconv=posconv,
                             **fuse)
 
-    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor):
+    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor, generator=None):
         """wavs [B, T] padded 16 kHz, wav_lens [B] -> (hidden_states
-        [L+1, B, T', C], feat_lens [B])."""
-        return super().forward(wavs, wav_lens)
+        [L+1, B, T', C], feat_lens [B]); `generator`: train mode's dropouts
+        (``dropout_input``, wavlm.py:276, and the encoder's). The JAX WavLM
+        reads no ``encoder_layerdrop`` (wavlm.py:312-321), nor does this."""
+        return super().forward(wavs, wav_lens, generator=generator)

@@ -78,8 +78,11 @@ class SUpstream:
     def downsample_rates(self) -> List[int]:
         return self.upstream.downsample_rates
 
-    def __call__(self, wavs, wav_lens, train: bool = False):
-        hs, h_lens = self.upstream(wavs, wav_lens, train=train)
+    def __call__(self, wavs, wav_lens, train: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        """`Upstream.__call__` (train mode's dropouts drawn from `generator`),
+        then the optional normalisation."""
+        hs, h_lens = self.upstream(wavs, wav_lens, train=train, generator=generator)
         if self.normalize:
             hs = _normalize(hs)
         return hs, h_lens

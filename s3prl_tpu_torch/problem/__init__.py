@@ -63,3 +63,4 @@ from .mos import MosExample, MosPrediction  # noqa: F401
 from .enhancement import SeExample, SuperbSE, SuperbSS  # noqa: F401
 from .translation import StExample, SuperbST  # noqa: F401
 from .slu import MoseiSentiment, SluATIS, SluAudioSnips, SluExample  # noqa: F401
+from .vc import VcExample, VcVcc2020  # noqa: F401

@@ -23,3 +23,4 @@ from .hear import (  # noqa: F401
 from .mos_prediction import MosDownstreamModule, MosPredictionTask  # noqa: F401
 from .enhancement import EnhancementTask, SeparationTask, si_sdr  # noqa: F401
 from .speech_translation import SpeechTranslationTask  # noqa: F401
+from .voice_conversion import VoiceConversionTask, mcd  # noqa: F401

@@ -8,12 +8,19 @@ logging (JSONL; TensorBoard events when ``torch.utils.tensorboard``
 imports) and evaluation, directory checkpoints with auto-resume and
 valid-best tracking.
 
-A step: the upstream's standardized forward, frozen by default (the model
-in ``eval()`` under ``torch.no_grad()``, so on the card the kernels serve
-it, `Upstream.__call__`), then the task's module in ``train()`` on the
-states, its loss, ``backward()`` and one optimizer micro-step. Dropout in a
-head draws from a ``torch.Generator`` seeded from (seed, step) on the
-states' device, so a resumed run repeats its steps. Single device:
+A step: the upstream's standardized forward under ``torch.no_grad()``
+(`Upstream.__call__`), frozen by default (the model in ``eval()``, so on the
+card the kernels serve it) or, with ``upstream_trainable``, in ``train()``
+with its dropouts on, as the JAX trainer, which differentiates the probe's
+parameters only (s3prl_tpu/train/trainer.py:132-150); then the task's
+module in ``train()`` on the states, its loss, ``backward()`` and one
+optimizer micro-step. Dropout in a head draws from a ``torch.Generator``
+seeded from (seed, step) on the states' device (`step_generator`), the
+upstream's from a stream of its own seeded from the same pair
+(`upstream_generator`, the JAX trainer's ``k_up, k_task = split(rng)``), so
+a resumed run repeats its steps. Evaluation hands the task the generator of
+step 0 (the JAX trainer's ``fold_in(key, 0)``), which only a task that
+draws in eval reads (VC's prenet). Single device:
 ``dp`` / ``tp`` other than 1 raise (ROADMAP.md Queue 1 item 10).
 """
 
@@ -74,6 +81,14 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed((seed << 32 | step) & (2**63 - 1))
 
 
+def upstream_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of step `step`'s upstream dropout on `device`: a stream
+    apart from `step_generator`'s (bit 62 of the seed set), so the probe's
+    draws are the same with the upstream trainable or frozen."""
+    return torch.Generator(device=device).manual_seed(
+        ((seed << 32 | step) & (2**62 - 1)) | 2**62)
+
+
 class Trainer:
     def __init__(self, upstream: Upstream, task, exp_dir, config: TrainerConfig,
                  tb_writer=None):
@@ -125,9 +140,13 @@ class Trainer:
 
     def forward_upstream(self, device_batch: dict, train: bool = False):
         """(hs, h_lens) of the batch's waves: frozen unless the upstream is
-        trainable and `train`."""
-        return self.upstream(device_batch["x"], device_batch["x_len"],
-                             train=train and self.cfg.upstream_trainable)
+        trainable and `train`, then in train mode with the dropouts of step
+        ``self.step + 1`` (`upstream_generator`)."""
+        if not (train and self.cfg.upstream_trainable):
+            return self.upstream(device_batch["x"], device_batch["x_len"])
+        gen = upstream_generator(self.cfg.seed, self.step + 1, self.device)
+        return self.upstream(device_batch["x"], device_batch["x_len"], train=True,
+                             generator=gen)
 
     def probe_step(self, hs, h_lens, batch: dict):
         """One training micro-step of the task on the upstream's states:
@@ -138,8 +157,6 @@ class Trainer:
         grads = [p.grad for p in self.optimizer.params if p.grad is not None]
         grad_norm = global_norm(grads).detach()
         self.optimizer.step()
-        if self.cfg.upstream_trainable:  # the JAX trainer updates no upstream weight
-            self.upstream.model.zero_grad(set_to_none=True)
         return loss.detach(), cache, grad_norm
 
     def train_step(self, device_batch: dict):
@@ -208,7 +225,8 @@ class Trainer:
             for batch in loader:
                 device, host = _split_batch(batch)
                 hs, h_lens = self.forward_upstream(device)
-                _, cache = self.task.loss_and_cache(hs, h_lens, device, None, False)
+                gen = step_generator(self.cfg.seed, 0, hs.device)
+                _, cache = self.task.loss_and_cache(hs, h_lens, device, gen, False)
                 records.append(self._record(cache, host))
         logs = self.task.reduction(mode, records)
         self._log(mode, logs)

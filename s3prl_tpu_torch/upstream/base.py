@@ -9,7 +9,6 @@ h_len = floor((wav_len - 1) / stride) + 1.
 
 from __future__ import annotations
 
-import dataclasses
 import itertools
 from dataclasses import dataclass
 
@@ -41,36 +40,56 @@ def standardize_hidden_states(hidden_states: torch.Tensor, wav_lens: torch.Tenso
     return match_length_stacked(hidden_states, target), upstream_feat_lengths(wav_lens, stride)
 
 
-def _drops(cfg, prefix: str = "") -> dict:
-    """The config's nonzero dropout and layerdrop fields, those of its
-    nested configs (the MOS predictor's upstream) under their field's name."""
-    on = {}
-    for name, value in vars(cfg).items():
-        if dataclasses.is_dataclass(value):
-            on.update(_drops(value, f"{prefix}{name}."))
-        elif ("dropout" in name or "layerdrop" in name) and value:
-            on[prefix + name] = value
-    return on
+def _active_configs(cfg):
+    """`cfg` and the nested config its model runs (the MOS predictor's
+    upstream: ``trunk``, ``apc`` or ``tera`` by its ``upstream`` field)."""
+    yield cfg
+    nested = getattr(cfg, "upstream", None)
+    if isinstance(nested, str):
+        inner = getattr(cfg, {"wav2vec2": "trunk"}.get(nested, nested), None)
+        if inner is not None:
+            yield from _active_configs(inner)
 
 
 def train_refusal(cfg) -> None:
-    """Raises for a model whose JAX train mode drops something: the port's
-    upstreams serve frozen, with no dropout or layerdrop (ROADMAP.md Queue 1
-    item 7)."""
-    on = _drops(cfg)
-    if on:
-        raise NotImplementedError(
-            f"train mode with {on}: the port's upstreams train with no dropout or "
-            "layerdrop (ROADMAP.md Queue 1 item 7); train with the upstream frozen")
+    """Raises where the JAX upstream's train mode raises: its trainer hands
+    the upstream a ``"dropout"`` stream only, and no mutable collection
+    (s3prl_tpu/train/trainer.py:134-141, upstream/registry.py:357-359). So
+    - a wav2vec2-family trunk with ``encoder_layerdrop`` > 0 draws
+      ``make_rng("layerdrop")`` (transformer.py:750-753): InvalidRngError
+      (WavLM's encoder never reads the field, wavlm.py:312-321);
+    - VQ-APC draws ``make_rng("gumbel")`` (apc.py:53-54): InvalidRngError;
+    - NPC with BatchNorm updates ``batch_stats`` (npc.py:51, :55):
+      ModifyScopeVariableError.
+    Dropout itself runs (`Upstream.__call__`)."""
+    for c in _active_configs(cfg):
+        name = type(c).__name__
+        if getattr(c, "encoder_layerdrop", 0.0) > 0.0 and not hasattr(c, "gru_rel_pos"):
+            raise NotImplementedError(
+                f"train mode with encoder_layerdrop={c.encoder_layerdrop}: the JAX package's "
+                'trainer supplies no "layerdrop" PRNG stream, so its train mode raises '
+                "InvalidRngError here (s3prl_tpu/models/transformer.py:750-753); train with "
+                "encoder_layerdrop=0 or with the upstream frozen")
+        if getattr(c, "vq_codebook_size", None):
+            raise NotImplementedError(
+                f"train mode of {name} with VQ: the JAX package's trainer supplies no "
+                '"gumbel" PRNG stream, so its train mode raises InvalidRngError here '
+                "(s3prl_tpu/models/apc.py:53-54); train with the upstream frozen")
+        if getattr(c, "batch_norm", False) and hasattr(c, "mask_size"):
+            raise NotImplementedError(
+                f"train mode of {name} with batch_norm=True: the JAX upstream applies it "
+                'with the "batch_stats" collection immutable, so its train mode raises '
+                "ModifyScopeVariableError (s3prl_tpu/models/npc.py:51, :55); train with "
+                "batch_norm=False or with the upstream frozen")
 
 
 @dataclass
 class Upstream:
     """A ready-to-run upstream: model + metadata. `apply_standardized`
-    serves under ``torch.inference_mode``; `standardized` runs in the
-    caller's autograd mode (``torch.no_grad`` for a frozen upstream whose
-    states a probe's backward reads: an inference tensor cannot be saved
-    for backward)."""
+    serves under ``torch.inference_mode``; `__call__` (a probe's upstream,
+    frozen or in train mode) under ``torch.no_grad``, whose states a
+    probe's backward can save (an inference tensor cannot be);
+    `standardized` runs in the caller's autograd mode."""
 
     name: str
     model: nn.Module  # (wavs [B, T], wav_lens [B]) -> (hs [L, B, T', H], feat_lens [B])
@@ -109,22 +128,28 @@ class Upstream:
         [L, B, T_expected, H], h_lens [B]) on the model's device."""
         return self.standardized(wavs, wav_lens)
 
-    def __call__(self, wavs, wav_lens, train: bool = False):
+    def __call__(self, wavs, wav_lens, train: bool = False,
+                 generator: torch.Generator | None = None):
         """The standardized forward under a probe (the JAX Upstream's
-        ``__call__(wavs, wav_lens, train)``). Frozen (``train=False``): the
-        model in ``eval()`` under ``torch.no_grad()``, so the kernels serve it
-        and a probe's backward can save its states. ``train=True``: the model
-        in ``train()`` with autograd, on the stock paths; it raises where the
-        JAX train mode would apply what the port's model lacks (`train_refusal`)."""
+        ``__call__(wavs, wav_lens, train, rngs)``), under ``torch.no_grad()``:
+        the JAX trainer differentiates the probe's parameters only, so the
+        states are plain tensors that a probe's backward reads. Frozen
+        (``train=False``): the model in ``eval()``, where the kernels serve
+        it. ``train=True``: the model in ``train()``, its dropouts drawn from
+        `generator` (the trainer's upstream stream); the attention kernels
+        K7 / K9 (K8 / K10 beyond MAX_KERNEL_T) run where the JAX train mode
+        runs them, the whole-block kernels and the front end's stay off. It
+        raises where the JAX train mode raises (`train_refusal`)."""
         if train:
             train_refusal(self.model.cfg)
         if self.model.training != train:
             self.model.train(train)
-        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
-            return self.standardized(wavs, wav_lens)
+        with torch.no_grad():
+            return self.standardized(wavs, wav_lens, generator if train else None)
 
-    def standardized(self, wavs, wav_lens):
-        """`apply_standardized` in the caller's autograd mode."""
+    def standardized(self, wavs, wav_lens, generator: torch.Generator | None = None):
+        """`apply_standardized` in the caller's autograd mode; `generator`
+        (train mode) goes to the model's dropouts."""
         wavs, wav_lens = self._inputs(wavs, wav_lens)
         original_max = wavs.shape[1]
         min_samples = int(MIN_SECOND * SAMPLE_RATE)
@@ -134,7 +159,8 @@ class Upstream:
             run_lens = wav_lens + (min_samples - original_max)
         else:
             run_lens = wav_lens
-        hs, _ = self.model(wavs, run_lens)
+        extra = {} if generator is None else {"generator": generator}
+        hs, _ = self.model(wavs, run_lens, **extra)
         return standardize_hidden_states(hs, wav_lens, wavs.shape[1], self.downsample_rate)
 
 

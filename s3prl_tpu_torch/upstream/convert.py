@@ -704,7 +704,10 @@ def probe_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]
     ``proj_{i}`` a layer, so its cells a layer are the directions (layer 0
     forward, layer 0 backward, layer 1 forward, ...; one a layer when
     unidirectional); a tree without ``proj_`` layers (SuperbDiarizationModel,
-    QbeEmbedder) has one unidirectional cell a layer. A subtree holding
+    QbeEmbedder, the VC model's Taco2-AR decoder) has one unidirectional
+    cell a layer: the decoder's ``prenet.fc0`` / ``fc1``, ``lstm_{i}``,
+    ``mel_out`` and ``postnet_{i}`` convs (`models.taco2ar`) under
+    ``decoder.``, its featurizer's ``weights``. A subtree holding
     ``spec_transform`` and ``layers`` (the SLU head's MockingjayEncoder)
     maps through `mockingjay_state_dict_from_jax`."""
     params = params.get("params", params)

@@ -324,15 +324,16 @@ for _alias in ("hubert_base_robust_mgr", "mhubert_base_vp_en_es_fr_it3",
 class FeatureEncoder(nn.Module):
     """(wavs [B, T], wav_lens [B]) -> (the model's hidden states, feat_lens):
     the mel front end (`mel_ssl_features`), then the model, on the model's
-    device. ``cfg`` is the model's (for `train_refusal`)."""
+    device; in train mode the model's dropouts draw from `generator`.
+    ``cfg`` is the model's (for `train_refusal`)."""
 
     def __init__(self, model: nn.Module, feat_kind: str):
         super().__init__()
         self.model, self.feat_kind, self.cfg = model, feat_kind, model.cfg
 
-    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor):
+    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor, generator=None):
         feats, feat_lens = mel_ssl_features(wavs, wav_lens, self.feat_kind)
-        return self.model(feats, feat_lens)[0], feat_lens
+        return self.model(feats, feat_lens, generator)[0], feat_lens
 
 
 @torch.no_grad()

@@ -82,6 +82,21 @@ def parse_overrides(argv: List[str]) -> dict:
     return out
 
 
+def parse_override_string(string: str) -> dict:
+    """Parse the legacy override string ``a.b.c=v,,d.e=w`` (the reference's
+    ``-o`` flag, s3prl/utility/helper.py:71-99), each value a safe literal."""
+    out: dict = {}
+    if not string:
+        return out
+    for item in string.split(",,"):
+        item = item.strip()
+        if not item:
+            continue
+        key, _, value = item.partition("=")
+        set_dotted(out, key.strip(), _parse_value(value.strip()))
+    return out
+
+
 def check_no_missing(cfg: dict, prefix: str = "") -> None:
     """Raise if any value is the MISSING sentinel '???'."""
     for k, v in cfg.items():

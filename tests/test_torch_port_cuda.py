@@ -2253,3 +2253,128 @@ def test_recipe_steps_on_the_card(dev, tmp_path):
                                 and not k.endswith(("attention_linear.bias", "pooling.bias"))},
                                card.task.module.state_dict(), host.module.state_dict())
         assert min(coss.values()) > 0.999, (name, coss)
+
+
+# -- the upstream in train mode and VC on the card -------------------------------------
+
+
+def _train_mode_pair(dev, model, **rates):
+    """One seed's tiny HuBERT-Large-style (int8) or WavLM-Large-style (bf16)
+    model with flash=True on the CPU and on the card, at `rates`."""
+    import dataclasses
+
+    from s3prl_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+    from s3prl_tpu_torch.models.wavlm import WavLMConfig
+    from s3prl_tpu_torch.upstream.registry import _trunk_upstream
+
+    fields = dict(extractor_mode="layer_norm", conv_feature_layers=TINY_LAYERS,
+                  encoder_layers=2, encoder_embed_dim=128, encoder_ffn_embed_dim=256,
+                  encoder_attention_heads=2, conv_pos=16, conv_pos_groups=4,
+                  layer_norm_first=True, normalize=True)
+    cfg = (WavLMConfig(**fields, num_buckets=32, max_distance=80) if model == "wavlm"
+           else Wav2Vec2Config(**fields))
+    cfg = dataclasses.replace(cfg, **rates)
+    return [_trunk_upstream("tiny", cfg, dtype=torch.bfloat16, flash=True,
+                            quantize=model == "hubert", seed=3, device=d) for d in ("cpu", dev)]
+
+
+@pytest.mark.parametrize("model", ["hubert", "wavlm"])
+def test_train_mode_step_on_the_card(dev, tmp_path, model):
+    """flash=True with upstream_trainable at rates 0.1: a train step
+    launches K7 (WavLM: K9) once a layer and nothing else (a refuse_grad
+    error would raise), no upstream parameter gets a gradient and the
+    states need none; at rates 0 the card's train-mode states match the
+    CPU's at per-layer cosine > 0.999."""
+    rates = dict(dropout=0.1, activation_dropout=0.1, dropout_input=0.1)
+    _, gpu = _train_mode_pair(dev, model, **rates)
+    wavs, lens = _tiny_batch()
+    batch = {"x": wavs.to(dev), "x_len": lens.to(dev), "class_id": np.array([0, 3, 1], np.int32)}
+    trainer = _probe_trainer(gpu, tmp_path)
+    trainer.cfg.upstream_trainable = True
+    kernel = 8 if model == "wavlm" else 6  # K9 / K7 in wrappers() order
+    for _ in range(2):
+        for w in wrappers():
+            w.launches = 0
+        loss, _, _ = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        want = [0] * len(wrappers())
+        want[kernel] = 2
+        assert [w.launches for w in wrappers()] == want
+        assert gpu.model.training and torch.isfinite(loss)
+        assert all(p.grad is None for p in gpu.model.parameters())
+    hs, _ = gpu(batch["x"], batch["x_len"], train=True,
+                generator=torch.Generator(device=dev).manual_seed(0))
+    assert not hs.requires_grad
+    cpu, gpu = _train_mode_pair(dev, model, **dict.fromkeys(rates, 0.0))
+    want, h_lens = cpu(wavs, lens, train=True)
+    got, got_lens = gpu(wavs.to(dev), lens.to(dev), train=True)
+    assert got_lens.tolist() == h_lens.tolist()
+    for layer in range(got.shape[0]):
+        a = torch.cat([got[layer, b, :n].float().cpu() for b, n in enumerate(h_lens.tolist())])
+        b = torch.cat([want[layer, b, :n].float() for b, n in enumerate(h_lens.tolist())])
+        cos = float((a.double() * b.double()).sum() / (a.double().norm() * b.double().norm()))
+        assert cos > 0.999 or (a.norm() == 0 and b.norm() == 0), (layer, cos)
+
+
+def test_griffin_lim_on_the_card(dev):
+    """Griffin-Lim on cuFFT against the CPU on the same log-mels (a tone's
+    and random ones): the zero-phase synthesis (no round) within 1e-5 of the
+    peak 0.95 (log_mel_to_wav); after 32 rounds, whose phases are rounding
+    where the magnitudes are inconsistent, the spectral convergence within
+    1% of the CPU's."""
+    from s3prl_tpu_torch.ops.audio import log_mel
+    from s3prl_tpu_torch.ops.vocoder import (griffin_lim, log_mel_to_wav, mel_magnitudes,
+                                             spectral_convergence)
+
+    t = torch.arange(32000) / 16000
+    wavs = torch.stack([0.3 * torch.sin(2 * np.pi * 220 * t), 0.2 * torch.sin(2 * np.pi * 523 * t)])
+    wavs = wavs + 0.02 * torch.randn(wavs.shape, generator=torch.Generator().manual_seed(0))
+    mels = {"tone": log_mel(wavs, n_mels=80)[0],
+            "random": torch.randn(6, 412, 80, generator=torch.Generator().manual_seed(1)) * 2 - 3}
+    for name, m in mels.items():
+        got = log_mel_to_wav(m.to(dev), n_iter=0).cpu()
+        want = log_mel_to_wav(m, n_iter=0)
+        assert got.shape == want.shape and torch.isfinite(got).all(), name
+        assert float((got - want).abs().max()) < 1e-5, name
+        mag = mel_magnitudes(m)
+        sc_card = spectral_convergence(griffin_lim(mag.to(dev), n_iter=32), mag.to(dev))
+        sc_cpu = spectral_convergence(griffin_lim(mag, n_iter=32), mag)
+        assert abs(float(sc_card) / float(sc_cpu) - 1) < 1e-2, (name, float(sc_card),
+                                                                 float(sc_cpu))
+
+
+def test_vc_step_on_the_card(dev):
+    """VcExample's Taco2-AR (the prenet's dropout off on both sides) on the
+    same states and weights, card vs CPU: loss at rtol 1e-4, gradients at
+    cosine > 0.9999."""
+    import s3prl_tpu_torch.models.taco2ar as taco2ar
+    from s3prl_tpu_torch.problem import VcExample
+
+    class Up:
+        num_layers, hidden_sizes = 3, [16] * 3
+
+    rng = np.random.RandomState(0)
+    hs = torch.from_numpy(rng.randn(3, 2, 60, 16).astype(np.float32))
+    h_lens = torch.tensor([60, 41])
+    batch = {"target_mel": rng.randn(2, 50, 80).astype(np.float32),
+             "target_mel_len": np.array([50, 40], np.int32)}
+    problem = VcExample()
+    cpu_task = problem.build_task(Up(), problem.default_config())
+    cpu_task.init_params(torch.Generator().manual_seed(0))
+    gpu_task = problem.build_task(Up(), problem.default_config())
+    gpu_task.module.load_state_dict(cpu_task.module.state_dict())
+    gpu_task.module.to(dev)
+    saved, taco2ar.PRENET_DROPOUT = taco2ar.PRENET_DROPOUT, 0.0
+    try:
+        want, _ = cpu_task.loss_and_cache(hs, h_lens, batch, None, True)
+        got, _ = gpu_task.loss_and_cache(hs.to(dev), h_lens.to(dev), batch, None, True)
+        want.backward()
+        got.backward()
+    finally:
+        taco2ar.PRENET_DROPOUT = saved
+    np.testing.assert_allclose(got.item(), want.item(), rtol=1e-4)
+    for (name, a), b in zip(gpu_task.module.named_parameters(), cpu_task.module.parameters()):
+        if a.grad is None:
+            continue
+        x, y = a.grad.double().cpu().flatten(), b.grad.double().flatten()
+        assert float(x @ y / (x.norm() * y.norm())) > 0.9999 or x.norm() == y.norm() == 0, name

@@ -327,8 +327,10 @@ def test_audio_albert_checkpoint_with_every_depth_listed(tiny_entries, tmp_path)
 @pytest.mark.parametrize("name", list(ENTRIES))
 def test_native_and_refused_keywords(tiny_entries, tmp_path, name, monkeypatch):
     """A native msgpack checkpoint raises (pretraining is not ported); APC
-    and NPC in bf16 raise (their models run in f32); train mode raises
-    (dropout); without CUDA and without device= the entry raises."""
+    and NPC in bf16 raise (their models run in f32); train mode runs with
+    its dropouts, with states that need no grad, except where the JAX
+    train mode raises (VQ-APC's "gumbel" stream, NPC's BatchNorm); without
+    CUDA and without device= the entry raises."""
     native = tmp_path / "params.msgpack"
     native.write_bytes(b"")
     with pytest.raises(NotImplementedError, match="msgpack.*Queue 1 item 9"):
@@ -337,8 +339,13 @@ def test_native_and_refused_keywords(tiny_entries, tmp_path, name, monkeypatch):
         with pytest.raises(ValueError, match="cannot take effect"):
             hub.load(name, dtype=torch.bfloat16, device="cpu")
     up = hub.load(name, device="cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        up(torch.zeros(1, 1600), torch.tensor([1600]), train=True)
+    if name in ("vq_apc", "npc"):
+        with pytest.raises(NotImplementedError, match='"gumbel"|"batch_stats"'):
+            up(torch.zeros(1, 1600), torch.tensor([1600]), train=True)
+    else:
+        hs, _ = up(torch.zeros(1, 1600), torch.tensor([1600]), train=True,
+                   generator=torch.Generator().manual_seed(0))
+        assert up.model.training and not hs.requires_grad
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         hub.load(name)

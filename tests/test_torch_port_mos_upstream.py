@@ -213,8 +213,8 @@ def test_wav2vec2_checkpoint_loads_the_same_weights(tmp_path):
 def test_refused_keywords(tiny_entries, name, tmp_path, monkeypatch):
     """flash, quantize and the trunk options cannot take effect (the JAX
     entry swallows them); mos_apc's APC runs in f32; a native checkpoint
-    raises; train mode raises where a dropout would apply; the card
-    without device=."""
+    raises; train mode runs with the nested upstream's dropouts, with
+    states that need no grad; the card without device=."""
     for option in ({"flash": True}, {"quantize": True}, {"qkv_fuse": True}):
         with pytest.raises(ValueError, match="cannot take effect"):
             hub.load(name, device="cpu", **option)
@@ -225,10 +225,10 @@ def test_refused_keywords(tiny_entries, name, tmp_path, monkeypatch):
     native.write_bytes(b"")
     with pytest.raises(NotImplementedError, match="msgpack"):
         hub.load(name, ckpt=str(native), device="cpu")
-    if name in ("mos_apc", "mos_tera"):  # the tiny trunk has no dropout
-        up = hub.load(name, device="cpu")
-        with pytest.raises(NotImplementedError, match="dropout"):
-            up(torch.zeros(1, 1600), torch.tensor([1600]), train=True)
+    up = hub.load(name, device="cpu")
+    hs, _ = up(torch.zeros(1, 1600), torch.tensor([1600]), train=True,
+               generator=torch.Generator().manual_seed(0))
+    assert up.model.training and not hs.requires_grad and torch.isfinite(hs).all()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         hub.load(name)

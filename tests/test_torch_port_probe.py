@@ -284,17 +284,18 @@ def test_supstream_loads_hub_entries(monkeypatch):
 
 
 def test_upstream_train_mode(tiny_pair):
-    """train=True: the model in train() with autograd on the stock paths;
-    a model whose JAX train mode applies dropout raises."""
+    """train=True: the model in train() on the stock paths under no_grad
+    (the JAX trainer differentiates the probe only); a model whose JAX
+    train mode raises (layerdrop: no "layerdrop" stream) raises."""
     _, port_up = tiny_pair
     wavs, lens = torch.randn(2, 3200), torch.tensor([3200, 2000])
     hs, _ = port_up(wavs, lens, train=True)
-    assert hs.requires_grad and port_up.model.training
+    assert not hs.requires_grad and port_up.model.training
     hs, _ = port_up(wavs, lens)
     assert not hs.requires_grad and not port_up.model.training
-    cfg = Wav2Vec2Config(**dict(TINY, dropout_input=0.1))
+    cfg = Wav2Vec2Config(**dict(TINY, encoder_layerdrop=0.1))
     model = Wav2Vec2Trunk(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="dropout_input.*Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match='encoder_layerdrop=0.1.*"layerdrop"'):
         Upstream("d", model, 3, 128, 320)(wavs, lens, train=True)
 
 

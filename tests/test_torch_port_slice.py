@@ -297,6 +297,10 @@ def test_port_never_imports_jax():
         "import s3prl_tpu_torch.models.mockingjay, s3prl_tpu_torch.models.apc\n"
         "import s3prl_tpu_torch.models.npc, s3prl_tpu_torch.models.mos\n"
         "import s3prl_tpu_torch.problem.slu\n"
+        "import s3prl_tpu_torch.models.taco2ar, s3prl_tpu_torch.ops.vocoder\n"
+        "import s3prl_tpu_torch.task.voice_conversion, s3prl_tpu_torch.problem.vc\n"
+        "import s3prl_tpu_torch.run_downstream, s3prl_tpu_torch.train.hub_export\n"
+        "import s3prl_tpu_torch.submit\n"
         "assert len(s3prl_tpu_torch.kernels.wrappers()) == 19\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 's3prl_tpu')]\n"

@@ -206,8 +206,9 @@ def test_trainer_refuses_what_is_not_ported(tiny_pair, tmp_path):
 
 
 def test_trainable_upstream_runs_in_train_mode(tiny_pair, tmp_path):
-    """upstream_trainable: the upstream in train() with autograd on its
-    stock paths; as in the JAX trainer, only the probe is updated."""
+    """upstream_trainable: the upstream in train() on its stock paths,
+    under no_grad (the JAX trainer differentiates the probe only, so its
+    states need no grad); as in the JAX trainer, only the probe is updated."""
     _, port_up = tiny_pair
     task = UtteranceClassificationTask(
         UpstreamDownstreamModel(port_heads.UtteranceLevel(128, 4, (8,)), 3), 4)
@@ -222,6 +223,6 @@ def test_trainable_upstream_runs_in_train_mode(tiny_pair, tmp_path):
     finally:
         port_up.model._forward_hooks.clear()
         port_up.model.eval()
-    assert seen == [(True, True)]
+    assert seen == [(True, False)]
     assert all(torch.equal(before[k], v) for k, v in port_up.model.state_dict().items())
     assert all(p.grad is None for p in port_up.model.parameters())
