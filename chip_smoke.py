@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch + CUDA port (s3prl_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--phases 13]
+    python3 chip_smoke.py [--phases 14]
 
 Phases (any failed check raises, so the exit code is not 0 and no result
 line is printed; each phase prints its seconds; ``--phases`` runs 1, 2 and
@@ -134,7 +134,8 @@ the phases it lists, 3-6 together, and prints no result line):
     round trip: wav2vec2-Large int8's weights saved as an s3prl checkpoint
     in a temporary directory and loaded back through hub.load(ckpt=...),
     its configuration, weights, int8 cache and hidden states bit-equal;
- 5. the same seed's models on the CPU (the kernel wrappers' plain versions)
+ 5. the same seed's models on the CPU (copies of the card's; the kernel
+    wrappers' plain versions)
     against the card, per-layer cosine > 0.999 over valid frames, for each
     path: HuBERT on B=2 x 2 s, then on B=2 x 4 s with MAX_BLOCK_T = 64 (K6 /
     K7) and with MAX_KERNEL_T = 128 as well (K8); WavLM on B=2 x 2 s (K9)
@@ -346,6 +347,16 @@ the phases it lists, 3-6 together, and prints no result line):
     fbank forward, one step against the CPU (the prenet's dropout off on
     both), and Griffin-Lim of the predicted mels on the card against the
     CPU (one round's waves; 32 rounds' spectral convergence).
+14. The rest of the wav2vec2-style zoo (`zoo_phase`): wav2vec2-Conformer
+    with relative positions and with rotary embeddings (24 layers at 1,024
+    wide) in bf16 and f32, ESPnet HuBERT-Large in bf16 with flash=True,
+    DistilHuBERT, LightHuBERT's base and small subnets and MR-HuBERT-Base
+    in f32, each from seed 0 through hub.load on B=8 x 2-10 s: its launches
+    (K3 once on the Conformers and LightHuBERT, K3 once and K4 and K5 24
+    times on ESPnet, none on DistilHuBERT and MR-HuBERT; every other count
+    0), shape, lengths, finite values, the forward timed with its audio-s/s
+    and idle share, and the card against the CPU on B=2 x 1.3-2 s (per-layer
+    cosine > 0.999).
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1982,6 +1993,16 @@ def load(hub, model, path, device):
                     quantize=path.split()[0] == "int8", device=device, seed=0, **OPTIONS[path])
 
 
+def on_cpu(up):
+    """A copy of `up` with its model on the CPU: the same seed's weights,
+    drawn on the CPU by hub.load before the move to the card, with its int8
+    cache and option weights, without drawing them a second time."""
+    import copy
+    import dataclasses
+
+    return dataclasses.replace(up, model=copy.deepcopy(up.model).cpu())
+
+
 def batch(lens, T, gen, dev):
     wavs = torch.randn(len(lens), T, generator=gen)
     lens_t = torch.tensor(lens)
@@ -2550,7 +2571,7 @@ def check_recipe(wrapper, exp_dir):
     t0 = time.perf_counter()
     for w in wrapper.values():
         w.launches = 0
-    problem.run(str(exp_dir), **config)
+    run_recipe(problem, exp_dir, **config)
     launches = {name: w.launches for name, w in wrapper.items()}
     forwards = 4 + 2 + 1
     check(launches == {name: forwards * PROBE_RUN.get(name, 0) for name in wrapper},
@@ -2563,7 +2584,7 @@ def check_recipe(wrapper, exp_dir):
     check(steps == ["step_2", "step_4"] and (train_dir / "valid_best").exists(),
           f"checkpoints {steps}")
     lines = (train_dir / "metrics.jsonl").read_text().splitlines()
-    resumed = problem.run(str(exp_dir), start=2, stop=2, **config)["train_stage"]
+    resumed = run_recipe(problem, exp_dir, start=2, stop=2, **config)["train_stage"]
     check(resumed.step == 4 and (train_dir / "metrics.jsonl").read_text().splitlines() == lines
           and ckpt.latest_checkpoint(train_dir).name == "step_4", "auto-resume")
     log(f"[recipe] CommonExample on hubert_large_ll60k int8 (24 layers), all four stages and "
@@ -2904,7 +2925,7 @@ def check_asr_recipe(wrapper, exp_dir, gen):
     t0 = time.perf_counter()
     for w in wrapper.values():
         w.launches = 0
-    problem.run(str(work), **config)
+    run_recipe(problem, work, **config)
     launches = {name: w.launches for name, w in wrapper.items()}
     forwards = 4 + 2 + 1  # train steps, two valid passes of one batch, one test batch
     check(launches == {name: forwards * PROBE_RUN.get(name, 0) for name in wrapper},
@@ -3229,11 +3250,37 @@ def voxceleb1_tree(root, gen, test_secs):
 
 
 def speaker_recipe(problem, work, config, wrapper):
-    """Problem.run with every count set to 0 before it: the launches."""
+    """`run_recipe` with every count set to 0 before it: the launches."""
     for w in wrapper.values():
         w.launches = 0
-    problem.run(str(work), **config)
+    run_recipe(problem, work, **config)
     return {k: w.launches for k, w in wrapper.items()}
+
+
+_RECIPE_UPSTREAMS = {}  # (entry, hub.load keywords) -> the Upstream recipe runs share
+
+
+def run_recipe(problem, work, **config):
+    """problem.run(work, **config), each upstream its stages build taken
+    from one hub.load a configuration for every recipe run of the script:
+    the first run loads it through the registry, the later
+    stages and runs reuse it in place of drawing the same seed's weights
+    again (seconds of a host's time each at full width)."""
+    from s3prl_tpu_torch.upstream import registry
+
+    load = registry.load
+
+    def shared(name, **kwargs):
+        key = (name, repr(sorted(kwargs.items())))
+        if key not in _RECIPE_UPSTREAMS:
+            _RECIPE_UPSTREAMS[key] = load(name, **kwargs)
+        return _RECIPE_UPSTREAMS[key]
+
+    registry.load = shared
+    try:
+        return problem.run(str(work), **config)
+    finally:
+        registry.load = load
 
 
 def expect(*runs):
@@ -3549,25 +3596,21 @@ def check_recipe_step_on_cpu(name, up, trainer, batch):
 
 def time_recipe_step(name, up, trainer, batch, smi):
     """The family's train (micro-)step and the frozen forward alone (chains
-    of REC_ITERS // 3 and REC_ITERS, marginal, best of 2, CUDA events), each
+    of REC_ITERS // 3 and REC_ITERS, marginal, one pair, CUDA events), each
     with its audio-s/s, its peak device memory and the profiler's device
-    idle share."""
+    idle share over one call."""
     lo, hi = REC_ITERS // 3, REC_ITERS
     fns = {"train step": lambda: trainer.train_step(batch),
            "frozen forward alone": lambda: up(batch["x"], batch["x_len"])}
-    best = {(what, n): float("inf") for what in fns for n in (lo, hi)}
-    for _ in range(2):
-        for what, fn in fns.items():
-            for n in (lo, hi):
-                best[what, n] = min(best[what, n], n * cuda_ms(fn, n))
+    chain = {(what, n): n * cuda_ms(fn, n) for what, fn in fns.items() for n in (lo, hi)}
     audio = float(batch["x_len"].sum()) / SR
     out = {}
     for what, fn in fns.items():
         torch.cuda.reset_peak_memory_stats()
         fn()
         torch.cuda.synchronize()
-        out[what] = ((best[what, hi] - best[what, lo]) / (hi - lo),
-                     torch.cuda.max_memory_allocated() / 2**30, profile_calls(fn, iters=2)[0])
+        out[what] = ((chain[what, hi] - chain[what, lo]) / (hi - lo),
+                     torch.cuda.max_memory_allocated() / 2**30, profile_calls(fn, iters=1)[0])
     (step, peak, idle), (fwd, peak_fwd, idle_fwd) = out["train step"], out["frozen forward alone"]
     log(f"[timing] {name} hubert int8 {batch['x'].shape[0]} rows ({audio:.1f} s of audio, padded "
         f"to {batch['x'].shape[1] / SR:.2f} s): train step {step:.2f} ms ("
@@ -4130,10 +4173,10 @@ SLU_SHIFTS = ("sap.attn.bias", "attention.self.key.bias")
 
 def check_mel_models(gen, dev, smi):
     """The nine models on the card and on the CPU (the same seed's weights,
-    drawn on the CPU) on B=8 x 2-10 s: |err| of the hidden states over the
-    valid frames (median, p99, max) and each layer's cosine there, the MOS
-    scores' |err|; each model's forward on the card timed (CUDA events) with
-    its audio-s/s."""
+    drawn on the CPU; the CPU's a copy of the card's) on B=8 x 2-10 s: |err|
+    of the hidden states over the valid frames (median, p99, max) and each
+    layer's cosine there, the MOS scores' |err|; each model's forward on the
+    card timed (CUDA events) with its audio-s/s."""
     from s3prl_tpu_torch import hub
 
     rng = np.random.RandomState(12)
@@ -4144,7 +4187,8 @@ def check_mel_models(gen, dev, smi):
     audio = float(lens.sum()) / SR
     for name in MEL_MODELS:
         t0 = time.perf_counter()
-        card, cpu = hub.load(name, seed=0), hub.load(name, seed=0, device="cpu")
+        card = hub.load(name, seed=0)
+        cpu = on_cpu(card)
         loaded = time.perf_counter() - t0
         hs, h_lens = card.apply_standardized(xd, ld)
         t0 = time.perf_counter()
@@ -4700,7 +4744,81 @@ def train_mode_phase(wrapper, gen, dev, smi):
         log(f"[vc] {time.perf_counter() - t0:.1f} s")
 
 
-ALL_PHASES = frozenset(range(3, 14))
+# the rest of the wav2vec2-style zoo: (entry, dtype, flash) -> the kernel
+# launches of one forward (every other count 0). The Conformer's layers and
+# the stock families' run no kernel; K3 serves every layer-norm extractor
+ZOO = {("wav2vec2_conformer_relpos", "bf16", False): {"conv0_ln_gelu": 1},
+       ("wav2vec2_conformer_relpos", "f32", False): {"conv0_ln_gelu": 1},
+       ("wav2vec2_conformer_rope", "bf16", False): {"conv0_ln_gelu": 1},
+       ("wav2vec2_conformer_rope", "f32", False): {"conv0_ln_gelu": 1},
+       ("espnet_hubert_large_gs_ll60k", "bf16", True): {
+           "conv0_ln_gelu": 1, "fused_attention_block_bf16": 24, "fused_bf16_ffn": 24},
+       ("distilhubert", "f32", False): {},
+       ("lighthubert_base", "f32", False): {"conv0_ln_gelu": 1},
+       ("lighthubert_small", "f32", False): {"conv0_ln_gelu": 1},
+       ("multires_hubert_base", "f32", False): {}}
+ZOO_B, ZOO_SECS, ZOO_ITERS = 8, 10, 3
+
+
+def zoo_phase(wrapper, gen, dev, smi):
+    """Phase 14: each ZOO entry from seed 0 at its published width through
+    hub.load on the card: one apply_standardized on B=8 x 2-10 s with its
+    launches (the counts set to 0 just before, read just after), shape,
+    lengths and finite values; the forward timed by CUDA events with its
+    audio-s/s and the profiler's device idle share; then the same model
+    moved to the CPU (the port's CPU path: the wrappers' plain versions, the
+    stock ops) against the card on B=2 x 1.3-2 s, per-layer cosine > 0.999
+    over the valid frames."""
+    from s3prl_tpu_torch import hub
+
+    rng = np.random.RandomState(14)
+    n = ZOO_SECS * SR
+    lens = torch.from_numpy(np.concatenate([[n], rng.randint(2 * SR, n, ZOO_B - 1)]))
+    x = (torch.randn(ZOO_B, n, generator=gen) * (torch.arange(n)[None] < lens[:, None])).to(dev)
+    lens_d = lens.to(dev)
+    small_lens = torch.tensor([2 * SR, int(1.3 * SR)])
+    x_small = torch.randn(2, 2 * SR, generator=gen) * (torch.arange(2 * SR)[None] <
+                                                       small_lens[:, None])
+    audio = float(lens.sum()) / SR
+    for (name, dtype, flash), run in ZOO.items():
+        t0 = time.perf_counter()
+        card = hub.load(name, dtype={"bf16": torch.bfloat16, "f32": torch.float32}[dtype],
+                        flash=flash, seed=0)
+        loaded = time.perf_counter() - t0
+        for w in wrapper.values():
+            w.launches = 0
+        hs, h_lens = card.apply_standardized(x, lens_d)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrapper.items()}
+        check(launches == {k: run.get(k, 0) for k in wrapper}, f"{name} {dtype} launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        T = (n - 1) // 320 + 1
+        check(tuple(hs.shape) == (card.num_layers, ZOO_B, T, card.hidden_size)
+              and torch.equal(h_lens.cpu(), (lens - 1) // 320 + 1)
+              and bool(torch.isfinite(hs).all()), f"{name} {dtype} {tuple(hs.shape)}")
+        del hs
+        fn = lambda: card.apply_standardized(x, lens_d)  # noqa: E731
+        ms = cuda_ms(fn, ZOO_ITERS)
+        idle, _ = profile_calls(fn, iters=2)
+        cpu = on_cpu(card)
+        got, got_lens = card.apply_standardized(x_small.to(dev), small_lens.to(dev))
+        t0 = time.perf_counter()
+        want, want_lens = cpu.apply_standardized(x_small, small_lens)
+        cpu_s = time.perf_counter() - t0
+        check(torch.equal(got_lens.cpu(), want_lens), f"{name} {dtype} CPU lengths")
+        coss = layer_cosines(got.float().cpu(), want.float(), want_lens.tolist())
+        params = sum(p.numel() for p in card.model.parameters()) / 1e6
+        log(f"[zoo] {name} {dtype}{' flash' if flash else ''} ({params:.1f}M parameters, "
+            f"{card.num_layers} x {card.hidden_size}) B={ZOO_B} x 2-{ZOO_SECS} s: launches "
+            f"{run or 'none'} (every other count 0); {ms:.2f} ms a forward "
+            f"({audio / (ms / 1e3):.1f} audio-s/s), device idle share {idle:.3f}; card vs CPU "
+            f"B=2 x 1.3-2 s layer cosines min {min(coss):.6f}; loads {loaded:.1f} s, CPU "
+            f"forward {cpu_s:.1f} s; {smi}")
+        check(min(coss) > COS_LAYER, f"{name} {dtype} card vs CPU {coss}")
+        del card, cpu, got, want
+
+
+ALL_PHASES = frozenset(range(3, 15))
 KERNEL_PHASES = frozenset(range(3, 7))
 
 
@@ -4711,14 +4829,14 @@ def parse_phases(argv):
 
     parser = argparse.ArgumentParser(description="On-card check of s3prl_tpu_torch.")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases among 3-13 (default: all); phases 1 "
+                        help="comma-separated phases among 3-14 (default: all); phases 1 "
                              "and 2 always run, and a partial run prints no result line")
     args = parser.parse_args(argv)
     if args.phases is None:
         return ALL_PHASES
     phases = {int(p) for p in args.phases.split(",")}
     if not phases <= ALL_PHASES:
-        parser.error(f"--phases {args.phases}: phases 3-13")
+        parser.error(f"--phases {args.phases}: phases 3-14")
     return frozenset(phases | (KERNEL_PHASES if phases & KERNEL_PHASES else set()))
 
 
@@ -4942,7 +5060,7 @@ def main():
         available = port_transformer._fused_block_available
         with Phase("5 card vs CPU, quality vs f32"):
             for (model, path), up in ups.items():
-                up_cpu, up_ref = load(hub, model, path, "cpu"), None
+                up_cpu, up_ref = on_cpu(up), None
                 for label, lens, patch, expected in cases[model, path]:
                     small, small_lens = batch(lens, max(lens), gen, "cpu")
                     saved = {name: getattr(holder[name], name) for name in patch}
@@ -4992,7 +5110,7 @@ def main():
                             f"{min(coss):.6f}: " + " ".join(f"{c:.5f}" for c in coss))
                         if (model, path) in DRIFT_PATHS:  # the CPU's plain versions on this batch
                             if (model, path) not in cpu_models:
-                                cpu_models[model, path] = load(hub, model, path, "cpu")
+                                cpu_models[model, path] = on_cpu(ups[model, path])
                             port_transformer._fused_block_available = lambda x: True
                             try:
                                 hs_cpu, _ = cpu_models[model, path].apply_standardized(
@@ -5171,6 +5289,12 @@ def main():
     if 13 in phases:
         with Phase("13 train mode and vc"):
             train_mode_phase(wrapper, gen, dev, smi.splitlines()[0])
+    # 14. the rest of the wav2vec2-style zoo: the Conformers (K3), ESPnet
+    # HuBERT-Large bf16 + flash (K3, K4, K5), DistilHuBERT, LightHuBERT (K3) and
+    # MR-HuBERT at full width with their launches, times and the CPU check
+    if 14 in phases:
+        with Phase("14 zoo trunks"):
+            zoo_phase(wrapper, gen, dev, smi.splitlines()[0])
     if phases != ALL_PHASES:
         log(f"partial run: phases 1, 2 and {sorted(phases)} (the kernels line and the result "
             "line come from a run of every phase)")

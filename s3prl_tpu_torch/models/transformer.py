@@ -71,6 +71,16 @@ residual branch's output (``dropout``) and the FFN's activation
 JAX package never drops (``SelfAttention.dropout`` is unused, :142). The
 attention between the projections stays K7 / K9 under ``use_flash``.
 
+With ``layer_type="conformer"`` (wav2vec2-Conformer, transformer.py:
+719-745, :790-936) the encoder has no pos-conv and its layers are
+`ConformerLayer`s: half-step swish FFNs, ESPnet attention with
+Transformer-XL relative positions (a sinusoid table per T, cached on the
+device) or rotary embeddings, the conv module (pointwise GLU, depthwise
+SAME conv, BatchNorm on its running statistics, swish, pointwise) and a
+final LN, all on stock ops: the JAX package runs them with no kernel and
+ignores ``use_flash`` / ``quantize`` there. Eval mode only (its BatchNorm
+would update statistics in train mode; `upstream.base.train_refusal`).
+
 Matrix weights live in the model dtype, biases and norms in f32, as the JAX
 package casts them at use. With ``quantize`` the encoder layers keep their
 matrix weights in f32 (the JAX package's param dtype) and hold the int8
@@ -83,6 +93,9 @@ match the JAX package's full-f32 products.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -94,6 +107,7 @@ from ..kernels.flash_attention import (fused_attention_block, fused_attention_bl
                                        fused_qkv_attention, fused_qkv_attention_outproj,
                                        gated_bias_attention)
 from ..nn.heads import dropout
+from ..ops.attention import NEG_INF, attention_bthd
 from ..ops.quant import as_quantized_cols, int8_matmul
 
 
@@ -543,6 +557,180 @@ class EncoderLayer(_QCache, nn.Module):
         return _layer_norm(x + h, ln2)
 
 
+@functools.lru_cache(maxsize=16)
+def relative_positional_table(T: int, d_model: int, device=None) -> torch.Tensor:
+    """The Transformer-XL sinusoid table [2T-1, d_model] (transformer.py:
+    790-805, rows from relative position T-1 down to -(T-1)), built in
+    float64 with numpy, cast to f32 on `device` (the CPU by default) and
+    cached per (T, device)."""
+    position = np.arange(T, dtype=np.float64)[:, None]
+    div = np.exp(np.arange(0, d_model, 2, dtype=np.float64) * -(np.log(10000.0) / d_model))
+    pos, neg = np.zeros((T, d_model)), np.zeros((T, d_model))
+    pos[:, 0::2], pos[:, 1::2] = np.sin(position * div), np.cos(position * div)
+    neg[:, 0::2], neg[:, 1::2] = np.sin(-position * div), np.cos(-position * div)
+    table = np.concatenate([pos[::-1], neg[1:]], axis=0).astype(np.float32)
+    with torch.inference_mode(False):  # a cached tensor that autograd may read later
+        return torch.from_numpy(table).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _rotary_tables(T: int, head_dim: int, device) -> torch.Tensor:
+    """cos and sin [2, T, head_dim] of the rotary embedding (transformer.py:
+    837-842), float64 cast to f32 on `device`, cached per (T, device)."""
+    inv_freq = 1.0 / (10000 ** (np.arange(0, head_dim, 2) / head_dim))
+    t = np.arange(T)[:, None] * inv_freq[None, :]
+    emb = np.concatenate([t, t], axis=-1)
+    with torch.inference_mode(False):  # a cached tensor that autograd may read later
+        return torch.from_numpy(np.stack([np.cos(emb), np.sin(emb)]).astype(np.float32)).to(device)
+
+
+def _rel_shift(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, T, 2T-1] -> [B, H, T, T] (transformer.py:808-813): the
+    pad-reshape-slice that puts score (t, s) at relative position t - s."""
+    B, H, T, P = x.shape
+    xp = F.pad(x, (1, 0)).reshape(B, H, P + 1, T)
+    return xp[:, :, 1:].reshape(B, H, T, P)[..., :(P + 1) // 2]
+
+
+class EspnetSelfAttention(nn.Module):
+    """ESPnet multi-head attention (transformer.py:815-871) with separate
+    ``linear_q/k/v/out`` projections and ``pos_enc_type``:
+    - ``"rel_pos"``: ``linear_pos`` (no bias) over the sinusoid table, the
+      f32 ``pos_bias_u`` / ``pos_bias_v`` [H, Dh] cast to q's dtype, the
+      scores ``ac + rel_shift(bd)`` in f32 scaled after the sum, -1e9 on
+      padded keys, the probabilities cast to v's dtype;
+    - ``"rope"``: the layer input rotated per head (cos / sin in x's dtype)
+      before the q / k projections, v projected from the unrotated input;
+    - ``"abs"`` and ``"rope"`` then run `ops.attention.attention_bthd` on
+      q * Dh ** -0.5."""
+
+    def __init__(self, embed_dim: int, num_heads: int, pos_enc_type: str = "rel_pos",
+                 device=None):
+        super().__init__()
+        if pos_enc_type not in ("abs", "rel_pos", "rope"):
+            raise ValueError(f"pos_enc_type {pos_enc_type!r}: 'abs', 'rel_pos' or 'rope'")
+        self.num_heads, self.pos_enc_type = num_heads, pos_enc_type
+        for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+            setattr(self, name, nn.Linear(embed_dim, embed_dim, device=device))
+        if pos_enc_type == "rel_pos":
+            self.linear_pos = nn.Linear(embed_dim, embed_dim, bias=False, device=device)
+            head_dim = embed_dim // num_heads
+            self.pos_bias_u = nn.Parameter(torch.empty(num_heads, head_dim, device=device))
+            self.pos_bias_v = nn.Parameter(torch.empty(num_heads, head_dim, device=device))
+
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                pos_emb: torch.Tensor | None = None) -> torch.Tensor:
+        """x [B, T, C] in the model dtype, pad_mask [B, T] True on padded
+        keys, `pos_emb` the f32 table [2T-1, C] (``"rel_pos"``)."""
+        B, T, C = x.shape
+        H = self.num_heads
+        Dh = C // H
+        x_in = x
+        if self.pos_enc_type == "rope":
+            cos, sin = _rotary_tables(T, Dh, x.device).to(x.dtype)[:, None, :, None, :]
+            xh = x.view(B, T, H, Dh)
+            rot = torch.cat([-xh[..., Dh // 2:], xh[..., :Dh // 2]], -1)
+            x_in = (xh * cos + rot * sin).reshape(B, T, C)
+        q = _linear(x_in, self.linear_q).view(B, T, H, Dh)
+        k = _linear(x_in, self.linear_k).view(B, T, H, Dh)
+        v = _linear(x, self.linear_v).view(B, T, H, Dh)
+        scale = Dh ** -0.5
+        if self.pos_enc_type == "rel_pos":
+            p = F.linear(pos_emb.to(x.dtype), self.linear_pos.weight).view(-1, H, Dh)
+            q_u = q + self.pos_bias_u.to(q.dtype)
+            q_v = q + self.pos_bias_v.to(q.dtype)
+            ac = torch.einsum("bthd,bshd->bhts", q_u.float(), k.float())
+            bd = torch.einsum("bthd,phd->bhtp", q_v.float(), p.float())
+            scores = (ac + _rel_shift(bd)) * scale
+            scores = scores.masked_fill(pad_mask[:, None, None, :], NEG_INF)
+            probs = scores.softmax(-1).to(v.dtype)
+            out = torch.einsum("bhts,bshd->bthd", probs, v)
+        else:
+            out = attention_bthd(q * scale, k, v, pad_mask)
+        return _linear(out.reshape(B, T, C), self.linear_out)
+
+
+class FeedForwardModule(nn.Module):
+    """The Conformer's half-step FFN (fairseq's FeedForwardModule names):
+    f32 LN cast back -> ``w_1`` -> swish -> ``w_2``."""
+
+    def __init__(self, embed_dim: int, ffn_dim: int, device=None):
+        super().__init__()
+        self.layer_norm = nn.LayerNorm(embed_dim, device=device)
+        self.w_1 = nn.Linear(embed_dim, ffn_dim, device=device)
+        self.w_2 = nn.Linear(ffn_dim, embed_dim, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _linear(F.silu(_linear(_layer_norm(x, self.layer_norm), self.w_1)), self.w_2)
+
+
+class ConvolutionModule(nn.Module):
+    """The Conformer's conv module (transformer.py:917-931, fairseq's
+    ConvolutionModule names): f32 LN cast back -> ``pointwise_conv1`` (no
+    bias) -> GLU -> ``depthwise_conv`` (k taps, SAME padding, no bias; the
+    padded frames are not masked again, so they bleed into the valid ones
+    as in the reference) -> ``batch_norm`` on its running statistics (flax's
+    form, whose f32 output the swish keeps) -> swish -> ``pointwise_conv2``
+    (no bias) in the model dtype."""
+
+    def __init__(self, embed_dim: int, kernel_size: int, device=None):
+        super().__init__()
+        self.layer_norm = nn.LayerNorm(embed_dim, device=device)
+        self.pointwise_conv1 = nn.Conv1d(embed_dim, 2 * embed_dim, 1, bias=False, device=device)
+        self.depthwise_conv = nn.Conv1d(embed_dim, embed_dim, kernel_size, groups=embed_dim,
+                                        bias=False, device=device)
+        self.batch_norm = nn.BatchNorm1d(embed_dim, device=device)
+        self.pointwise_conv2 = nn.Conv1d(embed_dim, embed_dim, 1, bias=False, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, C]
+        dtype = x.dtype
+        h = F.linear(_layer_norm(x, self.layer_norm), self.pointwise_conv1.weight[:, :, 0])
+        a, b = h.chunk(2, dim=-1)
+        h = a * torch.sigmoid(b)
+        k = self.depthwise_conv.kernel_size[0]
+        h = F.conv1d(F.pad(h.transpose(1, 2), ((k - 1) // 2, k // 2)),
+                     self.depthwise_conv.weight, groups=self.depthwise_conv.groups)
+        bn = self.batch_norm
+        scale = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+        h = (h.float() - bn.running_mean[:, None]) * scale[:, None] + bn.bias[:, None]
+        h = F.silu(h).transpose(1, 2).to(dtype)
+        return F.linear(h, self.pointwise_conv2.weight[:, :, 0])
+
+
+class ConformerLayer(nn.Module):
+    """Macaron Conformer block (transformer.py:874-936): x + FFN1 / 2, x +
+    attention(LN(x)), x + conv module, x + FFN2 / 2, then the final LN.
+    Matrix and conv weights in the model dtype, biases, norms, the position
+    biases and BatchNorm in f32."""
+
+    quantize = False  # its projections stay in the model dtype (JAX ignores quantize here)
+
+    def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32, pos_enc_type: str = "rel_pos",
+                 depthwise_kernel: int = 31, device=None):
+        super().__init__()
+        self.ffn1 = FeedForwardModule(embed_dim, ffn_dim, device)
+        self.self_attn_layer_norm = nn.LayerNorm(embed_dim, device=device)
+        self.self_attn = EspnetSelfAttention(embed_dim, num_heads, pos_enc_type, device)
+        self.conv_module = ConvolutionModule(embed_dim, depthwise_kernel, device)
+        self.ffn2 = FeedForwardModule(embed_dim, ffn_dim, device)
+        self.final_layer_norm = nn.LayerNorm(embed_dim, device=device)
+        for m in self.modules():
+            if isinstance(m, (nn.Linear, nn.Conv1d)):
+                m.weight.data = m.weight.data.to(dtype)
+
+    def forward(self, x: torch.Tensor, kv_lens: torch.Tensor, pad_mask: torch.Tensor,
+                pos_emb: torch.Tensor | None = None, generator=None) -> torch.Tensor:
+        """x [B, T, C] in the model dtype; `pos_emb` the relative-position
+        table (``"rel_pos"``); `kv_lens` and `generator` unused (the
+        encoder's layer signature)."""
+        x = 0.5 * self.ffn1(x) + x
+        x = x + self.self_attn(_layer_norm(x, self.self_attn_layer_norm), pad_mask, pos_emb)
+        x = x + self.conv_module(x)
+        x = 0.5 * self.ffn2(x) + x
+        return _layer_norm(x, self.final_layer_norm)
+
+
 class TransformerEncoder(nn.Module):
     """Encoder stack returning [L+1, B, T, C]: the input of every layer,
     then the last one's output, after the encoder LayerNorm when pre-LN
@@ -554,23 +742,34 @@ class TransformerEncoder(nn.Module):
                  conv_pos_groups: int = 16, dtype: torch.dtype = torch.float32,
                  use_flash: bool = False, quantize: bool = False, device=None,
                  posconv: str | None = None, pos_conv_depth: int = 1,
-                 dropout: float = 0.0, activation_dropout: float = 0.0, **fuse):
+                 dropout: float = 0.0, activation_dropout: float = 0.0,
+                 use_pos_conv: bool = True, layer_type: str = "transformer",
+                 pos_enc_type: str = "rel_pos", depthwise_kernel: int = 31, **fuse):
         """``posconv``: the pos-conv option (`ConvPositionalEmbedding`;
         refused on a ``pos_conv_depth`` > 1 stack); ``dropout`` /
         ``activation_dropout``: the train-mode rates (the encoder input's and
-        the layers'); ``fuse``: the layers' ``qkv_fuse`` / ``full_fuse``
+        the layers'); ``use_pos_conv`` False: no pos-conv (MR-HuBERT's inner
+        encoders, transformer.py:715); ``layer_type`` "conformer":
+        `ConformerLayer`s with ``pos_enc_type`` and ``depthwise_kernel``, no
+        pos-conv; ``fuse``: the layers' ``qkv_fuse`` / ``full_fuse``
         options."""
         ConvPositionalStack.refuse_option(pos_conv_depth, posconv)
+        conformer = layer_type == "conformer"
         super().__init__()
         self.layer_norm_first = layer_norm_first
         self.dropout = dropout
-        if pos_conv_depth > 1:
+        self.pos_enc_type = pos_enc_type if conformer else None
+        if conformer or not use_pos_conv:
+            self.pos_conv = None
+        elif pos_conv_depth > 1:
             self.pos_conv = ConvPositionalStack(embed_dim, conv_pos, conv_pos_groups,
                                                 pos_conv_depth, device=device)
         else:
             self.pos_conv = ConvPositionalEmbedding(embed_dim, conv_pos, conv_pos_groups, dtype,
                                                     posconv, device=device)
         self.layers = nn.ModuleList([
+            ConformerLayer(embed_dim, ffn_dim, num_heads, dtype, pos_enc_type, depthwise_kernel,
+                           device=device) if conformer else
             EncoderLayer(embed_dim, ffn_dim, num_heads, dtype, use_flash, quantize,
                          device=device, layer_norm_first=layer_norm_first, dropout=dropout,
                          activation_dropout=activation_dropout, **fuse)
@@ -580,7 +779,10 @@ class TransformerEncoder(nn.Module):
 
     def _layer_args(self, T: int, device) -> tuple:
         """Inputs every layer takes after (x, kv_lens, pad_mask), built once
-        per forward: none here (WavLM's encoder adds its shared bias)."""
+        per forward: the Conformer's relative-position table (``"rel_pos"``),
+        else none (WavLM's encoder adds its shared bias)."""
+        if self.pos_enc_type == "rel_pos":
+            return (relative_positional_table(T, self.layer_norm.normalized_shape[0], device),)
         return ()
 
     def forward(self, x: torch.Tensor, feat_lens: torch.Tensor,
@@ -597,7 +799,8 @@ class TransformerEncoder(nn.Module):
         pad_mask = torch.arange(T, device=x.device)[None, :] >= feat_lens[:, None]
         kv_lens = torch.clamp(feat_lens, max=T).to(torch.int32)
         x = x.masked_fill(pad_mask[..., None], 0.0)
-        x = x + self.pos_conv(x)
+        if self.pos_conv is not None:
+            x = x + self.pos_conv(x)
         if not self.layer_norm_first:  # transformer.py:735-736
             x = _layer_norm(x, self.layer_norm)
         x = dropout(x, self.dropout, self.training, generator)  # transformer.py:737

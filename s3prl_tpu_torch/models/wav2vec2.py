@@ -9,7 +9,9 @@ or a post-LN one (data2vec), the group-norm extractor with a post-LN
 encoder (HuBERT-Base, wav2vec2-Base); HuBERT's block-folded feature-length
 rule and wav2vec2's / data2vec's conv rule (``feat_pad_rule="conv"``: the
 strict conv arithmetic, which gives 0 frames below 400 samples); the one
-pos-conv and data2vec's depth > 1 stack; the fused weighted sum of the
+pos-conv and data2vec's depth > 1 stack; the Conformer encoder
+(``layer_type="conformer"``: rel-pos or rotary ESPnet attention, no
+pos-conv, stock ops; eval only); the fused weighted sum of the
 layers (``layer_weights``); train mode's dropouts from an explicit
 generator. No span masking (extraction), no layerdrop (`Upstream`
 refuses it in train mode, as the JAX trainer's missing stream does). WavLM
@@ -94,8 +96,8 @@ def normalize_wavs(wavs: torch.Tensor, wav_lens: torch.Tensor) -> torch.Tensor:
     return (wavs - mean) / torch.sqrt(var + 1e-5) * mask
 
 
-def _unsupported(cfg: Wav2Vec2Config) -> str | None:
-    if cfg.layer_type != "transformer":
+def _unsupported(cfg: Wav2Vec2Config, layer_types) -> str | None:
+    if cfg.layer_type not in layer_types:
         return f"layer_type {cfg.layer_type!r}"
     if cfg.activation_fn != "gelu":
         return f"activation_fn {cfg.activation_fn!r}"
@@ -138,7 +140,9 @@ class Wav2Vec2Trunk(nn.Module):
     ``int8_posconv`` (K16b, its weight kept f32). One that cannot take effect
     raises a ValueError before any weight is made: the front-end options on
     the group-norm extractor, ``qkv_fuse`` / ``full_fuse`` on post-LN blocks,
-    the pos-conv options on data2vec's depth > 1 stack.
+    the pos-conv options on data2vec's depth > 1 stack and on the Conformer
+    encoder (no pos-conv), ``flash=True`` on conformer layers (their ESPnet
+    attention runs no kernel).
     Built on a CUDA device, the trunk also refuses what the card's kernels
     cannot take (`card_refusal`): ``use_flash`` at a head dim other than 64,
     a pos-conv option at other than 64 channels a group."""
@@ -149,6 +153,8 @@ class Wav2Vec2Trunk(nn.Module):
     # the fused int8 projection options its encoder layers take (off by
     # default, as the JAX package's QKV-fuse and full-fuse switches)
     fuse_options = ("qkv_fuse", "full_fuse")
+    # the encoder layers it builds (WavLM's encoder has transformer layers only)
+    layer_types = ("transformer", "conformer")
 
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype = torch.float32,
                  use_flash: bool = False, quantize: bool = False, device=None,
@@ -156,7 +162,7 @@ class Wav2Vec2Trunk(nn.Module):
                  int8_conv: bool = False, fused_conv: bool = False, fused_midln: bool = False,
                  fused_posconv: bool = False, int8_posconv: bool = False):
         super().__init__()
-        reason = _unsupported(cfg)
+        reason = _unsupported(cfg, self.layer_types)
         if reason is not None:
             raise NotImplementedError(
                 f"{reason} is not ported yet (ROADMAP.md Queue 1 item 8)")
@@ -164,6 +170,12 @@ class Wav2Vec2Trunk(nn.Module):
             raise ValueError("fused_posconv and int8_posconv: the pos-conv takes one kernel "
                              "(the JAX package's pos-conv switch has one value)")
         posconv = "fused" if fused_posconv else "int8" if int8_posconv else None
+        if cfg.layer_type == "conformer" and use_flash:
+            raise ValueError("flash=True cannot take effect on conformer layers: their ESPnet "
+                             "attention runs no kernel (the JAX package ignores use_flash there)")
+        if cfg.layer_type == "conformer" and posconv is not None:
+            raise ValueError(f"{'fused_posconv' if posconv == 'fused' else 'int8_posconv'} "
+                             "cannot take effect: the Conformer encoder has no pos-conv")
         ConvPositionalStack.refuse_option(cfg.pos_conv_depth, posconv)
         options = {"qkv_fuse": qkv_fuse, "full_fuse": full_fuse, "wavlm_fuse": wavlm_fuse}
         on = [name for name, value in options.items() if value]
@@ -202,7 +214,9 @@ class Wav2Vec2Trunk(nn.Module):
             cfg.encoder_attention_heads, cfg.layer_norm_first, cfg.conv_pos,
             cfg.conv_pos_groups, dtype, use_flash, quantize, device=device, posconv=posconv,
             pos_conv_depth=cfg.pos_conv_depth, dropout=cfg.dropout,
-            activation_dropout=cfg.activation_dropout, **fuse)
+            activation_dropout=cfg.activation_dropout, layer_type=cfg.layer_type,
+            pos_enc_type=cfg.pos_enc_type, depthwise_kernel=cfg.depthwise_conv_kernel_size,
+            **fuse)
 
     def build_qcache(self) -> None:
         """Quantizes every encoder layer's projections once from their f32
@@ -211,7 +225,8 @@ class Wav2Vec2Trunk(nn.Module):
         ``fused_conv``) and the pos-conv option's (a no-op without
         ``fused_posconv`` or ``int8_posconv``)."""
         self.feature_extractor.build_qcache()
-        self.encoder.pos_conv.build_qcache()
+        if self.encoder.pos_conv is not None:
+            self.encoder.pos_conv.build_qcache()
         for layer in self.encoder.layers:
             if layer.quantize:
                 layer.build_qcache()

@@ -287,6 +287,7 @@ class WavLMModel(Wav2Vec2Trunk):
 
     tanh_extractor = False  # erf in both paths (wavlm.py:264-267)
     fuse_options = ("wavlm_fuse",)
+    layer_types = ("transformer",)
 
     def __init__(self, cfg: WavLMConfig = WAVLM_LARGE, dtype: torch.dtype = torch.float32,
                  use_flash: bool = False, quantize: bool = False, device=None, **fuse):

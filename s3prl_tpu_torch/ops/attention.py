@@ -1,5 +1,7 @@
-"""Plain multi-head attention (port of s3prl_tpu/ops/attention.py
-`scaled_dot_attention`), the speech-translation decoder's.
+"""Plain multi-head attention (port of s3prl_tpu/ops/attention.py):
+`scaled_dot_attention` on [B, H, T, Dh] (the speech-translation decoder's,
+Mockingjay's) and `attention_bthd` on heads-last [B, T, H, Dh] (the
+Conformer's ESPnet attention without relative positions).
 
 The JAX package's rules exactly: scores and softmax in f32, an additive
 bias (the decoder's causal -1e9) added first, then ``key_padding_mask``
@@ -32,3 +34,18 @@ def scaled_dot_attention(
         scores = torch.where(key_padding_mask[:, None, None, :], NEG_INF, scores)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhts,bhsd->bhtd", probs.to(v.dtype), v)
+
+
+def attention_bthd(
+    q: torch.Tensor,  # [B, T, H, Dh], pre-scaled by Dh ** -0.5
+    k: torch.Tensor,  # [B, S, H, Dh]
+    v: torch.Tensor,  # [B, S, H, Dh]
+    key_padding_mask: Optional[torch.Tensor] = None,  # [B, S], True = padding
+) -> torch.Tensor:
+    """`scaled_dot_attention` in the heads-last layout (attention.py:40-62):
+    returns [B, T, H, Dh] in v's dtype."""
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+    if key_padding_mask is not None:
+        scores = torch.where(key_padding_mask[:, None, None, :], NEG_INF, scores)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v)

@@ -60,7 +60,8 @@ def train_refusal(cfg) -> None:
       (WavLM's encoder never reads the field, wavlm.py:312-321);
     - VQ-APC draws ``make_rng("gumbel")`` (apc.py:53-54): InvalidRngError;
     - NPC with BatchNorm updates ``batch_stats`` (npc.py:51, :55):
-      ModifyScopeVariableError.
+      ModifyScopeVariableError;
+    - so does a Conformer trunk's BatchNorm (transformer.py:924-930).
     Dropout itself runs (`Upstream.__call__`)."""
     for c in _active_configs(cfg):
         name = type(c).__name__
@@ -75,6 +76,12 @@ def train_refusal(cfg) -> None:
                 f"train mode of {name} with VQ: the JAX package's trainer supplies no "
                 '"gumbel" PRNG stream, so its train mode raises InvalidRngError here '
                 "(s3prl_tpu/models/apc.py:53-54); train with the upstream frozen")
+        if getattr(c, "layer_type", None) == "conformer":
+            raise NotImplementedError(
+                "train mode of a Conformer trunk: its BatchNorm would update its running "
+                'statistics, and the JAX upstream applies it with the "batch_stats" collection '
+                "immutable, so its train mode raises ModifyScopeVariableError "
+                "(s3prl_tpu/models/transformer.py:924-930); train with the upstream frozen")
         if getattr(c, "batch_norm", False) and hasattr(c, "mask_size"):
             raise NotImplementedError(
                 f"train mode of {name} with batch_norm=True: the JAX upstream applies it "

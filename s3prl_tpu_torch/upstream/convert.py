@@ -6,7 +6,13 @@ bare fairseq state_dict through `load_trunk_checkpoint`, Microsoft's WavLM
 checkpoints ``{"cfg", "model"}`` through `load_wavlm_checkpoint`; each reads
 the keys the JAX loader reads and returns (config, state_dict) in the keys
 the port's models load (`trunk_state_dict_from_torch`,
-`wavlm_state_dict_from_torch`). Nothing is downloaded.
+`wavlm_state_dict_from_torch`). Nothing is downloaded. A Conformer trunk's
+keys include its BatchNorm statistics. The rest of the wav2vec2-style zoo
+keeps the reference's keys: `load_distiller_checkpoint`,
+`load_lighthubert_checkpoint` (the supernet sliced to its subnet on the
+host), `load_multires_hubert_checkpoint` and `load_espnet_hubert_checkpoint`
+(torchaudio's keys renamed to fairseq's), with `*_state_dict_from_jax`
+mapping the JAX package's trees onto them.
 
 `probe_state_dict_from_jax(params)` maps a probe's flax params (featurizer
 and head) onto the port's `UpstreamDownstreamModel`.
@@ -40,12 +46,17 @@ the same for s3prl_tpu.models.wavlm.WavLMModel (Microsoft's keys):
 from __future__ import annotations
 
 import ast
+import math
 from pathlib import Path
 from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
+from ..models.distiller import DistillerConfig
+from ..models.lighthubert import (SUBNET_BASE, SUBNET_BASE_MAX, SUBNET_SMALL, SUBNET_SMALL_MAX,
+                                  LightHubertConfig)
+from ..models.multires_hubert import MultiresHubertConfig
 from ..models.wav2vec2 import Wav2Vec2Config
 from ..models.wavlm import WavLMConfig
 
@@ -76,38 +87,44 @@ def _conv(kernel) -> torch.Tensor:
 
 def _front_end(p: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
     """The extractor, the feature LN, the projection and the mask embedding
-    (the inverse of s3prl_tpu/upstream/convert.py:99-119)."""
+    (the inverse of s3prl_tpu/upstream/convert.py:99-119), each that the
+    tree holds (DistilHuBERT has no feature LN; only the trunks have the
+    mask embedding)."""
     sd: Dict[str, torch.Tensor] = {}
     fe = p["feature_extractor"]
     for i in range(len(cfg.conv_feature_layers)):
         pre = f"feature_extractor.conv_layers.{i}"
         sd[f"{pre}.0.weight"] = _conv(fe[f"conv_{i}"]["kernel"])
-        if cfg.conv_bias:
+        if getattr(cfg, "conv_bias", False):
             sd[f"{pre}.0.bias"] = _tensor(fe[f"conv_{i}"]["bias"])
         if cfg.extractor_mode == "layer_norm":
             _norm(sd, f"{pre}.2.1", fe[f"ln_{i}"])
         elif i == 0:
             _norm(sd, f"{pre}.2", fe["gn_0"])
-    _norm(sd, "layer_norm", p["layer_norm"])
+    if "layer_norm" in p:
+        _norm(sd, "layer_norm", p["layer_norm"])
     if "post_extract_proj" in p:
         _linear(sd, "post_extract_proj", p["post_extract_proj"])
-    sd["mask_emb"] = _tensor(p["mask_emb"])
+    if "mask_emb" in p:
+        sd["mask_emb"] = _tensor(p["mask_emb"])
     return sd
 
 
-def _encoder(sd, pos_conv: Dict[str, Any], layer_norm: Dict[str, Any],
-             layers: Dict[str, Any], cfg) -> None:
-    """The pos-conv (one conv, or the depth-N stack's ``conv_{i}``), the
-    final LN and the stacked layers' common parameters."""
-    convs = ({"0": pos_conv["conv"]} if "conv" in pos_conv else
-             {f"{i}.0": pos_conv[f"conv_{i}"] for i in range(cfg.pos_conv_depth)})
+def _encoder(sd, pos_conv: Dict[str, Any] | None, layer_norm: Dict[str, Any],
+             layers: Dict[str, Any], prefix: str = "encoder") -> None:
+    """The pos-conv (one conv, the depth-N stack's ``conv_{i}``, or none),
+    the final LN and the stacked layers' common parameters, under
+    `prefix`; the widths and the depth come from the stacked QKV kernel
+    [L, C, 3C]."""
+    convs = ({} if pos_conv is None else {"0": pos_conv["conv"]} if "conv" in pos_conv else
+             {f"{i}.0": pos_conv[f"conv_{i}"] for i in range(len(pos_conv))})
     for key, conv in convs.items():
-        sd[f"encoder.pos_conv.{key}.weight"] = _conv(conv["kernel"])
-        sd[f"encoder.pos_conv.{key}.bias"] = _tensor(conv["bias"])
-    _norm(sd, "encoder.layer_norm", layer_norm)
-    C = cfg.encoder_embed_dim
-    for i in range(cfg.encoder_layers):
-        pre = f"encoder.layers.{i}"
+        sd[f"{prefix}.pos_conv.{key}.weight"] = _conv(conv["kernel"])
+        sd[f"{prefix}.pos_conv.{key}.bias"] = _tensor(conv["bias"])
+    _norm(sd, f"{prefix}.layer_norm", layer_norm)
+    L, C = np.shape(layers["self_attn"]["qkv"]["kernel"])[:2]
+    for i in range(L):
+        pre = f"{prefix}.layers.{i}"
         qkv_w = np.asarray(layers["self_attn"]["qkv"]["kernel"][i])
         qkv_b = np.asarray(layers["self_attn"]["qkv"]["bias"][i])
         for j, name in enumerate("qkv"):
@@ -120,12 +137,51 @@ def _encoder(sd, pos_conv: Dict[str, Any], layer_norm: Dict[str, Any],
         _norm(sd, f"{pre}.final_layer_norm", layers["final_layer_norm"], i)
 
 
+def _conformer_layers(sd, layers: Dict[str, Any], stats: Dict[str, Any], cfg) -> None:
+    """The stacked ConformerLayer params and their BatchNorm statistics ->
+    ``encoder.layers.{i}.*`` (the inverse of s3prl_tpu/upstream/convert.py
+    `_conformer_layer_variables`, :178-213)."""
+    for i in range(cfg.encoder_layers):
+        pre = f"encoder.layers.{i}"
+        for ours, theirs in (("ffn1_w1", "ffn1.w_1"), ("ffn1_w2", "ffn1.w_2"),
+                             ("ffn2_w1", "ffn2.w_1"), ("ffn2_w2", "ffn2.w_2")):
+            _linear(sd, f"{pre}.{theirs}", layers[ours], i)
+        for ours, theirs in (("ffn1_layer_norm", "ffn1.layer_norm"),
+                             ("self_attn_layer_norm", "self_attn_layer_norm"),
+                             ("conv_ln", "conv_module.layer_norm"),
+                             ("conv_bn", "conv_module.batch_norm"),
+                             ("ffn2_layer_norm", "ffn2.layer_norm"),
+                             ("final_layer_norm", "final_layer_norm")):
+            _norm(sd, f"{pre}.{theirs}", layers[ours], i)
+        attn = layers["self_attn"]
+        for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+            _linear(sd, f"{pre}.self_attn.{name}", attn[name], i)
+        if cfg.pos_enc_type == "rel_pos":
+            sd[f"{pre}.self_attn.linear_pos.weight"] = _tensor(
+                np.asarray(attn["linear_pos"]["kernel"][i]).T)
+            for name in ("pos_bias_u", "pos_bias_v"):
+                sd[f"{pre}.self_attn.{name}"] = _tensor(attn[name][i])
+        for name in ("pw1", "pw2"):  # Dense [in, out] -> a k = 1 Conv1d [out, in, 1]
+            sd[f"{pre}.conv_module.pointwise_conv{name[-1]}.weight"] = _tensor(
+                np.asarray(layers[f"conv_{name}"]["kernel"][i]).T[:, :, None])
+        sd[f"{pre}.conv_module.depthwise_conv.weight"] = _conv(layers["conv_dw"]["kernel"][i])
+        bn = stats["conv_bn"]
+        sd[f"{pre}.conv_module.batch_norm.running_mean"] = _tensor(bn["mean"][i])
+        sd[f"{pre}.conv_module.batch_norm.running_var"] = _tensor(bn["var"][i])
+
+
 def trunk_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
-    """JAX Wav2Vec2Trunk params -> the port's (fairseq-keyed) state_dict."""
+    """JAX Wav2Vec2Trunk params -> the port's (fairseq-keyed) state_dict.
+    A Conformer trunk takes the variables dict, whose ``batch_stats`` hold
+    its BatchNorm statistics."""
     p = params.get("params", params)
     sd = _front_end(p, cfg)
     enc = p["encoder"]
-    _encoder(sd, enc["pos_conv"], enc["layer_norm"], enc["layers"], cfg)
+    if cfg.layer_type == "conformer":
+        _norm(sd, "encoder.layer_norm", enc["layer_norm"])
+        _conformer_layers(sd, enc["layers"], params["batch_stats"]["encoder"]["layers"], cfg)
+    else:
+        _encoder(sd, enc["pos_conv"], enc["layer_norm"], enc["layers"])
     return sd
 
 
@@ -139,7 +195,7 @@ def wavlm_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Te
     p = params.get("params", params)
     sd = _front_end(p, cfg)
     layers = p["layers"]
-    _encoder(sd, p["pos_conv"], p["enc_layer_norm"], layers, cfg)
+    _encoder(sd, p["pos_conv"], p["enc_layer_norm"], layers)
     if cfg.relative_position_embedding:
         sd["encoder.layers.0.self_attn.relative_attention_bias.weight"] = _tensor(
             p["relative_attention_bias"])
@@ -147,6 +203,64 @@ def wavlm_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Te
         pre = f"encoder.layers.{i}.self_attn"
         _linear(sd, f"{pre}.grep_linear", layers["grep_linear"], i)
         sd[f"{pre}.grep_a"] = _tensor(layers["grep_a"][i])
+    return sd
+
+
+def distiller_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX DistillerModel params -> the port's `DistillerModel` state_dict
+    (the reference's keys), the inverse of convert.py
+    `distiller_params_from_torch` (:477-532) but for the pos-conv, kept
+    folded: ``out_expand`` -> ``output_layer.0``, ``split_out`` ->
+    ``output_layer.2`` (bias [1, 1, n_tasks, final_dim])."""
+    p = params.get("params", params)
+    sd = _front_end(p, cfg)
+    enc = p["encoder"]
+    _encoder(sd, enc["pos_conv"], enc["layer_norm"], enc["layers"])
+    _linear(sd, "output_layer.0", p["out_expand"])
+    sd["output_layer.2.weight"] = _tensor(p["split_out"]["weight"])
+    sd["output_layer.2.bias"] = _tensor(p["split_out"]["bias"])[None, None]
+    return sd
+
+
+def lighthubert_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX LightHubertModel params -> the port's `LightHubertModel`
+    state_dict (fairseq's keys at the subnet's widths)."""
+    p = params.get("params", params)
+    sd = _front_end(p, cfg)
+    enc = p["encoder"]
+    _encoder(sd, enc["pos_conv"], enc["layer_norm"], enc["layers"])
+    return sd
+
+
+def _gn_conv(sd, prefix: str, p: Dict[str, Any], transpose: bool) -> None:
+    """A `_GNConv` -> ``{prefix}.0.weight`` (a transposed conv's flipped
+    flax kernel [k, in, out] back to torch's [in, out, k]) and the norm's
+    ``{prefix}.2``."""
+    kernel = np.asarray(p["conv"]["kernel"])
+    sd[f"{prefix}.0.weight"] = (_tensor(kernel[::-1].transpose(1, 2, 0)) if transpose
+                                else _conv(kernel))
+    _norm(sd, f"{prefix}.2", p["norm"])
+
+
+def multires_hubert_state_dict_from_jax(params: Dict[str, Any], cfg
+                                        ) -> Dict[str, torch.Tensor]:
+    """JAX MultiresHubertModel params -> the port's `MultiresHubertModel`
+    state_dict (the reference's keys), the inverse of convert.py
+    `multires_hubert_params_from_torch` (:1015-1060) but for the pos-conv,
+    kept folded."""
+    p = params.get("params", params)
+    sd = _front_end(p, cfg)
+    blocks = [("middle_encoder", "middle_encoder")] + [
+        (f"{kind}s_{i}", f"{kind}s.{i}") for kind in ("encoder", "decoder")
+        for i in range(cfg.n_pairs)]
+    for ours, theirs in blocks:
+        enc = p[ours]
+        _encoder(sd, enc.get("pos_conv"), enc["layer_norm"], enc["layers"], theirs)
+    for i in range(cfg.n_pairs):
+        for kind in ("downsample", "upsample"):
+            for half in p[f"{kind}_{i}"]:
+                _gn_conv(sd, f"{kind}_modules.{i}.{half}", p[f"{kind}_{i}"][half],
+                         transpose=half == "upsample_conv")
     return sd
 
 
@@ -246,34 +360,84 @@ def _copy(out, sd, key: str) -> None:
     out[key] = _t(sd[key])
 
 
-def _trunk_keys(sd: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
-    """The extractor, the feature LN, the projection, the mask embedding
-    (zeros when the checkpoint has none), the final LN and every layer's
-    attention, LNs and FFN (convert.py:94-175, :359-416), in the port's
-    keys; the pos-conv is the caller's."""
-    out: Dict[str, torch.Tensor] = {}
+# a layer's modules with a weight and a bias, and its bias-free weights and
+# tensors, in fairseq's keys: the transformer layer, the Conformer's
+# (ConformerWav2Vec2EncoderLayer, convert.py:178-213; its rel-pos keys apart)
+_LAYER_KEYS = {
+    "transformer": (("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                     "self_attn.out_proj", "self_attn_layer_norm", "fc1", "fc2",
+                     "final_layer_norm"), ()),
+    "conformer": (("ffn1.layer_norm", "ffn1.w_1", "ffn1.w_2", "self_attn_layer_norm",
+                   "self_attn.linear_q", "self_attn.linear_k", "self_attn.linear_v",
+                   "self_attn.linear_out", "conv_module.layer_norm", "conv_module.batch_norm",
+                   "ffn2.layer_norm", "ffn2.w_1", "ffn2.w_2", "final_layer_norm"),
+                  ("conv_module.pointwise_conv1.weight", "conv_module.depthwise_conv.weight",
+                   "conv_module.pointwise_conv2.weight", "conv_module.batch_norm.running_mean",
+                   "conv_module.batch_norm.running_var")),
+}
+_REL_POS_KEYS = ("self_attn.linear_pos.weight", "self_attn.pos_bias_u", "self_attn.pos_bias_v")
+
+
+def _extractor_keys(out, sd: Dict[str, Any], cfg) -> None:
+    """The conv extractor's weights (and biases with ``conv_bias``) and its
+    norms: every layer's LN in the layer-norm mode, layer 0's group norm in
+    the default one."""
     for i in range(len(cfg.conv_feature_layers)):
         pre = f"feature_extractor.conv_layers.{i}"
         _copy(out, sd, f"{pre}.0.weight")
-        if cfg.conv_bias:
+        if getattr(cfg, "conv_bias", False):
             _copy(out, sd, f"{pre}.0.bias")
         norm = (f"{pre}.2.1" if cfg.extractor_mode == "layer_norm" else
                 f"{pre}.2" if cfg.extractor_mode == "default" and i == 0 else None)
         for kind in ("weight", "bias") if norm else ():
             _copy(out, sd, f"{norm}.{kind}")
-    for prefix in ["layer_norm", "encoder.layer_norm"] + (
-            ["post_extract_proj"] if "post_extract_proj.weight" in sd else []):
+
+
+def _pos_conv_keys(out, sd: Dict[str, Any], prefix: str = "encoder") -> None:
+    """One pos-conv under `prefix`, its weight norm (``weight_g`` /
+    ``weight_v``) folded when the checkpoint has it."""
+    pre = f"{prefix}.pos_conv.0"
+    if f"{pre}.weight_g" in sd:
+        out[f"{pre}.weight"] = _fold_weight_norm(_t(sd[f"{pre}.weight_g"]),
+                                                 _t(sd[f"{pre}.weight_v"]))
+    else:
+        _copy(out, sd, f"{pre}.weight")
+    _copy(out, sd, f"{pre}.bias")
+
+
+def _encoder_keys(out, sd: Dict[str, Any], num_layers: int, prefix: str = "encoder",
+                  layer_type: str = "transformer", rel_pos: bool = False) -> None:
+    """An encoder's final LN and every layer's attention, LNs and FFN
+    (convert.py:94-175, :966-1002) or, for a Conformer, its modules and
+    BatchNorm statistics (:178-258; ``rel_pos``: its position keys)."""
+    for kind in ("weight", "bias"):
+        _copy(out, sd, f"{prefix}.layer_norm.{kind}")
+    affine, bare = _LAYER_KEYS[layer_type]
+    bare = bare + (_REL_POS_KEYS if rel_pos else ())
+    for i in range(num_layers):
+        pre = f"{prefix}.layers.{i}"
+        for name in affine:
+            for kind in ("weight", "bias"):
+                _copy(out, sd, f"{pre}.{name}.{kind}")
+        for name in bare:
+            _copy(out, sd, f"{pre}.{name}")
+
+
+def _trunk_keys(sd: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """The extractor, the feature LN, the projection, the mask embedding
+    (zeros when the checkpoint has none) and the encoder but its pos-conv
+    (convert.py:94-175, :178-258, :359-416), in the port's keys; the
+    pos-conv is the caller's."""
+    out: Dict[str, torch.Tensor] = {}
+    _extractor_keys(out, sd, cfg)
+    for prefix in ["layer_norm"] + (["post_extract_proj"] if "post_extract_proj.weight" in sd
+                                    else []):
         for kind in ("weight", "bias"):
             _copy(out, sd, f"{prefix}.{kind}")
     out["mask_emb"] = (_t(sd["mask_emb"]) if "mask_emb" in sd
                        else torch.zeros(cfg.encoder_embed_dim))
-    for i in range(cfg.encoder_layers):
-        pre = f"encoder.layers.{i}"
-        for name in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
-                     "self_attn.out_proj", "self_attn_layer_norm", "fc1", "fc2",
-                     "final_layer_norm"):
-            for kind in ("weight", "bias"):
-                _copy(out, sd, f"{pre}.{name}.{kind}")
+    _encoder_keys(out, sd, cfg.encoder_layers, layer_type=cfg.layer_type,
+                  rel_pos=cfg.layer_type == "conformer" and cfg.pos_enc_type == "rel_pos")
     return out
 
 
@@ -284,7 +448,11 @@ def trunk_state_dict_from_torch(sd: Dict[str, Any], cfg: Wav2Vec2Config) -> Dict
     weight norm (``weight_g`` / ``weight_v``) folded, data2vec's depth-N
     stack (``encoder.pos_conv.{i}.0.*``) kept, a missing ``mask_emb`` as
     zeros, every other key (``final_proj``, ``label_embs_concat``,
-    ``quantizer``, ``project_q``, ...) left out. Tensors come out f32."""
+    ``quantizer``, ``project_q``, ...) left out. Tensors come out f32. A
+    Conformer's pos-conv, which its encoder never applies, is left out
+    (`conformer_trunk_variables_from_torch`, convert.py:216-258)."""
+    if cfg.layer_type == "conformer":
+        return _trunk_keys(sd, cfg)
     out: Dict[str, torch.Tensor] = {}
     if "encoder.pos_conv.0.0.weight" in sd:  # data2vec's stack
         depth = 0
@@ -301,12 +469,7 @@ def trunk_state_dict_from_torch(sd: Dict[str, Any], cfg: Wav2Vec2Config) -> Dict
         raise ValueError(f"the config has a depth-{cfg.pos_conv_depth} pos-conv stack, the "
                          "checkpoint one pos-conv (encoder.pos_conv.0.*)")
     else:
-        if "encoder.pos_conv.0.weight_g" in sd:
-            out["encoder.pos_conv.0.weight"] = _fold_weight_norm(
-                _t(sd["encoder.pos_conv.0.weight_g"]), _t(sd["encoder.pos_conv.0.weight_v"]))
-        else:
-            _copy(out, sd, "encoder.pos_conv.0.weight")
-        _copy(out, sd, "encoder.pos_conv.0.bias")
+        _pos_conv_keys(out, sd)
     return {**_trunk_keys(sd, cfg), **out}
 
 
@@ -356,16 +519,13 @@ def load_trunk_checkpoint(path, fallback_cfg: Wav2Vec2Config | None = None
     `load_trunk_variables`, convert.py:260-321): s3prl's ``{"model_weight",
     "model_cfg", "task_cfg"}`` takes its config from the checkpoint
     (`config_from_model_cfg`), a bare state_dict ``fallback_cfg`` (the
-    entry's). A conformer encoder raises NotImplementedError."""
+    entry's). A Conformer's keys include its BatchNorm statistics."""
     ckpt = _torch_load(path)
     if isinstance(ckpt, dict) and "model_weight" in ckpt:
         sd = ckpt["model_weight"]
         cfg = config_from_model_cfg(ckpt.get("model_cfg", {}), ckpt.get("task_cfg", {}))
     else:
         sd, cfg = ckpt, fallback_cfg or Wav2Vec2Config()
-    if cfg.layer_type != "transformer":
-        raise NotImplementedError(f"{path}: layer_type {cfg.layer_type!r} is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 8)")
     return cfg, trunk_state_dict_from_torch(sd, cfg)
 
 
@@ -375,6 +535,305 @@ def load_wavlm_checkpoint(path) -> Tuple[WavLMConfig, Dict[str, torch.Tensor]]:
     ckpt = _torch_load(path)
     cfg = wavlm_config_from_cfg(ckpt.get("cfg", {}))
     return cfg, wavlm_state_dict_from_torch(ckpt["model"], cfg)
+
+
+# -- the wav2vec2-style zoo: DistilHuBERT, LightHuBERT, MR-HuBERT, ESPnet HuBERT ------
+
+def load_distiller_checkpoint(path) -> Tuple[DistillerConfig, Dict[str, torch.Tensor]]:
+    """A DistilHuBERT pretraining checkpoint ``{"Distiller": state_dict,
+    "Config": {"distiller": {...}}}`` (or a bare state_dict) -> (config, the
+    port's `DistillerModel` state_dict) (convert.py:535-566): the pos-conv's
+    weight norm folded, the prediction heads ``output_layer.{0,2}``."""
+    ckpt = _torch_load(path)
+    dcfg = ckpt.get("Config", {}).get("distiller", {}) if isinstance(ckpt, dict) else {}
+    sd = ckpt.get("Distiller", ckpt) if isinstance(ckpt, dict) else ckpt
+    conv = dcfg.get("extractor_conv_feature_layers",
+                    "[(512,10,5)] + [(512,3,2)] * 4 + [(512,2,2)] * 2")
+    cfg = DistillerConfig(
+        conv_feature_layers=_conv_layers(str(conv)),
+        extractor_mode=str(dcfg.get("extractor_mode", "default")),
+        encoder_layers=int(dcfg.get("encoder_layers", 2)),
+        encoder_embed_dim=int(dcfg.get("encoder_embed_dim", 768)),
+        encoder_ffn_embed_dim=int(dcfg.get("encoder_ffn_embed_dim", 3072)),
+        encoder_attention_heads=int(dcfg.get("encoder_attention_heads", 12)),
+        layer_norm_first=bool(dcfg.get("layer_norm_first", False)),
+        conv_pos=int(dcfg.get("conv_pos", 128)),
+        conv_pos_groups=int(dcfg.get("conv_pos_groups", 16)),
+        final_dim=int(dcfg.get("final_dim", 768)),
+        n_tasks=int(dcfg.get("n_tasks", 12)),
+        out_layer_inter_dim=int(dcfg.get("out_layer_inter_dim", -1)))
+    out: Dict[str, torch.Tensor] = {}
+    _extractor_keys(out, sd, cfg)
+    keys = ["output_layer.0.weight", "output_layer.0.bias", "output_layer.2.weight"]
+    if cfg.conv_feature_layers[-1][0] != cfg.encoder_embed_dim:
+        keys += ["post_extract_proj.weight", "post_extract_proj.bias"]
+    for key in keys:
+        _copy(out, sd, key)
+    out["output_layer.2.bias"] = _t(sd["output_layer.2.bias"]).reshape(
+        1, 1, cfg.n_tasks, cfg.final_dim)
+    _pos_conv_keys(out, sd)
+    _encoder_keys(out, sd, cfg.encoder_layers)
+    return cfg, out
+
+
+def lighthubert_state_dict_from_torch(sd: Dict[str, Any], cfg: LightHubertConfig
+                                      ) -> Dict[str, torch.Tensor]:
+    """A LightHuBERT supernet state_dict sliced to the subnet of `cfg`, on
+    the host (convert.py:1437-1543): every scaling module takes a weight
+    prefix, q / k / v [:A, :E], out_proj [:E, :A], norms [:E] (A = heads x
+    64); fc1 / fc2 take the first E rows / columns of each of the
+    supernet's FFN blocks (F_super / E_super of them, E_super wide); the
+    pos-conv's weight norm is folded over the whole supernet weight, then
+    sliced [:E, :E / groups]."""
+    E, Fd = cfg.embed_dim, cfg.ffn_dim
+    A = cfg.num_heads * 64  # the head dim stays 64 (scaling_multihead.py:156)
+    E_super = _t(sd["post_extract_proj.weight"]).shape[0]
+    F_super = _t(sd["encoder.layers.0.fc1.bias"]).shape[0]
+    block = F_super // (F_super // E_super)
+    splits = Fd / E
+    size = int(Fd / splits)
+    block_rows = torch.cat([torch.arange(i * block, i * block + min(size, Fd - i * size))
+                            for i in range(math.ceil(splits))])
+    out: Dict[str, torch.Tensor] = {}
+    _extractor_keys(out, sd, cfg)
+    for kind in ("weight", "bias"):
+        _copy(out, sd, f"layer_norm.{kind}")
+        out[f"post_extract_proj.{kind}"] = _t(sd[f"post_extract_proj.{kind}"])[:E]
+        out[f"encoder.layer_norm.{kind}"] = _t(sd[f"encoder.layer_norm.{kind}"])[:E]
+    w = _fold_weight_norm(_t(sd["encoder.pos_conv.0.weight_g"]),
+                          _t(sd["encoder.pos_conv.0.weight_v"]))
+    out["encoder.pos_conv.0.weight"] = w[:E, :E // cfg.conv_pos_groups].contiguous()
+    out["encoder.pos_conv.0.bias"] = _t(sd["encoder.pos_conv.0.bias"])[:E]
+    for i in range(cfg.num_layers):
+        pre = f"encoder.layers.{i}"
+        for name in "qkv":
+            key = f"{pre}.self_attn.{name}_proj"
+            out[f"{key}.weight"] = _t(sd[f"{key}.weight"])[:A, :E].contiguous()
+            out[f"{key}.bias"] = _t(sd[f"{key}.bias"])[:A]
+        key = f"{pre}.self_attn.out_proj"
+        out[f"{key}.weight"] = _t(sd[f"{key}.weight"])[:E, :A].contiguous()
+        out[f"{key}.bias"] = _t(sd[f"{key}.bias"])[:E]
+        for norm in ("self_attn_layer_norm", "final_layer_norm"):
+            for kind in ("weight", "bias"):
+                out[f"{pre}.{norm}.{kind}"] = _t(sd[f"{pre}.{norm}.{kind}"])[:E]
+        out[f"{pre}.fc1.weight"] = _t(sd[f"{pre}.fc1.weight"])[block_rows, :E].contiguous()
+        out[f"{pre}.fc1.bias"] = _t(sd[f"{pre}.fc1.bias"])[block_rows]
+        out[f"{pre}.fc2.weight"] = _t(sd[f"{pre}.fc2.weight"])[:E][:, block_rows].contiguous()
+        out[f"{pre}.fc2.bias"] = _t(sd[f"{pre}.fc2.bias"])[:E]
+    return out
+
+
+def load_lighthubert_checkpoint(path) -> Tuple[LightHubertConfig, Dict[str, torch.Tensor]]:
+    """A LightHuBERT checkpoint ``{"cfg": {"model": {...}}, "model":
+    state_dict}`` -> (config, the port's state_dict) with the expert's
+    subnet choice (convert.py:1546-1593): a pruner checkpoint (the default
+    ``_name``) takes its supernet type's published subnet, a
+    ``student_hubert`` the largest subnet; ``pruner_supernet`` naming a
+    small / base yaml sets the type."""
+    ckpt = _torch_load(path)
+    model_cfg = ckpt.get("cfg", {}).get("model", {}) if isinstance(ckpt, dict) else {}
+    sd = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
+    kind = str(model_cfg.get("supernet_type", "base")).lower()
+    pruner = str(model_cfg.get("pruner_supernet", "")).lower()
+    if pruner.endswith("small.yaml"):
+        kind = "small"
+    elif pruner.endswith("base.yaml"):
+        kind = "base"
+    if model_cfg.get("_name", "hubert_pruner") == "student_hubert":
+        subnet = SUBNET_BASE_MAX if kind == "base" else SUBNET_SMALL_MAX
+    else:
+        subnet = SUBNET_BASE if kind == "base" else SUBNET_SMALL
+    conv = model_cfg.get("conv_feature_layers",
+                         "[(512,10,5)] + [(512,3,2)] * 4 + [(512,2,2)] * 2")
+    cfg = LightHubertConfig.of_subnet(
+        subnet, conv_feature_layers=_conv_layers(conv),
+        extractor_mode=str(model_cfg.get("extractor_mode", "layer_norm")),
+        conv_bias=bool(model_cfg.get("conv_bias", False)),
+        conv_pos=int(model_cfg.get("conv_pos", 128)),
+        conv_pos_groups=int(model_cfg.get("conv_pos_groups", 16)),
+        layer_norm_first=bool(model_cfg.get("layer_norm_first", False)))
+    return cfg, lighthubert_state_dict_from_torch(sd, cfg)
+
+
+def multires_config_from_model_cfg(model_cfg: Dict[str, Any],
+                                   task_cfg: Dict[str, Any] | None = None
+                                   ) -> MultiresHubertConfig:
+    """The MR-HuBERT config of an s3prl ``model_cfg`` (a copy of
+    convert.py:1063-1096)."""
+    override = model_cfg.get("override_encoder_layers", "")
+    kwargs = dict(
+        extractor_mode=model_cfg.get("extractor_mode", "default"),
+        conv_bias=model_cfg.get("conv_bias", False),
+        encoder_embed_dim=model_cfg.get("encoder_embed_dim", 768),
+        encoder_ffn_embed_dim=model_cfg.get("encoder_ffn_embed_dim", 3072),
+        encoder_attention_heads=model_cfg.get("encoder_attention_heads", 12),
+        activation_fn=model_cfg.get("activation_fn", "gelu"),
+        layer_norm_first=model_cfg.get("layer_norm_first", False),
+        conv_pos=model_cfg.get("conv_pos", 128),
+        conv_pos_groups=model_cfg.get("conv_pos_groups", 16),
+        label_rate_ratios=tuple(model_cfg.get("label_rate_ratios", (1, 2))),
+        encoder_layers=int(model_cfg.get("encoder_layers", 2)),
+        override_encoder_layers=tuple(ast.literal_eval(override) if isinstance(override, str)
+                                      else override) if override else (),
+        conv_adapator_kernal=int(model_cfg.get("conv_adapator_kernal", 7)),
+        use_plain_updownsample=bool(model_cfg.get("use_plain_updownsample", False)),
+        dropout=model_cfg.get("dropout", 0.1),
+        attention_dropout=model_cfg.get("attention_dropout", 0.1),
+        activation_dropout=model_cfg.get("activation_dropout", 0.0),
+        dropout_input=model_cfg.get("dropout_input", 0.1),
+        normalize=(task_cfg or {}).get("normalize", False))
+    conv = _conv_layers(model_cfg.get("conv_feature_layers"))
+    if conv is not None:
+        kwargs["conv_feature_layers"] = conv
+    return MultiresHubertConfig(**kwargs)
+
+
+def load_multires_hubert_checkpoint(path) -> Tuple[MultiresHubertConfig,
+                                                   Dict[str, torch.Tensor]]:
+    """An s3prl MR-HuBERT checkpoint ``{"model_weight", "model_cfg",
+    "task_cfg"}`` -> (config, the port's state_dict) (convert.py:1015-1131):
+    each block's encoder (the first one's pos-conv folded), the resampling
+    modules' convs and group norms."""
+    ckpt = _torch_load(path)
+    cfg = multires_config_from_model_cfg(ckpt.get("model_cfg", {}), ckpt.get("task_cfg", {}))
+    sd = ckpt["model_weight"]
+    out: Dict[str, torch.Tensor] = {}
+    _extractor_keys(out, sd, cfg)
+    for prefix in ["layer_norm"] + (["post_extract_proj"] if "post_extract_proj.weight" in sd
+                                    else []):
+        for kind in ("weight", "bias"):
+            _copy(out, sd, f"{prefix}.{kind}")
+    blocks, n = cfg.block_layers, cfg.n_pairs
+    for i in range(n):
+        _encoder_keys(out, sd, blocks[i], f"encoders.{i}")
+        _encoder_keys(out, sd, blocks[n + 1 + i], f"decoders.{i}")
+        halves = ({"downsample": ("downsample_conv",), "upsample": ("upsample_conv",)}
+                  if cfg.use_plain_updownsample else
+                  dict.fromkeys(("downsample", "upsample"), ("upsample_conv", "downsample_conv")))
+        for kind, names in halves.items():
+            for name in names:
+                pre = f"{kind}_modules.{i}.{name}"
+                for key in (f"{pre}.0.weight", f"{pre}.2.weight", f"{pre}.2.bias"):
+                    _copy(out, sd, key)
+    _encoder_keys(out, sd, blocks[n], "middle_encoder")
+    _pos_conv_keys(out, sd, "encoders.0" if n else "middle_encoder")
+    return cfg, out
+
+
+# torchaudio's names of a transformer layer's modules -> fairseq's (convert.py:1796-1805)
+_TORCHAUDIO_LAYER_KEYS = {
+    "attention.k_proj": "self_attn.k_proj", "attention.v_proj": "self_attn.v_proj",
+    "attention.q_proj": "self_attn.q_proj", "attention.out_proj": "self_attn.out_proj",
+    "layer_norm": "self_attn_layer_norm", "feed_forward.intermediate_dense": "fc1",
+    "feed_forward.output_dense": "fc2", "final_layer_norm": "final_layer_norm"}
+
+
+def torchaudio_to_fairseq_keys(sd: Dict[str, Any], extractor_mode: str) -> Dict[str, Any]:
+    """torchaudio Wav2Vec2Model keys -> fairseq's (a copy of convert.py:
+    1808-1851); keys without a fairseq name are dropped."""
+    out: Dict[str, Any] = {}
+    for k, v in sd.items():
+        nk = None
+        if k.startswith("feature_extractor.conv_layers."):
+            parts = k.split(".")
+            i, rest = parts[2], ".".join(parts[3:])
+            if rest.startswith("conv."):
+                nk = f"feature_extractor.conv_layers.{i}.0.{rest[len('conv.'):]}"
+            elif rest.startswith("layer_norm."):
+                suffix = rest[len("layer_norm."):]
+                nk = (f"feature_extractor.conv_layers.{i}.2.1.{suffix}"
+                      if extractor_mode == "layer_norm" else
+                      f"feature_extractor.conv_layers.{i}.2.{suffix}")
+        elif k.startswith("encoder.feature_projection.layer_norm."):
+            nk = "layer_norm." + k.rsplit(".", 1)[1]
+        elif k.startswith("encoder.feature_projection.projection."):
+            nk = "post_extract_proj." + k.rsplit(".", 1)[1]
+        elif k.startswith("encoder.transformer.pos_conv_embed.conv."):
+            rest = k[len("encoder.transformer.pos_conv_embed.conv."):]
+            rest = {"parametrizations.weight.original0": "weight_g",
+                    "parametrizations.weight.original1": "weight_v"}.get(rest, rest)
+            nk = f"encoder.pos_conv.0.{rest}"
+        elif k.startswith("encoder.transformer.layer_norm."):
+            nk = "encoder.layer_norm." + k.rsplit(".", 1)[1]
+        elif k.startswith("encoder.transformer.layers."):
+            parts = k.split(".")
+            rest = ".".join(parts[4:-1])
+            if rest in _TORCHAUDIO_LAYER_KEYS:
+                nk = f"encoder.layers.{parts[3]}.{_TORCHAUDIO_LAYER_KEYS[rest]}.{parts[-1]}"
+        elif k == "mask_generator.mask_embedding":
+            nk = "mask_emb"
+        if nk is not None:
+            out[nk] = v
+    return out
+
+
+def espnet_hubert_config_from_sd(sd: Dict[str, Any], conf: Dict[str, Any] | None = None
+                                 ) -> Wav2Vec2Config:
+    """The trunk config of a fairseq-renamed ESPnet HuBERT state_dict, with
+    the espnet ``encoder_conf`` overrides (a copy of convert.py:1854-1903):
+    the widths and depth from the weights, the extractor mode from its
+    per-layer LNs, heads 12 up to C 768 else 16, pre-LN from C 1,024, the
+    conv strides 5 then 2 (or the config's table), the pos-conv geometry
+    from its weight; the block length rule, no wave normalisation."""
+    conf = conf or {}
+    C = int(sd["encoder.layer_norm.weight"].shape[0])
+    n = 0
+    while f"encoder.layers.{n}.fc1.weight" in sd:
+        n += 1
+    if "extractor_conv_layer_config" in conf:
+        conv_layers = tuple(tuple(t) for t in conf["extractor_conv_layer_config"])
+    else:
+        conv_layers, i = [], 0
+        while f"feature_extractor.conv_layers.{i}.0.weight" in sd:
+            w = sd[f"feature_extractor.conv_layers.{i}.0.weight"]
+            conv_layers.append((int(w.shape[0]), int(w.shape[2]), 5 if i == 0 else 2))
+            i += 1
+        conv_layers = tuple(conv_layers)
+    pos_w = sd.get("encoder.pos_conv.0.weight_v", sd.get("encoder.pos_conv.0.weight"))
+    conv_pos, conv_pos_groups = ((int(pos_w.shape[2]), C // int(pos_w.shape[1]))
+                                 if pos_w is not None else (128, 16))
+    return Wav2Vec2Config(
+        encoder_embed_dim=C, encoder_layers=max(n, 1),
+        encoder_ffn_embed_dim=int(sd["encoder.layers.0.fc1.weight"].shape[0]),
+        encoder_attention_heads=int(conf.get("encoder_num_heads", 12 if C <= 768 else 16)),
+        layer_norm_first=bool(conf.get("encoder_layer_norm_first", C >= 1024)),
+        extractor_mode=("layer_norm" if "feature_extractor.conv_layers.1.2.1.weight" in sd
+                        else "default"),
+        conv_bias="feature_extractor.conv_layers.0.0.bias" in sd,
+        conv_feature_layers=conv_layers, conv_pos=conv_pos, conv_pos_groups=conv_pos_groups,
+        normalize=bool(conf.get("normalize", False)))
+
+
+def load_espnet_hubert_checkpoint(path, config=None
+                                  ) -> Tuple[Wav2Vec2Config, Dict[str, torch.Tensor]]:
+    """An espnet2 torchaudio-HuBERT checkpoint -> (config, the port's trunk
+    state_dict) (convert.py:1906-1945): an espnet ``.pth`` (keys under
+    ``encoder.hubert_pretrain_model.``), a bare HuBERTPretrainModel state
+    dict (``hubert_pretrain_model.`` / ``wav2vec2.``) or a bare torchaudio
+    Wav2Vec2Model one; `config` the espnet config.yaml, whose
+    ``encoder_conf`` overrides what the weights imply. The extractor mode
+    is sniffed from the torchaudio names before the renaming."""
+    ckpt = _torch_load(path)
+    sd = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
+    for prefix in ("encoder.hubert_pretrain_model.", "hubert_pretrain_model."):
+        if any(k.startswith(prefix) for k in sd):
+            sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+            break
+    if any(k.startswith("wav2vec2.") for k in sd):
+        inner = {k[len("wav2vec2."):]: v for k, v in sd.items() if k.startswith("wav2vec2.")}
+        inner.update({k: v for k, v in sd.items() if k.startswith("mask_generator.")})
+        sd = inner
+    conf = {}
+    if config is not None:
+        import yaml
+
+        with open(config) as f:
+            conf = dict((yaml.safe_load(f) or {}).get("encoder_conf", {}))
+    mode = ("layer_norm" if any(k.startswith("feature_extractor.conv_layers.1.layer_norm.")
+                                for k in sd) else "default")
+    fsd = torchaudio_to_fairseq_keys(sd, mode)
+    cfg = espnet_hubert_config_from_sd(fsd, conf)
+    return cfg, trunk_state_dict_from_torch(fsd, cfg)
 
 
 # -- the mel-domain SSL models (Mockingjay / TERA / AudioALBERT, APC, NPC) -----------

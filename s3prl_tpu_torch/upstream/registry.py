@@ -32,6 +32,14 @@ Ported entries, with the JAX package's names and configurations
   (models/mos.py; registry.py:1044-1106), all on stock ops, which take
   ``dtype``, ``seed``, ``ckpt`` and ``device`` and none of the trunks'
   options;
+- the rest of the wav2vec2-style zoo (registry.py:452-477, :883-910,
+  :1149-1265, :1483-1539): ``wav2vec2_conformer`` /
+  ``wav2vec2_conformer_relpos`` and ``wav2vec2_conformer_rope`` (trunk
+  entries), the ESPnet torchaudio HuBERTs (``espnet_hubert`` and its five
+  Base names, ``espnet_hubert_large_gs_ll60k`` and the three ``wavlablm``
+  names: the L layer outputs), ``distilhubert`` / ``distiller``, the four
+  ``lighthubert`` names and the six ``multires_hubert`` names, which raise
+  for the keywords their JAX entries take and ignore;
 the trunks each in f32, bf16 and int8 W8A8 (``quantize=True``, the serving default),
 the int8 path with its opt-in fused projections (``qkv_fuse``,
 ``full_fuse``; ``wavlm_fuse``), the front-end options ``int8_conv`` (HuBERT
@@ -62,17 +70,22 @@ import torch.nn as nn
 
 from ..models.apc import APCConfig, APCModel
 from ..models.baseline import BASELINE_CONFIGS, BaselineFeatures, mel_ssl_features
+from ..models.distiller import DistillerConfig, DistillerModel, SplitLinear
 from ..models.hubert import HUBERT_BASE, HUBERT_LARGE
+from ..models.lighthubert import SUBNET_BASE, SUBNET_SMALL, LightHubertConfig, LightHubertModel
 from ..models.mockingjay import MockingjayConfig, MockingjayEncoder
 from ..models.mos import MosConfig, MosModel
+from ..models.multires_hubert import MultiresHubertConfig, MultiresHubertModel
 from ..models.npc import NPCConfig, NPCModel
-from ..models.transformer import SelfAttention
+from ..models.transformer import EspnetSelfAttention, SelfAttention
 from ..models.wav2vec2 import BASE, LARGE, Wav2Vec2Config, Wav2Vec2Trunk, card_refusal
 from ..models.wavlm import (WAVLM_BASE, WAVLM_BASE_PLUS, WAVLM_LARGE, GatedSelfAttention,
                             WavLMConfig, WavLMModel)
 from ..nn.upstream import init_params
 from .base import TrunkUpstream, Upstream
-from .convert import (load_mel_ssl_checkpoint, load_mos_checkpoint, load_trunk_checkpoint,
+from .convert import (load_distiller_checkpoint, load_espnet_hubert_checkpoint,
+                      load_lighthubert_checkpoint, load_mel_ssl_checkpoint, load_mos_checkpoint,
+                      load_multires_hubert_checkpoint, load_trunk_checkpoint,
                       load_wavlm_checkpoint)
 
 _REGISTRY: Dict[str, Callable[..., Upstream]] = {}
@@ -145,13 +158,24 @@ def _normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
 
 
 @torch.no_grad()
-def _init_trunk(model: Wav2Vec2Trunk, gen: torch.Generator) -> Wav2Vec2Trunk:
+def _init_trunk(model: nn.Module, gen: torch.Generator) -> nn.Module:
     """Random weights in module order with flax's initialisers: LeCun-normal
     matrices, zero biases, unit/zero norms, U[0, 1) mask embedding; WavLM's
-    bias table normal(0.02) and gate scale ``grep_a`` ones."""
+    bias table normal(0.02) and gate scale ``grep_a`` ones; the Conformer's
+    position biases normal(Dh ** -0.5) and BatchNorm statistics 0 / 1."""
     for m in model.modules():
         if isinstance(m, nn.Conv1d):
             _normal_(m.weight, m.weight[0].numel(), gen)
+        elif isinstance(m, nn.ConvTranspose1d):  # [in, out, k]: in * k / stride inputs
+            _normal_(m.weight, m.in_channels * m.kernel_size[0] // m.stride[0], gen)
+        elif isinstance(m, EspnetSelfAttention) and m.pos_enc_type == "rel_pos":
+            for p in (m.pos_bias_u, m.pos_bias_v):
+                _normal_(p, p.shape[1], gen)
+        elif isinstance(m, SplitLinear):
+            _normal_(m.weight, m.weight.shape[1], gen)
+            m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm1d):
+            m.reset_parameters()
         elif isinstance(m, nn.Linear):
             _normal_(m.weight, m.in_features, gen)
         elif isinstance(m, SelfAttention):
@@ -164,10 +188,26 @@ def _init_trunk(model: Wav2Vec2Trunk, gen: torch.Generator) -> Wav2Vec2Trunk:
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * 0.02)
-        if isinstance(m, (nn.Conv1d, nn.Linear)) and m.bias is not None:
+        if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d, nn.Linear)) and m.bias is not None:
             m.bias.zero_()
-    model.mask_emb.copy_(torch.rand(model.mask_emb.shape, generator=gen))
+    if hasattr(model, "mask_emb"):
+        model.mask_emb.copy_(torch.rand(model.mask_emb.shape, generator=gen))
     return model
+
+
+def _build_trunk(model: nn.Module, state_dict, seed: int, device: torch.device) -> nn.Module:
+    """A model built on "meta" materialised on the CPU with `state_dict`
+    (strict; the load hooks build the int8 cache and the options' weights)
+    or random weights from `seed` (`_init_trunk`, then `build_qcache` where
+    the model has one), then moved to `device` in eval()."""
+    model.to_empty(device="cpu")
+    if state_dict is None:
+        _init_trunk(model, torch.Generator().manual_seed(seed))
+        if hasattr(model, "build_qcache"):
+            model.build_qcache()
+    else:
+        model.load_state_dict(state_dict, strict=True)
+    return model.to(device).eval()
 
 
 def _trunk_upstream(name: str, cfg: Wav2Vec2Config, dtype=torch.float32,
@@ -191,14 +231,8 @@ def _trunk_upstream(name: str, cfg: Wav2Vec2Config, dtype=torch.float32,
                       **fuse)
     device = _device(device)
     if device.type == "cuda":  # the meta model allocated nothing
-        card_refusal(cfg, flash, model.encoder.pos_conv.option)
-    model.to_empty(device="cpu")
-    if state_dict is None:
-        _init_trunk(model, torch.Generator().manual_seed(seed))
-        model.build_qcache()
-    else:  # the load hooks build the int8 cache and the options' weights
-        model.load_state_dict(state_dict, strict=True)
-    model.to(device).eval()
+        card_refusal(cfg, flash, getattr(model.encoder.pos_conv, "option", None))
+    model = _build_trunk(model, state_dict, seed, device)
     up_cls = Upstream if wavlm else TrunkUpstream
     return up_cls(name=name, model=model, num_layers=cfg.encoder_layers + 1,
                   hidden_size=cfg.encoder_embed_dim, downsample_rate=cfg.downsample_rate)
@@ -313,6 +347,167 @@ for _alias in ("wav2vec2_large_960", "wav2vec2_large_voxpopuli_100k", "xlsr_53",
 for _alias in ("hubert_base_robust_mgr", "mhubert_base_vp_en_es_fr_it3",
                "contentvec", "contentvec_km100", "contentvec_km500", "ms_hubert"):
     _REGISTRY[_alias] = hubert_base
+
+
+# -- the rest of the wav2vec2-style zoo (registry.py:452-477, :883-910,
+# :1149-1265, :1483-1539)
+
+# wav2vec2-Conformer: 24 layers at 1,024 wide, the layer-norm extractor, the
+# conv length rule, an entry LN before the layers (layer_norm_first False)
+CONFORMER_BASE = Wav2Vec2Config(
+    layer_type="conformer", pos_enc_type="rel_pos", feat_pad_rule="conv",
+    extractor_mode="layer_norm", encoder_layers=24, encoder_embed_dim=1024,
+    encoder_ffn_embed_dim=4096, encoder_attention_heads=16, normalize=True, dropout=0.0,
+    attention_dropout=0.0, dropout_input=0.0)
+
+
+@register("wav2vec2_conformer")
+@register("wav2vec2_conformer_relpos")
+def wav2vec2_conformer(**kwargs) -> Upstream:
+    return _trunk_upstream("wav2vec2_conformer", CONFORMER_BASE, **kwargs)
+
+
+@register("wav2vec2_conformer_rope")
+def wav2vec2_conformer_rope(**kwargs) -> Upstream:
+    return _trunk_upstream("wav2vec2_conformer_rope", replace(CONFORMER_BASE, pos_enc_type="rope"),
+                           **kwargs)
+
+
+# the keywords of the trunk entries that the stock-path families refuse
+_TRUNK_OPTIONS = ("flash", "quantize", "qkv_fuse", "full_fuse", "wavlm_fuse", "int8_conv",
+                  "fused_conv", "fused_midln", "fused_posconv", "int8_posconv")
+
+
+def _refuse_options(name: str, why: str, options: dict) -> None:
+    """A TypeError for a keyword no trunk entry takes; a ValueError for a
+    trunk option switched on where it cannot take effect (`why`; the JAX
+    entries take and ignore them)."""
+    unknown = sorted(set(options) - set(_TRUNK_OPTIONS))
+    if unknown:
+        raise TypeError(f"{name}: unexpected keyword arguments {unknown}")
+    on = sorted(k for k, v in options.items() if v)
+    if on:
+        raise ValueError(f"{', '.join(on)} cannot take effect on {name}: {why} (the JAX entry "
+                         "takes and ignores it)")
+
+
+class LayerOutputs(nn.Module):
+    """A trunk's hidden states without the first, L layer outputs
+    (torchaudio's ``extract_features`` layout, registry.py:1149-1189)."""
+
+    def __init__(self, trunk: Wav2Vec2Trunk):
+        super().__init__()
+        self.trunk, self.cfg = trunk, trunk.cfg
+
+    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor, generator=None):
+        hs, lens = self.trunk(wavs, wav_lens, generator=generator)
+        return hs[1:], lens
+
+
+def _espnet_hubert_upstream(name: str, default_cfg: Wav2Vec2Config, ckpt=None,
+                            model_config=None, dtype=torch.float32, flash: bool = False,
+                            seed: int = 0, device=None, **options) -> Upstream:
+    """ESPnet's torchaudio HuBERT (registry.py:1149-1189): a trunk from
+    `ckpt` (`load_espnet_hubert_checkpoint`, `model_config` its espnet
+    config.yaml) or `default_cfg` with random weights from `seed`, whose
+    upstream returns the L layer outputs. ``flash`` runs the trunk's
+    kernels (K4 / K5 on a pre-LN bf16 model, as HuBERT-Large's bf16 path);
+    ``quantize`` and the other trunk options raise."""
+    _refuse_options(name, "its entry builds the trunk in its dtype with flash only", options)
+    device = _device(device)
+    cfg, state_dict = ((default_cfg, None) if ckpt is None
+                       else load_espnet_hubert_checkpoint(ckpt, model_config))
+    model = Wav2Vec2Trunk(cfg, dtype=dtype, use_flash=flash, device="meta")
+    if device.type == "cuda":
+        card_refusal(cfg, flash, None)
+    model = LayerOutputs(_build_trunk(model, state_dict, seed, device))
+    return Upstream(name=name, model=model, num_layers=cfg.encoder_layers,
+                    hidden_size=cfg.encoder_embed_dim, downsample_rate=320)
+
+
+@register("espnet_hubert")
+@register("espnet_hubert_custom")
+@register("espnet_hubert_local")
+@register("espnet_hubert_base_iter0")
+@register("espnet_hubert_base_iter1")
+@register("cvhubert")
+def espnet_hubert(**kwargs) -> Upstream:
+    return _espnet_hubert_upstream("espnet_hubert", BASE, **kwargs)
+
+
+@register("espnet_hubert_large_gs_ll60k")
+@register("wavlablm_ek_40k")
+@register("wavlablm_mk_40k")
+@register("wavlablm_ms_40k")
+def espnet_hubert_large(**kwargs) -> Upstream:
+    return _espnet_hubert_upstream("espnet_hubert_large", LARGE, **kwargs)
+
+
+def _stock_upstream(name: str, model: nn.Module, state_dict, seed: int, device,
+                    num_layers: int, hidden: int, stride: int) -> Upstream:
+    return Upstream(name=name, model=_build_trunk(model, state_dict, seed, device),
+                    num_layers=num_layers, hidden_size=hidden, downsample_rate=stride)
+
+
+@register("distilhubert")
+@register("distiller")
+def distilhubert(ckpt=None, dtype=torch.float32, seed: int = 0, device=None,
+                 **options) -> Upstream:
+    """DistilHuBERT (registry.py:452-477): `ckpt` through
+    `load_distiller_checkpoint`, else the default config from `seed`; 1 +
+    L + n_tasks hidden states; stock ops."""
+    _refuse_options("distilhubert", "its model runs no kernel", options)
+    device = _device(device)
+    cfg, state_dict = (DistillerConfig(), None) if ckpt is None else load_distiller_checkpoint(ckpt)
+    return _stock_upstream("distilhubert", DistillerModel(cfg, dtype, device="meta"), state_dict,
+                           seed, device, 1 + cfg.encoder_layers + cfg.n_tasks,
+                           cfg.encoder_embed_dim, cfg.downsample_rate)
+
+
+def _lighthubert_upstream(name: str, subnet: dict, ckpt=None, dtype=torch.float32,
+                          seed: int = 0, device=None, **options) -> Upstream:
+    """LightHuBERT (registry.py:1219-1265): `ckpt` sliced to its subnet on
+    the host (`load_lighthubert_checkpoint`), else `subnet` from `seed`;
+    K3 in the extractor, the layers on stock ops."""
+    _refuse_options(name, "its layers run no kernel", options)
+    device = _device(device)
+    cfg, state_dict = ((LightHubertConfig.of_subnet(subnet), None) if ckpt is None
+                       else load_lighthubert_checkpoint(ckpt))
+    return _stock_upstream(name, LightHubertModel(cfg, dtype, device="meta"), state_dict, seed,
+                           device, cfg.num_layers + 1, cfg.embed_dim, 320)
+
+
+@register("lighthubert")
+@register("lighthubert_base")
+@register("lighthubert_stage1")
+def lighthubert(**kwargs) -> Upstream:
+    return _lighthubert_upstream("lighthubert", SUBNET_BASE, **kwargs)
+
+
+@register("lighthubert_small")
+def lighthubert_small(**kwargs) -> Upstream:
+    return _lighthubert_upstream("lighthubert_small", SUBNET_SMALL, **kwargs)
+
+
+@register("multires_hubert")
+@register("multires_hubert_base")
+@register("multires_hubert_large")
+@register("multires_hubert_multilingual_base")
+@register("multires_hubert_multilingual_large400k")
+@register("multires_hubert_multilingual_large600k")
+def multires_hubert(ckpt=None, dtype=torch.float32, seed: int = 0, device=None,
+                    **options) -> Upstream:
+    """MR-HuBERT (registry.py:883-910, :1536-1539): `ckpt` through
+    `load_multires_hubert_checkpoint`, else the default config from `seed`
+    (every name builds it; the published shapes come with ``ckpt=``);
+    stock ops."""
+    _refuse_options("multires_hubert", "its model runs no kernel", options)
+    device = _device(device)
+    cfg, state_dict = ((MultiresHubertConfig(), None) if ckpt is None
+                       else load_multires_hubert_checkpoint(ckpt))
+    return _stock_upstream("multires_hubert", MultiresHubertModel(cfg, dtype, device="meta"),
+                           state_dict, seed, device, cfg.num_hidden_states,
+                           cfg.encoder_embed_dim, 320)
 
 
 # -- the mel-domain SSL family (registry.py:313-444): mockingjay / tera /

@@ -2378,3 +2378,44 @@ def test_vc_step_on_the_card(dev):
             continue
         x, y = a.grad.double().cpu().flatten(), b.grad.double().flatten()
         assert float(x @ y / (x.norm() * y.norm())) > 0.9999 or x.norm() == y.norm() == 0, name
+
+
+@pytest.mark.parametrize("entry,dtype,launches", [
+    ("wav2vec2_conformer_relpos", torch.bfloat16, {0: 1}),
+    ("wav2vec2_conformer_rope", torch.float32, {0: 1}),
+    ("espnet_hubert_large_gs_ll60k", torch.bfloat16, {0: 1, 3: 2, 4: 2})])
+def test_zoo_trunks_on_the_card(dev, monkeypatch, entry, dtype, launches):
+    """The Conformer entries (K3 once, their layers on stock ops) and
+    ESPnet HuBERT-Large with flash=True (K3 once, K4 and K5 once a layer),
+    their configurations cut to two layers at C 128 (head dim 64; conv0
+    keeps the kernel's 512 channels): the launches of one forward (`launches`
+    by wrappers() index, every other count 0) and the card against the CPU
+    at per-layer cosine > 0.999 over the valid frames."""
+    import dataclasses
+
+    import s3prl_tpu_torch.upstream.registry as registry
+    from s3prl_tpu_torch import hub
+
+    tiny = dict(conv_feature_layers=TINY_LAYERS, encoder_layers=2, encoder_embed_dim=128,
+                encoder_ffn_embed_dim=256, encoder_attention_heads=2)
+    monkeypatch.setattr(registry, "CONFORMER_BASE",
+                        dataclasses.replace(registry.CONFORMER_BASE, **tiny))
+    monkeypatch.setattr(registry, "LARGE", dataclasses.replace(registry.LARGE, conv_pos=16,
+                                                               conv_pos_groups=4, **tiny))
+    flash = entry.startswith("espnet")
+    gpu = hub.load(entry, dtype=dtype, flash=flash, seed=3)
+    cpu = hub.load(entry, dtype=dtype, flash=flash, seed=3, device="cpu")
+    wavs, lens = _tiny_batch()
+    for w in wrappers():
+        w.launches = 0
+    got, got_lens = gpu.apply_standardized(wavs.to(dev), lens.to(dev))
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers()] == [launches.get(i, 0)
+                                                for i in range(len(wrappers()))]
+    want, h_lens = cpu.apply_standardized(wavs, lens)
+    assert got_lens.tolist() == h_lens.tolist() and got.shape == want.shape
+    for layer in range(got.shape[0]):
+        a = torch.cat([got[layer, b, :n].float().cpu() for b, n in enumerate(h_lens.tolist())])
+        b = torch.cat([want[layer, b, :n].float() for b, n in enumerate(h_lens.tolist())])
+        cos = float((a.double() * b.double()).sum() / (a.double().norm() * b.double().norm()))
+        assert cos > 0.999, (layer, cos)

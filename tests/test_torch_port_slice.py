@@ -224,19 +224,26 @@ def test_registry_refuses_what_is_not_ported(monkeypatch, tmp_path):
         hub.load("hubert_large_ll60k", ckpt=str(native), device="cpu")
     with pytest.raises(NotImplementedError, match="download= is not ported"):
         hub.load("hubert_large_ll60k", download=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="layer_type 'conformer'"):
-        Wav2Vec2Trunk(Wav2Vec2Config(layer_type="conformer"), device="meta")
+    with pytest.raises(NotImplementedError, match="layer_type 'trf_adp'"):
+        Wav2Vec2Trunk(Wav2Vec2Config(layer_type="trf_adp"), device="meta")
     assert hub.options() == [
-        "apc", "audio_albert", "contentvec", "contentvec_km100", "contentvec_km500", "data2vec",
-        "data2vec_base_960", "data2vec_large_ll60k", "fbank", "fbank_no_cmvn", "hubert",
-        "hubert_base", "hubert_base_robust_mgr", "hubert_large_ll60k", "linear", "mel", "mfcc",
-        "mhubert_base_vp_en_es_fr_it3", "mockingjay", "mos_apc", "mos_prediction", "mos_tera",
-        "mos_wav2vec2", "ms_hubert", "npc", "spectrogram", "tera", "unispeech_sat",
-        "unispeech_sat_base", "unispeech_sat_base_plus", "unispeech_sat_large", "vq_apc",
-        "wav2vec2", "wav2vec2_base_960", "wav2vec2_large_960", "wav2vec2_large_ll60k",
-        "wav2vec2_large_lv60_cv_swbd_fsh", "wav2vec2_large_voxpopuli_100k", "wavlm",
-        "wavlm_base", "wavlm_base_plus", "wavlm_large", "xls_r_1b", "xls_r_2b", "xls_r_300m",
-        "xlsr_53"]
+        "apc", "audio_albert", "contentvec", "contentvec_km100", "contentvec_km500", "cvhubert",
+        "data2vec", "data2vec_base_960", "data2vec_large_ll60k", "distilhubert", "distiller",
+        "espnet_hubert", "espnet_hubert_base_iter0", "espnet_hubert_base_iter1",
+        "espnet_hubert_custom", "espnet_hubert_large_gs_ll60k", "espnet_hubert_local", "fbank",
+        "fbank_no_cmvn", "hubert", "hubert_base", "hubert_base_robust_mgr", "hubert_large_ll60k",
+        "lighthubert", "lighthubert_base", "lighthubert_small", "lighthubert_stage1", "linear",
+        "mel", "mfcc", "mhubert_base_vp_en_es_fr_it3", "mockingjay", "mos_apc", "mos_prediction",
+        "mos_tera", "mos_wav2vec2", "ms_hubert", "multires_hubert", "multires_hubert_base",
+        "multires_hubert_large", "multires_hubert_multilingual_base",
+        "multires_hubert_multilingual_large400k", "multires_hubert_multilingual_large600k", "npc",
+        "spectrogram", "tera", "unispeech_sat", "unispeech_sat_base", "unispeech_sat_base_plus",
+        "unispeech_sat_large", "vq_apc", "wav2vec2", "wav2vec2_base_960", "wav2vec2_conformer",
+        "wav2vec2_conformer_relpos", "wav2vec2_conformer_rope", "wav2vec2_large_960",
+        "wav2vec2_large_ll60k", "wav2vec2_large_lv60_cv_swbd_fsh",
+        "wav2vec2_large_voxpopuli_100k", "wavlablm_ek_40k", "wavlablm_mk_40k", "wavlablm_ms_40k",
+        "wavlm", "wavlm_base", "wavlm_base_plus", "wavlm_large", "xls_r_1b", "xls_r_2b",
+        "xls_r_300m", "xlsr_53"]
     # quantize=True loads (the entry at the tiny width: same code path)
     monkeypatch.setattr(port_registry, "HUBERT_LARGE", PCFG)
     up = hub.load("hubert_large_ll60k", dtype=torch.bfloat16, flash=True, quantize=True,
@@ -301,6 +308,8 @@ def test_port_never_imports_jax():
         "import s3prl_tpu_torch.task.voice_conversion, s3prl_tpu_torch.problem.vc\n"
         "import s3prl_tpu_torch.run_downstream, s3prl_tpu_torch.train.hub_export\n"
         "import s3prl_tpu_torch.submit\n"
+        "import s3prl_tpu_torch.models.distiller, s3prl_tpu_torch.models.lighthubert\n"
+        "import s3prl_tpu_torch.models.multires_hubert\n"
         "assert len(s3prl_tpu_torch.kernels.wrappers()) == 19\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 's3prl_tpu')]\n"
