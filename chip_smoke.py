@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch + CUDA port (s3prl_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--phases 14]
+    python3 chip_smoke.py [--phases 15]
 
 Phases (any failed check raises, so the exit code is not 0 and no result
 line is printed; each phase prints its seconds; ``--phases`` runs 1, 2 and
@@ -357,6 +357,17 @@ the phases it lists, 3-6 together, and prints no result line):
     0), shape, lengths, finite values, the forward timed with its audio-s/s
     and idle share, and the card against the CPU on B=2 x 1.3-2 s (per-layer
     cosine > 0.999).
+15. The conv, recurrent and windowed families and the small front ends
+    (`zoo2_phase`): wav2vec 1.0 (wav2vec_large), vq-wav2vec (Gumbel and
+    k-means), CPC, DeCoAR and DeCoAR-layers in f32, DeCoAR 2.0 in f32 and
+    bf16, BYOL-A, BYOL-S with its three window encoders (AudioNTT2020,
+    ResNetish34, CvT), wav, log_stft and example, each from seed 0 through
+    hub.load at published widths on B=8 x 2-10 s: no kernel launched (every
+    count 0), shape, lengths, finite values, the forward timed with its
+    audio-s/s and idle share, and the card against the CPU on B=2 x 1.3-2 s
+    (per-layer cosine > 0.999; vq-wav2vec's z > 0.999, its codes equal on
+    at least 99.5% of the valid frames - a near-tie of a random codebook can
+    pick another code on the card - and its aggregator's states > 0.99).
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -4818,7 +4829,90 @@ def zoo_phase(wrapper, gen, dev, smi):
         del card, cpu, got, want
 
 
-ALL_PHASES = frozenset(range(3, 15))
+# the conv, recurrent and windowed families and the small front ends: (entry,
+# dtype; None for an entry that takes none). None of them runs a kernel
+ZOO2 = (("wav2vec_large", "f32"), ("vq_wav2vec", "f32"), ("vq_wav2vec_kmeans", "f32"),
+        ("cpc", "f32"), ("decoar", "f32"), ("decoar_layers", "f32"), ("decoar2", "f32"),
+        ("decoar2", "bf16"), ("byol_a", "f32"), ("byol_s", "f32"), ("byol_s_resnetish34", "f32"),
+        ("byol_s_cvt", "f32"), ("wav", None), ("log_stft", None), ("example", None))
+# vq-wav2vec card vs CPU: the codes equal on this share of the valid frames
+# (random codebooks leave near-ties that the last bits of z move), z at
+# COS_LAYER, the aggregator's states at VQ_COS (a moved code brings another
+# codeword into the causal aggregator's next frames)
+VQ_SHARE, VQ_COS = 0.995, 0.99
+
+
+def code_share(card, cpu, x, lens):
+    """The share of vq-wav2vec's codes equal on the card and on the CPU over
+    the valid frames of (x, lens) (a CPU batch)."""
+    with torch.inference_mode():
+        _, h_lens, got = card.model(x.to(card.device), lens.to(card.device), return_code_ids=True)
+        _, _, want = cpu.model(x, lens, return_code_ids=True)
+    valid = torch.arange(want.shape[1])[None] < h_lens.cpu()[:, None]
+    return float((got.cpu() == want)[valid].float().mean())
+
+
+def zoo2_phase(wrapper, gen, dev, smi):
+    """Phase 15: each ZOO2 entry from seed 0 at its published width through
+    hub.load on the card: one apply_standardized on B=8 x 2-10 s with no
+    kernel launched (the counts set to 0 just before, read just after),
+    shape, lengths and finite values; the forward timed by CUDA events with
+    its audio-s/s and the profiler's device idle share; then the same model
+    moved to the CPU against the card on B=2 x 1.3-2 s, per-layer cosine >
+    0.999 over the valid frames, and vq-wav2vec's code share."""
+    from s3prl_tpu_torch import hub
+
+    rng = np.random.RandomState(15)
+    n = ZOO_SECS * SR
+    lens = torch.from_numpy(np.concatenate([[n], rng.randint(2 * SR, n, ZOO_B - 1)]))
+    x = (torch.randn(ZOO_B, n, generator=gen) * (torch.arange(n)[None] < lens[:, None])).to(dev)
+    lens_d = lens.to(dev)
+    small_lens = torch.tensor([2 * SR, int(1.3 * SR)])
+    x_small = torch.randn(2, 2 * SR, generator=gen) * (torch.arange(2 * SR)[None] <
+                                                       small_lens[:, None])
+    audio = float(lens.sum()) / SR
+    for name, dtype in ZOO2:
+        t0 = time.perf_counter()
+        card = hub.load(name) if dtype is None else hub.load(
+            name, dtype={"bf16": torch.bfloat16, "f32": torch.float32}[dtype], seed=0)
+        loaded = time.perf_counter() - t0
+        for w in wrapper.values():
+            w.launches = 0
+        hs, h_lens = card.apply_standardized(x, lens_d)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrapper.items() if w.launches}
+        check(not launches, f"{name} {dtype} launches {launches}")
+        stride = card.downsample_rate
+        check(tuple(hs.shape) == (card.num_layers, ZOO_B, (n - 1) // stride + 1, card.hidden_size)
+              and torch.equal(h_lens.cpu(), (lens - 1) // stride + 1)
+              and bool(torch.isfinite(hs).all()), f"{name} {dtype} {tuple(hs.shape)}")
+        del hs
+        fn = lambda: card.apply_standardized(x, lens_d)  # noqa: E731
+        ms = cuda_ms(fn, ZOO_ITERS)
+        idle, _ = profile_calls(fn, iters=2)
+        cpu = on_cpu(card)
+        got, got_lens = card.apply_standardized(x_small.to(dev), small_lens.to(dev))
+        t0 = time.perf_counter()
+        want, want_lens = cpu.apply_standardized(x_small, small_lens)
+        cpu_s = time.perf_counter() - t0
+        check(torch.equal(got_lens.cpu(), want_lens), f"{name} {dtype} CPU lengths")
+        coss = layer_cosines(got.float().cpu(), want.float(), want_lens.tolist())
+        share = code_share(card, cpu, x_small, small_lens) if name.startswith("vq_") else None
+        params = sum(p.numel() for p in card.model.parameters()) / 1e6
+        log(f"[zoo2] {name} {dtype or ''} ({params:.1f}M parameters, {card.num_layers} x "
+            f"{card.hidden_size}, stride {stride}) B={ZOO_B} x 2-{ZOO_SECS} s: no launch; "
+            f"{ms:.2f} ms a forward ({audio / (ms / 1e3):.1f} audio-s/s), device idle share "
+            f"{idle:.3f}; card vs CPU B=2 x 1.3-2 s layer cosines min {min(coss):.6f}"
+            f"{'' if share is None else f', codes equal {share:.4f}'}; loads {loaded:.1f} s, "
+            f"CPU forward {cpu_s:.1f} s; {smi}")
+        check(min(coss) > COS_LAYER if share is None else (
+            coss[0] > COS_LAYER and min(coss[1:]) > VQ_COS and share >= VQ_SHARE),
+            f"{name} {dtype} card vs CPU {coss}, codes {share}")
+        del card, cpu, got, want
+        torch.cuda.empty_cache()
+
+
+ALL_PHASES = frozenset(range(3, 16))
 KERNEL_PHASES = frozenset(range(3, 7))
 
 
@@ -4829,14 +4923,14 @@ def parse_phases(argv):
 
     parser = argparse.ArgumentParser(description="On-card check of s3prl_tpu_torch.")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases among 3-14 (default: all); phases 1 "
+                        help="comma-separated phases among 3-15 (default: all); phases 1 "
                              "and 2 always run, and a partial run prints no result line")
     args = parser.parse_args(argv)
     if args.phases is None:
         return ALL_PHASES
     phases = {int(p) for p in args.phases.split(",")}
     if not phases <= ALL_PHASES:
-        parser.error(f"--phases {args.phases}: phases 3-14")
+        parser.error(f"--phases {args.phases}: phases 3-15")
     return frozenset(phases | (KERNEL_PHASES if phases & KERNEL_PHASES else set()))
 
 
@@ -5295,6 +5389,12 @@ def main():
     if 14 in phases:
         with Phase("14 zoo trunks"):
             zoo_phase(wrapper, gen, dev, smi.splitlines()[0])
+    # 15. the conv, recurrent and windowed families (wav2vec 1.0, vq-wav2vec,
+    # CPC, DeCoAR 1 / 2, BYOL-A / BYOL-S) and the small front ends at full
+    # width: no kernel launched, their times and the CPU check
+    if 15 in phases:
+        with Phase("15 conv, recurrent and windowed zoo"):
+            zoo2_phase(wrapper, gen, dev, smi.splitlines()[0])
     if phases != ALL_PHASES:
         log(f"partial run: phases 1, 2 and {sorted(phases)} (the kernels line and the result "
             "line come from a run of every phase)")

@@ -13,8 +13,24 @@ parameter-free baseline front ends ``fbank``, ``fbank_no_cmvn``, ``mfcc``,
 SSL models ``mockingjay``, ``tera``, ``audio_albert``, ``apc``, ``vq_apc``
 and ``npc`` and the MOS predictors ``mos_prediction`` / ``mos_wav2vec2``,
 ``mos_apc`` and ``mos_tera`` (``dtype``, ``seed``, ``ckpt`` and
-``device``); ``ckpt=`` loads a local checkpoint, ``options()`` lists the
-names. Keywords: the int8 path's
+``device``), the wav2vec2-style zoo (``wav2vec2_conformer*``,
+``espnet_hubert*``, ``distilhubert``, ``lighthubert*``,
+``multires_hubert*``), and the conv, recurrent and windowed families on
+stock ops: ``wav2vec`` / ``wav2vec_large``, ``vq_wav2vec`` /
+``vq_wav2vec_gumbel``, ``vq_wav2vec_kmeans`` (``dtype`` f32 or bf16),
+``cpc`` / ``modified_cpc``, ``decoar``, ``decoar_layers`` (f32),
+``decoar2`` (f32 or bf16, its depth from ``ckpt``), the eight ``byol_a*``
+/ ``byol_s*`` names (f32; ``ckpt``, ``seed``, ``device``), and the small
+front ends ``wav``, ``log_stft`` / ``stft_mag`` and ``example`` /
+``customized_upstream`` (``device`` only). The reference hubconf's names
+on top (`upstream/aliases.py`): the generic loaders ``<family>_local`` /
+``_url`` / ``_custom`` (``ckpt`` required, a local path; a URL raises),
+the named checkpoint variants (``tera_960hr``, ``distilhubert_base``,
+``apc_360hr``, ``baseline`` -> ``fbank``, ...) and ``baseline_local``
+(``model_config=`` a yaml). ``ckpt=`` loads a local checkpoint,
+``options(only_registered_ckpt=False)`` lists the names (176; without the
+generic loaders when True). A keyword that an entry's model cannot use
+raises at load. Keywords: the int8 path's
 opt-in fused projections ``qkv_fuse`` / ``full_fuse`` (HuBERT, wav2vec2)
 and ``wavlm_fuse`` (WavLM), the front-end options ``int8_conv`` (int8),
 ``fused_conv`` and ``fused_midln``, and the pos-conv options

@@ -15,6 +15,7 @@ import types
 import torch
 import torch.nn as nn
 
+from ..nn.heads import Dense
 from ..ops import audio
 
 SAMPLE_RATE = 16000
@@ -104,3 +105,48 @@ class BaselineFeatures(nn.Module):
     def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor, generator=None):
         feats, feat_lens = baseline_features(wavs, wav_lens, **vars(self.cfg))
         return feats[None], feat_lens
+
+
+# -- the small front ends (s3prl_tpu/upstream/registry.py:603-690): each is
+# one "layer"; the model's device is its parameter's or its empty buffer's
+
+
+class _OnDevice(nn.Module):
+    """A parameter-free front end: an empty buffer keeps its device, and
+    ``cfg`` is empty (nothing for `train_refusal` to refuse; train mode
+    computes the same output, a `generator` is taken and not read)."""
+
+    def __init__(self, device=None):
+        super().__init__()
+        self.cfg = types.SimpleNamespace()
+        self.register_buffer("anchor", torch.empty(0, device=device), persistent=False)
+
+
+class WavPassthrough(_OnDevice):
+    """``wav``: the waveform itself, (wavs [1, B, T, 1], wav_lens), stride 1."""
+
+    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor, generator=None):
+        return wavs[None, :, :, None], wav_lens
+
+
+class LogStft(_OnDevice):
+    """``log_stft``: log(|STFT|^2 + 1e-10) of the 400-point centre-padded
+    hann STFT, hop 160: [1, B, F, 201]."""
+
+    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor, generator=None):
+        spec, feat_lens = audio.stft_spectrogram(wavs, wav_lens)
+        return torch.log(spec + 1e-10)[None], feat_lens
+
+
+class ExampleModel(nn.Module):
+    """``example``, the reference's contributor template: Dense(64) over
+    log-mel 80 (`audio.log_mel`), [1, B, F, 64]."""
+
+    def __init__(self, device=None):
+        super().__init__()
+        self.cfg = types.SimpleNamespace()
+        self.linear = Dense(80, 64, device=device)
+
+    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor, generator=None):
+        mel, feat_lens = audio.log_mel(wavs, wav_lens, n_mels=80)
+        return self.linear(mel)[None], feat_lens

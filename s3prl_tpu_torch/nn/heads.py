@@ -351,6 +351,17 @@ class ConvBankHead(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def flip_valid(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """flax's ``flip_sequences`` of x [B, T, ...] (an ``nn.RNN`` with
+    ``reverse=True`` and ``seq_lengths``): each row's valid frames reversed,
+    then its padding reversed, frame t taken from (T - 1 - t + len) mod T;
+    its own inverse."""
+    T = x.shape[1]
+    t = torch.arange(T)[None, :]
+    index = ((T - 1 - t + lens[:, None].cpu()) % T).to(x.device)
+    return x.gather(1, index.view(*index.shape, *[1] * (x.ndim - 2)).expand_as(x))
+
+
 class LSTM(nn.LSTM):
     """One layer of flax's ``nn.RNN(nn.OptimizedLSTMCell(H), seq_lengths=...)``
     (both directions when `bidirectional`, the backward one over each
@@ -398,11 +409,8 @@ class LSTM(nn.LSTM):
     def _carried(self, x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
         """flax's outputs on every frame, padded ones included: each
         direction one unidirectional pass over the whole padded length, the
-        backward one over flax's flip of each row (valid frames reversed,
-        then the padding reversed: index (T - 1 - t + len) mod T, its own
-        inverse)."""
-        B, T, _ = x.shape
-        zeros = x.new_zeros(1, B, self.hidden_size)
+        backward one over flax's flip of each row (`flip_valid`)."""
+        zeros = x.new_zeros(1, x.shape[0], self.hidden_size)
 
         def one_way(inputs, weights):
             # cuDNN copies one direction's weights out of the module's flat
@@ -417,10 +425,8 @@ class LSTM(nn.LSTM):
         out = one_way(x, w[:4])
         if not self.bidirectional:
             return out
-        t = torch.arange(T)[None, :]
-        flip = ((T - 1 - t + lens[:, None].cpu()) % T).to(x.device)[..., None]
-        back = one_way(x.gather(1, flip.expand(-1, -1, x.shape[-1])), w[4:])
-        return torch.cat([out, back.gather(1, flip.expand(-1, -1, back.shape[-1]))], dim=-1)
+        back = one_way(flip_valid(x, lens), w[4:])
+        return torch.cat([out, flip_valid(back, lens)], dim=-1)
 
     def forward(self, xs: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
         """xs [B, T, C], lens [B] on the host -> [B, T, H x directions] f32."""

@@ -59,6 +59,7 @@ def train_refusal(cfg) -> None:
       ``make_rng("layerdrop")`` (transformer.py:750-753): InvalidRngError
       (WavLM's encoder never reads the field, wavlm.py:312-321);
     - VQ-APC draws ``make_rng("gumbel")`` (apc.py:53-54): InvalidRngError;
+    - so does vq-wav2vec's Gumbel quantizer (wav2vec1.py:96-105);
     - NPC with BatchNorm updates ``batch_stats`` (npc.py:51, :55):
       ModifyScopeVariableError;
     - so does a Conformer trunk's BatchNorm (transformer.py:924-930).
@@ -76,6 +77,11 @@ def train_refusal(cfg) -> None:
                 f"train mode of {name} with VQ: the JAX package's trainer supplies no "
                 '"gumbel" PRNG stream, so its train mode raises InvalidRngError here '
                 "(s3prl_tpu/models/apc.py:53-54); train with the upstream frozen")
+        if getattr(c, "vq_type", None) == "gumbel":
+            raise NotImplementedError(
+                "train mode of vq-wav2vec's Gumbel quantizer: the JAX package's trainer supplies "
+                'no "gumbel" PRNG stream, so its train mode raises InvalidRngError here '
+                "(s3prl_tpu/models/wav2vec1.py:96-105); train with the upstream frozen")
         if getattr(c, "layer_type", None) == "conformer":
             raise NotImplementedError(
                 "train mode of a Conformer trunk: its BatchNorm would update its running "

@@ -1131,17 +1131,17 @@ _LSTM_CELL = "OptimizedLSTMCell_"
 _GATES = ("i", "f", "g", "o")  # flax's and torch's gate order
 
 
-def _lstm_cell(sd, base: str, suffix: str, cell: Dict[str, Any]) -> None:
-    """flax OptimizedLSTMCell params -> the weights ``{base}*_l0{suffix}``
+def _lstm_cell(sd, base: str, suffix: str, cell: Dict[str, Any], layer: int = 0) -> None:
+    """flax OptimizedLSTMCell params -> the weights ``{base}*_l{layer}{suffix}``
     of a torch LSTM: input kernels ``i{gate}`` [in, H] (no bias)
     -> ``weight_ih`` [4H, in]; hidden kernels ``h{gate}`` [H, H] with their
     biases -> ``weight_hh`` [4H, H] and ``bias_hh``; ``bias_ih`` zero."""
     cat = lambda key: np.concatenate([np.asarray(cell[f"{key}{g}"]["kernel"]) for g in _GATES], 1)
-    sd[f"{base}weight_ih_l0{suffix}"] = _tensor(cat("i").T)
-    sd[f"{base}weight_hh_l0{suffix}"] = _tensor(cat("h").T)
+    sd[f"{base}weight_ih_l{layer}{suffix}"] = _tensor(cat("i").T)
+    sd[f"{base}weight_hh_l{layer}{suffix}"] = _tensor(cat("h").T)
     bias = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in _GATES])
-    sd[f"{base}bias_ih_l0{suffix}"] = _tensor(np.zeros_like(bias))
-    sd[f"{base}bias_hh_l0{suffix}"] = _tensor(bias)
+    sd[f"{base}bias_ih_l{layer}{suffix}"] = _tensor(np.zeros_like(bias))
+    sd[f"{base}bias_hh_l{layer}{suffix}"] = _tensor(bias)
 
 
 def probe_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

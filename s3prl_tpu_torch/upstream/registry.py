@@ -32,6 +32,15 @@ Ported entries, with the JAX package's names and configurations
   (models/mos.py; registry.py:1044-1106), all on stock ops, which take
   ``dtype``, ``seed``, ``ckpt`` and ``device`` and none of the trunks'
   options;
+- the conv, recurrent and windowed families on stock ops (registry.py:
+  527-600, :735-880, :981-1038): wav2vec 1.0 / vq-wav2vec
+  (models/wav2vec1.py; ``dtype`` f32 or bf16), CPC (models/cpc.py),
+  DeCoAR 1 and 2 (models/decoar.py; DeCoAR 2.0 in f32 or bf16), BYOL-A /
+  BYOL-S (models/byol.py), their loaders in upstream/convert_zoo.py, and
+  the small front ends ``wav``, ``log_stft`` and ``example``;
+- the hubconf name surface (upstream/aliases.py, imported at the end of
+  this module): the generic loaders, the named checkpoint variants and
+  ``baseline_local``;
 - the rest of the wav2vec2-style zoo (registry.py:452-477, :883-910,
   :1149-1265, :1483-1539): ``wav2vec2_conformer`` /
   ``wav2vec2_conformer_relpos`` and ``wav2vec2_conformer_rope`` (trunk
@@ -69,7 +78,12 @@ import torch
 import torch.nn as nn
 
 from ..models.apc import APCConfig, APCModel
-from ..models.baseline import BASELINE_CONFIGS, BaselineFeatures, mel_ssl_features
+from ..models.baseline import (BASELINE_CONFIGS, BaselineFeatures, ExampleModel, LogStft,
+                               WavPassthrough, mel_ssl_features)
+from ..models.byol import (BYOL_A_512, BYOL_A_1024, BYOL_A_2048, BYOL_S_CVT, BYOL_S_DEFAULT,
+                           BYOL_S_RESNETISH34, ByolModel, CvtLayerNorm, byol_embedding_size)
+from ..models.cpc import ChannelNorm, CPCConfig, CPCModel
+from ..models.decoar import Decoar2Config, Decoar2Model, DecoarConfig, DecoarModel
 from ..models.distiller import DistillerConfig, DistillerModel, SplitLinear
 from ..models.hubert import HUBERT_BASE, HUBERT_LARGE
 from ..models.lighthubert import SUBNET_BASE, SUBNET_SMALL, LightHubertConfig, LightHubertModel
@@ -78,15 +92,19 @@ from ..models.mos import MosConfig, MosModel
 from ..models.multires_hubert import MultiresHubertConfig, MultiresHubertModel
 from ..models.npc import NPCConfig, NPCModel
 from ..models.transformer import EspnetSelfAttention, SelfAttention
+from ..models.wav2vec1 import GumbelQuantizer, KmeansQuantizer, Wav2Vec1Config, Wav2Vec1Model
 from ..models.wav2vec2 import BASE, LARGE, Wav2Vec2Config, Wav2Vec2Trunk, card_refusal
 from ..models.wavlm import (WAVLM_BASE, WAVLM_BASE_PLUS, WAVLM_LARGE, GatedSelfAttention,
                             WavLMConfig, WavLMModel)
+from ..nn.heads import lecun_normal_
 from ..nn.upstream import init_params
 from .base import TrunkUpstream, Upstream
 from .convert import (load_distiller_checkpoint, load_espnet_hubert_checkpoint,
                       load_lighthubert_checkpoint, load_mel_ssl_checkpoint, load_mos_checkpoint,
                       load_multires_hubert_checkpoint, load_trunk_checkpoint,
                       load_wavlm_checkpoint)
+from .convert_zoo import (load_byol_checkpoint, load_cpc_checkpoint, load_decoar2_checkpoint,
+                          load_decoar_checkpoint, load_wav2vec1_checkpoint)
 
 _REGISTRY: Dict[str, Callable[..., Upstream]] = {}
 
@@ -98,8 +116,14 @@ def register(name: str):
     return deco
 
 
-def options() -> List[str]:
-    return sorted(_REGISTRY)
+def options(only_registered_ckpt: bool = False) -> List[str]:
+    """Every registered name, sorted; with `only_registered_ckpt` without
+    the generic loaders (``*_local``, ``*_url``, ``*_gdriveid``,
+    ``*_custom``), as the JAX package's (registry.py:39-50)."""
+    names = sorted(_REGISTRY)
+    if only_registered_ckpt:
+        names = [n for n in names if not n.endswith(("_local", "_url", "_gdriveid", "_custom"))]
+    return names
 
 
 def load(name: str, **kwargs) -> Upstream:
@@ -127,17 +151,29 @@ def load(name: str, **kwargs) -> Upstream:
 
     ``ckpt``: a local checkpoint (s3prl's converted trunk checkpoints or a
     bare state_dict; Microsoft's WavLM checkpoints for the WavLM and
-    UniSpeech-SAT entries), whose configuration replaces the entry's (a
-    bare state_dict keeps the entry's). Every check above runs on that
-    configuration before the model is allocated. ``download=True`` raises
-    NotImplementedError: the port downloads nothing."""
+    UniSpeech-SAT entries; each family's reference layout for the others),
+    whose configuration replaces the entry's (a bare state_dict keeps the
+    entry's). Every check above runs on that configuration before the model
+    is allocated. ``download=True`` raises NotImplementedError: the port
+    downloads nothing, and a generic loader given a URL ``ckpt`` raises
+    too.
+
+    The stock-op families (the zoo trunks but ESPnet HuBERT's flash, the
+    mel-domain and MOS models, wav2vec 1.0 / vq-wav2vec, CPC, DeCoAR 1 / 2,
+    BYOL, the small front ends) raise for ``flash``, ``quantize`` and the
+    trunk options switched on, which their JAX entries take and ignore, and
+    for a ``dtype`` their JAX models cannot take or ignore (f32 only on
+    CPC, DeCoAR 1 and BYOL; f32 or bf16 on wav2vec 1.0 and DeCoAR 2.0); a
+    keyword no entry takes is a TypeError."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown upstream '{name}'; available: {options()}")
     if kwargs.pop("download", False) and kwargs.get("ckpt") is None:
-        raise NotImplementedError(
-            "download= is not ported (it needs upstream/urls.py and util/download.py, "
-            "ROADMAP.md Queue 1 item 11): pass ckpt= with a local checkpoint")
+        raise NotImplementedError(f"download= {NOT_DOWNLOADED}")
     return _REGISTRY[name](**kwargs)
+
+
+NOT_DOWNLOADED = ("is not ported (it needs upstream/urls.py and util/download.py, ROADMAP.md "
+                  "Queue 1 item 11): pass ckpt= with a local checkpoint")
 
 
 def _device(device) -> torch.device:
@@ -544,12 +580,14 @@ def _init_weights(model: nn.Module, gen: torch.Generator) -> nn.Module:
     return model
 
 
-def _build(model: nn.Module, state_dict, seed: int, device: torch.device) -> nn.Module:
+def _build(model: nn.Module, state_dict, seed: int, device: torch.device,
+           init=_init_weights) -> nn.Module:
     """A model built on "meta" materialised on the CPU with `state_dict`
-    (strict) or random weights from `seed`, then moved to `device` in eval()."""
+    (strict) or random weights from `seed` (`init`), then moved to `device`
+    in eval()."""
     model.to_empty(device="cpu")
     if state_dict is None:
-        _init_weights(model, torch.Generator().manual_seed(seed))
+        init(model, torch.Generator().manual_seed(seed))
     else:
         model.load_state_dict(state_dict, strict=True)
     return model.to(device).eval()
@@ -626,6 +664,15 @@ def npc(**kwargs) -> Upstream:
     return _mel_upstream("npc", "mel", cfg, 2 * cfg.n_blocks + 1, cfg.hidden_size, **kwargs)
 
 
+# the catalog's checkpoint names (registry.py:1530-1535)
+for _alias in ("apc_360hr", "apc_960hr"):
+    _REGISTRY[_alias] = apc
+for _alias in ("vq_apc_360hr", "vq_apc_960hr"):
+    _REGISTRY[_alias] = vq_apc
+for _alias in ("npc_360hr", "npc_960hr"):
+    _REGISTRY[_alias] = npc
+
+
 # -- the MOS predictors (registry.py:1044-1106): one score an utterance,
 # broadcast over [1, B, T', 1]
 
@@ -664,3 +711,225 @@ def mos_apc(**kwargs) -> Upstream:
 def mos_tera(**kwargs) -> Upstream:
     return _mos_upstream(
         "mos_tera", MosConfig(upstream="tera", tera=MockingjayConfig(input_dim=80)), **kwargs)
+
+
+# -- the conv, recurrent and windowed families (registry.py:527-562, :603-690,
+# :735-810, :855-880, :981-1038): stock ops, no kernel; random weights from
+# flax's default initialisers (`_init_flax`)
+
+
+@torch.no_grad()
+def _init_flax(model: nn.Module, gen: torch.Generator) -> nn.Module:
+    """flax's default initialisers in module order, drawn on the CPU from
+    `gen`: lecun-normal conv and dense kernels with zero biases; an RNN's
+    input kernels lecun-normal and each gate's recurrent [H, H] orthogonal
+    with zero biases (flax's cells); norms ones and zeros (BatchNorm
+    statistics 0 and 1); the vq-wav2vec codebooks, ChannelNorm and CvT's
+    LayerNorm by their own `reset_parameters`."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+            lecun_normal_(m.weight, m.weight[0].numel(), gen)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.RNNBase):
+            H = m.hidden_size
+            for layer in range(m.num_layers):
+                lecun_normal_(getattr(m, f"weight_ih_l{layer}"),
+                              m.input_size if layer == 0 else H, gen)
+                w = getattr(m, f"weight_hh_l{layer}")
+                for g in range(w.shape[0] // H):
+                    w[g * H:(g + 1) * H].copy_(nn.init.orthogonal_(torch.empty(H, H),
+                                                                   generator=gen))
+                getattr(m, f"bias_ih_l{layer}").zero_()
+                getattr(m, f"bias_hh_l{layer}").zero_()
+        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm, nn.BatchNorm2d)):
+            m.reset_parameters()
+        elif isinstance(m, (GumbelQuantizer, KmeansQuantizer, ChannelNorm, CvtLayerNorm)):
+            m.reset_parameters(gen)
+    return model
+
+
+def _model_dtype(name: str, dtype) -> None:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype={dtype} cannot take effect on {name}: f32 or bf16")
+
+
+@register("wav")
+def wav(device=None, **options) -> Upstream:
+    """The waveform as one [1, B, T, 1] "layer", stride 1 (registry.py:603-618)."""
+    _refuse_options("wav", "it has no model", options)
+    return Upstream(name="wav", model=WavPassthrough(_device(device)), num_layers=1,
+                    hidden_size=1, downsample_rate=1)
+
+
+@register("log_stft")
+def log_stft(device=None, **options) -> Upstream:
+    """log(|STFT|^2 + 1e-10), 201 bins, stride 160 (registry.py:626-638)."""
+    _refuse_options("log_stft", "it has no model", options)
+    return Upstream(name="log_stft", model=LogStft(_device(device)), num_layers=1,
+                    hidden_size=201, downsample_rate=160)
+
+
+@register("example")
+def example(device=None, **options) -> Upstream:
+    """The contributor template (registry.py:664-690): Dense(64) over log-mel
+    80, its weights from seed 0 as the JAX entry's."""
+    _refuse_options("example", "its Dense runs no kernel", options)
+    model = _build(ExampleModel(device="meta"), None, 0, _device(device), _init_flax)
+    return Upstream(name="example", model=model, num_layers=1, hidden_size=64,
+                    downsample_rate=160)
+
+
+# wav2vec 1.0 and vq-wav2vec (registry.py:527-562, :1022-1038): without a
+# checkpoint each builds its default; the published shapes come with ckpt=
+W2V1 = Wav2Vec1Config()
+VQ_WAV2VEC = Wav2Vec1Config(vq_type="gumbel", vq_dim=512)
+VQ_WAV2VEC_KMEANS = Wav2Vec1Config(vq_type="kmeans", vq_dim=512)
+
+
+def _w2v1_upstream(name: str, default_cfg: Wav2Vec1Config, ckpt=None, dtype=torch.float32,
+                   seed: int = 0, device=None, **options) -> Upstream:
+    """`Wav2Vec1Model` in f32 or bf16 from `ckpt` (`load_wav2vec1_checkpoint`,
+    whose config replaces `default_cfg`) or from `seed`: z, the aggregator's
+    layer inputs and its output."""
+    _refuse_options(name, "its convs run on stock ops", options)
+    _model_dtype(name, dtype)
+    device = _device(device)
+    cfg, state_dict = (default_cfg, None) if ckpt is None else load_wav2vec1_checkpoint(ckpt)
+    model = _build(Wav2Vec1Model(cfg, dtype, device="meta"), state_dict, seed, device, _init_flax)
+    agg = cfg.conv_aggregator_layers
+    return Upstream(name=name, model=model, num_layers=len(agg) + 1, hidden_size=agg[-1][0],
+                    downsample_rate=cfg.downsample_rate)
+
+
+@register("wav2vec")
+@register("wav2vec_large")
+def wav2vec(**kwargs) -> Upstream:
+    return _w2v1_upstream("wav2vec", W2V1, **kwargs)
+
+
+@register("vq_wav2vec")
+@register("vq_wav2vec_gumbel")
+def vq_wav2vec(**kwargs) -> Upstream:
+    return _w2v1_upstream("vq_wav2vec", VQ_WAV2VEC, **kwargs)
+
+
+@register("vq_wav2vec_kmeans")
+def vq_wav2vec_kmeans(**kwargs) -> Upstream:
+    return _w2v1_upstream("vq_wav2vec_kmeans", VQ_WAV2VEC_KMEANS, **kwargs)
+
+
+CPC = CPCConfig()
+
+
+@register("cpc")
+@register("modified_cpc")
+def cpc(ckpt=None, dtype=torch.float32, seed: int = 0, device=None, **options) -> Upstream:
+    """Modified CPC (registry.py:855-880): `ckpt` through `load_cpc_checkpoint`
+    (its config replaces the default) or from `seed`; z and c; f32."""
+    _refuse_options("cpc", "its model runs on stock ops", options)
+    _f32_only("cpc", dtype)
+    device = _device(device)
+    cfg, state_dict = (CPC, None) if ckpt is None else load_cpc_checkpoint(ckpt)
+    model = _build(CPCModel(cfg, device="meta"), state_dict, seed, device, _init_flax)
+    return Upstream(name="cpc", model=model, num_layers=2, hidden_size=cfg.ar_size,
+                    downsample_rate=160)
+
+
+DECOAR = DecoarConfig()
+
+
+def _decoar_upstream(name: str, per_layer: bool, ckpt=None, dtype=torch.float32,
+                     seed: int = 0, device=None, **options) -> Upstream:
+    """DeCoAR 1 (registry.py:981-1020) over fbank 80 + CMVN: the last
+    layer's [forward; backward] or, `per_layer`, every layer's; f32."""
+    _refuse_options(name, "its LSTMs run on stock ops", options)
+    _f32_only(name, dtype)
+    device = _device(device)
+    cfg = replace(DECOAR, per_layer=per_layer)
+    state_dict = None if ckpt is None else load_decoar_checkpoint(ckpt, cfg.num_layers)
+    model = _build(DecoarModel(cfg, device="meta"), state_dict, seed, device, _init_flax)
+    return Upstream(name=name, model=model, num_layers=cfg.num_layers if per_layer else 1,
+                    hidden_size=2 * cfg.hidden, downsample_rate=160)
+
+
+@register("decoar")
+def decoar(**kwargs) -> Upstream:
+    return _decoar_upstream("decoar", False, **kwargs)
+
+
+@register("decoar_layers")
+def decoar_layers(**kwargs) -> Upstream:
+    return _decoar_upstream("decoar_layers", True, **kwargs)
+
+
+DECOAR2 = Decoar2Config()
+
+
+@register("decoar2")
+def decoar2(ckpt=None, dtype=torch.float32, seed: int = 0, device=None, **options) -> Upstream:
+    """DeCoAR 2.0 (registry.py:564-600) in f32 or bf16: `ckpt` through
+    `load_decoar2_checkpoint` (its depth from the checkpoint) or 12 layers
+    from `seed`; the trunk options raise."""
+    _refuse_options("decoar2", "its JAX model builds its encoder without use_flash or quantize "
+                    "(s3prl_tpu/models/decoar2.py:25-29), and its pos-conv (768 channels in 16 "
+                    "groups, 48 a group) runs on stock ops: the card's pos-conv kernels take 64 "
+                    "channels a group", options)
+    _model_dtype("decoar2", dtype)
+    device = _device(device)
+    cfg, state_dict = (DECOAR2, None) if ckpt is None else load_decoar2_checkpoint(ckpt)
+    model = _build_trunk(Decoar2Model(cfg, dtype, device="meta"), state_dict, seed, device)
+    return Upstream(name="decoar2", model=model, num_layers=cfg.num_layers + 1, hidden_size=768,
+                    downsample_rate=160)
+
+
+def _byol_upstream(name: str, cfg, ckpt=None, dtype=torch.float32, seed: int = 0, device=None,
+                   **options) -> Upstream:
+    """BYOL-A / BYOL-S (registry.py:735-810): `ckpt` through
+    `load_byol_checkpoint` or from `seed`; one state of a window each,
+    stride 1 s (BYOL-A) or 50 ms (BYOL-S); f32."""
+    _refuse_options(name, "its model runs on stock ops", options)
+    _f32_only(name, dtype)
+    device = _device(device)
+    state_dict = None if ckpt is None else load_byol_checkpoint(ckpt, cfg)
+    model = _build(ByolModel(cfg, device="meta"), state_dict, seed, device, _init_flax)
+    return Upstream(name=name, model=model, num_layers=1, hidden_size=byol_embedding_size(cfg),
+                    downsample_rate=int(cfg.stride_secs * 16000))
+
+
+@register("byol_a")
+@register("byol_a_2048")
+def byol_a(**kwargs) -> Upstream:
+    return _byol_upstream("byol_a", BYOL_A_2048, **kwargs)
+
+
+@register("byol_a_1024")
+def byol_a_1024(**kwargs) -> Upstream:
+    return _byol_upstream("byol_a_1024", BYOL_A_1024, **kwargs)
+
+
+@register("byol_a_512")
+def byol_a_512(**kwargs) -> Upstream:
+    return _byol_upstream("byol_a_512", BYOL_A_512, **kwargs)
+
+
+@register("byol_s")
+@register("byol_s_default")
+def byol_s(**kwargs) -> Upstream:
+    return _byol_upstream("byol_s", BYOL_S_DEFAULT, **kwargs)
+
+
+@register("byol_s_resnetish34")
+def byol_s_resnetish34(**kwargs) -> Upstream:
+    return _byol_upstream("byol_s_resnetish34", BYOL_S_RESNETISH34, **kwargs)
+
+
+@register("byol_s_cvt")
+def byol_s_cvt(**kwargs) -> Upstream:
+    return _byol_upstream("byol_s_cvt", BYOL_S_CVT, **kwargs)
+
+
+# the hubconf name surface on top of these entries (the JAX package imports it
+# in upstream/__init__.py; here nn.upstream imports upstream.base while the
+# models import nn, so the registry registers it when it is imported)
+from . import aliases  # noqa: E402,F401

@@ -2419,3 +2419,56 @@ def test_zoo_trunks_on_the_card(dev, monkeypatch, entry, dtype, launches):
         b = torch.cat([want[layer, b, :n].float() for b, n in enumerate(h_lens.tolist())])
         cos = float((a.double() * b.double()).sum() / (a.double().norm() * b.double().norm()))
         assert cos > 0.999, (layer, cos)
+
+
+@pytest.mark.parametrize("entry,dtype", [
+    ("wav2vec", torch.float32), ("vq_wav2vec", torch.float32),
+    ("vq_wav2vec_kmeans", torch.float32), ("cpc", torch.float32),
+    ("decoar_layers", torch.float32), ("decoar2", torch.bfloat16), ("byol_a", torch.float32),
+    ("byol_s_resnetish34", torch.float32), ("byol_s_cvt", torch.float32), ("example", None)])
+def test_conv_recurrent_windowed_zoo_on_the_card(dev, monkeypatch, entry, dtype):
+    """wav2vec 1.0 / vq-wav2vec, CPC, DeCoAR, DeCoAR 2.0, BYOL-A / BYOL-S and
+    example (their configurations cut: three extractor and aggregator convs
+    at 512, DeCoAR at hidden 64, DeCoAR 2.0 at two layers, BYOL's windows at
+    0.2 s) from one seed on the card and on the CPU: no kernel launched, the
+    lengths equal, per-layer cosine > 0.999 over the valid frames, and
+    vq-wav2vec's codes equal on at least 99.5% of the valid frames (a
+    random codebook's near-ties move with z's last bits; where a code moves
+    the aggregator's states take another codeword: > 0.99 there)."""
+    import dataclasses
+
+    import s3prl_tpu_torch.upstream.registry as registry
+    from s3prl_tpu_torch import hub
+
+    w2v1 = dict(conv_feature_layers=((512, 10, 5), (512, 8, 4), (512, 4, 2)),
+                conv_aggregator_layers=((512, 2, 1), (512, 3, 1), (512, 4, 1)))
+    for name in ("W2V1", "VQ_WAV2VEC", "VQ_WAV2VEC_KMEANS"):
+        monkeypatch.setattr(registry, name, dataclasses.replace(getattr(registry, name), **w2v1))
+    monkeypatch.setattr(registry, "DECOAR", dataclasses.replace(registry.DECOAR, hidden=64))
+    monkeypatch.setattr(registry, "DECOAR2", dataclasses.replace(registry.DECOAR2, num_layers=2))
+    for name in ("BYOL_A_2048", "BYOL_S_RESNETISH34", "BYOL_S_CVT"):
+        cfg = getattr(registry, name)
+        monkeypatch.setattr(registry, name, dataclasses.replace(
+            cfg, window_secs=0.2, stride_secs=min(cfg.stride_secs, 0.2)))
+    kw = {} if dtype is None else {"dtype": dtype, "seed": 3}
+    gpu = hub.load(entry, **kw)
+    cpu = hub.load(entry, device="cpu", **kw)
+    wavs, lens = _tiny_batch()
+    for w in wrappers():
+        w.launches = 0
+    got, got_lens = gpu.apply_standardized(wavs.to(dev), lens.to(dev))
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers()] == [0] * len(wrappers())
+    want, h_lens = cpu.apply_standardized(wavs, lens)
+    assert got_lens.tolist() == h_lens.tolist() and got.shape == want.shape
+    for layer in range(got.shape[0]):
+        a = torch.cat([got[layer, b, :n].float().cpu() for b, n in enumerate(h_lens.tolist())])
+        b = torch.cat([want[layer, b, :n].float() for b, n in enumerate(h_lens.tolist())])
+        cos = float((a.double() * b.double()).sum() / (a.double().norm() * b.double().norm()))
+        assert cos > (0.99 if entry.startswith("vq_") and layer > 0 else 0.999), (layer, cos)
+    if entry.startswith("vq_"):
+        with torch.inference_mode():
+            _, feat_lens, codes = gpu.model(wavs.to(dev), lens.to(dev), return_code_ids=True)
+            _, _, codes_cpu = cpu.model(wavs, lens, return_code_ids=True)
+        valid = torch.arange(codes_cpu.shape[1])[None] < feat_lens.cpu()[:, None]
+        assert float((codes.cpu() == codes_cpu)[valid].float().mean()) >= 0.995
