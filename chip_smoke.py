@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch + CUDA port (s3prl_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--phases 15]
+    python3 chip_smoke.py [--phases 16]
 
 Phases (any failed check raises, so the exit code is not 0 and no result
 line is printed; each phase prints its seconds; ``--phases`` runs 1, 2 and
@@ -368,6 +368,20 @@ the phases it lists, 3-6 together, and prints no result line):
     (per-layer cosine > 0.999; vq-wav2vec's z > 0.999, its codes equal on
     at least 99.5% of the valid frames - a near-tie of a random codebook can
     pick another code on the card - and its aggregator's states > 0.99).
+16. The rest of the hub (`zoo3_phase`): SSAST patch and frame, PaSST base,
+    base2levelmel and hop100base2lvlmel (the most tokens a clip), VGGish,
+    the vq-wav2vec k-means -> RoBERTa pipeline, PASE+, SpecAugment and
+    hf_wav2vec2, each from seed 0 through hub.load at its published width,
+    and a HuBERT-Large-shaped trunk with activation_fn swish loaded through
+    ckpt= from a temporary s3prl checkpoint in f32 and int8, on B=8 x 2-10
+    s: the launches (K3 once on hf_wav2vec2 and the swish trunks, K7 24
+    times on the swish int8 one - no K1, K2, K4, K5 or K12 - none
+    elsewhere; every other count 0), shape, lengths and finite values, the
+    forward timed with its audio-s/s and idle share, and the card against
+    the CPU on B=2 x 1.3-2 s (the lengths, the model's own too, and
+    per-layer cosine > 0.999; the pipeline's codes equal on >= 99.5% of
+    the frames and its states > 0.99); SpecAugment's train mode on the card
+    (its bands, inside the lengths, the unmasked values eval mode's).
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -4844,10 +4858,12 @@ VQ_SHARE, VQ_COS = 0.995, 0.99
 
 def code_share(card, cpu, x, lens):
     """The share of vq-wav2vec's codes equal on the card and on the CPU over
-    the valid frames of (x, lens) (a CPU batch)."""
+    the valid frames of (x, lens) (a CPU batch); `card` and `cpu` are the
+    two copies of the Wav2Vec1Model."""
+    dev = next(card.parameters()).device
     with torch.inference_mode():
-        _, h_lens, got = card.model(x.to(card.device), lens.to(card.device), return_code_ids=True)
-        _, _, want = cpu.model(x, lens, return_code_ids=True)
+        _, h_lens, got = card(x.to(dev), lens.to(dev), return_code_ids=True)
+        _, _, want = cpu(x, lens, return_code_ids=True)
     valid = torch.arange(want.shape[1])[None] < h_lens.cpu()[:, None]
     return float((got.cpu() == want)[valid].float().mean())
 
@@ -4897,7 +4913,8 @@ def zoo2_phase(wrapper, gen, dev, smi):
         cpu_s = time.perf_counter() - t0
         check(torch.equal(got_lens.cpu(), want_lens), f"{name} {dtype} CPU lengths")
         coss = layer_cosines(got.float().cpu(), want.float(), want_lens.tolist())
-        share = code_share(card, cpu, x_small, small_lens) if name.startswith("vq_") else None
+        share = (code_share(card.model, cpu.model, x_small, small_lens)
+                 if name.startswith("vq_") else None)
         params = sum(p.numel() for p in card.model.parameters()) / 1e6
         log(f"[zoo2] {name} {dtype or ''} ({params:.1f}M parameters, {card.num_layers} x "
             f"{card.hidden_size}, stride {stride}) B={ZOO_B} x 2-{ZOO_SECS} s: no launch; "
@@ -4912,7 +4929,145 @@ def zoo2_phase(wrapper, gen, dev, smi):
         torch.cuda.empty_cache()
 
 
-ALL_PHASES = frozenset(range(3, 16))
+# the rest of the hub (phase 16): (entry, its hub.load keywords, the launches
+# of one apply_standardized on the B=8 batch; every other count 0). "swish
+# f32" / "swish int8" are HuBERT-Large's shape with activation_fn swish,
+# loaded through ckpt= from a temporary s3prl checkpoint (SWISH_CFG)
+ZOO3 = (("ssast_patch_base", {"dtype": torch.float32}, {}),
+        ("ssast_frame_base", {"dtype": torch.float32}, {}),
+        ("passt_base", {"dtype": torch.float32}, {}),
+        ("passt_base2levelmel", {"dtype": torch.float32}, {}),
+        ("passt_hop100base2lvlmel", {"dtype": torch.float32}, {}),
+        ("vggish", {}, {}), ("vq_wav2vec_kmeans_roberta", {}, {}),
+        ("pase_plus", {"dtype": torch.float32}, {}), ("spec_augment", {}, {}),
+        ("hf_wav2vec2", {}, {"conv0_ln_gelu": 1}),
+        ("swish f32", {"dtype": torch.float32}, {"conv0_ln_gelu": 1}),
+        ("swish int8", {"dtype": torch.bfloat16, "flash": True, "quantize": True},
+         {"conv0_ln_gelu": 1, "fused_qkv_attention": 24}))
+SWISH_CFG = {"_name": "hubert", "extractor_mode": "layer_norm", "encoder_layers": 24,
+             "encoder_embed_dim": 1024, "encoder_ffn_embed_dim": 4096,
+             "encoder_attention_heads": 16, "activation_fn": "swish", "layer_norm_first": True,
+             "dropout": 0.0, "attention_dropout": 0.0, "dropout_input": 0.0}
+
+
+def spec_augment_check(card, x, lens, dev):
+    """SpecAugment's train mode on the card, seeded: at most 2 frequency
+    bands of <= 27 bins and 2 time bands of <= 100 frames an utterance
+    (the bands redrawn from the same seed), the time bands inside each
+    utterance's frames, every other value eval mode's; its seconds."""
+    from s3prl_tpu_torch.nn import specaug
+
+    model = card.model
+    with torch.inference_mode():
+        plain, feat_lens = model(x, lens)
+        t0 = time.perf_counter()
+        masked, _ = model.train()(x, lens, generator=torch.Generator(device=dev).manual_seed(16))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        model.eval()
+    B, T, D = plain.shape[1:]
+    gen = torch.Generator(device=dev).manual_seed(16)
+    fb, tb = specaug.draw_bands(gen, B, D, 2, 27), specaug.draw_bands(gen, B, T, 2, 100)
+    check(int(fb[1].max()) <= 27 and int(tb[1].max()) <= 100, "spec_augment band widths")
+    check(torch.equal(masked[0], specaug.mask_bands(plain[0], feat_lens, fb, tb)),
+          "spec_augment masks")
+    changed = masked[0] != plain[0]
+    outside = torch.arange(T, device=dev)[None] >= feat_lens[:, None]
+    freq = (masked[0] == 0).all(dim=1)
+    check(bool(((masked[0] == 0) | ~changed).all())
+          and not bool((changed & outside[..., None] & ~freq[:, None, :]).any())
+          and bool(changed.any()), "spec_augment masked values")
+    return secs, int(changed.sum())
+
+
+def zoo3_phase(wrapper, gen, dev, smi):
+    """Phase 16: each ZOO3 entry from seed 0 at its published width through
+    hub.load on the card: one apply_standardized on B=8 x 2-10 s with its
+    launches (the counts set to 0 just before, read just after), shape,
+    lengths and finite values; the forward timed by CUDA events with its
+    audio-s/s and the profiler's device idle share; then the same model
+    moved to the CPU against the card on B=2 x 1.3-2 s: equal lengths (the
+    upstream's and the model's own), per-layer cosine > 0.999 over the valid
+    frames (the RoBERTa pipeline: its k-means codes equal on >= 99.5% of
+    the frames, its states > 0.99, as phase 15's vq-wav2vec); SpecAugment's
+    train mode on the card (`spec_augment_check`)."""
+    import tempfile
+
+    from s3prl_tpu_torch import hub
+
+    rng = np.random.RandomState(16)
+    n = ZOO_SECS * SR
+    lens = torch.from_numpy(np.concatenate([[n], rng.randint(2 * SR, n, ZOO_B - 1)]))
+    x = (torch.randn(ZOO_B, n, generator=gen) * (torch.arange(n)[None] < lens[:, None])).to(dev)
+    lens_d = lens.to(dev)
+    small_lens = torch.tensor([2 * SR, int(1.3 * SR)])
+    x_small = torch.randn(2, 2 * SR, generator=gen) * (torch.arange(2 * SR)[None] <
+                                                       small_lens[:, None])
+    audio = float(lens.sum()) / SR
+    with tempfile.TemporaryDirectory() as tmp:
+        swish = os.path.join(tmp, "swish.ckpt")
+        t0 = time.perf_counter()
+        base = hub.load("hubert_large_ll60k", seed=0, device="cpu")
+        torch.save({"model_weight": base.model.state_dict(), "model_cfg": SWISH_CFG,
+                    "task_cfg": {"normalize": True}}, swish)
+        del base
+        log(f"[zoo3] the swish checkpoint written in {time.perf_counter() - t0:.1f} s")
+        for name, kw, run in ZOO3:
+            t0 = time.perf_counter()
+            card = (hub.load("hubert_large_ll60k", ckpt=swish, **kw) if name.startswith("swish")
+                    else hub.load(name, seed=0, **kw))
+            loaded = time.perf_counter() - t0
+            for w in wrapper.values():
+                w.launches = 0
+            hs, h_lens = card.apply_standardized(x, lens_d)
+            torch.cuda.synchronize()
+            launches = {k: w.launches for k, w in wrapper.items()}
+            check(launches == {k: run.get(k, 0) for k in wrapper},
+                  f"{name} launches { {k: v for k, v in launches.items() if v} }")
+            stride = card.downsample_rate
+            check(tuple(hs.shape) == (card.num_layers, ZOO_B, (n - 1) // stride + 1,
+                                      card.hidden_size)
+                  and torch.equal(h_lens.cpu(), (lens - 1) // stride + 1)
+                  and bool(torch.isfinite(hs).all()), f"{name} {tuple(hs.shape)}")
+            del hs
+            fn = lambda: card.apply_standardized(x, lens_d)  # noqa: E731
+            ms = cuda_ms(fn, ZOO_ITERS)
+            idle, _ = profile_calls(fn, iters=2)
+            cpu = on_cpu(card)
+            with torch.inference_mode():
+                _, raw = card.model(x_small.to(dev), small_lens.to(dev))
+                _, raw_cpu = cpu.model(x_small, small_lens)
+            check(torch.equal(raw.cpu(), raw_cpu), f"{name} the model's lengths {raw} {raw_cpu}")
+            got, got_lens = card.apply_standardized(x_small.to(dev), small_lens.to(dev))
+            t0 = time.perf_counter()
+            want, want_lens = cpu.apply_standardized(x_small, small_lens)
+            cpu_s = time.perf_counter() - t0
+            check(torch.equal(got_lens.cpu(), want_lens), f"{name} CPU lengths")
+            coss = layer_cosines(got.float().cpu(), want.float(), want_lens.tolist())
+            share = None
+            if name == "vq_wav2vec_kmeans_roberta":
+                share = code_share(card.model.w2v, cpu.model.w2v, x_small, small_lens)
+            extra = ""
+            if name == "spec_augment":
+                secs, masked = spec_augment_check(card, x, lens_d, dev)
+                extra = (f"; train mode on the card: {masked} values masked, bands within "
+                         f"2 x 27 bins and 2 x 100 frames, {secs * 1e3:.2f} ms")
+            params = sum(p.numel() for p in card.model.parameters()) / 1e6
+            log(f"[zoo3] {name} ({params:.1f}M parameters, {card.num_layers} x "
+                f"{card.hidden_size}, stride {stride}) B={ZOO_B} x 2-{ZOO_SECS} s: launches "
+                f"{run or 'none'} (every other count 0); {ms:.2f} ms a forward "
+                f"({audio / (ms / 1e3):.1f} audio-s/s), device idle share {idle:.3f}; card vs "
+                f"CPU B=2 x 1.3-2 s layer cosines min {min(coss):.6f}"
+                f"{'' if share is None else f', codes equal {share:.4f}'}{extra}; loads "
+                f"{loaded:.1f} s, CPU forward {cpu_s:.1f} s; {smi}")
+            check(min(coss) > COS_LAYER if share is None else (
+                min(coss) > VQ_COS and share >= VQ_SHARE),
+                f"{name} card vs CPU {coss}, codes {share}")
+            del card, cpu, got, want
+            torch.cuda.empty_cache()
+
+
+ALL_PHASES = frozenset(range(3, 17))
 KERNEL_PHASES = frozenset(range(3, 7))
 
 
@@ -4923,14 +5078,14 @@ def parse_phases(argv):
 
     parser = argparse.ArgumentParser(description="On-card check of s3prl_tpu_torch.")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases among 3-15 (default: all); phases 1 "
+                        help="comma-separated phases among 3-16 (default: all); phases 1 "
                              "and 2 always run, and a partial run prints no result line")
     args = parser.parse_args(argv)
     if args.phases is None:
         return ALL_PHASES
     phases = {int(p) for p in args.phases.split(",")}
     if not phases <= ALL_PHASES:
-        parser.error(f"--phases {args.phases}: phases 3-15")
+        parser.error(f"--phases {args.phases}: phases 3-16")
     return frozenset(phases | (KERNEL_PHASES if phases & KERNEL_PHASES else set()))
 
 
@@ -5395,6 +5550,13 @@ def main():
     if 15 in phases:
         with Phase("15 conv, recurrent and windowed zoo"):
             zoo2_phase(wrapper, gen, dev, smi.splitlines()[0])
+    # 16. the rest of the hub: the AST family, PaSST, VGGish, the vq-wav2vec
+    # RoBERTa pipeline, PASE+, SpecAugment, hf_wav2vec2 (K3) and a swish trunk
+    # (no fused block or FFN kernel) at full width with their times and the
+    # CPU check
+    if 16 in phases:
+        with Phase("16 rest of the zoo"):
+            zoo3_phase(wrapper, gen, dev, smi.splitlines()[0])
     if phases != ALL_PHASES:
         log(f"partial run: phases 1, 2 and {sorted(phases)} (the kernels line and the result "
             "line come from a run of every phase)")

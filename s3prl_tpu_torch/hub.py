@@ -20,16 +20,22 @@ stock ops: ``wav2vec`` / ``wav2vec_large``, ``vq_wav2vec`` /
 ``vq_wav2vec_gumbel``, ``vq_wav2vec_kmeans`` (``dtype`` f32 or bf16),
 ``cpc`` / ``modified_cpc``, ``decoar``, ``decoar_layers`` (f32),
 ``decoar2`` (f32 or bf16, its depth from ``ckpt``), the eight ``byol_a*``
-/ ``byol_s*`` names (f32; ``ckpt``, ``seed``, ``device``), and the small
+/ ``byol_s*`` names (f32; ``ckpt``, ``seed``, ``device``), the small
 front ends ``wav``, ``log_stft`` / ``stft_mag`` and ``example`` /
-``customized_upstream`` (``device`` only). The reference hubconf's names
+``customized_upstream`` (``device`` only), and the rest of the zoo on stock
+ops: the AST family ``ast`` / ``ssast_*`` / ``mae_ast*`` and the 12
+``passt*`` names (f32 or bf16), ``vggish``, ``vq_wav2vec_kmeans_roberta``
+/ ``discretebert`` (``ckpt``, ``frontend_ckpt``), ``pase_plus`` (f32 or
+bf16; a ``ckpt`` raises), ``spec_augment`` (``seed``, ``device``) and the
+``hf_*`` entries on the port's wav2vec2 trunk (``ckpt`` a local Hugging
+Face directory; K3 in the extractor). The reference hubconf's names
 on top (`upstream/aliases.py`): the generic loaders ``<family>_local`` /
 ``_url`` / ``_custom`` (``ckpt`` required, a local path; a URL raises),
 the named checkpoint variants (``tera_960hr``, ``distilhubert_base``,
 ``apc_360hr``, ``baseline`` -> ``fbank``, ...) and ``baseline_local``
 (``model_config=`` a yaml). ``ckpt=`` loads a local checkpoint,
-``options(only_registered_ckpt=False)`` lists the names (176; without the
-generic loaders when True). A keyword that an entry's model cannot use
+``options(only_registered_ckpt=False)`` lists the names (the JAX hub's
+209; without the generic loaders when True). A keyword that an entry's model cannot use
 raises at load. Keywords: the int8 path's
 opt-in fused projections ``qkv_fuse`` / ``full_fuse`` (HuBERT, wav2vec2)
 and ``wavlm_fuse`` (WavLM), the front-end options ``int8_conv`` (int8),

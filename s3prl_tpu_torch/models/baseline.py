@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..nn.heads import Dense
+from ..nn.specaug import specaug
 from ..ops import audio
 
 SAMPLE_RATE = 16000
@@ -136,6 +137,30 @@ class LogStft(_OnDevice):
     def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor, generator=None):
         spec, feat_lens = audio.stft_spectrogram(wavs, wav_lens)
         return torch.log(spec + 1e-10)[None], feat_lens
+
+
+class SpecAugmentFeatures(_OnDevice):
+    """``spec_augment`` (registry.py:641-660, the reference's
+    upstream/spec_augment): Kaldi fbank 80 + deltas of order 2 + CMVN (240
+    dims, stride 160) as one "layer", [1, B, F, 240], masked in train mode
+    only by `nn.specaug.specaug` (2 frequency bands of at most 27 bins, 2
+    time bands of at most 100 frames, inside each utterance's frames). The
+    draws come from the forward's `generator` (a train step's upstream
+    stream) or, without one, from a generator on the features' device
+    seeded with ``seed`` at every call, so every call draws the same bands
+    (the JAX entry's ``key(seed)``)."""
+
+    def __init__(self, seed: int = 0, device=None):
+        super().__init__(device)
+        self.seed = seed  # a plain attribute, not state
+
+    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor, generator=None):
+        feats, feat_lens = baseline_features(wavs, wav_lens, **BASELINE_CONFIGS["fbank"])
+        if self.training:
+            if generator is None:
+                generator = torch.Generator(device=feats.device).manual_seed(self.seed)
+            feats = specaug(generator, feats, feat_lens)
+        return feats[None], feat_lens
 
 
 class ExampleModel(nn.Module):

@@ -193,8 +193,6 @@ class MultiresHubertModel(nn.Module):
     def __init__(self, cfg: MultiresHubertConfig, dtype: torch.dtype = torch.float32,
                  device=None):
         super().__init__()
-        if cfg.activation_fn != "gelu":
-            raise NotImplementedError(f"activation_fn {cfg.activation_fn!r} is not ported")
         self.cfg, self.dtype = cfg, dtype
         C, k, n = cfg.encoder_embed_dim, cfg.conv_adapator_kernal, cfg.n_pairs
         self.feature_extractor = ConvFeatureExtractor(cfg.conv_feature_layers, cfg.extractor_mode,
@@ -208,7 +206,7 @@ class MultiresHubertModel(nn.Module):
                 C, cfg.encoder_ffn_embed_dim, layers, cfg.encoder_attention_heads,
                 cfg.layer_norm_first, cfg.conv_pos, cfg.conv_pos_groups, dtype, device=device,
                 dropout=cfg.dropout, activation_dropout=cfg.activation_dropout,
-                use_pos_conv=pos_conv)
+                use_pos_conv=pos_conv, activation=cfg.activation_fn)
 
         blocks = cfg.block_layers
         self.encoders = nn.ModuleList([encoder(blocks[i], i == 0) for i in range(n)])

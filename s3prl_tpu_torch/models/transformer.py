@@ -42,6 +42,13 @@ with the kernels module's MAX_BLOCK_T and MAX_KERNEL_T at call time:
   kernels -> K5 `fused_bf16_ffn` at every T; otherwise fc1 -> erf GELU ->
   fc2, through int8_matmul under ``quantize``. K2 runs tanh GELU, the
   module path erf, as in the JAX package.
+A layer whose FFN activation is ReLU or swish (``activation``, fairseq's
+``activation_fn``) never runs quant serving nor the bf16 FFN kernel, whose
+FFNs compute GELU: its FFN is the module path with its activation, its
+attention the module path (through int8_matmul under ``quantize``, K7 with
+``use_flash``), or K4 for a pre-LN bf16 ``use_flash`` layer, whose gate in
+the JAX package does not read the activation (transformer.py:389-392,
+:494-502, :540-546, :580-586).
 Routing of a post-LN `EncoderLayer` (transformer.py:564-668), the same
 gates, with each LN after its residual sum:
 - attention, quant serving or the bf16 kernels with ``use_flash``, eps
@@ -109,6 +116,10 @@ from ..kernels.flash_attention import (fused_attention_block, fused_attention_bl
 from ..nn.heads import dropout
 from ..ops.attention import NEG_INF, attention_bthd
 from ..ops.quant import as_quantized_cols, int8_matmul
+
+
+# the FFN activations of EncoderLayer (transformer.py:296-303)
+ACTIVATIONS = {"gelu": F.gelu, "relu": F.relu, "swish": F.silu}
 
 
 def _fused_block_available(x: torch.Tensor) -> bool:
@@ -387,13 +398,18 @@ class EncoderLayer(_QCache, nn.Module):
                  quantize: bool = False, layer_norm_eps: float = 1e-5, device=None,
                  qkv_fuse: bool = False, full_fuse: bool = False,
                  layer_norm_first: bool = True, attention_kwargs: dict | None = None,
-                 dropout: float = 0.0, activation_dropout: float = 0.0):
+                 dropout: float = 0.0, activation_dropout: float = 0.0,
+                 activation: str = "gelu"):
         """``attention_kwargs``: further keywords of the `attention` class;
         ``dropout`` / ``activation_dropout``: the train-mode rates of the
-        residual branches and of the FFN's activation."""
+        residual branches and of the FFN's activation; ``activation``: the
+        FFN's, "gelu" (erf), "relu" or "swish" (transformer.py:290-303)."""
         self.refuse_options(layer_norm_first, qkv_fuse, full_fuse)
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"activation {activation!r}: one of {sorted(ACTIVATIONS)}")
         super().__init__()
         self.dtype = dtype
+        self.activation = activation  # a plain attribute, not state
         # the train-mode rates: plain attributes, not state
         self.dropout, self.activation_dropout = dropout, activation_dropout
         self.layer_norm_first = layer_norm_first
@@ -445,15 +461,15 @@ class EncoderLayer(_QCache, nn.Module):
         return dropout(x, self.dropout, self.training, generator)
 
     def _ffn(self, h: torch.Tensor, generator=None) -> torch.Tensor:
-        """The FFN's module path on the normalised h: fc1 -> erf GELU ->
-        (train mode) activation dropout -> fc2, through int8_matmul under
-        ``quantize``."""
+        """The FFN's module path on the normalised h: fc1 -> the activation
+        (erf GELU, ReLU or swish) -> (train mode) activation dropout -> fc2,
+        through int8_matmul under ``quantize``."""
+        act = ACTIVATIONS[self.activation]
         if self.quantize:
-            h = F.gelu(int8_matmul(h, self.qpair("fc1"), self.fc1.bias))
+            h = act(int8_matmul(h, self.qpair("fc1"), self.fc1.bias))
             h = dropout(h, self.activation_dropout, self.training, generator)
             return int8_matmul(h, self.qpair("fc2"), self.fc2.bias)
-        h = dropout(F.gelu(_linear(h, self.fc1)), self.activation_dropout, self.training,
-                    generator)
+        h = dropout(act(_linear(h, self.fc1)), self.activation_dropout, self.training, generator)
         return _linear(h, self.fc2)
 
     def _fully_fused(self, x: torch.Tensor, kv_lens: torch.Tensor) -> torch.Tensor:
@@ -473,15 +489,19 @@ class EncoderLayer(_QCache, nn.Module):
         pad_mask [B, T] True on padded frames; `generator`: train mode's
         dropouts."""
         attn, ln1, ln2 = self.self_attn, self.self_attn_layer_norm, self.final_layer_norm
-        quant_serving = self.quantize and not self.training and _fused_block_available(x)
-        # the JAX bf16 gate also asks for the gelu activation: every ported
-        # config has it (wav2vec2._unsupported)
+        # the kernels' FFNs compute GELU: quant serving and the bf16 FFN (and
+        # the post-LN bf16 block) need it, as the JAX gates do
+        # (transformer.py:389-392, :540-546, :580-586); the pre-LN bf16
+        # attention block (K4) does not read it (:496-502)
+        gelu = self.activation == "gelu"
+        quant_serving = (self.quantize and not self.training and gelu
+                         and _fused_block_available(x))
         fused = (
             not self.training and not self.quantize and self.dtype == torch.bfloat16
             and self.use_flash and ln1.eps == 1e-5 and _fused_block_available(x)
         )
         if not self.layer_norm_first:
-            return self._post_ln(x, kv_lens, pad_mask, quant_serving, fused, generator)
+            return self._post_ln(x, kv_lens, pad_mask, quant_serving, fused and gelu, generator)
         if quant_serving and self.full_fuse and self.use_flash and ln1.eps == 1e-5:
             return self._fully_fused(x, kv_lens)
         block_t = x.shape[1] <= fa.MAX_BLOCK_T
@@ -507,7 +527,7 @@ class EncoderLayer(_QCache, nn.Module):
         if quant_serving and ln2.eps == 1e-5:
             return fused_int8_ffn(x, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),
                                   self.fc2.bias, ln=(ln2.weight, ln2.bias), residual=True)
-        if fused and self.fc1.out_features % 128 == 0:
+        if fused and gelu and self.fc1.out_features % 128 == 0:
             return fused_bf16_ffn(x, self.fc1.weight, self.fc1.bias, self.fc2.weight,
                                   self.fc2.bias, ln=(ln2.weight, ln2.bias), residual=True)
         h = _layer_norm(x, ln2)
@@ -744,15 +764,16 @@ class TransformerEncoder(nn.Module):
                  posconv: str | None = None, pos_conv_depth: int = 1,
                  dropout: float = 0.0, activation_dropout: float = 0.0,
                  use_pos_conv: bool = True, layer_type: str = "transformer",
-                 pos_enc_type: str = "rel_pos", depthwise_kernel: int = 31, **fuse):
+                 pos_enc_type: str = "rel_pos", depthwise_kernel: int = 31,
+                 activation: str = "gelu", **fuse):
         """``posconv``: the pos-conv option (`ConvPositionalEmbedding`;
         refused on a ``pos_conv_depth`` > 1 stack); ``dropout`` /
         ``activation_dropout``: the train-mode rates (the encoder input's and
         the layers'); ``use_pos_conv`` False: no pos-conv (MR-HuBERT's inner
         encoders, transformer.py:715); ``layer_type`` "conformer":
         `ConformerLayer`s with ``pos_enc_type`` and ``depthwise_kernel``, no
-        pos-conv; ``fuse``: the layers' ``qkv_fuse`` / ``full_fuse``
-        options."""
+        pos-conv; ``activation``: the transformer layers' FFN activation;
+        ``fuse``: the layers' ``qkv_fuse`` / ``full_fuse`` options."""
         ConvPositionalStack.refuse_option(pos_conv_depth, posconv)
         conformer = layer_type == "conformer"
         super().__init__()
@@ -772,7 +793,7 @@ class TransformerEncoder(nn.Module):
                            device=device) if conformer else
             EncoderLayer(embed_dim, ffn_dim, num_heads, dtype, use_flash, quantize,
                          device=device, layer_norm_first=layer_norm_first, dropout=dropout,
-                         activation_dropout=activation_dropout, **fuse)
+                         activation_dropout=activation_dropout, activation=activation, **fuse)
             for _ in range(num_layers)
         ])
         self.layer_norm = nn.LayerNorm(embed_dim, device=device)

@@ -11,9 +11,10 @@ rule and wav2vec2's / data2vec's conv rule (``feat_pad_rule="conv"``: the
 strict conv arithmetic, which gives 0 frames below 400 samples); the one
 pos-conv and data2vec's depth > 1 stack; the Conformer encoder
 (``layer_type="conformer"``: rel-pos or rotary ESPnet attention, no
-pos-conv, stock ops; eval only); the fused weighted sum of the
-layers (``layer_weights``); train mode's dropouts from an explicit
-generator. No span masking (extraction), no layerdrop (`Upstream`
+pos-conv, stock ops; eval only); the FFN activations gelu, relu and swish
+(``activation_fn``; the kernels' FFNs serve gelu only, `EncoderLayer`);
+the fused weighted sum of the layers (``layer_weights``); train mode's
+dropouts from an explicit generator. No span masking (extraction), no layerdrop (`Upstream`
 refuses it in train mode, as the JAX trainer's missing stream does). WavLM
 (`models/wavlm.py`) is this trunk with its own encoder and an erf extractor.
 The module names follow fairseq's state_dict keys (see upstream/convert.py).
@@ -33,8 +34,8 @@ from ..nn.heads import dropout
 from ..ops.masking import length_mask
 from .convfe import (DEFAULT_CONV_LAYERS, ConvFeatureExtractor, conv_output_lengths,
                      total_stride)
-from .transformer import (ConvPositionalEmbedding, ConvPositionalStack, EncoderLayer,
-                          TransformerEncoder, on_card)
+from .transformer import (ACTIVATIONS, ConvPositionalEmbedding, ConvPositionalStack,
+                          EncoderLayer, TransformerEncoder, on_card)
 
 
 @dataclass(frozen=True)
@@ -63,7 +64,7 @@ class Wav2Vec2Config:
     pos_enc_type: str = "rel_pos"
     depthwise_conv_kernel_size: int = 31
     post_extract_proj_always: bool = False
-    feat_pad_rule: str = "block"  # "block" (hubert) | "conv" (data2vec)
+    feat_pad_rule: str = "block"  # "block" (hubert) | "conv" (data2vec) | "hf" (`hf_frames`)
     normalize: bool = False  # per-utterance wave normalisation (Large models)
 
     @property
@@ -96,10 +97,10 @@ def normalize_wavs(wavs: torch.Tensor, wav_lens: torch.Tensor) -> torch.Tensor:
     return (wavs - mean) / torch.sqrt(var + 1e-5) * mask
 
 
-def _unsupported(cfg: Wav2Vec2Config, layer_types) -> str | None:
+def _unsupported(cfg: Wav2Vec2Config, layer_types, activations) -> str | None:
     if cfg.layer_type not in layer_types:
         return f"layer_type {cfg.layer_type!r}"
-    if cfg.activation_fn != "gelu":
+    if cfg.activation_fn not in activations:
         return f"activation_fn {cfg.activation_fn!r}"
     return None
 
@@ -118,6 +119,18 @@ def card_refusal(cfg: Wav2Vec2Config, use_flash: bool, posconv: str | None) -> N
     if posconv is not None and cfg.pos_conv_depth == 1:
         ConvPositionalEmbedding.card_refusal(cfg.encoder_embed_dim, cfg.conv_pos,
                                              cfg.conv_pos_groups, posconv)
+
+
+def hf_frames(wav_lens: torch.Tensor, conv_layers, t_feat: int) -> torch.Tensor:
+    """The valid frames of transformers' wav2vec2 attention mask
+    (``_get_feature_vector_attention_mask``): the conv arithmetic
+    floor((L - k) / s) + 1 without a floor at 0, then the frames up to the
+    index n - 1 read as a Python index (n <= 0 counts from the end: a wave
+    too short for one frame attends to all t_feat of them)."""
+    n = wav_lens
+    for _, k, s in conv_layers:
+        n = torch.div(n - k, s, rounding_mode="floor") + 1
+    return torch.remainder(n - 1, t_feat) + 1
 
 
 class Wav2Vec2Trunk(nn.Module):
@@ -155,6 +168,8 @@ class Wav2Vec2Trunk(nn.Module):
     fuse_options = ("qkv_fuse", "full_fuse")
     # the encoder layers it builds (WavLM's encoder has transformer layers only)
     layer_types = ("transformer", "conformer")
+    # the transformer layers' FFN activations (fairseq's activation_fn)
+    activations = tuple(ACTIVATIONS)
 
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype = torch.float32,
                  use_flash: bool = False, quantize: bool = False, device=None,
@@ -162,10 +177,9 @@ class Wav2Vec2Trunk(nn.Module):
                  int8_conv: bool = False, fused_conv: bool = False, fused_midln: bool = False,
                  fused_posconv: bool = False, int8_posconv: bool = False):
         super().__init__()
-        reason = _unsupported(cfg, self.layer_types)
+        reason = _unsupported(cfg, self.layer_types, self.activations)
         if reason is not None:
-            raise NotImplementedError(
-                f"{reason} is not ported yet (ROADMAP.md Queue 1 item 8)")
+            raise NotImplementedError(f"{reason} is not ported in {type(self).__name__}")
         if fused_posconv and int8_posconv:
             raise ValueError("fused_posconv and int8_posconv: the pos-conv takes one kernel "
                              "(the JAX package's pos-conv switch has one value)")
@@ -216,7 +230,7 @@ class Wav2Vec2Trunk(nn.Module):
             pos_conv_depth=cfg.pos_conv_depth, dropout=cfg.dropout,
             activation_dropout=cfg.activation_dropout, layer_type=cfg.layer_type,
             pos_enc_type=cfg.pos_enc_type, depthwise_kernel=cfg.depthwise_conv_kernel_size,
-            **fuse)
+            activation=cfg.activation_fn, **fuse)
 
     def build_qcache(self) -> None:
         """Quantizes every encoder layer's projections once from their f32
@@ -247,6 +261,8 @@ class Wav2Vec2Trunk(nn.Module):
         if cfg.feat_pad_rule == "conv":  # strict conv arithmetic (wav2vec2.py:133-137)
             feat_lens = torch.clamp(conv_output_lengths(wav_lens, cfg.conv_feature_layers),
                                     max=t_feat)
+        elif cfg.feat_pad_rule == "hf":
+            feat_lens = hf_frames(wav_lens, cfg.conv_feature_layers, t_feat)
         else:
             # hubert's padding rule (hubert_model.py:459-469): a frame is padded
             # only when all of its r = T_wav // T_feat samples are, so
@@ -262,3 +278,25 @@ class Wav2Vec2Trunk(nn.Module):
             features = F.linear(features, proj.weight, proj.bias.to(self.dtype))
         features = dropout(features, cfg.dropout_input, self.training, generator)
         return self.encoder(features, feat_lens, layer_weights, generator), feat_lens
+
+
+class HfWav2Vec2(Wav2Vec2Trunk):
+    """transformers' wav2vec2 (and HuBERT) as the JAX ``hf_*`` entries run
+    it (registry.py:920-972): a trunk of `convert_hf.hf_config`'s config
+    (pre-LN, the layer-norm extractor, the HF mask's frames), whose modules
+    stay in eval mode under ``train()`` too, as the JAX entry applies its
+    model with ``train=False``; the lengths it returns are the JAX entry's
+    min(ceil(len / r), T'), r = T // T'. The layer-norm extractor without a
+    conv bias runs K3 `conv0_ln_gelu` (erf) once a forward."""
+
+    def train(self, mode: bool = True):
+        self.training = mode
+        for child in self.children():
+            child.train(False)
+        return self
+
+    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor, generator=None):
+        hs, _ = super().forward(wavs, wav_lens)
+        t_feat = hs.shape[2]
+        r = max(wavs.shape[1] // max(t_feat, 1), 1)
+        return hs, torch.clamp(torch.div(wav_lens + r - 1, r, rounding_mode="floor"), max=t_feat)

@@ -288,6 +288,9 @@ class WavLMModel(Wav2Vec2Trunk):
     tanh_extractor = False  # erf in both paths (wavlm.py:264-267)
     fuse_options = ("wavlm_fuse",)
     layer_types = ("transformer",)
+    # the JAX WavLM layer's FFN runs erf GELU whatever activation_fn says
+    # (wavlm.py:203) while its K2 gate reads it (:185-188): gelu only here
+    activations = ("gelu",)
 
     def __init__(self, cfg: WavLMConfig = WAVLM_LARGE, dtype: torch.dtype = torch.float32,
                  use_flash: bool = False, quantize: bool = False, device=None, **fuse):

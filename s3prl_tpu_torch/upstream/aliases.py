@@ -1,5 +1,5 @@
 """The reference hubconf's name surface on top of the registry (port of
-s3prl_tpu/upstream/aliases.py, for the families the port has).
+s3prl_tpu/upstream/aliases.py).
 
 Per family the reference's generic loaders ``<family>_local(ckpt=path)``,
 ``<family>_url(ckpt=url)`` and ``<family>_custom(ckpt=path-or-url)``
@@ -46,12 +46,14 @@ _GENERIC_LOADERS = {
     "distiller": ("local", "url"),
     "hubert": ("custom", "local", "url"),
     "lighthubert": ("local", "url"),
+    "mae_ast": ("local", "url"),
     "mockingjay": ("local", "url"),
     "mos_wav2vec2": ("local", "url"),
     "mos_apc": ("local", "url"),
     "mos_tera": ("local", "url"),
     "multires_hubert": ("custom", "local"),
     "npc": ("local", "url"),
+    "spec_augment": ("local", "url"),
     "tera": ("local", "url"),
     "unispeech_sat": ("local", "url"),
     "vq_wav2vec": ("custom",),
@@ -130,3 +132,9 @@ def _config_loader(entry_name: str, family: str):
 
 
 _REGISTRY["baseline_local"] = _config_loader("baseline_local", "fbank")
+
+
+# pase's generic loaders are pase_plus itself (aliases.py:153-157): without
+# ckpt they build the random-init model, with one they raise as it does
+for _name in ("pase_local", "pase_url"):
+    _REGISTRY[_name] = _REGISTRY["pase_plus"]

@@ -1,6 +1,7 @@
 """Checkpoints and JAX parameters of the conv, recurrent and windowed
-families -> the port's state_dicts (port of s3prl_tpu/upstream/convert.py:
-621-804, :1119-1201, :1595-1721).
+families, the patch transformers (AST, PaSST), VGGish, RoBERTa and PASE+
+-> the port's state_dicts (port of s3prl_tpu/upstream/convert.py:621-804,
+:1119-1201, :1303-1436, :1595-1788).
 
 The models keep the reference's keys (`models.wav2vec1`, `models.cpc`,
 `models.decoar`, `models.byol`), so each loader reads the keys the JAX
@@ -12,7 +13,11 @@ loader reads and hands them on, f32, with three rewrites:
 - DeCoAR's one 4-layer ``forward_lstm`` / ``backward_lstm`` is renamed to
   decoar_layers' ``forward_lstms.{i}`` / ``backward_lstms.{i}``;
 - DeCoAR 2.0's pos-conv weight norm is folded (`_pos_conv_keys`).
-Where the JAX loader reads a checkpoint its model then cannot apply, the
+The AST, PaSST and RoBERTa models run the port's `EncoderLayer`, so their
+loaders rename timm's blocks (``norm1``, ``attn.qkv`` split into q / k / v,
+``attn.proj``, ``norm2``, ``mlp.fc1`` / ``fc2``) and fairseq RoBERTa's
+``layernorm_embedding`` onto its keys, as the JAX converters map them onto
+the JAX EncoderLayer. Where the JAX loader reads a checkpoint its model then cannot apply, the
 port's raises at load and says so. Nothing is downloaded; a native msgpack
 checkpoint raises (`_torch_load`).
 
@@ -29,9 +34,14 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from ..models.ast import ASTConfig, ASTModel
+from ..models.audio_cnn import STAGES as VGGISH_STAGES
 from ..models.byol import ByolConfig, ByolModel, CvT
 from ..models.cpc import CPCConfig, CPCModel
 from ..models.decoar import Decoar2Config
+from ..models.pase import PaseConfig
+from ..models.passt import PasstConfig, PasstModel
+from ..models.roberta import PAD, RobertaConfig
 from ..models.wav2vec1 import W2V1_AGG_LAYERS, W2V1_FEATURE_LAYERS, Wav2Vec1Config, Wav2Vec1Model
 from .convert import (_conv, _encoder, _encoder_keys, _linear, _lstm_cell, _norm, _pos_conv_keys,
                       _t, _tensor, _torch_load)
@@ -381,3 +391,272 @@ def byol_state_dict_from_jax(variables: Dict[str, Any], cfg: ByolConfig
 def _cvt_ln(sd: Dict[str, torch.Tensor], prefix: str, ln) -> None:
     sd[f"{prefix}.g"] = _tensor(ln["g"]).view(1, -1, 1, 1)
     sd[f"{prefix}.b"] = _tensor(ln["b"]).view(1, -1, 1, 1)
+
+
+# -- the patch transformers, VGGish, RoBERTa and PASE+ (convert.py:1303-1436,
+# :1722-1788) ------------------------------------------------------------------
+
+
+def _check_shapes(sd: Dict[str, torch.Tensor], model: torch.nn.Module, path) -> None:
+    """Raises where a checkpoint's tensor has another shape than the entry's
+    model takes: the JAX loader reads it and its model then fails at apply."""
+    want = model.state_dict(keep_vars=True)
+    bad = [f"{k} {tuple(v.shape)} (the model's {tuple(want[k].shape)})"
+           for k, v in sd.items() if k in want and tuple(v.shape) != tuple(want[k].shape)]
+    if bad:
+        raise ValueError(f"{path}: {', '.join(bad)}; the JAX loader reads this checkpoint and "
+                         "its model then fails at apply")
+
+
+def _timm_block(out: Dict[str, torch.Tensor], sd: Dict[str, Any], src: str, dst: str) -> None:
+    """A timm ViT block ``src`` (norm1, attn.qkv, attn.proj, norm2, mlp.fc1,
+    mlp.fc2) -> the port's `EncoderLayer` keys under ``dst``; the fused qkv
+    rows split into q, k and v."""
+    for a, b in (("norm1", "self_attn_layer_norm"), ("attn.proj", "self_attn.out_proj"),
+                 ("norm2", "final_layer_norm"), ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
+        for kind in ("weight", "bias"):
+            out[f"{dst}.{b}.{kind}"] = _t(sd[f"{src}.{a}.{kind}"])
+    for kind in ("weight", "bias"):
+        for name, part in zip("qkv", _t(sd[f"{src}.attn.qkv.{kind}"]).chunk(3)):
+            out[f"{dst}.self_attn.{name}_proj.{kind}"] = part
+
+
+def _layer_from_jax(sd: Dict[str, torch.Tensor], prefix: str, p: Dict[str, Any]) -> None:
+    """A JAX EncoderLayer's params -> the port's `EncoderLayer` keys."""
+    qkv = p["self_attn"]["qkv"]
+    C = np.shape(qkv["kernel"])[0]
+    w, b = np.asarray(qkv["kernel"]), np.asarray(qkv["bias"])
+    for j, name in enumerate("qkv"):
+        sd[f"{prefix}.self_attn.{name}_proj.weight"] = _tensor(w[:, j * C:(j + 1) * C].T)
+        sd[f"{prefix}.self_attn.{name}_proj.bias"] = _tensor(b[j * C:(j + 1) * C])
+    _linear(sd, f"{prefix}.self_attn.out_proj", p["self_attn"]["out_proj"])
+    _norm(sd, f"{prefix}.self_attn_layer_norm", p["self_attn_layer_norm"])
+    _linear(sd, f"{prefix}.fc1", p["fc1"])
+    _linear(sd, f"{prefix}.fc2", p["fc2"])
+    _norm(sd, f"{prefix}.final_layer_norm", p["final_layer_norm"])
+
+
+def _nested(ckpt, keys) -> Dict[str, Any]:
+    """The state_dict of a checkpoint: itself when a key holds
+    ``patch_embed``, else the first of `keys` that holds a dict."""
+    if isinstance(ckpt, dict) and not any("patch_embed" in k for k in ckpt):
+        for key in keys:
+            if isinstance(ckpt.get(key), dict):
+                return ckpt[key]
+    return ckpt
+
+
+def ast_state_dict_from_torch(sd: Dict[str, Any], cfg: ASTConfig) -> Dict[str, torch.Tensor]:
+    """A timm-format AST / SSAST state_dict (bare or under the reference's
+    ``v.``) -> the port's `ASTModel` keys (convert.py:1400-1434). The patch
+    conv's weight is taken as it is, its first kernel axis on time, as the
+    JAX converter transposes it."""
+    if any(k.startswith("v.") for k in sd):
+        sd = {**{k[2:]: v for k, v in sd.items() if k.startswith("v.")},
+              **{k: v for k, v in sd.items() if not k.startswith("v.")}}
+    out = {"encoder.patch_embed.weight": _t(sd["patch_embed.proj.weight"]),
+           "encoder.patch_embed.bias": _t(sd["patch_embed.proj.bias"]),
+           "encoder.cls_token": _t(sd["cls_token"]).reshape(1, 1, -1),
+           "encoder.pos_embed": _t(sd["pos_embed"]),
+           "encoder.norm.weight": _t(sd["norm.weight"]), "encoder.norm.bias": _t(sd["norm.bias"])}
+    for i in range(cfg.depth):
+        _timm_block(out, sd, f"blocks.{i}", f"encoder.blocks.{i}")
+    return out
+
+
+def load_ast_checkpoint(path, cfg: ASTConfig) -> Dict[str, torch.Tensor]:
+    """An AST / SSAST / MAE-AST checkpoint -> the port's state_dict
+    (convert.py:1770-1788): a timm state_dict, or one nested under
+    ``model`` / ``state_dict`` / ``module``; a DataParallel ``module.``
+    prefix dropped (the JAX loader then cuts seven characters from every
+    key, and so does this one)."""
+    sd = _nested(_torch_load(path), ("model", "state_dict", "module"))
+    if any(k.startswith("module.") for k in sd):
+        sd = {k[len("module."):]: v for k, v in sd.items()}
+    out = ast_state_dict_from_torch(sd, cfg)
+    _check_shapes(out, ASTModel(cfg, device="meta"), path)
+    return out
+
+
+def ast_state_dict_from_jax(params: Dict[str, Any], cfg: ASTConfig) -> Dict[str, torch.Tensor]:
+    """JAX ASTEncoder params -> the port's `ASTModel` state_dict."""
+    p = params.get("params", params)
+    sd = {"encoder.patch_embed.weight": _conv2d(p["patch_embed"]["kernel"]),
+          "encoder.patch_embed.bias": _tensor(p["patch_embed"]["bias"]),
+          "encoder.cls_token": _tensor(p["cls_token"]),
+          "encoder.pos_embed": _tensor(p["pos_embed"])}
+    _norm(sd, "encoder.norm", p["norm"])
+    for i in range(cfg.depth):
+        _layer_from_jax(sd, f"encoder.blocks.{i}", p[f"block_{i}"])
+    return sd
+
+
+def passt_state_dict_from_torch(sd: Dict[str, Any], cfg: PasstConfig) -> Dict[str, torch.Tensor]:
+    """A hear21passt PaSST state_dict (the wrapper's ``net.*`` or the bare
+    net's) -> the port's `PasstModel` keys (convert.py:1722-1753): the
+    decomposed position tables [1, E, F, 1] / [1, E, 1, T] as [F, E] / [T,
+    E], ``head.0`` / ``head.1`` as ``head_norm`` / ``head``."""
+    if any(k.startswith("net.") for k in sd):
+        sd = {k[len("net."):]: v for k, v in sd.items() if k.startswith("net.")}
+    out = {"net.patch_embed.weight": _t(sd["patch_embed.proj.weight"]),
+           "net.patch_embed.bias": _t(sd["patch_embed.proj.bias"]),
+           "net.cls_token": _t(sd["cls_token"]).reshape(1, 1, -1),
+           "net.new_pos_embed": _t(sd["new_pos_embed"]).reshape(1, 1, -1),
+           "net.freq_pos_embed": _t(sd["freq_new_pos_embed"])[0, :, :, 0].T.contiguous(),
+           "net.time_pos_embed": _t(sd["time_new_pos_embed"])[0, :, 0, :].T.contiguous()}
+    for a, b in (("norm", "norm"), ("head.0", "head_norm"), ("head.1", "head")):
+        for kind in ("weight", "bias"):
+            out[f"net.{b}.{kind}"] = _t(sd[f"{a}.{kind}"])
+    for i in range(cfg.depth):
+        _timm_block(out, sd, f"blocks.{i}", f"net.blocks.{i}")
+    return out
+
+
+def load_passt_checkpoint(path, cfg: PasstConfig) -> Dict[str, torch.Tensor]:
+    """A PaSST checkpoint (a state_dict, or one under ``model`` /
+    ``state_dict``) -> the port's state_dict (convert.py:1756-1767)."""
+    out = passt_state_dict_from_torch(_nested(_torch_load(path), ("model", "state_dict")), cfg)
+    _check_shapes(out, PasstModel(cfg, device="meta"), path)
+    return out
+
+
+def passt_state_dict_from_jax(params: Dict[str, Any], cfg: PasstConfig
+                              ) -> Dict[str, torch.Tensor]:
+    """JAX PasstModel params (the net under ``net``) -> the port's
+    `PasstModel` state_dict."""
+    p = params.get("params", params)["net"]
+    sd = {"net.patch_embed.weight": _conv2d(p["patch_embed"]["kernel"]),
+          "net.patch_embed.bias": _tensor(p["patch_embed"]["bias"])}
+    for name in ("freq_pos_embed", "time_pos_embed", "cls_token", "new_pos_embed"):
+        sd[f"net.{name}"] = _tensor(p[name])
+    for name in ("norm", "head_norm"):
+        _norm(sd, f"net.{name}", p[name])
+    _linear(sd, "net.head", p["head"])
+    for i in range(cfg.depth):
+        _layer_from_jax(sd, f"net.blocks.{i}", p[f"block_{i}"])
+    return sd
+
+
+def vggish_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX VGGishCNN params (``conv{i}_{r}``, ``fc1_1``, ``fc1_2``, ``fc2``)
+    -> the port's `VGGish` keys (torchvggish's ``features.{j}`` /
+    ``embeddings.{j}``)."""
+    p = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+    j = 0
+    for i, (_, convs) in enumerate(VGGISH_STAGES):
+        for r in range(convs):
+            _conv2d_keys(sd, f"features.{j}", p[f"conv{i}_{r}"])
+            j += 2  # conv, ReLU
+        j += 1  # the max pool
+    for j, name in enumerate(("fc1_1", "fc1_2", "fc2")):
+        _linear(sd, f"embeddings.{2 * j}", p[name])
+    return sd
+
+
+def parse_fairseq_dictionary(text: str, num_codes: int = 320) -> Tuple[np.ndarray, int]:
+    """A fairseq dict.txt of "a-b count" code-pair symbols -> (lookup
+    [num_codes, num_codes] of token ids, <unk> = 3 where no symbol names
+    the pair; the vocabulary size with the appended <mask>): the specials
+    <s> <pad> </s> <unk> first, then the symbols in file order (a copy of
+    convert.py:1340-1357)."""
+    lookup = np.full((num_codes, num_codes), 3, np.int32)
+    idx = 4
+    for line in text.splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        parts = line.rsplit(" ", 1)[0].split("-")
+        if len(parts) == 2 and parts[0].isdigit() and parts[1].isdigit():
+            a, b = int(parts[0]), int(parts[1])
+            if a < num_codes and b < num_codes:
+                lookup[a, b] = idx
+        idx += 1
+    return lookup, idx + 1
+
+
+def roberta_state_dict_from_torch(sd: Dict[str, Any], num_layers: int
+                                  ) -> Dict[str, torch.Tensor]:
+    """A fairseq RobertaModel state_dict (``encoder.sentence_encoder.*`` or
+    the bare sentence encoder's) -> the port's `RobertaModel` keys
+    (convert.py:1303-1337): ``layernorm_embedding`` (or the older
+    ``emb_layer_norm``) as ``emb_layer_norm``, the layers' keys as they are."""
+    pref = ("encoder.sentence_encoder."
+            if any(k.startswith("encoder.sentence_encoder.") for k in sd) else "")
+    ln = "layernorm_embedding" if f"{pref}layernorm_embedding.weight" in sd else "emb_layer_norm"
+    out = {f"{name}.weight": _t(sd[f"{pref}{name}.weight"])
+           for name in ("embed_tokens", "embed_positions")}
+    for kind in ("weight", "bias"):
+        out[f"emb_layer_norm.{kind}"] = _t(sd[f"{pref}{ln}.{kind}"])
+    names = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.out_proj",
+             "self_attn_layer_norm", "fc1", "fc2", "final_layer_norm")
+    for i in range(num_layers):
+        for name in names:
+            for kind in ("weight", "bias"):
+                out[f"layers.{i}.{name}.{kind}"] = _t(sd[f"{pref}layers.{i}.{name}.{kind}"])
+    return out
+
+
+def load_roberta_checkpoint(path) -> Tuple[RobertaConfig, Dict[str, torch.Tensor], Any]:
+    """An s3prl-converted RoBERTa checkpoint ``{"model_weight", "model_cfg",
+    "text_dictionary"}`` -> (config, the port's `RobertaModel` state_dict,
+    the dictionary's code-pair lookup or None) (convert.py:1360-1395): the
+    vocabulary and positions from the embeddings' shapes, the widths and
+    rates from ``model_cfg`` (a Namespace or a dict)."""
+    ckpt = _torch_load(path)
+    sd = ckpt["model_weight"]
+    mc = ckpt.get("model_cfg")
+    mc = vars(mc) if mc is not None and not isinstance(mc, dict) else (mc or {})
+    tok = sd.get("encoder.sentence_encoder.embed_tokens.weight", sd.get("embed_tokens.weight"))
+    pos = sd.get("encoder.sentence_encoder.embed_positions.weight",
+                 sd.get("embed_positions.weight"))
+    cfg = RobertaConfig(
+        vocab_size=tok.shape[0], max_positions=pos.shape[0] - PAD - 1,
+        hidden_size=int(mc.get("encoder_embed_dim", tok.shape[1])),
+        num_layers=int(mc.get("encoder_layers", 12)),
+        num_heads=int(mc.get("encoder_attention_heads", 12)),
+        ffn_size=int(mc.get("encoder_ffn_embed_dim", 3072)),
+        dropout=float(mc.get("dropout", 0.1)),
+        attention_dropout=float(mc.get("attention_dropout", 0.1)),
+        activation_dropout=float(mc.get("activation_dropout", 0.0)), pad_idx=PAD)
+    lookup = None
+    if "text_dictionary" in ckpt:
+        lookup, _ = parse_fairseq_dictionary(ckpt["text_dictionary"])
+    return cfg, roberta_state_dict_from_torch(sd, cfg.num_layers), lookup
+
+
+def roberta_state_dict_from_jax(params: Dict[str, Any], cfg: RobertaConfig
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX RobertaModel params -> the port's `RobertaModel` state_dict."""
+    p = params.get("params", params)
+    sd = {f"{name}.weight": _tensor(p[name]["embedding"])
+          for name in ("embed_tokens", "embed_positions")}
+    _norm(sd, "emb_layer_norm", p["emb_layer_norm"])
+    for i in range(cfg.num_layers):
+        _layer_from_jax(sd, f"layers.{i}", p[f"layer_{i}"])
+    return sd
+
+
+def pase_state_dict_from_jax(variables: Dict[str, Any], cfg: PaseConfig
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX PaseModel variables ({"params", "batch_stats"}) -> the port's
+    `PaseModel` state_dict: flax's (k, in, out) conv kernels, its scalar
+    PReLU slopes as [1], its BatchNorm statistics as the running ones."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = {"sinc.low_hz": _tensor(p["sinc"]["low_hz"]),
+          "sinc.band_hz": _tensor(p["sinc"]["band_hz"])}
+    names = [("sinc_bn", "sinc_bn", "sinc_act", "sinc_act")] + [
+        (f"blocks.{i}.bn", f"block{i}_bn", f"blocks.{i}.act", f"block{i}_act")
+        for i in range(len(cfg.fmaps))]
+    for bn, jax_bn, act, jax_act in names:
+        _bn(sd, bn, p[jax_bn], s[jax_bn])
+        sd[f"{act}.weight"] = _tensor(p[jax_act]["negative_slope"]).reshape(1)
+    for i in range(len(cfg.fmaps)):
+        conv = p[f"block{i}_conv"]
+        sd[f"blocks.{i}.conv.weight"] = _conv(conv["kernel"])
+        sd[f"blocks.{i}.conv.bias"] = _tensor(conv["bias"])
+        _linear(sd, f"denseskips.{i}", p[f"denseskip{i}"])
+    sd["qrnn.gates.weight"] = _conv(p["qrnn"]["gates"]["kernel"])
+    sd["qrnn.gates.bias"] = _tensor(p["qrnn"]["gates"]["bias"])
+    _linear(sd, "W", p["W"])
+    return sd

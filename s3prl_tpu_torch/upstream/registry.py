@@ -49,6 +49,15 @@ Ported entries, with the JAX package's names and configurations
   names: the L layer outputs), ``distilhubert`` / ``distiller``, the four
   ``lighthubert`` names and the six ``multires_hubert`` names, which raise
   for the keywords their JAX entries take and ignore;
+- the rest of the hub (registry.py:641-660, :718-727, :814-852, :914-972,
+  :1108-1146, :1273-1470, :1540-1543): ``spec_augment`` (models/baseline.py
+  `SpecAugmentFeatures`, nn/specaug.py), ``vggish`` (models/audio_cnn.py),
+  the AST family (models/ast.py) and the PaSST names (models/passt.py),
+  ``vq_wav2vec_kmeans_roberta`` / ``discretebert`` (models/roberta.py),
+  ``pase_plus`` (models/pase.py) and the ``hf_*`` entries (models/wav2vec2.py
+  `HfWav2Vec2`, upstream/convert_hf.py), on stock ops but the ``hf_*``
+  extractor's K3, their loaders in upstream/convert_zoo.py and
+  upstream/convert_hf.py;
 the trunks each in f32, bf16 and int8 W8A8 (``quantize=True``, the serving default),
 the int8 path with its opt-in fused projections (``qkv_fuse``,
 ``full_fuse``; ``wavlm_fuse``), the front-end options ``int8_conv`` (HuBERT
@@ -74,12 +83,15 @@ import math
 from dataclasses import replace
 from typing import Callable, Dict, List
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from ..models.apc import APCConfig, APCModel
+from ..models.ast import SSAST_FRAME, SSAST_PATCH, ASTConfig, ASTModel
+from ..models.audio_cnn import PATCH_FRAMES, VGGish
 from ..models.baseline import (BASELINE_CONFIGS, BaselineFeatures, ExampleModel, LogStft,
-                               WavPassthrough, mel_ssl_features)
+                               SpecAugmentFeatures, WavPassthrough, mel_ssl_features)
 from ..models.byol import (BYOL_A_512, BYOL_A_1024, BYOL_A_2048, BYOL_S_CVT, BYOL_S_DEFAULT,
                            BYOL_S_RESNETISH34, ByolModel, CvtLayerNorm, byol_embedding_size)
 from ..models.cpc import ChannelNorm, CPCConfig, CPCModel
@@ -91,9 +103,12 @@ from ..models.mockingjay import MockingjayConfig, MockingjayEncoder
 from ..models.mos import MosConfig, MosModel
 from ..models.multires_hubert import MultiresHubertConfig, MultiresHubertModel
 from ..models.npc import NPCConfig, NPCModel
+from ..models.pase import PaseConfig, PaseModel
+from ..models.passt import PASST_ENTRIES, PasstConfig, PasstModel
+from ..models.roberta import UNK, DiscreteBertPipeline, RobertaConfig
 from ..models.transformer import EspnetSelfAttention, SelfAttention
 from ..models.wav2vec1 import GumbelQuantizer, KmeansQuantizer, Wav2Vec1Config, Wav2Vec1Model
-from ..models.wav2vec2 import BASE, LARGE, Wav2Vec2Config, Wav2Vec2Trunk, card_refusal
+from ..models.wav2vec2 import BASE, LARGE, HfWav2Vec2, Wav2Vec2Config, Wav2Vec2Trunk, card_refusal
 from ..models.wavlm import (WAVLM_BASE, WAVLM_BASE_PLUS, WAVLM_LARGE, GatedSelfAttention,
                             WavLMConfig, WavLMModel)
 from ..nn.heads import lecun_normal_
@@ -103,8 +118,10 @@ from .convert import (load_distiller_checkpoint, load_espnet_hubert_checkpoint,
                       load_lighthubert_checkpoint, load_mel_ssl_checkpoint, load_mos_checkpoint,
                       load_multires_hubert_checkpoint, load_trunk_checkpoint,
                       load_wavlm_checkpoint)
-from .convert_zoo import (load_byol_checkpoint, load_cpc_checkpoint, load_decoar2_checkpoint,
-                          load_decoar_checkpoint, load_wav2vec1_checkpoint)
+from .convert_hf import HF_DEFAULT_ENTRY, hf_config, load_hf_directory
+from .convert_zoo import (load_ast_checkpoint, load_byol_checkpoint, load_cpc_checkpoint,
+                          load_decoar2_checkpoint, load_decoar_checkpoint, load_passt_checkpoint,
+                          load_roberta_checkpoint, load_wav2vec1_checkpoint)
 
 _REGISTRY: Dict[str, Callable[..., Upstream]] = {}
 
@@ -721,11 +738,13 @@ def mos_tera(**kwargs) -> Upstream:
 @torch.no_grad()
 def _init_flax(model: nn.Module, gen: torch.Generator) -> nn.Module:
     """flax's default initialisers in module order, drawn on the CPU from
-    `gen`: lecun-normal conv and dense kernels with zero biases; an RNN's
-    input kernels lecun-normal and each gate's recurrent [H, H] orthogonal
-    with zero biases (flax's cells); norms ones and zeros (BatchNorm
-    statistics 0 and 1); the vq-wav2vec codebooks, ChannelNorm and CvT's
-    LayerNorm by their own `reset_parameters`."""
+    `gen`: lecun-normal conv and dense kernels (an EncoderLayer's fused QKV
+    among them) with zero biases; an RNN's input kernels lecun-normal and
+    each gate's recurrent [H, H] orthogonal with zero biases (flax's cells);
+    norms ones and zeros (BatchNorm statistics 0 and 1); embeddings
+    normal(1 / sqrt(width)); PReLU slopes 0.01; the vq-wav2vec codebooks,
+    ChannelNorm and CvT's LayerNorm by their own `reset_parameters`, and a
+    model's own tables by its `flax_init_`."""
     for m in model.modules():
         if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             lecun_normal_(m.weight, m.weight[0].numel(), gen)
@@ -746,6 +765,18 @@ def _init_flax(model: nn.Module, gen: torch.Generator) -> nn.Module:
             m.reset_parameters()
         elif isinstance(m, (GumbelQuantizer, KmeansQuantizer, ChannelNorm, CvtLayerNorm)):
             m.reset_parameters(gen)
+        elif isinstance(m, SelfAttention):  # the fused QKV of an EncoderLayer
+            lecun_normal_(m.qkv_weight, m.qkv_weight.shape[1], gen)
+            m.qkv_bias.zero_()
+        elif isinstance(m, nn.Embedding):  # flax's variance_scaling(1, fan_in, normal)
+            width = m.weight.shape[1]
+            m.weight.copy_(torch.randn(m.weight.shape, generator=gen) / math.sqrt(width))
+        elif isinstance(m, nn.BatchNorm1d):
+            m.reset_parameters()
+        elif isinstance(m, nn.PReLU):
+            m.weight.fill_(0.01)
+        if hasattr(m, "flax_init_"):  # a model's own tables (positions, cls, sinc cutoffs)
+            m.flax_init_(gen)
     return model
 
 
@@ -927,6 +958,184 @@ def byol_s_resnetish34(**kwargs) -> Upstream:
 @register("byol_s_cvt")
 def byol_s_cvt(**kwargs) -> Upstream:
     return _byol_upstream("byol_s_cvt", BYOL_S_CVT, **kwargs)
+
+
+# -- the rest of the hub (registry.py:641-660, :718-727, :814-852, :914-972,
+# :1108-1146, :1273-1470, :1540-1543): SpecAugment, VGGish, the AST family,
+# PaSST, the vq-wav2vec RoBERTa pipeline, PASE+ and the hf_* entries; stock
+# ops but the hf_* extractor's K3
+
+
+def _no_ckpt(name: str, ckpt) -> None:
+    if ckpt is not None:
+        raise ValueError(f"ckpt cannot take effect on {name}: the JAX entry reads no checkpoint "
+                         "(it takes and ignores ckpt)")
+
+
+@register("spec_augment")
+def spec_augment(seed: int = 0, device=None, ckpt=None, **options) -> Upstream:
+    """fbank 80 + deltas + CMVN (240 dims, stride 160), masked in train mode
+    (registry.py:641-660; `SpecAugmentFeatures`); no weights, so ``ckpt``
+    raises (the JAX entry swallows it)."""
+    _no_ckpt("spec_augment", ckpt)
+    _refuse_options("spec_augment", "it has no model", options)
+    return Upstream(name="spec_augment", model=SpecAugmentFeatures(seed, _device(device)).eval(),
+                    num_layers=1, hidden_size=240, downsample_rate=160)
+
+
+@register("vggish")
+def vggish(seed: int = 0, device=None, ckpt=None, **options) -> Upstream:
+    """VGGish (registry.py:718-727): one 128-wide state a 0.96-s patch,
+    stride 96 x 160; f32, random weights from `seed` (the JAX entry reads no
+    checkpoint)."""
+    _no_ckpt("vggish", ckpt)
+    _refuse_options("vggish", "its CNN runs on stock ops", options)
+    model = _build(VGGish(device="meta"), None, seed, _device(device), _init_flax)
+    return Upstream(name="vggish", model=model, num_layers=1, hidden_size=128,
+                    downsample_rate=PATCH_FRAMES * 160)
+
+
+def _ast_upstream(name: str, cfg: ASTConfig, ckpt=None, dtype=torch.float32, seed: int = 0,
+                  device=None, **options) -> Upstream:
+    """An AST-family entry (registry.py:814-852) in f32 or bf16: `ckpt`
+    through `load_ast_checkpoint` or from `seed`; depth + 1 states, stride
+    160 * tstride."""
+    _refuse_options(name, "its blocks take eps 1e-6, which no kernel serves", options)
+    _model_dtype(name, dtype)
+    device = _device(device)
+    state_dict = None if ckpt is None else load_ast_checkpoint(ckpt, cfg)
+    model = _build(ASTModel(cfg, dtype, device="meta"), state_dict, seed, device, _init_flax)
+    return Upstream(name=name, model=model, num_layers=cfg.depth + 1, hidden_size=cfg.embed_dim,
+                    downsample_rate=160 * cfg.tstride)
+
+
+@register("ssast_patch_base")
+@register("ast")
+def ssast_patch(**kwargs) -> Upstream:
+    return _ast_upstream("ssast_patch", SSAST_PATCH, **kwargs)
+
+
+@register("ssast_frame_base")
+@register("mae_ast")
+def ssast_frame(**kwargs) -> Upstream:
+    return _ast_upstream("ssast_frame", SSAST_FRAME, **kwargs)
+
+
+# the catalog's MAE-AST names (registry.py:1540-1543)
+_REGISTRY["mae_ast_patch"] = ssast_patch
+_REGISTRY["mae_ast_frame"] = ssast_frame
+
+
+def _passt_upstream(name: str, cfg: PasstConfig, ckpt=None, dtype=torch.float32, seed: int = 0,
+                    device=None, **options) -> Upstream:
+    """A PaSST entry (registry.py:1273-1298) in f32 or bf16: `ckpt` through
+    `load_passt_checkpoint` or from `seed`; one state of the configuration's
+    embedding size every 50 ms."""
+    _refuse_options(name, "its blocks take eps 1e-6, which no kernel serves", options)
+    _model_dtype(name, dtype)
+    device = _device(device)
+    state_dict = None if ckpt is None else load_passt_checkpoint(ckpt, cfg)
+    model = _build(PasstModel(cfg, dtype, device="meta"), state_dict, seed, device, _init_flax)
+    return Upstream(name=name, model=model, num_layers=1, hidden_size=cfg.embedding_size,
+                    downsample_rate=int(cfg.timestamp_hop_ms * 16))
+
+
+def _passt_entry(name: str):
+    def factory(**kwargs) -> Upstream:
+        return _passt_upstream(name, PASST_ENTRIES[name], **kwargs)
+    factory.__name__ = name
+    return factory
+
+
+for _name in PASST_ENTRIES:
+    _REGISTRY[_name] = _passt_entry(_name)
+_REGISTRY["passt"] = _REGISTRY["passt_base"]
+
+
+@register("vq_wav2vec_kmeans_roberta")
+@register("discretebert")
+def vq_wav2vec_kmeans_roberta(ckpt=None, frontend_ckpt=None, seed: int = 0,
+                              dtype=torch.float32, device=None, **options) -> Upstream:
+    """vq-wav2vec k-means codes -> RoBERTa (registry.py:1378-1470; models/
+    roberta.py): `ckpt` an s3prl-converted RoBERTa checkpoint
+    (`load_roberta_checkpoint`; its dictionary gives the code-pair lookup,
+    else every pair is <unk>), `frontend_ckpt` a vq-wav2vec k-means one
+    (`load_wav2vec1_checkpoint`); what neither gives is drawn from `seed`
+    (RoBERTa at 4 layers over the dense lookup 4 + a V + b). f32, as the
+    JAX pipeline (which takes and ignores ``dtype``)."""
+    _refuse_options("vq_wav2vec_kmeans_roberta", "its RoBERTa and vq-wav2vec run on stock ops",
+                    options)
+    _f32_only("vq_wav2vec_kmeans_roberta", dtype)
+    device = _device(device)
+    w2v_cfg, w2v_sd = ((VQ_WAV2VEC_KMEANS, None) if frontend_ckpt is None
+                       else load_wav2vec1_checkpoint(frontend_ckpt))
+    V = w2v_cfg.vq_vars
+    if ckpt is not None:
+        rob_cfg, rob_sd, lookup = load_roberta_checkpoint(ckpt)
+        if lookup is None:
+            lookup = np.full((V, V), UNK, np.int64)
+    else:
+        rob_cfg, rob_sd = RobertaConfig(num_layers=4, vocab_size=V * V + 5), None
+        lookup = np.minimum(4 + np.arange(V * V).reshape(V, V), rob_cfg.vocab_size - 1)
+    model = DiscreteBertPipeline(w2v_cfg, rob_cfg, device="meta")
+    model.to_empty(device="cpu")
+    _init_flax(model, torch.Generator().manual_seed(seed))
+    for part, state_dict in ((model.w2v, w2v_sd), (model.roberta, rob_sd)):
+        if state_dict is not None:
+            part.load_state_dict(state_dict, strict=True)
+    model.set_lookup(lookup)
+    return Upstream(name="vq_wav2vec_kmeans_roberta", model=model.to(device).eval(),
+                    num_layers=rob_cfg.num_layers + 1, hidden_size=rob_cfg.hidden_size,
+                    downsample_rate=160)
+
+
+@register("pase_plus")
+def pase_plus(ckpt=None, seed: int = 0, dtype=torch.float32, device=None,
+              **options) -> Upstream:
+    """PASE+ (registry.py:1108-1146; models/pase.py) from `seed`: nine
+    256-wide states at stride 160, computed in f32 and cast to `dtype` (f32
+    or bf16). A ``ckpt`` raises NotImplementedError, as the JAX entry's."""
+    _refuse_options("pase_plus", "its model runs on stock ops", options)
+    if ckpt is not None:
+        raise NotImplementedError(
+            "pase_plus: converting a checkpoint needs the external pase package's artifact "
+            "layout, which neither package reads (s3prl_tpu/upstream/registry.py:1122-1127)")
+    _model_dtype("pase_plus", dtype)
+    model = _build(PaseModel(PaseConfig(), dtype, device="meta"), None, seed, _device(device),
+                   _init_flax)
+    return Upstream(name="pase_plus", model=model, num_layers=9, hidden_size=model.cfg.emb_dim,
+                    downsample_rate=160)
+
+
+def _hf_upstream(name: str, ckpt=None, seed: int = 0, dtype=torch.float32, device=None,
+                 **options) -> Upstream:
+    """transformers' wav2vec2 / HuBERT on the port's trunk (registry.py:
+    914-972; `HfWav2Vec2`): `ckpt` a local directory (`load_hf_directory`),
+    else transformers' Wav2Vec2Config(do_stable_layer_norm=True,
+    feat_extract_norm="layer") from `seed`: 12 x 768, 13 states, stride
+    320; f32, K3 in the extractor; eval computation in train mode too."""
+    _refuse_options(name, "its layers run transformers' computation on stock ops (the JAX entry "
+                    "runs FlaxWav2Vec2Model)", options)
+    _f32_only(name, dtype)
+    device = _device(device)
+    cfg, state_dict = ((hf_config(HF_DEFAULT_ENTRY), None) if ckpt is None
+                       else load_hf_directory(ckpt))
+    model = _build_trunk(HfWav2Vec2(cfg, device="meta"), state_dict, seed, device)
+    return Upstream(name=name, model=model, num_layers=cfg.encoder_layers + 1,
+                    hidden_size=cfg.encoder_embed_dim, downsample_rate=cfg.downsample_rate)
+
+
+@register("hf_wav2vec2")
+@register("hf_wav2vec2_custom")
+def hf_wav2vec2(**kwargs) -> Upstream:
+    return _hf_upstream("hf_wav2vec2", **kwargs)
+
+
+@register("hf_hubert")
+@register("hf_hubert_custom")
+def hf_hubert(**kwargs) -> Upstream:
+    """HuBERT directories ride the same wav2vec2 model (registry.py:966-972)."""
+    return _hf_upstream("hf_hubert", **kwargs)
 
 
 # the hubconf name surface on top of these entries (the JAX package imports it

@@ -2472,3 +2472,103 @@ def test_conv_recurrent_windowed_zoo_on_the_card(dev, monkeypatch, entry, dtype)
             _, _, codes_cpu = cpu.model(wavs, lens, return_code_ids=True)
         valid = torch.arange(codes_cpu.shape[1])[None] < feat_lens.cpu()[:, None]
         assert float((codes.cpu() == codes_cpu)[valid].float().mean()) >= 0.995
+
+
+def _valid_cosines(got, want, h_lens):
+    """Per-layer cosine of card and CPU states over the valid frames."""
+    out = []
+    for layer in range(got.shape[0]):
+        a = torch.cat([got[layer, b, :n].double().cpu() for b, n in enumerate(h_lens)])
+        b = torch.cat([want[layer, b, :n].double() for b, n in enumerate(h_lens)])
+        out.append(float((a * b).sum() / (a.norm() * b.norm())))
+    return out
+
+
+@pytest.mark.parametrize("entry,dtype,launches", [
+    ("ast", torch.float32, {}), ("ssast_frame_base", torch.bfloat16, {}),
+    ("passt_hop100base2lvlmel", torch.float32, {}), ("vggish", None, {}),
+    ("discretebert", None, {}), ("pase_plus", torch.float32, {}), ("spec_augment", None, {}),
+    ("hf_wav2vec2", None, {"conv0_ln_gelu": 1})])
+def test_rest_of_the_zoo_on_the_card(dev, monkeypatch, entry, dtype, launches):
+    """The AST family and PaSST (cut to two blocks), VGGish, the
+    vq-wav2vec -> RoBERTa pipeline, PASE+, SpecAugment and hf_wav2vec2 from
+    one seed on the card and on the CPU: the launches (K3 once on the HF
+    entry, none elsewhere), the lengths equal, per-layer cosine > 0.999 over
+    the valid frames (0.99 for RoBERTa's states, whose tokens come from
+    k-means codes equal on at least 99.5% of the frames); SpecAugment's
+    train mode on the card masks within its bands and leaves every other
+    value as eval mode's."""
+    import dataclasses
+
+    import s3prl_tpu_torch.upstream.registry as registry
+    from s3prl_tpu_torch import hub
+    from s3prl_tpu_torch.nn import specaug
+
+    for name in ("SSAST_PATCH", "SSAST_FRAME"):
+        monkeypatch.setattr(registry, name, dataclasses.replace(getattr(registry, name), depth=2))
+    for name, cfg in registry.PASST_ENTRIES.items():
+        monkeypatch.setitem(registry.PASST_ENTRIES, name, dataclasses.replace(cfg, depth=2))
+    kw = {} if dtype is None else {"dtype": dtype}
+    gpu = hub.load(entry, seed=3, **kw)
+    cpu = hub.load(entry, seed=3, device="cpu", **kw)
+    rng = np.random.RandomState(7)
+    lens = torch.tensor([24000, 16001, 801])
+    wavs = torch.from_numpy(rng.randn(3, 24000).astype(np.float32)) * (
+        torch.arange(24000)[None] < lens[:, None])
+    for w in wrappers():
+        w.launches = 0
+    got, got_lens = gpu.apply_standardized(wavs.to(dev), lens.to(dev))
+    torch.cuda.synchronize()
+    assert {w.__name__: w.launches for w in wrappers() if w.launches} == launches
+    want, h_lens = cpu.apply_standardized(wavs, lens)
+    assert got_lens.tolist() == h_lens.tolist() and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    bar = 0.999
+    if entry == "discretebert":
+        with torch.inference_mode():
+            _, n, codes = gpu.model.w2v(wavs.to(dev), lens.to(dev), return_code_ids=True)
+            _, _, codes_cpu = cpu.model.w2v(wavs, lens, return_code_ids=True)
+        valid = torch.arange(codes_cpu.shape[1])[None] < n.cpu()[:, None]
+        assert float((codes.cpu() == codes_cpu)[valid].float().mean()) >= 0.995
+        bar = 0.99
+    assert min(_valid_cosines(got, want, h_lens.tolist())) > bar
+    if entry == "spec_augment":
+        model = gpu.model.train()
+        gen = torch.Generator(device=dev).manual_seed(5)
+        with torch.inference_mode():
+            masked, feat_lens = model(wavs.to(dev), lens.to(dev), generator=gen)
+            plain, _ = model.eval()(wavs.to(dev), lens.to(dev))
+        B, T, D = plain.shape[1:]
+        gen = torch.Generator(device=dev).manual_seed(5)
+        fb, tb = specaug.draw_bands(gen, B, D, 2, 27), specaug.draw_bands(gen, B, T, 2, 100)
+        assert int(fb[1].max()) <= 27 and int(tb[1].max()) <= 100
+        assert torch.equal(masked[0], specaug.mask_bands(plain[0], feat_lens, fb, tb))
+
+
+@pytest.mark.parametrize("activation", ["relu", "swish"])
+def test_swish_trunk_on_the_card(dev, activation):
+    """A pre-LN trunk (two layers at 128 wide, head dim 64) with
+    activation_fn relu / swish in int8 serving (bf16, flash, quantize): K3
+    once and K7 once a layer, none of K1, K2, K4, K5 or K12; per-layer
+    cosine > 0.999 against the same model on the CPU."""
+    import dataclasses
+
+    import s3prl_tpu_torch.upstream.registry as registry
+
+    cfg = dataclasses.replace(registry.HUBERT_LARGE, encoder_layers=2, encoder_embed_dim=128,
+                              encoder_ffn_embed_dim=256, encoder_attention_heads=2, conv_pos=16,
+                              conv_pos_groups=4, activation_fn=activation)
+    gpu = registry._trunk_upstream("trunk", cfg, torch.bfloat16, flash=True, quantize=True,
+                                   seed=3)
+    cpu = registry._trunk_upstream("trunk", cfg, torch.bfloat16, flash=True, quantize=True,
+                                   seed=3, device="cpu")
+    wavs, lens = _tiny_batch()
+    for w in wrappers():
+        w.launches = 0
+    got, got_lens = gpu.apply_standardized(wavs.to(dev), lens.to(dev))
+    torch.cuda.synchronize()
+    assert {w.__name__: w.launches for w in wrappers() if w.launches} == {
+        "conv0_ln_gelu": 1, "fused_qkv_attention": 2}
+    want, h_lens = cpu.apply_standardized(wavs, lens)
+    assert got_lens.tolist() == h_lens.tolist()
+    assert min(_valid_cosines(got, want, h_lens.tolist())) > 0.999

@@ -1,5 +1,5 @@
-"""The port's hub name surface vs s3prl_tpu's (CPU): its 176 names, the
-33 of the JAX hub still to port (pinned), `options(only_registered_ckpt)`,
+"""The port's hub name surface vs s3prl_tpu's (CPU): all 209 names of the
+JAX hub (none left to port, pinned), `options(only_registered_ckpt)`,
 the generic ``*_local`` / ``*_url`` / ``*_custom`` loaders and the named
 checkpoint variants against the JAX aliases, ``baseline_local``'s yaml
 loader, and the small front ends ``wav``, ``log_stft`` and ``example``
@@ -21,25 +21,18 @@ from s3prl_tpu_torch import hub
 from s3prl_tpu_torch.upstream.aliases import _GENERIC_LOADERS, _NAMED_VARIANTS
 from test_torch_port_audio import DEGENERATE, LENS, _batch, quantile_rule
 
-# the JAX hub's names the port has not yet (ROADMAP.md Queue 1 items 8.5-8.8)
-NOT_YET = sorted([
-    "ast", "ssast_frame_base", "ssast_patch_base", "mae_ast", "mae_ast_frame", "mae_ast_local",
-    "mae_ast_patch", "mae_ast_url", "passt", "passt_base", "passt_base20sec", "passt_base2level",
-    "passt_base2levelmel", "passt_base30sec", "passt_hop100base", "passt_hop100base2lvl",
-    "passt_hop100base2lvlmel", "passt_hop160base", "passt_hop160base2lvl",
-    "passt_hop160base2lvlmel", "vggish", "discretebert", "vq_wav2vec_kmeans_roberta",
-    "pase_local", "pase_plus", "pase_url", "spec_augment", "spec_augment_local",
-    "spec_augment_url", "hf_hubert", "hf_hubert_custom", "hf_wav2vec2", "hf_wav2vec2_custom"])
+# the JAX hub's names the port has not yet: none since ROADMAP.md Queue 1
+# item 8 closed
+NOT_YET = []
 
 
 def test_names():
-    """176 names, every one the JAX hub's; the JAX hub's others are exactly
-    the 33 still to port; every name an attribute of the hub."""
+    """209 names, exactly the JAX hub's (none still to port); every name an
+    attribute of the hub."""
     names = hub.options()
-    assert len(names) == 176 == len(set(names))
-    assert set(names) <= set(jax_hub.options())
-    assert sorted(set(jax_hub.options()) - set(names)) == NOT_YET
-    assert len(NOT_YET) == 33
+    assert len(names) == 209 == len(set(names))
+    assert names == jax_hub.options()
+    assert sorted(set(jax_hub.options()) - set(names)) == NOT_YET == []
     assert all(name in dir(hub) for name in names)
 
 

@@ -228,10 +228,10 @@ def test_registry_refuses_what_is_not_ported(monkeypatch, tmp_path):
         hub.load("hubert_large_ll60k", download=True, device="cpu")
     with pytest.raises(NotImplementedError, match="layer_type 'trf_adp'"):
         Wav2Vec2Trunk(Wav2Vec2Config(layer_type="trf_adp"), device="meta")
-    # every name of the JAX hub but the 33 still to port (ROADMAP.md Queue 1
-    # items 8.5-8.8, pinned in test_torch_port_hub_names.py)
+    # every name of the JAX hub (none left to port, pinned in
+    # test_torch_port_hub_names.py)
     assert hub.options() == sorted(set(jax_hub.options()) - set(NOT_YET))
-    assert len(hub.options()) == 176
+    assert len(hub.options()) == 209
     # quantize=True loads (the entry at the tiny width: same code path)
     monkeypatch.setattr(port_registry, "HUBERT_LARGE", PCFG)
     up = hub.load("hubert_large_ll60k", dtype=torch.bfloat16, flash=True, quantize=True,
@@ -301,10 +301,14 @@ def test_port_never_imports_jax():
         "import s3prl_tpu_torch.upstream.aliases, s3prl_tpu_torch.upstream.convert_zoo\n"
         "import s3prl_tpu_torch.models.wav2vec1, s3prl_tpu_torch.models.cpc\n"
         "import s3prl_tpu_torch.models.decoar, s3prl_tpu_torch.models.byol\n"
-        "assert len(s3prl_tpu_torch.hub.options()) == 176\n"
+        "import s3prl_tpu_torch.models.ast, s3prl_tpu_torch.models.passt\n"
+        "import s3prl_tpu_torch.models.audio_cnn, s3prl_tpu_torch.models.roberta\n"
+        "import s3prl_tpu_torch.models.pase, s3prl_tpu_torch.nn.specaug\n"
+        "import s3prl_tpu_torch.upstream.convert_hf\n"
+        "assert len(s3prl_tpu_torch.hub.options()) == 209\n"
         "assert len(s3prl_tpu_torch.kernels.wrappers()) == 19\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 's3prl_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 's3prl_tpu', 'transformers')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
