@@ -137,22 +137,22 @@ the phases it lists, 3-6 together, and prints no result line):
  5. the same seed's models on the CPU (copies of the card's; the kernel
     wrappers' plain versions)
     against the card, per-layer cosine > 0.999 over valid frames, for each
-    path: HuBERT on B=2 x 2 s, then on B=2 x 4 s with MAX_BLOCK_T = 64 (K6 /
-    K7) and with MAX_KERNEL_T = 128 as well (K8); WavLM on B=2 x 2 s (K9)
-    and B=2 x 4 s with MAX_KERNEL_T = 128 (K10); HuBERT ``full_fuse`` on
-    B=2 x 2 s and, with MAX_KERNEL_T = 128, B=2 x 4 s (K8), ``qkv_fuse`` on
-    B=2 x 4 s with MAX_BLOCK_T = 64, WavLM ``wavlm_fuse`` on B=2 x 2 s and,
-    with MAX_KERNEL_T = 128, B=2 x 4 s (K10, no K11), and each front-end
-    option on B=2 x 2 s; each pos-conv option on B=2 x 2 s, and again with
+    path: HuBERT on B=2 x 1.5 s, then on B=2 x 3 s with MAX_BLOCK_T = 64 (K6 /
+    K7) and with MAX_KERNEL_T = 128 as well (K8); WavLM on B=2 x 1.5 s (K9)
+    and B=2 x 3 s with MAX_KERNEL_T = 128 (K10); HuBERT ``full_fuse`` on
+    B=2 x 1.5 s and, with MAX_KERNEL_T = 128, B=2 x 3 s (K8), ``qkv_fuse`` on
+    B=2 x 3 s with MAX_BLOCK_T = 64, WavLM ``wavlm_fuse`` on B=2 x 1.5 s and,
+    with MAX_KERNEL_T = 128, B=2 x 3 s (K10, no K11), and each front-end
+    option on B=2 x 1.5 s; each pos-conv option on B=2 x 1.5 s, and again with
     MAX_POSCONV_T = 64 (the stock conv: no K16 launch); HuBERT-Base int8 and
-    bf16 on B=2 x 2 s (K1 / K4 postnorm) and on B=2 x 4 s with MAX_BLOCK_T =
+    bf16 on B=2 x 1.5 s (K1 / K4 postnorm) and on B=2 x 3 s with MAX_BLOCK_T =
     64 (K6 on raw x / K7); WavLM-Base int8, bf16 and ``wavlm_fuse`` on B=2 x
-    2 s (K9; K11) (their K8 / K10 cases, the Large models' routes, cut since
+    1.5 s (K9; K11) (their K8 / K10 cases, the Large models' routes, cut since
     PR 24); wav2vec2-Large and
-    data2vec-Large int8 and bf16 on B=3 x 2 s with a 1-sample utterance (K1
-    / K4) and on B=3 x 4 s with MAX_BLOCK_T = 64 (K6 / K7), kv_len 0 in
+    data2vec-Large int8 and bf16 on B=3 x 1.5 s with a 1-sample utterance (K1
+    / K4) and on B=3 x 3 s with MAX_BLOCK_T = 64 (K6 / K7), kv_len 0 in
     each (their K8 case, HuBERT's, cut since PR 24); UniSpeech-SAT int8
-    and bf16 on B=2 x 2 s (K9). Then the JAX
+    and bf16 on B=2 x 1.5 s (K9). Then the JAX
     package's quality gates at full
     depth on the card, against the f32 model (flash=False) of the same
     weights (wav2vec2-Large and data2vec-Large as HuBERT-Large, without
@@ -382,6 +382,26 @@ the phases it lists, 3-6 together, and prints no result line):
     per-layer cosine > 0.999; the pipeline's codes equal on >= 99.5% of
     the frames and its states > 0.99); SpecAugment's train mode on the card
     (its bands, inside the lengths, the unmasked values eval mode's).
+17. SSL pretraining (`pretrain_phase`): every recipe but the Examples
+    (Mockingjay, TERA, AudioALBERT, SpecAugment, APC, VQ-APC, NPC,
+    DistilHuBERT, HuBERT, data2vec) at its JAX default config and batch
+    size (8; 32 for APC, VQ-APC and NPC; 12 for the distiller) on pseudo
+    waves of 2-15 s: three Trainer steps, each launching K3 once in
+    data2vec's EMA teacher and nothing elsewhere, finite losses, the last two
+    timed (ms, audio-s/s, peak memory); one more profiled (idle share,
+    "not valid" where kernels overlap on streams);
+    data2vec's teacher K3 against its plain version at the step's shapes,
+    and again after an EMA moved the teacher (the launch reads the moved
+    weights); one update of each against the CPU on B=2 x 1.5-2 s with the
+    same draws and dropouts 0 (loss and gradient norm at rtol 1e-3,
+    gradients at cosine > 0.999; the update, step and post_update, against
+    its replay on the CPU from the card's gradients, each tensor's change
+    within 1e-3 in norm);
+    PretrainHubert's prepare_units on a minute of audio (the units against
+    its centroids; k-means card vs CPU from one init); a whole
+    PretrainData2Vec Problem.run of 2 steps (K3 twice) and hub.load
+    ("data2vec", ckpt=<its train dir>) on the card against the trained
+    student.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2515,17 +2535,22 @@ def check_probe_step_on_cpu(up, trainer, batch, train=False):
     check(max(rel) < 1e-3 and min(coss.values()) > PROBE_COS, "probe step card vs CPU")
 
 
-def profile_calls(fn, iters=3):
+def profile_calls(fn, iters=3, warm=True, cpu=True):
     """(device idle share, {kernel name: device ms a call}) over `iters`
-    calls: 1 - the profiler's summed kernel time over the event time
-    (tools/torch_wavlm_breakdown.py's `idle_share`)."""
+    calls (after one unprofiled call unless `warm` is False: the caller
+    has just run it): 1 - the profiler's summed kernel time over the event
+    time (tools/torch_wavlm_breakdown.py's `idle_share`). `cpu=False`
+    traces the device alone (no host op events: less host overhead in the
+    traced calls, and far less to sum where a step launches ~10^4 kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         start.record()
         for _ in range(iters):
             fn()
@@ -2534,6 +2559,12 @@ def profile_calls(fn, iters=3):
     kernels = {evt.key: evt.self_device_time_total / 1e3 / iters for evt in prof.key_averages()
                if evt.device_type == DeviceType.CUDA}
     return 1.0 - sum(kernels.values()) / (start.elapsed_time(end) / iters), kernels
+
+
+def idle_text(idle):
+    """An idle share from `profile_calls` as printed: "not valid" where the
+    kernel time summed over streams exceeds the calls' time (below 0)."""
+    return f"{idle:.3f}" if idle >= 0 else f"not valid ({idle:.3f}: kernels overlap on streams)"
 
 
 def time_probe_step(up, trainer, batch, smi):
@@ -2569,7 +2600,8 @@ def time_probe_step(up, trainer, batch, smi):
     extra = {name: ms - fwd_k.get(name, 0.0) for name, ms in step_k.items()}
     top = sorted(extra.items(), key=lambda kv: -kv[1])[:10]
     log(f"[profile] probe hubert int8 B={PROBE_B}: device idle share train step "
-        f"{prof['train step'][0]:.3f}, frozen forward alone {prof['frozen forward alone'][0]:.3f};"
+        f"{idle_text(prof['train step'][0])}, frozen forward alone "
+        f"{idle_text(prof['frozen forward alone'][0])};"
         f" kernel time a step {sum(step_k.values()):.2f} ms, forward {sum(fwd_k.values()):.2f} "
         f"ms; the step's kernels beyond the forward's (ms a step): "
         + "; ".join(f"{name[:70]} {ms:.3f}" for name, ms in top))
@@ -2862,7 +2894,8 @@ def time_asr_step(up, trainer, batch, smi):
     # summed over streams can exceed the step's time, so this idle share is
     # a lower bound
     log(f"[profile] asr hubert int8 B={ASR_B}: device idle share train step "
-        f"{prof['train step'][0]:.3f}, frozen forward alone {prof['frozen forward alone'][0]:.3f};"
+        f"{idle_text(prof['train step'][0])}, frozen forward alone "
+        f"{idle_text(prof['frozen forward alone'][0])};"
         f" kernel time a step {sum(step_k.values()):.2f} ms, forward {sum(fwd_k.values()):.2f} "
         f"ms, beyond it {sum(extra.values()):.2f} ms (by name: "
         + ", ".join(f"{g} {ms:.2f} ms" for g, ms in shares.items())
@@ -3242,7 +3275,8 @@ def time_speaker_step(name, up, trainer, batch, smi):
                     "other")] += ms
     top = sorted(extra.items(), key=lambda kv: -kv[1])[:10]
     log(f"[profile] {name} hubert int8 B={B}: device idle share train step "
-        f"{prof['train step'][0]:.3f}, frozen forward alone {prof['frozen forward alone'][0]:.3f};"
+        f"{idle_text(prof['train step'][0])}, frozen forward alone "
+        f"{idle_text(prof['frozen forward alone'][0])};"
         f" kernel time a step {sum(step_k.values()):.2f} ms, forward {sum(fwd_k.values()):.2f} "
         f"ms, beyond it {sum(extra.values()):.2f} ms (by name: "
         + ", ".join(f"{g} {ms:.2f} ms" for g, ms in shares.items())
@@ -3639,8 +3673,9 @@ def time_recipe_step(name, up, trainer, batch, smi):
     (step, peak, idle), (fwd, peak_fwd, idle_fwd) = out["train step"], out["frozen forward alone"]
     log(f"[timing] {name} hubert int8 {batch['x'].shape[0]} rows ({audio:.1f} s of audio, padded "
         f"to {batch['x'].shape[1] / SR:.2f} s): train step {step:.2f} ms ("
-        f"{audio / (step / 1e3):.1f} audio-s/s, peak {peak:.2f} GiB, idle {idle:.3f}), frozen "
-        f"forward alone {fwd:.2f} ms (peak {peak_fwd:.2f} GiB, idle {idle_fwd:.3f}), beyond it "
+        f"{audio / (step / 1e3):.1f} audio-s/s, peak {peak:.2f} GiB, idle {idle_text(idle)}), "
+        f"frozen forward alone {fwd:.2f} ms (peak {peak_fwd:.2f} GiB, idle "
+        f"{idle_text(idle_fwd)}), beyond it "
         f"{step - fwd:.2f} ms; {smi}")
 
 
@@ -4065,7 +4100,8 @@ def check_sg_decode(up, batch, smi):
     check(tokens.shape == (batch["x"].shape[0], task.max_decode_len), f"decode {tokens.shape}")
     log(f"[timing] st greedy_decode hubert int8 {tokens.shape[0]} rows x {task.max_decode_len} "
         f"steps (the decoder over the whole [B, {task.max_decode_len + 1}] buffer each step): "
-        f"{best:.1f} ms ({best / task.max_decode_len:.3f} ms a step, idle {idle:.3f}); {smi}; "
+        f"{best:.1f} ms ({best / task.max_decode_len:.3f} ms a step, idle "
+        f"{idle_text(idle)}); {smi}; "
         f"tokens before <eos> a row {lengths}; rows matching the CPU's tokens {match:.2f} of "
         f"{n} ({seconds:.1f} s on the CPU)")
 
@@ -4527,7 +4563,7 @@ def time_steps(label, fns, audio, smi, iters=6):
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
         log(f"[timing] {label} {what}: {out[what]:.2f} ms/step, {audio / (out[what] / 1e3):.1f} "
             f"audio-s/s (chains {lo}: {best[what, lo]:.1f} ms, {hi}: {best[what, hi]:.1f} ms), "
-            f"peak device memory {peak:.2f} GiB, device idle share {idle:.3f}; {smi}")
+            f"peak device memory {peak:.2f} GiB, device idle share {idle_text(idle)}; {smi}")
         log(f"[profile] {label} {what}: kernel time {sum(kernels.values()):.2f} ms a call; the "
             "largest (ms a call): " + "; ".join(f"{k[:70]} {ms:.3f}" for k, ms in top))
     return out
@@ -4824,7 +4860,7 @@ def zoo_phase(wrapper, gen, dev, smi):
         del hs
         fn = lambda: card.apply_standardized(x, lens_d)  # noqa: E731
         ms = cuda_ms(fn, ZOO_ITERS)
-        idle, _ = profile_calls(fn, iters=2)
+        idle, _ = profile_calls(fn, iters=2, cpu=False)
         cpu = on_cpu(card)
         got, got_lens = card.apply_standardized(x_small.to(dev), small_lens.to(dev))
         t0 = time.perf_counter()
@@ -4836,7 +4872,8 @@ def zoo_phase(wrapper, gen, dev, smi):
         log(f"[zoo] {name} {dtype}{' flash' if flash else ''} ({params:.1f}M parameters, "
             f"{card.num_layers} x {card.hidden_size}) B={ZOO_B} x 2-{ZOO_SECS} s: launches "
             f"{run or 'none'} (every other count 0); {ms:.2f} ms a forward "
-            f"({audio / (ms / 1e3):.1f} audio-s/s), device idle share {idle:.3f}; card vs CPU "
+            f"({audio / (ms / 1e3):.1f} audio-s/s), device idle share {idle_text(idle)}; card "
+            f"vs CPU "
             f"B=2 x 1.3-2 s layer cosines min {min(coss):.6f}; loads {loaded:.1f} s, CPU "
             f"forward {cpu_s:.1f} s; {smi}")
         check(min(coss) > COS_LAYER, f"{name} {dtype} card vs CPU {coss}")
@@ -4905,7 +4942,7 @@ def zoo2_phase(wrapper, gen, dev, smi):
         del hs
         fn = lambda: card.apply_standardized(x, lens_d)  # noqa: E731
         ms = cuda_ms(fn, ZOO_ITERS)
-        idle, _ = profile_calls(fn, iters=2)
+        idle, _ = profile_calls(fn, iters=2, cpu=False)
         cpu = on_cpu(card)
         got, got_lens = card.apply_standardized(x_small.to(dev), small_lens.to(dev))
         t0 = time.perf_counter()
@@ -4919,7 +4956,7 @@ def zoo2_phase(wrapper, gen, dev, smi):
         log(f"[zoo2] {name} {dtype or ''} ({params:.1f}M parameters, {card.num_layers} x "
             f"{card.hidden_size}, stride {stride}) B={ZOO_B} x 2-{ZOO_SECS} s: no launch; "
             f"{ms:.2f} ms a forward ({audio / (ms / 1e3):.1f} audio-s/s), device idle share "
-            f"{idle:.3f}; card vs CPU B=2 x 1.3-2 s layer cosines min {min(coss):.6f}"
+            f"{idle_text(idle)}; card vs CPU B=2 x 1.3-2 s layer cosines min {min(coss):.6f}"
             f"{'' if share is None else f', codes equal {share:.4f}'}; loads {loaded:.1f} s, "
             f"CPU forward {cpu_s:.1f} s; {smi}")
         check(min(coss) > COS_LAYER if share is None else (
@@ -4980,6 +5017,10 @@ def spec_augment_check(card, x, lens, dev):
     return secs, int(changed.sum())
 
 
+# ZOO3 entries whose B=8 x 10 s forward takes seconds: timed over one call
+SLOW_ZOO3 = ("passt_hop100base2lvlmel",)
+
+
 def zoo3_phase(wrapper, gen, dev, smi):
     """Phase 16: each ZOO3 entry from seed 0 at its published width through
     hub.load on the card: one apply_standardized on B=8 x 2-10 s with its
@@ -4994,6 +5035,7 @@ def zoo3_phase(wrapper, gen, dev, smi):
     import tempfile
 
     from s3prl_tpu_torch import hub
+    from s3prl_tpu_torch.upstream.base import standardize_hidden_states
 
     rng = np.random.RandomState(16)
     n = ZOO_SECS * SR
@@ -5031,17 +5073,22 @@ def zoo3_phase(wrapper, gen, dev, smi):
                   and bool(torch.isfinite(hs).all()), f"{name} {tuple(hs.shape)}")
             del hs
             fn = lambda: card.apply_standardized(x, lens_d)  # noqa: E731
-            ms = cuda_ms(fn, ZOO_ITERS)
-            idle, _ = profile_calls(fn, iters=2)
+            slow = name in SLOW_ZOO3  # a forward of seconds: one timed, one profiled
+            ms = cuda_ms(fn, 1 if slow else ZOO_ITERS)
+            idle, _ = profile_calls(fn, iters=1 if slow else 2, cpu=False)
             cpu = on_cpu(card)
+            # one forward a side gives both the model's lengths and the states
+            # (`Upstream.standardized`'s rule on them: 2 s needs no padding)
             with torch.inference_mode():
-                _, raw = card.model(x_small.to(dev), small_lens.to(dev))
-                _, raw_cpu = cpu.model(x_small, small_lens)
+                raw_hs, raw = card.model(x_small.to(dev), small_lens.to(dev))
+                t0 = time.perf_counter()
+                raw_hs_cpu, raw_cpu = cpu.model(x_small, small_lens)
+                cpu_s = time.perf_counter() - t0
             check(torch.equal(raw.cpu(), raw_cpu), f"{name} the model's lengths {raw} {raw_cpu}")
-            got, got_lens = card.apply_standardized(x_small.to(dev), small_lens.to(dev))
-            t0 = time.perf_counter()
-            want, want_lens = cpu.apply_standardized(x_small, small_lens)
-            cpu_s = time.perf_counter() - t0
+            got, got_lens = standardize_hidden_states(raw_hs, small_lens.to(dev),
+                                                      x_small.shape[1], stride)
+            want, want_lens = standardize_hidden_states(raw_hs_cpu, small_lens,
+                                                        x_small.shape[1], stride)
             check(torch.equal(got_lens.cpu(), want_lens), f"{name} CPU lengths")
             coss = layer_cosines(got.float().cpu(), want.float(), want_lens.tolist())
             share = None
@@ -5056,7 +5103,8 @@ def zoo3_phase(wrapper, gen, dev, smi):
             log(f"[zoo3] {name} ({params:.1f}M parameters, {card.num_layers} x "
                 f"{card.hidden_size}, stride {stride}) B={ZOO_B} x 2-{ZOO_SECS} s: launches "
                 f"{run or 'none'} (every other count 0); {ms:.2f} ms a forward "
-                f"({audio / (ms / 1e3):.1f} audio-s/s), device idle share {idle:.3f}; card vs "
+                f"({audio / (ms / 1e3):.1f} audio-s/s), device idle share "
+                f"{idle_text(idle)}; card vs "
                 f"CPU B=2 x 1.3-2 s layer cosines min {min(coss):.6f}"
                 f"{'' if share is None else f', codes equal {share:.4f}'}{extra}; loads "
                 f"{loaded:.1f} s, CPU forward {cpu_s:.1f} s; {smi}")
@@ -5067,7 +5115,435 @@ def zoo3_phase(wrapper, gen, dev, smi):
             torch.cuda.empty_cache()
 
 
-ALL_PHASES = frozenset(range(3, 17))
+# -- phase 17: SSL pretraining at published widths
+# recipe -> the JAX recipe's default batch size (problem/pretrain.py)
+PRETRAIN = {"PretrainMockingjay": 8, "PretrainTera": 8, "PretrainAudioAlbert": 8,
+            "PretrainSpecAugment": 8, "PretrainAPC": 32, "PretrainVqApc": 32,
+            "PretrainNPC": 32, "PretrainDistiller": 12, "PretrainHubert": 8,
+            "PretrainData2Vec": 8}
+PT_STEPS = 3  # checked train steps a recipe
+PT_SECS = (2, 15)  # the batches' wave lengths, seconds
+PT_CPU = [2 * SR, int(1.5 * SR)]  # the card-vs-CPU update's batch
+PT_UNITS = 100  # the HuBERT batch's unit classes (prepare_units' k-means default)
+PT_RTOL = 1e-3  # card vs CPU: the loss and the gradient norm
+PT_ZERO = 1e-5  # a gradient below this share of the whole one's norm is zero but rounding
+PT_K3_ATOL = 1e-4  # K3 on f32 waves against its plain version
+PT_STEP_RTOL = 1e-3  # the update on the card against its CPU replay, in norm
+
+
+def pt_batch(name, lens, rng):
+    """A recipe's batch as its loader gives it: waves (0.1 N(0, 1)) padded
+    to the next whole second, their lengths, and for HuBERT random units,
+    one a 320 samples, padded with 0."""
+    T = -(-max(lens) // SR) * SR
+    lens = np.asarray(lens)
+    x = (rng.randn(len(lens), T) * 0.1).astype(np.float32) * (np.arange(T)[None] < lens[:, None])
+    out = {"x": x, "x_len": lens.astype(np.int32)}
+    if name == "PretrainHubert":
+        n = lens // 320
+        units = (rng.randint(0, PT_UNITS, (len(lens), n.max()))
+                 * (np.arange(n.max())[None] < n[:, None]))
+        out.update(units=units.astype(np.int32), units_len=n.astype(np.int32))
+    return out
+
+
+class same_draws:
+    """The pretraining tasks' draws (span masks, MAM masks, SpecAugment
+    bands, Gumbel noise) from one CPU generator of seed 0, moved to `dev`:
+    a run on the card and one on the CPU draw the same."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def __enter__(self):
+        import s3prl_tpu_torch.task.data2vec_pretrain as d2v
+        import s3prl_tpu_torch.task.hubert_pretrain as hub_task
+        import s3prl_tpu_torch.task.reconstruction as rec
+        from s3prl_tpu_torch.models.apc import VQLayer
+        from s3prl_tpu_torch.ops import mam, masking
+
+        gen, dev = torch.Generator().manual_seed(0), self.dev
+
+        def span(_, shape, pad, *a, device=None, **k):
+            return masking.compute_mask_indices(gen, shape, pad.cpu(), *a, **k).to(dev)
+
+        def mam_mask(_, feats, lens, **kw):
+            u = mam.draw_mam_uniforms(gen, *feats.shape[:2], **kw)
+            return mam.mam_mask_from_uniforms({k: v.to(dev) for k, v in u.items()}, feats, lens,
+                                              **kw)
+
+        def spec(_, *a, **k):
+            return tuple(m.to(dev) for m in self.saved[3][2](gen, *a, **k))
+
+        def gumbel(logits, _):
+            return self.saved[4][2](torch.empty(logits.shape), gen).to(logits.device)
+
+        self.saved = [(hub_task, "compute_mask_indices", hub_task.compute_mask_indices, span),
+                      (d2v, "compute_mask_indices", d2v.compute_mask_indices, span),
+                      (rec, "mam_mask", rec.mam_mask, mam_mask),
+                      (rec, "spec_masks", rec.spec_masks, spec),
+                      (VQLayer, "draw_gumbel", VQLayer.draw_gumbel, staticmethod(gumbel))]
+        for owner, attr, _, new in self.saved:
+            setattr(owner, attr, new)
+
+    def __exit__(self, *exc):
+        for owner, attr, old, _ in self.saved:
+            setattr(owner, attr, staticmethod(old) if attr == "draw_gumbel" else old)
+
+
+def pt_no_dropout(module):
+    """Every dropout rate in `module` set to 0: its modules' config fields
+    and their rate attributes (NPC's blocks' ``p``)."""
+    import dataclasses
+
+    for m in module.modules():
+        cfg = getattr(m, "cfg", None)
+        if dataclasses.is_dataclass(cfg):
+            m.cfg = dataclasses.replace(cfg, **{
+                f.name: 0.0 for f in dataclasses.fields(cfg)
+                if "dropout" in f.name and isinstance(getattr(cfg, f.name), float)})
+        for field in ("dropout", "activation_dropout", "p"):
+            if isinstance(getattr(m, field, None), float):
+                setattr(m, field, 0.0)
+
+
+def pt_update_on_cpu(name, up, task, opt_cfg, batch):
+    """One update of a copy of the recipe's task (its weights after the
+    timed steps, every dropout 0, the optimizer fresh at the recipe's peak
+    lr) on the card and on the CPU with the same draws (`same_draws`): the
+    loss and the gradient norm within PT_RTOL, every gradient whose norm is
+    above PT_ZERO of the whole at cosine > PROBE_COS. The update itself (the
+    optimizer's step and `post_update`) is held against the same update
+    replayed on the CPU from the card's gradients: each state tensor's
+    change within PT_STEP_RTOL of the replay's in norm, plus two f32
+    roundings of the tensor (`pt_step_error`)."""
+    import copy
+
+    from s3prl_tpu_torch.train.optimizers import Optimizer, global_norm
+
+    opt_cfg = {k: v for k, v in opt_cfg.items() if k != "scheduler"}
+    card = copy.deepcopy(task)
+    pt_no_dropout(card.module)
+    cpu = copy.deepcopy(card)
+    cpu.module.cpu()
+    replay = copy.deepcopy(cpu)
+    before = {k: v.detach().double() for k, v in cpu.module.state_dict().items()}
+    runs = {}
+    t0 = time.perf_counter()
+    for where, t, u in (("card", card, up), ("cpu", cpu, on_cpu(up))):
+        opt = Optimizer(t.module.parameters(), **opt_cfg)
+        hs, h_lens = u(batch["x"], batch["x_len"])
+        with same_draws(u.device):
+            loss, _ = t.loss_and_cache(hs, h_lens, batch, None, True)
+        loss.backward()
+        grads = {n: p.grad.detach().cpu() for n, p in t.module.named_parameters()
+                 if p.grad is not None}
+        norm = float(global_norm([g.double() for g in grads.values()]))
+        moved = opt.step()
+        if hasattr(t, "post_update"):
+            with torch.no_grad():
+                t.post_update()
+        runs[where] = (float(loss.detach()), norm, grads, moved,
+                       {k: v.detach().double().cpu() for k, v in t.module.state_dict().items()})
+        if where == "card":
+            torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    (l_card, n_card, g_card, moved, w_card), (l_cpu, n_cpu, g_cpu, _, _) = runs["card"], runs["cpu"]
+    rel = (abs(l_card / l_cpu - 1), abs(n_card / n_cpu - 1))
+    coss = {k: float(g_card[k].double().flatten() @ g_cpu[k].double().flatten()
+                     / (g_card[k].double().norm() * g_cpu[k].double().norm()))
+            for k in g_cpu if float(g_cpu[k].double().norm()) > PT_ZERO * n_cpu}
+    opt = Optimizer(replay.module.parameters(), **opt_cfg)
+    for n, p in replay.module.named_parameters():
+        if n in g_card:
+            p.grad = g_card[n].to(p.dtype)
+    opt.step()
+    if hasattr(replay, "post_update"):
+        with torch.no_grad():
+            replay.post_update()
+    w_replay = {k: v.detach().double() for k, v in replay.module.state_dict().items()}
+    err, changed = pt_step_error(before, w_card, w_replay)
+    log(f"[pretrain] {name} one update card vs CPU on B=2 x 1.5-2 s (dropouts 0, the same "
+        f"draws; {seconds:.1f} s): loss {l_card:.6f} / {l_cpu:.6f}, grad norm {n_card:.6f} / "
+        f"{n_cpu:.6f} (rel {rel[0]:.2e}, {rel[1]:.2e}), gradient cosines min "
+        f"{min(coss.values()):.6f} over {len(coss)} of {len(g_cpu)} tensors; the update "
+        f"(step{' and post_update' if hasattr(card, 'post_update') else ''}) against its "
+        f"replay on the CPU from the card's gradients: {changed} of {len(w_replay)} state "
+        f"tensors changed, largest change error {err:.2e} of its bound")
+    check(max(rel) < PT_RTOL and min(coss.values()) > PROBE_COS and moved and changed > 0
+          and err <= 1.0, f"{name} update card vs CPU")
+
+
+def pt_step_error(before, after, expected):
+    """The largest over state tensors of ||(after - before) - (expected -
+    before)|| over its bound, PT_STEP_RTOL ||expected - before|| + 2 eps_f32
+    ||before|| (a wrong, skipped or partial step or EMA gives > 1), and the
+    number of tensors the expected update changed."""
+    eps = float(torch.finfo(torch.float32).eps)
+    worst, changed = 0.0, 0
+    for k, w0 in before.items():
+        want = expected[k] - w0
+        changed += bool(want.abs().max() > 0) if want.numel() else 0
+        bound = PT_STEP_RTOL * float(want.norm()) + 2 * eps * float(w0.norm())
+        miss = float((after[k] - w0 - want).norm())
+        worst = max(worst, miss / bound if bound > 0 else (0.0 if miss == 0 else float("inf")))
+    return worst, changed
+
+
+def pt_teacher_k3(task, wavs, lens, wrapper):
+    """data2vec's teacher on the card: K3 on the waves the step gave it
+    against its plain version (f32 at PT_K3_ATOL); then the teacher moved by
+    an EMA toward a perturbed student (decay 0 for the one update): its next
+    forward launches K3 once with the moved weights, the output the plain
+    version's on them and away from the old weights' one."""
+    import s3prl_tpu_torch.models.convfe as convfe
+    from s3prl_tpu_torch.kernels.conv_frontend import conv0_ln_gelu, conv0_ln_gelu_reference
+
+    layer0 = task.module.teacher.feature_extractor.conv_layers[0]
+    seen = []
+    kernel = convfe.conv0_ln_gelu
+    convfe.conv0_ln_gelu = lambda *a, **k: seen.append((a, k)) or kernel(*a, **k)
+    try:
+        old = [t.detach().clone() for t in (layer0.conv.weight, layer0.norm.weight,
+                                           layer0.norm.bias)]
+        results = []
+        for step in ("before", "after"):
+            if step == "after":
+                with torch.no_grad():
+                    s0 = task.module.student.feature_extractor.conv_layers[0].conv.weight
+                    s0.add_(0.05 * torch.randn_like(s0))
+                decay, task.ema_decay = task.ema_decay, 0.0
+                task.post_update()
+                task.ema_decay = decay
+            for w in wrapper.values():
+                w.launches = 0
+            task.targets(wavs, lens)
+            torch.cuda.synchronize()
+            check(wrapper["conv0_ln_gelu"].launches == 1 and len(seen) == 1,
+                  f"data2vec teacher forward: K3 launches {wrapper['conv0_ln_gelu'].launches}")
+            (x, weight, scale, bias), kw = seen.pop()
+            check(torch.equal(weight, layer0.conv.weight), "K3 read the teacher's weights")
+            with torch.no_grad():
+                got = conv0_ln_gelu(x, weight, scale, bias, **kw)
+                want = conv0_ln_gelu_reference(x, weight, scale, bias, kw.get("stride", 5),
+                                               kw.get("k", 10), kw.get("gelu_mode", "erf"))
+            cos, err = compare(got, want)
+            results.append((tuple(got.shape), cos, err))
+            check(cos > COS_KERNEL and err <= PT_K3_ATOL, f"K3 {step} the EMA vs plain")
+        with torch.no_grad():
+            stale = conv0_ln_gelu_reference(x, old[0], old[1], old[2], kw.get("stride", 5),
+                                             kw.get("k", 10), kw.get("gelu_mode", "erf"))
+        moved = float((got.double() - stale.double()).abs().max())
+        check(moved > 100 * PT_K3_ATOL, f"the moved teacher's K3 output moved {moved}")
+    finally:
+        convfe.conv0_ln_gelu = kernel
+    (shape, cos, err), (_, cos2, err2) = results
+    log(f"[pretrain] data2vec teacher K3 (erf, f32 waves) {shape} vs plain: cos {cos:.7f} "
+        f"max_abs_err {err:.3e}; after the EMA moved it (decay 0 toward a perturbed student): "
+        f"one launch on the moved weights, cos {cos2:.7f} max_abs_err {err2:.3e}, "
+        f"{moved:.3e} from the old weights' output")
+    return err
+
+
+def pt_recipe(name, B, wrapper, rng, dev, smi, exp_dir):
+    """Recipe `name` at its JAX default config on the card: the problem's
+    feature upstream and task, the Trainer with the recipe's optimizer;
+    PT_STEPS steps on B waves of 2-15 s (each step's launches: K3 once in
+    data2vec's teacher, nothing elsewhere; losses finite; all but the first
+    timed by CUDA events: ms, audio-s/s, peak memory), one more under the
+    profiler tracing the device alone (device idle share, `idle_text`);
+    data2vec's teacher K3 (`pt_teacher_k3`); one update against the CPU
+    (`pt_update_on_cpu`)."""
+    import s3prl_tpu_torch.problem.pretrain as port_pretrain
+    from s3prl_tpu_torch.task.hubert_pretrain import device_wavs
+    from s3prl_tpu_torch.train import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    problem = getattr(port_pretrain, name)()
+    config = problem.default_config()
+    up = problem.build_feature_upstream(config)
+    task = problem.build_task(config)
+    trainer = Trainer(up, task, exp_dir / name, TrainerConfig(
+        optimizer=config["build_optimizer"], total_steps=config["train"]["total_steps"],
+        tensorboard=False))
+    trainer.init(resume=False)
+    built = time.perf_counter() - t0
+    lens = [PT_SECS[1] * SR] + rng.randint(PT_SECS[0] * SR, PT_SECS[1] * SR, B - 1).tolist()
+    data = pt_batch(name, lens, rng)
+    expected = {k: int(name == "PretrainData2Vec" and k == "conv0_ln_gelu") for k in wrapper}
+    losses, times = [], []
+    t1 = time.perf_counter()
+    for i in range(PT_STEPS):  # the first warms up; the others are timed
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        for w in wrapper.values():
+            w.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, _, grad_norm = trainer.train_step(data)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        launches = {k: w.launches for k, w in wrapper.items()}
+        check(launches == expected, f"{name} step launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        losses.append(float(loss))
+        check(np.isfinite(losses[-1]) and np.isfinite(float(grad_norm)), f"{name} {losses}")
+    ms = float(np.mean(times[1:]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t2 = time.perf_counter()
+    idle, kernels = profile_calls(lambda: trainer.train_step(data), iters=1, warm=False,
+                                  cpu=False)
+    check(sum(kernels.values()) > 0, f"{name}: the device trace holds no kernel")
+    t3 = time.perf_counter()
+    audio = sum(lens) / SR
+    params = sum(p.numel() for p in task.module.parameters()) / 1e6
+    log(f"[pretrain] {name} ({params:.1f}M parameters, upstream {up.name}, "
+        f"{config['build_optimizer']['name']}) B={B} x {PT_SECS[0]}-{PT_SECS[1]} s: launches a "
+        f"step {({'conv0_ln_gelu': 1} if any(expected.values()) else 'none')} (every other "
+        f"count 0); losses {' '.join(f'{v:.5f}' for v in losses)}; {ms:.2f} ms a step (steps "
+        f"2-{PT_STEPS}: {' '.join(f'{t:.2f}' for t in times[1:])}; {audio / (ms / 1e3):.1f} "
+        f"audio-s/s), peak device memory {peak:.2f} GiB, device idle share {idle_text(idle)}; "
+        f"seconds: "
+        f"built {built:.1f}, steps {t2 - t1:.1f}, profiled step {t3 - t2:.1f}; {smi}")
+    if name == "PretrainData2Vec":
+        pt_teacher_k3(task, *device_wavs(data, dev), wrapper)
+    pt_update_on_cpu(name, up, task, config["build_optimizer"], pt_batch(name, PT_CPU, rng))
+    return ms
+
+
+def pt_units(exp_dir, rng, dev, smi):
+    """PretrainHubert's prepare_units on the card on a minute of audio (six
+    10-s waves of tones under noise): the MFCC, k-means (100 clusters, 20
+    iterations) and a units file an utterance, each one label a 20 ms; then
+    five Lloyd iterations from one init on the card and on the CPU: the
+    centroids within 1e-3 of their scale, the assignments equal on >= 99.9%."""
+    import pandas as pd
+
+    import s3prl_tpu_torch.problem.pretrain as port_pretrain
+    from s3prl_tpu_torch.models.baseline import baseline_features
+    from s3prl_tpu_torch.ops.kmeans import kmeans_assign, kmeans_fit_from, kmeans_init
+    from s3prl_tpu_torch.util.pseudo_data import _write_wav
+
+    class Units(port_pretrain.PretrainHubert):
+        def prepare_data(self, workspace, config):
+            (workspace / "wavs").mkdir(parents=True, exist_ok=True)
+            rows = []
+            t = np.arange(10 * SR) / SR
+            for i in range(6):
+                f0 = np.repeat(rng.choice([200.0, 450.0, 900.0, 1800.0], 20), SR // 2)
+                wav = 0.3 * np.sin(2 * np.pi * np.cumsum(f0) / SR) + 0.05 * rng.randn(len(t))
+                path = workspace / "wavs" / f"u{i}.wav"
+                _write_wav(path, wav.astype(np.float32))
+                rows.append({"id": f"u{i}", "wav_path": str(path), "duration": 10.0})
+            pd.DataFrame(rows).to_csv(workspace / "train.csv", index=False)
+
+    problem, ws = Units(), exp_dir / "units"
+    config = problem.default_config()
+    problem.prepare_data(ws, config)
+    t0 = time.perf_counter()
+    problem.prepare_units(ws, config)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    centroids = np.load(ws / "units" / "centroids.npy")
+    check(centroids.shape == (100, 39) and np.isfinite(centroids).all(), "centroids")
+    df = pd.read_csv(ws / "train.csv")
+    frames = []
+    for path, upath in zip(df["wav_path"], df["units_path"]):
+        from s3prl_tpu_torch.data.audio import load_wav
+
+        wav, _ = load_wav(path, SR, 0.0, 15.0)
+        with torch.no_grad():
+            f, fl = baseline_features(torch.from_numpy(wav).to(dev)[None],
+                                      torch.tensor([len(wav)], device=dev), feat_type="mfcc",
+                                      num_ceps=13, delta_order=2, cmvn=False)
+        f = f[0, :int(fl[0])][::2].float()
+        frames.append(f)
+        units = np.load(upath)
+        check(units.dtype == np.int32 and len(units) == len(f)
+              and units.min() >= 0 and units.max() < 100, f"units of {path}")
+        check(np.array_equal(units, kmeans_assign(f, torch.from_numpy(centroids).to(dev))
+                             .cpu().numpy()), f"units of {path} vs the centroids")
+    sample = torch.cat(frames)
+    init = kmeans_init(torch.Generator().manual_seed(0), sample.cpu(), 100)
+    c_card = kmeans_fit_from(sample, init.to(dev), 5).cpu()
+    c_cpu = kmeans_fit_from(sample.cpu(), init, 5)
+    err = float((c_card - c_cpu).abs().max()) / float(c_cpu.abs().max())
+    same = float((kmeans_assign(sample.cpu(), c_card) == kmeans_assign(sample.cpu(), c_cpu))
+                 .float().mean())
+    log(f"[pretrain] prepare_units on {len(sample)} frames of 60 s (6 x 10 s) on the card: "
+        f"{secs:.2f} s (MFCC, k-means 100 x 20 iterations, the units files); five iterations "
+        f"card vs CPU from one init: centroids within {err:.2e} of their scale, assignments "
+        f"equal {same:.5f}; {smi}")
+    check(err <= 1e-3 and same >= 0.999, "k-means card vs CPU")
+
+
+def pt_problem_run(exp_dir, rng, wrapper, dev):
+    """A whole PretrainData2Vec Problem.run of 2 steps at B=8 over 2-15 s
+    pseudo waves (K3 once a step in the teacher, nothing else), then
+    hub.load("data2vec", ckpt=<its train dir>) on the card: K3 once a
+    forward and its states those of the trained student (cosine >
+    0.99999, max abs error <= 1e-4)."""
+    import s3prl_tpu_torch.problem.pretrain as port_pretrain
+    from s3prl_tpu_torch import hub
+
+    class D2V(port_pretrain.PretrainData2Vec):
+        def prepare_data(self, workspace, config):
+            (workspace / "wavs").mkdir(parents=True, exist_ok=True)
+            for split, n in (("train", 8), ("valid", 2)):
+                port_pretrain._write_pseudo_split(workspace, rng, split, n, PT_SECS)
+
+    problem, ws = D2V(), exp_dir / "d2v_run"
+    config = problem.default_config()
+    config.pop("target_dir")
+    # the Trainer's closing save writes the one checkpoint (2.2 GB with Adam's state)
+    config["train"] = {"total_steps": 2, "log_step": 1, "eval_step": 10**9, "save_step": 10**9}
+    for w in wrapper.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    trainer = problem.run(str(ws), **config)["train_stage"]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrapper.items()}
+    check(launches == {k: 2 * (k == "conv0_ln_gelu") for k in wrapper},
+          f"PretrainData2Vec run launches { {k: v for k, v in launches.items() if v} }")
+    up = hub.load("data2vec", ckpt=str(ws / "train"))
+    x, lens = batch([10 * SR, 7 * SR], 10 * SR, torch.Generator().manual_seed(1), dev)
+    for w in wrapper.values():
+        w.launches = 0
+    with torch.no_grad():
+        got, _ = up.model(x, lens)
+        torch.cuda.synchronize()
+        check(wrapper["conv0_ln_gelu"].launches == 1, "hub.load('data2vec') forward: K3 once")
+        want, _ = trainer.task.module.student.eval()(x, lens)
+    cos, err = compare(got, want)
+    log(f"[pretrain] PretrainData2Vec Problem.run (2 steps, B=8 x 2-15 s, the checkpoint "
+        f"written): {secs:.1f} s, K3 launches {launches['conv0_ln_gelu']} (every other count 0); "
+        f"hub.load('data2vec', ckpt=<train dir>) on the card: K3 once a forward, states "
+        f"{tuple(got.shape)} vs the student's cos {cos:.7f} max_abs_err {err:.2e}")
+    check(cos > 0.99999 and err <= 1e-4, "the loaded data2vec vs the trained student")
+
+
+def pretrain_phase(wrapper, gen, dev, smi):
+    """Phase 17: every pretraining recipe but the Examples at its JAX
+    default config on the card (`pt_recipe`), prepare_units (`pt_units`)
+    and a whole PretrainData2Vec run loaded back through the hub
+    (`pt_problem_run`)."""
+    import tempfile
+    from pathlib import Path
+
+    rng = np.random.RandomState(17)
+    with tempfile.TemporaryDirectory() as tmp:
+        exp_dir = Path(tmp)
+        for name, B in PRETRAIN.items():
+            pt_recipe(name, B, wrapper, rng, dev, smi, exp_dir)
+            torch.cuda.empty_cache()
+        pt_units(exp_dir, rng, dev, smi)
+        pt_problem_run(exp_dir, rng, wrapper, dev)
+    torch.cuda.empty_cache()
+
+
+ALL_PHASES = frozenset(range(3, 18))
 KERNEL_PHASES = frozenset(range(3, 7))
 
 
@@ -5078,14 +5554,14 @@ def parse_phases(argv):
 
     parser = argparse.ArgumentParser(description="On-card check of s3prl_tpu_torch.")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases among 3-16 (default: all); phases 1 "
+                        help="comma-separated phases among 3-17 (default: all); phases 1 "
                              "and 2 always run, and a partial run prints no result line")
     args = parser.parse_args(argv)
     if args.phases is None:
         return ALL_PHASES
     phases = {int(p) for p in args.phases.split(",")}
     if not phases <= ALL_PHASES:
-        parser.error(f"--phases {args.phases}: phases 3-16")
+        parser.error(f"--phases {args.phases}: phases 3-17")
     return frozenset(phases | (KERNEL_PHASES if phases & KERNEL_PHASES else set()))
 
 
@@ -5223,37 +5699,37 @@ def main():
 
         from s3prl_tpu_torch.kernels import posconv as pc
 
-        short, long_ = ("B=2 x 2 s", [32000, 20000]), [64000, 40000]
+        short, long_ = ("B=2 x 1.5 s", [24000, 15000]), [48000, 30000]
         # the conv-rule models' batches hold a 1-sample utterance (no frame: kv_len 0)
-        zshort, zlong = ("B=3 x 2 s with 1 sample", [32000, 20000, 1]), [64000, 40000, 1]
+        zshort, zlong = ("B=3 x 1.5 s with 1 sample", [24000, 15000, 1]), [48000, 30000, 1]
         mbt, mkt, mpt = {"MAX_BLOCK_T": 64}, {"MAX_KERNEL_T": 128}, {"MAX_POSCONV_T": 64}
         holder = {"MAX_BLOCK_T": fa, "MAX_KERNEL_T": fa, "MAX_POSCONV_T": pc}  # threshold -> module
         # (model, path) -> (label, lengths, patched thresholds, {kernel: launches} checked)
         cases = {
             ("hubert", "int8"): (
                 (*short, {}, {}),
-                ("B=2 x 4 s, MAX_BLOCK_T=64", long_, mbt, {"fused_qkv_attention_outproj": 24}),
-                ("B=2 x 4 s, MAX_BLOCK_T=64, MAX_KERNEL_T=128", long_, {**mbt, **mkt},
+                ("B=2 x 3 s, MAX_BLOCK_T=64", long_, mbt, {"fused_qkv_attention_outproj": 24}),
+                ("B=2 x 3 s, MAX_BLOCK_T=64, MAX_KERNEL_T=128", long_, {**mbt, **mkt},
                  {"online_flash_attention": 24})),
             ("hubert", "bf16"): (
                 (*short, {}, {}),
-                ("B=2 x 4 s, MAX_BLOCK_T=64", long_, mbt, {"fused_qkv_attention": 24}),
-                ("B=2 x 4 s, MAX_BLOCK_T=64, MAX_KERNEL_T=128", long_, {**mbt, **mkt},
+                ("B=2 x 3 s, MAX_BLOCK_T=64", long_, mbt, {"fused_qkv_attention": 24}),
+                ("B=2 x 3 s, MAX_BLOCK_T=64, MAX_KERNEL_T=128", long_, {**mbt, **mkt},
                  {"online_flash_attention": 24})),
             **{("wavlm", path): (
                 (*short, {}, {"gated_bias_attention": 24}),
-                ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt, {"gated_online_flash_attention": 24}))
+                ("B=2 x 3 s, MAX_KERNEL_T=128", long_, mkt, {"gated_online_flash_attention": 24}))
                for path in ("int8", "bf16")},
             ("hubert", "int8 full_fuse"): (
                 (*short, {}, {"fused_int8_linear": 48, "fused_qkv_attention": 24}),
-                ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt,
+                ("B=2 x 3 s, MAX_KERNEL_T=128", long_, mkt,
                  {"fused_int8_linear": 48, "online_flash_attention": 24})),
             ("hubert", "int8 qkv_fuse"): (
-                ("B=2 x 4 s, MAX_BLOCK_T=64", long_, mbt,
+                ("B=2 x 3 s, MAX_BLOCK_T=64", long_, mbt,
                  {"fused_int8_linear": 24, "fused_qkv_attention_outproj": 24}),),
             ("wavlm", "int8 wavlm_fuse"): (
                 (*short, {}, {"gated_bias_attention_outproj": 24}),
-                ("B=2 x 4 s, MAX_KERNEL_T=128", long_, mkt,
+                ("B=2 x 3 s, MAX_KERNEL_T=128", long_, mkt,
                  {"gated_online_flash_attention": 24, "gated_bias_attention_outproj": 0})),
             ("hubert", "int8 int8_conv"): (
                 (*short, {}, {"conv0_ln_gelu_q8": 1, "fused_int8_conv_ln_gelu": 6,
@@ -5264,12 +5740,12 @@ def main():
             ("wavlm", "bf16 fused_conv"): ((*short, {}, {"conv0_ln_gelu": 1,
                                                          "fused_conv_ln_gelu": 6}),),
             **{("hubert", path): ((*short, {}, {name: 1}),
-                                  ("B=2 x 2 s, MAX_POSCONV_T=64", short[1], mpt, {name: 0}))
+                                  ("B=2 x 1.5 s, MAX_POSCONV_T=64", short[1], mpt, {name: 0}))
                for path, name in (("bf16 fused_posconv", "pos_conv_gelu"),
                                   ("int8 int8_posconv", "pos_conv_gelu_q8"))},
             **{("hubert_base", path): (
                 (*short, {}, {block: 12, ffn: 12, "conv0_ln_gelu": 0}),
-                ("B=2 x 4 s, MAX_BLOCK_T=64", long_, mbt, {split: 12, ffn: 12}))
+                ("B=2 x 3 s, MAX_BLOCK_T=64", long_, mbt, {split: 12, ffn: 12}))
                for path, block, split, ffn in (
                    ("int8", "fused_attention_block", "fused_qkv_attention_outproj",
                     "fused_int8_ffn"),
@@ -5280,7 +5756,7 @@ def main():
             # (their K8 case, HuBERT's route, was cut in PR 24 for phase 13's time)
             **{(model, path): (
                 (*zshort, {}, {"conv0_ln_gelu": 1, block: 24, ffn: 24}),
-                ("B=3 x 4 s with 1 sample, MAX_BLOCK_T=64", zlong, mbt, {split: 24, ffn: 24}))
+                ("B=3 x 3 s with 1 sample, MAX_BLOCK_T=64", zlong, mbt, {split: 24, ffn: 24}))
                for model in ("wav2vec2", "data2vec") for path, block, split, ffn in (
                    ("int8", "fused_attention_block", "fused_qkv_attention_outproj",
                     "fused_int8_ffn"),
@@ -5557,6 +6033,12 @@ def main():
     if 16 in phases:
         with Phase("16 rest of the zoo"):
             zoo3_phase(wrapper, gen, dev, smi.splitlines()[0])
+    # 17. SSL pretraining: every recipe's steps at its published width (K3 in
+    # data2vec's teacher), one update of each against the CPU, prepare_units,
+    # a whole PretrainData2Vec run loaded back through the hub
+    if 17 in phases:
+        with Phase("17 pretraining"):
+            pretrain_phase(wrapper, gen, dev, smi.splitlines()[0])
     if phases != ALL_PHASES:
         log(f"partial run: phases 1, 2 and {sorted(phases)} (the kernels line and the result "
             "line come from a run of every phase)")

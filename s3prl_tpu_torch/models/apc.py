@@ -53,14 +53,20 @@ class VQLayer(nn.Module):
         self.vq_logits = Dense(input_size, codebook_size, device=device)
         self.codebook_CxE = Dense(codebook_size, code_dim, bias=False, device=device)
 
+    @staticmethod
+    def draw_gumbel(logits: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Standard Gumbel noise of the logits' shape (the JAX package's
+        ``jax.random.gumbel``, from another stream)."""
+        u = torch.rand(logits.shape, generator=generator, device=logits.device)
+        return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
         logits = self.vq_logits(x)
         codebook = self.codebook_CxE.weight.t()  # [codebook_size, code_dim]
         if not self.training:
             return logits, F.embedding(logits.argmax(dim=-1), codebook)
-        u = torch.rand(logits.shape, generator=generator, device=logits.device)
-        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
-        soft = torch.softmax((logits + gumbel) / self.temperature, dim=-1)
+        soft = torch.softmax((logits + self.draw_gumbel(logits, generator)) / self.temperature,
+                             dim=-1)
         hard = F.one_hot(soft.argmax(dim=-1), soft.shape[-1]).to(soft.dtype)
         return logits, (hard + soft - soft.detach()) @ codebook
 

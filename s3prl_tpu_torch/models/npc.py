@@ -9,8 +9,9 @@ frames growing by 2 a block; the masked outputs are summed into the
 aggregate that ``postnet`` reads. The convs run over the padded frames
 with no length mask, as in JAX, in f32 with cuDNN's TF32 off
 (`nn.heads.Conv`, `ieee_call`). BatchNorm keeps running statistics (flax's
-``batch_stats``: eval reads them; train would take the batch's over every
-frame, which no frozen upstream reaches). The hidden states are [blocks...,
+``batch_stats``: eval reads them; train takes the batch's over every frame
+and leaves the running ones as they are, as the JAX package's NPC task
+throws the update away). The hidden states are [blocks...,
 masked..., aggregate]. The modules carry the reference's names:
 ``blocks.{i}.{conv,bn1,linear,bn2}``, ``masked_convs.{i}.conv``, ``postnet``.
 """
@@ -44,10 +45,12 @@ class NPCConfig:
 
 
 def _batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor, training: bool) -> torch.Tensor:
-    """flax ``BatchNorm`` (eps 1e-5, momentum 0.99) on [B, T, C]."""
+    """flax ``BatchNorm`` (eps 1e-5) on [B, T, C]; in training the batch's
+    statistics leave the running ones as they are."""
     B, T, C = x.shape
-    out = F.batch_norm(x.reshape(B * T, C), bn.running_mean, bn.running_var, bn.weight,
-                       bn.bias, training, bn.momentum, bn.eps)
+    out = F.batch_norm(x.reshape(B * T, C), None if training else bn.running_mean,
+                       None if training else bn.running_var, bn.weight, bn.bias, training,
+                       0.0, bn.eps)
     return out.view(B, T, C)
 
 
@@ -59,11 +62,10 @@ class ConvBlock(nn.Module):
         self.act = F.relu if activate == "relu" else torch.tanh
         self.conv = Conv(input_size, hidden_size, 3, device=device)
         self.linear = Conv(hidden_size, hidden_size, 1, device=device)
-        # momentum 0.01 = flax's 0.99 (the JAX package's running-average rate)
         self.bn1 = self.bn2 = None
         if batch_norm:
-            self.bn1 = nn.BatchNorm1d(hidden_size, momentum=0.01, device=device)
-            self.bn2 = nn.BatchNorm1d(hidden_size, momentum=0.01, device=device)
+            self.bn1 = nn.BatchNorm1d(hidden_size, device=device)
+            self.bn2 = nn.BatchNorm1d(hidden_size, device=device)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
         out = self.conv(x)

@@ -14,8 +14,9 @@ pos-conv and data2vec's depth > 1 stack; the Conformer encoder
 pos-conv, stock ops; eval only); the FFN activations gelu, relu and swish
 (``activation_fn``; the kernels' FFNs serve gelu only, `EncoderLayer`);
 the fused weighted sum of the layers (``layer_weights``); train mode's
-dropouts from an explicit generator. No span masking (extraction), no layerdrop (`Upstream`
-refuses it in train mode, as the JAX trainer's missing stream does). WavLM
+dropouts from an explicit generator; pretraining's span mask (``mask_indices``:
+the frames replaced by ``mask_emb``). No layerdrop (`Upstream` refuses it in
+train mode, as the JAX trainer's missing stream does). WavLM
 (`models/wavlm.py`) is this trunk with its own encoder and an erf extractor.
 The module names follow fairseq's state_dict keys (see upstream/convert.py).
 """
@@ -216,8 +217,8 @@ class Wav2Vec2Trunk(nn.Module):
         if cfg.post_extract_proj_always or embed != cfg.encoder_embed_dim:
             self.post_extract_proj = nn.Linear(embed, cfg.encoder_embed_dim, device=device)
             self.post_extract_proj.weight.data = self.post_extract_proj.weight.data.to(dtype)
-        # pretraining's mask embedding: unused by extraction, kept so the
-        # state_dict carries the whole checkpoint
+        # pretraining's mask embedding (`forward`'s ``mask_indices``); kept in
+        # extraction so the state_dict carries the whole checkpoint
         self.mask_emb = nn.Parameter(torch.empty(cfg.encoder_embed_dim, device=device))
         self.encoder = self._encoder(cfg, dtype, use_flash, quantize, device, posconv,
                                      **{name: options[name] for name in self.fuse_options})
@@ -246,13 +247,17 @@ class Wav2Vec2Trunk(nn.Module):
                 layer.build_qcache()
 
     def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor,
-                layer_weights: torch.Tensor | None = None, generator=None):
+                layer_weights: torch.Tensor | None = None, generator=None,
+                mask_indices: torch.Tensor | None = None):
         """wavs [B, T] padded 16 kHz, wav_lens [B] -> (hidden_states
         [L+1, B, T', C], feat_lens [B]); with ``layer_weights`` [L+1] on the
         model's device, hidden_states is their weighted sum [1, B, T', C]
         (wav2vec2.py:115, :197; `TransformerEncoder.forward`). In train mode
         the dropouts (``dropout_input`` after the projection, wav2vec2.py:149,
-        then the encoder's) draw from `generator`."""
+        then the encoder's) draw from `generator`. ``mask_indices`` [B, T'']
+        bool (pretraining) puts ``mask_emb`` on its True frames after
+        ``dropout_input``, cut or padded with False to T' (wav2vec2.py:
+        159-171)."""
         cfg = self.cfg
         if cfg.normalize:
             wavs = normalize_wavs(wavs, wav_lens)
@@ -277,6 +282,11 @@ class Wav2Vec2Trunk(nn.Module):
             proj = self.post_extract_proj
             features = F.linear(features, proj.weight, proj.bias.to(self.dtype))
         features = dropout(features, cfg.dropout_input, self.training, generator)
+        if mask_indices is not None:
+            t = features.shape[1]
+            mask = F.pad(mask_indices[:, :t], (0, max(t - mask_indices.shape[1], 0)))
+            features = torch.where(mask.to(features.device)[..., None],
+                                   self.mask_emb.to(features.dtype), features)
         return self.encoder(features, feat_lens, layer_weights, generator), feat_lens
 
 

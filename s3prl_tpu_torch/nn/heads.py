@@ -454,9 +454,11 @@ class GRU(nn.GRU):
     flax's cell has no bias on its hidden kernels ``hr`` / ``hz``; torch's
     ``b_hr`` / ``b_hz`` add to the same sums as ``b_ir`` / ``b_iz``, so a
     flax cell is this layer with those two held in ``bias_ih`` and zeros in
-    ``bias_hh`` (`upstream/convert.py` `apc_state_dict_from_jax`). flax's
-    ``seq_lengths`` only picks the last carry: the outputs run on over the
-    padded frames, as here (no packing)."""
+    ``bias_hh`` (`upstream/convert.py` `apc_state_dict_from_jax`). Their
+    gradient is zeroed by a hook (`_hold_hidden_gate_biases`), so training
+    moves the same biases as flax's (a reference checkpoint's nonzero ones
+    stay as loaded). flax's ``seq_lengths`` only picks the last carry: the
+    outputs run on over the padded frames, as here (no packing)."""
 
     def __init__(self, input_size: int, hidden_size: int, device=None):
         super().__init__(input_size, hidden_size, batch_first=True, device=device)
@@ -476,10 +478,26 @@ class GRU(nn.GRU):
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:
         """xs [B, T, C] -> [B, T, H] f32, every frame."""
-        def run(x):
-            return super(GRU, self).forward(x)[0]
+        if torch.is_grad_enabled():
+            self._hold_hidden_gate_biases()
+        return ieee_call(lambda x: super(GRU, self).forward(x)[0],
+                         xs.to(self.weight_ih_l0.dtype), self._flat_weights)
 
-        return ieee_call(run, xs.to(self.weight_ih_l0.dtype), self._flat_weights)
+    def _hold_hidden_gate_biases(self) -> None:
+        """Registers, once per parameter tensor (a copy of the module gets a
+        new one), the hook that zeroes the gradient of ``b_hr`` / ``b_hz``."""
+        bias = self.bias_hh_l0
+        if not bias.requires_grad or getattr(bias, "_holds_hidden_gate_biases", False):
+            return
+        rows = 2 * self.hidden_size
+
+        def hold(grad):
+            grad = grad.clone()
+            grad[:rows] = 0.0
+            return grad
+
+        bias.register_hook(hold)
+        bias._holds_hidden_gate_biases = True
 
 
 class RNNEncoder(nn.Module):

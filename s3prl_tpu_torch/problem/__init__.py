@@ -64,3 +64,19 @@ from .enhancement import SeExample, SuperbSE, SuperbSS  # noqa: F401
 from .translation import StExample, SuperbST  # noqa: F401
 from .slu import MoseiSentiment, SluATIS, SluAudioSnips, SluExample  # noqa: F401
 from .vc import VcExample, VcVcc2020  # noqa: F401
+from .pretrain import (  # noqa: F401
+    PretrainAPC,
+    PretrainAudioAlbert,
+    PretrainData2Vec,
+    PretrainData2VecExample,
+    PretrainDistiller,
+    PretrainExample,
+    PretrainHubert,
+    PretrainHubertExample,
+    PretrainMockingjay,
+    PretrainNPC,
+    PretrainProblem,
+    PretrainSpecAugment,
+    PretrainTera,
+    PretrainVqApc,
+)

@@ -24,3 +24,13 @@ from .mos_prediction import MosDownstreamModule, MosPredictionTask  # noqa: F401
 from .enhancement import EnhancementTask, SeparationTask, si_sdr  # noqa: F401
 from .speech_translation import SpeechTranslationTask  # noqa: F401
 from .voice_conversion import VoiceConversionTask, mcd  # noqa: F401
+from .hubert_pretrain import HubertPretrainTask  # noqa: F401
+from .data2vec_pretrain import Data2VecPretrainTask, StudentTeacher  # noqa: F401
+from .distiller_pretrain import DistillerPretrainTask  # noqa: F401
+from .reconstruction import (  # noqa: F401
+    AutoregressiveReconstructionTask,
+    MaskedReconstructionTask,
+    NpcReconstructionTask,
+    SpecAugReconstructionTask,
+)
+from .dump_feature import dump_features  # noqa: F401

@@ -20,7 +20,19 @@ upstream's from a stream of its own seeded from the same pair
 (`upstream_generator`, the JAX trainer's ``k_up, k_task = split(rng)``), so
 a resumed run repeats its steps. Evaluation hands the task the generator of
 step 0 (the JAX trainer's ``fold_in(key, 0)``), which only a task that
-draws in eval reads (VC's prenet). Single device:
+draws in eval reads (VC's prenet).
+
+Pretraining (`problem.pretrain`) keeps that contract: the upstream is the
+frozen feature front end (``wav``, ``mel``, ``fbank``, or the distiller's
+teacher), and the task owns and trains its model on the batch (its waves
+through ``batch["x"]``). A task with a ``post_update()`` (data2vec's EMA
+teacher) has it run under ``torch.no_grad()`` after every micro-step, also
+one whose update the finite guard skipped or the accumulation held, as the
+JAX trainer runs it after ``apply_updates`` (trainer.py:148-158). The
+optimizer covers the task's whole module, as the JAX optimizer covers the
+whole tree: leaves without a gradient (the EMA teacher; NPC's running
+statistics are buffers) are stepped with a zero one, which moves them
+under ``AdamW``'s decay only, as optax's. Single device:
 ``dp`` / ``tp`` other than 1 raise (ROADMAP.md Queue 1 item 10).
 """
 
@@ -157,6 +169,10 @@ class Trainer:
         grads = [p.grad for p in self.optimizer.params if p.grad is not None]
         grad_norm = global_norm(grads).detach()
         self.optimizer.step()
+        post_update = getattr(self.task, "post_update", None)
+        if post_update is not None:
+            with torch.no_grad():
+                post_update()
         return loss.detach(), cache, grad_norm
 
     def train_step(self, device_batch: dict):

@@ -17,6 +17,19 @@ mapping the JAX package's trees onto them.
 `probe_state_dict_from_jax(params)` maps a probe's flax params (featurizer
 and head) onto the port's `UpstreamDownstreamModel`.
 
+Pretraining (s3prl_tpu/problem/pretrain.py): `native_checkpoint` reads a
+checkpoint of either package's pretraining (the JAX Trainer's
+``params.msgpack`` through `util.msgpack`, the port's ``model.pt``; a file,
+a step directory or a train directory), which the trunk loader (HuBERT's
+``trunk``, data2vec's ``student``, a bare trunk) and the mel-domain loader
+(the MAM task's ``encoder``, ``apc``, NPC's variables) take apart as the
+JAX loaders do (convert.py:278-303, :805-874); the other loaders refuse
+one (`_torch_only`), as the JAX loaders cannot read it.
+`hubert_pretrain_state_dict_from_jax`, `data2vec_pretrain_state_dict_from_jax`,
+`mam_pretrain_state_dict_from_jax`, `apc_pretrain_state_dict_from_jax` and
+`npc_pretrain_state_dict_from_jax` map the pretraining tasks' trees onto the
+port's task modules.
+
 The mel-domain SSL models and the MOS predictor keep the reference's keys:
 `load_mel_ssl_checkpoint` and `load_mos_checkpoint` read the reference's
 checkpoints (the torch branches of convert.py:846-914, :1214-1300), and
@@ -494,22 +507,146 @@ def wavlm_state_dict_from_torch(sd: Dict[str, Any], cfg: WavLMConfig) -> Dict[st
     return out
 
 
-def _refuse_native(path) -> None:
-    """A checkpoint of the JAX package's own pretraining (a ``.msgpack``
-    file, a step directory holding ``params.msgpack``, or a train directory
-    of ``step_*`` ones; convert.py:805-827) raises NotImplementedError."""
+def _step_number(d: Path) -> int | None:
+    tail = d.name[len("step_"):]
+    return int(tail) if tail.isdigit() else None
+
+
+def native_checkpoint(path):
+    """A checkpoint of pretraining in either package -> ("jax", the tree of
+    numpy arrays) or ("torch", the task module's state_dict), or None for
+    any other `path`. A ``.msgpack`` file, a step directory holding
+    ``params.msgpack`` (the JAX Trainer's) or ``model.pt`` (the port's), or
+    a train directory of ``step_<N>`` ones (the highest N holding either
+    wins), as the JAX package's ``_native_pretrain_msgpack`` (convert.py:
+    805-827) resolves its own. The msgpack is read by `util.msgpack` (no
+    msgpack package)."""
+    from ..util.msgpack import msgpack_restore
+
+    p = _native_file(path)
+    if p is None:
+        return None
+    if p.name == "model.pt":
+        return "torch", torch.load(p, map_location="cpu", weights_only=True)
+    return "jax", _numpy_tree(msgpack_restore(p.read_bytes()))
+
+
+def _native_file(path) -> Path | None:
+    """The file `native_checkpoint` reads for `path`, or None."""
     p = Path(path)
-    native = p.suffix == ".msgpack" or (p.is_dir() and (
-        (p / "params.msgpack").exists()
-        or any((d / "params.msgpack").exists() for d in p.glob("step_*"))))
-    if native:
+    if p.is_dir():
+        files = ("params.msgpack", "model.pt")
+        if not any((p / f).exists() for f in files):
+            steps = sorted((d for d in p.glob("step_*") if _step_number(d) is not None
+                            and any((d / f).exists() for f in files)), key=_step_number)
+            if not steps:
+                return None
+            p = steps[-1]
+        return p / "params.msgpack" if (p / "params.msgpack").exists() else p / "model.pt"
+    return p if p.suffix == ".msgpack" else None
+
+
+def _torch_only(path) -> None:
+    """A loader other than the trunks' and the mel-domain models' reads no
+    pretraining checkpoint, as the JAX package's loaders read none (their
+    ``torch.load`` fails on one): NotImplementedError."""
+    if _native_file(path) is not None:
         raise NotImplementedError(
-            f"{path}: a native msgpack checkpoint of the JAX package's pretraining; loading "
-            "one is not ported yet (ROADMAP.md Queue 1 item 9, pretraining)")
+            f"{path}: a pretraining checkpoint (the JAX package's msgpack or the port's "
+            "model.pt); only the trunk entries (HuBERT / data2vec pretraining) and the "
+            "mel-domain ones read one, as in the JAX package, whose other loaders read torch "
+            "checkpoints only")
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.float().numpy() if isinstance(tree, torch.Tensor) else tree
+
+
+def _subtree(sd: Dict[str, Any], prefix: str) -> Dict[str, Any]:
+    """The entries of a state_dict under ``prefix.``, the prefix taken off."""
+    return {k[len(prefix) + 1:]: v for k, v in sd.items() if k.startswith(prefix + ".")}
+
+
+def _native_layout_error(path, keys, expected: str) -> ValueError:
+    return ValueError(f"native pretrain checkpoint {path} has top-level keys {sorted(keys)}: "
+                      f"expected {expected}")
+
+
+def _native_trunk(path, kind: str, tree, cfg) -> Dict[str, torch.Tensor]:
+    """A trunk's state_dict from a pretraining checkpoint: the ``trunk``
+    (HuBERT) or ``student`` (data2vec) subtree, or a bare trunk tree
+    (convert.py:290-303)."""
+    if kind == "jax":
+        for key in ("trunk", "student"):
+            if key in tree:
+                return trunk_state_dict_from_jax(tree[key], cfg)
+        if "feature_extractor" in tree:
+            return trunk_state_dict_from_jax(tree, cfg)
+        raise _native_layout_error(path, tree, "a 'trunk' (hubert pretrain) / 'student' "
+                                   "(data2vec pretrain) subtree or a bare Wav2Vec2Trunk tree")
+    for key in ("trunk", "student"):
+        if any(k.startswith(key + ".") for k in tree):
+            return _subtree(tree, key)
+    if any(k.startswith("feature_extractor.") for k in tree):
+        return dict(tree)
+    raise _native_layout_error(path, {k.split(".")[0] for k in tree},
+                               "a 'trunk' / 'student' subtree or a bare trunk state_dict")
+
+
+# -- the pretraining tasks' trees (s3prl_tpu/problem/pretrain.py) -> the port's
+# task modules' state_dicts
+
+
+def hubert_pretrain_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX HubertForPretrain params ``{trunk, final_proj, label_embs}`` ->
+    the port's `HubertForPretrain` state_dict."""
+    p = params.get("params", params)
+    sd = {f"trunk.{k}": v for k, v in trunk_state_dict_from_jax(p["trunk"], cfg).items()}
+    _linear(sd, "final_proj", p["final_proj"])
+    sd["label_embs"] = _tensor(p["label_embs"])
+    return sd
+
+
+def data2vec_pretrain_state_dict_from_jax(params: Dict[str, Any], cfg
+                                          ) -> Dict[str, torch.Tensor]:
+    """JAX data2vec task params ``{student, teacher}`` -> the port's
+    `StudentTeacher` state_dict."""
+    p = params.get("params", params)
+    return {f"{key}.{k}": v for key in ("student", "teacher")
+            for k, v in trunk_state_dict_from_jax(p[key], cfg).items()}
+
+
+def mam_pretrain_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX masked-reconstruction params ``{encoder, head}`` (a
+    MockingjayEncoder and its SpecPredictionHead) -> the port's
+    `MamPretrainModel` state_dict."""
+    p = params.get("params", params)
+    sd = mockingjay_state_dict_from_jax(p["encoder"], prefix="encoder.")
+    head = p["head"]
+    _linear(sd, "head.dense", head["dense"])
+    _norm(sd, "head.LayerNorm", head["layer_norm"])
+    _linear(sd, "head.output", head["output"])
+    return sd
+
+
+def apc_pretrain_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX APC task params ``{apc}`` -> the port's `ApcPretrainModel`
+    state_dict."""
+    return apc_state_dict_from_jax(params.get("params", params)["apc"], prefix="apc.")
+
+
+def npc_pretrain_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX NPC task variables ``{params: {npc}, batch_stats: {npc}}`` -> the
+    port's `NpcPretrainModel` state_dict."""
+    inner = {"params": variables["params"]["npc"],
+             "batch_stats": variables.get("batch_stats", {}).get("npc", {})}
+    return {f"npc.{k}": v for k, v in npc_state_dict_from_jax(inner).items()}
 
 
 def _torch_load(path):
-    _refuse_native(path)
+    _torch_only(path)
     return torch.load(path, map_location="cpu", weights_only=False)
 
 
@@ -519,8 +656,19 @@ def load_trunk_checkpoint(path, fallback_cfg: Wav2Vec2Config | None = None
     `load_trunk_variables`, convert.py:260-321): s3prl's ``{"model_weight",
     "model_cfg", "task_cfg"}`` takes its config from the checkpoint
     (`config_from_model_cfg`), a bare state_dict ``fallback_cfg`` (the
-    entry's). A Conformer's keys include its BatchNorm statistics."""
+    entry's). A Conformer's keys include its BatchNorm statistics.
+    A checkpoint of HuBERT or data2vec pretraining (`native_checkpoint`: the
+    JAX package's msgpack or the port's ``model.pt``, the train or step
+    directory or the file) gives its trunk under ``fallback_cfg`` (the JAX
+    `load_trunk_variables`' rule: the entry's configuration)."""
+    native = native_checkpoint(path)
+    if native is not None:
+        cfg = fallback_cfg or Wav2Vec2Config()
+        return cfg, _native_trunk(path, *native, cfg)
     ckpt = _torch_load(path)
+    if isinstance(ckpt, dict) and any(k.startswith(("trunk.", "student.")) for k in ckpt):
+        cfg = fallback_cfg or Wav2Vec2Config()  # a pretraining task's model.pt itself
+        return cfg, _native_trunk(path, "torch", ckpt, cfg)
     if isinstance(ckpt, dict) and "model_weight" in ckpt:
         sd = ckpt["model_weight"]
         cfg = config_from_model_cfg(ckpt.get("model_cfg", {}), ckpt.get("task_cfg", {}))
@@ -531,7 +679,8 @@ def load_trunk_checkpoint(path, fallback_cfg: Wav2Vec2Config | None = None
 
 def load_wavlm_checkpoint(path) -> Tuple[WavLMConfig, Dict[str, torch.Tensor]]:
     """A Microsoft-style WavLM checkpoint ``{"cfg", "model"}`` -> (config,
-    the port's state_dict) (convert.py:419-431)."""
+    the port's state_dict) (convert.py:419-431). A native pretraining
+    checkpoint raises NotImplementedError (`_torch_only`)."""
     ckpt = _torch_load(path)
     cfg = wavlm_config_from_cfg(ckpt.get("cfg", {}))
     return cfg, wavlm_state_dict_from_torch(ckpt["model"], cfg)
@@ -983,12 +1132,20 @@ def load_mel_ssl_checkpoint(name: str, path) -> Dict[str, torch.Tensor]:
       prefix; its blocks counted from ``encoder.layer.{i}``; ``audio_albert``
       shares one block when the checkpoint holds one.
 
-    A checkpoint of the JAX package's own pretraining (msgpack) raises
-    NotImplementedError (`_refuse_native`). An ``audio_albert`` checkpoint
+    A checkpoint of pretraining (`native_checkpoint`: the JAX package's
+    msgpack or the port's ``model.pt``) gives its task's model
+    (convert.py:846-874): the ``encoder`` subtree for ``mockingjay`` /
+    ``tera`` / ``audio_albert``, ``apc`` for ``apc`` / ``vq_apc``, and NPC's
+    ``{params: {npc}, batch_stats: {npc}}`` (the port's ``npc.`` keys, with
+    the running statistics); another layout raises ValueError. An
+    ``audio_albert`` checkpoint
     listing more than one block raises ValueError: the reference's shared
     encoder lists its one block at every depth (``encoder.layer.0-2``),
     which the JAX loader reads as that many distinct stacked blocks and
     its shared model then cannot apply."""
+    native = native_checkpoint(path)
+    if native is not None:
+        return _native_mel(path, name, *native)
     ckpt = _torch_load(path)
     if name.startswith(("apc", "vq_apc")):
         return _apc_keys(ckpt.get("model", ckpt))
@@ -1028,6 +1185,30 @@ def load_mel_ssl_checkpoint(name: str, path) -> Dict[str, torch.Tensor]:
             "package loads it as distinct stacked blocks, which its shared model cannot "
             "apply. Pass a checkpoint holding the one shared block (encoder.layer.0)")
     return _mockingjay_keys(sd, max(num_layers, 1))
+
+
+def _native_mel(path, name: str, kind: str, tree) -> Dict[str, torch.Tensor]:
+    """Entry `name`'s model from a pretraining checkpoint's task tree."""
+    if name.startswith("npc"):
+        if kind == "jax":
+            if "npc" not in tree.get("params", {}):
+                raise _native_layout_error(path, tree, "the NPC task layout ({'params': "
+                                           "{'npc': ...}, 'batch_stats': ...})")
+            return _subtree(npc_pretrain_state_dict_from_jax(tree), "npc")
+        key = "npc"
+    else:
+        key = ("encoder" if name.startswith(("mockingjay", "tera", "audio_albert"))
+               else "apc" if name.startswith(("apc", "vq_apc")) else None)
+    keys = set(tree) if kind == "jax" else {k.split(".")[0] for k in tree}
+    if key is None or key not in keys:
+        raise _native_layout_error(
+            path, keys, f"a '{key}' subtree for upstream '{name}' (supported native round "
+            "trips: mockingjay/tera/audio_albert, apc/vq_apc, npc)")
+    if kind == "torch":
+        return _subtree(tree, key)
+    if key == "apc":
+        return apc_state_dict_from_jax(tree["apc"])
+    return mockingjay_state_dict_from_jax(tree["encoder"])
 
 
 # -- the MOS predictor (s3prl_tpu/upstream/convert.py:1202-1300) --------------------

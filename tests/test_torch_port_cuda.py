@@ -2572,3 +2572,80 @@ def test_swish_trunk_on_the_card(dev, activation):
     want, h_lens = cpu.apply_standardized(wavs, lens)
     assert got_lens.tolist() == h_lens.tolist()
     assert min(_valid_cosines(got, want, h_lens.tolist())) > 0.999
+
+
+def test_data2vec_pretrain_step_on_the_card(dev, monkeypatch):
+    """A data2vec pretraining step of a tiny layer-norm trunk (conv0 at the
+    kernel's 512 channels, the depth-5 pos-conv stack, two post-LN layers)
+    on the card: K3 launched once, in the EMA teacher, under no_grad; the
+    loss and every gradient against the same step on the CPU (the same span
+    mask, drawn on the CPU); then the teacher moved by `post_update` toward
+    a perturbed student: its K3 output on the card follows the moved
+    weights (the plain version's on them at atol 1e-4, away from the old
+    weights' output)."""
+    import s3prl_tpu_torch.task.data2vec_pretrain as d2v
+    from s3prl_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Trunk
+    from s3prl_tpu_torch.ops.masking import compute_mask_indices
+
+    cfg = Wav2Vec2Config(extractor_mode="layer_norm", conv_feature_layers=TINY_LAYERS,
+                         encoder_layers=2, encoder_embed_dim=128, encoder_ffn_embed_dim=256,
+                         encoder_attention_heads=2, conv_pos=20, conv_pos_groups=4,
+                         pos_conv_depth=5, layer_norm_first=False, normalize=True,
+                         dropout=0.0, attention_dropout=0.0, dropout_input=0.0,
+                         post_extract_proj_always=True, feat_pad_rule="conv")
+    cpu = d2v.Data2VecPretrainTask(Wav2Vec2Trunk(cfg), average_top_k_layers=2, ema_decay=0.9,
+                                   mask_length=4)
+    cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu)
+    gpu.module.to(dev)
+
+    def mask(_, shape, pad, *a, device=None, **k):
+        return compute_mask_indices(torch.Generator().manual_seed(1), shape, pad.cpu(), *a,
+                                    **k).to(device)
+
+    monkeypatch.setattr(d2v, "compute_mask_indices", mask)
+    wavs, lens = _tiny_batch()
+    wavs, lens = wavs[:2], lens[:2]
+    batch = {"x": wavs.numpy(), "x_len": lens.numpy()}
+    losses, grads = [], []
+    for task, where in ((cpu, "cpu"), (gpu, dev)):
+        for w in wrappers():
+            w.launches = 0
+        hs = torch.zeros(1, 2, wavs.shape[1], 1, device=where)
+        loss, _ = task.loss_and_cache(hs, lens.to(where), batch, None, True)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert [w.launches for w in wrappers()][:2] == ([0, 0] if where == "cpu" else [1, 0])
+        assert sum(w.launches for w in wrappers()) == (where != "cpu")
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad.cpu() for n, p in task.module.student.named_parameters()})
+        assert all(p.grad is None for p in task.module.teacher.parameters())
+    assert abs(losses[1] / losses[0] - 1) < 1e-4
+    total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads[0].values())))
+    for name, g in grads[0].items():
+        if float(g.norm()) > 1e-5 * total:
+            a, b = grads[1][name].double().flatten(), g.double().flatten()
+            assert float(a @ b / (a.norm() * b.norm())) > 0.9999, name
+
+    layer0 = gpu.module.teacher.feature_extractor.conv_layers[0]
+    old = [t.detach().clone() for t in (layer0.conv.weight, layer0.norm.weight, layer0.norm.bias)]
+    with torch.no_grad():
+        student0 = gpu.module.student.feature_extractor.conv_layers[0].conv.weight
+        student0.add_(0.05 * torch.randn_like(student0))
+    gpu.post_update()
+    assert not torch.equal(layer0.conv.weight, old[0])
+    x = wavs.to(dev)
+    with torch.no_grad():
+        x = (x - x.mean(1, keepdim=True)) / x.std(1, keepdim=True)
+        for w in wrappers():
+            w.launches = 0
+        got = conv0_ln_gelu(x, layer0.conv.weight, layer0.norm.weight, layer0.norm.bias)
+        assert conv0_ln_gelu.launches == 1
+        want = conv0_ln_gelu_reference(x, layer0.conv.weight, layer0.norm.weight,
+                                       layer0.norm.bias)
+        stale = conv0_ln_gelu_reference(x, *old)
+        teacher_hs, _ = gpu.module.teacher(wavs.to(dev), lens.to(dev))
+        assert conv0_ln_gelu.launches == 2  # the teacher's forward: its K3, on the moved weights
+    assert float((got - want).abs().max()) <= 1e-4
+    assert float((got - stale).abs().max()) > 1e-2
+    assert bool(torch.isfinite(teacher_hs).all())

@@ -326,15 +326,26 @@ def test_audio_albert_checkpoint_with_every_depth_listed(tiny_entries, tmp_path)
 
 @pytest.mark.parametrize("name", list(ENTRIES))
 def test_native_and_refused_keywords(tiny_entries, tmp_path, name, monkeypatch):
-    """A native msgpack checkpoint raises (pretraining is not ported); APC
-    and NPC in bf16 raise (their models run in f32); train mode runs with
-    its dropouts, with states that need no grad, except where the JAX
-    train mode raises (VQ-APC's "gumbel" stream, NPC's BatchNorm); without
-    CUDA and without device= the entry raises."""
+    """A native msgpack checkpoint (the JAX pretraining task's tree around
+    the entry's model) loads; APC and NPC in bf16 raise (their models run
+    in f32); train mode runs with its dropouts, with states that need no
+    grad, except where the JAX train mode raises (VQ-APC's "gumbel" stream,
+    NPC's BatchNorm); without CUDA and without device= the entry raises."""
+    from flax import serialization
+
+    sd = perturb(hub.load(name, device="cpu").model.model.state_dict())
+    variables = jax_variables(name, sd, tiny_entries)
+    family = ENTRIES[name][0]
+    tree = ({"params": {"npc": variables["params"]}, "batch_stats": {
+        "npc": variables["batch_stats"]}} if family == "npc"
+        else {"encoder" if family == "mockingjay" else "apc": variables["params"]})
     native = tmp_path / "params.msgpack"
-    native.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="msgpack.*Queue 1 item 9"):
-        hub.load(name, ckpt=str(native), device="cpu")
+    native.write_bytes(serialization.to_bytes(tree))
+    loaded = hub.load(name, ckpt=str(native), device="cpu").model.model.state_dict()
+    assert loaded.keys() == sd.keys()
+    for k in sd:  # APC: the JAX cells hold b_hr + b_ir folded into bias_ih
+        if family != "apc" or "bias" not in k:
+            assert torch.equal(loaded[k], sd[k]), k
     if ENTRIES[name][0] != "mockingjay":
         with pytest.raises(ValueError, match="cannot take effect"):
             hub.load(name, dtype=torch.bfloat16, device="cpu")

@@ -217,13 +217,18 @@ def test_cpu_run_counts_no_launch(jax_params):
     assert [w.launches for w in wrappers()] == before
 
 
-def test_registry_refuses_what_is_not_ported(monkeypatch, tmp_path):
+def test_registry_refuses_what_is_not_ported(monkeypatch, tmp_path, jax_params):
+    from flax import serialization
+
     with pytest.raises(KeyError):
         hub.load("no_such_upstream")
-    native = tmp_path / "params.msgpack"  # the JAX package's own pretraining checkpoint
-    native.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="msgpack.*Queue 1 item 9"):
-        hub.load("hubert_large_ll60k", ckpt=str(native), device="cpu")
+    # the JAX package's own pretraining checkpoint (HuBERT's task tree) loads
+    monkeypatch.setattr(port_registry, "HUBERT_LARGE", PCFG)
+    native = tmp_path / "params.msgpack"
+    native.write_bytes(serialization.to_bytes({"trunk": jax_params, "label_embs": np.ones(2)}))
+    got = hub.load("hubert_large_ll60k", ckpt=str(native), device="cpu").model.state_dict()
+    for k, v in trunk_state_dict_from_jax(jax_params, PCFG).items():
+        assert torch.equal(got[k], v), k
     with pytest.raises(NotImplementedError, match="download= is not ported"):
         hub.load("hubert_large_ll60k", download=True, device="cpu")
     with pytest.raises(NotImplementedError, match="layer_type 'trf_adp'"):
@@ -305,6 +310,12 @@ def test_port_never_imports_jax():
         "import s3prl_tpu_torch.models.audio_cnn, s3prl_tpu_torch.models.roberta\n"
         "import s3prl_tpu_torch.models.pase, s3prl_tpu_torch.nn.specaug\n"
         "import s3prl_tpu_torch.upstream.convert_hf\n"
+        "import s3prl_tpu_torch.problem.pretrain, s3prl_tpu_torch.run_pretrain\n"
+        "import s3prl_tpu_torch.task.hubert_pretrain, s3prl_tpu_torch.task.data2vec_pretrain\n"
+        "import s3prl_tpu_torch.task.distiller_pretrain, s3prl_tpu_torch.task.reconstruction\n"
+        "import s3prl_tpu_torch.task.dump_feature, s3prl_tpu_torch.ops.mam\n"
+        "import s3prl_tpu_torch.ops.kmeans, s3prl_tpu_torch.util.msgpack\n"
+        "import s3prl_tpu_torch.models.hubert\n"
         "assert len(s3prl_tpu_torch.hub.options()) == 209\n"
         "assert len(s3prl_tpu_torch.kernels.wrappers()) == 19\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

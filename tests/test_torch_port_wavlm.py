@@ -367,7 +367,7 @@ def test_wavlm_state_dict_round_trip_is_exact(jax_params):
             np.testing.assert_array_equal(leaf, flat_b[path], err_msg=str(path))
 
 
-def test_wavlm_large_entry_loads_at_tiny_width(monkeypatch):
+def test_wavlm_large_entry_loads_at_tiny_width(monkeypatch, tmp_path):
     """hub.load("wavlm_large", device="cpu") at the tiny width (the same
     code path): int8 cache built from f32 weights, the table on layer 0,
     grep_a ones; a conformer WavLM and a native msgpack checkpoint are not
@@ -386,5 +386,15 @@ def test_wavlm_large_entry_loads_at_tiny_width(monkeypatch):
     assert bool(torch.isfinite(hs).all())
     with pytest.raises(NotImplementedError, match="layer_type 'conformer'"):
         WavLMModel(WavLMConfig(**{**TINY, "layer_type": "conformer"}), device="meta")
-    with pytest.raises(NotImplementedError, match="msgpack.*Queue 1 item 9"):
-        hub.load("wavlm_large", ckpt="model.msgpack", device="cpu")
+    # a native msgpack checkpoint: the JAX package's WavLM loader reads
+    # torch checkpoints only (its torch.load fails), and the port's refuses
+    from flax import serialization
+
+    from s3prl_tpu import hub as jax_hub
+
+    native = tmp_path / "model.msgpack"
+    native.write_bytes(serialization.to_bytes({"feature_extractor": {"w": np.ones(2)}}))
+    with pytest.raises(Exception, match="unpickling"):
+        jax_hub.load("wavlm_large", ckpt=str(native))
+    with pytest.raises(NotImplementedError, match="msgpack.*only the trunk entries"):
+        hub.load("wavlm_large", ckpt=str(native), device="cpu")
