@@ -402,6 +402,26 @@ the phases it lists, 3-6 together, and prints no result line):
     PretrainData2Vec Problem.run of 2 steps (K3 twice) and hub.load
     ("data2vec", ckpt=<its train dir>) on the card against the trained
     student.
+18. Parallelism (`parallel_phase`): two ranks spawned over gloo (a
+    ``file://`` store) that share the one card, each case on every rank
+    against the same computation by that process alone: (a) dp = 2, the
+    Trainer on HuBERT-Large int8 + flash, frozen, an UtteranceLevel probe,
+    2 steps on a global B=8 x 10 s (losses at rtol 1e-4, the probe's
+    weights at max abs 5e-4; K3 once and K1 / K2 24 times a step on each
+    rank); (b) tp = 2, HuBERT-Large and WavLM-Large bf16 + flash on B=4 x
+    10 s (per-layer cosine >= 0.999 against the tp = 1 forward; K7, then
+    K9, 24 times a forward on each rank, K3 once); (c) sp = 2,
+    sequence_sharded_extraction of HuBERT-Large bf16 without flash (K3 once
+    on each rank's samples) and HuBERT-Base f32 (the group-norm statistics
+    all-reduced) on B=2 x 30 s of ragged lengths (lengths equal, cosine >=
+    0.999 and max abs 1e-3); (d) ``dryrun_multichip(2)`` as a user calls
+    it (its own spawn: on a one-card host two ranks sharing the card over
+    gloo), dp = 1 x tp = 2, against one process (loss at rtol 1e-4). Case (a)'s one-process reference runs its frozen upstream on the
+    ranks' row groups (`halves_step`), and logs its step with one B=8
+    forward (held at rtol 1e-2: the stock bf16 ops round otherwise at
+    another batch shape). Each case's ms and
+    peak memory a rank are printed, labelled as two ranks sharing one card
+    (not scaling figures).
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2038,6 +2058,16 @@ def load(hub, model, path, device):
                     quantize=path.split()[0] == "int8", device=device, seed=0, **OPTIONS[path])
 
 
+def load_all(hub, dev):
+    """Every path's model of PATHS, loaded four at a time (each draws from
+    its own seeded generator, so the weights are those of one load at a
+    time; the CPU-bound draws and int8 quantization overlap)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        return dict(zip(PATHS, pool.map(lambda key: load(hub, *key, dev), PATHS)))
+
+
 def on_cpu(up):
     """A copy of `up` with its model on the CPU: the same seed's weights,
     drawn on the CPU by hub.load before the move to the card, with its int8
@@ -2535,13 +2565,13 @@ def check_probe_step_on_cpu(up, trainer, batch, train=False):
     check(max(rel) < 1e-3 and min(coss.values()) > PROBE_COS, "probe step card vs CPU")
 
 
-def profile_calls(fn, iters=3, warm=True, cpu=True):
+def profile_calls(fn, iters=3, warm=True):
     """(device idle share, {kernel name: device ms a call}) over `iters`
     calls (after one unprofiled call unless `warm` is False: the caller
     has just run it): 1 - the profiler's summed kernel time over the event
-    time (tools/torch_wavlm_breakdown.py's `idle_share`). `cpu=False`
-    traces the device alone (no host op events: less host overhead in the
-    traced calls, and far less to sum where a step launches ~10^4 kernels)."""
+    time (tools/torch_wavlm_breakdown.py's `idle_share`). The device is
+    traced alone (no host op events: less host overhead in the traced
+    calls, and far less to sum where a step launches ~10^4 kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2549,8 +2579,7 @@ def profile_calls(fn, iters=3, warm=True, cpu=True):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         start.record()
         for _ in range(iters):
             fn()
@@ -4860,7 +4889,7 @@ def zoo_phase(wrapper, gen, dev, smi):
         del hs
         fn = lambda: card.apply_standardized(x, lens_d)  # noqa: E731
         ms = cuda_ms(fn, ZOO_ITERS)
-        idle, _ = profile_calls(fn, iters=2, cpu=False)
+        idle, _ = profile_calls(fn, iters=2)
         cpu = on_cpu(card)
         got, got_lens = card.apply_standardized(x_small.to(dev), small_lens.to(dev))
         t0 = time.perf_counter()
@@ -4942,7 +4971,7 @@ def zoo2_phase(wrapper, gen, dev, smi):
         del hs
         fn = lambda: card.apply_standardized(x, lens_d)  # noqa: E731
         ms = cuda_ms(fn, ZOO_ITERS)
-        idle, _ = profile_calls(fn, iters=2, cpu=False)
+        idle, _ = profile_calls(fn, iters=2)
         cpu = on_cpu(card)
         got, got_lens = card.apply_standardized(x_small.to(dev), small_lens.to(dev))
         t0 = time.perf_counter()
@@ -5075,7 +5104,7 @@ def zoo3_phase(wrapper, gen, dev, smi):
             fn = lambda: card.apply_standardized(x, lens_d)  # noqa: E731
             slow = name in SLOW_ZOO3  # a forward of seconds: one timed, one profiled
             ms = cuda_ms(fn, 1 if slow else ZOO_ITERS)
-            idle, _ = profile_calls(fn, iters=1 if slow else 2, cpu=False)
+            idle, _ = profile_calls(fn, iters=1 if slow else 2)
             cpu = on_cpu(card)
             # one forward a side gives both the model's lengths and the states
             # (`Upstream.standardized`'s rule on them: 2 s needs no padding)
@@ -5392,8 +5421,7 @@ def pt_recipe(name, B, wrapper, rng, dev, smi, exp_dir):
     ms = float(np.mean(times[1:]))
     peak = torch.cuda.max_memory_allocated() / 2**30
     t2 = time.perf_counter()
-    idle, kernels = profile_calls(lambda: trainer.train_step(data), iters=1, warm=False,
-                                  cpu=False)
+    idle, kernels = profile_calls(lambda: trainer.train_step(data), iters=1, warm=False)
     check(sum(kernels.values()) > 0, f"{name}: the device trace holds no kernel")
     t3 = time.perf_counter()
     audio = sum(lens) / SR
@@ -5543,7 +5571,230 @@ def pretrain_phase(wrapper, gen, dev, smi):
     torch.cuda.empty_cache()
 
 
-ALL_PHASES = frozenset(range(3, 18))
+# -- 18. parallelism: two ranks sharing the one card --------------------------------
+
+PAR_STEPS = 3  # probe steps of case (a); the first is not timed
+PAR_SECS = {"dp": 10, "tp": 10, "sp": 30}  # the longest utterance of each case's batch
+
+
+def par_batch(B, secs, seed):
+    """B waves of up to `secs` s from a seed, the lengths ragged
+    (numpy: every rank draws the same)."""
+    rng = np.random.RandomState(seed)
+    T = int(secs * SR)
+    lens = np.array([T - (i * T) // (3 * B) for i in range(B)])
+    return (rng.randn(B, T) * (np.arange(T) < lens[:, None])).astype(np.float32), lens
+
+
+def par_launches():
+    from s3prl_tpu_torch.kernels import wrappers
+
+    return {w.__name__: w.launches for w in wrappers() if w.launches}
+
+
+def par_reset():
+    from s3prl_tpu_torch.kernels import wrappers
+
+    for w in wrappers():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def par_timed(fn):
+    """(fn's result, its host ms to a synchronised end)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def halves_step(trainer, batch, groups):
+    """One step of `trainer` (a mesh of one rank) on the global `batch`
+    whose frozen upstream runs on the dp ranks' row `groups`, as each rank
+    runs it: the stock bf16 ops around the kernels pick their algorithms by
+    batch shape, so one B=8 forward of HuBERT-Large int8 rounds otherwise
+    than two B=4 ones (21% of the states' elements, up to 0.69 of 22.5 at
+    layer 18 on an H100; PERF.md), which no dp mechanism is at fault for.
+    The loss."""
+    rows = len(batch["x"]) // groups
+    parts = [trainer.upstream(batch["x"][i:i + rows], batch["x_len"][i:i + rows])
+             for i in range(0, len(batch["x"]), rows)]
+    hs, h_lens = torch.cat([h for h, _ in parts], 1), torch.cat([n for _, n in parts])
+    loss = float(trainer.probe_step(hs, h_lens, batch)[0])
+    trainer.step += 1
+    return loss
+
+
+def par_dp(hub, tmp):
+    """(a) dp = 2: HuBERT-Large int8 + flash, frozen, an utterance probe,
+    PAR_STEPS steps on the global B=8 x 10 s; the same steps by this process
+    alone (a mesh of its own rank) first, its upstream on the ranks' row
+    groups (`halves_step`), and the natural one-process step for the log."""
+    from s3prl_tpu_torch.nn import UpstreamDownstreamModel, UtteranceLevel
+    from s3prl_tpu_torch.parallel.mesh import make_mesh
+    from s3prl_tpu_torch.parallel.distributed import rank
+    from s3prl_tpu_torch.task import UtteranceClassificationTask
+    from s3prl_tpu_torch.train import Trainer, TrainerConfig
+
+    up = hub.load("hubert_large_ll60k", dtype=torch.bfloat16, flash=True, quantize=True)
+    wavs, lens = par_batch(8, PAR_SECS["dp"], 21)
+    batch = {"x": wavs, "x_len": lens, "class_id": np.arange(8) % 4}
+
+    def trainer(mesh, where):
+        task = UtteranceClassificationTask(
+            UpstreamDownstreamModel(UtteranceLevel(1024, 4, (256,)), up.num_layers), 4)
+        t = Trainer(up, task, os.path.join(tmp, f"{where}{rank()}"), TrainerConfig(
+            total_steps=PAR_STEPS, tensorboard=False, optimizer={"name": "Adam", "lr": 1e-3}),
+            mesh=mesh)
+        t.init(resume=False)
+        return t
+
+    alone = make_mesh(ranks=[rank()])
+    one = trainer(alone, "one")
+    want = [halves_step(one, batch, 2) for _ in range(PAR_STEPS)]
+    natural = float(trainer(alone, "natural").train_step(batch)[0])
+    dp = trainer(None, "dp")  # the world's mesh: dp = 2
+    check(dp.dp == 2, f"dp {dp.dp}")
+    out = {"want": want, "natural": natural, "losses": [], "launches": [], "ms": []}
+    for _ in range(PAR_STEPS):
+        par_reset()
+        (loss, _, _), ms = par_timed(lambda: dp.train_step(batch))
+        out["losses"].append(float(loss))
+        out["launches"].append(par_launches())
+        out["ms"].append(ms)
+    out["ms"] = out["ms"][1:]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["max_abs"] = max(float((a - b).abs().max()) for a, b in zip(
+        dp.task.module.state_dict().values(), one.task.module.state_dict().values()))
+    return out
+
+
+def par_tp(hub):
+    """(b) tp = 2: HuBERT-Large and WavLM-Large bf16 + flash on B=4 x 10 s,
+    against the tp = 1 forward of the same weights (K4 / K5 for HuBERT)."""
+    from s3prl_tpu_torch.parallel.mesh import make_mesh, shard_params
+
+    mesh = make_mesh(tp=2)
+    wavs, lens = par_batch(4, PAR_SECS["tp"], 22)
+    x, n = torch.from_numpy(wavs).cuda(), torch.from_numpy(lens).cuda()
+    out = {}
+    for name in ("hubert_large_ll60k", "wavlm_large"):
+        up = hub.load(name, dtype=torch.bfloat16, flash=True, quantize=False)
+        want, want_lens = up.apply_standardized(x, n)
+        shard_params(mesh, up.model)
+        up.apply_standardized(x, n)  # warm
+        par_reset()
+        (hs, h_lens), ms = par_timed(lambda: up.apply_standardized(x, n))
+        out[name] = {"launches": par_launches(), "ms": ms,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "lens_equal": torch.equal(h_lens, want_lens),
+                     "cos": layer_cosines(hs, want, want_lens.tolist())}
+        del up, want, hs
+        torch.cuda.empty_cache()
+    return out
+
+
+def par_sp(hub):
+    """(c) sp = 2: HuBERT-Large bf16 without flash and HuBERT-Base f32 (the
+    group-norm statistics) on B=2 x 30 s of ragged lengths, against the
+    one-process forward."""
+    from s3prl_tpu_torch.parallel.mesh import (gather_hidden_states, make_mesh,
+                                               sequence_sharded_extraction)
+
+    mesh = make_mesh(dp=1, sp=2)
+    wavs, lens = par_batch(2, PAR_SECS["sp"], 23)
+    out = {}
+    for name, dtype in (("hubert_large_ll60k", torch.bfloat16), ("hubert_base", torch.float32)):
+        up = hub.load(name, dtype=dtype, flash=False, quantize=False)
+        want, want_lens = up.apply_standardized(wavs, lens)
+        sequence_sharded_extraction(up, mesh, wavs, lens)  # warm
+        par_reset()
+        (hs, h_lens), ms = par_timed(lambda: sequence_sharded_extraction(up, mesh, wavs, lens))
+        launches, frames = par_launches(), hs.shape[2]
+        whole = gather_hidden_states(mesh, hs)
+        out[name] = {"launches": launches, "ms": ms, "frames": frames,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "lens_equal": torch.equal(h_lens, want_lens),
+                     "cos": layer_cosines(whole, want, want_lens.tolist()),
+                     "max_abs": float((whole.float() - want.float()).abs().max())}
+        del up, want, hs, whole
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_rank(tmp):
+    """Phase 18's cases on this rank (module docstring)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from s3prl_tpu_torch import hub
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {"dp": par_dp(hub, tmp), "tp": par_tp(hub), "sp": par_sp(hub)}
+
+
+def parallel_phase(smi):
+    """Phase 18: two ranks sharing the one card over gloo (NCCL refuses two
+    ranks on one device; the gloo collectives stage CUDA tensors through
+    host memory), spawned with a ``file://`` store, each case checked on
+    every rank against one process on the card; then the multichip dry run
+    through its entry point, which spawns its own ranks. A rank's exception
+    or a mismatch ends the run. The times are of two ranks sharing one
+    card, not scaling figures."""
+    import tempfile
+
+    from s3prl_tpu_torch.parallel import dryrun
+    from s3prl_tpu_torch.parallel.distributed import spawn
+
+    label = f"two ranks sharing one card ({smi})"
+    with tempfile.TemporaryDirectory() as tmp:
+        (ranks, spawn_ms) = par_timed(lambda: spawn(parallel_rank, 2, tmp, backend="gloo"))
+    log(f"[parallel] spawn and cases (a)-(c): {spawn_ms:.0f} ms, {label}")
+    dry, dry_ms = par_timed(lambda: dryrun.dryrun_multichip(2))
+    want, _ = dryrun.run(1, "cuda", B=2)
+    int8_step = {"conv0_ln_gelu": 1, "fused_attention_block": 24, "fused_int8_ffn": 24}
+    for r, out in enumerate(ranks):
+        dp = out["dp"]
+        log(f"[parallel a] rank {r} dp=2 HuBERT-Large int8 probe, global B=8 x "
+            f"{PAR_SECS['dp']} s: losses {dp['losses']} (one process {dp['want']}; its first "
+            f"with one B=8 upstream forward {dp['natural']}), probe "
+            f"max abs {dp['max_abs']:.2e}, ms a step {[round(m, 1) for m in dp['ms']]}, peak "
+            f"{dp['peak_gib']:.2f} GiB, launches a step {dp['launches'][-1]}; {label}")
+        np.testing.assert_allclose(dp["losses"], dp["want"], rtol=1e-4)
+        np.testing.assert_allclose(dp["natural"], dp["want"][0], rtol=1e-2)
+        check(dp["max_abs"] <= 5e-4, f"rank {r} dp probe weights {dp['max_abs']}")
+        check(all(n == int8_step for n in dp["launches"]), f"rank {r} dp launches")
+        for name, kernel in (("hubert_large_ll60k", "fused_qkv_attention"),
+                             ("wavlm_large", "gated_bias_attention")):
+            tp = out["tp"][name]
+            log(f"[parallel b] rank {r} tp=2 {name} bf16 flash B=4 x {PAR_SECS['tp']} s: "
+                f"min layer cos {min(tp['cos']):.5f} vs tp=1, {tp['ms']:.1f} ms a forward, "
+                f"peak {tp['peak_gib']:.2f} GiB, launches {tp['launches']}; {label}")
+            check(tp["lens_equal"] and min(tp["cos"]) >= COS_LAYER, f"rank {r} tp {name}")
+            check(tp["launches"] == {"conv0_ln_gelu": 1, kernel: 24},
+                  f"rank {r} tp {name} launches {tp['launches']}")
+        for name in ("hubert_large_ll60k", "hubert_base"):
+            sp = out["sp"][name]
+            log(f"[parallel c] rank {r} sp=2 {name} B=2 x {PAR_SECS['sp']} s: {sp['frames']} "
+                f"frames on this rank, min layer cos {min(sp['cos']):.6f}, max abs "
+                f"{sp['max_abs']:.2e} vs one process, {sp['ms']:.1f} ms, peak "
+                f"{sp['peak_gib']:.2f} GiB, launches {sp['launches']}; {label}")
+            check(sp["lens_equal"], f"rank {r} sp {name} lengths")
+            if name == "hubert_base":
+                check(sp["max_abs"] <= 1e-3 and sp["launches"] == {}, f"rank {r} sp {name}")
+            else:
+                check(min(sp["cos"]) >= COS_LAYER and sp["launches"] == {"conv0_ln_gelu": 1},
+                      f"rank {r} sp {name}")
+    for r, (loss, _) in enumerate(dry):
+        log(f"[parallel d] rank {r} dryrun_multichip(2), dp=1 tp=2: loss {loss} (one process "
+            f"{want}); {dry_ms:.0f} ms for the call, spawn and the model's build included; "
+            f"{label}")
+        check(np.isfinite(loss), "dry run loss")
+        np.testing.assert_allclose(loss, want, rtol=1e-4)
+
+
+ALL_PHASES = frozenset(range(3, 19))
 KERNEL_PHASES = frozenset(range(3, 7))
 
 
@@ -5554,14 +5805,14 @@ def parse_phases(argv):
 
     parser = argparse.ArgumentParser(description="On-card check of s3prl_tpu_torch.")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases among 3-17 (default: all); phases 1 "
+                        help="comma-separated phases among 3-18 (default: all); phases 1 "
                              "and 2 always run, and a partial run prints no result line")
     args = parser.parse_args(argv)
     if args.phases is None:
         return ALL_PHASES
     phases = {int(p) for p in args.phases.split(",")}
     if not phases <= ALL_PHASES:
-        parser.error(f"--phases {args.phases}: phases 3-17")
+        parser.error(f"--phases {args.phases}: phases 3-18")
     return frozenset(phases | (KERNEL_PHASES if phases & KERNEL_PHASES else set()))
 
 
@@ -5665,7 +5916,8 @@ def main():
         # HuBERT-Large then WavLM-Large, then the options, then the Base models,
         # then wav2vec2-Large, data2vec-Large and UniSpeech-SAT Base; then the
         # fused weighted sum and a checkpoint loaded back
-        ups = {(model, path): load(hub, model, path, dev) for model, path in PATHS}
+        with Phase("4 loads (the models of phases 4-6, four at a time)"):
+            ups = load_all(hub, dev)
         launches = {}
         with Phase("4 main paths"):
             for run, expected in RUNS.items():
@@ -6039,6 +6291,11 @@ def main():
     if 17 in phases:
         with Phase("17 pretraining"):
             pretrain_phase(wrapper, gen, dev, smi.splitlines()[0])
+    # 18. parallelism: dp, tp and sp on two ranks sharing the card, each
+    # against one process, and the multichip dry run
+    if 18 in phases:
+        with Phase("18 parallel (two ranks sharing one card)"):
+            parallel_phase(smi.splitlines()[0])
     if phases != ALL_PHASES:
         log(f"partial run: phases 1, 2 and {sorted(phases)} (the kernels line and the result "
             "line come from a run of every phase)")

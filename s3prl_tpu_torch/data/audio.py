@@ -15,7 +15,6 @@ from math import gcd
 from typing import Optional, Tuple
 
 import numpy as np
-from scipy.signal import resample_poly
 
 from .flac import flac_info, load_flac
 
@@ -50,6 +49,8 @@ def _resample(wav: np.ndarray, sr: int, target_sample_rate: Optional[int]
     if not target_sample_rate or target_sample_rate == sr:
         return wav, sr
     g = gcd(target_sample_rate, sr)
+    from scipy.signal import resample_poly  # slow to import: only where it resamples
+
     return resample_poly(wav, target_sample_rate // g, sr // g).astype(np.float32), \
         target_sample_rate
 

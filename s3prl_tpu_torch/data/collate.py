@@ -41,6 +41,11 @@ class Buckets:
 
 DEFAULT_WAV_BUCKETS = Buckets.linear(16000, 16000 * 30)  # 1 s steps up to 30 s
 
+#: the label keys padded with another value than 0 (a loss masks them by
+#: value): the frame probes' collate, and the trainer's gather of the dp
+#: ranks' batches
+PAD_VALUES = {"frame_labels": -100}
+
 
 def pad_stack(
     arrays: Sequence[np.ndarray], target_len: Optional[int] = None, pad_value=0

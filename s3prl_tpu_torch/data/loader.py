@@ -3,8 +3,8 @@
 
 A background prefetch thread decodes and collates the next batches while
 the card runs the current step; batches stay numpy until the trainer moves
-their numeric arrays to the card. Single-process only: multi-process data
-parallelism is not ported (ROADMAP.md Queue 1 item 10).
+their numeric arrays to the card. Under a process group of several ranks
+each loader deals the batch stream round-robin (`_maybe_distribute`).
 """
 
 from __future__ import annotations
@@ -16,17 +16,22 @@ from typing import Callable, Optional
 from .collate import pad_collate
 
 
-def _single_process(batch_sampler):
-    """The JAX loader hands each process its share of the batches under
-    multi-host SPMD (`_maybe_distribute`); the port runs one process, and
-    refuses a process group of several."""
+def _maybe_distribute(batch_sampler, distribute: bool = True):
+    """Under a torch.distributed group of several ranks, each rank loads
+    only its round-robin share of the batch stream over the world's ranks
+    (the reference's `DistributedBatchSamplerWrapper` under DDP,
+    s3prl/problem/base.py:445-449); a Trainer on a mesh with tp > 1 deals
+    it over the dp axis instead (`Trainer.train`). One process (the common
+    case) is a no-op, as is ``distribute=False``."""
     import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"a torch.distributed group of {dist.get_world_size()} processes: distributed "
-            "data loading is not ported (ROADMAP.md Queue 1 item 10)")
-    return batch_sampler
+    from .sampler import DistributedBatchSamplerWrapper
+
+    if (not distribute or isinstance(batch_sampler, DistributedBatchSamplerWrapper)
+            or not (dist.is_available() and dist.is_initialized())
+            or dist.get_world_size() <= 1):
+        return batch_sampler
+    return DistributedBatchSamplerWrapper(batch_sampler, dist.get_world_size(), dist.get_rank())
 
 
 class DataLoader:
@@ -36,9 +41,10 @@ class DataLoader:
         batch_sampler,
         collate_fn: Optional[Callable] = None,
         prefetch: int = 2,
+        distribute: bool = True,
     ):
         self.dataset = dataset
-        self.batch_sampler = _single_process(batch_sampler)
+        self.batch_sampler = _maybe_distribute(batch_sampler, distribute)
         self.collate_fn = collate_fn or pad_collate
         self.prefetch = prefetch
 

@@ -31,6 +31,18 @@ Voice conversion (VcVcc2020, VcExample) trains the Taco2-AR decoder and
 writes Griffin-Lim waves under ``<target_dir>/wav_hyp``, e.g.
 ``VcVcc2020 --prepare_data.vcc2020 /data/vcc2020``; its decoder needs an
 upstream at the mels' 160-sample hop (the default ``fbank``).
+
+Several cards: one process a card under ``torchrun``, whose environment
+starts the process group (`parallel.distributed.initialize`; NCCL when each
+rank has a card), and the trainer's ``train`` block sets the data- and
+tensor-parallel ways, e.g.
+
+    torchrun --nproc-per-node 4 -m s3prl_tpu_torch.main CommonExample \
+        --target_dir exp/example --train.dp 2 --train.tp 2 \
+        --build_upstream.name hubert_large_ll60k \
+        --build_upstream.extra_conf "{'dtype': 'bf16', 'flash': True}"
+
+(tp shards the upstream, which then takes ``quantize=False``.)
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ from __future__ import annotations
 import logging
 import sys
 
+from .parallel.distributed import initialize
 from .problem import Problem
 
 
@@ -45,6 +58,7 @@ def main(argv=None):
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s"
     )
+    initialize()  # a no-op outside torchrun
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)

@@ -83,14 +83,19 @@ def total_stride(conv_layers=DEFAULT_CONV_LAYERS) -> int:
     return out
 
 
-def group_norm_f32(y: torch.Tensor, norm: nn.GroupNorm) -> torch.Tensor:
+def group_norm_f32(y: torch.Tensor, norm: nn.GroupNorm, stats=None) -> torch.Tensor:
     """Per-channel norm of y [B, T, C] over its T frames, in f32: flax's
     GroupNorm with one channel a group (convfe.py:339-343), whose variance
     is max(0, E[x^2] - E[x]^2) (``use_fast_variance``) and whose scale
-    multiplies rsqrt(var + eps) before the centred input does."""
+    multiplies rsqrt(var + eps) before the centred input does. `stats`
+    (time-sharded extraction, `parallel.mesh.TimeShard.extract`) maps the
+    f32 frames to the (mean, var) [B, 1, C] of the whole utterance."""
     x = y.float()
-    mean = x.mean(1, keepdim=True)
-    var = (x.square().mean(1, keepdim=True) - mean.square()).clamp_min(0.0)
+    if stats is not None:
+        mean, var = stats(x)
+    else:
+        mean = x.mean(1, keepdim=True)
+        var = (x.square().mean(1, keepdim=True) - mean.square()).clamp_min(0.0)
     return (x - mean) * (torch.rsqrt(var + norm.eps) * norm.weight) + norm.bias
 
 
@@ -134,15 +139,16 @@ class ConvLayer(nn.Sequential):
         y = y.transpose(1, 2)
         return y if conv.bias is None else y + conv.bias.to(x.dtype)
 
-    def forward(self, x: torch.Tensor, gelu_mode: str = "erf") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gelu_mode: str = "erf", stats=None) -> torch.Tensor:
         """x [B, T, C_in] -> [B, T', C_out]; the f32 norm is cast to x.dtype
-        before the GELU (``approximate`` "none" for erf, "tanh")."""
+        before the GELU (``approximate`` "none" for erf, "tanh"); `stats`:
+        the group norm's statistics hook (`group_norm_f32`)."""
         y = self.conv_out(x)
         if self.norm_kind == "layer":
             y = F.layer_norm(y.float(), (y.shape[-1],), self.norm.weight, self.norm.bias,
                              eps=1e-5).to(x.dtype)
         elif self.norm_kind == "group":
-            y = group_norm_f32(y, self.norm).to(x.dtype)
+            y = group_norm_f32(y, self.norm, stats).to(x.dtype)
         return F.gelu(y, approximate="tanh" if gelu_mode == "tanh" else "none")
 
 
@@ -228,7 +234,9 @@ class ConvFeatureExtractor(nn.Module):
             elif self.fused_conv:
                 layer.gemm_weight = conv_gemm_weight(layer.conv.weight)
 
-    def forward(self, wavs: torch.Tensor) -> torch.Tensor:
+    def forward(self, wavs: torch.Tensor, group_stats=None) -> torch.Tensor:
+        """wavs [B, T] -> [B, T', C]; `group_stats`: the group-norm layer 0's
+        statistics hook (`group_norm_f32`; time-sharded extraction)."""
         first, *rest = self.conv_layers
         s0, k0 = first.conv.stride[0], first.conv.kernel_size[0]
         fuse0 = self.fuse0 and not self.training  # the kernels are forward-only
@@ -261,5 +269,5 @@ class ConvFeatureExtractor(nn.Module):
                 x = ln_gelu(layer.conv_out(x).contiguous(), layer.norm.weight, layer.norm.bias,
                             gelu_mode)
             else:
-                x = layer(x, gelu_mode)
+                x = layer(x, gelu_mode, group_stats if layer.norm_kind == "group" else None)
         return x

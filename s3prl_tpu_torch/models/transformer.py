@@ -101,6 +101,7 @@ match the JAX package's full-f32 products.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -116,6 +117,7 @@ from ..kernels.flash_attention import (fused_attention_block, fused_attention_bl
 from ..nn.heads import dropout
 from ..ops.attention import NEG_INF, attention_bthd
 from ..ops.quant import as_quantized_cols, int8_matmul
+from ..parallel.collectives import copy_to_tp, reduce_from_tp
 
 
 # the FFN activations of EncoderLayer (transformer.py:296-303)
@@ -227,6 +229,12 @@ class ConvPositionalEmbedding(nn.Sequential):
                              f"{pc.GROUP_WIDTH} channels a group, got {features} channels in "
                              f"{groups} groups")
 
+    @property
+    def halo(self) -> int:
+        """The frames an output frame reads on each side (time-sharded
+        extraction, `parallel.mesh.TimeShard.window`)."""
+        return self[0].kernel_size[0] // 2
+
     @torch.no_grad()
     def build_qcache(self) -> None:
         """Builds the option's weights from the conv weight: K16a's tap-major
@@ -287,6 +295,11 @@ class ConvPositionalStack(nn.Sequential):
             raise ValueError(f"{name} cannot take effect: the depth-{depth} pos-conv stack runs "
                              "no kernel (its kernels take the one-conv pos-conv)")
 
+    @property
+    def halo(self) -> int:
+        """The frames an output frame reads on each side: each block's k // 2."""
+        return sum(block[0].kernel_size[0] // 2 for block in self)
+
     def build_qcache(self) -> None:
         """No option weights to build."""
 
@@ -302,6 +315,15 @@ class ConvPositionalStack(nn.Sequential):
         return x
 
 
+class TpShard(NamedTuple):
+    """A layer's tp shard: the tp process group, this rank's index in it
+    and its size (`EncoderLayer.split_tp`)."""
+
+    group: object
+    rank: int
+    size: int
+
+
 class SelfAttention(_QCache, nn.Module):
     """Multi-head self-attention with one fused QKV projection.
 
@@ -310,7 +332,11 @@ class SelfAttention(_QCache, nn.Module):
     speak fairseq's ``{q,k,v}_proj.{weight,bias}`` keys. With ``quantize``
     the projections run int8 W8A8 from the cached ``qkv`` and ``out_proj``
     codes; with ``use_flash`` the attention between them is K7
-    `fused_qkv_attention` (forward-only on the card)."""
+    `fused_qkv_attention` (forward-only on the card). Under tp
+    (`EncoderLayer.split_tp`) it holds this rank's heads (``num_heads``
+    H / tp) and ``tp``, the layer's `TpShard`."""
+
+    tp = None  # the tp shard (`EncoderLayer.split_tp`); None unsharded
 
     def __init__(self, embed_dim: int, num_heads: int, quantize: bool = False,
                  use_flash: bool = False, device=None):
@@ -341,7 +367,7 @@ class SelfAttention(_QCache, nn.Module):
                                       missing_keys, unexpected_keys, error_msgs)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor, rel_bias=None,
-                attn_bias=None) -> torch.Tensor:
+                attn_bias=None, sp=None) -> torch.Tensor:
         """transformer.py:156-200: x [B, T, C] in the model dtype, pad_mask
         [B, T] True on padded keys; `rel_bias` = (pos_bias [H, T, T], gate
         [B, H, T]) is WavLM's gated relative-position bias, `attn_bias`
@@ -351,14 +377,23 @@ class SelfAttention(_QCache, nn.Module):
         (f32, or the bf16 model's padded bf16 buffer) and the gate in f32,
         or K7 without a bias; otherwise plain ops (attention_bthd), the bias
         (gate * pos_bias formed in the model dtype, or `attn_bias`) added to
-        the f32 scores before the mask."""
-        B, T, C = x.shape
+        the f32 scores before the mask.
+
+        Under tp the qkv holds this rank's heads ([q_r; k_r; v_r], C / tp
+        wide each) and the out-projection's partial sums (its rows of the
+        weight) are all-reduced over the tp group before the bias is added
+        once. Under sp (`parallel.mesh.TimeShard`) x holds this rank's
+        frames, pad_mask [B, T_all] the keys of the whole sequence and the
+        biases their rows of it: the plain attention runs the queries
+        against the gathered keys and values."""
+        B, T, _ = x.shape
         H = self.num_heads
-        Dh = C // H
         if self.quantize:
             qkv = int8_matmul(x, self.qpair("qkv"), self.qkv_bias)
         else:
             qkv = F.linear(x, self.qkv_weight, self.qkv_bias.to(x.dtype))
+        C = qkv.shape[-1] // 3  # this rank's width
+        Dh = C // H
         if self.use_flash and attn_bias is None:
             kv_lens = (~pad_mask).sum(-1, dtype=torch.int32)
             if rel_bias is None:
@@ -370,6 +405,8 @@ class SelfAttention(_QCache, nn.Module):
                 out = out.transpose(1, 2).reshape(B, T, C)
         else:
             q, k, v = qkv.view(B, T, 3, H, Dh).unbind(2)
+            if sp is not None:
+                k, v = sp.gather(k), sp.gather(v)
             q = q * Dh ** -0.5
             scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
             if rel_bias is not None:
@@ -382,6 +419,9 @@ class SelfAttention(_QCache, nn.Module):
             out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, C)
         if self.quantize:
             return int8_matmul(out, self.qpair("out_proj"), self.out_proj.bias)
+        if self.tp is not None:
+            return (reduce_from_tp(F.linear(out, self.out_proj.weight), self.tp.group)
+                    + self.out_proj.bias.to(out.dtype))
         return _linear(out, self.out_proj)
 
 
@@ -392,6 +432,7 @@ class EncoderLayer(_QCache, nn.Module):
     is in the module docstring."""
 
     attention = SelfAttention  # the self-attention module (WavLM's adds the gate)
+    tp = None  # the tp shard (`split_tp`); None unsharded
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
@@ -456,6 +497,35 @@ class EncoderLayer(_QCache, nn.Module):
         self._store_qcache("fc1", self.fc1.weight)
         self._store_qcache("fc2", self.fc2.weight)
 
+    def split_tp(self, group, rank: int, size: int) -> None:
+        """Makes this layer tp rank `rank`'s shard of `size` (the Megatron
+        rules, `parallel.mesh.TP_RULES`): H / size heads and F / size FFN
+        columns, the weights resized (uninitialised: `shard_params` loads
+        this rank's slices next). The int8 layers raise: a row's int8 scale
+        is its absmax over the whole row, and a rank holds part of the row
+        (ROADMAP.md Queue 2); so do the fused-block options, whose kernels
+        take the whole out-projection."""
+        on = [name for name in ("qkv_fuse", "full_fuse", "wavlm_fuse")
+              if getattr(self, name, False)]
+        if on:
+            raise ValueError(f"{on[0]} cannot take effect under tp > 1: its kernels take the whole "
+                             "out-projection of the block")
+        if self.quantize:
+            raise ValueError("quantize=True cannot take effect under tp > 1: the int8 row scale "
+                             "of a sharded row is not the whole row's (load the model with "
+                             "quantize=False)")
+        attn, H, F_ = self.self_attn, self.num_heads, self.fc1.out_features
+        if H % size or F_ % size:
+            raise ValueError(f"{H} heads and {F_} FFN columns: not divisible by tp={size}")
+        C = attn.out_proj.out_features
+        self.tp = attn.tp = TpShard(group, rank, size)
+        self.num_heads = attn.num_heads = H // size
+        for p, shape in ((attn.qkv_weight, (3 * C // size, C)), (attn.qkv_bias, (3 * C // size,)),
+                         (attn.out_proj.weight, (C, C // size)),
+                         (self.fc1.weight, (F_ // size, C)), (self.fc1.bias, (F_ // size,)),
+                         (self.fc2.weight, (C, F_ // size))):
+            p.data = p.data.new_empty(shape)
+
     def _drop(self, x: torch.Tensor, generator) -> torch.Tensor:
         """The residual branch's dropout (train mode only)."""
         return dropout(x, self.dropout, self.training, generator)
@@ -463,8 +533,17 @@ class EncoderLayer(_QCache, nn.Module):
     def _ffn(self, h: torch.Tensor, generator=None) -> torch.Tensor:
         """The FFN's module path on the normalised h: fc1 -> the activation
         (erf GELU, ReLU or swish) -> (train mode) activation dropout -> fc2,
-        through int8_matmul under ``quantize``."""
+        through int8_matmul under ``quantize``. Under tp: this rank's fc1
+        columns and fc2 rows, the partial sums all-reduced before fc2's
+        bias (the activation dropout drawn for all F columns)."""
         act = ACTIVATIONS[self.activation]
+        if self.tp is not None:
+            group, rank, size = self.tp
+            width = self.fc1.out_features
+            h = dropout(act(_linear(h, self.fc1)), self.activation_dropout, self.training,
+                        generator, cols=(rank * width, size * width))
+            return (reduce_from_tp(F.linear(h, self.fc2.weight), group)
+                    + self.fc2.bias.to(h.dtype))
         if self.quantize:
             h = act(int8_matmul(h, self.qpair("fc1"), self.fc1.bias))
             h = dropout(h, self.activation_dropout, self.training, generator)
@@ -483,11 +562,33 @@ class EncoderLayer(_QCache, nn.Module):
         return fused_int8_ffn(x, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),
                               self.fc2.bias, ln=(ln2.weight, ln2.bias), residual=True)
 
+    def _tp_forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                    generator=None) -> torch.Tensor:
+        """The tp shard's block: the module path, the replicated input of
+        each branch through `copy_to_tp` (its gradient all-reduced), the
+        attention on this rank's heads (K7 under ``use_flash``) and each
+        branch's all-reduce in the attention's out-projection and in
+        `_ffn`; the biases, residuals and (post-LN) LNs once, after it."""
+        attn, ln1, ln2 = self.self_attn, self.self_attn_layer_norm, self.final_layer_norm
+        group = self.tp.group
+        if self.layer_norm_first:
+            x = x + self._drop(attn(copy_to_tp(_layer_norm(x, ln1), group), pad_mask), generator)
+            h = self._ffn(copy_to_tp(_layer_norm(x, ln2), group), generator)
+            return x + self._drop(h, generator)
+        x = _layer_norm(x + self._drop(attn(copy_to_tp(x, group), pad_mask), generator), ln1)
+        h = self._ffn(copy_to_tp(x, group), generator)
+        return _layer_norm(x + self._drop(h, generator), ln2)
+
     def forward(self, x: torch.Tensor, kv_lens: torch.Tensor,
-                pad_mask: torch.Tensor, generator=None) -> torch.Tensor:
+                pad_mask: torch.Tensor, generator=None, sp=None) -> torch.Tensor:
         """x [B, T, C] in the model dtype; kv_lens [B] int32 valid frames;
         pad_mask [B, T] True on padded frames; `generator`: train mode's
-        dropouts."""
+        dropouts. A tp shard takes `_tp_forward`; under sp (`sp`, the
+        `parallel.mesh.TimeShard`; the layer then has neither ``use_flash``
+        nor ``quantize``) the module path, its attention on the gathered
+        keys (pad_mask [B, T_all])."""
+        if self.tp is not None:
+            return self._tp_forward(x, pad_mask, generator)
         attn, ln1, ln2 = self.self_attn, self.self_attn_layer_norm, self.final_layer_norm
         # the kernels' FFNs compute GELU: quant serving and the bf16 FFN (and
         # the post-LN bf16 block) need it, as the JAX gates do
@@ -501,7 +602,8 @@ class EncoderLayer(_QCache, nn.Module):
             and self.use_flash and ln1.eps == 1e-5 and _fused_block_available(x)
         )
         if not self.layer_norm_first:
-            return self._post_ln(x, kv_lens, pad_mask, quant_serving, fused and gelu, generator)
+            return self._post_ln(x, kv_lens, pad_mask, quant_serving, fused and gelu, generator,
+                                 sp)
         if quant_serving and self.full_fuse and self.use_flash and ln1.eps == 1e-5:
             return self._fully_fused(x, kv_lens)
         block_t = x.shape[1] <= fa.MAX_BLOCK_T
@@ -523,7 +625,7 @@ class EncoderLayer(_QCache, nn.Module):
                 x, attn.qkv_weight, attn.qkv_bias, (ln1.weight, ln1.bias),
                 attn.out_proj.weight, attn.out_proj.bias, kv_lens, self.num_heads)
         else:
-            x = x + self._drop(attn(_layer_norm(x, ln1), pad_mask), generator)
+            x = x + self._drop(attn(_layer_norm(x, ln1), pad_mask, sp=sp), generator)
         if quant_serving and ln2.eps == 1e-5:
             return fused_int8_ffn(x, self.qpair("fc1"), self.fc1.bias, self.qpair("fc2"),
                                   self.fc2.bias, ln=(ln2.weight, ln2.bias), residual=True)
@@ -537,7 +639,7 @@ class EncoderLayer(_QCache, nn.Module):
         return x + self._drop(self._ffn(h, generator), generator)
 
     def _post_ln(self, x: torch.Tensor, kv_lens: torch.Tensor, pad_mask: torch.Tensor,
-                 quant_serving: bool, fused: bool, generator=None) -> torch.Tensor:
+                 quant_serving: bool, fused: bool, generator=None, sp=None) -> torch.Tensor:
         """The post-LN block (transformer.py:564-668): x = LN1(x + attn(x)),
         then x = LN2(x + ffn(x)), each LN in f32 cast back to x.dtype."""
         attn, ln1, ln2 = self.self_attn, self.self_attn_layer_norm, self.final_layer_norm
@@ -559,7 +661,7 @@ class EncoderLayer(_QCache, nn.Module):
                                                         attn.out_proj.bias, kv_lens,
                                                         self.num_heads), ln1)
         else:
-            x = _layer_norm(x + self._drop(attn(x, pad_mask), generator), ln1)
+            x = _layer_norm(x + self._drop(attn(x, pad_mask, sp=sp), generator), ln1)
         if ((quant_serving or (fused and self.fc1.out_features % 128 == 0))
                 and ln2.eps == 1e-5):
             if quant_serving:
@@ -798,16 +900,18 @@ class TransformerEncoder(nn.Module):
         ])
         self.layer_norm = nn.LayerNorm(embed_dim, device=device)
 
-    def _layer_args(self, T: int, device) -> tuple:
+    def _layer_args(self, T: int, device, rows: slice = slice(None)) -> tuple:
         """Inputs every layer takes after (x, kv_lens, pad_mask), built once
-        per forward: the Conformer's relative-position table (``"rel_pos"``),
-        else none (WavLM's encoder adds its shared bias)."""
+        per forward for T frames: the Conformer's relative-position table
+        (``"rel_pos"``), else none (WavLM's encoder adds its shared bias, of
+        the query `rows` a time shard holds)."""
         if self.pos_enc_type == "rel_pos":
             return (relative_positional_table(T, self.layer_norm.normalized_shape[0], device),)
         return ()
 
     def forward(self, x: torch.Tensor, feat_lens: torch.Tensor,
-                layer_weights: torch.Tensor | None = None, generator=None) -> torch.Tensor:
+                layer_weights: torch.Tensor | None = None, generator=None,
+                sp=None) -> torch.Tensor:
         """x [B, T, C] in the model dtype, feat_lens [B] valid frames ->
         hidden states [L+1, B, T, C]; with ``layer_weights`` [L+1] (a tensor
         on x's device) their weighted sum [1, B, T, C] (transformer.py:
@@ -815,17 +919,27 @@ class TransformerEncoder(nn.Module):
         the product rounded before the sum as XLA rounds JAX's
         ``acc + w.astype(h.dtype) * h``, layer by layer, with no
         [L+1, B, T, C] stack and no host round trip. `generator`: train
-        mode's dropouts."""
+        mode's dropouts.
+
+        `sp` (`parallel.mesh.TimeShard`, time-sharded extraction): x holds
+        the frames [lo, hi) of the whole sequence's `sp.total`, and so do
+        the hidden states returned; the pos-conv reads its halo from the
+        gathered sequence (`TimeShard.window`), the layers' attention the
+        gathered keys. Eval mode; transformer layers only."""
         B, T, C = x.shape
-        pad_mask = torch.arange(T, device=x.device)[None, :] >= feat_lens[:, None]
-        kv_lens = torch.clamp(feat_lens, max=T).to(torch.int32)
+        lo, total = (0, T) if sp is None else (sp.lo, sp.total)
+        keys = torch.arange(total, device=x.device)[None, :] >= feat_lens[:, None]
+        pad_mask = keys[:, lo:lo + T]
+        kv_lens = torch.clamp(feat_lens, max=total).to(torch.int32)
         x = x.masked_fill(pad_mask[..., None], 0.0)
         if self.pos_conv is not None:
-            x = x + self.pos_conv(x)
+            x = x + (self.pos_conv(x) if sp is None else
+                     sp.window(self.pos_conv, x, self.pos_conv.halo))
         if not self.layer_norm_first:  # transformer.py:735-736
             x = _layer_norm(x, self.layer_norm)
         x = dropout(x, self.dropout, self.training, generator)  # transformer.py:737
-        shared = self._layer_args(T, x.device)
+        shared = self._layer_args(total, x.device, slice(lo, lo + T))
+        extra = {} if sp is None else {"sp": sp}
         L = len(self.layers)
         if layer_weights is None:
             hidden = x.new_empty(L + 1, B, T, C)
@@ -840,7 +954,7 @@ class TransformerEncoder(nn.Module):
                 hidden[i] = x
             else:
                 acc += w[i] * x
-            x = layer(x, kv_lens, pad_mask, *shared, generator=generator)
+            x = layer(x, kv_lens, keys, *shared, generator=generator, **extra)
         if self.layer_norm_first:
             x = _layer_norm(x, self.layer_norm)
         if layer_weights is not None:

@@ -248,7 +248,7 @@ class Wav2Vec2Trunk(nn.Module):
 
     def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor,
                 layer_weights: torch.Tensor | None = None, generator=None,
-                mask_indices: torch.Tensor | None = None):
+                mask_indices: torch.Tensor | None = None, sp=None):
         """wavs [B, T] padded 16 kHz, wav_lens [B] -> (hidden_states
         [L+1, B, T', C], feat_lens [B]); with ``layer_weights`` [L+1] on the
         model's device, hidden_states is their weighted sum [1, B, T', C]
@@ -257,12 +257,17 @@ class Wav2Vec2Trunk(nn.Module):
         then the encoder's) draw from `generator`. ``mask_indices`` [B, T'']
         bool (pretraining) puts ``mask_emb`` on its True frames after
         ``dropout_input``, cut or padded with False to T' (wav2vec2.py:
-        159-171)."""
+        159-171). `sp` (`parallel.mesh.TimeShard`, time-sharded extraction
+        in eval mode): the frames [lo, hi) of the whole T' from the full
+        waves, whose length rules it keeps."""
         cfg = self.cfg
         if cfg.normalize:
             wavs = normalize_wavs(wavs, wav_lens)
-        features = self.feature_extractor(wavs)
-        t_feat = features.shape[1]
+        if sp is None:
+            features = self.feature_extractor(wavs)
+            t_feat = features.shape[1]
+        else:
+            features, t_feat = sp.extract(self.feature_extractor, wavs), sp.total
         if cfg.feat_pad_rule == "conv":  # strict conv arithmetic (wav2vec2.py:133-137)
             feat_lens = torch.clamp(conv_output_lengths(wav_lens, cfg.conv_feature_layers),
                                     max=t_feat)
@@ -287,7 +292,8 @@ class Wav2Vec2Trunk(nn.Module):
             mask = F.pad(mask_indices[:, :t], (0, max(t - mask_indices.shape[1], 0)))
             features = torch.where(mask.to(features.device)[..., None],
                                    self.mask_emb.to(features.dtype), features)
-        return self.encoder(features, feat_lens, layer_weights, generator), feat_lens
+        extra = {} if sp is None else {"sp": sp}
+        return self.encoder(features, feat_lens, layer_weights, generator, **extra), feat_lens
 
 
 class HfWav2Vec2(Wav2Vec2Trunk):

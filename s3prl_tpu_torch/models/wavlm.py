@@ -54,6 +54,7 @@ import torch.nn.functional as F
 from ..kernels.ffn import fused_int8_ffn
 from ..kernels.flash_attention import gated_bias_attention_outproj
 from ..ops.quant import int8_matmul
+from ..parallel.collectives import copy_to_tp
 from . import transformer as tr
 from .transformer import EncoderLayer, SelfAttention, TransformerEncoder, _layer_norm
 from .wav2vec2 import Wav2Vec2Config, Wav2Vec2Trunk
@@ -146,17 +147,33 @@ class GatedSelfAttention(SelfAttention):
             self.grep_linear = nn.Linear(embed_dim // num_heads, 8, device=device)
             self.grep_a = nn.Parameter(torch.empty(1, num_heads, 1, 1, device=device))
 
+    def heads(self) -> slice:
+        """The heads this layer holds: all, or a tp shard's run of them."""
+        if self.tp is None:
+            return slice(None)
+        return slice(self.tp.rank * self.num_heads, (self.tp.rank + 1) * self.num_heads)
+
+    def local(self, p: torch.Tensor) -> torch.Tensor:
+        """A replicated parameter as this layer reads it: under tp through
+        `copy_to_tp`, so the partial gradient of each rank's heads is summed."""
+        return p if self.tp is None else copy_to_tp(p, self.tp.group)
+
     def gate(self, h: torch.Tensor) -> torch.Tensor:
         """Gate [B, H, T] in h's dtype from h [B, T, C] split by heads
         (wavlm.py:118-128): g = sigmoid(sum over 4 of grep_linear(h)), then
-        a * (b * grep_a - 1) + 2, every step in h's dtype."""
+        a * (b * grep_a - 1) + 2, every step in h's dtype. Under tp: the
+        gate of this rank's heads, from their channels of h and their
+        ``grep_a``."""
         B, T, C = h.shape
-        H = self.num_heads
-        heads = h.view(B, T, H, C // H).transpose(1, 2)
+        H = self.num_heads * (1 if self.tp is None else self.tp.size)
+        heads = h.view(B, T, H, C // H)[:, :, self.heads()].transpose(1, 2)
+        H = heads.shape[1]
         lin = self.grep_linear
-        g = F.linear(heads, lin.weight.to(h.dtype)) + lin.bias.to(h.dtype)  # Dense: dot, then bias
+        g = F.linear(heads, self.local(lin.weight).to(h.dtype)) + \
+            self.local(lin.bias).to(h.dtype)  # Dense: dot, then bias
         g = torch.sigmoid(g.view(B, H, T, 2, 4).sum(-1))
-        return g[..., 0] * (g[..., 1] * self.grep_a.to(h.dtype)[..., 0] - 1.0) + 2.0
+        grep_a = self.local(self.grep_a)[:, self.heads()]
+        return g[..., 0] * (g[..., 1] * grep_a.to(h.dtype)[..., 0] - 1.0) + 2.0
 
 
 class GatedRelPosLayer(EncoderLayer):
@@ -182,27 +199,42 @@ class GatedRelPosLayer(EncoderLayer):
                                                                   device=device)
 
     def forward(self, x: torch.Tensor, kv_lens: torch.Tensor, pad_mask: torch.Tensor,
-                pos_bias: torch.Tensor | None, generator=None) -> torch.Tensor:
+                pos_bias: torch.Tensor | None, generator=None, sp=None) -> torch.Tensor:
         """x [B, T, C] in the model dtype; kv_lens [B] int32; pad_mask [B, T]
         True on padded frames; pos_bias [H, T, T], the encoder's shared bias
         (None without the bias); `generator`: train mode's dropouts
         (wavlm.py:183-184), after each residual branch and the FFN's
-        activation."""
+        activation. Under tp (`split_tp`) the attention and the FFN are this
+        rank's heads and columns (pos_bias of its heads), all-reduced as in
+        `EncoderLayer._tp_forward`; under sp (`sp`) the module path, the
+        attention on the gathered keys (pad_mask [B, T_all], pos_bias the
+        rank's query rows)."""
         attn, ln1, ln2 = self.self_attn, self.self_attn_layer_norm, self.final_layer_norm
         quant_serving = self.quantize and not self.training and tr._fused_block_available(x)
         # pre-LN: attention on LN1(x), plus x; post-LN: on raw x, then LN1
         h = _layer_norm(x, ln1) if self.layer_norm_first else x
+        if self.tp is not None:
+            h = copy_to_tp(h, self.tp.group)
         if quant_serving and self.use_flash and self.wavlm_fuse:  # wavlm.py:175-212
             qkv = int8_matmul(h, attn.qpair("qkv"), attn.qkv_bias, out_dtype=self.dtype)
             x = gated_bias_attention_outproj(qkv, x, pos_bias, attn.gate(h).float(),
                                              attn.qpair("out_proj"), attn.out_proj.bias,
                                              kv_lens, self.num_heads)
         elif pos_bias is None:  # no bias: the trunk's attention (wavlm.py:136-137)
-            x = x + self._drop(attn(h, pad_mask), generator)
+            x = x + self._drop(attn(h, pad_mask, sp=sp), generator)
         elif attn.gated:
-            x = x + self._drop(attn(h, pad_mask, rel_bias=(pos_bias, attn.gate(h))), generator)
+            x = x + self._drop(attn(h, pad_mask, rel_bias=(pos_bias, attn.gate(h)), sp=sp),
+                               generator)
         else:  # the bias without the gate, plain ops (wavlm.py:140-141)
-            x = x + self._drop(attn(h, pad_mask, attn_bias=pos_bias[None]), generator)
+            x = x + self._drop(attn(h, pad_mask, attn_bias=pos_bias[None], sp=sp), generator)
+        if self.tp is not None:
+            group = self.tp.group
+            if not self.layer_norm_first:
+                x = _layer_norm(x, ln1)
+                return _layer_norm(x + self._drop(self._ffn(copy_to_tp(x, group), generator),
+                                                  generator), ln2)
+            h = self._ffn(copy_to_tp(_layer_norm(x, ln2), group), generator)
+            return x + self._drop(h, generator)
         if not self.layer_norm_first:  # wavlm.py:230-236
             x = _layer_norm(x, ln1)
             if quant_serving:  # K2 bare
@@ -243,7 +275,7 @@ class WavLMEncoder(TransformerEncoder):
                              dropout=cfg.dropout, activation_dropout=cfg.activation_dropout)
             for i in range(cfg.encoder_layers))
 
-    def _layer_args(self, T: int, device) -> tuple:
+    def _layer_args(self, T: int, device, rows: slice = slice(None)) -> tuple:
         """The shared bias pos_bias [H, T, T] = table[buckets] in the model
         dtype (wavlm.py:304-308), gathered once per forward; the layers
         share the one tensor. Its form is what the layers' kernels read:
@@ -257,13 +289,16 @@ class WavLMEncoder(TransformerEncoder):
         - no flash, or no gate (the plain attention takes the bias):
           contiguous in the model dtype.
         The values are the same in each: bf16 -> f32 is exact. Without the
-        bias (``relative_position_embedding=False``) it is None."""
+        bias (``relative_position_embedding=False``) it is None. Under tp
+        the rows of this rank's heads; under sp (no flash) the query `rows`
+        of a time shard, [H, T_r, T]."""
         if not self.rel_pos:
             return (None,)
-        table = self.layers[0].self_attn.relative_attention_bias.weight.t().to(self.dtype)
+        attn = self.layers[0].self_attn
+        table = attn.local(attn.relative_attention_bias.weight).t()[attn.heads()].to(self.dtype)
         nb, md = self.num_buckets, self.max_distance
         if not (self.use_flash and self.gated):
-            return (table[:, bucket_table(T, nb, md, device)],)
+            return (table[:, bucket_table(T, nb, md, device)[rows]],)
         if self.dtype == torch.bfloat16 or self.wavlm_fuse:
             step = 4 if self.wavlm_fuse else 8  # 16 bytes of f32 or of bf16
             table = table.float() if self.wavlm_fuse else table
@@ -305,9 +340,10 @@ class WavLMModel(Wav2Vec2Trunk):
         return WavLMEncoder(cfg, dtype, use_flash, quantize, device=device, posconv=posconv,
                             **fuse)
 
-    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor, generator=None):
+    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor, generator=None, sp=None):
         """wavs [B, T] padded 16 kHz, wav_lens [B] -> (hidden_states
         [L+1, B, T', C], feat_lens [B]); `generator`: train mode's dropouts
         (``dropout_input``, wavlm.py:276, and the encoder's). The JAX WavLM
-        reads no ``encoder_layerdrop`` (wavlm.py:312-321), nor does this."""
-        return super().forward(wavs, wav_lens, generator=generator)
+        reads no ``encoder_layerdrop`` (wavlm.py:312-321), nor does this.
+        `sp`: time-sharded extraction (`Wav2Vec2Trunk.forward`)."""
+        return super().forward(wavs, wav_lens, generator=generator, sp=sp)

@@ -28,6 +28,7 @@ onto them key for key, and flax's numerics:
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import math
 import warnings
 from typing import Optional, Sequence
@@ -149,13 +150,43 @@ class Conv(nn.Conv1d):
         return ieee_call(run, x, [self.weight, self.bias])
 
 
+# (offset, rows, total): this rank's rows of the global batch under data
+# parallelism, set by the trainer around a step (`global_rows`)
+_GLOBAL_ROWS: contextvars.ContextVar = contextvars.ContextVar("global_rows", default=None)
+
+
+@contextlib.contextmanager
+def global_rows(offset: int, rows: int, total: int):
+    """Inside, `dropout` draws the mask of the global batch's `total` rows
+    and keeps this rank's `rows` from `offset`: dp = N draws what dp = 1
+    draws from the same generator."""
+    token = _GLOBAL_ROWS.set((offset, rows, total))
+    try:
+        yield
+    finally:
+        _GLOBAL_ROWS.reset(token)
+
+
 def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax ``nn.Dropout(p)`` drawing from `generator` (on x's device)."""
+            generator: Optional[torch.Generator], cols: Optional[tuple] = None) -> torch.Tensor:
+    """flax ``nn.Dropout(p)`` drawing from `generator` (on x's device).
+    Under `global_rows` the mask is drawn for the global batch (axis 0) and
+    this rank's rows kept; `cols` = (offset, total) does the same on the
+    last axis (a tp rank's FFN columns)."""
     if not training or p == 0.0:
         return x
     keep_prob = 1.0 - p
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    shape, index = list(x.shape), [slice(None)] * x.ndim
+    rows = _GLOBAL_ROWS.get()
+    if rows is not None:
+        offset, n, total = rows
+        if x.shape[0] != n:
+            raise RuntimeError(f"dropout on {tuple(x.shape)} under data parallelism: its leading "
+                               f"axis is not this rank's {n} rows of the batch")
+        shape[0], index[0] = total, slice(offset, offset + n)
+    if cols is not None:
+        shape[-1], index[-1] = cols[1], slice(cols[0], cols[0] + x.shape[-1])
+    keep = torch.rand(shape, generator=generator, device=x.device)[tuple(index)] < keep_prob
     return torch.where(keep, x / keep_prob, 0.0)
 
 

@@ -106,7 +106,8 @@ class CommonProblem(Problem):
         buckets = Buckets.linear(
             config.get("bucket_step", 16000), config.get("bucket_max", 16000 * 30)
         )
-        return DataLoader(ds, sampler, lambda items: pad_collate(items, buckets))
+        return DataLoader(ds, sampler, lambda items: pad_collate(items, buckets),
+                          distribute=mode == "train")
 
     def _trainer(self, workspace: Path, config: dict):
         encoder = self.load_encoder(workspace)

@@ -141,7 +141,7 @@ class SuperbSS(Problem):
             batch["sources"] = np.transpose(batch["sources"], (0, 2, 1))  # [B, S, T]
             return batch
 
-        return DataLoader(ds, sampler, collate)
+        return DataLoader(ds, sampler, collate, distribute=mode == "train")
 
     def _trainer(self, workspace, config):
         upstream = self.build_upstream(**config.get("build_upstream", {}))

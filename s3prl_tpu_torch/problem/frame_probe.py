@@ -29,7 +29,7 @@ import numpy as np
 import pandas as pd
 
 from .common import CommonProblem, SuperbSID
-from ..data.collate import Buckets, pad_collate
+from ..data.collate import PAD_VALUES, Buckets, pad_collate
 from ..data.dataset import _CsvDataset
 from ..data.encoder import CategoryEncoder
 from ..data.loader import DataLoader
@@ -135,7 +135,7 @@ class LibriPhoneLinear(CommonProblem):
             shuffle=(mode == "train"))
         buckets = Buckets.linear(16000, 16000 * 30)
         return DataLoader(ds, sampler, lambda items: pad_collate(
-            items, buckets, pad_keys={"frame_labels": -100}))
+            items, buckets, pad_keys=PAD_VALUES), distribute=mode == "train")
 
     def _trainer(self, workspace: Path, config: dict):
         """(trainer, no encoder): CommonProblem's train and evaluate stages

@@ -343,7 +343,8 @@ class HearEvent(Problem):
         cfg = config.get("build_batch_sampler", {})
         sampler = FixedBatchSizeBatchSampler(len(ds), cfg.get("batch_size", 8), shuffle=(mode == "train"))
         buckets = Buckets.linear(config.get("bucket_step", 16000), 16000 * 30)
-        return DataLoader(ds, sampler, lambda items: pad_collate(items, buckets))
+        return DataLoader(ds, sampler, lambda items: pad_collate(items, buckets),
+                          distribute=mode == "train")
 
     def _trainer(self, workspace, config):
         upstream = self.build_upstream(**config.get("build_upstream", {"name": "fbank"}))

@@ -124,7 +124,8 @@ class MosPrediction(CommonProblem):
             len(ds), config.get("build_batch_sampler", {}).get("batch_size", 8),
             shuffle=(mode == "train"))
         buckets = Buckets.linear(16000, 16000 * 30)
-        return DataLoader(ds, sampler, lambda items: pad_collate(items, buckets))
+        return DataLoader(ds, sampler, lambda items: pad_collate(items, buckets),
+                          distribute=mode == "train")
 
     def _trainer(self, workspace: Path, config: dict):
         """(trainer, no encoder): CommonProblem's train and evaluate stages

@@ -145,7 +145,8 @@ class QbeEmbeddingQuesst14(CommonProblem):
             len(ds), config.get("build_batch_sampler", {}).get("batch_size", 16),
             shuffle=(mode == "train"))
         buckets = Buckets.linear(16000, 16000 * 30)
-        return DataLoader(ds, sampler, lambda items: _pair_collate(items, buckets))
+        return DataLoader(ds, sampler, lambda items: _pair_collate(items, buckets),
+                          distribute=mode == "train")
 
     def _trainer(self, workspace: Path, config: dict):
         """(trainer, no encoder): CommonProblem's train stage runs on it,

@@ -127,7 +127,8 @@ class SuperbST(Problem):
         else:
             sampler = FixedBatchSizeBatchSampler(len(ds), cfg.get("batch_size", 16))
         buckets = Buckets.linear(config.get("bucket_step", 16000), 16000 * 30)
-        return DataLoader(ds, sampler, lambda items: pad_collate(items, buckets))
+        return DataLoader(ds, sampler, lambda items: pad_collate(items, buckets),
+                          distribute=mode == "train")
 
     def train_stage(self, workspace: Path, config: dict):
         tokenizer, trainer = self._build(workspace, config)

@@ -45,11 +45,24 @@ class Task:
     valid_metric: str = "loss"
     valid_higher_better: bool = False
 
+    #: this dp rank's rows of the step's global batch (the trainer's
+    #: `_DpRows`, set around a step's loss under data parallelism): then
+    #: `loss_and_cache` is handed this rank's hs with the global batch's
+    #: h_lens and labels, and `_apply` gives the global batch's outputs
+    dp_rows = None
+
     def _apply(self, hs, h_lens, generator, train: bool):
-        """The module in train or eval mode on (hs, h_lens)."""
+        """The module in train or eval mode on (hs, h_lens). Under `dp_rows`
+        the module runs on this rank's rows (h_lens cut to them) and its
+        outputs come back dp-gathered: the loss over them is the global
+        batch's on every rank."""
         if self.module.training != train:
             self.module.train(train)
-        return self.module(hs, h_lens, generator=generator if train else None)
+        rows = self.dp_rows
+        if rows is None:
+            return self.module(hs, h_lens, generator=generator if train else None)
+        return rows.gather(self.module(hs, rows.local(h_lens),
+                                       generator=generator if train else None))
 
 
 def device_labels(batch: Dict[str, Any], key: str, device) -> torch.Tensor:

@@ -136,9 +136,17 @@ class Upstream:
         return [self.downsample_rate] * self.num_layers
 
     @torch.inference_mode()
-    def apply_standardized(self, wavs, wav_lens):
+    def apply_standardized(self, wavs, wav_lens, mesh=None):
         """wavs [B, T] (or [B, T, 1]) padded 16 kHz, wav_lens [B] -> (hs
-        [L, B, T_expected, H], h_lens [B]) on the model's device."""
+        [L, B, T_expected, H], h_lens [B]) on the model's device. With a
+        `mesh` (`parallel.mesh.Mesh`; dp-sharded serving, the twin of
+        placing the batch with `batch_sharding`) every rank takes the global
+        batch and extracts its dp rows, [L, B / dp, T_expected, H]: the
+        padded length, and so T_expected, is the global batch's."""
+        if mesh is not None:
+            from ..parallel.mesh import shard_batch
+
+            wavs, wav_lens = shard_batch(mesh, (wavs, wav_lens))
         return self.standardized(wavs, wav_lens)
 
     def __call__(self, wavs, wav_lens, train: bool = False,
@@ -184,13 +192,18 @@ class TrunkUpstream(Upstream):
     to the trunk entries only, registry.py:199-207)."""
 
     @torch.inference_mode()
-    def apply_weighted(self, layer_weights, wavs, wav_lens):
+    def apply_weighted(self, layer_weights, wavs, wav_lens, mesh=None):
         """layer_weights [L+1] (as given: softmax them first for SUPERB's
         featurizer), wavs [B, T] padded 16 kHz, wav_lens [B] -> the model's
         raw (sum_i w_i h_i [1, B, T', H], feat_lens [B]): T' the model's
         frames, no length rule applied, as the JAX `apply_weighted`. The
         per-layer states are never stacked (`TransformerEncoder.forward`);
-        the weights go to the model's device once and stay there."""
+        the weights go to the model's device once and stay there. With a
+        `mesh`, this dp rank's rows (`apply_standardized`)."""
+        if mesh is not None:
+            from ..parallel.mesh import shard_batch
+
+            wavs, wav_lens = shard_batch(mesh, (wavs, wav_lens))
         wavs, wav_lens = self._inputs(wavs, wav_lens)
         weights = torch.as_tensor(layer_weights, device=wavs.device)
         return self.model(wavs, wav_lens, layer_weights=weights)

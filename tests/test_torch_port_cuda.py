@@ -2649,3 +2649,30 @@ def test_data2vec_pretrain_step_on_the_card(dev, monkeypatch):
     assert float((got - want).abs().max()) <= 1e-4
     assert float((got - stale).abs().max()) > 1e-2
     assert bool(torch.isfinite(teacher_hs).all())
+
+
+def test_dp2_probe_step_on_the_card(dev, tmp_path):
+    """Two ranks sharing card 0 over gloo (NCCL refuses two ranks on one
+    device), a Trainer at dp = 2 on the tiny int8 trunk: each rank's step
+    launches K3 once and K1 and K2 once a layer on its two rows; the two
+    steps' losses and the probe's weights equal one process's on the card
+    on the global batch of four, its frozen upstream run on the ranks' two
+    row groups (the stock bf16 ops pick algorithms by batch shape), losses
+    at rtol 1e-4, weights at max abs 5e-4."""
+    from s3prl_tpu_torch.parallel.distributed import spawn
+    from torch_parallel_workers import card_dp_rank
+
+    wavs, lens = _tiny_batch()
+    batch = {"x": np.concatenate([wavs.numpy(), 0.5 * wavs.numpy()[:1]]),
+             "x_len": np.concatenate([lens.numpy(), lens.numpy()[:1]]),
+             "class_id": np.array([0, 3, 1, 2], np.int32)}
+    one = card_dp_rank(batch, groups=2)
+    assert one["dp"] == 1
+    ranks = spawn(card_dp_rank, 2, batch, tmp_dir=str(tmp_path))
+    for out in ranks:
+        assert out["dp"] == 2
+        for launches in out["launches"]:
+            assert launches == [1, 2, 2] + [0] * (len(wrappers()) - 3)
+        np.testing.assert_allclose(out["losses"], one["losses"], rtol=1e-4)
+        for k, v in one["state"].items():
+            assert float((out["state"][k] - v).abs().max()) <= 5e-4, k

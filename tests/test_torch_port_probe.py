@@ -537,7 +537,9 @@ def test_stage0_writes_the_jax_csvs(tmp_path, recipe):
 def test_loader_ends_its_producer_when_the_consumer_stops(monkeypatch):
     """The prefetch thread ends when iteration stops early (the trainer
     leaves its loader at total_steps; the evaluation stage reads one
-    batch), and a torch.distributed group of several processes is refused."""
+    batch); under a torch.distributed group of several processes the loader
+    deals its rank every world-th batch (the JAX loader's
+    `_maybe_distribute`), and ``distribute=False`` keeps them all."""
     import threading
 
     from s3prl_tpu_torch.data.loader import DataLoader
@@ -556,5 +558,8 @@ def test_loader_ends_its_producer_when_the_consumer_stops(monkeypatch):
 
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda: 4)
-    with pytest.raises(NotImplementedError, match="4 processes.*Queue 1 item 10"):
-        DataLoader(data, FixedBatchSizeBatchSampler(40, 2))
+    monkeypatch.setattr(dist, "get_rank", lambda: 0)
+    dealt = DataLoader(data, FixedBatchSizeBatchSampler(40, 2), prefetch=2)
+    assert [b["x_len"].tolist() for b in dealt] == [[2 * i + 1, 2 * i + 2] for i in range(0, 20, 4)]
+    assert threading.active_count() == before
+    assert len(DataLoader(data, FixedBatchSizeBatchSampler(40, 2), distribute=False)) == 20

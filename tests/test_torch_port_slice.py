@@ -316,6 +316,9 @@ def test_port_never_imports_jax():
         "import s3prl_tpu_torch.task.dump_feature, s3prl_tpu_torch.ops.mam\n"
         "import s3prl_tpu_torch.ops.kmeans, s3prl_tpu_torch.util.msgpack\n"
         "import s3prl_tpu_torch.models.hubert\n"
+        "import s3prl_tpu_torch.parallel, s3prl_tpu_torch.parallel.mesh\n"
+        "import s3prl_tpu_torch.parallel.distributed, s3prl_tpu_torch.parallel.collectives\n"
+        "import s3prl_tpu_torch.parallel.dryrun\n"
         "assert len(s3prl_tpu_torch.hub.options()) == 209\n"
         "assert len(s3prl_tpu_torch.kernels.wrappers()) == 19\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

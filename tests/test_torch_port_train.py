@@ -32,6 +32,7 @@ from s3prl_tpu.train.trainer import Trainer as JaxTrainer
 from s3prl_tpu.train.trainer import TrainerConfig as JaxTrainerConfig
 from s3prl_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Trunk
 from s3prl_tpu_torch.nn.upstream import UpstreamDownstreamModel
+from s3prl_tpu_torch.parallel.mesh import Mesh
 from s3prl_tpu_torch.task import FrameClassificationTask, UtteranceClassificationTask
 from s3prl_tpu_torch.train import checkpoint as ckpt
 from s3prl_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -197,12 +198,27 @@ def test_resume_repeats_the_steps(tiny_pair, tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tiny_pair, tmp_path):
+    """What still raises under parallelism: a mesh the ranks cannot fill
+    (JAX's assert), a train batch not divisible by dp (JAX's message) and
+    the int8 model under tp (its row scales), the last two on a mesh of two
+    ranks' shape in this one process (no collective is reached)."""
     _, port_up = tiny_pair
     task = UtteranceClassificationTask(
         UpstreamDownstreamModel(port_heads.UtteranceLevel(128, 4), 3), 4)
     for dp, tp in ((8, 1), (None, 2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        with pytest.raises(AssertionError):
             Trainer(port_up, task, tmp_path, TrainerConfig(dp=dp, tp=tp))
+    two = {"dp": Mesh(np.arange(2).reshape(2, 1), ("dp", "tp"), {}, {"dp": 0, "tp": 0}),
+           "tp": Mesh(np.arange(2).reshape(1, 2), ("dp", "tp"), {}, {"dp": 0, "tp": 0})}
+    trainer = Trainer(port_up, task, tmp_path, TrainerConfig(**TRAIN), mesh=two["dp"])
+    trainer.init(resume=False)
+    with pytest.raises(ValueError, match="train batch size 3 not divisible by dp=2"):
+        trainer.train_step(_batches(1)[0])
+    int8 = Wav2Vec2Trunk(Wav2Vec2Config(**TINY), dtype=torch.bfloat16, use_flash=True,
+                         quantize=True, device="meta")
+    with pytest.raises(ValueError, match="quantize=True cannot take effect under tp > 1"):
+        Trainer(Upstream("int8", int8, 3, 128, 320), task, tmp_path, TrainerConfig(**TRAIN),
+                mesh=two["tp"])
 
 
 def test_trainable_upstream_runs_in_train_mode(tiny_pair, tmp_path):
